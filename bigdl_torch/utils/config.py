@@ -1,0 +1,50 @@
+"""Process-level configuration from ``BIGDL_TORCH_*`` environment variables.
+
+Counterpart of ``bigdl_tpu/utils/config.py`` for the knobs the port has.
+Nothing here selects between a kernel and its plain version: on the card
+the kernels always run.
+
+| env var                          | meaning                                        | default |
+|----------------------------------|------------------------------------------------|---------|
+| BIGDL_TORCH_SEED                 | seed of the default init generator             | 0       |
+| BIGDL_TORCH_SERVE_MAX_BATCH      | max requests coalesced per device batch        | 8       |
+| BIGDL_TORCH_SERVE_MAX_WAIT_MS    | max ms the oldest request waits for batch fill | 5       |
+| BIGDL_TORCH_SERVE_QUEUE_LIMIT    | bounded queue; admission past it is shed       | 64      |
+| BIGDL_TORCH_SERVE_REPLICAS       | worker threads draining the shared queue       | 1       |
+| BIGDL_TORCH_SERVE_DEADLINE_MS    | default per-request deadline (0 = none)        | 0       |
+"""
+
+from __future__ import annotations
+
+import os
+
+__all__ = ["get_int", "get_float", "get_bool", "get_str", "seed"]
+
+
+def get_str(name: str, default: str) -> str:
+    return os.environ.get(f"BIGDL_TORCH_{name}", default)
+
+
+def get_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(f"BIGDL_TORCH_{name}", default))
+    except ValueError:
+        return default
+
+
+def get_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(f"BIGDL_TORCH_{name}", default))
+    except ValueError:
+        return default
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(f"BIGDL_TORCH_{name}")
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def seed() -> int:
+    return get_int("SEED", 0)
