@@ -1,7 +1,7 @@
-"""Activations: ``LogSoftMax`` and ``GELU``.
+"""Activations: ``ReLU``, ``LogSoftMax`` and ``GELU``.
 
-Counterpart of ``bigdl_tpu/nn/activation.py`` for what the serving slice
-uses.
+Counterpart of ``bigdl_tpu/nn/activation.py`` for what the serving and
+training slices use.
 """
 
 from __future__ import annotations
@@ -11,7 +11,18 @@ import torch.nn.functional as F
 
 from .module import Module
 
-__all__ = ["LogSoftMax", "GELU"]
+__all__ = ["ReLU", "LogSoftMax", "GELU"]
+
+
+class ReLU(Module):
+    """max(x, 0) (nn/ReLU.scala).  ``ip`` (in place) is accepted for API
+    parity and ignored, as in the reference."""
+
+    def __init__(self, ip: bool = False):
+        super().__init__()
+
+    def forward(self, x):
+        return torch.relu(x)
 
 
 class LogSoftMax(Module):

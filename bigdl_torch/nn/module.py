@@ -10,11 +10,16 @@ functions; PyTorch runs eagerly, so here a module owns its parameters as
   under the same names and moves the module to its device.
 - A :class:`Container` holds its children in order in ``layers``; its
   parameter tree is the list of its children's trees, as in the reference.
+- A leaf's ``_init_state()`` returns its non-trained state (BatchNorm's
+  running statistics) as a dict; :meth:`Module.build` registers it as
+  buffers, so it moves with the module and is saved with it.
 - ``PARAM_ROLES`` is kept as a class attribute for the mesh-layout
   assigner that comes with the sharding slice.
 
-Train/eval mode is PyTorch's (``train()``/``eval()``).  The stateful facade
-(``backward``, ``get_parameters``, ``scale_w``) comes with training.
+Train/eval mode is PyTorch's (``train()``/``eval()``); a freshly built
+module is in training mode, as in PyTorch.  Gradients come from
+``loss.backward()``; the Torch-style facade (``backward``,
+``get_parameters``, ``scale_w``) is not ported.
 """
 
 from __future__ import annotations
@@ -39,17 +44,40 @@ class Module(torch.nn.Module):
         super().__init__()
         #: names of this module's own parameters, in ``_init`` order
         self.param_names: tuple = ()
+        #: names of this module's own state buffers, in ``_init_state`` order
+        self.state_names: tuple = ()
         self.built = False
+        # initializer overrides (BigDL: abstractnn/Initializable.scala:23)
+        self.weight_initializer = None
+        self.bias_initializer = None
 
     def _init(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """This module's own parameters, drawn from ``generator``."""
         return {}
+
+    def _init_state(self) -> Dict[str, torch.Tensor]:
+        """This module's own non-trained state (e.g. running statistics)."""
+        return {}
+
+    def set_init_method(self, weight_init=None, bias_init=None):
+        """BigDL: Initializable.setInitMethod
+        (abstractnn/Initializable.scala:29); takes effect at :meth:`build`."""
+        if self.built:
+            raise RuntimeError("set_init_method: the module is already "
+                               "built; set initializers before build()")
+        self.weight_initializer = weight_init
+        self.bias_initializer = bias_init
+        return self
 
     def _build(self, generator: torch.Generator) -> None:
         params = self._init(generator)
         for name, t in params.items():
             self.register_parameter(name, torch.nn.Parameter(t))
         self.param_names = tuple(params)
+        state = self._init_state()
+        for name, t in state.items():
+            self.register_buffer(name, t)
+        self.state_names = tuple(state)
         self.built = True
 
     def build(self, device=None, generator: Optional[torch.Generator] = None):

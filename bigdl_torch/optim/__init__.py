@@ -1,5 +1,9 @@
-"""Inference engines (the training half comes with the training slice)."""
+"""Training and inference engines, optimization methods, triggers."""
 
-from .optimizer import Predictor
+from .method import SGD, OptimMethod
+from .optimizer import NonFiniteLossError, Optimizer, Predictor
+from .schedules import Default, LearningRateSchedule
+from .trigger import Trigger
 
-__all__ = ["Predictor"]
+__all__ = ["Optimizer", "Predictor", "NonFiniteLossError", "OptimMethod",
+           "SGD", "LearningRateSchedule", "Default", "Trigger"]

@@ -1,11 +1,14 @@
-"""Weight carry-over between the JAX package's param trees and the port.
+"""Weight and state carry-over between the JAX package's trees and the port.
 
-The reference keeps a model's weights as pytrees: a container's tree is
-the list of its children's trees, a leaf module's tree is a dict of arrays
-by parameter name (``{}`` when it has none).  The port's module tree has
-the same shape (``Container.layers`` in order, ``Module.param_names`` per
-leaf), so a reference tree with numpy leaves copies in leaf by leaf.
-Every shape, name and structure mismatch raises; nothing is reshaped.
+The reference keeps a model's weights and its non-trained state (BatchNorm
+running statistics) as two pytrees: a container's tree is the list of its
+children's trees, a leaf module's tree is a dict of arrays by name (``{}``
+when it has none).  The port's module tree has the same shape
+(``Container.layers`` in order; ``Module.param_names`` and
+``Module.state_names`` per leaf, the latter registered as buffers), so a
+reference (params, state) pair with numpy leaves copies in leaf by leaf and
+back.  Every shape, name and structure mismatch raises; nothing is
+reshaped.
 """
 
 from __future__ import annotations
@@ -22,71 +25,61 @@ def _where(path):
     return "/".join(str(p) for p in path) or "<root>"
 
 
-def _check_state(module: Module, state, path) -> None:
-    # no module of the ported slice carries state: every leaf's is {}
-    if isinstance(module, Container):
-        if not isinstance(state, (list, tuple)) or \
-                len(state) != len(module.layers):
-            raise ValueError(f"state tree at {_where(path)}: expected a list "
-                             f"of {len(module.layers)} child states for "
-                             f"{type(module).__name__}")
-        for i, (m, s) in enumerate(zip(module.layers, state)):
-            _check_state(m, s, path + [i])
-    elif state != {}:
-        raise ValueError(f"state tree at {_where(path)}: "
-                         f"{type(module).__name__} has no state, got "
-                         f"{type(state).__name__}")
-
-
-def _load(module: Module, tree, path) -> None:
+def _load(module: Module, tree, path, kind: str, names_of) -> None:
     if isinstance(module, Container):
         if not isinstance(tree, (list, tuple)) or \
                 len(tree) != len(module.layers):
-            raise ValueError(f"param tree at {_where(path)}: expected a list "
-                             f"of {len(module.layers)} child trees for "
+            raise ValueError(f"{kind} tree at {_where(path)}: expected a "
+                             f"list of {len(module.layers)} child trees for "
                              f"{type(module).__name__}, got "
                              f"{type(tree).__name__}")
         for i, (m, t) in enumerate(zip(module.layers, tree)):
-            _load(m, t, path + [i])
+            _load(m, t, path + [i], kind, names_of)
         return
-    if not isinstance(tree, dict) or set(tree) != set(module.param_names):
+    names = names_of(module)
+    if not isinstance(tree, dict) or set(tree) != set(names):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-        raise ValueError(f"param tree at {_where(path)}: "
-                         f"{type(module).__name__} has parameters "
-                         f"{sorted(module.param_names)}, got {got}")
-    for name in module.param_names:
-        param = getattr(module, name)
+        noun = "parameters" if kind == "param" else "state entries"
+        raise ValueError(f"{kind} tree at {_where(path)}: "
+                         f"{type(module).__name__} has {noun} "
+                         f"{sorted(names)}, got {got}")
+    for name in names:
+        dst = getattr(module, name)
         leaf = np.asarray(tree[name])
-        if tuple(leaf.shape) != tuple(param.shape):
-            raise ValueError(f"param {_where(path + [name])}: shape "
-                             f"{leaf.shape} != {tuple(param.shape)}")
+        if tuple(leaf.shape) != tuple(dst.shape):
+            raise ValueError(f"{kind} {_where(path + [name])}: shape "
+                             f"{leaf.shape} != {tuple(dst.shape)}")
         with torch.no_grad():
-            param.copy_(torch.tensor(leaf))
+            dst.copy_(torch.tensor(leaf))
 
 
 def load_reference_tree(model: Module, params, state=None) -> Module:
     """Copy a reference (params, state) tree with numpy leaves into the
-    built ``model``, in place, on whatever device it lives on."""
+    built ``model``, in place, on whatever device it lives on.  ``state``
+    may be omitted to leave the model's state as it is."""
     if not model.built:
         raise RuntimeError("load_reference_tree: build the model first "
                            "(model.build(device))")
     if state is not None:
-        _check_state(model, state, [])
-    _load(model, params, [])
+        _load(model, state, [], "state", lambda m: m.state_names)
+    _load(model, params, [], "param", lambda m: m.param_names)
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def _dump(module: Module):
     if isinstance(module, Container):
         trees = [_dump(m) for m in module.layers]
         return [p for p, _ in trees], [s for _, s in trees]
-    return ({n: getattr(module, n).detach().cpu().numpy()
-             for n in module.param_names}, {})
+    return ({n: _numpy(getattr(module, n)) for n in module.param_names},
+            {n: _numpy(getattr(module, n)) for n in module.state_names})
 
 
 def to_reference_tree(model: Module):
-    """The model's weights as a reference (params, state) tree with numpy
-    leaves."""
+    """The model's (params, state) as reference trees with numpy leaves."""
     if not model.built:
         raise RuntimeError("to_reference_tree: build the model first")
     return _dump(model)

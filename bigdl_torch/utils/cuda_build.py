@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 #: every CUDA source of the port, by library name
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "batchnorm", "matmul_stats")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 import bigdl_torch
+from bigdl_torch.dataset import Sample
 from bigdl_torch.models import TransformerLM
-from bigdl_torch.nn import Linear
-from bigdl_torch.optim import Predictor
+from bigdl_torch.nn import CrossEntropyCriterion, Linear
+from bigdl_torch.optim import Optimizer, Predictor, Trigger
 from bigdl_torch.serve import InferenceServer
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,3 +78,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # a built model is never moved behind the caller's back
     with pytest.raises(ValueError, match="lives on cpu"):
         Predictor(model, device="meta")
+    # the training entry point: Optimizer
+    samples = [Sample.from_ndarray(np.full((4,), i, np.float32),
+                                   np.int32(i % 3)) for i in range(4)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Optimizer(Linear(4, 3), samples, CrossEntropyCriterion(),
+                  batch_size=2)
+    opt = Optimizer(Linear(4, 3), samples, CrossEntropyCriterion(),
+                    batch_size=2, device="cpu")
+    trained = opt.set_end_when(Trigger.max_iteration(3)).optimize()
+    assert opt.optim_method.hyper["neval"] == 4
+    assert opt.optim_method.hyper["epoch"] == 3
+    assert trained.weight.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="lives on cpu"):
+        Optimizer(trained, samples, CrossEntropyCriterion(), batch_size=2,
+                  device="meta").optimize()
