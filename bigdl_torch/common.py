@@ -2,7 +2,9 @@
 
 Counterpart of ``bigdl_tpu/common.py``.  Parameters are stored in
 ``param_dtype`` (float32) while matrix products and activations may run in
-``compute_dtype`` (bfloat16 on the bench configs).  The default generator is
+``compute_dtype`` (bfloat16 on the bench configs), and gradients are
+rounded through ``wire_dtype`` (bfloat16 by default, the reference's
+bf16-truncated gradient wire) before the update.  The default generator is
 a CPU ``torch.Generator``: parameter init draws on the host and moves to the
 device, so one seed gives the same weights on every device.
 """
@@ -18,16 +20,20 @@ __all__ = ["DTypePolicy", "get_policy", "set_policy", "set_seed",
 
 
 class DTypePolicy:
-    """Dtype policy: parameter storage dtype and compute dtype."""
+    """Dtype policy: parameter storage dtype, compute dtype, and the wire
+    dtype every gradient is rounded through before the update, on one
+    device as on many (``None``: no rounding)."""
 
     def __init__(self, param_dtype: torch.dtype = torch.float32,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 wire_dtype: torch.dtype = torch.bfloat16):
         self.param_dtype = param_dtype
         self.compute_dtype = compute_dtype
+        self.wire_dtype = wire_dtype
 
     def __repr__(self):
         return (f"DTypePolicy(param={self.param_dtype}, "
-                f"compute={self.compute_dtype})")
+                f"compute={self.compute_dtype}, wire={self.wire_dtype})")
 
 
 _policy = DTypePolicy()

@@ -1,7 +1,7 @@
 // Training-mode BatchNorm kernels for Hopper (sm_90a), plain C interface for
 // ctypes.
 //
-// Replaces three Pallas TPU kernels of bigdl_tpu/ops/batchnorm.py, all over
+// Replaces four Pallas TPU kernels of bigdl_tpu/ops/batchnorm.py, all over
 // x viewed as [R, C] (rows = every leading axis, channels last):
 //  - B1 `_fwd_kernel` (`_bn_fwd_pallas`): per-channel float32 sums
 //    (Σx, Σx²), mean = Σx/R, biased var = Σx²/R − mean² (one pass, not
@@ -12,8 +12,13 @@
 //    x̂ = (x − mean)·inv, then dx = w·inv·(dy − sdy/R − x̂·sdyx/R) in float32,
 //    cast to x's dtype.  Returns (dx, sdy, sdyx); the caller casts the sums
 //    to dγ = sdyx and dβ = sdy.
+//  - B3 `_stat_kernel` (`_bn_stats_pallas`): the per-shard float32 (Σx,
+//    Σx²) of sync-BN's forward, all-reduced over the data group by the
+//    caller.  It is B1's statistics phase on its own: the same fixed-order
+//    partials and finish, so B3's sums give B1's mean and var bit for bit.
 //  - B4 `_grad_stat_kernel` (`_bn_grad_stats_pallas`): the (Σdy, Σdy·x̂)
-//    pass of B2 alone; the fused conv-BN backward (ops/convbn.py) uses it.
+//    pass of B2 alone; the fused conv-BN backward (ops/convbn.py) and
+//    sync-BN's backward use it.
 //
 // Design (first, simple version).  The TPU kernels carry (Σ, Σ²) across a
 // sequential grid in VMEM scratch; blocks on the card run in no order, so
@@ -25,7 +30,7 @@
 //  2. finish: one block per 32-channel tile sums the partials over the
 //     chunks, again 8 row lanes and a fixed-order tree, and turns the sums
 //     into per-channel coefficients (mean, var, scale, shift for B1; the
-//     sums and dx coefficients for B2; the sums alone for B4).
+//     sums and dx coefficients for B2; the sums alone for B3 and B4).
 //  3. B1 and B2 then run one elementwise pass over [R, C] with a
 //     grid-stride loop that advances each thread's channel incrementally
 //     (no 64-bit modulo per element).
@@ -35,8 +40,8 @@
 // ResNet-50's stem at batch 256).
 //
 // What bounds it on an H100: bytes.  B1 reads x twice and writes y once,
-// as on the TPU; B2 reads (x, dy) twice and writes dx once; B4 reads (x, dy)
-// once.  The per-channel partials are a few MB at most.  This version loads
+// as on the TPU; B2 reads (x, dy) twice and writes dx once; B3 reads x
+// once; B4 reads (x, dy) once.  The per-channel partials are a few MB at most.  This version loads
 // one element per thread per row (2 bytes in bf16), so it does not reach the
 // memory rate at narrow widths; 16-byte vector loads are the way there and
 // are left to a later change.
@@ -140,7 +145,8 @@ enum Finish { kForward = 0, kBackward = 1, kSums = 2 };
 // Pass 2: sum the partials over the chunks and finish each channel.
 //  kForward:  out0 = mean, out1 = var, coef = [scale | shift]
 //  kBackward: out0 = sdy, out1 = sdyx, coef = [w·inv | sdy | sdyx]
-//  kSums:     out0 = sdy, out1 = sdyx
+//  kSums:     out0 = the first sum, out1 = the second (Σx, Σx² for B3;
+//             Σdy, Σdy·x̂ for B4)
 __global__ void __launch_bounds__(THREADS)
 finish_kernel(const float* __restrict__ part, int n_chunks, int C,
               long long R, int mode, const float* __restrict__ w,
@@ -234,6 +240,18 @@ int forward(const void* x, const float* w, const float* b, void* y,
   const long long n = R * C;
   normalize_kernel<T><<<ew_blocks(n), EW_THREADS, 0, st>>>(
       static_cast<const T*>(x), static_cast<T*>(y), coef, n, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int x_sums(const void* x, float* sum, float* sumsq, float* part, long long R,
+           int C, int n_chunks, long long rows_per_chunk, cudaStream_t st) {
+  const dim3 block(TX, TY);
+  x_stats_kernel<T><<<dim3(n_chunks, (C + TX - 1) / TX), block, 0, st>>>(
+      static_cast<const T*>(x), R, C, rows_per_chunk, n_chunks, part);
+  finish_kernel<<<(C + TX - 1) / TX, block, 0, st>>>(
+      part, n_chunks, C, R, kSums, nullptr, nullptr, nullptr, 0.f, sum,
+      sumsq, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -333,5 +351,21 @@ extern "C" int bigdl_bn_grad_stats(const void* x, const void* dy,
     return grad_sums<__nv_bfloat16>(x, dy, mean, inv, nullptr, sdy, sdyx,
                                     part, nullptr, R, C, n_chunks,
                                     rows_per_chunk, kSums, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int bigdl_bn_stats(const void* x, float* sum, float* sumsq,
+                              float* part, int dtype, long long R, int C,
+                              int n_chunks, long long rows_per_chunk,
+                              void* stream) {
+  if (bad_shape(R, C, n_chunks, rows_per_chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return x_sums<float>(x, sum, sumsq, part, R, C, n_chunks, rows_per_chunk,
+                         st);
+  if (dtype == 1)
+    return x_sums<__nv_bfloat16>(x, sum, sumsq, part, R, C, n_chunks,
+                                 rows_per_chunk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,6 +12,10 @@ model before ``build``:
   shortcut) -> CAddTable -> ReLU, becomes ``ConvBNAddReLU``, whose
   training forward is ``ops.convbn.fused_conv_bn_add_relu_train``.
 
+When the Engine has a data group, both pass it to the fused functions,
+which then reduce their statistics over it (sync-BN), and update the
+running EMA with the global row count.
+
 The rewrite nests the pair's param and state entries one level deeper, as
 in the reference, so the port's trees line up with the reference's only
 when both models are fused before they are built.  In eval mode (and for a
@@ -24,7 +28,9 @@ from __future__ import annotations
 import torch
 
 from ..common import get_policy
+from ..ops.batchnorm import global_rows
 from ..ops.convbn import fused_conv_bn_add_relu_train, fused_conv_bn_train
+from ..utils.engine import Engine
 from .activation import ReLU
 from .containers import ConcatTable, Sequential
 from .conv import SpatialConvolution
@@ -69,9 +75,10 @@ class ConvBN(Sequential):
             return super().forward(x)
         conv, bn = self.layers
         x2, w2, bias = _operands(conv, x)
+        group = Engine.group()
         z2, mean, var = fused_conv_bn_train(x2, w2, bias, bn.weight,
-                                            bn.bias, bn.eps)
-        bn._ema_update(mean, var, x2.shape[0])
+                                            bn.bias, bn.eps, group)
+        bn._ema_update(mean, var, global_rows(x2.shape[0], group))
         return z2.reshape(*x.shape[:-1], -1)
 
 
@@ -96,9 +103,10 @@ class ConvBNAddReLU(Container):
             return torch.relu(bn(conv(h)) + r)
         h2, w2, bias = _operands(conv, h)
         r2 = r.reshape(-1, conv.n_output_plane).to(h2.dtype)
+        group = Engine.group()
         z2, mean, var = fused_conv_bn_add_relu_train(
-            h2, w2, bias, bn.weight, bn.bias, r2, bn.eps)
-        bn._ema_update(mean, var, h2.shape[0])
+            h2, w2, bias, bn.weight, bn.bias, r2, bn.eps, group)
+        bn._ema_update(mean, var, global_rows(h2.shape[0], group))
         return z2.reshape(out_shape)
 
 

@@ -3,10 +3,12 @@
 
 Counterpart of ``bigdl_tpu/nn/normalization.py`` for what the serving and
 training slices use.  BatchNorm in training mode runs the CUDA kernels of
-``ops/batchnorm.py`` (forward B1, backward B2) on the card and their plain
-versions on the CPU; there is no knob between routes (the reference's
-``BIGDL_TPU_BN_IMPL``, ``BN_FUSED_VJP`` and ``BN_STAT_ROWS`` routes are not
-ported).  The running statistics are buffers of the module.
+``ops/batchnorm.py`` on the card and their plain versions on the CPU: on
+one device B1 forward and B2 backward, under the Engine's data group
+sync-BN with B3 and B4 (see :class:`BatchNormalization`).  There is no
+knob between routes (the reference's ``BIGDL_TPU_BN_IMPL``,
+``BN_FUSED_VJP`` and ``BN_STAT_ROWS`` routes are not ported).  The running
+statistics are buffers of the module.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from ..common import get_policy
-from ..ops.batchnorm import bn_train
+from ..ops.batchnorm import bn_train, bn_train_sync, global_rows
+from ..utils.engine import Engine
 from .module import Module
 
 __all__ = ["BatchNormalization", "SpatialBatchNormalization", "LayerNorm"]
@@ -27,8 +30,18 @@ class BatchNormalization(Module):
     Training normalizes with the biased float32 batch statistics and
     updates the running EMA in place with the unbiased variance
     (``new = (1 - momentum)·old + momentum·batch``); eval normalizes with
-    the running statistics.  Cross-device sync-BN (``sync_axis``) comes
-    with the data-parallel slice; ``affine=False`` is not ported."""
+    the running statistics.  ``affine=False`` is not ported.
+
+    The route is chosen by whether the Engine has a data group: with one,
+    training takes sync-BN (``bn_train_sync``: B3, B4 and two all-reduces
+    of per-channel sums) and the statistics, and the EMA's row count, are
+    the global batch's; without one, the single-device route (B1, B2).
+    The reference chooses by ``jax.device_count() > 1`` instead
+    (``nn/normalization.py:228-235``).  Here the data-parallel path must
+    run its kernels and collectives on a single card too (a group of one
+    rank), and both routes compute the same function.  ``sync_axis="data"``
+    (``Engine.DATA_AXIS``) names that group explicitly and then requires
+    it; another axis name raises."""
 
     PARAM_ROLES = {"weight": "norm_scale", "bias": "norm_scale"}
 
@@ -36,9 +49,9 @@ class BatchNormalization(Module):
                  momentum: float = 0.1, affine: bool = True,
                  sync_axis: str = None):
         super().__init__()
-        if sync_axis is not None:
-            raise NotImplementedError("sync-BN (sync_axis) comes with the "
-                                      "data-parallel slice")
+        if sync_axis not in (None, Engine.DATA_AXIS):
+            raise ValueError(f"sync_axis={sync_axis!r}: the port syncs only "
+                             f"over the Engine's {Engine.DATA_AXIS!r} group")
         if not affine:
             raise NotImplementedError("BatchNormalization(affine=False) is "
                                       "not ported")
@@ -63,9 +76,18 @@ class BatchNormalization(Module):
 
     def forward(self, x):
         if self.training:
-            y, mean, var = bn_train(x.contiguous(), self.weight, self.bias,
-                                    self.eps)
-            self._ema_update(mean, var, x.numel() // x.shape[-1])
+            group = Engine.group()
+            if group is None and self.sync_axis is not None:
+                raise RuntimeError(f"sync_axis={self.sync_axis!r} needs the "
+                                   "Engine's data group: call Engine.init()")
+            if group is None:
+                y, mean, var = bn_train(x.contiguous(), self.weight,
+                                        self.bias, self.eps)
+            else:
+                y, mean, var = bn_train_sync(x.contiguous(), self.weight,
+                                             self.bias, self.eps, group)
+            self._ema_update(mean, var,
+                             global_rows(x.numel() // x.shape[-1], group))
             return y
         inv = torch.rsqrt(self.running_var + self.eps)
         scale = self.weight * inv

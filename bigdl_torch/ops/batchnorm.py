@@ -1,5 +1,6 @@
-"""Training-mode BatchNorm: three hand-written CUDA kernels for Hopper,
-their plain PyTorch versions, and ``bn_train`` as an autograd Function.
+"""Training-mode BatchNorm: four hand-written CUDA kernels for Hopper,
+their plain PyTorch versions, and ``bn_train`` and ``bn_train_sync`` as
+autograd Functions.
 
 Counterpart of ``bigdl_tpu/ops/batchnorm.py``.  Every function works on x
 viewed as [R, C] (rows = all leading axes, channels last):
@@ -8,8 +9,11 @@ viewed as [R, C] (rows = all leading axes, channels last):
   one-pass statistics (biased var = Σx²/R − mean²) and y computed in
   float32, cast to x's dtype.
 - :func:`bn_backward` (B2, ``_bn_bwd_pallas``): (dx, Σdy, Σdy·x̂).
+- :func:`bn_stats` (B3, ``_bn_stats_pallas``): the float32 (Σx, Σx²) of
+  this rank's rows, for sync-BN's forward.
 - :func:`bn_grad_stats` (B4, ``_bn_grad_stats_pallas``): (Σdy, Σdy·x̂)
-  alone, for the fused conv-BN backward (``ops/convbn.py``).
+  alone, for the fused conv-BN backward (``ops/convbn.py``) and sync-BN's
+  backward.
 
 Each wrapper computes its plain version (``*_reference``) for tensors on
 the CPU, and on a CUDA tensor launches ``bigdl_torch/csrc/batchnorm.cu``
@@ -20,8 +24,10 @@ that launched the kernel.
 The plain forward follows the TPU *kernel*, which computes y in float32 and
 casts (``ops/batchnorm.py:113``), not the reference's jnp oracle, which
 computes y in x's dtype (``:67``); the two agree in bf16 to rounding.
-The sync-BN statistics kernel (B3, ``_bn_stats_pallas``) comes with the
-data-parallel slice.
+
+:func:`bn_train` (B1 forward, B2 backward) is the single-device route;
+:func:`bn_train_sync` (B3 and B4, with the per-channel sums all-reduced
+over the Engine's data group) is the data-parallel one.
 """
 
 from __future__ import annotations
@@ -30,9 +36,13 @@ import ctypes
 import threading
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["bn_train", "bn_forward", "bn_backward", "bn_grad_stats",
-           "bn_forward_reference", "bn_backward_reference",
+from ..utils.engine import Engine
+
+__all__ = ["bn_train", "bn_train_sync", "bn_forward", "bn_backward",
+           "bn_stats", "bn_grad_stats", "bn_forward_reference",
+           "bn_backward_reference", "bn_stats_reference",
            "bn_grad_stats_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +66,12 @@ def bn_forward_reference(x2, weight, bias, eps: float):
     scale = weight.float() * inv
     shift = bias.float() - mean * scale
     return (xf * scale + shift).to(x2.dtype), mean, var
+
+
+def bn_stats_reference(x2):
+    """(Σx, Σx²) in float32 over the rows of x2 [R, C]."""
+    xf = x2.float()
+    return xf.sum(0), (xf * xf).sum(0)
 
 
 def bn_grad_stats_reference(x2, dy2, mean, inv):
@@ -86,6 +102,10 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
     # x, dy, mean, inv, w, dx, sdy, sdyx, part, coef, dtype, R, C, ...
     "bigdl_bn_backward": [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p],
+    # x, sum, sumsq, part, dtype, R, C, n_chunks, rows
+    "bigdl_bn_stats": [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p],
     # x, dy, mean, inv, sdy, sdyx, part, dtype, R, C, n_chunks, rows
@@ -213,6 +233,28 @@ def bn_backward(x2, dy2, mean, inv, weight):
     return dx, sdy, sdyx
 
 
+def bn_stats(x2):
+    """(Σx, Σx²) over the rows of x2 [R, C] (B3), float32: B1's
+    statistics phase alone, so its sums give B1's mean and var bit for
+    bit.  CPU tensors take :func:`bn_stats_reference`."""
+    if x2.device.type == "cpu":
+        return bn_stats_reference(x2)
+    _cuda("bn_stats", x2)
+    _check("bn_stats", x2)
+    R, C = x2.shape
+    n_chunks, rows = _chunks(R, C)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    s, ss = torch.empty(C, **f32), torch.empty(C, **f32)
+    part = torch.empty(2 * n_chunks * C, **f32)
+    err = _kernel("bigdl_bn_stats")(
+        x2.data_ptr(), s.data_ptr(), ss.data_ptr(), part.data_ptr(),
+        _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
+    _raise_on(err, "bn_stats", x2)
+    with _launch_lock:
+        bn_stats.launches += 1
+    return s, ss
+
+
 def bn_grad_stats(x2, dy2, mean, inv):
     """(Σdy, Σdy·x̂) over the rows of [R, C] (B4), float32.  CPU tensors
     take :func:`bn_grad_stats_reference`."""
@@ -239,6 +281,7 @@ def bn_grad_stats(x2, dy2, mean, inv):
 
 bn_forward.launches = 0
 bn_backward.launches = 0
+bn_stats.launches = 0
 bn_grad_stats.launches = 0
 
 
@@ -276,3 +319,73 @@ def bn_train(x, weight, bias, eps: float):
     running EMA; they are not differentiable.  The forward is B1, the
     backward B2; x must be contiguous."""
     return _BNTrain.apply(x, weight, bias, eps)
+
+
+def all_reduce_pair(a, b, kind: str, group):
+    """(a, b) summed over ``group`` as one packed float32 buffer."""
+    buf = Engine.all_reduce(torch.cat([a, b]), kind, group)
+    return buf[:a.numel()], buf[a.numel():]
+
+
+def global_rows(rows: int, group) -> int:
+    """The row count statistics are taken over: this rank's ``rows``, times
+    the world size under a group (reference ``_global_n``).  The ops use it
+    for the statistics and dx, the modules for the running EMA."""
+    return rows if group is None else rows * dist.get_world_size(group)
+
+
+class _BNTrainSync(torch.autograd.Function):
+    """Sync-BN over a process group (reference ``bn_train_sync``,
+    ``:417-482``): statistics of the global batch, this rank's rows in and
+    out."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        C = x.shape[-1]
+        x2 = x.reshape(-1, C)
+        s, ss = all_reduce_pair(*bn_stats(x2), "bn_stats", group)
+        n = global_rows(x2.shape[0], group)
+        mean = s / n
+        var = ss / n - mean * mean
+        inv = torch.rsqrt(var + eps)
+        scale = weight.float() * inv
+        shift = bias.float() - mean * scale
+        y = x * scale.to(x.dtype) + shift.to(x.dtype)
+        ctx.save_for_backward(x, mean, inv, weight)
+        ctx.mark_non_differentiable(mean, var)
+        ctx.group = group
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv, weight = ctx.saved_tensors
+        C = x.shape[-1]
+        x2 = x.reshape(-1, C)
+        sdy_local, sdyx_local = bn_grad_stats(
+            x2, dy.contiguous().reshape(-1, C), mean, inv)
+        sdy, sdyx = all_reduce_pair(sdy_local, sdyx_local, "bn_grad_stats",
+                                    ctx.group)
+        n = global_rows(x2.shape[0], ctx.group)
+        xhat = (x.float() - mean) * inv
+        scale = (weight.float() * inv).to(x.dtype)
+        dx = scale * (dy - (sdy / n).to(x.dtype)
+                      - xhat.to(x.dtype) * (sdyx / n).to(x.dtype))
+        # dγ, dβ are this rank's sums: the Optimizer averages gradients
+        # over the group, which makes them the global-batch gradient;
+        # returning the global sums would count them world-size times
+        return (dx, sdyx_local.to(weight.dtype), sdy_local.to(weight.dtype),
+                None, None)
+
+
+def bn_train_sync(x, weight, bias, eps: float, group):
+    """Training-mode sync-BN over ``group`` (the Engine's data group on the
+    training path): (x[..., C], weight[C], bias[C]) -> (y, mean, var),
+    mean and var the biased float32 statistics of the global batch (not
+    differentiable).
+
+    The forward is B3 on this rank's rows, one all-reduce of the packed
+    [2C] (Σx, Σx²), and the normalize as PyTorch elementwise ops in x's
+    dtype (XLA fuses it in the reference); the backward is B4, one
+    all-reduce of (Σdy, Σdy·x̂), and dx with the global row count.  x must
+    be contiguous."""
+    return _BNTrainSync.apply(x, weight, bias, eps, group)

@@ -19,6 +19,13 @@ the elementwise dy in y's dtype, and dx = dy·wᵀ, dw = xᵀ·dy as library
 matrix products (jnp outside any kernel in the reference).  The conv-bias
 gradient is zero (a bias before BN moves only the mean), and the ReLU mask
 is recomputed from (y, resid) in the backward rather than stored.
+
+With a process ``group`` (the Engine's data group on the data-parallel
+path) they are sync-BN, as the reference's ``axis_name`` route
+(``:194-197``, ``:222-227``): B5's (Σy, Σy²) and B4's (Σdy, Σdy·x̂) are
+all-reduced over the group, each as one packed buffer, the statistics and
+dx use the global row count, and dγ, dβ (like dw) stay this rank's sums
+for the Optimizer's average over ranks.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import threading
 
 import torch
 
-from .batchnorm import bn_grad_stats
+from .batchnorm import all_reduce_pair, bn_grad_stats, global_rows
 
 __all__ = ["matmul_stats", "matmul_stats_reference", "fused_conv_bn_train",
            "fused_conv_bn_add_relu_train", "ROW_TILE"]
@@ -121,7 +128,10 @@ def matmul_stats(x2, w2, bias=None):
 matmul_stats.launches = 0
 
 
-def _stats(s, ss, n, gamma, beta, eps):
+def _stats(s, ss, r, gamma, beta, eps, group):
+    if group is not None:
+        s, ss = all_reduce_pair(s, ss, "bn_stats", group)
+    n = global_rows(r, group)
     mean = s / n
     var = ss / n - mean * mean
     inv = torch.rsqrt(var + eps)
@@ -133,12 +143,15 @@ def _normalize(y, scale, shift):
     return y * scale.to(y.dtype) + shift.to(y.dtype)
 
 
-def _bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz):
+def _bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz, group):
     """Backward of (matmul -> training BN) for the BN-output cotangent dz:
-    (dx, dw, dbias, dgamma, dbeta)."""
+    (dx, dw, dbias, dgamma, dbeta), dw, dgamma and dbeta this rank's."""
     dz = dz.contiguous()
-    sdy, sdyx = bn_grad_stats(y, dz, mean, inv)
-    n = y.shape[0]
+    sdy_local, sdyx_local = bn_grad_stats(y, dz, mean, inv)
+    sdy, sdyx = sdy_local, sdyx_local
+    if group is not None:
+        sdy, sdyx = all_reduce_pair(sdy, sdyx, "bn_grad_stats", group)
+    n = global_rows(y.shape[0], group)
     xhat = (y.float() - mean) * inv
     scale = (gamma.float() * inv).to(y.dtype)
     dy = scale * (dz - (sdy / n).to(y.dtype)
@@ -146,39 +159,42 @@ def _bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz):
     dx = dy @ w2.t()
     dw = (x2.t().to(dy.dtype) @ dy).to(w2.dtype)
     dbias = None if bias is None else torch.zeros_like(bias)
-    return (dx.to(x2.dtype), dw, dbias, sdyx.to(gamma.dtype),
-            sdy.to(gamma.dtype))
+    return (dx.to(x2.dtype), dw, dbias, sdyx_local.to(gamma.dtype),
+            sdy_local.to(gamma.dtype))
 
 
 class _FusedConvBN(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x2, w2, bias, gamma, beta, eps):
+    def forward(ctx, x2, w2, bias, gamma, beta, eps, group):
         y, s, ss = matmul_stats(x2, w2, bias)
         mean, var, inv, scale, shift = _stats(s, ss, x2.shape[0], gamma,
-                                              beta, eps)
+                                              beta, eps, group)
         ctx.save_for_backward(x2, w2, y, mean, inv, gamma, bias)
         ctx.mark_non_differentiable(mean, var)
+        ctx.group = group
         return _normalize(y, scale, shift), mean, var
 
     @staticmethod
     def backward(ctx, dz, _dmean, _dvar):
         x2, w2, y, mean, inv, gamma, bias = ctx.saved_tensors
-        return (*_bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz),
-                None)
+        return (*_bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz,
+                                     ctx.group),
+                None, None)
 
 
 class _FusedConvBNAddReLU(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x2, w2, bias, gamma, beta, resid2, eps):
+    def forward(ctx, x2, w2, bias, gamma, beta, resid2, eps, group):
         y, s, ss = matmul_stats(x2, w2, bias)
         mean, var, inv, scale, shift = _stats(s, ss, x2.shape[0], gamma,
-                                              beta, eps)
+                                              beta, eps, group)
         z = torch.clamp_min(_normalize(y, scale, shift) + resid2, 0)
         ctx.save_for_backward(x2, w2, y, mean, inv, gamma, beta, resid2,
                               bias)
         ctx.mark_non_differentiable(mean, var)
+        ctx.group = group
         return z.to(y.dtype), mean, var
 
     @staticmethod
@@ -190,19 +206,22 @@ class _FusedConvBNAddReLU(torch.autograd.Function):
         pre = _normalize(y, scale, shift) + resid2
         dz_m = torch.where(pre > 0, dz, torch.zeros_like(dz))
         dx, dw, dbias, dgamma, dbeta = _bn_matmul_backward(
-            x2, w2, y, mean, inv, gamma, bias, dz_m)
-        return dx, dw, dbias, dgamma, dbeta, dz_m.to(resid2.dtype), None
+            x2, w2, y, mean, inv, gamma, bias, dz_m, ctx.group)
+        return (dx, dw, dbias, dgamma, dbeta, dz_m.to(resid2.dtype), None,
+                None)
 
 
-def fused_conv_bn_train(x2, w2, bias, gamma, beta, eps: float):
+def fused_conv_bn_train(x2, w2, bias, gamma, beta, eps: float, group=None):
     """z = BN_train(x2 @ w2 (+ bias)) over the rows; returns (z, mean, var)
     with mean/var the biased float32 batch statistics (not
-    differentiable).  x2 [R, K] and w2 [K, C] contiguous, one dtype."""
-    return _FusedConvBN.apply(x2, w2, bias, gamma, beta, eps)
+    differentiable), over ``group``'s global batch when one is given.
+    x2 [R, K] and w2 [K, C] contiguous, one dtype."""
+    return _FusedConvBN.apply(x2, w2, bias, gamma, beta, eps, group)
 
 
 def fused_conv_bn_add_relu_train(x2, w2, bias, gamma, beta, resid2,
-                                 eps: float):
+                                 eps: float, group=None):
     """z = relu(BN_train(x2 @ w2 (+ bias)) + resid2); returns
     (z, mean, var) as :func:`fused_conv_bn_train` does."""
-    return _FusedConvBNAddReLU.apply(x2, w2, bias, gamma, beta, resid2, eps)
+    return _FusedConvBNAddReLU.apply(x2, w2, bias, gamma, beta, resid2, eps,
+                                     group)

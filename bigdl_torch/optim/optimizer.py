@@ -1,19 +1,29 @@
-"""Training and bulk inference on one device: ``Optimizer``, ``Predictor``.
+"""Training and bulk inference: ``Optimizer``, ``Predictor``.
 
 Counterpart of ``bigdl_tpu/optim/optimizer.py`` for what the serving and
 training slices use.  The reference compiles a whole train step (forward,
-loss, backward, update) into one SPMD program over a mesh; PyTorch runs
-eagerly, so here one step is the training forward, the loss,
-``loss.backward()`` and the method's in-place update, on one device.  The
-driver loop and its state are the reference's (``:1678-1866``): ``epoch``
-and ``neval`` 1-based, ``evalCounter`` 0-based in lockstep with ``neval``,
-the schedule's lr read each iteration, end triggers checked before every
-batch, a non-finite loss raised as :class:`NonFiniteLossError`.
+loss, backward, wire cast, update) into one SPMD program over a mesh;
+PyTorch runs eagerly, so here one step is the training forward, the loss,
+``loss.backward()``, every gradient rounded through
+``DTypePolicy.wire_dtype`` (``parallel/wire.py``), and the method's
+in-place update.  The driver loop and its state are the reference's
+(``:1678-1866``): ``epoch`` and ``neval`` 1-based, ``evalCounter`` 0-based
+in lockstep with ``neval``, the schedule's lr read each iteration, end
+triggers checked before every batch, a non-finite loss raised as
+:class:`NonFiniteLossError`.
+
+Data parallel: after ``Engine.init()`` (or with ``strategy=DataParallel()``)
+every rank runs this loop on its own rows.  The strategy broadcasts the
+parameters and buffers from rank 0 at the start, and after each backward
+averages the gradients (and the loss the driver observes) over the group
+in one all-reduce, before the wire cast and the update.  BatchNorm
+statistics are synced inside the forward and backward (``nn/fused.py``,
+``nn/normalization.py``).
 
 Not ported yet: validation (``Evaluator``, ``Top1Accuracy``), checkpoints
 and the retry loop, regularizers, gradient clipping and accumulation,
 remat, the prefetch pipeline, supervision and chaos points, and the
-multi-device strategies.
+strategies other than ``DataParallel``.
 """
 
 from __future__ import annotations
@@ -24,10 +34,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..common import resolve_device
+from ..common import get_policy, resolve_device
 from ..dataset import DataSet, Sample, SampleToMiniBatch
 from ..nn.criterion import Criterion
 from ..nn.module import Module
+from ..parallel.sharding import DataParallel, ShardingStrategy
+from ..parallel.wire import wire_cast
+from ..utils.engine import Engine
 from .method import SGD, OptimMethod
 from .trigger import Trigger
 
@@ -69,12 +82,30 @@ class Optimizer:
                   batch_size=256) \\
             .set_optim_method(SGD(0.1)) \\
             .set_end_when(Trigger.max_iteration(100)).optimize()
+
+    Once ``Engine.init()`` has run, ``strategy`` defaults to
+    :class:`DataParallel` over the Engine's group and the device to the
+    Engine's; ``batch_size`` is then per process, and the dataset should be
+    ``DataSet.array(samples, distributed=True)`` so that each rank feeds
+    its own rows.
     """
 
     def __init__(self, model: Module, dataset, criterion: Criterion,
                  batch_size: Optional[int] = None,
-                 end_trigger: Optional[Trigger] = None, device=None):
+                 end_trigger: Optional[Trigger] = None, device=None,
+                 strategy: Optional[ShardingStrategy] = None):
+        if Engine.group() is not None:
+            strategy = strategy or DataParallel()
+            if device is None:
+                device = Engine.device()
+            if resolve_device(device) != Engine.device():
+                raise ValueError(f"the Engine's rank runs on "
+                                 f"{Engine.device()}, not on {device}")
+        elif strategy is not None:
+            raise RuntimeError(f"{type(strategy).__name__} needs the "
+                               "Engine's data group: call Engine.init()")
         self.device = resolve_device(device)
+        self.strategy = strategy
         dataset = _as_dataset(dataset)
         if batch_size is not None:
             dataset = dataset.transform(
@@ -106,16 +137,23 @@ class Optimizer:
         return params
 
     def _step(self, params, opt_state, batch, lr):
-        """Forward in training mode, loss, backward and update; returns
-        (loss tensor, new method state)."""
+        """Forward in training mode, loss, backward, the strategy's
+        reduction, the wire cast and the update; returns (the loss over
+        the global batch as a tensor, new method state).  The caller reads
+        the loss only after the update is queued, so the host launches the
+        wire cast and the update while the card still runs the backward."""
         inp = _to_device(batch.get_input(), self.device)
         tgt = _to_device(batch.get_target(), self.device)
         for p in params:
             p.grad = None
         loss = self.criterion(self.model(inp), tgt)
         loss.backward()
+        loss = loss.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        if self.strategy is not None:
+            grads, loss = self.strategy.reduce(grads, loss)
+        grads = wire_cast(grads, get_policy().wire_dtype)
         opt_state = self.optim_method.update(grads, params, opt_state, lr)
         return loss, opt_state
 
@@ -130,6 +168,8 @@ class Optimizer:
     def optimize(self) -> Module:
         """Run until the end trigger fires; returns the trained model."""
         params = self._params()
+        if self.strategy is not None:
+            self.strategy.setup(self.model)
         optim = self.optim_method
         opt_state = optim.init_state(params)
         # driver state (the reference's optimMethod.state Table)
@@ -145,8 +185,7 @@ class Optimizer:
                     break
                 lr = float(optim.get_learning_rate(state))
                 loss, opt_state = self._step(params, opt_state, batch, lr)
-                state["loss"] = self._observe_loss(float(loss.detach()),
-                                                   state)
+                state["loss"] = self._observe_loss(float(loss), state)
                 records += batch.size()
                 state["neval"] += 1
                 state["evalCounter"] += 1

@@ -1,1 +1,2 @@
-"""Configuration, the CUDA build, and weight carry-over."""
+"""Configuration, the CUDA build, weight carry-over, and the Engine's data
+group."""

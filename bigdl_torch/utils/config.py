@@ -12,6 +12,9 @@ the kernels always run.
 | BIGDL_TORCH_SERVE_QUEUE_LIMIT    | bounded queue; admission past it is shed       | 64      |
 | BIGDL_TORCH_SERVE_REPLICAS       | worker threads draining the shared queue       | 1       |
 | BIGDL_TORCH_SERVE_DEADLINE_MS    | default per-request deadline (0 = none)        | 0       |
+| BIGDL_TORCH_COORDINATOR          | rank 0's host:port, or an init URL (file://…)  | (none)  |
+| BIGDL_TORCH_NUM_PROCESSES        | world size of the data group                   | 1       |
+| BIGDL_TORCH_PROCESS_ID           | this process's rank                            | 0       |
 """
 
 from __future__ import annotations

@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 8, started
+by the script itself.)
+
 Phases, each printing one JSON line:
 
 1. ``build``: compile every CUDA source of the port with ``nvcc`` (one
@@ -42,20 +45,40 @@ Phases, each printing one JSON line:
    versions at every distinct shape the step gave them (bf16), plus
    float32 and ragged cases, each timed beside its plain version, a
    PyTorch yardstick call and its bound.
+7. ``dp_train``: the same ResNet-50, weights and images trained
+   data-parallel: ``Engine.init()`` (NCCL, a world of one rank), a
+   ``DistributedDataSet`` and ``Optimizer``'s ``DataParallel`` strategy,
+   with every BatchNorm synced over the group.  One warm-up step records
+   the shapes the step gives B3 ``bn_stats`` and B4, which then go through
+   ``bn_kernels`` as above (and B3's sums must give B1's mean and var bit
+   for bit), then ``TRAIN_STEPS`` timed steps.  Launches per step exactly
+   20 B3, 53 B4, 33 B5 and no B1 or B2; all-reduces per step exactly 53
+   of BN statistics, 53 of gradient statistics and one of the gradients
+   (with the loss); the first loss within ``UNFUSED_ATOL`` of the
+   ``train`` phase's; one profiled step gives the collectives' share.
+8. ``dp_two_process``: two processes on the one card in a gloo group (NCCL
+   refuses two ranks on one GPU) train the small bottleneck ResNet in
+   float32 (TF32 off, no gradient wire) for 3 steps at local batch 8;
+   one process trains it at batch 16 on the same rows.  Losses, params and
+   running statistics within ``DP_F32_ATOL``, both ranks bit-identical,
+   and each rank's B3, B4 and B5 launch counts non-zero.
 
 Then a ``kernels`` line (one entry per kernel, with its launches on its
-path: B6 on the serving path, the others per timed training run), the
-card's name and power limit as ``nvidia-smi`` gives them, and last
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
-without that line; so does a machine without CUDA.
+path: B6 on the serving path, B3 per timed data-parallel run, the others
+per timed training run), the card's name and power limit as
+``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
+Any failed phase exits non-zero without that line; so does a machine
+without CUDA.
 """
 
 import collections
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,6 +86,7 @@ import torch
 import torch.nn.functional as F
 
 import bigdl_torch.nn as nn
+from bigdl_torch import Engine
 from bigdl_torch.common import DTypePolicy, set_policy
 from bigdl_torch.dataset import DataSet, Sample, SampleToMiniBatch
 from bigdl_torch.models import ResNet, TransformerLM, greedy_generate
@@ -107,8 +131,8 @@ BN_EPS = 1e-5
 # launches per training step of the fused ResNet-50: 20 unfused BatchNorms
 # (stem, 16 3x3 convs, 3 strided shortcuts) on B1/B2, 33 fused 1x1 sites
 # (17 ConvBN, 16 ConvBNAddReLU) on B5 forward and B4 backward
-STEP_LAUNCHES = {"bn_forward": 20, "bn_backward": 20, "matmul_stats": 33,
-                 "bn_grad_stats": 33}
+STEP_LAUNCHES = {"bn_forward": 20, "bn_backward": 20, "bn_stats": 0,
+                 "matmul_stats": 33, "bn_grad_stats": 33}
 # distinct shapes one step gives each kernel at batch 256
 STEP_SHAPES = {"bn_forward": 8, "bn_backward": 8, "bn_grad_stats": 11,
                "matmul_stats": 12}
@@ -128,6 +152,22 @@ UNFUSED_ATOL = 0.1
 # small float32 ResNet, 3 steps on the card (kernels, cuDNN, TF32 off) vs
 # the CPU (plain versions): summation order only, amplified by 3 SGD steps
 F32_TRAIN_ATOL = 1e-3
+
+# the data-parallel path (NCCL, a world of one) at batch 256 per process:
+# every unfused BatchNorm is sync-BN (B3 forward, B4 backward), every
+# fused site B5 forward and B4 backward
+DP_STEP_LAUNCHES = {"bn_forward": 0, "bn_backward": 0, "bn_stats": 20,
+                    "matmul_stats": 33, "bn_grad_stats": 53}
+DP_STEP_SHAPES = {"bn_stats": 8, "bn_grad_stats": 12, "matmul_stats": 12}
+# all-reduces per data-parallel step: BN statistics at 53 sites forward and
+# backward, and one of every gradient with the loss
+DP_STEP_ALL_REDUCES = {"bn_stats": 53, "bn_grad_stats": 53, "grads": 1}
+# two ranks at batch 8 vs one process at batch 16 on the same rows, float32
+# (TF32 off, no wire): the ranks see the rows in another order and the
+# convolutions run at another batch size, so sums differ in order only,
+# amplified by 3 SGD steps; the same bound as F32_TRAIN_ATOL
+DP_F32_ATOL = 1e-3
+DP_CHILD_TIMEOUT = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -371,14 +411,17 @@ TRAIN_KERNELS = {
                    "bigdl_tpu/ops/batchnorm.py:75"),
     "bn_backward": (bn_ops.bn_backward, "bigdl_torch/csrc/batchnorm.cu",
                     "bigdl_tpu/ops/batchnorm.py:165"),
+    "bn_stats": (bn_ops.bn_stats, "bigdl_torch/csrc/batchnorm.cu",
+                 "bigdl_tpu/ops/batchnorm.py:300"),
     "bn_grad_stats": (bn_ops.bn_grad_stats, "bigdl_torch/csrc/batchnorm.cu",
                       "bigdl_tpu/ops/batchnorm.py:353"),
     "matmul_stats": (cb_ops.matmul_stats, "bigdl_torch/csrc/matmul_stats.cu",
                      "bigdl_tpu/ops/convbn.py:66"),
 }
 # float32 operations per element of the BatchNorm kernels (an FMA is 2):
-# B1 Σx, Σx² and the normalize; B2 x̂, Σdy, Σdy·x̂ and dx; B4 x̂ and sums
-BN_FLOPS_PER_ELEM = {"bn_forward": 5, "bn_backward": 12,
+# B1 Σx, Σx² and the normalize; B2 x̂, Σdy, Σdy·x̂ and dx; B3 Σx, Σx²;
+# B4 x̂ and sums
+BN_FLOPS_PER_ELEM = {"bn_forward": 5, "bn_backward": 12, "bn_stats": 3,
                      "bn_grad_stats": 6}
 
 
@@ -391,12 +434,13 @@ def counts():
     return {k: fn.launches for k, (fn, _, _) in TRAIN_KERNELS.items()}
 
 
-def record_shapes(model):
+def record_shapes(model, sync=False):
     """Forward hooks that count, per kernel, the operand shapes one
-    training step gives it: B1/B2 at every BatchNorm left unfused, B5 at
-    every fused site (and B4, in the backward, at its output).  Returns
-    (shape counters, hook handles)."""
-    seen = {k: collections.Counter() for k in STEP_SHAPES}
+    training step gives it: at every BatchNorm left unfused B1/B2 (or,
+    with ``sync``, B3 forward and B4 backward), at every fused site B5
+    (and B4, in the backward, at its output).  Returns (shape counters,
+    hook handles)."""
+    seen = {k: collections.Counter() for k in TRAIN_KERNELS}
     handles, fused_bns = [], set()
 
     def site(conv):
@@ -419,8 +463,9 @@ def record_shapes(model):
     def bn_hook(mod, inp):
         x = inp[0]
         rc = (x.numel() // x.shape[-1], x.shape[-1])
-        seen["bn_forward"][rc] += 1
-        seen["bn_backward"][rc] += 1
+        for kind in (("bn_stats", "bn_grad_stats") if sync else
+                     ("bn_forward", "bn_backward")):
+            seen[kind][rc] += 1
 
     for m in model.modules():
         if isinstance(m, nn.BatchNormalization) and id(m) not in fused_bns:
@@ -492,6 +537,12 @@ def bn_case(kind, shape, dtype, gen, calls=0):
                     dy, x, w, None, None, mean, inv, True, BN_EPS,
                     [True, True, True])
             nbytes = 3 * item * R * C + 4 * 5 * C
+        elif kind == "bn_stats":
+            args = (x,)
+
+            def lib():  # mean and invstd by Welford: a yardstick only
+                return torch.batch_norm_stats(x, BN_EPS)
+            nbytes = item * R * C + 4 * 2 * C
         else:
             args = (x, dy, mean, inv)
 
@@ -499,9 +550,10 @@ def bn_case(kind, shape, dtype, gen, calls=0):
                 return torch.batch_norm_backward_reduce(
                     dy, x, mean, inv, w, True, False, False)
             nbytes = 2 * item * R * C + 4 * 4 * C
-        out_idx = (0,) if kind != "bn_grad_stats" else ()
+        out_idx = (0,) if kind in ("bn_forward", "bn_backward") else ()
     plain = {"bn_forward": bn_ops.bn_forward_reference,
              "bn_backward": bn_ops.bn_backward_reference,
+             "bn_stats": bn_ops.bn_stats_reference,
              "bn_grad_stats": bn_ops.bn_grad_stats_reference,
              "matmul_stats": cb_ops.matmul_stats_reference}[kind]
     got, ref = fn(*args), plain(*args)
@@ -527,16 +579,16 @@ def bn_case(kind, shape, dtype, gen, calls=0):
     return case
 
 
-def phase_bn_kernels(seen):
-    """Every training-path kernel at every distinct shape the step gave
-    it (bf16), plus float32 and ragged cases; returns, per kernel, its
-    cases and the case of its largest call."""
+def phase_bn_kernels(seen, kinds, path):
+    """Each of ``kinds`` at every distinct shape the step of ``path`` gave
+    it (bf16), plus float32 and ragged cases; returns, per kernel, the
+    case of its largest call and its device ms per step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     extra = {"matmul_stats": [(1000, 64, 64), (37, 19, 70), (300, 130, 2048)],
              "other": [(1000, 3), (1000, 130), (12544, 2048)]}
     reps = {}
-    for kind in TRAIN_KERNELS:
+    for kind in kinds:
         shapes = sorted(seen[kind].items())
         cases = [bn_case(kind, sh, torch.bfloat16, gen, n)
                  for sh, n in shapes]
@@ -544,8 +596,8 @@ def phase_bn_kernels(seen):
                        else "other"]:
             cases += [bn_case(kind, sh, dt, gen)
                       for dt in (torch.float32, torch.bfloat16)]
-        emit({"phase": "bn_kernels", "gpu": gpu_line(), "kernel": kind,
-              "cases": cases})
+        emit({"phase": "bn_kernels", "path": path, "gpu": gpu_line(),
+              "kernel": kind, "cases": cases})
         bad = [c for c in cases if not c["ok"]]
         check(not bad, f"{kind} disagrees with its plain version: {bad}")
         step = [c for c in cases if c["calls_per_step"]]
@@ -556,22 +608,31 @@ def phase_bn_kernels(seen):
     return reps
 
 
-def profile_step(model, samples):
+def _is_all_reduce(name):
+    return "allreduce" in name.lower().replace("_", "")
+
+
+def profile_step(model, samples, distributed=False):
     """One training step under ``torch.profiler``: device time by kernel
-    name (top 25) and the share of the step's wall time the device was
-    idle.  A measurement aid: a profiler that cannot trace the card is
-    reported in the result, not fatal."""
+    name (top 25), the share of the step's wall time the device was idle,
+    and the all-reduces' device time and host time (the host time of each
+    all-reduce op on the CPU side of the trace).  A measurement aid: a
+    profiler that cannot trace the card is reported in the result, not
+    fatal."""
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            train(model, samples, 1, TRAIN_BATCH)
+            train(model, samples, 1, TRAIN_BATCH, distributed=distributed)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
+        rows, host_ar = [], {}
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
+                if _is_all_reduce(e.key):
+                    host_ar[e.key[:80]] = {"ms": e.cpu_time_total / 1e3,
+                                           "count": e.count}
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -581,10 +642,18 @@ def profile_step(model, samples):
         return {"profile_error": str(e).splitlines()[0][:200]}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
-            "top_kernels": [{"ms": ms, "count": n, "name": k}
-                            for ms, n, k in rows[:25]]}
+    ar_device = sum(ms for ms, _, k in rows if _is_all_reduce(k))
+    out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
+           "top_kernels": [{"ms": ms, "count": n, "name": k}
+                           for ms, n, k in rows[:25]]}
+    if distributed:
+        host_ms = max((v["ms"] for v in host_ar.values()), default=0.0)
+        out.update({
+            "all_reduce_device_ms": ar_device,
+            "all_reduce_host_ops": host_ar,
+            "all_reduce_share_of_step": max(ar_device, host_ms) / wall_ms})
+    return out
 
 
 def synthetic_imagenet(n, seed):
@@ -594,10 +663,11 @@ def synthetic_imagenet(n, seed):
     return [Sample(x[i], y[i]) for i in range(n)]
 
 
-def train(model, samples, steps, batch, device=None):
-    """``steps`` Optimizer steps on a fresh ``DataSet.array(samples)``
-    (seeded: every call visits the same batches); returns the loss the
-    driver observed after each step."""
+def train(model, samples, steps, batch, device=None, distributed=False):
+    """``steps`` Optimizer steps on a fresh ``DataSet.array(samples,
+    distributed=distributed)`` (seeded: every call visits the same
+    batches); returns the loss the driver observed after each step.  Under
+    the Engine's group the Optimizer trains data-parallel."""
     losses = {}
 
     def end(state):
@@ -605,7 +675,8 @@ def train(model, samples, steps, batch, device=None):
             losses[state["neval"] - 1] = state["loss"]
         return state["neval"] > steps
 
-    opt = Optimizer(model, DataSet.array(samples, seed=SEED),
+    opt = Optimizer(model, DataSet.array(samples, distributed=distributed,
+                                         seed=SEED),
                     nn.CrossEntropyCriterion(), batch_size=batch,
                     device=device)
     opt.set_optim_method(SGD(0.1)).set_end_when(Trigger(end, "steps"))
@@ -651,7 +722,7 @@ def f32_card_vs_cpu():
     launched = counts()
     host = train(cpu, samples, 3, 8, device="cpu")
     err = max(abs(a - b) for a, b in zip(card, host))
-    check(all(v > 0 for v in launched.values()),
+    check(all(launched[k] > 0 for k, n in STEP_LAUNCHES.items() if n),
           f"the float32 run skipped a kernel: {launched}")
     check(err <= F32_TRAIN_ATOL, f"float32 ResNet card vs CPU: {card} vs "
           f"{host}")
@@ -689,7 +760,7 @@ def phase_train():
         check(len(seen[kind]) == n and sum(seen[kind].values())
               == STEP_LAUNCHES[kind], f"{kind} shapes {dict(seen[kind])}")
 
-    reps = phase_bn_kernels(seen)
+    reps = phase_bn_kernels(seen, STEP_SHAPES, "train")
 
     # the timed steps
     stats_before = torch.cat([b.float().flatten()
@@ -742,7 +813,8 @@ def phase_train():
     del unfused
     torch.cuda.empty_cache()
     check(unfused_launches == {"bn_forward": 53, "bn_backward": 53,
-                               "matmul_stats": 0, "bn_grad_stats": 0},
+                               "bn_stats": 0, "matmul_stats": 0,
+                               "bn_grad_stats": 0},
           f"unfused launches {unfused_launches}")
     diff = abs(unfused_first[0] - first[0])
     check(diff <= UNFUSED_ATOL, f"fused vs unfused first loss: {first} vs "
@@ -762,23 +834,237 @@ def phase_train():
           "running_stats_max_move": moved,
           "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
           "kernel_share_of_step": shares, **prof, **f32})
+    return kernel_rows(reps, launched, "train"), first[0]
+
+
+def kernel_rows(reps, launched, path):
+    """The ``kernels`` line's entries of the kernels in ``reps``, with
+    their launches in the timed run of ``path``."""
     rows = []
     for kind, (rep, _) in reps.items():
         _, source, replaces = TRAIN_KERNELS[kind]
         rows.append({"name": kind, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launched[kind],
-                     "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-                     "plain_ms": rep["plain_ms"],
+                     "path": path, "max_abs_err": rep["max_abs_err"],
+                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                      "bound_ms": rep["bound_ms"],
                      "bound_by": rep["bound_by"],
                      "library_ms": rep["library_ms"]})
     return rows
 
 
+# -- 7. dp_train, with bn_kernels for B3 and B4 inside ---------------------
+
+def b3_gives_b1_statistics(shape):
+    """At one step shape (bf16): the mean and var from B3's sums (Σx/R,
+    Σx²/R − mean², true divisions) equal B1's bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    R, C = shape
+    x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(
+        torch.bfloat16)
+    s, ss = bn_ops.bn_stats(x)
+    _, mean, var = bn_ops.bn_forward(x, torch.ones(C, device="cuda"),
+                                     torch.zeros(C, device="cuda"), BN_EPS)
+    n = torch.full_like(s, R)
+    m = s / n
+    equal = torch.equal(m, mean) and torch.equal(ss / n - m * m, var)
+    check(equal, f"B3's statistics differ from B1's at {shape}")
+    return {"b3_b1_shape": list(shape), "b3_b1_bit_equal": equal}
+
+
+def all_reduce_host_us(n=200):
+    """Mean host microseconds of one all-reduce of a [2, 64] float32 buffer
+    (the size of a BN statistics all-reduce) over the group, back to back
+    and synchronized at the end: the fixed cost of each of the step's 107
+    all-reduces.  Counted under its own kind, after the step's counts were
+    read."""
+    t = torch.zeros(128, device="cuda")
+    for _ in range(10):
+        Engine.all_reduce(t, "probe")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        Engine.all_reduce(t, "probe")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_dp_train(single_first_loss):
+    """ResNet-50 as in ``train``, data-parallel over a world of one under
+    NCCL: every collective of a larger group runs."""
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    Engine.init()
+    backend = torch.distributed.get_backend(Engine.group())
+    check(Engine.world() == 1 and backend == "nccl",
+          f"group of {Engine.world()} over {backend}")
+    samples = synthetic_imagenet(TRAIN_BATCH, SEED)
+    model = resnet50(fuse=True)
+
+    seen, handles = record_shapes(model, sync=True)
+    zero_counts()
+    Engine.all_reduces.clear()
+    first = train(model, samples, 1, TRAIN_BATCH, distributed=True)
+    for h in handles:
+        h.remove()
+    check(counts() == DP_STEP_LAUNCHES, f"warm-up launches {counts()}")
+    check(Engine.all_reduces == DP_STEP_ALL_REDUCES,
+          f"warm-up all-reduces {dict(Engine.all_reduces)}")
+    for kind, n in DP_STEP_SHAPES.items():
+        check(len(seen[kind]) == n and sum(seen[kind].values())
+              == DP_STEP_LAUNCHES[kind], f"{kind} shapes {dict(seen[kind])}")
+    diff = abs(first[0] - single_first_loss)
+    check(diff <= UNFUSED_ATOL, f"data-parallel vs single-device first "
+          f"loss: {first[0]} vs {single_first_loss}")
+
+    reps = phase_bn_kernels(seen, ("bn_stats", "bn_grad_stats"), "dp_train")
+    bit = b3_gives_b1_statistics(max(seen["bn_stats"]))
+
+    stats_before = torch.cat([b.float().flatten()
+                              for b in model.buffers()]).clone()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    Engine.all_reduces.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    losses = train(model, samples, TRAIN_STEPS, TRAIN_BATCH, distributed=True)
+    end.record()
+    torch.cuda.synchronize()
+    launched = counts()
+    all_reduces = dict(Engine.all_reduces)
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    stats_after = torch.cat([b.float().flatten() for b in model.buffers()])
+    check(launched == {k: v * TRAIN_STEPS
+                       for k, v in DP_STEP_LAUNCHES.items()},
+          f"launches over {TRAIN_STEPS} steps: {launched}")
+    check(all_reduces == {k: v * TRAIN_STEPS
+                          for k, v in DP_STEP_ALL_REDUCES.items()},
+          f"all-reduces over {TRAIN_STEPS} steps: {all_reduces}")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    moved = float((stats_after - stats_before).abs().max())
+    check(moved > 0 and bool(torch.isfinite(stats_after).all()),
+          f"running statistics did not move: {moved}")
+
+    prof = profile_step(model, samples, distributed=True)
+    probe_us = all_reduce_host_us()
+    del model
+    Engine.reset()
+    torch.cuda.empty_cache()
+    emit({"phase": "dp_train", "gpu": gpu_line(), "model": "ResNet-50",
+          "backend": backend, "world": 1, "batch_per_process": TRAIN_BATCH,
+          "steps": TRAIN_STEPS, "step_ms": step_ms,
+          "images_per_s": TRAIN_BATCH / (step_ms / 1e3),
+          "max_memory_allocated": peak, "losses": losses,
+          "first_loss": first[0], "first_loss_single_device":
+          single_first_loss, "vs_single_device": diff,
+          "tol": UNFUSED_ATOL, "launches": launched,
+          "all_reduces": all_reduces, "all_reduce_host_us": probe_us,
+          "running_stats_max_move": moved,
+          "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
+          **bit, **prof})
+    return kernel_rows({"bn_stats": reps["bn_stats"]}, launched, "dp_train")
+
+
+# -- 8. dp_two_process ------------------------------------------------------
+
+DP_LOCAL_BATCH = 8
+DP_STEPS = 3
+
+
+def small_samples():
+    rs = np.random.default_rng(SEED + 2)
+    x = rs.standard_normal((32, 32, 32, 3), dtype=np.float32)
+    y = rs.integers(0, 10, 32).astype(np.int32)
+    return [Sample(x[i], y[i]) for i in range(32)]
+
+
+def float32_exact():
+    set_policy(DTypePolicy(wire_dtype=None))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def dp_child(out_dir):
+    """One rank of ``dp_two_process``: the rank, world and rendezvous come
+    from the ``BIGDL_TORCH_*`` env contract."""
+    float32_exact()
+    Engine.init(device="cuda:0", backend="gloo")
+    model = small_resnet().build("cuda", torch.Generator().manual_seed(SEED))
+    zero_counts()
+    losses = train(model, small_samples(), DP_STEPS, DP_LOCAL_BATCH,
+                   distributed=True)
+    rank = Engine.rank()
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    emit({"rank": rank, "world": Engine.world(), "losses": losses,
+          "launches": counts(), "all_reduces": dict(Engine.all_reduces)})
+    Engine.reset()
+    return 0
+
+
+def phase_dp_two_process():
+    float32_exact()
+    ref = small_resnet().build("cuda", torch.Generator().manual_seed(SEED))
+    ref_losses = train(ref, small_samples(), DP_STEPS, 2 * DP_LOCAL_BATCH)
+    ref_state = {k: v.cpu() for k, v in ref.state_dict().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ,
+               "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+               "BIGDL_TORCH_COORDINATOR": f"file://{tmp}/store",
+               "BIGDL_TORCH_NUM_PROCESSES": "2"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-child", tmp],
+            env={**env, "BIGDL_TORCH_PROCESS_ID": str(i)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=DP_CHILD_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        for p, (out, err) in zip(procs, outs):
+            check(p.returncode == 0, f"rank failed ({p.returncode}):\n"
+                  f"{out[-2000:]}\n{err[-4000:]}")
+        ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        states = [torch.load(os.path.join(tmp, f"rank{i}.pt"))
+                  for i in range(2)]
+    check([r["rank"] for r in ranks] == [0, 1]
+          and all(r["world"] == 2 for r in ranks), f"ranks {ranks}")
+    for r in ranks:
+        check(all(r["launches"][k] > 0 for k in
+                  ("bn_stats", "bn_grad_stats", "matmul_stats")),
+              f"rank {r['rank']} skipped a kernel: {r['launches']}")
+    check(ranks[0]["losses"] == ranks[1]["losses"]
+          and all(torch.equal(states[0][k], states[1][k])
+                  for k in states[0]), "the two ranks diverged")
+    loss_err = max(abs(a - b) for a, b in zip(ranks[0]["losses"],
+                                             ref_losses))
+    state_err = max(rel_err(states[0][k], v)[1] for k, v in ref_state.items())
+    check(len(ref_losses) == DP_STEPS and loss_err <= DP_F32_ATOL
+          and state_err <= DP_F32_ATOL,
+          f"two ranks vs one process: losses {ranks[0]['losses']} vs "
+          f"{ref_losses}, params/stats {state_err}")
+    emit({"phase": "dp_two_process", "gpu": gpu_line(), "backend": "gloo",
+          "world": 2, "batch_per_process": DP_LOCAL_BATCH,
+          "steps": DP_STEPS, "wall_s": wall, "losses": ranks[0]["losses"],
+          "losses_one_process": ref_losses, "max_loss_diff": loss_err,
+          "max_state_rel_err": state_err, "tol": DP_F32_ATOL,
+          "rank_launches": [r["launches"] for r in ranks],
+          "rank_all_reduces": [r["all_reduces"] for r in ranks]})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(sys.argv[2])
     phase_build()
     rep = phase_kernels()
     model, launches = phase_serve()
@@ -793,7 +1079,10 @@ def main():
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"]}]
-    rows += phase_train()
+    train_rows, first_loss = phase_train()
+    rows += train_rows
+    rows += phase_dp_train(first_loss)
+    phase_dp_two_process()
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -359,12 +359,12 @@ def test_unported_options_raise():
     run rather than compute something else."""
     with pytest.raises(NotImplementedError, match="affine"):
         tnn.SpatialBatchNormalization(4, affine=False)
-    with pytest.raises(NotImplementedError, match="sync"):
-        tnn.SpatialBatchNormalization(4, sync_axis="data")
+    # sync-BN over the Engine's 'data' group is ported; other mesh axes
+    # are not
+    with pytest.raises(ValueError, match="sync_axis"):
+        tnn.SpatialBatchNormalization(4, sync_axis="model")
     with pytest.raises(NotImplementedError, match="SAME"):
         tnn.SpatialConvolution(3, 4, 3, 3, pad_w=-1, pad_h=-1)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        TDataSet.array([1, 2], distributed=True)
 
 
 def test_triggers_match_reference():
