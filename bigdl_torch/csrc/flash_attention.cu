@@ -1,20 +1,67 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces bigdl_tpu/ops/attention.py `_flash_kernel` (launched by
-// `_flash_pallas`): o = softmax(q k^T * scale [causal mask]) v over
+// `_flash_pallas`, B6): o = softmax(q k^T * scale [causal mask]) v over
 // q, k, v of shape [B, H, T, D], with an online softmax over key tiles and
 // float32 running statistics (m, l) and accumulator, so the [Tq, Tk] score
-// matrix never reaches device memory.  Rows whose every key is masked give 0.
+// matrix never reaches device memory.  The causal mask is kj > qi, both
+// counted from 0 (Tq may differ from Tk); keys past Tk are masked; rows
+// whose every key is masked give 0.
 //
-// Design (first, simple version):
-//  - grid = (query tiles of BQ rows, B*H).  Each block walks the key tiles
+// What bounds it on an H100: by the roofline, bytes.  At [8, 8, 512, 64]
+// bf16 causal the call must move 16.8 MB (about 5 us at 3.35 TB/s) against
+// 2.15 GFLOP of causal work (about 2.2 us at 989 TFLOP/s on the tensor
+// cores).  Both products therefore have to run on the tensor cores, and the
+// tiles have to arrive while the previous ones are multiplied.
+//
+// Two kernels, chosen by the operands' type:
+//
+// bf16 (`flash_tc_kernel`, route "tc"): tensor cores and TMA.
+//  - Persistent: one block per SM walks a share of the work items, each
+//    128 query rows of one (b, h) (under the causal mask the items with
+//    the most keys first), with two consumer warpgroups of 64 rows each
+//    and one producer warp.  Such a block is compiled for 168 registers a
+//    thread: D = 128 holds more and spills (setmaxnreg did not raise the
+//    compiler's budget).
+//  - The producer loads each item's Q tile into one of two buffers, and
+//    keeps a ring of K and V tiles (128 keys x D; 3 stages, 2 at D = 128)
+//    in flight by TMA, running on into the next item while the consumers
+//    finish this one; each stage has a full barrier for K, one for V, and
+//    one empty barrier the 8 consumer warps release.  q, k, v stay the
+//    strided [B, H, T, D] views of [B, T, H, D] memory
+//    MultiHeadAttention hands over: a 4-D tensor map over
+//    (D, T, H, B) reads them without a copy.  Rows of 64 bf16 (128 bytes)
+//    use the 128-byte swizzle; D = 128 is two such column chunks; D = 32
+//    uses the 64-byte swizzle.  Keys and queries past T arrive as zeros.
+//  - S = Q K^T by wgmma m64n128k16 (both operands from shared memory,
+//    K-major), into float registers; the scale (times log2 e) and, only on
+//    tiles that cross the diagonal or the Tk edge, the mask; the online
+//    softmax on the accumulator fragment (a row lives in the 4 lanes of a
+//    quad: two shuffles for its max; l is summed per thread and over the
+//    quad at the end).  Under the causal mask the key loop stops at the
+//    diagonal.
+//  - P is rounded to bf16 in registers and is the register A operand of
+//    O += P V (wgmma m64nDk16, V from shared memory, MN-major).  The two
+//    products overlap the softmax: a warpgroup issues S_t = Q K_t and
+//    O += P_{t-1} V_{t-1}, takes the softmax of S_t as soon as it is done
+//    while the second product runs, then rescales O by alpha_t.  The
+//    un-normalised p is rounded per key tile and l is summed from the
+//    float32 p: mha_reference rounds the normalised p to bf16 instead,
+//    inside KERNEL_TOL[bf16].
+//  - O / l (l = 0 leaves 0) is written as bf16 pairs into the
+//    [B, T, H, D]-ordered output the wrapper allocates; rows past Tq are
+//    not written.
+//
+// float32 (`flash_fwd_kernel`, route "f32", the first version, kept for
+// float32 parity checks): float32 FMAs on the CUDA cores.
+//  - grid = (query tiles of 64 rows, B*H).  Each block walks the key tiles
 //    itself, in order, which is what the TPU got from its sequential third
 //    grid axis.  Under the causal mask a block stops at the last key tile
 //    that reaches its diagonal (the Pallas kernel's `run` predicate).
-//  - Q, K and V tiles are staged in shared memory as float32 (bf16 inputs
-//    widen on load).  s, m, l and the output accumulator stay in float32
-//    registers; p goes through shared memory in float32 for the P.V product,
-//    exactly as the Pallas kernel keeps p in float32.
+//  - Q, K and V tiles are staged in shared memory; s, m, l and the output
+//    accumulator stay in float32 registers; p goes through shared memory in
+//    float32 for the P.V product, exactly as the Pallas kernel keeps p in
+//    float32.
 //  - 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows
 //    4*ty .. 4*ty+3, score columns tx + 16*j and output columns tx + 16*c.
 //    Row max and row sum reduce over the 16 lanes of a half-warp with
@@ -22,28 +69,16 @@
 //    different key rows hit 16 different banks.
 //  - Ragged Tq and Tk are handled by bounds checks in the kernel: rows past
 //    Tq are computed on zeros and never stored, keys past Tk are masked to
-//    -inf.  Nothing is padded on the host.
-//  - Operands are read, and the output written, through their strides over
-//    (B, H, T); the last axis must be unit-stride.  MultiHeadAttention hands
-//    over transposed [B, H, T, D] views of its [B, T, H, D] projections and
-//    the wrapper allocates the output in [B, T, H, D] memory order, so no
-//    operand is copied: a .contiguous() of each of q, k, v and o would read
-//    and write B*T*E elements, 4 x 8.4 MB per layer at bf16 [8, 512, 512].
-//
-// What bounds it on an H100: by the roofline, bytes.  At [8, 8, 512, 64]
-// bf16 causal the call must move 16.8 MB (about 5 us at 3.35 TB/s) against
-// 2.15 GFLOP of causal work (about 2.2 us at 989 TFLOP/s on the tensor
-// cores).  This design computes both products with float32 FMAs on the CUDA
-// cores (67 TFLOP/s peak), issued from shared memory, so it is bound by FMA
-// and shared-memory issue, well above the byte bound.  It trades that for
-// parity: p stays float32 into the P.V product, as in the reference.  The
-// way down to the byte bound is bf16 tensor-core products (mma.sync or
-// wgmma) with TMA-fed tiles, which changes where p is rounded and is left to
-// a later change.
+//    -inf.  Operands are read, and the output written, through their
+//    strides over (B, H, T); the last axis must be unit-stride.
+//  - Bound by FMA and shared-memory issue (67 TFLOP/s peak on the CUDA
+//    cores), far above the byte bound: it trades speed for parity.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -55,13 +90,7 @@ constexpr int COLS = BK / 16; // score columns per thread
 constexpr int PS = BK + 4;    // padded row stride of the p tile
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Strides {
   long long b, h, t;
@@ -222,34 +251,378 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int H, int Tq, int Tk, Strides sq, Strides sk,
-               Strides sv, Strides so, float sm_scale, int causal,
-               cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so,
-                           sm_scale, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so,
-                           sm_scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so,
-                            sm_scale, causal, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// ---- bf16: tensor cores (wgmma) fed by TMA ----------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;  // query rows per block: two warpgroups of 64
+constexpr int BKV = 128; // keys per tile
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);  // + the producer warp
+
+template <int D>
+struct Layout {
+  static constexpr int STAGES = D < 128 ? 3 : 2;  // K/V tiles in flight
+  static constexpr int CW = D < 64 ? D : 64;  // columns of a swizzled chunk
+  static constexpr int NCH = D / CW;          // chunks per row
+  static constexpr int RB = 2 * CW;           // bytes of a chunk row
+  static constexpr uint32_t SWZ =
+      RB == 128 ? hopper::kSwizzle128 : hopper::kSwizzle64;
+  static constexpr int CHUNK = BQ * RB;  // one column chunk of a tile
+  static constexpr int TILE = BQ * D * 2;  // a Q, K or V tile (BQ == BKV)
+  static constexpr int SMEM =
+      1024 + TILE * (2 + 2 * STAGES) + 8 * (4 + 3 * STAGES);
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
+};
+
+// S = Q K^T for this warpgroup's 64 rows: D / 16 steps along the head
+// dimension, both operands K-major in shared memory; one commit group.
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&sc)[BKV / 2],
+                                         const uint8_t* qa,
+                                         const uint8_t* kt) {
+  using L = Layout<D>;
+  hopper::fence_regs(sc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off =
+        (kk / (L::CW / 16)) * L::CHUNK + (kk % (L::CW / 16)) * 32;
+    hopper::WgmmaSS<BKV>::mma<0, 0>(
+        sc, hopper::smem_desc(qa + off, 16, 8 * L::RB, L::SWZ),
+        hopper::smem_desc(kt + off, 16, 8 * L::RB, L::SWZ), kk);
   }
+  hopper::wgmma_commit();
+}
+
+// O += P V: P the register A operand, 16 keys a step; V MN-major in shared
+// memory; one commit group.
+template <int D>
+__device__ __forceinline__ void pv_issue(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[BKV / 16][4],
+                                         const uint8_t* vt) {
+  using L = Layout<D>;
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    hopper::WgmmaRS<D>::template mma<1>(
+        acc, pa[kk],
+        hopper::smem_desc(vt + kk * 16 * L::RB, L::CHUNK, 8 * L::RB,
+                          L::SWZ),
+        1);
+  hopper::wgmma_commit();
+}
+
+// The online softmax of one tile of scores, in place (sc becomes the
+// un-normalised p), in the log2 domain: scale, mask where `edge` (the tile
+// crosses the diagonal or the Tk edge), update this thread's rows' m and
+// l, and return the factor alpha that rescales their O.
+__device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0,
+                                             int row_lo, int q4, int Tk,
+                                             int causal, bool edge,
+                                             float scale_log2) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_lo + 8 * hh;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = sc[4 * j + 2 * hh + e] * scale_log2;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * q4 + e;
+          if (col >= Tk || (causal && col > row)) x = -INFINITY;
+        }
+        sc[4 * j + 2 * hh + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hh], mx);
+    // nothing unmasked yet: alpha = p = exp2(-inf) = 0 instead of NaN
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[hh] = hopper::exp2_approx(m[hh] - m_use);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = hopper::exp2_approx(sc[4 * j + 2 * hh + e] - m_use);
+        sc[4 * j + 2 * hh + e] = p;
+        sum += p;
+      }
+    l[hh] = l[hh] * alpha[hh] + sum;
+    m[hh] = m_new;
+  }
+}
+
+// p rounded to bf16 pairs in the layout of the register A operand.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
+                                       const float (&sc)[BKV / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kk][i] =
+          hopper::pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+// The work items of a call are (query tile, b * H + h) pairs; under the
+// causal mask the tiles with the most keys come first.  Block c of G takes
+// items c, 2G - 1 - c, 2G + c, ... (a snake over the rounds), so the long
+// and the short items of a round even out.
+struct Items {
+  int n_qt, BH, causal, G;
+  __device__ int count() const { return n_qt * BH; }
+  __device__ int item(int c, int r) const {
+    return r * G + ((r & 1) ? G - 1 - c : c);
+  }
+  __device__ int q_tile(int i) const {
+    return causal ? n_qt - 1 - i / BH : i / BH;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                __nv_bfloat16* __restrict__ o, int B, int H, int Tq, int Tk,
+                long long sob, long long soh, long long sot, float scale_log2,
+                int causal) {
+  using L = Layout<D>;
+  constexpr int S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + 2 * L::TILE;  // Q is double-buffered
+  uint8_t* vs = ks + S * L::TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + S * L::TILE);
+  uint64_t* q_free = q_full + 2;
+  uint64_t* k_full = q_free + 2;
+  uint64_t* v_full = k_full + S;
+  uint64_t* kv_free = v_full + S;
+
+  const Items items{(Tq + BQ - 1) / BQ, B * H, causal,
+                    static_cast<int>(gridDim.x)};
+  const int c = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_free[i], CONSUMER_WARPS);
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&kv_free[s], CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {  // producer: one thread issues every load
+    if (lane == 0) {
+      int t = 0;  // K/V tiles loaded so far, over all of this block's items
+      for (int r = 0;; ++r) {
+        const int i = items.item(c, r);
+        if (i >= items.count()) break;
+        const int q0 = items.q_tile(i) * BQ;
+        const int b = (i % items.BH) / H, h = (i % items.BH) % H;
+        const int n_kt = ((causal ? min(Tk, q0 + BQ) : Tk) + BKV - 1) / BKV;
+        if (r >= 2) hopper::mbar_wait(&q_free[r & 1], (r / 2 - 1) & 1);
+        hopper::mbar_expect_tx(&q_full[r & 1], L::TILE);
+        for (int ch = 0; ch < L::NCH; ++ch)
+          hopper::tma_load_4d(qs + (r & 1) * L::TILE + ch * L::CHUNK, &mq,
+                              &q_full[r & 1], ch * L::CW, q0, h, b);
+        for (int kt = 0; kt < n_kt; ++kt, ++t) {
+          const int s = t % S;
+          if (t >= S) hopper::mbar_wait(&kv_free[s], (t / S - 1) & 1);
+          hopper::mbar_expect_tx(&k_full[s], L::TILE);
+          for (int ch = 0; ch < L::NCH; ++ch)
+            hopper::tma_load_4d(ks + s * L::TILE + ch * L::CHUNK, &mk,
+                                &k_full[s], ch * L::CW, kt * BKV, h, b);
+          hopper::mbar_expect_tx(&v_full[s], L::TILE);
+          for (int ch = 0; ch < L::NCH; ++ch)
+            hopper::tma_load_4d(vs + s * L::TILE + ch * L::CHUNK, &mv,
+                                &v_full[s], ch * L::CW, kt * BKV, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 of each
+  // item; this thread rows row_lo and row_lo + 8, columns 8 j + 2 q4 (+1)
+  // of each fragment
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int q4 = lane % 4;
+  float acc[D / 2];
+  float m[2], l[2];  // l: this thread's share of the row sums
+  float alpha[2];
+  float sc[BKV / 2];
+  uint32_t pa[BKV / 16][4];
+  int t = 0;  // K/V tiles consumed so far, over all of this block's items
+  for (int r = 0;; ++r) {
+    const int i = items.item(c, r);
+    if (i >= items.count()) break;
+    const int q0 = items.q_tile(i) * BQ;
+    const int b = (i % items.BH) / H, h = (i % items.BH) % H;
+    const int n_kt = ((causal ? min(Tk, q0 + BQ) : Tk) + BKV - 1) / BKV;
+    const int row_lo = q0 + 64 * wg + 16 * (warp % 4) + g;
+    const int row_min = q0 + 64 * wg;
+    const uint8_t* qa = qs + (r & 1) * L::TILE + 64 * wg * L::RB;
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+
+    // Pipelined: while the tensor cores multiply P_{kt-1} V_{kt-1}, the
+    // warpgroup takes the softmax of S_kt.
+    hopper::mbar_wait(&q_full[r & 1], (r / 2) & 1);
+    if (n_kt > 0) {
+      hopper::mbar_wait(&k_full[t % S], (t / S) & 1);
+      qk_issue<D>(sc, qa, ks + (t % S) * L::TILE);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      softmax_tile(sc, m, l, alpha, 0, row_lo, q4, Tk, causal,
+                   BKV > Tk || (causal && BKV - 1 > row_min), scale_log2);
+      pack_p(pa, sc);
+    }
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int s = (t + kt) % S;
+      const int sp = (t + kt - 1) % S;
+      const int k0 = kt * BKV;
+      hopper::mbar_wait(&k_full[s], ((t + kt) / S) & 1);
+      qk_issue<D>(sc, qa, ks + s * L::TILE);
+      hopper::mbar_wait(&v_full[sp], ((t + kt - 1) / S) & 1);
+      pv_issue<D>(acc, pa, vs + sp * L::TILE);
+      hopper::wgmma_wait<1>();  // S_kt is done; P V may run on
+      hopper::fence_regs(sc);
+      softmax_tile(sc, m, l, alpha, k0, row_lo, q4, Tk, causal,
+                   k0 + BKV > Tk || (causal && k0 + BKV - 1 > row_min),
+                   scale_log2);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) hopper::fence_regs(pa[kk]);
+      if (lane == 0) hopper::mbar_arrive(&kv_free[sp]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          acc[4 * j + 2 * hh] *= alpha[hh];
+          acc[4 * j + 2 * hh + 1] *= alpha[hh];
+        }
+      pack_p(pa, sc);
+    }
+    if (n_kt > 0) {
+      const int sl = (t + n_kt - 1) % S;
+      hopper::mbar_wait(&v_full[sl], ((t + n_kt - 1) / S) & 1);
+      pv_issue<D>(acc, pa, vs + sl * L::TILE);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) hopper::fence_regs(pa[kk]);
+      if (lane == 0) hopper::mbar_arrive(&kv_free[sl]);
+    }
+    // every product of this item is done: its Q buffer may be refilled
+    if (lane == 0) hopper::mbar_arrive(&q_free[r & 1]);
+    t += n_kt;
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float lt = l[hh];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float inv = lt == 0.f ? 0.f : 1.f / lt;  // fully masked -> 0
+      const int row = row_lo + 8 * hh;
+      if (row < Tq) {
+        __nv_bfloat16* orow = o + b * sob + h * soh + row * sot;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * q4) =
+              hopper::pack_bf16(acc[4 * j + 2 * hh] * inv,
+                                acc[4 * j + 2 * hh + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+           Strides so, float sm_scale, int causal, cudaStream_t stream) {
+  using L = Layout<D>;
+  const CUtensorMapSwizzle swizzle = L::RB == 128
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const void* base[3] = {q, k, v};
+  const Strides* st[3] = {&sq, &sk, &sv};
+  const int T[3] = {Tq, Tk, Tk};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    // (D, T, H, B), innermost first; a box is CW columns x 128 rows
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                                static_cast<cuuint64_t>(T[i]),
+                                static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[i]->t) * 2,
+                                   static_cast<cuuint64_t>(st[i]->h) * 2,
+                                   static_cast<cuuint64_t>(st[i]->b) * 2};
+    const cuuint32_t box[4] = {L::CW, BQ, 1, 1};
+    const int err = hopper::make_map(&maps[i], base[i], 4, dims, strides,
+                                     box, swizzle);
+    if (err) return err;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // persistent: one block per SM, or one per item where there are fewer
+  static const int n_sm = hopper::sm_count();
+  const long long n_items = static_cast<long long>((Tq + BQ - 1) / BQ) * B * H;
+  const int grid = n_items < n_sm ? static_cast<int>(n_items) : n_sm;
+  flash_tc_kernel<D><<<grid, THREADS, L::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), B, H, Tq,
+      Tk, so.b, so.h, so.t, sm_scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+template <int D>
+int launch_route(int route, const void* q, const void* k, const void* v,
+                 void* o, int B, int H, int Tq, int Tk, Strides sq,
+                 Strides sk, Strides sv, Strides so, float sm_scale,
+                 int causal, cudaStream_t stream) {
+  if (route == 0)
+    return launch<float, D>(q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so,
+                            sm_scale, causal, stream);
+  if (route == 1)
+    return tc::launch<D>(q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so, sm_scale,
+                         causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the B, H
-// and T axes of each operand (the D axis is unit-stride).  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head
-// dimension or dtype without an instance.
+// route: 0 = "f32" (float32 operands, CUDA cores), 1 = "tc" (bf16 operands,
+// tensor cores; the base of each operand 16-byte aligned and its B, H and T
+// strides multiples of 8).  Strides are in elements, for the B, H and T
+// axes of each operand (the D axis is unit-stride).  Returns
+// cudaGetLastError() after the launch, or an error code for a head
+// dimension or route without an instance or a tensor map that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int bigdl_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, int route, int B,
     int H, int Tq, int Tk, int D, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sob,
@@ -258,11 +631,17 @@ extern "C" int bigdl_flash_attention_fwd(
   const Strides sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       so{sob, soh, sot};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so,
-                             sm_scale, causal, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, Tq, Tk, sq, sk, sv,
-                                     so, sm_scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32:
+      return launch_route<32>(route, q, k, v, o, B, H, Tq, Tk, sq, sk, sv,
+                              so, sm_scale, causal, st);
+    case 64:
+      return launch_route<64>(route, q, k, v, o, B, H, Tq, Tk, sq, sk, sv,
+                              so, sm_scale, causal, st);
+    case 128:
+      return launch_route<128>(route, q, k, v, o, B, H, Tq, Tk, sq, sk, sv,
+                               so, sm_scale, causal, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

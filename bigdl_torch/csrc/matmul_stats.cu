@@ -9,36 +9,61 @@
 // convolutions are this product over the flattened NHWC rows, so a
 // following BatchNorm needs no separate pass over y for its statistics.
 //
-// Design (simple versions, one per dtype; both tile the output in blocks
-// of 128 rows, which fixes the partial-sum layout below):
-//  - bf16: a tensor-core kernel.  grid = (row tiles of 128, column tiles
-//    of 128), 256 threads as 8 warps in a 2 x 4 grid, each warp owning a
-//    64 x 32 piece of the tile as 4 x 4 `mma.sync.m16n8k16` bf16 products
-//    with float32 accumulators (64 per thread).  K is walked in steps of
-//    32: the x tile (row-major, rows padded by 8 bf16) and the w tile
-//    (k-major, rows padded by 8 bf16) are staged in shared memory with
-//    16-byte loads where the row is aligned and whole, element loads with
-//    zero fill at ragged edges.  The paddings make the fragment loads free
-//    of bank conflicts.  bf16 products are exact in float32, so only the
-//    order of the float32 sums differs from the plain version.
-//  - float32: the same product on the CUDA cores (parity with a float32
-//    reference rules out TF32 tensor cores): 128 x 64 tiles, 256 threads
-//    as 16 x 16, each thread 8 rows x 4 columns of float32 FMAs from a
-//    k-major x tile and a w tile in shared memory, K in steps of 16.
-//  - Ragged R, K and C are bounds-checked on load (zeros) and on store;
-//    nothing is padded on the host.
-//  - Epilogue, both kernels: add the bias in float32, store y in x's
-//    dtype, and sum each column's valid rows (value and square) from the
-//    float32 accumulators, then across the threads that share the column
-//    in a fixed order (shuffles, then shared memory).  Each block writes
-//    one partial per column: [2, n_row_tiles, C].  A second small kernel
-//    sums the partials over the row tiles in a fixed order (no float
-//    atomics), so the statistics are bit-reproducible.
-//  - Offsets are 64-bit: R·K reaches 2·10^8 at ResNet-50's batch 256.
+// What bounds it on an H100: at most of ResNet-50's shapes, bytes (x read
+// and y written once: [802816, 256] x [256, 128] moves 616 MB, 0.184 ms
+// at 3.35 TB/s, against 0.053 ms of bf16 tensor-core work); the widest
+// (K, C) = (1024, 512), (512, 2048), (2048, 512) are above the ridge and
+// bound by the tensor cores.  So loads must stream back to back, and the
+// products must run at the wgmma rate.
+//
+// Every route writes float32 partial column sums, [2, n, C] (n = one row
+// per 128-row tile, or per block for "tc"), and a second small kernel
+// sums them over n in a fixed order (no float atomics), so the statistics
+// are bit-reproducible.  Offsets are 64-bit: R·K reaches 2·10^8.
+//
+// Routes, chosen by the wrapper from dtype, shapes and alignment:
+//  - "tc" (bf16, base 16-byte aligned, K and C multiples of 8: what TMA can
+//    describe): `mm_stats_wgmma_kernel`.  Persistent: one block per SM
+//    keeps one column tile and walks its share of the row tiles.  A
+//    producer warp loads x tiles [128 rows x 64 K] and w tiles [64 K x BN]
+//    by TMA (128-byte swizzle; the K, R and C edges arrive as zeros) into
+//    a ring of 4 stages with full / empty barriers, running ahead into the
+//    next tile while the consumers finish this one.  Two consumer
+//    warpgroups each own 64 rows x BN columns and run wgmma m64nBNk16 (x
+//    K-major, w MN-major), keeping one stage's products in flight.  BN =
+//    64 for C <= 64, so those sites use no half-empty tile, and 128
+//    otherwise.  (BN = 256 holds 128 accumulators a thread and spilled
+//    under the 168 registers a thread such a block is compiled for.)
+//    Epilogue: add the bias in float32; stage y as bf16 in shared memory in
+//    the swizzled layout (no bank conflicts) and write it with TMA stores
+//    in full lines (rows past R are dropped); sum each column's valid rows,
+//    value and square, within the thread, then over the 8 row groups of a
+//    warp by a reduce-scatter of shuffles (7 a value instead of 24), into
+//    running sums over the block's tiles; at the block's end over the 8
+//    warps through shared memory: one partial row per block, in a fixed
+//    order.
+//  - "mma_sync" (bf16 that TMA cannot describe, e.g. K = 19): the first
+//    tensor-core version.  grid = (row tiles of 128, column tiles of 128),
+//    256 threads as 8 warps in a 2 x 4 grid, each warp owning a 64 x 32
+//    piece of the tile as 4 x 4 `mma.sync.m16n8k16` bf16 products with
+//    float32 accumulators.  K is walked in steps of 32 through one
+//    shared-memory stage filled by 16-byte loads where the row is aligned
+//    and whole, element loads with zero fill at ragged edges; the paddings
+//    make the fragment loads free of bank conflicts.
+//  - "f32" (float32): the same product on the CUDA cores (parity with a
+//    float32 reference rules out TF32 tensor cores): 128 x 64 tiles, 256
+//    threads as 16 x 16, each thread 8 rows x 4 columns of float32 FMAs
+//    from a k-major x tile and a w tile in shared memory, K in steps of 16.
+//  - The last two bounds-check ragged R, K and C on load (zeros) and on
+//    store; nothing is padded on the host.  bf16 products are exact in
+//    float32, so only the order of the float32 sums differs from the plain
+//    version.
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -189,7 +214,7 @@ __device__ __forceinline__ void stage8(__nv_bfloat16* dst,
 }
 
 __global__ void __launch_bounds__(THREADS)
-mm_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
+mm_stats_mma_sync_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w,
                    const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ y, float* __restrict__ part,
@@ -340,7 +365,8 @@ mm_stats_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Σ over the row tiles of the [2, n_row_tiles, C] partials, fixed order.
+// Σ over the n_row_tiles rows of the [2, n_row_tiles, C] partials, in a
+// fixed order.
 __global__ void __launch_bounds__(TX * TY)
 column_sums_kernel(const float* __restrict__ part, int n_row_tiles, int C,
                    float* __restrict__ sum, float* __restrict__ sumsq) {
@@ -370,40 +396,329 @@ column_sums_kernel(const float* __restrict__ part, int n_row_tiles, int C,
   }
 }
 
+// ---- bf16: wgmma fed by TMA, persistent (route "tc") ----------------------
+
+namespace tc {
+
+constexpr int BM = 128;  // rows per tile
+constexpr int BKK = 64;  // K per stage: one 128-byte swizzled row of x
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);  // + the producer warp
+
+template <int BN>
+struct Layout {
+  static constexpr int STAGES = 4;
+  static constexpr int XT = BM * BKK * 2;  // x tile: 128 rows x 128 bytes
+  static constexpr int WC = BKK * 64 * 2;  // a 64-column chunk of a w tile
+  static constexpr int STAGE = XT + WC * (BN / 64);
+  static constexpr int YC = 64 * 64 * 2;  // a 64 x 64 chunk of y
+  static constexpr int Y = 2 * YC * (BN / 64);  // both warpgroups' rows
+  static constexpr int RED = 2 * CONSUMER_WARPS * BN * 4;  // Σ, Σ² a warp
+  static constexpr int SMEM = 1024 + STAGES * STAGE + Y + RED + 16 * STAGES;
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
+};
+
+// Σ over the 8 lanes of a warp that share q4 (they differ in g, lane bits
+// 2..4) of 16 values, by halving: afterwards lane g holds the sums of
+// values 2g and 2g + 1 in v[0], v[1].
+__device__ __forceinline__ void reduce_rows(float (&v)[16], int g) {
+  {
+    const bool hi = g & 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float send = hi ? v[i] : v[i + 8];
+      const float keep = hi ? v[i + 8] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+    }
+  }
+  {
+    const bool hi = g & 2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float send = hi ? v[i] : v[i + 4];
+      const float keep = hi ? v[i + 4] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+  }
+  {
+    const bool hi = g & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float send = hi ? v[i] : v[i + 2];
+      const float keep = hi ? v[i + 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+    }
+  }
+}
+
+// Block b keeps one column tile, ct = b % n_col_tiles, and walks the row
+// tiles p, p + P, p + 2P, ... with p = b / n_col_tiles and P blocks per
+// column tile.  It sums its rows' statistics in registers over all its
+// tiles, in order, and writes one partial row per column: part[2, P, C].
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+mm_stats_wgmma_kernel(const __grid_constant__ CUtensorMap mx,
+                      const __grid_constant__ CUtensorMap mw,
+                      const __grid_constant__ CUtensorMap my,
+                      const float* __restrict__ bias,
+                      float* __restrict__ part, long long R, int K, int C,
+                      int n_row_tiles, int n_col_tiles, int P) {
+  using L = Layout<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stages = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ys = stages + L::STAGES * L::STAGE;
+  float* red_s = reinterpret_cast<float*>(ys + L::Y);  // [warp][BN]
+  float* red_ss = red_s + CONSUMER_WARPS * BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(red_ss + CONSUMER_WARPS * BN);
+  uint64_t* empty = full + L::STAGES;
+
+  const int ct = blockIdx.x % n_col_tiles;
+  const int p = blockIdx.x / n_col_tiles;
+  const int col0 = ct * BN;
+  const int n_kb = (K + BKK - 1) / BKK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {  // producer: one thread issues every load
+    if (lane == 0) {
+      int it = 0;
+      for (int rt = p; rt < n_row_tiles; rt += P) {
+        for (int kb = 0; kb < n_kb; ++kb, ++it) {
+          const int s = it % L::STAGES;
+          if (it >= L::STAGES)
+            hopper::mbar_wait(&empty[s], (it / L::STAGES - 1) & 1);
+          uint8_t* st = stages + s * L::STAGE;
+          hopper::mbar_expect_tx(&full[s], L::STAGE);
+          hopper::tma_load_2d(st, &mx, &full[s], kb * BKK, rt * BM);
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            hopper::tma_load_2d(st + L::XT + c * L::WC, &mw, &full[s],
+                                col0 + 64 * c, kb * BKK);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. + 63 of each tile; this
+  // thread rows srow and srow + 8 of those, columns 8 j + 2 q4 (+1)
+  const int wg = warp / 4;
+  const int wl = warp % 4;
+  const int g = lane / 4;
+  const int q4 = lane % 4;
+  const int srow = 16 * wl + g;
+  const bool leader = wl == 0 && lane == 0;  // issues the warpgroup's stores
+  uint8_t* yw = ys + wg * (L::Y / 2);
+  float acc[BN / 2];
+  // this lane's running column sums: columns 64 c + 8 g + 2 q4 (+1)
+  float run_s[BN / 64][2], run_ss[BN / 64][2];
+#pragma unroll
+  for (int c = 0; c < BN / 64; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) run_s[c][e] = run_ss[c][e] = 0.f;
+  int it = 0;
+  for (int rt = p; rt < n_row_tiles; rt += P) {
+    const long long row0 = static_cast<long long>(rt) * BM + 64 * wg;
+
+    // main loop: one stage's products stay in flight while the next issue
+    int prev = -1;
+    for (int kb = 0; kb < n_kb; ++kb, ++it) {
+      const int s = it % L::STAGES;
+      hopper::mbar_wait(&full[s], (it / L::STAGES) & 1);
+      const uint8_t* xt = stages + s * L::STAGE + wg * 64 * 128;
+      const uint8_t* wt = stages + s * L::STAGE + L::XT;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKK / 16; ++kk)
+        hopper::WgmmaSS<BN>::template mma<0, 1>(
+            acc,
+            hopper::smem_desc(xt + 32 * kk, 16, 1024, hopper::kSwizzle128),
+            hopper::smem_desc(wt + kk * 16 * 128, L::WC, 1024,
+                              hopper::kSwizzle128),
+            kb > 0 || kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+
+    // epilogue.  The staging of y is free once the previous tile's stores
+    // have read it.
+    if (leader) hopper::bulk_wait_read();
+    hopper::named_sync(2 + wg, 128);
+    const bool ok0 = row0 + srow < R;
+    const bool ok1 = row0 + srow + 8 < R;
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c) {
+      uint8_t* yc = yw + c * L::YC;
+      float cs[16], css[16];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * c + jj;
+        const int col = col0 + 8 * j + 2 * q4;
+        const float b0 =
+            (bias != nullptr && col < C) ? __ldg(bias + col) : 0.f;
+        const float b1 =
+            (bias != nullptr && col + 1 < C) ? __ldg(bias + col + 1) : 0.f;
+        const float v00 = acc[4 * j] + b0, v01 = acc[4 * j + 1] + b1;
+        const float v10 = acc[4 * j + 2] + b0, v11 = acc[4 * j + 3] + b1;
+        // 128-byte swizzle: piece jj of row r sits at piece jj ^ (r % 8),
+        // and r % 8 == g for both of this thread's rows
+        const int off = ((jj ^ g) << 4) + 4 * q4;
+        *reinterpret_cast<uint32_t*>(yc + srow * 128 + off) =
+            hopper::pack_bf16(v00, v01);
+        *reinterpret_cast<uint32_t*>(yc + (srow + 8) * 128 + off) =
+            hopper::pack_bf16(v10, v11);
+        const float a0 = ok0 ? v00 : 0.f, a1 = ok0 ? v01 : 0.f;
+        const float c0 = ok1 ? v10 : 0.f, c1 = ok1 ? v11 : 0.f;
+        cs[2 * jj] = a0 + c0;
+        cs[2 * jj + 1] = a1 + c1;
+        css[2 * jj] = a0 * a0 + c0 * c0;
+        css[2 * jj + 1] = a1 * a1 + c1 * c1;
+      }
+      reduce_rows(cs, g);
+      reduce_rows(css, g);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        run_s[c][e] += cs[e];
+        run_ss[c][e] += css[e];
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(2 + wg, 128);
+    if (leader && row0 < R) {
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c)
+        hopper::tma_store_2d(&my, yw + c * L::YC, col0 + 64 * c,
+                             static_cast<int>(row0));
+      hopper::bulk_commit();
+    }
+  }
+
+  // one partial per column of the block: the 8 warps' sums, in order
+#pragma unroll
+  for (int c = 0; c < BN / 64; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = (4 * wg + wl) * BN + 64 * c + 8 * g + 2 * q4 + e;
+      red_s[i] = run_s[c][e];
+      red_ss[i] = run_ss[c][e];
+    }
+  hopper::named_sync(1, 32 * CONSUMER_WARPS);
+  const int t = threadIdx.x;
+  if (t < BN && col0 + t < C) {
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int w = 0; w < CONSUMER_WARPS; ++w) {
+      s += red_s[w * BN + t];
+      ss += red_ss[w * BN + t];
+    }
+    part[static_cast<long long>(p) * C + col0 + t] = s;
+    part[static_cast<long long>(P + p) * C + col0 + t] = ss;
+  }
+  if (leader) hopper::bulk_wait();
+}
+
+// Launches the kernel; returns the number of partial rows it writes.
+template <int BN>
 int launch(const void* x, const void* w, const float* bias, void* y,
-           float* sum, float* sumsq, float* part, int dtype, long long R,
+           float* part, long long R, int K, int C, int n_row_tiles,
+           cudaStream_t st, int* P) {
+  using L = Layout<BN>;
+  const cuuint64_t r = static_cast<cuuint64_t>(R);
+  const cuuint64_t k = static_cast<cuuint64_t>(K);
+  const cuuint64_t c = static_cast<cuuint64_t>(C);
+  // innermost first: x (K, R), w (C, K), y (C, R)
+  const cuuint64_t xd[2] = {k, r}, wd[2] = {c, k}, yd[2] = {c, r};
+  const cuuint64_t xs[1] = {2 * k}, cs[1] = {2 * c};
+  const cuuint32_t xb[2] = {BKK, BM}, wb[2] = {64, BKK}, yb[2] = {64, 64};
+  CUtensorMap mx, mw, my;
+  int err = hopper::make_map(&mx, x, 2, xd, xs, xb,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = hopper::make_map(&mw, w, 2, wd, cs, wb, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = hopper::make_map(&my, y, 2, yd, cs, yb, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      mm_stats_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int n_sm = hopper::sm_count();
+  // one block per SM, each keeping one column tile
+  const int n_col_tiles = (C + BN - 1) / BN;
+  int per = n_sm / n_col_tiles;
+  if (per < 1) per = 1;
+  if (per > n_row_tiles) per = n_row_tiles;
+  *P = per;
+  mm_stats_wgmma_kernel<BN><<<per * n_col_tiles, THREADS, L::SMEM, st>>>(
+      mx, mw, my, bias, part, R, K, C, n_row_tiles, n_col_tiles, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+int launch(const void* x, const void* w, const float* bias, void* y,
+           float* sum, float* sumsq, float* part, int route, long long R,
            int K, int C, cudaStream_t st) {
   const int n_row_tiles = static_cast<int>((R + BM - 1) / BM);
-  if (dtype == 0) {
+  int n_part = n_row_tiles;  // rows of partials the first kernel writes
+  int err = 0;
+  if (route == 0) {
     mm_stats_f32_kernel<<<dim3(n_row_tiles, (C + BN - 1) / BN), THREADS, 0,
                           st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), bias,
         static_cast<float*>(y), part, R, K, C, n_row_tiles);
+  } else if (route == 1) {
+    mm_stats_mma_sync_kernel<<<dim3(n_row_tiles, (C + TBN - 1) / TBN),
+                               THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w), bias,
+        static_cast<__nv_bfloat16*>(y), part, R, K, C, n_row_tiles);
+  } else if (C <= 64) {
+    err = tc::launch<64>(x, w, bias, y, part, R, K, C, n_row_tiles, st,
+                         &n_part);
   } else {
-    mm_stats_tc_kernel<<<dim3(n_row_tiles, (C + TBN - 1) / TBN), THREADS, 0,
-                         st>>>(static_cast<const __nv_bfloat16*>(x),
-                               static_cast<const __nv_bfloat16*>(w), bias,
-                               static_cast<__nv_bfloat16*>(y), part, R, K,
-                               C, n_row_tiles);
+    err = tc::launch<128>(x, w, bias, y, part, R, K, C, n_row_tiles, st,
+                          &n_part);
   }
+  if (err) return err;
   column_sums_kernel<<<(C + TX - 1) / TX, dim3(TX, TY), 0, st>>>(
-      part, n_row_tiles, C, sum, sumsq);
+      part, n_part, C, sum, sumsq);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w, y); bias (may be null), sum and
-// sumsq are float32.  part is float32 scratch of 2·ceil(R/128)·C.  Returns
-// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
-// dtype or shape it does not take.
+// route: 0 = "f32" (float32 x, w, y), 1 = "mma_sync" and 2 = "tc" (bf16
+// x, w, y; "tc" needs 16-byte aligned x and w and K, C multiples of 8).
+// bias (may be null), sum and sumsq are float32.  part is float32 scratch
+// of 2·ceil(R/128)·C.  Returns cudaGetLastError() after the launches, or an
+// error code for a route or shape it does not take or a tensor map that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int bigdl_matmul_stats(const void* x, const void* w,
                                   const float* bias, void* y, float* sum,
-                                  float* sumsq, float* part, int dtype,
+                                  float* sumsq, float* part, int route,
                                   long long R, int K, int C, void* stream) {
   if (R <= 0 || K <= 0 || C <= 0 || (R + BM - 1) / BM > 0x7fffffffLL ||
-      (C + BN - 1) / BN > 65535 || (dtype != 0 && dtype != 1))
+      (C + BN - 1) / BN > 65535 || route < 0 || route > 2 ||
+      (route == 2 && (K % 8 != 0 || C % 8 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch(x, w, bias, y, sum, sumsq, part, dtype, R, K, C,
+  return launch(x, w, bias, y, sum, sumsq, part, route, R, K, C,
                 static_cast<cudaStream_t>(stream));
 }

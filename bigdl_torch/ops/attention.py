@@ -5,8 +5,14 @@ Counterpart of ``bigdl_tpu/ops/attention.py``.  :func:`flash_attention`
 launches ``bigdl_torch/csrc/flash_attention.cu`` (built with ``nvcc`` for
 ``sm_90a`` at first use, bound with ``ctypes``) for tensors on a CUDA
 device, and computes :func:`mha_reference` for tensors on the CPU.  On a
-CUDA tensor it launches the kernel or raises: there is no fallback and no
+CUDA tensor it launches a kernel or raises: there is no fallback and no
 switch that selects the plain version on the card.
+
+The operands' dtype picks the kernel (:func:`route`): bf16 takes ``"tc"``,
+the tensor-core kernel fed by TMA (128 x 128 tiles), float32 ``"f32"``,
+the CUDA-core kernel (64 x 64 tiles) that keeps p in float32 for parity
+checks.  ``flash_attention.launches`` counts every launch and
+``flash_attention.route_launches`` each route's.
 
 Forward only: serving runs under ``torch.inference_mode()``.  The backward
 (``_flash_bwd_chunked`` in the reference) comes with training.
@@ -21,14 +27,16 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention", "mha_reference", "BLOCK_Q", "BLOCK_K",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention", "mha_reference", "route", "tma_ready",
+           "BLOCK_Q", "BLOCK_K", "HEAD_DIMS"]
 
-#: tile sizes and head dimensions the CUDA kernel is compiled for
-BLOCK_Q = 64
-BLOCK_K = 64
+#: the routes' kernels by operand dtype, and their codes in the C interface
+ROUTES = {torch.float32: "f32", torch.bfloat16: "tc"}
+_ROUTE_CODE = {"f32": 0, "tc": 1}
+#: tile sizes each route's kernel is compiled for, and its head dimensions
+BLOCK_Q = {"f32": 64, "tc": 128}
+BLOCK_K = {"f32": 64, "tc": 128}
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def mha_reference(q, k, v, *, causal: bool = False,
@@ -56,8 +64,33 @@ def mha_reference(q, k, v, *, causal: bool = False,
 _launch_lock = threading.Lock()
 
 
+def route(dtype) -> str:
+    """The kernel that takes q, k, v of ``dtype`` on the card."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v, "
+                        f"got {dtype}")
+    return ROUTES[dtype]
+
+
+def tma_ready(t) -> bool:
+    """Whether a tensor map can describe the [B, H, T, D] operand ``t`` in
+    place: unit last stride, base 16-byte aligned, and the B, H, T strides
+    of its non-unit axes positive multiples of 16 bytes."""
+    n, st = t.shape, t.stride()
+    if st[3] != 1 or t.data_ptr() % 16:
+        return False
+    step = 16 // t.element_size()
+    for i in range(3):
+        if n[i] > 1 and (st[i] <= 0 or st[i] % step):
+            return False
+    return True
+
+
 def _strides(t):
-    return [int(s) for s in t.stride()[:3]]
+    # an axis of size 1 is never stepped along: give it a stride a tensor
+    # map takes (a positive multiple of 16 bytes)
+    n, st = t.shape, t.stride()
+    return [st[i] if n[i] > 1 else 8 * t.numel() for i in range(3)]
 
 
 def _kernel():
@@ -72,7 +105,7 @@ def _kernel():
     return fn
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float):
+def _launch(q, k, v, causal: bool, sm_scale: float, rt: str):
     fn = _kernel()
     B, H, Tq, D = q.shape
     # [B, H, Tq, D] view of [B, Tq, H, D] memory: the caller's merge of the
@@ -80,7 +113,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float):
     o = torch.empty((B, Tq, H, D), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _DTYPE_CODE[q.dtype], B, H, Tq, k.shape[2], D,
+             _ROUTE_CODE[rt], B, H, Tq, k.shape[2], D,
              *_strides(q), *_strides(k), *_strides(v), *_strides(o),
              float(sm_scale), int(bool(causal)),
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -90,13 +123,12 @@ def _launch(q, k, v, causal: bool, sm_scale: float):
                            f"{tuple(k.shape)} {q.dtype}")
     with _launch_lock:
         flash_attention.launches += 1
+        flash_attention.route_launches[rt] += 1
     return o
 
 
-def _check_cuda(q, k, v, block_q: int, block_k: int):
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-        raise ValueError(f"the CUDA kernel is built with {BLOCK_Q}x{BLOCK_K}"
-                         f" tiles, got block_q={block_q} block_k={block_k}")
+def _check_cuda(q, k, v, block_q=None, block_k=None) -> str:
+    """Refuse what no kernel takes; returns the route."""
     if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
         raise NotImplementedError(
             "flash_attention on CUDA is forward-only: the backward kernel "
@@ -104,9 +136,15 @@ def _check_cuda(q, k, v, block_q: int, block_k: int):
             "torch.inference_mode() or on tensors that need no grad")
     if not (q.dim() == k.dim() == v.dim() == 4):
         raise ValueError("q, k, v must be [B, H, T, D]")
-    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
+    if q.dtype not in ROUTES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    rt = route(q.dtype)
+    tiles = (BLOCK_Q[rt], BLOCK_K[rt])
+    if (block_q or tiles[0], block_k or tiles[1]) != tiles:
+        raise ValueError(f"the {rt!r} kernel is built with {tiles[0]}x"
+                         f"{tiles[1]} tiles, got block_q={block_q} "
+                         f"block_k={block_k}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     B, H, _, D = q.shape
@@ -119,31 +157,45 @@ def _check_cuda(q, k, v, block_q: int, block_k: int):
     if B * H >= 1 << 16:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit "
                          "of 65535")
+    return rt
+
+
+def _operand(t, rt: str):
+    """``t`` as the route's kernel reads it: in place where it can,
+    otherwise a contiguous copy (a fresh, aligned buffer)."""
+    if rt == "tc":
+        return t if tma_ready(t) else t.clone(
+            memory_format=torch.contiguous_format)
+    return t if t.stride(3) == 1 else t.contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
-                    block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
     """Blockwise (flash) attention.  q, k, v: [B, H, T, D] -> [B, H, Tq, D]
     in q's dtype.  ``Tq`` may differ from ``Tk``; the causal mask is
-    ``kj > qi`` with both positions counted from 0.
+    ``kj > qi`` with both positions counted from 0.  ``block_q`` and
+    ``block_k`` default to the route's tiles, the only ones built.
 
     CPU tensors take :func:`mha_reference`.  CUDA tensors launch the
-    kernel, which reads its operands through their (B, H, T) strides, so
-    transposed views need no copy (only a non-unit stride on the last axis
-    forces one), and returns a [B, H, Tq, D] view of [B, Tq, H, D] memory.
-    ``flash_attention.launches`` counts kernel launches."""
+    route's kernel, which reads its operands through their (B, H, T)
+    strides, so transposed views need no copy (only an operand no kernel
+    can read in place, see :func:`tma_ready`, is copied), and returns a
+    [B, H, Tq, D] view of [B, Tq, H, D] memory."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no route for device {q.device}")
-    _check_cuda(q, k, v, block_q, block_k)
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
-    if q.shape[2] == 0:
-        return torch.empty_like(q)
-    return _launch(q, k, v, causal, sm_scale)
+    rt = _check_cuda(q, k, v, block_q, block_k)
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        # no rows, or no keys: every row is fully masked and gives 0
+        return torch.zeros_like(q)
+    q, k, v = (_operand(t, rt) for t in (q, k, v))
+    return _launch(q, k, v, causal, sm_scale, rt)
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"tc": 0, "f32": 0}

@@ -9,7 +9,11 @@ in x's dtype together with the per-column float32 (Σy, Σy²) taken from the
 float32 accumulator: the BN that follows needs no pass over y for its
 statistics.  The wrapper computes :func:`matmul_stats_reference` for CPU
 tensors and launches ``bigdl_torch/csrc/matmul_stats.cu`` on CUDA tensors,
-or raises; ``matmul_stats.launches`` counts kernel launches.
+or raises.  :func:`route` picks the kernel from dtype, shapes and
+alignment, before the launch: ``"tc"`` (bf16 a tensor map can describe:
+wgmma fed by TMA), ``"mma_sync"`` (other bf16) or ``"f32"`` (float32 on
+the CUDA cores).  ``matmul_stats.launches`` counts every launch and
+``matmul_stats.route_launches`` each route's.
 
 :func:`fused_conv_bn_train` and :func:`fused_conv_bn_add_relu_train` port
 the reference's custom VJPs (``:186-327``): the forward is B5 and then the
@@ -37,12 +41,24 @@ import torch
 
 from .batchnorm import all_reduce_pair, bn_grad_stats, global_rows
 
-__all__ = ["matmul_stats", "matmul_stats_reference", "fused_conv_bn_train",
-           "fused_conv_bn_add_relu_train", "ROW_TILE"]
+__all__ = ["matmul_stats", "matmul_stats_reference", "route",
+           "fused_conv_bn_train", "fused_conv_bn_add_relu_train", "ROW_TILE"]
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: rows per block of the kernel (``BM`` in matmul_stats.cu)
+_ROUTE_CODE = {"f32": 0, "mma_sync": 1, "tc": 2}
+#: rows per block of every route's kernel (``BM`` in matmul_stats.cu)
 ROW_TILE = 128
+
+
+def route(x2, w2) -> str:
+    """The kernel that takes x2 [R, K] @ w2 [K, C] on the card: ``"tc"``
+    where tensor maps can describe both (bf16, 16-byte aligned bases, rows
+    of K and C elements multiples of 16 bytes), ``"mma_sync"`` for other
+    bf16 operands, ``"f32"`` for float32."""
+    if x2.dtype == torch.float32:
+        return "f32"
+    K, C = w2.shape
+    aligned = x2.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0
+    return "tc" if aligned and K % 8 == 0 and C % 8 == 0 else "mma_sync"
 
 
 def matmul_stats_reference(x2, w2, bias=None):
@@ -62,7 +78,7 @@ def _kernel():
 
     fn = cuda_build.load("matmul_stats").bigdl_matmul_stats
     if fn.argtypes is None:
-        # x, w, bias, y, sum, sumsq, part, dtype, R, K, C, stream
+        # x, w, bias, y, sum, sumsq, part, route, R, K, C, stream
         fn.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
@@ -76,7 +92,7 @@ def _check(x2, w2, bias):
                          f"got {tuple(x2.shape)} and {tuple(w2.shape)}")
     if x2.shape[0] == 0:
         raise ValueError("matmul_stats: R must be > 0")
-    if x2.dtype not in _DTYPE_CODE or w2.dtype != x2.dtype:
+    if x2.dtype not in (torch.float32, torch.bfloat16) or w2.dtype != x2.dtype:
         raise TypeError(f"matmul_stats takes float32 or bfloat16 x and w of "
                         f"one dtype, got {x2.dtype} and {w2.dtype}")
     operands = [x2, w2] + ([] if bias is None else [bias])
@@ -111,21 +127,24 @@ def matmul_stats(x2, w2, bias=None):
     y = torch.empty((R, C), dtype=x2.dtype, device=x2.device)
     s, ss = torch.empty(C, **f32), torch.empty(C, **f32)
     part = torch.empty(2 * (-(-R // ROW_TILE)) * C, **f32)
+    rt = route(x2, w2)
     err = _kernel()(
         x2.data_ptr(), w2.data_ptr(), 0 if bias is None else bias.data_ptr(),
         y.data_ptr(), s.data_ptr(), ss.data_ptr(), part.data_ptr(),
-        _DTYPE_CODE[x2.dtype], R, K, C,
+        _ROUTE_CODE[rt], R, K, C,
         torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"matmul_stats kernel launch failed: CUDA error "
-                           f"{err} at {tuple(x2.shape)} x {tuple(w2.shape)} "
-                           f"{x2.dtype}")
+        raise RuntimeError(f"matmul_stats kernel launch failed ({rt}): CUDA "
+                           f"error {err} at {tuple(x2.shape)} x "
+                           f"{tuple(w2.shape)} {x2.dtype}")
     with _launch_lock:
         matmul_stats.launches += 1
+        matmul_stats.route_launches[rt] += 1
     return y, s, ss
 
 
 matmul_stats.launches = 0
+matmul_stats.route_launches = {"tc": 0, "mma_sync": 0, "f32": 0}
 
 
 def _stats(s, ss, r, gamma, beta, eps, group):

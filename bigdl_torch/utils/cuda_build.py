@@ -3,7 +3,8 @@
 Each ``bigdl_torch/csrc/<name>.cu`` has a plain C interface and is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into ``bigdl_torch/_build/``, a
 directory git ignores, then loaded with ``ctypes``.  The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
+name carries a hash of its source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
 and a built one is reused.  Nothing here runs at import: a kernel's wrapper
 calls :func:`load` when it first launches, and ``chip_smoke.py`` calls
 :func:`build` for every source at once (one ``nvcc`` per source, all
@@ -13,6 +14,7 @@ started together).
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -54,8 +56,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [source_path(name)] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -11,21 +11,29 @@ Phases, each printing one JSON line:
 1. ``build``: compile every CUDA source of the port with ``nvcc`` (one
    process per source, all started together) and report the seconds and
    each kernel's registers and spills.
-2. ``kernels``: hold every kernel against its plain PyTorch version on the
-   card, at the shapes the serving path gives it, and time the kernel, the
-   plain version and one PyTorch library call computing the same function
-   (a yardstick only; the port never calls it), beside the least time the
-   card could take (``bound_ms``).
+2. ``kernels``: hold the flash-attention kernels (B6) against their plain
+   PyTorch version on the card, at the shapes the serving path gives them
+   (D = 64) and at D = 32 and 128, each in bf16 (the ``"tc"`` route:
+   wgmma fed by TMA) and float32 (the ``"f32"`` route: CUDA cores), causal
+   and not, ragged T included; and time the kernel, the plain version and
+   one PyTorch library call computing the same function (a yardstick only;
+   the port never calls it; ``ms_over_library`` is their ratio), beside
+   the least time the card could take (``bound_ms``).  A kernel's and a
+   library call's ``ms`` is the card's time alone (20 calls captured in a
+   CUDA graph and replayed); ``eager_ms`` is the same call issued back to
+   back from the host, which a call of a few microseconds cannot keep up
+   with.
 3. ``serve``: TransformerLM at the bench width (vocab 32000, max_len 512,
    d_model 512, 8 heads, 8 layers, bf16 compute) with seeded random weights,
    served through ``InferenceServer(seq_buckets=(128, 256, 512),
    max_batch=8)``: warm-up, then 16 requests of lengths spread over 1..512.
    Every answer is checked against the port's own ``Predictor`` on the same
    padded row, and the kernel's launch count against 8 launches (one per
-   layer) per device batch.  A small float32 model is also checked on the
-   card against the same model's plain-PyTorch forward on the CPU.
+   layer) per device batch, every one on the ``"tc"`` route.  A small
+   float32 model is also checked on the card (on the ``"f32"`` route)
+   against the same model's plain-PyTorch forward on the CPU.
 4. ``generate``: ``greedy_generate`` extends a short prompt on the same
-   model.
+   model, every flash launch on ``"tc"``.
 5. ``train``: ResNet-50 at the width of the repo's ``resnet50_bf16`` bench
    config (ImageNet, 1000 classes, NHWC 224x224x3, batch 256, bf16 compute
    over float32 params, ``CrossEntropyCriterion``, ``SGD(0.1)``,
@@ -34,17 +42,22 @@ Phases, each printing one JSON line:
    ``Optimizer``: one warm-up step, which also records every shape the
    step gives the BatchNorm and conv-BN kernels, then ``bn_kernels`` (next
    item), then ``TRAIN_STEPS`` timed steps.  Every loss must be finite, the
-   launch counts exactly 20 B1, 20 B2, 33 B5 and 33 B4 per step, and the
-   running statistics must move.  Then the unfused model from the same
+   launch counts exactly 20 B1, 20 B2, 33 B5 (all on B5's ``"tc"`` route:
+   wgmma fed by TMA) and 33 B4 per step, and the running statistics must
+   move.  Then the unfused model from the same
    seed takes its first step on the same batch (all 53 BatchNorms on
    B1/B2) and must give the fused model's first loss within
-   ``UNFUSED_ATOL``; and a small bottleneck ResNet in float32 (TF32 off)
-   takes 3 steps on the card and on the CPU, losses within ``F32_TRAIN_ATOL``.
+   ``UNFUSED_ATOL``; and a small bottleneck ResNet in float32 (TF32 off,
+   B5 on its ``"f32"`` route) takes 3 steps on the card and on the CPU,
+   losses within ``F32_TRAIN_ATOL``.
 6. ``bn_kernels`` (inside ``train``): B1 ``bn_forward``, B2 ``bn_backward``,
    B4 ``bn_grad_stats`` and B5 ``matmul_stats`` against their plain
    versions at every distinct shape the step gave them (bf16), plus
    float32 and ragged cases, each timed beside its plain version, a
-   PyTorch yardstick call and its bound.
+   PyTorch yardstick call and its bound.  Each B5 case names the route
+   it took (the ragged bf16 (37, 19, 70), which no tensor map can
+   describe, must take ``"mma_sync"``) and is called twice on the same
+   inputs: Σy and Σy² must come out bit-identical.
 7. ``dp_train``: the same ResNet-50, weights and images trained
    data-parallel: ``Engine.init()`` (NCCL, a world of one rank), a
    ``DistributedDataSet`` and ``Optimizer``'s ``DataParallel`` strategy,
@@ -58,14 +71,16 @@ Phases, each printing one JSON line:
    ``train`` phase's; one profiled step gives the collectives' share.
 8. ``dp_two_process``: two processes on the one card in a gloo group (NCCL
    refuses two ranks on one GPU) train the small bottleneck ResNet in
-   float32 (TF32 off, no gradient wire) for 3 steps at local batch 8;
+   float32 (TF32 off, no gradient wire, B5 on ``"f32"``) for 3 steps at
+   local batch 8;
    one process trains it at batch 16 on the same rows.  Losses, params and
    running statistics within ``DP_F32_ATOL``, both ranks bit-identical,
    and each rank's B3, B4 and B5 launch counts non-zero.
 
 Then a ``kernels`` line (one entry per kernel, with its launches on its
 path: B6 on the serving path, B3 per timed data-parallel run, the others
-per timed training run), the card's name and power limit as
+per timed training run; B6 and B5 also per route), the card's name and
+power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
 without CUDA.
@@ -191,8 +206,10 @@ def gpu_line():
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device milliseconds per call, by CUDA events over ``iters``
-    back-to-back calls (inputs stay warm in L2, as inside a forward)."""
+    """Mean milliseconds per call, by CUDA events over ``iters``
+    back-to-back calls from the host (inputs stay warm in L2, as inside a
+    forward).  A call shorter than its host-side launch path measures the
+    host: see :func:`graph_ms`."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -204,6 +221,34 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20, replays=3):
+    """Mean device milliseconds per call with the host out of the way:
+    ``iters`` calls captured once in a CUDA graph, the graph replayed
+    ``replays`` times between CUDA events.  Every launch of the calls is
+    in the graph, so the time is the card's alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 # -- 1. build ---------------------------------------------------------------
@@ -238,28 +283,43 @@ def attention_bound(B, H, Tq, Tk, D, dtype, causal):
             "operations", nbytes, flops)
 
 
+def ratio(ms, lib_ms):
+    return ms / lib_ms if lib_ms else None
+
+
 def flash_case(B, H, Tq, Tk, D, dtype, causal, gen):
     q = torch.randn((B, H, Tq, D), generator=gen).to("cuda", dtype)
     k = torch.randn((B, H, Tk, D), generator=gen).to("cuda", dtype)
     v = torch.randn((B, H, Tk, D), generator=gen).to("cuda", dtype)
+    route = attn_ops.route(dtype)
     with torch.inference_mode():
+        zero_routes(attn_ops.flash_attention)
         out = attn_ops.flash_attention(q, k, v, causal=causal)
+        routed = only_route(attn_ops.flash_attention, route, 1)
         plain = attn_ops.mha_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (out.float() - plain.float()).abs()
         atol, rtol = KERNEL_TOL[dtype]
-        ok = bool((err <= atol + rtol * plain.float().abs()).all())
-        ms = cuda_ms(lambda: attn_ops.flash_attention(q, k, v, causal=causal))
+        ok = routed and bool((err <= atol + rtol * plain.float().abs()).all())
+        ms = graph_ms(
+            lambda: attn_ops.flash_attention(q, k, v, causal=causal))
+        eager_ms = cuda_ms(
+            lambda: attn_ops.flash_attention(q, k, v, causal=causal))
         plain_ms = cuda_ms(
             lambda: attn_ops.mha_reference(q, k, v, causal=causal))
-        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
+        lib_ms = graph_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        lib_eager_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
     bound_ms, bound_by, nbytes, flops = attention_bound(B, H, Tq, Tk, D,
                                                         dtype, causal)
     return {"shape": [B, H, Tq, Tk, D], "dtype": str(dtype)[6:],
-            "causal": causal, "max_abs_err": float(err.max()),
-            "tol": [atol, rtol], "ok": ok, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "causal": causal, "route": route,
+            "max_abs_err": float(err.max()), "tol": [atol, rtol], "ok": ok,
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_eager_ms": lib_eager_ms,
+            "ms_over_library": ratio(ms, lib_ms), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
             "bytes": nbytes, "flops": flops}
 
 
@@ -267,8 +327,11 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
+    # the serving path's calls (D = 64), then the other head dimensions
     shapes = [(8, 8, t, t, 64) for t in (128, 256, 512)]
     shapes += [(8, 8, 200, 200, 64), (8, 8, 128, 512, 64)]
+    shapes += [(8, 8, 512, 512, d) for d in (32, 128)]
+    shapes += [(8, 8, 200, 200, d) for d in (32, 128)]
     cases = [flash_case(*s, dtype, causal, gen) for s in shapes
              for dtype in (torch.float32, torch.bfloat16)
              for causal in (False, True)]
@@ -294,11 +357,15 @@ def reference_check():
     gpu = copy.deepcopy(cpu).to("cuda")
     x = torch.from_numpy(np.random.RandomState(SEED).randint(
         0, 97, (3, 50)))
+    zero_routes(attn_ops.flash_attention)
     with torch.inference_mode():
         ref = cpu.eval()(x)
         out = gpu.eval()(x.cuda()).cpu()
     err = float((out - ref).abs().max())
     check(err <= REF_ATOL, f"float32 model on the card vs CPU: {err}")
+    check(only_route(attn_ops.flash_attention, "f32", cfg["num_layers"]),
+          f"float32 model's flash routes "
+          f"{attn_ops.flash_attention.route_launches}")
     return err
 
 
@@ -332,6 +399,7 @@ def phase_serve():
           for n in lengths]
 
     attn_ops.flash_attention.launches = 0
+    zero_routes(attn_ops.flash_attention)
     t0 = time.perf_counter()
     server = InferenceServer(model, seq_buckets=SEQ_BUCKETS,
                              max_batch=MAX_BATCH, max_wait_ms=5,
@@ -345,12 +413,15 @@ def phase_serve():
     wall = time.perf_counter() - t1
     server.stop()
     launches = attn_ops.flash_attention.launches
+    routes = dict(attn_ops.flash_attention.route_launches)
     stats = server.stats()
 
     device_batches = stats["batches"] + stats["warmup_batches"]
     expected = LM["num_layers"] * device_batches
     check(launches == expected,
           f"flash launches {launches} != 8 x {device_batches} batches")
+    check(only_route(attn_ops.flash_attention, "tc", launches),
+          f"served flash launches by route {routes}")
     check(stats["batch_rows"] == N_REQUESTS and stats["batch_errors"] == 0,
           f"served {stats}")
     predictor = Predictor(model)
@@ -377,9 +448,10 @@ def phase_serve():
           "batches": stats["batches"],
           "warmup_batches": stats["warmup_batches"],
           "batch_fill": stats["batch_fill"], "flash_launches": launches,
+          "flash_route_launches": routes,
           **split, "max_abs_err_vs_predictor": worst, "tol": SERVE_ATOL,
           "f32_reference_max_abs_err": ref_err, "ref_tol": REF_ATOL})
-    return model, launches
+    return model, launches, routes
 
 
 # -- 4. generate ------------------------------------------------------------
@@ -390,18 +462,23 @@ def phase_generate(model):
         0, LM["vocab_size"], (8,))
     n_new = 4
     attn_ops.flash_attention.launches = 0
+    zero_routes(attn_ops.flash_attention)
     t0 = time.perf_counter()
     out = greedy_generate(model, prompt, n_new, LM["max_len"])
     seconds = time.perf_counter() - t0
     launches = attn_ops.flash_attention.launches
+    check(only_route(attn_ops.flash_attention, "tc", launches),
+          f"generate's flash launches by route "
+          f"{attn_ops.flash_attention.route_launches}")
     check(out.shape == (len(prompt) + n_new,), f"generated {out.shape}")
     check(np.array_equal(out[:len(prompt)], prompt), "prompt not kept")
     check(((out >= 0) & (out < LM["vocab_size"])).all(), "token range")
     check(launches == LM["num_layers"] * n_new,
           f"generate launched flash {launches} times")
     emit({"phase": "generate", "gpu": gpu_line(), "tokens": out.tolist(),
-          "seconds": seconds,
-          "flash_launches": launches})
+          "seconds": seconds, "flash_launches": launches,
+          "flash_route_launches": dict(
+              attn_ops.flash_attention.route_launches)})
 
 # -- 5. train, with 6. bn_kernels inside --------------------------------------
 
@@ -428,10 +505,27 @@ BN_FLOPS_PER_ELEM = {"bn_forward": 5, "bn_backward": 12, "bn_stats": 3,
 def zero_counts():
     for fn, _, _ in TRAIN_KERNELS.values():
         fn.launches = 0
+    zero_routes(cb_ops.matmul_stats)
 
 
 def counts():
     return {k: fn.launches for k, (fn, _, _) in TRAIN_KERNELS.items()}
+
+
+def zero_routes(fn):
+    fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+
+def b5_routes():
+    return dict(cb_ops.matmul_stats.route_launches)
+
+
+def only_route(fn, route, n):
+    """``fn``'s launches since its counts were zeroed: ``n`` on ``route``
+    and none on the others."""
+    want = dict.fromkeys(fn.route_launches, 0)
+    want[route] = n
+    return fn.route_launches == want
 
 
 def record_shapes(model, sync=False):
@@ -487,10 +581,11 @@ def bound(nbytes, flops, peak):
 
 
 def maybe_ms(fn):
-    """A yardstick's time, or None with the reason where PyTorch does not
-    take the call (it is a measurement aid, never the port's path)."""
+    """A yardstick's device time, or None with the reason where PyTorch
+    does not take the call (it is a measurement aid, never the port's
+    path)."""
     try:
-        return cuda_ms(fn), None
+        return graph_ms(fn), None
     except (RuntimeError, TypeError) as e:
         return None, str(e).splitlines()[0][:200]
 
@@ -556,9 +651,21 @@ def bn_case(kind, shape, dtype, gen, calls=0):
              "bn_stats": bn_ops.bn_stats_reference,
              "bn_grad_stats": bn_ops.bn_grad_stats_reference,
              "matmul_stats": cb_ops.matmul_stats_reference}[kind]
+    extra = {}
+    if kind == "matmul_stats":
+        zero_routes(fn)
+        extra["route"] = cb_ops.route(x, w)
     got, ref = fn(*args), plain(*args)
     torch.cuda.synchronize()
     ok, worst_abs, worst_rel = True, 0.0, 0.0
+    if kind == "matmul_stats":
+        # the route was chosen before the launch, and the statistics are
+        # bit-reproducible: a second call on the same inputs
+        again = fn(*args)
+        extra["repeatable"] = (torch.equal(got[1], again[1])
+                               and torch.equal(got[2], again[2]))
+        ok = only_route(fn, extra["route"], 2) and extra["repeatable"]
+        del again
     for i, (o, r) in enumerate(zip(got, ref)):
         a, rel = rel_err(o, r)
         tol = (BN_TOL["bf16_out"] if i in out_idx and dtype == torch.bfloat16
@@ -567,13 +674,15 @@ def bn_case(kind, shape, dtype, gen, calls=0):
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, rel)
     lib_ms, lib_note = maybe_ms(lib)
     bound_ms, bound_by = bound(nbytes, flops, peak)
+    ms = graph_ms(lambda: fn(*args))
     case = {"kernel": kind, "shape": list(shape), "dtype": str(dtype)[6:],
-            "calls_per_step": calls, "max_abs_err": worst_abs,
-            "max_rel_err": worst_rel, "ok": ok,
-            "ms": cuda_ms(lambda: fn(*args)), "plain_ms": cuda_ms(
-                lambda: plain(*args), iters=5, warmup=1),
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "flops": flops}
+            "calls_per_step": calls, **extra, "max_abs_err": worst_abs,
+            "max_rel_err": worst_rel, "ok": ok, "ms": ms,
+            "eager_ms": cuda_ms(lambda: fn(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args), iters=5, warmup=1),
+            "library_ms": lib_ms, "ms_over_library": ratio(ms, lib_ms),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "bytes": nbytes, "flops": flops}
     if lib_note:
         case["library_note"] = lib_note
     return case
@@ -600,6 +709,15 @@ def phase_bn_kernels(seen, kinds, path):
               "kernel": kind, "cases": cases})
         bad = [c for c in cases if not c["ok"]]
         check(not bad, f"{kind} disagrees with its plain version: {bad}")
+        if kind == "matmul_stats":
+            # every step shape on the wgmma kernel; a bf16 shape no tensor
+            # map can describe on the mma.sync one
+            routes = {(tuple(c["shape"]), c["dtype"]): c["route"]
+                      for c in cases}
+            check(all(c["route"] == "tc" for c in cases
+                      if c["calls_per_step"]), f"B5 step routes {routes}")
+            check(routes[(37, 19, 70), "bfloat16"] == "mma_sync",
+                  f"B5 ragged bf16 route {routes}")
         step = [c for c in cases if c["calls_per_step"]]
         # the step's largest call: the most bytes to move
         reps[kind] = (max(step, key=lambda c: (c["bytes"], c["flops"])),
@@ -720,15 +838,18 @@ def f32_card_vs_cpu():
     zero_counts()
     card = train(gpu, samples, 3, 8)
     launched = counts()
+    routes = b5_routes()
     host = train(cpu, samples, 3, 8, device="cpu")
     err = max(abs(a - b) for a, b in zip(card, host))
     check(all(launched[k] > 0 for k, n in STEP_LAUNCHES.items() if n),
           f"the float32 run skipped a kernel: {launched}")
+    check(only_route(cb_ops.matmul_stats, "f32", launched["matmul_stats"]),
+          f"the float32 run's B5 routes {routes}")
     check(err <= F32_TRAIN_ATOL, f"float32 ResNet card vs CPU: {card} vs "
           f"{host}")
     return {"f32_losses_card": card, "f32_losses_cpu": host,
             "f32_max_loss_diff": err, "f32_tol": F32_TRAIN_ATOL,
-            "f32_launches": launched}
+            "f32_launches": launched, "f32_b5_route_launches": routes}
 
 
 def phase_train():
@@ -756,6 +877,8 @@ def phase_train():
     for h in handles:
         h.remove()
     check(counts() == STEP_LAUNCHES, f"warm-up launches {counts()}")
+    check(only_route(cb_ops.matmul_stats, "tc", STEP_LAUNCHES["matmul_stats"]),
+          f"warm-up B5 routes {b5_routes()}")
     for kind, n in STEP_SHAPES.items():
         check(len(seen[kind]) == n and sum(seen[kind].values())
               == STEP_LAUNCHES[kind], f"{kind} shapes {dict(seen[kind])}")
@@ -777,11 +900,14 @@ def phase_train():
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launched = counts()
+    routes = b5_routes()
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     stats_after = torch.cat([b.float().flatten() for b in model.buffers()])
     check(launched == {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()},
           f"launches over {TRAIN_STEPS} steps: {launched}")
+    check(only_route(cb_ops.matmul_stats, "tc", launched["matmul_stats"]),
+          f"B5 routes over {TRAIN_STEPS} steps: {routes}")
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"losses {losses}")
     moved = float((stats_after - stats_before).abs().max())
@@ -830,26 +956,30 @@ def phase_train():
           "losses": losses, "first_loss_fused": first[0],
           "first_loss_unfused": unfused_first[0], "fused_vs_unfused": diff,
           "unfused_tol": UNFUSED_ATOL, "launches": launched,
-          "unfused_launches": unfused_launches,
+          "b5_route_launches": routes, "unfused_launches": unfused_launches,
           "running_stats_max_move": moved,
           "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
           "kernel_share_of_step": shares, **prof, **f32})
-    return kernel_rows(reps, launched, "train"), first[0]
+    return kernel_rows(reps, launched, "train", routes), first[0]
 
 
-def kernel_rows(reps, launched, path):
+def kernel_rows(reps, launched, path, b5_routes_run=None):
     """The ``kernels`` line's entries of the kernels in ``reps``, with
-    their launches in the timed run of ``path``."""
+    their launches in the timed run of ``path`` (B5's also by route)."""
     rows = []
     for kind, (rep, _) in reps.items():
         _, source, replaces = TRAIN_KERNELS[kind]
-        rows.append({"name": kind, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launched[kind],
-                     "path": path, "max_abs_err": rep["max_abs_err"],
-                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-                     "bound_ms": rep["bound_ms"],
-                     "bound_by": rep["bound_by"],
-                     "library_ms": rep["library_ms"]})
+        row = {"name": kind, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launched[kind],
+               "path": path, "max_abs_err": rep["max_abs_err"],
+               "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+               "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+               "library_ms": rep["library_ms"],
+               "ms_over_library": rep["ms_over_library"]}
+        if kind == "matmul_stats":
+            row.update(kernel_route=rep["route"],
+                       route_launches=b5_routes_run)
+        rows.append(row)
     return rows
 
 
@@ -907,6 +1037,9 @@ def phase_dp_train(single_first_loss):
     for h in handles:
         h.remove()
     check(counts() == DP_STEP_LAUNCHES, f"warm-up launches {counts()}")
+    check(only_route(cb_ops.matmul_stats, "tc",
+                     DP_STEP_LAUNCHES["matmul_stats"]),
+          f"warm-up B5 routes {b5_routes()}")
     check(Engine.all_reduces == DP_STEP_ALL_REDUCES,
           f"warm-up all-reduces {dict(Engine.all_reduces)}")
     for kind, n in DP_STEP_SHAPES.items():
@@ -932,6 +1065,7 @@ def phase_dp_train(single_first_loss):
     end.record()
     torch.cuda.synchronize()
     launched = counts()
+    routes = b5_routes()
     all_reduces = dict(Engine.all_reduces)
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
@@ -939,6 +1073,8 @@ def phase_dp_train(single_first_loss):
     check(launched == {k: v * TRAIN_STEPS
                        for k, v in DP_STEP_LAUNCHES.items()},
           f"launches over {TRAIN_STEPS} steps: {launched}")
+    check(only_route(cb_ops.matmul_stats, "tc", launched["matmul_stats"]),
+          f"B5 routes over {TRAIN_STEPS} steps: {routes}")
     check(all_reduces == {k: v * TRAIN_STEPS
                           for k, v in DP_STEP_ALL_REDUCES.items()},
           f"all-reduces over {TRAIN_STEPS} steps: {all_reduces}")
@@ -961,6 +1097,7 @@ def phase_dp_train(single_first_loss):
           "first_loss": first[0], "first_loss_single_device":
           single_first_loss, "vs_single_device": diff,
           "tol": UNFUSED_ATOL, "launches": launched,
+          "b5_route_launches": routes,
           "all_reduces": all_reduces, "all_reduce_host_us": probe_us,
           "running_stats_max_move": moved,
           "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
@@ -1000,7 +1137,8 @@ def dp_child(out_dir):
     torch.save({k: v.cpu() for k, v in model.state_dict().items()},
                os.path.join(out_dir, f"rank{rank}.pt"))
     emit({"rank": rank, "world": Engine.world(), "losses": losses,
-          "launches": counts(), "all_reduces": dict(Engine.all_reduces)})
+          "launches": counts(), "b5_route_launches": b5_routes(),
+          "all_reduces": dict(Engine.all_reduces)})
     Engine.reset()
     return 0
 
@@ -1040,6 +1178,10 @@ def phase_dp_two_process():
         check(all(r["launches"][k] > 0 for k in
                   ("bn_stats", "bn_grad_stats", "matmul_stats")),
               f"rank {r['rank']} skipped a kernel: {r['launches']}")
+        b5 = r["b5_route_launches"]
+        check(b5["f32"] == r["launches"]["matmul_stats"]
+              and b5["tc"] == b5["mma_sync"] == 0,
+              f"rank {r['rank']}'s float32 B5 routes {b5}")
     check(ranks[0]["losses"] == ranks[1]["losses"]
           and all(torch.equal(states[0][k], states[1][k])
                   for k in states[0]), "the two ranks diverged")
@@ -1056,6 +1198,7 @@ def phase_dp_two_process():
           "losses_one_process": ref_losses, "max_loss_diff": loss_err,
           "max_state_rel_err": state_err, "tol": DP_F32_ATOL,
           "rank_launches": [r["launches"] for r in ranks],
+          "rank_b5_route_launches": [r["b5_route_launches"] for r in ranks],
           "rank_all_reduces": [r["all_reduces"] for r in ranks]})
 
 
@@ -1067,7 +1210,7 @@ def main():
         return dp_child(sys.argv[2])
     phase_build()
     rep = phase_kernels()
-    model, launches = phase_serve()
+    model, launches, routes = phase_serve()
     phase_generate(model)
     del model
     torch.cuda.empty_cache()
@@ -1075,10 +1218,12 @@ def main():
         "name": "flash_attention", "route": "cuda",
         "source": "bigdl_torch/csrc/flash_attention.cu",
         "replaces": "bigdl_tpu/ops/attention.py:59",
-        "launches": launches, "max_abs_err": rep["max_abs_err"],
-        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-        "library_ms": rep["library_ms"]}]
+        "launches": launches, "path": "serve",
+        "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+        "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+        "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+        "ms_over_library": rep["ms_over_library"],
+        "kernel_route": rep["route"], "route_launches": routes}]
     train_rows, first_loss = phase_train()
     rows += train_rows
     rows += phase_dp_train(first_loss)

@@ -243,3 +243,41 @@ def test_wrappers_have_no_other_route(name):
     with pytest.raises(ValueError, match="no route"):
         calls[name]()
     assert fn.launches == launches
+
+
+# (R, K, C) of the 12 distinct B5 calls of a fused ResNet-50 step at batch
+# 256, 224x224 (chip_smoke.py records them on the card)
+RESNET50_B5_SHAPES = [
+    (802816, 64, 64), (802816, 64, 256), (802816, 256, 64),
+    (802816, 256, 128), (200704, 128, 512), (200704, 512, 128),
+    (200704, 512, 256), (50176, 256, 1024), (50176, 1024, 256),
+    (50176, 1024, 512), (12544, 512, 2048), (12544, 2048, 512)]
+
+
+def _operands(R, K, C, dtype):
+    """[R, K] and [K, C] operands without R·K elements of memory: route
+    selection reads dtype, shapes and the bases' alignment only."""
+    return (torch.empty((1, K), dtype=dtype).expand(R, K),
+            torch.empty((K, C), dtype=dtype))
+
+
+@pytest.mark.parametrize("R,K,C", RESNET50_B5_SHAPES)
+def test_resnet50_b5_shapes_take_the_tc_route(R, K, C):
+    """Every B5 call of the training step goes to the wgmma kernel in
+    bf16, and to the CUDA-core kernel in float32."""
+    assert tcb.route(*_operands(R, K, C, torch.bfloat16)) == "tc"
+    assert tcb.route(*_operands(R, K, C, torch.float32)) == "f32"
+
+
+def test_operands_tma_cannot_describe_take_mma_sync():
+    """bf16 operands whose rows are no multiple of 16 bytes (chip_smoke's
+    ragged (37, 19, 70)) or whose base is not 16-byte aligned go to the
+    mma.sync kernel, chosen before any launch."""
+    assert tcb.route(*_operands(37, 19, 70, torch.bfloat16)) == "mma_sync"
+    assert tcb.route(*_operands(300, 64, 70, torch.bfloat16)) == "mma_sync"
+    flat = torch.zeros(8 + 100 * 64, dtype=torch.bfloat16)
+    x = flat[1:1 + 100 * 64].view(100, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    w = torch.zeros((64, 64), dtype=torch.bfloat16)
+    assert tcb.route(x, w) == "mma_sync"
+    assert tcb.route(flat[8:].view(100, 64), w) == "tc"
