@@ -20,9 +20,10 @@
 //    pass of B2 alone; the fused conv-BN backward (ops/convbn.py) and
 //    sync-BN's backward use it.
 //
-// Design (first, simple version).  The TPU kernels carry (Σ, Σ²) across a
-// sequential grid in VMEM scratch; blocks on the card run in no order, so
-// every reduction is split in two fixed-order passes instead of atomics:
+// B1, B3 and route "scalar" of B2 and B4 (the first design).  The TPU
+// kernels carry (Σ, Σ²) across a sequential grid in VMEM scratch; blocks on
+// the card run in no order, so every reduction is split in two fixed-order
+// passes instead of atomics:
 //  1. stats: a grid of (row chunk, 32-channel tile) blocks of 32 x 8
 //     threads.  Lane x owns one channel, the 8 row lanes stride the chunk's
 //     rows, and the 8 row-lane sums meet in shared memory in a fixed order.
@@ -41,14 +42,55 @@
 //
 // What bounds it on an H100: bytes.  B1 reads x twice and writes y once,
 // as on the TPU; B2 reads (x, dy) twice and writes dx once; B3 reads x
-// once; B4 reads (x, dy) once.  The per-channel partials are a few MB at most.  This version loads
-// one element per thread per row (2 bytes in bf16), so it does not reach the
-// memory rate at narrow widths; 16-byte vector loads are the way there and
-// are left to a later change.
+// once; B4 reads (x, dy) once.  Every pass does a few float operations per
+// element, far below the card's ridge.  The kernels above load one element
+// per thread per row (2 bytes in bf16): on an H100 SXM at 700 W, B1 and
+// B3 reach 40% and 75% of the memory rate, this B4 60% and this B2 35%
+// (chip_smoke.py).  They stay as route "scalar" of B2 and B4, for the calls
+// route "vec" does not take (ragged C, misaligned views).
+//
+// Route "vec" of B4 and B2 (rows of whole 16-byte pieces, 16-byte aligned
+// bases) is built to stream at the memory rate:
+//  - A thread owns one 16-byte piece of a row (8 bf16 or 4 float32
+//    channels) and walks the rows of its block's chunk with a stride:
+//    16-byte loads, the piece's mean and inv in registers, row offsets
+//    stepped by adding.  Loads of four rows of x and dy are issued before
+//    the first is used (128 bytes a thread in flight), with
+//    ld.global.nc.L1::no_allocate: the data is used once.
+//  - A block of 256 threads covers a column tile of at most 32 pieces (512
+//    bytes of a row) and 256 / pieces rows per step, so each warp reads
+//    whole 128-byte lines: 32 rows a step at C = 64 bf16, 8 at C >= 256.
+//    A narrower tile than the whole row keeps the partials, which one
+//    block sums at the end, at 2 x blocks x tile floats (about 0.5 MB).
+//  - The grid is (row chunk, column tile), about two blocks per SM; the
+//    chunking is a function of (R, C, dtype, SM count) only
+//    (ops/batchnorm.py `_vec_chunks`).
+//  - One launch: each block sums its row lanes in shared memory in lane
+//    order and writes one partial row; the last block of a column tile to
+//    arrive (a ticket counter per tile, taken after __threadfence()) sums
+//    the tile's partials in a fixed order (chunk k on k-lane k mod kl_n,
+//    then the k-lanes in order), writes the sums (and B2's coefficients) and
+//    resets its counter for the next launch.  That block is alone on the
+//    card by then, so it issues 16 partial loads a thread before adding
+//    any: one at a time, each an L2 round trip, the finish cost as much as
+//    the whole data pass of an L2-sized call.  Arrival order picks which
+//    block finishes, never the order of a sum, so the sums are
+//    bit-reproducible, and B2's equal B4's: B2's first pass is this kernel.
+//  - B2's dx pass keeps the thread-owns-a-piece layout (16-byte loads and
+//    stores, five coefficients a channel in registers) and walks each
+//    thread's rows backwards, so it first rereads what the stats pass read
+//    last, the part of (x, dy) still in the 50 MB L2.  Its coefficients
+//    are w·inv, sdy/R and sdyx/R, divided once per channel: dx =
+//    w·inv·((dy − sdy/R) − x̂·(sdyx/R)) differs from the scalar route's
+//    x̂·sdyx/R by at most one float32 rounding, far inside the bf16 and
+//    float32 tolerances.  Its loads and stores are streaming (evict
+//    first), keeping the unread part of (x, dy) in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -222,6 +264,314 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// ---- route "vec" of B4 and B2 -----------------------------------------------
+
+constexpr int VT = 256;              // threads of a "vec" block
+constexpr int VEC_PIECES = 32;       // 16-byte pieces in a column tile
+constexpr int VEC_MAX_TILES = 4096;  // ticket counters the wrapper allocates
+constexpr int VEC_ROWS = 4;          // rows a thread has in flight
+constexpr int VEC_FIN_LOADS = 16;    // partial loads a finishing thread issues
+
+// One 16-byte piece of a row: N channels of T, unpacked to float32.
+template <typename T>
+struct Piece;
+
+template <>
+struct Piece<float> {
+  static constexpr int N = 4;
+  __device__ static __forceinline__ void unpack(const uint4& v,
+                                                float (&f)[4]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+  __device__ static __forceinline__ uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct Piece<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // channel 2i is the low half of word i
+  __device__ static __forceinline__ void unpack(const uint4& v,
+                                                float (&f)[8]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static __forceinline__ unsigned pack2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+  __device__ static __forceinline__ uint4 pack(const float (&f)[8]) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]),
+                      pack2(f[4], f[5]), pack2(f[6], f[7]));
+  }
+};
+
+// A 16-byte load that does not allocate in L1 (the data is used once) and
+// leaves L2's policy as it is.
+__device__ __forceinline__ uint4 ld_once(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// A thread's place in a "vec" block: column tile blockIdx.y of `pt`
+// pieces (w channels), row lane `lane` of rl = 256 / pt, first channel c0,
+// and the block's row chunk [r0, r1).
+struct VecPlace {
+  int rl, lane, piece, w, c0;
+  long long r0, r1;
+  __device__ VecPlace(int pt, int N, long long R, long long rows_per_chunk)
+      : rl(VT / pt),
+        lane(static_cast<int>(threadIdx.x) / pt),
+        piece(static_cast<int>(threadIdx.x) % pt),
+        w(pt * N),
+        c0(static_cast<int>(blockIdx.y) * pt * N +
+           static_cast<int>(threadIdx.x) % pt * N),
+        r0(static_cast<long long>(blockIdx.x) * rows_per_chunk),
+        r1(min(R, static_cast<long long>(blockIdx.x) * rows_per_chunk +
+                      rows_per_chunk)) {}
+  // how many of r0 + lane, r0 + lane + rl, ... lie below r1
+  __device__ long long rows() const {
+    const long long first = r0 + lane;
+    return first < r1 ? (r1 - first + rl - 1) / rl : 0;
+  }
+};
+
+enum VecMode { kVecSums = 0, kVecBackward = 1 };
+
+// Pass 1 of B4 and B2 with its finish, in one launch: (Σdy, Σdy·x̂) over
+// the rows.  part is [2, n_chunks, C] float32 scratch; tickets[tile] is 0
+// on entry and again on exit.  kVecBackward also writes
+// coef = [w·inv | sdy/R | sdyx/R].
+template <typename T>
+__global__ void __launch_bounds__(VT, 2)
+grad_stats_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ wt, long long R, int C,
+                      long long rows_per_chunk, int pt,
+                      float* __restrict__ part, unsigned* tickets, int mode,
+                      float* __restrict__ sdy, float* __restrict__ sdyx,
+                      float* __restrict__ coef) {
+  constexpr int N = Piece<T>::N;
+  // [lane][sum][channel of the tile]: rl · 2 · w = 2 · 256 · N floats
+  __shared__ __align__(16) float red[2 * VT * N];
+  __shared__ float4 fin[VT];
+  __shared__ bool last;
+  const VecPlace at(pt, N, R, rows_per_chunk);
+  const int n_chunks = static_cast<int>(gridDim.x);
+  float s[N], q[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) s[j] = q[j] = 0.f;
+  if (at.lane < at.rl && at.c0 < C) {
+    float m[N], iv[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      m[j] = mean[at.c0 + j];
+      iv[j] = inv[at.c0 + j];
+    }
+    long long n = at.rows();
+    const long long step = static_cast<long long>(at.rl) * C;
+    const long long off = (at.r0 + at.lane) * C + at.c0;
+    const T* px = x + off;
+    const T* pd = dy + off;
+    auto add = [&](const uint4& xv, const uint4& dv) {
+      float xf[N], gf[N];
+      Piece<T>::unpack(xv, xf);
+      Piece<T>::unpack(dv, gf);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xhat = (xf[j] - m[j]) * iv[j];
+        s[j] += gf[j];
+        q[j] += gf[j] * xhat;
+      }
+    };
+    // VEC_ROWS rows of x and dy in flight before the first is used
+    for (; n >= VEC_ROWS; n -= VEC_ROWS) {
+      uint4 xv[VEC_ROWS], dv[VEC_ROWS];
+#pragma unroll
+      for (int u = 0; u < VEC_ROWS; ++u) {
+        xv[u] = ld_once(px + u * step);
+        dv[u] = ld_once(pd + u * step);
+      }
+#pragma unroll
+      for (int u = 0; u < VEC_ROWS; ++u) add(xv[u], dv[u]);
+      px += VEC_ROWS * step;
+      pd += VEC_ROWS * step;
+    }
+    for (; n > 0; --n) {
+      add(ld_once(px), ld_once(pd));
+      px += step;
+      pd += step;
+    }
+  }
+  // the block's row lanes, summed in lane order: one partial row
+  if (at.lane < at.rl) {
+    float* r = red + at.lane * 2 * at.w + at.piece * N;
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      *reinterpret_cast<float4*>(r + j) =
+          make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
+      *reinterpret_cast<float4*>(r + at.w + j) =
+          make_float4(q[j], q[j + 1], q[j + 2], q[j + 3]);
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < 2 * at.w; o += VT) {
+    const int which = o / at.w, c = o % at.w;
+    const int ch = static_cast<int>(blockIdx.y) * at.w + c;
+    if (ch >= C) continue;
+    float t = 0.f;
+    for (int l = 0; l < at.rl; ++l) t += red[(l * 2 + which) * at.w + c];
+    part[(static_cast<long long>(which) * n_chunks + blockIdx.x) * C + ch] =
+        t;
+  }
+  // the last block of this column tile to arrive finishes the tile
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets + blockIdx.y, 1u) ==
+           static_cast<unsigned>(n_chunks - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // float4 groups of the tile's [2][w] sums; chunk k on k-lane k mod kl_n,
+  // then the k-lanes in order
+  const int groups = at.w / 2, kl_n = VT / groups;
+  const int g = static_cast<int>(threadIdx.x) % groups;
+  const int kl = static_cast<int>(threadIdx.x) / groups;
+  const int which = 4 * g / at.w;
+  const int ch = static_cast<int>(blockIdx.y) * at.w + 4 * g % at.w;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add4 = [&](const float4& v) {
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  };
+  if (kl < kl_n && ch < C) {
+    const float4* p = reinterpret_cast<const float4*>(
+        part + static_cast<long long>(which) * n_chunks * C + ch);
+    const long long kstep = static_cast<long long>(kl_n) * C / 4;
+    int k = kl;
+    p += static_cast<long long>(k) * C / 4;
+    // VEC_FIN_LOADS partials issued before the first is added: each is an
+    // L2 round trip, and one at a time they would cost a round trip each
+    for (; k + (VEC_FIN_LOADS - 1) * kl_n < n_chunks;
+         k += VEC_FIN_LOADS * kl_n) {
+      float4 v[VEC_FIN_LOADS];
+#pragma unroll
+      for (int u = 0; u < VEC_FIN_LOADS; ++u) v[u] = __ldcg(p + u * kstep);
+#pragma unroll
+      for (int u = 0; u < VEC_FIN_LOADS; ++u) add4(v[u]);
+      p += VEC_FIN_LOADS * kstep;
+    }
+    for (; k < n_chunks; k += kl_n, p += kstep) add4(__ldcg(p));
+  }
+  fin[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
+  if (static_cast<int>(threadIdx.x) >= groups || ch >= C) return;
+  float t[4] = {acc.x, acc.y, acc.z, acc.w};
+  for (int k = 1; k < kl_n; ++k) {
+    const float4 v = fin[k * groups + g];
+    t[0] += v.x;
+    t[1] += v.y;
+    t[2] += v.z;
+    t[3] += v.w;
+  }
+  float* out = which == 0 ? sdy : sdyx;
+  const float n = static_cast<float>(R);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    out[ch + e] = t[e];
+    if (mode != kVecBackward) continue;
+    if (which == 0) {
+      coef[ch + e] = __fmul_rn(wt[ch + e], inv[ch + e]);
+      coef[C + ch + e] = t[e] / n;
+    } else {
+      coef[2 * C + ch + e] = t[e] / n;
+    }
+  }
+}
+
+// Pass 2 of B2's route "vec": dx = w·inv·((dy − sdy/R) − x̂·(sdyx/R)), each
+// thread's rows walked from its last to its first.
+template <typename T>
+__global__ void __launch_bounds__(VT, 2)
+dx_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+              const float* __restrict__ mean, const float* __restrict__ inv,
+              const float* __restrict__ coef, T* __restrict__ dx,
+              long long R, int C, long long rows_per_chunk, int pt) {
+  constexpr int N = Piece<T>::N;
+  const VecPlace at(pt, N, R, rows_per_chunk);
+  if (at.lane >= at.rl || at.c0 >= C) return;
+  long long n = at.rows();
+  if (n == 0) return;
+  float m[N], iv[N], a[N], b[N], e[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = at.c0 + j;
+    m[j] = mean[c];
+    iv[j] = inv[c];
+    a[j] = coef[c];
+    b[j] = coef[C + c];
+    e[j] = coef[2 * C + c];
+  }
+  // in 16-byte pieces: C / N of them a row
+  const long long step = static_cast<long long>(at.rl) * (C / N);
+  const long long off =
+      ((at.r0 + at.lane + (n - 1) * at.rl) * C + at.c0) / N;
+  const uint4* px = reinterpret_cast<const uint4*>(x) + off;
+  const uint4* pd = reinterpret_cast<const uint4*>(dy) + off;
+  uint4* po = reinterpret_cast<uint4*>(dx) + off;
+  auto one = [&](const uint4& xv, const uint4& dv) {
+    float xf[N], gf[N], o[N];
+    Piece<T>::unpack(xv, xf);
+    Piece<T>::unpack(dv, gf);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float xhat = __fmul_rn(xf[j] - m[j], iv[j]);
+      o[j] = __fmul_rn(a[j], __fsub_rn(__fsub_rn(gf[j], b[j]),
+                                       __fmul_rn(xhat, e[j])));
+    }
+    return Piece<T>::pack(o);
+  };
+  // streaming (evict-first) loads and stores: what is left of (x, dy) in
+  // L2 is the rows this pass has yet to reach
+  for (; n >= VEC_ROWS; n -= VEC_ROWS) {
+    uint4 xv[VEC_ROWS], dv[VEC_ROWS];
+#pragma unroll
+    for (int u = 0; u < VEC_ROWS; ++u) {
+      xv[u] = __ldcs(px - u * step);
+      dv[u] = __ldcs(pd - u * step);
+    }
+#pragma unroll
+    for (int u = 0; u < VEC_ROWS; ++u)
+      __stcs(po - u * step, one(xv[u], dv[u]));
+    px -= VEC_ROWS * step;
+    pd -= VEC_ROWS * step;
+    po -= VEC_ROWS * step;
+  }
+  for (; n > 0; --n) {
+    __stcs(po, one(__ldcs(px), __ldcs(pd)));
+    px -= step;
+    pd -= step;
+    po -= step;
+  }
+}
+
 int ew_blocks(long long n) {
   const long long b = (n + EW_THREADS - 1) / EW_THREADS;
   return static_cast<int>(b < EW_MAX_BLOCKS ? b : EW_MAX_BLOCKS);
@@ -288,6 +638,55 @@ bool bad_shape(long long R, int C, int n_chunks, long long rows_per_chunk) {
   return R <= 0 || C <= 0 || C > 65535 * TX || n_chunks <= 0 ||
          rows_per_chunk <= 0 ||
          static_cast<long long>(n_chunks) * rows_per_chunk < R;
+}
+
+// Route "vec": pieces of 16 bytes a row; a column tile of at most
+// VEC_PIECES of them.  Returns the tile's pieces, or 0 where the route does
+// not take (C, the bases): C·sizeof(T) a multiple of 16, every base
+// 16-byte aligned, at most VEC_MAX_TILES tiles.
+template <typename T>
+int vec_tile(int C, std::initializer_list<const void*> bases) {
+  constexpr int N = Piece<T>::N;
+  for (const void* p : bases)
+    if (reinterpret_cast<unsigned long long>(p) % 16 != 0) return 0;
+  if (C % N != 0) return 0;
+  const int pieces = C / N;
+  const int pt = pieces < VEC_PIECES ? pieces : VEC_PIECES;
+  return (pieces + pt - 1) / pt <= VEC_MAX_TILES ? pt : 0;
+}
+
+template <typename T>
+int grad_sums_vec(const void* x, const void* dy, const float* mean,
+                  const float* inv, const float* w, float* sdy, float* sdyx,
+                  float* part, float* coef, unsigned* tickets, long long R,
+                  int C, int n_chunks, long long rows_per_chunk, int mode,
+                  cudaStream_t st) {
+  const int pt = vec_tile<T>(C, {x, dy});
+  if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (C / Piece<T>::N + pt - 1) / pt;
+  grad_stats_vec_kernel<T><<<dim3(n_chunks, tiles), VT, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, w, R,
+      C, rows_per_chunk, pt, part, tickets, mode, sdy, sdyx, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int backward_vec(const void* x, const void* dy, const float* mean,
+                 const float* inv, const float* w, void* dx, float* sdy,
+                 float* sdyx, float* part, float* coef, unsigned* tickets,
+                 long long R, int C, int n_chunks, long long rows_per_chunk,
+                 cudaStream_t st) {
+  const int pt = vec_tile<T>(C, {x, dy, dx});
+  if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int err = grad_sums_vec<T>(x, dy, mean, inv, w, sdy, sdyx, part, coef,
+                             tickets, R, C, n_chunks, rows_per_chunk,
+                             kVecBackward, st);
+  if (err) return err;
+  const int tiles = (C / Piece<T>::N + pt - 1) / pt;
+  dx_vec_kernel<T><<<dim3(n_chunks, tiles), VT, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, coef,
+      static_cast<T*>(dx), R, C, rows_per_chunk, pt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -367,5 +766,54 @@ extern "C" int bigdl_bn_stats(const void* x, float* sum, float* sumsq,
   if (dtype == 1)
     return x_sums<__nv_bfloat16>(x, sum, sumsq, part, R, C, n_chunks,
                                  rows_per_chunk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Route "vec" of B4 and B2: tickets is VEC_MAX_TILES unsigned ints, zero
+// before and after every launch; launches that share it must not overlap
+// (keep them on one stream).  n_chunks and rows_per_chunk come from
+// ops/batchnorm.py `_vec_chunks`; C, dtype and the bases must suit the
+// route (`route` there), else cudaErrorInvalidValue.
+extern "C" int bigdl_bn_grad_stats_vec(const void* x, const void* dy,
+                                       const float* mean, const float* inv,
+                                       float* sdy, float* sdyx, float* part,
+                                       unsigned* tickets, int dtype,
+                                       long long R, int C, int n_chunks,
+                                       long long rows_per_chunk,
+                                       void* stream) {
+  if (bad_shape(R, C, n_chunks, rows_per_chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return grad_sums_vec<float>(x, dy, mean, inv, nullptr, sdy, sdyx, part,
+                                nullptr, tickets, R, C, n_chunks,
+                                rows_per_chunk, kVecSums, st);
+  if (dtype == 1)
+    return grad_sums_vec<__nv_bfloat16>(x, dy, mean, inv, nullptr, sdy, sdyx,
+                                        part, nullptr, tickets, R, C,
+                                        n_chunks, rows_per_chunk, kVecSums,
+                                        st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int bigdl_bn_backward_vec(const void* x, const void* dy,
+                                     const float* mean, const float* inv,
+                                     const float* w, void* dx, float* sdy,
+                                     float* sdyx, float* part, float* coef,
+                                     unsigned* tickets, int dtype,
+                                     long long R, int C, int n_chunks,
+                                     long long rows_per_chunk,
+                                     void* stream) {
+  if (bad_shape(R, C, n_chunks, rows_per_chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return backward_vec<float>(x, dy, mean, inv, w, dx, sdy, sdyx, part,
+                               coef, tickets, R, C, n_chunks, rows_per_chunk,
+                               st);
+  if (dtype == 1)
+    return backward_vec<__nv_bfloat16>(x, dy, mean, inv, w, dx, sdy, sdyx,
+                                       part, coef, tickets, R, C, n_chunks,
+                                       rows_per_chunk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

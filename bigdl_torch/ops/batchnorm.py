@@ -21,6 +21,14 @@ the CPU, and on a CUDA tensor launches ``bigdl_torch/csrc/batchnorm.cu``
 raises: there is no fallback and no switch.  ``fn.launches`` counts calls
 that launched the kernel.
 
+B4 and B2 have two routes each, picked by :func:`route` from dtype, C and
+the bases' alignment before the launch: ``"vec"`` (16-byte pieces a
+thread, one launch for B4's sums and their finish, B2's dx pass walking
+the rows back through L2) where every row is whole 16-byte pieces and the
+bases are 16-byte aligned, ``"scalar"`` (one element a thread) for the
+rest.  ``bn_grad_stats.route_launches`` and ``bn_backward.route_launches``
+count each route's launches.
+
 The plain forward follows the TPU *kernel*, which computes y in float32 and
 casts (``ops/batchnorm.py:113``), not the reference's jnp oracle, which
 computes y in x's dtype (``:67``); the two agree in bf16 to rounding.
@@ -41,7 +49,7 @@ import torch.distributed as dist
 from ..utils.engine import Engine
 
 __all__ = ["bn_train", "bn_train_sync", "bn_forward", "bn_backward",
-           "bn_stats", "bn_grad_stats", "bn_forward_reference",
+           "bn_stats", "bn_grad_stats", "route", "bn_forward_reference",
            "bn_backward_reference", "bn_stats_reference",
            "bn_grad_stats_reference"]
 
@@ -51,6 +59,14 @@ _TILE_C = 32
 #: stat-pass blocks to aim for: about 8 resident on each of 132 SMs
 _TARGET_BLOCKS = 1056
 _MIN_CHUNK_ROWS = 64
+# route "vec" (``VT``, ``VEC_PIECES``, ``VEC_MAX_TILES`` in batchnorm.cu):
+# threads a block, 16-byte pieces in a column tile, ticket counters
+_VEC_THREADS = 256
+_VEC_PIECES = 32
+_VEC_MAX_TILES = 4096
+#: "vec" blocks to aim for on each SM, and the fewest rows a row lane takes
+_VEC_BLOCKS_PER_SM = 2
+_VEC_MIN_LANE_ROWS = 8
 
 
 # -- plain versions -----------------------------------------------------------
@@ -112,6 +128,15 @@ _SIGNATURES = {
     "bigdl_bn_grad_stats": [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p],
+    # x, dy, mean, inv, sdy, sdyx, part, tickets, dtype, R, C, n_chunks, rows
+    "bigdl_bn_grad_stats_vec": [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p],
+    # x, dy, mean, inv, w, dx, sdy, sdyx, part, coef, tickets, dtype, R, C,
+    # n_chunks, rows
+    "bigdl_bn_backward_vec": [ctypes.c_void_p] * 11 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p],
 }
 
 
@@ -126,13 +151,73 @@ def _kernel(name: str):
 
 
 def _chunks(R: int, C: int):
-    """(n_chunks, rows_per_chunk) of the stat passes: enough (row chunk x
-    32-channel tile) blocks to fill the card, each chunk at least 64 rows.
-    Depends on the shape only, so the summation order is fixed."""
+    """(n_chunks, rows_per_chunk) of the stat passes of B1, B3 and route
+    "scalar": enough (row chunk x 32-channel tile) blocks to fill the card,
+    each chunk at least 64 rows.  Depends on the shape only, so the
+    summation order is fixed."""
     tiles = -(-C // _TILE_C)
     n = max(1, min(-(-R // _MIN_CHUNK_ROWS), -(-_TARGET_BLOCKS // tiles)))
     rows = -(-R // n)
     return -(-R // rows), rows
+
+
+def _vec_layout(C: int, itemsize: int):
+    """(pieces, row lanes, column tiles, tile width) of a route-"vec" block
+    over rows of C channels of ``itemsize`` bytes: a thread owns one
+    16-byte piece, a block covers a tile of at most 32 pieces (tile width
+    channels) and 256 // pieces rows a step."""
+    per = 16 // itemsize
+    pieces = C // per
+    pt = min(pieces, _VEC_PIECES)
+    return pt, _VEC_THREADS // pt, -(-pieces // pt), pt * per
+
+
+def route(x2, dy2) -> str:
+    """The B4 / B2 kernel that takes x2, dy2 [R, C] on the card: ``"vec"``
+    where each row is whole 16-byte pieces (C a multiple of 8 in bf16, of 4
+    in float32) and both bases are 16-byte aligned, ``"scalar"``
+    otherwise.  Reads dtype, C and the bases' alignment only."""
+    item = x2.element_size()
+    C = x2.shape[-1]
+    if (x2.dtype not in _DTYPE_CODE or C == 0 or C * item % 16
+            or x2.data_ptr() % 16 or dy2.data_ptr() % 16):
+        return "scalar"
+    return "vec" if _vec_layout(C, item)[2] <= _VEC_MAX_TILES else "scalar"
+
+
+def _vec_chunks(R: int, C: int, itemsize: int, sm_count: int):
+    """(n_chunks, rows_per_chunk) of route "vec": about two blocks per SM
+    over (row chunk x column tile), each row lane at least 8 rows, chunks a
+    whole number of row steps.  A function of (R, C, itemsize, sm_count)
+    only, so the summation order is fixed."""
+    _, rl, tiles, _ = _vec_layout(C, itemsize)
+    n = max(1, min(-(-R // (rl * _VEC_MIN_LANE_ROWS)),
+                   -(-_VEC_BLOCKS_PER_SM * sm_count // tiles)))
+    rows = -(-R // n)
+    rows = -(-rows // rl) * rl
+    return -(-R // rows), rows
+
+
+_per_device = {}
+
+
+def _device_state(device):
+    """(SM count, route-"vec" ticket counters) of a CUDA device, made once:
+    the counters are zeroed here and every launch leaves them zero, so a
+    CUDA graph's replay starts from zero too."""
+    with _launch_lock:
+        st = _per_device.get(device)
+        if st is None:
+            st = _per_device[device] = (
+                torch.cuda.get_device_properties(device).multi_processor_count,
+                torch.zeros(_VEC_MAX_TILES, dtype=torch.int32, device=device))
+        return st
+
+
+def _count(fn, rt):
+    with _launch_lock:
+        fn.launches += 1
+        fn.route_launches[rt] += 1
 
 
 def _check(name, x2, *others):
@@ -206,8 +291,9 @@ def bn_forward(x2, weight, bias, eps: float):
 
 
 def bn_backward(x2, dy2, mean, inv, weight):
-    """Training BN backward over [R, C] (B2): (dx, Σdy, Σdy·x̂).  CPU
-    tensors take :func:`bn_backward_reference`."""
+    """Training BN backward over [R, C] (B2): (dx, Σdy, Σdy·x̂), on the
+    kernel :func:`route` picks; its sums are B4's bit for bit.  CPU tensors
+    take :func:`bn_backward_reference`."""
     if x2.device.type == "cpu":
         return bn_backward_reference(x2, dy2, mean, inv, weight)
     _cuda("bn_backward", x2)
@@ -216,20 +302,28 @@ def bn_backward(x2, dy2, mean, inv, weight):
     _check_dy("bn_backward", x2, dy2)
     R, C = x2.shape
     _check_vec("bn_backward", C, mean, inv, w)
-    n_chunks, rows = _chunks(R, C)
+    rt = route(x2, dy2)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dx = torch.empty_like(x2)
     sdy, sdyx = torch.empty(C, **f32), torch.empty(C, **f32)
-    part = torch.empty(2 * n_chunks * C, **f32)
     coef = torch.empty(3 * C, **f32)
-    err = _kernel("bigdl_bn_backward")(
-        x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-        w.data_ptr(), dx.data_ptr(), sdy.data_ptr(), sdyx.data_ptr(),
-        part.data_ptr(), coef.data_ptr(), _DTYPE_CODE[x2.dtype], R, C,
-        n_chunks, rows, _stream(x2))
-    _raise_on(err, "bn_backward", x2)
-    with _launch_lock:
-        bn_backward.launches += 1
+    ptrs = (x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+            w.data_ptr(), dx.data_ptr(), sdy.data_ptr(), sdyx.data_ptr())
+    if rt == "vec":
+        sms, tickets = _device_state(x2.device)
+        n_chunks, rows = _vec_chunks(R, C, x2.element_size(), sms)
+        part = torch.empty(2 * n_chunks * C, **f32)
+        err = _kernel("bigdl_bn_backward_vec")(
+            *ptrs, part.data_ptr(), coef.data_ptr(), tickets.data_ptr(),
+            _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
+    else:
+        n_chunks, rows = _chunks(R, C)
+        part = torch.empty(2 * n_chunks * C, **f32)
+        err = _kernel("bigdl_bn_backward")(
+            *ptrs, part.data_ptr(), coef.data_ptr(), _DTYPE_CODE[x2.dtype],
+            R, C, n_chunks, rows, _stream(x2))
+    _raise_on(err, f"bn_backward ({rt})", x2)
+    _count(bn_backward, rt)
     return dx, sdy, sdyx
 
 
@@ -256,8 +350,9 @@ def bn_stats(x2):
 
 
 def bn_grad_stats(x2, dy2, mean, inv):
-    """(Σdy, Σdy·x̂) over the rows of [R, C] (B4), float32.  CPU tensors
-    take :func:`bn_grad_stats_reference`."""
+    """(Σdy, Σdy·x̂) over the rows of [R, C] (B4), float32, on the kernel
+    :func:`route` picks.  CPU tensors take
+    :func:`bn_grad_stats_reference`."""
     if x2.device.type == "cpu":
         return bn_grad_stats_reference(x2, dy2, mean, inv)
     _cuda("bn_grad_stats", x2)
@@ -265,17 +360,26 @@ def bn_grad_stats(x2, dy2, mean, inv):
     _check_dy("bn_grad_stats", x2, dy2)
     R, C = x2.shape
     _check_vec("bn_grad_stats", C, mean, inv)
-    n_chunks, rows = _chunks(R, C)
+    rt = route(x2, dy2)
     f32 = dict(dtype=torch.float32, device=x2.device)
     sdy, sdyx = torch.empty(C, **f32), torch.empty(C, **f32)
-    part = torch.empty(2 * n_chunks * C, **f32)
-    err = _kernel("bigdl_bn_grad_stats")(
-        x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-        sdy.data_ptr(), sdyx.data_ptr(), part.data_ptr(),
-        _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
-    _raise_on(err, "bn_grad_stats", x2)
-    with _launch_lock:
-        bn_grad_stats.launches += 1
+    ptrs = (x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+            sdy.data_ptr(), sdyx.data_ptr())
+    if rt == "vec":
+        sms, tickets = _device_state(x2.device)
+        n_chunks, rows = _vec_chunks(R, C, x2.element_size(), sms)
+        part = torch.empty(2 * n_chunks * C, **f32)
+        err = _kernel("bigdl_bn_grad_stats_vec")(
+            *ptrs, part.data_ptr(), tickets.data_ptr(),
+            _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
+    else:
+        n_chunks, rows = _chunks(R, C)
+        part = torch.empty(2 * n_chunks * C, **f32)
+        err = _kernel("bigdl_bn_grad_stats")(
+            *ptrs, part.data_ptr(), _DTYPE_CODE[x2.dtype], R, C, n_chunks,
+            rows, _stream(x2))
+    _raise_on(err, f"bn_grad_stats ({rt})", x2)
+    _count(bn_grad_stats, rt)
     return sdy, sdyx
 
 
@@ -283,6 +387,8 @@ bn_forward.launches = 0
 bn_backward.launches = 0
 bn_stats.launches = 0
 bn_grad_stats.launches = 0
+bn_backward.route_launches = {"vec": 0, "scalar": 0}
+bn_grad_stats.route_launches = {"vec": 0, "scalar": 0}
 
 
 # -- differentiable entry point -----------------------------------------------

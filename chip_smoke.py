@@ -43,8 +43,10 @@ Phases, each printing one JSON line:
    step gives the BatchNorm and conv-BN kernels, then ``bn_kernels`` (next
    item), then ``TRAIN_STEPS`` timed steps.  Every loss must be finite, the
    launch counts exactly 20 B1, 20 B2, 33 B5 (all on B5's ``"tc"`` route:
-   wgmma fed by TMA) and 33 B4 per step, and the running statistics must
-   move.  Then the unfused model from the same
+   wgmma fed by TMA) and 33 B4 per step, every B2 and B4 launch on their
+   ``"vec"`` route (16-byte pieces a thread, B4's sums finished in the same
+   launch, B2's dx pass walking the rows back through L2), and the running
+   statistics must move.  Then the unfused model from the same
    seed takes its first step on the same batch (all 53 BatchNorms on
    B1/B2) and must give the fused model's first loss within
    ``UNFUSED_ATOL``; and a small bottleneck ResNet in float32 (TF32 off,
@@ -54,10 +56,18 @@ Phases, each printing one JSON line:
    B4 ``bn_grad_stats`` and B5 ``matmul_stats`` against their plain
    versions at every distinct shape the step gave them (bf16), plus
    float32 and ragged cases, each timed beside its plain version, a
-   PyTorch yardstick call and its bound.  Each B5 case names the route
-   it took (the ragged bf16 (37, 19, 70), which no tensor map can
-   describe, must take ``"mma_sync"``) and is called twice on the same
-   inputs: Σy and Σy² must come out bit-identical.
+   PyTorch yardstick call and its bound (``fits_l2`` marks a case whose
+   operands fit the 50 MB L2: graph replays re-read the same buffers, so
+   a share of the HBM bound above 100% there is L2, not a fault).  Each
+   B5, B4 and B2 case names the route it took (every step shape of B4 and
+   B2 must take ``"vec"``; the ragged bf16 (37, 19, 70) of B5, which no
+   tensor map can describe, ``"mma_sync"``; the ragged bf16 (1000, 130) of
+   B4 and B2 ``"scalar"``) and is called twice on the same inputs: the
+   sums (Σy and Σy²; Σdy and Σdy·x̂) must come out bit-identical, and B2's
+   sums must equal B4's on the same inputs bit for bit.  B2 also reports
+   ``floor_ms``, the two-pass floor: x and dy read twice and dx written
+   once, what B2 pays where x and dy exceed L2 (``bound_ms`` counts one
+   read of each).
 7. ``dp_train``: the same ResNet-50, weights and images trained
    data-parallel: ``Engine.init()`` (NCCL, a world of one rank), a
    ``DistributedDataSet`` and ``Optimizer``'s ``DataParallel`` strategy,
@@ -65,9 +75,9 @@ Phases, each printing one JSON line:
    the shapes the step gives B3 ``bn_stats`` and B4, which then go through
    ``bn_kernels`` as above (and B3's sums must give B1's mean and var bit
    for bit), then ``TRAIN_STEPS`` timed steps.  Launches per step exactly
-   20 B3, 53 B4, 33 B5 and no B1 or B2; all-reduces per step exactly 53
-   of BN statistics, 53 of gradient statistics and one of the gradients
-   (with the loss); the first loss within ``UNFUSED_ATOL`` of the
+   20 B3, 53 B4 (all ``"vec"``), 33 B5 and no B1 or B2; all-reduces per
+   step exactly 53 of BN statistics, 53 of gradient statistics and one of
+   the gradients (with the loss); the first loss within ``UNFUSED_ATOL`` of the
    ``train`` phase's; one profiled step gives the collectives' share.
 8. ``dp_two_process``: two processes on the one card in a gloo group (NCCL
    refuses two ranks on one GPU) train the small bottleneck ResNet in
@@ -77,9 +87,10 @@ Phases, each printing one JSON line:
    running statistics within ``DP_F32_ATOL``, both ranks bit-identical,
    and each rank's B3, B4 and B5 launch counts non-zero.
 
-Then a ``kernels`` line (one entry per kernel, with its launches on its
-path: B6 on the serving path, B3 per timed data-parallel run, the others
-per timed training run; B6 and B5 also per route), the card's name and
+Then a ``kernels`` line (one entry per kernel and path, with its launches
+on that path: B6 on the serving path, B3 and B4 per timed data-parallel
+run, B1, B2, B4 and B5 per timed training run; B6, B5, B4 and B2 also per
+route), the card's name and
 power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -125,6 +136,8 @@ N_REQUESTS = 16
 # operands' type (bf16 on the tensor cores, float32 on the CUDA cores)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the L2 cache: a case whose operands fit is marked ``fits_l2``
+L2_BYTES = 50 * 2 ** 20
 
 # kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|:
 # float32 (TF32 off): the two differ in summation order only.
@@ -500,12 +513,17 @@ TRAIN_KERNELS = {
 # B4 x̂ and sums
 BN_FLOPS_PER_ELEM = {"bn_forward": 5, "bn_backward": 12, "bn_stats": 3,
                      "bn_grad_stats": 6}
+#: training-path kernels with more than one route
+ROUTED = {"matmul_stats": cb_ops.matmul_stats,
+          "bn_grad_stats": bn_ops.bn_grad_stats,
+          "bn_backward": bn_ops.bn_backward}
 
 
 def zero_counts():
     for fn, _, _ in TRAIN_KERNELS.values():
         fn.launches = 0
-    zero_routes(cb_ops.matmul_stats)
+    for fn in ROUTED.values():
+        zero_routes(fn)
 
 
 def counts():
@@ -518,6 +536,24 @@ def zero_routes(fn):
 
 def b5_routes():
     return dict(cb_ops.matmul_stats.route_launches)
+
+
+def route_counts():
+    """Launches by route of every kernel that has routes."""
+    return {k: dict(fn.route_launches) for k, fn in ROUTED.items()}
+
+
+#: the route every bf16 launch of a training step must take
+STEP_ROUTES = {"matmul_stats": "tc", "bn_grad_stats": "vec",
+               "bn_backward": "vec"}
+
+
+def check_step_routes(launched, what):
+    """Every launch in ``launched`` of a routed kernel on its step route."""
+    for kind, rt in STEP_ROUTES.items():
+        check(only_route(ROUTED[kind], rt, launched[kind]),
+              f"{what}: {kind} launches by route "
+              f"{ROUTED[kind].route_launches}")
 
 
 def only_route(fn, route, n):
@@ -632,6 +668,8 @@ def bn_case(kind, shape, dtype, gen, calls=0):
                     dy, x, w, None, None, mean, inv, True, BN_EPS,
                     [True, True, True])
             nbytes = 3 * item * R * C + 4 * 5 * C
+            # x and dy read twice: what B2 pays where they exceed L2
+            floor_bytes = 5 * item * R * C + 4 * 5 * C
         elif kind == "bn_stats":
             args = (x,)
 
@@ -652,20 +690,27 @@ def bn_case(kind, shape, dtype, gen, calls=0):
              "bn_grad_stats": bn_ops.bn_grad_stats_reference,
              "matmul_stats": cb_ops.matmul_stats_reference}[kind]
     extra = {}
-    if kind == "matmul_stats":
+    if kind in ROUTED:
         zero_routes(fn)
-        extra["route"] = cb_ops.route(x, w)
+        extra["route"] = (cb_ops.route(x, w) if kind == "matmul_stats"
+                          else bn_ops.route(x, dy))
     got, ref = fn(*args), plain(*args)
     torch.cuda.synchronize()
     ok, worst_abs, worst_rel = True, 0.0, 0.0
-    if kind == "matmul_stats":
-        # the route was chosen before the launch, and the statistics are
+    if kind in ROUTED:
+        # the route was chosen before the launch, and the sums are
         # bit-reproducible: a second call on the same inputs
         again = fn(*args)
-        extra["repeatable"] = (torch.equal(got[1], again[1])
-                               and torch.equal(got[2], again[2]))
+        sums = (0, 1) if kind == "bn_grad_stats" else (1, 2)
+        extra["repeatable"] = all(torch.equal(got[i], again[i])
+                                  for i in sums)
         ok = only_route(fn, extra["route"], 2) and extra["repeatable"]
         del again
+    if kind == "bn_backward":
+        b4 = bn_ops.bn_grad_stats(x, dy, mean, inv)
+        extra["sums_equal_b4"] = (torch.equal(got[1], b4[0])
+                                  and torch.equal(got[2], b4[1]))
+        ok = ok and extra["sums_equal_b4"]
     for i, (o, r) in enumerate(zip(got, ref)):
         a, rel = rel_err(o, r)
         tol = (BN_TOL["bf16_out"] if i in out_idx and dtype == torch.bfloat16
@@ -682,7 +727,11 @@ def bn_case(kind, shape, dtype, gen, calls=0):
             "plain_ms": cuda_ms(lambda: plain(*args), iters=5, warmup=1),
             "library_ms": lib_ms, "ms_over_library": ratio(ms, lib_ms),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / ms, "bytes": nbytes, "flops": flops}
+            "bound_share": bound_ms / ms, "bytes": nbytes, "flops": flops,
+            "fits_l2": nbytes <= L2_BYTES}
+    if kind == "bn_backward":
+        case["floor_ms"] = floor_bytes / PEAK_BYTES * 1e3
+        case["floor_share"] = case["floor_ms"] / ms
     if lib_note:
         case["library_note"] = lib_note
     return case
@@ -718,6 +767,15 @@ def phase_bn_kernels(seen, kinds, path):
                       if c["calls_per_step"]), f"B5 step routes {routes}")
             check(routes[(37, 19, 70), "bfloat16"] == "mma_sync",
                   f"B5 ragged bf16 route {routes}")
+        if kind in ("bn_grad_stats", "bn_backward"):
+            # every step shape on the streaming kernel; a ragged C on the
+            # one-element-a-thread one
+            routes = {(tuple(c["shape"]), c["dtype"]): c["route"]
+                      for c in cases}
+            check(all(c["route"] == "vec" for c in cases
+                      if c["calls_per_step"]), f"{kind} step routes {routes}")
+            check(routes[(1000, 130), "bfloat16"] == "scalar",
+                  f"{kind} ragged bf16 route {routes}")
         step = [c for c in cases if c["calls_per_step"]]
         # the step's largest call: the most bytes to move
         reps[kind] = (max(step, key=lambda c: (c["bytes"], c["flops"])),
@@ -877,8 +935,7 @@ def phase_train():
     for h in handles:
         h.remove()
     check(counts() == STEP_LAUNCHES, f"warm-up launches {counts()}")
-    check(only_route(cb_ops.matmul_stats, "tc", STEP_LAUNCHES["matmul_stats"]),
-          f"warm-up B5 routes {b5_routes()}")
+    check_step_routes(STEP_LAUNCHES, "warm-up")
     for kind, n in STEP_SHAPES.items():
         check(len(seen[kind]) == n and sum(seen[kind].values())
               == STEP_LAUNCHES[kind], f"{kind} shapes {dict(seen[kind])}")
@@ -900,14 +957,13 @@ def phase_train():
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launched = counts()
-    routes = b5_routes()
+    routes = route_counts()
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     stats_after = torch.cat([b.float().flatten() for b in model.buffers()])
     check(launched == {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()},
           f"launches over {TRAIN_STEPS} steps: {launched}")
-    check(only_route(cb_ops.matmul_stats, "tc", launched["matmul_stats"]),
-          f"B5 routes over {TRAIN_STEPS} steps: {routes}")
+    check_step_routes(launched, f"{TRAIN_STEPS} steps")
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"losses {losses}")
     moved = float((stats_after - stats_before).abs().max())
@@ -936,6 +992,7 @@ def phase_train():
     zero_counts()
     unfused_first = train(unfused, samples, 1, TRAIN_BATCH)
     unfused_launches = counts()
+    check_step_routes(unfused_launches, "unfused step")
     del unfused
     torch.cuda.empty_cache()
     check(unfused_launches == {"bn_forward": 53, "bn_backward": 53,
@@ -956,16 +1013,17 @@ def phase_train():
           "losses": losses, "first_loss_fused": first[0],
           "first_loss_unfused": unfused_first[0], "fused_vs_unfused": diff,
           "unfused_tol": UNFUSED_ATOL, "launches": launched,
-          "b5_route_launches": routes, "unfused_launches": unfused_launches,
+          "route_launches": routes, "unfused_launches": unfused_launches,
           "running_stats_max_move": moved,
           "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
           "kernel_share_of_step": shares, **prof, **f32})
     return kernel_rows(reps, launched, "train", routes), first[0]
 
 
-def kernel_rows(reps, launched, path, b5_routes_run=None):
+def kernel_rows(reps, launched, path, routes):
     """The ``kernels`` line's entries of the kernels in ``reps``, with
-    their launches in the timed run of ``path`` (B5's also by route)."""
+    their launches in the timed run of ``path`` (the routed kernels' also
+    by route, from ``routes``)."""
     rows = []
     for kind, (rep, _) in reps.items():
         _, source, replaces = TRAIN_KERNELS[kind]
@@ -976,9 +1034,9 @@ def kernel_rows(reps, launched, path, b5_routes_run=None):
                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                "library_ms": rep["library_ms"],
                "ms_over_library": rep["ms_over_library"]}
-        if kind == "matmul_stats":
+        if kind in ROUTED:
             row.update(kernel_route=rep["route"],
-                       route_launches=b5_routes_run)
+                       route_launches=routes[kind])
         rows.append(row)
     return rows
 
@@ -1037,9 +1095,7 @@ def phase_dp_train(single_first_loss):
     for h in handles:
         h.remove()
     check(counts() == DP_STEP_LAUNCHES, f"warm-up launches {counts()}")
-    check(only_route(cb_ops.matmul_stats, "tc",
-                     DP_STEP_LAUNCHES["matmul_stats"]),
-          f"warm-up B5 routes {b5_routes()}")
+    check_step_routes(DP_STEP_LAUNCHES, "data-parallel warm-up")
     check(Engine.all_reduces == DP_STEP_ALL_REDUCES,
           f"warm-up all-reduces {dict(Engine.all_reduces)}")
     for kind, n in DP_STEP_SHAPES.items():
@@ -1065,7 +1121,7 @@ def phase_dp_train(single_first_loss):
     end.record()
     torch.cuda.synchronize()
     launched = counts()
-    routes = b5_routes()
+    routes = route_counts()
     all_reduces = dict(Engine.all_reduces)
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
@@ -1073,8 +1129,7 @@ def phase_dp_train(single_first_loss):
     check(launched == {k: v * TRAIN_STEPS
                        for k, v in DP_STEP_LAUNCHES.items()},
           f"launches over {TRAIN_STEPS} steps: {launched}")
-    check(only_route(cb_ops.matmul_stats, "tc", launched["matmul_stats"]),
-          f"B5 routes over {TRAIN_STEPS} steps: {routes}")
+    check_step_routes(launched, f"{TRAIN_STEPS} data-parallel steps")
     check(all_reduces == {k: v * TRAIN_STEPS
                           for k, v in DP_STEP_ALL_REDUCES.items()},
           f"all-reduces over {TRAIN_STEPS} steps: {all_reduces}")
@@ -1097,12 +1152,12 @@ def phase_dp_train(single_first_loss):
           "first_loss": first[0], "first_loss_single_device":
           single_first_loss, "vs_single_device": diff,
           "tol": UNFUSED_ATOL, "launches": launched,
-          "b5_route_launches": routes,
+          "route_launches": routes,
           "all_reduces": all_reduces, "all_reduce_host_us": probe_us,
           "running_stats_max_move": moved,
           "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
           **bit, **prof})
-    return kernel_rows({"bn_stats": reps["bn_stats"]}, launched, "dp_train")
+    return kernel_rows(reps, launched, "dp_train", routes)
 
 
 # -- 8. dp_two_process ------------------------------------------------------

@@ -281,3 +281,119 @@ def test_operands_tma_cannot_describe_take_mma_sync():
     w = torch.zeros((64, 64), dtype=torch.bfloat16)
     assert tcb.route(x, w) == "mma_sync"
     assert tcb.route(flat[8:].view(100, 64), w) == "tc"
+
+
+# (R, C) of the B4 calls of a fused ResNet-50 step at batch 256, 224x224,
+# and of the data-parallel step's unfused stem (3211264, 64); the 8 B2
+# shapes of the step are among them (chip_smoke.py records both on the card)
+RESNET50_B4_SHAPES = [
+    (802816, 64), (802816, 128), (802816, 256), (200704, 128),
+    (200704, 256), (200704, 512), (50176, 256), (50176, 512),
+    (50176, 1024), (12544, 512), (12544, 2048), (3211264, 64)]
+RESNET50_B2_SHAPES = [
+    (3211264, 64), (802816, 64), (200704, 128), (200704, 512),
+    (50176, 256), (50176, 1024), (12544, 512), (12544, 2048)]
+BN_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _rows(R, C, dtype):
+    """An [R, C] operand without R·C elements of memory: the route reads
+    dtype, C and the base's alignment only."""
+    return torch.empty((1, C), dtype=dtype).expand(R, C)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,C", RESNET50_B4_SHAPES)
+def test_resnet50_bn_shapes_take_the_vec_route(R, C, dtype):
+    """Every B4 and B2 call of the training step goes to the streaming
+    kernel, in bf16 and in float32."""
+    assert set(RESNET50_B2_SHAPES) <= set(RESNET50_B4_SHAPES)
+    x = _rows(R, C, BN_TORCH_DTYPES[dtype])
+    assert tbn.route(x, _rows(R, C, BN_TORCH_DTYPES[dtype])) == "vec"
+
+
+def test_ragged_or_misaligned_operands_take_scalar():
+    """Rows that are no whole number of 16-byte pieces (chip_smoke's
+    (1000, 3) and (1000, 130) in bf16) and views whose base is not 16-byte
+    aligned go to the one-element-a-thread kernel, chosen before any
+    launch."""
+    for R, C in [(1000, 3), (1000, 130)]:
+        x = _rows(R, C, torch.bfloat16)
+        assert tbn.route(x, x) == "scalar"
+    assert tbn.route(*[_rows(1000, 130, torch.float32)] * 2) == "scalar"
+    flat = torch.zeros(8 + 100 * 64, dtype=torch.bfloat16)
+    odd = flat[1:1 + 100 * 64].view(100, 64)
+    even = flat[8:].view(100, 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    assert tbn.route(odd, even) == tbn.route(even, odd) == "scalar"
+    assert tbn.route(even, even) == "vec"
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("R,C", RESNET50_B4_SHAPES + [(500, 64), (300, 256),
+                                                      (1000, 24), (7, 64)])
+def test_vec_chunks_cover_every_row_once(R, C, itemsize):
+    """Route "vec"'s (row chunk x column tile) grid: chunks are whole row
+    steps of the block, cover [0, R) with no empty chunk, fill about two
+    blocks a SM, and are a function of the shape and SM count alone."""
+    pt, rl, tiles, w = tbn._vec_layout(C, itemsize)
+    assert pt * rl <= 256 and w == pt * 16 // itemsize
+    assert tiles * w >= C > (tiles - 1) * w
+    n, rows = tbn._vec_chunks(R, C, itemsize, 132)
+    assert (n, rows) == tbn._vec_chunks(R, C, itemsize, 132)
+    assert rows % rl == 0 and (n - 1) * rows < R <= n * rows
+    assert n * tiles <= 2 * 132 + tiles
+    if R * rl <= 10 ** 6:
+        # row lane l of chunk k takes k·rows + l, + rl, ... below the
+        # chunk's end: every row exactly once
+        seen = np.zeros(R, np.int64)
+        for k in range(n):
+            for lane in range(rl):
+                seen[k * rows + lane:min(R, (k + 1) * rows):rl] += 1
+        assert (seen == 1).all()
+
+
+def _vec_sums_emulated(x, dy, mean, inv, itemsize, sm_count=132):
+    """Route "vec"'s B4 sums in its own float32 order: each row lane of a
+    block sums its rows (stride rl) in order, the block sums its row lanes
+    in lane order into one partial row per chunk, and the tile's finishing
+    block sums chunk k on k-lane k mod kl_n, then the k-lanes in order."""
+    R, C = x.shape
+    _, rl, _, w = tbn._vec_layout(C, itemsize)
+    n, rows = tbn._vec_chunks(R, C, itemsize, sm_count)
+    xhat = ((x - mean) * inv).astype(np.float32)
+    part = np.zeros((n, 2, C), np.float32)
+    for k in range(n):
+        block = np.zeros((2, C), np.float32)
+        for lane in range(rl):
+            s = np.zeros(C, np.float32)
+            q = np.zeros(C, np.float32)
+            for r in range(k * rows + lane, min(R, (k + 1) * rows), rl):
+                s = s + dy[r]
+                q = q + dy[r] * xhat[r]
+            block = block + np.stack([s, q])
+        part[k] = block
+    kl_n = 256 // (w // 2)
+    lanes = [np.zeros((2, C), np.float32) for _ in range(kl_n)]
+    for k in range(n):
+        lanes[k % kl_n] = lanes[k % kl_n] + part[k]
+    total = lanes[0]
+    for lane in lanes[1:]:
+        total = total + lane
+    return total
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("R,C", [(500, 64), (300, 256)])
+def test_vec_summation_order_matches_reference(R, C, itemsize):
+    """The "vec" kernel's summation order, emulated in float32, agrees
+    with the plain version within the float32 tolerance (the two differ in
+    summation order only), for the bf16 and the float32 block layout."""
+    x, dy, _, _ = _bn_inputs(R, C, seed=R + C + itemsize)
+    mean = x.mean(0).astype(np.float32)
+    inv = (1.0 / np.sqrt(x.var(0) + EPS)).astype(np.float32)
+    sdy, sdyx = _vec_sums_emulated(x, dy, mean, inv, itemsize)
+    rs, rsx = tbn.bn_grad_stats_reference(*(torch.from_numpy(a) for a in
+                                            (x, dy, mean, inv)))
+    _close(sdy, rs, F32)
+    _close(sdyx, rsx, F32)
