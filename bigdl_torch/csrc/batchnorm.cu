@@ -20,10 +20,13 @@
 //    pass of B2 alone; the fused conv-BN backward (ops/convbn.py) and
 //    sync-BN's backward use it.
 //
-// B1, B3 and route "scalar" of B2 and B4 (the first design).  The TPU
-// kernels carry (Σ, Σ²) across a sequential grid in VMEM scratch; blocks on
-// the card run in no order, so every reduction is split in two fixed-order
-// passes instead of atomics:
+// Every kernel has two routes; ops/batchnorm.py `route` picks one from
+// dtype, C and the bases' alignment before the launch.
+//
+// Route "scalar" (the first design; for the calls "vec" does not take:
+// ragged C, misaligned views).  The TPU kernels carry (Σ, Σ²) across a
+// sequential grid in VMEM scratch; blocks on the card run in no order, so
+// every reduction is split in two fixed-order passes instead of atomics:
 //  1. stats: a grid of (row chunk, 32-channel tile) blocks of 32 x 8
 //     threads.  Lane x owns one channel, the 8 row lanes stride the chunk's
 //     rows, and the 8 row-lane sums meet in shared memory in a fixed order.
@@ -35,33 +38,34 @@
 //  3. B1 and B2 then run one elementwise pass over [R, C] with a
 //     grid-stride loop that advances each thread's channel incrementally
 //     (no 64-bit modulo per element).
-// No float atomics, and the chunking depends on the shape only, so results
-// are bit-reproducible from run to run.  Rows past R are never read: there is
-// no host padding.  All offsets are 64-bit (R·C reaches 2·10^8 in
-// ResNet-50's stem at batch 256).
+// It loads one element per thread per row (2 bytes in bf16): on an H100
+// SXM at 700 W it reached 40% (B1), 75% (B3), 60% (B4) and 35% (B2) of the
+// memory rate (chip_smoke.py).
 //
-// What bounds it on an H100: bytes.  B1 reads x twice and writes y once,
-// as on the TPU; B2 reads (x, dy) twice and writes dx once; B3 reads x
-// once; B4 reads (x, dy) once.  Every pass does a few float operations per
-// element, far below the card's ridge.  The kernels above load one element
-// per thread per row (2 bytes in bf16): on an H100 SXM at 700 W, B1 and
-// B3 reach 40% and 75% of the memory rate, this B4 60% and this B2 35%
-// (chip_smoke.py).  They stay as route "scalar" of B2 and B4, for the calls
-// route "vec" does not take (ragged C, misaligned views).
+// What bounds every kernel on an H100: bytes.  B1 reads x twice and writes
+// y once, as on the TPU; B2 reads (x, dy) twice and writes dx once; B3
+// reads x once; B4 reads (x, dy) once.  Every pass does a few float
+// operations per element, far below the card's ridge.
 //
-// Route "vec" of B4 and B2 (rows of whole 16-byte pieces, 16-byte aligned
-// bases) is built to stream at the memory rate:
+// Route "vec" (rows of whole 16-byte pieces, 16-byte aligned bases) is
+// built to stream at the memory rate.  One stats kernel serves all four:
+// stats_vec_kernel sums (Σx, Σx²) for B1 and B3, or (Σdy, Σdy·x̂) for B4
+// and B2.
 //  - A thread owns one 16-byte piece of a row (8 bf16 or 4 float32
 //    channels) and walks the rows of its block's chunk with a stride:
-//    16-byte loads, the piece's mean and inv in registers, row offsets
-//    stepped by adding.  Loads of four rows of x and dy are issued before
-//    the first is used (128 bytes a thread in flight), with
-//    ld.global.nc.L1::no_allocate: the data is used once.
+//    16-byte loads, row offsets stepped by adding, 128 bytes a thread in
+//    flight before the first is used (4 rows of x and dy, or 8 rows of x),
+//    with ld.global.nc.L1::no_allocate: a row is read once by the pass, and
+//    L2 keeps its normal policy, so B1's and B2's second pass finds the
+//    last rows read still there.
 //  - A block of 256 threads covers a column tile of at most 32 pieces (512
-//    bytes of a row) and 256 / pieces rows per step, so each warp reads
-//    whole 128-byte lines: 32 rows a step at C = 64 bf16, 8 at C >= 256.
-//    A narrower tile than the whole row keeps the partials, which one
-//    block sums at the end, at 2 x blocks x tile floats (about 0.5 MB).
+//    bytes of a row) of (x, dy), or 16 pieces of x alone, and 256 / pieces
+//    rows per step, so each warp reads whole 128-byte lines: 32 rows a
+//    step at C = 64 bf16, 8 at C >= 256 for B4.  A narrower tile than the
+//    whole row keeps the partials, which one block sums at the end, at
+//    2 x chunks x tile floats (at most about 0.5 MB); B1's and B3's
+//    narrower tile halves them again, which the L2-sized calls need: there
+//    the finish is as long as the data pass.
 //  - The grid is (row chunk, column tile), about two blocks per SM; the
 //    chunking is a function of (R, C, dtype, SM count) only
 //    (ops/batchnorm.py `_vec_chunks`).
@@ -69,22 +73,28 @@
 //    order and writes one partial row; the last block of a column tile to
 //    arrive (a ticket counter per tile, taken after __threadfence()) sums
 //    the tile's partials in a fixed order (chunk k on k-lane k mod kl_n,
-//    then the k-lanes in order), writes the sums (and B2's coefficients) and
-//    resets its counter for the next launch.  That block is alone on the
-//    card by then, so it issues 16 partial loads a thread before adding
-//    any: one at a time, each an L2 round trip, the finish cost as much as
-//    the whole data pass of an L2-sized call.  Arrival order picks which
-//    block finishes, never the order of a sum, so the sums are
-//    bit-reproducible, and B2's equal B4's: B2's first pass is this kernel.
-//  - B2's dx pass keeps the thread-owns-a-piece layout (16-byte loads and
-//    stores, five coefficients a channel in registers) and walks each
-//    thread's rows backwards, so it first rereads what the stats pass read
-//    last, the part of (x, dy) still in the 50 MB L2.  Its coefficients
-//    are w·inv, sdy/R and sdyx/R, divided once per channel: dx =
-//    w·inv·((dy − sdy/R) − x̂·(sdyx/R)) differs from the scalar route's
-//    x̂·sdyx/R by at most one float32 rounding, far inside the bf16 and
-//    float32 tolerances.  Its loads and stores are streaming (evict
-//    first), keeping the unread part of (x, dy) in L2.
+//    then the k-lanes in order), finishes them and resets its counter for
+//    the next launch.  That block is alone on the card by then, so it
+//    issues 16 partial loads a thread before adding any: one at a time,
+//    each an L2 round trip, the finish cost as much as the whole data pass
+//    of an L2-sized call.  Arrival order picks which block finishes, never
+//    the order of a sum, so the sums are bit-reproducible; B2's equal B4's
+//    and B3's give B1's mean and var bit for bit, since each pair shares
+//    the kernel, the chunking and the order.
+//  - The finish writes the sums (B3, B4), the sums and B2's dx
+//    coefficients, or B1's mean, var, scale and shift with exactly the
+//    arithmetic of the scalar route's finish (mean = Σx/R, var = Σx²/R −
+//    mean², each operation rounded on its own).
+//  - B1's normalize and B2's dx pass keep the thread-owns-a-piece layout
+//    (16-byte loads and stores, the piece's coefficients in registers)
+//    and walk each thread's rows backwards, so they first reread what the
+//    stats pass read last, the part of x (and dy) still in the 50 MB L2.
+//    Their loads and stores are streaming (evict first), keeping the
+//    unread part in L2.  y = x·scale + shift is one fused multiply-add.
+//    B2's coefficients are w·inv, sdy/R and sdyx/R, divided once per
+//    channel: dx = w·inv·((dy − sdy/R) − x̂·(sdyx/R)) differs from the
+//    scalar route's x̂·sdyx/R by at most one float32 rounding, far inside
+//    the bf16 and float32 tolerances.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -264,12 +274,13 @@ dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// ---- route "vec" of B4 and B2 -----------------------------------------------
+// ---- route "vec" ------------------------------------------------------------
 
 constexpr int VT = 256;              // threads of a "vec" block
-constexpr int VEC_PIECES = 32;       // 16-byte pieces in a column tile
+constexpr int VEC_PIECES = 32;       // 16-byte pieces in a tile of (x, dy)
+constexpr int VEC_X_PIECES = 16;     // 16-byte pieces in a tile of x alone
 constexpr int VEC_MAX_TILES = 4096;  // ticket counters the wrapper allocates
-constexpr int VEC_ROWS = 4;          // rows a thread has in flight
+constexpr int VEC_ROWS = 4;          // rows of (x, dy) a thread has in flight
 constexpr int VEC_FIN_LOADS = 16;    // partial loads a finishing thread issues
 
 // One 16-byte piece of a row: N channels of T, unpacked to float32.
@@ -348,23 +359,29 @@ struct VecPlace {
   }
 };
 
-enum VecMode { kVecSums = 0, kVecBackward = 1 };
+enum VecMode { kVecSums = 0, kVecBackward = 1, kVecForward = 2 };
 
-// Pass 1 of B4 and B2 with its finish, in one launch: (Σdy, Σdy·x̂) over
-// the rows.  part is [2, n_chunks, C] float32 scratch; tickets[tile] is 0
-// on entry and again on exit.  kVecBackward also writes
-// coef = [w·inv | sdy/R | sdyx/R].
-template <typename T>
+// The stats pass of route "vec" with its finish, in one launch.  kGrad
+// picks what it sums over the rows, per channel: (Σdy, Σdy·x̂) for B4 and
+// B2 (x, dy, mean and inv read), or (Σx, Σx²) for B1 and B3 (x alone).
+// part is [2, n_chunks, C] float32 scratch; tickets[tile] is 0 on entry and
+// again on exit.  What the finishing block writes, by mode:
+//  kVecSums:     out0, out1 = the two sums (B4, B3)
+//  kVecBackward: the sums, and coef = [w·inv | sdy/R | sdyx/R] (B2)
+//  kVecForward:  out0 = mean, out1 = var, coef = [scale | shift] (B1), by
+//                the arithmetic of finish_kernel's kForward
+template <typename T, bool kGrad>
 __global__ void __launch_bounds__(VT, 2)
-grad_stats_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ inv,
-                      const float* __restrict__ wt, long long R, int C,
-                      long long rows_per_chunk, int pt,
-                      float* __restrict__ part, unsigned* tickets, int mode,
-                      float* __restrict__ sdy, float* __restrict__ sdyx,
-                      float* __restrict__ coef) {
+stats_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                 const float* __restrict__ mean, const float* __restrict__ inv,
+                 const float* __restrict__ wt, const float* __restrict__ bias,
+                 float eps, long long R, int C, long long rows_per_chunk,
+                 int pt, float* __restrict__ part, unsigned* tickets,
+                 int mode, float* __restrict__ out0, float* __restrict__ out1,
+                 float* __restrict__ coef) {
   constexpr int N = Piece<T>::N;
+  // rows a thread has in flight: 128 bytes of loads either way
+  constexpr int ROWS = kGrad ? VEC_ROWS : 2 * VEC_ROWS;
   // [lane][sum][channel of the tile]: rl · 2 · w = 2 · 256 · N floats
   __shared__ __align__(16) float red[2 * VT * N];
   __shared__ float4 fin[VT];
@@ -376,44 +393,55 @@ grad_stats_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   for (int j = 0; j < N; ++j) s[j] = q[j] = 0.f;
   if (at.lane < at.rl && at.c0 < C) {
     float m[N], iv[N];
+    if constexpr (kGrad) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      m[j] = mean[at.c0 + j];
-      iv[j] = inv[at.c0 + j];
+      for (int j = 0; j < N; ++j) {
+        m[j] = mean[at.c0 + j];
+        iv[j] = inv[at.c0 + j];
+      }
     }
     long long n = at.rows();
     const long long step = static_cast<long long>(at.rl) * C;
     const long long off = (at.r0 + at.lane) * C + at.c0;
     const T* px = x + off;
-    const T* pd = dy + off;
+    const T* pd = kGrad ? dy + off : nullptr;
     auto add = [&](const uint4& xv, const uint4& dv) {
-      float xf[N], gf[N];
+      float xf[N];
       Piece<T>::unpack(xv, xf);
-      Piece<T>::unpack(dv, gf);
+      if constexpr (kGrad) {
+        float gf[N];
+        Piece<T>::unpack(dv, gf);
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float xhat = (xf[j] - m[j]) * iv[j];
-        s[j] += gf[j];
-        q[j] += gf[j] * xhat;
+        for (int j = 0; j < N; ++j) {
+          const float xhat = (xf[j] - m[j]) * iv[j];
+          s[j] += gf[j];
+          q[j] += gf[j] * xhat;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          s[j] += xf[j];
+          q[j] += xf[j] * xf[j];
+        }
       }
     };
-    // VEC_ROWS rows of x and dy in flight before the first is used
-    for (; n >= VEC_ROWS; n -= VEC_ROWS) {
-      uint4 xv[VEC_ROWS], dv[VEC_ROWS];
+    // ROWS rows in flight before the first is used
+    for (; n >= ROWS; n -= ROWS) {
+      uint4 xv[ROWS], dv[ROWS];
 #pragma unroll
-      for (int u = 0; u < VEC_ROWS; ++u) {
+      for (int u = 0; u < ROWS; ++u) {
         xv[u] = ld_once(px + u * step);
-        dv[u] = ld_once(pd + u * step);
+        if constexpr (kGrad) dv[u] = ld_once(pd + u * step);
       }
 #pragma unroll
-      for (int u = 0; u < VEC_ROWS; ++u) add(xv[u], dv[u]);
-      px += VEC_ROWS * step;
-      pd += VEC_ROWS * step;
+      for (int u = 0; u < ROWS; ++u) add(xv[u], dv[u]);
+      px += ROWS * step;
+      if constexpr (kGrad) pd += ROWS * step;
     }
     for (; n > 0; --n) {
-      add(ld_once(px), ld_once(pd));
+      add(ld_once(px), kGrad ? ld_once(pd) : uint4{});
       px += step;
-      pd += step;
+      if constexpr (kGrad) pd += step;
     }
   }
   // the block's row lanes, summed in lane order: one partial row
@@ -482,17 +510,44 @@ grad_stats_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   fin[threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
-  if (static_cast<int>(threadIdx.x) >= groups || ch >= C) return;
+  const bool mine = static_cast<int>(threadIdx.x) < groups && ch < C;
   float t[4] = {acc.x, acc.y, acc.z, acc.w};
-  for (int k = 1; k < kl_n; ++k) {
-    const float4 v = fin[k * groups + g];
-    t[0] += v.x;
-    t[1] += v.y;
-    t[2] += v.z;
-    t[3] += v.w;
+  if (mine) {
+    for (int k = 1; k < kl_n; ++k) {
+      const float4 v = fin[k * groups + g];
+      t[0] += v.x;
+      t[1] += v.y;
+      t[2] += v.z;
+      t[3] += v.w;
+    }
   }
-  float* out = which == 0 ? sdy : sdyx;
   const float n = static_cast<float>(R);
+  if constexpr (!kGrad) {
+    if (mode == kVecForward) {
+      // a channel's Σx and Σx² lie with two threads: they meet in red,
+      // which the block no longer reads
+      if (mine) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[which * at.w + 4 * g % at.w + e] = t[e];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < at.w; c += VT) {
+        const int cc = static_cast<int>(blockIdx.y) * at.w + c;
+        if (cc >= C) break;
+        const float mu = red[c] / n;
+        const float var = __fsub_rn(red[at.w + c] / n, __fmul_rn(mu, mu));
+        const float scale = __fmul_rn(wt[cc], 1.f / sqrtf(var + eps));
+        out0[cc] = mu;
+        out1[cc] = var;
+        coef[cc] = scale;
+        coef[C + cc] = __fsub_rn(bias[cc], __fmul_rn(mu, scale));
+      }
+      return;
+    }
+  }
+  if (!mine) return;
+  float* out = which == 0 ? out0 : out1;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     out[ch + e] = t[e];
@@ -503,6 +558,57 @@ grad_stats_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     } else {
       coef[2 * C + ch + e] = t[e] / n;
     }
+  }
+}
+
+// Pass 2 of B1's route "vec": y = x·scale + shift in float32 (one fused
+// multiply-add), cast to x's dtype; each thread's rows walked from its last
+// to its first, 2 · VEC_ROWS of them in flight.
+template <typename T>
+__global__ void __launch_bounds__(VT, 2)
+normalize_vec_kernel(const T* __restrict__ x, const float* __restrict__ coef,
+                     T* __restrict__ y, long long R, int C,
+                     long long rows_per_chunk, int pt) {
+  constexpr int N = Piece<T>::N;
+  constexpr int ROWS = 2 * VEC_ROWS;
+  const VecPlace at(pt, N, R, rows_per_chunk);
+  if (at.lane >= at.rl || at.c0 >= C) return;
+  long long n = at.rows();
+  if (n == 0) return;
+  float a[N], b[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    a[j] = coef[at.c0 + j];
+    b[j] = coef[C + at.c0 + j];
+  }
+  // in 16-byte pieces: C / N of them a row
+  const long long step = static_cast<long long>(at.rl) * (C / N);
+  const long long off =
+      ((at.r0 + at.lane + (n - 1) * at.rl) * C + at.c0) / N;
+  const uint4* px = reinterpret_cast<const uint4*>(x) + off;
+  uint4* py = reinterpret_cast<uint4*>(y) + off;
+  auto one = [&](const uint4& xv) {
+    float f[N];
+    Piece<T>::unpack(xv, f);
+#pragma unroll
+    for (int j = 0; j < N; ++j) f[j] = fmaf(f[j], a[j], b[j]);
+    return Piece<T>::pack(f);
+  };
+  // streaming (evict-first) loads and stores: what is left of x in L2 is
+  // the rows this pass has yet to reach
+  for (; n >= ROWS; n -= ROWS) {
+    uint4 xv[ROWS];
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) xv[u] = __ldcs(px - u * step);
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) __stcs(py - u * step, one(xv[u]));
+    px -= ROWS * step;
+    py -= ROWS * step;
+  }
+  for (; n > 0; --n) {
+    __stcs(py, one(__ldcs(px)));
+    px -= step;
+    py -= step;
   }
 }
 
@@ -641,17 +747,18 @@ bool bad_shape(long long R, int C, int n_chunks, long long rows_per_chunk) {
 }
 
 // Route "vec": pieces of 16 bytes a row; a column tile of at most
-// VEC_PIECES of them.  Returns the tile's pieces, or 0 where the route does
+// max_pieces of them.  Returns the tile's pieces, or 0 where the route does
 // not take (C, the bases): C·sizeof(T) a multiple of 16, every base
 // 16-byte aligned, at most VEC_MAX_TILES tiles.
 template <typename T>
-int vec_tile(int C, std::initializer_list<const void*> bases) {
+int vec_tile(int C, int max_pieces,
+             std::initializer_list<const void*> bases) {
   constexpr int N = Piece<T>::N;
   for (const void* p : bases)
     if (reinterpret_cast<unsigned long long>(p) % 16 != 0) return 0;
   if (C % N != 0) return 0;
   const int pieces = C / N;
-  const int pt = pieces < VEC_PIECES ? pieces : VEC_PIECES;
+  const int pt = pieces < max_pieces ? pieces : max_pieces;
   return (pieces + pt - 1) / pt <= VEC_MAX_TILES ? pt : 0;
 }
 
@@ -661,12 +768,13 @@ int grad_sums_vec(const void* x, const void* dy, const float* mean,
                   float* part, float* coef, unsigned* tickets, long long R,
                   int C, int n_chunks, long long rows_per_chunk, int mode,
                   cudaStream_t st) {
-  const int pt = vec_tile<T>(C, {x, dy});
+  const int pt = vec_tile<T>(C, VEC_PIECES, {x, dy});
   if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (C / Piece<T>::N + pt - 1) / pt;
-  grad_stats_vec_kernel<T><<<dim3(n_chunks, tiles), VT, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, w, R,
-      C, rows_per_chunk, pt, part, tickets, mode, sdy, sdyx, coef);
+  stats_vec_kernel<T, true><<<dim3(n_chunks, tiles), VT, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, w,
+      nullptr, 0.f, R, C, rows_per_chunk, pt, part, tickets, mode, sdy, sdyx,
+      coef);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -676,7 +784,7 @@ int backward_vec(const void* x, const void* dy, const float* mean,
                  float* sdyx, float* part, float* coef, unsigned* tickets,
                  long long R, int C, int n_chunks, long long rows_per_chunk,
                  cudaStream_t st) {
-  const int pt = vec_tile<T>(C, {x, dy, dx});
+  const int pt = vec_tile<T>(C, VEC_PIECES, {x, dy, dx});
   if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
   int err = grad_sums_vec<T>(x, dy, mean, inv, w, sdy, sdyx, part, coef,
                              tickets, R, C, n_chunks, rows_per_chunk,
@@ -686,6 +794,39 @@ int backward_vec(const void* x, const void* dy, const float* mean,
   dx_vec_kernel<T><<<dim3(n_chunks, tiles), VT, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, coef,
       static_cast<T*>(dx), R, C, rows_per_chunk, pt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B3 (kVecSums: out0, out1 = Σx, Σx²) or B1's first pass (kVecForward:
+// mean, var and coef).
+template <typename T>
+int x_sums_vec(const void* x, const float* w, const float* b, float* out0,
+               float* out1, float* part, float* coef, unsigned* tickets,
+               long long R, int C, float eps, int n_chunks,
+               long long rows_per_chunk, int mode, cudaStream_t st) {
+  const int pt = vec_tile<T>(C, VEC_X_PIECES, {x});
+  if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (C / Piece<T>::N + pt - 1) / pt;
+  stats_vec_kernel<T, false><<<dim3(n_chunks, tiles), VT, 0, st>>>(
+      static_cast<const T*>(x), nullptr, nullptr, nullptr, w, b, eps, R, C,
+      rows_per_chunk, pt, part, tickets, mode, out0, out1, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int forward_vec(const void* x, const float* w, const float* b, void* y,
+                float* mean, float* var, float* part, float* coef,
+                unsigned* tickets, long long R, int C, float eps,
+                int n_chunks, long long rows_per_chunk, cudaStream_t st) {
+  const int pt = vec_tile<T>(C, VEC_X_PIECES, {x, y});
+  if (pt == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int err = x_sums_vec<T>(x, w, b, mean, var, part, coef, tickets, R, C, eps,
+                          n_chunks, rows_per_chunk, kVecForward, st);
+  if (err) return err;
+  const int tiles = (C / Piece<T>::N + pt - 1) / pt;
+  normalize_vec_kernel<T><<<dim3(n_chunks, tiles), VT, 0, st>>>(
+      static_cast<const T*>(x), coef, static_cast<T*>(y), R, C,
+      rows_per_chunk, pt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -815,5 +956,45 @@ extern "C" int bigdl_bn_backward_vec(const void* x, const void* dy,
     return backward_vec<__nv_bfloat16>(x, dy, mean, inv, w, dx, sdy, sdyx,
                                        part, coef, tickets, R, C, n_chunks,
                                        rows_per_chunk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Route "vec" of B1 and B3, on the same terms as B4's and B2's above; B3's
+// sums give B1's mean and var bit for bit (the same kernel, chunking and
+// order).
+extern "C" int bigdl_bn_forward_vec(const void* x, const float* w,
+                                    const float* b, void* y, float* mean,
+                                    float* var, float* part, float* coef,
+                                    unsigned* tickets, int dtype, long long R,
+                                    int C, float eps, int n_chunks,
+                                    long long rows_per_chunk, void* stream) {
+  if (bad_shape(R, C, n_chunks, rows_per_chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return forward_vec<float>(x, w, b, y, mean, var, part, coef, tickets, R,
+                              C, eps, n_chunks, rows_per_chunk, st);
+  if (dtype == 1)
+    return forward_vec<__nv_bfloat16>(x, w, b, y, mean, var, part, coef,
+                                      tickets, R, C, eps, n_chunks,
+                                      rows_per_chunk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int bigdl_bn_stats_vec(const void* x, float* sum, float* sumsq,
+                                  float* part, unsigned* tickets, int dtype,
+                                  long long R, int C, int n_chunks,
+                                  long long rows_per_chunk, void* stream) {
+  if (bad_shape(R, C, n_chunks, rows_per_chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return x_sums_vec<float>(x, nullptr, nullptr, sum, sumsq, part, nullptr,
+                             tickets, R, C, 0.f, n_chunks, rows_per_chunk,
+                             kVecSums, st);
+  if (dtype == 1)
+    return x_sums_vec<__nv_bfloat16>(x, nullptr, nullptr, sum, sumsq, part,
+                                     nullptr, tickets, R, C, 0.f, n_chunks,
+                                     rows_per_chunk, kVecSums, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,13 +21,17 @@ the CPU, and on a CUDA tensor launches ``bigdl_torch/csrc/batchnorm.cu``
 raises: there is no fallback and no switch.  ``fn.launches`` counts calls
 that launched the kernel.
 
-B4 and B2 have two routes each, picked by :func:`route` from dtype, C and
-the bases' alignment before the launch: ``"vec"`` (16-byte pieces a
-thread, one launch for B4's sums and their finish, B2's dx pass walking
-the rows back through L2) where every row is whole 16-byte pieces and the
-bases are 16-byte aligned, ``"scalar"`` (one element a thread) for the
-rest.  ``bn_grad_stats.route_launches`` and ``bn_backward.route_launches``
-count each route's launches.
+Each kernel has two routes, picked by :func:`route` from dtype, C and the
+bases' alignment before the launch: ``"vec"`` where every row is whole
+16-byte pieces and the bases are 16-byte aligned, ``"scalar"`` (one
+element a thread, a separate finish launch) for the rest.  On ``"vec"`` a
+thread owns a 16-byte piece of a row, and one launch takes the sums and
+their finish: B3's and B4's sums, B1's mean, var and coefficients, B2's
+sums and coefficients; B1's normalize and B2's dx are a second launch that
+walks the rows back through L2.  B1 and B3 pick their route from x alone,
+so for the same x they take the same route and chunking, and B3's sums
+give B1's mean and var bit for bit.  ``fn.route_launches`` counts each
+route's launches.
 
 The plain forward follows the TPU *kernel*, which computes y in float32 and
 casts (``ops/batchnorm.py:113``), not the reference's jnp oracle, which
@@ -59,10 +63,12 @@ _TILE_C = 32
 #: stat-pass blocks to aim for: about 8 resident on each of 132 SMs
 _TARGET_BLOCKS = 1056
 _MIN_CHUNK_ROWS = 64
-# route "vec" (``VT``, ``VEC_PIECES``, ``VEC_MAX_TILES`` in batchnorm.cu):
-# threads a block, 16-byte pieces in a column tile, ticket counters
+# route "vec" (``VT``, ``VEC_PIECES``, ``VEC_X_PIECES``, ``VEC_MAX_TILES``
+# in batchnorm.cu): threads a block, 16-byte pieces in a column tile of
+# (x, dy) (B4, B2) and of x alone (B1, B3), ticket counters
 _VEC_THREADS = 256
 _VEC_PIECES = 32
+_VEC_X_PIECES = 16
 _VEC_MAX_TILES = 4096
 #: "vec" blocks to aim for on each SM, and the fewest rows a row lane takes
 _VEC_BLOCKS_PER_SM = 2
@@ -137,6 +143,15 @@ _SIGNATURES = {
     "bigdl_bn_backward_vec": [ctypes.c_void_p] * 11 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p],
+    # x, w, b, y, mean, var, part, coef, tickets, dtype, R, C, eps,
+    # n_chunks, rows
+    "bigdl_bn_forward_vec": [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    # x, sum, sumsq, part, tickets, dtype, R, C, n_chunks, rows
+    "bigdl_bn_stats_vec": [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p],
 }
 
 
@@ -151,46 +166,62 @@ def _kernel(name: str):
 
 
 def _chunks(R: int, C: int):
-    """(n_chunks, rows_per_chunk) of the stat passes of B1, B3 and route
-    "scalar": enough (row chunk x 32-channel tile) blocks to fill the card,
-    each chunk at least 64 rows.  Depends on the shape only, so the
-    summation order is fixed."""
+    """(n_chunks, rows_per_chunk) of route "scalar"'s stat passes: enough
+    (row chunk x 32-channel tile) blocks to fill the card, each chunk at
+    least 64 rows.  Depends on the shape only, so the summation order is
+    fixed."""
     tiles = -(-C // _TILE_C)
     n = max(1, min(-(-R // _MIN_CHUNK_ROWS), -(-_TARGET_BLOCKS // tiles)))
     rows = -(-R // n)
     return -(-R // rows), rows
 
 
-def _vec_layout(C: int, itemsize: int):
+def _vec_layout(C: int, itemsize: int, max_pieces: int):
     """(pieces, row lanes, column tiles, tile width) of a route-"vec" block
     over rows of C channels of ``itemsize`` bytes: a thread owns one
-    16-byte piece, a block covers a tile of at most 32 pieces (tile width
-    channels) and 256 // pieces rows a step."""
+    16-byte piece, a block covers a tile of at most ``max_pieces`` pieces
+    (tile width channels) and 256 // pieces rows a step."""
     per = 16 // itemsize
     pieces = C // per
-    pt = min(pieces, _VEC_PIECES)
+    pt = min(pieces, max_pieces)
     return pt, _VEC_THREADS // pt, -(-pieces // pt), pt * per
 
 
-def route(x2, dy2) -> str:
-    """The B4 / B2 kernel that takes x2, dy2 [R, C] on the card: ``"vec"``
-    where each row is whole 16-byte pieces (C a multiple of 8 in bf16, of 4
-    in float32) and both bases are 16-byte aligned, ``"scalar"``
-    otherwise.  Reads dtype, C and the bases' alignment only."""
+def _max_pieces(dy2) -> int:
+    """The widest "vec" column tile, in 16-byte pieces: 32 for B4 and B2
+    (x and dy), 16 for B1 and B3 (x alone).  The tile sets the partials
+    that the finishing block of a tile reads, n_chunks x 2 x tile floats;
+    a narrower tile spreads the finish over more blocks.  For B1 and B3 a
+    16-piece tile beat 8 and 32 pieces over the ResNet-50 step's shapes on
+    an H100 (the 32-piece finish read 0.5 MB alone at [50176, 256])."""
+    return _VEC_X_PIECES if dy2 is None else _VEC_PIECES
+
+
+def route(x2, dy2=None) -> str:
+    """The kernel that takes x2 [R, C] on the card (B1, B3), or x2 and dy2
+    (B4, B2): ``"vec"`` where each row is whole 16-byte pieces (C a
+    multiple of 8 in bf16, of 4 in float32) and every base is 16-byte
+    aligned, ``"scalar"`` otherwise.  Reads dtype, C and the bases'
+    alignment only; B1's y and B2's dx, which the wrappers allocate, are
+    always aligned."""
     item = x2.element_size()
     C = x2.shape[-1]
     if (x2.dtype not in _DTYPE_CODE or C == 0 or C * item % 16
-            or x2.data_ptr() % 16 or dy2.data_ptr() % 16):
+            or x2.data_ptr() % 16
+            or (dy2 is not None and dy2.data_ptr() % 16)):
         return "scalar"
-    return "vec" if _vec_layout(C, item)[2] <= _VEC_MAX_TILES else "scalar"
+    tiles = _vec_layout(C, item, _max_pieces(dy2))[2]
+    return "vec" if tiles <= _VEC_MAX_TILES else "scalar"
 
 
-def _vec_chunks(R: int, C: int, itemsize: int, sm_count: int):
+def _vec_chunks(R: int, C: int, itemsize: int, sm_count: int,
+                max_pieces: int):
     """(n_chunks, rows_per_chunk) of route "vec": about two blocks per SM
     over (row chunk x column tile), each row lane at least 8 rows, chunks a
     whole number of row steps.  A function of (R, C, itemsize, sm_count)
-    only, so the summation order is fixed."""
-    _, rl, tiles, _ = _vec_layout(C, itemsize)
+    and the kernel's tile (``max_pieces``) only, so the summation order is
+    fixed."""
+    _, rl, tiles, _ = _vec_layout(C, itemsize, max_pieces)
     n = max(1, min(-(-R // (rl * _VEC_MIN_LANE_ROWS)),
                    -(-_VEC_BLOCKS_PER_SM * sm_count // tiles)))
     rows = -(-R // n)
@@ -212,6 +243,26 @@ def _device_state(device):
                 torch.cuda.get_device_properties(device).multi_processor_count,
                 torch.zeros(_VEC_MAX_TILES, dtype=torch.int32, device=device))
         return st
+
+
+def _plan(x2, dy2=None):
+    """(route, n_chunks, rows_per_chunk, tickets) of a launch over x2
+    [R, C] (and dy2) on the card: :func:`route`'s choice with its chunking
+    (``_vec_chunks`` or ``_chunks``), and on ``"vec"`` the device's ticket
+    counters (else None).
+
+    Every ``"vec"`` launch finishes through these counters: the last block
+    of a column tile to take its ticket sums the tile, and resets it.  Two
+    launches that finish by ticket must never run at once on one counter
+    array; they do not, because every wrapper launches on the current
+    stream and the port runs each device on one stream."""
+    R, C = x2.shape
+    rt = route(x2, dy2)
+    if rt == "vec":
+        sms, tickets = _device_state(x2.device)
+        return (rt, *_vec_chunks(R, C, x2.element_size(), sms,
+                                 _max_pieces(dy2)), tickets)
+    return (rt, *_chunks(R, C), None)
 
 
 def _count(fn, rt):
@@ -265,7 +316,8 @@ def _cuda(name, x2):
 
 def bn_forward(x2, weight, bias, eps: float):
     """Training BN forward over x2 [R, C] (B1): (y, mean, var), stats
-    float32.  CPU tensors take :func:`bn_forward_reference`."""
+    float32, on the kernel :func:`route` picks from x2.  CPU tensors take
+    :func:`bn_forward_reference`."""
     if x2.device.type == "cpu":
         return bn_forward_reference(x2, weight, bias, eps)
     _cuda("bn_forward", x2)
@@ -273,20 +325,25 @@ def bn_forward(x2, weight, bias, eps: float):
     _check("bn_forward", x2, w, b)
     R, C = x2.shape
     _check_vec("bn_forward", C, w, b)
-    n_chunks, rows = _chunks(R, C)
+    rt, n_chunks, rows, tickets = _plan(x2)
     f32 = dict(dtype=torch.float32, device=x2.device)
     y = torch.empty_like(x2)
     mean, var = torch.empty(C, **f32), torch.empty(C, **f32)
     part = torch.empty(2 * n_chunks * C, **f32)
     coef = torch.empty(2 * C, **f32)
-    err = _kernel("bigdl_bn_forward")(
-        x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), var.data_ptr(), part.data_ptr(), coef.data_ptr(),
-        _DTYPE_CODE[x2.dtype], R, C, float(eps), n_chunks, rows,
-        _stream(x2))
-    _raise_on(err, "bn_forward", x2)
-    with _launch_lock:
-        bn_forward.launches += 1
+    ptrs = (x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), part.data_ptr(),
+            coef.data_ptr())
+    if rt == "vec":
+        err = _kernel("bigdl_bn_forward_vec")(
+            *ptrs, tickets.data_ptr(), _DTYPE_CODE[x2.dtype], R, C,
+            float(eps), n_chunks, rows, _stream(x2))
+    else:
+        err = _kernel("bigdl_bn_forward")(
+            *ptrs, _DTYPE_CODE[x2.dtype], R, C, float(eps), n_chunks, rows,
+            _stream(x2))
+    _raise_on(err, f"bn_forward ({rt})", x2)
+    _count(bn_forward, rt)
     return y, mean, var
 
 
@@ -302,23 +359,19 @@ def bn_backward(x2, dy2, mean, inv, weight):
     _check_dy("bn_backward", x2, dy2)
     R, C = x2.shape
     _check_vec("bn_backward", C, mean, inv, w)
-    rt = route(x2, dy2)
+    rt, n_chunks, rows, tickets = _plan(x2, dy2)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dx = torch.empty_like(x2)
     sdy, sdyx = torch.empty(C, **f32), torch.empty(C, **f32)
     coef = torch.empty(3 * C, **f32)
+    part = torch.empty(2 * n_chunks * C, **f32)
     ptrs = (x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
             w.data_ptr(), dx.data_ptr(), sdy.data_ptr(), sdyx.data_ptr())
     if rt == "vec":
-        sms, tickets = _device_state(x2.device)
-        n_chunks, rows = _vec_chunks(R, C, x2.element_size(), sms)
-        part = torch.empty(2 * n_chunks * C, **f32)
         err = _kernel("bigdl_bn_backward_vec")(
             *ptrs, part.data_ptr(), coef.data_ptr(), tickets.data_ptr(),
             _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
     else:
-        n_chunks, rows = _chunks(R, C)
-        part = torch.empty(2 * n_chunks * C, **f32)
         err = _kernel("bigdl_bn_backward")(
             *ptrs, part.data_ptr(), coef.data_ptr(), _DTYPE_CODE[x2.dtype],
             R, C, n_chunks, rows, _stream(x2))
@@ -329,23 +382,28 @@ def bn_backward(x2, dy2, mean, inv, weight):
 
 def bn_stats(x2):
     """(Σx, Σx²) over the rows of x2 [R, C] (B3), float32: B1's
-    statistics phase alone, so its sums give B1's mean and var bit for
-    bit.  CPU tensors take :func:`bn_stats_reference`."""
+    statistics phase alone, on the route B1 takes for the same x2, so its
+    sums give B1's mean and var bit for bit.  CPU tensors take
+    :func:`bn_stats_reference`."""
     if x2.device.type == "cpu":
         return bn_stats_reference(x2)
     _cuda("bn_stats", x2)
     _check("bn_stats", x2)
     R, C = x2.shape
-    n_chunks, rows = _chunks(R, C)
+    rt, n_chunks, rows, tickets = _plan(x2)
     f32 = dict(dtype=torch.float32, device=x2.device)
     s, ss = torch.empty(C, **f32), torch.empty(C, **f32)
     part = torch.empty(2 * n_chunks * C, **f32)
-    err = _kernel("bigdl_bn_stats")(
-        x2.data_ptr(), s.data_ptr(), ss.data_ptr(), part.data_ptr(),
-        _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
-    _raise_on(err, "bn_stats", x2)
-    with _launch_lock:
-        bn_stats.launches += 1
+    ptrs = (x2.data_ptr(), s.data_ptr(), ss.data_ptr(), part.data_ptr())
+    if rt == "vec":
+        err = _kernel("bigdl_bn_stats_vec")(
+            *ptrs, tickets.data_ptr(), _DTYPE_CODE[x2.dtype], R, C,
+            n_chunks, rows, _stream(x2))
+    else:
+        err = _kernel("bigdl_bn_stats")(
+            *ptrs, _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
+    _raise_on(err, f"bn_stats ({rt})", x2)
+    _count(bn_stats, rt)
     return s, ss
 
 
@@ -360,21 +418,17 @@ def bn_grad_stats(x2, dy2, mean, inv):
     _check_dy("bn_grad_stats", x2, dy2)
     R, C = x2.shape
     _check_vec("bn_grad_stats", C, mean, inv)
-    rt = route(x2, dy2)
+    rt, n_chunks, rows, tickets = _plan(x2, dy2)
     f32 = dict(dtype=torch.float32, device=x2.device)
     sdy, sdyx = torch.empty(C, **f32), torch.empty(C, **f32)
+    part = torch.empty(2 * n_chunks * C, **f32)
     ptrs = (x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
             sdy.data_ptr(), sdyx.data_ptr())
     if rt == "vec":
-        sms, tickets = _device_state(x2.device)
-        n_chunks, rows = _vec_chunks(R, C, x2.element_size(), sms)
-        part = torch.empty(2 * n_chunks * C, **f32)
         err = _kernel("bigdl_bn_grad_stats_vec")(
             *ptrs, part.data_ptr(), tickets.data_ptr(),
             _DTYPE_CODE[x2.dtype], R, C, n_chunks, rows, _stream(x2))
     else:
-        n_chunks, rows = _chunks(R, C)
-        part = torch.empty(2 * n_chunks * C, **f32)
         err = _kernel("bigdl_bn_grad_stats")(
             *ptrs, part.data_ptr(), _DTYPE_CODE[x2.dtype], R, C, n_chunks,
             rows, _stream(x2))
@@ -387,7 +441,9 @@ bn_forward.launches = 0
 bn_backward.launches = 0
 bn_stats.launches = 0
 bn_grad_stats.launches = 0
+bn_forward.route_launches = {"vec": 0, "scalar": 0}
 bn_backward.route_launches = {"vec": 0, "scalar": 0}
+bn_stats.route_launches = {"vec": 0, "scalar": 0}
 bn_grad_stats.route_launches = {"vec": 0, "scalar": 0}
 
 

@@ -43,15 +43,15 @@ Phases, each printing one JSON line:
    step gives the BatchNorm and conv-BN kernels, then ``bn_kernels`` (next
    item), then ``TRAIN_STEPS`` timed steps.  Every loss must be finite, the
    launch counts exactly 20 B1, 20 B2, 33 B5 (all on B5's ``"tc"`` route:
-   wgmma fed by TMA) and 33 B4 per step, every B2 and B4 launch on their
-   ``"vec"`` route (16-byte pieces a thread, B4's sums finished in the same
-   launch, B2's dx pass walking the rows back through L2), and the running
-   statistics must move.  Then the unfused model from the same
-   seed takes its first step on the same batch (all 53 BatchNorms on
-   B1/B2) and must give the fused model's first loss within
-   ``UNFUSED_ATOL``; and a small bottleneck ResNet in float32 (TF32 off,
-   B5 on its ``"f32"`` route) takes 3 steps on the card and on the CPU,
-   losses within ``F32_TRAIN_ATOL``.
+   wgmma fed by TMA) and 33 B4 per step, every B1, B2 and B4 launch on
+   their ``"vec"`` route (16-byte pieces a thread, the sums finished in the
+   same launch, B1's normalize and B2's dx pass walking the rows back
+   through L2), and the running statistics must move.  Then the unfused
+   model from the same seed takes its first step on the same batch (all 53
+   BatchNorms on B1/B2, every launch on ``"vec"``) and must give the fused
+   model's first loss within ``UNFUSED_ATOL``; and a small bottleneck
+   ResNet in float32 (TF32 off, B5 on its ``"f32"`` route) takes 3 steps
+   on the card and on the CPU, losses within ``F32_TRAIN_ATOL``.
 6. ``bn_kernels`` (inside ``train``): B1 ``bn_forward``, B2 ``bn_backward``,
    B4 ``bn_grad_stats`` and B5 ``matmul_stats`` against their plain
    versions at every distinct shape the step gave them (bf16), plus
@@ -59,26 +59,28 @@ Phases, each printing one JSON line:
    PyTorch yardstick call and its bound (``fits_l2`` marks a case whose
    operands fit the 50 MB L2: graph replays re-read the same buffers, so
    a share of the HBM bound above 100% there is L2, not a fault).  Each
-   B5, B4 and B2 case names the route it took (every step shape of B4 and
-   B2 must take ``"vec"``; the ragged bf16 (37, 19, 70) of B5, which no
+   case names the route it took (every step shape of B1, B2, B3 and B4
+   must take ``"vec"``; the ragged bf16 (37, 19, 70) of B5, which no
    tensor map can describe, ``"mma_sync"``; the ragged bf16 (1000, 130) of
-   B4 and B2 ``"scalar"``) and is called twice on the same inputs: the
-   sums (Σy and Σy²; Σdy and Σdy·x̂) must come out bit-identical, and B2's
-   sums must equal B4's on the same inputs bit for bit.  B2 also reports
-   ``floor_ms``, the two-pass floor: x and dy read twice and dx written
-   once, what B2 pays where x and dy exceed L2 (``bound_ms`` counts one
-   read of each).
+   B1 to B4 ``"scalar"``) and is called twice on the same inputs: the
+   sums (Σy and Σy²; Σx and Σx²; Σdy and Σdy·x̂) and B1's mean and var
+   must come out bit-identical, and B2's sums must equal B4's on the same
+   inputs bit for bit.  B1 and B2 also report ``floor_ms``, the two-pass
+   floor: x (and dy) read twice and the output written once, what they pay
+   where x exceeds L2 (``bound_ms`` counts one read).
 7. ``dp_train``: the same ResNet-50, weights and images trained
    data-parallel: ``Engine.init()`` (NCCL, a world of one rank), a
    ``DistributedDataSet`` and ``Optimizer``'s ``DataParallel`` strategy,
    with every BatchNorm synced over the group.  One warm-up step records
    the shapes the step gives B3 ``bn_stats`` and B4, which then go through
    ``bn_kernels`` as above (and B3's sums must give B1's mean and var bit
-   for bit), then ``TRAIN_STEPS`` timed steps.  Launches per step exactly
-   20 B3, 53 B4 (all ``"vec"``), 33 B5 and no B1 or B2; all-reduces per
-   step exactly 53 of BN statistics, 53 of gradient statistics and one of
-   the gradients (with the loss); the first loss within ``UNFUSED_ATOL`` of the
-   ``train`` phase's; one profiled step gives the collectives' share.
+   for bit at every B3 step shape on ``"vec"`` and at the ragged bf16
+   (1000, 130) on ``"scalar"``), then ``TRAIN_STEPS`` timed steps.
+   Launches per step exactly 20 B3 and 53 B4 (all ``"vec"``), 33 B5 and
+   no B1 or B2; all-reduces per step exactly 53 of BN statistics, 53 of
+   gradient statistics and one of the gradients (with the loss); the first
+   loss within ``UNFUSED_ATOL`` of the ``train`` phase's; one profiled
+   step gives the collectives' share.
 8. ``dp_two_process``: two processes on the one card in a gloo group (NCCL
    refuses two ranks on one GPU) train the small bottleneck ResNet in
    float32 (TF32 off, no gradient wire, B5 on ``"f32"``) for 3 steps at
@@ -89,10 +91,9 @@ Phases, each printing one JSON line:
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path, B3 and B4 per timed data-parallel
-run, B1, B2, B4 and B5 per timed training run; B6, B5, B4 and B2 also per
-route), the card's name and
-power limit as
-``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
+run, B1, B2, B4 and B5 per timed training run; each also per route), the
+card's name and power limit as ``nvidia-smi`` gives them, and last
+``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
 without CUDA.
 """
@@ -513,16 +514,11 @@ TRAIN_KERNELS = {
 # B4 x̂ and sums
 BN_FLOPS_PER_ELEM = {"bn_forward": 5, "bn_backward": 12, "bn_stats": 3,
                      "bn_grad_stats": 6}
-#: training-path kernels with more than one route
-ROUTED = {"matmul_stats": cb_ops.matmul_stats,
-          "bn_grad_stats": bn_ops.bn_grad_stats,
-          "bn_backward": bn_ops.bn_backward}
 
 
 def zero_counts():
     for fn, _, _ in TRAIN_KERNELS.values():
         fn.launches = 0
-    for fn in ROUTED.values():
         zero_routes(fn)
 
 
@@ -539,21 +535,23 @@ def b5_routes():
 
 
 def route_counts():
-    """Launches by route of every kernel that has routes."""
-    return {k: dict(fn.route_launches) for k, fn in ROUTED.items()}
+    """Launches by route of every training-path kernel."""
+    return {k: dict(fn.route_launches)
+            for k, (fn, _, _) in TRAIN_KERNELS.items()}
 
 
 #: the route every bf16 launch of a training step must take
-STEP_ROUTES = {"matmul_stats": "tc", "bn_grad_stats": "vec",
-               "bn_backward": "vec"}
+STEP_ROUTES = {"matmul_stats": "tc", "bn_forward": "vec",
+               "bn_backward": "vec", "bn_stats": "vec",
+               "bn_grad_stats": "vec"}
 
 
 def check_step_routes(launched, what):
-    """Every launch in ``launched`` of a routed kernel on its step route."""
+    """Every launch in ``launched`` on its kernel's step route."""
     for kind, rt in STEP_ROUTES.items():
-        check(only_route(ROUTED[kind], rt, launched[kind]),
-              f"{what}: {kind} launches by route "
-              f"{ROUTED[kind].route_launches}")
+        fn = TRAIN_KERNELS[kind][0]
+        check(only_route(fn, rt, launched[kind]),
+              f"{what}: {kind} launches by route {fn.route_launches}")
 
 
 def only_route(fn, route, n):
@@ -660,6 +658,8 @@ def bn_case(kind, shape, dtype, gen, calls=0):
                 return F.batch_norm(x, None, None, w, b, training=True,
                                     eps=BN_EPS)
             nbytes = 2 * item * R * C + 4 * 4 * C
+            # x read twice: what B1 pays where it exceeds L2
+            floor_bytes = 3 * item * R * C + 4 * 4 * C
         elif kind == "bn_backward":
             args = (x, dy, mean, inv, w)
 
@@ -689,23 +689,23 @@ def bn_case(kind, shape, dtype, gen, calls=0):
              "bn_stats": bn_ops.bn_stats_reference,
              "bn_grad_stats": bn_ops.bn_grad_stats_reference,
              "matmul_stats": cb_ops.matmul_stats_reference}[kind]
-    extra = {}
-    if kind in ROUTED:
-        zero_routes(fn)
-        extra["route"] = (cb_ops.route(x, w) if kind == "matmul_stats"
-                          else bn_ops.route(x, dy))
+    if kind == "matmul_stats":
+        extra = {"route": cb_ops.route(x, w)}
+    elif kind in ("bn_backward", "bn_grad_stats"):
+        extra = {"route": bn_ops.route(x, dy)}
+    else:  # B1 and B3 route on x alone
+        extra = {"route": bn_ops.route(x)}
+    zero_routes(fn)
     got, ref = fn(*args), plain(*args)
     torch.cuda.synchronize()
-    ok, worst_abs, worst_rel = True, 0.0, 0.0
-    if kind in ROUTED:
-        # the route was chosen before the launch, and the sums are
-        # bit-reproducible: a second call on the same inputs
-        again = fn(*args)
-        sums = (0, 1) if kind == "bn_grad_stats" else (1, 2)
-        extra["repeatable"] = all(torch.equal(got[i], again[i])
-                                  for i in sums)
-        ok = only_route(fn, extra["route"], 2) and extra["repeatable"]
-        del again
+    # the route was chosen before the launch, and the sums (B1's mean and
+    # var) are bit-reproducible: a second call on the same inputs
+    again = fn(*args)
+    sums = (0, 1) if kind in ("bn_stats", "bn_grad_stats") else (1, 2)
+    extra["repeatable"] = all(torch.equal(got[i], again[i]) for i in sums)
+    ok = only_route(fn, extra["route"], 2) and extra["repeatable"]
+    del again
+    worst_abs, worst_rel = 0.0, 0.0
     if kind == "bn_backward":
         b4 = bn_ops.bn_grad_stats(x, dy, mean, inv)
         extra["sums_equal_b4"] = (torch.equal(got[1], b4[0])
@@ -729,7 +729,7 @@ def bn_case(kind, shape, dtype, gen, calls=0):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "bytes": nbytes, "flops": flops,
             "fits_l2": nbytes <= L2_BYTES}
-    if kind == "bn_backward":
+    if kind in ("bn_forward", "bn_backward"):
         case["floor_ms"] = floor_bytes / PEAK_BYTES * 1e3
         case["floor_share"] = case["floor_ms"] / ms
     if lib_note:
@@ -767,7 +767,7 @@ def phase_bn_kernels(seen, kinds, path):
                       if c["calls_per_step"]), f"B5 step routes {routes}")
             check(routes[(37, 19, 70), "bfloat16"] == "mma_sync",
                   f"B5 ragged bf16 route {routes}")
-        if kind in ("bn_grad_stats", "bn_backward"):
+        else:
             # every step shape on the streaming kernel; a ragged C on the
             # one-element-a-thread one
             routes = {(tuple(c["shape"]), c["dtype"]): c["route"]
@@ -1022,8 +1022,8 @@ def phase_train():
 
 def kernel_rows(reps, launched, path, routes):
     """The ``kernels`` line's entries of the kernels in ``reps``, with
-    their launches in the timed run of ``path`` (the routed kernels' also
-    by route, from ``routes``)."""
+    their launches in the timed run of ``path``, also by route (from
+    ``routes``)."""
     rows = []
     for kind, (rep, _) in reps.items():
         _, source, replaces = TRAIN_KERNELS[kind]
@@ -1033,31 +1033,42 @@ def kernel_rows(reps, launched, path, routes):
                "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                "library_ms": rep["library_ms"],
-               "ms_over_library": rep["ms_over_library"]}
-        if kind in ROUTED:
-            row.update(kernel_route=rep["route"],
-                       route_launches=routes[kind])
+               "ms_over_library": rep["ms_over_library"],
+               "kernel_route": rep["route"], "route_launches": routes[kind]}
         rows.append(row)
     return rows
 
 
 # -- 7. dp_train, with bn_kernels for B3 and B4 inside ---------------------
 
-def b3_gives_b1_statistics(shape):
-    """At one step shape (bf16): the mean and var from B3's sums (Σx/R,
-    Σx²/R − mean², true divisions) equal B1's bit for bit."""
+def b3_gives_b1_statistics(shapes):
+    """At each shape (bf16): B3 and B1 take the same route, and the mean
+    and var from B3's sums (Σx/R, Σx²/R − mean², true divisions) equal
+    B1's bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    R, C = shape
-    x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(
-        torch.bfloat16)
-    s, ss = bn_ops.bn_stats(x)
-    _, mean, var = bn_ops.bn_forward(x, torch.ones(C, device="cuda"),
-                                     torch.zeros(C, device="cuda"), BN_EPS)
-    n = torch.full_like(s, R)
-    m = s / n
-    equal = torch.equal(m, mean) and torch.equal(ss / n - m * m, var)
-    check(equal, f"B3's statistics differ from B1's at {shape}")
-    return {"b3_b1_shape": list(shape), "b3_b1_bit_equal": equal}
+    cases = []
+    for R, C in shapes:
+        x = (torch.randn((R, C), device="cuda", generator=gen) * 2
+             + 0.5).to(torch.bfloat16)
+        zero_routes(bn_ops.bn_stats)
+        zero_routes(bn_ops.bn_forward)
+        s, ss = bn_ops.bn_stats(x)
+        _, mean, var = bn_ops.bn_forward(x, torch.ones(C, device="cuda"),
+                                         torch.zeros(C, device="cuda"),
+                                         BN_EPS)
+        rt = bn_ops.route(x)
+        n = torch.full_like(s, R)
+        m = s / n
+        equal = (only_route(bn_ops.bn_stats, rt, 1)
+                 and only_route(bn_ops.bn_forward, rt, 1)
+                 and torch.equal(m, mean)
+                 and torch.equal(ss / n - m * m, var))
+        cases.append({"shape": [R, C], "route": rt, "bit_equal": equal})
+        del x
+    check(all(c["bit_equal"] for c in cases),
+          f"B3's statistics differ from B1's: {cases}")
+    return {"b3_b1_cases": cases,
+            "b3_b1_bit_equal": all(c["bit_equal"] for c in cases)}
 
 
 def all_reduce_host_us(n=200):
@@ -1106,7 +1117,11 @@ def phase_dp_train(single_first_loss):
           f"loss: {first[0]} vs {single_first_loss}")
 
     reps = phase_bn_kernels(seen, ("bn_stats", "bn_grad_stats"), "dp_train")
-    bit = b3_gives_b1_statistics(max(seen["bn_stats"]))
+    # every B3 step shape on "vec", and a ragged C on "scalar"
+    bit = b3_gives_b1_statistics(sorted(seen["bn_stats"]) + [(1000, 130)])
+    routes = {tuple(c["shape"]): c["route"] for c in bit["b3_b1_cases"]}
+    check(routes.pop((1000, 130)) == "scalar"
+          and set(routes.values()) == {"vec"}, f"B3 / B1 routes {routes}")
 
     stats_before = torch.cat([b.float().flatten()
                               for b in model.buffers()]).clone()

@@ -1,5 +1,5 @@
-"""The port's BatchNorm and conv-BN kernels (B1, B2, B4, B5) against the
-JAX package's Pallas kernels.
+"""The port's BatchNorm and conv-BN kernels (B1 to B5) against the JAX
+package's Pallas kernels, and the layout of their ``"vec"`` route.
 
 On the CPU each wrapper of ``bigdl_torch.ops`` computes its plain version;
 here those are held to the reference's Pallas kernels run in interpret
@@ -336,11 +336,12 @@ def test_vec_chunks_cover_every_row_once(R, C, itemsize):
     """Route "vec"'s (row chunk x column tile) grid: chunks are whole row
     steps of the block, cover [0, R) with no empty chunk, fill about two
     blocks a SM, and are a function of the shape and SM count alone."""
-    pt, rl, tiles, w = tbn._vec_layout(C, itemsize)
+    pt, rl, tiles, w = tbn._vec_layout(C, itemsize, tbn._VEC_PIECES)
     assert pt * rl <= 256 and w == pt * 16 // itemsize
     assert tiles * w >= C > (tiles - 1) * w
-    n, rows = tbn._vec_chunks(R, C, itemsize, 132)
-    assert (n, rows) == tbn._vec_chunks(R, C, itemsize, 132)
+    n, rows = tbn._vec_chunks(R, C, itemsize, 132, tbn._VEC_PIECES)
+    assert (n, rows) == tbn._vec_chunks(R, C, itemsize, 132,
+                                        tbn._VEC_PIECES)
     assert rows % rl == 0 and (n - 1) * rows < R <= n * rows
     assert n * tiles <= 2 * 132 + tiles
     if R * rl <= 10 ** 6:
@@ -354,14 +355,22 @@ def test_vec_chunks_cover_every_row_once(R, C, itemsize):
 
 
 def _vec_sums_emulated(x, dy, mean, inv, itemsize, sm_count=132):
-    """Route "vec"'s B4 sums in its own float32 order: each row lane of a
-    block sums its rows (stride rl) in order, the block sums its row lanes
-    in lane order into one partial row per chunk, and the tile's finishing
-    block sums chunk k on k-lane k mod kl_n, then the k-lanes in order."""
-    R, C = x.shape
-    _, rl, _, w = tbn._vec_layout(C, itemsize)
-    n, rows = tbn._vec_chunks(R, C, itemsize, sm_count)
+    """Route "vec"'s B4 sums (Σdy, Σdy·x̂) in its own float32 order."""
     xhat = ((x - mean) * inv).astype(np.float32)
+    return _vec_order_sums(dy, dy * xhat, itemsize, tbn._VEC_PIECES,
+                           sm_count)
+
+
+def _vec_order_sums(a, b, itemsize, max_pieces, sm_count=132):
+    """(Σa, Σb) over the rows of the [R, C] float32 terms a, b in the
+    order of route "vec"'s stats kernel with column tiles of at most
+    ``max_pieces`` 16-byte pieces: each row lane of a block sums its rows
+    (stride rl) in order, the block sums its row lanes in lane order into
+    one partial row per chunk, and the tile's finishing block sums chunk k
+    on k-lane k mod kl_n, then the k-lanes in order."""
+    R, C = a.shape
+    _, rl, _, w = tbn._vec_layout(C, itemsize, max_pieces)
+    n, rows = tbn._vec_chunks(R, C, itemsize, sm_count, max_pieces)
     part = np.zeros((n, 2, C), np.float32)
     for k in range(n):
         block = np.zeros((2, C), np.float32)
@@ -369,8 +378,8 @@ def _vec_sums_emulated(x, dy, mean, inv, itemsize, sm_count=132):
             s = np.zeros(C, np.float32)
             q = np.zeros(C, np.float32)
             for r in range(k * rows + lane, min(R, (k + 1) * rows), rl):
-                s = s + dy[r]
-                q = q + dy[r] * xhat[r]
+                s = s + a[r]
+                q = q + b[r]
             block = block + np.stack([s, q])
         part[k] = block
     kl_n = 256 // (w // 2)
@@ -397,3 +406,133 @@ def test_vec_summation_order_matches_reference(R, C, itemsize):
                                             (x, dy, mean, inv)))
     _close(sdy, rs, F32)
     _close(sdyx, rsx, F32)
+
+
+# -- route "vec" of B1 and B3 --------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,C", RESNET50_B2_SHAPES)
+def test_resnet50_b1_shapes_take_the_vec_route(R, C, dtype):
+    """Every B1 call of the training step (the B2 shapes: each unfused
+    BatchNorm runs B1 forward, B2 backward), and so every B3 call of the
+    data-parallel step, goes to the streaming kernel, in bf16 and in
+    float32.  B1 and B3 route on x alone, and agree with B4 and B2 on the
+    same operands."""
+    x = _rows(R, C, BN_TORCH_DTYPES[dtype])
+    assert tbn.route(x) == tbn.route(x, x) == "vec"
+
+
+@pytest.mark.parametrize("R,C,dtype", [(1000, 3, "bfloat16"),
+                                       (1000, 130, "bfloat16"),
+                                       (1000, 130, "float32"),
+                                       (1000, 3, "float32")])
+def test_b1_ragged_rows_take_scalar(R, C, dtype):
+    """Rows that are no whole number of 16-byte pieces (chip_smoke's
+    ragged cases) take the one-element-a-thread kernels for B1 and B3."""
+    assert tbn.route(_rows(R, C, BN_TORCH_DTYPES[dtype])) == "scalar"
+
+
+@pytest.mark.parametrize("offset,want", [(1, "scalar"), (4, "scalar"),
+                                         (8, "vec")])
+def test_b1_misaligned_x_takes_scalar(offset, want):
+    """A view of x whose base is not 16-byte aligned takes "scalar" for B1
+    and B3, chosen before any launch; an aligned one "vec"."""
+    flat = torch.zeros(8 + 100 * 64, dtype=torch.bfloat16)
+    x = flat[offset:offset + 100 * 64].view(100, 64)
+    assert x.is_contiguous()
+    assert tbn.route(x) == want
+
+
+@pytest.mark.parametrize("R,C,dtype", [(802816, 64, torch.bfloat16),
+                                       (50176, 256, torch.bfloat16),
+                                       (12544, 2048, torch.float32),
+                                       (1000, 130, torch.bfloat16)])
+def test_b1_and_b3_share_one_plan(monkeypatch, R, C, dtype):
+    """bn_forward (B1) and bn_stats (B3) take their route and chunking from
+    one function of x alone, so for the same x they launch the same stats
+    kernel over the same chunks: what makes B3's sums give B1's mean and
+    var bit for bit.  On "vec" their column tile is at most 16 pieces
+    (B4's and B2's 32)."""
+    monkeypatch.setattr(tbn, "_device_state", lambda device: (132, None))
+    x = _rows(R, C, dtype)
+    rt, n, rows, _ = tbn._plan(x)
+    assert rt == tbn.route(x) == tbn._plan(x, x)[0]
+    want = (tbn._vec_chunks(R, C, x.element_size(), 132, tbn._VEC_X_PIECES)
+            if rt == "vec" else tbn._chunks(R, C))
+    assert (n, rows) == want
+
+
+def _x_inputs(R, C, seed):
+    return (np.random.RandomState(seed).standard_normal((R, C)) * 2
+            + 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("R,C", [(500, 64), (300, 256), (1000, 24)])
+def test_vec_x_sums_match_reference_and_pallas(R, C, itemsize):
+    """B3's and B1's (Σx, Σx²) in route "vec"'s float32 order (the same
+    kernel and order as B4's sums) agree with the plain version and with
+    ``_bn_stats_pallas`` in interpret mode within 1e-5 relative (the three
+    differ in summation order only)."""
+    dtype = "float32" if itemsize == 4 else "bfloat16"
+    x = _x_inputs(R, C, seed=R + C + itemsize)
+    jx, tx = _pair(x, dtype)
+    xv = tx.float().numpy()  # the values the kernel reads
+    s, ss = _vec_order_sums(xv, xv * xv, itemsize, tbn._VEC_X_PIECES)
+    rs, rss = tbn.bn_stats_reference(tx)
+    js, jss = jbn._bn_stats_pallas(jx, block_r=256, interpret=True)
+    for got, ref in [(s, rs), (ss, rss), (s, js), (ss, jss)]:
+        _close(got, ref, F32)
+
+
+def _finish(s, ss, n):
+    """The "vec" finish's mean and var: each float32 operation rounded on
+    its own (mean = Σx/R, var = Σx²/R − mean·mean)."""
+    f = np.float32
+    mean = (s / f(n)).astype(f)
+    return mean, (ss / f(n) - (mean * mean).astype(f)).astype(f)
+
+
+@pytest.mark.parametrize("R,C", [(500, 64), (1000, 24)])
+def test_b1_finish_equals_b3_statistics(R, C):
+    """Mean and var from the emulated "vec" sums by the kernel's finish
+    equal those the data-parallel caller (and chip_smoke's
+    ``b3_gives_b1_statistics``) computes from B3's sums in torch."""
+    x = _x_inputs(R, C, seed=R * C)
+    xv = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    s, ss = _vec_order_sums(xv, xv * xv, 2, tbn._VEC_X_PIECES)
+    mean, var = _finish(s, ss, R)
+    ts, tss = torch.from_numpy(s), torch.from_numpy(ss)
+    n = torch.full_like(ts, R)
+    m = ts / n
+    assert torch.equal(torch.from_numpy(mean), m)
+    assert torch.equal(torch.from_numpy(var), tss / n - m * m)
+
+
+@pytest.mark.parametrize("kernel", ["b1_normalize", "b2_dx"])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("R,C", RESNET50_B2_SHAPES + [(500, 64), (300, 256),
+                                                      (1000, 24), (7, 64)])
+def test_vec_backward_walk_covers_every_row_once(R, C, itemsize, kernel):
+    """B1's normalize and B2's dx pass, each over its kernel's chunks: the
+    thread at row lane l of chunk k starts at its last row,
+    r0 + l + (n − 1)·rl with n its row count, and steps back by rl n
+    times; together the threads cover every row of every chunk exactly
+    once, and never leave their chunk."""
+    pieces = (tbn._VEC_X_PIECES if kernel == "b1_normalize"
+              else tbn._VEC_PIECES)
+    pt, rl, tiles, _ = tbn._vec_layout(C, itemsize, pieces)
+    assert pt * rl <= 256
+    n_chunks, rows = tbn._vec_chunks(R, C, itemsize, 132, pieces)
+    assert rows % rl == 0 and (n_chunks - 1) * rows < R <= n_chunks * rows
+    assert n_chunks * tiles <= 2 * 132 + tiles
+    seen = np.zeros(R, np.int64)
+    for k in range(n_chunks):
+        r0, r1 = k * rows, min(R, (k + 1) * rows)
+        for lane in range(rl):
+            first = r0 + lane
+            n = (r1 - first + rl - 1) // rl if first < r1 else 0
+            walk = first + (n - 1) * rl - rl * np.arange(n)
+            assert n == 0 or (walk.min() >= r0 and walk.max() < r1)
+            seen[walk] += 1
+    assert (seen == 1).all()
