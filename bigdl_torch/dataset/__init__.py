@@ -4,10 +4,11 @@ Counterpart of ``bigdl_tpu/dataset/__init__.py`` for what the training
 slice uses (reference ``dataset/DataSet.scala``): ``DataSet.array`` over a
 record list, transformed into MiniBatches by ``SampleToMiniBatch``, and its per-process sharded form
 ``DistributedDataSet`` (``DataSet.array(..., distributed=True)``,
-``DataSet.rdd``) for data-parallel training.  The shuffle is a permutation
-drawn from ``np.random.default_rng(seed)`` exactly as the reference draws
-it, so both packages visit records in the same order from the same seed.
-The record and prefetch pipelines and the text/recsys/image sources are
+``DataSet.rdd``) for data-parallel training, and ``PrefetchIterator``,
+the worker thread the Optimizer reads its batches through.  The shuffle is
+a permutation drawn from ``np.random.default_rng(seed)`` exactly as the
+reference draws it, so both packages visit records in the same order from
+the same seed.  The record pipeline and the text/recsys/image sources are
 not ported yet.
 """
 
@@ -18,12 +19,13 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from ..utils.engine import Engine
+from .prefetch import PrefetchIterator
 from .sample import MiniBatch, Sample
 from .transformer import ChainedTransformer, SampleToMiniBatch, Transformer
 
 __all__ = ["AbstractDataSet", "LocalArrayDataSet", "DistributedDataSet",
            "TransformedDataSet", "DataSet", "Sample", "MiniBatch", "Transformer",
-           "ChainedTransformer", "SampleToMiniBatch"]
+           "ChainedTransformer", "SampleToMiniBatch", "PrefetchIterator"]
 
 
 class AbstractDataSet:

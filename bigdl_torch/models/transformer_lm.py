@@ -3,8 +3,9 @@
 Counterpart of ``bigdl_tpu/models/transformer_lm.py``, built from the same
 containers: each residual branch is ConcatTable(branch, Identity) +
 CAddTable, so the parameter tree is the reference's, leaf for leaf.
-Dropout, mixture-of-experts and sequence parallelism are not ported yet
-and raise.
+``dropout > 0`` adds ``Dropout`` after the attention and after the MLP of
+each block, as the reference does.  Mixture-of-experts and sequence
+parallelism are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ import numpy as np
 import torch
 
 from ..common import get_policy
-from ..nn import (CAddTable, ConcatTable, GELU, Identity, LayerNorm, Linear,
-                  LogSoftMax, LookupTable, MultiHeadAttention, Sequential)
+from ..nn import (CAddTable, ConcatTable, Dropout, GELU, Identity, LayerNorm,
+                  Linear, LogSoftMax, LookupTable, MultiHeadAttention,
+                  Sequential)
 from ..nn.module import Module
 
 __all__ = ["TransformerLM", "TransformerBlock", "PositionalEmbedding",
@@ -50,10 +52,7 @@ def _residual(branch: Module) -> Sequential:
             .add(CAddTable()))
 
 
-def _unported(dropout: float, seq_parallel: bool, num_experts: int) -> None:
-    if dropout > 0:
-        raise NotImplementedError(f"dropout={dropout}: Dropout is not "
-                                  "ported yet (serving runs with p=0)")
+def _unported(seq_parallel: bool, num_experts: int) -> None:
     if seq_parallel:
         raise NotImplementedError("seq_parallel=True: ring attention is not "
                                   "ported yet")
@@ -67,7 +66,7 @@ def TransformerBlock(d_model: int, num_heads: int, mlp_ratio: int = 4,
                      seq_parallel: bool = False,
                      num_experts: int = 0) -> Sequential:
     """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x))."""
-    _unported(dropout, seq_parallel, num_experts)
+    _unported(seq_parallel, num_experts)
     attn = (Sequential()
             .add(LayerNorm(d_model))
             .add(MultiHeadAttention(d_model, num_heads, causal=causal)))
@@ -76,6 +75,9 @@ def TransformerBlock(d_model: int, num_heads: int, mlp_ratio: int = 4,
            .add(Linear(d_model, mlp_ratio * d_model))
            .add(GELU())
            .add(Linear(mlp_ratio * d_model, d_model)))
+    if dropout > 0:
+        attn.add(Dropout(dropout))
+        mlp.add(Dropout(dropout))
     return Sequential().add(_residual(attn)).add(_residual(mlp))
 
 
@@ -85,13 +87,13 @@ def TransformerLM(vocab_size: int, max_len: int = 1024, d_model: int = 256,
                   causal: bool = True, seq_parallel: bool = False,
                   num_experts: int = 0) -> Sequential:
     """tokens [B, T] int -> log-probs [B, T, vocab]."""
-    _unported(dropout, seq_parallel, num_experts)
+    _unported(seq_parallel, num_experts)
     model = (Sequential()
              .add(LookupTable(vocab_size, d_model))
              .add(PositionalEmbedding(max_len, d_model)))
     for _ in range(num_layers):
         model.add(TransformerBlock(d_model, num_heads, mlp_ratio=mlp_ratio,
-                                   causal=causal))
+                                   dropout=dropout, causal=causal))
     model.add(LayerNorm(d_model))
     model.add(Linear(d_model, vocab_size))  # contracts the last axis of BTE
     model.add(LogSoftMax())

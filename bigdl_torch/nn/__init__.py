@@ -5,7 +5,9 @@ from .activation import GELU, LogSoftMax, ReLU
 from .attention import MultiHeadAttention
 from .containers import ConcatTable, Identity, Sequential
 from .conv import SpatialConvolution
-from .criterion import ClassNLLCriterion, Criterion, CrossEntropyCriterion
+from .criterion import (ClassNLLCriterion, Criterion, CrossEntropyCriterion,
+                        TimeDistributedCriterion)
+from .dropout import Dropout, dropout_rng
 from .embedding import LookupTable
 from .fused import ConvBN, ConvBNAddReLU, fuse_conv_bn
 from .initialization import (InitializationMethod, MsraFiller, Zeros,
@@ -26,5 +28,6 @@ __all__ = ["Module", "Container", "Sequential", "ConcatTable", "Identity",
            "LogSoftMax", "GELU", "MultiHeadAttention", "ConvBN",
            "ConvBNAddReLU", "fuse_conv_bn", "Criterion",
            "ClassNLLCriterion", "CrossEntropyCriterion",
+           "TimeDistributedCriterion", "Dropout", "dropout_rng",
            "InitializationMethod", "Zeros", "MsraFiller", "compute_fans",
            "default_weight_init", "default_bias_init"]

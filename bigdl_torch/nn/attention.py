@@ -2,8 +2,11 @@
 
 Counterpart of ``bigdl_tpu/nn/attention.py``: q/k/v projections ->
 flash attention (the CUDA kernel of ``ops/attention.py`` on the card) ->
-output projection.  Sequence parallelism (ring attention over a mesh axis)
-comes with the parallelism slice.
+output projection.  Training differentiates through the flash forward's
+``torch.autograd.Function``, whose backward is the B7 kernel on the card;
+its gradients come back in the [B, T, H, D] memory the head merge reads.
+Sequence parallelism (ring attention over a mesh axis) comes with the
+parallelism slice.
 """
 
 from __future__ import annotations

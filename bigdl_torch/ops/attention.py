@@ -14,8 +14,16 @@ the CUDA-core kernel (64 x 64 tiles) that keeps p in float32 for parity
 checks.  ``flash_attention.launches`` counts every launch and
 ``flash_attention.route_launches`` each route's.
 
-Forward only: serving runs under ``torch.inference_mode()``.  The backward
-(``_flash_bwd_chunked`` in the reference) comes with training.
+Training: where autograd records (grad mode on and an operand that needs
+a gradient) :func:`flash_attention` goes through :class:`FlashAttention`,
+a ``torch.autograd.Function`` (the reference's ``_flash_diff``
+``custom_vjp``, ``:165-180`` and ``:255-258``).  Its forward is the call
+above; its backward is :func:`flash_attention_bwd` (B7): on the card the
+hand-written ``bigdl_torch/csrc/flash_attention_bwd.cu`` (two launches;
+route ``"mma_sync"`` for bf16, warp-level tensor-core products, and
+``"f32"`` for float32, the CUDA cores), on the CPU
+:func:`flash_bwd_reference`, the port of ``_flash_bwd_chunked``.
+``flash_attention_bwd.launches`` and ``.route_launches`` count it.
 """
 
 from __future__ import annotations
@@ -26,9 +34,11 @@ import threading
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["flash_attention", "mha_reference", "route", "tma_ready",
-           "BLOCK_Q", "BLOCK_K", "HEAD_DIMS"]
+           "FlashAttention", "flash_attention_bwd", "flash_bwd_reference",
+           "bwd_route", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS"]
 
 #: the routes' kernels by operand dtype, and their codes in the C interface
 ROUTES = {torch.float32: "f32", torch.bfloat16: "tc"}
@@ -37,6 +47,11 @@ _ROUTE_CODE = {"f32": 0, "tc": 1}
 BLOCK_Q = {"f32": 64, "tc": 128}
 BLOCK_K = {"f32": 64, "tc": 128}
 HEAD_DIMS = (32, 64, 128)
+#: the backward's kernel by operand dtype, and its code in the C interface
+BWD_ROUTES = {torch.float32: "f32", torch.bfloat16: "mma_sync"}
+_BWD_ROUTE_CODE = {"f32": 0, "mma_sync": 1}
+#: query rows per block of the reference's backward scan
+BWD_BLOCK_Q = 128
 
 
 def mha_reference(q, k, v, *, causal: bool = False,
@@ -93,6 +108,14 @@ def _strides(t):
     return [st[i] if n[i] > 1 else 8 * t.numel() for i in range(3)]
 
 
+def _bhtd_like(t):
+    """An empty [B, H, T, D] view of [B, T, H, D] memory, like ``t``: the
+    layout the caller's merge of the heads reads for free."""
+    B, H, T, D = t.shape
+    return torch.empty((B, T, H, D), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
 def _kernel():
     from ..utils import cuda_build
 
@@ -108,10 +131,7 @@ def _kernel():
 def _launch(q, k, v, causal: bool, sm_scale: float, rt: str):
     fn = _kernel()
     B, H, Tq, D = q.shape
-    # [B, H, Tq, D] view of [B, Tq, H, D] memory: the caller's merge of the
-    # heads back into [B, Tq, H*D] is then free
-    o = torch.empty((B, Tq, H, D), dtype=q.dtype,
-                    device=q.device).transpose(1, 2)
+    o = _bhtd_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              _ROUTE_CODE[rt], B, H, Tq, k.shape[2], D,
              *_strides(q), *_strides(k), *_strides(v), *_strides(o),
@@ -129,11 +149,6 @@ def _launch(q, k, v, causal: bool, sm_scale: float, rt: str):
 
 def _check_cuda(q, k, v, block_q=None, block_k=None) -> str:
     """Refuse what no kernel takes; returns the route."""
-    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only: the backward kernel "
-            "comes with the training slice; call it under "
-            "torch.inference_mode() or on tensors that need no grad")
     if not (q.dim() == k.dim() == v.dim() == 4):
         raise ValueError("q, k, v must be [B, H, T, D]")
     if q.dtype not in ROUTES or not (q.dtype == k.dtype == v.dtype):
@@ -162,11 +177,50 @@ def _check_cuda(q, k, v, block_q=None, block_k=None) -> str:
 
 def _operand(t, rt: str):
     """``t`` as the route's kernel reads it: in place where it can,
-    otherwise a contiguous copy (a fresh, aligned buffer)."""
-    if rt == "tc":
+    otherwise a contiguous copy (a fresh, aligned buffer).  The
+    tensor-core routes (B6 ``"tc"``, B7 ``"mma_sync"``) load 16 bytes at a
+    time (:func:`tma_ready`); the ``"f32"`` routes take any unit last
+    stride."""
+    if rt in ("tc", "mma_sync"):
         return t if tma_ready(t) else t.clone(
             memory_format=torch.contiguous_format)
     return t if t.stride(3) == 1 else t.contiguous()
+
+
+def _forward(q, k, v, causal: bool, sm_scale: float):
+    """The forward on ``q``'s device: the plain version on the CPU, B6 on
+    CUDA."""
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no route for device {q.device}")
+    rt = _check_cuda(q, k, v)
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        # no rows, or no keys: every row is fully masked and gives 0
+        return torch.zeros_like(q)
+    q, k, v = (_operand(t, rt) for t in (q, k, v))
+    return _launch(q, k, v, causal, sm_scale, rt)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``_flash_diff``):
+    the forward of :func:`flash_attention`, and :func:`flash_attention_bwd`
+    as its backward.  It saves q, k, v and the output o (the backward's
+    rowsum(do * o))."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o = _forward(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -182,20 +236,146 @@ def flash_attention(q, k, v, *, causal: bool = False,
     route's kernel, which reads its operands through their (B, H, T)
     strides, so transposed views need no copy (only an operand no kernel
     can read in place, see :func:`tma_ready`, is copied), and returns a
-    [B, H, Tq, D] view of [B, Tq, H, D] memory."""
+    [B, H, Tq, D] view of [B, Tq, H, D] memory.  Where autograd records,
+    the call goes through :class:`FlashAttention`."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no route for device {q.device}")
-    rt = _check_cuda(q, k, v, block_q, block_k)
-    if q.shape[2] == 0 or k.shape[2] == 0:
-        # no rows, or no keys: every row is fully masked and gives 0
-        return torch.zeros_like(q)
-    q, k, v = (_operand(t, rt) for t in (q, k, v))
-    return _launch(q, k, v, causal, sm_scale, rt)
+    if q.device.type == "cuda":
+        _check_cuda(q, k, v, block_q, block_k)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, sm_scale)
+    return _forward(q, k, v, causal, sm_scale)
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = {"tc": 0, "f32": 0}
+
+
+# -- the backward (B7) --------------------------------------------------------
+
+def flash_bwd_reference(q, k, v, do, *, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        block_q: int = BWD_BLOCK_Q,
+                        q_offset: int = 0, k_offset: int = 0):
+    """(dq, dk, dv) of attention in plain PyTorch: the reference's
+    ``_flash_bwd_chunked`` (``:182-253``), a loop over blocks of
+    ``block_q`` query rows that rebuilds each block's probabilities and
+    accumulates dk and dv in float32.  Math is float32; results are in the
+    operands' dtype.  The query tail is padded with zero rows (whose zero
+    do contributes nothing); a row whose every key is masked gets zero
+    gradient (its non-finite max goes to 0 and its zero sum to 1).
+    ``q_offset``/``k_offset`` place the causal mask as in
+    :func:`mha_reference`, of which this is the backward."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros((B, H, Tk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    c = min(block_q, Tq)
+    col = k_offset + torch.arange(Tk, device=q.device)
+    for r0 in range(0, Tq, max(c, 1)):
+        qc = q[:, :, r0:r0 + c].float()
+        gc = do[:, :, r0:r0 + c].float()
+        if qc.shape[2] < c:  # the padded tail: zero rows, zero do
+            pad = (0, 0, 0, c - qc.shape[2])
+            qc, gc = F.pad(qc, pad), F.pad(gc, pad)
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * sm_scale
+        if causal:
+            row = q_offset + r0 + torch.arange(c, device=q.device)
+            s = s.masked_fill(row[:, None] < col[None, :], float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.exp(s - m)
+        denom = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(denom == 0.0, 1.0, denom)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, gc)
+        dp = torch.einsum("bhqd,bhkd->bhqk", gc, vf)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        n = min(c, Tq - r0)
+        dq[:, :, r0:r0 + n] = (torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+                               * sm_scale)[:, :, :n]
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_route(dtype) -> str:
+    """The backward kernel that takes operands of ``dtype`` on the card."""
+    if dtype not in BWD_ROUTES:
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16 "
+                        f"operands, got {dtype}")
+    return BWD_ROUTES[dtype]
+
+
+def _bwd_kernel():
+    from ..utils import cuda_build
+
+    fn = cuda_build.load("flash_attention_bwd").bigdl_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_launch(q, k, v, o, do, causal: bool, sm_scale: float, rt: str):
+    fn = _bwd_kernel()
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    dq, dk, dv = _bhtd_like(q), _bhtd_like(k), _bhtd_like(v)
+    scratch = torch.empty((2, B * H, Tq), dtype=torch.float32,
+                          device=q.device)
+    strides = torch.tensor([s for t in (q, k, v, o, do, dq, dk, dv)
+                            for s in _strides(t)], dtype=torch.int64)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             scratch[0].data_ptr(), scratch[1].data_ptr(),
+             _BWD_ROUTE_CODE[rt], B, H, Tq, Tk, D, strides.data_ptr(),
+             float(sm_scale), int(bool(causal)),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err} at shape {tuple(q.shape)} x "
+                           f"{tuple(k.shape)} {q.dtype}")
+    with _launch_lock:
+        flash_attention_bwd.launches += 2
+        flash_attention_bwd.route_launches[rt] += 2
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention`'s output ``o`` against its
+    gradient ``do``, all [B, H, T, D] (B7).  CPU tensors take
+    :func:`flash_bwd_reference` (``o`` unused).  CUDA tensors launch the
+    backward kernel of their dtype's route, two launches (dq with the
+    log-sum-exp and rowsum(do * o), then dk and dv), reading every operand
+    through its (B, H, T) strides; the gradients come back as [B, H, T, D]
+    views of [B, T, H, D] memory."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        # no rows, or no keys: nothing attends, every gradient is 0
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, causal=causal,
+                                   sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no route for device "
+                         f"{q.device}")
+    _check_cuda(q, k, v)
+    rt = bwd_route(q.dtype)
+    if o.shape != q.shape or do.shape != q.shape or not (
+            o.dtype == do.dtype == q.dtype):
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    q, k, v, o, do = (_operand(t, rt) for t in (q, k, v, o, do))
+    return _bwd_launch(q, k, v, o, do, causal, sm_scale, rt)
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = {"f32": 0, "mma_sync": 0}

@@ -15,6 +15,8 @@ the kernels always run.
 | BIGDL_TORCH_COORDINATOR          | rank 0's host:port, or an init URL (file://…)  | (none)  |
 | BIGDL_TORCH_NUM_PROCESSES        | world size of the data group                   | 1       |
 | BIGDL_TORCH_PROCESS_ID           | this process's rank                            | 0       |
+| BIGDL_TORCH_PREFETCH_DEPTH       | batches the input worker keeps ready; 0: none  | 2       |
+| BIGDL_TORCH_PREFETCH_STAGE       | the input worker also copies batches to device | 1       |
 """
 
 from __future__ import annotations

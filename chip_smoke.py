@@ -41,7 +41,16 @@ Phases, each printing one JSON line:
    seeded synthetic images, trained through ``DataSet.array`` ->
    ``Optimizer``: one warm-up step, which also records every shape the
    step gives the BatchNorm and conv-BN kernels, then ``bn_kernels`` (next
-   item), then ``TRAIN_STEPS`` timed steps.  Every loss must be finite, the
+   item), then ``TRAIN_STEPS`` timed steps at the default prefetch depth
+   (2: a worker thread assembles each batch and stages it through a pinned
+   buffer on a side stream), then the same steps from the same state at
+   ``BIGDL_TORCH_PREFETCH_DEPTH=0`` (the synchronous path), whose inputs
+   must be bit-identical and whose first loss within ``UNFUSED_ATOL``;
+   both report ``step_ms`` and the data wait (the Optimizer's "get batch
+   time average") per step and as a share of the wall time.  A profile of
+   ``1 + PROFILE_STEPS`` steps (device busy and idle over the first step,
+   the steady state after it and the whole run) must show no pageable
+   host-to-device copy and a pinned one.  Every loss must be finite, the
    launch counts exactly 20 B1, 20 B2, 33 B5 (all on B5's ``"tc"`` route:
    wgmma fed by TMA) and 33 B4 per step, every B1, B2 and B4 launch on
    their ``"vec"`` route (16-byte pieces a thread, the sums finished in the
@@ -88,10 +97,30 @@ Phases, each printing one JSON line:
    one process trains it at batch 16 on the same rows.  Losses, params and
    running statistics within ``DP_F32_ATOL``, both ranks bit-identical,
    and each rank's B3, B4 and B5 launch counts non-zero.
+9. ``train_lm``: TransformerLM at the bench width (as ``serve``) trained
+   as bench.py trains ``transformer_lm``: batch 16 x T 512 of random
+   tokens from ``default_rng(SEED)``, ``TimeDistributedCriterion(
+   ClassNLLCriterion(), size_average=True)``, ``SGD(0.01, momentum=0.9)``,
+   through ``DataSet.array`` -> ``Optimizer``: one warm-up step, then
+   ``b7_kernels`` (next item) and B6 at the step's call, one untimed
+   step, then ``TRAIN_STEPS`` timed steps and a profile.  Every loss
+   finite; exactly 8 B6 launches a step, all ``"tc"``, and 16 of B7 (the
+   flash backward, two launches a layer), all on its ``"mma_sync"``
+   route.  Then a small float32 LM (2 layers, d_model 64, T 64, TF32 off,
+   B6 and B7 on ``"f32"``) trains 3 steps on the card and on the CPU,
+   losses within ``F32_TRAIN_ATOL``, and one step with ``dropout=0.1``,
+   twice from the same seed, gives the same finite loss, unlike the step
+   without.
+10. ``b7_kernels`` (inside ``train_lm``): B7 against
+   ``flash_bwd_reference`` at the step's shape [16, 8, 512, 64] bf16
+   causal and at float32 and bf16 ragged shapes (D = 32, 128; Tq != Tk),
+   within ``B7_TOL`` and bit-identical over two calls, timed beside the
+   plain version and the backward of ``scaled_dot_product_attention``.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
-on that path: B6 on the serving path, B3 and B4 per timed data-parallel
-run, B1, B2, B4 and B5 per timed training run; each also per route), the
+on that path: B6 on the serving path and per timed LM run, B7 per timed
+LM run, B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
+timed training run; each also per route), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -99,6 +128,7 @@ without CUDA.
 """
 
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -156,6 +186,10 @@ REF_ATOL = 1e-4
 # the training path: bench.py's resnet50_bf16 config
 TRAIN_BATCH = 256
 TRAIN_STEPS = 5
+# images in the training set: one epoch is TRAIN_STEPS batches, so the
+# input worker can assemble the next batch while a step runs (the pipe is
+# closed at every epoch's end)
+TRAIN_IMAGES = TRAIN_BATCH * TRAIN_STEPS
 BN_EPS = 1e-5
 # launches per training step of the fused ResNet-50: 20 unfused BatchNorms
 # (stem, 16 3x3 convs, 3 strided shortcuts) on B1/B2, 33 fused 1x1 sites
@@ -197,6 +231,19 @@ DP_STEP_ALL_REDUCES = {"bn_stats": 53, "bn_grad_stats": 53, "grads": 1}
 # amplified by 3 SGD steps; the same bound as F32_TRAIN_ATOL
 DP_F32_ATOL = 1e-3
 DP_CHILD_TIMEOUT = 300
+
+# the LM training path: bench.py's transformer_lm config (LM above) at
+# batch 16 x T 512, TimeDistributedCriterion(ClassNLLCriterion(),
+# size_average=True), SGD(0.01, momentum=0.9)
+LM_BATCH = 16
+LM_LR = 0.01
+# B7 vs flash_bwd_reference, |kernel - plain| <= atol + rtol * |plain|:
+# float32 (TF32 off): summation order, p taken as exp(s - lse) against
+# exp(s - m) / l, and rowsum(do * o) against rowsum(dP * P) (equal in exact
+# arithmetic), over up to 200 keys: 1e-4.  bfloat16: each output rounded
+# once to bf16 (2^-8 relative) from float32 values that differ as above,
+# and rowsum(do * o) taken from the bf16 o: the forward's (2e-2, 1e-2).
+B7_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 
 
 class SmokeFailure(RuntimeError):
@@ -788,20 +835,47 @@ def _is_all_reduce(name):
     return "allreduce" in name.lower().replace("_", "")
 
 
-def profile_step(model, samples, distributed=False):
-    """One training step under ``torch.profiler``: device time by kernel
-    name (top 25), the share of the step's wall time the device was idle,
-    and the all-reduces' device time and host time (the host time of each
-    all-reduce op on the CPU side of the trace).  A measurement aid: a
-    profiler that cannot trace the card is reported in the result, not
-    fatal."""
+#: the profiled run: one step from a fresh pipeline, then these steps
+PROFILE_STEPS = 3
+
+
+def _mark(name):
+    """A zero-length event named ``name`` on the profiler's timeline."""
+    with torch.profiler.record_function(name):
+        pass
+
+
+def _device_ms(events, lo, hi):
+    """Device time (kernels and copies, summed) inside [lo, hi] µs."""
+    return sum(max(0.0, min(e.time_range.end, hi) - max(e.time_range.start,
+                                                          lo))
+               for e in events) / 1e3
+
+
+def profile_step(run, distributed=False):
+    """``run(mark)`` under ``torch.profiler``: ``1 + PROFILE_STEPS``
+    Optimizer steps from a fresh pipeline, calling ``mark(n)`` as step n
+    starts.  Reports device time by kernel name (top 25), the host-to-
+    device copies by kind, and the device's busy time per step and idle
+    share of the wall time over three windows of one trace:
+    ``first_step`` (from the call to step 2's start: the pipeline's fill,
+    one step, the next batch's wait; the one-step profile of earlier
+    runs), ``steady`` (step 2's start to the end: the pipeline once
+    filled), and the whole run (the top-level keys).  Under
+    ``distributed``, also the all-reduces' device time and host time (the
+    host time of each all-reduce op on the CPU side of the trace).  A
+    measurement aid: a profiler that cannot trace the card is reported in
+    the result, not fatal."""
     from torch.profiler import ProfilerActivity, profile
+    steps = 1 + PROFILE_STEPS
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            train(model, samples, 1, TRAIN_BATCH, distributed=distributed)
+            _mark("chip_smoke.start")
+            run(lambda n: _mark(f"chip_smoke.step{n}"))
             torch.cuda.synchronize()
+            _mark("chip_smoke.end")
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows, host_ar = [], {}
         for e in prof.key_averages():
@@ -814,13 +888,35 @@ def profile_step(model, samples, distributed=False):
             if us is None:
                 us = e.self_cuda_time_total
             rows.append((us / 1e3, e.count, e.key[:120]))
-    except (RuntimeError, AttributeError) as e:
+        marks, device = {}, []
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                device.append(e)
+            elif e.name.startswith("chip_smoke."):
+                marks.setdefault(e.name[len("chip_smoke."):],
+                                 e.time_range.start)
+        lo, mid, hi = marks["start"], marks["step2"], marks["end"]
+    except (RuntimeError, AttributeError, KeyError) as e:
         return {"profile_error": str(e).splitlines()[0][:200]}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     ar_device = sum(ms for ms, _, k in rows if _is_all_reduce(k))
-    out = {"profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+    htod = {k: {"ms": ms, "count": n} for ms, n, k in rows
+            if "HtoD" in k}
+
+    def window(a, b, n):
+        ms = (b - a) / 1e3
+        dev = _device_ms(device, a, b)
+        return {"steps": n, "wall_ms": ms, "device_busy_ms": dev / n,
+                "device_idle_share": 1 - dev / ms if ms else None}
+
+    out = {"profiled_steps": steps,
+           "profiled_wall_ms": wall_ms,
+           "device_busy_ms": busy / steps,
            "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
+           "first_step": window(lo, mid, 1),
+           "steady": window(mid, hi, PROFILE_STEPS),
+           "htod_copies": htod,
            "top_kernels": [{"ms": ms, "count": n, "name": k}
                            for ms, n, k in rows[:25]]}
     if distributed:
@@ -832,6 +928,12 @@ def profile_step(model, samples, distributed=False):
     return out
 
 
+def pageable_htod(prof):
+    """The profiled run's host-to-device copies out of pageable memory."""
+    return {k: v for k, v in prof.get("htod_copies", {}).items()
+            if "Pageable" in k}
+
+
 def synthetic_imagenet(n, seed):
     rs = np.random.default_rng(seed)
     x = rs.standard_normal((n, 224, 224, 3), dtype=np.float32)
@@ -839,25 +941,77 @@ def synthetic_imagenet(n, seed):
     return [Sample(x[i], y[i]) for i in range(n)]
 
 
-def train(model, samples, steps, batch, device=None, distributed=False):
+def train(model, samples, steps, batch, device=None, distributed=False,
+          criterion=None, method=None, on_step=None):
     """``steps`` Optimizer steps on a fresh ``DataSet.array(samples,
     distributed=distributed)`` (seeded: every call visits the same
-    batches); returns the loss the driver observed after each step.  Under
-    the Engine's group the Optimizer trains data-parallel."""
-    losses = {}
+    batches); returns the loss the driver observed after each step, and
+    leaves the Optimizer's counters in ``train.metrics``.  Under the
+    Engine's group the Optimizer trains data-parallel.  The default
+    criterion and method are the ResNet path's.  ``on_step(n)``, if
+    given, is called as step n starts (at the loop's first trigger check
+    for it, once its batch is in hand)."""
+    losses, started = {}, set()
 
     def end(state):
-        if state["neval"] > 1:
-            losses[state["neval"] - 1] = state["loss"]
-        return state["neval"] > steps
+        n = state["neval"]
+        if n > 1:
+            losses[n - 1] = state["loss"]
+        if on_step is not None and n <= steps and n not in started:
+            started.add(n)
+            on_step(n)
+        return n > steps
 
     opt = Optimizer(model, DataSet.array(samples, distributed=distributed,
                                          seed=SEED),
-                    nn.CrossEntropyCriterion(), batch_size=batch,
-                    device=device)
-    opt.set_optim_method(SGD(0.1)).set_end_when(Trigger(end, "steps"))
+                    criterion or nn.CrossEntropyCriterion(),
+                    batch_size=batch, device=device)
+    opt.set_optim_method(method or SGD(0.1))
+    opt.set_end_when(Trigger(end, "steps"))
     opt.optimize()
+    train.metrics = opt.metrics
     return [losses[k] for k in sorted(losses)]
+
+
+@contextlib.contextmanager
+def prefetch_depth(depth):
+    """``BIGDL_TORCH_PREFETCH_DEPTH`` set to ``depth`` inside the block."""
+    old = os.environ.get("BIGDL_TORCH_PREFETCH_DEPTH")
+    os.environ["BIGDL_TORCH_PREFETCH_DEPTH"] = str(depth)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["BIGDL_TORCH_PREFETCH_DEPTH"]
+        else:
+            os.environ["BIGDL_TORCH_PREFETCH_DEPTH"] = old
+
+
+def record_inputs(model):
+    """A forward pre-hook keeping a copy of every input batch the model
+    is given; returns (the list, the hook handle)."""
+    seen = []
+    handle = model.register_forward_pre_hook(
+        lambda mod, inp: seen.append(inp[0].detach().clone()))
+    return seen, handle
+
+
+def timed_run(run):
+    """``run()`` between CUDA events, ending synchronized; returns (its
+    result, device-clock ms, host wall s, the data wait's total s, the
+    get-batch counter's count, the computing counter's total s)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    wait_s, n = train.metrics.get("get batch time average")
+    comp_s, _ = train.metrics.get("computing time average")
+    return out, start.elapsed_time(end), wall_s, wait_s, n, comp_s
 
 
 def resnet50(fuse):
@@ -913,7 +1067,7 @@ def f32_card_vs_cpu():
 def phase_train():
     set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
     t0 = time.perf_counter()
-    samples = synthetic_imagenet(TRAIN_BATCH, SEED)
+    samples = synthetic_imagenet(TRAIN_IMAGES, SEED)
     model = resnet50(fuse=True)
     setup_s = time.perf_counter() - t0
     # cuDNN takes the NHWC input as a channels_last view; its output,
@@ -941,24 +1095,23 @@ def phase_train():
               == STEP_LAUNCHES[kind], f"{kind} shapes {dict(seen[kind])}")
 
     reps = phase_bn_kernels(seen, STEP_SHAPES, "train")
+    # bn_kernels emptied the allocator's cache: one step refills it
+    train(model, samples, 1, TRAIN_BATCH)
 
-    # the timed steps
+    # the timed steps at the default prefetch depth (2), staged through
+    # pinned buffers on a side stream, from a saved state
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
     stats_before = torch.cat([b.float().flatten()
                               for b in model.buffers()]).clone()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    losses = train(model, samples, TRAIN_STEPS, TRAIN_BATCH)
-    end.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    inputs, hook = record_inputs(model)
+    losses, run_ms, wall_s, wait_s, n_wait, comp_s = timed_run(
+        lambda: train(model, samples, TRAIN_STEPS, TRAIN_BATCH))
+    hook.remove()
     launched = counts()
     routes = route_counts()
-    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    step_ms = run_ms / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     stats_after = torch.cat([b.float().flatten() for b in model.buffers()])
     check(launched == {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()},
@@ -970,7 +1123,49 @@ def phase_train():
     check(moved > 0 and bool(torch.isfinite(stats_after).all()),
           f"running statistics did not move: {moved}")
 
-    prof = profile_step(model, samples)
+    # the same batches from the same state, synchronous: depth 0 assembles
+    # each batch on the main thread and copies it from pageable memory
+    model.load_state_dict(saved)
+    del saved
+    inputs0, hook = record_inputs(model)
+    with prefetch_depth(0):
+        losses0, run0_ms, wall0_s, wait0_s, _, comp0_s = timed_run(
+            lambda: train(model, samples, TRAIN_STEPS, TRAIN_BATCH))
+    hook.remove()
+    same_inputs = (len(inputs) == len(inputs0) == TRAIN_STEPS
+                   and all(torch.equal(a, b) for a, b in zip(inputs, inputs0)))
+    del inputs, inputs0
+    check(same_inputs, "depth 0 and depth 2 gave the steps other inputs")
+    depth_diff = abs(losses0[0] - losses[0])
+    check(depth_diff <= UNFUSED_ATOL and all(map(math.isfinite, losses0)),
+          f"depth 0 vs depth 2 losses: {losses0} vs {losses}")
+    # two more timed runs in the other order (depth 0, then 2): the host
+    # side of a step varies from run to run
+    again = {}
+    for depth in (0, 2):
+        with prefetch_depth(depth):
+            again[depth] = timed_run(lambda: train(
+                model, samples, TRAIN_STEPS, TRAIN_BATCH))[1] / TRAIN_STEPS
+    pipeline = {
+        "prefetch_depth": 2, "step_ms_depth0": run0_ms / TRAIN_STEPS,
+        "step_ms_runs": {"depth2": [step_ms, again[2]],
+                         "depth0": [run0_ms / TRAIN_STEPS, again[0]]},
+        "losses_depth0": losses0, "first_loss_depth_diff": depth_diff,
+        "inputs_bit_identical": same_inputs,
+        "data_wait_ms": wait_s / n_wait * 1e3,
+        "data_wait_fraction": wait_s / wall_s,
+        "computing_ms": comp_s / TRAIN_STEPS * 1e3,
+        "data_wait_ms_depth0": wait0_s / TRAIN_STEPS * 1e3,
+        "data_wait_fraction_depth0": wait0_s / wall0_s,
+        "computing_ms_depth0": comp0_s / TRAIN_STEPS * 1e3}
+
+    prof = profile_step(lambda mark: train(
+        model, samples, 1 + PROFILE_STEPS, TRAIN_BATCH, on_step=mark))
+    check("profile_error" not in prof, f"profile: {prof}")
+    check(not pageable_htod(prof)
+          and any("Pinned" in k for k in prof["htod_copies"]),
+          f"the profiled steps' host-to-device copies "
+          f"{prof['htod_copies']}: the batch must come from pinned memory")
 
     # host side of one step: batch assembly and the copy to the card
     t0 = time.perf_counter()
@@ -1009,7 +1204,8 @@ def phase_train():
           "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "setup_s": setup_s,
           "warmup_s": warm_s, "wall_s": wall_s, "step_ms": step_ms,
           "images_per_s": TRAIN_BATCH / (step_ms / 1e3),
-          "host_batch_ms": host_ms, "max_memory_allocated": peak,
+          "host_batch_ms": host_ms, **pipeline,
+          "max_memory_allocated": peak,
           "losses": losses, "first_loss_fused": first[0],
           "first_loss_unfused": unfused_first[0], "fused_vs_unfused": diff,
           "unfused_tol": UNFUSED_ATOL, "launches": launched,
@@ -1096,7 +1292,7 @@ def phase_dp_train(single_first_loss):
     backend = torch.distributed.get_backend(Engine.group())
     check(Engine.world() == 1 and backend == "nccl",
           f"group of {Engine.world()} over {backend}")
-    samples = synthetic_imagenet(TRAIN_BATCH, SEED)
+    samples = synthetic_imagenet(TRAIN_IMAGES, SEED)
     model = resnet50(fuse=True)
 
     seen, handles = record_shapes(model, sync=True)
@@ -1154,7 +1350,9 @@ def phase_dp_train(single_first_loss):
     check(moved > 0 and bool(torch.isfinite(stats_after).all()),
           f"running statistics did not move: {moved}")
 
-    prof = profile_step(model, samples, distributed=True)
+    prof = profile_step(lambda mark: train(
+        model, samples, 1 + PROFILE_STEPS, TRAIN_BATCH, distributed=True,
+        on_step=mark), distributed=True)
     probe_us = all_reduce_host_us()
     del model
     Engine.reset()
@@ -1272,6 +1470,257 @@ def phase_dp_two_process():
           "rank_all_reduces": [r["all_reduces"] for r in ranks]})
 
 
+# -- 9. train_lm, with B7's cases inside -------------------------------------
+
+def attention_bwd_bound(B, H, Tq, Tk, D, dtype, causal):
+    """Least device time of the backward: q, o, do (Tq rows) and k, v (Tk
+    rows) read once, dq, dk, dv written once, against its five products
+    (S, dP, dv, dq, dk: 10 * D FLOPs a pair) over the unmasked pairs."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = item * B * H * D * (4 * Tq + 4 * Tk)
+    pairs = sum(min(i + 1, Tk) for i in range(Tq)) if causal else Tq * Tk
+    flops = 10 * D * B * H * pairs
+    return (*bound(nbytes, flops, PEAK_FLOPS[dtype]), nbytes, flops)
+
+
+def b7_case(B, H, Tq, Tk, D, dtype, causal, gen):
+    """B7 against flash_bwd_reference on the card, twice (the result must
+    repeat bit for bit: no atomics), timed beside the plain version and the
+    backward of PyTorch's scaled_dot_product_attention (a yardstick)."""
+    q, k, v = (torch.randn((B, H, T, D), device="cuda", generator=gen)
+               .to(dtype) for T in (Tq, Tk, Tk))
+    do = torch.randn((B, H, Tq, D), device="cuda", generator=gen).to(dtype)
+    fn = attn_ops.flash_attention_bwd
+    rt = attn_ops.bwd_route(dtype)
+    with torch.no_grad():
+        o = attn_ops.flash_attention(q, k, v, causal=causal)
+        zero_routes(fn)
+        got = fn(q, k, v, o, do, causal=causal)
+        again = fn(q, k, v, o, do, causal=causal)
+        routed = only_route(fn, rt, 4)
+        plain = attn_ops.flash_bwd_reference(q, k, v, do, causal=causal)
+        torch.cuda.synchronize()
+        atol, rtol = B7_TOL[dtype]
+        errs = [float((g.float() - p.float()).abs().max())
+                for g, p in zip(got, plain)]
+        ok = routed and all(
+            g.dtype == p.dtype and g.shape == p.shape and bool(
+                ((g.float() - p.float()).abs()
+                 <= atol + rtol * p.float().abs()).all())
+            for g, p in zip(got, plain))
+        repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, plain
+        ms = graph_ms(lambda: fn(q, k, v, o, do, causal=causal))
+        plain_ms = cuda_ms(lambda: attn_ops.flash_bwd_reference(
+            q, k, v, do, causal=causal), iters=5, warmup=1)
+    # the yardstick: SDPA's forward and backward captured together (the
+    # backward runs on its forward's stream), less its forward alone
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(lib_fwd(), (lq, lk, lv), do)
+    both_ms, lib_note = maybe_ms(lib_fwd_bwd)
+    fwd_ms, fwd_note = maybe_ms(lib_fwd)
+    lib_ms = both_ms - fwd_ms if both_ms and fwd_ms else None
+    lib_note = lib_note or fwd_note
+    bound_ms, bound_by, nbytes, flops = attention_bwd_bound(
+        B, H, Tq, Tk, D, dtype, causal)
+    case = {"shape": [B, H, Tq, Tk, D], "dtype": str(dtype)[6:],
+            "causal": causal, "route": rt, "max_abs_err": max(errs),
+            "max_abs_err_dq_dk_dv": errs, "tol": [atol, rtol],
+            "repeatable": repeatable, "ok": ok and repeatable, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "ms_over_library": ratio(ms, lib_ms), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": nbytes, "flops": flops}
+    if lib_note:
+        case["library_note"] = lib_note
+    return case
+
+
+def phase_b7():
+    """B7 at the LM step's shape and at float32 ragged shapes; returns the
+    step shape's case."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    T = LM["max_len"]
+    shapes = [(LM_BATCH, H, T, T, D, torch.bfloat16, True),
+              (4, 4, 200, 200, 64, torch.bfloat16, False)]
+    for d in (32, 128):
+        shapes += [(2, 4, 37, 200, d, torch.float32, False),
+                   (2, 4, 200, 37, d, torch.float32, False),
+                   (2, 4, 200, 200, d, torch.float32, True),
+                   (2, 4, 200, 200, d, torch.bfloat16, True)]
+    cases = [b7_case(*sh, gen) for sh in shapes]
+    emit({"phase": "b7_kernels", "gpu": gpu_line(),
+          "kernel": "flash_attention_bwd", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    check(not bad, f"flash_attention_bwd disagrees with its plain version "
+          f"or does not repeat: {bad}")
+    return cases[0]
+
+
+def lm_samples(n, seq, vocab, seed):
+    """Next-token pairs over random tokens from ``default_rng(seed)``."""
+    toks = np.random.default_rng(seed).integers(0, vocab, (n, seq + 1))
+    toks = toks.astype(np.int32)
+    return [Sample(toks[i, :-1], toks[i, 1:]) for i in range(n)]
+
+
+def train_lm(model, samples, steps, batch, device=None, on_step=None):
+    """The LM path: TimeDistributedCriterion(ClassNLLCriterion()) and
+    SGD(0.01, momentum=0.9), as bench.py trains transformer_lm."""
+    return train(model, samples, steps, batch, device=device,
+                 criterion=nn.TimeDistributedCriterion(
+                     nn.ClassNLLCriterion(), size_average=True),
+                 method=SGD(LM_LR, momentum=0.9), on_step=on_step)
+
+
+def flash_counts():
+    return (attn_ops.flash_attention.launches,
+            attn_ops.flash_attention_bwd.launches)
+
+
+def zero_flash():
+    for fn in (attn_ops.flash_attention, attn_ops.flash_attention_bwd):
+        fn.launches = 0
+        zero_routes(fn)
+
+
+def check_lm_launches(steps, what, fwd_route="tc", bwd_route="mma_sync",
+                      layers=LM["num_layers"]):
+    fwd, bwd = flash_counts()
+    want = (layers * steps, 2 * layers * steps)
+    check((fwd, bwd) == want, f"{what}: flash launches (forward, backward) "
+          f"{(fwd, bwd)} != {want}")
+    check(only_route(attn_ops.flash_attention, fwd_route, fwd)
+          and only_route(attn_ops.flash_attention_bwd, bwd_route, bwd),
+          f"{what}: flash routes {attn_ops.flash_attention.route_launches} "
+          f"{attn_ops.flash_attention_bwd.route_launches}")
+
+
+LM_SMALL = dict(vocab_size=97, max_len=64, d_model=64, num_heads=2,
+                num_layers=2)
+
+
+def lm_f32_card_vs_cpu():
+    """A small float32 LM (TF32 off) trained 3 steps on the card (B6 and
+    B7 on "f32") and on the CPU (their plain versions)."""
+    set_policy(DTypePolicy())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = TransformerLM(**LM_SMALL).build(
+        "cpu", torch.Generator().manual_seed(SEED))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    samples = lm_samples(24, LM_SMALL["max_len"], LM_SMALL["vocab_size"],
+                         SEED + 5)
+    zero_flash()
+    card = train_lm(gpu, samples, 3, 8)
+    check_lm_launches(3, "float32 LM", "f32", "f32", LM_SMALL["num_layers"])
+    host = train_lm(cpu, samples, 3, 8, device="cpu")
+    err = max(abs(a - b) for a, b in zip(card, host))
+    check(len(card) == 3 and err <= F32_TRAIN_ATOL,
+          f"float32 LM card vs CPU: {card} vs {host}")
+
+    # dropout 0.1: one step, twice from the same seed (the Optimizer's
+    # generator is seeded from BIGDL_TORCH_SEED): the same finite loss
+    def dropout_step():
+        m = TransformerLM(**LM_SMALL, dropout=0.1).build(
+            "cuda", torch.Generator().manual_seed(SEED))
+        return train_lm(m, samples, 1, 8)[0]
+    drop = [dropout_step(), dropout_step()]
+    # the same weights and batch as the first step above, so a loss that
+    # differs from it shows the masks were applied
+    check(math.isfinite(drop[0]) and drop[0] == drop[1] != card[0],
+          f"dropout steps from one seed: {drop}, without dropout {card[0]}")
+    return {"f32_losses_card": card, "f32_losses_cpu": host,
+            "f32_max_loss_diff": err, "f32_tol": F32_TRAIN_ATOL,
+            "dropout_first_losses": drop}
+
+
+def phase_train_lm():
+    """TransformerLM at the transformer_lm bench width trained through
+    DataSet.array -> Optimizer; B7's cases; the float32 and dropout
+    checks."""
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    T, V = LM["max_len"], LM["vocab_size"]
+    samples = lm_samples(LM_BATCH * TRAIN_STEPS, T, V, SEED)
+    model = TransformerLM(**LM).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    setup_s = time.perf_counter() - t0
+
+    zero_flash()
+    t0 = time.perf_counter()
+    first = train_lm(model, samples, 1, LM_BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check_lm_launches(1, "LM warm-up")
+    check(math.isfinite(first[0]), f"LM warm-up loss {first}")
+
+    rep = phase_b7()
+    # B6 at the step's call: [16, 8, 512, 64] bf16 causal
+    b6 = flash_case(LM_BATCH, LM["num_heads"], T, T,
+                    LM["d_model"] // LM["num_heads"], torch.bfloat16, True,
+                    torch.Generator().manual_seed(SEED))
+    check(b6["ok"], f"flash_attention at the LM step's call: {b6}")
+    # as in train: the kernel cases' graphs and plain versions left the
+    # allocator's cache in another shape; one step refills it
+    train_lm(model, samples, 1, LM_BATCH)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash()
+    losses, run_ms, wall_s, wait_s, n_wait, comp_s = timed_run(
+        lambda: train_lm(model, samples, TRAIN_STEPS, LM_BATCH))
+    fwd, bwd = flash_counts()
+    fwd_routes = dict(attn_ops.flash_attention.route_launches)
+    bwd_routes = dict(attn_ops.flash_attention_bwd.route_launches)
+    check_lm_launches(TRAIN_STEPS, f"{TRAIN_STEPS} LM steps")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"LM losses {losses}")
+    step_ms = run_ms / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(lambda mark: train_lm(
+        model, samples, 1 + PROFILE_STEPS, LM_BATCH, on_step=mark))
+    del model
+    torch.cuda.empty_cache()
+    small = lm_f32_card_vs_cpu()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    emit({"phase": "train_lm", "gpu": gpu_line(), "model": "TransformerLM",
+          "config": LM, "batch": LM_BATCH, "seq": T, "steps": TRAIN_STEPS,
+          "setup_s": setup_s, "warmup_s": warm_s, "wall_s": wall_s,
+          "step_ms": step_ms, "tokens_per_s": LM_BATCH * T / (step_ms / 1e3),
+          "data_wait_ms": wait_s / n_wait * 1e3,
+          "data_wait_fraction": wait_s / wall_s,
+          "computing_ms": comp_s / TRAIN_STEPS * 1e3,
+          "max_memory_allocated": peak, "losses": losses,
+          "flash_launches": fwd, "flash_route_launches": fwd_routes,
+          "flash_bwd_launches": bwd, "flash_bwd_route_launches": bwd_routes,
+          "flash_step_case": b6, **prof, **small})
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "bigdl_torch/csrc/flash_attention.cu",
+         "replaces": "bigdl_tpu/ops/attention.py:59", "launches": fwd,
+         "path": "train_lm", "max_abs_err": b6["max_abs_err"],
+         "ms": b6["ms"], "plain_ms": b6["plain_ms"],
+         "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
+         "library_ms": b6["library_ms"],
+         "ms_over_library": b6["ms_over_library"],
+         "kernel_route": b6["route"], "route_launches": fwd_routes},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "bigdl_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "bigdl_tpu/ops/attention.py:182", "launches": bwd,
+         "path": "train_lm", "max_abs_err": rep["max_abs_err"],
+         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+         "library_ms": rep["library_ms"],
+         "ms_over_library": rep["ms_over_library"],
+         "kernel_route": rep["route"], "route_launches": bwd_routes}]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1298,6 +1747,7 @@ def main():
     rows += train_rows
     rows += phase_dp_train(first_loss)
     phase_dp_two_process()
+    rows += phase_train_lm()
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

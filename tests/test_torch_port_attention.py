@@ -136,11 +136,19 @@ def test_route_tiles_are_accepted(dtype, rt):
 
 
 def test_kernel_refuses_autograd_inputs():
+    """The forward-only refusal is gone now that the backward (B7) is
+    ported: the kernels take operands that need a gradient, and under grad
+    flash_attention returns the FlashAttention Function's output, in
+    inference mode and on tensors that need none the plain call's."""
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        tattn._check_cuda(q, q, q)
+    assert tattn._check_cuda(q, q, q) == "f32"
+    out = tattn.flash_attention(q, q, q)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     with torch.inference_mode():
-        tattn._check_cuda(q, q, q)
+        assert tattn._check_cuda(q, q, q) == "f32"
+        assert tattn.flash_attention(q, q, q).grad_fn is None
+    assert tattn.flash_attention(q.detach(), q.detach(),
+                                 q.detach()).grad_fn is None
 
 
 @pytest.mark.parametrize("T", [128, 256, 512])

@@ -129,8 +129,6 @@ def test_reference_tree_round_trip_bit_exact():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tlm.TransformerLM(97, dropout=0.1)
     with pytest.raises(NotImplementedError, match="num_experts"):
         tlm.TransformerLM(97, num_experts=4)
     with pytest.raises(NotImplementedError, match="seq_parallel"):
