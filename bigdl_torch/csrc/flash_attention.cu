@@ -50,7 +50,12 @@
 //    inside KERNEL_TOL[bf16].
 //  - O / l (l = 0 leaves 0) is written as bf16 pairs into the
 //    [B, T, H, D]-ordered output the wrapper allocates; rows past Tq are
-//    not written.
+//    not written.  Where the caller asks for it (training), each row's
+//    natural log-sum-exp, (m + log2 l) ln 2, goes to a float32 [B*H, Tq]
+//    array beside it: the backward reads it instead of recomputing it.
+//    That is a second instance of the kernel: serving passes no array and
+//    runs the one compiled without the write (a run-time test of the
+//    pointer changed how the whole kernel compiled, and slowed it).
 //
 // float32 (`flash_fwd_kernel`, route "f32", the first version, kept for
 // float32 parity checks): float32 FMAs on the CUDA cores.
@@ -67,6 +72,7 @@
 //    Row max and row sum reduce over the 16 lanes of a half-warp with
 //    shuffles.  K rows are padded by one float so the 16 lanes reading 16
 //    different key rows hit 16 different banks.
+//  - It writes the log-sum-exp m + ln l where asked, as "tc" does.
 //  - Ragged Tq and Tk are handled by bounds checks in the kernel: rows past
 //    Tq are computed on zeros and never stored, keys past Tk are masked to
 //    -inf.  Operands are read, and the output written, through their
@@ -104,7 +110,8 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Tq,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int Tq,
                  int Tk, Strides sq, Strides sk, Strides sv, Strides so,
                  float sm_scale, int causal) {
   constexpr int QS = D + 1;  // padded row stride of the Q and K tiles
@@ -231,12 +238,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       store_f32(ob + qi * so.t + tx + 16 * c, acc[i][c] / li);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<long long>(blockIdx.y) * Tq + qi] =
+          m[i] == -INFINITY ? 0.f : m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
            Strides so, float sm_scale, int causal, cudaStream_t stream) {
   const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -246,8 +256,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Tq, Tk, sq, sk, sv,
-      so, sm_scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Tq, Tk, sq, sk,
+      sv, so, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,45 +370,21 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2],
   }
 }
 
-// p rounded to bf16 pairs in the layout of the register A operand.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
-                                       const float (&sc)[BKV / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pa[kk][i] =
-          hopper::pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-}
-
-// The work items of a call are (query tile, b * H + h) pairs; under the
-// causal mask the tiles with the most keys come first.  Block c of G takes
-// items c, 2G - 1 - c, 2G + c, ... (a snake over the rounds), so the long
-// and the short items of a round even out.
-struct Items {
-  int n_qt, BH, causal, G;
-  __device__ int count() const { return n_qt * BH; }
-  __device__ int item(int c, int r) const {
-    return r * G + ((r & 1) ? G - 1 - c : c);
-  }
-  __device__ int q_tile(int i) const {
-    return causal ? n_qt - 1 - i / BH : i / BH;
-  }
-};
-
-template <int D>
+// LSE: also write each row's log-sum-exp (a separate instance, so that
+// serving runs the kernel compiled without that code).
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv,
-                __nv_bfloat16* __restrict__ o, int B, int H, int Tq, int Tk,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
+                int H, int Tq, int Tk,
                 long long sob, long long soh, long long sot, float scale_log2,
                 int causal) {
   using L = Layout<D>;
   constexpr int S = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = hopper::align1024(smem_raw);
   uint8_t* ks = qs + 2 * L::TILE;  // Q is double-buffered
   uint8_t* vs = ks + S * L::TILE;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + S * L::TILE);
@@ -407,8 +393,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* v_full = k_full + S;
   uint64_t* kv_free = v_full + S;
 
-  const Items items{(Tq + BQ - 1) / BQ, B * H, causal,
-                    static_cast<int>(gridDim.x)};
+  // under the causal mask the last query tiles have the most keys
+  const hopper::Items items{(Tq + BQ - 1) / BQ, B * H, causal,
+                            static_cast<int>(gridDim.x)};
   const int c = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -433,7 +420,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
       for (int r = 0;; ++r) {
         const int i = items.item(c, r);
         if (i >= items.count()) break;
-        const int q0 = items.q_tile(i) * BQ;
+        const int q0 = items.tile(i) * BQ;
         const int b = (i % items.BH) / H, h = (i % items.BH) % H;
         const int n_kt = ((causal ? min(Tk, q0 + BQ) : Tk) + BKV - 1) / BKV;
         if (r >= 2) hopper::mbar_wait(&q_free[r & 1], (r / 2 - 1) & 1);
@@ -473,7 +460,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
   for (int r = 0;; ++r) {
     const int i = items.item(c, r);
     if (i >= items.count()) break;
-    const int q0 = items.q_tile(i) * BQ;
+    const int q0 = items.tile(i) * BQ;
     const int b = (i % items.BH) / H, h = (i % items.BH) % H;
     const int n_kt = ((causal ? min(Tk, q0 + BQ) : Tk) + BKV - 1) / BKV;
     const int row_lo = q0 + 64 * wg + 16 * (warp % 4) + g;
@@ -494,7 +481,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
       hopper::fence_regs(sc);
       softmax_tile(sc, m, l, alpha, 0, row_lo, q4, Tk, causal,
                    BKV > Tk || (causal && BKV - 1 > row_min), scale_log2);
-      pack_p(pa, sc);
+      hopper::pack_frag(pa, sc);
     }
     for (int kt = 1; kt < n_kt; ++kt) {
       const int s = (t + kt) % S;
@@ -521,7 +508,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
           acc[4 * j + 2 * hh] *= alpha[hh];
           acc[4 * j + 2 * hh + 1] *= alpha[hh];
         }
-      pack_p(pa, sc);
+      hopper::pack_frag(pa, sc);
     }
     if (n_kt > 0) {
       const int sl = (t + n_kt - 1) % S;
@@ -544,6 +531,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const float inv = lt == 0.f ? 0.f : 1.f / lt;  // fully masked -> 0
       const int row = row_lo + 8 * hh;
+      // the natural log-sum-exp, from the log2-domain max: (m + log2 l) ln 2
+      if constexpr (LSE) {
+        if (q4 == 0 && row < Tq)
+          lse[static_cast<long long>(i % items.BH) * Tq + row] =
+              m[hh] == -INFINITY
+                  ? 0.f
+                  : (m[hh] + hopper::log2_approx(lt)) * 0.6931471805599453f;
+      }
       if (row < Tq) {
         __nv_bfloat16* orow = o + b * sob + h * soh + row * sot;
 #pragma unroll
@@ -557,8 +552,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
            Strides so, float sm_scale, int causal, cudaStream_t stream) {
   using L = Layout<D>;
   const CUtensorMapSwizzle swizzle = L::RB == 128
@@ -582,17 +577,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                                      box, swizzle);
     if (err) return err;
   }
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(flash_tc_kernel<D, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::SMEM),
+      cudaFuncSetAttribute(flash_tc_kernel<D, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::SMEM)};
+  for (const cudaError_t e : attr)
+    if (e != cudaSuccess) return static_cast<int>(e);
   // persistent: one block per SM, or one per item where there are fewer
   static const int n_sm = hopper::sm_count();
   const long long n_items = static_cast<long long>((Tq + BQ - 1) / BQ) * B * H;
   const int grid = n_items < n_sm ? static_cast<int>(n_items) : n_sm;
-  flash_tc_kernel<D><<<grid, THREADS, L::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), B, H, Tq,
-      Tk, so.b, so.h, so.t, sm_scale * 1.4426950408889634f, causal);
+  const auto kernel =
+      lse != nullptr ? flash_tc_kernel<D, true> : flash_tc_kernel<D, false>;
+  kernel<<<grid, THREADS, L::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, B, H,
+      Tq, Tk, so.b, so.h, so.t, sm_scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -600,15 +602,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 template <int D>
 int launch_route(int route, const void* q, const void* k, const void* v,
-                 void* o, int B, int H, int Tq, int Tk, Strides sq,
-                 Strides sk, Strides sv, Strides so, float sm_scale,
-                 int causal, cudaStream_t stream) {
+                 void* o, float* lse, int B, int H, int Tq, int Tk,
+                 Strides sq, Strides sk, Strides sv, Strides so,
+                 float sm_scale, int causal, cudaStream_t stream) {
   if (route == 0)
-    return launch<float, D>(q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so,
+    return launch<float, D>(q, k, v, o, lse, B, H, Tq, Tk, sq, sk, sv, so,
                             sm_scale, causal, stream);
   if (route == 1)
-    return tc::launch<D>(q, k, v, o, B, H, Tq, Tk, sq, sk, sv, so, sm_scale,
-                         causal, stream);
+    return tc::launch<D>(q, k, v, o, lse, B, H, Tq, Tk, sq, sk, sv, so,
+                         sm_scale, causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -617,12 +619,17 @@ int launch_route(int route, const void* q, const void* k, const void* v,
 // route: 0 = "f32" (float32 operands, CUDA cores), 1 = "tc" (bf16 operands,
 // tensor cores; the base of each operand 16-byte aligned and its B, H and T
 // strides multiples of 8).  Strides are in elements, for the B, H and T
-// axes of each operand (the D axis is unit-stride).  Returns
+// axes of each operand (the D axis is unit-stride).  `lse`, when not null,
+// receives each row's natural log-sum-exp of its scaled, masked scores as
+// float32 [B*H, Tq] (0 for a row whose every key is masked): what the
+// backward (flash_attention_bwd.cu) takes instead of recomputing it.
+// Returns
 // cudaGetLastError() after the launch, or an error code for a head
 // dimension or route without an instance or a tensor map that
 // cuTensorMapEncodeTiled refuses.
 extern "C" int bigdl_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int route, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int route, int B,
     int H, int Tq, int Tk, int D, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sob,
@@ -633,14 +640,14 @@ extern "C" int bigdl_flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_route<32>(route, q, k, v, o, B, H, Tq, Tk, sq, sk, sv,
-                              so, sm_scale, causal, st);
+      return launch_route<32>(route, q, k, v, o, lse, B, H, Tq, Tk, sq, sk,
+                              sv, so, sm_scale, causal, st);
     case 64:
-      return launch_route<64>(route, q, k, v, o, B, H, Tq, Tk, sq, sk, sv,
-                              so, sm_scale, causal, st);
+      return launch_route<64>(route, q, k, v, o, lse, B, H, Tq, Tk, sq, sk,
+                              sv, so, sm_scale, causal, st);
     case 128:
-      return launch_route<128>(route, q, k, v, o, B, H, Tq, Tk, sq, sk, sv,
-                               so, sm_scale, causal, st);
+      return launch_route<128>(route, q, k, v, o, lse, B, H, Tq, Tk, sq, sk,
+                               sv, so, sm_scale, causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

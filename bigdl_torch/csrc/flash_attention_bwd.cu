@@ -1,10 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Replaces bigdl_tpu/ops/attention.py `_flash_bwd_chunked` (B7), the jnp
+// Replaces bigdl_tpu/ops/attention.py:182 `_flash_bwd_chunked` (B7), the jnp
 // recompute behind the `custom_vjp` of the Pallas forward (B6): given q, k,
-// v, the forward's output o and its gradient do, all [B, H, T, D], it
-// computes
-//     P  = softmax(S),  S = scale * q k^T  (causal: kj > qi masked)
+// v, the forward's output o, its gradient do, all [B, H, T, D], and the
+// forward's log-sum-exp lse (float32 [B*H, Tq], natural log; B6 writes it),
+// it computes
+//     P  = exp(S - lse),  S = scale * q k^T  (causal: kj > qi masked)
 //     dv = P^T do;  dP = do v^T;  dS = P * (dP - rowsum(dP * P))
 //     dq = scale * dS k;  dk = scale * dS^T q
 // without keeping a [Tq, Tk] matrix in device memory.  rowsum(dP * P)
@@ -12,45 +13,67 @@
 // are float32; outputs are in the operands' type.  Keys past Tk are
 // masked; rows past Tq are computed on zeros and never stored; a row whose
 // every key is masked (none on the paths that call it) gets zero gradient,
-// as the reference's guards (max -> 0, sum -> 1) give.
+// since B6 gives it lse = 0 and every one of its P is masked to 0.
 //
 // What bounds it on an H100: at [16, 8, 512, 64] bf16 causal the call must
-// move 67 MB (20 us at 3.35 TB/s) against 10.8 GFLOP of causal work (11 us
-// at 989 TFLOP/s on the tensor cores), so it sits near the ridge and every
-// product must run on the tensor cores.
+// move 67 MB (20 us at 3.35 TB/s) against 10.8 GFLOP of useful causal work
+// (11 us at 989 TFLOP/s on the tensor cores); the two launches below issue
+// 7/5 of that (S and dP are taken in both), 15.1 GFLOP or 15 us.  It sits
+// near the ridge, so every product runs on the tensor cores, the tiles
+// arrive by TMA while earlier ones are multiplied, and the log-sum-exp
+// comes from the forward instead of a key pass of its own.
 //
 // Two launches per call, each block owning its outputs, so there are no
 // atomics and the result does not depend on scheduling:
 //
-//  1. dq: a block per (query tile, b*h).  It loads its q and do rows, takes
-//     delta = rowsum(do * o), then walks the key tiles twice (under the
-//     causal mask only up to its diagonal): first for the row max and sum
-//     (the forward's online softmax), giving the log-sum-exp, then for dP
-//     and dS, accumulating dq = dS k in registers.  It writes dq, and the
-//     log-sum-exp and delta as float32 [B*H, Tq] for launch 2.
-//  2. dk, dv: a block per (key tile of 64, b*h).  It holds its k and v rows
-//     and walks the query tiles from its causal start, rebuilding
+//  1. dq: work items of query rows of one (b, h).  An item takes delta =
+//     rowsum(do * o) for its rows (and writes it for launch 2), reads their
+//     lse, and walks the key tiles (under the causal mask only up to its
+//     diagonal), taking S and dP, then dS, and accumulating dq = dS k in
+//     registers.
+//  2. dk, dv: work items of keys of one (b, h).  An item holds its k and v
+//     rows and walks the query tiles from its causal start, rebuilding
 //     P^T = exp(scale * k q^T - lse) and dS^T, and accumulates dv = P^T do
 //     and dk = dS^T q in registers.
 //
 // Two routes, chosen by the operands' type:
 //
-// bf16 (`bwd_dq_mma_kernel`, `bwd_dkv_mma_kernel`, route "mma_sync"): the
-// five products (and the score products again in launch 1's first pass) on
-// the tensor cores by warp-level mma.sync m16n8k16, float32 accumulators.
-//  - 128 threads, 4 warps of 16 rows (launch 1: query rows, 64 a block,
-//    key tiles of 64; launch 2: keys, 64 a block, query tiles of 32).
-//    Tiles sit in shared memory as bf16 rows padded by 16 bytes, loaded 16
-//    bytes a thread (the wrapper hands over 16-byte aligned operands).
-//  - A score tile comes out in the accumulator layout (lane (g, t) holds
-//    rows g and g + 8, columns 2t and 2t + 1 of each 8 columns); the
-//    softmax, the mask and dS = P (dP - delta) run on it in registers; P
-//    and dS are rounded to bf16 and become the A operand of the next
-//    product without leaving registers (the layouts line up pairwise).
-//  - The second operand of dq += dS k, dv += P^T do and dk += dS^T q is
-//    read column-wise from shared memory, two rows a register.
-//  - Rounding P and dS to bf16 for those products is where it differs from
-//    the plain version (float32 throughout), inside the bf16 tolerance.
+// bf16 (`bwd_dq_tc_kernel`, `bwd_dkv_tc_kernel`, route "tc"): warpgroup
+// tensor-core products (wgmma) on tiles fed by TMA, as B6's "tc".
+//  - Persistent blocks, one per SM, of two consumer warpgroups and one
+//    producer warp.  An item is 128 rows (launch 1 queries, launch 2 keys),
+//    64 for each consumer warpgroup, and blocks take the items longest
+//    first under the causal mask (launch 1 the last query tiles, launch 2
+//    the first key tiles), snaking over the rounds as B6 does.
+//  - The producer loads each item's two 128-row tiles (launch 1 Q and dO,
+//    launch 2 K and V) into one of two buffers, and keeps a ring of the
+//    other two operands' 64-row tiles (launch 1 K and V, launch 2 Q and dO)
+//    in flight, running on into the next item.  Launch 2's producer warp
+//    also stages each query tile's lse (times log2 e) and delta in shared
+//    memory beside it.  Tiles are read straight from the strided
+//    [B, H, T, D] views by 4-D tensor maps, with B6's swizzles (128-byte
+//    chunks of 64 columns for D = 64 and 128, 64-byte rows for D = 32);
+//    rows past T arrive as zeros.
+//  - Per streamed tile, a warpgroup takes two SS products (both operands
+//    K-major in shared memory; launch 1 S = Q K^T and dP = dO V^T, launch 2
+//    S^T = K Q^T and dP^T = V dO^T, m64n64k16), then on the accumulator
+//    fragment P = exp2(S scale log2 e - lse log2 e) and dS = P (dP -
+//    delta), the mask applied only on tiles that cross the diagonal or a T
+//    edge.  P and dS are rounded to bf16 in registers and are the A operand
+//    of the RS products (launch 1 dq += dS K, launch 2 dv += P^T dO and
+//    dk += dS^T Q, m64nDk16), whose B tile is read MN-major from the same
+//    stage: no score tile touches shared memory.  Seven products in all
+//    (five would need atomics on dq).
+//  - dq (times scale), dk (times scale) and dv are written once, as bf16
+//    pairs from the accumulators.  Rounding P and dS to bf16 is where it
+//    differs from the plain version (float32 throughout), inside the bf16
+//    tolerance.
+//  - A block of 9 warps is compiled for 168 registers a thread: launch 2
+//    holds dk and dv beside S^T and dP^T and spills (400 bytes at D = 128,
+//    where dk and dv take 64 each; 8 at D = 64).  The same register budget
+//    leaves no room to issue the next tile's products before this tile's
+//    dk and dv products finish; the second warpgroup fills the tensor
+//    cores meanwhile.
 //
 // float32 (`bwd_dq_kernel`, `bwd_dkv_kernel`, route "f32", kept for float32
 // parity checks): float32 FMAs on the CUDA cores, 256 threads as a 16 x 16
@@ -67,8 +90,9 @@
 
 #include <cstdint>
 
-namespace {
+#include "hopper.cuh"
 
+namespace {
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 256;  // 16 x 16
@@ -86,13 +110,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 
@@ -168,7 +185,7 @@ __global__ void __launch_bounds__(THREADS)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ o,
               const float* __restrict__ dout, float* __restrict__ dq,
-              float* __restrict__ lse, float* __restrict__ delta, int H,
+              const float* __restrict__ lse, float* __restrict__ delta, int H,
               int Tq, int Tk, Strides sq, Strides sk, Strides sv, Strides so,
               Strides sd, Strides sdq, float scale, int causal) {
   constexpr int S = D + 1;
@@ -213,59 +230,17 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // causal: key tiles past this block's last row are masked for every row
   const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
 
-  // pass 1: the row max m and this lane's share of the row sum l
-  float m[ROWS], l[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    load_tile<D>(ks, kb, sk.t, k0, Tk);
-    __syncthreads();
-    float s[ROWS][COLS];
-    tile_dot<D>(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qi = q0 + ty * ROWS + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kj >= Tk || (causal && kj > qi)) x = -INFINITY;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      if (m_new == -INFINITY) continue;  // nothing unmasked yet
-      float part = l[i] * expf(m[i] - m_new);  // exp(-inf) = 0 at the start
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) part += expf(s[i][j] - m_new);
-      l[i] = part;
-      m[i] = m_new;
-    }
-  }
-  // log-sum-exp; a fully-masked row keeps p = exp(-inf - 0) = 0
+  // the forward's log-sum-exp; delta for launch 2
   float ls[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
-    const float sum = half_warp_sum(l[i]);
-    ls[i] = m[i] == -INFINITY ? 0.f : m[i] + logf(sum);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qi = q0 + ty * ROWS + i;
-      if (qi < Tq) {
-        lse[static_cast<long long>(bh) * Tq + qi] = ls[i];
-        delta[static_cast<long long>(bh) * Tq + qi] = dl[i];
-      }
-    }
+    const int qi = q0 + ty * ROWS + i;
+    ls[i] = qi < Tq ? lse[static_cast<long long>(bh) * Tq + qi] : 0.f;
+    if (tx == 0 && qi < Tq)
+      delta[static_cast<long long>(bh) * Tq + qi] = dl[i];
   }
 
-  // pass 2: dS and dq
+  // dS and dq
   float acc[ROWS][DC];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i)
@@ -396,7 +371,7 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* lse,
+           const void* dout, void* dq, void* dk, void* dv, const float* lse,
            float* delta, int B, int H, int Tq, int Tk, const Strides* st,
            float scale, int causal, cudaStream_t stream) {
   const int dq_bytes = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
@@ -429,416 +404,622 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16: warp-level tensor-core products (mma.sync m16n8k16) ------------
+// ---- bf16: warpgroup tensor-core products (wgmma) fed by TMA ---------------
 
-namespace mma {
-
-constexpr int THREADS = 128;  // 4 warps, 16 rows each
-constexpr int BQ = 64;        // launch 1: query rows per block
-constexpr int BK = 64;        // launch 1: keys per tile; launch 2: per block
-constexpr int BQ2 = 32;       // launch 2: query rows per tile
+namespace tc {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int CONSUMER_WARPS = 8;                   // two warpgroups
+constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);  // + the producer warp
+constexpr int ROWS = 128;  // rows of an item, 64 for each warpgroup
+constexpr int BT = 64;     // rows of a streamed tile
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + ROWS) of a [T, D] operand into a tile of row stride D + 8,
-// 16 bytes a load (the wrapper passes 16-byte aligned bases and strides);
-// rows past T are zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long st, int r0, int n) {
-  constexpr int CH = D / 8;  // 16-byte pieces a row
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      v = *reinterpret_cast<const uint4*>(src + (r0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = v;
-  }
-}
-
-// acc[j] (+)= A[16 rows x D] B^T over this warp's rows `a` (row stride
-// D + 8) and the N = 8 * NJ rows of `b`: a score tile, k = the head dim
-template <int D, int NJ>
-__device__ __forceinline__ void scores(float (&acc)[NJ][4], const bf16* a,
-                                       const bf16* b, int gid, int tig) {
-  constexpr int S = D + 8;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = 16 * kc + 2 * tig;
-    const uint32_t af[4] = {ld32(a + gid * S + c), ld32(a + (gid + 8) * S + c),
-                            ld32(a + gid * S + c + 8),
-                            ld32(a + (gid + 8) * S + c + 8)};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const bf16* br = b + (8 * j + gid) * S + c;
-      mma16816(acc[j], af, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc[n] += P X over a score tile p (16 rows x 8 * NJ, C-fragment layout,
-// rounded to bf16 as the A operand) and the tile x [8 * NJ rows, D]
-template <int D, int NJ>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&p)[NJ][4],
-                                           const bf16* x, int gid, int tig) {
-  constexpr int S = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < NJ / 2; ++kc) {
-    const uint32_t af[4] = {pack(p[2 * kc][0], p[2 * kc][1]),
-                            pack(p[2 * kc][2], p[2 * kc][3]),
-                            pack(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                            pack(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-    const bf16* xr = x + (16 * kc + 2 * tig) * S + gid;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* xc = xr + 8 * n;
-      mma16816(acc[n], af, pack2(xc[0], xc[S]),
-               pack2(xc[8 * S], xc[9 * S]));
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
+template <int D>
+struct Layout {
+  static constexpr int STAGES = D < 128 ? 4 : 2;  // streamed tiles in flight
+  static constexpr int CW = D < 64 ? D : 64;  // columns of a swizzled chunk
+  static constexpr int NCH = D / CW;          // chunks per row
+  static constexpr int RB = 2 * CW;           // bytes of a chunk row
+  static constexpr uint32_t SWZ =
+      RB == 128 ? hopper::kSwizzle128 : hopper::kSwizzle64;
+  static constexpr int ITEM_CHUNK = ROWS * RB;  // a chunk of an item tile
+  static constexpr int CHUNK = BT * RB;         // a chunk of a streamed tile
+  static constexpr int ITEM_TILE = ROWS * D * 2;
+  static constexpr int TILE = BT * D * 2;
+  // two item operands, double-buffered; two streamed operands in STAGES
+  // stages with launch 2's lse and delta; the barriers
+  static constexpr int SMEM = 1024 + 4 * ITEM_TILE + 2 * STAGES * TILE +
+                              2 * STAGES * BT * 4 + 8 * (4 + 3 * STAGES);
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
+};
 
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// acc = A B^T over the head dimension: A this warpgroup's 64 rows of an
+// item tile, B a streamed 64-row tile, both K-major; one commit group.
 template <int D>
-constexpr int dq_smem_bytes() {
-  return 4 * 64 * (D + 8) * 2;
+__device__ __forceinline__ void ss_issue(float (&acc)[BT / 2],
+                                         const uint8_t* a,
+                                         const uint8_t* b) {
+  using L = Layout<D>;
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int ch = kk / (L::CW / 16), off = (kk % (L::CW / 16)) * 32;
+    hopper::WgmmaSS<BT>::mma<0, 0>(
+        acc,
+        hopper::smem_desc(a + ch * L::ITEM_CHUNK + off, 16, 8 * L::RB,
+                          L::SWZ),
+        hopper::smem_desc(b + ch * L::CHUNK + off, 16, 8 * L::RB, L::SWZ),
+        kk);
+  }
+  hopper::wgmma_commit();
 }
 
+// acc += A X: A the register operand (a 64 x 64 fragment as bf16 pairs, 16
+// columns a step), X a streamed tile whose 64 rows run along the product's
+// K, read MN-major; one commit group.
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * BK + 2 * BQ2) * (D + 8) * 2 + 2 * BQ2 * 4;
+__device__ __forceinline__ void rs_issue(float (&acc)[D / 2],
+                                         const uint32_t (&a)[BT / 16][4],
+                                         const uint8_t* x) {
+  using L = Layout<D>;
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+    hopper::WgmmaRS<D>::template mma<1>(
+        acc, a[kk],
+        hopper::smem_desc(x + kk * 16 * L::RB, L::CHUNK, 8 * L::RB, L::SWZ),
+        1);
+  hopper::wgmma_commit();
 }
 
-// Launch 1: a warp owns 16 query rows; lane (gid, tig) holds rows gid and
-// gid + 8 of them, score columns 8 * j + 2 * tig (+1) and dq columns
-// 8 * n + 2 * tig (+1).
+// Shared memory of either launch: item tiles (two operands, two buffers),
+// streamed tiles (two operands, STAGES each), launch 2's lse and delta per
+// stage, then 4 + 3 * STAGES barriers.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ o,
-                  const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                  float* __restrict__ lse, float* __restrict__ delta, int H,
-                  int Tq, int Tk, Strides sq, Strides sk, Strides sv,
-                  Strides so, Strides sd, Strides sdq, float scale,
-                  int causal) {
-  constexpr int S = D + 8;
-  constexpr int NJ = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + 64 * S;
-  bf16* ks = dos + 64 * S;
-  bf16* vs = ks + 64 * S;
+struct Smem {
+  uint8_t *item_a, *item_b, *tile_a, *tile_b;
+  float *lse, *delta;
+  uint64_t* bar;
+  __device__ explicit Smem(uint8_t* raw) {
+    using L = Layout<D>;
+    item_a = hopper::align1024(raw);
+    item_b = item_a + 2 * L::ITEM_TILE;
+    tile_a = item_b + 2 * L::ITEM_TILE;
+    tile_b = tile_a + L::STAGES * L::TILE;
+    lse = reinterpret_cast<float*>(tile_b + L::STAGES * L::TILE);
+    delta = lse + L::STAGES * BT;
+    bar = reinterpret_cast<uint64_t*>(delta + L::STAGES * BT);
+  }
+};
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
+// Launch 1: dq over items of 128 query rows; key tiles of 64 streamed.
+// Thread t of consumer warpgroup wg holds, of each 64 x 64 score fragment,
+// rows q0 + 64 wg + 16 (warp % 4) + g (+ 8) and columns 8 j + 2 q4 (+ 1).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mdo,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 bf16* __restrict__ dq, int B, int H, int Tq, int Tk,
+                 Strides so, Strides sd, Strides sdq, float scale,
+                 int causal) {
+  using L = Layout<D>;
+  constexpr int S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);
+  uint8_t* const qs = sm.item_a;
+  uint8_t* const dos = sm.item_b;
+  uint8_t* const ks = sm.tile_a;
+  uint8_t* const vs = sm.tile_b;
+  uint64_t* const item_full = sm.bar;
+  uint64_t* const item_free = item_full + 2;
+  uint64_t* const k_full = item_free + 2;
+  uint64_t* const v_full = k_full + S;
+  uint64_t* const kv_free = v_full + S;
 
-  load_tile<D, 64>(qs, q + b * sq.b + h * sq.h, sq.t, q0, Tq);
-  load_tile<D, 64>(dos, dout + b * sd.b + h * sd.h, sd.t, q0, Tq);
+  // under the causal mask the last query tiles have the most keys
+  const hopper::Items items{(Tq + ROWS - 1) / ROWS, B * H, causal,
+                            static_cast<int>(gridDim.x)};
+  const int c = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&item_full[i], 1);
+      hopper::mbar_init(&item_free[i], CONSUMER_WARPS);
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&kv_free[s], CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
 
-  const bf16* qw = qs + 16 * warp * S;
-  const bf16* dw = dos + 16 * warp * S;
-  int rows[2];
-  float dl[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = 16 * warp + gid + 8 * hh;
-    rows[hh] = q0 + r;
-    float part = 0.f;
-    if (rows[hh] < Tq) {
-      const bf16* orow = o + b * so.b + h * so.h + rows[hh] * so.t;
-#pragma unroll
-      for (int c = 2 * tig; c < D; c += 8) {
-        part = fmaf(__bfloat162float(dos[r * S + c]),
-                    __bfloat162float(orow[c]), part);
-        part = fmaf(__bfloat162float(dos[r * S + c + 1]),
-                    __bfloat162float(orow[c + 1]), part);
+  if (warp == CONSUMER_WARPS) {  // producer: one thread issues every load
+    if (lane == 0) {
+      int t = 0;  // key tiles loaded so far, over all of this block's items
+      for (int r = 0;; ++r) {
+        const int i = items.item(c, r);
+        if (i >= items.count()) break;
+        const int q0 = items.tile(i) * ROWS;
+        const int b = (i % items.BH) / H, h = (i % items.BH) % H;
+        const int n_kt = ((causal ? min(Tk, q0 + ROWS) : Tk) + BT - 1) / BT;
+        if (r >= 2) hopper::mbar_wait(&item_free[r & 1], (r / 2 - 1) & 1);
+        hopper::mbar_expect_tx(&item_full[r & 1], 2 * L::ITEM_TILE);
+        for (int ch = 0; ch < L::NCH; ++ch) {
+          const int off = (r & 1) * L::ITEM_TILE + ch * L::ITEM_CHUNK;
+          hopper::tma_load_4d(qs + off, &mq, &item_full[r & 1], ch * L::CW,
+                              q0, h, b);
+          hopper::tma_load_4d(dos + off, &mdo, &item_full[r & 1],
+                              ch * L::CW, q0, h, b);
+        }
+        for (int kt = 0; kt < n_kt; ++kt, ++t) {
+          const int s = t % S;
+          if (t >= S) hopper::mbar_wait(&kv_free[s], (t / S - 1) & 1);
+          hopper::mbar_expect_tx(&k_full[s], L::TILE);
+          for (int ch = 0; ch < L::NCH; ++ch)
+            hopper::tma_load_4d(ks + s * L::TILE + ch * L::CHUNK, &mk,
+                                &k_full[s], ch * L::CW, kt * BT, h, b);
+          hopper::mbar_expect_tx(&v_full[s], L::TILE);
+          for (int ch = 0; ch < L::NCH; ++ch)
+            hopper::tma_load_4d(vs + s * L::TILE + ch * L::CHUNK, &mv,
+                                &v_full[s], ch * L::CW, kt * BT, h, b);
+        }
       }
     }
-    dl[hh] = quad_sum(part);
+    return;
   }
 
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int q4 = lane % 4;
+  const float c2 = scale * LOG2E;
+  float acc[D / 2];
+  float sc[BT / 2], dp[BT / 2];
+  uint32_t da[BT / 16][4];
+  int t = 0;  // key tiles consumed so far, over all of this block's items
+  for (int r = 0;; ++r) {
+    const int i = items.item(c, r);
+    if (i >= items.count()) break;
+    const int q0 = items.tile(i) * ROWS;
+    const int bh = i % items.BH, b = bh / H, h = bh % H;
+    const int n_kt = ((causal ? min(Tk, q0 + ROWS) : Tk) + BT - 1) / BT;
+    const int row_min = q0 + 64 * wg;  // this warpgroup's first row
+    const int row_lo = row_min + 16 * (warp % 4) + g;
 
-  // pass 1: row max m and this lane's share of the row sum l
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_tile<D, 64>(ks, kb, sk.t, k0, Tk);
-    __syncthreads();
-    float s[NJ][4];
-    scores<D, NJ>(s, qw, ks, gid, tig);
+    // this thread's rows' lse (log2 domain) and delta = rowsum(do * o),
+    // read while the tiles arrive; delta is written for launch 2 (a quad
+    // sums a row, D / 4 columns a thread, in a fixed order)
+    float lse2[2], dl[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      float mx = -INFINITY;
+      const int row = row_lo + 8 * hh;
+      float part = 0.f;
+      lse2[hh] = 0.f;
+      if (row < Tq) {
+        lse2[hh] = lse[static_cast<long long>(bh) * Tq + row] * LOG2E;
+        const bf16* orow = o + b * so.b + h * so.h + row * so.t + q4 * (D / 4);
+        const bf16* drow =
+            dout + b * sd.b + h * sd.h + row * sd.t + q4 * (D / 4);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+        for (int c8 = 0; c8 < D / 4; c8 += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c8);
+          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c8);
+          const __nv_bfloat162* op =
+              reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* gp =
+              reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kj = k0 + 8 * j + 2 * tig + e;
-          float x = s[j][2 * hh + e] * scale;
-          if (kj >= Tk || (causal && kj > rows[hh])) x = -INFINITY;
-          s[j][2 * hh + e] = x;
-          mx = fmaxf(mx, x);
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(op[e]);
+            const float2 gf = __bfloat1622float2(gp[e]);
+            part = fmaf(gf.x, of.x, part);
+            part = fmaf(gf.y, of.y, part);
+          }
         }
-      const float m_new = fmaxf(m[hh], quad_max(mx));
-      if (m_new == -INFINITY) continue;
-      float part = l[hh] * expf(m[hh] - m_new);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        part += expf(s[j][2 * hh] - m_new) + expf(s[j][2 * hh + 1] - m_new);
-      l[hh] = part;
-      m[hh] = m_new;
-    }
-  }
-  float ls[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float sum = quad_sum(l[hh]);
-    ls[hh] = m[hh] == -INFINITY ? 0.f : m[hh] + logf(sum);
-    if (tig == 0 && rows[hh] < Tq) {
-      lse[static_cast<long long>(bh) * Tq + rows[hh]] = ls[hh];
-      delta[static_cast<long long>(bh) * Tq + rows[hh]] = dl[hh];
-    }
-  }
-
-  // pass 2: dS and dq = dS k
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_tile<D, 64>(ks, kb, sk.t, k0, Tk);
-    load_tile<D, 64>(vs, vb, sv.t, k0, Tk);
-    __syncthreads();
-    float s[NJ][4], dp[NJ][4];
-    scores<D, NJ>(s, qw, ks, gid, tig);
-    scores<D, NJ>(dp, dw, vs, gid, tig);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1;
-        const int kj = k0 + 8 * j + 2 * tig + (e & 1);
-        const bool masked = kj >= Tk || (causal && kj > rows[hh]);
-        const float p = masked ? 0.f : expf(s[j][e] * scale - ls[hh]);
-        s[j][e] = p * (dp[j][e] - dl[hh]);
       }
-    accumulate<D, NJ>(acc, s, ks, gid, tig);
-  }
+      dl[hh] = quad_sum(part);
+      if (q4 == 0 && row < Tq)
+        delta[static_cast<long long>(bh) * Tq + row] = dl[hh];
+    }
 
-  bf16* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    if (rows[hh] >= Tq) continue;
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    const uint8_t* qa = qs + (r & 1) * L::ITEM_TILE + 64 * wg * L::RB;
+    const uint8_t* ga = dos + (r & 1) * L::ITEM_TILE + 64 * wg * L::RB;
+    hopper::mbar_wait(&item_full[r & 1], (r / 2) & 1);
+    for (int kt = 0; kt < n_kt; ++kt, ++t) {
+      const int s = t % S;
+      const uint32_t ph = (t / S) & 1;
+      const int k0 = kt * BT;
+      hopper::mbar_wait(&k_full[s], ph);
+      hopper::mbar_wait(&v_full[s], ph);
+      if (causal && k0 > row_min + 63) {  // every key masked for these rows
+        if (lane == 0) hopper::mbar_arrive(&kv_free[s]);
+        continue;
+      }
+      const uint8_t* kt_s = ks + s * L::TILE;
+      ss_issue<D>(sc, qa, kt_s);
+      ss_issue<D>(dp, ga, vs + s * L::TILE);
+      hopper::wgmma_wait<1>();  // S is done; dP may run on
+      hopper::fence_regs(sc);
+      // the mask only where the tile crosses the diagonal or the Tk edge
+      const bool edge = k0 + BT > Tk || (causal && k0 + BT - 1 > row_min);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dqb + rows[hh] * sdq.t + 8 * n +
-                                   2 * tig) =
-          pack(acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
+      for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * hh + e;
+            float p = hopper::exp2_approx(fmaf(sc[idx], c2, -lse2[hh]));
+            if (edge) {
+              const int col = k0 + 8 * j + 2 * q4 + e;
+              if (col >= Tk || (causal && col > row_lo + 8 * hh)) p = 0.f;
+            }
+            sc[idx] = p;
+          }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * hh + e;
+            dp[idx] = sc[idx] * (dp[idx] - dl[hh]);
+          }
+      hopper::pack_frag(da, dp);
+      rs_issue<D>(acc, da, kt_s);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) hopper::fence_regs(da[kk]);
+      if (lane == 0) hopper::mbar_arrive(&kv_free[s]);
+    }
+    // every product of this item is done: its Q and dO buffer may be
+    // refilled
+    if (lane == 0) hopper::mbar_arrive(&item_free[r & 1]);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row_lo + 8 * hh;
+      if (row < Tq) {
+        bf16* out = dq + b * sdq.b + h * sdq.h + row * sdq.t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * q4) =
+              hopper::pack_bf16(acc[4 * j + 2 * hh] * scale,
+                                acc[4 * j + 2 * hh + 1] * scale);
+      }
+    }
   }
 }
 
-// Launch 2: a warp owns 16 keys; lane (gid, tig) holds keys gid and
-// gid + 8 of them, query columns 8 * j + 2 * tig (+1) of each 32-row
-// query tile, and dk, dv columns 8 * n + 2 * tig (+1).
+// Launch 2: dk, dv over items of 128 keys; query tiles of 64 streamed with
+// their lse and delta.  Thread t of consumer warpgroup wg holds, of each
+// 64 x 64 fragment of S^T, keys k0 + 64 wg + 16 (warp % 4) + g (+ 8) and
+// query columns 8 j + 2 q4 (+ 1).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int H, int Tq, int Tk, Strides sq,
-                   Strides sk, Strides sv, Strides sd, Strides sdk,
-                   Strides sdv, float scale, int causal) {
-  constexpr int S = D + 8;
-  constexpr int NJ = BQ2 / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BK * S;
-  bf16* qs = vs + BK * S;
-  bf16* dos = qs + BQ2 * S;
-  float* lses = reinterpret_cast<float*>(dos + BQ2 * S);
-  float* dls = lses + BQ2;
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int B, int H, int Tq, int Tk,
+                  Strides sdk, Strides sdv, float scale, int causal) {
+  using L = Layout<D>;
+  constexpr int S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);
+  uint8_t* const ks = sm.item_a;
+  uint8_t* const vs = sm.item_b;
+  uint8_t* const qs = sm.tile_a;
+  uint8_t* const dos = sm.tile_b;
+  uint64_t* const item_full = sm.bar;
+  uint64_t* const item_free = item_full + 2;
+  // Q by TMA, its lse and delta by the 32 producer lanes
+  uint64_t* const q_full = item_free + 2;
+  uint64_t* const do_full = q_full + S;
+  uint64_t* const qdo_free = do_full + S;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* db = dout + b * sd.b + h * sd.h;
-  const float* lb = lse + static_cast<long long>(bh) * Tq;
-  const float* deb = delta + static_cast<long long>(bh) * Tq;
+  // under the causal mask the first key tiles see the most queries
+  const hopper::Items items{(Tk + ROWS - 1) / ROWS, B * H, 0,
+                            static_cast<int>(gridDim.x)};
+  const int c = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  load_tile<D, BK>(ks, k + b * sk.b + h * sk.h, sk.t, k0, Tk);
-  load_tile<D, BK>(vs, v + b * sv.b + h * sv.h, sv.t, k0, Tk);
-  const bf16* kw = ks + 16 * warp * S;
-  const bf16* vw = vs + 16 * warp * S;
-  const int keys[2] = {k0 + 16 * warp + gid, k0 + 16 * warp + gid + 8};
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  // causal: the first query tile that sees a key of this block starts at
-  // k0 (k0 is a multiple of BQ2)
-  for (int q0 = causal ? k0 : 0; q0 < Tq; q0 += BQ2) {
-    __syncthreads();
-    load_tile<D, BQ2>(qs, qb, sq.t, q0, Tq);
-    load_tile<D, BQ2>(dos, db, sd.t, q0, Tq);
-    if (threadIdx.x < BQ2) {
-      const int qi = q0 + threadIdx.x;
-      lses[threadIdx.x] = qi < Tq ? lb[qi] : 0.f;
-      dls[threadIdx.x] = qi < Tq ? deb[qi] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&item_full[i], 1);
+      hopper::mbar_init(&item_free[i], CONSUMER_WARPS);
     }
-    __syncthreads();
-    float s[NJ][4], dp[NJ][4];
-    scores<D, NJ>(s, kw, qs, gid, tig);   // s[key][query]
-    scores<D, NJ>(dp, vw, dos, gid, tig); // dP^T[key][query]
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * tig + (e & 1);
-        const int qi = q0 + c;
-        const int kj = keys[e >> 1];
-        const bool masked = qi >= Tq || kj >= Tk || (causal && kj > qi);
-        const float p = masked ? 0.f : expf(s[j][e] * scale - lses[c]);
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dls[c]);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&q_full[s], 32);
+      hopper::mbar_init(&do_full[s], 1);
+      hopper::mbar_init(&qdo_free[s], CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    // producer: lane 0 issues every TMA load; all 32 lanes stage each query
+    // tile's lse (times log2 e) and delta, two rows a lane, and arrive
+    int t = 0;  // query tiles loaded so far, over all of this block's items
+    for (int r = 0;; ++r) {
+      const int i = items.item(c, r);
+      if (i >= items.count()) break;
+      const int k0 = items.tile(i) * ROWS;
+      const int bh = i % items.BH, b = bh / H, h = bh % H;
+      const int qt0 = causal ? k0 : 0;  // the first query that sees key k0
+      const int n_qt = qt0 < Tq ? (Tq - qt0 + BT - 1) / BT : 0;
+      if (lane == 0) {
+        if (r >= 2) hopper::mbar_wait(&item_free[r & 1], (r / 2 - 1) & 1);
+        hopper::mbar_expect_tx(&item_full[r & 1], 2 * L::ITEM_TILE);
+        for (int ch = 0; ch < L::NCH; ++ch) {
+          const int off = (r & 1) * L::ITEM_TILE + ch * L::ITEM_CHUNK;
+          hopper::tma_load_4d(ks + off, &mk, &item_full[r & 1], ch * L::CW,
+                              k0, h, b);
+          hopper::tma_load_4d(vs + off, &mv, &item_full[r & 1], ch * L::CW,
+                              k0, h, b);
+        }
       }
-    accumulate<D, NJ>(dva, s, dos, gid, tig);
-    accumulate<D, NJ>(dka, dp, qs, gid, tig);
+      for (int j = 0; j < n_qt; ++j, ++t) {
+        const int s = t % S;
+        const int qt = qt0 + j * BT;
+        if (t >= S) hopper::mbar_wait(&qdo_free[s], (t / S - 1) & 1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rr = 2 * lane + e, row = qt + rr;
+          const long long at = static_cast<long long>(bh) * Tq + row;
+          sm.lse[s * BT + rr] = row < Tq ? lse[at] * LOG2E : 0.f;
+          sm.delta[s * BT + rr] = row < Tq ? delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&q_full[s], L::TILE);
+          for (int ch = 0; ch < L::NCH; ++ch)
+            hopper::tma_load_4d(qs + s * L::TILE + ch * L::CHUNK, &mq,
+                                &q_full[s], ch * L::CW, qt, h, b);
+          hopper::mbar_expect_tx(&do_full[s], L::TILE);
+          for (int ch = 0; ch < L::NCH; ++ch)
+            hopper::tma_load_4d(dos + s * L::TILE + ch * L::CHUNK, &mdo,
+                                &do_full[s], ch * L::CW, qt, h, b);
+        } else {
+          hopper::mbar_arrive(&q_full[s]);
+        }
+      }
+    }
+    return;
   }
 
-  bf16* dkb = dk + b * sdk.b + h * sdk.h;
-  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int q4 = lane % 4;
+  const float c2 = scale * LOG2E;
+  float dka[D / 2], dva[D / 2];
+  float sc[BT / 2], dp[BT / 2];
+  uint32_t pa[BT / 16][4], da[BT / 16][4];
+  int t = 0;  // query tiles consumed so far, over all of this block's items
+  for (int r = 0;; ++r) {
+    const int i = items.item(c, r);
+    if (i >= items.count()) break;
+    const int k0 = items.tile(i) * ROWS;
+    const int bh = i % items.BH, b = bh / H, h = bh % H;
+    const int qt0 = causal ? k0 : 0;
+    const int n_qt = qt0 < Tq ? (Tq - qt0 + BT - 1) / BT : 0;
+    const int kw = k0 + 64 * wg;  // this warpgroup's first key
+    const int key_lo = kw + 16 * (warp % 4) + g;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    if (keys[hh] >= Tk) continue;
+    for (int j = 0; j < D / 2; ++j) dka[j] = dva[j] = 0.f;
+    const uint8_t* ka = ks + (r & 1) * L::ITEM_TILE + 64 * wg * L::RB;
+    const uint8_t* va = vs + (r & 1) * L::ITEM_TILE + 64 * wg * L::RB;
+    hopper::mbar_wait(&item_full[r & 1], (r / 2) & 1);
+    for (int j = 0; j < n_qt; ++j, ++t) {
+      const int s = t % S;
+      const uint32_t ph = (t / S) & 1;
+      const int qt = qt0 + j * BT;
+      hopper::mbar_wait(&q_full[s], ph);
+      hopper::mbar_wait(&do_full[s], ph);
+      if (causal && qt + BT - 1 < kw) {  // every query before these keys
+        if (lane == 0) hopper::mbar_arrive(&qdo_free[s]);
+        continue;
+      }
+      const uint8_t* q_s = qs + s * L::TILE;
+      const uint8_t* g_s = dos + s * L::TILE;
+      ss_issue<D>(sc, ka, q_s);
+      ss_issue<D>(dp, va, g_s);
+      const float* ls = sm.lse + s * BT;
+      const float* dd = sm.delta + s * BT;
+      hopper::wgmma_wait<1>();  // S^T is done; dP^T may run on
+      hopper::fence_regs(sc);
+      // the mask only where the tile crosses the diagonal or a T edge
+      const bool edge =
+          qt + BT > Tq || kw + 64 > Tk || (causal && kw + 63 > qt);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = 8 * n + 2 * tig;
-      *reinterpret_cast<uint32_t*>(dkb + keys[hh] * sdk.t + c) =
-          pack(dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + keys[hh] * sdv.t + c) =
-          pack(dva[n][2 * hh], dva[n][2 * hh + 1]);
+      for (int jj = 0; jj < BT / 8; ++jj) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(ls + 8 * jj + 2 * q4);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * hh + e;
+            float p = hopper::exp2_approx(
+                fmaf(sc[idx], c2, -(e ? l2.y : l2.x)));
+            if (edge) {
+              const int col = qt + 8 * jj + 2 * q4 + e;
+              const int key = key_lo + 8 * hh;
+              if (col >= Tq || key >= Tk || (causal && key > col)) p = 0.f;
+            }
+            sc[idx] = p;
+          }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int jj = 0; jj < BT / 8; ++jj) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(dd + 8 * jj + 2 * q4);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * hh + e;
+            dp[idx] = sc[idx] * (dp[idx] - (e ? d2.y : d2.x));
+          }
+      }
+      hopper::pack_frag(pa, sc);
+      hopper::pack_frag(da, dp);
+      rs_issue<D>(dva, pa, g_s);
+      rs_issue<D>(dka, da, q_s);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        hopper::fence_regs(pa[kk]);
+        hopper::fence_regs(da[kk]);
+      }
+      if (lane == 0) hopper::mbar_arrive(&qdo_free[s]);
+    }
+    // every product of this item is done: its K and V buffer may be
+    // refilled
+    if (lane == 0) hopper::mbar_arrive(&item_free[r & 1]);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key_lo + 8 * hh;
+      if (key < Tk) {
+        bf16* ok = dk + b * sdk.b + h * sdk.h + key * sdk.t;
+        bf16* ov = dv + b * sdv.b + h * sdv.h + key * sdv.t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(ok + 8 * j + 2 * q4) =
+              hopper::pack_bf16(dka[4 * j + 2 * hh] * scale,
+                                dka[4 * j + 2 * hh + 1] * scale);
+          *reinterpret_cast<uint32_t*>(ov + 8 * j + 2 * q4) =
+              hopper::pack_bf16(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
+        }
+      }
     }
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* lse,
+           const void* dout, void* dq, void* dk, void* dv, const float* lse,
            float* delta, int B, int H, int Tq, int Tk, const Strides* st,
            float scale, int causal, cudaStream_t stream) {
-  constexpr int dq_bytes = dq_smem_bytes<D>();
-  constexpr int dkv_bytes = dkv_smem_bytes<D>();
+  using L = Layout<D>;
+  const CUtensorMapSwizzle swizzle = L::RB == 128
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  // (D, T, H, B), innermost first; a box is CW columns x `rows` rows
+  auto make = [&](CUtensorMap* map, const void* base, const Strides& s,
+                  int T, int rows) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                                static_cast<cuuint64_t>(T),
+                                static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t) * 2,
+                                   static_cast<cuuint64_t>(s.h) * 2,
+                                   static_cast<cuuint64_t>(s.b) * 2};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::CW),
+                               static_cast<cuuint32_t>(rows), 1, 1};
+    return hopper::make_map(map, base, 4, dims, strides, box, swizzle);
+  };
+  // launch 1 holds Q and dO by items and streams K and V; launch 2 the
+  // other way round
+  CUtensorMap q_item, do_item, k_tile, v_tile, k_item, v_item, q_tile,
+      do_tile;
+  int err = 0;
+  if ((err = make(&q_item, q, st[0], Tq, ROWS)) ||
+      (err = make(&do_item, dout, st[4], Tq, ROWS)) ||
+      (err = make(&k_tile, k, st[1], Tk, BT)) ||
+      (err = make(&v_tile, v, st[2], Tk, BT)) ||
+      (err = make(&k_item, k, st[1], Tk, ROWS)) ||
+      (err = make(&v_item, v, st[2], Tk, ROWS)) ||
+      (err = make(&q_tile, q, st[0], Tq, BT)) ||
+      (err = make(&do_tile, dout, st[4], Tq, BT)))
+    return err;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_bytes);
+      bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      bwd_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_bytes);
+      bwd_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
   if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
   if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
-  const bf16* tq = static_cast<const bf16*>(q);
-  const bf16* tk = static_cast<const bf16*>(k);
-  const bf16* tv = static_cast<const bf16*>(v);
-  const bf16* tdo = static_cast<const bf16*>(dout);
-  bwd_dq_mma_kernel<D><<<dim3((Tq + BQ - 1) / BQ, B * H), THREADS, dq_bytes,
-                         stream>>>(
-      tq, tk, tv, static_cast<const bf16*>(o), tdo, static_cast<bf16*>(dq),
-      lse, delta, H, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], scale,
-      causal);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkv_mma_kernel<D><<<dim3((Tk + BK - 1) / BK, B * H), THREADS,
-                          dkv_bytes, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Tq, Tk, st[0], st[1], st[2], st[4], st[6],
-      st[7], scale, causal);
+  // persistent: one block per SM, or one per item where there are fewer
+  static const int n_sm = hopper::sm_count();
+  const long long n1 = static_cast<long long>((Tq + ROWS - 1) / ROWS) * B * H;
+  const long long n2 = static_cast<long long>((Tk + ROWS - 1) / ROWS) * B * H;
+  bwd_dq_tc_kernel<D><<<n1 < n_sm ? static_cast<int>(n1) : n_sm, THREADS,
+                        L::SMEM, stream>>>(
+      q_item, do_item, k_tile, v_tile, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), B,
+      H, Tq, Tk, st[3], st[4], st[5], scale, causal);
+  const cudaError_t e1 = cudaGetLastError();
+  if (e1 != cudaSuccess) return static_cast<int>(e1);
+  bwd_dkv_tc_kernel<D><<<n2 < n_sm ? static_cast<int>(n2) : n_sm, THREADS,
+                         L::SMEM, stream>>>(
+      k_item, v_item, q_tile, do_tile, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, H, Tq, Tk, st[6], st[7], scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace mma
+}  // namespace tc
 
 template <int D>
 int launch_route(int route, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, void* dq, void* dk,
-                 void* dv, float* lse, float* delta, int B, int H, int Tq,
-                 int Tk, const Strides* st, float scale, int causal,
+                 void* dv, const float* lse, float* delta, int B, int H,
+                 int Tq, int Tk, const Strides* st, float scale, int causal,
                  cudaStream_t stream) {
   if (route == 0)
     return launch<D>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, Tq, Tk,
                      st, scale, causal, stream);
   if (route == 1)
-    return mma::launch<D>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H,
-                          Tq, Tk, st, scale, causal, stream);
+    return tc::launch<D>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, Tq,
+                         Tk, st, scale, causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// route: 0 = "f32" (float32 operands, CUDA cores), 1 = "mma_sync" (bf16
-// operands, tensor cores; every operand's base 16-byte aligned and its B,
-// H and T strides multiples of 8).  Strides are in elements, for the B, H
-// and T axes of q, k, v, o, do, dq, dk and dv in that order (24 values;
-// the D axis is unit-stride).  lse and delta are float32 scratch of
-// B*H*Tq each.  Two launches on `stream`; returns cudaGetLastError() after
-// them, or an error code for a head dimension or route without an
-// instance.
+// route: 0 = "f32" (float32 operands, CUDA cores), 1 = "tc" (bf16
+// operands, tensor cores fed by TMA; every operand's base 16-byte aligned
+// and its B, H and T strides multiples of 8).  Strides are in elements, for
+// the B, H and T axes of q, k, v, o, do, dq, dk and dv in that order (24
+// values; the D axis is unit-stride).  lse is the forward's log-sum-exp,
+// float32 [B*H, Tq] (bigdl_flash_attention_fwd writes it); delta is float32
+// scratch of B*H*Tq that launch 1 fills for launch 2.  Two launches on
+// `stream`; returns cudaGetLastError() after them, or an error code for a
+// head dimension or route without an instance or a tensor map that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int bigdl_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, float* lse,
+    const void* dout, void* dq, void* dk, void* dv, const float* lse,
     float* delta, int route, int B, int H, int Tq, int Tk, int D,
     const long long* strides, float sm_scale, int causal, void* stream) {
   Strides st[8];

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // TMA tensor maps and copies, mbarriers, and warpgroup matrix products
-// (wgmma).  Header-only; included by flash_attention.cu and
+// (wgmma), and the persistent schedule of the attention kernels.
+// Header-only; included by flash_attention.cu, flash_attention_bwd.cu and
 // matmul_stats.cu.
 //
 // Conventions:
@@ -205,6 +206,37 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// log2(x) by the MUFU approximation (absolute error about 2^-22).
+__device__ __forceinline__ float log2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A dynamic shared-memory base rounded up to the 1024 bytes a swizzled tile
+// needs.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// ---- device: persistent schedule ------------------------------------------
+
+// The work items of a persistent launch are (tile, b * H + h) pairs, the
+// last tile first where `reverse` (under a causal mask, the one with the
+// most work).  Block c of G takes items c, 2G - 1 - c, 2G + c, ... (a snake
+// over the rounds), so the long and the short items of a round even out.
+struct Items {
+  int n_tiles, BH, reverse, G;
+  __device__ int count() const { return n_tiles * BH; }
+  __device__ int item(int c, int r) const {
+    return r * G + ((r & 1) ? G - 1 - c : c);
+  }
+  __device__ int tile(int i) const {
+    return reverse ? n_tiles - 1 - i / BH : i / BH;
+  }
+};
+
 // ---- device: wgmma --------------------------------------------------------
 
 enum Swizzle : uint32_t { kSwizzle128 = 1, kSwizzle64 = 2 };
@@ -247,6 +279,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// An accumulator fragment of m64n(16 K), rounded to bf16 pairs in the
+// layout of the register A operand of K steps of 16 columns.
+template <int K>
+__device__ __forceinline__ void pack_frag(uint32_t (&a)[K][4],
+                                          const float (&x)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
 // d (+)= A[64 x 16] * B[16 x N], bf16 operands, float accumulators.  SS: A

@@ -18,11 +18,13 @@ Training: where autograd records (grad mode on and an operand that needs
 a gradient) :func:`flash_attention` goes through :class:`FlashAttention`,
 a ``torch.autograd.Function`` (the reference's ``_flash_diff``
 ``custom_vjp``, ``:165-180`` and ``:255-258``).  Its forward is the call
-above; its backward is :func:`flash_attention_bwd` (B7): on the card the
-hand-written ``bigdl_torch/csrc/flash_attention_bwd.cu`` (two launches;
-route ``"mma_sync"`` for bf16, warp-level tensor-core products, and
-``"f32"`` for float32, the CUDA cores), on the CPU
-:func:`flash_bwd_reference`, the port of ``_flash_bwd_chunked``.
+above, which on the card also writes each row's log-sum-exp (float32
+[B, H, Tq], :func:`flash_lse_reference` is its plain version); its
+backward is :func:`flash_attention_bwd` (B7), which takes that
+log-sum-exp: on the card the hand-written
+``bigdl_torch/csrc/flash_attention_bwd.cu`` (two launches; route ``"tc"``
+for bf16, wgmma fed by TMA, and ``"f32"`` for float32, the CUDA cores), on
+the CPU :func:`flash_bwd_reference`, the port of ``_flash_bwd_chunked``.
 ``flash_attention_bwd.launches`` and ``.route_launches`` count it.
 """
 
@@ -36,9 +38,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["flash_attention", "mha_reference", "route", "tma_ready",
-           "FlashAttention", "flash_attention_bwd", "flash_bwd_reference",
-           "bwd_route", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
+           "flash_lse_reference", "route", "tma_ready", "FlashAttention",
+           "flash_attention_bwd", "flash_bwd_reference", "bwd_route",
+           "BLOCK_Q", "BLOCK_K", "HEAD_DIMS"]
 
 #: the routes' kernels by operand dtype, and their codes in the C interface
 ROUTES = {torch.float32: "f32", torch.bfloat16: "tc"}
@@ -48,8 +51,8 @@ BLOCK_Q = {"f32": 64, "tc": 128}
 BLOCK_K = {"f32": 64, "tc": 128}
 HEAD_DIMS = (32, 64, 128)
 #: the backward's kernel by operand dtype, and its code in the C interface
-BWD_ROUTES = {torch.float32: "f32", torch.bfloat16: "mma_sync"}
-_BWD_ROUTE_CODE = {"f32": 0, "mma_sync": 1}
+BWD_ROUTES = {torch.float32: "f32", torch.bfloat16: "tc"}
+_BWD_ROUTE_CODE = {"f32": 0, "tc": 1}
 #: query rows per block of the reference's backward scan
 BWD_BLOCK_Q = 128
 
@@ -74,6 +77,24 @@ def mha_reference(q, k, v, *, causal: bool = False,
     # softmax of an all -inf row is NaN: such rows are meaningless, give 0
     p = torch.where(torch.isnan(p), 0.0, p)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def flash_lse_reference(q, k, *, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        q_offset: int = 0, k_offset: int = 0):
+    """Each row's natural log-sum-exp of its scaled, masked scores, in
+    plain PyTorch: float32 [B, H, Tq], what the forward kernel writes for
+    the backward.  Scores and masks as in :func:`mha_reference`; a row with
+    every key masked gives 0."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if causal:
+        qi = q_offset + torch.arange(q.shape[2], device=q.device)[:, None]
+        kj = k_offset + torch.arange(k.shape[2], device=q.device)[None, :]
+        s = s.masked_fill(kj > qi, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isfinite(lse), lse, 0.0)
 
 
 _launch_lock = threading.Lock()
@@ -121,18 +142,22 @@ def _kernel():
 
     fn = cuda_build.load("flash_attention").bigdl_flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float, rt: str):
+def _launch(q, k, v, causal: bool, sm_scale: float, rt: str,
+            with_lse: bool):
     fn = _kernel()
     B, H, Tq, D = q.shape
     o = _bhtd_like(q)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr() if with_lse else None,
              _ROUTE_CODE[rt], B, H, Tq, k.shape[2], D,
              *_strides(q), *_strides(k), *_strides(v), *_strides(o),
              float(sm_scale), int(bool(causal)),
@@ -144,7 +169,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, rt: str):
     with _launch_lock:
         flash_attention.launches += 1
         flash_attention.route_launches[rt] += 1
-    return o
+    return o, lse
 
 
 def _check_cuda(q, k, v, block_q=None, block_k=None) -> str:
@@ -178,47 +203,59 @@ def _check_cuda(q, k, v, block_q=None, block_k=None) -> str:
 def _operand(t, rt: str):
     """``t`` as the route's kernel reads it: in place where it can,
     otherwise a contiguous copy (a fresh, aligned buffer).  The
-    tensor-core routes (B6 ``"tc"``, B7 ``"mma_sync"``) load 16 bytes at a
-    time (:func:`tma_ready`); the ``"f32"`` routes take any unit last
+    tensor-core routes (B6 and B7 ``"tc"``) load 16 bytes at a time
+    (:func:`tma_ready`); the ``"f32"`` routes take any unit last
     stride."""
-    if rt in ("tc", "mma_sync"):
+    if rt == "tc":
         return t if tma_ready(t) else t.clone(
             memory_format=torch.contiguous_format)
     return t if t.stride(3) == 1 else t.contiguous()
 
 
-def _forward(q, k, v, causal: bool, sm_scale: float):
-    """The forward on ``q``'s device: the plain version on the CPU, B6 on
-    CUDA."""
+def _forward(q, k, v, causal: bool, sm_scale: float,
+             with_lse: bool = False):
+    """(o, lse) on ``q``'s device: the plain version on the CPU, B6 on
+    CUDA.  ``lse`` is None unless ``with_lse``: then on CUDA the kernel
+    writes it beside o, on the CPU :func:`flash_lse_reference` computes
+    it."""
     if q.device.type == "cpu":
-        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+        o = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+        return o, (flash_lse_reference(q, k, causal=causal,
+                                       sm_scale=sm_scale)
+                   if with_lse else None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no route for device {q.device}")
     rt = _check_cuda(q, k, v)
     if q.shape[2] == 0 or k.shape[2] == 0:
         # no rows, or no keys: every row is fully masked and gives 0
-        return torch.zeros_like(q)
+        B, H, Tq, _ = q.shape
+        return torch.zeros_like(q), (torch.zeros(
+            (B, H, Tq), dtype=torch.float32, device=q.device)
+            if with_lse else None)
     q, k, v = (_operand(t, rt) for t in (q, k, v))
-    return _launch(q, k, v, causal, sm_scale, rt)
+    return _launch(q, k, v, causal, sm_scale, rt, with_lse)
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the reference's ``_flash_diff``):
     the forward of :func:`flash_attention`, and :func:`flash_attention_bwd`
-    as its backward.  It saves q, k, v and the output o (the backward's
-    rowsum(do * o))."""
+    as its backward.  It saves q, k, v, the output o (the backward's
+    rowsum(do * o)) and, on the card, the log-sum-exp the forward kernel
+    writes beside o (the CPU's backward recomputes it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        o = _forward(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, sm_scale,
+                          with_lse=q.device.type == "cuda")
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                         causal=ctx.causal,
                                          sm_scale=ctx.sm_scale)
         return dq, dk, dv, None, None
 
@@ -244,7 +281,21 @@ def flash_attention(q, k, v, *, causal: bool = False,
         _check_cuda(q, k, v, block_q, block_k)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, sm_scale)
-    return _forward(q, k, v, causal, sm_scale)
+    return _forward(q, k, v, causal, sm_scale)[0]
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = False,
+                             sm_scale: Optional[float] = None):
+    """(o, lse): :func:`flash_attention`'s output and each row's natural
+    log-sum-exp, float32 [B, H, Tq] (0 for a row whose every key is
+    masked), the pair :class:`FlashAttention` saves for
+    :func:`flash_attention_bwd`.  On CUDA one B6 launch writes both; on
+    the CPU they are :func:`mha_reference` and :func:`flash_lse_reference`.
+    Records no autograd graph."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    with torch.no_grad():
+        return _forward(q, k, v, causal, sm_scale, with_lse=True)
 
 
 flash_attention.launches = 0
@@ -321,18 +372,19 @@ def _bwd_kernel():
     return fn
 
 
-def _bwd_launch(q, k, v, o, do, causal: bool, sm_scale: float, rt: str):
+def _bwd_launch(q, k, v, o, do, lse, causal: bool, sm_scale: float,
+                rt: str):
     fn = _bwd_kernel()
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     dq, dk, dv = _bhtd_like(q), _bhtd_like(k), _bhtd_like(v)
-    scratch = torch.empty((2, B * H, Tq), dtype=torch.float32,
-                          device=q.device)
+    # rowsum(do * o): launch 1 writes it, launch 2 reads it
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     strides = torch.tensor([s for t in (q, k, v, o, do, dq, dk, dv)
                             for s in _strides(t)], dtype=torch.int64)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             scratch[0].data_ptr(), scratch[1].data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
              _BWD_ROUTE_CODE[rt], B, H, Tq, Tk, D, strides.data_ptr(),
              float(sm_scale), int(bool(causal)),
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -346,15 +398,41 @@ def _bwd_launch(q, k, v, o, do, causal: bool, sm_scale: float, rt: str):
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = False,
+def _check_bwd(q, k, v, o, do, lse) -> str:
+    """Refuse what the backward kernels do not take; returns the route.
+    Besides :func:`_check_cuda`'s rules: o and do shaped and typed like q,
+    and the forward's log-sum-exp, float32 [B, H, Tq] contiguous on q's
+    device (the kernels never recompute it)."""
+    _check_cuda(q, k, v)
+    rt = bwd_route(q.dtype)
+    if o.shape != q.shape or do.shape != q.shape or not (
+            o.dtype == do.dtype == q.dtype):
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse is None:
+        raise ValueError("flash_attention_bwd on CUDA takes the forward's "
+                         "log-sum-exp (lse=, from flash_attention_with_lse "
+                         "or FlashAttention); it does not recompute it")
+    if (lse.shape != q.shape[:3] or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])} "
+                         f"contiguous on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    return rt
+
+
+def flash_attention_bwd(q, k, v, o, do, *, lse=None, causal: bool = False,
                         sm_scale: Optional[float] = None):
     """(dq, dk, dv) of :func:`flash_attention`'s output ``o`` against its
-    gradient ``do``, all [B, H, T, D] (B7).  CPU tensors take
-    :func:`flash_bwd_reference` (``o`` unused).  CUDA tensors launch the
-    backward kernel of their dtype's route, two launches (dq with the
-    log-sum-exp and rowsum(do * o), then dk and dv), reading every operand
-    through its (B, H, T) strides; the gradients come back as [B, H, T, D]
-    views of [B, T, H, D] memory."""
+    gradient ``do``, all [B, H, T, D] (B7), given the forward's
+    log-sum-exp ``lse`` (float32 [B, H, Tq], :func:`flash_attention_with_lse`).
+    CPU tensors take :func:`flash_bwd_reference` (``o`` and ``lse``
+    unused).  CUDA tensors need ``lse`` (a ``ValueError`` without it) and
+    launch the backward kernel of their dtype's route, two launches (dq
+    with rowsum(do * o), then dk and dv), reading every operand through its
+    (B, H, T) strides; the gradients come back as [B, H, T, D] views of
+    [B, T, H, D] memory."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.shape[2] == 0 or k.shape[2] == 0:
@@ -366,16 +444,10 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = False,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no route for device "
                          f"{q.device}")
-    _check_cuda(q, k, v)
-    rt = bwd_route(q.dtype)
-    if o.shape != q.shape or do.shape != q.shape or not (
-            o.dtype == do.dtype == q.dtype):
-        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
-                         f"{tuple(do.shape)} {do.dtype} must match q "
-                         f"{tuple(q.shape)} {q.dtype}")
+    rt = _check_bwd(q, k, v, o, do, lse)
     q, k, v, o, do = (_operand(t, rt) for t in (q, k, v, o, do))
-    return _bwd_launch(q, k, v, o, do, causal, sm_scale, rt)
+    return _bwd_launch(q, k, v, o, do, lse, causal, sm_scale, rt)
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.route_launches = {"f32": 0, "mma_sync": 0}
+flash_attention_bwd.route_launches = {"f32": 0, "tc": 0}

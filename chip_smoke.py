@@ -9,8 +9,8 @@ by the script itself.)
 Phases, each printing one JSON line:
 
 1. ``build``: compile every CUDA source of the port with ``nvcc`` (one
-   process per source, all started together) and report the seconds and
-   each kernel's registers and spills.
+   process per source, all started together) and report the seconds and,
+   by source and kernel, its registers and spilled bytes.
 2. ``kernels``: hold the flash-attention kernels (B6) against their plain
    PyTorch version on the card, at the shapes the serving path gives them
    (D = 64) and at D = 32 and 128, each in bf16 (the ``"tc"`` route:
@@ -22,7 +22,11 @@ Phases, each printing one JSON line:
    library call's ``ms`` is the card's time alone (20 calls captured in a
    CUDA graph and replayed); ``eager_ms`` is the same call issued back to
    back from the host, which a call of a few microseconds cannot keep up
-   with.
+   with.  Five more cases ask for the log-sum-exp that training saves
+   (``flash_attention_with_lse``: the serving call and the LM step's call,
+   bf16 causal, and ragged cases on both routes); it must agree with
+   ``flash_lse_reference`` within ``LSE_ATOL``, and the call is timed as
+   such and beside the same call without it (``ms_without_lse``).
 3. ``serve``: TransformerLM at the bench width (vocab 32000, max_len 512,
    d_model 512, 8 heads, 8 layers, bf16 compute) with seeded random weights,
    served through ``InferenceServer(seq_buckets=(128, 256, 512),
@@ -105,17 +109,19 @@ Phases, each printing one JSON line:
    ``b7_kernels`` (next item) and B6 at the step's call, one untimed
    step, then ``TRAIN_STEPS`` timed steps and a profile.  Every loss
    finite; exactly 8 B6 launches a step, all ``"tc"``, and 16 of B7 (the
-   flash backward, two launches a layer), all on its ``"mma_sync"``
-   route.  Then a small float32 LM (2 layers, d_model 64, T 64, TF32 off,
+   flash backward, two launches a layer), all on its ``"tc"`` route
+   (wgmma fed by TMA, taking the log-sum-exp B6 saved).  Then a small float32 LM (2 layers, d_model 64, T 64, TF32 off,
    B6 and B7 on ``"f32"``) trains 3 steps on the card and on the CPU,
    losses within ``F32_TRAIN_ATOL``, and one step with ``dropout=0.1``,
    twice from the same seed, gives the same finite loss, unlike the step
    without.
 10. ``b7_kernels`` (inside ``train_lm``): B7 against
    ``flash_bwd_reference`` at the step's shape [16, 8, 512, 64] bf16
-   causal and at float32 and bf16 ragged shapes (D = 32, 128; Tq != Tk),
-   within ``B7_TOL`` and bit-identical over two calls, timed beside the
-   plain version and the backward of ``scaled_dot_product_attention``.
+   causal (and not causal, and at D = 32 and 128) and at float32 and bf16
+   ragged shapes (D = 32, 128; Tq != Tk), each given the output and
+   log-sum-exp of B6 on the same operands, within ``B7_TOL`` and
+   bit-identical over two calls, timed beside the plain version and the
+   backward of ``scaled_dot_product_attention``.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -133,6 +139,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -176,6 +183,19 @@ L2_BYTES = 50 * 2 ** 20
 # the plain version also rounds p to bf16 before P.V, which moves a
 # convex sum of |v| <= 5 by up to 5 * 2^-9 = 0.01.
 KERNEL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+# B6's log-sum-exp vs flash_lse_reference, absolute: both take the scores
+# in float32 from the same bf16 (or float32) operands, in another order;
+# the "tc" kernel sums exp2 and takes log2 by the MUFU approximations
+# (relative error ~1e-7 a term, absolute ~2^-22): a few ulps of a value
+# near ln(512) = 6.2, far below 1e-3
+LSE_ATOL = 1e-3
+# B6 cases that ask for it: the serving call and the LM step's call, and
+# ragged cases on both routes
+LSE_SHAPES = ((8, 8, 512, 512, 64, torch.bfloat16, True),
+              (16, 8, 512, 512, 64, torch.bfloat16, True),
+              (2, 4, 37, 200, 64, torch.float32, False),
+              (2, 4, 200, 37, 32, torch.bfloat16, True),
+              (2, 4, 200, 200, 128, torch.bfloat16, False))
 # served answer vs Predictor on the same padded row, bf16 log-probs of
 # magnitude <= ~16: one bf16 step there is 2^-4; a device batch of 8 rows
 # and one of 1 may take different cuBLAS kernels, so allow 4 steps
@@ -314,28 +334,48 @@ def graph_ms(fn, iters=20, replays=3):
 
 # -- 1. build ---------------------------------------------------------------
 
+def ptxas_functions(log):
+    """Registers and spilled bytes of each kernel in an ``-Xptxas -v``
+    report, by its name and template arguments (``bwd_dkv_tc_kernel<128>``).
+    ptxas prints a function's spills, then its registers."""
+    out, spill, fn = {}, None, None
+    for line in log:
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d((?:[a-z]+_)*[a-z]*kernel)I(\w+?)EE",
+                          m.group(1))
+            args = k and re.sub(r"L[a-z](\d+)E?", r",\1", k.group(2))
+            fn = f"{k.group(1)}<{args.strip(',')}>" if k else m.group(1)
+            spill = None
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn] = {"registers": int(m.group(1)), "spill_bytes": spill}
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = cuda_build.build(cuda_build.SOURCES)
     seconds = time.perf_counter() - t0
     ptxas = {}
     for name, path in libs.items():
-        log = open(path[:-3] + ".log").read().splitlines()
-        regs = [l.split("Used ")[1].split(" registers")[0]
-                for l in log if "registers" in l]
-        spills = [l.strip() for l in log if "spill stores" in l]
-        ptxas[name] = {"registers": regs, "spills": sorted(set(spills))}
+        with open(path[:-3] + ".log") as f:
+            ptxas[name] = ptxas_functions(f.read().splitlines())
     emit({"phase": "build", "gpu": gpu_line(), "seconds": seconds,
           "sources": list(libs), "ptxas": ptxas})
 
 
 # -- 2. kernels -------------------------------------------------------------
 
-def attention_bound(B, H, Tq, Tk, D, dtype, causal):
-    """Least device time for the call: q, k, v read once and o written
-    once, against the products these inputs need (masked pairs skipped)."""
+def attention_bound(B, H, Tq, Tk, D, dtype, causal, with_lse=False):
+    """Least device time for the call: q, k, v read once and o (and the
+    float32 log-sum-exp, where asked) written once, against the products
+    these inputs need (masked pairs skipped)."""
     item = torch.empty((), dtype=dtype).element_size()
-    nbytes = item * B * H * D * (2 * Tq + 2 * Tk)
+    nbytes = item * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq * with_lse
     pairs = sum(min(i + 1, Tk) for i in range(Tq)) if causal else Tq * Tk
     flops = 4 * D * B * H * pairs
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -348,35 +388,54 @@ def ratio(ms, lib_ms):
     return ms / lib_ms if lib_ms else None
 
 
-def flash_case(B, H, Tq, Tk, D, dtype, causal, gen):
+def flash_case(B, H, Tq, Tk, D, dtype, causal, gen, with_lse=False):
+    """B6 against mha_reference; ``with_lse``: the call that also writes
+    the log-sum-exp (training's), held to flash_lse_reference too and
+    timed as such."""
     q = torch.randn((B, H, Tq, D), generator=gen).to("cuda", dtype)
     k = torch.randn((B, H, Tk, D), generator=gen).to("cuda", dtype)
     v = torch.randn((B, H, Tk, D), generator=gen).to("cuda", dtype)
     route = attn_ops.route(dtype)
+    if with_lse:
+        def call():
+            return attn_ops.flash_attention_with_lse(q, k, v, causal=causal)
+    else:
+        def call():
+            return attn_ops.flash_attention(q, k, v, causal=causal)
     with torch.inference_mode():
         zero_routes(attn_ops.flash_attention)
-        out = attn_ops.flash_attention(q, k, v, causal=causal)
+        got = call()
+        out = got[0] if with_lse else got
         routed = only_route(attn_ops.flash_attention, route, 1)
         plain = attn_ops.mha_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (out.float() - plain.float()).abs()
         atol, rtol = KERNEL_TOL[dtype]
         ok = routed and bool((err <= atol + rtol * plain.float().abs()).all())
-        ms = graph_ms(
-            lambda: attn_ops.flash_attention(q, k, v, causal=causal))
-        eager_ms = cuda_ms(
-            lambda: attn_ops.flash_attention(q, k, v, causal=causal))
+        lse = {}
+        if with_lse:
+            lse_err = float((got[1] - attn_ops.flash_lse_reference(
+                q, k, causal=causal)).abs().max())
+            # the same call without the log-sum-exp, for its cost
+            lse = {"lse_max_abs_err": lse_err, "lse_tol": LSE_ATOL,
+                   "ms_without_lse": graph_ms(
+                       lambda: attn_ops.flash_attention(q, k, v,
+                                                        causal=causal))}
+            ok = ok and got[1].shape == (B, H, Tq) and lse_err <= LSE_ATOL
+        ms = graph_ms(call)
+        eager_ms = cuda_ms(call)
         plain_ms = cuda_ms(
             lambda: attn_ops.mha_reference(q, k, v, causal=causal))
         lib_ms = graph_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
         lib_eager_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
-    bound_ms, bound_by, nbytes, flops = attention_bound(B, H, Tq, Tk, D,
-                                                        dtype, causal)
+    bound_ms, bound_by, nbytes, flops = attention_bound(
+        B, H, Tq, Tk, D, dtype, causal, with_lse)
     return {"shape": [B, H, Tq, Tk, D], "dtype": str(dtype)[6:],
-            "causal": causal, "route": route,
+            "causal": causal, "route": route, "with_lse": with_lse,
             "max_abs_err": float(err.max()), "tol": [atol, rtol], "ok": ok,
+            **lse,
             "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_eager_ms": lib_eager_ms,
             "ms_over_library": ratio(ms, lib_ms), "bound_ms": bound_ms,
@@ -396,13 +455,15 @@ def phase_kernels():
     cases = [flash_case(*s, dtype, causal, gen) for s in shapes
              for dtype in (torch.float32, torch.bfloat16)
              for causal in (False, True)]
+    cases += [flash_case(*s, gen, with_lse=True) for s in LSE_SHAPES]
     emit({"phase": "kernels", "gpu": gpu_line(), "kernel": "flash_attention",
           "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"flash_attention disagrees with its plain version: {bad}")
     # the serving path's largest call: [8, 8, 512, 64] bf16 causal
     return next(c for c in cases if c["shape"] == [8, 8, 512, 512, 64]
-                and c["dtype"] == "bfloat16" and c["causal"])
+                and c["dtype"] == "bfloat16" and c["causal"]
+                and not c["with_lse"])
 
 
 # -- 3. serve ---------------------------------------------------------------
@@ -1473,11 +1534,12 @@ def phase_dp_two_process():
 # -- 9. train_lm, with B7's cases inside -------------------------------------
 
 def attention_bwd_bound(B, H, Tq, Tk, D, dtype, causal):
-    """Least device time of the backward: q, o, do (Tq rows) and k, v (Tk
-    rows) read once, dq, dk, dv written once, against its five products
-    (S, dP, dv, dq, dk: 10 * D FLOPs a pair) over the unmasked pairs."""
+    """Least device time of the backward: q, o, do (Tq rows), k, v (Tk
+    rows) and the float32 log-sum-exp read once, dq, dk, dv written once,
+    against its five products (S, dP, dv, dq, dk: 10 * D FLOPs a pair)
+    over the unmasked pairs."""
     item = torch.empty((), dtype=dtype).element_size()
-    nbytes = item * B * H * D * (4 * Tq + 4 * Tk)
+    nbytes = item * B * H * D * (4 * Tq + 4 * Tk) + 4 * B * H * Tq
     pairs = sum(min(i + 1, Tk) for i in range(Tq)) if causal else Tq * Tk
     flops = 10 * D * B * H * pairs
     return (*bound(nbytes, flops, PEAK_FLOPS[dtype]), nbytes, flops)
@@ -1493,10 +1555,12 @@ def b7_case(B, H, Tq, Tk, D, dtype, causal, gen):
     fn = attn_ops.flash_attention_bwd
     rt = attn_ops.bwd_route(dtype)
     with torch.no_grad():
-        o = attn_ops.flash_attention(q, k, v, causal=causal)
+        # the forward's output and log-sum-exp, from B6, as FlashAttention
+        # saves them
+        o, lse = attn_ops.flash_attention_with_lse(q, k, v, causal=causal)
         zero_routes(fn)
-        got = fn(q, k, v, o, do, causal=causal)
-        again = fn(q, k, v, o, do, causal=causal)
+        got = fn(q, k, v, o, do, lse=lse, causal=causal)
+        again = fn(q, k, v, o, do, lse=lse, causal=causal)
         routed = only_route(fn, rt, 4)
         plain = attn_ops.flash_bwd_reference(q, k, v, do, causal=causal)
         torch.cuda.synchronize()
@@ -1510,7 +1574,7 @@ def b7_case(B, H, Tq, Tk, D, dtype, causal, gen):
             for g, p in zip(got, plain))
         repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
         del got, again, plain
-        ms = graph_ms(lambda: fn(q, k, v, o, do, causal=causal))
+        ms = graph_ms(lambda: fn(q, k, v, o, do, lse=lse, causal=causal))
         plain_ms = cuda_ms(lambda: attn_ops.flash_bwd_reference(
             q, k, v, do, causal=causal), iters=5, warmup=1)
     # the yardstick: SDPA's forward and backward captured together (the
@@ -1549,12 +1613,16 @@ def phase_b7():
     H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
     T = LM["max_len"]
     shapes = [(LM_BATCH, H, T, T, D, torch.bfloat16, True),
-              (4, 4, 200, 200, 64, torch.bfloat16, False)]
+              (4, 4, 200, 200, 64, torch.bfloat16, False),
+              (LM_BATCH, H, T, T, D, torch.bfloat16, False)]
     for d in (32, 128):
         shapes += [(2, 4, 37, 200, d, torch.float32, False),
                    (2, 4, 200, 37, d, torch.float32, False),
                    (2, 4, 200, 200, d, torch.float32, True),
-                   (2, 4, 200, 200, d, torch.bfloat16, True)]
+                   (2, 4, 200, 200, d, torch.bfloat16, True),
+                   (2, 4, 37, 200, d, torch.bfloat16, False),
+                   (2, 4, 200, 37, d, torch.bfloat16, True),
+                   (LM_BATCH, H, T, T, d, torch.bfloat16, True)]
     cases = [b7_case(*sh, gen) for sh in shapes]
     emit({"phase": "b7_kernels", "gpu": gpu_line(),
           "kernel": "flash_attention_bwd", "cases": cases})
@@ -1591,7 +1659,7 @@ def zero_flash():
         zero_routes(fn)
 
 
-def check_lm_launches(steps, what, fwd_route="tc", bwd_route="mma_sync",
+def check_lm_launches(steps, what, fwd_route="tc", bwd_route="tc",
                       layers=LM["num_layers"]):
     fwd, bwd = flash_counts()
     want = (layers * steps, 2 * layers * steps)
@@ -1665,7 +1733,7 @@ def phase_train_lm():
     # B6 at the step's call: [16, 8, 512, 64] bf16 causal
     b6 = flash_case(LM_BATCH, LM["num_heads"], T, T,
                     LM["d_model"] // LM["num_heads"], torch.bfloat16, True,
-                    torch.Generator().manual_seed(SEED))
+                    torch.Generator().manual_seed(SEED), with_lse=True)
     check(b6["ok"], f"flash_attention at the LM step's call: {b6}")
     # as in train: the kernel cases' graphs and plain versions left the
     # allocator's cache in another shape; one step refills it
@@ -1705,6 +1773,7 @@ def phase_train_lm():
          "source": "bigdl_torch/csrc/flash_attention.cu",
          "replaces": "bigdl_tpu/ops/attention.py:59", "launches": fwd,
          "path": "train_lm", "max_abs_err": b6["max_abs_err"],
+         "lse_max_abs_err": b6["lse_max_abs_err"],
          "ms": b6["ms"], "plain_ms": b6["plain_ms"],
          "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
          "library_ms": b6["library_ms"],

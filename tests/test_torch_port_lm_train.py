@@ -184,7 +184,7 @@ def test_bwd_routes_and_gradient_layout():
     gradients come back as [B, H, T, D] views of [B, T, H, D] memory, the
     layout MultiHeadAttention's head merge reads without a copy."""
     assert tattn.bwd_route(torch.float32) == "f32"
-    assert tattn.bwd_route(torch.bfloat16) == "mma_sync"
+    assert tattn.bwd_route(torch.bfloat16) == "tc"
     with pytest.raises(TypeError):
         tattn.bwd_route(torch.float16)
     g = tattn._bhtd_like(torch.zeros((2, 8, 5, 64), dtype=torch.bfloat16))
@@ -192,10 +192,10 @@ def test_bwd_routes_and_gradient_layout():
     assert g.transpose(1, 2).is_contiguous()
     # the tensor-core route reads MultiHeadAttention's views in place and
     # copies what it cannot load 16 bytes at a time
-    assert tattn._operand(g, "mma_sync") is g
+    assert tattn._operand(g, "tc") is g
     odd = torch.zeros((2, 8, 5, 68), dtype=torch.bfloat16)[..., :64]
     assert not tattn.tma_ready(odd)
-    copy = tattn._operand(odd, "mma_sync")
+    copy = tattn._operand(odd, "tc")
     assert tattn.tma_ready(copy) and torch.equal(copy, odd)
     f32 = torch.zeros((2, 8, 5, 68))[..., :64]
     assert tattn._operand(f32, "f32") is f32  # any unit last stride
