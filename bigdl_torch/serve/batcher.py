@@ -14,6 +14,14 @@ serving subsystem), without its chaos, tracing and metrics hooks:
   raises :class:`ServerOverloaded` with a ``retry_after_s`` estimate.
 - Deadlines: a request dequeued past its deadline is shed with
   :class:`RequestTimeout` and never reaches the device.
+- Tenants: a request carries an optional ``tenant`` tag; the per-tenant
+  token buckets that admit by it live in ``serve/control.py``.
+- :class:`DecodeQueue`: the same queue with one *sequence* (prompt and
+  token budget) per item, for the decode engine (``serve/decode.py``):
+  ``take(n)`` pops without blocking, and ``retry_after_s`` scales with the
+  queued token budget.
+- :func:`pad_rows` pads a batch's rows to a bucket and, with ``length=``,
+  its trailing axis too (zeros; it refuses to truncate).
 
 Everything is clock-injectable.
 """
@@ -29,7 +37,8 @@ import numpy as np
 
 __all__ = ["ServeError", "ServerOverloaded", "ServerClosed",
            "RequestTimeout", "PendingRequest", "DynamicBatcher",
-           "default_buckets", "fit_bucket", "pad_rows", "pad_tail"]
+           "DecodeQueue", "default_buckets", "fit_bucket", "pad_rows",
+           "pad_tail"]
 
 
 class ServeError(RuntimeError):
@@ -60,14 +69,16 @@ class PendingRequest:
     blocks until a replica resolves it and returns the per-sample output
     row, or raises the typed error the server recorded."""
 
-    __slots__ = ("payload", "enqueued", "deadline", "priority",
+    __slots__ = ("payload", "enqueued", "deadline", "tenant", "priority",
                  "latency_s", "_event", "_result", "_error")
 
     def __init__(self, payload, enqueued: float,
-                 deadline: Optional[float] = None, priority: int = 0):
+                 deadline: Optional[float] = None,
+                 tenant: Optional[str] = None, priority: int = 0):
         self.payload = payload
         self.enqueued = enqueued
         self.deadline = deadline
+        self.tenant = tenant           # quota / accounting tag
         self.priority = int(priority)  # higher = shed later
         self.latency_s = None          # enqueue -> resolve
         self._event = threading.Event()
@@ -135,13 +146,23 @@ def pad_tail(arr: np.ndarray, length: int) -> np.ndarray:
     return np.pad(arr, pad, mode="constant", constant_values=0)
 
 
-def pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
-    """Pad the batch dim of a non-empty batch up to ``n`` rows by
-    repeating the last row, so the device sees only bucket shapes."""
-    arr = np.asarray(arr)
+def pad_rows(arr: np.ndarray, n: int,
+             length: Optional[int] = None) -> np.ndarray:
+    """Pad the batch dim up to ``n`` rows by repeating the last row, so the
+    device sees only bucket shapes.
+
+    ``length``, when given, also pads the trailing axis up to ``length``
+    with zeros (ragged token rows); a row longer than ``length`` raises
+    rather than being truncated.  The dtype is kept, also for a batch of
+    zero rows, which then becomes ``n`` rows of zeros of the resized
+    shape."""
+    arr = np.asarray(arr) if length is None else pad_tail(arr, length)
     short = n - len(arr)
     if short <= 0:
         return arr
+    if len(arr) == 0 and length is not None:
+        # nothing to repeat: zero rows of the resized shape
+        return np.zeros((n,) + arr.shape[1:], dtype=arr.dtype)
     return np.concatenate([arr, np.repeat(arr[-1:], short, axis=0)])
 
 
@@ -216,10 +237,12 @@ class DynamicBatcher:
             0.8 * self._row_s_ema + 0.2 * per
 
     def submit(self, payload, deadline: Optional[float] = None, *,
+               tenant: Optional[str] = None,
                priority: int = 0) -> PendingRequest:
         """Enqueue one sample; raises :class:`ServerOverloaded` when the
         bounded queue is full, :class:`ServerClosed` after shutdown.
-        ``deadline`` is absolute, on this batcher's clock."""
+        ``deadline`` is absolute, on this batcher's clock; ``tenant`` tags
+        the request for quotas and accounting."""
         expired: List[PendingRequest] = []
         victim: Optional[PendingRequest] = None
         with self._cond:
@@ -245,7 +268,7 @@ class DynamicBatcher:
                         f"waiting, none below priority {int(priority)}); "
                         f"retry in {retry}s", retry_after_s=retry)
             req = PendingRequest(payload, self.clock(), deadline,
-                                 priority=priority)
+                                 tenant=tenant, priority=priority)
             self._q.append(req)
             self.submitted += 1
             self._cond.notify_all()
@@ -262,6 +285,11 @@ class DynamicBatcher:
                 f"{victim.priority}); retry in {retry}s",
                 retry_after_s=retry), now=now)
         return req
+
+    def depth(self) -> int:
+        """Requests queued now."""
+        with self._cond:
+            return len(self._q)
 
     # -- workers --------------------------------------------------------
 
@@ -285,8 +313,12 @@ class DynamicBatcher:
                 self._cond.wait(min(remaining, self._SLICE))
             reqs = [self._q.popleft()
                     for _ in range(min(len(self._q), self.max_batch))]
-        # deadline shedding at dequeue: an expired request never reaches
-        # the device
+        return self._shed_expired(reqs)
+
+    def _shed_expired(self, reqs, where: str = "") -> List[PendingRequest]:
+        """Deadline shedding at dequeue: resolve every request of ``reqs``
+        past its deadline with :class:`RequestTimeout` (it never reaches
+        the device) and return the live ones."""
         now = self.clock()
         live = []
         for r in reqs:
@@ -296,7 +328,7 @@ class DynamicBatcher:
                     self._count_shed(r.priority)
                 r._resolve(error=RequestTimeout(
                     f"serve: deadline exceeded after "
-                    f"{now - r.enqueued:.3f}s in queue"), now=now)
+                    f"{now - r.enqueued:.3f}s in queue{where}"), now=now)
             else:
                 live.append(r)
         return live
@@ -343,3 +375,75 @@ class DynamicBatcher:
                     "shed_by_priority": {str(k): v for k, v in
                                          sorted(self.shed_by_priority
                                                 .items())}}
+
+
+class DecodeQueue(DynamicBatcher):
+    """Per-sequence admission queue of the decode engine
+    (``serve/decode.py``), ported from ``bigdl_tpu/serve/batcher.py``.
+
+    The bounded queue, deadlines and priority eviction of
+    :class:`DynamicBatcher`, but a queued item is one sequence (a payload
+    dict with its ``max_tokens`` budget) and the consumer is the engine's
+    step loop:
+
+    - :meth:`take` pops up to ``n`` live sequences without blocking or
+      coalescing: the loop admits into whatever slots just freed and must
+      never park while other slots are decoding.
+    - :meth:`note_service` is fed (tokens, seconds), so the service-rate
+      EMA learns seconds per token and :meth:`retry_after_s` scales with
+      the queued token budget, not the request count.
+    """
+
+    def __init__(self, queue_limit: int, max_wait_s: float = 0.0,
+                 clock=None):
+        # slots and the cache-page ladder live in the engine
+        super().__init__(max_batch=1, max_wait_s=max_wait_s,
+                         queue_limit=queue_limit, buckets=(1,),
+                         clock=clock)
+        self._pending_tokens = 0  # queued generation budget (retry-after)
+
+    @staticmethod
+    def _budget(payload) -> int:
+        return int(payload.get("max_tokens", 1)) \
+            if isinstance(payload, dict) else 1
+
+    def submit(self, payload, deadline: Optional[float] = None, *,
+               tenant: Optional[str] = None,
+               priority: int = 0) -> PendingRequest:
+        req = super().submit(payload, deadline, tenant=tenant,
+                             priority=priority)
+        with self._cond:
+            self._pending_tokens += self._budget(payload)
+        return req
+
+    def retry_after_s(self) -> float:
+        """Back-off for a rejected sequence: EMA seconds per token times
+        the queued token budget (8 sequences of 256 tokens are 2048 steps
+        of work, not 8)."""
+        per_tok = self._row_s_ema or 0.0
+        return round(max(per_tok * max(self._pending_tokens, 1),
+                         self.max_wait_s, 0.05), 3)
+
+    def take(self, n: int) -> List[PendingRequest]:
+        """Pop up to ``n`` live sequences, non-blocking; [] when the queue
+        is empty.  A sequence whose deadline (time to last token) already
+        passed is shed at dequeue with :class:`RequestTimeout` and never
+        occupies a slot."""
+        if n <= 0:
+            return []
+        with self._cond:
+            reqs = [self._q.popleft()
+                    for _ in range(min(len(self._q), n))]
+            for r in reqs:
+                self._pending_tokens = max(
+                    0, self._pending_tokens - self._budget(r.payload))
+        return self._shed_expired(reqs, " (decode admission)")
+
+    def wait_for_work(self, timeout: float) -> bool:
+        """Park the step loop until a sequence is queued, the queue closes
+        or ``timeout`` passes.  True when there may be work."""
+        with self._cond:
+            if self._q or self._closed:
+                return True
+            self._cond.wait(timeout)
+            return bool(self._q) or self._closed

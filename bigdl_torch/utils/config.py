@@ -17,6 +17,13 @@ the kernels always run.
 | BIGDL_TORCH_PROCESS_ID           | this process's rank                            | 0       |
 | BIGDL_TORCH_PREFETCH_DEPTH       | batches the input worker keeps ready; 0: none  | 2       |
 | BIGDL_TORCH_PREFETCH_STAGE       | the input worker also copies batches to device | 1       |
+| BIGDL_TORCH_DECODE_SLOTS         | decode engine: fixed in-flight sequence slots  | 4       |
+| BIGDL_TORCH_DECODE_PAGE          | cache-page quantum; cache length is page * 2^k | 128     |
+| BIGDL_TORCH_DECODE_MAX_LEN       | cache-length cap (0 = the model's positions)   | 0       |
+| BIGDL_TORCH_DECODE_QUEUE_LIMIT   | bounded decode admission queue                 | 64      |
+| BIGDL_TORCH_DECODE_DEADLINE_MS   | default time-to-last-token deadline (0 = none) | 0       |
+| BIGDL_TORCH_DECODE_ADMISSION     | ``continuous`` (join per tick) or ``batch``    | continuous |
+| BIGDL_TORCH_DECODE_MIN_STEP_MS   | per-tick pacing floor                          | 0       |
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 #: every CUDA source of the port, by library name
 SOURCES = ("flash_attention", "flash_attention_bwd", "batchnorm",
-           "matmul_stats")
+           "matmul_stats", "decode_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

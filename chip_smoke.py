@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 8, started
+(``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10, started
 by the script itself.)
 
 Phases, each printing one JSON line:
@@ -38,7 +38,32 @@ Phases, each printing one JSON line:
    against the same model's plain-PyTorch forward on the CPU.
 4. ``generate``: ``greedy_generate`` extends a short prompt on the same
    model, every flash launch on ``"tc"``.
-5. ``train``: ResNet-50 at the width of the repo's ``resnet50_bf16`` bench
+5. ``decode``: the same model served through ``DecodeEngine(slots=8,
+   page=128)``: ``decode_kernels`` (next item), then one workload queued
+   before ``start()`` (12 short sequences, prompts of 8 to 64 tokens and
+   budgets of 8 to 32, and 4 long ones, prompts of 64 to 128 and budgets
+   of 128; random tokens from ``default_rng(SEED)``; greedy), run once with
+   ``admission="continuous"`` and once with ``"batch"``.  Every sequence
+   must equal ``cached_generate`` of its prompt on the card under the tie
+   rule (``tie_rule``: where two rows part, the two tokens' log-probs under
+   the full forward must differ by less than ``TIE_TOL``), continuous must
+   take fewer decode ticks than batch, B8's launches must be exactly 8 x
+   (prompt positions + decode ticks) on its ``"bf16"`` route with no flash
+   launch, ``cache_bytes_per_slot`` exact, no sequence failed.  Reports
+   tokens/s, time to last token, the host-timed cost of a decode tick and
+   of a prefill position, and the device's busy time and idle share over a
+   profile of 20 ticks; and a small float32 LM (TF32 off, B8 on ``"f32"``)
+   whose engine and ``cached_generate`` rows on the card must equal
+   ``cached_generate`` on the CPU under the tie rule at 1e-4.
+6. ``decode_kernels`` (inside ``decode``): B8 ``decode_attention`` against
+   ``decode_attention_reference`` at the engine's shapes [8, 8, L, 64] for
+   L = 128, 256, 512, at S = 1 (prefill and ``cached_generate``) and at
+   D = 16, 32 and 128, in bf16 and float32, each with mixed positions (0
+   and L - 1 among them) and large garbage past them, called twice (the
+   same bits), within ``DECODE_TOL``; plus [8, 8, 512, 64] bf16 with every
+   position at 511.  Timed beside the plain version and
+   ``scaled_dot_product_attention`` with a boolean [S, 1, 1, L] mask.
+7. ``train``: ResNet-50 at the width of the repo's ``resnet50_bf16`` bench
    config (ImageNet, 1000 classes, NHWC 224x224x3, batch 256, bf16 compute
    over float32 params, ``CrossEntropyCriterion``, ``SGD(0.1)``,
    ``fuse_conv_bn`` before ``build``), weights random from the seed, on
@@ -65,7 +90,7 @@ Phases, each printing one JSON line:
    model's first loss within ``UNFUSED_ATOL``; and a small bottleneck
    ResNet in float32 (TF32 off, B5 on its ``"f32"`` route) takes 3 steps
    on the card and on the CPU, losses within ``F32_TRAIN_ATOL``.
-6. ``bn_kernels`` (inside ``train``): B1 ``bn_forward``, B2 ``bn_backward``,
+8. ``bn_kernels`` (inside ``train``): B1 ``bn_forward``, B2 ``bn_backward``,
    B4 ``bn_grad_stats`` and B5 ``matmul_stats`` against their plain
    versions at every distinct shape the step gave them (bf16), plus
    float32 and ragged cases, each timed beside its plain version, a
@@ -81,7 +106,7 @@ Phases, each printing one JSON line:
    inputs bit for bit.  B1 and B2 also report ``floor_ms``, the two-pass
    floor: x (and dy) read twice and the output written once, what they pay
    where x exceeds L2 (``bound_ms`` counts one read).
-7. ``dp_train``: the same ResNet-50, weights and images trained
+9. ``dp_train``: the same ResNet-50, weights and images trained
    data-parallel: ``Engine.init()`` (NCCL, a world of one rank), a
    ``DistributedDataSet`` and ``Optimizer``'s ``DataParallel`` strategy,
    with every BatchNorm synced over the group.  One warm-up step records
@@ -94,14 +119,14 @@ Phases, each printing one JSON line:
    gradient statistics and one of the gradients (with the loss); the first
    loss within ``UNFUSED_ATOL`` of the ``train`` phase's; one profiled
    step gives the collectives' share.
-8. ``dp_two_process``: two processes on the one card in a gloo group (NCCL
+10. ``dp_two_process``: two processes on the one card in a gloo group (NCCL
    refuses two ranks on one GPU) train the small bottleneck ResNet in
    float32 (TF32 off, no gradient wire, B5 on ``"f32"``) for 3 steps at
    local batch 8;
    one process trains it at batch 16 on the same rows.  Losses, params and
    running statistics within ``DP_F32_ATOL``, both ranks bit-identical,
    and each rank's B3, B4 and B5 launch counts non-zero.
-9. ``train_lm``: TransformerLM at the bench width (as ``serve``) trained
+11. ``train_lm``: TransformerLM at the bench width (as ``serve``) trained
    as bench.py trains ``transformer_lm``: batch 16 x T 512 of random
    tokens from ``default_rng(SEED)``, ``TimeDistributedCriterion(
    ClassNLLCriterion(), size_average=True)``, ``SGD(0.01, momentum=0.9)``,
@@ -115,7 +140,7 @@ Phases, each printing one JSON line:
    losses within ``F32_TRAIN_ATOL``, and one step with ``dropout=0.1``,
    twice from the same seed, gives the same finite loss, unlike the step
    without.
-10. ``b7_kernels`` (inside ``train_lm``): B7 against
+12. ``b7_kernels`` (inside ``train_lm``): B7 against
    ``flash_bwd_reference`` at the step's shape [16, 8, 512, 64] bf16
    causal (and not causal, and at D = 32 and 128) and at float32 and bf16
    ragged shapes (D = 32, 128; Tq != Tk), each given the output and
@@ -125,7 +150,7 @@ Phases, each printing one JSON line:
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
-LM run, B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
+LM run, B8 per continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
 timed training run; each also per route), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
@@ -153,14 +178,18 @@ import bigdl_torch.nn as nn
 from bigdl_torch import Engine
 from bigdl_torch.common import DTypePolicy, set_policy
 from bigdl_torch.dataset import DataSet, Sample, SampleToMiniBatch
-from bigdl_torch.models import ResNet, TransformerLM, greedy_generate
+from bigdl_torch.models import (ResNet, TransformerLM, cached_generate,
+                                greedy_generate)
+from bigdl_torch.models import decode as dec_mod
 from bigdl_torch.models import resnet as resnet_mod
 from bigdl_torch.ops import attention as attn_ops
 from bigdl_torch.ops import batchnorm as bn_ops
 from bigdl_torch.ops import convbn as cb_ops
+from bigdl_torch.ops import decode_attention as dec_ops
 from bigdl_torch.optim import SGD, Optimizer, Predictor, Trigger
 from bigdl_torch.optim.optimizer import to_host
-from bigdl_torch.serve import InferenceServer, fit_bucket, pad_tail
+from bigdl_torch.serve import (DecodeEngine, InferenceServer, fit_bucket,
+                               pad_tail)
 from bigdl_torch.utils import cuda_build
 
 SEED = 0
@@ -602,7 +631,352 @@ def phase_generate(model):
           "flash_route_launches": dict(
               attn_ops.flash_attention.route_launches)})
 
-# -- 5. train, with 6. bn_kernels inside --------------------------------------
+# -- 5. decode, with 6. decode_kernels inside --------------------------------
+
+# B8 vs decode_attention_reference, |kernel - plain| <= atol + rtol * |plain|:
+# both take the scores, softmax and P.V in float32 from the same operands,
+# in another order.  float32: summation order only, 1e-5.  bfloat16: the
+# output is rounded once to bf16 from float32 values that may differ in
+# the last bits, one bf16 step (2^-8 relative) either way: rtol 2^-7, and
+# 1e-3 absolute for outputs near 0.
+DECODE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
+# garbage written into the cache rows past each slot's position: large and
+# finite, so a kernel that read them would be far off
+DECODE_GARBAGE = 1e4
+# the decode workload, shaped like tools/decode_smoke.py's mix: 12 short
+# sequences (prompts of 8 to 64 tokens, budgets of 8 to 32) and 4 long ones
+# (prompts of 64 to 128 tokens, budgets of 128), greedy
+DECODE_SLOTS = 8
+DECODE_PAGE = 128
+DECODE_SHORT = 12
+DECODE_LONG = 4
+# the tie rule (tie_rule): where two greedy rows part, the two tokens'
+# log-probs under the model's full forward on the card must differ by less
+# than this.  float32: summation order only, as REF_ATOL.  bf16: log-probs
+# of magnitude 8..16, where one bf16 step is 2^-4; a decode tick's product
+# of M = 8 rows and a prefill's of M = 1 may take different cuBLAS kernels
+# and the full forward a third, so allow 4 steps, as SERVE_ATOL does
+TIE_TOL = {torch.float32: REF_ATOL, torch.bfloat16: SERVE_ATOL}
+# decode ticks in the profiled window
+DECODE_PROFILE_TICKS = 20
+
+
+def decode_bound(S, H, L, D, dtype, pos):
+    """Least device time for the call: the K and V rows 0..pos[s] of every
+    (slot, head) read once, q read and o written once, against the 4 * D
+    operations per live key (the dot product and the P.V term)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    live = int(pos.long().sum()) + S
+    nbytes = item * H * D * (2 * live + 2 * S)
+    flops = 4 * D * H * live
+    return (*bound(nbytes, flops, PEAK_FLOPS[dtype]), nbytes, flops)
+
+
+def decode_case(S, H, L, D, dtype, gen, full=False):
+    """B8 against decode_attention_reference at [S, H, L, D]: mixed
+    positions (0 and L - 1 among them) or, with ``full``, every position
+    at L - 1; garbage past each position; called twice (the same bits)."""
+    q = torch.randn((S, 1, H, D), generator=gen).to("cuda", dtype)
+    q = q.transpose(1, 2)          # the strided view the engine gives
+    k = torch.randn((S, H, L, D), generator=gen).to("cuda", dtype)
+    v = torch.randn((S, H, L, D), generator=gen).to("cuda", dtype)
+    if full:
+        pos = torch.full((S,), L - 1, dtype=torch.int32)
+    else:
+        pos = torch.randint(0, L, (S,), generator=gen, dtype=torch.int32)
+        pos[0] = L - 1
+        if S > 1:
+            pos[1] = 0
+    past = torch.arange(L)[None, None, :, None] > pos.long()[:, None, None,
+                                                             None]
+    past = past.to("cuda")
+    k.masked_fill_(past, DECODE_GARBAGE)
+    v.masked_fill_(past, -DECODE_GARBAGE)
+    pos = pos.to("cuda")
+    rt = dec_ops.route(dtype)
+    fn = dec_ops.decode_attention
+    with torch.inference_mode():
+        zero_routes(fn)
+        out = fn(q, k, v, pos)
+        again = fn(q, k, v, pos)
+        routed = only_route(fn, rt, 2)
+        plain = dec_ops.decode_attention_reference(q, k, v, pos)
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs()
+        atol, rtol = DECODE_TOL[dtype]
+        ok = (routed and torch.equal(out, again) and bool(
+            (err <= atol + rtol * plain.float().abs()).all()))
+        ms = graph_ms(lambda: fn(q, k, v, pos))
+        plain_ms = cuda_ms(
+            lambda: dec_ops.decode_attention_reference(q, k, v, pos))
+        mask = ~past[:, :1, :, 0][:, :, None, :]      # [S, 1, 1, L]
+        lib_ms, lib_error = maybe_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+    bound_ms, bound_by, nbytes, flops = decode_bound(S, H, L, D, dtype, pos)
+    return {"shape": [S, H, L, D], "dtype": str(dtype)[6:],
+            "positions": "every L - 1" if full else "mixed",
+            "route": rt, "max_abs_err": float(err.max()), "tol": [atol, rtol],
+            "repeat_bit_identical": bool(torch.equal(out, again)), "ok": ok,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_error": lib_error, "ms_over_library": ratio(ms, lib_ms),
+            "ms_over_plain": ms / plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_decode_kernels():
+    """B8's cases: the engine's shapes [8, 8, L, 64] at every cache page
+    (bf16 and float32), the prefill's and cached_generate's S = 1, and the
+    other head dimensions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED)
+    H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    shapes = [(DECODE_SLOTS, H, L, D) for L in (128, 256, 512)]
+    shapes += [(1, H, 512, D), (DECODE_SLOTS, H, 512, 32),
+               (DECODE_SLOTS, H, 512, 128), (DECODE_SLOTS, H, 512, 16)]
+    cases = [decode_case(*s, dtype, gen) for s in shapes
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append(decode_case(DECODE_SLOTS, H, 512, D, torch.bfloat16, gen,
+                             full=True))
+    emit({"phase": "decode_kernels", "gpu": gpu_line(),
+          "kernel": "decode_attention", "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    check(not bad, f"decode_attention disagrees with its plain version or "
+          f"does not repeat: {bad}")
+    # the engine's largest call: [8, 8, 512, 64] bf16, mixed positions
+    return next(c for c in cases if c["shape"] == [DECODE_SLOTS, H, 512, D]
+                and c["dtype"] == "bfloat16" and c["positions"] == "mixed")
+
+
+def tie_rule(model, a, b, t0, tol):
+    """Compare two token rows from the prompt's end.  Where they first part,
+    score the agreed prefix with the model's full forward on the card; the
+    divergence is a near-tie, and accepted, only if the two tokens'
+    log-probs there differ by less than ``tol``.  Returns (length of the
+    agreeing prefix, log-prob gap at the parting or None)."""
+    check(len(a) == len(b) and np.array_equal(a[:t0], b[:t0]),
+          f"rows of different lengths or prompts: {a} {b}")
+    apart = np.flatnonzero(a[t0:] != b[t0:])
+    if apart.size == 0:
+        return len(a), None
+    i = t0 + int(apart[0])
+    with torch.inference_mode():
+        lp = model.eval()(torch.from_numpy(a[:i].astype(np.int64))[None]
+                          .cuda())[0, -1].float()
+    gap = abs(float(lp[int(a[i])]) - float(lp[int(b[i])]))
+    check(gap < tol, f"rows part at {i} on tokens {a[i]} vs {b[i]} with a "
+          f"log-prob gap {gap} >= {tol}: not a near-tie")
+    return i, gap
+
+
+def decode_workload(vocab):
+    rng = np.random.default_rng(SEED)
+    seqs = [(int(rng.integers(8, 65)), int(rng.integers(8, 33)))
+            for _ in range(DECODE_SHORT)]
+    seqs += [(int(rng.integers(64, 129)), 128) for _ in range(DECODE_LONG)]
+    order = rng.permutation(len(seqs))
+    return [(rng.integers(0, vocab, seqs[i][0]).astype(np.int32),
+             seqs[i][1]) for i in order]
+
+
+def run_engine(model, work, admission, **kw):
+    """Queue ``work`` before start(), run it to the end, and return the
+    outputs, the engine's stats, the wall seconds, each sequence's time to
+    last token and B8's launches, by route, over the run."""
+    eng = DecodeEngine(model, admission=admission, **kw)
+    handles = [eng.submit(p, n) for p, n in work]
+    fn = dec_ops.decode_attention
+    fn.launches = 0
+    zero_routes(fn)
+    zero_flash()
+    t0 = time.perf_counter()
+    eng.start()
+    outs = [h.result(600) for h in handles]
+    wall = time.perf_counter() - t0
+    eng.stop()
+    launches, routes = fn.launches, dict(fn.route_launches)
+    check(flash_counts() == (0, 0),
+          f"decode ({admission}) launched flash {flash_counts()}")
+    ttlt = np.array([h.latency_s for h in handles]) * 1e3
+    return outs, eng.stats(), wall, ttlt, launches, routes
+
+
+def tick_costs(model, cache_len):
+    """Host-clock milliseconds of one decode tick (all slots, with the
+    log-prob row brought to the host) and of one prefill position (rows=1,
+    no sync), on caches of ``cache_len``, and a profile of
+    DECODE_PROFILE_TICKS ticks: the device's busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    S = DECODE_SLOTS
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        caches = dec_mod.init_kv_cache(model, S, cache_len, torch.bfloat16)
+        tok = torch.randint(0, LM["vocab_size"], (S,), dtype=torch.int32,
+                            device=dev)
+        pos = torch.randint(0, cache_len, (S,), dtype=torch.int32,
+                            device=dev)
+
+        def tick():
+            return dec_mod.decode_step(model, caches, tok, pos).float().cpu()
+
+        sub = [{n: t[:1] for n, t in c.items()} for c in caches]
+
+        def prefill(n):
+            for i in range(n):
+                dec_mod.decode_step(model, sub, tok[:1], pos[:1])
+            torch.cuda.synchronize()
+
+        for _ in range(3):
+            tick()
+        prefill(3)
+        n = 50
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tick()
+        tick_ms = (time.perf_counter() - t0) / n * 1e3
+        t0 = time.perf_counter()
+        prefill(n)
+        prefill_ms = (time.perf_counter() - t0) / n * 1e3
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(DECODE_PROFILE_TICKS):
+                    tick()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            rows = []
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    us = getattr(e, "self_device_time_total", None)
+                    if us is None:
+                        us = e.self_cuda_time_total
+                    rows.append((us / 1e3, e.count, e.key[:100]))
+            rows.sort(reverse=True)
+            busy = sum(r[0] for r in rows)
+            prof_rep = {
+                "profiled_ticks": DECODE_PROFILE_TICKS,
+                "profiled_wall_ms": wall_ms,
+                "device_busy_ms_per_tick": busy / DECODE_PROFILE_TICKS,
+                "device_idle_share": 1 - busy / wall_ms,
+                "top_kernels": [{"ms": ms, "count": c, "name": k}
+                                for ms, c, k in rows[:10]]}
+        except (RuntimeError, AttributeError) as e:
+            prof_rep = {"profile_error": str(e).splitlines()[0][:200]}
+    return {"tick_ms": tick_ms, "prefill_position_ms": prefill_ms,
+            "tick_cache_len": cache_len, **prof_rep}
+
+
+def decode_f32_card_vs_cpu():
+    """A small float32 LM (TF32 off, B8 on "f32"): the engine's and
+    cached_generate's tokens on the card against cached_generate on the
+    CPU (the plain path), under the tie rule at the float32 tolerance."""
+    set_policy(DTypePolicy())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = TransformerLM(**LM_SMALL).build(
+        "cpu", torch.Generator().manual_seed(SEED))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    work = [(rng.integers(0, LM_SMALL["vocab_size"], int(t)).astype(np.int32),
+             int(n)) for t, n in zip(rng.integers(1, 20, 6),
+                                     rng.integers(4, 24, 6))]
+    fn = dec_ops.decode_attention
+    zero_routes(fn)
+    with DecodeEngine(gpu, slots=4, page=16) as eng:
+        outs = [eng.submit(p, n) for p, n in work]
+        outs = [h.result(300) for h in outs]
+    card = [cached_generate(gpu, p, n, len(p) + n) for p, n in work]
+    check(fn.route_launches["bf16"] == 0 and fn.route_launches["f32"] > 0,
+          f"float32 decode's B8 routes {fn.route_launches}")
+    agree, gaps = [], []
+    for (p, n), o, c in zip(work, outs, card):
+        ref = cached_generate(cpu, p, n, len(p) + n)
+        for row in (o, c):
+            i, gap = tie_rule(gpu, row, ref, len(p), TIE_TOL[torch.float32])
+            agree.append(i - len(p))
+            if gap is not None:
+                gaps.append(gap)
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    return {"f32_sequences": len(work), "f32_agreeing_tokens": agree,
+            "f32_tie_gaps": gaps, "f32_tie_tol": TIE_TOL[torch.float32]}
+
+
+def phase_decode(model):
+    """The bench-width model served through DecodeEngine(slots=8,
+    page=128), continuous and batch admission, every row held to
+    cached_generate on the card under the tie rule."""
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    rep = phase_decode_kernels()
+    work = decode_workload(LM["vocab_size"])
+    prompt_positions = sum(len(p) for p, _ in work)
+    budget = sum(n for _, n in work)
+    H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    runs, launched, route_launches = {}, {}, {}
+    for admission in ("continuous", "batch"):
+        torch.cuda.reset_peak_memory_stats()
+        outs, st, wall, ttlt, n_b8, routes = run_engine(
+            model, work, admission, slots=DECODE_SLOTS, page=DECODE_PAGE)
+        peak = torch.cuda.max_memory_allocated()
+        check(st["seqs_done"] == len(work) and st["seqs_failed"] == 0,
+              f"decode ({admission}): {st}")
+        check(st["prefill_steps"] == len(work) and st["tokens_out"] == budget,
+              f"decode ({admission}): prefills and tokens {st}")
+        want = LM["num_layers"] * (prompt_positions + st["decode_steps"])
+        check(n_b8 == want, f"decode ({admission}): B8 launches {n_b8} != "
+              f"8 x ({prompt_positions} prompt positions + "
+              f"{st['decode_steps']} decode ticks)")
+        check(only_route(dec_ops.decode_attention, "bf16", n_b8),
+              f"decode ({admission}): B8 routes {routes}")
+        per_slot = LM["num_layers"] * 2 * H * st["cache_len"] * D * 2
+        check(st["cache_bytes_per_slot"] == per_slot,
+              f"decode ({admission}): cache bytes per slot "
+              f"{st['cache_bytes_per_slot']} != {per_slot}")
+        runs[admission] = {
+            "wall_s": wall, "tokens_per_s_wall": budget / wall,
+            "tokens_per_s_engine": st["tokens_per_s"],
+            "decode_ticks": st["decode_steps"],
+            "prefill_positions": prompt_positions,
+            "ttlt_p50_ms": float(np.percentile(ttlt, 50)),
+            "ttlt_p99_ms": float(np.percentile(ttlt, 99)),
+            "cache_len": st["cache_len"], "cache_grows": st["cache_grows"],
+            "cache_bytes_per_slot": st["cache_bytes_per_slot"],
+            "max_memory_allocated": peak, "b8_launches": n_b8,
+            "b8_route_launches": routes, "outputs": outs}
+        launched[admission], route_launches[admission] = n_b8, routes
+    check(runs["continuous"]["decode_ticks"] < runs["batch"]["decode_ticks"],
+          f"continuous admission took {runs['continuous']['decode_ticks']} "
+          f"decode ticks, batch {runs['batch']['decode_ticks']}")
+    agree, gaps = [], []
+    for k, (p, n) in enumerate(work):
+        oracle = cached_generate(model, p, n, len(p) + n)
+        for admission in runs:
+            i, gap = tie_rule(model, runs[admission]["outputs"][k], oracle,
+                              len(p), TIE_TOL[torch.bfloat16])
+            agree.append(i - len(p))
+            if gap is not None:
+                gaps.append(gap)
+    for r in runs.values():
+        del r["outputs"]
+    costs = tick_costs(model, runs["continuous"]["cache_len"])
+    small = decode_f32_card_vs_cpu()
+    emit({"phase": "decode", "gpu": gpu_line(), "model": "TransformerLM",
+          "config": LM, "slots": DECODE_SLOTS, "page": DECODE_PAGE,
+          "sequences": len(work), "token_budget": budget, "runs": runs,
+          "agreeing_tokens": agree, "tie_gaps": gaps,
+          "tie_tol": TIE_TOL[torch.bfloat16], **costs, **small})
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "bigdl_torch/csrc/decode_attention.cu",
+            "replaces": "bigdl_tpu/serve/decode.py:129",
+            "launches": launched["continuous"], "path": "decode",
+            "launches_batch_admission": launched["batch"],
+            "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
+            "ms_over_library": rep["ms_over_library"],
+            "kernel_route": rep["route"],
+            "route_launches": route_launches["continuous"]}
+
+
+# -- 7. train, with 8. bn_kernels inside --------------------------------------
 
 #: training-path kernels: wrapper, source, the TPU kernel it replaces
 TRAIN_KERNELS = {
@@ -1296,7 +1670,7 @@ def kernel_rows(reps, launched, path, routes):
     return rows
 
 
-# -- 7. dp_train, with bn_kernels for B3 and B4 inside ---------------------
+# -- 9. dp_train, with bn_kernels for B3 and B4 inside ---------------------
 
 def b3_gives_b1_statistics(shapes):
     """At each shape (bf16): B3 and B1 take the same route, and the mean
@@ -1434,7 +1808,7 @@ def phase_dp_train(single_first_loss):
     return kernel_rows(reps, launched, "dp_train", routes)
 
 
-# -- 8. dp_two_process ------------------------------------------------------
+# -- 10. dp_two_process -----------------------------------------------------
 
 DP_LOCAL_BATCH = 8
 DP_STEPS = 3
@@ -1531,7 +1905,7 @@ def phase_dp_two_process():
           "rank_all_reduces": [r["all_reduces"] for r in ranks]})
 
 
-# -- 9. train_lm, with B7's cases inside -------------------------------------
+# -- 11. train_lm, with B7's cases inside ------------------------------------
 
 def attention_bwd_bound(B, H, Tq, Tk, D, dtype, causal):
     """Least device time of the backward: q, o, do (Tq rows), k, v (Tk
@@ -1800,6 +2174,7 @@ def main():
     rep = phase_kernels()
     model, launches, routes = phase_serve()
     phase_generate(model)
+    decode_row = phase_decode(model)
     del model
     torch.cuda.empty_cache()
     rows = [{
@@ -1817,6 +2192,7 @@ def main():
     rows += phase_dp_train(first_loss)
     phase_dp_two_process()
     rows += phase_train_lm()
+    rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
