@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// TMA tensor maps and copies, mbarriers, and warpgroup matrix products
+// TMA tensor maps and copies, 1D bulk copies, mbarriers, thread-block
+// cluster barriers and distributed shared memory, warpgroup matrix products
 // (wgmma), and the persistent schedule of the attention kernels.
-// Header-only; included by flash_attention.cu, flash_attention_bwd.cu and
-// matmul_stats.cu.
+// Header-only; included by flash_attention.cu, flash_attention_bwd.cu,
+// matmul_stats.cu and decode_attention.cu.
 //
 // Conventions:
 //  - Tensor maps are encoded on the host with cuTensorMapEncodeTiled,
@@ -166,6 +167,53 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Global -> shared copy of `bytes` contiguous bytes, no tensor map: both
+// addresses and the size multiples of 16.  Completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- device: thread-block clusters ----------------------------------------
+
+// Arrive on the cluster barrier with no memory ordering (a block announces
+// that it runs); every thread of every block of the cluster.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// Wait for the cluster barrier's phase, acquiring what was released.
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` in the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p,
+                                                uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// Store into another block's shared memory without waiting: the store
+// counts its 4 bytes as complete_tx on the mbarrier at `bar` (a
+// shared::cluster address in the same block as `addr`), which the owner
+// waits on after expecting the bytes.
+__device__ __forceinline__ void cluster_store_async(uint32_t addr, float x,
+                                                    uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1,"
+      " [%2];\n" ::"r"(addr),
+      "f"(x), "r"(bar)
       : "memory");
 }
 

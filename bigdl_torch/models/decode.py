@@ -9,10 +9,11 @@ The decoder walks the model's own module tree (``Sequential``, the
 residual ``ConcatTable`` + ``CAddTable``, leaf modules through their eval
 ``forward``), so a model trained through the ``Optimizer`` decodes with
 its own weights.  ``MultiHeadAttention`` projects q, k and v with the
-module's own ``_proj``, appends k and v at each row's position (an indexed
-copy into the cache) and calls :func:`~bigdl_torch.ops.decode_attention.
+module's own ``_proj`` and calls :func:`~bigdl_torch.ops.decode_attention.
 decode_attention` (B8: the CUDA kernel on the card, its plain version on
-the CPU).  Other containers raise, as the reference does.
+the CPU), which writes k and v into the cache at each row's position and
+attends to it in one call.  Other containers raise, as the reference
+does.
 
 Positions are an int32 [rows] tensor on the model's device, one per row:
 ``cached_generate`` and ``beam_generate`` give every row the same one, the
@@ -83,10 +84,7 @@ def _cached_attention(mha, x, cache, pos):
     H, D = mha.num_heads, mha.head_dim
     q, k, v = (mha._proj(x, n).reshape(S, 1, H, D).transpose(1, 2)
                for n in "qkv")
-    idx = pos.long().view(S, 1, 1, 1).expand(S, H, 1, D)
-    cache["k"].scatter_(2, idx, k.to(cache["k"].dtype))
-    cache["v"].scatter_(2, idx, v.to(cache["v"].dtype))
-    o = decode_attention(q, cache["k"], cache["v"], pos)
+    o = decode_attention(q, k, v, cache["k"], cache["v"], pos)
     return mha._proj(o.transpose(1, 2).reshape(S, 1, E), "o")
 
 

@@ -1,13 +1,15 @@
-"""Cached decode attention (B8): a hand-written CUDA kernel for Hopper, and
-its plain PyTorch version.
+"""Cached decode attention with the cache append (B8): a hand-written CUDA
+kernel for Hopper, and its plain PyTorch version.
 
 One query row per (slot, head) against a KV cache, each slot at its own
-position: the attention of every decode tick and every prefill position.
-It is the counterpart of the jnp attention in
-``bigdl_tpu/serve/decode.py`` ``_slot_attention`` (``:146-155``) and
-``bigdl_tpu/models/decode.py`` ``_cached_attention``: scores in float32
-divided by sqrt(D), keys past a slot's position at exactly zero weight,
-a float32 softmax and P.V, cast to q's dtype.
+position: the attention of every decode tick and every prefill position,
+with the new key and value written into the cache at that position first.
+It is the counterpart of ``bigdl_tpu/serve/decode.py`` ``_slot_attention``
+(``:129-155``) and ``bigdl_tpu/models/decode.py`` ``_cached_attention``
+(``:94-118``): k and v rounded to the cache dtype and written at each
+slot's position, then scores in float32 divided by sqrt(D), keys past the
+position at exactly zero weight, a float32 softmax and P.V, cast to q's
+dtype.
 
 :func:`decode_attention` launches ``bigdl_torch/csrc/decode_attention.cu``
 (built with ``nvcc`` for ``sm_90a`` at first use, bound with ``ctypes``)
@@ -16,8 +18,9 @@ for tensors on a CUDA device, and computes
 it launches the kernel or raises: there is no fallback and no switch.  The
 route is q's dtype: ``"bf16"`` or ``"f32"`` (the cache may be either).
 ``decode_attention.launches`` counts every launch and
-``decode_attention.route_launches`` each route's.  The caller appends the
-new k and v to the cache before the call (``models/decode.py``).
+``decode_attention.route_launches`` each route's.  The kernel splits each
+(slot, head)'s live keys over a thread-block cluster of :func:`splits`
+blocks.
 """
 
 from __future__ import annotations
@@ -28,26 +31,39 @@ import threading
 import torch
 
 __all__ = ["decode_attention", "decode_attention_reference", "route",
-           "HEAD_DIMS", "MAX_LEN"]
+           "splits", "HEAD_DIMS", "MAX_LEN"]
 
 #: the route by q's dtype
 ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 #: head dimensions the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128)
-#: the longest cache the kernel takes: its scores stage in shared memory,
-#: 4 bytes a key
-MAX_LEN = 32768
+#: the longest cache the kernel takes: positions, row counts and the
+#: bounds of a block's rows are int32 in the kernel, and 2^30 keeps every
+#: one of them (n + C - 1 at most) inside it
+MAX_LEN = 2 ** 30
+#: streaming multiprocessors of an H100 SXM, the card the splits are for
+SMS = 132
+#: the most blocks of a cluster (8 is the portable cluster size)
+MAX_SPLITS = 8
+#: the fewest cache rows a block of the cluster is given
+MIN_ROWS = 32
 
 _launch_lock = threading.Lock()
 
 
-def decode_attention_reference(q, k_cache, v_cache, pos):
+def decode_attention_reference(q, k_new, v_new, k_cache, v_cache, pos):
     """The plain version, line for line the reference's
-    (``bigdl_tpu/serve/decode.py:146-155``): q [S, H, 1, D], caches
-    [S, H, L, D], pos int [S] -> [S, H, 1, D] in q's dtype.  A float32
+    (``bigdl_tpu/serve/decode.py:129-155``): q, k_new, v_new [S, H, 1, D],
+    caches [S, H, L, D], pos int [S] -> [S, H, 1, D] in q's dtype.  k_new
+    and v_new are rounded to the cache dtype and written at row pos[s] of
+    each (slot, head), in place (an indexed ``scatter_``); then a float32
     einsum over the whole cache length, -inf past each slot's position,
     softmax, einsum with V, cast."""
-    L, D = k_cache.shape[2], q.shape[-1]
+    S, H, _, D = q.shape
+    idx = pos.long().view(S, 1, 1, 1).expand(S, H, 1, D)
+    k_cache.scatter_(2, idx, k_new.to(k_cache.dtype))
+    v_cache.scatter_(2, idx, v_new.to(v_cache.dtype))
+    L = k_cache.shape[2]
     scores = torch.einsum("bhqd,bhld->bhql", q.float(),
                           k_cache.float()) / (D ** 0.5)
     live = (torch.arange(L, device=q.device)[None, None, None, :]
@@ -66,7 +82,20 @@ def route(dtype) -> str:
     return ROUTES[dtype]
 
 
-def _check(q, k_cache, v_cache, pos) -> str:
+def splits(S: int, H: int, L: int) -> int:
+    """Blocks per (slot, head) in the kernel's cluster, from the shapes
+    alone (never the positions, which stay on the device): the smallest
+    power of two with S * H * C >= SMS, at most MAX_SPLITS, and no more
+    than leaves every block MIN_ROWS rows of the cache length."""
+    c = 1
+    while S * H * c < SMS and c < MAX_SPLITS:
+        c *= 2
+    while c > 1 and L // c < MIN_ROWS:
+        c //= 2
+    return c
+
+
+def _check(q, k_new, v_new, k_cache, v_cache, pos) -> str:
     """Refuse what the kernel does not take, on any device; returns the
     route."""
     if q.dim() != 4 or k_cache.dim() != 4 or v_cache.dim() != 4:
@@ -77,6 +106,13 @@ def _check(q, k_cache, v_cache, pos) -> str:
     if one != 1:
         raise ValueError(f"decode_attention: one query row per (slot, head), "
                          f"got q {tuple(q.shape)}")
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(t.shape) != (S, H, 1, D) or t.dtype != q.dtype or \
+                t.stride(3) != 1:
+            raise ValueError(
+                f"decode_attention: {name} must be [{S}, {H}, 1, {D}] of q's "
+                f"dtype {q.dtype} with a unit last stride, got "
+                f"{tuple(t.shape)} {t.dtype} strides {t.stride()}")
     if k_cache.shape != v_cache.shape or k_cache.shape[:2] != (S, H) or \
             k_cache.shape[3] != D:
         raise ValueError(f"decode_attention: shape mismatch: q "
@@ -96,9 +132,11 @@ def _check(q, k_cache, v_cache, pos) -> str:
     if pos.dtype != torch.int32 or tuple(pos.shape) != (S,):
         raise ValueError(f"decode_attention: pos must be int32 [{S}], got "
                          f"{pos.dtype} {tuple(pos.shape)}")
-    if not (q.device == k_cache.device == v_cache.device == pos.device):
-        raise ValueError(f"decode_attention: q, the caches and pos must be "
-                         f"on one device, got {q.device}, {k_cache.device}, "
+    devices = {t.device for t in (q, k_new, v_new, k_cache, v_cache, pos)}
+    if len(devices) != 1:
+        raise ValueError(f"decode_attention: q, k_new, v_new, the caches and "
+                         f"pos must be on one device, got {q.device}, "
+                         f"{k_new.device}, {v_new.device}, {k_cache.device}, "
                          f"{v_cache.device}, {pos.device}")
     if q.stride(3) != 1:
         raise ValueError("decode_attention: q needs a unit last stride")
@@ -113,47 +151,67 @@ def _check(q, k_cache, v_cache, pos) -> str:
     return rt
 
 
-def _kernel():
+def _library():
     from ..utils import cuda_build
 
-    fn = cuda_build.load("decode_attention").bigdl_decode_attention
+    return cuda_build.load("decode_attention")
+
+
+def _kernel():
+    fn = _library().bigdl_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention(q, k_cache, v_cache, pos):
-    """Attention of one query row per (slot, head) against the cache.
-
-    q: [S, H, 1, D] float32 or bfloat16 (any (S, H) strides, unit last
-    stride); k_cache, v_cache: [S, H, L, D] float32 or bfloat16, rows of D
-    in order (a slot view ``cache[s:s+1]`` is fine); pos: int32 [S], slot
-    s reads keys 0..pos[s].  Returns [S, H, 1, D] in q's dtype (contiguous
-    on CUDA).  Positions are read on the device; one outside 0..L-1 is
-    clamped into it by the kernel and is the caller's fault."""
-    rt = _check(q, k_cache, v_cache, pos)
-    if q.device.type == "cpu":
-        return decode_attention_reference(q, k_cache, v_cache, pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no route for device {q.device}")
+def _launch(q, k_new, v_new, k_cache, v_cache, pos, C):
+    """One launch of the kernel with clusters of ``C`` blocks on checked
+    CUDA operands; returns o.  Counts nothing."""
     S, H, _, D = q.shape
     o = torch.empty((S, H, 1, D), dtype=q.dtype, device=q.device)
     if S == 0:
         return o
     pos = pos.contiguous()
     err = _kernel()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        pos.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_cache.dtype == torch.bfloat16), S, H, k_cache.shape[2], D,
-        q.stride(0), q.stride(1), k_cache.stride(0), k_cache.stride(1),
-        v_cache.stride(0), v_cache.stride(1),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), o.data_ptr(), pos.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
+        S, H, k_cache.shape[2], D, C, q.stride(0), q.stride(1),
+        k_new.stride(0), k_new.stride(1), v_new.stride(0), v_new.stride(1),
+        k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
+        v_cache.stride(1), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err} at q {tuple(q.shape)} {q.dtype}, "
-                           f"cache {tuple(k_cache.shape)} {k_cache.dtype}")
+                           f"cache {tuple(k_cache.shape)} {k_cache.dtype}, "
+                           f"{C} blocks a cluster")
+    return o
+
+
+def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
+    """Append k_new and v_new to the cache, then attend one query row per
+    (slot, head) to it.
+
+    q, k_new, v_new: [S, H, 1, D] float32 or bfloat16, one dtype (any
+    (S, H) strides, unit last stride); k_cache, v_cache: [S, H, L, D]
+    float32 or bfloat16, rows of D in order (a slot view ``cache[s:s+1]``
+    is fine); pos: int32 [S].  Row pos[s] of each (s, h) of the caches
+    becomes k_new, v_new rounded to the cache dtype, in place; no other
+    row is written.  Returns the attention over rows 0..pos[s], that row
+    included: [S, H, 1, D] in q's dtype (contiguous on CUDA).  Positions
+    are read on the device; one outside 0..L-1 is clamped into it by the
+    kernel and is the caller's fault."""
+    rt = _check(q, k_new, v_new, k_cache, v_cache, pos)
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_new, v_new, k_cache, v_cache,
+                                          pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no route for device {q.device}")
+    S, H, _, _ = q.shape
+    o = _launch(q, k_new, v_new, k_cache, v_cache, pos,
+                splits(S, H, k_cache.shape[2]))
     with _launch_lock:
         decode_attention.launches += 1
         decode_attention.route_launches[rt] += 1
@@ -162,3 +220,19 @@ def decode_attention(q, k_cache, v_cache, pos):
 
 decode_attention.launches = 0
 decode_attention.route_launches = {"bf16": 0, "f32": 0}
+
+
+def _floor(S, H, D, C, cache_dtype, device):
+    """Launch the empty kernel with the grid, cluster, block and shared
+    memory the kernel takes at (S, H, D, C, cache dtype): the launch floor
+    its times are read against.  Counts nothing."""
+    fn = _library().bigdl_decode_attention_floor
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(int(cache_dtype == torch.bfloat16), D, S, H, C,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention floor launch failed: CUDA "
+                           f"error {err}")
+

@@ -52,17 +52,24 @@ Phases, each printing one JSON line:
    launch, ``cache_bytes_per_slot`` exact, no sequence failed.  Reports
    tokens/s, time to last token, the host-timed cost of a decode tick and
    of a prefill position, and the device's busy time and idle share over a
-   profile of 20 ticks; and a small float32 LM (TF32 off, B8 on ``"f32"``)
+   profile of 20 ticks, which must show no ``scatter`` kernel (B8 appends
+   k and v itself); and a small float32 LM (TF32 off, B8 on ``"f32"``)
    whose engine and ``cached_generate`` rows on the card must equal
    ``cached_generate`` on the CPU under the tie rule at 1e-4.
-6. ``decode_kernels`` (inside ``decode``): B8 ``decode_attention`` against
-   ``decode_attention_reference`` at the engine's shapes [8, 8, L, 64] for
-   L = 128, 256, 512, at S = 1 (prefill and ``cached_generate``) and at
-   D = 16, 32 and 128, in bf16 and float32, each with mixed positions (0
-   and L - 1 among them) and large garbage past them, called twice (the
-   same bits), within ``DECODE_TOL``; plus [8, 8, 512, 64] bf16 with every
-   position at 511.  Timed beside the plain version and
-   ``scaled_dot_product_attention`` with a boolean [S, 1, 1, L] mask.
+6. ``decode_kernels`` (inside ``decode``): B8 ``decode_attention`` (the
+   append of k and v and the attention, one launch) against
+   ``decode_attention_reference`` at the engine's shapes [8, 8, L, 64] and
+   the prefill's [1, 8, L, 64] for L = 128, 256, 512, at D = 16, 32 and
+   128, and at [8, 8, 4096, 64] (the copy ring wraps), in bf16 and
+   float32, each with mixed positions (0 and L - 1 among them) and large
+   garbage at and past them, called twice (the same bits), within
+   ``DECODE_TOL``, the caches after the call bit-equal to the plain
+   version's (row pos[s] written, no other row touched); plus
+   [8, 8, 512, 64] bf16 with every position at 511.  Each case gives the
+   cluster size C (``splits``) and is timed beside the plain version,
+   ``scaled_dot_product_attention`` with a boolean [S, 1, 1, L] mask, an
+   empty kernel of the same grid and cluster (``floor_ms``) and, at S = 1,
+   clusters of 16 (``c16_ms``).
 7. ``train``: ResNet-50 at the width of the repo's ``resnet50_bf16`` bench
    config (ImageNet, 1000 classes, NHWC 224x224x3, batch 256, bf16 compute
    over float32 params, ``CrossEntropyCriterion``, ``SGD(0.1)``,
@@ -640,8 +647,9 @@ def phase_generate(model):
 # the last bits, one bf16 step (2^-8 relative) either way: rtol 2^-7, and
 # 1e-3 absolute for outputs near 0.
 DECODE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
-# garbage written into the cache rows past each slot's position: large and
-# finite, so a kernel that read them would be far off
+# garbage written into the cache rows at and past each slot's position
+# (the append replaces the row at it): large and finite, so a kernel that
+# read them would be far off
 DECODE_GARBAGE = 1e4
 # the decode workload, shaped like tools/decode_smoke.py's mix: 12 short
 # sequences (prompts of 8 to 64 tokens, budgets of 8 to 32) and 4 long ones
@@ -662,12 +670,13 @@ DECODE_PROFILE_TICKS = 20
 
 
 def decode_bound(S, H, L, D, dtype, pos):
-    """Least device time for the call: the K and V rows 0..pos[s] of every
-    (slot, head) read once, q read and o written once, against the 4 * D
-    operations per live key (the dot product and the P.V term)."""
+    """Least device time for the call: q, k_new and v_new read and o
+    written once, the K and V rows 0..pos[s] - 1 of every (slot, head) read
+    once and row pos[s] written once, against the 4 * D operations per
+    live key (the dot product and the P.V term)."""
     item = torch.empty((), dtype=dtype).element_size()
     live = int(pos.long().sum()) + S
-    nbytes = item * H * D * (2 * live + 2 * S)
+    nbytes = item * H * D * (2 * live + 4 * S)
     flops = 4 * D * H * live
     return (*bound(nbytes, flops, PEAK_FLOPS[dtype]), nbytes, flops)
 
@@ -675,9 +684,14 @@ def decode_bound(S, H, L, D, dtype, pos):
 def decode_case(S, H, L, D, dtype, gen, full=False):
     """B8 against decode_attention_reference at [S, H, L, D]: mixed
     positions (0 and L - 1 among them) or, with ``full``, every position
-    at L - 1; garbage past each position; called twice (the same bits)."""
-    q = torch.randn((S, 1, H, D), generator=gen).to("cuda", dtype)
-    q = q.transpose(1, 2)          # the strided view the engine gives
+    at L - 1; garbage at and past each position (the append replaces the
+    row at it); called twice (the same bits).  The caches after the call
+    must equal the plain version's bit for bit (row pos[s] written, every
+    other row untouched).  Timed beside the empty kernel of the same grid
+    and cluster (``floor_ms``) and, at S = 1, clusters of 16 (``c16_ms``:
+    the splits stop at the portable 8)."""
+    q, k_new, v_new = (torch.randn((S, 1, H, D), generator=gen)
+                       .to("cuda", dtype).transpose(1, 2) for _ in range(3))
     k = torch.randn((S, H, L, D), generator=gen).to("cuda", dtype)
     v = torch.randn((S, H, L, D), generator=gen).to("cuda", dtype)
     if full:
@@ -687,37 +701,55 @@ def decode_case(S, H, L, D, dtype, gen, full=False):
         pos[0] = L - 1
         if S > 1:
             pos[1] = 0
-    past = torch.arange(L)[None, None, :, None] > pos.long()[:, None, None,
-                                                             None]
-    past = past.to("cuda")
-    k.masked_fill_(past, DECODE_GARBAGE)
-    v.masked_fill_(past, -DECODE_GARBAGE)
+    rows = torch.arange(L)[None, None, :, None]
+    stale = (rows >= pos.long()[:, None, None, None]).to("cuda")
+    at = (rows == pos.long()[:, None, None, None]).to("cuda")
+    live = (rows <= pos.long()[:, None, None, None]).to("cuda")
+    k.masked_fill_(stale, DECODE_GARBAGE)
+    v.masked_fill_(stale, -DECODE_GARBAGE)
     pos = pos.to("cuda")
     rt = dec_ops.route(dtype)
+    C = dec_ops.splits(S, H, L)
     fn = dec_ops.decode_attention
     with torch.inference_mode():
+        k0, v0 = k.clone(), v.clone()
+        kp, vp = k.clone(), v.clone()
         zero_routes(fn)
-        out = fn(q, k, v, pos)
-        again = fn(q, k, v, pos)
+        out = fn(q, k_new, v_new, k, v, pos)
+        again = fn(q, k_new, v_new, k, v, pos)
         routed = only_route(fn, rt, 2)
-        plain = dec_ops.decode_attention_reference(q, k, v, pos)
+        plain = dec_ops.decode_attention_reference(q, k_new, v_new, kp, vp,
+                                                   pos)
         torch.cuda.synchronize()
+        appended = torch.equal(k, kp) and torch.equal(v, vp)
+        untouched = all(torch.equal(a.masked_fill(at, 0),
+                                    b.masked_fill(at, 0))
+                        for a, b in ((k, k0), (v, v0)))
         err = (out.float() - plain.float()).abs()
         atol, rtol = DECODE_TOL[dtype]
-        ok = (routed and torch.equal(out, again) and bool(
+        repeat = torch.equal(out, again)
+        ok = (routed and repeat and appended and untouched and bool(
             (err <= atol + rtol * plain.float().abs()).all()))
-        ms = graph_ms(lambda: fn(q, k, v, pos))
-        plain_ms = cuda_ms(
-            lambda: dec_ops.decode_attention_reference(q, k, v, pos))
-        mask = ~past[:, :1, :, 0][:, :, None, :]      # [S, 1, 1, L]
+        ms = graph_ms(lambda: fn(q, k_new, v_new, k, v, pos))
+        floor_ms = graph_ms(lambda: dec_ops._floor(S, H, D, C, dtype,
+                                                   q.device))
+        c16_ms = None
+        if S == 1 and L // 16 >= dec_ops.MIN_ROWS:
+            c16_ms = graph_ms(lambda: dec_ops._launch(q, k_new, v_new, k, v,
+                                                      pos, 16))
+        plain_ms = cuda_ms(lambda: dec_ops.decode_attention_reference(
+            q, k_new, v_new, kp, vp, pos))
+        mask = live[:, :1, :, 0][:, :, None, :]        # [S, 1, 1, L]
         lib_ms, lib_error = maybe_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask))
     bound_ms, bound_by, nbytes, flops = decode_bound(S, H, L, D, dtype, pos)
     return {"shape": [S, H, L, D], "dtype": str(dtype)[6:],
             "positions": "every L - 1" if full else "mixed",
-            "route": rt, "max_abs_err": float(err.max()), "tol": [atol, rtol],
-            "repeat_bit_identical": bool(torch.equal(out, again)), "ok": ok,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "route": rt, "splits": C, "max_abs_err": float(err.max()),
+            "tol": [atol, rtol], "repeat_bit_identical": repeat,
+            "append_bit_equal": appended, "other_rows_untouched": untouched,
+            "ok": ok, "ms": ms, "floor_ms": floor_ms, "c16_ms": c16_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_error": lib_error, "ms_over_library": ratio(ms, lib_ms),
             "ms_over_plain": ms / plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_share": bound_ms / ms,
@@ -726,14 +758,15 @@ def decode_case(S, H, L, D, dtype, gen, full=False):
 
 def phase_decode_kernels():
     """B8's cases: the engine's shapes [8, 8, L, 64] at every cache page
-    (bf16 and float32), the prefill's and cached_generate's S = 1, and the
-    other head dimensions."""
+    (bf16 and float32), the prefill's and cached_generate's S = 1 at every
+    page, the other head dimensions, and a long cache whose copy ring
+    wraps."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
     H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
-    shapes = [(DECODE_SLOTS, H, L, D) for L in (128, 256, 512)]
-    shapes += [(1, H, 512, D), (DECODE_SLOTS, H, 512, 32),
-               (DECODE_SLOTS, H, 512, 128), (DECODE_SLOTS, H, 512, 16)]
+    shapes = [(S, H, L, D) for S in (DECODE_SLOTS, 1) for L in (128, 256, 512)]
+    shapes += [(DECODE_SLOTS, H, 512, 32), (DECODE_SLOTS, H, 512, 128),
+               (DECODE_SLOTS, H, 512, 16), (DECODE_SLOTS, H, 4096, D)]
     cases = [decode_case(*s, dtype, gen) for s in shapes
              for dtype in (torch.bfloat16, torch.float32)]
     cases.append(decode_case(DECODE_SLOTS, H, 512, D, torch.bfloat16, gen,
@@ -741,8 +774,8 @@ def phase_decode_kernels():
     emit({"phase": "decode_kernels", "gpu": gpu_line(),
           "kernel": "decode_attention", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
-    check(not bad, f"decode_attention disagrees with its plain version or "
-          f"does not repeat: {bad}")
+    check(not bad, f"decode_attention disagrees with its plain version, "
+          f"does not repeat or appends wrongly: {bad}")
     # the engine's largest call: [8, 8, 512, 64] bf16, mixed positions
     return next(c for c in cases if c["shape"] == [DECODE_SLOTS, H, 512, D]
                 and c["dtype"] == "bfloat16" and c["positions"] == "mixed")
@@ -854,6 +887,8 @@ def tick_costs(model, cache_len):
             rows.sort(reverse=True)
             busy = sum(r[0] for r in rows)
             prof_rep = {
+                "scatter_kernels": [k for _, _, k in rows
+                                    if "scatter" in k.lower()],
                 "profiled_ticks": DECODE_PROFILE_TICKS,
                 "profiled_wall_ms": wall_ms,
                 "device_busy_ms_per_tick": busy / DECODE_PROFILE_TICKS,
@@ -957,6 +992,9 @@ def phase_decode(model):
     for r in runs.values():
         del r["outputs"]
     costs = tick_costs(model, runs["continuous"]["cache_len"])
+    check("profile_error" not in costs and not costs["scatter_kernels"],
+          f"decode profile: {costs.get('profile_error')}, scatter kernels "
+          f"{costs.get('scatter_kernels')} (B8 appends k and v itself)")
     small = decode_f32_card_vs_cpu()
     emit({"phase": "decode", "gpu": gpu_line(), "model": "TransformerLM",
           "config": LM, "slots": DECODE_SLOTS, "page": DECODE_PAGE,
@@ -972,6 +1010,7 @@ def phase_decode(model):
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "ms_over_library": rep["ms_over_library"],
+            "floor_ms": rep["floor_ms"], "splits": rep["splits"],
             "kernel_route": rep["route"],
             "route_launches": route_launches["continuous"]}
 

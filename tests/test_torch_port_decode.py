@@ -1,9 +1,10 @@
 """KV-cache decoding in the port against the JAX package.
 
 The cached decode attention's plain version (``ops/decode_attention.py``,
-B8's counterpart on the CPU) is held to the reference's
-``serve/decode._slot_attention`` through one MultiHeadAttention with
-carried weights; ``init_kv_cache``, ``cached_generate`` and
+B8's counterpart on the CPU, which appends the new k and v and attends in
+one call) is held to the reference's ``serve/decode._slot_attention`` and
+``models/decode._cached_attention`` through one MultiHeadAttention with
+carried weights, output and whole cache; ``init_kv_cache``, ``cached_generate`` and
 ``beam_generate`` (``models/decode.py``) to the reference's on
 TransformerLM(vocab 64, max_len 64, E 32, H 2, L 2), built by the JAX
 package, its params carried over with ``load_reference_tree``.  Inputs and
@@ -16,8 +17,9 @@ Tolerances:
 - bf16 compute (bf16 cache): 0.15 absolute, the bf16 bound of
   test_torch_port_lm.py: the frameworks round the bf16 projections at
   different places, one bf16 step at 1..2 is 2^-7.
-- Stale cache rows past a slot's position: the output is bit-identical
-  whatever they hold (they get exactly zero weight).
+- Stale cache rows past a slot's position, and the stale row at it (the
+  append writes over it): the output is bit-identical whatever they hold
+  (they get exactly zero weight, or are replaced).
 - Generated tokens: identical (greedy argmax and beam top-k over float32
   log-probs that agree to about 1e-6).
 - Sampling: the port matches the reference in distribution, not in the
@@ -137,12 +139,63 @@ def test_plain_attention_matches_slot_attention(dtype):
                                    rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_attention_matches_cached_attention(dtype):
+    """One position for every row, as models/decode._cached_attention."""
+    x, k, v, _ = _attention_inputs(S=3, L=20, seed=3)
+    p = 11
+    past = np.arange(20)[None, None, :, None] > p
+    k = np.where(past, GARBAGE, k).astype(np.float32)
+    v = np.where(past, -GARBAGE, v).astype(np.float32)
+    jm, params, tm = _mha_pair()
+    jold, told = jget_policy(), tget_policy()
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else \
+        (jnp.bfloat16, torch.bfloat16)
+    if dtype == "bf16":
+        jset_policy(JPolicy(compute_dtype=jnp.bfloat16))
+        tset_policy(TPolicy(compute_dtype=torch.bfloat16))
+    try:
+        jy, jc = jdec._cached_attention(
+            jm, params, jnp.asarray(x),
+            {"k": jnp.asarray(k, jdt), "v": jnp.asarray(v, jdt)}, p)
+        cache = {"k": torch.from_numpy(k).to(tdt),
+                 "v": torch.from_numpy(v).to(tdt)}
+        with torch.inference_mode():
+            ty = tdec._cached_attention(
+                tm, torch.from_numpy(x), cache,
+                torch.full((3,), p, dtype=torch.int32))
+    finally:
+        jset_policy(jold)
+        tset_policy(told)
+    tol = F32_ATOL if dtype == "f32" else BF16_ATOL
+    np.testing.assert_allclose(ty.float().numpy(),
+                               np.asarray(jy, np.float32), atol=tol, rtol=0)
+    for n in "kv":
+        assert cache[n].dtype == tdt
+        np.testing.assert_allclose(cache[n].float().numpy(),
+                                   np.asarray(jc[n], np.float32), atol=tol,
+                                   rtol=0)
+
+
+def _new_rows(S, seed):
+    """q, k_new, v_new [S, 2, 1, 16]: the strided head split the model
+    gives ([S, 1, 2, 16] transposed)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((S, 1, 2, 16))
+                             .astype(np.float32)).transpose(1, 2)
+            for _ in range(3)]
+
+
 def test_plain_attention_blind_to_stale_rows():
     outs = []
     for garbage in (GARBAGE, -3.5e3):
-        x, k, v, pos = _attention_inputs(S=4, L=16, seed=2, garbage=garbage)
-        q = torch.from_numpy(x).reshape(4, 1, 2, 16).transpose(1, 2)
-        outs.append(tops.decode_attention(q, torch.from_numpy(k),
+        _, k, v, pos = _attention_inputs(S=4, L=16, seed=2, garbage=garbage)
+        # the stale row at each position is replaced by the append
+        at = np.arange(16)[None, None, :, None] == pos[:, None, None, None]
+        k = np.where(at, garbage, k).astype(np.float32)
+        v = np.where(at, -garbage, v).astype(np.float32)
+        q, kn, vn = _new_rows(4, seed=2)
+        outs.append(tops.decode_attention(q, kn, vn, torch.from_numpy(k),
                                           torch.from_numpy(v),
                                           torch.from_numpy(pos)))
     assert torch.equal(outs[0], outs[1])
@@ -151,20 +204,24 @@ def test_plain_attention_blind_to_stale_rows():
 def _ok_operands():
     q = torch.zeros((2, 2, 1, 16))
     k = torch.zeros((2, 2, 8, 16))
-    return q, k, k.clone(), torch.zeros(2, dtype=torch.int32)
+    return (q, q.clone(), q.clone(), k, k.clone(),
+            torch.zeros(2, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("case", [
     "q_rank", "q_rows", "head_dim", "q_dtype", "cache_dtypes", "cache_shape",
-    "pos_dtype", "pos_shape", "cache_strides", "cache_length"])
+    "pos_dtype", "pos_shape", "cache_strides", "cache_length",
+    "k_new_shape", "v_new_shape", "k_new_dtype", "v_new_stride",
+    "k_new_device", "v_new_device"])
 def test_wrapper_refuses(case):
-    q, k, v, pos = _ok_operands()
+    q, kn, vn, k, v, pos = _ok_operands()
     if case == "q_rank":
         q = q[0]
     elif case == "q_rows":
         q = torch.zeros((2, 2, 3, 16))
     elif case == "head_dim":
-        q, k, v = (torch.zeros(t.shape[:3] + (24,)) for t in (q, k, v))
+        q, kn, vn, k, v = (torch.zeros(t.shape[:3] + (24,))
+                           for t in (q, kn, vn, k, v))
     elif case == "q_dtype":
         q = q.half()
     elif case == "cache_dtypes":
@@ -178,9 +235,22 @@ def test_wrapper_refuses(case):
     elif case == "cache_strides":
         k = torch.zeros((2, 2, 16, 8)).transpose(2, 3)
     elif case == "cache_length":
-        k = v = torch.zeros((2, 2, tops.MAX_LEN + 1, 16))
+        # a view of one element: no memory for the length past the bound
+        k = v = torch.zeros(()).expand(2, 2, tops.MAX_LEN + 1, 16)
+    elif case == "k_new_shape":
+        kn = torch.zeros((2, 2, 2, 16))
+    elif case == "v_new_shape":
+        vn = torch.zeros((2, 1, 1, 16))
+    elif case == "k_new_dtype":
+        kn = kn.bfloat16()
+    elif case == "v_new_stride":
+        vn = torch.zeros((2, 2, 1, 32))[..., ::2]
+    elif case == "k_new_device":
+        kn = torch.zeros((2, 2, 1, 16), device="meta")
+    elif case == "v_new_device":
+        vn = torch.zeros((2, 2, 1, 16), device="meta")
     with pytest.raises(ValueError, match="decode_attention"):
-        tops.decode_attention(q, k, v, pos)
+        tops.decode_attention(q, kn, vn, k, v, pos)
 
 
 def test_wrapper_counts_no_launch_on_the_cpu():

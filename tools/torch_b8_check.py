@@ -7,7 +7,9 @@ Builds ``bigdl_torch/csrc/decode_attention.cu`` alone (its seconds and,
 by kernel instance, its registers and spilled bytes), then runs
 ``chip_smoke.py``'s ``decode`` phase on the TransformerLM bench width with
 seeded random weights: B8's cases against ``decode_attention_reference``
-(``decode_kernels``), ``DecodeEngine(slots=8, page=128)`` under continuous
+(``decode_kernels``: the append checked bit for bit, each case with its
+cluster size and the launch floor ``floor_ms``),
+``DecodeEngine(slots=8, page=128)`` under continuous
 and batch admission with every row held to ``cached_generate`` under the
 tie rule, the tick costs and their profile, and the small float32 LM on the
 card against the CPU.  One JSON line each, then the ``kernels`` entry of
