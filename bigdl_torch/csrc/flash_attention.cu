@@ -577,21 +577,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                                      box, swizzle);
     if (err) return err;
   }
-  static const cudaError_t attr[2] = {
-      cudaFuncSetAttribute(flash_tc_kernel<D, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           L::SMEM),
-      cudaFuncSetAttribute(flash_tc_kernel<D, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           L::SMEM)};
-  for (const cudaError_t e : attr)
-    if (e != cudaSuccess) return static_cast<int>(e);
-  // persistent: one block per SM, or one per item where there are fewer
-  static const int n_sm = hopper::sm_count();
-  const long long n_items = static_cast<long long>((Tq + BQ - 1) / BQ) * B * H;
-  const int grid = n_items < n_sm ? static_cast<int>(n_items) : n_sm;
   const auto kernel =
       lse != nullptr ? flash_tc_kernel<D, true> : flash_tc_kernel<D, false>;
+  const cudaError_t attr = hopper::allow_smem(kernel, L::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // persistent: one block per SM of the current device, or one per item
+  // where there are fewer
+  const int n_sm = hopper::sm_count();
+  const long long n_items = static_cast<long long>((Tq + BQ - 1) / BQ) * B * H;
+  const int grid = n_items < n_sm ? static_cast<int>(n_items) : n_sm;
   kernel<<<grid, THREADS, L::SMEM, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, B, H,
       Tq, Tk, so.b, so.h, so.t, sm_scale * 1.4426950408889634f, causal);

@@ -377,12 +377,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int dq_bytes = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
   const int dkv_bytes =
       dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_bytes);
-  static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_bytes);
+  const cudaError_t attr_dq = hopper::allow_smem(bwd_dq_kernel<D>, dq_bytes);
+  const cudaError_t attr_dkv =
+      hopper::allow_smem(bwd_dkv_kernel<D>, dkv_bytes);
   if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
   if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
   const float* tq = static_cast<const float*>(q);
@@ -962,16 +959,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       (err = make(&q_tile, q, st[0], Tq, BT)) ||
       (err = make(&do_tile, dout, st[4], Tq, BT)))
     return err;
-  static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
-  static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      bwd_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
+  const cudaError_t attr_dq =
+      hopper::allow_smem(bwd_dq_tc_kernel<D>, L::SMEM);
+  const cudaError_t attr_dkv =
+      hopper::allow_smem(bwd_dkv_tc_kernel<D>, L::SMEM);
   if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
   if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
-  // persistent: one block per SM, or one per item where there are fewer
-  static const int n_sm = hopper::sm_count();
+  // persistent: one block per SM of the current device, or one per item
+  // where there are fewer
+  const int n_sm = hopper::sm_count();
   const long long n1 = static_cast<long long>((Tq + ROWS - 1) / ROWS) * B * H;
   const long long n2 = static_cast<long long>((Tk + ROWS - 1) / ROWS) * B * H;
   bwd_dq_tc_kernel<D><<<n1 < n_sm ? static_cast<int>(n1) : n_sm, THREADS,

@@ -83,12 +83,22 @@ inline int make_map(CUtensorMap* map, const void* base, int rank,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Streaming multiprocessors of the current device.
+// Streaming multiprocessors of the current device.  Asked on every launch
+// that sizes a grid by it: a process may launch on more than one card.
 inline int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n > 0 ? n : 1;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device.
+// An attribute belongs to that device's context, so every launch sets it:
+// one set once per process would leave a second card without it.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // ---- device: shared memory, barriers, TMA ---------------------------------

@@ -655,12 +655,11 @@ int launch(const void* x, const void* w, const float* bias, void* y,
   if (!err)
     err = hopper::make_map(&my, y, 2, yd, cs, yb, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      mm_stats_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
+  const cudaError_t attr =
+      hopper::allow_smem(mm_stats_wgmma_kernel<BN>, L::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  static const int n_sm = hopper::sm_count();
-  // one block per SM, each keeping one column tile
+  const int n_sm = hopper::sm_count();
+  // one block per SM of the current device, each keeping one column tile
   const int n_col_tiles = (C + BN - 1) / BN;
   int per = n_sm / n_col_tiles;
   if (per < 1) per = 1;

@@ -18,20 +18,25 @@ for tensors on a CUDA device, and computes
 it launches the kernel or raises: there is no fallback and no switch.  The
 route is q's dtype: ``"bf16"`` or ``"f32"`` (the cache may be either).
 ``decode_attention.launches`` counts every launch and
-``decode_attention.route_launches`` each route's.  The kernel splits each
-(slot, head)'s live keys over a thread-block cluster of :func:`splits`
-blocks.
+``decode_attention.route_launches`` each route's.  A call made while the
+current stream captures a CUDA graph launches nothing, and counts nothing:
+inside :func:`counting_captures` it is tallied by route instead, and each
+replay of the graph counts that tally (:func:`count_replay`).  The kernel
+splits each (slot, head)'s live keys over a thread-block cluster of
+:func:`splits` blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
 import torch
 
 __all__ = ["decode_attention", "decode_attention_reference", "route",
-           "splits", "HEAD_DIMS", "MAX_LEN"]
+           "splits", "counting_captures", "count_replay", "HEAD_DIMS",
+           "MAX_LEN"]
 
 #: the route by q's dtype
 ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -49,6 +54,9 @@ MAX_SPLITS = 8
 MIN_ROWS = 32
 
 _launch_lock = threading.Lock()
+# per thread: the tally of launches recorded into the graph this thread is
+# capturing (counting_captures)
+_capture = threading.local()
 
 
 def decode_attention_reference(q, k_new, v_new, k_cache, v_cache, pos):
@@ -212,14 +220,40 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
     S, H, _, _ = q.shape
     o = _launch(q, k_new, v_new, k_cache, v_cache, pos,
                 splits(S, H, k_cache.shape[2]))
-    with _launch_lock:
-        decode_attention.launches += 1
-        decode_attention.route_launches[rt] += 1
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally[rt] += 1
+    else:
+        count_replay({rt: 1})
     return o
 
 
 decode_attention.launches = 0
 decode_attention.route_launches = {"bf16": 0, "f32": 0}
+
+
+@contextlib.contextmanager
+def counting_captures():
+    """Tally, by route, the launches this thread records into the CUDA
+    graph it captures inside the block; yields the tally (route ->
+    launches), which a replay of that graph hands to :func:`count_replay`."""
+    tally = {rt: 0 for rt in decode_attention.route_launches}
+    outer = getattr(_capture, "tally", None)
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = outer
+
+
+def count_replay(tally):
+    """Count the launches of one replay of a graph that captured ``tally``
+    (route -> launches), as the wrapper counts a launch of its own."""
+    with _launch_lock:
+        for rt, n in tally.items():
+            decode_attention.launches += n
+            decode_attention.route_launches[rt] += n
 
 
 def _floor(S, H, D, C, cache_dtype, device):

@@ -51,6 +51,7 @@ remat, supervision and chaos points, and the strategies other than
 from __future__ import annotations
 
 import math
+import threading
 import time
 from typing import Optional
 
@@ -71,7 +72,8 @@ from .method import SGD, OptimMethod
 from .metrics import Metrics
 from .trigger import Trigger
 
-__all__ = ["Optimizer", "Predictor", "NonFiniteLossError", "to_host"]
+__all__ = ["Optimizer", "Predictor", "NonFiniteLossError", "HostCopy",
+           "to_host"]
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -80,6 +82,48 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.detach().cpu().numpy()
+
+
+class HostCopy:
+    """Answers to the host through one pinned buffer: ``copy(t)`` gives
+    what :func:`to_host` gives, bit for bit.  A CUDA tensor (a bfloat16
+    one widened to float32 on the device, exactly) is copied on a side
+    stream into a pinned buffer that is kept and reused while the answer
+    fits, the host waits on an event, and the answer is copied out into
+    memory of its own, which the caller may keep.  Threads take turns.  A
+    CPU tensor goes through :func:`to_host`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._buf: Optional[torch.Tensor] = None
+        self._stream = None
+        self._done = None
+
+    def __call__(self, t: torch.Tensor) -> np.ndarray:
+        if t.device.type != "cuda":
+            return to_host(t)
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        t = t.contiguous()
+        n = t.numel()
+        with self._lock:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(t.device)
+                self._done = torch.cuda.Event()
+            if self._buf is None or self._buf.numel() < n or \
+                    self._buf.dtype != t.dtype:
+                self._buf = None    # the old buffer goes first
+                self._buf = torch.empty(n, dtype=t.dtype, pin_memory=True)
+            stage = self._buf[:n].view(t.shape)
+            self._stream.wait_stream(torch.cuda.current_stream(t.device))
+            with torch.cuda.stream(self._stream):
+                stage.copy_(t, non_blocking=True)
+                self._done.record()
+            self._done.synchronize()
+            out = torch.empty(t.shape, dtype=t.dtype)
+            out.copy_(stage)
+        return out.numpy()
 
 
 class NonFiniteLossError(RuntimeError):
@@ -387,11 +431,12 @@ class Predictor:
         self.model = model
         self.batch_size = batch_size
         self._engine = _Forward(model, device)
+        self._to_host = HostCopy()
 
     def predict(self, x) -> np.ndarray:
         x = np.asarray(x)
         outs = []
         for i in range(0, len(x), self.batch_size):
             out, _ = self._engine(x[i:i + self.batch_size])
-            outs.append(to_host(out))
+            outs.append(self._to_host(out))
         return np.concatenate(outs, axis=0)

@@ -7,27 +7,40 @@ Counterpart of ``bigdl_tpu/serve/decode.py``:
   active slots at once, each at its own position (one [slots, 1, E]
   forward, B8 once per layer); a sequence that emits EOS or exhausts its
   budget leaves and frees its slot that same tick.
-- Prefill admits one sequence into a free slot: the rows=1 step over each
-  prompt position, on the slot's cache views (``cache[s:s+1]`` is a view,
-  so nothing is written back).  Greedy tokens are those of
-  ``cached_generate`` for the sequence alone.
+- Prefill admits one sequence into a free slot: the rows=1 step of
+  ``cached_generate`` over each prompt position, on a [1, H, L, D] scratch
+  cache, its token and position read from a device cursor that the step
+  advances; then a commit writes the scratch into the slot (the
+  reference's ``dynamic_slice``, ``fori_loop``, ``dynamic_update_slice``).
+  Greedy tokens are those of ``cached_generate`` for the sequence alone.
 - The cache length comes from a (slots, cache-page) ladder: power-of-2
-  multiples of ``page`` up to ``max_len``.  The cache grows mid-flight by
-  zero-padding the length axis (keys past a slot's position are never
-  read) and re-pages to what the next admission needs when the engine is
-  idle.
+  multiples of ``page`` up to ``max_len``.  The engine keeps one cache set
+  (and one scratch) per rung it has used, for its lifetime.  A grow
+  mid-flight copies rows [0, old) into the next rung and zeroes the rest
+  (keys past a slot's position are never read); an idle engine re-pages
+  to the rung the next admission needs and zeroes it.
+- Executables per bucket, the counterpart of the reference's ``_step_exe``
+  and ``_prefill_exe``: on CUDA each (kind, cache_len) bucket, kind
+  ``tick`` (all slots), ``prefill`` (one position on the scratch) or
+  ``commit``, is a CUDA graph.  The bucket's first call runs the real step
+  eagerly on the engine's stream, then captures it (nothing runs during a
+  capture); every later call replays the graph.  All graphs share one
+  memory pool, and each graph's output is copied out before another
+  replays.  A warm engine on a fixed ladder captures nothing new.  On the
+  CPU the same step bodies run eagerly.  ``stats()["graphs"]`` counts
+  captures and replays and names the buckets captured.
 - Admission goes through a :class:`~bigdl_torch.serve.batcher.DecodeQueue`
   (bounded, per-sequence deadline = time to last token, priority
   eviction) and per-tenant :class:`~bigdl_torch.serve.control.TenantQuotas`.
-- Positions and tokens go to the device once a tick as one small int32
-  tensor; the one host sync of a tick is the [slots, vocab] log-prob row
-  sampling needs.
+- Tokens and positions reach the device once a tick as one int32
+  [2, slots] tensor, copied from a pinned host buffer; the one host sync
+  of a tick is the [slots, vocab] log-prob row sampling needs, brought
+  back through a pinned buffer.
 
 Not ported: the reference's chaos points, telemetry counter and request
-flows, the time-to-last-token metric, trace recording, and the compiled
-executables per bucket with their compile cards (PyTorch runs eagerly;
-a CUDA graph per (slots, cache_len) bucket is their counterpart, still to
-come).  ``mesh=`` raises ``NotImplementedError``.
+flows, the time-to-last-token metric, trace recording, the persistent
+compile cache and its compile cards.  ``mesh=`` raises
+``NotImplementedError``.
 
 Knobs (``utils/config``; constructor arguments override):
 ``BIGDL_TORCH_DECODE_SLOTS`` (4), ``_PAGE`` (128), ``_MAX_LEN`` (0 = the
@@ -50,6 +63,7 @@ import torch
 from ..common import get_policy, resolve_device
 from ..models import decode as kv
 from ..models.transformer_lm import PositionalEmbedding, sample_next
+from ..ops.decode_attention import count_replay, counting_captures
 from ..utils import config
 from .batcher import DecodeQueue, PendingRequest, ServeError
 from .control import TenantQuotas
@@ -78,6 +92,17 @@ def page_ladder(page: int, max_len: int) -> tuple:
         c *= 2
     sizes.append(int(max_len))
     return tuple(sizes)
+
+
+class _Graph:
+    """One captured bucket: the CUDA graph, its static output and the B8
+    launches it recorded, by route (``count_replay`` counts them at every
+    replay)."""
+
+    __slots__ = ("graph", "out", "b8")
+
+    def __init__(self, graph, out, b8):
+        self.graph, self.out, self.b8 = graph, out, b8
 
 
 class _Seq:
@@ -113,7 +138,10 @@ class DecodeEngine:
         engine.stop()                                  # drain, then stop
 
     Also a context manager.  Runs on ``device`` (default: the CUDA device;
-    raises without one); a built model must already live there."""
+    raises without one); a built model must already live there.  On CUDA
+    every step replays a CUDA graph once its bucket has been captured
+    (module docstring).  The step methods run in the loop thread, inside
+    ``_on_device()``; on an engine not started, in the caller's."""
 
     def __init__(self, model, *, slots: Optional[int] = None,
                  page: Optional[int] = None,
@@ -181,6 +209,31 @@ class DecodeEngine:
         self._slots: List[Optional[_Seq]] = [None] * self.slots
         self._caches = None
         self._cache_len = 0
+        self._rungs: dict = {}     # cache_len -> caches [slots, H, L, D]
+        self._scratch: dict = {}   # cache_len -> caches [1, H, L, D]
+        self._graphs: dict = {}    # (kind, cache_len) -> _Graph
+        # the steps' static inputs: a tick's tokens and positions, a prompt
+        # and the cursor into it, the slot a commit writes; each is filled
+        # from a host mirror (pinned on CUDA) that is rewritten only after
+        # the host has waited on a later copy of the engine's stream
+        self._static = {
+            "tp": torch.zeros((2, self.slots), dtype=torch.int32,
+                              device=self.device),
+            "prompt": torch.zeros((self.max_len,), dtype=torch.int32,
+                                  device=self.device),
+            "slot": torch.zeros((1,), dtype=torch.int64,
+                                device=self.device)}
+        self._cursor = torch.zeros((1,), dtype=torch.int32,
+                                   device=self.device)
+        on_cuda = self.device.type == "cuda"
+        self._host_in = {n: torch.zeros(t.shape, dtype=t.dtype,
+                                        pin_memory=on_cuda)
+                         for n, t in self._static.items()}
+        self._host_out: dict = {}  # (shape, dtype) -> pinned buffer
+        if on_cuda:
+            self._stream = torch.cuda.Stream(self.device)
+            self._done = torch.cuda.Event()
+            self._pool = torch.cuda.graph_pool_handle()
         self._thread: Optional[threading.Thread] = None
         # cumulative counters (stats())
         self.prefill_steps = 0
@@ -189,6 +242,8 @@ class DecodeEngine:
         self.seqs_done = 0
         self.seqs_failed = 0
         self.cache_grows = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
         self._busy_s = 0.0
 
     # -- lifecycle ------------------------------------------------------
@@ -268,28 +323,39 @@ class DecodeEngine:
                 return c
         return self.ladder[-1]
 
+    def _rung(self, cache_len: int) -> list:
+        """The caches of one rung, allocated (with the rung's scratch) at
+        its first use and kept: graphs bind their addresses."""
+        if cache_len not in self._rungs:
+            self._rungs[cache_len] = kv.init_kv_cache(
+                self.model, self.slots, cache_len, self.cache_dtype,
+                self.device)
+            self._scratch[cache_len] = kv.init_kv_cache(
+                self.model, 1, cache_len, self.cache_dtype, self.device)
+        return self._rungs[cache_len]
+
     def _ensure_cache(self, need: int, idle: bool) -> None:
         want = self._bucket_for(need)
         if self._caches is None or (idle and want != self._cache_len):
             # idle engine: re-page to exactly what the next admission
-            # needs (a 17-token prompt must not pay for max_len)
-            self._caches = kv.init_kv_cache(self.model, self.slots, want,
-                                            self.cache_dtype, self.device)
+            # needs (a 17-token prompt must not pay for max_len), zeroed
+            # as a fresh cache is
+            self._caches = self._rung(want)
+            for c in self._caches:
+                for t in c.values():
+                    t.zero_()
             self._cache_len = want
             return
         if want > self._cache_len:
-            # grow to the next page: zeros on the length axis.  Keys past
-            # a slot's position are never read, so the in-flight slots
-            # decode on unchanged; every holder rebinds to the new tensors
-            # (a prefill takes its slot views after this call)
-            grown = []
-            for c in self._caches:
-                pad = {}
+            # grow to the next page: rows [0, old) copied, the rest zeros.
+            # Keys past a slot's position are never read, so the in-flight
+            # slots decode on unchanged
+            old = self._cache_len
+            grown = self._rung(want)
+            for c, g in zip(self._caches, grown):
                 for n, t in c.items():
-                    z = t.new_zeros(t.shape[:2] + (want - self._cache_len,)
-                                    + t.shape[3:])
-                    pad[n] = torch.cat([t, z], dim=2)
-                grown.append(pad)
+                    g[n][:, :, :old].copy_(t)
+                    g[n][:, :, old:].zero_()
             self._caches = grown
             self._cache_len = want
             self.cache_grows += 1
@@ -303,12 +369,73 @@ class DecodeEngine:
 
     # -- the persistent step loop ---------------------------------------
 
+    @contextlib.contextmanager
+    def _on_device(self):
+        """The context of the engine's device work: its device and, on
+        CUDA, its stream, which every step, copy and graph runs on."""
+        if self.device.type != "cuda":
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            yield
+
+    def _upload(self, name: str, values) -> None:
+        """Write ``values`` into the leading entries of the static input
+        ``name`` through its host mirror."""
+        values = np.asarray(values).reshape(-1)
+        n = values.shape[0]
+        host = self._host_in[name].view(-1)[:n]
+        host.numpy()[:] = values
+        self._static[name].view(-1)[:n].copy_(host, non_blocking=True)
+
+    def _download(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (float32) on the host.  On CUDA it is copied into a pinned
+        buffer kept for its shape, and the host waits on an event after
+        the copy; the next download of that shape rewrites the buffer."""
+        if self.device.type != "cuda":
+            return t
+        key = (tuple(t.shape), t.dtype)
+        buf = self._host_out.get(key)
+        if buf is None:
+            buf = self._host_out[key] = torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        self._done.record()
+        self._done.synchronize()
+        return buf
+
+    def _run(self, kind: str, body):
+        """``body()`` for the bucket (kind, current cache length).  On the
+        CPU it runs eagerly.  On CUDA the bucket's first call runs it
+        eagerly, the real step on live state, then captures it into a CUDA
+        graph (B8's library and cuBLAS's workspace already exist by then,
+        and nothing executes during the capture); every later call replays
+        the graph.  Returns the step's output, which the next call of
+        another bucket may overwrite."""
+        if self.device.type != "cuda":
+            return body()
+        key = (kind, self._cache_len)
+        g = self._graphs.get(key)
+        if g is None:
+            out = body()
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: another thread's CUDA calls cannot invalidate
+            # the capture
+            with counting_captures() as b8, torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._stream,
+                    capture_error_mode="thread_local"):
+                static_out = body()
+            self._graphs[key] = _Graph(graph, static_out, dict(b8))
+            self.graph_captures += 1
+            return out
+        g.graph.replay()
+        count_replay(g.b8)
+        self.graph_replays += 1
+        return g.out
+
     def _loop(self) -> None:
-        # inference mode and the current device are per thread
-        on_device = (torch.cuda.device(self.device)
-                     if self.device.type == "cuda"
-                     else contextlib.nullcontext())
-        with torch.inference_mode(), on_device:
+        # inference mode, the current device and stream are per thread
+        with torch.inference_mode(), self._on_device():
             while True:
                 try:
                     if not self._tick():
@@ -359,17 +486,48 @@ class DecodeEngine:
             self._finish_slot(s)
 
     def _prefill(self, s: int, prompt: np.ndarray) -> torch.Tensor:
-        """Run the prompt through slot ``s``'s cache views, one position a
-        step (the rows=1 step of ``cached_generate``); returns the last
-        position's log-probs [vocab] on the device."""
-        sub = [{n: t[s:s + 1] for n, t in c.items()} for c in self._caches]
-        toks = torch.from_numpy(prompt).to(self.device)
-        positions = torch.arange(len(prompt), dtype=torch.int32,
-                                 device=self.device)
-        for i in range(len(prompt)):
-            logits = kv.decode_step(self.model, sub, toks[i:i + 1],
-                                    positions[i:i + 1])
-        return logits[0]
+        """Run the prompt into slot ``s``: the rows=1 step of
+        ``cached_generate`` once per position on the rung's scratch cache,
+        then the scratch committed into the slot.  Returns the last
+        position's log-probs, float32 [vocab] on the host."""
+        L = self._cache_len
+        scratch = self._scratch[L]
+        self._upload("prompt", prompt)
+        self._cursor.zero_()
+        for _ in range(len(prompt)):
+            logits = self._run("prefill", lambda: self._prompt_step(scratch))
+        out = self._download(logits)[0]   # before another graph replays
+        self._upload("slot", [s])
+        self._run("commit", lambda: self._commit(L))
+        return out
+
+    def _prompt_step(self, scratch) -> torch.Tensor:
+        """One prompt position on ``scratch``: token prompt[cursor] at
+        position cursor, both read on the device; advances the cursor.
+        Returns float32 log-probs [1, vocab]."""
+        cursor = self._cursor
+        tok = self._static["prompt"].index_select(0, cursor)
+        logits = kv.decode_step(self.model, scratch, tok, cursor)
+        cursor.add_(1)
+        return logits.float()
+
+    def _commit(self, cache_len: int) -> None:
+        """Write rung ``cache_len``'s scratch into the slot the static
+        ``slot`` input names: every row of it, for every layer."""
+        slot = self._static["slot"]
+        for c, sc in zip(self._rungs[cache_len], self._scratch[cache_len]):
+            for n, t in c.items():
+                t.index_copy_(0, slot, sc[n])
+
+    def _step_all(self, tp: np.ndarray) -> torch.Tensor:
+        """One decode tick of every slot at ``tp``, int32 [2, slots]
+        (tokens, positions): returns float32 [slots, vocab] log-probs on
+        the host."""
+        caches, static = self._caches, self._static["tp"]
+        self._upload("tp", tp)
+        logits = self._run("tick", lambda: kv.decode_step(
+            self.model, caches, static[0], static[1]).float())
+        return self._download(logits)
 
     def _admit(self, req: PendingRequest, s: int) -> None:
         p = req.payload
@@ -379,7 +537,7 @@ class DecodeEngine:
                    p["temperature"], p["top_k"], generator)
         self._slots[s] = seq
         try:
-            logits = self._prefill(s, p["prompt"]).float().cpu()
+            logits = self._prefill(s, p["prompt"])
         except Exception as e:  # noqa: BLE001 - typed per-sequence fail
             self._fail_slot(s, SlotFault(f"decode: prefill failed in "
                                          f"slot {s}: {e!r}"))
@@ -418,9 +576,7 @@ class DecodeEngine:
                 seq = self._slots[s]
                 tp[0, s] = seq.buf[seq.pos]
                 tp[1, s] = seq.pos
-            tp = torch.from_numpy(tp).to(self.device)
-            logits = kv.decode_step(self.model, self._caches, tp[0], tp[1])
-            logits = logits.float().cpu()   # the tick's one host sync
+            logits = self._step_all(tp)   # the tick's one host sync
             self.decode_steps += 1
             for s in active:
                 self._advance(s, self._sample(self._slots[s], logits[s]))
@@ -454,4 +610,8 @@ class DecodeEngine:
             "seqs_failed": self.seqs_failed,
             "queue": self.queue.stats(),
             "quota": self.quotas.stats(),
+            "graphs": {"captures": self.graph_captures,
+                       "replays": self.graph_replays,
+                       "buckets": sorted(f"{kind}/{n}" for kind, n
+                                         in list(self._graphs))},
         }

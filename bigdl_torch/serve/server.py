@@ -32,7 +32,7 @@ import numpy as np
 
 from ..common import resolve_device
 from ..nn.module import Module
-from ..optim.optimizer import _Forward, to_host
+from ..optim.optimizer import HostCopy, _Forward
 from ..utils import config
 from .batcher import (DynamicBatcher, PendingRequest, ServeError, fit_bucket,
                       pad_rows, pad_tail)
@@ -50,13 +50,15 @@ class ModelVersion:
         self.label = label
         self.module = module
         self._engine = _Forward(module, device)
+        self._to_host = HostCopy()
 
     def predict(self, batch: np.ndarray) -> np.ndarray:
-        """Forward one padded batch; returns host rows.  A bfloat16 output
-        widens to float32 on the way to numpy, which has no bfloat16; the
+        """Forward one padded batch; returns its host rows through the
+        version's pinned buffer (:class:`HostCopy`).  A bfloat16 output
+        widens to float32 on the device, since numpy has no bfloat16; the
         widening is exact."""
         out, _ = self._engine(batch)
-        return to_host(out)[:len(batch)]
+        return self._to_host(out[:len(batch)])
 
 
 class InferenceServer:

@@ -33,7 +33,11 @@ Phases, each printing one JSON line:
    max_batch=8)``: warm-up, then 16 requests of lengths spread over 1..512.
    Every answer is checked against the port's own ``Predictor`` on the same
    padded row, and the kernel's launch count against 8 launches (one per
-   layer) per device batch, every one on the ``"tc"`` route.  A small
+   layer) per device batch, every one on the ``"tc"`` route.  A full
+   [8, 512] batch's answer comes to the host as the server brings it
+   (``HostCopy``: a pinned buffer kept across calls, a side stream's copy)
+   and must equal the pageable route it replaced (``to_host``) bit for
+   bit; both are timed (``batch_to_host_ms``, ``_pageable_ms``).  A small
    float32 model is also checked on the card (on the ``"f32"`` route)
    against the same model's plain-PyTorch forward on the CPU.
 4. ``generate``: ``greedy_generate`` extends a short prompt on the same
@@ -42,17 +46,25 @@ Phases, each printing one JSON line:
    page=128)``: ``decode_kernels`` (next item), then one workload queued
    before ``start()`` (12 short sequences, prompts of 8 to 64 tokens and
    budgets of 8 to 32, and 4 long ones, prompts of 64 to 128 and budgets
-   of 128; random tokens from ``default_rng(SEED)``; greedy), run once with
-   ``admission="continuous"`` and once with ``"batch"``.  Every sequence
-   must equal ``cached_generate`` of its prompt on the card under the tie
-   rule (``tie_rule``: where two rows part, the two tokens' log-probs under
-   the full forward must differ by less than ``TIE_TOL``), continuous must
-   take fewer decode ticks than batch, B8's launches must be exactly 8 x
-   (prompt positions + decode ticks) on its ``"bf16"`` route with no flash
-   launch, ``cache_bytes_per_slot`` exact, no sequence failed.  Reports
-   tokens/s, time to last token, the host-timed cost of a decode tick and
-   of a prefill position, and the device's busy time and idle share over a
-   profile of 20 ticks, which must show no ``scatter`` kernel (B8 appends
+   of 128; random tokens from ``default_rng(SEED)``; greedy), run through
+   one engine with ``admission="continuous"`` and one with ``"batch"``,
+   each twice: cold (every bucket's first call captures its CUDA graph)
+   and warm (no new capture allowed, rows bit-equal to the cold run's).
+   Every sequence must equal ``cached_generate`` of its prompt on the card
+   under the tie rule (``tie_rule``: where two rows part, the two tokens'
+   log-probs under the full forward must differ by less than
+   ``TIE_TOL``), continuous must take fewer decode ticks than batch, B8's
+   launches must be exactly 8 x (prompt positions + decode ticks) on its
+   ``"bf16"`` route in every run (a graph replay counts the launches its
+   capture recorded) with no flash launch, ``cache_bytes_per_slot``
+   exact, no sequence failed.  At every rung of the ladder a prefill and a
+   tick replayed from their graphs must equal eager ``decode_step`` calls
+   on cloned caches bit for bit, log-probs and every cache row up to each
+   slot's position (``graph_vs_eager``).  Reports tokens/s and time to
+   last token per run, the host-timed cost of a decode tick and of a
+   prefill position through the graphs and eagerly, the graph tick's
+   device time, and the device's busy time and idle share over a profile
+   of 20 ticks of each, which must show no ``scatter`` kernel (B8 appends
    k and v itself); and a small float32 LM (TF32 off, B8 on ``"f32"``)
    whose engine and ``cached_generate`` rows on the card must equal
    ``cached_generate`` on the CPU under the tie rule at 1e-4.
@@ -157,7 +169,7 @@ Phases, each printing one JSON line:
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
-LM run, B8 per continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
+LM run, B8 per warm continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
 timed training run; each also per route), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
@@ -194,7 +206,7 @@ from bigdl_torch.ops import batchnorm as bn_ops
 from bigdl_torch.ops import convbn as cb_ops
 from bigdl_torch.ops import decode_attention as dec_ops
 from bigdl_torch.optim import SGD, Optimizer, Predictor, Trigger
-from bigdl_torch.optim.optimizer import to_host
+from bigdl_torch.optim.optimizer import HostCopy, to_host
 from bigdl_torch.serve import (DecodeEngine, InferenceServer, fit_bucket,
                                pad_tail)
 from bigdl_torch.utils import cuda_build
@@ -527,23 +539,51 @@ def reference_check():
     return err
 
 
+def host_ms(fn, reps=3):
+    """Mean host-clock milliseconds of ``fn`` over ``reps`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def batch_split(model):
     """Where a full device batch's time goes: the eval forward of
-    [MAX_BATCH, max_len] tokens on the card (CUDA events), its flash
-    calls alone, and bringing its log-probs to the host as the server
-    does (host clock around a synchronized copy)."""
+    [MAX_BATCH, max_len] tokens on the card (CUDA events), and bringing
+    its log-probs to the host as the server does (``HostCopy``: a side
+    stream's copy into a pinned buffer kept across calls, then into the
+    answer's own memory; host clock around it), beside the pageable route
+    it replaced (``to_host``), whose answer it must equal bit for bit.
+    ``to_pinned_ms`` and ``pinned_to_answer_ms`` time its two copies
+    alone."""
     x = torch.zeros((MAX_BATCH, LM["max_len"]), dtype=torch.int64,
                     device="cuda")
+    copy = HostCopy()
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
         out = model(x)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            to_host(out)
-        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        answer = copy(out)                      # the pinned buffer's first
+        before = to_host(out)
+        same = answer.dtype == before.dtype and np.array_equal(
+            answer.view(np.uint32), before.view(np.uint32))
+        new_ms = host_ms(lambda: copy(out))
+        old_ms = host_ms(lambda: to_host(out))
+        wide = out.float()
+        pinned = torch.empty(wide.shape, dtype=wide.dtype, pin_memory=True)
+
+        def to_pinned():
+            pinned.copy_(wide, non_blocking=True)
+            torch.cuda.synchronize()
+
+        pin_ms = host_ms(to_pinned)
+        out_ms = host_ms(lambda: torch.empty(wide.shape).copy_(pinned))
+    check(same, "the answer through HostCopy differs from to_host's")
     return {"batch_shape": list(x.shape), "batch_forward_ms": fwd_ms,
-            "batch_to_host_ms": host_ms,
+            "batch_to_host_ms": new_ms,
+            "batch_to_host_pageable_ms": old_ms, "to_pinned_ms": pin_ms,
+            "pinned_to_answer_ms": out_ms,
+            "answer_bit_equal_to_pageable": same,
             "batch_answer_bytes": out.numel() * 4}
 
 
@@ -813,34 +853,170 @@ def decode_workload(vocab):
 
 
 def run_engine(model, work, admission, **kw):
-    """Queue ``work`` before start(), run it to the end, and return the
-    outputs, the engine's stats, the wall seconds, each sequence's time to
-    last token and B8's launches, by route, over the run."""
+    """Run ``work`` twice through one engine, cold (queued before start(),
+    so every bucket's first call captures its CUDA graph) then warm
+    (queued at once into the running engine, whose graphs exist).  For
+    each run: the outputs, the engine's counters over the run, the wall
+    seconds, each sequence's time to last token, B8's launches by route
+    and the peak memory."""
     eng = DecodeEngine(model, admission=admission, **kw)
-    handles = [eng.submit(p, n) for p, n in work]
     fn = dec_ops.decode_attention
-    fn.launches = 0
-    zero_routes(fn)
-    zero_flash()
-    t0 = time.perf_counter()
-    eng.start()
-    outs = [h.result(600) for h in handles]
-    wall = time.perf_counter() - t0
+    runs = {}
+    for run in ("cold", "warm"):
+        before = eng.stats()
+        fn.launches = 0
+        zero_routes(fn)
+        zero_flash()
+        torch.cuda.reset_peak_memory_stats()
+        if run == "cold":
+            handles = [eng.submit(p, n) for p, n in work]
+            t0 = time.perf_counter()
+            eng.start()
+        else:
+            # the loop takes the whole mix at once, as it did cold: it
+            # cannot take from the queue while the queue's lock is held
+            with eng.queue._cond:
+                handles = [eng.submit(p, n) for p, n in work]
+                t0 = time.perf_counter()
+        outs = [h.result(600) for h in handles]
+        wall = time.perf_counter() - t0
+        after = eng.stats()
+        check(flash_counts() == (0, 0),
+              f"decode ({admission}, {run}) launched flash {flash_counts()}")
+        delta = {k: after[k] - before[k] for k in (
+            "decode_steps", "prefill_steps", "tokens_out", "seqs_done",
+            "seqs_failed", "cache_grows")}
+        delta.update({f"graph_{k}": after["graphs"][k] - before["graphs"][k]
+                      for k in ("captures", "replays")})
+        runs[run] = {
+            "outs": outs, "stats": after, "delta": delta, "wall": wall,
+            "ttlt": np.array([h.latency_s for h in handles]) * 1e3,
+            "launches": fn.launches, "routes": dict(fn.route_launches),
+            "peak": torch.cuda.max_memory_allocated()}
     eng.stop()
-    launches, routes = fn.launches, dict(fn.route_launches)
-    check(flash_counts() == (0, 0),
-          f"decode ({admission}) launched flash {flash_counts()}")
-    ttlt = np.array([h.latency_s for h in handles]) * 1e3
-    return outs, eng.stats(), wall, ttlt, launches, routes
+    return runs
+
+
+def slot_prompts(rng, vocab, lengths):
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lengths]
+
+
+def rows_equal(a, b, upto):
+    """Every layer's K and V rows [0, upto[s]) of every slot s, bit for
+    bit."""
+    return all(torch.equal(x[n][s, :, :k], y[n][s, :, :k])
+               for x, y in zip(a, b) for n in x
+               for s, k in enumerate(upto))
+
+
+def graph_vs_eager(model):
+    """At every rung of the bench ladder, on an engine that is not
+    started: fill every slot through the engine's prefill (the rung's
+    first prefill and commit capture their graphs), then one more prefill
+    (a replay of both) against the eager prefill on the slot's views of
+    cloned caches, and one tick replay against an eager ``decode_step`` on
+    cloned caches: the log-probs and every cache row up to each slot's
+    position bit for bit."""
+    S, V = DECODE_SLOTS, LM["vocab_size"]
+    rng = np.random.default_rng(SEED + 5)
+    eng = DecodeEngine(model, slots=S, page=DECODE_PAGE)
+    out = []
+    with torch.inference_mode(), eng._on_device():
+        for L in eng.ladder:
+            eng._ensure_cache(L, idle=True)
+            t0s = rng.integers(1, L // 2, S)
+            for s, p in enumerate(slot_prompts(rng, V, t0s)):
+                eng._prefill(s, p)
+            s = int(rng.integers(S))
+            p = slot_prompts(rng, V, [t0s[s]])[0]
+            ref = [{n: t.clone() for n, t in c.items()} for c in eng._caches]
+            sub = [{n: t[s:s + 1] for n, t in c.items()} for c in ref]
+            toks = torch.from_numpy(p).cuda()
+            at = torch.arange(len(p), dtype=torch.int32, device="cuda")
+            for i in range(len(p)):
+                want = dec_mod.decode_step(model, sub, toks[i:i + 1],
+                                           at[i:i + 1])
+            want = want[0].float().cpu()
+            replays = eng.graph_replays
+            got = eng._prefill(s, p).clone()
+            prefill_replays = eng.graph_replays - replays
+            prefill_ok = torch.equal(got, want) and rows_equal(
+                eng._caches, ref, t0s)
+            tp = np.stack([rng.integers(0, V, S), t0s]).astype(np.int32)
+            eng._step_all(tp)                   # the rung's first: captures
+            tp = np.stack([rng.integers(0, V, S), t0s + 1]).astype(np.int32)
+            ref = [{n: t.clone() for n, t in c.items()} for c in eng._caches]
+            tpd = torch.from_numpy(tp).cuda()
+            want = dec_mod.decode_step(model, ref, tpd[0], tpd[1])
+            want = want.float().cpu()
+            replays = eng.graph_replays
+            got = eng._step_all(tp).clone()
+            tick_replays = eng.graph_replays - replays
+            tick_ok = torch.equal(got, want) and rows_equal(
+                eng._caches, ref, t0s + 2)
+            out.append({"cache_len": L, "prefill_positions": len(p),
+                        "prefill_replays": prefill_replays,
+                        "prefill_bit_equal": prefill_ok,
+                        "tick_replays": tick_replays,
+                        "tick_bit_equal": tick_ok})
+    st = eng.stats()["graphs"]
+    want_buckets = sorted(f"{k}/{L}" for k in ("commit", "prefill", "tick")
+                          for L in eng.ladder)
+    check(all(r["prefill_bit_equal"] and r["tick_bit_equal"]
+              and r["prefill_replays"] == r["prefill_positions"] + 1
+              and r["tick_replays"] == 1 for r in out)
+          and st["buckets"] == want_buckets
+          and st["captures"] == len(want_buckets),
+          f"graph replays against eager steps: {out}, graphs {st}")
+    return {"graph_vs_eager": out, "graph_vs_eager_graphs": st}
+
+
+def profile_ticks(tick):
+    """DECODE_PROFILE_TICKS calls of ``tick`` under torch.profiler: the
+    device's busy time a tick, its idle share of the wall time, the top
+    kernels and any ``scatter`` kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DECODE_PROFILE_TICKS):
+                tick()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                rows.append((us / 1e3, e.count, e.key[:100]))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        return {
+            "scatter_kernels": [k for _, _, k in rows
+                                if "scatter" in k.lower()],
+            "profiled_ticks": DECODE_PROFILE_TICKS,
+            "profiled_wall_ms": wall_ms,
+            "device_busy_ms_per_tick": busy / DECODE_PROFILE_TICKS,
+            "device_idle_share": 1 - busy / wall_ms,
+            "top_kernels": [{"ms": ms, "count": c, "name": k}
+                            for ms, c, k in rows[:10]]}
+    except (RuntimeError, AttributeError) as e:
+        return {"profile_error": str(e).splitlines()[0][:200]}
 
 
 def tick_costs(model, cache_len):
     """Host-clock milliseconds of one decode tick (all slots, with the
-    log-prob row brought to the host) and of one prefill position (rows=1,
-    no sync), on caches of ``cache_len``, and a profile of
-    DECODE_PROFILE_TICKS ticks: the device's busy time and idle share."""
-    from torch.profiler import ProfilerActivity, profile
-    S = DECODE_SLOTS
+    log-prob row brought to the host) and of one prefill position, on
+    caches of ``cache_len``, eagerly (``decode_step`` calls issued from
+    the host; a prefill position with no sync) and as the engine runs them
+    (a replay of the bucket's graph, the static inputs copied in from
+    pinned buffers, the output out through one; a prefill of 50 positions
+    with its commit and the host trip, per position); the graph tick's
+    device time alone (CUDA events around back-to-back replays); and a
+    profile of DECODE_PROFILE_TICKS ticks of each: the device's busy time
+    and idle share."""
+    S, n = DECODE_SLOTS, 50
     dev = torch.device("cuda")
     with torch.inference_mode():
         caches = dec_mod.init_kv_cache(model, S, cache_len, torch.bfloat16)
@@ -854,51 +1030,38 @@ def tick_costs(model, cache_len):
 
         sub = [{n: t[:1] for n, t in c.items()} for c in caches]
 
-        def prefill(n):
-            for i in range(n):
+        def prefill(k):
+            for i in range(k):
                 dec_mod.decode_step(model, sub, tok[:1], pos[:1])
             torch.cuda.synchronize()
 
         for _ in range(3):
             tick()
         prefill(3)
-        n = 50
-        t0 = time.perf_counter()
-        for _ in range(n):
-            tick()
-        tick_ms = (time.perf_counter() - t0) / n * 1e3
-        t0 = time.perf_counter()
-        prefill(n)
-        prefill_ms = (time.perf_counter() - t0) / n * 1e3
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(DECODE_PROFILE_TICKS):
-                    tick()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            rows = []
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    us = getattr(e, "self_device_time_total", None)
-                    if us is None:
-                        us = e.self_cuda_time_total
-                    rows.append((us / 1e3, e.count, e.key[:100]))
-            rows.sort(reverse=True)
-            busy = sum(r[0] for r in rows)
-            prof_rep = {
-                "scatter_kernels": [k for _, _, k in rows
-                                    if "scatter" in k.lower()],
-                "profiled_ticks": DECODE_PROFILE_TICKS,
-                "profiled_wall_ms": wall_ms,
-                "device_busy_ms_per_tick": busy / DECODE_PROFILE_TICKS,
-                "device_idle_share": 1 - busy / wall_ms,
-                "top_kernels": [{"ms": ms, "count": c, "name": k}
-                                for ms, c, k in rows[:10]]}
-        except (RuntimeError, AttributeError) as e:
-            prof_rep = {"profile_error": str(e).splitlines()[0][:200]}
-    return {"tick_ms": tick_ms, "prefill_position_ms": prefill_ms,
-            "tick_cache_len": cache_len, **prof_rep}
+        tick_ms = host_ms(tick, n)
+        prefill_ms = host_ms(lambda: prefill(n)) / n
+        eager_prof = profile_ticks(tick)
+
+        eng = DecodeEngine(model, slots=S, page=DECODE_PAGE)
+        with eng._on_device():
+            eng._ensure_cache(cache_len, idle=True)
+            tp = np.stack([tok.cpu().numpy(), pos.cpu().numpy()])
+            prompt = np.random.default_rng(SEED + 6).integers(
+                0, LM["vocab_size"], n).astype(np.int32)
+            for _ in range(3):
+                eng._step_all(tp)
+                eng._prefill(0, prompt[:3])
+            graph_tick_ms = host_ms(lambda: eng._step_all(tp), n)
+            graph_prefill_ms = host_ms(lambda: eng._prefill(0, prompt)) / n
+            graph = eng._graphs[("tick", cache_len)].graph
+            device_ms = cuda_ms(graph.replay, iters=n)
+            graph_prof = profile_ticks(lambda: eng._step_all(tp))
+    return {"tick_cache_len": cache_len, "eager_tick_ms": tick_ms,
+            "eager_prefill_position_ms": prefill_ms,
+            "tick_ms": graph_tick_ms,
+            "prefill_position_ms": graph_prefill_ms,
+            "graph_tick_device_ms": device_ms,
+            "eager_profile": eager_prof, "profile": graph_prof}
 
 
 def decode_f32_card_vs_cpu():
@@ -937,8 +1100,9 @@ def decode_f32_card_vs_cpu():
 
 def phase_decode(model):
     """The bench-width model served through DecodeEngine(slots=8,
-    page=128), continuous and batch admission, every row held to
-    cached_generate on the card under the tie rule."""
+    page=128), continuous and batch admission, each cold then warm
+    through one engine, every row held to cached_generate on the card
+    under the tie rule; graph replays held to eager steps."""
     set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
     rep = phase_decode_kernels()
     work = decode_workload(LM["vocab_size"])
@@ -947,60 +1111,80 @@ def phase_decode(model):
     H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
     runs, launched, route_launches = {}, {}, {}
     for admission in ("continuous", "batch"):
-        torch.cuda.reset_peak_memory_stats()
-        outs, st, wall, ttlt, n_b8, routes = run_engine(
-            model, work, admission, slots=DECODE_SLOTS, page=DECODE_PAGE)
-        peak = torch.cuda.max_memory_allocated()
-        check(st["seqs_done"] == len(work) and st["seqs_failed"] == 0,
-              f"decode ({admission}): {st}")
-        check(st["prefill_steps"] == len(work) and st["tokens_out"] == budget,
-              f"decode ({admission}): prefills and tokens {st}")
-        want = LM["num_layers"] * (prompt_positions + st["decode_steps"])
-        check(n_b8 == want, f"decode ({admission}): B8 launches {n_b8} != "
-              f"8 x ({prompt_positions} prompt positions + "
-              f"{st['decode_steps']} decode ticks)")
-        check(only_route(dec_ops.decode_attention, "bf16", n_b8),
-              f"decode ({admission}): B8 routes {routes}")
-        per_slot = LM["num_layers"] * 2 * H * st["cache_len"] * D * 2
-        check(st["cache_bytes_per_slot"] == per_slot,
-              f"decode ({admission}): cache bytes per slot "
-              f"{st['cache_bytes_per_slot']} != {per_slot}")
-        runs[admission] = {
-            "wall_s": wall, "tokens_per_s_wall": budget / wall,
-            "tokens_per_s_engine": st["tokens_per_s"],
-            "decode_ticks": st["decode_steps"],
-            "prefill_positions": prompt_positions,
-            "ttlt_p50_ms": float(np.percentile(ttlt, 50)),
-            "ttlt_p99_ms": float(np.percentile(ttlt, 99)),
-            "cache_len": st["cache_len"], "cache_grows": st["cache_grows"],
-            "cache_bytes_per_slot": st["cache_bytes_per_slot"],
-            "max_memory_allocated": peak, "b8_launches": n_b8,
-            "b8_route_launches": routes, "outputs": outs}
-        launched[admission], route_launches[admission] = n_b8, routes
-    check(runs["continuous"]["decode_ticks"] < runs["batch"]["decode_ticks"],
-          f"continuous admission took {runs['continuous']['decode_ticks']} "
-          f"decode ticks, batch {runs['batch']['decode_ticks']}")
+        both = run_engine(model, work, admission, slots=DECODE_SLOTS,
+                          page=DECODE_PAGE)
+        for run, r in both.items():
+            what = f"decode ({admission}, {run})"
+            d, st = r["delta"], r["stats"]
+            check(d["seqs_done"] == len(work) and d["seqs_failed"] == 0,
+                  f"{what}: {d}")
+            check(d["prefill_steps"] == len(work) and
+                  d["tokens_out"] == budget, f"{what}: prefills and tokens "
+                  f"{d}")
+            want = LM["num_layers"] * (prompt_positions + d["decode_steps"])
+            check(r["launches"] == want, f"{what}: B8 launches "
+                  f"{r['launches']} != 8 x ({prompt_positions} prompt "
+                  f"positions + {d['decode_steps']} decode ticks)")
+            check(r["routes"] == {"bf16": r["launches"], "f32": 0},
+                  f"{what}: B8 routes {r['routes']}")
+            per_slot = LM["num_layers"] * 2 * H * st["cache_len"] * D * 2
+            check(st["cache_bytes_per_slot"] == per_slot,
+                  f"{what}: cache bytes per slot "
+                  f"{st['cache_bytes_per_slot']} != {per_slot}")
+            check(d["graph_replays"] > 0, f"{what}: no graph replayed {d}")
+        check(both["warm"]["delta"]["graph_captures"] == 0,
+              f"decode ({admission}): the warm run captured "
+              f"{both['warm']['delta']['graph_captures']} graphs")
+        check(all(np.array_equal(a, b) for a, b in zip(
+            both["cold"]["outs"], both["warm"]["outs"])),
+            f"decode ({admission}): warm rows differ from cold rows")
+        for run, r in both.items():
+            runs[f"{admission}_{run}"] = {
+                "wall_s": r["wall"], "tokens_per_s_wall": budget / r["wall"],
+                "decode_ticks": r["delta"]["decode_steps"],
+                "prefill_positions": prompt_positions,
+                "ttlt_p50_ms": float(np.percentile(r["ttlt"], 50)),
+                "ttlt_p99_ms": float(np.percentile(r["ttlt"], 99)),
+                "cache_len": r["stats"]["cache_len"],
+                "cache_grows": r["delta"]["cache_grows"],
+                "cache_bytes_per_slot": r["stats"]["cache_bytes_per_slot"],
+                "graph_captures": r["delta"]["graph_captures"],
+                "graph_replays": r["delta"]["graph_replays"],
+                "graph_buckets": r["stats"]["graphs"]["buckets"],
+                "max_memory_allocated": r["peak"],
+                "b8_launches": r["launches"],
+                "b8_route_launches": r["routes"]}
+        runs[admission] = both["cold"]["outs"]
+        launched[admission] = both["warm"]["launches"]
+        route_launches[admission] = both["warm"]["routes"]
+    check(runs["continuous_warm"]["decode_ticks"] <
+          runs["batch_warm"]["decode_ticks"],
+          f"continuous admission took "
+          f"{runs['continuous_warm']['decode_ticks']} decode ticks, batch "
+          f"{runs['batch_warm']['decode_ticks']}")
     agree, gaps = [], []
     for k, (p, n) in enumerate(work):
         oracle = cached_generate(model, p, n, len(p) + n)
-        for admission in runs:
-            i, gap = tie_rule(model, runs[admission]["outputs"][k], oracle,
-                              len(p), TIE_TOL[torch.bfloat16])
+        for admission in ("continuous", "batch"):
+            i, gap = tie_rule(model, runs[admission][k], oracle, len(p),
+                              TIE_TOL[torch.bfloat16])
             agree.append(i - len(p))
             if gap is not None:
                 gaps.append(gap)
-    for r in runs.values():
-        del r["outputs"]
-    costs = tick_costs(model, runs["continuous"]["cache_len"])
-    check("profile_error" not in costs and not costs["scatter_kernels"],
-          f"decode profile: {costs.get('profile_error')}, scatter kernels "
-          f"{costs.get('scatter_kernels')} (B8 appends k and v itself)")
+    del runs["continuous"], runs["batch"]
+    graphs = graph_vs_eager(model)
+    costs = tick_costs(model, runs["continuous_warm"]["cache_len"])
+    for name in ("eager_profile", "profile"):
+        prof = costs[name]
+        check("profile_error" not in prof and not prof["scatter_kernels"],
+              f"decode {name}: {prof.get('profile_error')}, scatter kernels "
+              f"{prof.get('scatter_kernels')} (B8 appends k and v itself)")
     small = decode_f32_card_vs_cpu()
     emit({"phase": "decode", "gpu": gpu_line(), "model": "TransformerLM",
           "config": LM, "slots": DECODE_SLOTS, "page": DECODE_PAGE,
           "sequences": len(work), "token_budget": budget, "runs": runs,
           "agreeing_tokens": agree, "tie_gaps": gaps,
-          "tie_tol": TIE_TOL[torch.bfloat16], **costs, **small})
+          "tie_tol": TIE_TOL[torch.bfloat16], **graphs, **costs, **small})
     return {"name": "decode_attention", "route": "cuda",
             "source": "bigdl_torch/csrc/decode_attention.cu",
             "replaces": "bigdl_tpu/serve/decode.py:129",

@@ -10,9 +10,10 @@ seeded random weights: B8's cases against ``decode_attention_reference``
 (``decode_kernels``: the append checked bit for bit, each case with its
 cluster size and the launch floor ``floor_ms``),
 ``DecodeEngine(slots=8, page=128)`` under continuous
-and batch admission with every row held to ``cached_generate`` under the
-tie rule, the tick costs and their profile, and the small float32 LM on the
-card against the CPU.  One JSON line each, then the ``kernels`` entry of
+and batch admission, cold and warm, with every row held to
+``cached_generate`` under the tie rule, graph replays held to eager steps,
+the tick costs (graph and eager) and their profiles, and the small float32
+LM on the card against the CPU.  One JSON line each, then the ``kernels`` entry of
 B8 and the card's name and power limit.  The quick check for work on the
 decode path alone; exits non-zero if a check fails or no CUDA device is
 present.
