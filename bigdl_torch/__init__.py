@@ -8,7 +8,9 @@ kernel written by hand for Hopper under ``bigdl_torch/csrc``, built with
 ``InferenceServer`` with flash attention as a CUDA kernel; slice 2 trains
 ResNet through ``Optimizer`` with the training BatchNorm and conv-BN
 kernels in CUDA; slice 3 trains it data-parallel over the ``Engine``'s
-process group, with sync-BN's statistics kernel in CUDA.
+process group, with sync-BN's statistics kernel in CUDA; later slices
+train TransformerLM, decode over a KV cache, and add validation,
+checkpoints and resume in the reference's file format.
 
 It imports torch and never jax or bigdl_tpu.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.

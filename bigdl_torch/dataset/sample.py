@@ -8,6 +8,8 @@ Optimizer moves a batch to the device.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 __all__ = ["Sample", "MiniBatch"]
@@ -33,13 +35,16 @@ class Sample:
 
 
 class MiniBatch:
-    """A batch of stacked samples."""
+    """A batch of stacked samples.  ``valid`` is the number of real rows,
+    less than ``size()`` for a last batch padded to full size
+    (``SampleToMiniBatch(pad_last=True)``): evaluation scores only those."""
 
-    __slots__ = ("input", "target")
+    __slots__ = ("input", "target", "valid")
 
-    def __init__(self, input, target=None):
+    def __init__(self, input, target=None, valid: Optional[int] = None):
         self.input = input
         self.target = target
+        self.valid = valid if valid is not None else input.shape[0]
 
     def size(self) -> int:
         return self.input.shape[0]

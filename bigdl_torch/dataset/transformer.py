@@ -33,13 +33,17 @@ class ChainedTransformer(Transformer):
 
 class SampleToMiniBatch(Transformer):
     """Group Samples into MiniBatches of ``batch_size`` (Transformer.scala:
-    309); ``drop_last`` drops a final partial batch.  Features and labels
-    are single arrays of one shape: the reference's multi-tensor records,
-    padding parameters and ``pad_last`` are not ported."""
+    309); ``drop_last`` drops a final partial batch, ``pad_last`` pads it
+    to full size with copies of its last sample and records the real row
+    count in ``MiniBatch.valid`` (for evaluation).  Features and labels
+    are single arrays of one shape: the reference's multi-tensor records
+    and padding parameters are not ported."""
 
-    def __init__(self, batch_size: int, drop_last: bool = False):
+    def __init__(self, batch_size: int, drop_last: bool = False,
+                 pad_last: bool = False):
         self.batch_size = batch_size
         self.drop_last = drop_last
+        self.pad_last = pad_last
 
     def __call__(self, it: Iterator) -> Iterator[MiniBatch]:
         buf = []
@@ -49,7 +53,14 @@ class SampleToMiniBatch(Transformer):
                 yield self._batch(buf)
                 buf = []
         if buf and not self.drop_last:
-            yield self._batch(buf)
+            if self.pad_last:
+                valid = len(buf)
+                buf += [buf[-1]] * (self.batch_size - valid)
+                b = self._batch(buf)
+                b.valid = valid
+                yield b
+            else:
+                yield self._batch(buf)
 
     @staticmethod
     def _batch(samples) -> MiniBatch:

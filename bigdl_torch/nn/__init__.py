@@ -1,7 +1,7 @@
 """Torch-style layer library: the modules the serving and training slices
 use."""
 
-from .activation import GELU, LogSoftMax, ReLU
+from .activation import GELU, LogSoftMax, ReLU, Tanh
 from .attention import MultiHeadAttention
 from .containers import ConcatTable, Identity, Sequential
 from .conv import SpatialConvolution
@@ -25,7 +25,7 @@ __all__ = ["Module", "Container", "Sequential", "ConcatTable", "Identity",
            "CAddTable", "LookupTable", "LayerNorm", "BatchNormalization",
            "SpatialBatchNormalization", "Linear", "SpatialConvolution",
            "SpatialMaxPooling", "SpatialAveragePooling", "Reshape", "ReLU",
-           "LogSoftMax", "GELU", "MultiHeadAttention", "ConvBN",
+           "Tanh", "LogSoftMax", "GELU", "MultiHeadAttention", "ConvBN",
            "ConvBNAddReLU", "fuse_conv_bn", "Criterion",
            "ClassNLLCriterion", "CrossEntropyCriterion",
            "TimeDistributedCriterion", "Dropout", "dropout_rng",

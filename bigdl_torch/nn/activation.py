@@ -1,4 +1,4 @@
-"""Activations: ``ReLU``, ``LogSoftMax`` and ``GELU``.
+"""Activations: ``ReLU``, ``Tanh``, ``LogSoftMax`` and ``GELU``.
 
 Counterpart of ``bigdl_tpu/nn/activation.py`` for what the serving and
 training slices use.
@@ -11,7 +11,7 @@ import torch.nn.functional as F
 
 from .module import Module
 
-__all__ = ["ReLU", "LogSoftMax", "GELU"]
+__all__ = ["ReLU", "Tanh", "LogSoftMax", "GELU"]
 
 
 class ReLU(Module):
@@ -23,6 +23,13 @@ class ReLU(Module):
 
     def forward(self, x):
         return torch.relu(x)
+
+
+class Tanh(Module):
+    """tanh(x) (nn/Tanh.scala)."""
+
+    def forward(self, x):
+        return torch.tanh(x)
 
 
 class LogSoftMax(Module):

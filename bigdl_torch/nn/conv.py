@@ -35,7 +35,8 @@ class SpatialConvolution(Module):
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
                  stride_h: int = 1, pad_w: int = 0, pad_h: int = 0,
                  n_group: int = 1, propagate_back: bool = True,
-                 with_bias: bool = True):
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None):
         super().__init__()
         if n_input_plane % n_group or n_output_plane % n_group:
             raise ValueError(f"planes {n_input_plane} -> {n_output_plane} "
@@ -49,6 +50,9 @@ class SpatialConvolution(Module):
         self.pad = (pad_h, pad_w)
         self.n_group = n_group
         self.with_bias = with_bias
+        # gradient terms the Optimizer adds (optim/regularizer.py)
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
 
     def _weight_shape(self):
         kh, kw = self.kernel

@@ -23,13 +23,16 @@ class LookupTable(Module):
 
     def __init__(self, n_index: int, n_output: int,
                  padding_value: float = None, max_norm: float = None,
-                 norm_type: float = 2.0, one_based: bool = False):
+                 norm_type: float = 2.0, one_based: bool = False,
+                 w_regularizer=None):
         super().__init__()
         self.n_index, self.n_output = n_index, n_output
         self.padding_value = padding_value
         self.max_norm = max_norm
         self.norm_type = norm_type
         self.one_based = one_based
+        # a gradient term the Optimizer adds (optim/regularizer.py)
+        self.w_regularizer = w_regularizer
 
     def _init(self, generator):
         w = torch.randn((self.n_index, self.n_output), generator=generator,

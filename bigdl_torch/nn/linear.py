@@ -73,10 +73,14 @@ class Linear(Module):
 
     PARAM_ROLES = {"weight": "kernel_out", "bias": "bias"}
 
-    def __init__(self, input_size: int, output_size: int):
+    def __init__(self, input_size: int, output_size: int,
+                 w_regularizer=None, b_regularizer=None):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
+        # gradient terms the Optimizer adds (optim/regularizer.py)
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
 
     def _init(self, generator):
         shape = (self.output_size, self.input_size)

@@ -17,13 +17,19 @@ functions; PyTorch runs eagerly, so here a module owns its parameters as
   assigner that comes with the sharding slice.
 
 Train/eval mode is PyTorch's (``train()``/``eval()``); a freshly built
-module is in training mode, as in PyTorch.  Gradients come from
-``loss.backward()``; the Torch-style facade (``backward``,
-``get_parameters``, ``scale_w``) is not ported.
+module is in training mode, as in PyTorch.  ``evaluate()`` with no
+arguments also switches to eval mode, as in the reference; with a dataset
+and validation methods it scores the model through ``optim.Evaluator``,
+and ``predict`` / ``predict_class`` run ``optim.Predictor``
+(``bigdl_tpu/nn/module.py:415-433, 570-580``).  Every module has a name
+(``set_name`` / ``get_name``), ``<Class>_<n>`` until one is set.
+Gradients come from ``loss.backward()``; the rest of the Torch-style
+facade (``backward``, ``get_parameters``, ``scale_w``) is not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional
 
 import torch
@@ -31,6 +37,8 @@ import torch
 from ..common import default_generator, resolve_device
 
 __all__ = ["Module", "Container"]
+
+_uid_counter = itertools.count()
 
 
 class Module(torch.nn.Module):
@@ -47,6 +55,7 @@ class Module(torch.nn.Module):
         #: names of this module's own state buffers, in ``_init_state`` order
         self.state_names: tuple = ()
         self.built = False
+        self.name = f"{type(self).__name__}_{next(_uid_counter)}"
         # initializer overrides (BigDL: abstractnn/Initializable.scala:23)
         self.weight_initializer = None
         self.bias_initializer = None
@@ -68,6 +77,54 @@ class Module(torch.nn.Module):
         self.weight_initializer = weight_init
         self.bias_initializer = bias_init
         return self
+
+    def set_name(self, name: str):
+        self.name = name
+        return self
+
+    def get_name(self) -> str:
+        return self.name
+
+    def _device(self, device):
+        """``device`` when given, else where the built module lives (an
+        unbuilt one goes to the CUDA device, or raises without one)."""
+        if device is None and self.built:
+            for p in itertools.chain(self.parameters(), self.buffers()):
+                return p.device
+        return resolve_device(device)
+
+    def evaluate(self, dataset=None, methods=None, batch_size=None,
+                 device=None):
+        """No arguments: switch to eval mode (Torch semantics).  With a
+        dataset and validation methods: score the model over it through
+        ``optim.Evaluator`` (the reference's ``model.evaluate(rdd,
+        vMethods, batchSize)``, AbstractModule.scala:571), on the device
+        the model lives on."""
+        if dataset is None:
+            self.eval()
+            return self
+        if not methods:
+            raise ValueError("evaluate(dataset, ...) needs validation "
+                             "methods, e.g. [Top1Accuracy()]")
+        from ..optim.optimizer import Evaluator
+        self.eval()
+        return Evaluator(self, device=self._device(device)).test(
+            dataset, methods, batch_size=batch_size)
+
+    def predict(self, dataset, batch_size: int = 128, device=None):
+        """Bulk inference over a DataSet or a list of Samples
+        (AbstractModule.predict -> Predictor)."""
+        from ..optim.optimizer import Predictor
+        self.eval()
+        return Predictor(self, batch_size=batch_size,
+                         device=self._device(device)).predict(dataset)
+
+    def predict_class(self, dataset, batch_size: int = 128, device=None):
+        """(AbstractModule.predictClass): the argmax of :meth:`predict`."""
+        from ..optim.optimizer import Predictor
+        self.eval()
+        return Predictor(self, batch_size=batch_size,
+                         device=self._device(device)).predict_class(dataset)
 
     def _build(self, generator: torch.Generator) -> None:
         params = self._init(generator)

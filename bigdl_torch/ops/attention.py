@@ -11,8 +11,9 @@ switch that selects the plain version on the card.
 The operands' dtype picks the kernel (:func:`route`): bf16 takes ``"tc"``,
 the tensor-core kernel fed by TMA (128 x 128 tiles), float32 ``"f32"``,
 the CUDA-core kernel (64 x 64 tiles) that keeps p in float32 for parity
-checks.  ``flash_attention.launches`` counts every launch and
-``flash_attention.route_launches`` each route's.
+checks.  ``flash_attention.launches`` counts every launch,
+``flash_attention.route_launches`` each route's and
+``flash_attention.lse_launches`` those that wrote the log-sum-exp.
 
 Training: where autograd records (grad mode on and an operand that needs
 a gradient) :func:`flash_attention` goes through :class:`FlashAttention`,
@@ -169,6 +170,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, rt: str,
     with _launch_lock:
         flash_attention.launches += 1
         flash_attention.route_launches[rt] += 1
+        flash_attention.lse_launches += bool(with_lse)
     return o, lse
 
 
@@ -300,6 +302,8 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
 
 flash_attention.launches = 0
 flash_attention.route_launches = {"tc": 0, "f32": 0}
+#: the launches that also wrote the log-sum-exp (training's forward)
+flash_attention.lse_launches = 0
 
 
 # -- the backward (B7) --------------------------------------------------------

@@ -23,7 +23,8 @@ current stream captures a CUDA graph launches nothing, and counts nothing:
 inside :func:`counting_captures` it is tallied by route instead, and each
 replay of the graph counts that tally (:func:`count_replay`).  The kernel
 splits each (slot, head)'s live keys over a thread-block cluster of
-:func:`splits` blocks.
+:func:`splits` blocks, sized from the launching card's SM count
+(:func:`sm_count`).
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ import threading
 import torch
 
 __all__ = ["decode_attention", "decode_attention_reference", "route",
-           "splits", "counting_captures", "count_replay", "HEAD_DIMS",
-           "MAX_LEN"]
+           "splits", "sm_count", "counting_captures", "count_replay",
+           "HEAD_DIMS", "MAX_LEN"]
 
 #: the route by q's dtype
 ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -46,14 +47,14 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: bounds of a block's rows are int32 in the kernel, and 2^30 keeps every
 #: one of them (n + C - 1 at most) inside it
 MAX_LEN = 2 ** 30
-#: streaming multiprocessors of an H100 SXM, the card the splits are for
-SMS = 132
 #: the most blocks of a cluster (8 is the portable cluster size)
 MAX_SPLITS = 8
 #: the fewest cache rows a block of the cluster is given
 MIN_ROWS = 32
 
 _launch_lock = threading.Lock()
+# device index -> its streaming multiprocessors, asked once per device
+_sm_counts = {}
 # per thread: the tally of launches recorded into the graph this thread is
 # capturing (counting_captures)
 _capture = threading.local()
@@ -90,13 +91,27 @@ def route(dtype) -> str:
     return ROUTES[dtype]
 
 
-def splits(S: int, H: int, L: int) -> int:
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the CUDA ``device`` the launch runs
+    on, asked once per device index."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def splits(S: int, H: int, L: int, sms: int) -> int:
     """Blocks per (slot, head) in the kernel's cluster, from the shapes
-    alone (never the positions, which stay on the device): the smallest
-    power of two with S * H * C >= SMS, at most MAX_SPLITS, and no more
-    than leaves every block MIN_ROWS rows of the cache length."""
+    and the card's ``sms`` streaming multiprocessors alone (never the
+    positions, which stay on the device): the smallest power of two with
+    S * H * C >= sms, at most MAX_SPLITS, and no more than leaves every
+    block MIN_ROWS rows of the cache length."""
     c = 1
-    while S * H * c < SMS and c < MAX_SPLITS:
+    while S * H * c < sms and c < MAX_SPLITS:
         c *= 2
     while c > 1 and L // c < MIN_ROWS:
         c //= 2
@@ -219,7 +234,7 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
         raise ValueError(f"decode_attention: no route for device {q.device}")
     S, H, _, _ = q.shape
     o = _launch(q, k_new, v_new, k_cache, v_cache, pos,
-                splits(S, H, k_cache.shape[2]))
+                splits(S, H, k_cache.shape[2], sm_count(q.device)))
     if torch.cuda.is_current_stream_capturing():
         tally = getattr(_capture, "tally", None)
         if tally is not None:

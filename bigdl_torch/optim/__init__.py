@@ -1,9 +1,30 @@
-"""Training and inference engines, optimization methods, triggers."""
+"""Training and inference engines, optimization methods, schedules,
+regularizers, triggers and validation methods."""
 
-from .method import SGD, OptimMethod
-from .optimizer import NonFiniteLossError, Optimizer, Predictor
-from .schedules import Default, LearningRateSchedule
+from .method import (SGD, Adadelta, Adagrad, Adam, Adamax, OptimMethod,
+                     RMSprop)
+from .optimizer import (DistriValidator, Evaluator, LocalValidator,
+                        NonFiniteLossError, Optimizer, Predictor, Validator)
+from .regularizer import (L1L2Regularizer, L1Regularizer, L2Regularizer,
+                          Regularizer)
+from .schedules import (CosineDecay, Default, EpochDecay, EpochSchedule,
+                        EpochStep, Exponential, LearningRateSchedule,
+                        MultiStep, NaturalExp, Plateau, Poly, Regime,
+                        SequentialSchedule, Step, Warmup)
 from .trigger import Trigger
+from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss,
+                         LossResult, Perplexity, PerplexityResult,
+                         Top1Accuracy, Top5Accuracy, TreeNNAccuracy,
+                         ValidationMethod, ValidationResult)
 
-__all__ = ["Optimizer", "Predictor", "NonFiniteLossError", "OptimMethod",
-           "SGD", "LearningRateSchedule", "Default", "Trigger"]
+__all__ = ["Optimizer", "Predictor", "Evaluator", "Validator",
+           "DistriValidator", "LocalValidator", "NonFiniteLossError",
+           "OptimMethod", "SGD", "Adam", "Adagrad", "Adadelta", "Adamax",
+           "RMSprop", "LearningRateSchedule", "Default", "Poly", "Step",
+           "MultiStep", "EpochDecay", "EpochStep", "NaturalExp",
+           "Exponential", "EpochSchedule", "Regime", "Plateau",
+           "SequentialSchedule", "Warmup", "CosineDecay", "Regularizer",
+           "L1Regularizer", "L2Regularizer", "L1L2Regularizer", "Trigger",
+           "ValidationMethod", "ValidationResult", "AccuracyResult",
+           "LossResult", "PerplexityResult", "Top1Accuracy", "Top5Accuracy",
+           "Loss", "Perplexity", "MAE", "HitRatio", "NDCG", "TreeNNAccuracy"]

@@ -42,38 +42,83 @@ with the Engine's rank folded in (:func:`dropout_seed`): the reference
 draws one mask over the global batch, so each rank's rows need masks of
 their own, not copies of rank 0's.
 
-Not ported yet: validation (``Evaluator``, ``Top1Accuracy``), checkpoints
-and the retry loop, regularizers, gradient clipping and accumulation,
-remat, supervision and chaos points, and the strategies other than
-``DataParallel``.
+A step follows the reference's order (``:826-852``): the gradients, their
+average over the group (under a strategy), the layers' regularizer terms
+(``optim/regularizer.py``), the wire cast, constant clipping
+(``set_constant_gradient_clipping``), L2-norm clipping
+(``set_gradient_clipping_by_l2_norm``: the norm over every gradient in
+float32, each scaled by ``min(1, c / (norm + 1e-12))``), then the update.
+
+Validation (``set_validation``) scores the model on a held-out DataSet
+after every iteration and epoch boundary where its trigger fires, before
+the checkpoint decision, in eval mode under ``torch.inference_mode()`` (so
+BatchNorm's running statistics and the Dropout generator are untouched),
+then back in training mode.  It writes ``score``, ``val_loss``, each
+method's own name and ``val_obs`` into the driver state, for triggers and
+schedules.  Under a group each rank scores its own rows and the results'
+fields are summed in one all-reduce.
+
+Checkpoints (``set_checkpoint``) are the reference's files
+(``utils/file_io.py``): ``model.<n>`` holds ``{"params", "state"}`` as
+reference trees, ``optimMethod.<n>`` the method's ``state_dict()``, its
+state as a reference tree (``utils/convert.py``), ``"rng_state": None``,
+the driver state, and the Dropout generator's state under
+``"torch_rng_state"`` (a key the reference's loader ignores).  Only rank 0
+writes; ``keep_last`` / ``keep_every_epochs`` prune the lineage.
+``resume_from(model_path, optim_path)`` reads and checks both blobs before
+it changes anything, quarantines a corrupt snapshot and falls back to the
+newest valid older one; ``optimize()`` then starts from the resumed driver
+and method state.  Snapshots of either package load in the other.
+
+``Evaluator``, ``Validator`` and ``Predictor`` over a DataSet or a list of
+Samples batch with ``SampleToMiniBatch(pad_last=True)`` and score only each
+batch's valid rows; the forward of batch i+1 is queued before batch i's
+output is copied to the host (through :class:`HostCopy`).
+
+Not ported yet (ROADMAP queue A item 3): gradient accumulation, remat,
+layer-wise gradient scales, the retry loop, supervision and chaos points,
+remote, asynchronous and published checkpoints, summaries, and the
+strategies other than ``DataParallel``.
 """
 
 from __future__ import annotations
 
+import itertools
+import logging
 import math
+import os
+import re
 import threading
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..common import get_policy, resolve_device
-from ..dataset import DataSet, Sample, SampleToMiniBatch
+from ..dataset import AbstractDataSet, DataSet, Sample, SampleToMiniBatch
 from ..dataset.prefetch import PrefetchIterator, prefetch_depth
 from ..nn.criterion import Criterion
 from ..nn.dropout import dropout_rng
 from ..nn.module import Module
 from ..parallel.sharding import DataParallel, ShardingStrategy
 from ..parallel.wire import wire_cast
-from ..utils import config
+from ..utils import config, file_io
+from ..utils.convert import (check_reference_tree, load_reference_opt_state,
+                             load_reference_tree, to_reference_opt_state,
+                             to_reference_tree)
 from ..utils.engine import Engine
 from .method import SGD, OptimMethod
 from .metrics import Metrics
+from .regularizer import apply_regularizer_grads
 from .trigger import Trigger
+from .validation import ValidationMethod
 
-__all__ = ["Optimizer", "Predictor", "NonFiniteLossError", "HostCopy",
-           "to_host"]
+logger = logging.getLogger("bigdl_torch")
+
+__all__ = ["Optimizer", "Predictor", "Evaluator", "Validator",
+           "DistriValidator", "LocalValidator", "NonFiniteLossError",
+           "HostCopy", "to_host"]
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -91,7 +136,13 @@ class HostCopy:
     stream into a pinned buffer that is kept and reused while the answer
     fits, the host waits on an event, and the answer is copied out into
     memory of its own, which the caller may keep.  Threads take turns.  A
-    CPU tensor goes through :func:`to_host`."""
+    CPU tensor goes through :func:`to_host`.
+
+    By default the copy waits for all the work queued on the current
+    stream.  ``copy(t, ready=event)`` waits only for ``event``, recorded
+    after ``t`` was made, so work queued since (the next batch's forward)
+    runs beside the copy; ``t`` must then need no conversion (contiguous,
+    not bfloat16): :func:`_eval_output` makes it so."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -99,10 +150,14 @@ class HostCopy:
         self._stream = None
         self._done = None
 
-    def __call__(self, t: torch.Tensor) -> np.ndarray:
+    def __call__(self, t: torch.Tensor, ready=None) -> np.ndarray:
         if t.device.type != "cuda":
             return to_host(t)
         t = t.detach()
+        if ready is not None and (t.dtype == torch.bfloat16
+                                  or not t.is_contiguous()):
+            raise ValueError("HostCopy(ready=...) copies a contiguous, "
+                             "non-bfloat16 tensor as it is")
         if t.dtype == torch.bfloat16:
             t = t.float()
         t = t.contiguous()
@@ -116,7 +171,10 @@ class HostCopy:
                 self._buf = None    # the old buffer goes first
                 self._buf = torch.empty(n, dtype=t.dtype, pin_memory=True)
             stage = self._buf[:n].view(t.shape)
-            self._stream.wait_stream(torch.cuda.current_stream(t.device))
+            if ready is None:
+                self._stream.wait_stream(torch.cuda.current_stream(t.device))
+            else:
+                self._stream.wait_event(ready)
             with torch.cuda.stream(self._stream):
                 stage.copy_(t, non_blocking=True)
                 self._done.record()
@@ -223,6 +281,138 @@ def _consume(staged):
     return inp, tgt
 
 
+def _prefetched_input(data_iter):
+    """An evaluation input iterator through the input worker
+    (``dataset/prefetch.py``), the reference's ``_prefetched_input``:
+    (iterator, pipe or None); at depth 0 the iterator as it is.  The caller
+    closes the pipe."""
+    depth = prefetch_depth()
+    if depth <= 0:
+        return iter(data_iter), None
+    pipe = PrefetchIterator(data_iter, depth=depth,
+                            name="bigdl-torch-eval-prefetch")
+    return pipe, pipe
+
+
+def _eval_output(out, valid: int):
+    """A forward's output cut to its ``valid`` rows and made ready to copy
+    to the host as it is (float32 for a bfloat16 output, contiguous), with
+    an event recorded after it on CUDA (None on the CPU): (tensor, event).
+    Nested outputs stay nested."""
+    def cut(t):
+        t = t.detach()[:valid]
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.contiguous()
+    out = ([cut(t) for t in out] if isinstance(out, (list, tuple))
+           else cut(out))
+    first = out[0] if isinstance(out, list) else out
+    event = None
+    if first.device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(first.device))
+    return out, event
+
+
+def _fetch(to_host, out, event):
+    if isinstance(out, list):
+        return [to_host(t, ready=event) for t in out]
+    return to_host(out, ready=event)
+
+
+def _forward_batches(engine, batches, to_host):
+    """(host output of the batch's valid rows, batch) for each batch, in
+    order.  Batch i+1's forward is queued before batch i's output is copied
+    to the host, so the card computes while the host copies and scores
+    (the reference's one-deep output pipeline, ``Evaluator.test``)."""
+    pending = None
+    it, pipe = _prefetched_input(batches)
+    try:
+        for batch in it:
+            out, n = engine(batch.get_input())
+            ready = _eval_output(out, min(batch.valid, n))
+            if pending is not None:
+                yield _fetch(to_host, *pending[0]), pending[1]
+            pending = (ready, batch)
+    finally:
+        if pipe is not None:
+            pipe.close()
+    if pending is not None:
+        yield _fetch(to_host, *pending[0]), pending[1]
+
+
+def _score(engine, dataset, methods, to_host):
+    """Every validation method summed over the dataset's batches, each
+    batch cut to its valid rows: one result per method (None where the
+    dataset gave no batch)."""
+    totals = [None] * len(methods)
+    for out, batch in _forward_batches(engine, dataset.data(train=False),
+                                       to_host):
+        tgt = np.asarray(batch.get_target())[:batch.valid]
+        for i, m in enumerate(methods):
+            r = m(out, tgt)
+            totals[i] = r if totals[i] is None else totals[i] + r
+    return totals
+
+
+def _reduce_results(totals, device):
+    """Sum every result's numeric fields over the Engine's group in one
+    all-reduce (the reference's ``_reduce_results``, ``:1990-2005``).
+    Every result class is a flat struct of numbers with ``+`` semantics."""
+    fields = [(tot, k, v) for tot in totals for k, v in vars(tot).items()
+              if isinstance(v, (int, float))]
+    vec = torch.tensor([float(v) for _, _, v in fields],
+                       dtype=torch.float64, device=device)
+    Engine.all_reduce(vec, "validation")
+    for (tot, k, orig), v in zip(fields, vec.tolist()):
+        setattr(tot, k, int(v) if isinstance(orig, int) else float(v))
+    return totals
+
+
+class _PeekedDataSet(AbstractDataSet):
+    """Replays a peeked-into iterator on the first ``data()`` call, then
+    hands out the wrapped dataset's (the reference's ``_PeekedDataSet``):
+    the Evaluator's batch-size peek loses nothing from a one-shot
+    source."""
+
+    def __init__(self, inner, first, rest):
+        self._inner = inner
+        self._replay = (first, rest)
+
+    def size(self):
+        return self._inner.size()
+
+    def shuffle(self):
+        self._inner.shuffle()
+
+    def data(self, train=False):
+        if self._replay is not None:
+            first, rest = self._replay
+            self._replay = None
+            return itertools.chain([first], rest)
+        return self._inner.data(train=train)
+
+
+def _batched(dataset, batch_size):
+    """``dataset`` (a DataSet or a list of Samples) batched for evaluation:
+    Samples into MiniBatches of ``batch_size`` with the last one padded
+    (``pad_last``); a dataset of MiniBatches as it is when ``batch_size``
+    is None.  A dataset of Samples with no batch size takes 128, the
+    reference's default."""
+    dataset = _as_dataset(dataset)
+    if batch_size is None:
+        it = iter(dataset.data(train=False))
+        first = next(it, None)
+        if first is not None:
+            dataset = _PeekedDataSet(dataset, first, it)
+            if not hasattr(first, "get_input"):
+                batch_size = 128
+    if batch_size is not None:
+        dataset = dataset.transform(SampleToMiniBatch(batch_size,
+                                                      pad_last=True))
+    return dataset
+
+
 class Optimizer:
     """Trains ``model`` on ``dataset`` against ``criterion`` (reference:
     optim/Optimizer.scala:42 and the loop of DistriOptimizer.scala) on one
@@ -232,7 +422,10 @@ class Optimizer:
         Optimizer(model, DataSet.array(samples), CrossEntropyCriterion(),
                   batch_size=256) \\
             .set_optim_method(SGD(0.1)) \\
-            .set_end_when(Trigger.max_iteration(100)).optimize()
+            .set_validation(Trigger.every_epoch(), held_out,
+                            [Top1Accuracy()], 256) \\
+            .set_checkpoint("/ckpt", Trigger.every_epoch()) \\
+            .set_end_when(Trigger.max_epoch(90)).optimize()
 
     Once ``Engine.init()`` has run, ``strategy`` defaults to
     :class:`DataParallel` over the Engine's group and the device to the
@@ -267,14 +460,91 @@ class Optimizer:
         self.optim_method: OptimMethod = SGD()
         self.end_trigger = end_trigger or Trigger.max_epoch(1)
         self.metrics = Metrics()
+        self.validation_trigger: Optional[Trigger] = None
+        self.validation_dataset = None
+        self.validation_methods: list = []
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.is_overwrite = True
+        self.ckpt_keep_last: Optional[int] = None
+        self.ckpt_keep_every_epochs: Optional[int] = None
+        self._ckpt_keepers: set = set()
+        self._kept_epoch_block = 0
+        self.grad_clip_const = None
+        self.grad_clip_norm = None
+        # set by resume_from, taken by the next optimize()
+        self._resume_state = None
+        self._resume_opt_state = None
+        self._resume_rng = None
+        self._forward = None
+        self._to_host = HostCopy()
+        #: [(method, result)] of the latest validation
+        self.last_validation = None
+        #: the method state after the last optimize()
+        self.final_opt_state = None
+
+    # -- fluent configuration (reference: optim/Optimizer.scala:98-255) --
 
     def set_optim_method(self, method: OptimMethod):
         self.optim_method = method
         return self
 
+    #: the reference's alias
+    set_optim_methods = set_optim_method
+
     def set_end_when(self, trigger: Trigger):
         self.end_trigger = trigger
         return self
+
+    def set_validation(self, trigger: Trigger, dataset,
+                       methods: Sequence[ValidationMethod],
+                       batch_size: Optional[int] = None):
+        """Score ``methods`` over ``dataset`` whenever ``trigger`` fires
+        (after each iteration and each epoch boundary).  Samples are
+        batched by ``batch_size`` (128 for Samples given without one), the
+        last batch padded and cut back to its valid rows; a dataset of
+        MiniBatches is taken as it is."""
+        self.validation_trigger = trigger
+        self.validation_dataset = _batched(dataset, batch_size)
+        self.validation_methods = list(methods)
+        return self
+
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       is_overwrite: bool = True, async_write: bool = False,
+                       keep_last: Optional[int] = None,
+                       keep_every_epochs: Optional[int] = None,
+                       publish=None, publish_every: int = 1):
+        """Write a snapshot pair into ``path`` whenever ``trigger`` fires.
+        ``keep_last`` keeps only the newest K pairs; ``keep_every_epochs``
+        also keeps the first snapshot of every N-th epoch.  None defers to
+        ``BIGDL_TORCH_CKPT_KEEP_LAST`` / ``_CKPT_KEEP_EVERY_EPOCHS``; 0
+        keeps all.  Asynchronous writes and publication are not ported and
+        raise."""
+        if async_write:
+            raise NotImplementedError(
+                "set_checkpoint(async_write=True): asynchronous checkpoint "
+                "writes are not ported yet (ROADMAP queue A item 3)")
+        if publish:
+            raise NotImplementedError(
+                "set_checkpoint(publish=...): release publication is not "
+                "ported yet (ROADMAP queue A item 3)")
+        file_io.get_filesystem(path)   # a remote scheme raises here
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        self.is_overwrite = is_overwrite
+        self.ckpt_keep_last = keep_last
+        self.ckpt_keep_every_epochs = keep_every_epochs
+        return self
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
+        self.grad_clip_norm = clip_norm
+        return self
+
+    def set_constant_gradient_clipping(self, min_v: float, max_v: float):
+        self.grad_clip_const = (min_v, max_v)
+        return self
+
+    # -- the step ---------------------------------------------------------
 
     def _params(self):
         model = self.model
@@ -288,13 +558,28 @@ class Optimizer:
                                  f"with model.to({str(self.device)!r})")
         return params
 
+    def _clip(self, grads):
+        """Constant clipping, then L2-norm clipping (``:845-852``): the
+        norm over every gradient in float32, on the device (no host
+        read)."""
+        if self.grad_clip_const is not None:
+            lo, hi = self.grad_clip_const
+            grads = [g.clamp(lo, hi) for g in grads]
+        if self.grad_clip_norm is not None:
+            sq = torch.stack([torch.sum(torch.square(g.float()))
+                              for g in grads]).sum()
+            scale = torch.clamp(self.grad_clip_norm
+                                / (torch.sqrt(sq) + 1e-12), max=1.0)
+            grads = [g * scale.to(g.dtype) for g in grads]
+        return grads
+
     def _step(self, params, opt_state, inp, tgt, lr, rng):
         """Forward in training mode (Dropout drawing from ``rng``), loss,
-        backward, the strategy's reduction, the wire cast and the update;
-        returns (the loss over the global batch as a tensor, new method
-        state).  The caller reads the loss only after the update is queued,
-        so the host launches the wire cast and the update while the card
-        still runs the backward."""
+        backward, the strategy's reduction, the regularizer terms, the
+        wire cast, clipping and the update; returns (the loss over the
+        global batch as a tensor, new method state).  The caller reads the
+        loss only after the update is queued, so the host launches the
+        rest while the card still runs the backward."""
         for p in params:
             p.grad = None
         with dropout_rng(rng):
@@ -305,7 +590,9 @@ class Optimizer:
                  for p in params]
         if self.strategy is not None:
             grads, loss = self.strategy.reduce(grads, loss)
+        grads = apply_regularizer_grads(self.model, params, grads)
         grads = wire_cast(grads, get_policy().wire_dtype)
+        grads = self._clip(grads)
         opt_state = self.optim_method.update(grads, params, opt_state, lr)
         return loss, opt_state
 
@@ -340,21 +627,239 @@ class Optimizer:
                 f"{state['neval']} (epoch {state['epoch']})")
         return lossf
 
+    # -- validation -------------------------------------------------------
+
+    def _maybe_validate(self, state):
+        if self.validation_trigger is None or \
+                not self.validation_trigger(state):
+            return
+        results = self._run_validation()
+        # Trigger.plateau's observation counter: one validation, one tick
+        state["val_obs"] = state.get("val_obs", 0) + 1
+        for method, res in results:
+            val, _ = res.result()
+            logger.info("Validation %s: %s", method.name, res)
+            if method.name in ("Top1Accuracy", "Top5Accuracy"):
+                state["score"] = val
+            elif method.name in ("Loss", "Perplexity"):
+                state["val_loss"] = val
+            state[method.name] = val
+        self.last_validation = results
+
+    def _run_validation(self):
+        """The validation methods over the validation dataset, in eval mode
+        without autograd, the model back in training mode after; under a
+        group, every rank's results summed.  Returns [(method, result)]."""
+        if self._forward is None:
+            self._forward = _Forward(self.model, self.device)
+        model = self.model
+        model.eval()
+        try:
+            totals = _score(self._forward, self.validation_dataset,
+                            self.validation_methods, self._to_host)
+        finally:
+            model.train()
+        if totals and totals[0] is None:
+            raise ValueError("the validation dataset produced no batches")
+        if Engine.group() is not None and totals:
+            totals = _reduce_results(totals, self.device)
+        return list(zip(self.validation_methods, totals))
+
+    # -- checkpoints ------------------------------------------------------
+
+    def _checkpoint_decision(self, state) -> bool:
+        """Whether to write a snapshot now.  Every rank decides alike: the
+        triggers read the driver state, whose validation fields are summed
+        over the group."""
+        return self.checkpoint_path is not None and \
+            self.checkpoint_trigger is not None and \
+            bool(self.checkpoint_trigger(state))
+
+    def _write_checkpoint(self, state, opt_state, rng):
+        """``model.<n>`` and ``optimMethod.<n>`` for the last finished
+        iteration n, written synchronously by rank 0 alone, then the
+        retention."""
+        if Engine.rank() != 0:
+            return
+        neval = state["neval"] - 1
+        params, net_state = to_reference_tree(self.model)
+        # the generator of a rank's Dropout masks: only one rank writes, so
+        # under a group the ranks reseed on resume instead
+        rng_state = None
+        if Engine.group() is None:
+            rng_state = {"device": rng.device.type,
+                         "state": rng.get_state().numpy().copy()}
+        file_io.save_checkpoint(
+            self.checkpoint_path, neval,
+            {"params": params, "state": net_state},
+            {"method": self.optim_method.state_dict(),
+             "opt_state": to_reference_opt_state(
+                 self.model, self.optim_method, opt_state),
+             "rng_state": None,
+             "driver_state": {k: v for k, v in state.items()
+                              if not k.startswith("_")},
+             "torch_rng_state": rng_state},
+            overwrite=self.is_overwrite)
+        logger.info("checkpoint written at iteration %d -> %s", neval,
+                    self.checkpoint_path)
+        self._apply_retention(neval, state)
+
+    def _apply_retention(self, neval, state):
+        """Keep-last-K and keep-every-N-epochs pruning after each write;
+        never fatal."""
+        keep_last = self.ckpt_keep_last
+        if keep_last is None:
+            keep_last = config.get_int("CKPT_KEEP_LAST", 0)
+        every = self.ckpt_keep_every_epochs
+        if every is None:
+            every = config.get_int("CKPT_KEEP_EVERY_EPOCHS", 0)
+        if every > 0:
+            block = state["epoch"] // every
+            if block > self._kept_epoch_block:
+                # the first snapshot at or past every N-th epoch boundary
+                # becomes a permanent rollback point
+                self._kept_epoch_block = block
+                self._ckpt_keepers.add(neval)
+        if keep_last > 0:
+            file_io.prune_checkpoints(self.checkpoint_path, keep_last,
+                                      keep=self._ckpt_keepers)
+
+    # -- resume -----------------------------------------------------------
+
+    def resume_from(self, model_path: str,
+                    optim_path: Optional[str] = None) -> "Optimizer":
+        """Resume from a snapshot pair (the reference's ``--model
+        model.<n> --state optimMethod.<n>``); with only a model snapshot
+        the method and driver start fresh on the loaded weights.  Set the
+        optimization method first.  A snapshot that fails verification is
+        quarantined (``.corrupt``) and, where the path is a ``model.<n>``
+        of a lineage, the newest valid older pair is loaded instead,
+        loudly; with none, :class:`~bigdl_torch.utils.file_io.
+        CorruptCheckpoint` propagates."""
+        try:
+            return self._load_snapshot(model_path, optim_path)
+        except file_io.CorruptCheckpoint as e:
+            logger.warning("snapshot %s failed verification (%s); "
+                           "quarantining and falling back to the newest "
+                           "valid snapshot", model_path, e)
+            file_io.quarantine_checkpoint(model_path, optim_path)
+            base, name = (os.path.dirname(model_path),
+                          os.path.basename(model_path))
+            m = re.fullmatch(r"model\.(\d+)", name)
+            if base and m and self._lineage_resume(base,
+                                                   below=int(m.group(1))):
+                return self
+            raise
+
+    def _load_snapshot(self, model_path: str,
+                       optim_path: Optional[str] = None) -> "Optimizer":
+        """Read and check one snapshot pair, then install it: both blobs
+        are loaded and held to the model and the method before any state
+        changes."""
+        blob = file_io.load(model_path)
+        if not isinstance(blob, dict) or "params" not in blob \
+                or "state" not in blob:
+            raise file_io.CorruptCheckpoint(
+                f"{model_path}: not a model snapshot blob")
+        oblob = None
+        if optim_path is not None:
+            oblob = file_io.load(optim_path)
+            if not isinstance(oblob, dict) or "method" not in oblob \
+                    or "driver_state" not in oblob:
+                raise file_io.CorruptCheckpoint(
+                    f"{optim_path}: not an optimMethod snapshot blob")
+        self._params()      # the model built on this optimizer's device
+        check_reference_tree(self.model, blob["params"], blob["state"])
+        opt_state = None
+        if oblob is not None and oblob.get("opt_state") is not None:
+            opt_state = load_reference_opt_state(
+                self.model, self.optim_method, oblob["opt_state"])
+        load_reference_tree(self.model, blob["params"], blob["state"])
+        self._resume_state = self._resume_opt_state = None
+        self._resume_rng = None
+        if oblob is not None:
+            self.optim_method.load_state_dict(oblob["method"])
+            self._resume_state = dict(oblob["driver_state"])
+            self._resume_opt_state = opt_state
+            self._resume_rng = oblob.get("torch_rng_state")
+            if self._resume_rng is None:
+                logger.info("%s carries no torch generator state%s: the "
+                            "Dropout generator is seeded as at a start",
+                            optim_path, " (a JAX snapshot's rng_state has "
+                            "no torch counterpart)"
+                            if oblob.get("rng_state") is not None else "")
+        return self
+
+    def _lineage_resume(self, path: str, below: Optional[int] = None) \
+            -> bool:
+        """Walk the lineage newest first, quarantining corrupt snapshots,
+        until one loads (True) or none is left (False); ``below`` keeps to
+        snapshots older than that neval."""
+        skipped = []
+        for mp, op, n in file_io.checkpoint_lineage(path):
+            if below is not None and n >= below:
+                continue
+            try:
+                self._load_snapshot(mp, op)
+            except file_io.CorruptCheckpoint as e:
+                logger.warning("checkpoint %s failed verification (%s); "
+                               "quarantining and walking back the lineage",
+                               mp, e)
+                file_io.quarantine_checkpoint(mp, op)
+                skipped.append(n)
+                continue
+            logger.warning("resumed from %s (iteration %d)%s", mp, n,
+                           f", past corrupt snapshot(s) {skipped}"
+                           if skipped else "")
+            return True
+        return False
+
+    def _dropout_generator(self):
+        """The Dropout masks' generator on the training device: seeded as
+        at a start, or the resumed snapshot's state where it has one for
+        this kind of device."""
+        rng = torch.Generator(device=self.device).manual_seed(
+            dropout_seed(Engine.rank()))
+        saved, self._resume_rng = self._resume_rng, None
+        if saved is not None:
+            if saved["device"] == self.device.type and Engine.group() is None:
+                rng.set_state(torch.from_numpy(np.asarray(saved["state"],
+                                                          np.uint8)))
+            else:
+                logger.warning("the snapshot's %s generator state does not "
+                               "fit a %s run: the Dropout generator is "
+                               "seeded as at a start", saved["device"],
+                               "group" if Engine.group() is not None
+                               else self.device.type)
+        return rng
+
+    # -- the loop ---------------------------------------------------------
+
+    def _boundary(self, state, opt_state, rng):
+        """After an iteration or an epoch: validation first, so that a
+        trigger reading the score sees this boundary's, then the
+        checkpoint."""
+        self._maybe_validate(state)
+        if self._checkpoint_decision(state):
+            self._write_checkpoint(state, opt_state, rng)
+
     def optimize(self) -> Module:
         """Run until the end trigger fires; returns the trained model."""
         params = self._params()
         if self.strategy is not None:
             self.strategy.setup(self.model)
         optim = self.optim_method
-        opt_state = optim.init_state(params)
+        opt_state, self._resume_opt_state = self._resume_opt_state, None
+        if opt_state is None:
+            opt_state = optim.init_state(params)
         # driver state (the reference's optimMethod.state Table)
-        state = {"epoch": 1, "neval": 1, "evalCounter": 0,
-                 "loss": float("nan")}
+        state, self._resume_state = self._resume_state, None
+        if state is None:
+            state = {"epoch": 1, "neval": 1, "evalCounter": 0,
+                     "loss": float("nan")}
         optim.hyper = state
         self.model.train()
-        # the Dropout masks' generator, on the training device
-        rng = torch.Generator(device=self.device).manual_seed(
-            dropout_seed(Engine.rank()))
+        rng = self._dropout_generator()
         while not self.end_trigger(state):
             self.dataset.shuffle()
             records = 0
@@ -385,6 +890,7 @@ class Optimizer:
                     records += batch.size()
                     state["neval"] += 1
                     state["evalCounter"] += 1
+                    self._boundary(state, opt_state, rng)
             finally:
                 if pipe is not None:
                     pipe.close()
@@ -393,14 +899,18 @@ class Optimizer:
                     "epoch produced no minibatches: the dataset is smaller "
                     "than the batch size with drop_last=True")
             state["epoch"] += 1
+            # every_epoch triggers see the epoch's increment here
+            self._boundary(state, opt_state, rng)
+        self.final_opt_state = opt_state
         return self.model
 
 
 class _Forward:
-    """The eval forward that ``Predictor`` and the serving replicas share:
-    online answers are the same arithmetic as bulk prediction.  Builds the
-    model on ``device`` if it has no weights yet; a built model must
-    already live there (it is never moved behind the caller's back)."""
+    """The eval forward that ``Predictor``, ``Evaluator``, validation and
+    the serving replicas share: online answers are the same arithmetic as
+    bulk prediction.  Builds the model on ``device`` if it has no weights
+    yet; a built model must already live there (it is never moved behind
+    the caller's back)."""
 
     def __init__(self, model: Module, device=None):
         self.device = resolve_device(device)
@@ -415,7 +925,9 @@ class _Forward:
         self.model = model
 
     def __call__(self, inp):
-        """Forward one host batch; returns (device output, row count)."""
+        """Forward one host batch in eval mode; returns (device output,
+        row count).  The caller restores training mode where it needs
+        it."""
         x = _put_batch(inp, self.device)
         self.model.eval()
         with torch.inference_mode():
@@ -423,9 +935,30 @@ class _Forward:
         return out, x.shape[0]
 
 
+class Evaluator:
+    """Bulk inference and metrics over a dataset (reference:
+    optim/Evaluator.scala:37) on one device: the CUDA device, or
+    ``device="cpu"``."""
+
+    def __init__(self, model: Module, device=None):
+        self.model = model
+        self._engine = _Forward(model, device)
+        self._to_host = HostCopy()
+
+    def test(self, dataset, methods: Sequence[ValidationMethod],
+             batch_size: Optional[int] = None):
+        """[(method, result)] over ``dataset`` (a DataSet of Samples or
+        MiniBatches, or a list of Samples), each batch cut to its valid
+        rows."""
+        totals = _score(self._engine, _batched(dataset, batch_size),
+                        methods, self._to_host)
+        return list(zip(methods, totals))
+
+
 class Predictor:
-    """Bulk prediction over an array of samples (reference:
-    optim/Predictor.scala:34), in chunks of ``batch_size`` rows."""
+    """Bulk prediction (reference: optim/Predictor.scala:34): over an
+    array in chunks of ``batch_size`` rows, or over a DataSet or a list of
+    Samples, batched with the last batch padded and cut back."""
 
     def __init__(self, model: Module, batch_size: int = 128, device=None):
         self.model = model
@@ -434,9 +967,39 @@ class Predictor:
         self._to_host = HostCopy()
 
     def predict(self, x) -> np.ndarray:
+        x = _as_dataset(x)
+        if isinstance(x, AbstractDataSet):
+            data = x.transform(SampleToMiniBatch(self.batch_size,
+                                                 pad_last=True))
+            outs = [out for out, _ in _forward_batches(
+                self._engine, data.data(train=False), self._to_host)]
+            return np.concatenate(outs, axis=0)
         x = np.asarray(x)
         outs = []
         for i in range(0, len(x), self.batch_size):
             out, _ = self._engine(x[i:i + self.batch_size])
             outs.append(self._to_host(out))
         return np.concatenate(outs, axis=0)
+
+    def predict_class(self, x) -> np.ndarray:
+        return np.argmax(self.predict(x), axis=-1)
+
+
+class Validator:
+    """Dataset evaluation facade (reference: optim/Validator.scala:34,
+    DistriValidator.scala:35, LocalValidator), a thin wrapper over
+    :class:`Evaluator`."""
+
+    def __init__(self, model: Module, dataset, device=None):
+        self.model = model
+        self.dataset = dataset
+        self.device = device
+
+    def test(self, methods, batch_size: int = 128):
+        return Evaluator(self.model, self.device).test(
+            self.dataset, methods, batch_size=batch_size)
+
+
+#: the reference's names (one device or a group, the same class)
+DistriValidator = Validator
+LocalValidator = Validator

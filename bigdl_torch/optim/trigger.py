@@ -1,8 +1,11 @@
-"""Triggers: when to stop (and, in later slices, validate or checkpoint).
+"""Triggers: when to validate, checkpoint or stop.
 
-Counterpart of ``bigdl_tpu/optim/trigger.py`` for what the training slice
-uses (reference ``optim/Trigger.scala:30``): predicates over the driver's
-state dict (``epoch`` and ``neval``, both 1-based).
+Counterpart of ``bigdl_tpu/optim/trigger.py`` (reference
+``optim/Trigger.scala:30``: ``everyEpoch`` (:37), ``severalIteration``
+(:63), ``maxEpoch`` (:79), ``maxIteration``, ``maxScore``, ``minLoss``),
+with the reference's ``plateau``, ``and_`` and ``or_``: predicates over
+the driver's state dict (``epoch`` and ``neval``, both 1-based; ``loss``;
+``score``, ``val_loss`` and ``val_obs`` once validation has run).
 """
 
 from __future__ import annotations
@@ -53,3 +56,63 @@ class Trigger:
         """End-when trigger: neval > max."""
         return Trigger(lambda s: s.get("neval", 1) > maximum,
                        f"maxIteration({maximum})")
+
+    @staticmethod
+    def max_score(maximum: float):
+        """Fires once the validation score passes ``maximum``."""
+        return Trigger(lambda s: s.get("score", float("-inf")) > maximum,
+                       f"maxScore({maximum})")
+
+    @staticmethod
+    def min_loss(minimum: float):
+        """Fires once the training loss falls under ``minimum``."""
+        return Trigger(lambda s: s.get("loss", float("inf")) < minimum,
+                       f"minLoss({minimum})")
+
+    @staticmethod
+    def plateau(monitor: str = "val_loss", patience: int = 3,
+                mode: str = "min", min_delta: float = 0.0,
+                counter: str = "val_obs"):
+        """Fires when ``state[monitor]`` has not improved for ``patience``
+        consecutive observations: early stopping (the reference's Plateau
+        policy, SGD.scala:534, applied to the end of training).  A new
+        observation is one where ``state[counter]`` moved (the Optimizer
+        adds one to ``val_obs`` at every validation, so a constant value
+        still counts); with ``counter=None`` a change of the value is one.
+        Once fired it stays fired: the driver checks end triggers at
+        several points."""
+        sign = 1.0 if mode == "min" else -1.0
+        box = {"best": None, "bad": 0, "last": None, "tick": None,
+               "fired": False}
+
+        def fn(state):
+            if box["fired"]:
+                return True
+            v = state.get(monitor)
+            if v is None:
+                return False
+            if counter is not None and counter in state:
+                if state[counter] == box["tick"]:
+                    return False        # the observation seen last call
+                box["tick"] = state[counter]
+            elif v == box["last"]:
+                return False
+            box["last"] = v
+            if box["best"] is None or \
+                    sign * v < sign * box["best"] - min_delta:
+                box["best"] = v
+                box["bad"] = 0
+                return False
+            box["bad"] += 1
+            box["fired"] = box["bad"] >= patience
+            return box["fired"]
+
+        return Trigger(fn, f"plateau({monitor},{patience})")
+
+    @staticmethod
+    def and_(*triggers):
+        return Trigger(lambda s: all(t(s) for t in triggers), "and")
+
+    @staticmethod
+    def or_(*triggers):
+        return Trigger(lambda s: any(t(s) for t in triggers), "or")

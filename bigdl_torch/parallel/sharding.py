@@ -12,7 +12,7 @@ around each rank's eager step:
   gradients are averaged over the group in one all-reduce.
 
 Not ported yet (constructing one raises): ``ShardedDataParallel`` (ZeRO,
-ROADMAP queue A item 2), ``TensorParallel`` and ``LayoutSharding`` (the
+ROADMAP queue A item 4), ``TensorParallel`` and ``LayoutSharding`` (the
 MeshLayout axes, queue A item 8).
 """
 
@@ -78,7 +78,7 @@ class _NotPorted(ShardingStrategy):
 
 class ShardedDataParallel(_NotPorted):
     """ZeRO: parameters and optimizer state in 1/N slices."""
-    ITEM = "2"
+    ITEM = "4"
 
 
 class TensorParallel(_NotPorted):

@@ -24,6 +24,8 @@ the kernels always run.
 | BIGDL_TORCH_DECODE_DEADLINE_MS   | default time-to-last-token deadline (0 = none) | 0       |
 | BIGDL_TORCH_DECODE_ADMISSION     | ``continuous`` (join per tick) or ``batch``    | continuous |
 | BIGDL_TORCH_DECODE_MIN_STEP_MS   | per-tick pacing floor                          | 0       |
+| BIGDL_TORCH_CKPT_KEEP_LAST       | snapshot pairs kept (0 = all)                  | 0       |
+| BIGDL_TORCH_CKPT_KEEP_EVERY_EPOCHS | also keep each N-th epoch's first (0 = off)  | 0       |
 """
 
 from __future__ import annotations

@@ -9,6 +9,15 @@ when it has none).  The port's module tree has the same shape
 reference (params, state) pair with numpy leaves copies in leaf by leaf and
 back.  Every shape, name and structure mismatch raises; nothing is
 reshaped.
+
+An optimization method's state carries across the same way.  The port
+keeps one list per slot (``velocity``, ``m``, ``v``, ...) in the order of
+``model.parameters()``; the reference keeps each slot as a param-shaped
+tree.  :func:`to_reference_opt_state` and :func:`load_reference_opt_state`
+map one to the other by parameter identity (a leaf module's parameter by
+its name), not by position: the reference's tree flattens a leaf's dict
+in sorted key order, the port's list in registration order.  Scalar slots
+(Adam's int32 step count ``t``) pass as int32 arrays.
 """
 
 from __future__ import annotations
@@ -18,14 +27,18 @@ import torch
 
 from ..nn.module import Container, Module
 
-__all__ = ["load_reference_tree", "to_reference_tree"]
+__all__ = ["load_reference_tree", "check_reference_tree",
+           "to_reference_tree", "to_reference_opt_state",
+           "load_reference_opt_state"]
 
 
 def _where(path):
     return "/".join(str(p) for p in path) or "<root>"
 
 
-def _load(module: Module, tree, path, kind: str, names_of) -> None:
+def _walk(module: Module, tree, path, kind: str, names_of, visit) -> None:
+    """Walk a reference tree beside the module tree, raising on any
+    structure mismatch; ``visit(module, name, leaf, path)`` at each leaf."""
     if isinstance(module, Container):
         if not isinstance(tree, (list, tuple)) or \
                 len(tree) != len(module.layers):
@@ -34,23 +47,52 @@ def _load(module: Module, tree, path, kind: str, names_of) -> None:
                              f"{type(module).__name__}, got "
                              f"{type(tree).__name__}")
         for i, (m, t) in enumerate(zip(module.layers, tree)):
-            _load(m, t, path + [i], kind, names_of)
+            _walk(m, t, path + [i], kind, names_of, visit)
         return
     names = names_of(module)
     if not isinstance(tree, dict) or set(tree) != set(names):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-        noun = "parameters" if kind == "param" else "state entries"
+        noun = "state entries" if kind == "state" else "parameters"
         raise ValueError(f"{kind} tree at {_where(path)}: "
                          f"{type(module).__name__} has {noun} "
                          f"{sorted(names)}, got {got}")
     for name in names:
+        visit(module, name, tree[name], path + [name])
+
+
+def _copy_into(kind):
+    def visit(module, name, leaf, path):
         dst = getattr(module, name)
-        leaf = np.asarray(tree[name])
+        leaf = np.asarray(leaf)
         if tuple(leaf.shape) != tuple(dst.shape):
-            raise ValueError(f"{kind} {_where(path + [name])}: shape "
+            raise ValueError(f"{kind} {_where(path)}: shape "
                              f"{leaf.shape} != {tuple(dst.shape)}")
         with torch.no_grad():
             dst.copy_(torch.tensor(leaf))
+    return visit
+
+
+def _load(module: Module, tree, path, kind: str, names_of) -> None:
+    _walk(module, tree, path, kind, names_of, _copy_into(kind))
+
+
+def check_reference_tree(model: Module, params, state=None) -> None:
+    """Raise as :func:`load_reference_tree` would, changing nothing."""
+    if not model.built:
+        raise RuntimeError("check_reference_tree: build the model first")
+
+    def check(kind):
+        def visit(module, name, leaf, path):
+            shape = tuple(np.shape(leaf))
+            if shape != tuple(getattr(module, name).shape):
+                raise ValueError(f"{kind} {_where(path)}: shape {shape} != "
+                                 f"{tuple(getattr(module, name).shape)}")
+        return visit
+    if state is not None:
+        _walk(model, state, [], "state", lambda m: m.state_names,
+              check("state"))
+    _walk(model, params, [], "param", lambda m: m.param_names,
+          check("param"))
 
 
 def load_reference_tree(model: Module, params, state=None) -> Module:
@@ -83,3 +125,86 @@ def to_reference_tree(model: Module):
     if not model.built:
         raise RuntimeError("to_reference_tree: build the model first")
     return _dump(model)
+
+
+def _index(model: Module):
+    return {id(p): i for i, p in enumerate(model.parameters())}
+
+
+def _param_tree(module: Module, leaf):
+    if isinstance(module, Container):
+        return [_param_tree(m, leaf) for m in module.layers]
+    return {n: leaf(module, n) for n in module.param_names}
+
+
+def to_reference_opt_state(model: Module, method, state):
+    """The port's method ``state`` (per-parameter lists, in
+    ``model.parameters()`` order) as the reference's opt_state tree with
+    numpy leaves.  Raises if a list does not match the parameters."""
+    if not model.built:
+        raise RuntimeError("to_reference_opt_state: build the model first")
+    index = _index(model)
+    want = set(method.init_state([]))
+    if set(state) != want:
+        raise ValueError(f"{type(method).__name__} state has slots "
+                         f"{sorted(want)}, got {sorted(state)}")
+    out = {}
+    for key, val in state.items():
+        if not isinstance(val, (list, tuple)):
+            out[key] = np.asarray(val, np.int32)
+            continue
+        if len(val) != len(index):
+            raise ValueError(f"opt_state[{key!r}]: {len(val)} tensors for "
+                             f"{len(index)} parameters")
+
+        def leaf(m, n, val=val, key=key):
+            t = val[index[id(getattr(m, n))]]
+            p = getattr(m, n)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"opt_state[{key!r}] at "
+                                 f"{type(m).__name__}.{n}: shape "
+                                 f"{tuple(t.shape)} != {tuple(p.shape)}")
+            return _numpy(t)
+        out[key] = _param_tree(model, leaf)
+    return out
+
+
+def load_reference_opt_state(model: Module, method, tree):
+    """The reference's opt_state ``tree`` (numpy leaves) as the port's
+    method state for the built ``model``: per-parameter lists on each
+    parameter's device and dtype, in ``model.parameters()`` order.  Raises
+    on a missing or extra slot and on any structure or shape mismatch."""
+    if not model.built:
+        raise RuntimeError("load_reference_opt_state: build the model "
+                           "first")
+    params = list(model.parameters())
+    index = _index(model)
+    template = method.init_state(params)
+    if not isinstance(tree, dict) or set(tree) != set(template):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"{type(method).__name__} opt_state has slots "
+                         f"{sorted(template)}, got {got}")
+    out = {}
+    for key, tmpl in template.items():
+        if not isinstance(tmpl, list):
+            leaf = np.asarray(tree[key])
+            if leaf.shape != () or leaf.dtype != np.int32:
+                raise ValueError(f"opt_state[{key!r}]: an int32 scalar, "
+                                 f"got {leaf.dtype} {leaf.shape}")
+            out[key] = np.int32(leaf)
+            continue
+        slots = [None] * len(params)
+
+        def visit(m, n, leaf, path, slots=slots, tmpl=tmpl, key=key):
+            i = index[id(getattr(m, n))]
+            leaf = np.asarray(leaf)
+            if tuple(leaf.shape) != tuple(tmpl[i].shape):
+                raise ValueError(f"opt_state[{key!r}] {_where(path)}: shape "
+                                 f"{leaf.shape} != {tuple(tmpl[i].shape)}")
+            slots[i] = torch.tensor(leaf).to(tmpl[i].device, tmpl[i].dtype)
+        _walk(model, tree[key], [key], "opt_state",
+              lambda m: m.param_names, visit)
+        if any(s is None for s in slots):
+            raise ValueError(f"opt_state[{key!r}] left parameters unset")
+        out[key] = slots
+    return out

@@ -9,6 +9,11 @@ and a built one is reused.  Nothing here runs at import: a kernel's wrapper
 calls :func:`load` when it first launches, and ``chip_smoke.py`` calls
 :func:`build` for every source at once (one ``nvcc`` per source, all
 started together).
+
+Host sources (``bigdl_torch/csrc/host/<name>.cc``: the checkpoint frame's
+CRC32C) are built the same way by the host C++ compiler (``$CXX``, else
+``g++``, which ``nvcc`` needs too), keyed by a hash of source and flags
+(:func:`build_host`, :func:`load_host`).
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import subprocess
 import threading
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "source_path"]
+__all__ = ["SOURCES", "HOST_SOURCES", "BUILD_DIR", "build", "load",
+           "source_path", "build_host", "load_host"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -32,8 +38,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention", "flash_attention_bwd", "batchnorm",
            "matmul_stats", "decode_attention")
 
+#: every host C++ source of the port, by library name
+HOST_SOURCES = ("crc32c",)
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -101,4 +112,57 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             lib = _loaded[name] = ctypes.CDLL(build([name])[name])
+        return lib
+
+
+def host_source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, "host", name + ".cc")
+
+
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("g++") or \
+        shutil.which("c++")
+    if not found:
+        raise RuntimeError("no host C++ compiler (set CXX or put g++ on "
+                           "PATH)")
+    return found
+
+
+def _host_library_path(name: str) -> str:
+    digest = hashlib.sha256()
+    with open(host_source_path(name), "rb") as f:
+        digest.update(f.read())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}-host-{digest.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/host/<name>.cc`` with the host C++ compiler unless
+    its library exists; returns the library's path.  Raises if the
+    compiler is missing or fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = _host_library_path(name)
+    if os.path.exists(out):
+        return out
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp,
+                           host_source_path(name)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{host_source_path(name)} failed to build:\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, out)  # atomic: no half-written library
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/host/<name>.cc``, built on first
+    use."""
+    key = "host/" + name
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            lib = _loaded[key] = ctypes.CDLL(build_host(name))
         return lib

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10, started
-by the script itself.)
+by the script itself; ``python3 chip_smoke.py --only train_validate`` runs
+the build and phase 13 alone, and prints no final line.)
 
 Phases, each printing one JSON line:
 
@@ -167,6 +168,48 @@ Phases, each printing one JSON line:
    bit-identical over two calls, timed beside the plain version and the
    backward of ``scaled_dot_product_attention``.
 
+13. ``train_validate``: the training driver's everyday half on the card.
+   The checkpoint frame's CRC32C must take its compiled route
+   (``csrc/host/crc32c.cc``, built by the host compiler; a failed build
+   fails the phase).  cuDNN is set deterministic for items (a) and (b), so
+   that two uninterrupted runs can be bit-equal.
+   (a) ResNet-50 as in ``train`` (batch 256, bf16, fused), ``SGD(0.1,
+   momentum=0.9, weight_decay=1e-4)`` under ``MultiStep([4], 0.1)``, 2
+   epochs of 3 batches, ``set_validation(every_epoch, 512 held-out
+   images, [Top1Accuracy, Top5Accuracy, Loss(CrossEntropyCriterion)],
+   256)``, ``set_checkpoint(every_epoch, keep_last=1)``, run twice
+   uninterrupted.  Every step launches exactly what a ``train`` step
+   does, on the same routes; the validation forwards launch none of B1
+   to B5, leave every buffer bit for bit and the model in training mode;
+   the last validation equals ``Evaluator(model).test`` on the same
+   weights (counts equal, the loss within ``TV_EVAL_RTOL``); every
+   snapshot passes ``file_io.verify`` and loads bit-equal to the live
+   model's reference tree; retention leaves one pair.  A fresh Optimizer
+   resumes from the epoch-1 pair (its dataset shuffled once, the
+   permutation the snapshot does not hold) and runs epoch 2: its losses
+   and validation equal the uninterrupted run's bit for bit where the two
+   uninterrupted runs are, else inside their spread (``resume_rule``).
+   (b) The bench-width LM (batch 16 x 512, bf16), ``Adam(1e-3)`` clipped
+   at an L2 norm of 1.0, validation (``Loss``, ``Perplexity`` over 2
+   batches of 4 x 512) and a snapshot after every 2nd iteration, 4 steps,
+   twice; 8 B6 launches with the log-sum-exp and 16 B7 a step, 8 B6
+   without it and no B7 a validation batch; resumed from the iteration-2
+   pair, steps 3 and 4 under the same rule.
+   (c) The float32 small LM with dropout 0.1: resumed steps 3 and 4 bit-
+   equal to the uninterrupted run (the Dropout generator's state rides
+   the snapshot).  (d) ``SGD`` (nesterov), ``Adam``, ``Adagrad``,
+   ``Adadelta``, ``Adamax``, ``RMSprop``: 3 steps of the float32 small LM
+   on the card and on the CPU (TF32 off, no wire), losses within
+   ``F32_TRAIN_ATOL``; the method's update run on the card with the CPU
+   run's gradients, parameters within ``TV_METHOD_RTOL`` of the CPU's
+   (the trained parameters' difference is reported: see ``tv_methods``).
+   (e) The README's quick start: ``LeNet5`` on
+   synthetic MNIST, ``Adam(3e-3)``, 8 epochs at batch 64, Top1 validation
+   and a snapshot every epoch: loss under 1.0, Top1 at least 0.95, none
+   of the repo's kernels launched.  Reports step ms beside ``train``'s,
+   validation ms and images/s, snapshot bytes, write ms, verify-plus-load
+   ms and resume ms.
+
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
 LM run, B8 per warm continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
@@ -184,6 +227,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -197,19 +241,23 @@ import bigdl_torch.nn as nn
 from bigdl_torch import Engine
 from bigdl_torch.common import DTypePolicy, set_policy
 from bigdl_torch.dataset import DataSet, Sample, SampleToMiniBatch
-from bigdl_torch.models import (ResNet, TransformerLM, cached_generate,
-                                greedy_generate)
+from bigdl_torch.models import (LeNet5, ResNet, TransformerLM,
+                                cached_generate, greedy_generate)
 from bigdl_torch.models import decode as dec_mod
 from bigdl_torch.models import resnet as resnet_mod
 from bigdl_torch.ops import attention as attn_ops
 from bigdl_torch.ops import batchnorm as bn_ops
 from bigdl_torch.ops import convbn as cb_ops
 from bigdl_torch.ops import decode_attention as dec_ops
-from bigdl_torch.optim import SGD, Optimizer, Predictor, Trigger
+from bigdl_torch.optim import (SGD, Adadelta, Adagrad, Adam, Adamax,
+                               Evaluator, Loss, MultiStep, Optimizer,
+                               Perplexity, Predictor, RMSprop, Top1Accuracy,
+                               Top5Accuracy, Trigger)
 from bigdl_torch.optim.optimizer import HostCopy, to_host
 from bigdl_torch.serve import (DecodeEngine, InferenceServer, fit_bucket,
                                pad_tail)
-from bigdl_torch.utils import cuda_build
+from bigdl_torch.utils import crc32c, cuda_build, file_io
+from bigdl_torch.utils.convert import to_reference_tree
 
 SEED = 0
 LM = dict(vocab_size=32000, max_len=512, d_model=512, num_heads=8,
@@ -221,6 +269,9 @@ N_REQUESTS = 16
 # published peaks of one H100 SXM (dense): HBM bytes/s, and FLOP/s by the
 # operands' type (bf16 on the tensor cores, float32 on the CUDA cores)
 PEAK_BYTES = 3.35e12
+# its streaming multiprocessors: B8's cluster split on the card must be the
+# one this count gives
+H100_SMS = 132
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the L2 cache: a case whose operands fit is marked ``fits_l2``
 L2_BYTES = 50 * 2 ** 20
@@ -749,7 +800,10 @@ def decode_case(S, H, L, D, dtype, gen, full=False):
     v.masked_fill_(stale, -DECODE_GARBAGE)
     pos = pos.to("cuda")
     rt = dec_ops.route(dtype)
-    C = dec_ops.splits(S, H, L)
+    # the split launched is sized from the card's SM count; on the H100
+    # it must be the one the H100 SXM's 132 give
+    C = dec_ops.splits(S, H, L, dec_ops.sm_count(q.device))
+    h100_split = C == dec_ops.splits(S, H, L, H100_SMS)
     fn = dec_ops.decode_attention
     with torch.inference_mode():
         k0, v0 = k.clone(), v.clone()
@@ -768,7 +822,8 @@ def decode_case(S, H, L, D, dtype, gen, full=False):
         err = (out.float() - plain.float()).abs()
         atol, rtol = DECODE_TOL[dtype]
         repeat = torch.equal(out, again)
-        ok = (routed and repeat and appended and untouched and bool(
+        ok = (routed and repeat and appended and untouched and h100_split
+              and bool(
             (err <= atol + rtol * plain.float().abs()).all()))
         ms = graph_ms(lambda: fn(q, k_new, v_new, k, v, pos))
         floor_ms = graph_ms(lambda: dec_ops._floor(S, H, D, C, dtype,
@@ -785,7 +840,9 @@ def decode_case(S, H, L, D, dtype, gen, full=False):
     bound_ms, bound_by, nbytes, flops = decode_bound(S, H, L, D, dtype, pos)
     return {"shape": [S, H, L, D], "dtype": str(dtype)[6:],
             "positions": "every L - 1" if full else "mixed",
-            "route": rt, "splits": C, "max_abs_err": float(err.max()),
+            "route": rt, "splits": C, "splits_h100": h100_split,
+            "sm_count": dec_ops.sm_count(q.device),
+            "max_abs_err": float(err.max()),
             "tol": [atol, rtol], "repeat_bit_identical": repeat,
             "append_bit_equal": appended, "other_rows_untouched": untouched,
             "ok": ok, "ms": ms, "floor_ms": floor_ms, "c16_ms": c16_ms,
@@ -1871,7 +1928,7 @@ def phase_train():
           "running_stats_max_move": moved,
           "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
           "kernel_share_of_step": shares, **prof, **f32})
-    return kernel_rows(reps, launched, "train", routes), first[0]
+    return kernel_rows(reps, launched, "train", routes), first[0], step_ms
 
 
 def kernel_rows(reps, launched, path, routes):
@@ -2387,12 +2444,602 @@ def phase_train_lm():
          "kernel_route": rep["route"], "route_launches": bwd_routes}]
 
 
+# ---------------------------------------------------------------------------
+# train_validate: validation, checkpoints and resume, the methods, LeNet-5
+# ---------------------------------------------------------------------------
+
+# ResNet-50 at resnet50_bf16: 2 epochs of 3 batches, 512 held-out images
+TV_BATCHES = 3
+TV_EPOCHS = 2
+TV_HELD_OUT = 512
+# MultiStep drops the lr tenfold from the 5th iteration (evalCounter 4)
+TV_MILESTONES = [4]
+# the LM: 2 batches of 16 x 512 an epoch, 4 steps; validation and a
+# snapshot after every 2nd finished iteration, over 2 batches of 4 x 512
+TV_LM_STEPS = 4
+TV_LM_VAL_BATCH = 4
+TV_LM_VAL_ROWS = 8
+# validation results vs Evaluator on the same weights: the loss summed in
+# another order over the same float32 rows (the counts must be equal)
+TV_EVAL_RTOL = 1e-6
+# every ported method's update on the card vs on the CPU from the same
+# parameters and gradients, 3 steps: relative to each parameter's largest
+# magnitude (elementwise float32 arithmetic; the card may fuse a multiply
+# and an add or round a square root differently)
+TV_METHOD_RTOL = 1e-4
+# the README flow (SKILL.md's calibration: Adam(3e-3) x 8 epochs)
+TV_LENET_EPOCHS = 8
+TV_LENET_LOSS = 1.0
+TV_LENET_TOP1 = 0.95
+
+
+#: a ResNet-50 step's launches by kernel and route: STEP_LAUNCHES, each
+#: on its kernel's step route
+STEP_ROUTE_LAUNCHES = {
+    kind: {rt: (n if rt == STEP_ROUTES[kind] else 0)
+           for rt in TRAIN_KERNELS[kind][0].route_launches}
+    for kind, n in STEP_LAUNCHES.items()}
+
+
+def every_done(n):
+    """Once after every n-th finished iteration (the driver's neval is one
+    ahead of the iterations done when triggers read it, and an epoch's end
+    that follows such an iteration asks again)."""
+    box = {"last": None}
+
+    def fn(state):
+        done = state["neval"] - 1
+        if done % n or done == box["last"]:
+            return False
+        box["last"] = done
+        return True
+    return Trigger(fn, f"everyDone({n})")
+
+
+def synthetic_mnist(n, seed):
+    """tests/test_e2e_lenet.py's separable digits: class k has a bright
+    k-th block."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(0.0, 0.1, size=(n, 28, 28)).astype(np.float32)
+    labels = rng.integers(0, 10, size=n)
+    for i, label in enumerate(labels):
+        r, c = divmod(int(label), 5)
+        images[i, 4 + r * 10: 12 + r * 10, 2 + c * 5: 7 + c * 5] += 1.5
+    return [Sample.from_ndarray(images[i], np.int32(labels[i]))
+            for i in range(n)]
+
+
+def result_fields(results):
+    """[(method name, {field: value})] of validation results."""
+    return [(m.name, dict(vars(r))) for m, r in results]
+
+
+def resume_rule(resumed, first, second):
+    """The resumed run's numbers against two uninterrupted runs': bit-equal
+    where those two were bit-equal to each other, else inside their
+    spread.  Returns (ok, rule, spread)."""
+    if first == second:
+        return resumed == first, "bit-equal", 0.0
+    spread = max(abs(a - b) for a, b in zip(first, second))
+    ok = all(min(a, b) - spread <= r <= max(a, b) + spread
+             for r, a, b in zip(resumed, first, second))
+    return ok, "within the spread of two runs", spread
+
+
+def flat_results(fields):
+    return [float(v) for _, f in fields for k, v in sorted(f.items())]
+
+
+class Watch:
+    """Instruments one Optimizer: launches per training step, what each
+    validation launched and left behind, each checkpoint write."""
+
+    def __init__(self, opt, kernel_counts, zero, routes=None):
+        self.opt, self._counts, self._zero = opt, kernel_counts, zero
+        self._routes = routes
+        self.steps, self.validations, self.writes = [], [], []
+        # each step's launches by kernel and route, where ``routes`` is given
+        self.step_routes = []
+        # each step's host time, synchronized at its end
+        self.step_ms = []
+        self.on_write = None
+        step, validate, write = (opt._step, opt._run_validation,
+                                 opt._write_checkpoint)
+
+        def stepped(*a):
+            self._zero()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.steps.append(self._counts())
+            if self._routes is not None:
+                self.step_routes.append(self._routes())
+            return out
+
+        def validated():
+            model = opt.model
+            before = [b.detach().clone() for b in model.buffers()]
+            self._zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            same = all(torch.equal(a, b)
+                       for a, b in zip(before, model.buffers()))
+            self.validations.append({
+                "ms": ms, "launches": self._counts(),
+                "state_bit_equal": same, "train_mode": model.training,
+                "results": result_fields(out)})
+            return out
+
+        def written(state, opt_state, rng):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            write(state, opt_state, rng)
+            ms = (time.perf_counter() - t0) * 1e3
+            n = state["neval"] - 1
+            path = opt.checkpoint_path
+            mp = os.path.join(path, f"model.{n}")
+            op = os.path.join(path, f"optimMethod.{n}")
+            t0 = time.perf_counter()
+            file_io.verify(mp)
+            file_io.verify(op)
+            blob = file_io.load(mp)
+            file_io.load(op)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            live = to_reference_tree(opt.model)
+            equal = all(np.array_equal(a, b) for a, b in zip(
+                tree_leaves((blob["params"], blob["state"])),
+                tree_leaves(live)))
+            rec = {"neval": n, "write_ms": ms, "verify_load_ms": load_ms,
+                   "bytes": os.path.getsize(mp) + os.path.getsize(op),
+                   "model_bytes": os.path.getsize(mp),
+                   "bit_equal_live": equal}
+            self.writes.append(rec)
+            if self.on_write is not None:
+                self.on_write(mp, op, n)
+
+        opt._step, opt._run_validation = stepped, validated
+        opt._write_checkpoint = written
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [np.asarray(tree)]
+
+
+def resnet_run(samples, held, ckpt, resume=None, keep=None):
+    """ResNet-50 (fused, bf16) through one Optimizer with validation every
+    epoch and a snapshot every epoch (keep_last=1): fresh from the seed, or
+    resumed from ``resume`` with the dataset's permutation advanced past
+    epoch 1.  Returns (model, watch, losses by iteration, resume ms)."""
+    model = resnet50(fuse=True)
+    ds = DataSet.array(samples, seed=SEED)
+    if resume is not None:
+        ds.shuffle()            # the permutation epoch 1 drew
+    opt = Optimizer(model, ds, nn.CrossEntropyCriterion(),
+                    batch_size=TRAIN_BATCH)
+    opt.set_optim_method(SGD(0.1, momentum=0.9, weight_decay=1e-4,
+                             learning_rate_schedule=MultiStep(
+                                 TV_MILESTONES, 0.1)))
+    opt.set_validation(Trigger.every_epoch(), held,
+                       [Top1Accuracy(), Top5Accuracy(),
+                        Loss(nn.CrossEntropyCriterion())], TRAIN_BATCH)
+    opt.set_checkpoint(ckpt, Trigger.every_epoch(), keep_last=1)
+    watch = Watch(opt, counts, zero_counts, route_counts)
+    if keep is not None:
+        watch.on_write = keep
+    losses = {}
+
+    def end(state):
+        if state["neval"] > 1:
+            losses[state["neval"] - 1] = state["loss"]
+        return state["epoch"] > TV_EPOCHS
+    resume_ms = None
+    if resume is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.resume_from(*resume)
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t0) * 1e3
+    opt.set_end_when(Trigger(end, "epochs")).optimize()
+    return model, opt, watch, losses, resume_ms
+
+
+def tv_resnet(train_step_ms, root):
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    samples = synthetic_imagenet(TRAIN_BATCH * TV_BATCHES, SEED + 7)
+    held = synthetic_imagenet(TV_HELD_OUT, SEED + 8)
+    side = os.path.join(root, "epoch1")
+    os.makedirs(side)
+    kept = []
+
+    def keep_first(mp, op, n):
+        if not kept:
+            for p in (mp, op):
+                shutil.copy(p, side)
+            kept.append((os.path.join(side, os.path.basename(mp)),
+                         os.path.join(side, os.path.basename(op))))
+
+    runs = []
+    for i in range(2):
+        ckpt = os.path.join(root, f"resnet{i}")
+        model, opt, watch, losses, _ = resnet_run(
+            samples, held, ckpt, keep=keep_first if i == 0 else None)
+        left = sorted(os.listdir(ckpt))
+        if i == 0:
+            final = {m.name: dict(vars(r))
+                     for m, r in opt.last_validation}
+            ev = Evaluator(model).test(held, [
+                Top1Accuracy(), Top5Accuracy(),
+                Loss(nn.CrossEntropyCriterion())], TRAIN_BATCH)
+            evaluator = {m.name: dict(vars(r)) for m, r in ev}
+        runs.append((losses, watch, left))
+        del model, opt
+        torch.cuda.empty_cache()
+    (losses, watch, left), (losses2, watch2, _) = runs
+
+    steps = TV_BATCHES * TV_EPOCHS
+    check(len(watch.steps) == steps and all(
+        c == STEP_LAUNCHES for c in watch.steps),
+        f"launches per step {watch.steps}")
+    check(all(r == STEP_ROUTE_LAUNCHES for r in watch.step_routes)
+          and len(watch.step_routes) == steps,
+          f"launches per step by route {watch.step_routes}")
+    check(len(watch.validations) == TV_EPOCHS and all(
+        v["launches"] == dict.fromkeys(STEP_LAUNCHES, 0)
+        for v in watch.validations),
+        f"validation launches {[v['launches'] for v in watch.validations]}")
+    check(all(v["state_bit_equal"] and v["train_mode"]
+              for v in watch.validations),
+          f"validation left the model changed: {watch.validations}")
+    for name, f in evaluator.items():
+        g = final[name]
+        check(g["count"] == f["count"] == TV_HELD_OUT, f"{name} {g} {f}")
+        if "correct" in f:
+            check(g["correct"] == f["correct"], f"{name}: {g} vs {f}")
+        else:
+            check(abs(g["loss"] - f["loss"]) <= TV_EVAL_RTOL * abs(f["loss"]),
+                  f"{name}: {g} vs {f}")
+    check(len(watch.writes) == TV_EPOCHS and all(
+        w["bit_equal_live"] for w in watch.writes),
+        f"snapshots {watch.writes}")
+    check(left == [f"model.{steps}", f"optimMethod.{steps}"],
+          f"retention left {left}")
+    check(kept, "the epoch-1 pair was not kept")
+
+    # resume from the epoch-1 pair: epoch 2 again
+    model, opt, rwatch, rlosses, resume_ms = resnet_run(
+        samples, held, os.path.join(root, "resumed"), resume=kept[0])
+    del model, opt
+    torch.cuda.empty_cache()
+    ep2 = list(range(TV_BATCHES + 1, steps + 1))
+    first = [losses[k] for k in ep2]
+    second = [losses2[k] for k in ep2]
+    resumed = [rlosses.get(k) for k in ep2]
+    ok, rule, spread = resume_rule(resumed, first, second)
+    check(ok, f"resumed epoch-2 losses {resumed} vs {first} / {second}")
+    val = [flat_results(w.validations[-1]["results"])
+           for w in (rwatch, watch, watch2)]
+    vok, vrule, vspread = resume_rule(*val)
+    check(vok, f"resumed epoch-2 validation {val}")
+    check(all(c == STEP_LAUNCHES for c in rwatch.steps)
+          and all(r == STEP_ROUTE_LAUNCHES for r in rwatch.step_routes)
+          and len(rwatch.steps) == TV_BATCHES,
+          f"resumed launches per step {rwatch.step_routes}")
+    vms = [v["ms"] for v in watch.validations]
+    return {
+        "batch": TRAIN_BATCH, "epochs": TV_EPOCHS,
+        "batches_per_epoch": TV_BATCHES, "held_out": TV_HELD_OUT,
+        "step_ms": watch.step_ms, "step_ms_median_epoch2": float(
+            np.median(watch.step_ms[TV_BATCHES:])),
+        "train_phase_step_ms": train_step_ms,
+        "launches_per_step": watch.steps[0],
+        "route_launches_per_step": watch.step_routes[0],
+        "validation_launches": watch.validations[0]["launches"],
+        "validation_ms": vms,
+        "validation_images_per_s": [TV_HELD_OUT / (t / 1e3) for t in vms],
+        "validation_results": final, "evaluator_results": evaluator,
+        "snapshots": watch.writes, "retention_left": left,
+        "losses": [losses[k] for k in sorted(losses)],
+        "losses_second_run": [losses2[k] for k in sorted(losses2)],
+        "resumed_losses": resumed, "resume_rule": rule,
+        "resume_spread": spread, "resumed_validation": val[0],
+        "validation_rule": vrule, "validation_spread": vspread,
+        "resume_ms": resume_ms}
+
+
+def lm_run(samples, held, ckpt, resume=None):
+    """The bench-width LM, Adam(1e-3) with clipping at 1.0, validation and
+    a snapshot after every 2nd finished iteration, TV_LM_STEPS steps."""
+    model = TransformerLM(**LM).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    ds = DataSet.array(samples, seed=SEED)
+    if resume is not None:
+        ds.shuffle()
+    opt = Optimizer(model, ds, nn.TimeDistributedCriterion(
+        nn.ClassNLLCriterion(), size_average=True), batch_size=LM_BATCH)
+    opt.set_optim_method(Adam(1e-3)).set_gradient_clipping_by_l2_norm(1.0)
+    opt.set_validation(every_done(2), held, [
+        Loss(nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                         size_average=True)),
+        Perplexity()], TV_LM_VAL_BATCH)
+    opt.set_checkpoint(ckpt, every_done(2))
+
+    def lm_counts():
+        return {"flash": attn_ops.flash_attention.launches,
+                "flash_lse": attn_ops.flash_attention.lse_launches,
+                "flash_tc": attn_ops.flash_attention.route_launches["tc"],
+                "flash_bwd": attn_ops.flash_attention_bwd.launches,
+                "flash_bwd_tc":
+                attn_ops.flash_attention_bwd.route_launches["tc"]}
+
+    def zero():
+        zero_flash()
+        attn_ops.flash_attention.lse_launches = 0
+    watch = Watch(opt, lm_counts, zero)
+    losses = {}
+
+    def end(state):
+        if state["neval"] > 1:
+            losses[state["neval"] - 1] = state["loss"]
+        return state["neval"] > TV_LM_STEPS
+    if resume is not None:
+        opt.resume_from(*resume)
+    opt.set_end_when(Trigger(end, "steps")).optimize()
+    del model, opt
+    torch.cuda.empty_cache()
+    return watch, losses
+
+
+def tv_lm(root):
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    T, V = LM["max_len"], LM["vocab_size"]
+    samples = lm_samples(LM_BATCH * 2, T, V, SEED + 9)
+    held = lm_samples(TV_LM_VAL_ROWS, T, V, SEED + 10)
+    L = LM["num_layers"]
+    runs = []
+    for i in range(2):
+        runs.append(lm_run(samples, held, os.path.join(root, f"lm{i}")))
+    (watch, losses), (_, losses2) = runs
+    per_step = {"flash": L, "flash_lse": L, "flash_tc": L,
+                "flash_bwd": 2 * L, "flash_bwd_tc": 2 * L}
+    batches = TV_LM_VAL_ROWS // TV_LM_VAL_BATCH
+    per_val = {"flash": L * batches, "flash_lse": 0,
+               "flash_tc": L * batches, "flash_bwd": 0, "flash_bwd_tc": 0}
+    check(len(watch.steps) == TV_LM_STEPS and all(
+        c == per_step for c in watch.steps), f"LM launches {watch.steps}")
+    check(len(watch.validations) == TV_LM_STEPS // 2 and all(
+        v["launches"] == per_val and v["train_mode"]
+        for v in watch.validations),
+        f"LM validation launches {[v['launches'] for v in watch.validations]}")
+    check(all(w["bit_equal_live"] for w in watch.writes)
+          and len(watch.writes) == TV_LM_STEPS // 2,
+          f"LM snapshots {watch.writes}")
+    pair = (os.path.join(root, "lm0", "model.2"),
+            os.path.join(root, "lm0", "optimMethod.2"))
+    rwatch, rlosses = lm_run(samples, held, os.path.join(root, "lmr"),
+                             resume=pair)
+    tail = list(range(3, TV_LM_STEPS + 1))
+    resumed = [rlosses.get(k) for k in tail]
+    first, second = [losses[k] for k in tail], [losses2[k] for k in tail]
+    ok, rule, spread = resume_rule(resumed, first, second)
+    check(ok, f"resumed LM losses {resumed} vs {first} / {second}")
+    check(all(c == per_step for c in rwatch.steps),
+          f"resumed LM launches {rwatch.steps}")
+    vms = [v["ms"] / batches for v in watch.validations]
+    return {"batch": LM_BATCH, "seq": T, "steps": TV_LM_STEPS,
+            "step_ms": watch.step_ms, "launches_per_step": watch.steps[0],
+            "validation_launches": watch.validations[0]["launches"],
+            "validation_ms_per_batch": vms,
+            "validation_batch": [TV_LM_VAL_BATCH, T, V],
+            "validation_results": watch.validations[-1]["results"],
+            "snapshots": watch.writes,
+            "losses": [losses[k] for k in sorted(losses)],
+            "losses_second_run": [losses2[k] for k in sorted(losses2)],
+            "resumed_losses": resumed, "resume_rule": rule,
+            "resume_spread": spread}
+
+
+def tv_generator(root):
+    """The float32 small LM with dropout 0.1: 2 steps, a snapshot, resume,
+    2 more; the resumed losses bit-equal to the uninterrupted run's."""
+    set_policy(DTypePolicy())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    samples = lm_samples(16, LM_SMALL["max_len"], LM_SMALL["vocab_size"],
+                         SEED + 11)
+
+    def run(ckpt, resume=None):
+        m = TransformerLM(**LM_SMALL, dropout=0.1).build(
+            "cuda", torch.Generator().manual_seed(SEED))
+        ds = DataSet.array(samples, seed=SEED)
+        if resume is not None:
+            ds.shuffle()
+        opt = Optimizer(m, ds, nn.TimeDistributedCriterion(
+            nn.ClassNLLCriterion(), size_average=True), batch_size=8)
+        opt.set_optim_method(Adam(1e-3))
+        opt.set_checkpoint(ckpt, every_done(2))
+        if resume is not None:
+            opt.resume_from(*resume)
+        losses = {}
+
+        def end(state):
+            if state["neval"] > 1:
+                losses[state["neval"] - 1] = state["loss"]
+            return state["neval"] > 4
+        opt.set_end_when(Trigger(end, "steps")).optimize()
+        return losses
+    full = run(os.path.join(root, "g0"))
+    pair = (os.path.join(root, "g0", "model.2"),
+            os.path.join(root, "g0", "optimMethod.2"))
+    saved = file_io.load(pair[1])["torch_rng_state"]
+    resumed = run(os.path.join(root, "g1"), pair)
+    want, got = [full[3], full[4]], [resumed.get(3), resumed.get(4)]
+    check(got == want and saved is not None and saved["device"] == "cuda",
+          f"dropout LM resumed {got} vs {want}, generator {saved}")
+    return {"losses": [full[k] for k in sorted(full)], "resumed": got,
+            "generator_state_bytes": int(np.asarray(saved["state"]).size)}
+
+
+def tv_methods():
+    """Every ported method on the float32 small LM (TF32 off, no wire): 3
+    steps on the card and on the CPU, losses within F32_TRAIN_ATOL; and
+    the method's update run on the card from the CPU run's start with the
+    CPU run's gradients, step for step, parameters within TV_METHOD_RTOL
+    of the CPU's.  The trained parameters' card-vs-CPU difference is
+    reported, not held: the normalizing methods (Adagrad, Adamax,
+    RMSprop) turn the 1e-7 summation differences of gradient entries near
+    zero into lr-sized differences of those entries."""
+    float32_exact()
+    samples = lm_samples(24, LM_SMALL["max_len"], LM_SMALL["vocab_size"],
+                         SEED + 12)
+    methods = {
+        "SGD_nesterov": lambda: SGD(0.05, momentum=0.9, dampening=0.0,
+                                    nesterov=True, weight_decay=1e-4),
+        "Adam": lambda: Adam(1e-3), "Adagrad": lambda: Adagrad(1e-2),
+        "Adadelta": lambda: Adadelta(), "Adamax": lambda: Adamax(2e-3),
+        "RMSprop": lambda: RMSprop(1e-3)}
+
+    def crit():
+        return nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                           size_average=True)
+
+    def rel_diff(got, want, skip=()):
+        """Per parameter, max |got - want| over its largest magnitude; the
+        largest of those, and the parameter's name (names ending in one of
+        ``skip`` left out)."""
+        worst = (0.0, "")
+        for (n, a), b in zip(got, want):
+            if n.endswith(tuple(skip)):
+                continue
+            d = float((a.detach().cpu() - b.detach().cpu()).abs().max())
+            r = d / max(float(b.detach().abs().max()), 1e-30)
+            worst = max(worst, (r, n))
+        return worst
+    out = {}
+    for name, make in methods.items():
+        cpu = TransformerLM(**LM_SMALL).build(
+            "cpu", torch.Generator().manual_seed(SEED))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        start = [p.detach().to("cuda", copy=True) for p in cpu.parameters()]
+        card = train(gpu, samples, 3, 8, criterion=crit(), method=make())
+        method, seen = make(), []
+        update = method.update
+
+        def recording(grads, params, state, lr, update=update, seen=seen):
+            seen.append(([g.detach().clone() for g in grads], lr))
+            return update(grads, params, state, lr)
+        method.update = recording
+        host = train(cpu, samples, 3, 8, device="cpu", criterion=crit(),
+                     method=method)
+        again = make()
+        state = again.init_state(start)
+        for grads, lr in seen:
+            state = again.update([g.to("cuda") for g in grads], start,
+                                 state, lr)
+        names = [n for n, _ in cpu.named_parameters()]
+        same, same_at = rel_diff(zip(names, start), cpu.parameters())
+        trained, trained_at = rel_diff(gpu.named_parameters(),
+                                       cpu.parameters())
+        # without the key bias, whose gradient is zero in exact arithmetic
+        no_bk, no_bk_at = rel_diff(gpu.named_parameters(), cpu.parameters(),
+                                   skip=(".bk",))
+        loss_diff = max(abs(a - b) for a, b in zip(card, host))
+        check(len(seen) == 3 and same <= TV_METHOD_RTOL,
+              f"{name}: the update on the card vs the CPU {same} at "
+              f"{same_at}")
+        check(loss_diff <= F32_TRAIN_ATOL and all(map(math.isfinite, card)),
+              f"{name}: losses card {card} vs CPU {host}")
+        out[name] = {"same_gradients_max_rel_diff": same,
+                     "trained_max_rel_diff": trained,
+                     "trained_worst_param": trained_at,
+                     "trained_max_rel_diff_without_bk": no_bk,
+                     "trained_worst_param_without_bk": no_bk_at,
+                     "losses_card": card, "losses_cpu": host,
+                     "max_loss_diff": loss_diff}
+    return out
+
+
+def tv_lenet(root):
+    """The README's quick start on the port: LeNet-5 on synthetic MNIST,
+    Adam(3e-3), 8 epochs, Top1 validation and a snapshot every epoch."""
+    set_policy(DTypePolicy())
+    model = LeNet5(10)
+    opt = (Optimizer(model, DataSet.array(synthetic_mnist(512, SEED)),
+                     nn.ClassNLLCriterion(), batch_size=64)
+           .set_optim_method(Adam(3e-3))
+           .set_validation(Trigger.every_epoch(),
+                           synthetic_mnist(256, SEED + 1), [Top1Accuracy()])
+           .set_checkpoint(os.path.join(root, "lenet"), Trigger.every_epoch())
+           .set_end_when(Trigger.max_epoch(TV_LENET_EPOCHS)))
+    zero_counts()
+    zero_flash()
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    loss = opt.optim_method.hyper["loss"]
+    top1 = opt.optim_method.hyper["Top1Accuracy"]
+    kernels = {**counts(), "flash": attn_ops.flash_attention.launches}
+    check(loss < TV_LENET_LOSS and top1 >= TV_LENET_TOP1,
+          f"LeNet-5: loss {loss}, Top1 {top1}")
+    check(not any(kernels.values()), f"LeNet-5 launched {kernels}")
+    check(next(model.parameters()).device.type == "cuda",
+          "LeNet-5 did not train on the card")
+    n = len(file_io.checkpoint_lineage(os.path.join(root, "lenet")))
+    check(n == TV_LENET_EPOCHS, f"LeNet-5 snapshots {n}")
+    return {"final_loss": loss, "top1": top1, "epochs": TV_LENET_EPOCHS,
+            "wall_s": wall, "snapshots": n, "repo_kernel_launches": kernels}
+
+
+def phase_train_validate(train_step_ms):
+    """Validation, checkpoints and resume on the card: ResNet-50 and the
+    LM at full width, the Dropout generator carried across, every ported
+    method card vs CPU, and the README's LeNet-5 flow."""
+    t0 = time.perf_counter()
+    crc32c.native()                      # a failed build raises here
+    route = crc32c.route()
+    check(route.startswith("compiled"), f"CRC32C route {route}")
+    root = tempfile.mkdtemp(prefix="bigdl-torch-ckpt-")
+    old = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    # deterministic convolutions, so two uninterrupted runs can be
+    # bit-equal and the resumed one held to them bit for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        resnet = tv_resnet(train_step_ms, root)
+        lm = tv_lm(root)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = old
+        gen = tv_generator(root)
+        methods = tv_methods()
+        lenet = tv_lenet(root)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = old
+        shutil.rmtree(root, ignore_errors=True)
+        set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    emit({"phase": "train_validate", "gpu": gpu_line(), "crc32c_route": route,
+          "cudnn_deterministic": True, "resnet50": resnet, "lm": lm,
+          "dropout_generator": gen, "methods": methods, "lenet5": lenet,
+          "wall_s": time.perf_counter() - t0})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(sys.argv[2])
+    if sys.argv[1:3] == ["--only", "train_validate"]:
+        phase_build()
+        phase_train_validate(None)
+        return 0
     phase_build()
     rep = phase_kernels()
     model, launches, routes = phase_serve()
@@ -2410,11 +3057,12 @@ def main():
         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
         "ms_over_library": rep["ms_over_library"],
         "kernel_route": rep["route"], "route_launches": routes}]
-    train_rows, first_loss = phase_train()
+    train_rows, first_loss, step_ms = phase_train()
     rows += train_rows
     rows += phase_dp_train(first_loss)
     phase_dp_two_process()
     rows += phase_train_lm()
+    phase_train_validate(step_ms)
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

@@ -415,7 +415,7 @@ def test_engine_contract(monkeypatch):
 
 
 def test_unported_and_misused_strategies(monkeypatch):
-    for cls, item in ((ShardedDataParallel, "2"), (TensorParallel, "8"),
+    for cls, item in ((ShardedDataParallel, "4"), (TensorParallel, "8"),
                       (LayoutSharding, "8")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             cls()

@@ -1,5 +1,5 @@
 """No CUDA source of the port keeps a kernel attribute or an SM count in a
-``static``.
+``static``, and no kernel wrapper keeps an SM count in a module constant.
 
 A function attribute (``cudaFuncSetAttribute``: the dynamic shared memory
 a kernel may take) belongs to the current device's context, and so does
@@ -10,9 +10,14 @@ first card's grid.  Every launch sets the attribute and asks for the
 count instead (``csrc/hopper.cuh`` ``allow_smem``, ``sm_count``).  A box
 with one card cannot launch on a second, so this reads the sources: the
 check ``static_holders`` makes is held to the forms it must find and the
-ones it must pass, then run on every ``bigdl_torch/csrc`` file.
+ones it must pass, then run on every ``bigdl_torch/csrc`` file.  The same
+holds of the host side: a wrapper that sizes its launch by the SM count
+asks the launching device (``ops/decode_attention.py`` ``sm_count``), so
+``sm_constants`` finds a module-level integer named for SMs in every
+``bigdl_torch/ops`` module.
 """
 
+import ast
 import glob
 import os
 import re
@@ -21,6 +26,7 @@ import pytest
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_REPO, "bigdl_torch", "csrc")
+_OPS = os.path.join(_REPO, "bigdl_torch", "ops")
 
 #: a call whose result is per device
 _PER_DEVICE = re.compile(r"cudaFuncSetAttribute|allow_smem|sm_count|"
@@ -162,3 +168,78 @@ def test_no_static_kernel_attribute_or_sm_count(path):
     assert bad == [], (f"{os.path.basename(path)} keeps {bad} in a static: "
                        "set the attribute and ask for the SM count on every "
                        "launch (csrc/hopper.cuh allow_smem, sm_count)")
+
+
+#: a name that speaks of streaming multiprocessors
+_SM_NAME = re.compile(r"(?:^|_)SMS(?:$|_)|SM_?COUNT|MULTI_?PROCESSOR",
+                      re.I)
+
+
+def sm_constants(src):
+    """Names bound at module level in Python ``src`` to an integer literal
+    (or an expression of literals) whose name speaks of SMs."""
+    bad = []
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign):
+            targets, value = node.targets, node.value
+        elif isinstance(node, ast.AnnAssign) and node.value is not None:
+            targets, value = [node.target], node.value
+        else:
+            continue
+        literal = all(isinstance(n, (ast.Constant, ast.BinOp, ast.UnaryOp,
+                                     ast.operator, ast.unaryop,
+                                     ast.expr_context))
+                      for n in ast.walk(value))
+        consts = [n.value for n in ast.walk(value)
+                  if isinstance(n, ast.Constant)]
+        if not literal or not consts or \
+                not all(isinstance(c, int) for c in consts):
+            continue
+        for t in targets:
+            for n in ast.walk(t):
+                if isinstance(n, ast.Name) and _SM_NAME.search(n.id):
+                    bad.append(n.id)
+    return bad
+
+
+SM_FLAGGED = {
+    "sms": "SMS = 132",
+    "annotated": "NUM_SMS: int = 132",
+    "card_named": "H100_SMS = 132",
+    "count": "sm_count = 114",
+    "expression": "SM_COUNT = 2 * 66",
+    "properties": "MULTIPROCESSORS = 132",
+}
+
+SM_PASSED = {
+    "per_device_cache": "_sm_counts = {}",
+    "other_constant": "MAX_SPLITS = 8\nMIN_ROWS = 32",
+    "per_sm_ratio": "_VEC_BLOCKS_PER_SM = 2",
+    "asked": "SMS = torch.cuda.get_device_properties(0)"
+             ".multi_processor_count",
+    "local": "def splits(S, sms):\n    SMS = 132\n    return S * SMS",
+    "argument": "def splits(S, H, L, sms):\n    return S * H < sms",
+}
+
+
+@pytest.mark.parametrize("form", sorted(SM_FLAGGED))
+def test_check_finds_a_module_sm_constant(form):
+    assert sm_constants(SM_FLAGGED[form]), SM_FLAGGED[form]
+
+
+@pytest.mark.parametrize("form", sorted(SM_PASSED))
+def test_check_passes_asked_and_other_forms(form):
+    assert sm_constants(SM_PASSED[form]) == [], SM_PASSED[form]
+
+
+def _ops_modules():
+    return sorted(glob.glob(os.path.join(_OPS, "*.py")))
+
+
+@pytest.mark.parametrize("path", _ops_modules(), ids=os.path.basename)
+def test_no_module_sm_constant_in_ops(path):
+    with open(path) as f:
+        bad = sm_constants(f.read())
+    assert bad == [], (f"{os.path.basename(path)} keeps {bad} at module "
+                       "level: ask the launching device for its SM count "
+                       "(ops/decode_attention.py sm_count)")

@@ -122,7 +122,7 @@ def main():
                 if S > 1:
                     pos[1] = 0
             pos = pos.cuda()
-            C = dec.splits(S, H, L)
+            C = dec.splits(S, H, L, dec.sm_count(q.device))
             want = dec.decode_attention_reference(
                 q, k_new, v_new, k.clone(), v.clone(), pos).float()
             atol, rtol = cs.DECODE_TOL[dtype]
