@@ -10,7 +10,10 @@ ResNet through ``Optimizer`` with the training BatchNorm and conv-BN
 kernels in CUDA; slice 3 trains it data-parallel over the ``Engine``'s
 process group, with sync-BN's statistics kernel in CUDA; later slices
 train TransformerLM, decode over a KV cache, and add validation,
-checkpoints and resume in the reference's file format.
+checkpoints and resume in the reference's file format, then the long-run
+half of training: gradient accumulation, remat, layer-wise scales, EMA and
+LBFGS, the retry loop with supervision, chaos points and preemption,
+asynchronous and remote checkpoints, and summaries (``visualization``).
 
 It imports torch and never jax or bigdl_tpu.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.

@@ -18,10 +18,14 @@ pool:
   ``next()``, after every item before it;
 - clean shutdown: ``close()`` signals the worker, drains the queue (so a
   worker parked on a full queue wakes), joins it and closes the source;
-  it is idempotent, and the context manager calls it.
+  it is idempotent, and the context manager calls it;
+- supervision: given a ``supervisor`` (``utils/supervisor.py``) the worker
+  beats a channel of its own under ``phase`` (``"data"``) before each item
+  and while it waits on a full queue, so only a worker stuck producing
+  goes silent; the ``StallError`` the supervisor raises into the worker is
+  forwarded to the consumer's ``next()`` like any other error.
 
-The reference's supervisor heartbeat channel and telemetry spans are not
-ported (they come with the port's supervisor and telemetry modules).
+The reference's telemetry spans are not ported (ROADMAP queue A item 6).
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ class PrefetchIterator:
     def __init__(self, source, depth: Optional[int] = None,
                  transform: Optional[Callable] = None,
                  pre_fire: Optional[Callable[[], None]] = None,
-                 name: str = "bigdl-prefetch"):
+                 name: str = "bigdl-prefetch", supervisor=None,
+                 phase: str = "data"):
         self._source = iter(source)
         self.depth = prefetch_depth() if depth is None else max(1, int(depth))
         self._transform = transform
@@ -67,16 +72,24 @@ class PrefetchIterator:
         self._q: queue.Queue = queue.Queue(maxsize=self.depth)
         self._stop = threading.Event()
         self._finished = False
+        self._phase = phase
+        self._chan = (supervisor.channel(name, phase=phase)
+                      if supervisor is not None else None)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=name)
         self._thread.start()
 
     # -- worker ---------------------------------------------------------
 
+    def _beat(self) -> None:
+        if self._chan is not None:
+            self._chan.beat(self._phase)
+
     def _run(self) -> None:
         kind, payload = _DONE, None
         try:
             while not self._stop.is_set():
+                self._beat()
                 if self._pre_fire is not None:
                     self._pre_fire()
                 try:
@@ -87,18 +100,25 @@ class PrefetchIterator:
                     item = self._transform(item)
                 if not self._put((_ITEM, item)):
                     return  # closed while the queue was full
-        except BaseException as e:  # noqa: BLE001 - forwarded to next()
+        except BaseException as e:  # noqa: BLE001 - forwarded to next(),
+            # a StallError raised into this thread included
             kind, payload = _ERR, e
-        self._put((kind, payload))
+        try:
+            self._put((kind, payload))
+        finally:
+            if self._chan is not None:
+                self._chan.close()
 
     def _put(self, item) -> bool:
-        """A bounded put that notices close() within 50 ms."""
+        """A bounded put that notices close() within 50 ms; a worker
+        waiting on a full queue is paced by the consumer, so each wait
+        slice beats the channel."""
         while not self._stop.is_set():
             try:
                 self._q.put(item, timeout=0.05)
                 return True
             except queue.Full:
-                pass
+                self._beat()
         return False
 
     # -- consumer -------------------------------------------------------
@@ -153,6 +173,8 @@ class PrefetchIterator:
                 close()
             except Exception:  # noqa: BLE001 - finalization is best-effort
                 logger.exception("prefetch source close failed")
+        if self._chan is not None:
+            self._chan.close()
         self._finished = True
 
     def __enter__(self) -> "PrefetchIterator":

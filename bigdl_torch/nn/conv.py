@@ -10,14 +10,15 @@ writes a ``channels_last`` output, whose permutation back to NHWC is
 contiguous again.  x and w are cast to the policy's compute dtype; bf16
 convolutions accumulate in float32 inside the library, as the TPU's
 matrix unit does.  The reference's ``_pad_tiny_cin`` works around a TPU
-compiler pathology and changes no numbers, so it is not ported.
+compiler pathology and changes no numbers, so it is not ported.  Under
+``Optimizer.set_remat("conv_out")`` the convolution's output is the tensor
+kept for the backward (``utils/remat.py``), the reference's ``conv_out``.
 """
 
 from __future__ import annotations
 
-import torch.nn.functional as F
-
 from ..common import get_policy
+from ..utils import remat
 from .initialization import default_bias_init, default_weight_init
 from .module import Module
 
@@ -74,10 +75,11 @@ class SpatialConvolution(Module):
 
     def forward(self, x):
         c = get_policy().compute_dtype
-        y = F.conv2d(x.to(c).permute(0, 3, 1, 2),
-                     self.weight.to(c).permute(3, 2, 0, 1),
-                     stride=self.stride, padding=self.pad,
-                     groups=self.n_group).permute(0, 2, 3, 1)
+        # under set_remat("conv_out") the output is the kept tensor
+        y = remat.conv2d(x.to(c).permute(0, 3, 1, 2),
+                         self.weight.to(c).permute(3, 2, 0, 1),
+                         self.stride, self.pad,
+                         self.n_group).permute(0, 2, 3, 1)
         if self.with_bias:
             y = y + self.bias.to(y.dtype)
         return y

@@ -23,8 +23,15 @@ and validation methods it scores the model through ``optim.Evaluator``,
 and ``predict`` / ``predict_class`` run ``optim.Predictor``
 (``bigdl_tpu/nn/module.py:415-433, 570-580``).  Every module has a name
 (``set_name`` / ``get_name``), ``<Class>_<n>`` until one is set.
-Gradients come from ``loss.backward()``; the rest of the Torch-style
-facade (``backward``, ``get_parameters``, ``scale_w``) is not ported.
+Gradients come from ``loss.backward()``.  ``scale_w`` and ``scale_b``
+are the layer-wise gradient scales (``AbstractModule.scala:73``): the
+Optimizer multiplies each parameter's gradient, its regularizer term
+included, by its module's ``scale_b`` (a parameter named ``bias``) or
+``scale_w`` (every other one); ``set_scale_w`` / ``set_scale_b`` pass the
+scale down to a container's children.  The eager step reads the scales
+every step, so the reference's scale epoch (which rebuilds a compiled
+step) has no counterpart.  The rest of the Torch-style facade
+(``backward``, ``get_parameters``) is not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +66,38 @@ class Module(torch.nn.Module):
         # initializer overrides (BigDL: abstractnn/Initializable.scala:23)
         self.weight_initializer = None
         self.bias_initializer = None
+        # layer-wise gradient scales (AbstractModule.scala:73)
+        self.scale_w = 1.0
+        self.scale_b = 1.0
+
+    def set_scale_w(self, s: float):
+        """Layer-wise weight-gradient scale; a container passes it to its
+        children (the reference's Container.setScaleW)."""
+        self.scale_w = s
+        for m in getattr(self, "layers", ()):
+            m.set_scale_w(s)
+        return self
+
+    def set_scale_b(self, s: float):
+        """(AbstractModule.setScaleB; passed down as ``set_scale_w``.)"""
+        self.scale_b = s
+        for m in getattr(self, "layers", ()):
+            m.set_scale_b(s)
+        return self
+
+    def _grad_scales(self):
+        """The gradient scale of each parameter, in ``parameters()``
+        order: its own module's ``scale_b`` for a parameter named
+        ``bias``, ``scale_w`` for the rest (the reference's
+        ``_grad_scale_tree``).  None when every scale is 1, so the step
+        skips the multiply."""
+        scales, ones = [], True
+        for mod in self.modules():
+            for name, _ in mod.named_parameters(recurse=False):
+                s = float(mod.scale_b if name == "bias" else mod.scale_w)
+                scales.append(s)
+                ones = ones and s == 1.0
+        return None if ones else scales
 
     def _init(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """This module's own parameters, drawn from ``generator``."""

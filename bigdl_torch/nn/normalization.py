@@ -18,6 +18,7 @@ import torch
 from ..common import get_policy
 from ..ops.batchnorm import bn_train, bn_train_sync, global_rows
 from ..utils.engine import Engine
+from ..utils import remat
 from .module import Module
 
 __all__ = ["BatchNormalization", "SpatialBatchNormalization", "LayerNorm"]
@@ -94,11 +95,17 @@ class BatchNormalization(Module):
         shift = self.bias - self.running_mean * scale
         return x * scale.to(x.dtype) + shift.to(x.dtype)
 
-    @torch.no_grad()
     def _ema_update(self, mean, var, n: int) -> None:
         """Torch's convention (reference ``_ema_update``): normalize with
         the biased batch var, accumulate the unbiased one; ``n`` is the
-        count of rows the statistics were taken over."""
+        count of rows the statistics were taken over.  Under remat the
+        update runs once, after the checkpointed forward, and never in its
+        recompute (``utils/remat.py``)."""
+        if not remat.defer_ema(lambda: self._apply_ema(mean, var, n)):
+            self._apply_ema(mean, var, n)
+
+    @torch.no_grad()
+    def _apply_ema(self, mean, var, n: int) -> None:
         m = self.momentum
         unbiased = var * (n / max(n - 1, 1))
         dt = self.running_mean.dtype

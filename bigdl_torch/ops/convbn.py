@@ -30,6 +30,11 @@ path) they are sync-BN, as the reference's ``axis_name`` route
 all-reduced over the group, each as one packed buffer, the statistics and
 dx use the global row count, and dγ, dβ (like dw) stay this rank's sums
 for the Optimizer's average over ranks.
+
+Under ``Optimizer.set_remat("conv_out")`` B5's (y, Σy, Σy²) are the
+tensors kept for the backward (``utils/remat.py`` ``conv_out``): the
+recompute takes them back and launches no B5; under ``"full"`` it
+launches B5 again.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import threading
 
 import torch
 
+from ..utils import remat
 from .batchnorm import all_reduce_pair, bn_grad_stats, global_rows
 
 __all__ = ["matmul_stats", "matmul_stats_reference", "route",
@@ -186,7 +192,8 @@ class _FusedConvBN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, w2, bias, gamma, beta, eps, group):
-        y, s, ss = matmul_stats(x2, w2, bias)
+        # B5's output is the conv_out a remat recompute takes back
+        y, s, ss = remat.conv_out(lambda: matmul_stats(x2, w2, bias))
         mean, var, inv, scale, shift = _stats(s, ss, x2.shape[0], gamma,
                                               beta, eps, group)
         ctx.save_for_backward(x2, w2, y, mean, inv, gamma, bias)
@@ -206,7 +213,8 @@ class _FusedConvBNAddReLU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, w2, bias, gamma, beta, resid2, eps, group):
-        y, s, ss = matmul_stats(x2, w2, bias)
+        # B5's output is the conv_out a remat recompute takes back
+        y, s, ss = remat.conv_out(lambda: matmul_stats(x2, w2, bias))
         mean, var, inv, scale, shift = _stats(s, ss, x2.shape[0], gamma,
                                               beta, eps, group)
         z = torch.clamp_min(_normalize(y, scale, shift) + resid2, 0)

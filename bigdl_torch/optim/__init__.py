@@ -1,10 +1,11 @@
 """Training and inference engines, optimization methods, schedules,
 regularizers, triggers and validation methods."""
 
-from .method import (SGD, Adadelta, Adagrad, Adam, Adamax, OptimMethod,
-                     RMSprop)
-from .optimizer import (DistriValidator, Evaluator, LocalValidator,
-                        NonFiniteLossError, Optimizer, Predictor, Validator)
+from .method import (EMA, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
+                     OptimMethod, RMSprop)
+from .optimizer import (ConfigurationError, DistriValidator, Evaluator,
+                        LocalValidator, NonFiniteLossError, Optimizer,
+                        Predictor, TrainingPreempted, Validator)
 from .regularizer import (L1L2Regularizer, L1Regularizer, L2Regularizer,
                           Regularizer)
 from .schedules import (CosineDecay, Default, EpochDecay, EpochSchedule,
@@ -19,8 +20,9 @@ from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss,
 
 __all__ = ["Optimizer", "Predictor", "Evaluator", "Validator",
            "DistriValidator", "LocalValidator", "NonFiniteLossError",
-           "OptimMethod", "SGD", "Adam", "Adagrad", "Adadelta", "Adamax",
-           "RMSprop", "LearningRateSchedule", "Default", "Poly", "Step",
+           "ConfigurationError", "TrainingPreempted", "OptimMethod", "SGD",
+           "Adam", "Adagrad", "Adadelta", "Adamax", "RMSprop", "LBFGS",
+           "EMA", "LearningRateSchedule", "Default", "Poly", "Step",
            "MultiStep", "EpochDecay", "EpochStep", "NaturalExp",
            "Exponential", "EpochSchedule", "Regime", "Plateau",
            "SequentialSchedule", "Warmup", "CosineDecay", "Regularizer",

@@ -75,19 +75,62 @@ Samples batch with ``SampleToMiniBatch(pad_last=True)`` and score only each
 batch's valid rows; the forward of batch i+1 is queued before batch i's
 output is copied to the host (through :class:`HostCopy`).
 
-Not ported yet (ROADMAP queue A item 3): gradient accumulation, remat,
-layer-wise gradient scales, the retry loop, supervision and chaos points,
-remote, asynchronous and published checkpoints, summaries, and the
-strategies other than ``DataParallel``.
+The long-run half of the step (``:137-177``, ``:801-860``):
+``set_gradient_accumulation(k)`` splits each batch along axis 0 into k
+contiguous microbatches, each run forward and backward in order
+(BatchNorm's running statistics advance once per microbatch, each draws
+its own Dropout masks); the gradients are summed, then divided by k, and
+the loss is the microbatches' mean.  ``set_remat`` runs each segment of
+each microbatch's forward (the children of nested ``Sequential`` s,
+:func:`_segments`) under ``torch.utils.checkpoint`` (``utils/remat.py``).  The
+layer-wise scales (``Module.scale_w`` / ``scale_b``) multiply the
+gradients after the regularizer, so a scale of 0 freezes a layer, weight
+decay included.
+
+The fault-tolerant run (``:1044-1188``, ``:1276-1307``): ``optimize()``
+retries a failed attempt, a :class:`NonFiniteLossError` or a supervisor's
+``StallError`` included, up to ``BIGDL_TORCH_RETRY_TIMES`` within each
+``BIGDL_TORCH_RETRY_INTERVAL`` window, resuming from the checkpoint
+lineage; before the first snapshot it restores the host copy of the
+starting parameters, buffers, method state and Dropout generator it took
+at the start (a failed update leaves the in-place tensors half-updated).
+``KeyboardInterrupt``, :class:`ConfigurationError` and
+:class:`TrainingPreempted` are re-raised, and so is every failure without
+a checkpoint path.  A CUDA error that poisons the context fails every
+retry the same way: the budget runs out and the original error is raised.
+With a checkpoint path, SIGTERM sets a flag; at the next iteration
+boundary (under a group, one small all-reduce of the flag, so every rank
+stops at the same one) the driver writes a snapshot, drains asynchronous
+writes and raises :class:`TrainingPreempted`.  ``set_supervision`` arms
+``utils/supervisor.py``'s watchdog over the loop's phases and the input
+worker; chaos points (``utils/chaos.py``): ``data.stall``, ``data.batch``
+(in the worker when prefetching), ``step.stall``, ``step.loss_nan``.
+
+``set_checkpoint(async_write=True)`` copies the snapshot to pinned host
+memory on a side stream, ordered after the iteration's update by the
+stream's wait; the next step's stream waits on that copy's event before it
+changes a parameter or buffer, and only the pickle, the CRC and the write
+run on ``file_io``'s writer thread.  A write error surfaces at the next
+boundary or at the end of the run.  Paths with a scheme go through
+``file_io``'s registered or fsspec filesystems.  ``set_train_summary``
+writes Loss, LearningRate and Throughput every iteration and, under its
+``"Parameters"`` trigger, a histogram of every parameter (copied to the
+host only then); ``set_validation_summary`` every validation result.
+
+Not ported yet: ``set_checkpoint(publish=...)`` (ROADMAP queue A item 5),
+``set_drop_module_property`` (queue A item 3), the elastic recovery and
+the strategies other than ``DataParallel`` (items 4 and 6).
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import logging
 import math
 import os
 import re
+import signal
 import threading
 import time
 from typing import Optional, Sequence
@@ -103,7 +146,8 @@ from ..nn.dropout import dropout_rng
 from ..nn.module import Module
 from ..parallel.sharding import DataParallel, ShardingStrategy
 from ..parallel.wire import wire_cast
-from ..utils import config, file_io
+from ..utils import chaos, config, file_io, remat
+from ..utils import supervisor as supervision
 from ..utils.convert import (check_reference_tree, load_reference_opt_state,
                              load_reference_tree, to_reference_opt_state,
                              to_reference_tree)
@@ -118,7 +162,7 @@ logger = logging.getLogger("bigdl_torch")
 
 __all__ = ["Optimizer", "Predictor", "Evaluator", "Validator",
            "DistriValidator", "LocalValidator", "NonFiniteLossError",
-           "HostCopy", "to_host"]
+           "ConfigurationError", "TrainingPreempted", "HostCopy", "to_host"]
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -185,7 +229,18 @@ class HostCopy:
 
 
 class NonFiniteLossError(RuntimeError):
-    """The host-observed training loss went NaN or Inf."""
+    """The host-observed training loss went NaN or Inf: the retry loop
+    resumes from the newest valid snapshot."""
+
+
+class ConfigurationError(ValueError):
+    """A setup error no retry can fix (a batch the accumulation steps do
+    not divide, an epoch with no batch): the retry loop re-raises it."""
+
+
+class TrainingPreempted(RuntimeError):
+    """Raised after SIGTERM's final snapshot: the process is being
+    evicted, and its next incarnation resumes from the lineage."""
 
 
 def _as_dataset(dataset):
@@ -195,6 +250,52 @@ def _as_dataset(dataset):
             isinstance(dataset[0], Sample):
         return DataSet.array(list(dataset))
     return dataset
+
+
+def _find_batchers(dataset):
+    """Every SampleToMiniBatch in a dataset's transformer chain."""
+    batchers = []
+
+    def walk(obj):
+        if obj is None:
+            return
+        if isinstance(obj, SampleToMiniBatch):
+            batchers.append(obj)
+        for attr in ("first", "second", "transformer", "base"):
+            walk(getattr(obj, attr, None))
+    walk(dataset)
+    return batchers
+
+
+def _segments(model):
+    """The checkpointed segments of a remat step: the children of a
+    top-level ``Sequential``, a child that is itself a ``Sequential``
+    opened in turn (ResNet-50's stem layers and bottlenecks, the LM's
+    embeddings, attention and MLP halves and head); a model of another
+    kind is one segment.  One checkpoint over the whole forward would
+    rebuild every activation at once at the start of the backward, which
+    is the peak without remat; a segment rebuilds only its own."""
+    from ..nn.containers import Sequential
+    if type(model).forward is not Sequential.forward or \
+            len(model.layers) < 2:
+        return [model]
+    return [seg for child in model.layers for seg in _segments(child)]
+
+
+def _param_paths(model):
+    """(name, parameter) in the reference's tree order, each name its
+    path in the param tree (``"3/1/weight"``), as the reference names
+    its histograms."""
+    from ..nn.module import Container
+
+    def walk(m, path):
+        if isinstance(m, Container):
+            for i, c in enumerate(m.layers):
+                yield from walk(c, path + [str(i)])
+        else:
+            for n in sorted(m.param_names):
+                yield "/".join(path + [n]), getattr(m, n)
+    return list(walk(model, []))
 
 
 def _put_batch(x, device):
@@ -222,7 +323,9 @@ class _Stager:
     host-to-device copy is issued with ``non_blocking=True`` on a side
     stream, followed by an event the consumer's stream waits on
     (:func:`_consume`).  The buffers form a ring of ``slots``; a slot is
-    rewritten only after its previous copy's event has completed."""
+    rewritten only after its previous copy's event has completed.  The
+    Optimizer keeps one stager across epochs and retries, so its pinned
+    memory does not grow with either (:meth:`pinned_bytes`)."""
 
     def __init__(self, device: torch.device, slots: int):
         self.device = device
@@ -231,6 +334,11 @@ class _Stager:
         self._next = 0
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)
+
+    def pinned_bytes(self) -> int:
+        """The bytes of pinned memory the ring holds."""
+        return sum(b.numel() * b.element_size() for slot in self._slots
+                   for b in slot["bufs"] if b is not None)
 
     def _pinned(self, slot, i, a: np.ndarray) -> torch.Tensor:
         src = torch.from_numpy(np.ascontiguousarray(a))
@@ -472,6 +580,20 @@ class Optimizer:
         self._kept_epoch_block = 0
         self.grad_clip_const = None
         self.grad_clip_norm = None
+        self.checkpoint_async = False
+        self.train_summary = None
+        self.validation_summary = None
+        self.remat_policy = None
+        self.grad_accum_steps = 1
+        self._supervise_cfg = None
+        self._sup = None
+        self._stager = None
+        self._ckpt_futures: list = []
+        self._ckpt_stream = None
+        self._snap_event = None
+        self._initial_blob = None
+        self._preempted = False
+        self._preemption_armed = False
         # set by resume_from, taken by the next optimize()
         self._resume_state = None
         self._resume_opt_state = None
@@ -514,27 +636,106 @@ class Optimizer:
                        keep_last: Optional[int] = None,
                        keep_every_epochs: Optional[int] = None,
                        publish=None, publish_every: int = 1):
-        """Write a snapshot pair into ``path`` whenever ``trigger`` fires.
-        ``keep_last`` keeps only the newest K pairs; ``keep_every_epochs``
-        also keeps the first snapshot of every N-th epoch.  None defers to
+        """Write a snapshot pair into ``path`` (a local path, or one with a
+        scheme ``file_io`` routes) whenever ``trigger`` fires.
+        ``async_write`` takes the device-to-host copy on the step's path
+        and leaves the pickle and the write to a background thread (a
+        preemption's final snapshot is always synchronous).  ``keep_last``
+        keeps only the newest K pairs; ``keep_every_epochs`` also keeps the
+        first snapshot of every N-th epoch.  None defers to
         ``BIGDL_TORCH_CKPT_KEEP_LAST`` / ``_CKPT_KEEP_EVERY_EPOCHS``; 0
-        keeps all.  Asynchronous writes and publication are not ported and
-        raise."""
-        if async_write:
-            raise NotImplementedError(
-                "set_checkpoint(async_write=True): asynchronous checkpoint "
-                "writes are not ported yet (ROADMAP queue A item 3)")
+        keeps all.  Publication is not ported and raises."""
         if publish:
             raise NotImplementedError(
-                "set_checkpoint(publish=...): release publication is not "
-                "ported yet (ROADMAP queue A item 3)")
-        file_io.get_filesystem(path)   # a remote scheme raises here
+                "set_checkpoint(publish=...): release publication feeds the "
+                "serving stack's deploy controller and is not ported yet "
+                "(ROADMAP queue A item 5)")
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger
         self.is_overwrite = is_overwrite
+        self.checkpoint_async = async_write
         self.ckpt_keep_last = keep_last
         self.ckpt_keep_every_epochs = keep_every_epochs
         return self
+
+    def set_train_summary(self, summary):
+        """Loss, LearningRate and Throughput every iteration, parameter
+        histograms under the summary's ``"Parameters"`` trigger
+        (``visualization.TrainSummary``)."""
+        self.train_summary = summary
+        return self
+
+    def set_validation_summary(self, summary):
+        """Every validation method's result at each validation
+        (``visualization.ValidationSummary``)."""
+        self.validation_summary = summary
+        return self
+
+    def set_remat(self, policy):
+        """Rematerialize the training forward in the backward, segment by
+        segment (the children of nested ``Sequential`` s): None (keep
+        everything), ``"full"``, ``"conv_out"`` (keep only the
+        convolutions' outputs) or a callable selective-checkpoint policy
+        (``utils/remat.py``).  Gradients and buffers are the unremat run's
+        bit for bit wherever the forward is deterministic."""
+        self.remat_policy = remat.check_policy(policy)
+        return self
+
+    def set_gradient_accumulation(self, steps: int):
+        """Split each batch into ``steps`` microbatches, their gradients
+        averaged before the one update; the batch size must be a multiple
+        of ``steps`` (checked when ``optimize()`` starts)."""
+        if steps < 1:
+            raise ValueError(f"set_gradient_accumulation: steps={steps}")
+        self.grad_accum_steps = int(steps)
+        return self
+
+    def set_supervision(self, data=None, step=None, checkpoint=None,
+                        validation=None, compile=None, default=None,
+                        policy=None, report_dir=None, peer_dir=None,
+                        peer_stale=None, poll_interval=None):
+        """Arm the stall watchdog (``utils/supervisor.py``): per-phase
+        deadlines in seconds for ``data`` (the loop's wait for a batch and
+        the input worker), ``step``, ``checkpoint``, ``validation``,
+        ``compile`` (each attempt's first step, unwatched by ``step``) and
+        ``default``; an omitted phase falls back to the
+        ``BIGDL_TORCH_SUPERVISE_*`` knobs, 0 disarms it.  A missed deadline
+        writes a crash report into ``report_dir`` (default: the checkpoint
+        path) and raises a ``StallError`` that the retry loop recovers from
+        (``policy="raise"``) or exits the process (``"exit"``).  The
+        multi-host arguments (``peer_dir``, ``peer_stale``) raise (ROADMAP
+        queue A item 6)."""
+        if peer_dir is not None or peer_stale is not None:
+            raise NotImplementedError(supervision._PEER_HALF)
+        self._supervise_cfg = {"data": data, "step": step,
+                               "checkpoint": checkpoint,
+                               "validation": validation,
+                               "compile": compile, "default": default,
+                               "policy": policy, "report_dir": report_dir,
+                               "poll_interval": poll_interval}
+        return self
+
+    def _build_supervisor(self):
+        """The Supervisor of this run, or None where no phase has a
+        deadline (supervision off, the default)."""
+        cfg = self._supervise_cfg or {}
+        deadlines, env_default = supervision.env_deadlines()
+        for phase in supervision.PHASES:
+            v = cfg.get(phase)
+            if v:
+                deadlines[phase] = float(v)
+            elif v == 0:
+                deadlines.pop(phase, None)   # an explicit 0 disarms a knob
+        default = cfg.get("default")
+        if default is None:
+            default = env_default
+        if not deadlines and not default:
+            return None
+        return supervision.Supervisor(
+            deadlines, default,
+            report_dir=cfg.get("report_dir") or self.checkpoint_path,
+            policy=cfg.get("policy"), rank=Engine.rank(),
+            world=Engine.world(), poll_interval=cfg.get("poll_interval"))
 
     def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
         self.grad_clip_norm = clip_norm
@@ -573,54 +774,142 @@ class Optimizer:
             grads = [g * scale.to(g.dtype) for g in grads]
         return grads
 
+    def _loss(self, inp, tgt, rng):
+        """The training forward and loss of one (micro)batch, Dropout
+        drawing from ``rng``.  Under a remat policy each segment of the
+        model (:func:`_segments`) runs checkpointed on its own, so that
+        the backward rebuilds one segment's activations at a time."""
+        if self.remat_policy is None:
+            with dropout_rng(rng):
+                return self.criterion(self.model(inp), tgt)
+        x = inp
+        for seg in _segments(self.model):
+            def fn(a, seg=seg):
+                with dropout_rng(rng):
+                    return seg(a)
+            x = remat.checkpointed(fn, self.remat_policy, rng, x)
+        with dropout_rng(rng):
+            return self.criterion(x, tgt)
+
+    def _microbatches(self, inp, tgt):
+        """(input, target) of each microbatch: contiguous slices along
+        axis 0, in order."""
+        k = self.grad_accum_steps
+        if k == 1:
+            return [(inp, tgt)]
+        if inp.shape[0] % k:
+            raise ConfigurationError(
+                f"gradient accumulation: batch {inp.shape[0]} not divisible "
+                f"by accumulation steps {k}")
+        m = inp.shape[0] // k
+        return list(zip(inp.split(m), tgt.split(m)))
+
     def _step(self, params, opt_state, inp, tgt, lr, rng):
-        """Forward in training mode (Dropout drawing from ``rng``), loss,
-        backward, the strategy's reduction, the regularizer terms, the
-        wire cast, clipping and the update; returns (the loss over the
-        global batch as a tensor, new method state).  The caller reads the
-        loss only after the update is queued, so the host launches the
-        rest while the card still runs the backward."""
+        """Forward and backward of each microbatch in order (Dropout
+        drawing from ``rng``, under the remat policy), their gradients
+        summed and divided by the accumulation steps, the strategy's
+        reduction, the regularizer terms, the layer-wise scales, the wire
+        cast, clipping and the update; returns (the loss over the global
+        batch as a tensor, new method state).  The caller reads the loss
+        only after the update is queued, so the host launches the rest
+        while the card still runs the backward."""
+        if self._snap_event is not None:
+            # an asynchronous snapshot's copy must read this iteration's
+            # tensors before the forward (BatchNorm's buffers) or the
+            # update changes them
+            torch.cuda.current_stream(self.device).wait_event(
+                self._snap_event)
+            self._snap_event = None
         for p in params:
             p.grad = None
-        with dropout_rng(rng):
-            loss = self.criterion(self.model(inp), tgt)
-        loss.backward()
-        loss = loss.detach()
+        micro = self._microbatches(inp, tgt)
+        losses = []
+        for x, t in micro:
+            loss = self._loss(x, t, rng)
+            loss.backward()
+            losses.append(loss.detach())
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        loss = losses[0]
+        if len(micro) > 1:
+            loss = sum(losses) / len(micro)
+            grads = [g / len(micro) for g in grads]
         if self.strategy is not None:
             grads, loss = self.strategy.reduce(grads, loss)
         grads = apply_regularizer_grads(self.model, params, grads)
+        scales = self.model._grad_scales()
+        if scales is not None:
+            grads = [g * s for g, s in zip(grads, scales)]
         grads = wire_cast(grads, get_policy().wire_dtype)
         grads = self._clip(grads)
         opt_state = self.optim_method.update(grads, params, opt_state, lr)
         return loss, opt_state
 
+    def _check_accum_batching(self):
+        """At ``optimize()`` entry, not mid-epoch: every batcher's batch
+        size divisible by the accumulation steps, and a last partial
+        batch dropped or padded (the reference's
+        ``_check_accum_batching``)."""
+        k = self.grad_accum_steps
+        if k <= 1:
+            return
+        try:
+            n_samples = self.dataset.size()
+        except Exception:  # noqa: BLE001 - the size is advisory here
+            n_samples = None
+        for b in _find_batchers(self.dataset):
+            if b.batch_size % k:
+                raise ConfigurationError(
+                    f"gradient accumulation: batch_size {b.batch_size} not "
+                    f"divisible by accumulation steps {k}")
+            if not b.drop_last and not b.pad_last and \
+                    (n_samples is None or n_samples % b.batch_size):
+                raise ConfigurationError(
+                    "gradient accumulation needs every batch divisible by "
+                    f"{k}: set drop_last=True or pad_last=True on "
+                    "SampleToMiniBatch")
+
     def _open_data_pipeline(self):
         """One epoch's batches: ``(iterator, pipe or None)``.  At depth 0
-        the iterator yields host MiniBatches, which the loop copies itself.
-        Otherwise a :class:`PrefetchIterator` yields ``(batch, staged)``,
-        ``staged`` being ``(input, target, event)`` from :class:`_Stager`,
-        or None with ``BIGDL_TORCH_PREFETCH_STAGE=0``.  Staging is on by
-        default on every rank: each rank copies only to its own device."""
+        the iterator yields host MiniBatches, which the loop copies itself
+        (and fires the data chaos points for).  Otherwise a
+        :class:`PrefetchIterator` yields ``(batch, staged)``, ``staged``
+        being ``(input, target, event)`` from the Optimizer's
+        :class:`_Stager`, or None with ``BIGDL_TORCH_PREFETCH_STAGE=0``;
+        its worker fires ``data.stall`` and ``data.batch`` and beats the
+        supervisor's ``data`` channel.  Staging is on by default on every
+        rank: each rank copies only to its own device."""
         src = self.dataset.data(train=True)
         depth = prefetch_depth()
         if depth <= 0:
             return iter(src), None
-        # the queue's batches, the one in the step and the one in the
-        # worker's hands each hold a slot
-        stager = (_Stager(self.device, depth + 2)
-                  if config.get_bool("PREFETCH_STAGE", True) else None)
+        stager = None
+        if config.get_bool("PREFETCH_STAGE", True):
+            # the queue's batches, the one in the step and the one in the
+            # worker's hands each hold a slot
+            if self._stager is None or self._stager.device != self.device \
+                    or len(self._stager._slots) != depth + 2:
+                self._stager = _Stager(self.device, depth + 2)
+            stager = self._stager
 
         def produce(batch):
+            # one count per minibatch, as on the synchronous path; a
+            # corrupt@ schedule poisons the batch before it is staged
+            batch = chaos.transform("data.batch", batch)
             return batch, None if stager is None else stager(batch)
 
         pipe = PrefetchIterator(src, depth=depth, transform=produce,
-                                name="bigdl-torch-prefetch")
+                                pre_fire=lambda: chaos.fire("data.stall"),
+                                name="bigdl-torch-prefetch",
+                                supervisor=self._sup)
         return pipe, pipe
 
     @staticmethod
     def _observe_loss(lossf: float, state) -> float:
+        """Every host read of the training loss: the ``step.loss_nan``
+        chaos point may corrupt it, and a non-finite value raises
+        :class:`NonFiniteLossError` into the retry loop."""
+        lossf = chaos.transform("step.loss_nan", lossf)
         if not math.isfinite(lossf):
             raise NonFiniteLossError(
                 f"non-finite training loss {lossf} observed at iteration "
@@ -633,6 +922,8 @@ class Optimizer:
         if self.validation_trigger is None or \
                 not self.validation_trigger(state):
             return
+        if self._sup is not None:
+            self._sup.beat("validation")
         results = self._run_validation()
         # Trigger.plateau's observation counter: one validation, one tick
         state["val_obs"] = state.get("val_obs", 0) + 1
@@ -644,6 +935,9 @@ class Optimizer:
             elif method.name in ("Loss", "Perplexity"):
                 state["val_loss"] = val
             state[method.name] = val
+            if self.validation_summary is not None:
+                self.validation_summary.add_scalar(method.name, val,
+                                                   state["neval"] - 1)
         self.last_validation = results
 
     def _run_validation(self):
@@ -667,41 +961,118 @@ class Optimizer:
 
     # -- checkpoints ------------------------------------------------------
 
-    def _checkpoint_decision(self, state) -> bool:
-        """Whether to write a snapshot now.  Every rank decides alike: the
-        triggers read the driver state, whose validation fields are summed
-        over the group."""
-        return self.checkpoint_path is not None and \
-            self.checkpoint_trigger is not None and \
-            bool(self.checkpoint_trigger(state))
+    def _checkpoint_decision(self, state, preempt: bool) -> bool:
+        """Whether to write a snapshot now: a preemption always does.
+        Every rank decides alike: the triggers read the driver state,
+        whose validation fields are summed over the group, and the
+        preemption flag is reduced over it (:meth:`_global_preempted`)."""
+        if self.checkpoint_path is None:
+            return False
+        return preempt or (self.checkpoint_trigger is not None
+                           and bool(self.checkpoint_trigger(state)))
 
-    def _write_checkpoint(self, state, opt_state, rng):
+    def _global_preempted(self) -> bool:
+        """The SIGTERM flag, under a group one all-reduce of it, so every
+        rank stops at the same boundary; no collective unless preemption
+        is armed (a checkpoint path, the same on every rank)."""
+        pre = self._preempted
+        if self._preemption_armed and Engine.group() is not None:
+            flag = torch.tensor([float(pre)], device=self.device)
+            pre = bool(Engine.all_reduce(flag, "preemption").item() > 0)
+        return pre
+
+    def _raise_ckpt_errors(self) -> None:
+        """An asynchronous write that failed raises here, at the next
+        boundary."""
+        done = [f for f in self._ckpt_futures if f.done()]
+        self._ckpt_futures = [f for f in self._ckpt_futures
+                              if not f.done()]
+        file_io.join_checkpoints(done)
+
+    def _drain_ckpt_futures(self, context="preemption stop") -> None:
+        """Join the pending asynchronous writes, logging a failure instead
+        of raising it: recovery and shutdown go on with older snapshots."""
+        try:
+            file_io.join_checkpoints(self._ckpt_futures)
+        except Exception as e:  # noqa: BLE001
+            logger.warning("asynchronous checkpoint write failed before %s "
+                           "(the older snapshots stand): %s", context, e)
+        self._ckpt_futures = []
+
+    def _fetch_async(self):
+        """The tensor-to-numpy map of an asynchronous snapshot: on CUDA a
+        pinned host copy issued on a side stream that first waits for all
+        the work queued so far (this iteration's update), its numpy view
+        returned before the copy lands, and the event after the copies
+        (which the writer and the next step wait on); on the CPU a plain
+        copy.  Returns (fetch, done): ``done()`` gives the event."""
+        if self.device.type != "cuda":
+            def fetch_cpu(t):
+                t = t.detach()
+                return (t.float() if t.dtype == torch.bfloat16
+                        else t.clone()).numpy()
+            return fetch_cpu, lambda: None
+        if self._ckpt_stream is None:
+            self._ckpt_stream = torch.cuda.Stream(self.device)
+        side = self._ckpt_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+
+        def fetch(t):
+            t = t.detach()
+            t.record_stream(side)
+            with torch.cuda.stream(side):
+                if t.dtype == torch.bfloat16:
+                    t = t.float()   # exact; numpy has no bfloat16
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+            return host.numpy()
+
+        def done():
+            event = torch.cuda.Event()
+            event.record(side)
+            return event
+        return fetch, done
+
+    def _write_checkpoint(self, state, opt_state, rng, preempt=False):
         """``model.<n>`` and ``optimMethod.<n>`` for the last finished
-        iteration n, written synchronously by rank 0 alone, then the
-        retention."""
+        iteration n, written by rank 0 alone, then the retention.
+        Asynchronous unless the reason is a preemption."""
+        if self._sup is not None:
+            self._sup.beat("checkpoint")
         if Engine.rank() != 0:
             return
         neval = state["neval"] - 1
-        params, net_state = to_reference_tree(self.model)
+        is_async = self.checkpoint_async and not preempt
+        fetch, done = self._fetch_async() if is_async else (None, None)
+        params, net_state = to_reference_tree(self.model, fetch)
         # the generator of a rank's Dropout masks: only one rank writes, so
         # under a group the ranks reseed on resume instead
         rng_state = None
         if Engine.group() is None:
             rng_state = {"device": rng.device.type,
                          "state": rng.get_state().numpy().copy()}
-        file_io.save_checkpoint(
-            self.checkpoint_path, neval,
-            {"params": params, "state": net_state},
-            {"method": self.optim_method.state_dict(),
-             "opt_state": to_reference_opt_state(
-                 self.model, self.optim_method, opt_state),
-             "rng_state": None,
-             "driver_state": {k: v for k, v in state.items()
-                              if not k.startswith("_")},
-             "torch_rng_state": rng_state},
-            overwrite=self.is_overwrite)
-        logger.info("checkpoint written at iteration %d -> %s", neval,
-                    self.checkpoint_path)
+        model_blob = {"params": params, "state": net_state}
+        optim_blob = {"method": self.optim_method.state_dict(),
+                      "opt_state": to_reference_opt_state(
+                          self.model, self.optim_method, opt_state, fetch),
+                      "rng_state": None,
+                      "driver_state": {k: copy.deepcopy(v)
+                                       for k, v in state.items()
+                                       if not k.startswith("_")},
+                      "torch_rng_state": rng_state}
+        if is_async:
+            event = done()
+            self._snap_event = event
+            self._ckpt_futures.append(file_io.save_checkpoint_async(
+                self.checkpoint_path, neval, model_blob, optim_blob,
+                overwrite=self.is_overwrite, ready=event))
+        else:
+            file_io.save_checkpoint(self.checkpoint_path, neval, model_blob,
+                                    optim_blob, overwrite=self.is_overwrite)
+        logger.info("checkpoint %s at iteration %d -> %s%s",
+                    "queued (async)" if is_async else "written", neval,
+                    self.checkpoint_path,
+                    " (preemption's final snapshot)" if preempt else "")
         self._apply_retention(neval, state)
 
     def _apply_retention(self, neval, state):
@@ -721,8 +1092,12 @@ class Optimizer:
                 self._kept_epoch_block = block
                 self._ckpt_keepers.add(neval)
         if keep_last > 0:
-            file_io.prune_checkpoints(self.checkpoint_path, keep_last,
-                                      keep=self._ckpt_keepers)
+            try:
+                file_io.prune_checkpoints(self.checkpoint_path, keep_last,
+                                          keep=self._ckpt_keepers)
+            except Exception as e:  # noqa: BLE001 - retention never fatal
+                logger.warning("retention pruning failed (non-fatal): %s",
+                               e)
 
     # -- resume -----------------------------------------------------------
 
@@ -833,21 +1208,138 @@ class Optimizer:
                                else self.device.type)
         return rng
 
+    # -- recovery ---------------------------------------------------------
+
+    def _host_blob(self):
+        """A host copy of what ``optimize()`` starts from: the parameters,
+        the buffers, the method state, the driver state and the Dropout
+        generator's state (the reference's ``_initial_blob``)."""
+        model = self.model
+        opt = self._resume_opt_state
+        return {"params": [p.detach().to("cpu", copy=True)
+                           for p in model.parameters()],
+                "buffers": [b.detach().to("cpu", copy=True)
+                            for b in model.buffers()],
+                "opt_state": None if opt is None else to_reference_opt_state(
+                    model, self.optim_method, opt),
+                "state": copy.deepcopy(self._resume_state),
+                "rng": copy.deepcopy(self._resume_rng)}
+
+    def _restore_blob(self, blob):
+        """Put the starting point back: the tensors in place, the rest as
+        if ``resume_from`` had just set it."""
+        with torch.no_grad():
+            for t, h in zip(itertools.chain(self.model.parameters(),
+                                            self.model.buffers()),
+                            blob["params"] + blob["buffers"]):
+                t.copy_(h)
+        self._resume_opt_state = (
+            None if blob["opt_state"] is None else load_reference_opt_state(
+                self.model, self.optim_method, blob["opt_state"]))
+        self._resume_state = copy.deepcopy(blob["state"])
+        self._resume_rng = copy.deepcopy(blob["rng"])
+
+    def _recover_from_checkpoint(self):
+        """After a failed attempt: the newest valid snapshot of the
+        lineage, or, with none, the starting point ``optimize()`` copied.
+        The failed attempt's tensors were updated in place, so it never
+        goes on from them."""
+        if self._sup is not None:
+            # recovery runs under the checkpoint deadline, not the step's
+            self._sup.beat("checkpoint")
+        # pending writes land (or fail) before the lineage is read
+        self._drain_ckpt_futures(context="recovery")
+        self._snap_event = None
+        if self._lineage_resume(self.checkpoint_path):
+            return
+        logger.warning("no valid checkpoint; restoring the starting weights "
+                       "for the retry")
+        self._restore_blob(self._initial_blob)
+
     # -- the loop ---------------------------------------------------------
 
     def _boundary(self, state, opt_state, rng):
-        """After an iteration or an epoch: validation first, so that a
-        trigger reading the score sees this boundary's, then the
-        checkpoint."""
-        self._maybe_validate(state)
-        if self._checkpoint_decision(state):
-            self._write_checkpoint(state, opt_state, rng)
+        """After an iteration or an epoch: validation first (skipped when
+        preempted), so that a trigger reading the score sees this
+        boundary's, then the checkpoint; a preemption then stops the
+        run."""
+        self._raise_ckpt_errors()
+        preempt = self._global_preempted()
+        if not preempt:
+            self._maybe_validate(state)
+        if self._checkpoint_decision(state, preempt):
+            self._write_checkpoint(state, opt_state, rng, preempt=preempt)
+        if preempt:
+            self._drain_ckpt_futures()
+            logger.warning("preemption signal observed: final checkpoint "
+                           "written, stopping")
+            raise TrainingPreempted(
+                "SIGTERM: final checkpoint written at iteration "
+                f"{state['neval'] - 1}; resume with Optimizer.resume_from")
 
     def optimize(self) -> Module:
-        """Run until the end trigger fires; returns the trained model."""
+        """Run until the end trigger fires, retrying failed attempts from
+        the checkpoint lineage; returns the trained model."""
+        self._initial_blob = None
+        self._preempted = False
+        self._preemption_armed = (
+            self.checkpoint_path is not None
+            and config.get_bool("PREEMPTION_CHECKPOINT", True))
+        old_handler = None
+        if self._preemption_armed:
+            def on_sigterm(signum, frame):
+                # a flag only: the next boundary acts on it
+                self._preempted = True
+            try:
+                old_handler = signal.signal(signal.SIGTERM, on_sigterm)
+            except ValueError:
+                pass   # not the main thread: no handler
+        self._sup = self._build_supervisor()
+        if self._sup is not None:
+            self._sup.beat("data")
+            self._sup.start()
+            supervision.set_active(self._sup)
+        try:
+            return self._optimize_with_retry()
+        finally:
+            if self._sup is not None:
+                self._sup.stop()
+                self._sup = None
+            if old_handler is not None:
+                signal.signal(signal.SIGTERM, old_handler)
+
+    def _optimize_with_retry(self) -> Module:
+        retries, last_failure = 0, None
+        max_retries = config.retry_times()
+        window = config.retry_time_interval()
+        while True:
+            try:
+                return self._optimize_impl()
+            except (KeyboardInterrupt, ConfigurationError,
+                    TrainingPreempted):
+                raise
+            except Exception:
+                now = time.monotonic()
+                # the count starts over when failures are farther apart
+                # than the window (DistriOptimizer.scala:752)
+                if last_failure is not None and now - last_failure > window:
+                    retries = 0
+                last_failure = now
+                retries += 1
+                if retries > max_retries or self.checkpoint_path is None:
+                    raise
+                logger.exception("training failed; recovering from the "
+                                 "checkpoint lineage (retry %d/%d)",
+                                 retries, max_retries)
+                self._recover_from_checkpoint()
+
+    def _optimize_impl(self) -> Module:
+        self._check_accum_batching()
         params = self._params()
         if self.strategy is not None:
             self.strategy.setup(self.model)
+        if self._initial_blob is None and self.checkpoint_path is not None:
+            self._initial_blob = self._host_blob()
         optim = self.optim_method
         opt_state, self._resume_opt_state = self._resume_opt_state, None
         if opt_state is None:
@@ -860,22 +1352,33 @@ class Optimizer:
         optim.hyper = state
         self.model.train()
         rng = self._dropout_generator()
+        beat = self._sup.beat if self._sup is not None else (lambda _p: None)
+        first_step = True
         while not self.end_trigger(state):
             self.dataset.shuffle()
             records = 0
             data, pipe = self._open_data_pipeline()
             try:
                 while True:
+                    chaos.at_position(state["epoch"], state["neval"])
+                    beat("data")
+                    if pipe is None:
+                        chaos.fire("data.stall")
                     t0 = time.perf_counter()
                     item = next(data, None)
                     if item is None or self.end_trigger(state):
                         break
                     if pipe is None:
-                        batch, staged = item, None
+                        batch, staged = chaos.transform("data.batch",
+                                                        item), None
                     else:
                         batch, staged = item
                     t1 = time.perf_counter()
                     self.metrics.add("get batch time average", t1 - t0)
+                    # the first step of an attempt builds the kernels
+                    beat("compile" if first_step else "step")
+                    first_step = False
+                    chaos.fire("step.stall")
                     if staged is None:
                         inp = _put_batch(batch.get_input(), self.device)
                         tgt = _put_batch(batch.get_target(), self.device)
@@ -885,9 +1388,11 @@ class Optimizer:
                     loss, opt_state = self._step(params, opt_state, inp, tgt,
                                                  lr, rng)
                     state["loss"] = self._observe_loss(float(loss), state)
-                    self.metrics.add("computing time average",
-                                     time.perf_counter() - t1)
-                    records += batch.size()
+                    dt = time.perf_counter() - t1
+                    self.metrics.add("computing time average", dt)
+                    n = batch.size()
+                    records += n
+                    self._summarize(state, lr, n / max(dt, 1e-9))
                     state["neval"] += 1
                     state["evalCounter"] += 1
                     self._boundary(state, opt_state, rng)
@@ -895,14 +1400,33 @@ class Optimizer:
                 if pipe is not None:
                     pipe.close()
             if records == 0:
-                raise ValueError(
+                raise ConfigurationError(
                     "epoch produced no minibatches: the dataset is smaller "
                     "than the batch size with drop_last=True")
             state["epoch"] += 1
             # every_epoch triggers see the epoch's increment here
             self._boundary(state, opt_state, rng)
+        file_io.join_checkpoints(self._ckpt_futures)
+        self._ckpt_futures = []
         self.final_opt_state = opt_state
+        self._initial_blob = None   # the run succeeded: drop the copy
         return self.model
+
+    def _summarize(self, state, lr, throughput):
+        """The train summary's scalars for this iteration and, when its
+        ``"Parameters"`` trigger fires, a histogram of every parameter
+        (the only time they are copied to the host)."""
+        summary = self.train_summary
+        if summary is None:
+            return
+        neval = state["neval"]
+        summary.add_scalar("Loss", state["loss"], neval)
+        summary.add_scalar("LearningRate", lr, neval)
+        summary.add_scalar("Throughput", throughput, neval)
+        trig = summary.get_summary_trigger("Parameters")
+        if trig is not None and trig(state):
+            for name, p in _param_paths(self.model):
+                summary.add_histogram(name, to_host(p), neval)
 
 
 class _Forward:

@@ -26,13 +26,25 @@ the kernels always run.
 | BIGDL_TORCH_DECODE_MIN_STEP_MS   | per-tick pacing floor                          | 0       |
 | BIGDL_TORCH_CKPT_KEEP_LAST       | snapshot pairs kept (0 = all)                  | 0       |
 | BIGDL_TORCH_CKPT_KEEP_EVERY_EPOCHS | also keep each N-th epoch's first (0 = off)  | 0       |
+| BIGDL_TORCH_RETRY_TIMES          | failed attempts the retry loop recovers from   | 5       |
+| BIGDL_TORCH_RETRY_INTERVAL       | seconds between failures that reset the count  | 120     |
+| BIGDL_TORCH_PREEMPTION_CHECKPOINT | SIGTERM -> a final snapshot, TrainingPreempted | 1       |
+| BIGDL_TORCH_IO_RETRIES           | remote-IO attempts per op after the first      | 3       |
+| BIGDL_TORCH_IO_BACKOFF_BASE      | remote-IO backoff base, seconds                | 0.05    |
+| BIGDL_TORCH_IO_BACKOFF_MAX       | remote-IO backoff cap, seconds                 | 2.0     |
+| BIGDL_TORCH_IO_DEADLINE          | seconds a retried remote op may take in all    | 60      |
+| BIGDL_TORCH_CHAOS                | fault-injection spec (``utils/chaos.py``)      | off     |
+| BIGDL_TORCH_SUPERVISE_DATA / _STEP / _COMPILE / _CHECKPOINT / _VALIDATION / _SERVE | per-phase stall deadline, seconds (``utils/supervisor.py``) | 0 (off) |
+| BIGDL_TORCH_SUPERVISE_DEADLINE   | stall deadline of the phases without their own | 0 (off) |
+| BIGDL_TORCH_SUPERVISE_POLICY     | ``raise`` a StallError or hard-``exit``        | raise   |
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["get_int", "get_float", "get_bool", "get_str", "seed"]
+__all__ = ["get_int", "get_float", "get_bool", "get_str", "seed",
+           "retry_times", "retry_time_interval"]
 
 
 def get_str(name: str, default: str) -> str:
@@ -62,3 +74,14 @@ def get_bool(name: str, default: bool = False) -> bool:
 
 def seed() -> int:
     return get_int("SEED", 0)
+
+
+def retry_times() -> int:
+    """(reference: bigdl.failure.retryTimes, DistriOptimizer.scala:751)."""
+    return get_int("RETRY_TIMES", 5)
+
+
+def retry_time_interval() -> float:
+    """Seconds between two failures beyond which the retry count starts
+    over (bigdl.failure.retryTimeInterval, DistriOptimizer.scala:752)."""
+    return get_float("RETRY_INTERVAL", 120.0)

@@ -17,7 +17,16 @@ tree.  :func:`to_reference_opt_state` and :func:`load_reference_opt_state`
 map one to the other by parameter identity (a leaf module's parameter by
 its name), not by position: the reference's tree flattens a leaf's dict
 in sorted key order, the port's list in registration order.  Scalar slots
-(Adam's int32 step count ``t``) pass as int32 arrays.
+(Adam's int32 step count ``t``) pass as int32 arrays.  ``EMA``'s state is
+``{"inner": <the inner method's>, "shadow": <a param tree>}``.  ``LBFGS``'s
+history is raveled: the reference flattens the whole param tree into one
+vector (``ravel_pytree``: containers in order, each leaf's dict in sorted
+key order), so ``s`` and ``y`` [m, n], ``prev_flat`` and ``prev_grad``
+[n] are the port's per-parameter rows concatenated in that order.
+
+``fetch`` (default: a copy to numpy) turns each tensor into the numpy leaf
+written; an asynchronous snapshot passes one that returns views of pinned
+copies the device is still filling (``optim/optimizer.py``).
 """
 
 from __future__ import annotations
@@ -112,19 +121,19 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _dump(module: Module):
+def _dump(module: Module, fetch):
     if isinstance(module, Container):
-        trees = [_dump(m) for m in module.layers]
+        trees = [_dump(m, fetch) for m in module.layers]
         return [p for p, _ in trees], [s for _, s in trees]
-    return ({n: _numpy(getattr(module, n)) for n in module.param_names},
-            {n: _numpy(getattr(module, n)) for n in module.state_names})
+    return ({n: fetch(getattr(module, n)) for n in module.param_names},
+            {n: fetch(getattr(module, n)) for n in module.state_names})
 
 
-def to_reference_tree(model: Module):
+def to_reference_tree(model: Module, fetch=None):
     """The model's (params, state) as reference trees with numpy leaves."""
     if not model.built:
         raise RuntimeError("to_reference_tree: build the model first")
-    return _dump(model)
+    return _dump(model, fetch or _numpy)
 
 
 def _index(model: Module):
@@ -137,35 +146,119 @@ def _param_tree(module: Module, leaf):
     return {n: leaf(module, n) for n in module.param_names}
 
 
-def to_reference_opt_state(model: Module, method, state):
-    """The port's method ``state`` (per-parameter lists, in
-    ``model.parameters()`` order) as the reference's opt_state tree with
-    numpy leaves.  Raises if a list does not match the parameters."""
-    if not model.built:
-        raise RuntimeError("to_reference_opt_state: build the model first")
+def _ravel_order(model: Module):
+    """Indices into ``model.parameters()`` in the order ``ravel_pytree``
+    flattens the reference's param tree."""
     index = _index(model)
+    out = []
+
+    def walk(m):
+        if isinstance(m, Container):
+            for c in m.layers:
+                walk(c)
+        else:
+            out.extend(index[id(getattr(m, n))] for n in sorted(m.param_names))
+    walk(model)
+    return out
+
+
+_LBFGS_ROWS = ("s", "y")
+_LBFGS_FLAT = ("prev_flat", "prev_grad")
+
+
+def _slots(method, state):
     want = set(method.init_state([]))
     if set(state) != want:
         raise ValueError(f"{type(method).__name__} state has slots "
                          f"{sorted(want)}, got {sorted(state)}")
+
+
+def to_reference_opt_state(model: Module, method, state, fetch=None):
+    """The port's method ``state`` (per-parameter lists, in
+    ``model.parameters()`` order) as the reference's opt_state tree with
+    numpy leaves.  Raises if a list does not match the parameters."""
+    from ..optim.method import EMA, LBFGS
+    if not model.built:
+        raise RuntimeError("to_reference_opt_state: build the model first")
+    fetch = fetch or _numpy
+    index = _index(model)
+    if isinstance(method, EMA):
+        if set(state) != {"inner", "shadow"}:
+            raise ValueError(f"EMA state has slots ['inner', 'shadow'], "
+                             f"got {sorted(state)}")
+        return {"inner": to_reference_opt_state(model, method.inner,
+                                                state["inner"], fetch),
+                "shadow": _slot_tree(model, index, "shadow",
+                                     state["shadow"], fetch)}
+    _slots(method, state)
+    if isinstance(method, LBFGS):
+        order = _ravel_order(model)
+        out = {"rho": fetch(state["rho"]),
+               "count": np.asarray(state["count"], np.int32)}
+        for key in _LBFGS_ROWS + _LBFGS_FLAT:
+            rows = state[key]
+            if len(rows) != len(index):
+                raise ValueError(f"opt_state[{key!r}]: {len(rows)} tensors "
+                                 f"for {len(index)} parameters")
+            out[key] = np.concatenate([fetch(rows[i]) for i in order],
+                                      axis=-1)
+        return out
     out = {}
     for key, val in state.items():
         if not isinstance(val, (list, tuple)):
             out[key] = np.asarray(val, np.int32)
             continue
-        if len(val) != len(index):
-            raise ValueError(f"opt_state[{key!r}]: {len(val)} tensors for "
-                             f"{len(index)} parameters")
+        out[key] = _slot_tree(model, index, key, val, fetch)
+    return out
 
-        def leaf(m, n, val=val, key=key):
-            t = val[index[id(getattr(m, n))]]
-            p = getattr(m, n)
-            if tuple(t.shape) != tuple(p.shape):
-                raise ValueError(f"opt_state[{key!r}] at "
-                                 f"{type(m).__name__}.{n}: shape "
-                                 f"{tuple(t.shape)} != {tuple(p.shape)}")
-            return _numpy(t)
-        out[key] = _param_tree(model, leaf)
+
+def _slot_tree(model, index, key, val, fetch):
+    """A per-parameter list as a param-shaped tree."""
+    if len(val) != len(index):
+        raise ValueError(f"opt_state[{key!r}]: {len(val)} tensors for "
+                         f"{len(index)} parameters")
+
+    def leaf(m, n):
+        t = val[index[id(getattr(m, n))]]
+        p = getattr(m, n)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"opt_state[{key!r}] at {type(m).__name__}.{n}"
+                             f": shape {tuple(t.shape)} != "
+                             f"{tuple(p.shape)}")
+        return fetch(t)
+    return _param_tree(model, leaf)
+
+
+def _load_lbfgs(model, template, tree):
+    params = list(model.parameters())
+    order = _ravel_order(model)
+    sizes = [params[i].numel() for i in order]
+    n = sum(sizes)
+    out = {}
+    for key, tmpl in template.items():
+        leaf = np.asarray(tree[key])
+        if key == "count":
+            if leaf.shape != () or leaf.dtype != np.int32:
+                raise ValueError(f"opt_state['count']: an int32 scalar, got "
+                                 f"{leaf.dtype} {leaf.shape}")
+            out[key] = np.int32(leaf)
+            continue
+        if key == "rho":
+            if leaf.shape != tuple(tmpl.shape):
+                raise ValueError(f"opt_state['rho']: shape {leaf.shape} != "
+                                 f"{tuple(tmpl.shape)}")
+            out[key] = torch.tensor(leaf).to(tmpl.device, tmpl.dtype)
+            continue
+        want = tuple(tmpl[0].shape[:-1]) + (n,) if tmpl else (n,)
+        if leaf.shape[-1:] != (n,) or (
+                key in _LBFGS_ROWS and leaf.shape != want):
+            raise ValueError(f"opt_state[{key!r}]: shape {leaf.shape}, "
+                             f"expected a last axis of {n}")
+        parts = np.split(leaf, np.cumsum(sizes)[:-1], axis=-1)
+        rows = [None] * len(params)
+        for i, part in zip(order, parts):
+            rows[i] = torch.tensor(part).to(tmpl[i].device, tmpl[i].dtype)
+        out[key] = rows
     return out
 
 
@@ -174,16 +267,30 @@ def load_reference_opt_state(model: Module, method, tree):
     method state for the built ``model``: per-parameter lists on each
     parameter's device and dtype, in ``model.parameters()`` order.  Raises
     on a missing or extra slot and on any structure or shape mismatch."""
+    from ..optim.method import EMA, LBFGS
     if not model.built:
         raise RuntimeError("load_reference_opt_state: build the model "
                            "first")
     params = list(model.parameters())
     index = _index(model)
+    if isinstance(method, EMA):
+        if not isinstance(tree, dict) or set(tree) != {"inner", "shadow"}:
+            got = (sorted(tree) if isinstance(tree, dict)
+                   else type(tree).__name__)
+            raise ValueError(f"EMA opt_state has slots ['inner', 'shadow'],"
+                             f" got {got}")
+        return {"inner": load_reference_opt_state(model, method.inner,
+                                                  tree["inner"]),
+                "shadow": _load_slot(model, index, "shadow",
+                                     [p.detach() for p in params],
+                                     tree["shadow"])}
     template = method.init_state(params)
     if not isinstance(tree, dict) or set(tree) != set(template):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
         raise ValueError(f"{type(method).__name__} opt_state has slots "
                          f"{sorted(template)}, got {got}")
+    if isinstance(method, LBFGS):
+        return _load_lbfgs(model, template, tree)
     out = {}
     for key, tmpl in template.items():
         if not isinstance(tmpl, list):
@@ -193,18 +300,22 @@ def load_reference_opt_state(model: Module, method, tree):
                                  f"got {leaf.dtype} {leaf.shape}")
             out[key] = np.int32(leaf)
             continue
-        slots = [None] * len(params)
-
-        def visit(m, n, leaf, path, slots=slots, tmpl=tmpl, key=key):
-            i = index[id(getattr(m, n))]
-            leaf = np.asarray(leaf)
-            if tuple(leaf.shape) != tuple(tmpl[i].shape):
-                raise ValueError(f"opt_state[{key!r}] {_where(path)}: shape "
-                                 f"{leaf.shape} != {tuple(tmpl[i].shape)}")
-            slots[i] = torch.tensor(leaf).to(tmpl[i].device, tmpl[i].dtype)
-        _walk(model, tree[key], [key], "opt_state",
-              lambda m: m.param_names, visit)
-        if any(s is None for s in slots):
-            raise ValueError(f"opt_state[{key!r}] left parameters unset")
-        out[key] = slots
+        out[key] = _load_slot(model, index, key, tmpl, tree[key])
     return out
+
+
+def _load_slot(model, index, key, tmpl, tree):
+    """A param-shaped tree as a per-parameter list like ``tmpl``."""
+    slots = [None] * len(tmpl)
+
+    def visit(m, n, leaf, path):
+        i = index[id(getattr(m, n))]
+        leaf = np.asarray(leaf)
+        if tuple(leaf.shape) != tuple(tmpl[i].shape):
+            raise ValueError(f"opt_state[{key!r}] {_where(path)}: shape "
+                             f"{leaf.shape} != {tuple(tmpl[i].shape)}")
+        slots[i] = torch.tensor(leaf).to(tmpl[i].device, tmpl[i].dtype)
+    _walk(model, tree, [key], "opt_state", lambda m: m.param_names, visit)
+    if any(s is None for s in slots):
+        raise ValueError(f"opt_state[{key!r}] left parameters unset")
+    return slots

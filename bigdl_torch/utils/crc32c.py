@@ -7,7 +7,9 @@ the host C++ compiler at first use (``utils/cuda_build.py``
 ``build_host``).  Where it cannot be built, a one-time warning is logged
 and the pure-Python table loop runs, as the reference does without its
 native library; it gives the same numbers, slowly (a few MB/s).
-:func:`route` says which one runs.
+:func:`route` says which one runs.  :func:`masked_crc32c` is the
+TFRecord-masked CRC of the summary event files (the reference's
+``recordio.masked_crc32c``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from . import cuda_build
 
 logger = logging.getLogger("bigdl_torch")
 
-__all__ = ["crc32c_update", "crc32c_table", "route", "native"]
+__all__ = ["crc32c_update", "crc32c_table", "masked_crc32c", "route",
+           "native"]
 
 _lock = threading.Lock()
 _state = {"fn": None, "tried": False, "hardware": False}
@@ -94,3 +97,9 @@ def crc32c_update(crc: int, data) -> int:
     if fn is not None:
         return fn(crc, data, len(data))
     return crc32c_table(crc, data)
+
+
+def masked_crc32c(data: bytes) -> int:
+    """The TFRecord CRC mask over CRC32C(data) (RecordWriter.scala:44-57)."""
+    crc = crc32c_update(0, data)
+    return ((crc >> 15) | (crc << 17)) + 0xA282EAD8 & 0xFFFFFFFF

@@ -5,7 +5,8 @@
 
 (``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10, started
 by the script itself; ``python3 chip_smoke.py --only train_validate`` runs
-the build and phase 13 alone, and prints no final line.)
+the build and phase 13 alone, ``--only train_longrun`` the build and
+phase 14 alone, and neither prints the final line.)
 
 Phases, each printing one JSON line:
 
@@ -210,10 +211,54 @@ Phases, each printing one JSON line:
    validation ms and images/s, snapshot bytes, write ms, verify-plus-load
    ms and resume ms.
 
+14. ``train_longrun``: the training driver's long-run half on the card,
+   cuDNN deterministic throughout (every gate here is bit for bit).
+   (a) ResNet-50 as in ``train`` with ``set_gradient_accumulation(4)``:
+   one step's gradients (after the wire) and BatchNorm buffers bit-equal
+   to four hand-run microbatch backward passes summed in order and
+   divided by 4; every microbatch shape through ``bn_kernels`` (B5 at R =
+   64·7·7 = 3136, a ragged last 128-row tile, on ``"tc"``); 3 steps at
+   exactly 80 B1, 80 B2, 132 B4 and 132 B5 a step on their step routes;
+   the peak memory beside ``train``'s.  (b) The same model and batches
+   with no remat, ``set_remat("conv_out")`` and ``"full"`` (one
+   checkpoint per segment: the children of nested ``Sequential`` s), 3
+   steps each: losses, parameters and buffers bit-equal, launches a step
+   20 / 40 / 40 B1, 20 B2, 33 B4, 33 / 33 / 66 B5, and ``"full"``'s peak
+   (over what the run found allocated) below no remat's.  (c) The
+   bench-width LM, ``EMA(Adam(1e-3), 0.999)`` and a ``TrainSummary``, 4
+   steps with ``set_remat("full")`` and without: losses bit-equal, 16 B6
+   (all with the log-sum-exp) and 16 B7 a step under remat, the shadow
+   within ``EMA_RTOL`` of the formula on host copies of the parameters,
+   the summary's Loss equal to the observed losses; a float32 dropout LM
+   (p = 0.1): one step's gradients under remat bit-equal to those
+   without.  (d) ResNet-50 at batch 64 (2 batches an epoch in a fixed
+   order, a snapshot after every 2nd iteration, 7 iterations): a failure
+   at ``step.stall`` and a NaN at ``step.loss_nan`` at iteration 5 are
+   recovered from snapshot 4 and the runs end bit-equal to an
+   uninterrupted one; a NaN at iteration 1 restores the starting weights
+   bit for bit; exhaustion raises the original error; three retries
+   leave the stager's pinned bytes as one does; a supervised ``step``
+   deadline catches a ``StallAt`` (a JSON crash report written) and a
+   ``data`` deadline a stall in the prefetch worker, both recovered bit
+   for bit; SIGTERM at iteration 4 gives that snapshot and
+   ``TrainingPreempted``, and ``resume_from`` ends bit-equal.  (e)
+   ResNet-50 at batch 256 with a snapshot every iteration, synchronous
+   and asynchronous: every asynchronous pair bit-equal to the
+   synchronous one, both runs timed; a registered in-process store
+   behind ``RetryingFileSystem`` with ``FailN(2)`` on ``fs.remote``
+   retries, writes and verifies the pair.  (f) LeNet-5's ``LBFGS``
+   update on the card against the CPU's on the same gradients, within
+   ``TV_METHOD_RTOL``; ResNet-50 with the stem's ``scale_w`` and
+   ``scale_b`` at 0: the stem's parameters bit-equal after 3 steps, the
+   rest trained.
+
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
 LM run, B8 per warm continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
-timed training run; each also per route), the
+timed training run; each also per route; B1, B2, B4 and B5 per timed
+accumulation run and B6 and B7 per LM remat run of ``train_longrun``,
+with the times ``bn_kernels`` took at the microbatch shapes and
+``train_lm`` at the LM step's), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -228,6 +273,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -240,7 +286,8 @@ import torch.nn.functional as F
 import bigdl_torch.nn as nn
 from bigdl_torch import Engine
 from bigdl_torch.common import DTypePolicy, set_policy
-from bigdl_torch.dataset import DataSet, Sample, SampleToMiniBatch
+from bigdl_torch.dataset import (DataSet, LocalArrayDataSet, Sample,
+                                 SampleToMiniBatch)
 from bigdl_torch.models import (LeNet5, ResNet, TransformerLM,
                                 cached_generate, greedy_generate)
 from bigdl_torch.models import decode as dec_mod
@@ -1827,7 +1874,7 @@ def phase_train():
     launched = counts()
     routes = route_counts()
     step_ms = run_ms / TRAIN_STEPS
-    peak = torch.cuda.max_memory_allocated()
+    peak = phase_train.peak = torch.cuda.max_memory_allocated()
     stats_after = torch.cat([b.float().flatten() for b in model.buffers()])
     check(launched == {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()},
           f"launches over {TRAIN_STEPS} steps: {launched}")
@@ -2404,7 +2451,7 @@ def phase_train_lm():
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"LM losses {losses}")
     step_ms = run_ms / TRAIN_STEPS
-    peak = torch.cuda.max_memory_allocated()
+    peak = phase_train_lm.peak = torch.cuda.max_memory_allocated()
     prof = profile_step(lambda mark: train_lm(
         model, samples, 1 + PROFILE_STEPS, LM_BATCH, on_step=mark))
     del model
@@ -2574,10 +2621,10 @@ class Watch:
                 "results": result_fields(out)})
             return out
 
-        def written(state, opt_state, rng):
+        def written(state, opt_state, rng, preempt=False):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            write(state, opt_state, rng)
+            write(state, opt_state, rng, preempt)
             ms = (time.perf_counter() - t0) * 1e3
             n = state["neval"] - 1
             path = opt.checkpoint_path
@@ -3030,6 +3077,718 @@ def phase_train_validate(train_step_ms):
           "wall_s": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# train_longrun: accumulation, remat, EMA, summaries, the retry loop, the
+# supervisor, preemption, asynchronous and remote snapshots, LBFGS, scales
+# ---------------------------------------------------------------------------
+
+# ResNet-50 at resnet50_bf16 with set_gradient_accumulation(4): batch 256
+# in 4 microbatches of 64, 3 steps
+LR_ACCUM = 4
+LR_STEPS = 3
+LR_MICRO = TRAIN_BATCH // LR_ACCUM
+# launches per step: each microbatch launches what a train step does
+ACCUM_STEP_LAUNCHES = {k: LR_ACCUM * v for k, v in STEP_LAUNCHES.items()}
+# launches per step under each remat policy (batch 256): the recompute of
+# "conv_out" launches the 20 unfused BatchNorms' B1 again and takes B5's
+# outputs back; "full" launches B1 and B5 again; the backward (B2, B4)
+# runs once
+REMAT_STEP_LAUNCHES = {
+    "none": STEP_LAUNCHES,
+    "conv_out": {**STEP_LAUNCHES, "bn_forward": 40},
+    "full": {**STEP_LAUNCHES, "bn_forward": 40, "matmul_stats": 66}}
+# the LM under set_remat("full"): B6 with the log-sum-exp once in the
+# forward and once in the recompute, B7 as without remat
+LM_REMAT_STEP = {"flash": 16, "flash_lse": 16, "flash_bwd": 16}
+LM_LONGRUN_STEPS = 4
+EMA_DECAY = 0.999
+# the EMA shadow vs the formula on host copies of the parameters, relative
+# to each parameter's largest magnitude: the same float32 operations, the
+# card possibly fusing a multiply and an add
+EMA_RTOL = 1e-6
+# the retry, supervisor and preemption runs: ResNet-50 at batch 64, 2
+# batches an epoch in a fixed order, a snapshot after every 2nd finished
+# iteration, 7 iterations
+RETRY_BATCH = 64
+RETRY_ITERS = 7
+RETRY_IMAGES = 2 * RETRY_BATCH
+# the async-vs-sync runs: batch 256, a snapshot every iteration
+ASYNC_ITERS = 3
+SUPERVISE_STEP_S = 2.0
+SUPERVISE_DATA_S = 2.0
+
+
+class FixedOrder(LocalArrayDataSet):
+    """Records in their given order every epoch: a run that restarts an
+    epoch after recovery or resume sees the batches an uninterrupted run
+    sees."""
+
+    def shuffle(self):
+        pass
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    old = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = old
+
+
+class Reset:
+    """One model and its starting state on the card: ``model()`` puts the
+    state back and returns it (cheaper than building ResNet-50 again)."""
+
+    def __init__(self, model):
+        self._model = model
+        self._start = {k: v.detach().clone()
+                       for k, v in model.state_dict().items()}
+
+    def model(self):
+        self._model.load_state_dict(self._start)
+        self._model.train()
+        for p in self._model.parameters():
+            p.grad = None
+        return self._model
+
+
+def snapshot(model):
+    return [t.detach().clone() for t in
+            list(model.parameters()) + list(model.buffers())]
+
+
+def bit_equal(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def lr_opt(model, samples, batch, fixed=True, method=None, lm=False):
+    ds = FixedOrder(samples) if fixed else DataSet.array(samples, seed=SEED)
+    crit = (nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                        size_average=True)
+            if lm else nn.CrossEntropyCriterion())
+    opt = Optimizer(model, ds, crit, batch_size=batch)
+    opt.set_optim_method(method or SGD(0.1, momentum=0.9))
+    return opt
+
+
+def run_iters(opt, iters, on_start=None):
+    """Drive ``opt`` until ``iters`` iterations are done; returns (losses
+    by iteration, ms from each iteration's start to the next one's: the
+    step and its boundary).  ``on_start(n)`` runs as iteration n
+    starts."""
+    losses, t = {}, {}
+
+    def end(state):
+        n = state["neval"]
+        if n > 1:
+            losses[n - 1] = state["loss"]
+        if n not in t:
+            t[n] = time.perf_counter()
+            if on_start is not None and n <= iters:
+                on_start(n)
+        return n > iters
+    opt.set_end_when(Trigger(end, "iters")).optimize()
+    ms = [(t[n + 1] - t[n]) * 1e3 for n in sorted(t) if n + 1 in t]
+    return losses, ms
+
+
+def peak_run(run):
+    """``run()`` with the allocator's peak reset first: (its result, the
+    peak bytes allocated, that peak less what was allocated at the start:
+    the run's own share, apart from what earlier phases still hold)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    peak = torch.cuda.max_memory_allocated()
+    return out, peak, peak - start
+
+
+def computing_ms(opt):
+    """The Optimizer's "computing time average" in ms: each step's host
+    time from its batch in hand to its loss read (the card synchronised
+    by that read)."""
+    total, n = opt.metrics.get("computing time average")
+    return total / max(n, 1) * 1e3
+
+
+def batch_tensors(samples, n):
+    x = torch.from_numpy(np.stack([s.feature for s in samples[:n]]))
+    y = torch.from_numpy(np.stack([s.label for s in samples[:n]]))
+    return x.cuda(), y.cuda()
+
+
+class Capture(SGD):
+    """Keeps the step's final gradients and updates nothing."""
+
+    def update(self, grads, params, state, lr):
+        self.grads = [g.detach().clone() for g in grads]
+        return state
+
+
+def lr_accumulation(reset, samples):
+    """(a) set_gradient_accumulation(4) at batch 256: one step's gradients
+    against four hand-run microbatches, the microbatch shapes through
+    bn_kernels, 3 timed steps."""
+    from bigdl_torch.parallel.wire import wire_cast
+    from bigdl_torch.common import get_policy
+    model = reset.model()
+    x, y = batch_tensors(samples, TRAIN_BATCH)
+    crit = nn.CrossEntropyCriterion()
+    # four microbatch backward passes by hand, summed in order, over 4
+    for m in model.parameters():
+        m.grad = None
+    seen, handles = record_shapes(model)
+    zero_counts()
+    for i in range(LR_ACCUM):
+        sl = slice(i * LR_MICRO, (i + 1) * LR_MICRO)
+        crit(model(x[sl]), y[sl]).backward()
+    hand_counts = counts()
+    for h in handles:
+        h.remove()
+    hand = wire_cast([p.grad / LR_ACCUM for p in model.parameters()],
+                     get_policy().wire_dtype)
+    hand_buffers = [b.detach().clone() for b in model.buffers()]
+    # the Optimizer's step from the same state
+    model = reset.model()
+    opt = lr_opt(model, samples, TRAIN_BATCH)
+    opt.set_gradient_accumulation(LR_ACCUM)
+    cap = Capture()
+    opt.set_optim_method(cap)
+    params = list(model.parameters())
+    opt._step(params, {}, x, y, 0.0, None)
+    torch.cuda.synchronize()
+    grads_equal = bit_equal(cap.grads, hand)
+    buffers_equal = bit_equal(list(model.buffers()), hand_buffers)
+    check(grads_equal and buffers_equal,
+          f"accumulated step vs hand-run microbatches: gradients equal "
+          f"{grads_equal}, buffers equal {buffers_equal}")
+    check(hand_counts == ACCUM_STEP_LAUNCHES,
+          f"hand-run microbatch launches {hand_counts}")
+    for kind, n in STEP_SHAPES.items():
+        check(len(seen[kind]) == n and sum(seen[kind].values())
+              == ACCUM_STEP_LAUNCHES[kind],
+              f"microbatch {kind} shapes {dict(seen[kind])}")
+    # the last stage at microbatch 64: R = 64·7·7 = 3136, 24.5 row tiles
+    ragged = [sh for sh in seen["matmul_stats"] if sh[0] % cb_ops.ROW_TILE]
+    check(any(sh[0] == LR_MICRO * 49 for sh in ragged),
+          f"no ragged B5 row count: {sorted(seen['matmul_stats'])}")
+    reps = phase_bn_kernels(seen, STEP_SHAPES, "train_longrun")
+    # the timed steps
+    model = reset.model()
+    opt = lr_opt(model, samples, TRAIN_BATCH)
+    opt.set_gradient_accumulation(LR_ACCUM)
+    zero_counts()
+    (losses, ms), peak, own = peak_run(lambda: run_iters(opt, LR_STEPS))
+    launched, routes = counts(), route_counts()
+    want = {k: v * LR_STEPS for k, v in ACCUM_STEP_LAUNCHES.items()}
+    check(launched == want, f"accumulation launches {launched} != {want}")
+    check_step_routes(launched, "accumulation steps")
+    check(len(losses) == LR_STEPS and all(map(math.isfinite,
+                                              losses.values())),
+          f"accumulation losses {losses}")
+    return reps, launched, routes, {
+        "accum_steps": LR_ACCUM, "microbatch": LR_MICRO,
+        "steps": LR_STEPS, "losses": [losses[k] for k in sorted(losses)],
+        "iteration_ms": ms, "computing_ms": computing_ms(opt),
+        "max_memory_allocated": peak, "run_peak_over_start": own,
+        "launches_per_step": {k: v // LR_STEPS for k, v in launched.items()},
+        "grads_bit_equal_hand_run": grads_equal,
+        "buffers_equal_hand_run": buffers_equal,
+        "microbatch_b5_shapes": sorted(seen["matmul_stats"]),
+        "ragged_b5_shapes": sorted(ragged)}
+
+
+def lr_remat(reset, samples):
+    """(b) no remat, "conv_out" and "full", 3 steps each at batch 256 from
+    one state: losses, parameters and buffers bit-equal, the launches
+    stated in PERF.md, the peak memory of each."""
+    out, finals = {}, {}
+    for policy in ("none", "conv_out", "full"):
+        model = reset.model()
+        opt = lr_opt(model, samples, TRAIN_BATCH)
+        opt.set_remat(None if policy == "none" else policy)
+        zero_counts()
+        (losses, ms), peak, own = peak_run(lambda: run_iters(opt, LR_STEPS))
+        launched = counts()
+        want = {k: v * LR_STEPS for k, v in
+                REMAT_STEP_LAUNCHES[policy].items()}
+        check(launched == want, f"remat {policy}: launches {launched} != "
+              f"{want}")
+        check_step_routes(launched, f"remat {policy}")
+        finals[policy] = ([losses[k] for k in sorted(losses)],
+                          snapshot(model))
+        out[policy] = {"losses": finals[policy][0], "iteration_ms": ms,
+                       "computing_ms": computing_ms(opt),
+                       "max_memory_allocated": peak,
+                       "run_peak_over_start": own,
+                       "launches_per_step": REMAT_STEP_LAUNCHES[policy]}
+    for policy in ("conv_out", "full"):
+        same = (finals[policy][0] == finals["none"][0]
+                and bit_equal(finals[policy][1], finals["none"][1]))
+        out[policy]["bit_equal_none"] = same
+        check(same, f"remat {policy} vs none: losses "
+              f"{finals[policy][0]} vs {finals['none'][0]}")
+    check(out["full"]["run_peak_over_start"]
+          < out["none"]["run_peak_over_start"],
+          f"remat full peak {out['full']['run_peak_over_start']} not "
+          f"below none's {out['none']['run_peak_over_start']}")
+    return out
+
+
+def lm_longrun_counts():
+    return {"flash": attn_ops.flash_attention.launches,
+            "flash_lse": attn_ops.flash_attention.lse_launches,
+            "flash_bwd": attn_ops.flash_attention_bwd.launches}
+
+
+def lr_lm(root):
+    """(c) The bench-width LM, EMA(Adam, 0.999), a TrainSummary, 4 steps
+    with set_remat("full") and without: losses bit-equal, 16 B6 with the
+    log-sum-exp and 16 B7 a step, the shadow equal to the formula, the
+    summary's Loss equal to the observed losses; and the float32 dropout
+    LM's gradients under remat bit-equal to those without."""
+    from bigdl_torch.optim import EMA
+    from bigdl_torch.visualization import TrainSummary
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    T, V = LM["max_len"], LM["vocab_size"]
+    samples = lm_samples(LM_BATCH * 2, T, V, SEED + 13)
+    runs = {}
+    for policy in (None, "full"):
+        model = TransformerLM(**LM).build(
+            "cuda", torch.Generator().manual_seed(SEED))
+        method = EMA(Adam(1e-3), EMA_DECAY)
+        host = [[p.detach().float().cpu().numpy().copy()
+                 for p in model.parameters()]]
+        update = method.update
+
+        def recording(grads, params, state, lr, update=update, host=host):
+            out = update(grads, params, state, lr)
+            host.append([p.detach().float().cpu().numpy().copy()
+                         for p in params])
+            return out
+        method.update = recording
+        opt = lr_opt(model, samples, LM_BATCH, method=method, lm=True)
+        opt.set_remat(policy)
+        summary = TrainSummary(os.path.join(root, "tb"), str(policy))
+        opt.set_train_summary(summary)
+        zero_flash()
+        attn_ops.flash_attention.lse_launches = 0
+        (losses, ms), peak, own = peak_run(
+            lambda: run_iters(opt, LM_LONGRUN_STEPS))
+        launched = lm_longrun_counts()
+        lm_routes = (dict(attn_ops.flash_attention.route_launches),
+                     dict(attn_ops.flash_attention_bwd.route_launches))
+        read = summary.read_scalar("Loss")
+        summary.close()
+        # the shadow by the formula, on the host copies in float32
+        d = np.float32(EMA_DECAY)
+        shadow = [a.copy() for a in host[0]]
+        for step in host[1:]:
+            shadow = [d * s + np.float32(1 - EMA_DECAY) * p
+                      for s, p in zip(shadow, step)]
+        got = method.ema_params(opt.final_opt_state)
+        ema_err = max(float(np.abs(g.float().cpu().numpy() - s).max())
+                      / max(float(np.abs(s).max()), 1e-30)
+                      for g, s in zip(got, shadow))
+        lossv = [losses[k] for k in sorted(losses)]
+        summary_ok = ([(s, v) for s, v, _ in read]
+                      == [(k, float(np.float32(losses[k])))
+                          for k in sorted(losses)])
+        runs[policy] = lossv
+        key = "remat_full" if policy else "no_remat"
+        runs[key] = {"losses": lossv, "iteration_ms": ms,
+                     "computing_ms": computing_ms(opt),
+                     "max_memory_allocated": peak,
+                     "run_peak_over_start": own,
+                     "launches_per_step": {k: v / LM_LONGRUN_STEPS
+                                           for k, v in launched.items()},
+                     "ema_max_rel_err": ema_err,
+                     "summary_loss_equal": summary_ok}
+        check(ema_err <= EMA_RTOL, f"EMA shadow vs formula: {ema_err}")
+        check(summary_ok, f"summary Loss {read} vs losses {losses}")
+        if policy == "full":
+            want = {k: v * LM_LONGRUN_STEPS for k, v in LM_REMAT_STEP.items()}
+            check(launched == want, f"LM remat launches {launched} != {want}")
+            check(only_route(attn_ops.flash_attention, "tc", want["flash"])
+                  and only_route(attn_ops.flash_attention_bwd, "tc",
+                                 want["flash_bwd"]),
+                  f"LM remat routes {lm_routes}")
+            remat_launches = (launched, lm_routes)
+        del model, opt, method, host
+        torch.cuda.empty_cache()
+    check(runs["full"] == runs[None],
+          f"LM remat losses {runs['full']} vs {runs[None]}")
+    # the float32 dropout LM: one step's gradients with and without remat
+    set_policy(DTypePolicy())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = lm_samples(8, LM_SMALL["max_len"], LM_SMALL["vocab_size"],
+                       SEED + 14)
+    x, y = (torch.from_numpy(np.stack([getattr(s, a) for s in small])).cuda()
+            for a in ("feature", "label"))
+    grads = {}
+    for policy in (None, "full"):
+        m = TransformerLM(**LM_SMALL, dropout=0.1).build(
+            "cuda", torch.Generator().manual_seed(SEED))
+        opt = lr_opt(m, small, 8, lm=True)
+        cap = Capture()
+        opt.set_optim_method(cap).set_remat(policy)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        opt._step(list(m.parameters()), {}, x, y, 0.0, gen)
+        grads[policy] = cap.grads
+    drop_equal = bit_equal(grads[None], grads["full"])
+    check(drop_equal, "float32 dropout LM: gradients under remat differ")
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    return {"ema_decay": EMA_DECAY, "steps": LM_LONGRUN_STEPS,
+            "no_remat": runs["no_remat"], "remat_full": runs["remat_full"],
+            "train_lm_max_memory_allocated": getattr(phase_train_lm, "peak",
+                                                     None),
+            "losses_bit_equal": True,
+            "dropout_f32_grads_bit_equal": drop_equal}, remat_launches
+
+
+def recording_recovery(opt):
+    """Wrap ``opt._recover_from_checkpoint``: each call's ms, the error it
+    recovers from, the pinned bytes of the stager and the host caching
+    allocator after it."""
+    rec = []
+    orig = opt._recover_from_checkpoint
+
+    def recover():
+        err = sys.exc_info()[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig()
+        torch.cuda.synchronize()
+        stats = (torch.cuda.host_memory_stats()
+                 if hasattr(torch.cuda, "host_memory_stats") else {})
+        rec.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "error": type(err).__name__,
+                    "stager_pinned_bytes": (opt._stager.pinned_bytes()
+                                            if opt._stager else 0),
+                    "host_reserved_bytes": stats.get(
+                        "reserved_bytes.current")})
+    opt._recover_from_checkpoint = recover
+    return rec
+
+
+def lr_retry(reset, samples, root):
+    """(d) The retry loop, the supervisor and preemption on ResNet-50 at
+    batch 64: every recovered or resumed run ends bit-equal to an
+    uninterrupted one."""
+    from bigdl_torch.optim import TrainingPreempted
+    from bigdl_torch.utils import chaos
+
+    def run(tag, spec=None, supervise=None, env=None, on_start=None):
+        model = reset.model()
+        opt = lr_opt(model, samples, RETRY_BATCH)
+        ckpt = os.path.join(root, tag)
+        opt.set_checkpoint(ckpt, every_done(2))
+        if supervise:
+            opt.set_supervision(**supervise, poll_interval=0.05)
+        rec = recording_recovery(opt)
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            with chaos.scoped(spec or ""):
+                losses, _ = run_iters(opt, RETRY_ITERS, on_start)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+        return ([losses[k] for k in sorted(losses)], snapshot(model), rec,
+                opt, ckpt)
+
+    base_losses, base_final, _, _, _ = run("base")
+    out = {"uninterrupted_losses": base_losses}
+    cases = {"step_stall_fail": "step.stall=fail@5",
+             "step_loss_nan": "step.loss_nan=nan@5",
+             "before_first_snapshot": "step.loss_nan=nan@1"}
+    for name, spec in cases.items():
+        losses, final, rec, opt, _ = run(name, spec)
+        same = losses == base_losses and bit_equal(final, base_final)
+        out[name] = {"recoveries": rec, "bit_equal_uninterrupted": same}
+        check(len(rec) == 1 and same, f"retry {name}: {rec}, losses "
+              f"{losses} vs {base_losses}")
+    check(out["step_loss_nan"]["recoveries"][0]["error"]
+          == "NonFiniteLossError", f"loss_nan recovery {out}")
+    # the failure at iteration 1: the in-place update was undone, the
+    # starting weights put back bit for bit
+    model = reset.model()
+    start = snapshot(model)
+    opt = lr_opt(model, samples, RETRY_BATCH)
+    opt.set_checkpoint(os.path.join(root, "blob"), every_done(2))
+    seen = {}
+    restore = opt._restore_blob
+
+    def restoring(blob):
+        seen["updated"] = snapshot(model)
+        restore(blob)
+        seen["restored"] = snapshot(model)
+    opt._restore_blob = restoring
+    with chaos.scoped("step.loss_nan=nan@1"):
+        run_iters(opt, 1)
+    restored = bit_equal(seen.get("restored", []), start)
+    check(restored and not bit_equal(seen["updated"], start),
+          "a failure before the first snapshot did not restore the start")
+    out["before_first_snapshot"]["starting_weights_restored"] = restored
+    # exhaustion raises the original error
+    try:
+        run("exhausted", "step.stall=fail*100@1",
+            env={"BIGDL_TORCH_RETRY_TIMES": "2"})
+        exhausted = None
+    except chaos.ChaosFault as e:
+        exhausted = str(e)
+    check(exhausted and "invocation 3" in exhausted,
+          f"exhaustion raised {exhausted}")
+    out["exhaustion_error"] = exhausted
+    # 3 retries: the pinned ring does not grow
+    _, final, rec, _, _ = run("pinned", "step.stall=fail@3,5,7")
+    pinned = [r["stager_pinned_bytes"] for r in rec]
+    check(len(rec) == 3 and pinned[0] == pinned[2] > 0,
+          f"pinned bytes after retries {rec}")
+    out["pinned_retries"] = rec
+    # the supervisor: a step stall, and a stall in the prefetch worker
+    losses, final, rec, opt, ckpt = run(
+        "stall", "step.stall=stall*60@5",
+        supervise={"step": SUPERVISE_STEP_S})
+    reports = sorted(f for f in os.listdir(ckpt)
+                     if f.startswith("crash_report") and f.endswith(".json"))
+    report = json.load(open(os.path.join(ckpt, reports[0]))) if reports \
+        else {}
+    same = losses == base_losses and bit_equal(final, base_final)
+    check(len(rec) == 1 and rec[0]["error"] == "StallError" and same
+          and report.get("phase") == "step",
+          f"step stall: {rec}, reports {reports}, same {same}")
+    out["supervisor_step"] = {"recoveries": rec, "report": reports[0],
+                              "report_platform": report.get("platform"),
+                              "bit_equal_uninterrupted": same}
+    losses, final, rec, opt, ckpt = run(
+        "data_stall", "data.stall=stall*60@6",
+        supervise={"data": SUPERVISE_DATA_S})
+    same = losses == base_losses and bit_equal(final, base_final)
+    check(len(rec) == 1 and rec[0]["error"] == "StallError" and same,
+          f"prefetch worker stall: {rec}, same {same}")
+    out["supervisor_data"] = {"recoveries": rec,
+                              "bit_equal_uninterrupted": same}
+    # preemption: SIGTERM as iteration 4 starts, then resume
+    model = reset.model()
+    opt = lr_opt(model, samples, RETRY_BATCH)
+    ckpt = os.path.join(root, "preempt")
+    opt.set_checkpoint(ckpt, every_done(100))
+
+    def sigterm(n):
+        if n == 4:
+            os.kill(os.getpid(), signal.SIGTERM)
+    try:
+        run_iters(opt, RETRY_ITERS, sigterm)
+        preempted = None
+    except TrainingPreempted as e:
+        preempted = str(e)
+    latest = file_io.latest_checkpoint(ckpt)
+    check(preempted and latest and latest[2] == 4,
+          f"preemption: {preempted}, snapshot {latest}")
+    model = reset.model()
+    opt = lr_opt(model, samples, RETRY_BATCH)
+    opt.resume_from(*latest[:2])
+    losses, _ = run_iters(opt, RETRY_ITERS)
+    tail = [losses[k] for k in sorted(losses) if k > 4]
+    same = tail == base_losses[4:] and bit_equal(snapshot(model),
+                                                 base_final)
+    check(same, f"resumed after preemption {tail} vs {base_losses[4:]}")
+    out["preemption"] = {"error": preempted, "snapshot": latest[2],
+                         "resumed_bit_equal_uninterrupted": same}
+    return out
+
+
+class MemStore:
+    """An in-process object store with ``file_io``'s filesystem interface,
+    registered for a scheme of its own (the card's machine has no
+    fsspec)."""
+
+    def __init__(self):
+        self.blobs, self.writes = {}, 0
+
+    def write_bytes(self, path, data):
+        self.writes += 1
+        self.blobs[path] = bytes(data)
+
+    def read_bytes(self, path):
+        return self.blobs[path]
+
+    def exists(self, path):
+        return path in self.blobs
+
+    def isdir(self, path):
+        return any(k.startswith(path.rstrip("/") + "/") for k in self.blobs)
+
+    def listdir(self, path):
+        pre = path.rstrip("/") + "/"
+        return sorted({k[len(pre):].split("/")[0] for k in self.blobs
+                       if k.startswith(pre)})
+
+    def makedirs(self, path):
+        pass
+
+    def rename(self, src, dst):
+        self.blobs[dst] = self.blobs.pop(src)
+
+    def remove(self, path):
+        del self.blobs[path]
+
+
+def lr_checkpoints(reset, samples, root):
+    """(e) Asynchronous against synchronous snapshots of ResNet-50 at batch
+    256, one every iteration; a registered store behind the retry layer."""
+    from bigdl_torch.utils import chaos
+    out = {}
+    for mode in ("sync", "async"):
+        model = reset.model()
+        opt = lr_opt(model, samples, TRAIN_BATCH)
+        opt.set_checkpoint(os.path.join(root, mode),
+                           Trigger.several_iteration(1),
+                           async_write=(mode == "async"))
+        losses, ms = run_iters(opt, ASYNC_ITERS)
+        out[mode] = {"iteration_ms": ms, "computing_ms": computing_ms(opt),
+                     "losses": [losses[k] for k in sorted(losses)]}
+    names = sorted(os.listdir(os.path.join(root, "sync")))
+    equal = names == sorted(os.listdir(os.path.join(root, "async")))
+    for n in names:
+        a = file_io.load(os.path.join(root, "sync", n))
+        b = file_io.load(os.path.join(root, "async", n))
+        equal = equal and all(np.array_equal(x, y) for x, y in zip(
+            tree_leaves(a), tree_leaves(b))) and \
+            len(tree_leaves(a)) == len(tree_leaves(b))
+    check(equal and len(names) == 2 * ASYNC_ITERS,
+          f"async snapshots vs sync: {names}")
+    out["async_bit_equal_sync"] = equal
+    out["pairs"] = len(names) // 2
+    # the remote store: FailN(2) on fs.remote, retried, written, verified
+    store = MemStore()
+    file_io.register_filesystem("bigdlmem", store)
+    model = reset.model()
+    opt = lr_opt(model, samples, RETRY_BATCH)
+    opt.set_checkpoint("bigdlmem://run", Trigger.several_iteration(1))
+    with chaos.scoped("fs.remote=fail*2@1"):
+        run_iters(opt, 1)
+        fails = chaos.counts()["fs.remote"]
+    mp, op, n = file_io.latest_checkpoint("bigdlmem://run")
+    file_io.verify(mp)
+    file_io.verify(op)
+    blob = file_io.load(mp)
+    live = to_reference_tree(model)
+    remote_ok = n == 1 and all(np.array_equal(a, b) for a, b in zip(
+        tree_leaves((blob["params"], blob["state"])), tree_leaves(live)))
+    check(remote_ok and fails > 2, f"remote pair: {n}, fs.remote calls "
+          f"{fails}")
+    out["remote"] = {"fs_remote_calls": fails, "store_writes": store.writes,
+                     "pair_bytes": sum(len(v) for v in store.blobs.values()),
+                     "verified_equal_live": remote_ok}
+    return out
+
+
+def lr_lbfgs_and_scales(reset, samples):
+    """(f) LeNet-5's LBFGS update on the card against the CPU's on the same
+    gradients; ResNet-50 with the stem's scales at 0."""
+    from bigdl_torch.optim import LBFGS
+    float32_exact()
+    digits = synthetic_mnist(48, SEED + 15)
+    cpu = LeNet5(10).build("cpu", torch.Generator().manual_seed(SEED))
+    start = [p.detach().to("cuda", copy=True) for p in cpu.parameters()]
+    method, seen = LBFGS(0.05, history_size=3), []
+    update = method.update
+
+    def recording(grads, params, state, lr):
+        seen.append(([g.detach().clone() for g in grads], lr))
+        return update(grads, params, state, lr)
+    method.update = recording
+    opt = Optimizer(cpu, DataSet.array(digits, seed=SEED),
+                    nn.ClassNLLCriterion(), batch_size=16, device="cpu")
+    opt.set_optim_method(method).set_end_when(Trigger.max_iteration(3))
+    opt.optimize()
+    again = LBFGS(0.05, history_size=3)
+    state = again.init_state(start)
+    for grads, lr in seen:
+        state = again.update([g.to("cuda") for g in grads], start, state, lr)
+    rel = max(float((a.cpu() - b).abs().max())
+              / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(start, cpu.parameters()))
+    check(len(seen) == 3 and rel <= TV_METHOD_RTOL,
+          f"LBFGS on the card vs the CPU: {rel}")
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    # ResNet-50: the stem frozen by its scales, the rest trains
+    model = reset.model()
+    stem = model.layers[:2]
+    for m in stem:
+        m.set_scale_w(0.0).set_scale_b(0.0)
+    before = snapshot(stem)
+    rest = [p.detach().clone() for p in model.layers[2:].parameters()]
+    try:
+        opt = lr_opt(model, samples, RETRY_BATCH)
+        losses, _ = run_iters(opt, LR_STEPS)
+    finally:
+        for m in stem:
+            m.set_scale_w(1.0).set_scale_b(1.0)
+    stem_params = [p for m in stem for p in m.parameters()]
+    frozen = bit_equal([p.detach() for p in stem_params],
+                       before[:len(stem_params)])
+    moved = not bit_equal([p.detach() for p in
+                           model.layers[2:].parameters()], rest)
+    check(frozen and moved, f"scales: stem frozen {frozen}, rest moved "
+          f"{moved}")
+    return {"lbfgs_card_vs_cpu_max_rel_diff": rel,
+            "lbfgs_tol": TV_METHOD_RTOL,
+            "scales": {"stem_bit_equal": frozen, "rest_trained": moved,
+                       "losses": [losses[k] for k in sorted(losses)]}}
+
+
+def phase_train_longrun(lm_rows=()):
+    """The training driver's long-run half on the card: accumulation and
+    remat on ResNet-50 (B1, B2, B4, B5 on new shapes and paths), the LM
+    under remat with EMA and a summary (B6, B7), the retry loop, the
+    supervisor and preemption, asynchronous and remote snapshots, LBFGS
+    and the layer-wise scales."""
+    t0 = time.perf_counter()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    root = tempfile.mkdtemp(prefix="bigdl-torch-longrun-")
+    try:
+        with deterministic_cudnn():
+            samples = synthetic_imagenet(TRAIN_BATCH * 2, SEED + 16)
+            reset = Reset(resnet50(fuse=True))
+            reps, launched, routes, accum = lr_accumulation(reset, samples)
+            remat = lr_remat(reset, samples)
+            lm, lm_launched = lr_lm(root)
+            retry = lr_retry(reset, samples[:RETRY_IMAGES], root)
+            ckpts = lr_checkpoints(reset, samples, root)
+            other = lr_lbfgs_and_scales(reset, samples[:RETRY_IMAGES])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    del reset
+    torch.cuda.empty_cache()
+    accum["train_phase_max_memory_allocated"] = getattr(phase_train, "peak",
+                                                        None)
+    emit({"phase": "train_longrun", "gpu": gpu_line(),
+          "cudnn_deterministic": True, "accumulation": accum,
+          "remat": remat, "lm": lm, "retry": retry, "checkpoints": ckpts,
+          **other, "wall_s": time.perf_counter() - t0})
+    rows = kernel_rows(reps, launched, "train_longrun", routes)
+    # B6 and B7 as phase train_lm measured them, with this path's launches
+    (lm_counts, lm_routes) = lm_launched
+    for row, key, rts in zip(lm_rows, ("flash", "flash_bwd"), lm_routes):
+        rows.append({**row, "path": "train_longrun",
+                     "launches": lm_counts[key], "route_launches": rts})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3039,6 +3798,10 @@ def main():
     if sys.argv[1:3] == ["--only", "train_validate"]:
         phase_build()
         phase_train_validate(None)
+        return 0
+    if sys.argv[1:3] == ["--only", "train_longrun"]:
+        phase_build()
+        phase_train_longrun()
         return 0
     phase_build()
     rep = phase_kernels()
@@ -3061,8 +3824,10 @@ def main():
     rows += train_rows
     rows += phase_dp_train(first_loss)
     phase_dp_two_process()
-    rows += phase_train_lm()
+    lm_rows = phase_train_lm()
+    rows += lm_rows
     phase_train_validate(step_ms)
+    rows += phase_train_longrun(lm_rows)
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
