@@ -25,6 +25,11 @@ pool:
   goes silent; the ``StallError`` the supervisor raises into the worker is
   forwarded to the consumer's ``next()`` like any other error.
 
+:class:`ThreadedShardReader` (the reference's, ``:221-329``) is the Python
+route of the native shard prefetcher (``utils/native.py``
+``NativePrefetchReader``): N threads each stream whole shards into one
+bounded queue, records interleaved across shards, each shard's in order.
+
 The reference's telemetry spans are not ported (ROADMAP queue A item 6).
 """
 
@@ -33,13 +38,13 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-from typing import Callable, Optional
+from typing import Callable, Iterable, Iterator, Optional
 
 from ..utils import config
 
 logger = logging.getLogger("bigdl_torch")
 
-__all__ = ["PrefetchIterator", "prefetch_depth"]
+__all__ = ["PrefetchIterator", "ThreadedShardReader", "prefetch_depth"]
 
 # queue item tags: (kind, payload)
 _ITEM, _ERR, _DONE = 0, 1, 2
@@ -178,6 +183,113 @@ class PrefetchIterator:
         self._finished = True
 
     def __enter__(self) -> "PrefetchIterator":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+
+class ThreadedShardReader:
+    """N Python threads each stream whole shards (``read_fn(path)`` ->
+    a record iterator) into one bounded queue: the route of the native
+    prefetcher where the library is absent.  Record order interleaves
+    across shards, each shard's order is kept, and the first reader error
+    is raised at the consumer after the records read before it."""
+
+    def __init__(self, paths: Iterable[str], num_threads: int,
+                 read_fn: Callable[[str], Iterator], capacity: int = 256):
+        self._paths = list(paths)
+        self._read_fn = read_fn
+        self._q: queue.Queue = queue.Queue(maxsize=max(2, capacity))
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._next = 0
+        self._finished = False
+        self._errored = False
+        n = max(1, min(int(num_threads), max(len(self._paths), 1)))
+        self._active = n
+        self._threads = [
+            threading.Thread(target=self._run, daemon=True,
+                             name=f"bigdl-torch-shard-reader-{i}")
+            for i in range(n)]
+        for t in self._threads:
+            t.start()
+
+    def _take_path(self) -> Optional[str]:
+        with self._lock:
+            if self._next >= len(self._paths):
+                return None
+            p = self._paths[self._next]
+            self._next += 1
+            return p
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                path = self._take_path()
+                if path is None:
+                    break
+                for rec in self._read_fn(path):
+                    if not self._put((_ITEM, rec)):
+                        return
+        except BaseException as e:  # noqa: BLE001 - forwarded to consumer
+            # one rotten shard ends the pass: the error goes behind the
+            # records already queued, then the other readers stop
+            self._errored = True
+            self._put((_ERR, e))
+            self._stop.set()
+            return
+        finally:
+            with self._lock:
+                self._active -= 1
+                last = self._active == 0
+            if last and not self._errored:
+                self._put((_DONE, None))
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def __iter__(self) -> "ThreadedShardReader":
+        return self
+
+    def __next__(self):
+        if self._finished:
+            raise StopIteration
+        while True:
+            try:
+                kind, payload = self._q.get(timeout=1.0)
+                break
+            except queue.Empty:
+                if not any(t.is_alive() for t in self._threads):
+                    self._finished = True
+                    raise RuntimeError(
+                        "shard reader threads exited without a result")
+        if kind == _ITEM:
+            return payload
+        self._finished = True
+        if kind == _ERR:
+            raise payload
+        raise StopIteration
+
+    def close(self) -> None:
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        for t in self._threads:
+            t.join(timeout=10.0)
+        self._finished = True
+
+    def __enter__(self) -> "ThreadedShardReader":
         return self
 
     def __exit__(self, *exc) -> bool:

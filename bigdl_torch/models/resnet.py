@@ -4,16 +4,17 @@ Counterpart of ``bigdl_tpu/models/resnet.py`` (reference:
 ``models/resnet/ResNet.scala:131-260``): basic and bottleneck residual
 units built as ConcatTable(branch, shortcut) -> CAddTable -> ReLU, MSRA
 init for the convolutions with zero biases, a BatchNorm after every
-convolution, NHWC input.  Shortcut types B (1x1 conv + BN where the shape
-changes) and C (always) are ported; type A (zero-pad identity) needs
-``Concat`` and ``MulConstant`` and raises ``NotImplementedError`` until
-those are ported.
+convolution, NHWC input.  Shortcut types A (where the shape changes: an
+average pool with the stride, then ``Concat(Identity, MulConstant(0))``
+doubling the channels with zeros; the CIFAR default), B (1x1 conv + BN
+where the shape changes) and C (always).
 """
 
 from __future__ import annotations
 
-from ..nn import (CAddTable, ConcatTable, Identity, Linear, LogSoftMax,
-                  MsraFiller, ReLU, Reshape, Sequential,
+from ..nn import (CAddTable, Concat, ConcatTable, Identity, Linear,
+                  LogSoftMax, MsraFiller, MulConstant, ReLU, Reshape,
+                  Sequential,
                   SpatialAveragePooling, SpatialBatchNormalization,
                   SpatialConvolution, SpatialMaxPooling, Zeros)
 
@@ -40,9 +41,12 @@ def _shortcut(n_in, n_out, stride, shortcut_type):
                 .add(_conv(n_in, n_out, 1, 1, stride, stride))
                 .add(SpatialBatchNormalization(n_out)))
     if n_in != n_out:
-        raise NotImplementedError(
-            "shortcut type A (zero-pad identity) needs Concat and "
-            "MulConstant, which are not ported yet; use shortcut_type='B'")
+        # type A (ResNet.scala:150-156): stride, then zero channels
+        return (Sequential()
+                .add(SpatialAveragePooling(1, 1, stride, stride))
+                .add(Concat(-1)
+                     .add(Identity())
+                     .add(MulConstant(0.0))))
     return Identity()
 
 

@@ -30,7 +30,8 @@ class MultiHeadAttention(Module):
                    "wo": "kernel_in", "*": "bias"}
 
     def __init__(self, embed_dim: int, num_heads: int, causal: bool = False,
-                 seq_parallel: bool = False):
+                 seq_parallel: bool = False, seq_axis: str = "seq",
+                 with_bias: bool = True):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % num_heads {num_heads}")
@@ -42,15 +43,18 @@ class MultiHeadAttention(Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.causal = causal
+        self.with_bias = with_bias
 
     def _init(self, generator):
         e = self.embed_dim
         dt = get_policy().param_dtype
         fi, fo = compute_fans((e, e))
-        p = {n: default_weight_init(generator, (e, e), fi, fo, dt)
+        winit = self.weight_initializer or default_weight_init
+        p = {n: winit(generator, (e, e), fi, fo, dt)
              for n in ("wq", "wk", "wv", "wo")}
-        p.update({n: torch.zeros((e,), dtype=dt)
-                  for n in ("bq", "bk", "bv", "bo")})
+        if self.with_bias:
+            p.update({n: torch.zeros((e,), dtype=dt)
+                      for n in ("bq", "bk", "bv", "bo")})
         return p
 
     def _proj(self, x, name):
@@ -58,7 +62,9 @@ class MultiHeadAttention(Module):
         # and the bias is added in the compute dtype
         c = get_policy().compute_dtype
         y = matmul_f32(x.to(c), getattr(self, "w" + name).to(c)).to(c)
-        return y + getattr(self, "b" + name).to(c)
+        if self.with_bias:
+            y = y + getattr(self, "b" + name).to(c)
+        return y
 
     def forward(self, x):
         B, T, E = x.shape

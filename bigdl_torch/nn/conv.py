@@ -10,12 +10,17 @@ writes a ``channels_last`` output, whose permutation back to NHWC is
 contiguous again.  x and w are cast to the policy's compute dtype; bf16
 convolutions accumulate in float32 inside the library, as the TPU's
 matrix unit does.  The reference's ``_pad_tiny_cin`` works around a TPU
-compiler pathology and changes no numbers, so it is not ported.  Under
+compiler pathology and changes no numbers, so it is not ported.
+``pad_w`` or ``pad_h`` of -1 is the reference's SAME padding (XLA's: the
+output is ceil(in / stride) and the odd pixel of padding goes after), an
+explicit pad of the input before a convolution without padding.  Under
 ``Optimizer.set_remat("conv_out")`` the convolution's output is the tensor
 kept for the backward (``utils/remat.py``), the reference's ``conv_out``.
 """
 
 from __future__ import annotations
+
+import torch.nn.functional as F
 
 from ..common import get_policy
 from ..utils import remat
@@ -42,8 +47,6 @@ class SpatialConvolution(Module):
         if n_input_plane % n_group or n_output_plane % n_group:
             raise ValueError(f"planes {n_input_plane} -> {n_output_plane} "
                              f"do not divide into {n_group} groups")
-        if pad_w == -1 or pad_h == -1:
-            raise NotImplementedError("SAME padding (pad -1) is not ported")
         self.n_input_plane = n_input_plane
         self.n_output_plane = n_output_plane
         self.kernel = (kernel_h, kernel_w)
@@ -73,13 +76,26 @@ class SpatialConvolution(Module):
                               fan_out, dt)
         return p
 
+    def _same_pads(self, x):
+        """(lo, hi) SAME padding of H and W for ``x`` (NHWC)."""
+        pads = []
+        for d in range(2):
+            n, k, s = x.shape[1 + d], self.kernel[d], self.stride[d]
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+
     def forward(self, x):
         c = get_policy().compute_dtype
+        xc = x.to(c).permute(0, 3, 1, 2)
+        pad = self.pad
+        if -1 in pad:
+            (hl, hh), (wl, wh) = self._same_pads(x)
+            xc = F.pad(xc, (wl, wh, hl, hh))
+            pad = (0, 0)
         # under set_remat("conv_out") the output is the kept tensor
-        y = remat.conv2d(x.to(c).permute(0, 3, 1, 2),
-                         self.weight.to(c).permute(3, 2, 0, 1),
-                         self.stride, self.pad,
-                         self.n_group).permute(0, 2, 3, 1)
+        y = remat.conv2d(xc, self.weight.to(c).permute(3, 2, 0, 1),
+                         self.stride, pad, self.n_group).permute(0, 2, 3, 1)
         if self.with_bias:
             y = y + self.bias.to(y.dtype)
         return y

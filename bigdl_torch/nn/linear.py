@@ -1,4 +1,5 @@
-"""Dense layers: ``Linear`` (nn/Linear.scala).
+"""Dense layers: ``Linear`` (nn/Linear.scala), ``MulConstant`` and
+``AddConstant``.
 
 Counterpart of ``bigdl_tpu/nn/linear.py`` for what the serving and
 training slices use.  The product is a plain matrix product left to the
@@ -13,7 +14,7 @@ from ..common import get_policy
 from .initialization import compute_fans, default_bias_init, default_weight_init
 from .module import Module
 
-__all__ = ["Linear", "matmul_f32"]
+__all__ = ["Linear", "MulConstant", "AddConstant", "matmul_f32"]
 
 
 def _mm_f32(a2: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,10 +75,12 @@ class Linear(Module):
     PARAM_ROLES = {"weight": "kernel_out", "bias": "bias"}
 
     def __init__(self, input_size: int, output_size: int,
-                 w_regularizer=None, b_regularizer=None):
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
+        self.with_bias = with_bias
         # gradient terms the Optimizer adds (optim/regularizer.py)
         self.w_regularizer = w_regularizer
         self.b_regularizer = b_regularizer
@@ -86,11 +89,39 @@ class Linear(Module):
         shape = (self.output_size, self.input_size)
         fi, fo = compute_fans(shape)
         dt = get_policy().param_dtype
-        return {"weight": default_weight_init(generator, shape, fi, fo, dt),
-                "bias": default_bias_init(generator, (self.output_size,),
-                                          fi, fo, dt)}
+        winit = self.weight_initializer or default_weight_init
+        binit = self.bias_initializer or default_bias_init
+        p = {"weight": winit(generator, shape, fi, fo, dt)}
+        if self.with_bias:
+            p["bias"] = binit(generator, (self.output_size,), fi, fo, dt)
+        return p
 
     def forward(self, x):
         c = get_policy().compute_dtype
-        return (matmul_f32(x.to(c), self.weight.to(c).t())
-                + self.bias).to(c)
+        y = matmul_f32(x.to(c), self.weight.to(c).t())
+        if self.with_bias:
+            y = y + self.bias
+        return y.to(c)
+
+
+class MulConstant(Module):
+    """x * constant (nn/MulConstant.scala); ``inplace`` is accepted for the
+    reference's signature, the output is a new tensor."""
+
+    def __init__(self, constant_scalar: float, inplace: bool = False):
+        super().__init__()
+        self.constant = constant_scalar
+
+    def forward(self, x):
+        return x * self.constant
+
+
+class AddConstant(Module):
+    """x + constant (nn/AddConstant.scala)."""
+
+    def __init__(self, constant_scalar: float, inplace: bool = False):
+        super().__init__()
+        self.constant = constant_scalar
+
+    def forward(self, x):
+        return x + self.constant

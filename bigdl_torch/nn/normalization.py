@@ -8,7 +8,10 @@ one device B1 forward and B2 backward, under the Engine's data group
 sync-BN with B3 and B4 (see :class:`BatchNormalization`).  There is no
 knob between routes (the reference's ``BIGDL_TPU_BN_IMPL``,
 ``BN_FUSED_VJP`` and ``BN_STAT_ROWS`` routes are not ported).  The running
-statistics are buffers of the module.
+statistics are buffers of the module.  ``affine=False`` (no weight, no
+bias) is left to PyTorch ops, as the reference leaves it to XLA (its
+Pallas route needs ``affine``): float32 mean and E[x²] - mean² over the
+rows, no kernel launch.
 """
 
 from __future__ import annotations
@@ -31,12 +34,15 @@ class BatchNormalization(Module):
     Training normalizes with the biased float32 batch statistics and
     updates the running EMA in place with the unbiased variance
     (``new = (1 - momentum)·old + momentum·batch``); eval normalizes with
-    the running statistics.  ``affine=False`` is not ported.
+    the running statistics.
 
     The route is chosen by whether the Engine has a data group: with one,
     training takes sync-BN (``bn_train_sync``: B3, B4 and two all-reduces
     of per-channel sums) and the statistics, and the EMA's row count, are
     the global batch's; without one, the single-device route (B1, B2).
+    With ``affine=False`` training takes :meth:`_plain_train` instead, on
+    any device and under any group (no sync: the reference's XLA route
+    syncs only under ``sync_axis``, which this route refuses).
     The reference chooses by ``jax.device_count() > 1`` instead
     (``nn/normalization.py:228-235``).  Here the data-parallel path must
     run its kernels and collectives on a single card too (a group of one
@@ -53,9 +59,9 @@ class BatchNormalization(Module):
         if sync_axis not in (None, Engine.DATA_AXIS):
             raise ValueError(f"sync_axis={sync_axis!r}: the port syncs only "
                              f"over the Engine's {Engine.DATA_AXIS!r} group")
-        if not affine:
-            raise NotImplementedError("BatchNormalization(affine=False) is "
-                                      "not ported")
+        if not affine and sync_axis is not None:
+            raise NotImplementedError("BatchNormalization(affine=False, "
+                                      "sync_axis=...) is not ported")
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum
@@ -63,6 +69,8 @@ class BatchNormalization(Module):
         self.sync_axis = sync_axis
 
     def _init(self, generator):
+        if not self.affine:
+            return {}
         dt = get_policy().param_dtype
         winit = self.weight_initializer
         w = (winit(generator, (self.n_output,), self.n_output,
@@ -75,7 +83,21 @@ class BatchNormalization(Module):
         return {"running_mean": torch.zeros((self.n_output,), dtype=dt),
                 "running_var": torch.ones((self.n_output,), dtype=dt)}
 
+    def _plain_train(self, x):
+        """affine=False training in PyTorch ops: biased float32 batch
+        statistics as E[x²] - mean², normalize, EMA update."""
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = xf.square().mean(dim=dims) - mean.square()
+        self._ema_update(mean.detach(), var.detach(),
+                         x.numel() // x.shape[-1])
+        inv = torch.rsqrt(var + self.eps)
+        return x * inv.to(x.dtype) + (-mean * inv).to(x.dtype)
+
     def forward(self, x):
+        if self.training and not self.affine:
+            return self._plain_train(x)
         if self.training:
             group = Engine.group()
             if group is None and self.sync_axis is not None:
@@ -91,8 +113,9 @@ class BatchNormalization(Module):
                              global_rows(x.numel() // x.shape[-1], group))
             return y
         inv = torch.rsqrt(self.running_var + self.eps)
-        scale = self.weight * inv
-        shift = self.bias - self.running_mean * scale
+        scale = self.weight * inv if self.affine else inv
+        shift = (self.bias if self.affine else 0.0) - \
+            self.running_mean * scale
         return x * scale.to(x.dtype) + shift.to(x.dtype)
 
     def _ema_update(self, mean, var, n: int) -> None:
@@ -128,12 +151,16 @@ class LayerNorm(Module):
 
     PARAM_ROLES = {"weight": "norm_scale", "bias": "norm_scale"}
 
-    def __init__(self, n_output: int, eps: float = 1e-5):
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 affine: bool = True):
         super().__init__()
         self.n_output = n_output
         self.eps = eps
+        self.affine = affine
 
     def _init(self, generator):
+        if not self.affine:
+            return {}
         dt = get_policy().param_dtype
         return {"weight": torch.ones((self.n_output,), dtype=dt),
                 "bias": torch.zeros((self.n_output,), dtype=dt)}
@@ -143,4 +170,6 @@ class LayerNorm(Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf - mean).square().mean(dim=-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+        if self.affine:
+            y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)

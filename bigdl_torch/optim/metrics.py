@@ -3,8 +3,10 @@
 Counterpart of ``bigdl_tpu/optim/metrics.py`` (reference
 ``optim/Metrics.scala:31``): host-side sums and counts by name, which the
 Optimizer fills with ``"get batch time average"`` (seconds the loop waited
-for its next batch) and ``"computing time average"`` (seconds from taking
-the batch to the host reading the step's loss).
+for its next batch), ``"computing time average"`` (on a logged iteration,
+seconds from taking the batch to the host reading the step's loss),
+``"prefetch queue depth"`` (ready batches at each fetch) and, under the
+straggler drop, ``"dropped iterations"``.
 """
 
 from __future__ import annotations

@@ -113,13 +113,24 @@ changes a parameter or buffer, and only the pickle, the CRC and the write
 run on ``file_io``'s writer thread.  A write error surfaces at the next
 boundary or at the end of the run.  Paths with a scheme go through
 ``file_io``'s registered or fsspec filesystems.  ``set_train_summary``
-writes Loss, LearningRate and Throughput every iteration and, under its
+writes Loss, LearningRate and Throughput every logged iteration and, under its
 ``"Parameters"`` trigger, a histogram of every parameter (copied to the
 host only then); ``set_validation_summary`` every validation result.
 
+The loss reaches the host as in the reference (``:1773-1783``): on an
+iteration that ``set_log_interval(n)`` logs (default every one) the step's
+own loss is read; on the others the previous step's is read after this
+step is queued, so they never wait on the card, and an epoch's last pending
+loss is read at its end.  Triggers see that ``state["loss"]``; the train
+summary's scalars and ``"computing time average"`` come from logged
+iterations.  ``set_drop_module_property`` is the reference's straggler
+drop (``:491-566``): an iteration whose host data wait exceeds the k-th
+largest wait of the last window, the prefetch queue being empty, is
+skipped before its step (``metrics["dropped iterations"]``).
+
 Not ported yet: ``set_checkpoint(publish=...)`` (ROADMAP queue A item 5),
-``set_drop_module_property`` (queue A item 3), the elastic recovery and
-the strategies other than ``DataParallel`` (items 4 and 6).
+the elastic recovery and the strategies other than ``DataParallel``
+(items 4 and 6).
 """
 
 from __future__ import annotations
@@ -140,6 +151,7 @@ import torch
 
 from ..common import get_policy, resolve_device
 from ..dataset import AbstractDataSet, DataSet, Sample, SampleToMiniBatch
+from ..dataset.transformer import Batcher
 from ..dataset.prefetch import PrefetchIterator, prefetch_depth
 from ..nn.criterion import Criterion
 from ..nn.dropout import dropout_rng
@@ -152,6 +164,7 @@ from ..utils.convert import (check_reference_tree, load_reference_opt_state,
                              load_reference_tree, to_reference_opt_state,
                              to_reference_tree)
 from ..utils.engine import Engine
+from ..utils.util import kth_largest
 from .method import SGD, OptimMethod
 from .metrics import Metrics
 from .regularizer import apply_regularizer_grads
@@ -253,13 +266,13 @@ def _as_dataset(dataset):
 
 
 def _find_batchers(dataset):
-    """Every SampleToMiniBatch in a dataset's transformer chain."""
+    """Every :class:`Batcher` in a dataset's transformer chain."""
     batchers = []
 
     def walk(obj):
         if obj is None:
             return
-        if isinstance(obj, SampleToMiniBatch):
+        if isinstance(obj, Batcher):
             batchers.append(obj)
         for attr in ("first", "second", "transformer", "base"):
             walk(getattr(obj, attr, None))
@@ -585,6 +598,16 @@ class Optimizer:
         self.validation_summary = None
         self.remat_policy = None
         self.grad_accum_steps = 1
+        self.log_interval = 1
+        # the straggler drop (set_drop_module_property)
+        self.drop_percentage = 0.0
+        self.max_drop_percentage = 0.0
+        self.threshold_batch_size = 100
+        self.warmup_iterations = 20
+        self._iter_times: list = []
+        self._drop_threshold = None
+        self._dropped_in_window = 0
+        self._iters_in_budget_window = 0
         self._supervise_cfg = None
         self._sup = None
         self._stager = None
@@ -659,7 +682,7 @@ class Optimizer:
         return self
 
     def set_train_summary(self, summary):
-        """Loss, LearningRate and Throughput every iteration, parameter
+        """Loss, LearningRate and Throughput every logged iteration, parameter
         histograms under the summary's ``"Parameters"`` trigger
         (``visualization.TrainSummary``)."""
         self.train_summary = summary
@@ -688,6 +711,75 @@ class Optimizer:
         if steps < 1:
             raise ValueError(f"set_gradient_accumulation: steps={steps}")
         self.grad_accum_steps = int(steps)
+        return self
+
+    def set_drop_module_property(self, drop_percentage: float,
+                                 max_drop_percentage: float,
+                                 batch_size: int = 100,
+                                 warmup_iteration: int = 20):
+        """Straggler drop (the reference's, ``:491-515``; BigDL's
+        ``Optimizer.setDropModuleProperty``): the host data waits of the
+        last ``batch_size`` iterations give a k-th largest threshold
+        (k = window x ``drop_percentage``); an iteration whose wait exceeds
+        it is skipped before the step, at most ``max_drop_percentage`` of a
+        window."""
+        if not 0 <= drop_percentage <= max_drop_percentage <= 1:
+            raise ValueError("need 0 <= drop <= maxDrop <= 1")
+        if batch_size < 2 or warmup_iteration < 0:
+            raise ValueError("need batch_size >= 2 and warmup >= 0")
+        self.drop_percentage = drop_percentage
+        self.max_drop_percentage = max_drop_percentage
+        self.threshold_batch_size = batch_size
+        self.warmup_iterations = warmup_iteration
+        return self
+
+    def _straggler_check(self, data_wait: float, neval: int,
+                         queue_depth: Optional[int] = None) -> bool:
+        """Record this iteration's data wait; True drops the iteration
+        (the reference's ``_straggler_check``, ``:517-566``).  The
+        threshold comes from the window before this wait; a non-empty
+        prefetch queue (``queue_depth`` > 0) means the consumer set the
+        pace, and such an iteration is never dropped."""
+        if queue_depth is not None:
+            self.metrics.add("prefetch queue depth", float(queue_depth))
+        if self.drop_percentage <= 0:
+            return False
+        window = self._iter_times
+        if neval > self.warmup_iterations and \
+                len(window) >= max(self.threshold_batch_size // 2, 1):
+            k = max(int(len(window) * self.drop_percentage), 1)
+            self._drop_threshold = kth_largest(window, k)
+        else:
+            self._drop_threshold = None
+        window.append(data_wait)
+        if len(window) > self.threshold_batch_size:
+            del window[:len(window) - self.threshold_batch_size]
+        # the drop budget resets once per window of iterations
+        self._iters_in_budget_window += 1
+        if self._iters_in_budget_window >= self.threshold_batch_size:
+            self._iters_in_budget_window = 0
+            self._dropped_in_window = 0
+        if self._drop_threshold is None or \
+                data_wait <= self._drop_threshold or queue_depth:
+            return False
+        if (self._dropped_in_window + 1) / self.threshold_batch_size > \
+                self.max_drop_percentage:
+            return False  # budget spent: train through it
+        self._dropped_in_window += 1
+        self.metrics.add("dropped iterations", 1.0)
+        logger.info("straggler: dropping iteration %d (data wait %.3fs > "
+                    "threshold %.3fs)", neval, data_wait,
+                    self._drop_threshold)
+        return True
+
+    def set_log_interval(self, n: int):
+        """Read the step's loss on the host every ``n`` iterations; in
+        between, the previous step's loss is read after the next step is
+        queued (``:1773-1783``), so those iterations never wait on the
+        card."""
+        if n < 1:
+            raise ValueError(f"set_log_interval: n={n}")
+        self.log_interval = int(n)
         return self
 
     def set_supervision(self, data=None, step=None, checkpoint=None,
@@ -867,7 +959,7 @@ class Optimizer:
                 raise ConfigurationError(
                     "gradient accumulation needs every batch divisible by "
                     f"{k}: set drop_last=True or pad_last=True on "
-                    "SampleToMiniBatch")
+                    f"{type(b).__name__}")
 
     def _open_data_pipeline(self):
         """One epoch's batches: ``(iterator, pipe or None)``.  At depth 0
@@ -1357,6 +1449,8 @@ class Optimizer:
         while not self.end_trigger(state):
             self.dataset.shuffle()
             records = 0
+            # the step whose loss the host has not read yet (:1773-1783)
+            pending = None
             data, pipe = self._open_data_pipeline()
             try:
                 while True:
@@ -1364,6 +1458,7 @@ class Optimizer:
                     beat("data")
                     if pipe is None:
                         chaos.fire("data.stall")
+                    qdepth = pipe.queue_depth() if pipe is not None else None
                     t0 = time.perf_counter()
                     item = next(data, None)
                     if item is None or self.end_trigger(state):
@@ -1375,6 +1470,9 @@ class Optimizer:
                         batch, staged = item
                     t1 = time.perf_counter()
                     self.metrics.add("get batch time average", t1 - t0)
+                    if self._straggler_check(t1 - t0, state["neval"],
+                                             queue_depth=qdepth):
+                        continue
                     # the first step of an attempt builds the kernels
                     beat("compile" if first_step else "step")
                     first_step = False
@@ -1387,18 +1485,32 @@ class Optimizer:
                     lr = float(optim.get_learning_rate(state))
                     loss, opt_state = self._step(params, opt_state, inp, tgt,
                                                  lr, rng)
-                    state["loss"] = self._observe_loss(float(loss), state)
-                    dt = time.perf_counter() - t1
-                    self.metrics.add("computing time average", dt)
+                    # the previous step's loss, long computed: no wait
+                    if pending is not None:
+                        state["loss"] = self._observe_loss(float(pending),
+                                                           state)
+                    pending = loss
                     n = batch.size()
                     records += n
-                    self._summarize(state, lr, n / max(dt, 1e-9))
+                    if state["neval"] % self.log_interval == 0:
+                        state["loss"] = self._observe_loss(float(loss), state)
+                        pending = None
+                        dt = time.perf_counter() - t1
+                        self.metrics.add("computing time average", dt)
+                        logger.info("Epoch %d [iteration %d] loss %.6f lr "
+                                    "%.5g throughput %.1f records/s",
+                                    state["epoch"], state["neval"],
+                                    state["loss"], lr, n / max(dt, 1e-9))
+                        self._summarize(state, lr, n / max(dt, 1e-9))
+                    self._histograms(state)
                     state["neval"] += 1
                     state["evalCounter"] += 1
                     self._boundary(state, opt_state, rng)
             finally:
                 if pipe is not None:
                     pipe.close()
+            if pending is not None:
+                state["loss"] = self._observe_loss(float(pending), state)
             if records == 0:
                 raise ConfigurationError(
                     "epoch produced no minibatches: the dataset is smaller "
@@ -1413,9 +1525,7 @@ class Optimizer:
         return self.model
 
     def _summarize(self, state, lr, throughput):
-        """The train summary's scalars for this iteration and, when its
-        ``"Parameters"`` trigger fires, a histogram of every parameter
-        (the only time they are copied to the host)."""
+        """The train summary's scalars, on a logged iteration."""
         summary = self.train_summary
         if summary is None:
             return
@@ -1423,10 +1533,18 @@ class Optimizer:
         summary.add_scalar("Loss", state["loss"], neval)
         summary.add_scalar("LearningRate", lr, neval)
         summary.add_scalar("Throughput", throughput, neval)
+
+    def _histograms(self, state):
+        """When the train summary's ``"Parameters"`` trigger fires, a
+        histogram of every parameter (the only time they are copied to the
+        host)."""
+        summary = self.train_summary
+        if summary is None:
+            return
         trig = summary.get_summary_trigger("Parameters")
         if trig is not None and trig(state):
             for name, p in _param_paths(self.model):
-                summary.add_histogram(name, to_host(p), neval)
+                summary.add_histogram(name, to_host(p), state["neval"])
 
 
 class _Forward:

@@ -17,6 +17,7 @@ the kernels always run.
 | BIGDL_TORCH_PROCESS_ID           | this process's rank                            | 0       |
 | BIGDL_TORCH_PREFETCH_DEPTH       | batches the input worker keeps ready; 0: none  | 2       |
 | BIGDL_TORCH_PREFETCH_STAGE       | the input worker also copies batches to device | 1       |
+| BIGDL_TORCH_DATA_SKIP_BUDGET     | corrupt records a data pass may quarantine     | 0       |
 | BIGDL_TORCH_DECODE_SLOTS         | decode engine: fixed in-flight sequence slots  | 4       |
 | BIGDL_TORCH_DECODE_PAGE          | cache-page quantum; cache length is page * 2^k | 128     |
 | BIGDL_TORCH_DECODE_MAX_LEN       | cache-length cap (0 = the model's positions)   | 0       |

@@ -2,9 +2,9 @@
 
 Counterpart of ``bigdl_tpu/utils/recordio.py`` ``crc32c_update`` and its
 native route (``bigdl_tpu/utils/native.py``).  The compiled route is the
-port's own ``csrc/host/crc32c.cc`` (SSE4.2 or a sliced table), built with
-the host C++ compiler at first use (``utils/cuda_build.py``
-``build_host``).  Where it cannot be built, a one-time warning is logged
+port's own ``csrc/host/crc32c.cc`` (SSE4.2 or a sliced table), part of the
+port's host library (``utils/native.py`` :func:`~.native.library`, built
+with the host C++ compiler at first use).  Where it cannot be built, a one-time warning is logged
 and the pure-Python table loop runs, as the reference does without its
 native library; it gives the same numbers, slowly (a few MB/s).
 :func:`route` says which one runs.  :func:`masked_crc32c` is the
@@ -18,7 +18,7 @@ import ctypes
 import logging
 import threading
 
-from . import cuda_build
+from . import native as host
 
 logger = logging.getLogger("bigdl_torch")
 
@@ -35,7 +35,7 @@ def native():
     if it cannot be built."""
     with _lock:
         if _state["fn"] is None:
-            lib = cuda_build.load_host("crc32c")
+            lib = host.library()
             fn = lib.bigdl_torch_crc32c_extend
             fn.restype = ctypes.c_uint32
             fn.argtypes = [ctypes.c_uint32, ctypes.c_char_p, ctypes.c_size_t]

@@ -10,10 +10,12 @@ calls :func:`load` when it first launches, and ``chip_smoke.py`` calls
 :func:`build` for every source at once (one ``nvcc`` per source, all
 started together).
 
-Host sources (``bigdl_torch/csrc/host/<name>.cc``: the checkpoint frame's
-CRC32C) are built the same way by the host C++ compiler (``$CXX``, else
-``g++``, which ``nvcc`` needs too), keyed by a hash of source and flags
-(:func:`build_host`, :func:`load_host`).
+The host library (:data:`HOST_SOURCES` in ``bigdl_torch/csrc/host/``:
+the CRC32C, the record codec, the shard prefetcher and the host batch
+kernels, linked into one shared library) is built the same way by the host
+C++ compiler (``$CXX``, else ``g++``, which ``nvcc`` needs too), keyed by a
+hash of its sources, the host headers and the flags (:func:`build_host`,
+:func:`load_host`).
 """
 
 from __future__ import annotations
@@ -38,13 +40,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention", "flash_attention_bwd", "batchnorm",
            "matmul_stats", "decode_attention")
 
-#: every host C++ source of the port, by library name
-HOST_SOURCES = ("crc32c",)
+#: every host C++ source of the port, linked into its one host library
+HOST_SOURCES = ("crc32c", "recordio", "prefetch", "hostops")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -128,41 +130,42 @@ def _cxx() -> str:
     return found
 
 
-def _host_library_path(name: str) -> str:
+def _host_library_path() -> str:
     digest = hashlib.sha256()
-    with open(host_source_path(name), "rb") as f:
-        digest.update(f.read())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "host", "*.h")))
+    for path in [host_source_path(n) for n in HOST_SOURCES] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(CXX_FLAGS).encode())
     return os.path.join(BUILD_DIR,
-                        f"lib{name}-host-{digest.hexdigest()[:16]}.so")
+                        f"libbigdl_torch_host-{digest.hexdigest()[:16]}.so")
 
 
-def build_host(name: str) -> str:
-    """Compile ``csrc/host/<name>.cc`` with the host C++ compiler unless
-    its library exists; returns the library's path.  Raises if the
-    compiler is missing or fails."""
+def build_host() -> str:
+    """Compile :data:`HOST_SOURCES` into the host library with the host
+    C++ compiler unless it exists; returns the library's path.  Raises if
+    the compiler is missing or fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = _host_library_path(name)
+    out = _host_library_path()
     if os.path.exists(out):
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp,
-                           host_source_path(name)],
+    srcs = [host_source_path(n) for n in HOST_SOURCES]
+    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, *srcs],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode:
-        raise RuntimeError(f"{host_source_path(name)} failed to build:\n"
-                           f"{proc.stdout}")
+        raise RuntimeError(f"host library ({', '.join(srcs)}) failed to "
+                           f"build:\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: no half-written library
     return out
 
 
-def load_host(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/host/<name>.cc``, built on first
-    use."""
-    key = "host/" + name
+def load_host() -> ctypes.CDLL:
+    """The loaded host library, built on first use."""
+    key = "host/"
     with _lock:
         lib = _loaded.get(key)
         if lib is None:
-            lib = _loaded[key] = ctypes.CDLL(build_host(name))
+            lib = _loaded[key] = ctypes.CDLL(build_host())
         return lib

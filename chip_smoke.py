@@ -6,13 +6,15 @@
 (``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10, started
 by the script itself; ``python3 chip_smoke.py --only train_validate`` runs
 the build and phase 13 alone, ``--only train_longrun`` the build and
-phase 14 alone, and neither prints the final line.)
+phase 14 alone, ``--only train_records`` the build and phase 15 alone,
+and none of them prints the final line.)
 
 Phases, each printing one JSON line:
 
 1. ``build``: compile every CUDA source of the port with ``nvcc`` (one
-   process per source, all started together) and report the seconds and,
-   by source and kernel, its registers and spilled bytes.
+   process per source, all started together), and the host libraries
+   (``csrc/host``) with the host compiler beside them, and report the
+   seconds and, by source and kernel, its registers and spilled bytes.
 2. ``kernels``: hold the flash-attention kernels (B6) against their plain
    PyTorch version on the card, at the shapes the serving path gives them
    (D = 64) and at D = 32 and 128, each in bf16 (the ``"tc"`` route:
@@ -252,13 +254,52 @@ Phases, each printing one JSON line:
    ``scale_b`` at 0: the stem's parameters bit-equal after 3 steps, the
    rest trained.
 
+15. ``train_records``: training from BDRecord shards. The host library
+   (``csrc/host/recordio.cc``, ``prefetch.cc``, ``hostops.cc``) and the
+   CRC32C must take their compiled routes, and the native shard
+   prefetcher must open. Seeded uint8 ``.npy`` images in 10 class folders
+   become shards through ``tools/record_generator.py`` ``convert`` (8
+   shards each): 1536 at 256 x 256, 512 at 224 x 224, 384 at 32 x 32
+   (records/s and bytes on disk). ResNet-50 as in ``train`` (fused, bf16,
+   batch 256) trains from ``DataSet.record_stream(..., num_threads=8)``
+   through a dict-to-``LabeledImage`` transformer (``data / 255``) and
+   ``MTImageToBatch(256, RdmResizedCrop(224, 224) >> HFlip >> ColorJitter
+   >> Lighting >> ImgNormalizer, drop_last=True)``, one epoch of 1 + 5
+   steps, the window after step 1 timed (step ms, data wait and its
+   share, images/s); the same through ``record_files(...,
+   num_threads=8)`` (cached); ``DataSet.array`` of ready images beside
+   them with the loss read every step and every 10th (A B B A); the
+   pipeline alone (records/s, the MT batcher and the sequential chain);
+   a profile of the streamed steps (busy, idle share). Every run exactly
+   20 B1, 20 B2, 33 B4 and 33 B5 a step on ``"vec"`` / ``"tc"``. At
+   batch 64 over the cached 224 set, ``set_drop_module_property(1/12,
+   1/12, 12, 0)`` with one ``data.stall`` of 3 s at batch 7: exactly that
+   iteration dropped, and the recorded waits replayed through a fresh
+   Optimizer's ``_straggler_check`` give the same decisions. The zoo CLI
+   (float32, unfused, cuDNN deterministic): ``run.main(["train",
+   "--model", "resnet50", ...])`` 3 steps at batch 256 with
+   ``--model-save``, exactly 53 B1 and 53 B2 a step on ``"vec"`` and no
+   B4 or B5; ``run.main(["test", ...])`` launches none and gives Top1 and
+   Top5 equal to ``Evaluator`` on the live model; ``--model resnet``
+   (ResNet-20, shortcut A) 3 steps at batch 128, 19 B1 and 19 B2 a step.
+   The CLI runs with PyTorch's default TF32 settings, as a fresh process
+   does: cuDNN's float32 convolutions in TF32.
+   LeNet-5 through the facade (``update_output``, ``backward``,
+   ``update_parameters``) on the card and the CPU, float32, TF32 off,
+   under cuDNN (default and deterministic) and PyTorch's own
+   convolutions: every result within 1e-4 of the CPU's, but cuDNN's conv1
+   weight gradient, which equals a lone cuDNN call's bit for bit and is
+   within float32's summation bound of the exact one (its engine named
+   from cuDNN's API log in a child process).
+
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
 LM run, B8 per warm continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
 timed training run; each also per route; B1, B2, B4 and B5 per timed
 accumulation run and B6 and B7 per LM remat run of ``train_longrun``,
 with the times ``bn_kernels`` took at the microbatch shapes and
-``train_lm`` at the LM step's), the
+``train_lm`` at the LM step's; B1, B2, B4 and B5 per streamed run of
+``train_records`` and B1 and B2 per CLI run, with ``train``'s times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -269,6 +310,7 @@ import collections
 import contextlib
 import copy
 import json
+import logging
 import math
 import os
 import re
@@ -277,6 +319,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -287,11 +330,13 @@ import bigdl_torch.nn as nn
 from bigdl_torch import Engine
 from bigdl_torch.common import DTypePolicy, set_policy
 from bigdl_torch.dataset import (DataSet, LocalArrayDataSet, Sample,
-                                 SampleToMiniBatch)
+                                 SampleToMiniBatch, Transformer)
+from bigdl_torch.dataset import image as img_mod
 from bigdl_torch.models import (LeNet5, ResNet, TransformerLM,
                                 cached_generate, greedy_generate)
 from bigdl_torch.models import decode as dec_mod
 from bigdl_torch.models import resnet as resnet_mod
+from bigdl_torch.models import run as zoo_run
 from bigdl_torch.ops import attention as attn_ops
 from bigdl_torch.ops import batchnorm as bn_ops
 from bigdl_torch.ops import convbn as cb_ops
@@ -303,7 +348,9 @@ from bigdl_torch.optim import (SGD, Adadelta, Adagrad, Adam, Adamax,
 from bigdl_torch.optim.optimizer import HostCopy, to_host
 from bigdl_torch.serve import (DecodeEngine, InferenceServer, fit_bucket,
                                pad_tail)
-from bigdl_torch.utils import crc32c, cuda_build, file_io
+from bigdl_torch.tools import record_generator
+from bigdl_torch.utils import chaos, crc32c, cuda_build, file_io, native
+from bigdl_torch.utils.recordio import count_records
 from bigdl_torch.utils.convert import to_reference_tree
 
 SEED = 0
@@ -503,15 +550,32 @@ def ptxas_functions(log):
 
 
 def phase_build():
+    """Every CUDA source with nvcc, and the host library with the host
+    compiler beside them (``cuda_build.HOST_SOURCES``)."""
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():
+        try:
+            cuda_build.build_host()
+        except RuntimeError as e:   # raised again below
+            host["error"] = e
+        host["seconds"] = time.perf_counter() - t0
+    thread = threading.Thread(target=build_host)
+    thread.start()
     libs = cuda_build.build(cuda_build.SOURCES)
     seconds = time.perf_counter() - t0
+    thread.join()
+    if "error" in host:
+        raise host["error"]
     ptxas = {}
     for name, path in libs.items():
         with open(path[:-3] + ".log") as f:
             ptxas[name] = ptxas_functions(f.read().splitlines())
     emit({"phase": "build", "gpu": gpu_line(), "seconds": seconds,
-          "sources": list(libs), "ptxas": ptxas})
+          "host_sources": list(cuda_build.HOST_SOURCES),
+          "host_seconds": host["seconds"], "sources": list(libs),
+          "ptxas": ptxas})
 
 
 # -- 2. kernels -------------------------------------------------------------
@@ -3789,12 +3853,646 @@ def phase_train_longrun(lm_rows=()):
     return rows
 
 
+# -- 15. train_records ----------------------------------------------------------
+
+REC_BATCH = 256
+# timed steps after one warm-up step: the prefetch queue's head start (the
+# batches made during step 1) is spent within the first few, so the
+# second half of the window is reported apart as the steady state
+REC_STEPS = 11
+REC_IMAGES = REC_BATCH * (1 + REC_STEPS)   # one epoch: exactly the run
+REC_SHARDS = 8
+REC_THREADS = 8
+REC_CLASSES = 10                   # the CLI's default --class-num
+CLI_IMAGES = 2 * REC_BATCH         # two batches an epoch
+CLI_STEPS = 3
+R20_BATCH = 128
+R20_IMAGES = R20_BATCH * CLI_STEPS
+MEANS, STDS = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+#: launches a CLI step makes: unfused float32, every BatchNorm on B1/B2
+CLI_STEP_LAUNCHES = {"resnet50": 53, "resnet20": 19}
+LOG_INTERVAL_STALE = 10            # no logged iteration in a timed run
+# the straggler drop: a window of 12 waits gives a threshold from the 7th
+# fetch on and a budget of one drop (1/12 <= 1/12 < 2/12) that no window
+# end renews within the run's 11 fetches, so host jitter cannot add a
+# second drop; the stall lands on the 7th batch
+DROP_BATCH = 64
+DROP_WINDOW = 12
+DROP_ITERS = 10
+DROP_AT = 7
+DROP_STALL_S = 3.0
+LENET_ATOL = 1e-4
+
+
+class RecordToImage(Transformer):
+    """A ``record_generator`` dict -> a LabeledImage of ``data / 255`` in
+    float32, as the CLI's ``_load_samples`` rescales."""
+
+    def __call__(self, it):
+        for rec in it:
+            yield img_mod.LabeledImage(
+                np.asarray(rec["data"]).astype(np.float32) / 255.0,
+                float(rec["label"]))
+
+
+def write_corpus(root, n, hw, seed):
+    """``n`` seeded uint8 ``.npy`` images of ``hw`` x ``hw`` x 3 in
+    ``REC_CLASSES`` class folders under ``root``."""
+    rs = np.random.default_rng(seed)
+    imgs = rs.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+    for c in range(REC_CLASSES):
+        os.makedirs(os.path.join(root, f"class_{c:02d}"), exist_ok=True)
+    for i in range(n):
+        np.save(os.path.join(root, f"class_{i % REC_CLASSES:02d}",
+                             f"img_{i:05d}.npy"), imgs[i])
+    return root
+
+
+def etl(folder, out):
+    """``record_generator.convert`` of ``folder`` into ``REC_SHARDS``
+    shards: its numbers, and the shards' glob."""
+    t0 = time.perf_counter()
+    paths, n = record_generator.convert(folder, out, shards=REC_SHARDS,
+                                        parallel=REC_THREADS, quiet=True)
+    sec = time.perf_counter() - t0
+    check(n == sum(count_records(p) for p in paths) and
+          len(paths) == REC_SHARDS, f"ETL of {folder}: {n} records")
+    return {"records": n, "shards": len(paths), "seconds": sec,
+            "records_per_s": n / sec,
+            "bytes_on_disk": sum(os.path.getsize(p) for p in paths)}, \
+        out + "-*"
+
+
+def aug_chain():
+    """The ImageNet recipe's augmentation, one seeded generator each."""
+    return (img_mod.RdmResizedCrop(224, 224, seed=SEED)
+            >> img_mod.HFlip(seed=SEED + 1)
+            >> img_mod.ColorJitter(seed=SEED + 2)
+            >> img_mod.Lighting(seed=SEED + 3)
+            >> img_mod.ImgNormalizer(MEANS, STDS))
+
+
+def augmented(source, batch=None, chain=None):
+    """A dataset of record dicts -> augmented MiniBatches of ``batch``
+    (default ``REC_BATCH``)."""
+    return source.transform(RecordToImage()).transform(
+        img_mod.MTImageToBatch(batch or REC_BATCH, chain or aug_chain(),
+                               drop_last=True))
+
+
+def timed_steps(model, dataset, steps, log_interval=1, on_step=None):
+    """``1 + steps`` Optimizer steps over ``dataset`` (SGD(0.1)); the
+    window from batch 2 in hand (the card synchronized, every count
+    zeroed) to the end holds ``steps`` steps.  Returns the window's ms per
+    step, its data wait per fetch and share, the launches and routes in
+    it, the losses and the first batch's latency."""
+    marks, losses, started = {}, {}, set()
+    t_start = time.perf_counter()
+
+    def end(state):
+        n = state["neval"]
+        if n > 1:
+            losses[n - 1] = state["loss"]
+        if on_step is not None and n not in started and n <= steps + 1:
+            started.add(n)
+            on_step(n)
+        if n == 2 and n not in marks:
+            torch.cuda.synchronize()
+            zero_counts()
+        if n > steps + 1:
+            torch.cuda.synchronize()
+        # the last call for n: batch n in hand (or the run's end)
+        marks[n] = (time.perf_counter(),
+                    opt.metrics.get("get batch time average")[0])
+        return n > steps + 1
+
+    opt = Optimizer(model, dataset, nn.CrossEntropyCriterion(),
+                    device="cuda")
+    opt.set_optim_method(SGD(0.1)).set_log_interval(log_interval)
+    opt.set_end_when(Trigger(end, "steps")).optimize()
+    # step k: from batch k in hand to batch k + 1 in hand, its fetch's
+    # wait included; the last step ends at the run's end (no fetch)
+    each = [((marks[k + 1][0] - marks[k][0]) * 1e3,
+             (marks[k + 1][1] - marks[k][1]) * 1e3)
+            for k in range(2, steps + 2)]
+
+    def window(rows):
+        ms = sum(r[0] for r in rows)
+        wait = sum(r[1] for r in rows)
+        return {"steps": len(rows), "step_ms": ms / len(rows),
+                "images_per_s": REC_BATCH * len(rows) / (ms / 1e3),
+                "data_wait_ms": wait / len(rows),
+                "data_wait_share": wait / ms}
+    out = {**window(each), "steady": window(each[len(each) // 2:]),
+           "step_ms_each": [r[0] for r in each],
+           "data_wait_ms_each": [r[1] for r in each],
+           "first_batch_ms": (marks[1][0] - t_start) * 1e3,
+           "losses": [losses[k] for k in sorted(losses)],
+           "launches": counts(), "route_launches": route_counts()}
+    # between logged iterations a trigger sees the step before last's loss:
+    # NaN before step 1's is read
+    seen = out["losses"][1:] if log_interval > 1 else out["losses"]
+    check(len(out["losses"]) == steps + 1 and
+          all(map(math.isfinite, seen)) and
+          math.isfinite(opt.optim_method.hyper["loss"]),
+          f"losses {out['losses']}")
+    return out
+
+
+def check_fused_launches(run, what):
+    want = {k: v * run["steps"] for k, v in STEP_LAUNCHES.items()}
+    check(run["launches"] == want, f"{what}: launches {run['launches']}")
+    check_step_routes(run["launches"], what)
+
+
+def pipeline_rate(dataset, batches=None):
+    """Records/s of one pass of ``dataset`` alone (bench.py ``--data``'s
+    measure), or of its first ``batches`` batches."""
+    t0 = time.perf_counter()
+    n = 0
+    it = dataset.data(train=True)
+    for i, b in enumerate(it):
+        n += b.size()
+        if batches is not None and i + 1 == batches:
+            it.close()
+            break
+    return n / (time.perf_counter() - t0)
+
+
+class CountingPrefetch(native.NativePrefetchReader):
+    """The native prefetcher, counting the readers opened."""
+
+    opened = 0
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        CountingPrefetch.opened += 1
+
+
+def rec_augmentation(model, pattern256):
+    """The augmentation path from shards: stream and cached, the array
+    path and the stale loss read beside it, the pipeline alone, and a
+    profile of the streamed steps."""
+    def stream():
+        return DataSet.record_stream(pattern256, num_threads=REC_THREADS,
+                                     seed=SEED)
+
+    out = {"stream": timed_steps(model, augmented(stream()), REC_STEPS)}
+    check_fused_launches(out["stream"], "record_stream steps")
+    t0 = time.perf_counter()
+    cached = DataSet.record_files(pattern256, num_threads=REC_THREADS,
+                                  seed=SEED)
+    load_s = time.perf_counter() - t0
+    out["cached"] = timed_steps(model, augmented(cached), REC_STEPS)
+    out["cached"]["load_records_per_s"] = len(cached.records) / load_s
+    check_fused_launches(out["cached"], "record_files steps")
+    del cached
+    # the train phase's path: DataSet.array of ready images, the loss read
+    # every step (1) and between logged iterations only (10), A B B A
+    samples = synthetic_imagenet(REC_IMAGES, SEED + 21)
+    arr = {1: [], LOG_INTERVAL_STALE: []}
+    for li in (1, LOG_INTERVAL_STALE, LOG_INTERVAL_STALE, 1):
+        ds = DataSet.array(samples, seed=SEED).transform(
+            SampleToMiniBatch(REC_BATCH, drop_last=True))
+        run = timed_steps(model, ds, REC_STEPS, log_interval=li)
+        check_fused_launches(run, f"array steps, log interval {li}")
+        arr[li].append(run["step_ms"])
+    out["array"] = {"step_ms_log_every_step": arr[1],
+                    "step_ms_log_interval_10": arr[LOG_INTERVAL_STALE]}
+    del samples
+    out["pipeline_records_per_s"] = {
+        "stream_mt_batcher": pipeline_rate(augmented(stream())),
+        "stream_sequential_2_batches": pipeline_rate(
+            stream().transform(RecordToImage()).transform(
+                aug_chain() >> img_mod.ImgToSample()).transform(
+                SampleToMiniBatch(REC_BATCH, drop_last=True)), batches=2)}
+    out["host_ms_per_batch"] = REC_BATCH / out["pipeline_records_per_s"][
+        "stream_mt_batcher"] * 1e3
+    prof = profile_step(lambda mark: timed_steps(
+        model, augmented(stream()), PROFILE_STEPS, on_step=mark))
+    check("profile_error" not in prof, f"profile: {prof}")
+    out["profile"] = {k: prof[k] for k in ("device_busy_ms",
+                                           "device_idle_share", "steady",
+                                           "first_step")}
+    out["profile"]["top_kernels"] = prof["top_kernels"][:8]
+    return out
+
+
+def rec_straggler(model, pattern224):
+    """One ``data.stall`` at batch ``DROP_AT`` under the straggler drop:
+    exactly that iteration dropped, and the run's recorded waits replayed
+    through a fresh Optimizer's ``_straggler_check`` decide the same."""
+    def dataset():
+        return augmented(DataSet.record_files(pattern224,
+                                              num_threads=REC_THREADS,
+                                              seed=SEED),
+                         DROP_BATCH, img_mod.ImgNormalizer(MEANS, STDS))
+
+    def optimizer(ds):
+        o = Optimizer(model, ds, nn.CrossEntropyCriterion(), device="cuda")
+        p = 1.0 / DROP_WINDOW
+        return o.set_drop_module_property(p, p, batch_size=DROP_WINDOW,
+                                          warmup_iteration=0)
+
+    opt = optimizer(dataset())
+    calls, check_fn = [], opt._straggler_check
+
+    def recorded(wait, neval, queue_depth=None):
+        out = check_fn(wait, neval, queue_depth=queue_depth)
+        calls.append((wait, neval, queue_depth, out))
+        return out
+    opt._straggler_check = recorded
+    opt.set_optim_method(SGD(0.1)).set_end_when(
+        Trigger(lambda st: st["neval"] > DROP_ITERS, "iterations"))
+    with chaos.scoped(f"data.stall=stall*{DROP_STALL_S}@{DROP_AT}"):
+        opt.optimize()
+    dropped = [i + 1 for i, c in enumerate(calls) if c[3]]
+    check(dropped == [DROP_AT] and
+          opt.metrics.get("dropped iterations") == (1.0, 1) and
+          opt.optim_method.hyper["neval"] == DROP_ITERS + 1,
+          f"straggler drop: fetches dropped {dropped}, calls {calls}")
+    replay = optimizer(dataset())
+    decisions = [replay._straggler_check(w, n, queue_depth=q)
+                 for w, n, q, _ in calls]
+    check(decisions == [c[3] for c in calls],
+          f"replayed decisions {decisions} vs {calls}")
+    return {"dropped_fetches": dropped, "fetches": len(calls),
+            "waits_ms": [c[0] * 1e3 for c in calls],
+            "queue_depths": [c[2] for c in calls],
+            "stalled_wait_ms": calls[DROP_AT - 1][0] * 1e3}
+
+
+@contextlib.contextmanager
+def default_tf32():
+    """PyTorch's default TF32 settings, whatever an earlier phase set:
+    cuDNN's float32 convolutions in TF32, cuBLAS's float32 products not."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+class StepLog(logging.Handler):
+    """Each logged iteration's computing time (batch in hand to its loss
+    read, in ms) from the Optimizer's INFO line and its throughput."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.ms = []
+
+    def emit(self, record):
+        if record.msg.startswith("Epoch %d [iteration %d]"):
+            self.ms.append(REC_BATCH / record.args[4] * 1e3)
+
+
+def rec_cli(root, pattern224, pattern32):
+    """The zoo CLI: ResNet-50 trained, saved, tested; ResNet-20 trained.
+    Float32, unfused, as the CLI trains, with PyTorch's default TF32
+    settings, as a fresh ``python -m bigdl_torch.models.run`` has them."""
+    set_policy(DTypePolicy())
+    out = {}
+    steps = StepLog()
+    opt_logger = logging.getLogger("bigdl_torch")
+    level = opt_logger.level
+    opt_logger.setLevel(logging.INFO)
+    opt_logger.addHandler(steps)
+    with deterministic_cudnn(), default_tf32():
+        saved = os.path.join(root, "resnet50.bigdl")
+        zero_counts()
+        t0 = time.perf_counter()
+        opt = zoo_run.main(["train", "--model", "resnet50", "--data",
+                            pattern224, "--batch-size", str(REC_BATCH),
+                            "--max-iteration", str(CLI_STEPS),
+                            "--model-save", saved])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        opt_logger.removeHandler(steps)
+        opt_logger.setLevel(level)
+        check(len(steps.ms) == CLI_STEPS, f"CLI step log {steps.ms}")
+        launched, routes = counts(), route_counts()
+        n = CLI_STEP_LAUNCHES["resnet50"] * CLI_STEPS
+        want = dict.fromkeys(launched, 0)
+        want.update(bn_forward=n, bn_backward=n)
+        check(launched == want, f"CLI resnet50 launches {launched}")
+        check_step_routes(launched, "CLI resnet50 steps")
+        cli_launched = launched
+        zero_counts()
+        t0 = time.perf_counter()
+        results = zoo_run.main(["test", "--model", "resnet50", "--snapshot",
+                                saved, "--data", pattern224, "--batch-size",
+                                str(REC_BATCH)])
+        test_s = time.perf_counter() - t0
+        check(not any(counts().values()), f"CLI test launches {counts()}")
+        live = Evaluator(opt.model).test(
+            DataSet.array(zoo_run._load_samples(pattern224, None)),
+            [Top1Accuracy(), Top5Accuracy()], batch_size=REC_BATCH)
+        got = [(r.correct, r.count) for _, r in results]
+        check(got == [(r.correct, r.count) for _, r in live] and
+              got[0][1] == CLI_IMAGES, f"CLI test {got} vs live {live}")
+        out["resnet50"] = {
+            "steps": CLI_STEPS, "train_s": train_s, "test_s": test_s,
+            "precision": "float32 policy, cuDNN convolutions in TF32",
+            "computing_ms_each": steps.ms,
+            "loss": opt.optim_method.hyper["loss"],
+            "top1_top5": got, "launches": launched, "route_launches": routes,
+            "model_file_bytes": os.path.getsize(saved),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del opt, live
+        torch.cuda.empty_cache()
+        zero_counts()
+        opt = zoo_run.main(["train", "--model", "resnet", "--data",
+                            pattern32, "--batch-size", str(R20_BATCH),
+                            "--max-iteration", str(CLI_STEPS)])
+        launched = counts()
+        n = CLI_STEP_LAUNCHES["resnet20"] * CLI_STEPS
+        want = dict.fromkeys(launched, 0)
+        want.update(bn_forward=n, bn_backward=n)
+        check(launched == want and math.isfinite(
+            opt.optim_method.hyper["loss"]),
+              f"CLI resnet20 launches {launched}")
+        check_step_routes(launched, "CLI resnet20 steps")
+        out["resnet20"] = {"steps": CLI_STEPS, "launches": launched,
+                           "route_launches": route_counts(),
+                           "loss": opt.optim_method.hyper["loss"]}
+    # the CLI set the root logger to INFO: quiet again for later phases
+    logging.getLogger().setLevel(logging.WARNING)
+    return out, cli_launched
+
+
+def lenet_run(model, dev, x, g, capture=None):
+    """``update_output``, ``backward`` and ``update_parameters(0.01)`` of
+    ``model`` on ``dev``: the output, the input's gradient, each leaf's
+    gradient by name and the flat parameters after, on the host.
+    ``capture`` (a dict) receives conv1's input, weight and output
+    gradient as the backward saw them."""
+    hook = None
+    if capture is not None:
+        conv1 = next(m for m in model.layers if m.get_name() == "conv1_5x5")
+
+        def grab(mod, inputs, out):
+            if out.requires_grad:            # the backward's recompute
+                capture.update(x=inputs[0].detach(),
+                               w=mod.weight.detach().clone())
+                out.register_hook(
+                    lambda gy: capture.update(dy=gy.detach()))
+        hook = conv1.register_forward_hook(grab)
+    try:
+        xx, gg = x.to(dev), g.to(dev)
+        res = {"output": model.update_output(xx),
+               "grad_input": model.backward(xx, gg)}
+        for (mod, name), gr in zip(model._leaf_names(),
+                                   model.weights_and_grads()[1]):
+            res[f"{mod.get_name()}.{name}"] = gr.clone()
+        model.update_parameters(0.01)
+        res["params_after"] = model.get_parameters()[0]
+        return {k: v.detach().cpu() for k, v in res.items()}
+    finally:
+        if hook is not None:
+            hook.remove()
+
+
+def conv_wgrad(x, w, dy):
+    """The weight gradient of one unpadded stride-1 convolution as
+    ``SpatialConvolution`` computes it: NHWC input, HWIO weight, NHWC
+    output gradient."""
+    w = w.detach().requires_grad_()
+    y = F.conv2d(x.permute(0, 3, 1, 2),
+                 w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    return torch.autograd.grad(y, w, dy)[0]
+
+
+def executed_plans(lines):
+    """Each plan a cuDNN API log (``CUDNN_LOGLEVEL_DBG=3``) shows executed:
+    its operation, engine id, knobs and numerical notes."""
+    out, cur = [], None
+    for line in lines:
+        if "function cudnnBackendExecute() called" in line:
+            cur = {"operation": None, "engine": None, "knobs": {},
+                   "numerical_notes": []}
+            out.append(cur)
+        elif cur is None:
+            continue
+        elif "function " in line and " called" in line:
+            cur = None
+        elif m := re.search(r"operation: type=CUDNN_BACKEND_OPERATION_"
+                            r"(\w+)_DESCRIPTOR", line):
+            cur["operation"] = m.group(1)
+        elif m := re.search(r"engine_id: type=int; val=(-?\d+);", line):
+            cur["engine"] = int(m.group(1))
+        elif m := re.search(r"CUDNN_KNOB_TYPE_(\w+): type=int; "
+                            r"val=(-?\d+);", line):
+            cur["knobs"][m.group(1)] = int(m.group(2))
+        elif m := re.search(r"CUDNN_NUMERICAL_NOTE_(\w+): type=bool; "
+                            r"val=true;", line):
+            cur["numerical_notes"].append(m.group(1))
+    return out
+
+
+def cudnn_probe_child(path):
+    """``--cudnn-probe``: conv1's weight gradient of the saved input,
+    weight and output gradient on the card, TF32 off, saved beside them
+    (the parent reads the cuDNN log this process wrote)."""
+    d = np.load(path)
+    torch.backends.cudnn.allow_tf32 = False
+    gw = conv_wgrad(*(torch.from_numpy(d[k]).cuda() for k in ("x", "w",
+                                                              "dy")))
+    np.save(path[:-4] + "-gw.npy", gw.cpu().numpy())
+    return 0
+
+
+def cudnn_probe(x, w, dy):
+    """The plan cuDNN runs for conv1's weight gradient: ``conv_wgrad`` of
+    the captured tensors in a child process under cuDNN's API log.  The
+    executed backward-filter plans, and the child's gradient."""
+    root = tempfile.mkdtemp(prefix="bigdl-torch-cudnn-")
+    try:
+        path = os.path.join(root, "wgrad.npz")
+        np.savez(path, **{k: t.cpu().numpy() for k, t in
+                          (("x", x), ("w", w), ("dy", dy))})
+        log = os.path.join(root, "cudnn.log")
+        env = dict(os.environ, CUDNN_LOGLEVEL_DBG="3", CUDNN_LOGDEST_DBG=log)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--cudnn-probe", path], env=env, check=True,
+                       timeout=300, stdout=subprocess.DEVNULL)
+        with open(log, errors="replace") as f:
+            plans = [p for p in executed_plans(f)
+                     if p["operation"] == "CONVOLUTION_BACKWARD_FILTER"]
+        return plans, torch.from_numpy(np.load(path[:-4] + "-gw.npy"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def rec_lenet_facade():
+    """LeNet-5 through the stateful facade on the card and on the CPU,
+    float32 with TF32 off.
+
+    On the card cuDNN's (default, and deterministic) and PyTorch's own
+    convolutions: every value within ``LENET_ATOL`` of the CPU's, but for
+    one.  cuDNN's weight gradient of conv1 (one input channel, 28 x 28,
+    16 images) is ~1e-3 of its magnitude from the exact (float64) one
+    where the CPU's is ~1e-6, under every algorithm choice.  That one is held to
+    cuDNN itself and to float32's bound instead: it equals ``conv_wgrad``
+    of the captured input and output gradient on the card bit for bit (the
+    gap is the library's, not the facade's), and it is within the
+    a-priori error bound of a float32 sum of n = N*Ho*Wo products,
+    ``gamma_n * sum |x| |dy|``, gamma_n = n u / (1 - n u), u = 2**-24, of
+    the exact (float64) gradient of those tensors.  A child process under
+    cuDNN's API log names the engine that computes it."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rs = np.random.default_rng(SEED)
+        x = torch.from_numpy(rs.standard_normal((16, 28, 28, 1),
+                                                dtype=np.float32))
+        g = torch.from_numpy(rs.standard_normal((16, 10), dtype=np.float32))
+        set_policy(DTypePolicy())
+        cpu = LeNet5(10).build("cpu", torch.Generator().manual_seed(SEED))
+        runs = {"cpu": lenet_run(cpu.clone_module(), "cpu", x, g)}
+        cap = {}
+        for leg in ("cudnn", "cudnn_deterministic", "cudnn_off"):
+            torch.backends.cudnn.enabled = leg != "cudnn_off"
+            with (deterministic_cudnn() if leg == "cudnn_deterministic"
+                  else contextlib.nullcontext()):
+                runs[leg] = lenet_run(cpu.clone_module().to("cuda"), "cuda",
+                                      x, g, cap if leg == "cudnn" else None)
+            torch.backends.cudnn.enabled = True
+        out = {"tol": LENET_ATOL, "vs_cpu": {
+            leg: {k: float((v - runs["cpu"][k]).abs().max())
+                  for k, v in r.items()}
+            for leg, r in runs.items() if leg != "cpu"}}
+        loose = "conv1_5x5.weight"
+        for leg, d in out["vs_cpu"].items():
+            strict = {k: v for k, v in d.items()
+                      if leg == "cudnn_off" or k != loose}
+            check(max(strict.values()) <= LENET_ATOL,
+                  f"LeNet facade card ({leg}) vs CPU {out}")
+        # conv1's weight gradient under cuDNN: the library's, and in bound
+        exact = conv_wgrad(*(cap[k].cpu().double() for k in ("x", "w",
+                                                            "dy")))
+        sum_abs = conv_wgrad(cap["x"].cpu().double().abs(),
+                             cap["w"].cpu().double(),
+                             cap["dy"].cpu().double().abs())
+        n = cap["dy"].shape[0] * cap["dy"].shape[1] * cap["dy"].shape[2]
+        u = 2.0 ** -24
+        gamma = n * u / (1 - n * u)
+        lone = conv_wgrad(cap["x"], cap["w"], cap["dy"]).cpu()
+        cpu32 = conv_wgrad(*(cap[k].cpu() for k in ("x", "w",
+                                                    "dy"))).double()
+        plans, child = cudnn_probe(cap["x"], cap["w"], cap["dy"])
+        err = (lone.double() - exact).abs()
+        wg = {"reduction_length": n, "gamma_n": gamma,
+              "max_abs": float(exact.abs().max()),
+              "max_sum_abs_terms": float(sum_abs.max()),
+              "card_err": float(err.max()),
+              "cpu_float32_err": float((cpu32 - exact).abs().max()),
+              "card_err_over_bound": float((err / (gamma * sum_abs)).max()),
+              "lone_equals_facade": {
+                  leg: bool(torch.equal(lone, runs[leg][loose]))
+                  for leg in ("cudnn", "cudnn_deterministic")},
+              "child_equals_lone": bool(torch.equal(child, lone)),
+              "cudnn_version": torch.backends.cudnn.version(),
+              "plans": plans}
+        out["conv1_wgrad"] = wg
+        check(all(wg["lone_equals_facade"].values()) and
+              wg["child_equals_lone"] and len(plans) == 1 and
+              wg["card_err_over_bound"] <= 1.0,
+              f"LeNet conv1 weight gradient under cuDNN: {wg}")
+        return out
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled) = old
+
+
+def phase_train_records(train_rows=()):
+    """Train ResNet-50 on the card from BDRecord shards (phase 15)."""
+    t0 = time.perf_counter()
+    crc32c.native()
+    native.library()                     # a failed build raises here
+    check(native.is_native_loaded() and native.has_prefetch() and
+          crc32c.route().startswith("compiled"),
+          f"host routes: native {native.is_native_loaded()}, crc32c "
+          f"{crc32c.route()}")
+    root = tempfile.mkdtemp(prefix="bigdl-torch-records-")
+    prefetch_cls, native.NativePrefetchReader = \
+        native.NativePrefetchReader, CountingPrefetch
+    def part(name, out):
+        emit({"phase": "train_records", "part": name, **out})
+        return out
+
+    try:
+        sets = {}
+        for name, n, hw in (("256", REC_IMAGES, 256), ("224", CLI_IMAGES, 224),
+                            ("32", R20_IMAGES, 32)):
+            folder = write_corpus(os.path.join(root, f"img{name}"), n, hw,
+                                  SEED + hw)
+            sets[name] = etl(folder, os.path.join(root, f"bdr{name}",
+                                                  "train"))
+            shutil.rmtree(folder)
+        part("etl", {k: v[0] for k, v in sets.items()})
+        set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+        model = resnet50(fuse=True)
+        aug = part("augmentation", rec_augmentation(model, sets["256"][1]))
+        strag = part("straggler", rec_straggler(model, sets["224"][1]))
+        del model
+        torch.cuda.empty_cache()
+        check(CountingPrefetch.opened > 0, "the native prefetcher never ran")
+        cli, cli_launched = rec_cli(root, sets["224"][1], sets["32"][1])
+        part("cli", cli)
+        lenet = rec_lenet_facade()
+    finally:
+        native.NativePrefetchReader = prefetch_cls
+        shutil.rmtree(root, ignore_errors=True)
+        set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    torch.cuda.empty_cache()
+    emit({"phase": "train_records", "gpu": gpu_line(),
+          "host_routes": {"native": True, "crc32c": crc32c.route(),
+                          "native_prefetch_readers": CountingPrefetch.opened},
+          "step_ms": {"stream": aug["stream"]["step_ms"],
+                      "stream_steady": aug["stream"]["steady"]["step_ms"],
+                      "cached": aug["cached"]["step_ms"],
+                      "cached_steady": aug["cached"]["steady"]["step_ms"],
+                      "array": aug["array"]},
+          "data_wait_share": {
+              "stream": aug["stream"]["data_wait_share"],
+              "stream_steady": aug["stream"]["steady"]["data_wait_share"],
+              "cached": aug["cached"]["data_wait_share"],
+              "cached_steady": aug["cached"]["steady"]["data_wait_share"]},
+          "pipeline_records_per_s": aug["pipeline_records_per_s"],
+          "etl_records_per_s": {k: v[0]["records_per_s"]
+                                for k, v in sets.items()},
+          "idle_share_steady": aug["profile"]["steady"]["device_idle_share"],
+          "straggler_dropped": strag["dropped_fetches"],
+          "cli_top1_top5": cli["resnet50"]["top1_top5"],
+          "lenet_facade": lenet, "wall_s": time.perf_counter() - t0})
+    rows = []
+    stream = aug["stream"]
+    for row in train_rows:
+        rows.append({**row, "path": "train_records",
+                     "launches": stream["launches"][row["name"]],
+                     "route_launches": stream["route_launches"][row["name"]]})
+        if cli_launched[row["name"]]:    # B1 and B2: the CLI trains unfused
+            rows.append({**row, "path": "train_records_cli",
+                         "launches": cli_launched[row["name"]],
+                         "route_launches": cli["resnet50"][
+                             "route_launches"][row["name"]]})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(sys.argv[2])
+    if sys.argv[1:2] == ["--cudnn-probe"]:
+        return cudnn_probe_child(sys.argv[2])
     if sys.argv[1:3] == ["--only", "train_validate"]:
         phase_build()
         phase_train_validate(None)
@@ -3802,6 +4500,10 @@ def main():
     if sys.argv[1:3] == ["--only", "train_longrun"]:
         phase_build()
         phase_train_longrun()
+        return 0
+    if sys.argv[1:3] == ["--only", "train_records"]:
+        phase_build()
+        phase_train_records()
         return 0
     phase_build()
     rep = phase_kernels()
@@ -3828,6 +4530,7 @@ def main():
     rows += lm_rows
     phase_train_validate(step_ms)
     rows += phase_train_longrun(lm_rows)
+    rows += phase_train_records(train_rows)
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

@@ -35,7 +35,11 @@ def test_import_loads_no_jax():
         bigdl_torch.__path__, "bigdl_torch.")]
     assert {"bigdl_torch.serve.server", "bigdl_torch.serve.decode",
             "bigdl_torch.serve.control", "bigdl_torch.models.decode",
-            "bigdl_torch.ops.decode_attention"} <= set(names)
+            "bigdl_torch.ops.decode_attention", "bigdl_torch.models.run",
+            "bigdl_torch.utils.recordio", "bigdl_torch.utils.native",
+            "bigdl_torch.utils.thread_pool", "bigdl_torch.utils.util",
+            "bigdl_torch.dataset.image", "bigdl_torch.tools",
+            "bigdl_torch.tools.record_generator"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {['bigdl_torch'] + names!r}:\n"
             "    importlib.import_module(n)\n"
@@ -95,3 +99,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError, match="lives on cpu"):
         Optimizer(trained, samples, CrossEntropyCriterion(), batch_size=2,
                   device="meta").optimize()
+
+
+def test_module_load_and_cli_raise_without_cuda(monkeypatch, tmp_path):
+    from bigdl_torch.models import run
+    from bigdl_torch.nn import Module
+    Linear(4, 3).build("cpu").save(str(tmp_path / "m"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Module.load(str(tmp_path / "m"))
+    assert Module.load(str(tmp_path / "m"), device="cpu").weight.device == \
+        torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(["train", "--model", "lenet", "--synthetic",
+                  "--max-iteration", "1"])

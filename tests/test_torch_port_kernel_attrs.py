@@ -150,15 +150,20 @@ def test_check_passes_per_launch_and_constant_forms(form):
 
 
 def _sources():
+    """Every CUDA source and header, and every host C++ source and header
+    (``csrc/host``)."""
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) +
-                  glob.glob(os.path.join(_CSRC, "*.cuh")))
+                  glob.glob(os.path.join(_CSRC, "*.cuh")) +
+                  glob.glob(os.path.join(_CSRC, "host", "*.cc")) +
+                  glob.glob(os.path.join(_CSRC, "host", "*.h")))
 
 
 def test_every_source_is_read():
     names = {os.path.basename(p) for p in _sources()}
     assert {"flash_attention.cu", "flash_attention_bwd.cu",
             "matmul_stats.cu", "batchnorm.cu", "decode_attention.cu",
-            "hopper.cuh"} <= names
+            "hopper.cuh", "crc32c.cc", "crc32c.h", "recordio.cc",
+            "prefetch.cc", "hostops.cc"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=os.path.basename)

@@ -184,7 +184,13 @@ def test_resnet50_tree_round_trip():
 
 
 def test_resnet_shortcut_type_a_not_ported():
-    with pytest.raises(NotImplementedError, match="type A"):
-        ResNet(20, class_num=10, dataset="cifar10")
+    """Shortcut A (the CIFAR default) is ported since slice 14: the two
+    stage changes pool and zero-pad channels (``Concat(Identity,
+    MulConstant(0))``) with no BatchNorm; B adds a conv and a BatchNorm
+    at each (``test_torch_port_facade.py`` trains ResNet-20 against the
+    reference)."""
+    model = ResNet(20, class_num=10, dataset="cifar10")
+    assert _count(model, tnn.SpatialBatchNormalization) == 19
+    assert _count(model, tnn.MulConstant) == 2
     model = ResNet(20, class_num=10, dataset="cifar10", shortcut_type="B")
     assert _count(model, tnn.SpatialBatchNormalization) == 21

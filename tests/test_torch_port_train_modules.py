@@ -355,16 +355,17 @@ def test_nesterov_needs_momentum():
 
 
 def test_unported_options_raise():
-    """Options of the reference that this slice does not port refuse to
-    run rather than compute something else."""
+    """Options of the reference that the port does not port refuse to
+    run rather than compute something else (``affine=False`` and SAME
+    padding are ported since slice 14: ``test_torch_port_facade.py``)."""
     with pytest.raises(NotImplementedError, match="affine"):
-        tnn.SpatialBatchNormalization(4, affine=False)
+        tnn.SpatialBatchNormalization(4, affine=False, sync_axis="data")
     # sync-BN over the Engine's 'data' group is ported; other mesh axes
     # are not
     with pytest.raises(ValueError, match="sync_axis"):
         tnn.SpatialBatchNormalization(4, sync_axis="model")
-    with pytest.raises(NotImplementedError, match="SAME"):
-        tnn.SpatialConvolution(3, 4, 3, 3, pad_w=-1, pad_h=-1)
+    with pytest.raises(NotImplementedError, match="ring attention"):
+        tnn.MultiHeadAttention(8, 2, seq_parallel=True)
 
 
 def test_triggers_match_reference():
