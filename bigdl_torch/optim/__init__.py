@@ -1,6 +1,7 @@
 """Training and inference engines, optimization methods, schedules,
 regularizers, triggers and validation methods."""
 
+from .fused import FusedLayout, fuse, fused_update, plan, unfuse
 from .method import (EMA, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
                      OptimMethod, RMSprop)
 from .optimizer import (ConfigurationError, DistriValidator, Evaluator,
@@ -29,4 +30,5 @@ __all__ = ["Optimizer", "Predictor", "Evaluator", "Validator",
            "L1Regularizer", "L2Regularizer", "L1L2Regularizer", "Trigger",
            "ValidationMethod", "ValidationResult", "AccuracyResult",
            "LossResult", "PerplexityResult", "Top1Accuracy", "Top5Accuracy",
-           "Loss", "Perplexity", "MAE", "HitRatio", "NDCG", "TreeNNAccuracy"]
+           "Loss", "Perplexity", "MAE", "HitRatio", "NDCG", "TreeNNAccuracy",
+           "FusedLayout", "plan", "fuse", "unfuse", "fused_update"]

@@ -19,6 +19,10 @@ where the reference ravels the whole tree into one vector; its dot
 products sum over the parameters.  ``utils/convert.py`` ravels and
 unravels that history in the reference's leaf order.  ``EMA`` wraps any
 method and keeps a shadow copy of the weights.
+
+``update_fused`` runs the same update over one flat tensor per dtype
+(``optim/fused.py``), bit-identical to ``update``; ``supports_fused`` is
+False for ``LBFGS`` alone.
 """
 
 from __future__ import annotations
@@ -76,6 +80,10 @@ def _count(t) -> np.int32:
 class OptimMethod:
     """Base optimizer (reference: optim/OptimMethod.scala:28)."""
 
+    #: the update is elementwise per parameter, so it may run over fused
+    #: buffers (``optim/fused.py``) and on ZeRO's 1/N slices
+    supports_fused = True
+
     def __init__(self, learning_rate: float = 1e-3):
         self.learning_rate = learning_rate
         # host-side mirror of the driver state (the reference's state Table)
@@ -88,6 +96,15 @@ class OptimMethod:
         """Update ``params`` (a list of tensors) in place from ``grads``;
         returns the new method state."""
         raise NotImplementedError
+
+    def update_fused(self, grads, params, state, lr):
+        """:meth:`update` over one flat tensor per dtype
+        (``optim/fused.py``), bit-identical to it; the per-leaf update
+        where the method does not support fusing."""
+        if not self.supports_fused:
+            return self.update(grads, params, state, lr)
+        from .fused import fused_update
+        return fused_update(self, grads, params, state, lr)
 
     def get_learning_rate(self, driver_state=None) -> float:
         return self.learning_rate
@@ -359,6 +376,9 @@ class LBFGS(OptimMethod):
     first update; an empty slot has rho = 0 and drops out of the two-loop
     recursion."""
 
+    #: the history's dot products run over every parameter
+    supports_fused = False
+
     def __init__(self, learning_rate: float = 1.0, max_iter: int = 1,
                  history_size: int = 10, tolerance_grad: float = 1e-7):
         super().__init__(learning_rate)
@@ -574,6 +594,10 @@ class EMA(OptimMethod):
         # the inner's driver mirror to start with; the Optimizer rebinds
         # ours, so the learning rate always passes ours down
         self.hyper = inner.hyper
+
+    @property
+    def supports_fused(self):
+        return self.inner.supports_fused
 
     def init_state(self, params):
         # real copies, never aliases of the parameters

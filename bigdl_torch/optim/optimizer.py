@@ -18,7 +18,15 @@ parameters and buffers from rank 0 at the start, and after each backward
 averages the gradients (and the loss the driver observes) over the group
 in one all-reduce, before the wire cast and the update.  BatchNorm
 statistics are synced inside the forward and backward (``nn/fused.py``,
-``nn/normalization.py``).
+``nn/normalization.py``).  ``BIGDL_TORCH_WIRE_BUCKET_MB`` > 0 cuts that
+all-reduce into buckets launched from the backward, and
+``ShardedDataParallel`` (ZeRO) reduce-scatters the gradients, updates each
+rank's 1/N slices and all-gathers them back (``parallel/sharding.py``):
+the strategy's ``own`` views are what the regularizers, scales, wire,
+clipping and the update see.  ``BIGDL_TORCH_FUSED_UPDATE=1`` runs the
+update over one flat tensor per dtype (``optim/fused.py``), bit-identical
+to the per-leaf update.  Both knobs are read when ``optimize`` starts;
+one bucket cap drives the all-reduce's buckets and the wire cast's.
 
 Input pipeline (the reference's ``_open_data_pipeline``, ``:647-688``):
 at ``BIGDL_TORCH_PREFETCH_DEPTH`` > 0 (default 2) one worker thread
@@ -73,7 +81,12 @@ and method state.  Snapshots of either package load in the other.
 ``Evaluator``, ``Validator`` and ``Predictor`` over a DataSet or a list of
 Samples batch with ``SampleToMiniBatch(pad_last=True)`` and score only each
 batch's valid rows; the forward of batch i+1 is queued before batch i's
-output is copied to the host (through :class:`HostCopy`).
+output is copied to the host (through :class:`HostCopy`).  Under the
+Engine's group ``Evaluator`` and ``Predictor`` spread each batch over the
+ranks (the reference's ``_ShardedForward``): padded to a multiple of the
+world, each rank forwards its own block; ``Predictor`` all-gathers the
+rows back into order and ``Evaluator`` sums every rank's results, so every
+rank gets the same answer.
 
 The long-run half of the step (``:137-177``, ``:801-860``):
 ``set_gradient_accumulation(k)`` splits each batch along axis 0 into k
@@ -128,9 +141,14 @@ drop (``:491-566``): an iteration whose host data wait exceeds the k-th
 largest wait of the last window, the prefetch queue being empty, is
 skipped before its step (``metrics["dropped iterations"]``).
 
+Under ZeRO a checkpoint all-gathers the method state's slices on every
+rank before rank 0 writes the reference's whole tree, and a resumed state
+is cut back to each rank's slices, so snapshots move between ZeRO and
+``DataParallel`` runs of either package.
+
 Not ported yet: ``set_checkpoint(publish=...)`` (ROADMAP queue A item 5),
-the elastic recovery and the strategies other than ``DataParallel``
-(items 4 and 6).
+the elastic recovery (item 6), ``TensorParallel`` and ``LayoutSharding``
+(item 8).
 """
 
 from __future__ import annotations
@@ -157,7 +175,7 @@ from ..nn.criterion import Criterion
 from ..nn.dropout import dropout_rng
 from ..nn.module import Module
 from ..parallel.sharding import DataParallel, ShardingStrategy
-from ..parallel.wire import wire_cast
+from ..parallel.wire import wire_bucket_mb, wire_cast
 from ..utils import chaos, config, file_io, remat
 from ..utils import supervisor as supervision
 from ..utils.convert import (check_reference_tree, load_reference_opt_state,
@@ -254,6 +272,18 @@ class ConfigurationError(ValueError):
 class TrainingPreempted(RuntimeError):
     """Raised after SIGTERM's final snapshot: the process is being
     evicted, and its next incarnation resumes from the lineage."""
+
+
+def opt_state_nbytes(state) -> int:
+    """The bytes of every tensor in a method state (scalars such as
+    Adam's int32 ``t`` are not tensors and count nothing)."""
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    if isinstance(state, dict):
+        return sum(opt_state_nbytes(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return sum(opt_state_nbytes(v) for v in state)
+    return 0
 
 
 def _as_dataset(dataset):
@@ -442,38 +472,59 @@ def _fetch(to_host, out, event):
 
 
 def _forward_batches(engine, batches, to_host):
-    """(host output of the batch's valid rows, batch) for each batch, in
-    order.  Batch i+1's forward is queued before batch i's output is copied
-    to the host, so the card computes while the host copies and scores
-    (the reference's one-deep output pipeline, ``Evaluator.test``)."""
+    """(host output of the batch's valid rows that the engine computed,
+    batch, the first of those rows, their count) for each batch, in order;
+    a sharded rank whose share holds no valid row keeps one padding row
+    (count 0), so that it can score a result that adds nothing.  Batch i+1's
+    forward is queued before batch i's output is copied to the host, so the
+    card computes while the host copies and scores (the reference's
+    one-deep output pipeline, ``Evaluator.test``)."""
     pending = None
     it, pipe = _prefetched_input(batches)
     try:
         for batch in it:
             out, n = engine(batch.get_input())
-            ready = _eval_output(out, min(batch.valid, n))
+            lo, count = engine.rows(batch.valid, n)
+            keep = max(count, 1) if engine.shards > 1 else count
+            ready = _eval_output(out, keep)
             if pending is not None:
-                yield _fetch(to_host, *pending[0]), pending[1]
-            pending = (ready, batch)
+                yield _fetch(to_host, *pending[0]), *pending[1:]
+            pending = (ready, batch, lo, count)
     finally:
         if pipe is not None:
             pipe.close()
     if pending is not None:
-        yield _fetch(to_host, *pending[0]), pending[1]
+        yield _fetch(to_host, *pending[0]), *pending[1:]
 
 
 def _score(engine, dataset, methods, to_host):
     """Every validation method summed over the dataset's batches, each
-    batch cut to its valid rows: one result per method (None where the
-    dataset gave no batch)."""
+    batch cut to its valid rows (under a sharded engine, to this rank's
+    share of them, a share without one scoring a zeroed result): one
+    result per method (None where no batch gave a row)."""
     totals = [None] * len(methods)
-    for out, batch in _forward_batches(engine, dataset.data(train=False),
-                                       to_host):
-        tgt = np.asarray(batch.get_target())[:batch.valid]
+    for out, batch, lo, count in _forward_batches(
+            engine, dataset.data(train=False), to_host):
+        n = len(out[0] if isinstance(out, list) else out)
+        if n == 0:
+            continue
+        tgt = _block(np.asarray(batch.get_target()), lo, n)
         for i, m in enumerate(methods):
             r = m(out, tgt)
+            if count == 0:
+                r = _zeroed(r)
             totals[i] = r if totals[i] is None else totals[i] + r
     return totals
+
+
+def _zeroed(result):
+    """A result of ``result``'s kind that adds nothing: every numeric field
+    0."""
+    z = copy.copy(result)
+    for k, v in vars(z).items():
+        if isinstance(v, (int, float)):
+            setattr(z, k, type(v)(0))
+    return z
 
 
 def _reduce_results(totals, device):
@@ -625,8 +676,25 @@ class Optimizer:
         self._to_host = HostCopy()
         #: [(method, result)] of the latest validation
         self.last_validation = None
-        #: the method state after the last optimize()
-        self.final_opt_state = None
+        # this rank's method state after the last optimize() (its slices
+        # under ZeRO), and the whole tree once final_opt_state gathered it
+        self._final_state = self._final_whole = None
+        #: the bytes of this rank's method state after the last optimize()
+        #: (its slices under ZeRO)
+        self.opt_state_bytes = None
+        self._fused_update = False
+        self._bucket_mb = 0.0
+
+    @property
+    def final_opt_state(self):
+        """The method state after the last optimize(), whole.  Under ZeRO
+        the first read all-gathers the slices: a collective, so every rank
+        reads it at the same point; later reads return the same tree."""
+        if self._final_whole is None and self._final_state is not None:
+            self._final_whole = (
+                self._final_state if self.strategy is None
+                else self.strategy.full_state(self._final_state))
+        return self._final_whole
 
     # -- fluent configuration (reference: optim/Optimizer.scala:98-255) --
 
@@ -854,13 +922,13 @@ class Optimizer:
     def _clip(self, grads):
         """Constant clipping, then L2-norm clipping (``:845-852``): the
         norm over every gradient in float32, on the device (no host
-        read)."""
+        read); under ZeRO over every rank's slices
+        (``ShardingStrategy.sq_norm``)."""
         if self.grad_clip_const is not None:
             lo, hi = self.grad_clip_const
             grads = [g.clamp(lo, hi) for g in grads]
         if self.grad_clip_norm is not None:
-            sq = torch.stack([torch.sum(torch.square(g.float()))
-                              for g in grads]).sum()
+            sq = (self.strategy or ShardingStrategy()).sq_norm(grads)
             scale = torch.clamp(self.grad_clip_norm
                                 / (torch.sqrt(sq) + 1e-12), max=1.0)
             grads = [g * scale.to(g.dtype) for g in grads]
@@ -915,26 +983,38 @@ class Optimizer:
         for p in params:
             p.grad = None
         micro = self._microbatches(inp, tgt)
-        losses = []
-        for x, t in micro:
+        strategy = self.strategy
+        losses, armed = [], False
+        for j, (x, t) in enumerate(micro):
             loss = self._loss(x, t, rng)
-            loss.backward()
             losses.append(loss.detach())
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        loss = losses[0]
-        if len(micro) > 1:
-            loss = sum(losses) / len(micro)
-            grads = [g / len(micro) for g in grads]
-        if self.strategy is not None:
-            grads, loss = self.strategy.reduce(grads, loss)
-        grads = apply_regularizer_grads(self.model, params, grads)
+            if j == len(micro) - 1:
+                loss_all = (losses[0] if len(micro) == 1
+                            else sum(losses) / len(micro))
+                # a bucketed strategy reduces from the last backward
+                armed = strategy is not None and strategy.arm(
+                    params, loss_all, len(micro))
+            loss.backward()
+        loss, grads, own = loss_all, None, params
+        if not armed:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            if len(micro) > 1:
+                grads = [g / len(micro) for g in grads]
+        if strategy is not None:
+            grads, loss = strategy.reduce(grads, loss)
+            own = strategy.own(params)
+        grads = apply_regularizer_grads(self.model, params, grads, own)
         scales = self.model._grad_scales()
         if scales is not None:
             grads = [g * s for g, s in zip(grads, scales)]
-        grads = wire_cast(grads, get_policy().wire_dtype)
+        grads = wire_cast(grads, get_policy().wire_dtype, self._bucket_mb)
         grads = self._clip(grads)
-        opt_state = self.optim_method.update(grads, params, opt_state, lr)
+        update = (self.optim_method.update_fused if self._fused_update
+                  else self.optim_method.update)
+        opt_state = update(grads, own, opt_state, lr)
+        if strategy is not None:
+            strategy.after_update(params)
         return loss, opt_state
 
     def _check_accum_batching(self):
@@ -1131,6 +1211,10 @@ class Optimizer:
         Asynchronous unless the reason is a preemption."""
         if self._sup is not None:
             self._sup.beat("checkpoint")
+        if self.strategy is not None:
+            # under ZeRO every rank all-gathers the slices before rank 0
+            # writes the whole tree
+            opt_state = self.strategy.full_state(opt_state)
         if Engine.rank() != 0:
             return
         neval = state["neval"] - 1
@@ -1428,14 +1512,21 @@ class Optimizer:
     def _optimize_impl(self) -> Module:
         self._check_accum_batching()
         params = self._params()
-        if self.strategy is not None:
-            self.strategy.setup(self.model)
+        optim = self.optim_method
+        strategy = self.strategy
+        self._bucket_mb = wire_bucket_mb()
+        if strategy is not None:
+            strategy.setup(self.model, optim, self._bucket_mb)
+        self._fused_update = (config.get_bool("FUSED_UPDATE", False)
+                              and optim.supports_fused)
         if self._initial_blob is None and self.checkpoint_path is not None:
             self._initial_blob = self._host_blob()
-        optim = self.optim_method
         opt_state, self._resume_opt_state = self._resume_opt_state, None
         if opt_state is None:
-            opt_state = optim.init_state(params)
+            opt_state = optim.init_state(
+                params if strategy is None else strategy.own(params))
+        elif strategy is not None:
+            opt_state = strategy.shard_state(opt_state)
         # driver state (the reference's optimMethod.state Table)
         state, self._resume_state = self._resume_state, None
         if state is None:
@@ -1520,7 +1611,8 @@ class Optimizer:
             self._boundary(state, opt_state, rng)
         file_io.join_checkpoints(self._ckpt_futures)
         self._ckpt_futures = []
-        self.final_opt_state = opt_state
+        self.opt_state_bytes = opt_state_nbytes(opt_state)
+        self._final_state, self._final_whole = opt_state, None
         self._initial_blob = None   # the run succeeded: drop the copy
         return self.model
 
@@ -1547,14 +1639,49 @@ class Optimizer:
                 summary.add_histogram(name, to_host(p), state["neval"])
 
 
+def _group_strategy(strategy, device, who):
+    """Under the Engine's group: the strategy (default
+    :class:`DataParallel`) and the device (default the Engine's; another
+    raises).  Without a group a strategy raises."""
+    if Engine.group() is not None:
+        strategy = strategy or DataParallel()
+        if device is None:
+            device = Engine.device()
+        if resolve_device(device) != Engine.device():
+            raise ValueError(f"the Engine's rank runs on {Engine.device()},"
+                             f" not on {device}")
+    elif strategy is not None:
+        raise RuntimeError(f"{who} with {type(strategy).__name__} needs "
+                           "the Engine's data group: call Engine.init()")
+    return strategy, device
+
+
+def _block(a: np.ndarray, lo: int, m: int) -> np.ndarray:
+    """Rows [lo, lo + m) of ``a``, the rows past its end copies of its
+    last row (the reference's padding)."""
+    rows = a[lo:lo + m]
+    if len(rows) < m:
+        rows = np.concatenate([rows, np.repeat(a[-1:], m - len(rows),
+                                               axis=0)])
+    return rows
+
+
 class _Forward:
     """The eval forward that ``Predictor``, ``Evaluator``, validation and
     the serving replicas share: online answers are the same arithmetic as
     bulk prediction.  Builds the model on ``device`` if it has no weights
     yet; a built model must already live there (it is never moved behind
-    the caller's back)."""
+    the caller's back).
 
-    def __init__(self, model: Module, device=None):
+    Under a ``strategy`` (the reference's ``_ShardedForward``) a batch is
+    padded to a multiple of ``strategy.batch_shard_count()`` with copies of
+    its last row and each rank forwards its own block of rows; with
+    ``gather`` the blocks are all-gathered back into order on every rank,
+    else each rank keeps its own (:meth:`rows` says which) and the scores
+    are summed over the group (:func:`_reduce_results`)."""
+
+    def __init__(self, model: Module, device=None, strategy=None,
+                 gather: bool = True):
         self.device = resolve_device(device)
         if not model.built:
             model.build(self.device)
@@ -1565,26 +1692,62 @@ class _Forward:
                                  f"with model.to({str(self.device)!r})")
             break
         self.model = model
+        self.shards = (1 if strategy is None
+                       else strategy.batch_shard_count())
+        self.gather = gather
 
     def __call__(self, inp):
         """Forward one host batch in eval mode; returns (device output,
-        row count).  The caller restores training mode where it needs
-        it."""
+        its row count: the batch's, or the rank's block's).  The caller
+        restores training mode where it needs it."""
+        if self.shards > 1:
+            inp = np.asarray(inp)
+            n = inp.shape[0]
+            m = -(-n // self.shards)
+            inp = _block(inp, Engine.rank() * m, m)
         x = _put_batch(inp, self.device)
         self.model.eval()
         with torch.inference_mode():
             out = self.model(x)
+            if self.shards > 1 and self.gather:
+                out = (_gather_rows(out) if not isinstance(out, (list, tuple))
+                       else [_gather_rows(t) for t in out])
+                return out, n
         return out, x.shape[0]
+
+    def rows(self, valid: int, n: int):
+        """(first row, count) of a batch's ``valid`` rows that an output
+        of ``n`` rows holds."""
+        if self.shards == 1 or self.gather:
+            return 0, min(valid, n)
+        lo = Engine.rank() * n
+        return lo, max(0, min(n, valid - lo))
+
+
+def _gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's block of rows, in rank order (bf16 widened to
+    float32 first, as the host copy would)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    t = t.contiguous()
+    out = torch.empty((Engine.world() * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    return Engine.all_gather(out, t, "predict")
 
 
 class Evaluator:
     """Bulk inference and metrics over a dataset (reference:
     optim/Evaluator.scala:37) on one device: the CUDA device, or
-    ``device="cpu"``."""
+    ``device="cpu"``.  Under the Engine's group (``strategy`` defaults to
+    its :class:`DataParallel`) every rank forwards its own block of each
+    batch and scores its own rows, and the results are summed over the
+    group: every rank gets the same answer."""
 
-    def __init__(self, model: Module, device=None):
+    def __init__(self, model: Module, strategy: ShardingStrategy = None,
+                 device=None):
         self.model = model
-        self._engine = _Forward(model, device)
+        strategy, device = _group_strategy(strategy, device, "Evaluator")
+        self._engine = _Forward(model, device, strategy, gather=False)
         self._to_host = HostCopy()
 
     def test(self, dataset, methods: Sequence[ValidationMethod],
@@ -1594,18 +1757,25 @@ class Evaluator:
         rows."""
         totals = _score(self._engine, _batched(dataset, batch_size),
                         methods, self._to_host)
+        # every rank saw the same batches: all of them or none hold results
+        if self._engine.shards > 1 and totals and totals[0] is not None:
+            totals = _reduce_results(totals, self._engine.device)
         return list(zip(methods, totals))
 
 
 class Predictor:
     """Bulk prediction (reference: optim/Predictor.scala:34): over an
     array in chunks of ``batch_size`` rows, or over a DataSet or a list of
-    Samples, batched with the last batch padded and cut back."""
+    Samples, batched with the last batch padded and cut back.  Under the
+    Engine's group each rank forwards its own block of each batch and the
+    blocks are all-gathered back into order: every rank gets every row."""
 
-    def __init__(self, model: Module, batch_size: int = 128, device=None):
+    def __init__(self, model: Module, batch_size: int = 128,
+                 strategy: ShardingStrategy = None, device=None):
         self.model = model
         self.batch_size = batch_size
-        self._engine = _Forward(model, device)
+        strategy, device = _group_strategy(strategy, device, "Predictor")
+        self._engine = _Forward(model, device, strategy)
         self._to_host = HostCopy()
 
     def predict(self, x) -> np.ndarray:
@@ -1613,14 +1783,15 @@ class Predictor:
         if isinstance(x, AbstractDataSet):
             data = x.transform(SampleToMiniBatch(self.batch_size,
                                                  pad_last=True))
-            outs = [out for out, _ in _forward_batches(
+            outs = [out for out, *_ in _forward_batches(
                 self._engine, data.data(train=False), self._to_host)]
             return np.concatenate(outs, axis=0)
         x = np.asarray(x)
         outs = []
         for i in range(0, len(x), self.batch_size):
-            out, _ = self._engine(x[i:i + self.batch_size])
-            outs.append(self._to_host(out))
+            chunk = x[i:i + self.batch_size]
+            out, _ = self._engine(chunk)
+            outs.append(self._to_host(out[:len(chunk)]))
         return np.concatenate(outs, axis=0)
 
     def predict_class(self, x) -> np.ndarray:
@@ -1638,7 +1809,7 @@ class Validator:
         self.device = device
 
     def test(self, methods, batch_size: int = 128):
-        return Evaluator(self.model, self.device).test(
+        return Evaluator(self.model, device=self.device).test(
             self.dataset, methods, batch_size=batch_size)
 
 

@@ -60,13 +60,16 @@ class L2Regularizer(L1L2Regularizer):
 
 
 @torch.no_grad()
-def apply_regularizer_grads(model, params, grads):
+def apply_regularizer_grads(model, params, grads, values=None):
     """``grads`` (a list aligned with ``params``, the model's parameters
     in order) with every layer's regularizer gradient added: its
     ``w_regularizer`` at its ``weight``, its ``b_regularizer`` at its
-    ``bias`` (the reference's accGradParameters placement).  Returns a new
-    list; the tensors of unregularized parameters pass through."""
+    ``bias`` (the reference's accGradParameters placement), taken at
+    ``values`` (default ``params``; under ZeRO the views of this rank's
+    slices, which ``grads`` then holds).  Returns a new list; the tensors
+    of unregularized parameters pass through."""
     index = {id(p): i for i, p in enumerate(params)}
+    values = params if values is None else values
     out = list(grads)
     for m in model.modules():
         names = getattr(m, "param_names", ())
@@ -76,5 +79,5 @@ def apply_regularizer_grads(model, params, grads):
             if reg is None or name not in names:
                 continue
             i = index[id(getattr(m, name))]
-            out[i] = out[i] + reg.grad(params[i])
+            out[i] = out[i] + reg.grad(values[i])
     return out

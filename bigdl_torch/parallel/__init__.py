@@ -1,8 +1,12 @@
-"""Data parallelism: sharding strategies and the gradient wire."""
+"""Data parallelism: sharding strategies, the gradient wire and its
+buckets."""
 
 from .sharding import (DataParallel, LayoutSharding, ShardedDataParallel,
                        ShardingStrategy, TensorParallel)
-from .wire import wire_cast
+from .wire import (bucket_assignment, bucket_count,
+                   measure_collective_seconds, wire_bucket_mb, wire_cast)
 
 __all__ = ["ShardingStrategy", "DataParallel", "ShardedDataParallel",
-           "TensorParallel", "LayoutSharding", "wire_cast"]
+           "TensorParallel", "LayoutSharding", "wire_cast",
+           "bucket_assignment", "bucket_count", "measure_collective_seconds",
+           "wire_bucket_mb"]

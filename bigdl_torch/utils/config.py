@@ -38,6 +38,8 @@ the kernels always run.
 | BIGDL_TORCH_SUPERVISE_DATA / _STEP / _COMPILE / _CHECKPOINT / _VALIDATION / _SERVE | per-phase stall deadline, seconds (``utils/supervisor.py``) | 0 (off) |
 | BIGDL_TORCH_SUPERVISE_DEADLINE   | stall deadline of the phases without their own | 0 (off) |
 | BIGDL_TORCH_SUPERVISE_POLICY     | ``raise`` a StallError or hard-``exit``        | raise   |
+| BIGDL_TORCH_FUSED_UPDATE         | the update over one flat tensor per dtype      | 0       |
+| BIGDL_TORCH_WIRE_BUCKET_MB       | gradient bucket cap, MB (0 = per-leaf wire)    | 0       |
 """
 
 from __future__ import annotations

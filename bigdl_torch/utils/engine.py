@@ -22,9 +22,19 @@ runs one process per card, so here the data axis is one
   in-process store.  Every group has a finite timeout
   (:data:`DIST_TIMEOUT`), so a rank that never arrives fails the run
   instead of hanging it.
-- :meth:`Engine.all_reduce` is the one place the port sums a tensor over
-  the group; it counts its calls by kind (``Engine.all_reduces``), so a run
-  can show which collectives its steps issued.
+- :meth:`Engine.all_reduce`, :meth:`Engine.reduce_scatter` and
+  :meth:`Engine.all_gather` are where the port sums or gathers a tensor
+  over the group.  Each counts its calls by kind (``Engine.all_reduces``,
+  ``Engine.reduce_scatters``, ``Engine.all_gathers``), so a run can show
+  which collectives its steps issued.  ``all_reduce(..., async_op=True)``
+  returns the work handle (the gradient buckets launched from the
+  backward, ``parallel/sharding.py``).  ZeRO's slices go through
+  ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` (named
+  ``reduce_scatter_single`` and ``all_gather_single`` from torch 2.13) on
+  every backend: NCCL has both, and gloo has both for CPU tensors and for
+  CUDA tensors (checked with two gloo ranks on one H100 under torch 2.11
+  with CUDA 12.8, and on the CPU under torch 2.13), so there is one
+  route.
 
 Not ported: elasticity (``reform``, survivors, the simulated topologies)
 and multi-axis meshes.
@@ -50,6 +60,12 @@ logger = logging.getLogger("bigdl_torch")
 #: how long a rendezvous or a collective waits for every rank
 DIST_TIMEOUT = datetime.timedelta(seconds=300)
 
+# torch 2.13 renamed the single-tensor collectives (the old names warn);
+# both forms take (output, input, ...) alike
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+
 
 class Engine:
     """Process-wide singleton holding the data group (BigDL:
@@ -64,6 +80,10 @@ class Engine:
     _lock = threading.Lock()
     #: all-reduce calls since the last reset, by kind
     all_reduces = collections.Counter()
+    #: reduce-scatter calls since the last reset, by kind
+    reduce_scatters = collections.Counter()
+    #: all-gather calls since the last reset, by kind
+    all_gathers = collections.Counter()
 
     @classmethod
     def init_distributed(cls, backend: str) -> None:
@@ -112,7 +132,7 @@ class Engine:
                 cls.init_distributed(backend)
             cls._device = device
             cls._group = dist.group.WORLD
-            cls.all_reduces.clear()
+            cls.clear_counts()
             logger.info("Engine.init: rank %d of %d on %s over %s",
                         cls.rank(), cls.world(), device, backend)
             return cls._group
@@ -138,17 +158,65 @@ class Engine:
                 dist.destroy_process_group()
             cls._group = None
             cls._device = None
-            cls.all_reduces.clear()
+            cls.clear_counts()
 
     @classmethod
-    def all_reduce(cls, t: torch.Tensor, kind: str,
-                   group=None) -> torch.Tensor:
+    def clear_counts(cls) -> None:
+        """Set every collective count to zero."""
+        cls.all_reduces.clear()
+        cls.reduce_scatters.clear()
+        cls.all_gathers.clear()
+
+    @classmethod
+    def collectives(cls) -> dict:
+        """Every collective count by operation, then kind:
+        ``{"all_reduce": {...}, "reduce_scatter": {...},
+        "all_gather": {...}}``."""
+        return {"all_reduce": dict(cls.all_reduces),
+                "reduce_scatter": dict(cls.reduce_scatters),
+                "all_gather": dict(cls.all_gathers)}
+
+    @classmethod
+    def all_reduce(cls, t: torch.Tensor, kind: str, group=None,
+                   async_op: bool = False):
         """Sum ``t`` in place over ``group`` (default: the data group);
-        ``kind`` names the collective in :attr:`all_reduces`."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM,
-                        group=cls._group if group is None else group)
+        ``kind`` names the collective in :attr:`all_reduces`.  Returns
+        ``t``, or with ``async_op`` the work handle, whose ``wait()`` must
+        come before anything reads ``t``."""
+        work = dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                               group=cls._group if group is None else group,
+                               async_op=async_op)
         cls.all_reduces[kind] += 1
-        return t
+        return work if async_op else t
+
+    @classmethod
+    def reduce_scatter(cls, out: torch.Tensor, inp: torch.Tensor,
+                       kind: str) -> torch.Tensor:
+        """``out`` (n elements) = the sum over the group of each rank's
+        ``inp`` chunk ``rank`` (``inp`` holds world x n elements, chunk r
+        at [r·n, (r+1)·n)); counted in :attr:`reduce_scatters`."""
+        _REDUCE_SCATTER(out, inp, op=dist.ReduceOp.SUM, group=cls._group)
+        cls.reduce_scatters[kind] += 1
+        return out
+
+    @classmethod
+    def all_gather(cls, out: torch.Tensor, inp: torch.Tensor,
+                   kind: str) -> torch.Tensor:
+        """``out`` (world x n elements) = every rank's ``inp`` (n
+        elements), rank r's at [r·n, (r+1)·n); counted in
+        :attr:`all_gathers`."""
+        _ALL_GATHER(out, inp, group=cls._group)
+        cls.all_gathers[kind] += 1
+        return out
+
+    @classmethod
+    def slice_route(cls) -> str:
+        """The collectives ZeRO's slices go through, with the group's
+        backend: ``"<backend>: <reduce-scatter> / <all-gather>"``."""
+        backend = (dist.get_backend(cls._group) if cls._group is not None
+                   else None)
+        return (f"{backend}: {_REDUCE_SCATTER.__name__} / "
+                f"{_ALL_GATHER.__name__}")
 
     # -- topology accessors (BigDL: Engine.nodeNumber / Engine.coreNumber) --
 

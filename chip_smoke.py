@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10, started
-by the script itself; ``python3 chip_smoke.py --only train_validate`` runs
-the build and phase 13 alone, ``--only train_longrun`` the build and
-phase 14 alone, ``--only train_records`` the build and phase 15 alone,
-and none of them prints the final line.)
+(``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10 and
+``--zero-child DIR`` one of phase 10b, started by the script itself;
+``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
+alone, ``--only train_longrun`` the build and phase 14 alone,
+``--only train_records`` the build and phase 15 alone, ``--only
+data_parallel`` the build and phases 9, 10 and 10b, and none of them
+prints the final line.)
 
 Phases, each printing one JSON line:
 
@@ -141,14 +143,45 @@ Phases, each printing one JSON line:
    no B1 or B2; all-reduces per step exactly 53 of BN statistics, 53 of
    gradient statistics and one of the gradients (with the loss); the first
    loss within ``UNFUSED_ATOL`` of the ``train`` phase's; one profiled
-   step gives the collectives' share.
+   step gives the collectives' share.  Then the same ``TRAIN_STEPS`` of
+   SGD with momentum from one saved state under deterministic cuDNN in
+   each of ``DP_ROUTES``: ``DataParallel`` per leaf, ``DataParallel`` with
+   ``BIGDL_TORCH_WIRE_BUCKET_MB=25`` (one all-reduce per bucket, launched
+   from the backward), ``ShardedDataParallel`` (ZeRO) and ZeRO with
+   ``BIGDL_TORCH_FUSED_UPDATE=1``: losses, parameters and buffers
+   bit-equal across the routes (after one untimed step that lets cuDNN
+   pick its deterministic algorithms), B3, B4 and B5 launches exactly as
+   above,
+   the collectives exactly as predicted from ``bucket_count`` and the ZeRO
+   plan; each route's step time, profiled device idle share, peak memory,
+   method-state bytes and ``measure_collective_seconds`` (0.0 at a world
+   of one).
 10. ``dp_two_process``: two processes on the one card in a gloo group (NCCL
    refuses two ranks on one GPU) train the small bottleneck ResNet in
    float32 (TF32 off, no gradient wire, B5 on ``"f32"``) for 3 steps at
    local batch 8;
-   one process trains it at batch 16 on the same rows.  Losses, params and
-   running statistics within ``DP_F32_ATOL``, both ranks bit-identical,
-   and each rank's B3, B4 and B5 launch counts non-zero.
+   one process trains it at batch 16 on the same rows, all with SGD and
+   momentum.  The ranks train it in each of ``DP_CHILD_ROUTES``
+   (``DataParallel``, ZeRO at ``min_size`` 256, ZeRO with the fused
+   update, ``DataParallel`` in buckets).  For each: losses, params and
+   running statistics within ``DP_F32_ATOL`` of the one process, both
+   ranks bit-identical, each rank's B3, B4 and B5 launch counts non-zero,
+   its method-state bytes exactly the plan's and its collectives exactly
+   as predicted.  Each rank times ``measure_collective_seconds`` at world
+   2, and runs ``Predictor`` and ``Evaluator`` under the group over 13 rows
+   at batch 5: both ranks' answers equal one process's (TF32 off) within
+   ``INFER_TOL``.
+10b. ``zero_full_width``: two gloo ranks on the card train ResNet-50 at
+   the ``resnet50_bf16`` width (bf16 compute, fused) with Adam for
+   ``ZERO_STEPS`` steps at ``ZERO_BATCH`` images a rank, under
+   ``DataParallel`` and under ``ShardedDataParallel`` in the order A, B,
+   B, A: losses, parameters, buffers and the whole final Adam state
+   bit-identical across the routes, the repeats and the ranks, each
+   rank's Adam state exactly the plan's bytes (half of each sliced leaf's
+   two slots and all of the replicated leaves'), the collectives exact;
+   the saving, the peak memory, the steps' time alone and the final
+   state's gather of each route, beside the collectives gloo runs them
+   with.
 11. ``train_lm``: TransformerLM at the bench width (as ``serve``) trained
    as bench.py trains ``transformer_lm``: batch 16 x T 512 of random
    tokens from ``default_rng(SEED)``, ``TimeDistributedCriterion(
@@ -346,6 +379,8 @@ from bigdl_torch.optim import (SGD, Adadelta, Adagrad, Adam, Adamax,
                                Perplexity, Predictor, RMSprop, Top1Accuracy,
                                Top5Accuracy, Trigger)
 from bigdl_torch.optim.optimizer import HostCopy, to_host
+from bigdl_torch.parallel import (DataParallel, ShardedDataParallel,
+                                  bucket_count, measure_collective_seconds)
 from bigdl_torch.serve import (DecodeEngine, InferenceServer, fit_bucket,
                                pad_tail)
 from bigdl_torch.tools import record_generator
@@ -444,6 +479,16 @@ DP_STEP_ALL_REDUCES = {"bn_stats": 53, "bn_grad_stats": 53, "grads": 1}
 # amplified by 3 SGD steps; the same bound as F32_TRAIN_ATOL
 DP_F32_ATOL = 1e-3
 DP_CHILD_TIMEOUT = 300
+# the rest of data parallelism: every route trains the same TRAIN_STEPS
+# from one saved state under deterministic cuDNN and must match the others
+# bit for bit (at a world of one every collective is a copy)
+FUSED_KNOB = {"BIGDL_TORCH_FUSED_UPDATE": "1"}
+DP_BUCKET_MB = 25
+DP_ROUTES = (("data_parallel", False, {}),
+             ("data_parallel_buckets", False,
+              {"BIGDL_TORCH_WIRE_BUCKET_MB": str(DP_BUCKET_MB)}),
+             ("zero", True, {}),
+             ("zero_fused", True, FUSED_KNOB))
 
 # the LM training path: bench.py's transformer_lm config (LM above) at
 # batch 16 x T 512, TimeDistributedCriterion(ClassNLLCriterion(),
@@ -1768,22 +1813,24 @@ def synthetic_imagenet(n, seed):
 
 
 def train(model, samples, steps, batch, device=None, distributed=False,
-          criterion=None, method=None, on_step=None):
+          criterion=None, method=None, on_step=None, strategy=None):
     """``steps`` Optimizer steps on a fresh ``DataSet.array(samples,
     distributed=distributed)`` (seeded: every call visits the same
     batches); returns the loss the driver observed after each step, and
-    leaves the Optimizer's counters in ``train.metrics``.  Under the
-    Engine's group the Optimizer trains data-parallel.  The default
+    leaves the Optimizer's counters in ``train.metrics`` and the Optimizer
+    in ``train.opt``.  Under the Engine's group the Optimizer trains
+    data-parallel (``strategy``, default ``DataParallel``).  The default
     criterion and method are the ResNet path's.  ``on_step(n)``, if
     given, is called as step n starts (at the loop's first trigger check
-    for it, once its batch is in hand)."""
+    for it, once its batch is in hand), and with n = steps + 1 as the
+    last step ends (before the Optimizer's wrap-up)."""
     losses, started = {}, set()
 
     def end(state):
         n = state["neval"]
         if n > 1:
             losses[n - 1] = state["loss"]
-        if on_step is not None and n <= steps and n not in started:
+        if on_step is not None and n <= steps + 1 and n not in started:
             started.add(n)
             on_step(n)
         return n > steps
@@ -1791,26 +1838,32 @@ def train(model, samples, steps, batch, device=None, distributed=False,
     opt = Optimizer(model, DataSet.array(samples, distributed=distributed,
                                          seed=SEED),
                     criterion or nn.CrossEntropyCriterion(),
-                    batch_size=batch, device=device)
+                    batch_size=batch, device=device, strategy=strategy)
     opt.set_optim_method(method or SGD(0.1))
     opt.set_end_when(Trigger(end, "steps"))
     opt.optimize()
-    train.metrics = opt.metrics
+    train.metrics, train.opt = opt.metrics, opt
     return [losses[k] for k in sorted(losses)]
 
 
 @contextlib.contextmanager
-def prefetch_depth(depth):
-    """``BIGDL_TORCH_PREFETCH_DEPTH`` set to ``depth`` inside the block."""
-    old = os.environ.get("BIGDL_TORCH_PREFETCH_DEPTH")
-    os.environ["BIGDL_TORCH_PREFETCH_DEPTH"] = str(depth)
+def knobs(env):
+    """The environment variables of ``env`` set inside the block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["BIGDL_TORCH_PREFETCH_DEPTH"]
-        else:
-            os.environ["BIGDL_TORCH_PREFETCH_DEPTH"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def prefetch_depth(depth):
+    """``BIGDL_TORCH_PREFETCH_DEPTH`` set to ``depth`` inside the block."""
+    return knobs({"BIGDL_TORCH_PREFETCH_DEPTH": str(depth)})
 
 
 def record_inputs(model):
@@ -1820,6 +1873,26 @@ def record_inputs(model):
     handle = model.register_forward_pre_hook(
         lambda mod, inp: seen.append(inp[0].detach().clone()))
     return seen, handle
+
+
+class StepMarks:
+    """``train``'s ``on_step``: a CUDA event as each step starts and as
+    the last one ends, so :meth:`ms` is the steps' device-clock time
+    alone, without the Optimizer's set-up (the broadcast from rank 0) or
+    its wrap-up."""
+
+    def __init__(self):
+        self.events = {}
+
+    def __call__(self, n):
+        self.events[n] = torch.cuda.Event(enable_timing=True)
+        self.events[n].record()
+
+    def ms(self):
+        """ms a step from step 1's start to the last step's end."""
+        torch.cuda.synchronize()
+        last = max(self.events)
+        return self.events[1].elapsed_time(self.events[last]) / (last - 1)
 
 
 def timed_run(run):
@@ -2134,9 +2207,11 @@ def phase_dp_train(single_first_loss):
     for kind, n in DP_STEP_SHAPES.items():
         check(len(seen[kind]) == n and sum(seen[kind].values())
               == DP_STEP_LAUNCHES[kind], f"{kind} shapes {dict(seen[kind])}")
-    diff = abs(first[0] - single_first_loss)
-    check(diff <= UNFUSED_ATOL, f"data-parallel vs single-device first "
-          f"loss: {first[0]} vs {single_first_loss}")
+    # (no single-device loss when the phase runs alone)
+    diff = (None if single_first_loss is None
+            else abs(first[0] - single_first_loss))
+    check(diff is None or diff <= UNFUSED_ATOL, f"data-parallel vs "
+          f"single-device first loss: {first[0]} vs {single_first_loss}")
 
     reps = phase_bn_kernels(seen, ("bn_stats", "bn_grad_stats"), "dp_train")
     # every B3 step shape on "vec", and a ragged C on "scalar"
@@ -2180,6 +2255,7 @@ def phase_dp_train(single_first_loss):
         model, samples, 1 + PROFILE_STEPS, TRAIN_BATCH, distributed=True,
         on_step=mark), distributed=True)
     probe_us = all_reduce_host_us()
+    route_runs = dp_routes(model, samples)
     del model
     Engine.reset()
     torch.cuda.empty_cache()
@@ -2195,8 +2271,98 @@ def phase_dp_train(single_first_loss):
           "all_reduces": all_reduces, "all_reduce_host_us": probe_us,
           "running_stats_max_move": moved,
           "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()},
-          **bit, **prof})
+          "routes": route_runs, **bit, **prof})
     return kernel_rows(reps, launched, "dp_train", routes)
+
+
+def expected_collectives(steps, params, zero, bucket_mb=0, bn_sites=None,
+                          min_size=2 ** 14, world=1):
+    """The collectives ``steps`` steps over ``params`` issue: the
+    gradients' all-reduce (one per float32 bucket of ``bucket_mb``), or
+    under ZeRO one reduce-scatter and one all-gather per dtype of the
+    sliced parameters a step (the whole final state is gathered only when
+    ``final_opt_state`` is read); sync-BN's all-reduces at ``bn_sites``
+    sites a step where given."""
+    grads = 1
+    if not zero and bucket_mb > 0:
+        grads = bucket_count(params, torch.float32, bucket_mb)
+    out = {"all_reduce": {"grads": grads * steps}, "reduce_scatter": {},
+           "all_gather": {}}
+    if bn_sites is not None:
+        out["all_reduce"].update(bn_stats=bn_sites * steps,
+                                 bn_grad_stats=bn_sites * steps)
+    if zero:
+        axes = ShardedDataParallel(min_size).param_axes(params, world)
+        dtypes = {p.dtype for p, a in zip(params, axes) if a is not None}
+        out["reduce_scatter"] = {"grads": steps}
+        out["all_gather"] = {"params": len(dtypes) * steps}
+    return out
+
+
+def dp_routes(model, samples):
+    """``TRAIN_STEPS`` of SGD with momentum from the model's present state
+    in each of ``DP_ROUTES`` (the per-leaf ``DataParallel``, its buckets
+    launched from the backward, ZeRO, ZeRO with the fused update), under
+    deterministic cuDNN: losses and every parameter and buffer bit-equal
+    across the routes, B3, B4 and B5 launches and routes exactly
+    ``DP_STEP_LAUNCHES`` a step, the collectives exactly as predicted.
+    Each route reports its step time (:class:`StepMarks`: the steps
+    alone), a profiled run's device idle share, its peak memory, the
+    method state's bytes and the collective probe (0.0 at a world of
+    one)."""
+    reset = Reset(model)
+    with deterministic_cudnn():
+        # cuDNN picks its deterministic algorithms on the first call: not
+        # in the first route's time
+        train(reset.model(), samples, 1, TRAIN_BATCH, distributed=True)
+    out, first = {}, None
+    for name, zero, env in DP_ROUTES:
+        m = reset.model()
+        with knobs(env), deterministic_cudnn():
+            strategy = ShardedDataParallel() if zero else DataParallel()
+
+            def run(steps, on_step=None):
+                return train(m, samples, steps, TRAIN_BATCH,
+                             distributed=True, strategy=strategy,
+                             method=SGD(0.1, momentum=0.9), on_step=on_step)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            Engine.clear_counts()
+            marks = StepMarks()
+            losses = run(TRAIN_STEPS, marks)
+            step_ms = marks.ms()
+            launched, coll = counts(), Engine.collectives()
+            peak = torch.cuda.max_memory_allocated()
+            state = snapshot(m)
+            bucket_mb = float(env.get("BIGDL_TORCH_WIRE_BUCKET_MB", 0))
+            want = expected_collectives(
+                TRAIN_STEPS, list(m.parameters()), zero, bucket_mb,
+                bn_sites=DP_STEP_ALL_REDUCES["bn_stats"])
+            check(launched == {k: v * TRAIN_STEPS
+                               for k, v in DP_STEP_LAUNCHES.items()},
+                  f"{name}: launches over {TRAIN_STEPS} steps {launched}")
+            check_step_routes(launched, f"dp_train route {name}")
+            check(coll == want, f"{name}: collectives {coll}, want {want}")
+            probe = measure_collective_seconds(list(m.parameters()),
+                                               torch.float32, bucket_mb)
+            prof = profile_step(lambda mark: run(1 + PROFILE_STEPS, mark),
+                                distributed=True)
+        if first is None:
+            first = (losses, state)
+        check(losses == first[0] and bit_equal(state, first[1]),
+              f"route {name} differs from {DP_ROUTES[0][0]}: {losses} vs "
+              f"{first[0]}")
+        out[name] = {"env": env, "step_ms": step_ms,
+                     "losses": losses, "bit_equal_to_first": True,
+                     "device_idle_share": prof.get("device_idle_share"),
+                     "steady": prof.get("steady"),
+                     "max_memory_allocated": peak,
+                     "opt_state_bytes": train.opt.opt_state_bytes,
+                     "collectives": coll, "collective_s": probe,
+                     "grad_all_reduces_per_step":
+                     want["all_reduce"]["grads"] // TRAIN_STEPS}
+    return out
 
 
 # -- 10. dp_two_process -----------------------------------------------------
@@ -2218,82 +2384,396 @@ def float32_exact():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# the two-rank routes: ZeRO's plan at the small ResNet's sizes (its leaves
+# are all under the default 2^14 elements) and buckets of a few leaves each
+DP_ZERO_MIN_SIZE = 256
+DP_SMALL_BUCKET_MB = 0.002
+DP_CHILD_ROUTES = (("data_parallel", False, {}),
+                   ("zero", True, {}),
+                   ("zero_fused", True, FUSED_KNOB),
+                   ("data_parallel_buckets", False,
+                    {"BIGDL_TORCH_WIRE_BUCKET_MB": str(DP_SMALL_BUCKET_MB)}))
+# sharded inference: rows and batch that do not divide by the world
+INFER_ROWS = 13
+INFER_BATCH = 5
+INFER_TOL = 1e-5
+
+
+def dp_method():
+    return SGD(0.1, momentum=0.9)
+
+
+def dp_strategy(zero):
+    return (ShardedDataParallel(min_size=DP_ZERO_MIN_SIZE) if zero
+            else DataParallel())
+
+
+def infer_samples():
+    rs = np.random.default_rng(SEED + 4)
+    x = rs.standard_normal((INFER_ROWS, 32, 32, 3), dtype=np.float32)
+    y = rs.integers(0, 10, INFER_ROWS).astype(np.int32)
+    return x, [Sample(x[i], y[i]) for i in range(INFER_ROWS)]
+
+
+def infer(model):
+    """The small ResNet's predictions over ``infer_samples`` as an array
+    and as Samples, and its evaluation: under a group, sharded."""
+    x, samples = infer_samples()
+    pred = Predictor(model, INFER_BATCH)
+    res = Evaluator(model).test(samples, [Top1Accuracy(), Loss(
+        nn.CrossEntropyCriterion())], INFER_BATCH)
+    return (pred.predict(x), pred.predict(samples),
+            [[m.name, vars(r)] for m, r in res])
+
+
 def dp_child(out_dir):
     """One rank of ``dp_two_process``: the rank, world and rendezvous come
-    from the ``BIGDL_TORCH_*`` env contract."""
+    from the ``BIGDL_TORCH_*`` env contract.  Trains every route of
+    ``DP_CHILD_ROUTES`` from the same weights, times the collective probe
+    and runs the sharded inference."""
     float32_exact()
     Engine.init(device="cuda:0", backend="gloo")
-    model = small_resnet().build("cuda", torch.Generator().manual_seed(SEED))
-    zero_counts()
-    losses = train(model, small_samples(), DP_STEPS, DP_LOCAL_BATCH,
-                   distributed=True)
     rank = Engine.rank()
-    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
-               os.path.join(out_dir, f"rank{rank}.pt"))
-    emit({"rank": rank, "world": Engine.world(), "losses": losses,
-          "launches": counts(), "b5_route_launches": b5_routes(),
-          "all_reduces": dict(Engine.all_reduces)})
+    runs = {}
+    for name, zero, env in DP_CHILD_ROUTES:
+        model = small_resnet().build("cuda",
+                                     torch.Generator().manual_seed(SEED))
+        zero_counts()
+        Engine.clear_counts()
+        with knobs(env):
+            losses = train(model, small_samples(), DP_STEPS, DP_LOCAL_BATCH,
+                           distributed=True, strategy=dp_strategy(zero),
+                           method=dp_method())
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+        runs[name] = {"losses": losses, "launches": counts(),
+                      "b5_route_launches": b5_routes(),
+                      "collectives": Engine.collectives(),
+                      "opt_state_bytes": train.opt.opt_state_bytes}
+    params = list(model.parameters())
+    probe = {"per_leaf": measure_collective_seconds(params, torch.float32, 0),
+             "buckets": measure_collective_seconds(params, torch.float32,
+                                                   DP_SMALL_BUCKET_MB)}
+    model = small_resnet().build("cuda", torch.Generator().manual_seed(SEED))
+    pred_x, pred_s, evaluation = infer(model)
+    np.save(os.path.join(out_dir, f"predict.rank{rank}.npy"),
+            np.stack([pred_x, pred_s]))
+    emit({"rank": rank, "world": Engine.world(), "runs": runs,
+          "collective_s": probe, "evaluate": evaluation,
+          "slice_route": Engine.slice_route()})
     Engine.reset()
     return 0
+
+
+def spawn_ranks(flag, tmp, timeout):
+    """Two ranks of this script (``flag`` ``tmp``) on the one card in a
+    gloo group meeting through ``tmp``; returns (their last JSON lines,
+    wall seconds).  Every process is killed and reaped before it
+    returns."""
+    env = {**os.environ,
+           "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+           "BIGDL_TORCH_COORDINATOR": f"file://{tmp}/store",
+           "BIGDL_TORCH_NUM_PROCESSES": "2"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, tmp],
+        env={**env, "BIGDL_TORCH_PROCESS_ID": str(i)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f"rank failed ({p.returncode}):\n"
+              f"{out[-2000:]}\n{err[-4000:]}")
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    check([r["rank"] for r in ranks] == [0, 1]
+          and all(r["world"] == 2 for r in ranks), f"ranks {ranks}")
+    return ranks, wall
+
+
+def plan_state_bytes(model, zero, n_slots, min_size=2 ** 14, world=2):
+    """A rank's float32 method-state bytes under the plan: ``n_slots``
+    slots of every leaf, a sliced leaf's 1/world of it."""
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    axes = (ShardedDataParallel(min_size=min_size).param_axes(shapes, world)
+            if zero else [None] * len(shapes))
+    return n_slots * 4 * sum(math.prod(s) // (world if a is not None else 1)
+                             for s, a in zip(shapes, axes))
 
 
 def phase_dp_two_process():
     float32_exact()
     ref = small_resnet().build("cuda", torch.Generator().manual_seed(SEED))
-    ref_losses = train(ref, small_samples(), DP_STEPS, 2 * DP_LOCAL_BATCH)
+    ref_losses = train(ref, small_samples(), DP_STEPS, 2 * DP_LOCAL_BATCH,
+                       method=dp_method())
     ref_state = {k: v.cpu() for k, v in ref.state_dict().items()}
+    fresh = small_resnet().build("cuda", torch.Generator().manual_seed(SEED))
+    one_x, one_s, one_eval = infer(fresh)
     with tempfile.TemporaryDirectory() as tmp:
-        env = {**os.environ,
-               "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
-               "BIGDL_TORCH_COORDINATOR": f"file://{tmp}/store",
-               "BIGDL_TORCH_NUM_PROCESSES": "2"}
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-child", tmp],
-            env={**env, "BIGDL_TORCH_PROCESS_ID": str(i)},
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for i in range(2)]
-        try:
-            outs = [p.communicate(timeout=DP_CHILD_TIMEOUT) for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
-        wall = time.perf_counter() - t0
-        for p, (out, err) in zip(procs, outs):
-            check(p.returncode == 0, f"rank failed ({p.returncode}):\n"
-                  f"{out[-2000:]}\n{err[-4000:]}")
-        ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
-        states = [torch.load(os.path.join(tmp, f"rank{i}.pt"))
-                  for i in range(2)]
-    check([r["rank"] for r in ranks] == [0, 1]
-          and all(r["world"] == 2 for r in ranks), f"ranks {ranks}")
-    for r in ranks:
-        check(all(r["launches"][k] > 0 for k in
-                  ("bn_stats", "bn_grad_stats", "matmul_stats")),
-              f"rank {r['rank']} skipped a kernel: {r['launches']}")
-        b5 = r["b5_route_launches"]
-        check(b5["f32"] == r["launches"]["matmul_stats"]
-              and b5["tc"] == b5["mma_sync"] == 0,
-              f"rank {r['rank']}'s float32 B5 routes {b5}")
-    check(ranks[0]["losses"] == ranks[1]["losses"]
-          and all(torch.equal(states[0][k], states[1][k])
-                  for k in states[0]), "the two ranks diverged")
-    loss_err = max(abs(a - b) for a, b in zip(ranks[0]["losses"],
-                                             ref_losses))
-    state_err = max(rel_err(states[0][k], v)[1] for k, v in ref_state.items())
-    check(len(ref_losses) == DP_STEPS and loss_err <= DP_F32_ATOL
-          and state_err <= DP_F32_ATOL,
-          f"two ranks vs one process: losses {ranks[0]['losses']} vs "
-          f"{ref_losses}, params/stats {state_err}")
+        ranks, wall = spawn_ranks("--dp-child", tmp, DP_CHILD_TIMEOUT)
+        states = {name: [torch.load(os.path.join(tmp, f"{name}.rank{i}.pt"))
+                         for i in range(2)]
+                  for name, _, _ in DP_CHILD_ROUTES}
+        preds = [np.load(os.path.join(tmp, f"predict.rank{i}.npy"))
+                 for i in range(2)]
+    report = {}
+    for name, zero, env in DP_CHILD_ROUTES:
+        rr = [r["runs"][name] for r in ranks]
+        st = states[name]
+        for r in rr:
+            check(all(r["launches"][k] > 0 for k in
+                      ("bn_stats", "bn_grad_stats", "matmul_stats")),
+                  f"{name}: a rank skipped a kernel: {r['launches']}")
+            b5 = r["b5_route_launches"]
+            check(b5["f32"] == r["launches"]["matmul_stats"]
+                  and b5["tc"] == b5["mma_sync"] == 0,
+                  f"{name}: float32 B5 routes {b5}")
+        check(rr[0]["losses"] == rr[1]["losses"]
+              and rr[0]["collectives"] == rr[1]["collectives"]
+              and all(torch.equal(st[0][k], st[1][k]) for k in st[0]),
+              f"{name}: the two ranks diverged")
+        loss_err = max(abs(a - b) for a, b in zip(rr[0]["losses"],
+                                                 ref_losses))
+        state_err = max(rel_err(st[0][k], v)[1] for k, v in ref_state.items())
+        check(len(ref_losses) == DP_STEPS and loss_err <= DP_F32_ATOL
+              and state_err <= DP_F32_ATOL,
+              f"{name}: two ranks vs one process: losses {rr[0]['losses']} "
+              f"vs {ref_losses}, params/stats {state_err}")
+        want_bytes = plan_state_bytes(ref, zero, 1, DP_ZERO_MIN_SIZE)
+        check(all(r["opt_state_bytes"] == want_bytes for r in rr),
+              f"{name}: state bytes {[r['opt_state_bytes'] for r in rr]}, "
+              f"plan {want_bytes}")
+        # sync-BN's all-reduces as the per-leaf route's, the rest exact
+        want = expected_collectives(
+            DP_STEPS, list(ref.parameters()), zero,
+            float(env.get("BIGDL_TORCH_WIRE_BUCKET_MB", 0)),
+            min_size=DP_ZERO_MIN_SIZE, world=2)
+        got = rr[0]["collectives"]
+        bn = {k: v for k, v in ranks[0]["runs"]["data_parallel"][
+            "collectives"]["all_reduce"].items() if k.startswith("bn_")}
+        want["all_reduce"].update(bn)
+        check(bn and got == want,
+              f"{name}: collectives {got}, want {want}")
+        report[name] = {"losses": rr[0]["losses"], "max_loss_diff": loss_err,
+                        "max_state_rel_err": state_err,
+                        "opt_state_bytes": rr[0]["opt_state_bytes"],
+                        "collectives": got,
+                        "launches": rr[0]["launches"],
+                        "b5_route_launches": rr[0]["b5_route_launches"]}
+    check(np.array_equal(preds[0], preds[1])
+          and ranks[0]["evaluate"] == ranks[1]["evaluate"],
+          "the ranks' sharded inference differs")
+    infer_err = max(rel_err(torch.from_numpy(p), torch.from_numpy(one))[1]
+                    for p, one in zip(preds[0], (one_x, one_s)))
+    check(preds[0].shape[1] == INFER_ROWS and infer_err <= INFER_TOL,
+          f"sharded predictions vs one process: {infer_err}")
+    for (name, got), (m, want) in zip(ranks[0]["evaluate"], one_eval):
+        check(name == m and got["count"] == want["count"] == INFER_ROWS
+              and got.get("correct") == want.get("correct")
+              and abs(got.get("loss", 0) - want.get("loss", 0))
+              <= INFER_TOL * max(1, abs(want.get("loss", 0))),
+              f"sharded evaluation {name}: {got} vs {want}")
     emit({"phase": "dp_two_process", "gpu": gpu_line(), "backend": "gloo",
+          "slice_route": ranks[0]["slice_route"],
           "world": 2, "batch_per_process": DP_LOCAL_BATCH,
-          "steps": DP_STEPS, "wall_s": wall, "losses": ranks[0]["losses"],
-          "losses_one_process": ref_losses, "max_loss_diff": loss_err,
-          "max_state_rel_err": state_err, "tol": DP_F32_ATOL,
-          "rank_launches": [r["launches"] for r in ranks],
-          "rank_b5_route_launches": [r["b5_route_launches"] for r in ranks],
-          "rank_all_reduces": [r["all_reduces"] for r in ranks]})
+          "steps": DP_STEPS, "wall_s": wall,
+          "losses_one_process": ref_losses, "tol": DP_F32_ATOL,
+          "zero_min_size": DP_ZERO_MIN_SIZE,
+          "bucket_mb": DP_SMALL_BUCKET_MB, "routes": report,
+          "collective_s": [r["collective_s"] for r in ranks],
+          "sharded_inference": {"rows": INFER_ROWS, "batch": INFER_BATCH,
+                                "max_rel_err": infer_err,
+                                "tol": INFER_TOL,
+                                "evaluate": ranks[0]["evaluate"]}})
+
+
+# -- 10b. zero_full_width ------------------------------------------------------
+
+# two gloo ranks on the card: ResNet-50 at the resnet50_bf16 width, Adam;
+# the routes run A, B, B, A (the first run also loads cuDNN's algorithms).
+# DataParallel against ZeRO at two ranks: both sum the same two partial
+# gradients for each element (a + b commutes) and run the same elementwise
+# update on each element, so losses, parameters, buffers and the whole
+# Adam state must be bit-equal (across routes, repeats and ranks)
+ZERO_STEPS = 2
+ZERO_BATCH = 32
+ZERO_ORDER = ("data_parallel", "zero", "zero", "data_parallel")
+ZERO_TIMEOUT = 600
+
+
+def host_tree(tree):
+    """A state tree with every tensor copied to the host and every numpy
+    leaf (Adam's int32 ``t``) made a tensor, so ``torch.load`` reads it
+    back with its default ``weights_only``."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [host_tree(v) for v in tree]
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return torch.tensor(np.asarray(tree))
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def state_leaves(tree):
+    """A state tree's leaves as they are (tensors keep their dtype)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in state_leaves(v)]
+    return [tree]
+
+
+def trees_bit_equal(a, b):
+    la, lb = state_leaves(a), state_leaves(b)
+    return len(la) == len(lb) and all(
+        isinstance(y, torch.Tensor) and torch.equal(x, y)
+        if isinstance(x, torch.Tensor) else bool(np.array_equal(x, y))
+        for x, y in zip(la, lb))
+
+
+def zero_child(out_dir):
+    """One rank of ``zero_full_width``: ResNet-50 as ``train`` builds it,
+    ``ZERO_STEPS`` of Adam at ``ZERO_BATCH`` images a rank, under
+    ``DataParallel`` and ``ShardedDataParallel`` in ``ZERO_ORDER``.  Each
+    run's steps are timed alone (:class:`StepMarks`), then the whole final
+    Adam state is read (under ZeRO its first read all-gathers the slices,
+    timed on its own).  The first run of each route saves its parameters,
+    buffers and whole Adam state; a repeat must equal it bit for bit."""
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    Engine.init(device="cuda:0", backend="gloo")
+    rank = Engine.rank()
+    samples = synthetic_imagenet(2 * ZERO_BATCH * ZERO_STEPS, SEED)
+    runs = {name: [] for name in ZERO_ORDER}
+    first = {}
+    for name in ZERO_ORDER:
+        model = resnet50(fuse=True)
+        strategy = (ShardedDataParallel() if name == "zero"
+                    else DataParallel())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        Engine.clear_counts()
+        marks = StepMarks()
+        losses = train(model, samples, ZERO_STEPS, ZERO_BATCH,
+                       distributed=True, strategy=strategy,
+                       method=Adam(1e-3), on_step=marks)
+        step_ms = marks.ms()
+        coll = Engine.collectives()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        whole = train.opt.final_opt_state
+        end.record()
+        torch.cuda.synchronize()
+        gather_wall_ms = (time.perf_counter() - t0) * 1e3
+        final_gathers = (Engine.collectives()["all_gather"].get(
+            "opt_state", 0) - coll["all_gather"].get("opt_state", 0))
+        saved = {"model": host_tree(model.state_dict()),
+                 "opt_state": host_tree(whole)}
+        if name not in first:
+            first[name] = saved
+            torch.save(saved, os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+        runs[name].append({
+            "losses": losses, "step_ms": step_ms,
+            "final_gather_ms": start.elapsed_time(end),
+            "final_gather_wall_ms": gather_wall_ms,
+            "final_gathers": final_gathers,
+            "equal_to_first_run": trees_bit_equal(saved, first[name]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "opt_state_bytes": train.opt.opt_state_bytes,
+            "collectives": coll})
+        del model, strategy, whole, saved
+        train.opt = None
+        torch.cuda.empty_cache()
+    emit({"rank": rank, "world": Engine.world(), "runs": runs,
+          "slice_route": Engine.slice_route()})
+    Engine.reset()
+    return 0
+
+
+def phase_zero_full_width():
+    """Two gloo ranks on the card train ResNet-50 (resnet50_bf16 width)
+    with Adam under DataParallel and under ZeRO: losses, parameters,
+    buffers and the whole final Adam state bit-equal across the routes,
+    the repeats and the ranks; each rank's Adam state exactly the plan's
+    (half of every sliced leaf's two slots, all of the replicated ones');
+    the collectives as predicted, the final state gathered once under
+    ZeRO and never under DataParallel."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, wall = spawn_ranks("--zero-child", tmp, ZERO_TIMEOUT)
+        saved = {(name, i): torch.load(os.path.join(
+            tmp, f"{name}.rank{i}.pt")) for name in ("data_parallel", "zero")
+            for i in range(2)}
+    model = ResNet(50, class_num=1000, dataset="imagenet")
+    nn.fuse_conv_bn(model)
+    model.build("meta")
+    params = list(model.parameters())
+    dp, zero = (ranks[0]["runs"][k][0] for k in ("data_parallel", "zero"))
+    for r in ranks:
+        for name, one in (("data_parallel", dp), ("zero", zero)):
+            check(all(run["losses"] == one["losses"]
+                      and run["equal_to_first_run"]
+                      for run in r["runs"][name]),
+                  f"the ranks or the repeats diverged: {ranks}")
+    check(len(dp["losses"]) == ZERO_STEPS
+          and all(map(math.isfinite, dp["losses"]))
+          and zero["losses"] == dp["losses"],
+          f"ZeRO vs DataParallel losses {zero['losses']} vs {dp['losses']}")
+    base = saved[("data_parallel", 0)]
+    n_leaves = len(state_leaves(base["opt_state"]))
+    for key, got in saved.items():
+        check(trees_bit_equal(got["model"], base["model"])
+              and trees_bit_equal(got["opt_state"], base["opt_state"]),
+              f"{key}: parameters, buffers or the whole Adam state differ "
+              "from rank 0's DataParallel run")
+    check(n_leaves == 2 * len(params) + 1,
+          f"the whole Adam state has {n_leaves} leaves")
+    want = {"data_parallel": plan_state_bytes(model, False, 2),
+            "zero": plan_state_bytes(model, True, 2)}
+    for r in ranks:
+        got = {k: {run["opt_state_bytes"] for run in r["runs"][k]}
+               for k in want}
+        check(got == {k: {v} for k, v in want.items()},
+              f"rank {r['rank']}: state bytes {got}, plan {want}")
+        for k in want:
+            bn = {b: v for b, v in r["runs"]["data_parallel"][0][
+                "collectives"]["all_reduce"].items() if b.startswith("bn_")}
+            expect = expected_collectives(ZERO_STEPS, params, k == "zero",
+                                          world=2)
+            expect["all_reduce"].update(bn)
+            check(bn and all(run["collectives"] == expect
+                             and run["final_gathers"] == (k == "zero")
+                             for run in r["runs"][k]),
+                  f"rank {r['rank']} {k}: collectives "
+                  f"{[run['collectives'] for run in r['runs'][k]]}, "
+                  f"final gathers "
+                  f"{[run['final_gathers'] for run in r['runs'][k]]}, "
+                  f"want {expect}")
+
+    def each(key):
+        return {k: [run[key] for run in ranks[0]["runs"][k]] for k in want}
+    emit({"phase": "zero_full_width", "gpu": gpu_line(),
+          "model": "ResNet-50", "backend": "gloo",
+          "slice_route": ranks[0]["slice_route"],
+          "world": 2, "batch_per_process": ZERO_BATCH,
+          "steps": ZERO_STEPS, "method": "Adam", "wall_s": wall,
+          "losses": {"data_parallel": dp["losses"], "zero": zero["losses"]},
+          "bit_equal": "losses, parameters, buffers, whole Adam state",
+          "opt_state_bytes": want,
+          "saving_bytes": want["data_parallel"] - want["zero"],
+          "order": ZERO_ORDER, "step_ms": each("step_ms"),
+          "final_gather_ms": each("final_gather_ms"),
+          "final_gather_wall_ms": each("final_gather_wall_ms"),
+          "max_memory_allocated": [
+              {k: [run["max_memory_allocated"] for run in r["runs"][k]]
+               for k in want} for r in ranks],
+          "collectives": {k: ranks[0]["runs"][k][0]["collectives"]
+                          for k in want}})
 
 
 # -- 11. train_lm, with B7's cases inside ------------------------------------
@@ -4491,6 +4971,8 @@ def main():
         return 2
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(sys.argv[2])
+    if sys.argv[1:2] == ["--zero-child"]:
+        return zero_child(sys.argv[2])
     if sys.argv[1:2] == ["--cudnn-probe"]:
         return cudnn_probe_child(sys.argv[2])
     if sys.argv[1:3] == ["--only", "train_validate"]:
@@ -4504,6 +4986,12 @@ def main():
     if sys.argv[1:3] == ["--only", "train_records"]:
         phase_build()
         phase_train_records()
+        return 0
+    if sys.argv[1:3] == ["--only", "data_parallel"]:
+        phase_build()
+        phase_dp_train(None)
+        phase_dp_two_process()
+        phase_zero_full_width()
         return 0
     phase_build()
     rep = phase_kernels()
@@ -4526,6 +5014,7 @@ def main():
     rows += train_rows
     rows += phase_dp_train(first_loss)
     phase_dp_two_process()
+    phase_zero_full_width()
     lm_rows = phase_train_lm()
     rows += lm_rows
     phase_train_validate(step_ms)
