@@ -13,7 +13,10 @@ train TransformerLM, decode over a KV cache, and add validation,
 checkpoints and resume in the reference's file format, then the long-run
 half of training: gradient accumulation, remat, layer-wise scales, EMA and
 LBFGS, the retry loop with supervision, chaos points and preemption,
-asynchronous and remote checkpoints, and summaries (``visualization``).
+asynchronous and remote checkpoints, and summaries (``visualization``);
+then the rest of data parallelism (ZeRO, the bucketed wire), and the
+layer library with the criteria and the recurrent cells, which train the
+PTB LSTM language model.
 
 It imports torch and never jax or bigdl_tpu.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
@@ -21,7 +24,8 @@ device unless the caller passes ``device="cpu"``.
 
 from .common import (DTypePolicy, default_generator, get_policy,
                      resolve_device, set_policy, set_seed)
-from .utils.engine import Engine
+from .utils import RNG, Engine, RandomGenerator, T, Table
 
 __all__ = ["DTypePolicy", "get_policy", "set_policy", "set_seed",
-           "default_generator", "resolve_device", "Engine"]
+           "default_generator", "resolve_device", "Engine", "Table", "T",
+           "RandomGenerator", "RNG"]

@@ -105,27 +105,44 @@ class DistributedDataSet(AbstractDataSet):
     permutation; each data pass yields only this process's stride of it,
     ``order[index::count]``, truncated to ``len // count`` so that every
     process yields the same number of records (a rank that left the epoch
-    early would deadlock the per-step collectives).  The shard is the
-    Engine's ``data_shard_info()`` at each pass.  ``size()`` is the global
-    count."""
+    early would deadlock the per-step collectives).  The shard is
+    (``process_index``, ``process_count``) where given, each in place of
+    its half of the Engine's ``data_shard_info()``, which is read at each
+    pass.  ``size()`` is the global count."""
 
-    def __init__(self, records: Sequence, seed: int = 1):
+    def __init__(self, records: Sequence, seed: int = 1,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
+        self._explicit_shard = (process_index, process_count)
         self._all = list(records)
         self._rng = np.random.default_rng(seed)
         self._perm = np.arange(len(self._all))
+
+    def _shard(self):
+        pi, pc = self._explicit_shard
+        si, sc = Engine.data_shard_info()
+        return (si if pi is None else pi, sc if pc is None else pc)
+
+    @property
+    def process_index(self) -> int:
+        return self._shard()[0]
+
+    @property
+    def process_count(self) -> int:
+        return self._shard()[1]
 
     def size(self) -> int:
         return len(self._all)
 
     def local_size(self) -> int:
-        return len(self._all) // Engine.data_shard_info()[1]
+        return len(self._all) // self._shard()[1]
 
     def shuffle(self) -> None:
         self._rng.shuffle(self._perm)
 
     def data(self, train: bool) -> Iterator:
         order = self._perm if train else np.arange(len(self._all))
-        index, count = Engine.data_shard_info()
+        index, count = self._shard()
         for i in order[index::count][:len(order) // count]:
             yield self._all[i]
 

@@ -68,8 +68,8 @@ class PrefetchIterator:
     def __init__(self, source, depth: Optional[int] = None,
                  transform: Optional[Callable] = None,
                  pre_fire: Optional[Callable[[], None]] = None,
-                 name: str = "bigdl-prefetch", supervisor=None,
-                 phase: str = "data"):
+                 supervisor=None, phase: str = "data",
+                 name: str = "bigdl-prefetch"):
         self._source = iter(source)
         self.depth = prefetch_depth() if depth is None else max(1, int(depth))
         self._transform = transform

@@ -27,10 +27,11 @@ Test::
         --snapshot /models/resnet50.bigdl --data '/data/bdr/val-*'
 
 Models: ``lenet``, ``resnet`` (ResNet-20 on CIFAR-10, shortcut A),
-``resnet50`` and ``transformer``.  The rest of the reference's zoo
-(``vgg``, ``vgg16``, ``vgg19``, ``inception``, ``inception_v2``,
-``alexnet``, ``autoencoder``, ``vit``) raises, naming ``ROADMAP.md``
-queue A item 7, and ``--num-experts`` > 0 item 8.
+``resnet50``, ``transformer`` and ``autoencoder`` (trained with
+``MSECriterion`` to reconstruct its input, with no validation, as in the
+reference).  The rest of the reference's zoo (``vgg``, ``vgg16``,
+``vgg19``, ``inception``, ``inception_v2``, ``alexnet``, ``vit``) raises,
+naming ``ROADMAP.md`` queue A item 7, and ``--num-experts`` > 0 item 8.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ logger = logging.getLogger(__name__)
 
 #: the reference zoo's names that the port has no model for yet
 _NOT_PORTED = ("vgg", "vgg16", "vgg19", "inception", "inception_v2",
-               "alexnet", "autoencoder", "vit")
+               "alexnet", "vit")
 
 
 def _build_model(name: str, class_num: int, num_experts: int = 0):
@@ -65,6 +66,9 @@ def _build_model(name: str, class_num: int, num_experts: int = 0):
         from .resnet import ResNet
         return ResNet(depth=50, class_num=class_num,
                       dataset="imagenet"), (224, 224, 3), "xent"
+    if name == "autoencoder":
+        from .autoencoder import Autoencoder
+        return Autoencoder(32), (28, 28, 1), "mse"
     if name == "transformer":
         from .transformer_lm import TransformerLM
         vocab = max(class_num, 64)
@@ -82,8 +86,7 @@ def build_criterion(crit: str):
     """The criterion of a model's pairing name."""
     from .. import nn
     if crit == "mse":
-        raise NotImplementedError("MSECriterion is not ported: ROADMAP.md "
-                                  "queue A item 7")
+        return nn.MSECriterion()
     if crit == "nll":
         return nn.ClassNLLCriterion()
     if crit == "lm":  # per-token NLL over [B, T, vocab] log-probs
@@ -162,6 +165,13 @@ def train(args):
                                          args.num_experts)
     samples = (_synthetic(input_hw, args.class_num) if args.synthetic
                else _load_samples(args.data, input_hw))
+    if crit == "mse":
+        # the autoencoder reconstructs its input, flattened as the model's
+        # output is (models/autoencoder/Train.scala); the JAX package's CLI
+        # passes the image unflattened, which MSECriterion cannot broadcast
+        from ..dataset import Sample
+        samples = [Sample(s.feature, np.reshape(s.feature, -1))
+                   for s in samples]
     criterion = build_criterion(crit)
     ds = DataSet.array(samples).transform(
         SampleToMiniBatch(args.batch_size, drop_last=True))
@@ -184,7 +194,7 @@ def train(args):
                            is_overwrite=args.overwrite)
     if args.summary_dir:
         opt.set_train_summary(TrainSummary(args.summary_dir, args.app_name))
-    if args.validate or args.synthetic:
+    if crit != "mse" and (args.validate or args.synthetic):
         vsamples = (_synthetic(input_hw, args.class_num, n=128, seed=1)
                     if args.synthetic else
                     _load_samples(args.validate, input_hw))

@@ -1,13 +1,28 @@
-"""Torch-style layer library: the modules the serving and training slices
-use."""
+"""Torch-style layer library: the counterpart of ``bigdl_tpu.nn``.
 
-from .activation import GELU, LogSoftMax, ReLU, Tanh
+Not ported yet (ROADMAP.md queue A item 7): the extra convolutions,
+normalizations and pooling, the convolutional LSTMs, ``Graph``, the tree
+LSTMs and ``Nms``."""
+
+from .activation import (ELU, GELU, HardShrink, HardTanh, LeakyReLU,
+                         LogSigmoid, LogSoftMax, PReLU, ReLU, ReLU6, RReLU,
+                         Sigmoid, SoftMax, SoftMin, SoftPlus, SoftShrink,
+                         SoftSign, Tanh, TanhShrink, Threshold)
 from .attention import MultiHeadAttention
-from .containers import Concat, ConcatTable, Identity, Sequential
+from .containers import (Bottle, Concat, ConcatTable, Echo, Identity,
+                         MapTable, ParallelTable, Sequential)
 from .conv import SpatialConvolution
-from .criterion import (ClassNLLCriterion, Criterion, CrossEntropyCriterion,
-                        TimeDistributedCriterion)
-from .dropout import Dropout, dropout_rng
+from .criterion import (
+    AbsCriterion, BCECriterion, ClassNLLCriterion, ClassSimplexCriterion,
+    CosineDistanceCriterion, CosineEmbeddingCriterion, Criterion,
+    CrossEntropyCriterion, DiceCoefficientCriterion, DistKLDivCriterion,
+    HingeEmbeddingCriterion, L1Cost, L1HingeEmbeddingCriterion, L1Penalty,
+    MarginCriterion, MarginRankingCriterion, MSECriterion, MultiCriterion,
+    MultiLabelMarginCriterion, MultiLabelSoftMarginCriterion,
+    MultiMarginCriterion, ParallelCriterion, SmoothL1Criterion,
+    SmoothL1CriterionWithWeights, SoftMarginCriterion, SoftmaxWithCriterion,
+    TimeDistributedCriterion)
+from .dropout import Dropout, GradientReversal, dropout_rng
 from .embedding import LookupTable
 from .fused import ConvBN, ConvBNAddReLU, fuse_conv_bn
 from .initialization import (BilinearFiller, ConstInitMethod,
@@ -15,24 +30,72 @@ from .initialization import (BilinearFiller, ConstInitMethod,
                              RandomNormal, RandomUniform, Xavier, Zeros,
                              compute_fans, default_bias_init,
                              default_weight_init)
-from .linear import AddConstant, Linear, MulConstant
+from .linear import (Add, AddConstant, Bilinear, CAdd, CMul, Linear, Mul,
+                     MulConstant)
+from .math_ops import (MM, MV, Abs, Clamp, Cosine, CosineDistance,
+                       DotProduct, Euclidean, Exp, Log, Max, Mean, Min,
+                       PairwiseDistance, Power, Scale, Sqrt, Square, Sum)
 from .module import Container, Module, ReferenceModuleFile
 from .normalization import (BatchNormalization, LayerNorm,
                             SpatialBatchNormalization)
 from .pooling import SpatialAveragePooling, SpatialMaxPooling
-from .shape import Reshape
-from .table_ops import CAddTable
+from .recurrent import (GRU, LSTM, BiRecurrent, Cell, LSTMPeephole,
+                        Recurrent, RnnCell, TimeDistributed)
+from .shape import (Contiguous, Index, InferReshape, MaskedSelect, Narrow,
+                    Padding, Replicate, Reshape, Reverse, Select,
+                    SpatialZeroPadding, Squeeze, Transpose, Unsqueeze, View)
+from .table_ops import (CAddTable, CDivTable, CMaxTable, CMinTable,
+                        CMulTable, CSubTable, FlattenTable, JoinTable,
+                        MixtureTable, NarrowTable, Pack, SelectTable,
+                        SplitTable)
 
-__all__ = ["Module", "Container", "ReferenceModuleFile", "Sequential",
-           "Concat", "ConcatTable", "Identity", "CAddTable", "MulConstant",
-           "AddConstant", "LookupTable", "LayerNorm", "BatchNormalization",
-           "SpatialBatchNormalization", "Linear", "SpatialConvolution",
-           "SpatialMaxPooling", "SpatialAveragePooling", "Reshape", "ReLU",
-           "Tanh", "LogSoftMax", "GELU", "MultiHeadAttention", "ConvBN",
-           "ConvBNAddReLU", "fuse_conv_bn", "Criterion",
-           "ClassNLLCriterion", "CrossEntropyCriterion",
-           "TimeDistributedCriterion", "Dropout", "dropout_rng",
-           "InitializationMethod", "Zeros", "Ones", "ConstInitMethod",
-           "RandomUniform", "RandomNormal", "Xavier", "MsraFiller",
-           "BilinearFiller", "compute_fans",
-           "default_weight_init", "default_bias_init"]
+__all__ = [
+    "Module", "Container", "ReferenceModuleFile", "Criterion",
+    # containers
+    "Sequential", "Concat", "ConcatTable", "ParallelTable", "MapTable",
+    "Identity", "Echo", "Bottle",
+    # activations
+    "ReLU", "ReLU6", "PReLU", "RReLU", "LeakyReLU", "ELU", "GELU", "Tanh",
+    "TanhShrink", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftSign",
+    "SoftShrink", "HardShrink", "HardTanh", "Threshold", "LogSoftMax",
+    "LogSigmoid",
+    # dense and elementwise-parameter layers
+    "Linear", "Bilinear", "CMul", "CAdd", "Mul", "Add", "MulConstant",
+    "AddConstant",
+    "SpatialConvolution", "SpatialMaxPooling", "SpatialAveragePooling",
+    "BatchNormalization", "SpatialBatchNormalization", "LayerNorm",
+    "Dropout", "GradientReversal", "dropout_rng", "LookupTable",
+    # shape
+    "Reshape", "InferReshape", "View", "Transpose", "Replicate", "Squeeze",
+    "Unsqueeze", "Select", "Narrow", "Index", "MaskedSelect", "Reverse",
+    "Padding", "SpatialZeroPadding", "Contiguous",
+    # math
+    "Power", "Sqrt", "Square", "Clamp", "Max", "Min", "Mean", "Sum", "Exp",
+    "Log", "Abs", "Scale", "MM", "MV", "Cosine", "Euclidean", "DotProduct",
+    "PairwiseDistance", "CosineDistance",
+    # tables
+    "CAddTable", "CSubTable", "CMulTable", "CDivTable", "CMaxTable",
+    "CMinTable", "JoinTable", "SplitTable", "NarrowTable", "FlattenTable",
+    "SelectTable", "MixtureTable", "Pack",
+    # recurrent
+    "Cell", "RnnCell", "LSTM", "LSTMPeephole", "GRU", "Recurrent",
+    "TimeDistributed", "BiRecurrent",
+    # criteria
+    "AbsCriterion", "BCECriterion", "ClassNLLCriterion",
+    "ClassSimplexCriterion", "CosineDistanceCriterion",
+    "CosineEmbeddingCriterion", "CrossEntropyCriterion",
+    "DiceCoefficientCriterion", "DistKLDivCriterion",
+    "HingeEmbeddingCriterion", "L1Cost", "L1HingeEmbeddingCriterion",
+    "L1Penalty", "MarginCriterion", "MarginRankingCriterion",
+    "MSECriterion", "MultiCriterion", "MultiLabelMarginCriterion",
+    "MultiLabelSoftMarginCriterion", "MultiMarginCriterion",
+    "ParallelCriterion", "SmoothL1Criterion",
+    "SmoothL1CriterionWithWeights", "SoftMarginCriterion",
+    "SoftmaxWithCriterion", "TimeDistributedCriterion",
+    # fused and attention
+    "MultiHeadAttention", "ConvBN", "ConvBNAddReLU", "fuse_conv_bn",
+    # initialization
+    "InitializationMethod", "Zeros", "Ones", "ConstInitMethod",
+    "RandomUniform", "RandomNormal", "Xavier", "MsraFiller",
+    "BilinearFiller", "compute_fans", "default_weight_init",
+    "default_bias_init"]

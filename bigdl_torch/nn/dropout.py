@@ -9,7 +9,9 @@ seeded from ``BIGDL_TORCH_SEED`` and its rank), never from torch's global
 RNG.  The two frameworks draw different bits from one seed, so masks match
 the reference in distribution, not bit for bit.
 
-``GradientReversal`` is not ported yet.
+``GradientReversal`` (nn/GradientReversal.scala) is the identity forward
+and -lambda times the gradient backward, as a ``torch.autograd.Function``
+(the reference's ``jax.custom_vjp``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from .module import Module
 
-__all__ = ["Dropout", "dropout_rng"]
+__all__ = ["Dropout", "GradientReversal", "dropout_rng"]
 
 _rng: contextvars.ContextVar = contextvars.ContextVar("bigdl_dropout_rng",
                                                       default=None)
@@ -37,6 +39,18 @@ def dropout_rng(generator: Optional[torch.Generator]):
         yield generator
     finally:
         _rng.reset(token)
+
+
+def _generator_for(x: torch.Tensor) -> Optional[torch.Generator]:
+    """The generator of the enclosing :func:`dropout_rng` block, or None;
+    one on another device than ``x`` raises."""
+    gen = _rng.get()
+    if gen is not None and gen.device != x.device and not (
+            gen.device.type == x.device.type == "cuda"
+            and gen.device.index in (None, x.device.index)):
+        raise ValueError(f"the generator lives on {gen.device}, the "
+                         f"activations on {x.device}")
+    return gen
 
 
 class Dropout(Module):
@@ -59,15 +73,10 @@ class Dropout(Module):
     def forward(self, x):
         if not self.training or self.p <= 0.0:
             return x
-        gen = _rng.get()
+        gen = _generator_for(x)
         if gen is None:
             raise ValueError("Dropout in training mode needs a generator: "
                              "run the forward inside dropout_rng(generator)")
-        if gen.device != x.device and not (
-                gen.device.type == x.device.type == "cuda"
-                and gen.device.index in (None, x.device.index)):
-            raise ValueError(f"Dropout: the generator lives on {gen.device},"
-                             f" the activations on {x.device}")
         keep = 1.0 - self.p
         mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
         y = torch.where(mask, x, torch.zeros((), dtype=x.dtype,
@@ -75,3 +84,30 @@ class Dropout(Module):
         if self.scale:
             y = y / keep
         return y.to(x.dtype)
+
+
+class _Reverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lam):
+        ctx.lam = lam
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.lam * g, None
+
+
+class GradientReversal(Module):
+    """Identity forward, -lambda x the gradient backward
+    (nn/GradientReversal.scala)."""
+
+    def __init__(self, the_lambda: float = 1.0):
+        super().__init__()
+        self.the_lambda = the_lambda
+
+    def set_lambda(self, lam: float):
+        self.the_lambda = lam
+        return self
+
+    def forward(self, x):
+        return _Reverse.apply(x, self.the_lambda)

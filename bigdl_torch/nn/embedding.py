@@ -17,14 +17,17 @@ __all__ = ["LookupTable"]
 class LookupTable(Module):
     """Embedding lookup: indices -> rows of a (n_index, n_output) weight.
     Indices are 0-based (``one_based=True`` for reference data).  The
-    output is in the parameter dtype, not the compute dtype."""
+    output is in the parameter dtype, not the compute dtype.
+    ``should_scale_grad_by_freq`` is accepted and ignored, as in the
+    reference."""
 
     PARAM_ROLES = {"weight": "embedding_row"}
 
     def __init__(self, n_index: int, n_output: int,
                  padding_value: float = None, max_norm: float = None,
-                 norm_type: float = 2.0, one_based: bool = False,
-                 w_regularizer=None):
+                 norm_type: float = 2.0,
+                 should_scale_grad_by_freq: bool = False,
+                 one_based: bool = False, w_regularizer=None):
         super().__init__()
         self.n_index, self.n_output = n_index, n_output
         self.padding_value = padding_value

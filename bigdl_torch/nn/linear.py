@@ -1,12 +1,15 @@
-"""Dense layers: ``Linear`` (nn/Linear.scala), ``MulConstant`` and
+"""Dense and elementwise-parameter layers: ``Linear`` (nn/Linear.scala),
+``Bilinear``, ``CMul``, ``CAdd``, ``Mul``, ``Add``, ``MulConstant`` and
 ``AddConstant``.
 
-Counterpart of ``bigdl_tpu/nn/linear.py`` for what the serving and
-training slices use.  The product is a plain matrix product left to the
-library, as the reference leaves it to XLA.
+Counterpart of ``bigdl_tpu/nn/linear.py``.  The product is a plain matrix
+product left to the library, as the reference leaves it to XLA.  The
+elementwise layers keep float32 parameters, as the reference does.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -14,7 +17,8 @@ from ..common import get_policy
 from .initialization import compute_fans, default_bias_init, default_weight_init
 from .module import Module
 
-__all__ = ["Linear", "MulConstant", "AddConstant", "matmul_f32"]
+__all__ = ["Linear", "Bilinear", "CMul", "CAdd", "Mul", "Add", "MulConstant",
+           "AddConstant", "matmul_f32"]
 
 
 def _mm_f32(a2: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -102,6 +106,110 @@ class Linear(Module):
         if self.with_bias:
             y = y + self.bias
         return y.to(c)
+
+
+def uniform_f32(generator, shape, stdv):
+    """U(-stdv, stdv) in float32, the elementwise layers' init."""
+    return torch.empty(shape, dtype=torch.float32).uniform_(
+        -stdv, stdv, generator=generator)
+
+
+class Bilinear(Module):
+    """y_k = x1^T W_k x2 + b_k on input [x1, x2] (nn/Bilinear.scala)."""
+
+    PARAM_ROLES = {"weight": "kernel_out", "bias": "bias"}
+
+    def __init__(self, input_size1: int, input_size2: int, output_size: int,
+                 bias_res: bool = True):
+        super().__init__()
+        self.input_size1, self.input_size2 = input_size1, input_size2
+        self.output_size = output_size
+        self.bias_res = bias_res
+
+    def _init(self, generator):
+        stdv = 1.0 / math.sqrt(self.input_size1)
+        p = {"weight": uniform_f32(generator, (self.output_size,
+                                            self.input_size1,
+                                            self.input_size2), stdv)}
+        if self.bias_res:
+            p["bias"] = uniform_f32(generator, (self.output_size,), stdv)
+        return p
+
+    def forward(self, inputs):
+        x1, x2 = inputs[0], inputs[1]
+        dt = torch.promote_types(torch.promote_types(x1.dtype, x2.dtype),
+                                 self.weight.dtype)
+        y = torch.einsum("bi,kij,bj->bk", x1.to(dt), self.weight.to(dt),
+                         x2.to(dt))
+        if self.bias_res:
+            y = y + self.bias
+        return y
+
+
+class CMul(Module):
+    """A learnable ``size``-shaped scale, broadcast over the batch
+    (nn/CMul.scala)."""
+
+    PARAM_ROLES = {"weight": "elementwise"}
+
+    def __init__(self, size):
+        super().__init__()
+        self.size = tuple(size)
+
+    def _init(self, generator):
+        return {"weight": uniform_f32(generator, self.size,
+                                   1.0 / math.sqrt(math.prod(self.size)))}
+
+    def forward(self, x):
+        return x * self.weight
+
+
+class CAdd(Module):
+    """A learnable ``size``-shaped bias (nn/CAdd.scala)."""
+
+    PARAM_ROLES = {"bias": "elementwise"}
+
+    def __init__(self, size):
+        super().__init__()
+        self.size = tuple(size)
+
+    def _init(self, generator):
+        return {"bias": uniform_f32(generator, self.size,
+                                 1.0 / math.sqrt(math.prod(self.size)))}
+
+    def forward(self, x):
+        return x + self.bias
+
+
+class Mul(Module):
+    """One learnable scalar gain (nn/Mul.scala)."""
+
+    PARAM_ROLES = {"weight": "scalar"}
+
+    def _init(self, generator):
+        return {"weight": uniform_f32(generator, (), 1.0)}
+
+    def forward(self, x):
+        # a 0-d parameter promotes x as JAX promotes it (bf16 -> float32)
+        return x.to(torch.promote_types(x.dtype, self.weight.dtype)) * \
+            self.weight
+
+
+class Add(Module):
+    """A learnable bias over the feature axis (nn/Add.scala)."""
+
+    PARAM_ROLES = {"bias": "bias"}
+
+    def __init__(self, input_size: int):
+        super().__init__()
+        self.input_size = input_size
+
+    def _init(self, generator):
+        return {"bias": uniform_f32(generator, (self.input_size,),
+                                 1.0 / math.sqrt(self.input_size))}
+
+    def forward(self, x):
+        return x + self.bias
 
 
 class MulConstant(Module):

@@ -11,7 +11,8 @@ knob between routes (the reference's ``BIGDL_TPU_BN_IMPL``,
 statistics are buffers of the module.  ``affine=False`` (no weight, no
 bias) is left to PyTorch ops, as the reference leaves it to XLA (its
 Pallas route needs ``affine``): float32 mean and E[x²] - mean² over the
-rows, no kernel launch.
+rows, no kernel launch; under a data group of several ranks, over every
+rank's rows (``ops/batchnorm.py`` ``bn_plain_train_sync``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..common import get_policy
-from ..ops.batchnorm import bn_train, bn_train_sync, global_rows
+from ..ops.batchnorm import (bn_plain_train_sync, bn_train, bn_train_sync,
+                             global_rows)
 from ..utils.engine import Engine
 from ..utils import remat
 from .module import Module
@@ -40,9 +42,11 @@ class BatchNormalization(Module):
     training takes sync-BN (``bn_train_sync``: B3, B4 and two all-reduces
     of per-channel sums) and the statistics, and the EMA's row count, are
     the global batch's; without one, the single-device route (B1, B2).
-    With ``affine=False`` training takes :meth:`_plain_train` instead, on
-    any device and under any group (no sync: the reference's XLA route
-    syncs only under ``sync_axis``, which this route refuses).
+    With ``affine=False`` training takes PyTorch ops instead, on any
+    device: :meth:`_plain_train` without a group or in a world of one,
+    else ``bn_plain_train_sync``, whose statistics and EMA row count are
+    every rank's (the reference's data-parallel step is one program over
+    the global batch, so its mean is the global batch's).
     The reference chooses by ``jax.device_count() > 1`` instead
     (``nn/normalization.py:228-235``).  Here the data-parallel path must
     run its kernels and collectives on a single card too (a group of one
@@ -59,9 +63,6 @@ class BatchNormalization(Module):
         if sync_axis not in (None, Engine.DATA_AXIS):
             raise ValueError(f"sync_axis={sync_axis!r}: the port syncs only "
                              f"over the Engine's {Engine.DATA_AXIS!r} group")
-        if not affine and sync_axis is not None:
-            raise NotImplementedError("BatchNormalization(affine=False, "
-                                      "sync_axis=...) is not ported")
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum
@@ -96,13 +97,18 @@ class BatchNormalization(Module):
         return x * inv.to(x.dtype) + (-mean * inv).to(x.dtype)
 
     def forward(self, x):
-        if self.training and not self.affine:
-            return self._plain_train(x)
         if self.training:
             group = Engine.group()
             if group is None and self.sync_axis is not None:
                 raise RuntimeError(f"sync_axis={self.sync_axis!r} needs the "
                                    "Engine's data group: call Engine.init()")
+        if self.training and not self.affine:
+            if group is None or Engine.world() == 1:
+                return self._plain_train(x)
+            y, mean, var, n = bn_plain_train_sync(x, self.eps, group)
+            self._ema_update(mean, var, int(n))
+            return y
+        if self.training:
             if group is None:
                 y, mean, var = bn_train(x.contiguous(), self.weight,
                                         self.bias, self.eps)

@@ -539,6 +539,51 @@ class _BNTrainSync(torch.autograd.Function):
                 None, None)
 
 
+class _BNPlainSync(torch.autograd.Function):
+    """``affine=False`` training over a process group: the reference's
+    ``jnp.mean`` over the global batch (``nn/normalization.py:161-163``),
+    each rank's rows in and out, in PyTorch ops (no kernel, as the
+    reference's XLA route)."""
+
+    @staticmethod
+    def forward(ctx, x, eps, group):
+        C = x.shape[-1]
+        x2 = x.float().reshape(-1, C)
+        # float64 on the wire: the row count stays exact at any size
+        buf = torch.cat([x2.sum(0), x2.square().sum(0),
+                         x2.new_full((1,), x2.shape[0])]).double()
+        buf = Engine.all_reduce(buf, "bn_plain_stats", group)
+        n = buf[-1]
+        mean = (buf[:C] / n).float()
+        var = (buf[C:2 * C] / n).float() - mean.square()
+        inv = torch.rsqrt(var + eps)
+        y = x * inv.to(x.dtype) + (-mean * inv).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        ctx.group, ctx.n = group, float(n)
+        return y, mean, var, n.long()
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dn):
+        x, mean, inv = ctx.saved_tensors
+        C = x.shape[-1]
+        dyf = dy.float().reshape(-1, C)
+        xhat = (x.float().reshape(-1, C) - mean) * inv
+        sdy, sdyx = all_reduce_pair(dyf.sum(0), (dyf * xhat).sum(0),
+                                    "bn_plain_grad_stats", ctx.group)
+        dx = inv * (dyf - sdy / ctx.n - xhat * (sdyx / ctx.n))
+        return dx.reshape(x.shape).to(x.dtype), None, None
+
+
+def bn_plain_train_sync(x, eps: float, group):
+    """Training-mode ``affine=False`` BatchNorm over ``group``:
+    x[..., C] -> (y, mean, var, n), mean and var the biased float32
+    statistics of every rank's rows, n their count (the ranks' row counts
+    may differ).  One all-reduce of (Σx, Σx², rows) forward, one of
+    (Σdy, Σdy·x̂) backward."""
+    return _BNPlainSync.apply(x, eps, group)
+
+
 def bn_train_sync(x, weight, bias, eps: float, group):
     """Training-mode sync-BN over ``group`` (the Engine's data group on the
     training path): (x[..., C], weight[C], bias[C]) -> (y, mean, var),

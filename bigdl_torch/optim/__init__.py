@@ -4,7 +4,8 @@ regularizers, triggers and validation methods."""
 from .fused import FusedLayout, fuse, fused_update, plan, unfuse
 from .method import (EMA, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
                      OptimMethod, RMSprop)
-from .optimizer import (ConfigurationError, DistriValidator, Evaluator,
+from .optimizer import (ConfigurationError, DistriOptimizer,
+                        DistriValidator, Evaluator, LocalOptimizer,
                         LocalValidator, NonFiniteLossError, Optimizer,
                         Predictor, TrainingPreempted, Validator)
 from .regularizer import (L1L2Regularizer, L1Regularizer, L2Regularizer,
@@ -19,7 +20,7 @@ from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss,
                          Top1Accuracy, Top5Accuracy, TreeNNAccuracy,
                          ValidationMethod, ValidationResult)
 
-__all__ = ["Optimizer", "Predictor", "Evaluator", "Validator",
+__all__ = ["Optimizer", "DistriOptimizer", "LocalOptimizer", "Predictor", "Evaluator", "Validator",
            "DistriValidator", "LocalValidator", "NonFiniteLossError",
            "ConfigurationError", "TrainingPreempted", "OptimMethod", "SGD",
            "Adam", "Adagrad", "Adadelta", "Adamax", "RMSprop", "LBFGS",

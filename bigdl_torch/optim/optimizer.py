@@ -191,7 +191,8 @@ from .validation import ValidationMethod
 
 logger = logging.getLogger("bigdl_torch")
 
-__all__ = ["Optimizer", "Predictor", "Evaluator", "Validator",
+__all__ = ["Optimizer", "DistriOptimizer", "LocalOptimizer", "Predictor",
+           "Evaluator", "Validator",
            "DistriValidator", "LocalValidator", "NonFiniteLossError",
            "ConfigurationError", "TrainingPreempted", "HostCopy", "to_host"]
 
@@ -608,18 +609,9 @@ class Optimizer:
 
     def __init__(self, model: Module, dataset, criterion: Criterion,
                  batch_size: Optional[int] = None,
-                 end_trigger: Optional[Trigger] = None, device=None,
-                 strategy: Optional[ShardingStrategy] = None):
-        if Engine.group() is not None:
-            strategy = strategy or DataParallel()
-            if device is None:
-                device = Engine.device()
-            if resolve_device(device) != Engine.device():
-                raise ValueError(f"the Engine's rank runs on "
-                                 f"{Engine.device()}, not on {device}")
-        elif strategy is not None:
-            raise RuntimeError(f"{type(strategy).__name__} needs the "
-                               "Engine's data group: call Engine.init()")
+                 end_trigger: Optional[Trigger] = None,
+                 strategy: Optional[ShardingStrategy] = None, device=None):
+        strategy, device = self._placement(strategy, device)
         self.device = resolve_device(device)
         self.strategy = strategy
         dataset = _as_dataset(dataset)
@@ -684,6 +676,19 @@ class Optimizer:
         self.opt_state_bytes = None
         self._fused_update = False
         self._bucket_mb = 0.0
+
+    def _placement(self, strategy, device):
+        """(strategy, device) under the Engine's group: the strategy
+        defaults to :class:`DataParallel` and the device to the Engine's
+        (another raises); without a group a strategy raises."""
+        return _group_strategy(strategy, device, type(self).__name__)
+
+    def set_strategy(self, strategy: ShardingStrategy):
+        """The sharding strategy of the next :meth:`optimize`
+        (the reference's ``set_strategy``), checked as the constructor
+        checks it."""
+        self.strategy, _ = self._placement(strategy, self.device)
+        return self
 
     @property
     def final_opt_state(self):
@@ -1639,6 +1644,29 @@ class Optimizer:
                 summary.add_histogram(name, to_host(p), state["neval"])
 
 
+class DistriOptimizer(Optimizer):
+    """The reference's name (optim/DistriOptimizer.scala:689): the base
+    :class:`Optimizer` already trains over the Engine's group."""
+
+
+class LocalOptimizer(Optimizer):
+    """Training on one device (optim/LocalOptimizer.scala:41): no
+    sharding strategy, and no Engine group of more than one rank (the
+    BatchNorm statistics would reach for the other ranks)."""
+
+    def _placement(self, strategy, device):
+        if strategy is not None:
+            raise ValueError(f"LocalOptimizer trains on one device; it "
+                             f"takes no {type(strategy).__name__}")
+        if Engine.world() > 1:
+            raise RuntimeError(f"LocalOptimizer trains on one device, the "
+                               f"Engine's group has {Engine.world()} ranks:"
+                               " use Optimizer or DistriOptimizer")
+        if device is None:
+            device = Engine.device()
+        return None, device
+
+
 def _group_strategy(strategy, device, who):
     """Under the Engine's group: the strategy (default
     :class:`DataParallel`) and the device (default the Engine's; another
@@ -1778,8 +1806,8 @@ class Predictor:
         self._engine = _Forward(model, device, strategy)
         self._to_host = HostCopy()
 
-    def predict(self, x) -> np.ndarray:
-        x = _as_dataset(x)
+    def predict(self, dataset) -> np.ndarray:
+        x = _as_dataset(dataset)
         if isinstance(x, AbstractDataSet):
             data = x.transform(SampleToMiniBatch(self.batch_size,
                                                  pad_last=True))
@@ -1794,8 +1822,8 @@ class Predictor:
             outs.append(self._to_host(out[:len(chunk)]))
         return np.concatenate(outs, axis=0)
 
-    def predict_class(self, x) -> np.ndarray:
-        return np.argmax(self.predict(x), axis=-1)
+    def predict_class(self, dataset) -> np.ndarray:
+        return np.argmax(self.predict(dataset), axis=-1)
 
 
 class Validator:

@@ -1,3 +1,9 @@
 """Configuration, the CUDA and host builds, weight and optimizer-state
-carry-over, checkpoint files and their CRC32C, and the Engine's data
-group."""
+carry-over, checkpoint files and their CRC32C, the Engine's data group,
+the Torch-style ``Table`` and the seeded ``RandomGenerator``."""
+
+from .engine import Engine
+from .rng import RNG, RandomGenerator
+from .table import T, Table
+
+__all__ = ["Engine", "Table", "T", "RandomGenerator", "RNG"]

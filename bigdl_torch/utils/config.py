@@ -40,6 +40,7 @@ the kernels always run.
 | BIGDL_TORCH_SUPERVISE_POLICY     | ``raise`` a StallError or hard-``exit``        | raise   |
 | BIGDL_TORCH_FUSED_UPDATE         | the update over one flat tensor per dtype      | 0       |
 | BIGDL_TORCH_WIRE_BUCKET_MB       | gradient bucket cap, MB (0 = per-leaf wire)    | 0       |
+| BIGDL_TORCH_RNN_HOIST_MAX_ELEMENTS | cap on (T, B, gates) elements of the hoisted input projection | 2^28 |
 """
 
 from __future__ import annotations

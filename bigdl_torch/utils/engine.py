@@ -236,6 +236,18 @@ class Engine:
         return cls.rank(), cls.world()
 
     @classmethod
+    def node_number(cls) -> int:
+        """The processes of the data group, 1 without one
+        (Engine.nodeNumber)."""
+        return cls.world()
+
+    @classmethod
+    def core_number(cls) -> int:
+        """The CUDA devices this process sees (Engine.coreNumber); 1, the
+        host, where it sees none."""
+        return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+    @classmethod
     def data_parallel_size(cls) -> int:
         return cls.world()
 

@@ -8,8 +8,9 @@
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
-data_parallel`` the build and phases 9, 10 and 10b, and none of them
-prints the final line.)
+data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``
+and ``--only layers`` the build and phase 16 or 17 alone, and none of
+them prints the final line.)
 
 Phases, each printing one JSON line:
 
@@ -325,6 +326,38 @@ Phases, each printing one JSON line:
    within float32's summation bound of the exact one (its engine named
    from cuDNN's API log in a child process).
 
+16. ``train_ptb``: the repo's ``lstm`` config trained on the card:
+   ``PTBModel(10000, 200, 200, num_layers=2)`` (LookupTable, two
+   ``Recurrent(LSTM)`` layers, ``TimeDistributed(Linear)``, LogSoftMax),
+   weights from the seed, batch 64 x T 35 of seeded random tokens through
+   ``DataSet.array`` -> ``Optimizer``, ``TimeDistributedCriterion(
+   ClassNLLCriterion(), size_average=True)``, ``SGD(0.1)``, float32 with
+   TF32 off, ``PTB_STEPS`` steps.  Every loss finite; a second run from
+   the same seed bit-equal; the first 3 losses within ``PTB_CPU_ATOL`` of
+   the same training on the host; no launch of any of B1 to B8 (the
+   reference computes the LSTM in jnp under ``lax.scan``).  Reports each
+   step's ms, the median after ``PTB_WARMUP`` steps and tokens/s, the
+   peak memory (and its rise over what earlier phases left allocated),
+   and over ``PTB_PROFILE_STEPS`` profiled steps the device's
+   busy ms and idle share, kernel launches and copies a step, the host's
+   ms a step (the window less its CUDA waits) and the most launched
+   kernels.
+17. ``layers``: every class this slice exported from ``bigdl_torch.nn``
+   (activations, math, shape, table and elementwise-parameter layers,
+   containers, ``GradientReversal``, the recurrent cells and wrappers,
+   the criteria), built on the host at a small size from the seed and
+   copied to the card: forward, input gradients and parameter gradients
+   in eval mode (criteria: the loss and its gradients), float32 with TF32
+   off, within ``LAYER_RTOL`` of the host's; the set of classes these
+   cases reach must equal ``SLICE16_CLASSES``, all of them exported.
+   ``RReLU`` in training: slopes inside [lower, upper], one generator
+   state giving the same output twice.  ``SimpleRNN``, ``BiRecurrent(GRU)``
+   and ``Autoencoder(32)`` with ``MSECriterion`` take ``SEQ_STEPS`` steps
+   on the card and on the host, losses within ``SEQ_ATOL``.  The zoo CLI
+   trains (``SEQ_STEPS`` steps) and tests ``--model autoencoder`` from
+   BDRecord shards of seeded 28 x 28 x 1 images written by
+   ``tools/record_generator.py``.  None of B1 to B8 launches.
+
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
 LM run, B8 per warm continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
@@ -342,6 +375,7 @@ without CUDA.
 import collections
 import contextlib
 import copy
+import io
 import json
 import logging
 import math
@@ -4965,6 +4999,669 @@ def phase_train_records(train_rows=()):
     return rows
 
 
+# -- 16. train_ptb ------------------------------------------------------------
+
+#: the repo's ``lstm`` config (bench.py ``_cfg_lstm``)
+PTB = dict(vocab_size=10000, embed_size=200, hidden_size=200, num_layers=2)
+PTB_BATCH = 64
+PTB_T = 35
+PTB_LR = 0.1
+PTB_STEPS = 20
+PTB_WARMUP = 2          # steps left out of the median
+PTB_PROFILE_STEPS = 5
+PTB_CPU_STEPS = 3
+PTB_CPU_ATOL = 1e-3
+#: the host's own CUDA waits in a profile (the rest of a step's wall time
+#: is the host issuing work)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def all_kernel_counts():
+    """Launches of every kernel of the repo, B1 to B8, since the counts
+    were last zeroed."""
+    out = counts()
+    out["flash_attention"], out["flash_attention_bwd"] = flash_counts()
+    out["decode_attention"] = dec_ops.decode_attention.launches
+    return out
+
+
+def zero_all_kernels():
+    zero_counts()
+    zero_flash()
+    dec_ops.decode_attention.launches = 0
+    zero_routes(dec_ops.decode_attention)
+
+
+def ptb_samples(n, seed):
+    """``n`` sequences of ``PTB_T`` seeded random tokens and their next
+    tokens."""
+    toks = np.random.default_rng(seed).integers(
+        0, PTB["vocab_size"], (n, PTB_T + 1)).astype(np.int32)
+    return [Sample(toks[i, :-1], toks[i, 1:]) for i in range(n)]
+
+
+def ptb_model(device):
+    from bigdl_torch.models import PTBModel
+    return PTBModel(**PTB).build(device, torch.Generator().manual_seed(SEED))
+
+
+def ptb_criterion():
+    return nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                       size_average=True)
+
+
+def ptb_train(device, samples, steps, on_step=None):
+    return train(ptb_model(device), samples, steps, PTB_BATCH, device=device,
+                 criterion=ptb_criterion(), method=SGD(PTB_LR),
+                 on_step=on_step)
+
+
+def ptb_profile(samples):
+    """``1 + PTB_PROFILE_STEPS`` steps under ``torch.profiler``; over the
+    last ``PTB_PROFILE_STEPS`` (from step 2's start): the device's busy ms
+    and idle share, kernel launches and memory copies a step (by name),
+    and the host's ms a step (the window less the host's CUDA waits).
+    The profiler's own cost is in the window's wall time (the unprofiled
+    steps' time is ``train_ptb``'s ``median_step_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = PTB_PROFILE_STEPS
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ptb_train("cuda", samples, 1 + n,
+                      on_step=lambda k: _mark(f"chip_smoke.step{k}"))
+            torch.cuda.synchronize()
+            _mark("chip_smoke.end")
+        marks, device, waits = {}, [], []
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                device.append(e)
+            elif e.name.startswith("chip_smoke."):
+                marks.setdefault(e.name[len("chip_smoke."):],
+                                 e.time_range.start)
+            elif e.name in SYNC_CALLS:
+                waits.append(e)
+        lo, hi = marks["step2"], marks["end"]
+    except (RuntimeError, AttributeError, KeyError) as e:
+        return {"profile_error": str(e).splitlines()[0][:200]}
+
+    def inside(e):
+        return lo <= e.time_range.start and e.time_range.end <= hi
+    kernels = [e for e in device if inside(e) and "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    copies = [e for e in device if inside(e) and e not in kernels]
+    wall = (hi - lo) / 1e3
+    busy = _device_ms(device, lo, hi)
+    wait = _device_ms(waits, lo, hi)
+    by_name = collections.Counter(e.name[:80] for e in kernels)
+    return {"profiled_steps": n, "wall_ms_per_step": wall / n,
+            "device_busy_ms_per_step": busy / n,
+            "device_idle_share": 1 - busy / wall,
+            "launches_per_step": len(kernels) / n,
+            "copies_per_step": len(copies) / n,
+            "host_ms_per_step": (wall - wait) / n,
+            "host_wait_ms_per_step": wait / n,
+            "top_kernels_by_count": [
+                {"name": k, "per_step": c / n}
+                for k, c in by_name.most_common(12)],
+            "copies_by_name": {k: c / n for k, c in collections.Counter(
+                e.name[:60] for e in copies).most_common(6)}}
+
+
+def phase_train_ptb():
+    """The ``lstm`` config trained on the card (module docstring, 16)."""
+    set_policy(DTypePolicy())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    samples = ptb_samples(PTB_BATCH * PTB_STEPS, SEED)
+    zero_all_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated, so the peak is the run's own
+    start_bytes = torch.cuda.memory_allocated()
+    marks, host = StepMarks(), {}
+
+    def on_step(n):
+        host[n] = time.perf_counter()
+        marks(n)
+    t0 = time.perf_counter()
+    losses = ptb_train("cuda", samples, PTB_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = all_kernel_counts()
+    check(not any(launched.values()),
+          f"train_ptb launched the repo's kernels: {launched}")
+    check(len(losses) == PTB_STEPS and all(map(math.isfinite, losses)),
+          f"train_ptb losses {losses}")
+    ev = marks.events
+    step_ms = [ev[k].elapsed_time(ev[k + 1]) for k in range(1, PTB_STEPS + 1)]
+    median_ms = float(np.median(step_ms[PTB_WARMUP:]))
+    host_ms = [(host[k + 1] - host[k]) * 1e3 for k in range(1, PTB_STEPS + 1)]
+    again = ptb_train("cuda", samples, PTB_STEPS)
+    check(again == losses, f"train_ptb: two runs from one seed differ: "
+          f"{losses} vs {again}")
+    cpu = ptb_train("cpu", samples, PTB_CPU_STEPS)
+    diff = max(abs(a - b) for a, b in zip(cpu, losses))
+    check(diff <= PTB_CPU_ATOL, f"train_ptb: card {losses[:PTB_CPU_STEPS]} "
+          f"vs CPU {cpu}")
+    prof = ptb_profile(samples)
+    check("profile_error" not in prof, f"train_ptb profile: {prof}")
+    tokens = PTB_BATCH * PTB_T
+    emit({"phase": "train_ptb", "gpu": gpu_line(), "config": dict(
+              PTB, batch=PTB_BATCH, T=PTB_T, lr=PTB_LR, criterion=
+              "TimeDistributedCriterion(ClassNLLCriterion(), "
+              "size_average=True)", precision="float32, TF32 off, bf16 "
+              "gradient wire"),
+          "steps": PTB_STEPS, "losses": losses,
+          "bit_equal_rerun": True, "cpu_losses": cpu,
+          "cpu_max_abs_diff": diff, "step_ms_each": step_ms,
+          "median_step_ms": median_ms,
+          "median_host_step_ms": float(np.median(host_ms[PTB_WARMUP:])),
+          "tokens_per_s": tokens / (median_ms / 1e3),
+          "run_s": run_s, "max_memory_allocated": peak,
+          "peak_bytes_over_start": peak - start_bytes,
+          "launches_of_repo_kernels": launched, "profile": prof})
+
+
+# -- 17. layers ---------------------------------------------------------------
+
+#: every class this slice exported from ``bigdl_torch.nn``
+SLICE16_CLASSES = (
+    "ReLU6", "PReLU", "RReLU", "LeakyReLU", "ELU", "TanhShrink", "Sigmoid",
+    "SoftMax", "SoftMin", "SoftPlus", "SoftSign", "SoftShrink", "HardShrink",
+    "HardTanh", "Threshold", "LogSigmoid",
+    "Power", "Sqrt", "Square", "Clamp", "Max", "Min", "Mean", "Sum", "Exp",
+    "Log", "Abs", "Scale", "MM", "MV", "Cosine", "Euclidean", "DotProduct",
+    "PairwiseDistance", "CosineDistance",
+    "InferReshape", "View", "Transpose", "Replicate", "Squeeze", "Unsqueeze",
+    "Select", "Narrow", "Index", "MaskedSelect", "Reverse", "Padding",
+    "SpatialZeroPadding", "Contiguous",
+    "CSubTable", "CMulTable", "CDivTable", "CMaxTable", "CMinTable",
+    "JoinTable", "SplitTable", "NarrowTable", "FlattenTable", "SelectTable",
+    "MixtureTable", "Pack",
+    "Bilinear", "CMul", "CAdd", "Mul", "Add",
+    "ParallelTable", "MapTable", "Echo", "Bottle", "GradientReversal",
+    "Cell", "RnnCell", "LSTM", "LSTMPeephole", "GRU", "Recurrent",
+    "TimeDistributed", "BiRecurrent",
+    "AbsCriterion", "BCECriterion", "ClassSimplexCriterion",
+    "CosineDistanceCriterion", "CosineEmbeddingCriterion",
+    "DiceCoefficientCriterion", "DistKLDivCriterion",
+    "HingeEmbeddingCriterion", "L1Cost", "L1HingeEmbeddingCriterion",
+    "L1Penalty", "MarginCriterion", "MarginRankingCriterion", "MSECriterion",
+    "MultiCriterion", "MultiLabelMarginCriterion",
+    "MultiLabelSoftMarginCriterion", "MultiMarginCriterion",
+    "ParallelCriterion", "SmoothL1Criterion", "SmoothL1CriterionWithWeights",
+    "SoftMarginCriterion", "SoftmaxWithCriterion")
+#: card against CPU, float32, TF32 off: of the larger of 1 and the CPU's
+#: largest magnitude
+LAYER_RTOL = 1e-4
+SEQ_STEPS = 3
+SEQ_ATOL = 1e-3
+AE_IMAGES = 256
+AE_BATCH = 64
+
+
+def _xn(shape, seed=0, positive=False, scale=1.0):
+    v = np.random.RandomState(seed).standard_normal(shape).astype(
+        np.float32) * scale
+    return np.abs(v) + 0.5 if positive else v
+
+
+def _labels(shape, n, seed=0):
+    return np.random.RandomState(seed).randint(0, n, shape).astype(np.int64)
+
+
+def _signs(shape, seed=0):
+    return np.where(np.random.RandomState(seed).rand(*shape) > 0.5, 1.0,
+                    -1.0).astype(np.float32)
+
+
+def _probs(shape, seed):
+    return (1.0 / (1.0 + np.exp(-_xn(shape, seed)))).astype(np.float32)
+
+
+def _binary(shape, seed):
+    return (np.random.RandomState(seed).rand(*shape) > 0.5).astype(
+        np.float32)
+
+
+def _log_probs(shape, seed):
+    v = _xn(shape, seed)
+    return (v - np.log(np.exp(v).sum(-1, keepdims=True))).astype(np.float32)
+
+
+_W5 = np.linspace(0.5, 2.0, 5).astype(np.float32)
+
+#: name -> (module over ``nn``, its inputs); small sizes, eval mode
+LAYER_CASES = {
+    "ReLU6": (lambda: nn.ReLU6(), lambda: _xn((3, 5), scale=5.0)),
+    "PReLU": (lambda: nn.PReLU(5), lambda: _xn((2, 3, 5))),
+    "RReLU": (lambda: nn.RReLU(0.1, 0.3), lambda: _xn((3, 5))),
+    "LeakyReLU": (lambda: nn.LeakyReLU(0.2), lambda: _xn((3, 5))),
+    "ELU": (lambda: nn.ELU(0.7), lambda: _xn((3, 5))),
+    "TanhShrink": (lambda: nn.TanhShrink(), lambda: _xn((3, 5))),
+    "Sigmoid": (lambda: nn.Sigmoid(), lambda: _xn((3, 5))),
+    "SoftMax": (lambda: nn.SoftMax(), lambda: _xn((3, 5))),
+    "SoftMin": (lambda: nn.SoftMin(), lambda: _xn((3, 5))),
+    "SoftPlus": (lambda: nn.SoftPlus(2.0), lambda: _xn((3, 5))),
+    "SoftSign": (lambda: nn.SoftSign(), lambda: _xn((3, 5))),
+    "SoftShrink": (lambda: nn.SoftShrink(0.5), lambda: _xn((3, 5))),
+    "HardShrink": (lambda: nn.HardShrink(0.5), lambda: _xn((3, 5))),
+    "HardTanh": (lambda: nn.HardTanh(-0.5, 0.8), lambda: _xn((3, 5))),
+    "Threshold": (lambda: nn.Threshold(0.1, -1.0), lambda: _xn((3, 5))),
+    "LogSigmoid": (lambda: nn.LogSigmoid(), lambda: _xn((3, 5))),
+    "Power": (lambda: nn.Power(2.5, 0.5, 1.0),
+              lambda: _xn((3, 5), positive=True)),
+    "Sqrt": (lambda: nn.Sqrt(), lambda: _xn((3, 5), positive=True)),
+    "Square": (lambda: nn.Square(), lambda: _xn((3, 5))),
+    "Clamp": (lambda: nn.Clamp(-0.5, 0.5), lambda: _xn((3, 5))),
+    "Max": (lambda: nn.Max(1), lambda: _xn((3, 5, 2))),
+    "Min": (lambda: nn.Min(-1), lambda: _xn((3, 5))),
+    "Mean": (lambda: nn.Mean(1, squeeze=False), lambda: _xn((3, 5, 2))),
+    "Sum": (lambda: nn.Sum(2, size_average=True), lambda: _xn((3, 5, 4))),
+    "Exp": (lambda: nn.Exp(), lambda: _xn((3, 5))),
+    "Log": (lambda: nn.Log(), lambda: _xn((3, 5), positive=True)),
+    "Abs": (lambda: nn.Abs(), lambda: _xn((3, 5))),
+    "Scale": (lambda: nn.Scale((5,)), lambda: _xn((3, 5))),
+    "MM": (lambda: nn.MM(trans_b=True),
+           lambda: [_xn((2, 3, 4)), _xn((2, 5, 4), 1)]),
+    "MV": (lambda: nn.MV(), lambda: [_xn((2, 3, 4)), _xn((2, 4), 1)]),
+    "Cosine": (lambda: nn.Cosine(4, 3), lambda: _xn((2, 4))),
+    "Euclidean": (lambda: nn.Euclidean(4, 3), lambda: _xn((2, 4))),
+    "DotProduct": (lambda: nn.DotProduct(),
+                   lambda: [_xn((3, 4)), _xn((3, 4), 1)]),
+    "PairwiseDistance": (lambda: nn.PairwiseDistance(2),
+                         lambda: [_xn((3, 4)), _xn((3, 4), 1)]),
+    "CosineDistance": (lambda: nn.CosineDistance(),
+                       lambda: [_xn((3, 4)), _xn((3, 4), 1)]),
+    "InferReshape": (lambda: nn.InferReshape((0, -1)),
+                     lambda: _xn((2, 3, 4))),
+    "View": (lambda: nn.View(-1, 4), lambda: _xn((2, 3, 4))),
+    "Transpose": (lambda: nn.Transpose([(1, 2), (0, 1)]),
+                  lambda: _xn((2, 3, 4))),
+    "Replicate": (lambda: nn.Replicate(3, 1), lambda: _xn((2, 4))),
+    "Squeeze": (lambda: nn.Squeeze(1), lambda: _xn((2, 1, 4))),
+    "Unsqueeze": (lambda: nn.Unsqueeze(1), lambda: _xn((2, 4))),
+    "Select": (lambda: nn.Select(1, -1), lambda: _xn((2, 3, 4))),
+    "Narrow": (lambda: nn.Narrow(1, 1, -2), lambda: _xn((2, 5, 4))),
+    "Index": (lambda: nn.Index(1),
+              lambda: [_xn((2, 5, 3)), np.array([4, 0, 4], np.int64)]),
+    "MaskedSelect": (lambda: nn.MaskedSelect(),
+                     lambda: [_xn((3, 4)), (_xn((3, 4), 7) > 0)]),
+    "Reverse": (lambda: nn.Reverse(1), lambda: _xn((2, 3, 4))),
+    "Padding": (lambda: nn.Padding(1, -2, value=0.5),
+                lambda: _xn((2, 3, 4))),
+    "SpatialZeroPadding": (lambda: nn.SpatialZeroPadding(1, 2, 0, 1),
+                           lambda: _xn((2, 3, 4, 2))),
+    "Contiguous": (lambda: nn.Sequential().add(nn.Transpose([(0, 1)]))
+                   .add(nn.Contiguous()), lambda: _xn((2, 3))),
+    "CSubTable": (lambda: nn.CSubTable(),
+                  lambda: [_xn((3, 4)), _xn((3, 4), 1)]),
+    "CMulTable": (lambda: nn.CMulTable(),
+                  lambda: [_xn((3, 4)), _xn((3, 4), 1), _xn((3, 4), 2)]),
+    "CDivTable": (lambda: nn.CDivTable(),
+                  lambda: [_xn((3, 4)), _xn((3, 4), 1, positive=True)]),
+    "CMaxTable": (lambda: nn.CMaxTable(),
+                  lambda: [_xn((3, 4)), _xn((3, 4), 1), _xn((3, 4), 2)]),
+    "CMinTable": (lambda: nn.CMinTable(),
+                  lambda: [_xn((3, 4)), _xn((3, 4), 1)]),
+    "JoinTable": (lambda: nn.JoinTable(1),
+                  lambda: [_xn((2, 3)), _xn((2, 4), 1)]),
+    "SplitTable": (lambda: nn.SplitTable(1), lambda: _xn((2, 3, 4))),
+    "NarrowTable": (lambda: nn.NarrowTable(0, -2),
+                    lambda: [_xn((2, 3)), _xn((2, 3), 1), _xn((2, 3), 2)]),
+    "FlattenTable": (lambda: nn.FlattenTable(),
+                     lambda: [_xn((3, 4)), [_xn((3, 4), 1),
+                                            [_xn((2, 2), 2)]]]),
+    "SelectTable": (lambda: nn.SelectTable(2),
+                    lambda: [_xn((2, 3)), _xn((2, 4), 1), _xn((2, 5), 2)]),
+    "MixtureTable": (lambda: nn.MixtureTable(),
+                     lambda: [_probs((2, 3), 3),
+                              [_xn((2, 4), 10 + i) for i in range(3)]]),
+    "Pack": (lambda: nn.Pack(1),
+             lambda: [_xn((2, 3)), _xn((2, 3), 1), _xn((2, 3), 2)]),
+    "Bilinear": (lambda: nn.Bilinear(3, 4, 2),
+                 lambda: [_xn((2, 3)), _xn((2, 4), 1)]),
+    "CMul": (lambda: nn.CMul((1, 5)), lambda: _xn((3, 5))),
+    "CAdd": (lambda: nn.CAdd((5,)), lambda: _xn((3, 5))),
+    "Mul": (lambda: nn.Mul(), lambda: _xn((3, 5))),
+    "Add": (lambda: nn.Add(5), lambda: _xn((3, 5))),
+    "ParallelTable": (lambda: nn.ParallelTable().add(nn.Linear(4, 3))
+                      .add(nn.Sigmoid()),
+                      lambda: [_xn((2, 4)), _xn((2, 3), 1)]),
+    "MapTable": (lambda: nn.MapTable(nn.Linear(4, 3)),
+                 lambda: [_xn((2, 4)), _xn((2, 4), 1)]),
+    "Echo": (lambda: nn.Echo(), lambda: _xn((3, 5))),
+    "Bottle": (lambda: nn.Bottle(nn.Linear(4, 3), 2),
+               lambda: _xn((2, 3, 4))),
+    "GradientReversal": (lambda: nn.GradientReversal(0.7),
+                         lambda: _xn((3, 5))),
+    "RnnCell": (lambda: nn.Recurrent(nn.RnnCell(5, 6)),
+                lambda: _xn((3, 4, 5))),
+    "LSTM": (lambda: nn.Recurrent(nn.LSTM(5, 6)), lambda: _xn((3, 4, 5))),
+    "LSTMPeephole": (lambda: nn.Recurrent(nn.LSTMPeephole(5, 6)),
+                     lambda: _xn((3, 4, 5))),
+    "GRU": (lambda: nn.GRU(5, 6), lambda: _xn((3, 5))),
+    "TimeDistributed": (lambda: nn.TimeDistributed(nn.Linear(5, 3)),
+                        lambda: _xn((2, 4, 5))),
+    "BiRecurrent": (lambda: nn.BiRecurrent(nn.GRU(5, 6), "concat"),
+                    lambda: _xn((2, 4, 5))),
+}
+
+#: name -> (criterion over ``nn``, output, target)
+CRITERION_CASES = {
+    "AbsCriterion": (lambda: nn.AbsCriterion(), lambda: _xn((4, 5)),
+                     lambda: _xn((4, 5), 1)),
+    "BCECriterion": (lambda: nn.BCECriterion(_W5),
+                     lambda: _probs((4, 5), 0), lambda: _binary((4, 5), 1)),
+    "ClassSimplexCriterion": (lambda: nn.ClassSimplexCriterion(5),
+                              lambda: _xn((4, 5)),
+                              lambda: _labels((4,), 5, 1)),
+    "CosineDistanceCriterion": (lambda: nn.CosineDistanceCriterion(),
+                                lambda: _xn((4, 5)),
+                                lambda: _xn((4, 5), 1)),
+    "CosineEmbeddingCriterion": (
+        lambda: nn.CosineEmbeddingCriterion(0.1),
+        lambda: [_xn((4, 5)), _xn((4, 5), 1)], lambda: _signs((4,), 2)),
+    "DiceCoefficientCriterion": (
+        lambda: nn.DiceCoefficientCriterion(epsilon=0.5),
+        lambda: _probs((4, 3, 2), 0), lambda: _binary((4, 3, 2), 1)),
+    "DistKLDivCriterion": (lambda: nn.DistKLDivCriterion(),
+                           lambda: _log_probs((4, 5), 0),
+                           lambda: np.exp(_log_probs((4, 5), 1))),
+    "HingeEmbeddingCriterion": (lambda: nn.HingeEmbeddingCriterion(0.5),
+                                lambda: _xn((4, 5)),
+                                lambda: _signs((4, 5), 1)),
+    "L1Cost": (lambda: nn.L1Cost(), lambda: _xn((4, 5)),
+               lambda: _xn((4, 5), 1)),
+    "L1HingeEmbeddingCriterion": (
+        lambda: nn.L1HingeEmbeddingCriterion(4.0),
+        lambda: [_xn((4, 5)), _xn((4, 5), 1)], lambda: _signs((4,), 2)),
+    "L1Penalty": (lambda: nn.L1Penalty(0.3, True), lambda: _xn((4, 5)),
+                  lambda: _xn((4, 5), 1)),
+    "MarginCriterion": (lambda: nn.MarginCriterion(1.0, squared=True),
+                        lambda: _xn((4, 5)), lambda: _signs((4, 5), 1)),
+    "MarginRankingCriterion": (lambda: nn.MarginRankingCriterion(0.5),
+                               lambda: [_xn((6,)), _xn((6,), 1)],
+                               lambda: _signs((6,), 2)),
+    "MSECriterion": (lambda: nn.MSECriterion(), lambda: _xn((4, 5)),
+                     lambda: _xn((4, 5), 1)),
+    "MultiCriterion": (lambda: nn.MultiCriterion()
+                       .add(nn.MSECriterion(), 0.5)
+                       .add(nn.AbsCriterion(), 2.0),
+                       lambda: _xn((4, 5)), lambda: _xn((4, 5), 1)),
+    "MultiLabelMarginCriterion": (
+        lambda: nn.MultiLabelMarginCriterion(),
+        lambda: _xn((4, 5)),
+        lambda: np.array([[3, 0, -1], [1, -1, -1], [4, 2, 1],
+                          [-1, -1, -1]], np.int64)),
+    "MultiLabelSoftMarginCriterion": (
+        lambda: nn.MultiLabelSoftMarginCriterion(_W5),
+        lambda: _xn((4, 5)), lambda: _binary((4, 5), 1)),
+    "MultiMarginCriterion": (lambda: nn.MultiMarginCriterion(2, _W5, 0.7),
+                             lambda: _xn((4, 5)),
+                             lambda: _labels((4,), 5, 1)),
+    "ParallelCriterion": (lambda: nn.ParallelCriterion()
+                          .add(nn.MSECriterion())
+                          .add(nn.ClassNLLCriterion(), 0.5),
+                          lambda: [_xn((4, 5)), _log_probs((4, 3), 1)],
+                          lambda: [_xn((4, 5), 2), _labels((4,), 3, 3)]),
+    "SmoothL1Criterion": (lambda: nn.SmoothL1Criterion(),
+                          lambda: _xn((4, 5), scale=2.0),
+                          lambda: _xn((4, 5), 1)),
+    "SmoothL1CriterionWithWeights": (
+        lambda: nn.SmoothL1CriterionWithWeights(2.0, 3),
+        lambda: _xn((4, 5), scale=2.0),
+        lambda: [_xn((4, 5), 1), _binary((4, 5), 2),
+                 _xn((4, 5), 3, positive=True)]),
+    "SoftMarginCriterion": (lambda: nn.SoftMarginCriterion(),
+                            lambda: _xn((4, 5)), lambda: _signs((4, 5), 1)),
+    "SoftmaxWithCriterion": (lambda: nn.SoftmaxWithCriterion(1),
+                             lambda: _xn((2, 3, 3, 4)),
+                             lambda: _labels((2, 3, 3), 4, 1)),
+    "TimeDistributedCriterion": (
+        lambda: nn.TimeDistributedCriterion(nn.MSECriterion(), True),
+        lambda: _xn((3, 4, 5)), lambda: _xn((3, 4, 5), 1)),
+}
+
+
+def _flat(t):
+    if isinstance(t, (list, tuple)):
+        return [v for e in t for v in _flat(e)]
+    return [t]
+
+
+def _unflat(like, leaves):
+    it = iter(leaves)
+
+    def rec(t):
+        if isinstance(t, (list, tuple)):
+            return [rec(e) for e in t]
+        return next(it)
+    return rec(like)
+
+
+def _slice_classes(objs):
+    """The slice's classes among the classes (and their bases) of
+    ``objs``."""
+    names = set()
+    for o in objs:
+        for cls in type(o).__mro__:
+            if cls.__name__ in SLICE16_CLASSES and \
+                    getattr(nn, cls.__name__, None) is cls:
+                names.add(cls.__name__)
+    return names
+
+
+def _criteria(c):
+    yield c
+    for inner in getattr(c, "criterions", ()):
+        yield from _criteria(inner)
+    if hasattr(c, "critrn"):
+        yield from _criteria(c.critrn)
+
+
+def _err(card, cpu):
+    card = card.detach().float().cpu()
+    cpu = cpu.detach().float()
+    if tuple(card.shape) != tuple(cpu.shape):
+        return math.inf
+    if not cpu.numel():
+        return 0.0
+    scale = max(1.0, float(cpu.abs().max()))
+    return float((card - cpu).abs().max()) / scale
+
+
+def _run_module(m, inputs, device, cts):
+    leaves = [torch.as_tensor(np.array(a)).to(device) for a in
+              _flat(inputs)]
+    for t in leaves:
+        if t.is_floating_point():
+            t.requires_grad_()
+    out = m(_unflat(inputs, leaves))
+    outs = _flat(out)
+    pairs = [(o, torch.from_numpy(c).to(device)) for o, c in zip(outs, cts)
+             if o.requires_grad]
+    if pairs:
+        torch.autograd.backward([o for o, _ in pairs], [c for _, c in pairs])
+    grads = [t.grad if t.grad is not None else torch.zeros_like(t)
+             for t in leaves if t.is_floating_point()]
+    pgrads = [p.grad if p.grad is not None else torch.zeros_like(p)
+              for p in m.parameters()]
+    return outs, grads, pgrads
+
+
+def layer_card_vs_cpu(name, make, inputs):
+    """The module built on the host, a copy on the card: forward, input
+    gradients and parameter gradients in eval mode; the largest error
+    relative to the larger of 1 and the CPU's largest magnitude."""
+    cpu_m = make().build("cpu", torch.Generator().manual_seed(SEED)).eval()
+    card_m = copy.deepcopy(cpu_m).to("cuda")
+    x = inputs()
+    rs = np.random.RandomState(SEED + 101)
+    with contextlib.redirect_stdout(io.StringIO()):   # Echo prints
+        cpu_out = cpu_m(_unflat(x, [torch.as_tensor(np.array(a))
+                                    for a in _flat(x)]))
+        cts = [rs.standard_normal(tuple(o.shape)).astype(np.float32)
+               for o in _flat(cpu_out)]
+        cpu_res = _run_module(cpu_m, x, "cpu", cts)
+        card_res = _run_module(card_m, x, "cuda", cts)
+    errs = [_err(a, b) for part_a, part_b in zip(card_res, cpu_res)
+            for a, b in zip(part_a, part_b)]
+    check(len(card_res[2]) == len(cpu_res[2]),
+          f"layers {name}: parameter counts differ")
+    return max(errs, default=0.0), _slice_classes(card_m.modules())
+
+
+def criterion_card_vs_cpu(name, make, output, target):
+    out, tgt = output(), target()
+    errs, crit = [], None
+    res = {}
+    for device in ("cpu", "cuda"):
+        crit = make()
+        outs = [torch.as_tensor(np.array(o)).to(device).requires_grad_()
+                for o in _flat(out)]
+        tl = _unflat(tgt, [torch.as_tensor(np.array(t)).to(device)
+                           for t in _flat(tgt)])
+        loss = crit(_unflat(out, outs), tl)
+        loss.backward()
+        res[device] = [loss] + [o.grad for o in outs]
+    errs = [_err(a, b) for a, b in zip(res["cuda"], res["cpu"])]
+    return max(errs), _slice_classes(_criteria(crit))
+
+
+def rrelu_training_card():
+    """RReLU in training on the card: slopes in [lower, upper], the same
+    output twice from one generator state."""
+    m = nn.RReLU(0.1, 0.3).build("cuda").train()
+    x = torch.from_numpy(_xn((256, 64))).cuda()
+    outs = []
+    for _ in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with nn.dropout_rng(gen):
+            outs.append(m(x))
+    neg = x < 0
+    slopes = outs[0][neg] / x[neg]
+    lo, hi = float(slopes.min()), float(slopes.max())
+    check(torch.equal(outs[0], outs[1]) and lo >= 0.1 - 1e-6 and
+          hi <= 0.3 + 1e-6 and torch.equal(outs[0][~neg], x[~neg]),
+          f"RReLU training on the card: slopes [{lo}, {hi}]")
+    return {"slope_min": lo, "slope_max": hi, "bit_equal_repeat": True}
+
+
+def seq_model_steps():
+    """SimpleRNN, BiRecurrent(GRU) and Autoencoder(32) with MSECriterion:
+    ``SEQ_STEPS`` steps on the card and on the host from one seed, the
+    losses finite and within ``SEQ_ATOL``."""
+    from bigdl_torch.models import Autoencoder, SimpleRNN
+    V, T, B = 16, 12, 8
+    rs = np.random.default_rng(SEED + 16)
+    toks = rs.integers(0, V, (B * SEQ_STEPS, T + 1))
+    onehot = np.eye(V, dtype=np.float32)[toks[:, :-1]]
+    seq = [Sample(onehot[i], toks[i, 1:].astype(np.int32))
+           for i in range(len(toks))]
+    imgs = rs.random((B * SEQ_STEPS, 28, 28, 1), dtype=np.float32)
+    ae = [Sample(imgs[i], imgs[i].reshape(-1)) for i in range(len(imgs))]
+    per_step = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(), True)
+    models = {
+        "SimpleRNN": (lambda: SimpleRNN(V, 32, V), seq, per_step),
+        "BiRecurrent_GRU": (
+            lambda: nn.Sequential().add(nn.BiRecurrent(nn.GRU(V, 24),
+                                                       "concat"))
+            .add(nn.TimeDistributed(nn.Linear(48, V))), seq, per_step),
+        "Autoencoder": (lambda: Autoencoder(32), ae, nn.MSECriterion()),
+    }
+    out = {}
+    for name, (make, samples, crit) in models.items():
+        losses = {}
+        for device in ("cuda", "cpu"):
+            model = make().build(device, torch.Generator().manual_seed(SEED))
+            losses[device] = train(model, samples, SEQ_STEPS, B,
+                                   device=device, criterion=crit,
+                                   method=SGD(0.5))
+        card, cpu = losses["cuda"], losses["cpu"]
+        diff = max(abs(a - b) for a, b in zip(card, cpu))
+        check(all(map(math.isfinite, card)) and diff <= SEQ_ATOL,
+              f"{name} on the card {card} vs the host {cpu}")
+        out[name] = {"card": card, "cpu": cpu, "max_abs_diff": diff}
+    return out
+
+
+def ae_cli(root):
+    """The zoo CLI trains and tests ``--model autoencoder`` from BDRecord
+    shards of seeded 28 x 28 x 1 images written by
+    ``tools/record_generator.py``."""
+    folder = os.path.join(root, "mnist_like")
+    rs = np.random.default_rng(SEED + 28)
+    imgs = rs.integers(0, 256, (AE_IMAGES, 28, 28, 1), dtype=np.uint8)
+    for c in range(REC_CLASSES):
+        os.makedirs(os.path.join(folder, f"class_{c:02d}"), exist_ok=True)
+    for i in range(AE_IMAGES):
+        np.save(os.path.join(folder, f"class_{i % REC_CLASSES:02d}",
+                             f"img_{i:05d}.npy"), imgs[i])
+    etl_row, pattern = etl(folder, os.path.join(root, "ae", "train"))
+    saved = os.path.join(root, "ae.bigdl")
+    set_policy(DTypePolicy())
+    zero_all_kernels()
+    t0 = time.perf_counter()
+    opt = zoo_run.main(["train", "--model", "autoencoder", "--data", pattern,
+                        "--batch-size", str(AE_BATCH), "--max-iteration",
+                        str(SEQ_STEPS), "--model-save", saved])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    results = zoo_run.main(["test", "--model", "autoencoder", "--snapshot",
+                            saved, "--data", pattern, "--batch-size",
+                            str(AE_BATCH)])
+    logging.getLogger().setLevel(logging.WARNING)
+    loss = opt.optim_method.hyper["loss"]
+    got = [(r.correct, r.count) for _, r in results]
+    check(isinstance(opt.criterion, nn.MSECriterion) and math.isfinite(loss)
+          and opt.optim_method.hyper["neval"] == SEQ_STEPS + 1
+          and got[0][1] == AE_IMAGES and
+          next(opt.model.parameters()).is_cuda,
+          f"CLI autoencoder: loss {loss}, test {got}")
+    launched = all_kernel_counts()
+    check(not any(launched.values()), f"CLI autoencoder launched {launched}")
+    return {"etl": etl_row, "steps": SEQ_STEPS, "loss": loss,
+            "train_s": train_s, "top1_top5": got,
+            "model_file_bytes": os.path.getsize(saved)}
+
+
+def phase_layers():
+    """Every class this slice exported, card against host (module
+    docstring, 17)."""
+    set_policy(DTypePolicy())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checked, worst = set(), {}
+    zero_all_kernels()
+    for name, (make, inputs) in LAYER_CASES.items():
+        err, names = layer_card_vs_cpu(name, make, inputs)
+        check(err <= LAYER_RTOL, f"layers {name}: card vs host {err}")
+        worst[name], checked = err, checked | names
+    for name, (make, output, target) in CRITERION_CASES.items():
+        err, names = criterion_card_vs_cpu(name, make, output, target)
+        check(err <= LAYER_RTOL, f"layers {name}: card vs host {err}")
+        worst[name], checked = err, checked | names
+    exported = set(SLICE16_CLASSES)
+    check(exported <= set(nn.__all__), f"not exported: "
+          f"{sorted(exported - set(nn.__all__))}")
+    check(checked == exported, f"layers checked {sorted(checked ^ exported)}"
+          " unlike the slice's exports")
+    rrelu = rrelu_training_card()
+    seq = seq_model_steps()
+    launched = all_kernel_counts()
+    check(not any(launched.values()), f"layers launched {launched}")
+    with tempfile.TemporaryDirectory() as root:
+        cli = ae_cli(root)
+    emit({"phase": "layers", "gpu": gpu_line(), "classes": len(checked),
+          "cases": len(worst), "max_rel_err": max(worst.values()),
+          "worst": sorted(worst.items(), key=lambda kv: -kv[1])[:5],
+          "rrelu_training": rrelu, "sequence_models": seq,
+          "cli_autoencoder": cli})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4986,6 +5683,14 @@ def main():
     if sys.argv[1:3] == ["--only", "train_records"]:
         phase_build()
         phase_train_records()
+        return 0
+    if sys.argv[1:3] == ["--only", "train_ptb"]:
+        phase_build()
+        phase_train_ptb()
+        return 0
+    if sys.argv[1:3] == ["--only", "layers"]:
+        phase_build()
+        phase_layers()
         return 0
     if sys.argv[1:3] == ["--only", "data_parallel"]:
         phase_build()
@@ -5020,6 +5725,8 @@ def main():
     phase_train_validate(step_ms)
     rows += phase_train_longrun(lm_rows)
     rows += phase_train_records(train_rows)
+    phase_train_ptb()
+    phase_layers()
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

@@ -357,9 +357,11 @@ def test_nesterov_needs_momentum():
 def test_unported_options_raise():
     """Options of the reference that the port does not port refuse to
     run rather than compute something else (``affine=False`` and SAME
-    padding are ported since slice 14: ``test_torch_port_facade.py``)."""
-    with pytest.raises(NotImplementedError, match="affine"):
-        tnn.SpatialBatchNormalization(4, affine=False, sync_axis="data")
+    padding are ported since slice 14: ``test_torch_port_facade.py``;
+    ``affine=False`` under ``sync_axis="data"`` since slice 16:
+    ``test_torch_port_bn_group.py``)."""
+    bn = tnn.SpatialBatchNormalization(4, affine=False, sync_axis="data")
+    assert bn.sync_axis == "data" and not bn.affine
     # sync-BN over the Engine's 'data' group is ported; other mesh axes
     # are not
     with pytest.raises(ValueError, match="sync_axis"):
