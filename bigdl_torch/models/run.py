@@ -26,12 +26,15 @@ Test::
     python -m bigdl_torch.models.run test --model resnet50 \\
         --snapshot /models/resnet50.bigdl --data '/data/bdr/val-*'
 
-Models: ``lenet``, ``resnet`` (ResNet-20 on CIFAR-10, shortcut A),
-``resnet50``, ``transformer`` and ``autoencoder`` (trained with
-``MSECriterion`` to reconstruct its input, with no validation, as in the
-reference).  The rest of the reference's zoo (``vgg``, ``vgg16``,
-``vgg19``, ``inception``, ``inception_v2``, ``alexnet``, ``vit``) raises,
-naming ``ROADMAP.md`` queue A item 7, and ``--num-experts`` > 0 item 8.
+Models: ``lenet``, ``vgg`` (VggForCifar10, 32 x 32), ``vgg16``,
+``vgg19``, ``resnet`` (ResNet-20 on CIFAR-10, shortcut A), ``resnet50``,
+``inception`` (Inception-v1 without its auxiliary heads), ``inception_v2``
+(BN-Inception without them), ``alexnet`` (227 x 227), ``transformer``,
+and ``autoencoder`` (trained with ``MSECriterion`` to reconstruct its
+input, with no validation, as in the reference); the image models at
+224 x 224 but where named, all with the reference's criteria.  ``vit``
+raises, naming ``ROADMAP.md`` queue A item 7, and ``--num-experts`` > 0
+item 8.
 """
 
 from __future__ import annotations
@@ -44,8 +47,7 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 #: the reference zoo's names that the port has no model for yet
-_NOT_PORTED = ("vgg", "vgg16", "vgg19", "inception", "inception_v2",
-               "alexnet", "vit")
+_NOT_PORTED = ("vit",)
 
 
 def _build_model(name: str, class_num: int, num_experts: int = 0):
@@ -58,6 +60,15 @@ def _build_model(name: str, class_num: int, num_experts: int = 0):
     if name == "lenet":
         from .lenet import LeNet5
         return LeNet5(class_num), (28, 28, 1), "nll"
+    if name == "vgg":
+        from .vgg import VggForCifar10
+        return VggForCifar10(class_num), (32, 32, 3), "nll"
+    if name == "vgg16":
+        from .vgg import Vgg_16
+        return Vgg_16(class_num), (224, 224, 3), "nll"
+    if name == "vgg19":
+        from .vgg import Vgg_19
+        return Vgg_19(class_num), (224, 224, 3), "nll"
     if name == "resnet":
         from .resnet import ResNet
         return ResNet(depth=20, class_num=class_num,
@@ -66,6 +77,17 @@ def _build_model(name: str, class_num: int, num_experts: int = 0):
         from .resnet import ResNet
         return ResNet(depth=50, class_num=class_num,
                       dataset="imagenet"), (224, 224, 3), "xent"
+    if name == "inception":
+        from .inception import Inception_v1_NoAuxClassifier
+        return (Inception_v1_NoAuxClassifier(class_num), (224, 224, 3),
+                "nll")
+    if name == "inception_v2":
+        from .inception import Inception_v2_NoAuxClassifier
+        return (Inception_v2_NoAuxClassifier(class_num), (224, 224, 3),
+                "nll")
+    if name == "alexnet":
+        from .alexnet import AlexNet
+        return AlexNet(class_num), (227, 227, 3), "nll"
     if name == "autoencoder":
         from .autoencoder import Autoencoder
         return Autoencoder(32), (28, 28, 1), "mse"

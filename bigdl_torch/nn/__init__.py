@@ -1,8 +1,5 @@
-"""Torch-style layer library: the counterpart of ``bigdl_tpu.nn``.
-
-Not ported yet (ROADMAP.md queue A item 7): the extra convolutions,
-normalizations and pooling, the convolutional LSTMs, ``Graph``, the tree
-LSTMs and ``Nms``."""
+"""Torch-style layer library: the counterpart of ``bigdl_tpu.nn``, every
+class of which it exports."""
 
 from .activation import (ELU, GELU, HardShrink, HardTanh, LeakyReLU,
                          LogSigmoid, LogSoftMax, PReLU, ReLU, ReLU6, RReLU,
@@ -11,7 +8,10 @@ from .activation import (ELU, GELU, HardShrink, HardTanh, LeakyReLU,
 from .attention import MultiHeadAttention
 from .containers import (Bottle, Concat, ConcatTable, Echo, Identity,
                          MapTable, ParallelTable, Sequential)
-from .conv import SpatialConvolution
+from .conv import (SpatialConvolution, SpatialConvolutionMap,
+                   SpatialDilatedConvolution, SpatialFullConvolution,
+                   SpatialShareConvolution, TemporalConvolution,
+                   VolumetricConvolution)
 from .criterion import (
     AbsCriterion, BCECriterion, ClassNLLCriterion, ClassSimplexCriterion,
     CosineDistanceCriterion, CosineEmbeddingCriterion, Criterion,
@@ -22,9 +22,11 @@ from .criterion import (
     MultiMarginCriterion, ParallelCriterion, SmoothL1Criterion,
     SmoothL1CriterionWithWeights, SoftMarginCriterion, SoftmaxWithCriterion,
     TimeDistributedCriterion)
+from .detection import Nms
 from .dropout import Dropout, GradientReversal, dropout_rng
 from .embedding import LookupTable
 from .fused import ConvBN, ConvBNAddReLU, fuse_conv_bn
+from .graph import Graph, Input, ModuleNode
 from .initialization import (BilinearFiller, ConstInitMethod,
                              InitializationMethod, MsraFiller, Ones,
                              RandomNormal, RandomUniform, Xavier, Zeros,
@@ -36,11 +38,17 @@ from .math_ops import (MM, MV, Abs, Clamp, Cosine, CosineDistance,
                        DotProduct, Euclidean, Exp, Log, Max, Mean, Min,
                        PairwiseDistance, Power, Scale, Sqrt, Square, Sum)
 from .module import Container, Module, ReferenceModuleFile
-from .normalization import (BatchNormalization, LayerNorm,
-                            SpatialBatchNormalization)
-from .pooling import SpatialAveragePooling, SpatialMaxPooling
-from .recurrent import (GRU, LSTM, BiRecurrent, Cell, LSTMPeephole,
-                        Recurrent, RnnCell, TimeDistributed)
+from .normalization import (BatchNormalization, LayerNorm, Normalize,
+                            SpatialBatchNormalization,
+                            SpatialContrastiveNormalization,
+                            SpatialCrossMapLRN, SpatialDivisiveNormalization,
+                            SpatialSubtractiveNormalization,
+                            SpatialWithinChannelLRN)
+from .pooling import (RoiPooling, SpatialAveragePooling, SpatialMaxPooling,
+                      VolumetricMaxPooling)
+from .recurrent import (GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole,
+                        ConvLSTMPeephole3D, LSTMPeephole, Recurrent, RnnCell,
+                        TimeDistributed)
 from .shape import (Contiguous, Index, InferReshape, MaskedSelect, Narrow,
                     Padding, Replicate, Reshape, Reverse, Select,
                     SpatialZeroPadding, Squeeze, Transpose, Unsqueeze, View)
@@ -48,12 +56,13 @@ from .table_ops import (CAddTable, CDivTable, CMaxTable, CMinTable,
                         CMulTable, CSubTable, FlattenTable, JoinTable,
                         MixtureTable, NarrowTable, Pack, SelectTable,
                         SplitTable)
+from .tree import BinaryTreeLSTM, TreeLSTM
 
 __all__ = [
     "Module", "Container", "ReferenceModuleFile", "Criterion",
     # containers
     "Sequential", "Concat", "ConcatTable", "ParallelTable", "MapTable",
-    "Identity", "Echo", "Bottle",
+    "Identity", "Echo", "Bottle", "Graph", "Input", "ModuleNode",
     # activations
     "ReLU", "ReLU6", "PReLU", "RReLU", "LeakyReLU", "ELU", "GELU", "Tanh",
     "TanhShrink", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftSign",
@@ -62,8 +71,16 @@ __all__ = [
     # dense and elementwise-parameter layers
     "Linear", "Bilinear", "CMul", "CAdd", "Mul", "Add", "MulConstant",
     "AddConstant",
-    "SpatialConvolution", "SpatialMaxPooling", "SpatialAveragePooling",
+    # convolutions, pooling, normalizations
+    "SpatialConvolution", "SpatialDilatedConvolution",
+    "SpatialFullConvolution", "TemporalConvolution", "VolumetricConvolution",
+    "SpatialShareConvolution", "SpatialConvolutionMap",
+    "SpatialMaxPooling", "SpatialAveragePooling", "VolumetricMaxPooling",
+    "RoiPooling", "Nms",
     "BatchNormalization", "SpatialBatchNormalization", "LayerNorm",
+    "Normalize", "SpatialCrossMapLRN", "SpatialWithinChannelLRN",
+    "SpatialSubtractiveNormalization", "SpatialDivisiveNormalization",
+    "SpatialContrastiveNormalization",
     "Dropout", "GradientReversal", "dropout_rng", "LookupTable",
     # shape
     "Reshape", "InferReshape", "View", "Transpose", "Replicate", "Squeeze",
@@ -78,8 +95,9 @@ __all__ = [
     "CMinTable", "JoinTable", "SplitTable", "NarrowTable", "FlattenTable",
     "SelectTable", "MixtureTable", "Pack",
     # recurrent
-    "Cell", "RnnCell", "LSTM", "LSTMPeephole", "GRU", "Recurrent",
-    "TimeDistributed", "BiRecurrent",
+    "Cell", "RnnCell", "LSTM", "LSTMPeephole", "GRU", "ConvLSTMPeephole",
+    "ConvLSTMPeephole3D", "Recurrent", "TimeDistributed", "BiRecurrent",
+    "TreeLSTM", "BinaryTreeLSTM",
     # criteria
     "AbsCriterion", "BCECriterion", "ClassNLLCriterion",
     "ClassSimplexCriterion", "CosineDistanceCriterion",

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from ..common import default_generator, resolve_device
+from ..utils.graph import Node
 
 __all__ = ["Module", "Container", "ReferenceModuleFile"]
 
@@ -196,6 +197,16 @@ class Module(torch.nn.Module):
         self.output = None
         self.grad_input = None
         self._facade_rng = None
+
+    def __call__(self, *args, **kwargs):
+        """The forward; called on a graph node or a list of them, the
+        node of this module with those nodes' edges to it (``Graph``'s
+        functional API)."""
+        if args and isinstance(args[0], (Node, list, tuple)):
+            from .graph import _node, is_node_call
+            if is_node_call(args, kwargs):
+                return _node(self, args[0])
+        return super().__call__(*args, **kwargs)
 
     def set_scale_w(self, s: float):
         """Layer-wise weight-gradient scale; a container passes it to its
@@ -371,7 +382,8 @@ class Module(torch.nn.Module):
     def _leaf_names(self):
         """(module, parameter name) in the reference's leaf order."""
         if isinstance(self, Container):
-            return [ln for m in self.layers for ln in m._leaf_names()]
+            return [ln for _, m in self.tree_children()
+                    for ln in m._leaf_names()]
         return [(self, n) for n in sorted(self.param_names)]
 
     def _leaves(self):
@@ -661,9 +673,21 @@ class Container(Module):
     """Base for composite modules (BigDL: nn/Container.scala).  Children
     live in ``layers``; the parameter tree is the list of theirs."""
 
+    #: names of the children's entries where the reference's tree of this
+    #: container is a dict (one per child, in ``layers`` order); None
+    #: where it is the list of the children's trees
+    TREE_KEYS = None
+
     def __init__(self, *modules: Module):
         super().__init__()
         self.layers = torch.nn.ModuleList(modules)
+
+    def tree_children(self):
+        """(key, child) in the order the reference's tree flattens: the
+        list's, or a dict's sorted keys."""
+        if self.TREE_KEYS is None:
+            return list(enumerate(self.layers))
+        return sorted(zip(self.TREE_KEYS, self.layers), key=lambda kv: kv[0])
 
     def add(self, module: Module):
         """BigDL: Container.add (nn/Container.scala:54)."""

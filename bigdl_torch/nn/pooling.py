@@ -1,15 +1,18 @@
-"""Pooling: ``SpatialMaxPooling`` and ``SpatialAveragePooling``
-(nn/SpatialMaxPooling.scala, nn/SpatialAveragePooling.scala).
+"""Pooling: ``SpatialMaxPooling``, ``SpatialAveragePooling``,
+``VolumetricMaxPooling`` and ``RoiPooling`` (nn/SpatialMaxPooling.scala,
+nn/SpatialAveragePooling.scala, nn/VolumetricMaxPooling.scala,
+nn/RoiPooling.scala).
 
-Counterpart of ``bigdl_tpu/nn/pooling.py`` for what the training slice
-uses, over NHWC.  The output size follows Torch's ceil/floor formula
+Counterpart of ``bigdl_tpu/nn/pooling.py``, over NHWC (NDHWC for the
+volumetric one).  The output size follows Torch's ceil/floor formula
 (:func:`_pool_pads`, the reference's own).  Where every window lies inside
 the symmetrically padded input, the library's pooling with that padding
 computes exactly the reference's windows, and runs on a ``channels_last``
 view with no copy.  Otherwise (pad -1 for SAME, or a ceil-mode window that
 overhangs the padding) the input is padded explicitly to the reference's
 (lo, hi) and pooled without padding, which is the reference's own
-construction.
+construction.  ``RoiPooling`` gathers every bin of every region in one
+indexing op and takes each bin's max with ``amax``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch.nn.functional as F
 
 from .module import Module
 
-__all__ = ["SpatialMaxPooling", "SpatialAveragePooling"]
+__all__ = ["SpatialMaxPooling", "SpatialAveragePooling",
+           "VolumetricMaxPooling", "RoiPooling"]
 
 
 def _pool_pads(size, kernel, stride, pad, ceil_mode):
@@ -141,3 +145,79 @@ class SpatialAveragePooling(Module):
         counts = F.avg_pool2d(_explicit_pad(ones, pads, 0.0), kernel, stride,
                               divisor_override=1)
         return _nhwc(summed / counts)
+
+
+class VolumetricMaxPooling(Module):
+    """3-D max pool over NDHWC (nn/VolumetricMaxPooling.scala): the
+    reference's (k_t, k_w, k_h) argument order, the stride the kernel's by
+    default, padding with -inf, no ceil mode."""
+
+    def __init__(self, k_t, k_w, k_h, d_t=None, d_w=None, d_h=None,
+                 pad_t=0, pad_w=0, pad_h=0):
+        super().__init__()
+        self.kernel = (k_t, k_h, k_w)
+        self.stride = (d_t or k_t, d_h or k_h, d_w or k_w)
+        self.pad = (pad_t, pad_h, pad_w)
+
+    def forward(self, x):
+        xc = x.permute(0, 4, 1, 2, 3)
+        pad = self.pad
+        if any(2 * p > k for p, k in zip(pad, self.kernel)):
+            # the library pads at most half a window; -inf is what it pads
+            pt, ph, pw = pad
+            xc = F.pad(xc, (pw, pw, ph, ph, pt, pt), value=-math.inf)
+            pad = (0, 0, 0)
+        y = F.max_pool3d(xc, self.kernel, self.stride, pad)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+class RoiPooling(Module):
+    """Region-of-interest max pooling (nn/RoiPooling.scala).
+
+    Input ``[features (N, H, W, C), rois (R, 5)]``, each roi a row
+    (batch index, x1, y1, x2, y2) in input coordinates; output (R,
+    pooled_h, pooled_w, C).  The corners are scaled by ``spatial_scale``
+    and rounded half to even, the bins' edges floored and ceiled, as in
+    the reference; positions outside the map belong to no bin, and a bin
+    with none gives 0.  Every bin of every roi is gathered in one indexing
+    op over a window as large as the largest bin (the one host read of
+    the forward), positions outside the bin masked to -inf, and reduced
+    by ``amax``, so tied maxima share the gradient as JAX's max does."""
+
+    def __init__(self, pooled_w: int, pooled_h: int,
+                 spatial_scale: float = 1.0):
+        super().__init__()
+        self.pooled_w, self.pooled_h = pooled_w, pooled_h
+        self.spatial_scale = spatial_scale
+
+    def _bins(self, lo, hi, n_bins, size):
+        """(start, valid) of each bin's positions along one axis: the
+        roi's extent [lo, hi] (rounded corners) cut into ``n_bins``."""
+        extent = torch.clamp(hi - lo + 1, min=1).to(torch.float32)
+        width = extent / n_bins
+        i = torch.arange(n_bins, dtype=torch.float32, device=lo.device)
+        start = torch.floor(i * width[:, None]).long() + lo[:, None]
+        end = torch.ceil((i + 1) * width[:, None]).long() + lo[:, None]
+        span = int((end - start).max()) if start.numel() else 0
+        pos = start[..., None] + torch.arange(span, device=lo.device)
+        valid = (pos < end[..., None]) & (pos >= 0) & (pos < size)
+        return pos.clamp(0, size - 1), valid
+
+    def forward(self, inputs):
+        feats, rois = inputs[0], inputs[1]
+        _, H, W, _ = feats.shape
+        b = rois[:, 0].to(torch.int64)
+        x1, y1, x2, y2 = (torch.round(rois[:, k] * self.spatial_scale)
+                          .to(torch.int64) for k in range(1, 5))
+        rows, vrow = self._bins(y1, y2, self.pooled_h, H)  # (R, ph, kh)
+        cols, vcol = self._bins(x1, x2, self.pooled_w, W)  # (R, pw, kw)
+        # (R, ph, kh, pw, kw, C)
+        g = feats[b[:, None, None, None, None], rows[:, :, :, None, None],
+                  cols[:, None, None, :, :]]
+        inside = vrow[:, :, :, None, None] & vcol[:, None, None, :, :]
+        g = torch.where(inside[..., None], g,
+                        torch.full((), -math.inf, dtype=g.dtype,
+                                   device=g.device))
+        out = g.amax(dim=(2, 4))
+        return torch.where(torch.isfinite(out), out,
+                           torch.zeros((), dtype=out.dtype, device=out.device))

@@ -1,14 +1,17 @@
 """Recurrent layers: the dense cells ``RnnCell``, ``LSTM``,
-``LSTMPeephole`` and ``GRU``, and the wrappers ``Recurrent``,
-``TimeDistributed`` and ``BiRecurrent``.
+``LSTMPeephole`` and ``GRU``, the convolutional cells
+``ConvLSTMPeephole`` and ``ConvLSTMPeephole3D``, and the wrappers
+``Recurrent``, ``TimeDistributed`` and ``BiRecurrent``.
 
 Counterpart of ``bigdl_tpu/nn/recurrent.py`` (BigDL ``nn/Cell.scala``,
 ``nn/RNN.scala``, ``nn/LSTM.scala``, ``nn/LSTMPeephole.scala``,
-``nn/GRU.scala``, ``nn/Recurrent.scala``, ``nn/TimeDistributed.scala``,
-``nn/BiRecurrent.scala``).  The param trees are the reference's: LSTM's
-is ``{"kernel": (in + H, 4H), "bias": (4H,)}`` with the gates in the
-order input, forget, cell, output, so ``load_reference_tree`` carries
-weights across unchanged (not cuDNN's layout).
+``nn/GRU.scala``, ``nn/ConvLSTMPeephole.scala``,
+``nn/ConvLSTMPeephole3D.scala``, ``nn/Recurrent.scala``,
+``nn/TimeDistributed.scala``, ``nn/BiRecurrent.scala``).  The param
+trees are the reference's: LSTM's is ``{"kernel": (in + H, 4H), "bias":
+(4H,)}`` with the gates in the order input, forget, cell, output, so
+``load_reference_tree`` carries weights across unchanged (not cuDNN's
+layout).
 
 The computation is the reference's.  ``Recurrent`` hoists the input half
 of every gate projection out of the time loop as one float32-accumulating
@@ -22,8 +25,10 @@ step, drawn from the generator that
 :func:`~bigdl_torch.nn.dropout.dropout_rng` hands the forward; without
 one, as in the reference without a key, no mask is drawn.
 
-``ConvLSTMPeephole`` and ``ConvLSTMPeephole3D`` are not ported yet
-(ROADMAP.md queue A item 7).
+The convolutional cells hoist the input half of their gate convolution
+the same way, as one convolution over all (time, batch) maps, up to the
+same cap on the projection's elements; above it each step convolves its
+own input, as the reference's fallback does.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import copy
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..common import get_policy
 from ..utils import config
@@ -39,7 +45,8 @@ from .dropout import _generator_for
 from .linear import matmul_f32
 from .module import Container, Module
 
-__all__ = ["Cell", "RnnCell", "LSTM", "LSTMPeephole", "GRU", "Recurrent",
+__all__ = ["Cell", "RnnCell", "LSTM", "LSTMPeephole", "GRU",
+           "ConvLSTMPeephole", "ConvLSTMPeephole3D", "Recurrent",
            "TimeDistributed", "BiRecurrent"]
 
 
@@ -107,7 +114,7 @@ class Cell(Module):
         """A bare cell on (batch, features): one step from the zero
         state."""
         out, _ = self.step(x, self.init_hidden(x.shape[0], x.dtype,
-                                               x.device))
+                                               device=x.device))
         return out
 
 
@@ -283,6 +290,114 @@ class GRU(Cell):
         return h_new, h_new
 
 
+class ConvLSTMPeephole(Cell):
+    """Convolutional LSTM with peepholes over NHWC maps
+    (nn/ConvLSTMPeephole.scala).  The ``kernel`` parameter is HWIO over
+    the input and hidden channels concatenated, ``(k, k, in + out,
+    4·out)``, gates in the order input, forget, cell, output; the
+    peepholes are float32 and start at zero.  The convolutions are
+    ``kernel_i`` wide (``kernel_width``; the reference's ``kernel``
+    attribute, which here names the parameter), padded ``kernel_i // 2``,
+    at ``stride``.  Under ``Recurrent`` the state takes the input's
+    spatial shape."""
+
+    PARAM_ROLES = {"kernel": "conv_kernel", "bias": "bias",
+                   "peep_i": "elementwise", "peep_f": "elementwise",
+                   "peep_o": "elementwise"}
+
+    #: spatial rank; ConvLSTMPeephole3D overrides with 3 (NDHWC maps)
+    SPATIAL_NDIM = 2
+
+    def __init__(self, input_size: int, output_size: int, kernel_i: int = 3,
+                 kernel_c: int = 3, stride: int = 1,
+                 with_peephole: bool = True):
+        super().__init__()
+        self.input_size, self.output_size = input_size, output_size
+        self.kernel_width = kernel_i
+        self.stride = stride
+        self.with_peephole = with_peephole
+        self.hidden_size = output_size
+        self._spatial = None  # the maps' spatial shape, bound by the caller
+
+    def _init(self, generator):
+        k, n = self.kernel_width, self.SPATIAL_NDIM
+        cin = self.input_size + self.output_size
+        stdv = 1.0 / math.sqrt((k ** n) * cin)
+        p = {"kernel": _uniform(generator, (k,) * n + (
+                 cin, 4 * self.output_size), stdv),
+             "bias": _uniform(generator, (4 * self.output_size,), stdv)}
+        if self.with_peephole:
+            for name in ("peep_i", "peep_f", "peep_o"):
+                p[name] = torch.zeros((self.output_size,),
+                                      dtype=torch.float32)
+        return p
+
+    def init_hidden(self, batch_size, dtype=torch.float32, spatial=None,
+                    device=None):
+        if spatial is None:
+            spatial = self._spatial
+        z = torch.zeros((batch_size,) + tuple(spatial) + (self.output_size,),
+                        dtype=dtype, device=device)
+        return (z, z)
+
+    def _gate_conv(self, x, kernel):
+        """The channels-last convolution of ``x`` with an HWIO (DHWIO)
+        slice of the kernel, in x's dtype."""
+        n = self.SPATIAL_NDIM
+        conv = F.conv2d if n == 2 else F.conv3d
+        w = kernel.to(x.dtype).permute((n + 1, n) + tuple(range(n)))
+        y = conv(x.permute((0, n + 1) + tuple(range(1, n + 1))), w,
+                 stride=self.stride, padding=self.kernel_width // 2)
+        return y.permute((0,) + tuple(range(2, n + 2)) + (1,))
+
+    def project_inputs(self, xs):
+        # a convolution is linear in its input channels: conv([x, h], K) =
+        # conv(x, Kx) + conv(h, Kh), so the x half of every step is one
+        # convolution over T·B maps, unless the projection would pass the
+        # cap (one step always may)
+        t, b = xs.shape[0], xs.shape[1]
+        elems = t * b * 4 * self.output_size * math.prod(
+            xs.shape[2:2 + self.SPATIAL_NDIM])
+        if t > 1 and elems > config.get_int("RNN_HOIST_MAX_ELEMENTS",
+                                            1 << 28):
+            return None
+        flat = xs.reshape((t * b,) + tuple(xs.shape[2:]))
+        proj = self._gate_conv(flat, self.kernel[..., :self.input_size, :])
+        return proj.reshape((t, b) + tuple(proj.shape[1:]))
+
+    def step_projected(self, xp_t, hidden):
+        h, cst = hidden
+        gates = xp_t + self._gate_conv(
+            h, self.kernel[..., self.input_size:, :]) + self.bias
+        i, f, g, o = gates.chunk(4, dim=-1)
+        cf = cst.float()
+        if self.with_peephole:
+            i = i + self.peep_i * cf
+            f = f + self.peep_f * cf
+        i, f = torch.sigmoid(i), torch.sigmoid(f)
+        g = torch.tanh(g)
+        c_new = f * cf + i * g
+        if self.with_peephole:
+            o = o + self.peep_o * c_new
+        o = torch.sigmoid(o)
+        h_new = (o * torch.tanh(c_new)).to(h.dtype)
+        return h_new, (h_new, c_new.to(h.dtype))
+
+    def forward(self, x):
+        """A bare cell on (batch, *spatial, channels): one step from the
+        zero state."""
+        self._spatial = tuple(x.shape[1:1 + self.SPATIAL_NDIM])
+        return super().forward(x)
+
+
+class ConvLSTMPeephole3D(ConvLSTMPeephole):
+    """Volumetric convolutional LSTM with peepholes over NDHWC maps
+    (nn/ConvLSTMPeephole3D.scala); input (batch, time, D, H, W, C) under
+    ``Recurrent``."""
+
+    SPATIAL_NDIM = 3
+
+
 class Recurrent(Container):
     """A cell unrolled over the time axis of (batch, time, features...)
     input (nn/Recurrent.scala); the output is (batch, time, ...)."""
@@ -311,8 +426,10 @@ class Recurrent(Container):
 
     def forward(self, x):
         cell: Cell = self.layers[0]
+        if isinstance(cell, ConvLSTMPeephole):
+            cell._spatial = tuple(x.shape[2:2 + cell.SPATIAL_NDIM])
         x = self._dropped(x)
-        h = cell.init_hidden(x.shape[0], x.dtype, x.device)
+        h = cell.init_hidden(x.shape[0], x.dtype, device=x.device)
         xs = x.transpose(0, 1)  # time-major
         proj = cell.project_inputs(xs)
         outs = []

@@ -334,7 +334,7 @@ def _param_paths(model):
 
     def walk(m, path):
         if isinstance(m, Container):
-            for i, c in enumerate(m.layers):
+            for i, c in m.tree_children():
                 yield from walk(c, path + [str(i)])
         else:
             for n in sorted(m.param_names):

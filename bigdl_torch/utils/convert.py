@@ -2,9 +2,11 @@
 
 The reference keeps a model's weights and its non-trained state (BatchNorm
 running statistics) as two pytrees: a container's tree is the list of its
-children's trees, a leaf module's tree is a dict of arrays by name (``{}``
-when it has none).  The port's module tree has the same shape
-(``Container.layers`` in order; ``Module.param_names`` and
+children's trees (a dict of them where a model names its parts, as
+``TreeLSTMSentiment`` does), a leaf module's tree is a dict of arrays by
+name (``{}`` when it has none).  The port's module tree has the same shape
+(``Container.layers`` in order, keyed by ``Container.TREE_KEYS`` where
+the reference's is a dict; ``Module.param_names`` and
 ``Module.state_names`` per leaf, the latter registered as buffers), so a
 reference (params, state) pair with numpy leaves copies in leaf by leaf and
 back.  Every shape, name and structure mismatch raises; nothing is
@@ -49,14 +51,25 @@ def _walk(module: Module, tree, path, kind: str, names_of, visit) -> None:
     """Walk a reference tree beside the module tree, raising on any
     structure mismatch; ``visit(module, name, leaf, path)`` at each leaf."""
     if isinstance(module, Container):
-        if not isinstance(tree, (list, tuple)) or \
-                len(tree) != len(module.layers):
+        keys = module.TREE_KEYS
+        if keys is None and (not isinstance(tree, (list, tuple)) or
+                             len(tree) != len(module.layers)):
             raise ValueError(f"{kind} tree at {_where(path)}: expected a "
                              f"list of {len(module.layers)} child trees for "
                              f"{type(module).__name__}, got "
                              f"{type(tree).__name__}")
-        for i, (m, t) in enumerate(zip(module.layers, tree)):
-            _walk(m, t, path + [i], kind, names_of, visit)
+        if keys is not None and kind == "state" and tree == {} and \
+                not _has_state(module):
+            return  # the reference keeps such a model's state as {}
+        if keys is not None and (not isinstance(tree, dict) or
+                                 set(tree) != set(keys)):
+            got = (sorted(tree) if isinstance(tree, dict)
+                   else type(tree).__name__)
+            raise ValueError(f"{kind} tree at {_where(path)}: expected a "
+                             f"dict of child trees {sorted(keys)} for "
+                             f"{type(module).__name__}, got {got}")
+        for k, m in module.tree_children():
+            _walk(m, tree[k], path + [k], kind, names_of, visit)
         return
     names = names_of(module)
     if not isinstance(tree, dict) or set(tree) != set(names):
@@ -67,6 +80,10 @@ def _walk(module: Module, tree, path, kind: str, names_of, visit) -> None:
                          f"{sorted(names)}, got {got}")
     for name in names:
         visit(module, name, tree[name], path + [name])
+
+
+def _has_state(module: Module) -> bool:
+    return any(getattr(m, "state_names", ()) for m in module.modules())
 
 
 def _copy_into(kind):
@@ -124,7 +141,12 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def _dump(module: Module, fetch):
     if isinstance(module, Container):
         trees = [_dump(m, fetch) for m in module.layers]
-        return [p for p, _ in trees], [s for _, s in trees]
+        ps, ss = [p for p, _ in trees], [s for _, s in trees]
+        if module.TREE_KEYS is not None:
+            return (dict(zip(module.TREE_KEYS, ps)),
+                    dict(zip(module.TREE_KEYS, ss)) if _has_state(module)
+                    else {})
+        return ps, ss
     return ({n: fetch(getattr(module, n)) for n in module.param_names},
             {n: fetch(getattr(module, n)) for n in module.state_names})
 
@@ -142,7 +164,10 @@ def _index(model: Module):
 
 def _param_tree(module: Module, leaf):
     if isinstance(module, Container):
-        return [_param_tree(m, leaf) for m in module.layers]
+        trees = [_param_tree(m, leaf) for m in module.layers]
+        if module.TREE_KEYS is not None:
+            return dict(zip(module.TREE_KEYS, trees))
+        return trees
     return {n: leaf(module, n) for n in module.param_names}
 
 
@@ -154,7 +179,7 @@ def _ravel_order(model: Module):
 
     def walk(m):
         if isinstance(m, Container):
-            for c in m.layers:
+            for _, c in m.tree_children():
                 walk(c)
         else:
             out.extend(index[id(getattr(m, n))] for n in sorted(m.param_names))

@@ -118,30 +118,33 @@ class _Conv(torch.autograd.Function):
     ``F.conv2d``, so the gradients are the unremat ones bit for bit."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, groups):
+    def forward(ctx, x, w, stride, padding, groups, dilation):
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, padding, groups)
+        ctx.conf = (stride, padding, groups, dilation)
         with torch.no_grad():
             return conv_out(lambda: F.conv2d(x, w, stride=stride,
-                                             padding=padding, groups=groups))
+                                             padding=padding, groups=groups,
+                                             dilation=dilation))
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        stride, padding, groups = ctx.conf
+        stride, padding, groups, dilation = ctx.conf
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
         gx, gw, _ = torch.ops.aten.convolution_backward(
-            gy, x, w, None, list(stride), list(padding), [1, 1], False,
-            [0, 0], groups, mask)
-        return gx, gw, None, None, None
+            gy, x, w, None, list(stride), list(padding), list(dilation),
+            False, [0, 0], groups, mask)
+        return gx, gw, None, None, None, None
 
 
-def conv2d(x, w, stride, padding, groups):
+def conv2d(x, w, stride, padding, groups, dilation=(1, 1)):
     """F.conv2d, through :class:`_Conv` under the ``"conv_out"`` policy."""
     r = _run.get()
     if r is not None and r.policy == "conv_out":
-        return _Conv.apply(x, w, tuple(stride), tuple(padding), groups)
-    return F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+        return _Conv.apply(x, w, tuple(stride), tuple(padding), groups,
+                           tuple(dilation))
+    return F.conv2d(x, w, stride=stride, padding=padding, groups=groups,
+                    dilation=dilation)
 
 
 def _sac_context(policy):

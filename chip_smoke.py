@@ -8,9 +8,9 @@
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
-data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``
-and ``--only layers`` the build and phase 16 or 17 alone, and none of
-them prints the final line.)
+data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
+``--only layers`` and ``--only train_zoo`` the build and phase 16, 17 or
+18 alone, and none of them prints the final line.)
 
 Phases, each printing one JSON line:
 
@@ -356,7 +356,44 @@ Phases, each printing one JSON line:
    on the card and on the host, losses within ``SEQ_ATOL``.  The zoo CLI
    trains (``SEQ_STEPS`` steps) and tests ``--model autoencoder`` from
    BDRecord shards of seeded 28 x 28 x 1 images written by
-   ``tools/record_generator.py``.  None of B1 to B8 launches.
+   ``tools/record_generator.py``.  Then every class of slice 17 the same
+   way (``LAYER17_CASES``; the classes reached must equal
+   ``SLICE17_CLASSES`` too): the other convolutions
+   (``SpatialFullConvolution`` with ``adj`` = stride among them), the
+   extra normalizations, 3-D pooling, ``RoiPooling`` with tied maxima and
+   empty bins, the conv LSTMs (the 3-D cell under ``Recurrent``), a
+   ``Graph`` with a diamond, ``BinaryTreeLSTM`` on two trees of different
+   shapes and ``Nms`` with tied scores; and ``nms`` on the card under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host read inside its
+   loop), equal to the host's.  None of B1 to B8 launches.
+18. ``train_zoo``: the image and text zoo on the card, each run
+   ``ZOO_STEPS`` steps through ``DataSet.array`` -> ``Optimizer`` on
+   ``ZOO_BATCHES`` seeded batches, weights from the seed; each step's ms
+   from CUDA events and the median after ``ZOO_WARMUP``, images (or
+   samples) a second, the peak memory over what the run found
+   allocated, and a profile of ``ZOO_PROFILE_STEPS`` steps (busy ms,
+   idle share, launches a step).
+   (a) bench.py's ``inception_v1`` config at full width:
+   ``Inception_v1_NoAuxClassifier(1000)``, batch 64 x 224 x 224 x 3,
+   float32, ``ClassNLLCriterion``, ``SGD(0.1)``, under PyTorch's default
+   TF32 settings (cuDNN's convolutions in TF32, cuBLAS's products not;
+   the line says so).  Every loss finite, no launch of B1 to B8; the
+   first ``ZOO_CPU_STEPS`` losses of a leg with TF32 off and Dropout at
+   p = 0 within ``ZOO_CPU_ATOL`` of the same steps on the host.
+   (b) BN-Inception at full width on the training kernels:
+   ``Inception_v2_NoAuxClassifier(1000)`` under ``fuse_conv_bn``, batch
+   64 x 224 x 224 x 3, bf16 compute over float32 params, ``SGD(0.1,
+   momentum=0.9)``.  A warm-up step records every shape the step gives
+   B1, B2, B4 and B5, exactly ``BNINC_STEP_LAUNCHES`` a step (32 B1,
+   32 B2, 37 B4, 37 B5) on ``"vec"`` / ``"tc"`` in ``BNINC_STEP_SHAPES``
+   distinct shapes; ``bn_kernels`` holds each at every such shape (and
+   B1 to B4 at (3136, 352)) to its plain version and times it beside its
+   library call and bound; the timed run launches exactly 20 times the
+   step's counts on the same routes and moves the running statistics.
+   (c) bench.py's ``textcnn`` config at full width: ``TextClassifier(20)``,
+   batch 128 x 500 x 200, float32, ``SGD(0.05)``, default TF32 settings;
+   every loss finite, no launch of B1 to B8, and the first 3 losses of a
+   TF32-off leg within ``ZOO_CPU_ATOL`` of the host's.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -365,7 +402,9 @@ timed training run; each also per route; B1, B2, B4 and B5 per timed
 accumulation run and B6 and B7 per LM remat run of ``train_longrun``,
 with the times ``bn_kernels`` took at the microbatch shapes and
 ``train_lm`` at the LM step's; B1, B2, B4 and B5 per streamed run of
-``train_records`` and B1 and B2 per CLI run, with ``train``'s times), the
+``train_records`` and B1 and B2 per CLI run, with ``train``'s times; B1,
+B2, B4 and B5 per BN-Inception run of ``train_zoo``, with the times
+``bn_kernels`` took at BN-Inception's largest shapes), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -1689,14 +1728,19 @@ def bn_case(kind, shape, dtype, gen, calls=0):
     return case
 
 
-def phase_bn_kernels(seen, kinds, path):
+#: bn_kernels' cases beside a step's shapes, each in float32 and bf16:
+#: ragged ones (B5's (37, 19, 70) on ``"mma_sync"``, the BatchNorms'
+#: (1000, 130) on ``"scalar"``) and wide ones
+BN_EXTRA = {"matmul_stats": [(1000, 64, 64), (37, 19, 70), (300, 130, 2048)],
+            "other": [(1000, 3), (1000, 130), (12544, 2048)]}
+
+
+def phase_bn_kernels(seen, kinds, path, extra=BN_EXTRA):
     """Each of ``kinds`` at every distinct shape the step of ``path`` gave
-    it (bf16), plus float32 and ragged cases; returns, per kernel, the
-    case of its largest call and its device ms per step."""
+    it (bf16), plus the ``extra`` cases in float32 and bf16; returns, per
+    kernel, the case of its largest call and its device ms per step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    extra = {"matmul_stats": [(1000, 64, 64), (37, 19, 70), (300, 130, 2048)],
-             "other": [(1000, 3), (1000, 130), (12544, 2048)]}
     reps = {}
     for kind in kinds:
         shapes = sorted(seen[kind].items())
@@ -1717,8 +1761,8 @@ def phase_bn_kernels(seen, kinds, path):
                       for c in cases}
             check(all(c["route"] == "tc" for c in cases
                       if c["calls_per_step"]), f"B5 step routes {routes}")
-            check(routes[(37, 19, 70), "bfloat16"] == "mma_sync",
-                  f"B5 ragged bf16 route {routes}")
+            check(routes.get(((37, 19, 70), "bfloat16"), "mma_sync")
+                  == "mma_sync", f"B5 ragged bf16 route {routes}")
         else:
             # every step shape on the streaming kernel; a ragged C on the
             # one-element-a-thread one
@@ -1726,8 +1770,8 @@ def phase_bn_kernels(seen, kinds, path):
                       for c in cases}
             check(all(c["route"] == "vec" for c in cases
                       if c["calls_per_step"]), f"{kind} step routes {routes}")
-            check(routes[(1000, 130), "bfloat16"] == "scalar",
-                  f"{kind} ragged bf16 route {routes}")
+            check(routes.get(((1000, 130), "bfloat16"), "scalar")
+                  == "scalar", f"{kind} ragged bf16 route {routes}")
         step = [c for c in cases if c["calls_per_step"]]
         # the step's largest call: the most bytes to move
         reps[kind] = (max(step, key=lambda c: (c["bytes"], c["flops"])),
@@ -5058,19 +5102,24 @@ def ptb_train(device, samples, steps, on_step=None):
 
 
 def ptb_profile(samples):
-    """``1 + PTB_PROFILE_STEPS`` steps under ``torch.profiler``; over the
-    last ``PTB_PROFILE_STEPS`` (from step 2's start): the device's busy ms
-    and idle share, kernel launches and memory copies a step (by name),
-    and the host's ms a step (the window less the host's CUDA waits).
-    The profiler's own cost is in the window's wall time (the unprofiled
-    steps' time is ``train_ptb``'s ``median_step_ms``)."""
+    return window_profile(lambda mark: ptb_train("cuda", samples,
+                                                 1 + PTB_PROFILE_STEPS,
+                                                 on_step=mark),
+                          PTB_PROFILE_STEPS)
+
+
+def window_profile(run, n):
+    """``run(on_step)`` (``1 + n`` steps, ``on_step(k)`` as step k starts)
+    under ``torch.profiler``; over the last ``n`` (from step 2's start):
+    the device's busy ms and idle share, kernel launches and memory copies
+    a step (by name), and the host's ms a step (the window less the
+    host's CUDA waits).  The profiler's own cost is in the window's wall
+    time (the unprofiled steps' time is the phase's ``median_step_ms``)."""
     from torch.profiler import ProfilerActivity, profile
-    n = PTB_PROFILE_STEPS
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            ptb_train("cuda", samples, 1 + n,
-                      on_step=lambda k: _mark(f"chip_smoke.step{k}"))
+            run(lambda k: _mark(f"chip_smoke.step{k}"))
             torch.cuda.synchronize()
             _mark("chip_smoke.end")
         marks, device, waits = {}, [], []
@@ -5193,6 +5242,17 @@ SLICE16_CLASSES = (
     "MultiLabelSoftMarginCriterion", "MultiMarginCriterion",
     "ParallelCriterion", "SmoothL1Criterion", "SmoothL1CriterionWithWeights",
     "SoftMarginCriterion", "SoftmaxWithCriterion")
+#: every class slice 17 exported from ``bigdl_torch.nn`` (with ``Input``
+#: and ``ModuleNode``, which are not modules, through the ``Graph`` case)
+SLICE17_CLASSES = (
+    "SpatialDilatedConvolution", "SpatialFullConvolution",
+    "TemporalConvolution", "VolumetricConvolution", "SpatialShareConvolution",
+    "SpatialConvolutionMap", "Normalize", "SpatialCrossMapLRN",
+    "SpatialWithinChannelLRN", "SpatialSubtractiveNormalization",
+    "SpatialDivisiveNormalization", "SpatialContrastiveNormalization",
+    "VolumetricMaxPooling", "RoiPooling", "ConvLSTMPeephole",
+    "ConvLSTMPeephole3D", "Graph", "Input", "ModuleNode", "TreeLSTM",
+    "BinaryTreeLSTM", "Nms")
 #: card against CPU, float32, TF32 off: of the larger of 1 and the CPU's
 #: largest magnitude
 LAYER_RTOL = 1e-4
@@ -5349,6 +5409,123 @@ LAYER_CASES = {
                     lambda: _xn((2, 4, 5))),
 }
 
+def _tied_rows():
+    """Rows whose largest magnitude appears twice, with both signs."""
+    v = _xn((3, 6), 4)
+    v[:, 1], v[:, 4] = 3.0, -3.0
+    return v
+
+
+def _roi_case():
+    """A map of small integers (tied maxima in most bins) and rois past
+    its edges, one wholly outside (empty bins)."""
+    feats = np.random.RandomState(7).randint(0, 3, (2, 8, 9, 3)).astype(
+        np.float32)
+    rois = np.array([[0, 0, 0, 8, 7], [1, 2.5, 1.5, 6.5, 5],
+                     [1, 5, -3, 12, 4], [0, 20, 20, 30, 25]], np.float32)
+    return [feats, rois]
+
+
+def _diamond_graph():
+    inp = nn.Input()
+    h = nn.Linear(5, 4)(inp)
+    out = nn.CAddTable()([nn.ReLU()(h), nn.Tanh()(h)])
+    return nn.Graph(inp, nn.Linear(4, 3)(out))
+
+
+def _two_trees():
+    """Inputs and two trees of different shapes, padded to 7 nodes."""
+    from bigdl_torch.models import encode_tree
+    c0, l0, _ = encode_tree(((0, 1), 2), 7)
+    c1, l1, _ = encode_tree((0, (1, (2, 3))), 7)
+    return [_xn((2, 4, 5)), np.stack([c0, c1]), np.stack([l0, l1])]
+
+
+def _nms_case():
+    """30 boxes whose scores take five values (ties everywhere)."""
+    rs = np.random.default_rng(SEED)
+    xy = rs.uniform(0, 10, (30, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(1, 5, (30, 2))], 1)
+    scores = np.round(rs.uniform(0, 1, 30) * 4) / 4
+    return [boxes.astype(np.float32), scores.astype(np.float32)]
+
+
+#: slice 17's classes: name -> (module over ``nn``, its inputs)
+LAYER17_CASES = {
+    "SpatialDilatedConvolution": (
+        lambda: nn.SpatialDilatedConvolution(3, 4, 3, 2, 1, 2, 1, 0, 2, 3),
+        lambda: _xn((2, 11, 10, 3))),
+    "SpatialFullConvolution_adj_stride": (
+        lambda: nn.SpatialFullConvolution(4, 6, 4, 3, 2, 2, 2, 1, 2, 2,
+                                          n_group=2),
+        lambda: _xn((2, 4, 5, 4))),
+    "SpatialFullConvolution": (
+        lambda: nn.SpatialFullConvolution(4, 6, 3, 4, 2, 3, 1, 1, 1, 2,
+                                          n_group=2),
+        lambda: _xn((2, 4, 5, 4))),
+    "TemporalConvolution": (lambda: nn.TemporalConvolution(5, 7, 3, 2),
+                            lambda: _xn((2, 11, 5))),
+    "VolumetricConvolution": (
+        lambda: nn.VolumetricConvolution(3, 4, 2, 3, 2, 1, 2, 1, 1, 1, 0),
+        lambda: _xn((2, 5, 6, 7, 3))),
+    "SpatialShareConvolution": (
+        lambda: nn.SpatialShareConvolution(3, 4, 3, 3, 1, 1, 1, 1),
+        lambda: _xn((2, 6, 7, 3))),
+    "SpatialConvolutionMap": (
+        lambda: nn.SpatialConvolutionMap(
+            nn.SpatialConvolutionMap.random(4, 5, 2, 3), 3, 2, 1, 2, 1, 0,
+            n_input_plane=4, n_output_plane=5),
+        lambda: _xn((2, 7, 6, 4))),
+    "Normalize": (lambda: nn.Normalize(2.0), lambda: _xn((3, 5))),
+    "Normalize_inf_ties": (lambda: nn.Normalize(math.inf), _tied_rows),
+    "SpatialCrossMapLRN": (lambda: nn.SpatialCrossMapLRN(5, 0.5, 0.75, 2.0),
+                           lambda: _xn((2, 4, 3, 7))),
+    "SpatialWithinChannelLRN": (
+        lambda: nn.SpatialWithinChannelLRN(4, 1.0, 0.6),
+        lambda: _xn((2, 6, 5, 2))),
+    "SpatialSubtractiveNormalization": (
+        lambda: nn.SpatialSubtractiveNormalization(3, 5),
+        lambda: _xn((2, 7, 6, 3))),
+    "SpatialDivisiveNormalization": (
+        lambda: nn.SpatialDivisiveNormalization(3, 5),
+        lambda: _xn((2, 7, 6, 3))),
+    "SpatialContrastiveNormalization": (
+        lambda: nn.SpatialContrastiveNormalization(3, 4),
+        lambda: _xn((2, 7, 6, 3))),
+    "VolumetricMaxPooling": (
+        lambda: nn.VolumetricMaxPooling(2, 3, 2, 1, 2, 1, 1, 2, 0),
+        lambda: _xn((2, 4, 5, 6, 2))),
+    "RoiPooling_ties": (lambda: nn.RoiPooling(3, 2, 1.0), _roi_case),
+    "ConvLSTMPeephole": (lambda: nn.Recurrent(nn.ConvLSTMPeephole(3, 4)),
+                         lambda: _xn((2, 3, 5, 6, 3))),
+    "ConvLSTMPeephole3D": (
+        lambda: nn.Recurrent(nn.ConvLSTMPeephole3D(2, 3)),
+        lambda: _xn((2, 3, 4, 5, 4, 2))),
+    "Graph_diamond": (_diamond_graph, lambda: _xn((3, 5))),
+    "BinaryTreeLSTM_two_trees": (lambda: nn.BinaryTreeLSTM(5, 6),
+                                 _two_trees),
+    "Nms_ties": (lambda: nn.Nms(0.5, 8), _nms_case),
+}
+
+
+def nms_without_sync():
+    """``nms`` on the card under ``set_sync_debug_mode("error")``: the
+    selection loop reads nothing back to the host (the result's host copy
+    comes after)."""
+    boxes, scores = (torch.from_numpy(a).cuda() for a in _nms_case())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, count = nn.detection.nms(boxes, scores, 0.5, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = nn.detection.nms(boxes.cpu(), scores.cpu(), 0.5, 8)
+    check(torch.equal(idx.cpu(), cpu[0]) and int(count) == int(cpu[1]),
+          f"nms on the card {idx.tolist()} vs host {cpu[0].tolist()}")
+    return {"indices": idx.tolist(), "count": int(count),
+            "sync_debug_mode": "error"}
+
+
 #: name -> (criterion over ``nn``, output, target)
 CRITERION_CASES = {
     "AbsCriterion": (lambda: nn.AbsCriterion(), lambda: _xn((4, 5)),
@@ -5443,14 +5620,17 @@ def _unflat(like, leaves):
 
 
 def _slice_classes(objs):
-    """The slice's classes among the classes (and their bases) of
-    ``objs``."""
+    """Slices 16's and 17's classes among the classes (and their bases) of
+    ``objs``; a ``Graph`` also reaches ``Input`` and ``ModuleNode``."""
     names = set()
     for o in objs:
         for cls in type(o).__mro__:
-            if cls.__name__ in SLICE16_CLASSES and \
+            if cls.__name__ in SLICE16_CLASSES + SLICE17_CLASSES and \
                     getattr(nn, cls.__name__, None) is cls:
                 names.add(cls.__name__)
+        if isinstance(o, nn.Graph) and all(
+                isinstance(n, nn.ModuleNode) for n in o.exec_order):
+            names |= {"Input", "ModuleNode"}
     return names
 
 
@@ -5644,7 +5824,12 @@ def phase_layers():
         err, names = criterion_card_vs_cpu(name, make, output, target)
         check(err <= LAYER_RTOL, f"layers {name}: card vs host {err}")
         worst[name], checked = err, checked | names
-    exported = set(SLICE16_CLASSES)
+    for name, (make, inputs) in LAYER17_CASES.items():
+        err, names = layer_card_vs_cpu(name, make, inputs)
+        check(err <= LAYER_RTOL, f"layers {name}: card vs host {err}")
+        worst[name], checked = err, checked | names
+    nms_sync = nms_without_sync()
+    exported = set(SLICE16_CLASSES) | set(SLICE17_CLASSES)
     check(exported <= set(nn.__all__), f"not exported: "
           f"{sorted(exported - set(nn.__all__))}")
     check(checked == exported, f"layers checked {sorted(checked ^ exported)}"
@@ -5658,8 +5843,277 @@ def phase_layers():
     emit({"phase": "layers", "gpu": gpu_line(), "classes": len(checked),
           "cases": len(worst), "max_rel_err": max(worst.values()),
           "worst": sorted(worst.items(), key=lambda kv: -kv[1])[:5],
+          "slice17_cases": {k: worst[k] for k in LAYER17_CASES},
+          "nms_on_card": nms_sync,
           "rrelu_training": rrelu, "sequence_models": seq,
           "cli_autoencoder": cli})
+
+
+# -- 18. train_zoo ------------------------------------------------------------
+
+ZOO_STEPS = 20
+ZOO_WARMUP = 2           # steps left out of the median
+ZOO_BATCHES = 5          # distinct batches (an epoch) of each run's data
+ZOO_PROFILE_STEPS = 5
+ZOO_CPU_STEPS = 3
+ZOO_CPU_ATOL = 1e-3
+#: bench.py's inception_v1 config
+INC_BATCH = 64
+INC_LR = 0.1
+#: bench.py's textcnn config
+TEXT_BATCH = 128
+TEXT_SEQ = 500
+TEXT_EMBED = 200
+TEXT_CLASSES = 20
+TEXT_LR = 0.05
+#: BN-Inception (``Inception_v2_NoAuxClassifier``, models/inception.py):
+#: 69 conv-BN pairs, ``fuse_conv_bn`` makes the 37 adjacent 1x1 ones
+#: ``ConvBN`` (B5 forward, B4 backward), the other 32 stay on B1 / B2
+BNINC_STEP_LAUNCHES = {"bn_forward": 32, "bn_backward": 32, "bn_stats": 0,
+                       "matmul_stats": 37, "bn_grad_stats": 37}
+#: distinct shapes one step gives each kernel at batch 64
+BNINC_STEP_SHAPES = {"bn_forward": 13, "bn_backward": 13,
+                     "bn_grad_stats": 14, "matmul_stats": 16}
+BNINC_LR = 0.1
+#: bn_kernels' case beside BN-Inception's step shapes: C = 352 (44
+#: 16-byte pieces, a last tile of 12 on B1) at R = 3136, in float32 and
+#: bf16
+BNINC_EXTRA = {"matmul_stats": [], "other": [(3136, 352)]}
+
+
+def tf32_settings():
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def zoo_samples(shape, classes, n, seed):
+    """``n`` seeded normal inputs of ``shape`` and labels."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((n,) + shape, dtype=np.float32)
+    y = rs.integers(0, classes, n).astype(np.int32)
+    return [Sample(x[i], y[i]) for i in range(n)]
+
+
+def without_dropout(model):
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.set_p(0.0)
+    return model
+
+
+def zoo_train_run(make, samples, batch, method, criterion):
+    """``ZOO_STEPS`` steps of a model from ``make()`` on the card (each
+    step's ms from CUDA events, the median after ``ZOO_WARMUP``), the
+    peak memory over what the run found allocated, the kernels of the
+    repo launched, then a profile of ``1 + ZOO_PROFILE_STEPS`` steps."""
+    model = make()
+    zero_all_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    stats_before = [b.detach().clone() for b in model.buffers()]
+    marks = StepMarks()
+    t0 = time.perf_counter()
+    losses = train(model, samples, ZOO_STEPS, batch, criterion=criterion,
+                   method=method(), on_step=marks)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched, routes = all_kernel_counts(), route_counts()
+    moved = max((float((a.float() - b.float()).abs().max())
+                 for a, b in zip(model.buffers(), stats_before)),
+                default=None)
+    ev = marks.events
+    step_ms = [ev[k].elapsed_time(ev[k + 1]) for k in range(1, ZOO_STEPS + 1)]
+    median = float(np.median(step_ms[ZOO_WARMUP:]))
+    check(len(losses) == ZOO_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    prof = window_profile(lambda mark: train(
+        model, samples, 1 + ZOO_PROFILE_STEPS, batch, criterion=criterion,
+        method=method(), on_step=mark), ZOO_PROFILE_STEPS)
+    check("profile_error" not in prof, f"profile: {prof}")
+    del model
+    torch.cuda.empty_cache()
+    return {"steps": ZOO_STEPS, "losses": losses, "step_ms_each": step_ms,
+            "median_step_ms": median, "per_s": batch / (median / 1e3),
+            "run_s": run_s, "max_memory_allocated": peak,
+            "peak_bytes_over_start": peak - start_bytes,
+            "buffers_max_move": moved, "launches": launched,
+            "route_launches": routes, "profile": prof}
+
+
+def host_leg(make, samples, batch, method, criterion):
+    """The first ``ZOO_CPU_STEPS`` losses on the card (TF32 off, Dropout
+    at p = 0) and on the host from the same seed: within
+    ``ZOO_CPU_ATOL``."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses = {}
+        for device in ("cuda", "cpu"):
+            model = without_dropout(make(device))
+            losses[device] = train(model, samples, ZOO_CPU_STEPS, batch,
+                                   device=device, criterion=criterion,
+                                   method=method())
+            del model
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+    torch.cuda.empty_cache()
+    card, cpu = losses["cuda"], losses["cpu"]
+    diff = max(abs(a - b) for a, b in zip(card, cpu))
+    check(all(map(math.isfinite, card)) and diff <= ZOO_CPU_ATOL,
+          f"card {card} vs host {cpu}")
+    return {"tf32": False, "dropout_p": 0.0, "card_losses": card,
+            "cpu_losses": cpu, "max_abs_diff": diff, "tol": ZOO_CPU_ATOL}
+
+
+def zoo_float32(name, model_fn, shape, classes, batch, lr, seed, config):
+    """(a) or (c): a float32 config of bench.py at full width (module
+    docstring, 18), timed under PyTorch's default TF32 settings, with its
+    TF32-off host leg."""
+    set_policy(DTypePolicy())
+
+    def make(device="cuda"):
+        return model_fn().build(device, torch.Generator().manual_seed(SEED))
+
+    def method():
+        return SGD(lr)
+    samples = zoo_samples(shape, classes, batch * ZOO_BATCHES, seed)
+    crit = nn.ClassNLLCriterion()
+    with default_tf32():
+        tf32 = tf32_settings()
+        run = zoo_train_run(make, samples, batch, method, crit)
+    check(not any(run["launches"].values()),
+          f"{name} launched the repo's kernels: {run['launches']}")
+    host = host_leg(make, samples[:batch * ZOO_CPU_STEPS], batch, method,
+                    crit)
+    return {"config": {**config, "batch": batch, "dtype": "float32",
+                       "criterion": "ClassNLLCriterion",
+                       "method": f"SGD({lr})", "tf32": tf32},
+            **run, "host_leg": host}
+
+
+def zoo_inception_v1():
+    """(a) The ``inception_v1`` config."""
+    from bigdl_torch.models import Inception_v1_NoAuxClassifier
+    out = zoo_float32("inception_v1",
+                      lambda: Inception_v1_NoAuxClassifier(1000),
+                      (224, 224, 3), 1000, INC_BATCH, INC_LR, SEED,
+                      {"model": "Inception_v1_NoAuxClassifier(1000)",
+                       "image": [224, 224, 3]})
+    out["images_per_s"] = out.pop("per_s")
+    return out
+
+
+def zoo_textcnn():
+    """(c) The ``textcnn`` config."""
+    from bigdl_torch.models import TextClassifier
+    out = zoo_float32("textcnn", lambda: TextClassifier(TEXT_CLASSES),
+                      (TEXT_SEQ, TEXT_EMBED), TEXT_CLASSES, TEXT_BATCH,
+                      TEXT_LR, SEED + 1,
+                      {"model": f"TextClassifier({TEXT_CLASSES})",
+                       "input": [TEXT_SEQ, TEXT_EMBED]})
+    out["samples_per_s"] = out.pop("per_s")
+    return out
+
+
+def zoo_bn_inception():
+    """(b) BN-Inception fused in bf16 on B1, B2, B4 and B5 (module
+    docstring, 18); returns (the phase's part, the kernels line's rows)."""
+    from bigdl_torch.models import Inception_v2_NoAuxClassifier
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+
+    def make():
+        m = Inception_v2_NoAuxClassifier(1000)
+        nn.fuse_conv_bn(m)
+        return m.build("cuda", torch.Generator().manual_seed(SEED))
+    samples = zoo_samples((224, 224, 3), 1000, INC_BATCH * ZOO_BATCHES,
+                          SEED + 2)
+    crit = nn.ClassNLLCriterion()
+
+    def method():
+        return SGD(BNINC_LR, momentum=0.9)
+    # a warm-up step recording every shape the step gives the kernels
+    model = make()
+    seen, handles = record_shapes(model)
+    zero_counts()
+    train(model, samples, 1, INC_BATCH, criterion=crit, method=method())
+    for h in handles:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    check(counts() == BNINC_STEP_LAUNCHES, f"BN-Inception warm-up launches "
+          f"{counts()}")
+    check_step_routes(BNINC_STEP_LAUNCHES, "BN-Inception warm-up")
+    for kind, n in BNINC_STEP_SHAPES.items():
+        check(len(seen[kind]) == n and sum(seen[kind].values())
+              == BNINC_STEP_LAUNCHES[kind],
+              f"BN-Inception {kind} shapes {dict(seen[kind])}")
+    reps = phase_bn_kernels(seen, BNINC_STEP_SHAPES, "train_zoo",
+                            BNINC_EXTRA)
+    run = zoo_train_run(make, samples, INC_BATCH, method, crit)
+    rate = run.pop("per_s")
+    launched = {k: run["launches"][k] for k in TRAIN_KERNELS}
+    check(launched == {k: v * ZOO_STEPS for k, v in
+                       BNINC_STEP_LAUNCHES.items()},
+          f"BN-Inception launches over {ZOO_STEPS} steps: {launched}")
+    for kind, rt in STEP_ROUTES.items():
+        want = dict.fromkeys(run["route_launches"][kind], 0)
+        want[rt] = launched[kind]
+        check(run["route_launches"][kind] == want, f"BN-Inception "
+              f"{kind} launches by route {run['route_launches'][kind]}")
+    others = {k: v for k, v in run["launches"].items() if k not in launched}
+    check(not any(others.values()), f"BN-Inception launched {others}")
+    check(run["buffers_max_move"] > 0, "BN-Inception's running statistics "
+          "did not move")
+    part = {"config": {"model": "Inception_v2_NoAuxClassifier(1000)",
+                       "fused": True, "batch": INC_BATCH,
+                       "image": [224, 224, 3], "dtype": "bf16 compute, "
+                       "float32 params", "criterion": "ClassNLLCriterion",
+                       "method": f"SGD({BNINC_LR}, momentum=0.9)"},
+            **run, "images_per_s": rate,
+            "step_shapes": {k: len(v) for k, v in seen.items()},
+            "kernel_ms_per_step": {k: t for k, (_, t) in reps.items()}}
+    rows = kernel_rows(reps, launched, "train_zoo", run["route_launches"])
+    return part, rows
+
+
+def phase_train_zoo():
+    """The zoo on the card (module docstring, 18): (a) Inception-v1, (b)
+    BN-Inception on the training kernels, (c) the text CNN; returns the
+    kernels line's rows of (b)."""
+    t0 = time.perf_counter()
+    inc = zoo_inception_v1()
+    emit({"phase": "train_zoo", "part": "inception_v1", "gpu": gpu_line(),
+          **inc})
+    bn, rows = zoo_bn_inception()
+    emit({"phase": "train_zoo", "part": "bn_inception", "gpu": gpu_line(),
+          **bn})
+    text = zoo_textcnn()
+    emit({"phase": "train_zoo", "part": "textcnn", "gpu": gpu_line(),
+          **text})
+    emit({"phase": "train_zoo", "gpu": gpu_line(),
+          "inception_v1": {k: inc[k] for k in (
+              "median_step_ms", "images_per_s", "max_memory_allocated")},
+          "bn_inception": {k: bn[k] for k in (
+              "median_step_ms", "images_per_s", "max_memory_allocated")},
+          "textcnn": {k: text[k] for k in (
+              "median_step_ms", "samples_per_s", "max_memory_allocated")},
+          "idle_share": {k: p["profile"]["device_idle_share"] for k, p in (
+              ("inception_v1", inc), ("bn_inception", bn),
+              ("textcnn", text))},
+          "launches_per_step": {k: p["profile"]["launches_per_step"]
+                                for k, p in (("inception_v1", inc),
+                                             ("bn_inception", bn),
+                                             ("textcnn", text))},
+          "host_legs_max_abs_diff": {
+              "inception_v1": inc["host_leg"]["max_abs_diff"],
+              "textcnn": text["host_leg"]["max_abs_diff"]},
+          "wall_s": time.perf_counter() - t0})
+    return rows
 
 
 def main():
@@ -5691,6 +6145,10 @@ def main():
     if sys.argv[1:3] == ["--only", "layers"]:
         phase_build()
         phase_layers()
+        return 0
+    if sys.argv[1:3] == ["--only", "train_zoo"]:
+        phase_build()
+        phase_train_zoo()
         return 0
     if sys.argv[1:3] == ["--only", "data_parallel"]:
         phase_build()
@@ -5727,6 +6185,7 @@ def main():
     rows += phase_train_records(train_rows)
     phase_train_ptb()
     phase_layers()
+    rows += phase_train_zoo()
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

@@ -174,7 +174,22 @@ def test_pairs_cover_the_port():
               "dataset.prefetch:PrefetchIterator.__init__",
               "dataset:DistributedDataSet.__init__",
               "nn.recurrent:LSTM.__init__",
-              "nn.criterion:MultiMarginCriterion.__init__"):
+              "nn.criterion:MultiMarginCriterion.__init__",
+              # slice 17: the rest of the layer library and its zoo
+              "nn.conv:SpatialFullConvolution.__init__",
+              "nn.conv:SpatialConvolutionMap.random",
+              "nn.conv:VolumetricConvolution.__init__",
+              "nn.normalization:SpatialDivisiveNormalization.__init__",
+              "nn.pooling:RoiPooling.__init__",
+              "nn.recurrent:ConvLSTMPeephole.__init__",
+              "nn.recurrent:ConvLSTMPeephole.init_hidden",
+              "nn.graph:Graph.__init__", "nn.graph:Input",
+              "nn.tree:BinaryTreeLSTM.__init__", "nn.detection:nms",
+              "utils.graph:DirectedGraph.topology_sort",
+              "models.inception:Inception_Layer_v2",
+              "models.textclassifier:TextClassifier",
+              "models.treelstm_sentiment:encode_tree",
+              "models.vgg:VggForCifar10", "models.alexnet:AlexNet"):
         assert k in keys, k
     assert len(PAIRS) > 300
 
