@@ -32,7 +32,9 @@
 //    MultiHeadAttention hands over: a 4-D tensor map over
 //    (D, T, H, B) reads them without a copy.  Rows of 64 bf16 (128 bytes)
 //    use the 128-byte swizzle; D = 128 is two such column chunks; D = 32
-//    uses the 64-byte swizzle.  Keys and queries past T arrive as zeros.
+//    uses the 64-byte swizzle and D = 16 the 32-byte one (a row is one
+//    16-element k-step of QK^T, and O += P V is m64n16).  Keys and
+//    queries past T arrive as zeros.
 //  - S = Q K^T by wgmma m64n128k16 (both operands from shared memory,
 //    K-major), into float registers; the scale (times log2 e) and, only on
 //    tiles that cross the diagonal or the Tk edge, the mask; the online
@@ -276,8 +278,7 @@ struct Layout {
   static constexpr int CW = D < 64 ? D : 64;  // columns of a swizzled chunk
   static constexpr int NCH = D / CW;          // chunks per row
   static constexpr int RB = 2 * CW;           // bytes of a chunk row
-  static constexpr uint32_t SWZ =
-      RB == 128 ? hopper::kSwizzle128 : hopper::kSwizzle64;
+  static constexpr uint32_t SWZ = hopper::swizzle_for(RB);
   static constexpr int CHUNK = BQ * RB;  // one column chunk of a tile
   static constexpr int TILE = BQ * D * 2;  // a Q, K or V tile (BQ == BKV)
   static constexpr int SMEM =
@@ -556,9 +557,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
            Strides so, float sm_scale, int causal, cudaStream_t stream) {
   using L = Layout<D>;
-  const CUtensorMapSwizzle swizzle = L::RB == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swizzle = hopper::map_swizzle_for(L::RB);
   const void* base[3] = {q, k, v};
   const Strides* st[3] = {&sq, &sk, &sv};
   const int T[3] = {Tq, Tk, Tk};
@@ -633,6 +632,9 @@ extern "C" int bigdl_flash_attention_fwd(
       so{sob, soh, sot};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch_route<16>(route, q, k, v, o, lse, B, H, Tq, Tk, sq, sk,
+                              sv, so, sm_scale, causal, st);
     case 32:
       return launch_route<32>(route, q, k, v, o, lse, B, H, Tq, Tk, sq, sk,
                               sv, so, sm_scale, causal, st);

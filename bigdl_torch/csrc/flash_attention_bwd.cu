@@ -52,8 +52,9 @@
 //    also stages each query tile's lse (times log2 e) and delta in shared
 //    memory beside it.  Tiles are read straight from the strided
 //    [B, H, T, D] views by 4-D tensor maps, with B6's swizzles (128-byte
-//    chunks of 64 columns for D = 64 and 128, 64-byte rows for D = 32);
-//    rows past T arrive as zeros.
+//    chunks of 64 columns for D = 64 and 128, 64-byte rows for D = 32,
+//    32-byte rows for D = 16, where each SS product is one k-step and
+//    each RS product m64n16); rows past T arrive as zeros.
 //  - Per streamed tile, a warpgroup takes two SS products (both operands
 //    K-major in shared memory; launch 1 S = Q K^T and dP = dO V^T, launch 2
 //    S^T = K Q^T and dP^T = V dO^T, m64n64k16), then on the accumulator
@@ -89,6 +90,7 @@
 #include <math.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -419,8 +421,7 @@ struct Layout {
   static constexpr int CW = D < 64 ? D : 64;  // columns of a swizzled chunk
   static constexpr int NCH = D / CW;          // chunks per row
   static constexpr int RB = 2 * CW;           // bytes of a chunk row
-  static constexpr uint32_t SWZ =
-      RB == 128 ? hopper::kSwizzle128 : hopper::kSwizzle64;
+  static constexpr uint32_t SWZ = hopper::swizzle_for(RB);
   static constexpr int ITEM_CHUNK = ROWS * RB;  // a chunk of an item tile
   static constexpr int CHUNK = BT * RB;         // a chunk of a streamed tile
   static constexpr int ITEM_TILE = ROWS * D * 2;
@@ -431,6 +432,32 @@ struct Layout {
                               2 * STAGES * BT * 4 + 8 * (4 + 3 * STAGES);
   static_assert(SMEM <= 232448, "more shared memory than a block may use");
 };
+
+// sum of a[i] * b[i] over the N bf16 values a thread holds of a row (N =
+// D / 4), in order, read 16 bytes (8 values) a load, or 8 bytes at N = 4
+// (D = 16, whose quarter rows start 8 bytes apart)
+template <int N>
+__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
+  constexpr int V = N < 8 ? N : 8;
+  static_assert(V == 4 || V == 8, "a quarter row of 4 or a multiple of 8");
+  using Vec = typename std::conditional<V == 8, uint4, uint2>::type;
+  float part = 0.f;
+#pragma unroll
+  for (int c = 0; c < N; c += V) {
+    const Vec av = *reinterpret_cast<const Vec*>(a + c);
+    const Vec bv = *reinterpret_cast<const Vec*>(b + c);
+    const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&av);
+    const __nv_bfloat162* bp = reinterpret_cast<const __nv_bfloat162*>(&bv);
+#pragma unroll
+    for (int e = 0; e < V / 2; ++e) {
+      const float2 af = __bfloat1622float2(ap[e]);
+      const float2 bf = __bfloat1622float2(bp[e]);
+      part = fmaf(af.x, bf.x, part);
+      part = fmaf(af.y, bf.y, part);
+    }
+  }
+  return part;
+}
 
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -613,22 +640,7 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
         const bf16* orow = o + b * so.b + h * so.h + row * so.t + q4 * (D / 4);
         const bf16* drow =
             dout + b * sd.b + h * sd.h + row * sd.t + q4 * (D / 4);
-#pragma unroll
-        for (int c8 = 0; c8 < D / 4; c8 += 8) {
-          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c8);
-          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c8);
-          const __nv_bfloat162* op =
-              reinterpret_cast<const __nv_bfloat162*>(&ov);
-          const __nv_bfloat162* gp =
-              reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 of = __bfloat1622float2(op[e]);
-            const float2 gf = __bfloat1622float2(gp[e]);
-            part = fmaf(gf.x, of.x, part);
-            part = fmaf(gf.y, of.y, part);
-          }
-        }
+        part = dot_bf16<D / 4>(drow, orow);
       }
       dl[hh] = quad_sum(part);
       if (q4 == 0 && row < Tq)
@@ -928,9 +940,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            float* delta, int B, int H, int Tq, int Tk, const Strides* st,
            float scale, int causal, cudaStream_t stream) {
   using L = Layout<D>;
-  const CUtensorMapSwizzle swizzle = L::RB == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swizzle = hopper::map_swizzle_for(L::RB);
   // (D, T, H, B), innermost first; a box is CW columns x `rows` rows
   auto make = [&](CUtensorMap* map, const void* base, const Strides& s,
                   int T, int rows) {
@@ -1023,6 +1033,9 @@ extern "C" int bigdl_flash_attention_bwd(
     st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch_route<16>(route, q, k, v, o, dout, dq, dk, dv, lse,
+                              delta, B, H, Tq, Tk, st, sm_scale, causal, s);
     case 32:
       return launch_route<32>(route, q, k, v, o, dout, dq, dk, dv, lse,
                               delta, B, H, Tq, Tk, st, sm_scale, causal, s);

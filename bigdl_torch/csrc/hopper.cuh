@@ -11,9 +11,10 @@
 //    needs no -lcuda.  A kernel takes each map as a `const __grid_constant__
 //    CUtensorMap` parameter.
 //  - Tiles live in shared memory in the layout TMA writes with the 128-byte
-//    (or, for 64-byte rows, the 64-byte) swizzle: row r of a tile whose rows
-//    are W bytes long starts at r * W, and its 16-byte pieces are permuted
-//    (for W = 128, piece i sits at i ^ (r % 8)).  A tile's base is 1024-byte
+//    (or, for 64-byte rows, the 64-byte; for 32-byte rows, the 32-byte)
+//    swizzle: row r of a tile whose rows are W bytes long starts at r * W,
+//    and its 16-byte pieces are permuted (for W = 128, piece i sits at
+//    i ^ (r % 8); for W = 32, at i ^ ((r / 4) % 2)).  A tile's base is 1024-byte
 //    aligned, so the swizzle depends on the offset inside the tile only.
 //  - A wgmma shared-memory descriptor names such a tile: its start address,
 //    LBO and SBO (bytes, stored in 16-byte units) and the swizzle.  K-major
@@ -297,7 +298,20 @@ struct Items {
 
 // ---- device: wgmma --------------------------------------------------------
 
-enum Swizzle : uint32_t { kSwizzle128 = 1, kSwizzle64 = 2 };
+enum Swizzle : uint32_t { kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3 };
+
+// The swizzle of a tile whose rows are `row_bytes` long (128, 64 or 32),
+// for a wgmma descriptor and for the tensor map that writes the tile.
+constexpr uint32_t swizzle_for(int row_bytes) {
+  return row_bytes == 128 ? kSwizzle128
+                          : row_bytes == 64 ? kSwizzle64 : kSwizzle32;
+}
+
+inline CUtensorMapSwizzle map_swizzle_for(int row_bytes) {
+  return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+}
 
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
                                               uint32_t sbo, uint32_t swizzle) {
@@ -421,6 +435,25 @@ struct WgmmaSS<128> {
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<16> {
+  template <int TB>
+  __device__ static __forceinline__ void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
   }
 };
 

@@ -14,8 +14,10 @@ through.  Every shuffle is drawn from ``np.random.default_rng(seed)``
 exactly as the reference draws it, so both packages visit records (or
 shards) in the same order from the same seed.  The rank of a sharded
 source is the Engine's (``torch.distributed``), where the reference asks
-``jax.process_index()``.  The text, recsys and SequenceFile sources are
-not ported (``ROADMAP.md`` queue A item 7).
+``jax.process_index()``.  The text pipeline (``text.py``), the tabular
+recommendation data (``recsys.py``), Hadoop SequenceFile shards
+(``DataSet.seq_file_folder``, ``seqfile.py``) and the standard datasets'
+file parsers (``providers.py``) sit beside them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,12 @@ from .prefetch import PrefetchIterator, ThreadedShardReader
 from .sample import FixedLength, MiniBatch, PaddingParam, Sample
 from .transformer import (ChainedTransformer, Identity, MTSampleToMiniBatch,
                           SampleToMiniBatch, Transformer)
+from .text import (Dictionary, LabeledSentence, LabeledSentenceToSample,
+                   SentenceBiPadding, SentenceSplitter, SentenceTokenizer,
+                   TextToLabeledSentence)
+from .recsys import (FeatureSpec, TabularToSample, cross_bucket,
+                     hash_bucket, synthetic_criteo_records,
+                     write_criteo_shards)
 
 logger = logging.getLogger("bigdl_torch")
 
@@ -39,7 +47,11 @@ __all__ = ["AbstractDataSet", "LocalArrayDataSet", "DistributedDataSet",
            "Sample", "MiniBatch", "PaddingParam", "FixedLength",
            "Transformer", "ChainedTransformer", "SampleToMiniBatch",
            "MTSampleToMiniBatch", "Identity", "PrefetchIterator",
-           "ThreadedShardReader"]
+           "ThreadedShardReader", "SentenceSplitter", "SentenceTokenizer",
+           "SentenceBiPadding", "Dictionary", "LabeledSentence",
+           "TextToLabeledSentence", "LabeledSentenceToSample",
+           "FeatureSpec", "TabularToSample", "hash_bucket", "cross_bucket",
+           "synthetic_criteo_records", "write_criteo_shards"]
 
 
 class AbstractDataSet:
@@ -330,12 +342,13 @@ class DataSet:
     @staticmethod
     def seq_file_folder(folder, class_num=None, distributed: bool = False,
                         **kw):
-        """Hadoop SequenceFile shards: not ported (``ROADMAP.md`` queue A
-        item 7); convert them with the JAX package's ``record_generator
-        --from-seq`` and read the BDRecord shards."""
-        raise NotImplementedError(
-            "DataSet.seq_file_folder (dataset/seqfile.py) is not ported: "
-            "ROADMAP.md queue A item 7")
+        """Hadoop SequenceFile shards (``*.seq`` under ``folder``, the
+        reference's ImageNet format) streamed every pass as
+        ``LabeledImage`` records, labels above ``class_num`` left out
+        (DataSet.SeqFileFolder; ``seqfile.SeqFileDataSet``)."""
+        from .seqfile import seq_file_folder
+        return seq_file_folder(folder, class_num=class_num,
+                               distributed=distributed, **kw)
 
     @staticmethod
     def record_files(pattern, distributed: bool = False, seed: int = 1,

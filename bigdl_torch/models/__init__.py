@@ -1,7 +1,7 @@
 """Model zoo: LeNet-5, ResNet, Inception-v1 and BN-Inception, AlexNet,
 VGG, the text CNN, TransformerLM with KV-cache decoding, SimpleRNN, the
-PTB LSTM language model, the MNIST autoencoder and the TreeLSTM sentiment
-model."""
+PTB LSTM language model, the MNIST autoencoder, the TreeLSTM sentiment
+model, the Vision Transformer and Wide & Deep."""
 
 from .alexnet import AlexNet
 from .autoencoder import Autoencoder
@@ -17,6 +17,8 @@ from .transformer_lm import (PositionalEmbedding, TransformerBlock,
                              TransformerLM, greedy_generate, sample_next)
 from .treelstm_sentiment import TreeLSTMSentiment, encode_tree
 from .vgg import Vgg_16, Vgg_19, VggForCifar10
+from .vit import ViT
+from .widedeep import WideDeep
 
 __all__ = ["TransformerLM", "TransformerBlock", "PositionalEmbedding",
            "greedy_generate", "sample_next", "cached_generate",
@@ -26,4 +28,4 @@ __all__ = ["TransformerLM", "TransformerBlock", "PositionalEmbedding",
            "Inception_v1", "Inception_v1_NoAuxClassifier", "Inception_v2",
            "Inception_v2_NoAuxClassifier", "TextClassifier",
            "TreeLSTMSentiment", "encode_tree", "Vgg_16", "Vgg_19",
-           "VggForCifar10"]
+           "VggForCifar10", "ViT", "WideDeep"]

@@ -30,11 +30,12 @@ Models: ``lenet``, ``vgg`` (VggForCifar10, 32 x 32), ``vgg16``,
 ``vgg19``, ``resnet`` (ResNet-20 on CIFAR-10, shortcut A), ``resnet50``,
 ``inception`` (Inception-v1 without its auxiliary heads), ``inception_v2``
 (BN-Inception without them), ``alexnet`` (227 x 227), ``transformer``,
-and ``autoencoder`` (trained with ``MSECriterion`` to reconstruct its
-input, with no validation, as in the reference); the image models at
-224 x 224 but where named, all with the reference's criteria.  ``vit``
-raises, naming ``ROADMAP.md`` queue A item 7, and ``--num-experts`` > 0
-item 8.
+``autoencoder`` (trained with ``MSECriterion`` to reconstruct its
+input, with no validation, as in the reference) and ``vit`` (the
+reference's small ViT: 32 x 32, patch 4, d_model 64, 4 heads of 16, 4
+layers); the image models at 224 x 224 but where named, all with the
+reference's criteria.  ``--num-experts`` > 0 raises, naming
+``ROADMAP.md`` queue A item 8.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 #: the reference zoo's names that the port has no model for yet
-_NOT_PORTED = ("vit",)
+_NOT_PORTED = ()
 
 
 def _build_model(name: str, class_num: int, num_experts: int = 0):
@@ -91,6 +92,13 @@ def _build_model(name: str, class_num: int, num_experts: int = 0):
     if name == "autoencoder":
         from .autoencoder import Autoencoder
         return Autoencoder(32), (28, 28, 1), "mse"
+    if name == "vit":
+        # the reference's small config for the CLI; the ImageNet one is
+        # ViT()'s defaults
+        from .vit import ViT
+        return (ViT(image_size=32, patch_size=4, class_num=class_num,
+                    d_model=64, num_heads=4, num_layers=4),
+                (32, 32, 3), "nll")
     if name == "transformer":
         from .transformer_lm import TransformerLM
         vocab = max(class_num, 64)
@@ -98,9 +106,6 @@ def _build_model(name: str, class_num: int, num_experts: int = 0):
         return (TransformerLM(vocab_size=vocab, max_len=seq, d_model=256,
                               num_heads=8, num_layers=4),
                 ("tokens", seq, vocab), "lm")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported: ROADMAP.md queue A item 7")
     raise ValueError(f"unknown model {name!r}")
 
 

@@ -50,7 +50,7 @@ _ROUTE_CODE = {"f32": 0, "tc": 1}
 #: tile sizes each route's kernel is compiled for, and its head dimensions
 BLOCK_Q = {"f32": 64, "tc": 128}
 BLOCK_K = {"f32": 64, "tc": 128}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 #: the backward's kernel by operand dtype, and its code in the C interface
 BWD_ROUTES = {torch.float32: "f32", torch.bfloat16: "tc"}
 _BWD_ROUTE_CODE = {"f32": 0, "tc": 1}

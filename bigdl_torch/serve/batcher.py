@@ -31,14 +31,14 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
 __all__ = ["ServeError", "ServerOverloaded", "ServerClosed",
            "RequestTimeout", "PendingRequest", "DynamicBatcher",
            "DecodeQueue", "default_buckets", "fit_bucket", "pad_rows",
-           "pad_tail"]
+           "pad_tail", "predict_in_fixed_batches"]
 
 
 class ServeError(RuntimeError):
@@ -164,6 +164,25 @@ def pad_rows(arr: np.ndarray, n: int,
         # nothing to repeat: zero rows of the resized shape
         return np.zeros((n,) + arr.shape[1:], dtype=arr.dtype)
     return np.concatenate([arr, np.repeat(arr[-1:], short, axis=0)])
+
+
+def predict_in_fixed_batches(forward: Callable, feats: np.ndarray,
+                             batch_size: int) -> np.ndarray:
+    """``feats`` in full batches of ``batch_size`` rows through
+    ``forward`` (one call a batch, the last one padded by
+    :func:`pad_rows`), the outputs cut back to the real rows and
+    concatenated: the bulk counterpart of the online batcher's bucket
+    padding (``serving.UDFPredictor``).  Zero rows return ``feats``
+    without a call (the output's trailing shape is unknown without one)."""
+    feats = np.asarray(feats)
+    if len(feats) == 0:
+        return feats
+    outs = []
+    for i in range(0, len(feats), batch_size):
+        chunk = feats[i:i + batch_size]
+        outs.append(np.asarray(forward(pad_rows(chunk, batch_size)))
+                    [:len(chunk)])
+    return np.concatenate(outs, axis=0)
 
 
 class DynamicBatcher:

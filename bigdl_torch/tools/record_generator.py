@@ -14,8 +14,13 @@ Usage::
         --folder /data/imagenet/train --output /data/bdr/train \\
         --shards 64 [--scale 256] [--parallel 8]
 
-``--from-seq`` (the reference's Hadoop SequenceFile import) is not ported:
-``ROADMAP.md`` queue A item 7.
+``--from-seq`` reads a folder of Hadoop SequenceFile shards (the
+reference's ``ImageNetSeqFileGenerator`` format, ``dataset/seqfile.py``)
+instead and copies their records as stored, labels above ``--class-num``
+left out::
+
+    python -m bigdl_torch.tools.record_generator --from-seq \\
+        --folder /data/imagenet/seq --output /data/bdr/train --shards 64
 """
 
 from __future__ import annotations
@@ -72,25 +77,57 @@ def convert(folder: str, output: str, shards: int = 8, scale: int = -1,
     return paths, n
 
 
+def convert_seq(folder: str, output: str, shards: int = 8,
+                class_num: int = None, quiet: bool = False):
+    """Hadoop SequenceFile shards -> BDRecord shards of ``{"data": uint8
+    BGR HWC, "label": float}``; returns (shard paths, record count)."""
+    from ..dataset.seqfile import find_seq_files, read_byte_records
+    from ..utils.recordio import write_records
+
+    paths = find_seq_files(folder)
+    os.makedirs(os.path.dirname(output) or ".", exist_ok=True)
+    n = 0
+
+    def records():
+        nonlocal n
+        for p in paths:
+            for rec in read_byte_records(p, class_num):
+                n += 1
+                yield rec
+
+    out = write_records(output, records(), shards=shards)
+    if not quiet:
+        print(f"imported {n} records from {len(paths)} .seq files "
+              f"-> {output}-*")
+    return out, n
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="image folder -> sharded BDRecord files")
+        description="image folder (or .seq shards, --from-seq) -> sharded "
+                    "BDRecord files")
     ap.add_argument("--folder", required=True,
-                    help="directory-per-class image tree")
+                    help="directory-per-class image tree, or a folder of "
+                         "*.seq files with --from-seq")
     ap.add_argument("--output", required=True, help="output shard base path")
     ap.add_argument("--shards", type=int, default=8)
     ap.add_argument("--scale", type=int, default=-1,
                     help="resize the shorter side to this (LocalImgReader)")
     ap.add_argument("--parallel", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--from-seq", action="store_true",
-                    help="Hadoop SequenceFile input: not ported")
+                    help="input is Hadoop SequenceFile shards written by "
+                         "the reference's ImageNetSeqFileGenerator")
     ap.add_argument("--class-num", type=int, default=None,
                     help="with --from-seq: keep labels <= this")
     args = ap.parse_args(argv)
-    if args.from_seq or args.class_num is not None:
-        raise NotImplementedError(
-            "record_generator --from-seq (dataset/seqfile.py) is not "
-            "ported: ROADMAP.md queue A item 7")
+    if args.from_seq:
+        if args.scale != -1 or args.parallel != (os.cpu_count() or 1):
+            ap.error("--scale/--parallel apply only to the image-folder "
+                     "path; --from-seq copies records as stored")
+        return convert_seq(args.folder, args.output, args.shards,
+                           args.class_num)
+    if args.class_num is not None:
+        ap.error("--class-num requires --from-seq")
     return convert(args.folder, args.output, args.shards, args.scale,
                    args.parallel)
 

@@ -9,8 +9,9 @@
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
-``--only layers`` and ``--only train_zoo`` the build and phase 16, 17 or
-18 alone, and none of them prints the final line.)
+``--only layers``, ``--only train_zoo`` and ``--only zoo_data`` the build
+and phase 16, 17, 18 or 19 alone, and none of them prints the final
+line.)
 
 Phases, each printing one JSON line:
 
@@ -20,7 +21,7 @@ Phases, each printing one JSON line:
    seconds and, by source and kernel, its registers and spilled bytes.
 2. ``kernels``: hold the flash-attention kernels (B6) against their plain
    PyTorch version on the card, at the shapes the serving path gives them
-   (D = 64) and at D = 32 and 128, each in bf16 (the ``"tc"`` route:
+   (D = 64) and at D = 16, 32 and 128, each in bf16 (the ``"tc"`` route:
    wgmma fed by TMA) and float32 (the ``"f32"`` route: CUDA cores), causal
    and not, ragged T included; and time the kernel, the plain version and
    one PyTorch library call computing the same function (a yardstick only;
@@ -199,8 +200,8 @@ Phases, each printing one JSON line:
    without.
 12. ``b7_kernels`` (inside ``train_lm``): B7 against
    ``flash_bwd_reference`` at the step's shape [16, 8, 512, 64] bf16
-   causal (and not causal, and at D = 32 and 128) and at float32 and bf16
-   ragged shapes (D = 32, 128; Tq != Tk), each given the output and
+   causal (and not causal, and at D = 16, 32 and 128) and at float32 and
+   bf16 ragged shapes (D = 16, 32, 128; Tq != Tk), each given the output and
    log-sum-exp of B6 on the same operands, within ``B7_TOL`` and
    bit-identical over two calls, timed beside the plain version and the
    backward of ``scaled_dot_product_attention``.
@@ -394,6 +395,44 @@ Phases, each printing one JSON line:
    batch 128 x 500 x 200, float32, ``SGD(0.05)``, default TF32 settings;
    every loss finite, no launch of B1 to B8, and the first 3 losses of a
    TF32-off leg within ``ZOO_CPU_ATOL`` of the host's.
+19. ``zoo_data``: the zoo's last models and the data half.
+   (a) ``ViT()`` at its ImageNet defaults (224², patch 16, d_model 384, 6
+   heads of 64, 8 layers, 1000 classes), batch 128, bf16 compute over
+   float32 params, ``SGD(0.01, momentum=0.9)``, ``ZOO_STEPS`` steps
+   through ``Optimizer`` on seeded images (median step ms after
+   ``ZOO_WARMUP``, images/s, peak memory, a profile of 5 steps): exactly
+   8 B6 writing the log-sum-exp and 16 B7 a step, all ``"tc"``, no other
+   kernel of the repo; an eval forward through ``Predictor`` 8 B6
+   without it a batch; B6 (both instances) and B7 at [128, 6, 196, 196,
+   64] bf16, not causal (T = 196: a ragged second tile both ways), held
+   to their plain versions and timed beside SDPA and its backward and
+   the bound; a float32 leg (batch 8, TF32 off, ``"f32"``) whose first 3
+   losses are within ``ZOO_CPU_ATOL`` of the host's.
+   (b) the zoo CLI's ``vit`` (heads of 16) trained 3 iterations from a
+   BDRecord shard as the CLI trains (float32): finite losses, 4 B6 and 8
+   B7 an iteration on ``"f32"``; B6 and B7 at its call [32, 4, 64, 64,
+   16] on both routes against their plain versions.
+   (c) ``bench.py``'s ``widedeep`` config: ``FeatureSpec()``, 512 seeded
+   records through ``TabularToSample``, ``WideDeep.from_spec(spec,
+   embed_dim=64, hidden=(256, 128))``, batch 512, float32,
+   ``SGD(0.05)``: no kernel of the repo, the TF32-off leg within
+   ``WD_CPU_ATOL`` of the host's; then ``DLClassifier.fit`` for an epoch
+   and ``UDFPredictor``'s rows over the model it trained equal to
+   ``Predictor``'s bit for bit.
+   (d) ``quantize(TransformerLM)`` at the serve width: its weight bytes
+   beside the float model's; 16 requests through ``InferenceServer``
+   (8 B6 ``"tc"`` a device batch, answers within ``SERVE_ATOL`` of its
+   ``Predictor``); the decode workload through ``DecodeEngine`` with its
+   graphs, for the int8 model and the float one (B8 ``"bf16"``, 8 x
+   (prompt positions + ticks), warm rows equal to cold), the int8 rows
+   equal to its ``cached_generate`` under the tie rule; each engine's
+   warm tokens/s and its graph tick's device time; B6 and B8 at their
+   calls against their plain versions.
+   (e) 2 SequenceFile shards of 28² images written on the host, streamed
+   through ``DataSet.seq_file_folder`` into 3 LeNet-5 steps on the card;
+   ``python -m bigdl_torch.tools.perf`` for ``inception_v1`` and
+   ``resnet50`` at batch 64, 5 iterations, each its own process, beside
+   the rates ``train_zoo`` and ``train`` measured in the same run.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -404,7 +443,11 @@ with the times ``bn_kernels`` took at the microbatch shapes and
 ``train_lm`` at the LM step's; B1, B2, B4 and B5 per streamed run of
 ``train_records`` and B1 and B2 per CLI run, with ``train``'s times; B1,
 B2, B4 and B5 per BN-Inception run of ``train_zoo``, with the times
-``bn_kernels`` took at BN-Inception's largest shapes), the
+``bn_kernels`` took at BN-Inception's largest shapes; B6 and B7 per ViT
+run, B6 per ViT eval, B6 and B7 per CLI ``vit`` run (D = 16, with the
+D = 16 ``"tc"`` cases beside them, launched 0 times on that path), B6
+per int8 scoring run and B8 per warm int8 decode run of ``zoo_data``,
+each with its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -496,7 +539,12 @@ LSE_SHAPES = ((8, 8, 512, 512, 64, torch.bfloat16, True),
               (16, 8, 512, 512, 64, torch.bfloat16, True),
               (2, 4, 37, 200, 64, torch.float32, False),
               (2, 4, 200, 37, 32, torch.bfloat16, True),
-              (2, 4, 200, 200, 128, torch.bfloat16, False))
+              (2, 4, 200, 200, 128, torch.bfloat16, False),
+              # D = 16: the zoo CLI's ViT (4 heads of 16, 64 tokens) and
+              # ragged cases on both routes
+              (8, 4, 64, 64, 16, torch.bfloat16, False),
+              (2, 4, 200, 37, 16, torch.bfloat16, True),
+              (2, 4, 37, 200, 16, torch.float32, False))
 # served answer vs Predictor on the same padded row, bf16 log-probs of
 # magnitude <= ~16: one bf16 step there is 2^-4; a device batch of 8 rows
 # and one of 1 may take different cuBLAS kernels, so allow 4 steps
@@ -778,8 +826,8 @@ def phase_kernels():
     # the serving path's calls (D = 64), then the other head dimensions
     shapes = [(8, 8, t, t, 64) for t in (128, 256, 512)]
     shapes += [(8, 8, 200, 200, 64), (8, 8, 128, 512, 64)]
-    shapes += [(8, 8, 512, 512, d) for d in (32, 128)]
-    shapes += [(8, 8, 200, 200, d) for d in (32, 128)]
+    shapes += [(8, 8, 512, 512, d) for d in (16, 32, 128)]
+    shapes += [(8, 8, 200, 200, d) for d in (16, 32, 128)]
     cases = [flash_case(*s, dtype, causal, gen) for s in shapes
              for dtype in (torch.float32, torch.bfloat16)
              for causal in (False, True)]
@@ -2938,7 +2986,7 @@ def phase_b7():
     shapes = [(LM_BATCH, H, T, T, D, torch.bfloat16, True),
               (4, 4, 200, 200, 64, torch.bfloat16, False),
               (LM_BATCH, H, T, T, D, torch.bfloat16, False)]
-    for d in (32, 128):
+    for d in (16, 32, 128):
         shapes += [(2, 4, 37, 200, d, torch.float32, False),
                    (2, 4, 200, 37, d, torch.float32, False),
                    (2, 4, 200, 200, d, torch.float32, True),
@@ -2980,6 +3028,7 @@ def zero_flash():
     for fn in (attn_ops.flash_attention, attn_ops.flash_attention_bwd):
         fn.launches = 0
         zero_routes(fn)
+    attn_ops.flash_attention.lse_launches = 0
 
 
 def check_lm_launches(steps, what, fwd_route="tc", bwd_route="tc",
@@ -5920,6 +5969,7 @@ def zoo_train_run(make, samples, batch, method, criterion):
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launched, routes = all_kernel_counts(), route_counts()
+    flash = flash_routes()
     moved = max((float((a.float() - b.float()).abs().max())
                  for a, b in zip(model.buffers(), stats_before)),
                 default=None)
@@ -5939,13 +5989,13 @@ def zoo_train_run(make, samples, batch, method, criterion):
             "run_s": run_s, "max_memory_allocated": peak,
             "peak_bytes_over_start": peak - start_bytes,
             "buffers_max_move": moved, "launches": launched,
-            "route_launches": routes, "profile": prof}
+            "route_launches": routes, "flash_routes": flash,
+            "profile": prof}
 
 
-def host_leg(make, samples, batch, method, criterion):
+def host_leg(make, samples, batch, method, criterion, tol=ZOO_CPU_ATOL):
     """The first ``ZOO_CPU_STEPS`` losses on the card (TF32 off, Dropout
-    at p = 0) and on the host from the same seed: within
-    ``ZOO_CPU_ATOL``."""
+    at p = 0) and on the host from the same seed: within ``tol``."""
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5964,10 +6014,10 @@ def host_leg(make, samples, batch, method, criterion):
     torch.cuda.empty_cache()
     card, cpu = losses["cuda"], losses["cpu"]
     diff = max(abs(a - b) for a, b in zip(card, cpu))
-    check(all(map(math.isfinite, card)) and diff <= ZOO_CPU_ATOL,
+    check(all(map(math.isfinite, card)) and diff <= tol,
           f"card {card} vs host {cpu}")
     return {"tf32": False, "dropout_p": 0.0, "card_losses": card,
-            "cpu_losses": cpu, "max_abs_diff": diff, "tol": ZOO_CPU_ATOL}
+            "cpu_losses": cpu, "max_abs_diff": diff, "tol": tol}
 
 
 def zoo_float32(name, model_fn, shape, classes, batch, lr, seed, config):
@@ -6095,6 +6145,9 @@ def phase_train_zoo():
     text = zoo_textcnn()
     emit({"phase": "train_zoo", "part": "textcnn", "gpu": gpu_line(),
           **text})
+    phase_train_zoo.rates = {"inception_v1": {
+        "phase": "train_zoo", "images_per_s": inc["images_per_s"],
+        "config": "Optimizer from DataSet.array, float32, batch 64"}}
     emit({"phase": "train_zoo", "gpu": gpu_line(),
           "inception_v1": {k: inc[k] for k in (
               "median_step_ms", "images_per_s", "max_memory_allocated")},
@@ -6112,6 +6165,602 @@ def phase_train_zoo():
           "host_legs_max_abs_diff": {
               "inception_v1": inc["host_leg"]["max_abs_diff"],
               "textcnn": text["host_leg"]["max_abs_diff"]},
+          "wall_s": time.perf_counter() - t0})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# zoo_data: ViT, the CLI's vit, Wide & Deep, the int8 LM, SequenceFile
+# shards and the perf CLI
+# ---------------------------------------------------------------------------
+
+#: ViT() at its ImageNet defaults (224², patch 16, d_model 384, 6 heads of
+#: 64, 8 layers, 1000 classes) under the bf16 compute policy
+VIT_BATCH = 128
+VIT_LR = 0.01
+#: launches a training step: one B6 (writing the log-sum-exp) a block, and
+#: B7's two, 8 blocks
+VIT_STEP = {"flash_attention": 8, "flash_attention_bwd": 16}
+VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM = 6, 196, 64
+VIT_EVAL_ROWS = 2 * VIT_BATCH
+VIT_F32_BATCH = 8
+#: the zoo CLI's vit (32², patch 4, 4 heads of 16, 4 layers, float32):
+#: 3 iterations from a shard of 96 images
+VIT_CLI_IMAGES = 96
+VIT_CLI_BATCH = 32
+VIT_CLI_STEPS = 3
+VIT_CLI_LAYERS = 4
+#: bench.py's widedeep config
+WD_RECORDS = 512
+WD_BATCH = 512
+WD_LR = 0.05
+WD_EMBED = 64
+WD_HIDDEN = (256, 128)
+WD_CPU_ATOL = 1e-4
+#: SequenceFile shards of 28² images: one epoch of 3 LeNet-5 steps
+SEQ_SHARDS = 2
+SEQ_PER_SHARD = 96
+SEQ_BATCH = 64
+SEQ_STEPS = 3
+#: the perf CLI's runs, each its own process
+PERF_MODELS = ("inception_v1", "resnet50")
+PERF_BATCH = 64
+PERF_ITERS = 5
+PERF_TIMEOUT = 300
+
+
+class LossLog(logging.Handler):
+    """The loss of each iteration the Optimizer logs."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.values = []
+
+    def emit(self, record):
+        if record.msg.startswith("Epoch %d [iteration %d]"):
+            self.values.append(float(record.args[2]))
+
+
+@contextlib.contextmanager
+def logged_losses():
+    log = LossLog()
+    opt_logger = logging.getLogger("bigdl_torch")
+    level = opt_logger.level
+    opt_logger.setLevel(logging.INFO)
+    opt_logger.addHandler(log)
+    try:
+        yield log
+    finally:
+        opt_logger.removeHandler(log)
+        opt_logger.setLevel(level)
+        # the CLI sets the root logger to INFO: quiet again
+        logging.getLogger().setLevel(logging.WARNING)
+
+
+def only_kernels(launched, want, what):
+    """``launched`` (``all_kernel_counts()``) is ``want`` and zero for
+    every other kernel."""
+    full = dict.fromkeys(launched, 0)
+    full.update(want)
+    check(launched == full, f"{what}: kernel launches {launched}, want "
+          f"{want} and no other")
+
+
+def flash_routes():
+    return {"flash_attention": dict(attn_ops.flash_attention.route_launches),
+            "flash_attention_bwd": dict(
+                attn_ops.flash_attention_bwd.route_launches),
+            "flash_lse": attn_ops.flash_attention.lse_launches}
+
+
+def kernel_row(case, name, source, replaces, launches, path, routes):
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "path": path,
+           "shape": case["shape"], "dtype": case["dtype"],
+           "causal": case.get("causal"), "max_abs_err": case["max_abs_err"],
+           "ms": case["ms"], "plain_ms": case["plain_ms"],
+           "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+           "library_ms": case["library_ms"],
+           "ms_over_library": case["ms_over_library"],
+           "kernel_route": case["route"], "route_launches": routes}
+    for k in ("with_lse", "lse_max_abs_err", "ms_without_lse"):
+        if k in case:
+            row[k] = case[k]
+    return row
+
+
+B6_SRC = ("bigdl_torch/csrc/flash_attention.cu",
+          "bigdl_tpu/ops/attention.py:59")
+B7_SRC = ("bigdl_torch/csrc/flash_attention_bwd.cu",
+          "bigdl_tpu/ops/attention.py:182")
+B8_SRC = ("bigdl_torch/csrc/decode_attention.cu",
+          "bigdl_tpu/serve/decode.py:129")
+
+
+def zd_vit():
+    """(a) ViT at full width on B6 and B7, not causal; returns (the
+    part, the kernels line's rows)."""
+    from bigdl_torch.models import ViT
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+
+    def make(device="cuda"):
+        return ViT().build(device, torch.Generator().manual_seed(SEED))
+
+    def method():
+        return SGD(VIT_LR, momentum=0.9)
+    crit = nn.ClassNLLCriterion()
+    mhas = [m for m in ViT().modules() if isinstance(m, nn.MultiHeadAttention)]
+    check(len(mhas) == VIT_STEP["flash_attention"] and all(
+        m.head_dim == VIT_HEAD_DIM and m.num_heads == VIT_HEADS
+        and not m.causal for m in mhas), "ViT's attention blocks")
+    samples = zoo_samples((224, 224, 3), 1000, VIT_BATCH * ZOO_BATCHES,
+                          SEED + 3)
+    run = zoo_train_run(make, samples, VIT_BATCH, method, crit)
+    rate = run.pop("per_s")
+    step_want = {k: v * ZOO_STEPS for k, v in VIT_STEP.items()}
+    only_kernels(run["launches"], step_want, f"ViT over {ZOO_STEPS} steps")
+    fr = run["flash_routes"]
+    check(fr["flash_attention"] == {"tc": step_want["flash_attention"],
+                                    "f32": 0}
+          and fr["flash_attention_bwd"] == {
+              "f32": 0, "tc": step_want["flash_attention_bwd"]}
+          and fr["flash_lse"] == step_want["flash_attention"],
+          f"ViT's flash routes {fr}")
+    # an eval forward: B6 without the log-sum-exp, 8 a batch
+    model = make()
+    zero_all_kernels()
+    x = np.stack([s.feature for s in samples[:VIT_EVAL_ROWS]])
+    t0 = time.perf_counter()
+    out = Predictor(model, batch_size=VIT_BATCH).predict(x)
+    eval_s = time.perf_counter() - t0
+    n_eval = VIT_STEP["flash_attention"] * VIT_EVAL_ROWS // VIT_BATCH
+    only_kernels(all_kernel_counts(), {"flash_attention": n_eval},
+                 "ViT eval")
+    eval_routes = flash_routes()
+    check(eval_routes["flash_lse"] == 0 and only_route(
+        attn_ops.flash_attention, "tc", n_eval), f"ViT eval {eval_routes}")
+    check(out.shape == (VIT_EVAL_ROWS, 1000) and np.isfinite(out).all(),
+          f"ViT eval output {out.shape}")
+    del model
+    torch.cuda.empty_cache()
+    # B6 (both instances) and B7 at ViT's call, against the plain versions
+    gen = torch.Generator().manual_seed(SEED + 7)
+    shape = (VIT_BATCH, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, VIT_HEAD_DIM)
+    b6 = {w: flash_case(*shape, torch.bfloat16, False, gen, with_lse=w)
+          for w in (False, True)}
+    b7 = b7_case(*shape, torch.bfloat16, False,
+                 torch.Generator(device="cuda").manual_seed(SEED + 8))
+    bad = [c for c in (b6[False], b6[True], b7) if not c["ok"]]
+    check(not bad, f"B6 / B7 at ViT's call: {bad}")
+    torch.cuda.empty_cache()
+    # float32 (TF32 off, "f32"): 3 steps on the card and on the host
+    set_policy(DTypePolicy())
+    zero_all_kernels()
+    host = host_leg(make, samples[:VIT_F32_BATCH * ZOO_CPU_STEPS],
+                    VIT_F32_BATCH, method, crit)
+    f32_want = {k: v * ZOO_CPU_STEPS for k, v in VIT_STEP.items()}
+    only_kernels(all_kernel_counts(), f32_want, "ViT float32 leg")
+    check(only_route(attn_ops.flash_attention, "f32",
+                     f32_want["flash_attention"])
+          and only_route(attn_ops.flash_attention_bwd, "f32",
+                         f32_want["flash_attention_bwd"]),
+          f"ViT float32 leg's routes {flash_routes()}")
+    part = {"config": {"model": "ViT()", "image": [224, 224, 3],
+                       "patch": 16, "d_model": 384, "heads": VIT_HEADS,
+                       "layers": 8, "classes": 1000, "batch": VIT_BATCH,
+                       "dtype": "bf16 compute, float32 params",
+                       "criterion": "ClassNLLCriterion",
+                       "method": f"SGD({VIT_LR}, momentum=0.9)"},
+            **run, "images_per_s": rate,
+            "launches_per_step": VIT_STEP,
+            "eval": {"rows": VIT_EVAL_ROWS, "batch": VIT_BATCH,
+                     "seconds": eval_s, "flash_launches": n_eval,
+                     "routes": eval_routes},
+            "cases": {"b6": b6[False], "b6_lse": b6[True], "b7": b7},
+            "host_leg": host}
+    rows = [kernel_row(b6[True], "flash_attention", *B6_SRC,
+                       step_want["flash_attention"], "zoo_data vit",
+                       fr["flash_attention"]),
+            kernel_row(b6[False], "flash_attention", *B6_SRC, n_eval,
+                       "zoo_data vit eval",
+                       eval_routes["flash_attention"]),
+            kernel_row(b7, "flash_attention_bwd", *B7_SRC,
+                       step_want["flash_attention_bwd"], "zoo_data vit",
+                       fr["flash_attention_bwd"])]
+    return part, rows
+
+
+def zd_vit_cli(root):
+    """(b) The zoo CLI's vit (D = 16) from a BDRecord shard, float32 as
+    the CLI trains; B6 and B7 at its call, D = 16."""
+    from bigdl_torch.utils.recordio import write_records
+    set_policy(DTypePolicy())
+    rs = np.random.default_rng(SEED + 9)
+    write_records(os.path.join(root, "vit"), [
+        {"data": rs.integers(0, 256, (32, 32, 3), dtype=np.uint8),
+         "label": float(i % REC_CLASSES)} for i in range(VIT_CLI_IMAGES)],
+        shards=2)
+    zero_all_kernels()
+    with logged_losses() as log, default_tf32():
+        t0 = time.perf_counter()
+        opt = zoo_run.main(["train", "--model", "vit", "--data",
+                            os.path.join(root, "vit-*"), "--batch-size",
+                            str(VIT_CLI_BATCH), "--max-iteration",
+                            str(VIT_CLI_STEPS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    check(len(log.values) == VIT_CLI_STEPS
+          and all(map(math.isfinite, log.values)),
+          f"CLI vit losses {log.values}")
+    mhas = [m for m in opt.model.modules()
+            if isinstance(m, nn.MultiHeadAttention)]
+    check(len(mhas) == VIT_CLI_LAYERS and all(
+        m.head_dim == 16 and not m.causal for m in mhas),
+        "the CLI's vit has 4 blocks of heads of 16")
+    want = {"flash_attention": VIT_CLI_LAYERS * VIT_CLI_STEPS,
+            "flash_attention_bwd": 2 * VIT_CLI_LAYERS * VIT_CLI_STEPS}
+    only_kernels(all_kernel_counts(), want, "CLI vit")
+    routes = flash_routes()
+    check(only_route(attn_ops.flash_attention, "f32",
+                     want["flash_attention"])
+          and only_route(attn_ops.flash_attention_bwd, "f32",
+                         want["flash_attention_bwd"]),
+          f"CLI vit routes {routes}")
+    del opt
+    torch.cuda.empty_cache()
+    shape = (VIT_CLI_BATCH, 4, 64, 64, 16)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    b6 = flash_case(*shape, torch.float32, False, gen, with_lse=True)
+    b7 = b7_case(*shape, torch.float32, False,
+                 torch.Generator(device="cuda").manual_seed(SEED + 10))
+    # the same call in bf16, on "tc"
+    b6_tc = flash_case(*shape, torch.bfloat16, False, gen, with_lse=True)
+    b7_tc = b7_case(*shape, torch.bfloat16, False,
+                    torch.Generator(device="cuda").manual_seed(SEED + 11))
+    bad = [c for c in (b6, b7, b6_tc, b7_tc) if not c["ok"]]
+    check(not bad, f"B6 / B7 at D = 16: {bad}")
+    part = {"steps": VIT_CLI_STEPS, "batch": VIT_CLI_BATCH,
+            "seconds": seconds, "losses": log.values, "launches": want,
+            "routes": routes,
+            "cases": {"b6_f32": b6, "b7_f32": b7, "b6_tc": b6_tc,
+                      "b7_tc": b7_tc}}
+    rows = [kernel_row(b6, "flash_attention", *B6_SRC,
+                       want["flash_attention"], "zoo_data vit cli",
+                       routes["flash_attention"]),
+            kernel_row(b7, "flash_attention_bwd", *B7_SRC,
+                       want["flash_attention_bwd"], "zoo_data vit cli",
+                       routes["flash_attention_bwd"]),
+            kernel_row(b6_tc, "flash_attention", *B6_SRC, 0,
+                       "zoo_data d16 tc case", {"tc": 0, "f32": 0}),
+            kernel_row(b7_tc, "flash_attention_bwd", *B7_SRC, 0,
+                       "zoo_data d16 tc case", {"f32": 0, "tc": 0})]
+    return part, rows
+
+
+def zd_widedeep():
+    """(c) bench.py's widedeep config, then DLClassifier and
+    UDFPredictor over the trained model."""
+    from bigdl_torch.dataset import (FeatureSpec, TabularToSample,
+                                     synthetic_criteo_records)
+    from bigdl_torch.ml import DLClassifier
+    from bigdl_torch.models import WideDeep
+    from bigdl_torch.serving import UDFPredictor
+    set_policy(DTypePolicy())
+    spec = FeatureSpec()
+    samples = list(TabularToSample(spec)(
+        synthetic_criteo_records(WD_RECORDS, spec=spec, seed=1)))
+
+    def make(device="cuda"):
+        return WideDeep.from_spec(spec, embed_dim=WD_EMBED,
+                                  hidden=WD_HIDDEN).build(
+            device, torch.Generator().manual_seed(SEED))
+
+    def method():
+        return SGD(WD_LR)
+    crit = nn.ClassNLLCriterion()
+    with default_tf32():
+        tf32 = tf32_settings()
+        run = zoo_train_run(make, samples, WD_BATCH, method, crit)
+    rate = run.pop("per_s")
+    only_kernels(run["launches"], {}, "Wide & Deep")
+    host = host_leg(make, samples, WD_BATCH, method, crit, tol=WD_CPU_ATOL)
+    # the estimator and the UDF over the model it trains
+    X = np.stack([s.feature for s in samples])
+    y = np.array([s.label for s in samples], np.float32)
+    zero_all_kernels()
+    t0 = time.perf_counter()
+    fitted = DLClassifier(make(), nn.ClassNLLCriterion(),
+                          batch_size=WD_BATCH, max_epoch=1,
+                          optim_method=SGD(WD_LR)).fit(X, y)
+    fit_s = time.perf_counter() - t0
+    udf_rows = UDFPredictor(fitted.model, postprocess=lambda o: o,
+                            batch_size=WD_BATCH)(X)
+    pred_rows = Predictor(fitted.model, batch_size=WD_BATCH).predict(X)
+    classes = UDFPredictor(fitted.model, batch_size=WD_BATCH)(X)
+    check(udf_rows.shape == (WD_RECORDS, 2) and np.array_equal(
+        udf_rows, pred_rows), "UDFPredictor's rows differ from Predictor's")
+    check(np.array_equal(classes, fitted.predict(X)),
+          "UDF classes differ from DLClassifierModel.predict")
+    only_kernels(all_kernel_counts(), {}, "DLClassifier / UDFPredictor")
+    part = {"config": {"model": "WideDeep.from_spec(FeatureSpec(), "
+                                f"embed_dim={WD_EMBED}, hidden="
+                                f"{list(WD_HIDDEN)})",
+                       "records": WD_RECORDS, "batch": WD_BATCH,
+                       "input_dim": spec.input_dim, "dtype": "float32",
+                       "criterion": "ClassNLLCriterion",
+                       "method": f"SGD({WD_LR})", "tf32": tf32},
+            **run, "records_per_s": rate, "host_leg": host,
+            "dl_classifier": {"fit_s": fit_s, "epochs": 1,
+                              "score": fitted.score(X, y),
+                              "udf_rows_equal_predictor": True}}
+    return part
+
+
+def graph_tick_device_ms(model, cache_len):
+    """The device time of one decode tick's CUDA graph (all slots) on
+    caches of ``cache_len``, replayed back to back."""
+    S = DECODE_SLOTS
+    with torch.inference_mode():
+        eng = DecodeEngine(model, slots=S, page=DECODE_PAGE)
+        with eng._on_device():
+            eng._ensure_cache(cache_len, idle=True)
+            rng = np.random.default_rng(SEED + 13)
+            tp = np.stack([rng.integers(0, LM["vocab_size"], S),
+                           rng.integers(0, cache_len, S)]).astype(np.int32)
+            for _ in range(3):
+                eng._step_all(tp)
+            graph = eng._graphs[("tick", cache_len)].graph
+            return cuda_ms(graph.replay, iters=50)
+
+
+def weight_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def zd_int8_lm():
+    """(d) quantize(TransformerLM) at the serve width: scoring through
+    InferenceServer on B6, decoding through DecodeEngine's graphs on B8;
+    returns (the part, the kernels line's rows)."""
+    from bigdl_torch.quantize import QuantMultiHeadAttention, quantize
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    model = TransformerLM(**LM).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    qmodel = quantize(model)
+    quant_s = time.perf_counter() - t0
+    check(sum(isinstance(m, QuantMultiHeadAttention)
+              for m in qmodel.modules()) == LM["num_layers"],
+          "the int8 LM's attention blocks")
+    fbytes, qbytes = weight_bytes(model), weight_bytes(qmodel)
+    # scoring
+    rs = np.random.RandomState(SEED + 11)
+    lengths = np.linspace(1, LM["max_len"], N_REQUESTS).astype(int)
+    xs = [rs.randint(0, LM["vocab_size"], (n,)).astype(np.int64)
+          for n in lengths]
+    zero_all_kernels()
+    server = InferenceServer(qmodel, seq_buckets=SEQ_BUCKETS,
+                             max_batch=MAX_BATCH, max_wait_ms=5,
+                             example=np.zeros((SEQ_BUCKETS[0],), np.int64))
+    server.start()
+    t1 = time.perf_counter()
+    handles = [server.submit(x) for x in xs]
+    outs = [h.result(300) for h in handles]
+    wall = time.perf_counter() - t1
+    server.stop()
+    stats = server.stats()
+    batches = stats["batches"] + stats["warmup_batches"]
+    serve_launches = attn_ops.flash_attention.launches
+    serve_routes = dict(attn_ops.flash_attention.route_launches)
+    only_kernels(all_kernel_counts(),
+                 {"flash_attention": LM["num_layers"] * batches},
+                 "int8 LM scoring")
+    check(only_route(attn_ops.flash_attention, "tc", serve_launches),
+          f"int8 LM scoring routes {serve_routes}")
+    predictor = Predictor(qmodel)
+    worst = 0.0
+    for x, out in zip(xs, outs):
+        seq = fit_bucket(len(x), SEQ_BUCKETS)
+        check(out.shape == (seq, LM["vocab_size"]) and np.isfinite(
+            out).all(), f"int8 answer {out.shape} for length {len(x)}")
+        ref = predictor.predict(pad_tail(x, seq)[None, :])[0]
+        worst = max(worst, float(np.abs(out - ref).max()))
+    check(worst <= SERVE_ATOL, f"int8 served vs Predictor: {worst}")
+    lat = np.array([h.latency_s for h in handles]) * 1e3
+    # decoding: the int8 engine, then the float one on the same work
+    work = decode_workload(LM["vocab_size"])
+    positions = sum(len(p) for p, _ in work)
+    budget = sum(n for _, n in work)
+    engines = {}
+    for name, m in (("int8", qmodel), ("float", model)):
+        both = run_engine(m, work, "continuous", slots=DECODE_SLOTS,
+                          page=DECODE_PAGE)
+        for run, r in both.items():
+            d = r["delta"]
+            what = f"{name} LM decode ({run})"
+            check(d["seqs_done"] == len(work) and d["seqs_failed"] == 0
+                  and d["tokens_out"] == budget, f"{what}: {d}")
+            want = LM["num_layers"] * (positions + d["decode_steps"])
+            check(r["launches"] == want and r["routes"] == {
+                "bf16": want, "f32": 0},
+                f"{what}: B8 {r['launches']} {r['routes']} != {want}")
+        check(both["warm"]["delta"]["graph_captures"] == 0 and all(
+            np.array_equal(a, b) for a, b in zip(both["cold"]["outs"],
+                                                 both["warm"]["outs"])),
+            f"{name} LM decode: warm run captured or differs")
+        warm = both["warm"]
+        engines[name] = {
+            "outs": warm["outs"], "launches": warm["launches"],
+            "routes": warm["routes"], "cache_len": warm["stats"]["cache_len"],
+            "wall_s": warm["wall"], "tokens_per_s_wall": budget / warm["wall"],
+            "decode_ticks": warm["delta"]["decode_steps"],
+            "ttlt_p50_ms": float(np.percentile(warm["ttlt"], 50)),
+            "ttlt_p99_ms": float(np.percentile(warm["ttlt"], 99)),
+            "max_memory_allocated": warm["peak"]}
+    agree, gaps = [], []
+    for k, (p, n) in enumerate(work):
+        oracle = cached_generate(qmodel, p, n, len(p) + n)
+        i, gap = tie_rule(qmodel, engines["int8"]["outs"][k], oracle,
+                          len(p), TIE_TOL[torch.bfloat16])
+        agree.append(i - len(p))
+        if gap is not None:
+            gaps.append(gap)
+    for name, m in (("int8", qmodel), ("float", model)):
+        del engines[name]["outs"]
+        engines[name]["graph_tick_device_ms"] = graph_tick_device_ms(
+            m, engines["int8"]["cache_len"])
+    # B6 at scoring's largest call and B8 at the engine's, int8 weights
+    # in front of both (the kernels see the same operands' shapes)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    b6 = flash_case(MAX_BATCH, H, LM["max_len"], LM["max_len"], D,
+                    torch.bfloat16, True, gen)
+    b8 = decode_case(DECODE_SLOTS, H, engines["int8"]["cache_len"], D,
+                     torch.bfloat16, gen)
+    check(b6["ok"] and b8["ok"], f"B6 / B8 under the int8 LM: {b6} {b8}")
+    del model, qmodel, predictor
+    torch.cuda.empty_cache()
+    part = {"config": {**LM, "quantized": "int8 weights, per-channel "
+                       "scales; bf16 compute"},
+            "quantize_s": quant_s, "weight_bytes": qbytes,
+            "float_weight_bytes": fbytes, "bytes_ratio": qbytes / fbytes,
+            "serve": {"requests": N_REQUESTS, "wall_s": wall,
+                      "requests_per_s": N_REQUESTS / wall,
+                      "p50_ms": float(np.percentile(lat, 50)),
+                      "p99_ms": float(np.percentile(lat, 99)),
+                      "batches": stats["batches"],
+                      "warmup_batches": stats["warmup_batches"],
+                      "flash_launches": serve_launches,
+                      "flash_route_launches": serve_routes,
+                      "max_abs_err_vs_predictor": worst,
+                      "tol": SERVE_ATOL},
+            "decode": {"sequences": len(work), "token_budget": budget,
+                       "prompt_positions": positions, **engines,
+                       "agreeing_tokens": agree, "tie_gaps": gaps,
+                       "tie_tol": TIE_TOL[torch.bfloat16]},
+            "cases": {"b6": b6, "b8": b8}}
+    rows = [kernel_row(b6, "flash_attention", *B6_SRC, serve_launches,
+                       "zoo_data int8 serve", serve_routes),
+            {**kernel_row(b8, "decode_attention",
+                          *B8_SRC, engines["int8"]["launches"],
+                          "zoo_data int8 decode", engines["int8"]["routes"]),
+             "floor_ms": b8["floor_ms"], "splits": b8["splits"]}]
+    return part, rows
+
+
+class GrayToSample(Transformer):
+    """A LabeledImage of three equal channels -> a one-channel Sample in
+    [0, 1] with its int32 label."""
+
+    def __call__(self, it):
+        for img in it:
+            yield Sample(img.data[..., :1] / 255.0, np.int32(img.label))
+
+
+def zd_seqfile(root):
+    """(e) SequenceFile shards streamed into LeNet-5 on the card."""
+    from bigdl_torch.dataset import seqfile
+    set_policy(DTypePolicy())
+    folder = os.path.join(root, "seq")
+    os.makedirs(folder)
+    rs = np.random.default_rng(SEED + 14)
+    for k in range(SEQ_SHARDS):
+        gray = rs.integers(0, 256, (SEQ_PER_SHARD, 28, 28), dtype=np.uint8)
+        seqfile.write_seq_file(
+            os.path.join(folder, f"part-{k:05d}.seq"),
+            [(f"img{k}_{i}", i % 10, np.repeat(gray[i][..., None], 3, 2))
+             for i in range(SEQ_PER_SHARD)])
+    ds = DataSet.seq_file_folder(folder)
+    check(ds.size() == SEQ_SHARDS * SEQ_PER_SHARD, f"seq records {ds.size()}")
+    model = LeNet5(10).build("cuda", torch.Generator().manual_seed(SEED))
+    zero_all_kernels()
+    with logged_losses() as log:
+        t0 = time.perf_counter()
+        opt = Optimizer(model, ds.transform(GrayToSample()),
+                        nn.ClassNLLCriterion(), batch_size=SEQ_BATCH)
+        opt.set_optim_method(SGD(0.05))
+        opt.set_end_when(Trigger.max_iteration(SEQ_STEPS))
+        opt.optimize()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    check(len(log.values) == SEQ_STEPS and all(map(math.isfinite,
+                                                   log.values)),
+          f"LeNet-5 from SequenceFile shards: losses {log.values}")
+    only_kernels(all_kernel_counts(), {}, "LeNet-5 from SequenceFile")
+    return {"shards": SEQ_SHARDS, "records": ds.size(),
+            "bytes": sum(os.path.getsize(p) for p in
+                         seqfile.find_seq_files(folder)),
+            "steps": SEQ_STEPS, "batch": SEQ_BATCH, "losses": log.values,
+            "seconds": seconds}
+
+
+def zd_perf_cli(rates):
+    """(e) ``python -m bigdl_torch.tools.perf`` on the card, each model in
+    its own process; beside the same model's rate from an earlier phase
+    of this run, where it ran."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    out = {}
+    for name in PERF_MODELS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bigdl_torch.tools.perf", "--model", name,
+             "--batch-size", str(PERF_BATCH), "--iters", str(PERF_ITERS)],
+            capture_output=True, text=True, timeout=PERF_TIMEOUT, cwd=here,
+            env=env)
+        check(proc.returncode == 0, f"perf --model {name}: "
+              f"{proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(res["records_per_second"] > 0 and math.isfinite(
+            res["timing"]["last_loss"]), f"perf --model {name}: {res}")
+        out[name] = {**res, "process_s": time.perf_counter() - t0,
+                     "earlier_phase": rates.get(name)}
+    return out
+
+
+def phase_zoo_data(rates=None):
+    """The zoo's last models and the data half on the card (module
+    docstring, 19); returns the kernels line's rows."""
+    t0 = time.perf_counter()
+    vit, rows = zd_vit()
+    emit({"phase": "zoo_data", "part": "vit", "gpu": gpu_line(), **vit})
+    with tempfile.TemporaryDirectory() as root:
+        cli, cli_rows = zd_vit_cli(root)
+        rows += cli_rows
+        emit({"phase": "zoo_data", "part": "vit_cli", "gpu": gpu_line(),
+              **cli})
+        wd = zd_widedeep()
+        emit({"phase": "zoo_data", "part": "widedeep", "gpu": gpu_line(),
+              **wd})
+        lm, lm_rows = zd_int8_lm()
+        rows += lm_rows
+        emit({"phase": "zoo_data", "part": "int8_lm", "gpu": gpu_line(),
+              **lm})
+        seq = zd_seqfile(root)
+        perf = zd_perf_cli(rates or {})
+        emit({"phase": "zoo_data", "part": "seqfile_perf",
+              "gpu": gpu_line(), "seqfile": seq, "perf": perf})
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    emit({"phase": "zoo_data", "gpu": gpu_line(),
+          "vit": {k: vit[k] for k in ("median_step_ms", "images_per_s",
+                                      "max_memory_allocated")},
+          "vit_idle_share": vit["profile"].get("device_idle_share"),
+          "vit_busy_ms_per_step": vit["profile"].get(
+              "device_busy_ms_per_step"),
+          "vit_launches_per_step": vit["profile"].get("launches_per_step"),
+          "vit_host_leg_max_abs_diff": vit["host_leg"]["max_abs_diff"],
+          "widedeep": {k: wd[k] for k in ("median_step_ms", "records_per_s",
+                                          "max_memory_allocated")},
+          "widedeep_host_leg_max_abs_diff": wd["host_leg"]["max_abs_diff"],
+          "int8_bytes_ratio": lm["bytes_ratio"],
+          "int8_tokens_per_s": lm["decode"]["int8"]["tokens_per_s_wall"],
+          "float_tokens_per_s": lm["decode"]["float"]["tokens_per_s_wall"],
+          "int8_graph_tick_device_ms":
+              lm["decode"]["int8"]["graph_tick_device_ms"],
+          "float_graph_tick_device_ms":
+              lm["decode"]["float"]["graph_tick_device_ms"],
+          "perf_images_per_s": {k: v["records_per_second"]
+                                for k, v in perf.items()},
           "wall_s": time.perf_counter() - t0})
     return rows
 
@@ -6150,6 +6799,10 @@ def main():
         phase_build()
         phase_train_zoo()
         return 0
+    if sys.argv[1:3] == ["--only", "zoo_data"]:
+        phase_build()
+        phase_zoo_data()
+        return 0
     if sys.argv[1:3] == ["--only", "data_parallel"]:
         phase_build()
         phase_dp_train(None)
@@ -6186,6 +6839,11 @@ def main():
     phase_train_ptb()
     phase_layers()
     rows += phase_train_zoo()
+    rows += phase_zoo_data({
+        "inception_v1": phase_train_zoo.rates["inception_v1"],
+        "resnet50": {"phase": "train", "images_per_s":
+                     TRAIN_BATCH / (step_ms / 1e3),
+                     "config": "fused, bf16, batch 256"}})
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

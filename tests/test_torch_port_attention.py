@@ -113,7 +113,7 @@ def test_cpu_route_launches_no_kernel():
 
 
 @pytest.mark.parametrize("shape,dtype,kw,err", [
-    ((1, 2, 8, 16), torch.float32, {}, ValueError),        # no D=16 instance
+    ((1, 2, 8, 24), torch.float32, {}, ValueError),        # no D=24 instance
     ((1, 2, 8, 64), torch.float16, {}, TypeError),         # fp16 not built
     ((1, 2, 8, 64), torch.float32, {"block_q": 256}, ValueError),
     ((1, 2, 8, 64), torch.bfloat16, {"block_k": 64}, ValueError),  # f32's

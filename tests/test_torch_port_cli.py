@@ -128,8 +128,9 @@ def test_resnet20_from_shards(tmp_path):
 @pytest.mark.parametrize("name,item", [("vgg", "item 7"), ("vit", "item 7"),
                                        ("alexnet", "item 7")])
 def test_unported_models_raise(name, item):
-    """``vit`` raises, naming its item; ``vgg`` and ``alexnet``, ported
-    since, build with the reference's input spec and criterion."""
+    """A name the port has no model for raises, naming its item; ``vgg``,
+    ``alexnet`` and ``vit``, ported since, build with the reference's
+    input spec and criterion."""
     if name in trun._NOT_PORTED:
         with pytest.raises(NotImplementedError, match=item):
             trun._build_model(name, 10)

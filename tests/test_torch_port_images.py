@@ -138,8 +138,24 @@ def test_image_folder_reader_and_etl_like_reference(tmp_path):
         assert tn == jn == 10
         assert [open(p, "rb").read() for p in tp] == \
             [open(p, "rb").read() for p in jp]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tgen.main(["--folder", folder, "--output", "x", "--from-seq"])
+    # --from-seq: SequenceFile shards to the same BDRecord bytes
+    from bigdl_tpu.dataset import seqfile as jseq
+    seqdir = tmp_path / "seq"
+    seqdir.mkdir()
+    rs = np.random.RandomState(9)
+    for k in range(2):
+        jseq.write_seq_file(str(seqdir / f"part-{k}.seq"), [
+            (f"img{k}{i}", i % 4, rs.randint(0, 256, (5, 6, 3)))
+            for i in range(7)], sync_interval=3)
+    tp, tn = tgen.main(["--folder", str(seqdir), "--output",
+                        str(tmp_path / "ts" / "s"), "--shards", "3",
+                        "--from-seq", "--class-num", "2"])
+    (tmp_path / "js").mkdir()   # the reference's writer makes no folder
+    jp, jn = jgen.convert_seq(str(seqdir), str(tmp_path / "js" / "s"),
+                              shards=3, class_num=2, quiet=True)
+    assert tn == jn == 12
+    assert [open(p, "rb").read() for p in tp] == \
+        [open(p, "rb").read() for p in jp]
 
 
 def _mt_batches(mod, threads, bs=4, n=10, pad_last=False, drop_last=False):

@@ -291,8 +291,26 @@ def test_streaming_threads_and_cached_sources(tmp_path):
     with pytest.raises(ValueError):
         TStream(paths[:7], distributed=True, process_index=0,
                 process_count=2)._plan(np.arange(7))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TDataSet.seq_file_folder(str(tmp_path))
+    # SequenceFile shards stream as the reference streams them
+    from bigdl_tpu.dataset import seqfile as jseq
+    seqdir = tmp_path / "seq"
+    seqdir.mkdir()
+    rs = np.random.RandomState(3)
+    for k in range(3):
+        jseq.write_seq_file(str(seqdir / f"p{k}.seq"), [
+            (i % 5, rs.randint(0, 256, (4, 3, 3))) for i in range(6)])
+    for class_num in (None, 3):
+        ts = TDataSet.seq_file_folder(str(seqdir), class_num=class_num)
+        js = JDataSet.seq_file_folder(str(seqdir), class_num=class_num)
+        assert ts.size() == js.size()
+        ts.shuffle()
+        js.shuffle()
+        for train in (False, True):
+            a, b = list(ts.data(train)), list(js.data(train))
+            assert len(a) == len(b) == ts.size()
+            for u, w in zip(a, b):
+                assert u.label == w.label and u.data.dtype == w.data.dtype
+                assert np.array_equal(u.data, w.data)
 
 
 def test_host_kernels_equal_python_routes(monkeypatch):

@@ -189,7 +189,34 @@ def test_pairs_cover_the_port():
               "models.inception:Inception_Layer_v2",
               "models.textclassifier:TextClassifier",
               "models.treelstm_sentiment:encode_tree",
-              "models.vgg:VggForCifar10", "models.alexnet:AlexNet"):
+              "models.vgg:VggForCifar10", "models.alexnet:AlexNet",
+              # the zoo's last models and the data half
+              "models.vit:ViT", "models.widedeep:WideDeep.__init__",
+              "models.widedeep:WideDeep.from_spec",
+              "dataset.recsys:FeatureSpec.__init__",
+              "dataset.recsys:hash_bucket", "dataset.recsys:cross_bucket",
+              "dataset.recsys:synthetic_criteo_records",
+              "dataset.recsys:write_criteo_shards",
+              "dataset.text:Dictionary.__init__",
+              "dataset.text:LabeledSentenceToSample.__init__",
+              "dataset.providers:load_mnist",
+              "dataset.providers:load_labeled_text_dir",
+              "dataset.providers:fetch_file",
+              "dataset.seqfile:write_seq_file",
+              "dataset.seqfile:read_byte_records",
+              "dataset.seqfile:SeqFileDataSet.__init__",
+              "dataset.seqfile:seq_file_folder",
+              "dataset:DataSet.seq_file_folder",
+              "quantize:quantize_array", "quantize:quantize",
+              "quantize:QuantLinear.__init__",
+              "quantize:QuantSpatialConvolution.__init__",
+              "quantize:QuantLookupTable.__init__",
+              "serve.batcher:predict_in_fixed_batches",
+              "serving:UDFPredictor.__init__",
+              "serving:TextClassifierUDF.__init__",
+              "ml:DLEstimator.__init__", "ml:DLEstimator.fit",
+              "ml:DLModel.__init__", "ml:DLClassifierModel.score",
+              "tools.perf:run", "tools.record_generator:convert_seq"):
         assert k in keys, k
     assert len(PAIRS) > 300
 

@@ -321,9 +321,13 @@ def test_cli_builds_new_models_like_reference(name):
 
 
 def test_cli_vit_still_raises():
-    assert trun._NOT_PORTED == ("vit",)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trun._build_model("vit", 10)
+    """Every model of the reference's CLI is ported: ``vit`` builds as
+    the reference's does (its parity is ``test_torch_port_vit.py``'s)."""
+    assert trun._NOT_PORTED == ()
+    tmodel, tspec, tcrit = trun._build_model("vit", 10)
+    jmodel, jspec, jcrit = jrun._build_model("vit", 10)
+    assert (tspec, tcrit) == (jspec, jcrit)
+    assert _leaves(tmodel) == _leaves(jmodel)
 
 
 def test_alexnet_forward_shape():
