@@ -146,9 +146,13 @@ rank before rank 0 writes the reference's whole tree, and a resumed state
 is cut back to each rank's slices, so snapshots move between ZeRO and
 ``DataParallel`` runs of either package.
 
-Not ported yet: ``set_checkpoint(publish=...)`` (ROADMAP queue A item 5),
-the elastic recovery (item 6), ``TensorParallel`` and ``LayoutSharding``
-(item 8).
+``set_checkpoint(publish=True)`` makes every ``publish_every``-th
+snapshot a release (``serve/continuous.ReleasePublisher``) that a
+``DeployController`` canaries into a live server; an asynchronous write
+publishes once its bytes are on storage.
+
+Not ported yet: the elastic recovery (ROADMAP queue A item 6),
+``TensorParallel`` and ``LayoutSharding`` (item 8).
 """
 
 from __future__ import annotations
@@ -634,6 +638,11 @@ class Optimizer:
         self.ckpt_keep_every_epochs: Optional[int] = None
         self._ckpt_keepers: set = set()
         self._kept_epoch_block = 0
+        # release publication (set_checkpoint(publish=...))
+        self.publish_dir: Optional[str] = None
+        self.publish_every = 1
+        self._publisher = None
+        self._publish_count = 0
         self.grad_clip_const = None
         self.grad_clip_norm = None
         self.checkpoint_async = False
@@ -740,18 +749,22 @@ class Optimizer:
         keeps only the newest K pairs; ``keep_every_epochs`` also keeps the
         first snapshot of every N-th epoch.  None defers to
         ``BIGDL_TORCH_CKPT_KEEP_LAST`` / ``_CKPT_KEEP_EVERY_EPOCHS``; 0
-        keeps all.  Publication is not ported and raises."""
-        if publish:
-            raise NotImplementedError(
-                "set_checkpoint(publish=...): release publication feeds the "
-                "serving stack's deploy controller and is not ported yet "
-                "(ROADMAP queue A item 5)")
+        keeps all.
+
+        ``publish=True`` writes a release entry into ``path`` for every
+        ``publish_every``-th snapshot (a string publishes into that
+        directory instead): the feed a ``serve.DeployController`` watches.
+        Rank 0 publishes, an asynchronous snapshot once its write is
+        done."""
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger
         self.is_overwrite = is_overwrite
         self.checkpoint_async = async_write
         self.ckpt_keep_last = keep_last
         self.ckpt_keep_every_epochs = keep_every_epochs
+        self.publish_dir = (path if publish is True else (publish or None))
+        self.publish_every = max(int(publish_every), 1)
+        self._publisher = None
         return self
 
     def set_train_summary(self, summary):
@@ -1241,12 +1254,14 @@ class Optimizer:
                                        for k, v in state.items()
                                        if not k.startswith("_")},
                       "torch_rng_state": rng_state}
+        write = None
         if is_async:
             event = done()
             self._snap_event = event
-            self._ckpt_futures.append(file_io.save_checkpoint_async(
+            write = file_io.save_checkpoint_async(
                 self.checkpoint_path, neval, model_blob, optim_blob,
-                overwrite=self.is_overwrite, ready=event))
+                overwrite=self.is_overwrite, ready=event)
+            self._ckpt_futures.append(write)
         else:
             file_io.save_checkpoint(self.checkpoint_path, neval, model_blob,
                                     optim_blob, overwrite=self.is_overwrite)
@@ -1254,7 +1269,45 @@ class Optimizer:
                     "queued (async)" if is_async else "written", neval,
                     self.checkpoint_path,
                     " (preemption's final snapshot)" if preempt else "")
+        if self.publish_dir:
+            self._maybe_publish(neval, state, write)
         self._apply_retention(neval, state)
+
+    def _maybe_publish(self, neval, state, write=None):
+        """Every ``publish_every``-th snapshot becomes a release entry
+        (``serve/continuous.ReleasePublisher``); ``write`` is the future of
+        an asynchronous snapshot, published once it is done (never one
+        that failed).  A failed publication is logged: training goes on
+        and the deploy side sees no new release."""
+        self._publish_count += 1
+        if (self._publish_count - 1) % self.publish_every:
+            return
+        model_path = file_io._join(
+            file_io._strip_file_scheme(self.checkpoint_path),
+            f"model.{neval}")
+        info = {"neval": int(neval), "epoch": int(state.get("epoch", 0)),
+                "iteration": int(neval),
+                "metrics": {k: float(v) for k, v in state.items()
+                            if isinstance(v, (int, float))
+                            and not k.startswith("_")}}
+
+        def publish(fut=None):
+            if fut is not None and (fut.cancelled()
+                                    or fut.exception() is not None):
+                return
+            try:
+                if self._publisher is None:
+                    from ..serve.continuous import ReleasePublisher
+                    self._publisher = ReleasePublisher(self.publish_dir)
+                self._publisher.publish(model_path, **info)
+            except Exception:  # noqa: BLE001 - downstream of training
+                logger.exception("release publish for %s failed (training "
+                                 "continues; the deploy controller sees "
+                                 "no new release)", model_path)
+        if write is not None:
+            write.add_done_callback(publish)
+        else:
+            publish()
 
     def _apply_retention(self, neval, state):
         """Keep-last-K and keep-every-N-epochs pruning after each write;

@@ -1,7 +1,7 @@
 """Dynamic request batching: coalesce single requests into fixed shapes.
 
-Counterpart of ``bigdl_tpu/serve/batcher.py`` (the host-side half of the
-serving subsystem), without its chaos, tracing and metrics hooks:
+Counterpart of ``bigdl_tpu/serve/batcher.py``, all of it (the host-side
+half of the serving subsystem):
 
 - :class:`DynamicBatcher`: producers ``submit()`` single samples, replica
   workers ``collect()`` batches.  A batch flushes when ``max_batch``
@@ -22,6 +22,15 @@ serving subsystem), without its chaos, tracing and metrics hooks:
   queued token budget.
 - :func:`pad_rows` pads a batch's rows to a bucket and, with ``length=``,
   its trailing axis too (zeros; it refuses to truncate).
+- A condemned replica hands its collected batch back to the queue's head
+  with :meth:`DynamicBatcher.requeue`: no admitted request is lost.
+- Hooks: the ``serve.request`` fault point at every admission; with a
+  tracer active (``utils/telemetry``) a request id minted at admission
+  (or the caller's ``request_id``) and its flow (``queue.enqueue``, then
+  ``resolve``), a ``serve.request`` span when it resolves and the
+  ``serve`` counter track's queue depth; with the metrics registry armed
+  (``utils/metrics_export``) the request's latency and status and every
+  shed by cause.  Unarmed, each costs an ``is None`` check.
 
 Everything is clock-injectable.
 """
@@ -34,6 +43,8 @@ import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from ..utils import chaos, metrics_export, telemetry
 
 __all__ = ["ServeError", "ServerOverloaded", "ServerClosed",
            "RequestTimeout", "PendingRequest", "DynamicBatcher",
@@ -70,29 +81,53 @@ class PendingRequest:
     row, or raises the typed error the server recorded."""
 
     __slots__ = ("payload", "enqueued", "deadline", "tenant", "priority",
-                 "latency_s", "_event", "_result", "_error")
+                 "version", "latency_s", "rid", "rid_owner",
+                 "_event", "_result", "_error")
 
     def __init__(self, payload, enqueued: float,
                  deadline: Optional[float] = None,
-                 tenant: Optional[str] = None, priority: int = 0):
+                 tenant: Optional[str] = None, priority: int = 0,
+                 rid: Optional[str] = None, rid_owner: bool = False):
         self.payload = payload
         self.enqueued = enqueued
         self.deadline = deadline
         self.tenant = tenant           # quota / accounting tag
         self.priority = int(priority)  # higher = shed later
+        self.version = None            # the model version that answered
         self.latency_s = None          # enqueue -> resolve
+        self.rid = rid                 # request flow id (telemetry)
+        self.rid_owner = rid_owner     # minted here: this process ends it
         self._event = threading.Event()
         self._result = None
         self._error = None
 
-    def _resolve(self, result=None, error=None,
+    def _resolve(self, result=None, error=None, version=None,
                  now: Optional[float] = None) -> None:
         if self._event.is_set():  # first resolution wins
             return
         self._result = result
         self._error = error
+        self.version = version
+        status = type(error).__name__ if error is not None else "ok"
         if now is not None:
             self.latency_s = max(now - self.enqueued, 0.0)
+            if self.rid is None:
+                telemetry.complete("serve.request", self.latency_s,
+                                   cat="serve", status=status)
+            else:
+                telemetry.complete("serve.request", self.latency_s,
+                                   cat="serve", status=status, req=self.rid)
+            reg = metrics_export._REGISTRY
+            if reg is not None:
+                reg.observe_request(self.latency_s, status)
+        if self.rid is not None:
+            # the minter closes the flow; an id that arrived from upstream
+            # gets a step (its minter owns the end)
+            if self.rid_owner:
+                telemetry.flow_finish(self.rid, hop="resolve",
+                                      status=status)
+            else:
+                telemetry.flow_step(self.rid, hop="resolve", status=status)
         self._event.set()
 
     def done(self) -> bool:
@@ -106,6 +141,13 @@ class PendingRequest:
         if self._error is not None:
             raise self._error
         return self._result
+
+
+def _metrics_shed(cause: str) -> None:
+    """Count one shed on the metrics registry (nothing when unarmed)."""
+    reg = metrics_export._REGISTRY
+    if reg is not None:
+        reg.shed(cause)
 
 
 def default_buckets(max_batch: int) -> tuple:
@@ -214,6 +256,7 @@ class DynamicBatcher:
         self._q: collections.deque = collections.deque()
         self._cond = threading.Condition()
         self._closed = False
+        self._drain = True
         self.submitted = 0
         self.shed_overload = 0
         self.shed_timeout = 0
@@ -237,6 +280,7 @@ class DynamicBatcher:
                 expired.append(r)
                 self.shed_timeout += 1
                 self._count_shed(r.priority)
+                _metrics_shed("timeout")
             else:
                 live.append(r)
         self._q = live
@@ -255,13 +299,28 @@ class DynamicBatcher:
         self._row_s_ema = per if self._row_s_ema is None else \
             0.8 * self._row_s_ema + 0.2 * per
 
+    def service_row_seconds(self) -> Optional[float]:
+        """The EMA seconds a row (None before the first served batch):
+        the service rate behind ``retry_after_s`` and the autoscaler's
+        queue-wait estimate (``serve/autoscale.py``)."""
+        return self._row_s_ema
+
     def submit(self, payload, deadline: Optional[float] = None, *,
                tenant: Optional[str] = None,
-               priority: int = 0) -> PendingRequest:
+               priority: int = 0,
+               request_id: Optional[str] = None) -> PendingRequest:
         """Enqueue one sample; raises :class:`ServerOverloaded` when the
         bounded queue is full, :class:`ServerClosed` after shutdown.
         ``deadline`` is absolute, on this batcher's clock; ``tenant`` tags
-        the request for quotas and accounting."""
+        the request for quotas and accounting.  ``request_id`` is a flow
+        id minted upstream (the ``X-BigDL-Request-Id`` header); without
+        one, and with a tracer active, one is minted here and this process
+        ends its flow."""
+        chaos.fire("serve.request")  # the admission path's fault point
+        rid, rid_owner = request_id, False
+        if rid is None:
+            rid = telemetry.mint_request_id()  # None when tracing is off
+            rid_owner = rid is not None
         expired: List[PendingRequest] = []
         victim: Optional[PendingRequest] = None
         with self._cond:
@@ -278,19 +337,28 @@ class DynamicBatcher:
                     victim = cand
                     self.shed_priority += 1
                     self._count_shed(cand.priority)
+                    _metrics_shed("priority")
                 else:
                     self.shed_overload += 1
                     self._count_shed(int(priority))
+                    _metrics_shed("overloaded")
                     retry = self.retry_after_s()
                     raise ServerOverloaded(
                         f"serve: request queue full ({self.queue_limit} "
                         f"waiting, none below priority {int(priority)}); "
                         f"retry in {retry}s", retry_after_s=retry)
             req = PendingRequest(payload, self.clock(), deadline,
-                                 tenant=tenant, priority=priority)
+                                 tenant=tenant, priority=priority,
+                                 rid=rid, rid_owner=rid_owner)
             self._q.append(req)
             self.submitted += 1
+            depth = len(self._q)
             self._cond.notify_all()
+        if rid is not None:
+            if rid_owner:
+                telemetry.flow_start(rid, hop="queue.enqueue", depth=depth)
+            else:
+                telemetry.flow_step(rid, hop="queue.enqueue", depth=depth)
         now = self.clock()
         for r in expired:
             r._resolve(error=RequestTimeout(
@@ -303,6 +371,7 @@ class DynamicBatcher:
                 f"{int(priority)} arrival (this request: priority "
                 f"{victim.priority}); retry in {retry}s",
                 retry_after_s=retry), now=now)
+        telemetry.counter("serve", queue_depth=depth)
         return req
 
     def depth(self) -> int:
@@ -312,16 +381,25 @@ class DynamicBatcher:
 
     # -- workers --------------------------------------------------------
 
-    def collect(self) -> Optional[List[PendingRequest]]:
+    def collect(self, heartbeat: Optional[Callable] = None,
+                stop_when: Optional[Callable] = None
+                ) -> Optional[List[PendingRequest]]:
         """Block until a batch is ready, the coalesce window expires, or
         shutdown.  Returns up to ``max_batch`` live requests (possibly []
         when every dequeued one had expired), or None when the batcher is
-        closed and, if draining, empty."""
+        closed and, if draining, empty.  ``heartbeat`` is called every wait
+        slice, so a parked worker's heartbeat stays fresh; ``stop_when``,
+        checked every slice of an empty queue, retires a parked worker
+        without closing the batcher (a pool shrink)."""
         with self._cond:
             while not self._q:
                 if self._closed:
                     return None
+                if stop_when is not None and stop_when():
+                    return None
                 self._cond.wait(self._SLICE)
+                if heartbeat is not None:
+                    heartbeat()
             # from the oldest request's enqueue time, hold the flush up to
             # max_wait_s hoping to fill the batch
             flush_at = self._q[0].enqueued + self.max_wait_s
@@ -330,6 +408,8 @@ class DynamicBatcher:
                 if remaining <= 0:
                     break
                 self._cond.wait(min(remaining, self._SLICE))
+                if heartbeat is not None:
+                    heartbeat()
             reqs = [self._q.popleft()
                     for _ in range(min(len(self._q), self.max_batch))]
         return self._shed_expired(reqs)
@@ -345,6 +425,7 @@ class DynamicBatcher:
                 with self._cond:
                     self.shed_timeout += 1
                     self._count_shed(r.priority)
+                _metrics_shed("timeout")
                 r._resolve(error=RequestTimeout(
                     f"serve: deadline exceeded after "
                     f"{now - r.enqueued:.3f}s in queue{where}"), now=now)
@@ -355,6 +436,29 @@ class DynamicBatcher:
     def bucket_for(self, n: int) -> int:
         """Smallest bucket >= n (n is capped at max_batch by collect)."""
         return fit_bucket(n, self.buckets) or self.buckets[-1]
+
+    def requeue(self, reqs: Sequence[PendingRequest]) -> None:
+        """Hand collected, unserved requests back to the queue's head in
+        their order: a condemned or dying replica loses no admitted
+        request.  After a close without drain nobody is left to serve
+        them, so they fail typed instead."""
+        reqs = [r for r in reqs if not r.done()]
+        if not reqs:
+            return
+        stranded = None
+        with self._cond:
+            if self._closed and not self._drain:
+                stranded = reqs
+            else:
+                for r in reversed(reqs):
+                    self._q.appendleft(r)
+                self._cond.notify_all()
+        if stranded:
+            now = self.clock()
+            for r in stranded:
+                r._resolve(error=ServerClosed(
+                    "serve: server stopped before this request ran"),
+                    now=now)
 
     def fail_pending(self, error: Optional[Exception] = None) -> int:
         """Resolve everything still queued with a typed error (default
@@ -376,6 +480,7 @@ class DynamicBatcher:
         drain=False fails everything still queued with ServerClosed."""
         with self._cond:
             self._closed = True
+            self._drain = drain
             self._cond.notify_all()
         if not drain:
             self.fail_pending()
@@ -428,9 +533,10 @@ class DecodeQueue(DynamicBatcher):
 
     def submit(self, payload, deadline: Optional[float] = None, *,
                tenant: Optional[str] = None,
-               priority: int = 0) -> PendingRequest:
+               priority: int = 0,
+               request_id: Optional[str] = None) -> PendingRequest:
         req = super().submit(payload, deadline, tenant=tenant,
-                             priority=priority)
+                             priority=priority, request_id=request_id)
         with self._cond:
             self._pending_tokens += self._budget(payload)
         return req

@@ -37,9 +37,20 @@ Counterpart of ``bigdl_tpu/serve/decode.py``:
   of a tick is the [slots, vocab] log-prob row sampling needs, brought
   back through a pinned buffer.
 
-Not ported: the reference's chaos points, telemetry counter and request
-flows, the time-to-last-token metric, trace recording, the persistent
-compile cache and its compile cards.  ``mesh=`` raises
+- Hooks, all on the host around the steps and never inside a captured
+  graph: the ``serve.decode@<slot>`` fault point at each admission into a
+  slot and at each tick of an active slot (a fault fails that sequence
+  with :class:`SlotFault` and frees the slot; the others decode on); with
+  a tracer active (``utils/telemetry``) each sequence's flow
+  (``decode.admit``, one ``decode.tick`` a token, ``decode.fault``) and
+  the ``serve.decode`` counter track a tick (tokens/s, slot fill, prefill
+  and decode shares, cache bytes); with the metrics registry armed the
+  ``bigdl_decode_ttlt_seconds`` histogram (time to last token).
+- ``record_trace`` / ``stop_trace`` capture offered sequences with their
+  generation settings (``serve/tracefile.py``).
+
+Not ported: the persistent compile cache and its compile cards (the CUDA
+graphs are the port's warm start).  ``mesh=`` raises
 ``NotImplementedError``.
 
 Knobs (``utils/config``; constructor arguments override):
@@ -64,7 +75,7 @@ from ..common import get_policy, resolve_device
 from ..models import decode as kv
 from ..models.transformer_lm import PositionalEmbedding, sample_next
 from ..ops.decode_attention import count_replay, counting_captures
-from ..utils import config
+from ..utils import chaos, config, metrics_export, telemetry
 from .batcher import DecodeQueue, PendingRequest, ServeError
 from .control import TenantQuotas
 
@@ -234,8 +245,9 @@ class DecodeEngine:
             self._stream = torch.cuda.Stream(self.device)
             self._done = torch.cuda.Event()
             self._pool = torch.cuda.graph_pool_handle()
+        self._recorder = None     # serve/tracefile.TraceRecorder
         self._thread: Optional[threading.Thread] = None
-        # cumulative counters (stats())
+        # cumulative counters (stats(), the serve.decode track)
         self.prefill_steps = 0
         self.decode_steps = 0
         self.tokens_out = 0
@@ -278,14 +290,16 @@ class DecodeEngine:
                deadline_ms: Optional[float] = None,
                tenant: Optional[str] = None, priority: int = 0,
                temperature: float = 0.0, top_k: int = 0,
-               eos_token=_UNSET, seed: int = 0) -> PendingRequest:
+               eos_token=_UNSET, seed: int = 0,
+               request_id: Optional[str] = None) -> PendingRequest:
         """Enqueue one sequence; returns a handle whose ``result()`` is the
         full int32 token row (prompt + generated, ``cached_generate``'s
         contract, cut after EOS).  Typed rejections: ServeError (a bad
         request), QuotaExceeded, ServerOverloaded, ServerClosed;
         RequestTimeout resolves later if the time-to-last-token deadline
         passes in the queue.  Sampling (temperature > 0) draws from a CPU
-        ``torch.Generator`` seeded with ``seed``."""
+        ``torch.Generator`` seeded with ``seed``.  ``request_id`` is an
+        upstream flow id (``X-BigDL-Request-Id``)."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.shape[0] == 0:
             raise ServeError("decode: prompt must be a non-empty 1-D "
@@ -304,16 +318,43 @@ class DecodeEngine:
         dl_ms = self.default_deadline_ms \
             if deadline_ms is None else float(deadline_ms)
         deadline = self.clock() + dl_ms / 1e3 if dl_ms > 0 else None
-        payload = {"max_tokens": max_tokens,
-                   "temperature": float(temperature), "top_k": int(top_k),
-                   "seed": int(seed), "prompt": prompt, "eos": eos}
+        gen = {"max_tokens": max_tokens, "temperature": float(temperature),
+               "top_k": int(top_k), "seed": int(seed)}
+        if eos is not None:
+            gen["eos_token"] = int(eos)
+        if self._recorder is not None:
+            self._recorder.note(prompt, tenant=tenant, priority=priority,
+                                deadline_ms=dl_ms if dl_ms > 0 else None,
+                                gen=gen)
+        payload = dict(gen, prompt=prompt, eos=eos)
         return self.queue.submit(payload, deadline, tenant=tenant,
-                                 priority=priority)
+                                 priority=priority, request_id=request_id)
 
     def generate(self, prompt, max_tokens: int,
                  timeout: Optional[float] = 120.0, **kw) -> np.ndarray:
         """Blocking convenience wrapper around :meth:`submit`."""
         return self.submit(prompt, max_tokens, **kw).result(timeout)
+
+    # -- trace recording (the server's contract) ------------------------
+
+    def record_trace(self, path: Optional[str] = None, *, limit=None):
+        """Arm offered-sequence recording; returns the recorder (the same
+        path again is a no-op)."""
+        from .tracefile import TraceRecorder
+        if self._recorder is not None and (path is None or
+                                           self._recorder.path == path):
+            return self._recorder
+        self._recorder = TraceRecorder(clock=self.clock, limit=limit,
+                                       path=path)
+        return self._recorder
+
+    def stop_trace(self, path: Optional[str] = None):
+        """Disarm recording, writing the trace where a path is armed or
+        given; returns the recorder."""
+        rec, self._recorder = self._recorder, None
+        if rec is not None and (path or rec.path):
+            rec.save(path)
+        return rec
 
     # -- (slots, cache-page) ladder -------------------------------------
 
@@ -434,6 +475,7 @@ class DecodeEngine:
         return g.out
 
     def _loop(self) -> None:
+        telemetry.thread_name("decode engine")
         # inference mode, the current device and stream are per thread
         with torch.inference_mode(), self._on_device():
             while True:
@@ -457,6 +499,9 @@ class DecodeEngine:
     def _fail_slot(self, s: int, err: Exception) -> None:
         seq = self._slots[s]
         if seq is not None:
+            if seq.req.rid is not None:
+                telemetry.flow_step(seq.req.rid, hop="decode.fault",
+                                    slot=s, error=type(err).__name__)
             seq.req._resolve(error=err, now=self.clock())
             self._slots[s] = None
             self.seqs_failed += 1
@@ -464,7 +509,12 @@ class DecodeEngine:
     def _finish_slot(self, s: int) -> None:
         seq = self._slots[s]
         out = seq.buf[: seq.t0 + seq.emitted].copy()
-        seq.req._resolve(result=out, now=self.clock())
+        seq.req._resolve(result=out, version="decode", now=self.clock())
+        reg = metrics_export._REGISTRY
+        if reg is not None and seq.req.latency_s is not None:
+            reg.observe("bigdl_decode_ttlt_seconds", seq.req.latency_s,
+                        help="time to last token (submit to full row), "
+                             "seconds")
         self._slots[s] = None
         self.seqs_done += 1
 
@@ -481,6 +531,9 @@ class DecodeEngine:
         seq.buf[seq.pos] = tok
         seq.emitted += 1
         self.tokens_out += 1
+        if seq.req.rid is not None:
+            telemetry.flow_step(seq.req.rid, hop="decode.tick", slot=s,
+                                n=seq.emitted)
         if (seq.eos is not None and tok == seq.eos) or \
                 seq.emitted >= seq.max_tokens:
             self._finish_slot(s)
@@ -536,6 +589,14 @@ class DecodeEngine:
         seq = _Seq(req, p["prompt"], p["max_tokens"], p["eos"],
                    p["temperature"], p["top_k"], generator)
         self._slots[s] = seq
+        if req.rid is not None:
+            telemetry.flow_step(req.rid, hop="decode.admit", slot=s,
+                                prompt_len=len(p["prompt"]))
+        try:
+            chaos.fire(f"serve.decode@{s}", thread_exc=SlotFault)
+        except Exception as e:  # noqa: BLE001 - typed per-sequence fail
+            self._fail_slot(s, e)
+            return
         try:
             logits = self._prefill(s, p["prompt"])
         except Exception as e:  # noqa: BLE001 - typed per-sequence fail
@@ -570,6 +631,12 @@ class DecodeEngine:
         # every still-active slot (freshly prefilled ones too: their first
         # token is already in the buffer) advances one position
         active = [s for s in range(self.slots) if self._slots[s] is not None]
+        for s in list(active):
+            try:
+                chaos.fire(f"serve.decode@{s}", thread_exc=SlotFault)
+            except Exception as e:  # noqa: BLE001 - typed per-sequence
+                self._fail_slot(s, e)
+                active.remove(s)
         if active:
             tp = np.zeros((2, self.slots), np.int32)   # tokens, positions
             for s in active:
@@ -586,6 +653,18 @@ class DecodeEngine:
             dt = self.min_step_s
         self._busy_s += dt
         q.note_service(max(self.tokens_out - tokens_before, 1), dt)
+        if telemetry.get_active() is not None or \
+                metrics_export._REGISTRY is not None:
+            n_active = sum(1 for x in self._slots if x is not None)
+            steps = self.prefill_steps + self.decode_steps
+            telemetry.counter(
+                "serve.decode",
+                tokens_per_s=self.tokens_out / max(self._busy_s, 1e-9),
+                fill=n_active / self.slots,
+                prefill_frac=self.prefill_steps / max(steps, 1),
+                decode_frac=self.decode_steps / max(steps, 1),
+                cache_bytes_per_slot=self.cache_bytes_per_slot(),
+                cache_len=self._cache_len)
         return True
 
     # -- introspection --------------------------------------------------
@@ -595,7 +674,7 @@ class DecodeEngine:
         return self.tokens_out / max(self._busy_s, 1e-9)
 
     def stats(self) -> dict:
-        return {
+        out = {
             "slots": self.slots,
             "active": sum(1 for x in self._slots if x is not None),
             "admission": self.admission,
@@ -615,3 +694,6 @@ class DecodeEngine:
                        "buckets": sorted(f"{kind}/{n}" for kind, n
                                          in list(self._graphs))},
         }
+        if self._recorder is not None:
+            out["trace_recording"] = self._recorder.stats()
+        return out

@@ -18,12 +18,18 @@ Fault points fired by the port:
 | ``data.stall``   | once per minibatch fetch (likewise)              | stall        |
 | ``step.stall``   | once per training step (driver loop)             | stall        |
 | ``step.loss_nan``| once per host loss observation (driver loop)     | nan          |
+| ``serve.request``| once per request admission (serve/batcher)       | fail         |
+| ``serve.batch``  | once per device batch (serve/server)             | fail/stall   |
+| ``serve.replica@<idx>`` | once per non-empty batch replica idx collects (serve/server) | exit/wedge |
+| ``serve.canary`` | once per canary batch (serve/server)             | fail/stall   |
+| ``serve.decode@<slot>`` | once per admission into and per tick of a decode slot (serve/decode) | fail |
+| ``deploy.publish`` | once per release entry written (serve/continuous) | corrupt    |
 
-The reference's other points (``data.record``, ``serve.*``,
-``host.lost@<rank>``, ``host.return@<rank>``, ``deploy.publish``,
-``fleet.member@<idx>``) are fired by modules the port does not have yet
-(ROADMAP queue A items 3, 5 and 6); their schedules work here all the
-same.
+The reference's other points (``data.record``, ``host.lost@<rank>``,
+``host.return@<rank>``, ``fleet.member@<idx>``) are fired by modules the
+port does not have yet (ROADMAP queue A items 5 and 6); their schedules
+work here all the same.  Each hit is a ``chaos:<point>`` instant on the
+active tracer (``utils/telemetry``).
 
 Schedules (1-based counts): ``FailAt(3, 5)``, ``FailN(2, start=4)``,
 ``CorruptAt(2)`` / ``CorruptAt(2, mode="truncate")`` (bytes flipped or
@@ -390,9 +396,13 @@ def _bump(point: str):
 
 
 def _trace_hits(point: str, count: int, hits) -> None:
-    """Log each schedule hit (the reference marks it on its run timeline;
-    the port has no telemetry module yet, ROADMAP queue A item 6).  Only
-    runs when a schedule fired, so unarmed points stay free."""
+    """Mark each schedule hit as a ``chaos:<point>`` instant on the run's
+    timeline (``utils/telemetry``), next to the retries, stalls and
+    failures it causes, and log it.  Only runs when a schedule fired, so
+    unarmed points stay free."""
+    from . import telemetry
+    telemetry.instant(f"chaos:{point}", cat="chaos", count=count,
+                      schedules=[repr(s) for s in hits])
     logger.warning("chaos[%s]: invocation %d hits %s", point, count,
                    [repr(s) for s in hits])
 

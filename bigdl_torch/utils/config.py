@@ -12,6 +12,16 @@ the kernels always run.
 | BIGDL_TORCH_SERVE_QUEUE_LIMIT    | bounded queue; admission past it is shed       | 64      |
 | BIGDL_TORCH_SERVE_REPLICAS       | worker threads draining the shared queue       | 1       |
 | BIGDL_TORCH_SERVE_DEADLINE_MS    | default per-request deadline (0 = none)        | 0       |
+| BIGDL_TORCH_SERVE_STALL_SECONDS  | per-replica supervision deadline (0 = unwatched) | 0     |
+| BIGDL_TORCH_SERVE_REPLICA_LOST   | replica heartbeat silence before a restart (0 = monitor off) | 0 |
+| BIGDL_TORCH_SERVE_RESTART_BUDGET / _RESTART_BACKOFF | restarts a replica before unhealthy; base backoff, s | 3 / 0.1 |
+| BIGDL_TORCH_SERVE_CANARY_MIN_BATCHES / _WINDOW / _LATENCY_RATIO / _ERROR_MARGIN | canary promotion and rollback | 8 / 64 / 2.0 / 0.05 |
+| BIGDL_TORCH_SERVE_TENANT_QPS / _TENANT_BURST | per-tenant token bucket (0 = quotas off) | 0 / 0 |
+| BIGDL_TORCH_SERVE_AUTOSCALE_*    | queue-driven autoscaling (``serve/autoscale.py``) | off  |
+| BIGDL_TORCH_SERVE_TRACE_LIMIT    | offered-traffic events kept while recording    | 100000  |
+| BIGDL_TORCH_DEPLOY_*             | the deploy controller (``serve/continuous.py``) | see there |
+| BIGDL_TORCH_TRACE / _TRACE_RING / _TRACE_FLUSH_EVERY | span tracer (``utils/telemetry.py``) | off / 65536 / 4096 |
+| BIGDL_TORCH_METRICS / _METRICS_SLO_MS / _METRICS_WINDOW | metrics registry (``utils/metrics_export.py``) | 1 / 100 / 512 |
 | BIGDL_TORCH_COORDINATOR          | rank 0's host:port, or an init URL (file://…)  | (none)  |
 | BIGDL_TORCH_NUM_PROCESSES        | world size of the data group                   | 1       |
 | BIGDL_TORCH_PROCESS_ID           | this process's rank                            | 0       |

@@ -34,9 +34,11 @@ one background thread (at most two pending); :func:`join_checkpoints` and
 (``utils/chaos.py``): ``ckpt.write`` and ``ckpt.read`` around every blob,
 ``fs.remote`` around every attempt of a remote op.
 
-Not ported yet (ROADMAP queue A item 5): release publication,
-``watch_lineage`` and ``frame_fingerprint``, which feed the serving
-stack's deploy controller.
+Release publication (``serve/continuous.py``) reads a snapshot's
+integrity footer alone with :func:`frame_fingerprint` and follows a
+lineage directory with :func:`watch_lineage`.  Not ported yet:
+``sweep_numbered``, which elastic training and the serving fleet call
+(ROADMAP queue A items 5 and 6).
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ __all__ = ["save", "load", "verify", "save_checkpoint", "latest_checkpoint",
            "prune_checkpoints", "LocalFileSystem", "FsspecFileSystem",
            "RetryingFileSystem", "RetryPolicy", "set_retry_timebase",
            "save_checkpoint_async", "join_checkpoints",
-           "wait_for_async_checkpoints"]
+           "wait_for_async_checkpoints", "frame_fingerprint",
+           "watch_lineage"]
 
 _SCHEME_RE = re.compile(r"^([a-zA-Z][a-zA-Z0-9+.-]*)://")
 
@@ -591,6 +594,96 @@ def latest_checkpoint(path: str) -> Optional[Tuple[str, str, int]]:
     (getLatestFile, DistriOptimizer.scala:828-845), or None."""
     lineage = checkpoint_lineage(path)
     return lineage[0] if lineage else None
+
+
+def frame_fingerprint(path: str) -> Optional[Tuple[int, int]]:
+    """A framed blob's ``(payload_length, masked_crc32c)`` read from its
+    footer alone, without reading or checking the payload; None for a
+    legacy unframed file.  A release entry pins it (``serve/continuous``)
+    and the deploy controller compares it with the snapshot it is about to
+    serve: a snapshot rewritten after publication no longer matches."""
+    path = _strip_file_scheme(path)
+    fs = get_filesystem(path)
+    if isinstance(fs, LocalFileSystem):
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            size = f.tell()
+            if size < _FOOTER_LEN:
+                return None
+            f.seek(size - _FOOTER_LEN)
+            tail = f.read(_FOOTER_LEN)
+    else:
+        data = fs.read_bytes(path)
+        if len(data) < _FOOTER_LEN:
+            return None
+        tail = data[-_FOOTER_LEN:]
+    if tail[-len(_FRAME_MAGIC):] != _FRAME_MAGIC:
+        return None
+    length, crc = _FOOTER.unpack(tail[:_FOOTER.size])
+    return int(length), int(crc)
+
+
+def watch_lineage(path: str, since: int = -1, *,
+                  pattern: str = r"model\.(\d+)",
+                  poll: Optional[float] = None,
+                  clock=None, sleep=None, stop=None,
+                  idle_timeout: Optional[float] = None):
+    """Follow a lineage directory on any scheme: a generator of ``(n,
+    path)`` for every file under ``path`` whose name fullmatches
+    ``pattern`` (group 1 the monotonic id), in id order, ids above
+    ``since`` only, each at most once.  Quarantined (``*.corrupt``) and
+    half-written (``*.tmp``) files never match.
+
+    ``poll`` fixes the delay of an idle turn; None backs off as
+    :class:`RetryPolicy` does (``BIGDL_TORCH_IO_BACKOFF_BASE`` up to
+    ``_IO_BACKOFF_MAX``, deterministic jitter), from the start again once
+    something new appears.  ``clock`` and ``sleep`` are injectable;
+    ``stop`` is a callable checked every turn and between yields;
+    ``idle_timeout`` ends the watch after that many seconds with nothing
+    new.  A listing that fails is logged and read as empty."""
+    path = _strip_file_scheme(path)
+    matcher = re.compile(pattern)
+    clk = clock or _TIMEBASE["clock"]
+    slp = sleep or _TIMEBASE["sleep"]
+    policy = RetryPolicy(clock=clk, sleep=slp)
+    last = int(since)
+    idle_since = None
+    attempt = 0
+    while True:
+        if stop is not None and stop():
+            return
+        fs = get_filesystem(path)
+        try:
+            names = fs.listdir(path) if fs.isdir(path) else []
+        except Exception as e:  # noqa: BLE001 - a transient listing
+            # failure must not end the watch (remote ops are retried below
+            # this; a directory not there yet is a trainer not started)
+            logger.warning("watch_lineage(%s): listing failed (%s: %s); "
+                           "treating as empty this poll", path,
+                           type(e).__name__, e)
+            names = []
+        found = {}
+        for name in names:
+            m = matcher.fullmatch(name)
+            if m:
+                found[int(m.group(1))] = name
+        fresh = sorted(n for n in found if n > last)
+        if fresh:
+            attempt = 0
+            idle_since = None
+            for n in fresh:
+                last = n
+                yield n, _join(path, found[n])
+                if stop is not None and stop():
+                    return
+            continue
+        now = clk()
+        if idle_since is None:
+            idle_since = now
+        if idle_timeout is not None and now - idle_since >= idle_timeout:
+            return
+        attempt = min(attempt + 1, 12)  # cap the exponent, not the wait
+        slp(poll if poll is not None else policy.delay(attempt))
 
 
 def quarantine_checkpoint(model_path: str,

@@ -9,9 +9,9 @@
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
-``--only layers``, ``--only train_zoo`` and ``--only zoo_data`` the build
-and phase 16, 17, 18 or 19 alone, and none of them prints the final
-line.)
+``--only layers``, ``--only train_zoo``, ``--only zoo_data`` and ``--only
+serve_stack`` the build and phase 16, 17, 18, 19 or 20 alone, and none of
+them prints the final line.)
 
 Phases, each printing one JSON line:
 
@@ -433,6 +433,43 @@ Phases, each printing one JSON line:
    ``python -m bigdl_torch.tools.perf`` for ``inception_v1`` and
    ``resnet50`` at batch 64, 5 iterations, each its own process, beside
    the rates ``train_zoo`` and ``train`` measured in the same run.
+20. ``serve_stack``: the serving stack in one process at the serve width
+   (bf16).  ``InferenceServer(lm, seq_buckets=(128, 256, 512),
+   max_batch=8)`` with the replica monitor, generous tenant quotas,
+   autoscaling to 2 replicas and the offered traffic recorded.
+   (a) A second copy of the LM trains ``SS_TRAIN_STEPS`` steps at batch 16
+   x 512 through ``Optimizer(...).set_checkpoint(dir, every_done(2),
+   publish=True)`` (B6 with its log-sum-exp and B7 on ``"tc"``); a
+   ``DeployController`` canaries its release at 0.25 of the batches under
+   rounds of 8 requests from two tenants and promotes it; a lone request
+   after the promotion equals the promoted version's own forward bit for
+   bit; a release whose snapshot was rewritten after publication is
+   refused (fingerprint) and quarantined, one whose canary batches
+   ``serve.canary`` faults is rolled back, the version stays; a plain
+   swap is timed to its first answer.  (b) ``serve.replica@0`` ends the
+   replica: the monitor restarts it and every request is answered; a
+   LeNet-5 server with a budget of 1 spends it and turns unhealthy.
+   (c) A burst of ``SS_BURST`` requests grows the pool 1 -> 2, idling
+   shrinks it back.  (d) The recorded traffic is replayed at 10x (SLO
+   attainment per tenant); the same scoring workload runs with the tracer
+   off and on, whose Chrome trace must hold ``serve.batch`` spans and a
+   request flow per request.  Every scoring answer is within
+   ``SERVE_ATOL`` of ``Predictor`` on the weights of the version that
+   answered it, and the B6 launches are exactly 8 a device batch (every
+   version's warm-ups included), a forward beside the server, or a
+   trainer's step, all ``"tc"``.  (e) ``serve_http.serve_forever`` over
+   the server with a ``DecodeEngine`` of the same LM: 8 prompts through
+   ``POST /v1/generate`` from 8 threads (B8 exactly 8 x (prompt positions
+   + ticks) on ``"bf16"``, no graph captured, rows equal to the engine's
+   and to ``cached_generate`` under the tie rule), recorded by the
+   ``X-BigDL-Record-Trace`` header; ``/healthz``, ``/v1/stats``,
+   ``/v1/versions`` and ``/metrics`` all 200.  (f) ``python -m
+   bigdl_torch.tools.serve_http --generate`` as a child answers predict,
+   generate and a swap to a LeNet-5 module file, then drains on SIGTERM
+   and exits 0; ``python -m bigdl_torch.tools.serving_bench`` at the serve
+   width.  B6 at [8, 8, 128, 64] and the trainer's [16, 8, 512, 64] with
+   the log-sum-exp, B7 at the trainer's, B8 at the engine's: each held to
+   its plain version and timed.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -447,7 +484,9 @@ B2, B4 and B5 per BN-Inception run of ``train_zoo``, with the times
 run, B6 per ViT eval, B6 and B7 per CLI ``vit`` run (D = 16, with the
 D = 16 ``"tc"`` cases beside them, launched 0 times on that path), B6
 per int8 scoring run and B8 per warm int8 decode run of ``zoo_data``,
-each with its case's times), the
+B6 per scoring window and per publishing trainer, B7 per publishing
+trainer and B8 per ``/v1/generate`` run of ``serve_stack``, each with
+its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -497,12 +536,15 @@ from bigdl_torch.optim import (SGD, Adadelta, Adagrad, Adam, Adamax,
 from bigdl_torch.optim.optimizer import HostCopy, to_host
 from bigdl_torch.parallel import (DataParallel, ShardedDataParallel,
                                   bucket_count, measure_collective_seconds)
-from bigdl_torch.serve import (DecodeEngine, InferenceServer, fit_bucket,
-                               pad_tail)
-from bigdl_torch.tools import record_generator
-from bigdl_torch.utils import chaos, crc32c, cuda_build, file_io, native
+from bigdl_torch.serve import (DecodeEngine, InferenceServer,
+                               ReplicaLostError, fit_bucket, pad_tail)
+from bigdl_torch.serve import continuous as tct
+from bigdl_torch.serve import tracefile
+from bigdl_torch.tools import record_generator, serve_http
+from bigdl_torch.utils import (chaos, crc32c, cuda_build, file_io,
+                               metrics_export, native, telemetry)
 from bigdl_torch.utils.recordio import count_records
-from bigdl_torch.utils.convert import to_reference_tree
+from bigdl_torch.utils.convert import load_reference_tree, to_reference_tree
 
 SEED = 0
 LM = dict(vocab_size=32000, max_len=512, d_model=512, num_heads=8,
@@ -6765,6 +6807,761 @@ def phase_zoo_data(rates=None):
     return rows
 
 
+# -- 20. serve_stack ---------------------------------------------------------
+
+#: the publishing trainer: B6 with its log-sum-exp and B7 at [16, 8, 512, 64]
+SS_TRAIN_STEPS = 2
+#: canary: a quarter of the batches, promoted after 4 clean ones of each arm;
+#: a p99 ratio of 3 (the default is 2): four batches a side make a noisy p99
+SS_CANARY = 0.25
+SS_CANARY_MIN = 4
+SS_LATENCY_RATIO = 3.0
+#: requests a traffic round submits at once (one full device batch)
+SS_ROUND = 8
+#: the scoring rows of the first sequence bucket (ss_rows)
+SS_ROWS = 16
+SS_BURST = 96
+SS_QUEUE_LIMIT = 256
+SS_DEADLINE_MS = 10_000
+#: the monitor's silence deadline and restart backoff, seconds
+SS_REPLICA_LOST = 2.0
+SS_BACKOFF = 0.05
+#: autoscaling windows, shortened by the constructor's arguments
+SS_AUTOSCALE = dict(autoscale_max=2, autoscale_target_wait_ms=100.0,
+                    autoscale_up_polls=1, autoscale_idle_s=1.0,
+                    autoscale_cooldown_s=0.2, autoscale_poll_s=0.02)
+SS_TENANT_QPS = 10_000.0
+SS_REPLAY_SPEED = 10.0
+SS_GEN_TOKENS = 32
+#: serving_bench's tokens a sequence (its default)
+SS_BENCH_TOKENS = 64
+SS_WAIT_S = 60.0
+SS_CLI_TIMEOUT = 300
+#: the phase's device (its CPU rehearsal sets "cpu")
+SS_DEVICE = "cuda"
+
+
+def ss_sync():
+    if SS_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+class ScoreBook:
+    """Every scoring request of the phase, held to ``Predictor`` on the
+    weights of the version that answered it (``handle.version``), within
+    ``SERVE_ATOL``.  ``extra_forwards`` counts the forwards made outside
+    the server (each launches B6 once a layer)."""
+
+    def __init__(self, rows, predictors):
+        self.rows = rows
+        self.index = {r.tobytes(): i for i, r in enumerate(rows)}
+        self.pred = predictors          # weights name -> Predictor
+        self.weights = {1: "initial"}   # version id -> weights name
+        self.refs = {}
+        self.extra_forwards = 0
+        self.worst = 0.0
+        self.outcomes = collections.Counter()
+        self.pending = []
+        self.lock = threading.Lock()
+
+    def ref(self, name, i):
+        if (name, i) not in self.refs:
+            x = self.rows[i]
+            seq = fit_bucket(len(x), SEQ_BUCKETS)
+            self.refs[(name, i)] = self.pred[name].predict(
+                pad_tail(x, seq)[None, :])[0]
+            self.extra_forwards += 1
+        return self.refs[(name, i)]
+
+    def submit(self, server, i, **kw):
+        h = server.submit(self.rows[i], **kw)
+        with self.lock:
+            self.pending.append((i, h))
+        return h
+
+    def settle(self):
+        """Wait out every pending request and check it: an answer against
+        its version's weights, a canary batch's fault counted; anything
+        else (a timeout: a request lost) fails the phase."""
+        with self.lock:
+            pending, self.pending = self.pending, []
+        lat = []
+        for i, h in pending:
+            try:
+                out = h.result(SS_WAIT_S)
+            except chaos.ChaosFault:
+                self.outcomes["canary_fault"] += 1
+                continue
+            seq = fit_bucket(len(self.rows[i]), SEQ_BUCKETS)
+            check(out.shape == (seq, LM["vocab_size"])
+                  and np.isfinite(out).all(),
+                  f"serve_stack answer {out.shape} for row {i}")
+            ref = self.ref(self.weights[h.version], i)
+            self.worst = max(self.worst, float(np.abs(out - ref).max()))
+            self.outcomes[f"v{h.version}"] += 1
+            lat.append(h.latency_s)
+        return lat
+
+
+def ss_rows(vocab):
+    """SS_ROWS rows in the first sequence bucket's top fifth, then one in
+    the middle and one at the edge of each longer bucket."""
+    rng = np.random.default_rng(SEED + 20)
+    b = SEQ_BUCKETS
+    lengths = [int(n) for n in rng.integers(b[0] * 4 // 5, b[0] + 1,
+                                            SS_ROWS)]
+    for lo, hi in zip(b, b[1:]):
+        lengths += [(lo + hi) // 2, hi]
+    return [rng.integers(0, vocab, n).astype(np.int64) for n in lengths]
+
+
+def ss_traffic(server, book, stop, errors):
+    """Rounds of SS_ROUND requests at the first sequence bucket (two
+    tenants) until ``stop`` is set; each round waits for its answers and
+    has them checked (so no answer is kept longer than its round)."""
+    k = 0
+    try:
+        while not stop.is_set():
+            hs = [book.submit(server, (k + j) % SS_ROWS,
+                              tenant="ab"[(k + j) % 2],
+                              deadline_ms=SS_DEADLINE_MS)
+                  for j in range(SS_ROUND)]
+            k += SS_ROUND
+            book.settle()
+    except BaseException as e:  # noqa: BLE001 - raised again by the caller
+        errors.append(e)
+
+
+def ss_until(pred, what, timeout=SS_WAIT_S):
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        check(time.perf_counter() < deadline, f"serve_stack: {what} not "
+              f"reached in {timeout} s")
+        time.sleep(0.01)
+
+
+def ss_with_traffic(server, book, until, what):
+    stop, errors = threading.Event(), []
+    t = threading.Thread(target=ss_traffic,
+                         args=(server, book, stop, errors), daemon=True)
+    t.start()
+    try:
+        ss_until(lambda: errors or until(), what)
+    finally:
+        stop.set()
+        t.join(SS_WAIT_S)
+    if errors:
+        raise errors[0]
+    check(not t.is_alive(), f"serve_stack: traffic of {what} did not stop")
+
+
+def ss_trainer(ckdir, vocab):
+    """(a) a second copy of the LM trained SS_TRAIN_STEPS steps through
+    the Optimizer, which publishes its snapshot as release 1."""
+    model = TransformerLM(**LM).build(
+        SS_DEVICE, torch.Generator().manual_seed(SEED))
+    samples = lm_samples(LM_BATCH * SS_TRAIN_STEPS, LM["max_len"], vocab,
+                         SEED + 21)
+    opt = Optimizer(model, DataSet.array(samples, seed=SEED),
+                    nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                                size_average=True),
+                    batch_size=LM_BATCH, device=SS_DEVICE)
+    opt.set_optim_method(SGD(LM_LR, momentum=0.9))
+    opt.set_checkpoint(ckdir, every_done(SS_TRAIN_STEPS), publish=True)
+    opt.set_end_when(Trigger(lambda s: s["neval"] > SS_TRAIN_STEPS,
+                             "steps"))
+    t0 = time.perf_counter()
+    opt.optimize()
+    ss_sync()
+    seconds = time.perf_counter() - t0
+    check(opt._publisher is not None and opt._publisher.published == 1,
+          "serve_stack: the trainer published no release")
+    del model, opt
+    return seconds
+
+
+def ss_load(path):
+    """The LM with a snapshot's weights, loaded apart from the server."""
+    blob = file_io.load(path)
+    model = TransformerLM(**LM).build(
+        SS_DEVICE, torch.Generator().manual_seed(SEED))
+    return load_reference_tree(model, blob["params"], blob["state"])
+
+
+def ss_timeline(ctl):
+    return [{k: v for k, v in e.items() if k != "time"}
+            for e in ctl.versions()["timeline"]]
+
+
+def ss_deploy(server, book, root):
+    """(a) the trainer's release canaried and promoted; a rewritten
+    snapshot refused; a canary that ``serve.canary`` faults rolled back; a
+    plain swap timed to its first answer."""
+    ckdir = os.path.join(root, "ckpt")
+    train_s = ss_trainer(ckdir, LM["vocab_size"])
+    trained = tct.read_release(os.path.join(ckdir, "release.1"))
+    book.pred["trained"] = Predictor(ss_load(trained["model_path"]),
+                                     device=SS_DEVICE)
+    book.weights.update({2: "trained", 3: "trained", 4: "trained"})
+    for name in ("initial", "trained"):   # off the traffic's pace
+        for i in range(len(book.rows)):
+            book.ref(name, i)
+    ctl = tct.DeployController(server, ckdir, canary_fraction=SS_CANARY,
+                               poll_s=0.02).start()
+    try:
+        ss_with_traffic(server, book,
+                        lambda: ctl.stats()["promoted"]
+                        + ctl.stats()["rolled_back"] >= 1,
+                        "the canary's verdict")
+    finally:
+        ctl.stop()
+    canary1 = server.stats()["canary"]
+    check(ctl.stats()["promoted"] == 1 and server.version.id == 2,
+          f"serve_stack: release 1 not promoted: {canary1}")
+    first = ss_timeline(ctl)
+    times = {e["action"]: e["time"] for e in ctl.versions()["timeline"]}
+    canary_s = times["promoted"] - times["deployed"]
+    book.settle()
+    # after the promotion: a lone request equals the promoted version's
+    # own forward of the same [1, 128] batch bit for bit
+    bit_equal = True
+    for i in range(3):
+        x = book.rows[i]
+        h = server.submit(x)
+        out = h.result(SS_WAIT_S)
+        own = server.version.predict(pad_tail(x, SEQ_BUCKETS[0])[None])[0]
+        book.extra_forwards += 1
+        bit_equal &= h.version == 2 and np.array_equal(
+            out.view(np.uint32), own.view(np.uint32))
+    check(bit_equal, "serve_stack: rows after the promotion differ from "
+          "the promoted version's forward")
+    # release 2: a snapshot rewritten after publication; release 3: a good
+    # snapshot whose canary batches fault
+    extra = os.path.join(root, "extra")
+    os.makedirs(extra)
+    good = os.path.join(extra, "good")
+    rewritten = os.path.join(extra, "rewritten")
+    shutil.copyfile(trained["model_path"], good)
+    shutil.copyfile(trained["model_path"], rewritten)
+    pub = tct.ReleasePublisher(ckdir)
+    pub.publish(rewritten, neval=100)
+    blob = file_io.load(rewritten)
+    blob["rewritten"] = True
+    file_io.save(blob, rewritten)
+    pub.publish(good, neval=101)
+    spec = "serve.canary=fail@" + ",".join(str(i) for i in range(1, 17))
+    with chaos.scoped(spec):
+        ctl2 = tct.DeployController(server, ckdir, since=1,
+                                    canary_fraction=SS_CANARY,
+                                    poll_s=0.02).start()
+        try:
+            ss_with_traffic(server, book,
+                            lambda: ctl2.stats()["promoted"]
+                            + ctl2.stats()["rolled_back"] >= 1,
+                            "the faulted canary's verdict")
+        finally:
+            ctl2.stop()
+    book.settle()
+    check(book.outcomes["canary_fault"] >= 1,
+          "serve_stack: no canary batch faulted")
+    second = ss_timeline(ctl2)
+    rejected = [e for e in second if e["action"] == "rejected"]
+    rolled = [e for e in second if e["action"] == "rolled_back"]
+    check(server.version.id == 2 and len(rejected) == 1
+          and rejected[0]["release"] == 2
+          and "fingerprint" in rejected[0]["reason"] and len(rolled) == 1
+          and rolled[0]["release"] == 3
+          and rolled[0]["verdict"]["reason_type"] == "CanaryRejected",
+          f"serve_stack: refused releases {second}")
+    check(os.path.exists(os.path.join(ckdir, "release.2.corrupt")),
+          "serve_stack: the rewritten release was not quarantined")
+    # a plain swap, from its call to the first answer of the new version
+    t0 = time.perf_counter()
+    vid = server.swap(good)
+    h = book.submit(server, 0)
+    h.result(SS_WAIT_S)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    check(vid == 4 and h.version == 4, f"serve_stack: swap {vid}, answer "
+          f"from {h.version}")
+    book.settle()
+    return {"train_s": train_s, "release_1": {
+        k: trained[k] for k in ("release_id", "epoch", "iteration", "neval",
+                                "model_name")},
+        "canary_decision_s": canary_s, "canary_promoted": canary1,
+        "canary_rolled_back": server.stats()["canary"],
+        "promoted_rows_bit_equal": bit_equal, "timeline_1": first,
+        "timeline_2": second, "swap_to_first_answer_ms": swap_ms,
+        "swapped_version": vid}
+
+
+def ss_restart(server, book):
+    """(b) replica 0 killed by its fault point: restarted by the monitor,
+    every admitted request answered."""
+    server.scale_to(1)
+    ss_until(lambda: server.stats()["replicas_live"] == 1, "one replica")
+    before = server.stats()
+    with chaos.scoped("serve.replica@0=exit@1"):
+        t0 = time.perf_counter()
+        hs = [book.submit(server, i) for i in range(SS_ROUND)]
+        for h in hs:
+            h.result(SS_WAIT_S)
+        restart_ms = (time.perf_counter() - t0) * 1e3
+    book.settle()
+    st = server.stats()
+    check(st["restarts"] - before["restarts"] == 1 and server.healthy()
+          and st["replica_monitor"]["lost"] == 1
+          and st["restarts"] <= st["replica_monitor"]["budget"],
+          f"serve_stack: restart {st['replica_monitor']}")
+    return {"restart_ms": restart_ms, "monitor": st["replica_monitor"]}
+
+
+def ss_budget():
+    """(b) a second small server (LeNet-5 on the card, budget 1): two
+    kills spend the budget and ``healthy()`` turns False."""
+    model = LeNet5(10).build(SS_DEVICE,
+                             torch.Generator().manual_seed(SEED))
+    server = InferenceServer(model, example=np.zeros((28, 28, 1),
+                                                     np.float32),
+                             device=SS_DEVICE, max_batch=1, replica_lost=0.2,
+                             restart_budget=1, restart_backoff=0.01)
+    with server, chaos.scoped("serve.replica@0=exit@1,2"):
+        h = server.submit(np.zeros((28, 28, 1), np.float32))
+        ss_until(lambda: not server.healthy(), "the spent budget", 10)
+        lost = False
+        try:
+            h.result(SS_WAIT_S)
+        except ReplicaLostError:
+            lost = True
+        st = server.stats()
+    check(lost and st["unhealthy_type"] == "ReplicaLostError",
+          f"serve_stack: the spent budget {st}")
+    return {"healthy": False, "restarts": st["restarts"],
+            "unhealthy_reason": st["unhealthy_reason"]}
+
+
+def ss_autoscale(server, book):
+    """(c) a burst grows the pool 1 -> 2, idling shrinks it back."""
+    check(server.stats()["replicas"] == 1, "serve_stack: pool not at 1")
+    t0 = time.perf_counter()
+    hs = [book.submit(server, i % SS_ROWS, tenant="burst",
+                      deadline_ms=SS_DEADLINE_MS) for i in range(SS_BURST)]
+    up_ms = None
+    while not all(h.done() for h in hs):
+        if up_ms is None and server.stats()["replicas"] == 2:
+            up_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.005)
+    t1 = time.perf_counter()
+    burst_s = t1 - t0
+    check(up_ms is not None, "serve_stack: the burst did not grow the pool")
+    ss_until(lambda: server.stats()["replicas"] == 1, "the shrink", 15)
+    down_s = time.perf_counter() - t1
+    lat = book.settle()
+    st = server.stats()["autoscale"]
+    check(st["scale_ups"] >= 1 and st["scale_downs"] >= 1,
+          f"serve_stack: autoscale {st}")
+    return {"burst": SS_BURST, "scale_up_ms": up_ms, "burst_s": burst_s,
+            "burst_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "idle_to_shrink_s": down_s, "autoscale": st}
+
+
+def ss_workload(server, book):
+    """Every row twice at once: requests/s and latency p50 and p99."""
+    t0 = time.perf_counter()
+    hs = [book.submit(server, i % len(book.rows))
+          for i in range(2 * len(book.rows))]
+    for h in hs:
+        h.result(SS_WAIT_S)
+    wall = time.perf_counter() - t0
+    lat = np.array(book.settle()) * 1e3
+    return {"requests": len(hs), "requests_per_s": len(hs) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def ss_trace(server, book, root, path):
+    """(d) the offered traffic replayed at SS_REPLAY_SPEED x, per-tenant
+    SLO attainment; scoring with the tracer off and on, its Chrome trace
+    and the metrics registry."""
+    recorded = len(server.stop_trace())
+    header, events = tracefile.read_trace(path)
+    check(header["count"] == recorded > 0, "serve_stack: the trace file")
+
+    def submit(e):
+        return book.submit(server, book.index[np.asarray(
+            e.payload).tobytes()], tenant=e.tenant, priority=e.priority,
+            deadline_ms=e.deadline_ms)
+    t0 = time.perf_counter()
+    outs = tracefile.replay(events, submit, speed=SS_REPLAY_SPEED)
+    tracefile.resolve_outcomes(outs, timeout=SS_WAIT_S)
+    replay_s = time.perf_counter() - t0
+    slo = tracefile.slo_report(outs)
+    book.settle()
+    check(slo["offered"] == len(events) and slo["shed"]["errors"] == 0,
+          f"serve_stack: replay {slo}")
+    off = ss_workload(server, book)
+    tdir = os.path.join(root, "trace")
+    tracer = telemetry.Tracer(tdir, flush_every=0)
+    telemetry.set_active(tracer)
+    reg = metrics_export.arm()
+    on = ss_workload(server, book)
+    tracer.flush()
+    merged = telemetry.merge_traces(tdir)
+    phases = telemetry.phase_breakdown(merged)
+    flows = telemetry.request_breakdown(merged)
+    check("serve.batch" in phases["phases"] and flows["count"] ==
+          on["requests"], f"serve_stack: the trace holds "
+          f"{list(phases['phases'])} and {flows['count']} request flows")
+    return {"recorded": recorded, "recorded_s": header["duration_s"],
+            "replay_speed": SS_REPLAY_SPEED, "replay_s": replay_s,
+            "slo": slo, "tracer_off": off, "tracer_on": on,
+            "trace_events": len(merged["traceEvents"]),
+            "serve_batch": phases["phases"]["serve.batch"],
+            "request_segments_ms": {k: v["p50_ms"] for k, v in
+                                    flows["segments"].items()}}, tracer, reg
+
+
+def ss_post(base, path, obj=None, headers=None):
+    import urllib.request
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers=headers or {},
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=SS_WAIT_S) as r:
+        body = r.read()
+        code, ctype = r.status, r.headers.get("Content-Type", "")
+    check(code == 200, f"serve_stack: {path} answered {code}")
+    return json.loads(body) if "json" in ctype else body.decode()
+
+
+def ss_generate_http(base, prompts, trace):
+    """8 prompts through POST /v1/generate from 8 threads, recorded."""
+    out = [None] * len(prompts)
+    errs = []
+
+    def one(k):
+        try:
+            out[k] = ss_post(base, "/v1/generate", {
+                "prompt": prompts[k].tolist(), "max_tokens": SS_GEN_TOKENS,
+                "tenant": "gen"}, {"X-BigDL-Record-Trace": trace})
+        except Exception as e:  # noqa: BLE001 - failed below
+            errs.append(repr(e))
+    threads = [threading.Thread(target=one, args=(k,))
+               for k in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SS_WAIT_S)
+    wall = time.perf_counter() - t0
+    check(not errs and all(o is not None for o in out),
+          f"serve_stack: /v1/generate {errs}")
+    return out, wall
+
+
+def ss_engine_run(eng, prompts):
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, SS_GEN_TOKENS) for p in prompts]
+    rows = [h.result(SS_WAIT_S) for h in hs]
+    return rows, time.perf_counter() - t0, [h.latency_s * 1e3 for h in hs]
+
+
+def ss_http(server, lm, root):
+    """(e) the HTTP front over the scoring server, a DecodeEngine of the
+    same LM behind /v1/generate; the other routes and the record header."""
+    rng = np.random.default_rng(SEED + 22)
+    prompts = [rng.integers(0, LM["vocab_size"], int(n)).astype(np.int32)
+               for n in rng.integers(8, min(65, LM["max_len"] -
+                                            SS_GEN_TOKENS + 1),
+                                     DECODE_SLOTS)]
+    positions = sum(len(p) for p in prompts)
+    budget = SS_GEN_TOKENS * len(prompts)
+    eng = DecodeEngine(lm, slots=DECODE_SLOTS, page=DECODE_PAGE,
+                       device=SS_DEVICE).start()
+    server.decode_engine = eng
+    httpd = serve_http.serve_forever(server, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    trace = os.path.join(root, "generate.trace")
+    fn = dec_ops.decode_attention
+    try:
+        cold, _, _ = ss_engine_run(eng, prompts)   # captures the graphs
+        # one request arms the recording (concurrent first arms would race
+        # to install their own recorder)
+        ss_post(base, "/v1/generate", {"prompt": [1], "max_tokens": 1},
+                {"X-BigDL-Record-Trace": trace})
+        before = eng.stats()
+        fn.launches = 0
+        zero_routes(fn)
+        zero_flash()
+        answers, wall = ss_generate_http(base, prompts, trace)
+        after = eng.stats()
+        launches, routes = fn.launches, dict(fn.route_launches)
+        ticks = after["decode_steps"] - before["decode_steps"]
+        ss_check_b8(launches, routes, positions, ticks, before, after)
+        ss_post(base, "/v1/generate", {"prompt": [1], "max_tokens": 1},
+                {"X-BigDL-Record-Trace": "off"})
+        warm, warm_wall, warm_ttlt = ss_engine_run(eng, prompts)
+        routes_200 = {}
+        for path in ("/healthz", "/v1/stats", "/v1/versions", "/metrics"):
+            routes_200[path] = ss_post(base, path)
+        st, versions = routes_200["/v1/stats"], routes_200["/v1/versions"]
+        parsed = metrics_export.parse_exposition(routes_200["/metrics"])
+        check(routes_200["/healthz"]["ok"] and "decode" in st
+              and st["deploy"]["rolled_back"] == 1 and versions["deploy"]
+              and "bigdl_serve_requests_total" in parsed
+              and "bigdl_decode_ttlt_seconds" in parsed,
+              f"serve_stack: the GET routes {sorted(st)} {sorted(parsed)}")
+        _, recorded = tracefile.read_trace(trace)
+        check(len(recorded) == 1 + len(prompts) and all(
+            e.gen["max_tokens"] == SS_GEN_TOKENS for e in recorded[1:]),
+            f"serve_stack: the generate trace holds {len(recorded)}")
+    finally:
+        httpd.shutdown()
+        eng.stop()
+        server.decode_engine = None
+    rows = [np.asarray(a["tokens"], np.int32) for a in answers]
+    check(all(np.array_equal(r, w) for r, w in zip(rows, warm))
+          and all(np.array_equal(r, c) for r, c in zip(rows, cold)),
+          "serve_stack: /v1/generate differs from the engine's rows")
+    agree, gaps = [], []
+    for p, r in zip(prompts, rows):
+        oracle = cached_generate(lm, p, SS_GEN_TOKENS, len(p) +
+                                 SS_GEN_TOKENS)
+        i, gap = tie_rule(lm, r, oracle, len(p), TIE_TOL[torch.bfloat16])
+        agree.append(i - len(p))
+        if gap is not None:
+            gaps.append(gap)
+    ttlt = [a["latency_ms"] for a in answers]
+    return {"prompts": len(prompts), "prompt_positions": positions,
+            "tokens": budget, "http_tokens_per_s": budget / wall,
+            "http_ttlt_p50_ms": float(np.percentile(ttlt, 50)),
+            "http_ttlt_p99_ms": float(np.percentile(ttlt, 99)),
+            "engine_tokens_per_s": budget / warm_wall,
+            "engine_ttlt_p50_ms": float(np.percentile(warm_ttlt, 50)),
+            "engine_ttlt_p99_ms": float(np.percentile(warm_ttlt, 99)),
+            "decode_ticks": ticks, "b8_launches": launches,
+            "b8_routes": routes, "cache_len": after["cache_len"],
+            "agreeing_tokens": agree, "tie_gaps": gaps,
+            "metrics_names": len(parsed), "timeline": versions["timeline"],
+            "routes_200": sorted(routes_200)}
+
+
+def ss_cli(root):
+    """(f) ``python -m bigdl_torch.tools.serve_http --generate`` as a
+    child: one predict, one generate (the tiny LM, D = 16), one swap to a
+    LeNet-5 module file, then SIGTERM: it drains and exits 0; and
+    ``python -m bigdl_torch.tools.serving_bench`` at the LM width."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    module = os.path.join(root, "lenet.module")
+    LeNet5(10).build(SS_DEVICE, torch.Generator().manual_seed(SEED + 1)) \
+        .save(module)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bigdl_torch.tools.serve_http", "--model",
+         "lenet", "--port", "0", "--generate", "--device", SS_DEVICE],
+        cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        start = json.loads(proc.stdout.readline())
+        base = start["serving"]
+        ready_s = time.perf_counter() - t0
+        x = np.random.default_rng(SEED).random((28, 28, 1)).tolist()
+        pred = ss_post(base, "/v1/predict", {"inputs": x})
+        gen = ss_post(base, "/v1/generate", {"prompt": [1, 2, 3],
+                                             "max_tokens": 8})
+        swap = ss_post(base, "/v1/swap", {"source": module})
+        pred2 = ss_post(base, "/v1/predict", {"inputs": x})
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rest, err = proc.communicate(timeout=SS_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rest, err = proc.communicate()
+    check(proc.returncode == 0, f"serve_http exited {proc.returncode}: "
+          f"{err[-2000:]}")
+    last = json.loads(rest.strip().splitlines()[-1])
+    check(len(pred["outputs"]) == 10 and gen["generated"] == 8
+          and swap == {"version": 2} and pred2["version"] == 2
+          and last["stopped"] and last["stats"]["swaps"] == 1,
+          f"serve_http child: {pred} {gen} {swap} {last}")
+    t1 = time.perf_counter()
+    bench = subprocess.run(
+        [sys.executable, "-m", "bigdl_torch.tools.serving_bench",
+         "--max-len", str(LM["max_len"]), "--d-model",
+         str(LM["d_model"]), "--num-heads", str(LM["num_heads"]),
+         "--num-layers", str(LM["num_layers"]), "--vocab",
+         str(LM["vocab_size"]), "--num-tokens",
+         str(min(SS_BENCH_TOKENS, LM["max_len"] - 1)), "--device",
+         SS_DEVICE],
+        capture_output=True, text=True,
+        timeout=SS_CLI_TIMEOUT, cwd=here, env=env)
+    check(bench.returncode == 0, f"serving_bench: {bench.stderr[-2000:]}")
+    res = json.loads(bench.stdout.strip().splitlines()[-1])
+    check([r["path"] for r in res["results"]] == ["full_fwd", "kv_cache",
+                                                  "kv_int8"],
+          f"serving_bench: {res}")
+    return {"cli": {"ready_s": ready_s, "device": start["device"],
+                    "generate_tokens": gen["tokens"],
+                    "stopped": last, "process_s": t1 - t0},
+            "serving_bench": {**res, "process_s": time.perf_counter() - t1}}
+
+
+def phase_serve_stack():
+    """The serving stack in one process on the card (module docstring,
+    20); returns the kernels line's rows."""
+    t_phase = time.perf_counter()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    lm = TransformerLM(**LM).build(
+        SS_DEVICE, torch.Generator().manual_seed(SEED))
+    book = ScoreBook(ss_rows(LM["vocab_size"]),
+                     {"initial": Predictor(lm, device=SS_DEVICE)})
+    zero_all_kernels()
+    with tempfile.TemporaryDirectory() as root:
+        server = InferenceServer(
+            lm, seq_buckets=SEQ_BUCKETS, max_batch=MAX_BATCH, max_wait_ms=5,
+            queue_limit=SS_QUEUE_LIMIT, replicas=1,
+            example=np.zeros((SEQ_BUCKETS[0],), np.int64),
+            replica_lost=SS_REPLICA_LOST, restart_budget=2,
+            restart_backoff=SS_BACKOFF, canary_min_batches=SS_CANARY_MIN,
+            canary_latency_ratio=SS_LATENCY_RATIO,
+            tenant_qps=SS_TENANT_QPS, device=SS_DEVICE, **SS_AUTOSCALE)
+        t0 = time.perf_counter()
+        server.start()
+        ss_sync()
+        warm_s = time.perf_counter() - t0
+        offered = os.path.join(root, "offered.trace")
+        server.record_trace(offered)
+        tracer = None
+        try:
+            deploy = ss_deploy(server, book, root)
+            emit({"phase": "serve_stack", "part": "deploy",
+                  "gpu": gpu_line(), "warmup_s": warm_s, **deploy})
+            restart = ss_restart(server, book)
+            restart["budget_server"] = ss_budget()
+            emit({"phase": "serve_stack", "part": "restart",
+                  "gpu": gpu_line(), **restart})
+            scale = ss_autoscale(server, book)
+            emit({"phase": "serve_stack", "part": "autoscale",
+                  "gpu": gpu_line(), **scale})
+            trace, tracer, _ = ss_trace(server, book, root, offered)
+            emit({"phase": "serve_stack", "part": "trace",
+                  "gpu": gpu_line(), **trace})
+            # the scoring window closes
+            st = server.stats()
+            batches = st["batches"] + st["warmup_batches"]
+            launched = ss_check_scoring(batches, book.extra_forwards)
+            check(book.worst <= SERVE_ATOL,
+                  f"serve_stack: answers vs Predictor {book.worst}")
+            http = ss_http(server, lm, root)
+            emit({"phase": "serve_stack", "part": "http",
+                  "gpu": gpu_line(), **http})
+        finally:
+            if tracer is not None:
+                tracer.close()
+            metrics_export.disarm()
+            server.stop()
+        cli = ss_cli(root)
+        emit({"phase": "serve_stack", "part": "cli", "gpu": gpu_line(),
+              **cli})
+    worst, outcomes = book.worst, dict(book.outcomes)
+    del lm, book
+    bench = {r["path"]: r["tokens_per_sec"]
+             for r in cli["serving_bench"]["results"]}
+    emit({"phase": "serve_stack", "gpu": gpu_line(),
+          "device_batches": batches, **launched,
+          "b8_http_launches": http["b8_launches"],
+          "answers_max_abs_err_vs_predictor": worst, "tol": SERVE_ATOL,
+          "answers_by_version": outcomes,
+          "swap_to_first_answer_ms": deploy["swap_to_first_answer_ms"],
+          "canary_decision_s": deploy["canary_decision_s"],
+          "restart_ms": restart["restart_ms"],
+          "scale_up_ms": scale["scale_up_ms"],
+          "replay_attainment": trace["slo"]["attainment"],
+          "replay_per_tenant": {t: b["attainment"] for t, b in
+                                trace["slo"]["per_tenant"].items()},
+          "scoring_tracer_off": trace["tracer_off"],
+          "scoring_tracer_on": trace["tracer_on"],
+          "http_tokens_per_s": http["http_tokens_per_s"],
+          "http_ttlt_p50_ms": http["http_ttlt_p50_ms"],
+          "http_ttlt_p99_ms": http["http_ttlt_p99_ms"],
+          "engine_tokens_per_s": http["engine_tokens_per_s"],
+          "engine_ttlt_p50_ms": http["engine_ttlt_p50_ms"],
+          "engine_ttlt_p99_ms": http["engine_ttlt_p99_ms"],
+          "serving_bench_tokens_per_s": bench,
+          "wall_s": time.perf_counter() - t_phase})
+    return ss_kernel_rows(launched, http)
+
+
+def ss_check_scoring(batches, extra_forwards):
+    """The scoring window's launches: every B6 launch is a device batch
+    of the server (the warm-ups of every version included), a forward
+    made beside it, or the trainer's (the ones writing the log-sum-exp);
+    B7 is the trainer's; all on "tc"."""
+    L = LM["num_layers"]
+    fwd, bwd = flash_counts()
+    lse = attn_ops.flash_attention.lse_launches
+    routes = flash_routes()
+    check(fwd - lse == L * (batches + extra_forwards)
+          and lse == L * SS_TRAIN_STEPS and bwd == 2 * L * SS_TRAIN_STEPS
+          and only_route(attn_ops.flash_attention, "tc", fwd)
+          and only_route(attn_ops.flash_attention_bwd, "tc", bwd)
+          and all_kernel_counts()["decode_attention"] == 0,
+          f"serve_stack: B6 {fwd} ({lse} with the log-sum-exp), B7 {bwd}, "
+          f"routes {routes}, {batches} device batches, {extra_forwards} "
+          "forwards beside the server")
+    return {"b6_serve_launches": fwd - lse, "b6_lse_launches": lse,
+            "b7_launches": bwd, "routes": routes}
+
+
+def ss_check_b8(launches, routes, positions, ticks, before, after):
+    want = LM["num_layers"] * (positions + ticks)
+    check(launches == want and routes == {"bf16": want, "f32": 0}
+          and flash_counts() == (0, 0),
+          f"serve_stack: /v1/generate B8 {launches} {routes} != {want}")
+    check(after["graphs"]["captures"] == before["graphs"]["captures"],
+          "serve_stack: /v1/generate captured a graph")
+
+
+def ss_kernel_rows(launched, http):
+    """B6 at the canary traffic's call and the trainer's, B7 at the
+    trainer's, B8 at the engine's, each against its plain version and
+    timed; the kernels line's rows."""
+    gen = torch.Generator().manual_seed(SEED + 23)
+    H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    b6 = flash_case(MAX_BATCH, H, SEQ_BUCKETS[0], SEQ_BUCKETS[0], D,
+                    torch.bfloat16, True, gen)
+    b6_lse = flash_case(LM_BATCH, H, LM["max_len"], LM["max_len"], D,
+                        torch.bfloat16, True, gen, with_lse=True)
+    b7 = b7_case(LM_BATCH, H, LM["max_len"], LM["max_len"], D,
+                 torch.bfloat16, True,
+                 torch.Generator(device="cuda").manual_seed(SEED + 23))
+    b8 = decode_case(DECODE_SLOTS, H, http["cache_len"], D,
+                     torch.bfloat16, gen)
+    cases = {"b6": b6, "b6_lse": b6_lse, "b7": b7, "b8": b8}
+    emit({"phase": "serve_stack", "part": "kernels", "gpu": gpu_line(),
+          "cases": cases})
+    check(all(c["ok"] for c in cases.values()),
+          f"serve_stack: kernel cases {cases}")
+    routes = launched["routes"]
+    return [kernel_row(b6, "flash_attention", *B6_SRC,
+                       launched["b6_serve_launches"], "serve_stack scoring",
+                       routes["flash_attention"]),
+            kernel_row(b6_lse, "flash_attention", *B6_SRC,
+                       launched["b6_lse_launches"],
+                       "serve_stack publishing trainer",
+                       routes["flash_attention"]),
+            kernel_row(b7, "flash_attention_bwd", *B7_SRC,
+                       launched["b7_launches"],
+                       "serve_stack publishing trainer",
+                       routes["flash_attention_bwd"]),
+            {**kernel_row(b8, "decode_attention", *B8_SRC,
+                          http["b8_launches"], "serve_stack /v1/generate",
+                          http["b8_routes"]),
+             "floor_ms": b8["floor_ms"], "splits": b8["splits"]}]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6802,6 +7599,10 @@ def main():
     if sys.argv[1:3] == ["--only", "zoo_data"]:
         phase_build()
         phase_zoo_data()
+        return 0
+    if sys.argv[1:3] == ["--only", "serve_stack"]:
+        phase_build()
+        phase_serve_stack()
         return 0
     if sys.argv[1:3] == ["--only", "data_parallel"]:
         phase_build()
@@ -6844,6 +7645,7 @@ def main():
         "resnet50": {"phase": "train", "images_per_s":
                      TRAIN_BATCH / (step_ms / 1e3),
                      "config": "fused, bf16, batch 256"}})
+    rows += phase_serve_stack()
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

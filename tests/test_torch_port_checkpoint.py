@@ -178,8 +178,13 @@ def test_unported_checkpoint_options_raise(tmp_path):
         [TSample(np.zeros(2, np.float32), np.int32(0))]),
         tnn.ClassNLLCriterion(), device="cpu")
     trig = TTrigger.every_epoch()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
-        opt.set_checkpoint(str(tmp_path), trig, publish=True)
+    # publication is ported (tests/test_torch_port_continuous.py runs it):
+    # publish=True publishes into the checkpoint dir, a string elsewhere
+    assert opt.set_checkpoint(str(tmp_path), trig, publish=True,
+                              publish_every=2) is opt
+    assert (opt.publish_dir, opt.publish_every) == (str(tmp_path), 2)
+    opt.set_checkpoint(str(tmp_path), trig, publish=str(tmp_path / "rel"))
+    assert opt.publish_dir == str(tmp_path / "rel")
     # asynchronous writes and schemes are ported: setting them raises
     # nothing, and a scheme no filesystem serves raises when it is used
     opt.set_checkpoint(str(tmp_path), trig, async_write=True)

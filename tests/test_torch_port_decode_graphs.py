@@ -286,7 +286,7 @@ def test_predict_answers_are_unchanged(pair, compute_dtype):
     out, _ = _Forward(lm, "cpu")(batch)
     assert out.dtype == compute_dtype
     before = to_host(out)[:len(batch)]   # the route before HostCopy
-    served = ModelVersion(1, lm, "v1", "cpu").predict(batch)
+    served = ModelVersion(1, lm, "v1", device="cpu").predict(batch)
     bulk = Predictor(lm, batch_size=2, device="cpu").predict(batch)
     for got in (served, bulk):
         assert got.dtype == np.float32 and got.shape == (3, 16, 64)

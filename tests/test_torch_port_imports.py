@@ -39,7 +39,11 @@ def test_import_loads_no_jax():
             "bigdl_torch.utils.recordio", "bigdl_torch.utils.native",
             "bigdl_torch.utils.thread_pool", "bigdl_torch.utils.util",
             "bigdl_torch.dataset.image", "bigdl_torch.tools",
-            "bigdl_torch.tools.record_generator"} <= set(names)
+            "bigdl_torch.tools.record_generator",
+            "bigdl_torch.utils.telemetry", "bigdl_torch.utils.metrics_export",
+            "bigdl_torch.serve.autoscale", "bigdl_torch.serve.tracefile",
+            "bigdl_torch.serve.continuous", "bigdl_torch.tools.serve_http",
+            "bigdl_torch.tools.serving_bench"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {['bigdl_torch'] + names!r}:\n"
             "    importlib.import_module(n)\n"
@@ -113,3 +117,17 @@ def test_module_load_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run.main(["train", "--model", "lenet", "--synthetic",
                   "--max-iteration", "1"])
+
+
+def test_serving_tools_raise_without_cuda(monkeypatch):
+    from bigdl_torch.serve import DecodeEngine
+    from bigdl_torch.tools import serve_http, serving_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_http.main(["--model", "linear", "--port", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving_bench.main(["--num-layers", "1"])
+    model = TransformerLM(17, max_len=8, d_model=32, num_heads=2,
+                          num_layers=1).build("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecodeEngine(model)

@@ -1,7 +1,7 @@
 """The port exports what the JAX package exports.
 
-Every name in ``bigdl_tpu.dataset.__all__`` and ``bigdl_tpu.models.__all__``,
-and every name the top-level ``bigdl_tpu/__init__.py`` binds (the package
+Every name in the ``__all__`` of ``bigdl_tpu.dataset``, ``bigdl_tpu.models``,
+``bigdl_tpu.serve`` and ``bigdl_tpu.utils``, and every name the top-level ``bigdl_tpu/__init__.py`` binds (the package
 has no ``__all__``: the names its imports and assignments bind), is
 exported by the port's package of the same path, and listed in its
 ``__all__`` where the package has one, unless it stands in
@@ -20,11 +20,19 @@ import bigdl_tpu
 
 #: reference name -> the queue A item that ports it (serving 5, elastic
 #: 6, parallelism 8, interop 9)
-NOT_YET_PORTED = {}
+NOT_YET_PORTED = {
+    # the serving fleet: worker processes behind one front
+    "FleetSupervisor": "item 5", "FleetFront": "item 5",
+    "MemberLostError": "item 5",
+    # the topology router places replicas on device subsets of a mesh
+    "TopologyRouter": "item 8", "PlacementError": "item 8",
+    "plan_subsets": "item 8",
+}
 
 ALLOWED_ITEMS = {"item 5", "item 6", "item 8", "item 9"}
 
-PACKAGES = ("bigdl_tpu.dataset", "bigdl_tpu.models")
+PACKAGES = ("bigdl_tpu.dataset", "bigdl_tpu.models", "bigdl_tpu.serve",
+            "bigdl_tpu.utils")
 
 
 def _top_level_names():

@@ -31,8 +31,6 @@ import bigdl_torch
 EXEMPT = {
     "mesh", "rng", "interpret", "block_r", "axis_name", "constraint",
     "expert_k", "expert_axis",
-    # the serving stack's tenant and request ids (ROADMAP queue A item 5)
-    "tenant", "request_id",
     # the reference's functional param tree: a port module owns its
     # parameters (``Cell.step(params, x_t, hidden)`` -> ``step(x_t,
     # hidden)``)
@@ -66,20 +64,6 @@ WAIVED = {
     "utils.engine:Engine.init": (_ALL, "JAX mesh and runtime"),
     "utils.engine:Engine.init_distributed": (_ALL, "JAX runtime"),
     "utils.engine:Engine.data_shard_info": (_ALL, "a JAX mesh axis"),
-    # ROADMAP queue A item 5, the rest of the serving stack
-    "serve.batcher:PendingRequest.__init__": ({"rid", "rid_owner"},
-                                              "item 5"),
-    "serve.batcher:DynamicBatcher.collect": ({"heartbeat", "stop_when"},
-                                             "item 5"),
-    "serve.server:ModelVersion.__init__": ({"strategy"}, "item 5"),
-    "serve.server:InferenceServer.__init__": ({
-        "strategy", "supervisor", "stall_seconds", "report_dir",
-        "replica_lost", "restart_budget", "restart_backoff", "tenant_qps",
-        "tenant_burst", "canary_min_batches", "canary_window",
-        "canary_latency_ratio", "canary_error_margin", "autoscale_min",
-        "autoscale_max", "autoscale_target_wait_ms", "autoscale_idle_s",
-        "autoscale_cooldown_s", "autoscale_up_polls", "autoscale_step",
-        "autoscale_poll_s"}, "item 5"),
     # ROADMAP queue A item 6, the supervisor's multi-host half
     "utils.supervisor:Supervisor.__init__": ({
         "sleep", "peer_stale", "publish_interval", "on_peer_stale",
