@@ -30,7 +30,10 @@ route of the native shard prefetcher (``utils/native.py``
 ``NativePrefetchReader``): N threads each stream whole shards into one
 bounded queue, records interleaved across shards, each shard's in order.
 
-The reference's telemetry spans are not ported (ROADMAP queue A item 6).
+Telemetry (``utils/telemetry.py``): the worker names its own thread track
+and times each item's production (the source's ``next`` and the
+transform, staging included) as a ``prefetch.item`` span there, apart from
+the loop's ``data`` wait.
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from typing import Callable, Iterable, Iterator, Optional
 
-from ..utils import config
+from ..utils import config, telemetry
 
 logger = logging.getLogger("bigdl_torch")
 
@@ -92,17 +96,20 @@ class PrefetchIterator:
 
     def _run(self) -> None:
         kind, payload = _DONE, None
+        telemetry.thread_name(self._thread.name)
         try:
             while not self._stop.is_set():
                 self._beat()
                 if self._pre_fire is not None:
                     self._pre_fire()
+                t0 = time.perf_counter()
                 try:
                     item = next(self._source)
                 except StopIteration:
                     break
                 if self._transform is not None:
                     item = self._transform(item)
+                telemetry.complete("prefetch.item", time.perf_counter() - t0)
                 if not self._put((_ITEM, item)):
                     return  # closed while the queue was full
         except BaseException as e:  # noqa: BLE001 - forwarded to next(),

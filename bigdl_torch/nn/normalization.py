@@ -114,7 +114,7 @@ class BatchNormalization(Module):
                 raise RuntimeError(f"sync_axis={self.sync_axis!r} needs the "
                                    "Engine's data group: call Engine.init()")
         if self.training and not self.affine:
-            if group is None or Engine.world() == 1:
+            if group is None or Engine.group_size() == 1:
                 return self._plain_train(x)
             y, mean, var, n = bn_plain_train_sync(x, self.eps, group)
             self._ema_update(mean, var, int(n))

@@ -7,7 +7,8 @@ from .method import (EMA, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
 from .optimizer import (ConfigurationError, DistriOptimizer,
                         DistriValidator, Evaluator, LocalOptimizer,
                         LocalValidator, NonFiniteLossError, Optimizer,
-                        Predictor, TrainingPreempted, Validator)
+                        PeerLostError, Predictor, StallError,
+                        TrainingPreempted, Validator)
 from .regularizer import (L1L2Regularizer, L1Regularizer, L2Regularizer,
                           Regularizer)
 from .schedules import (CosineDecay, Default, EpochDecay, EpochSchedule,
@@ -22,7 +23,8 @@ from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss,
 
 __all__ = ["Optimizer", "DistriOptimizer", "LocalOptimizer", "Predictor", "Evaluator", "Validator",
            "DistriValidator", "LocalValidator", "NonFiniteLossError",
-           "ConfigurationError", "TrainingPreempted", "OptimMethod", "SGD",
+           "ConfigurationError", "TrainingPreempted", "StallError",
+           "PeerLostError", "OptimMethod", "SGD",
            "Adam", "Adagrad", "Adadelta", "Adamax", "RMSprop", "LBFGS",
            "EMA", "LearningRateSchedule", "Default", "Poly", "Step",
            "MultiStep", "EpochDecay", "EpochStep", "NaturalExp",

@@ -151,8 +151,32 @@ snapshot a release (``serve/continuous.ReleasePublisher``) that a
 ``DeployController`` canaries into a live server; an asynchronous write
 publishes once its bytes are on storage.
 
-Not ported yet: the elastic recovery (ROADMAP queue A item 6),
-``TensorParallel`` and ``LayoutSharding`` (item 8).
+Elastic training (``parallel/elastic.py``, the reference's ``:1085-1180``,
+``:1328-1600``): with ``BIGDL_TORCH_ELASTIC_PEER_LOST`` > 0, a logical
+world of more than one rank (``Engine.world()``) and a checkpoint path,
+the supervisor watches the peers' heartbeats in ``<ckpt>/heartbeats`` and
+raises :class:`PeerLostError` into the loop when one goes silent.  The
+retry loop then runs one typed attempt (a retry, as in the reference):
+the device is synchronized, the step's gradients and the stager's slots
+in flight are dropped, pending snapshot writes drain, the survivors
+negotiate the newest snapshot valid for all, load it, re-form
+(``Engine.reform``), rescale every batcher to ``ceil(B * W / W')`` and
+resume.  At each checkpoint boundary a returning rank's
+``elastic/join.<rank>`` intent makes the survivors grow back (no retry is
+spent); a process started with ``BIGDL_TORCH_ELASTIC_JOIN=1`` announces
+itself and adopts the agreed snapshot before its first step.  Only
+``Engine.is_writer()`` (the lowest survivor) writes checkpoints.  Each
+re-form is one entry of ``_elastic_history`` (kind, neval, epoch, world,
+batch).  The chaos point ``host.lost@<rank>`` fires once per iteration.
+
+Telemetry (``utils/telemetry.py``; ``BIGDL_TORCH_TRACE`` starts a tracer
+per logical rank): ``data`` and ``step`` spans and the ``train`` counter
+track each iteration, ``validation`` and ``checkpoint`` spans at the
+boundaries, the ``elastic.*`` spans and instants of every re-form, and the
+``evaluate`` and ``predict`` spans of bulk inference.
+
+Not ported yet: ``TensorParallel`` and ``LayoutSharding`` (ROADMAP queue A
+item 8).
 """
 
 from __future__ import annotations
@@ -178,9 +202,10 @@ from ..dataset.prefetch import PrefetchIterator, prefetch_depth
 from ..nn.criterion import Criterion
 from ..nn.dropout import dropout_rng
 from ..nn.module import Module
+from ..parallel import elastic as elastic_mod
 from ..parallel.sharding import DataParallel, ShardingStrategy
 from ..parallel.wire import wire_bucket_mb, wire_cast
-from ..utils import chaos, config, file_io, remat
+from ..utils import chaos, config, file_io, remat, telemetry
 from ..utils import supervisor as supervision
 from ..utils.convert import (check_reference_tree, load_reference_opt_state,
                              load_reference_tree, to_reference_opt_state,
@@ -198,7 +223,13 @@ logger = logging.getLogger("bigdl_torch")
 __all__ = ["Optimizer", "DistriOptimizer", "LocalOptimizer", "Predictor",
            "Evaluator", "Validator",
            "DistriValidator", "LocalValidator", "NonFiniteLossError",
-           "ConfigurationError", "TrainingPreempted", "HostCopy", "to_host"]
+           "ConfigurationError", "TrainingPreempted", "HostCopy", "to_host",
+           "StallError", "PeerLostError"]
+
+#: re-export: the supervisor raises it into the retry loop
+StallError = supervision.StallError
+#: re-export: the elastic subsystem's host-loss signal
+PeerLostError = elastic_mod.PeerLostError
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -272,6 +303,18 @@ class NonFiniteLossError(RuntimeError):
 class ConfigurationError(ValueError):
     """A setup error no retry can fix (a batch the accumulation steps do
     not divide, an epoch with no batch): the retry loop re-raises it."""
+
+
+class _ElasticJoinSignal(Exception):
+    """Control flow, never user-facing: a checkpoint boundary saw pending
+    ``elastic/join.<rank>`` intents.  Raised out of the loop so the retry
+    loop runs the grow from its own frame; a planned event, it spends no
+    retry."""
+
+    def __init__(self, joiners):
+        self.joiners = tuple(int(r) for r in joiners)
+        super().__init__(f"returning host(s) {list(self.joiners)} "
+                         "announced at this checkpoint boundary")
 
 
 class TrainingPreempted(RuntimeError):
@@ -662,6 +705,9 @@ class Optimizer:
         self._iters_in_budget_window = 0
         self._supervise_cfg = None
         self._sup = None
+        #: one entry per elastic re-form: kind, neval, epoch, world, batch
+        self._elastic_history: list = []
+        self._elastic_plan = None
         self._stager = None
         self._ckpt_futures: list = []
         self._ckpt_stream = None
@@ -754,8 +800,8 @@ class Optimizer:
         ``publish=True`` writes a release entry into ``path`` for every
         ``publish_every``-th snapshot (a string publishes into that
         directory instead): the feed a ``serve.DeployController`` watches.
-        Rank 0 publishes, an asynchronous snapshot once its write is
-        done."""
+        The checkpoint writer (``Engine.is_writer()``) publishes, an
+        asynchronous snapshot once its write is done."""
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger
         self.is_overwrite = is_overwrite
@@ -880,22 +926,27 @@ class Optimizer:
         ``BIGDL_TORCH_SUPERVISE_*`` knobs, 0 disarms it.  A missed deadline
         writes a crash report into ``report_dir`` (default: the checkpoint
         path) and raises a ``StallError`` that the retry loop recovers from
-        (``policy="raise"``) or exits the process (``"exit"``).  The
-        multi-host arguments (``peer_dir``, ``peer_stale``) raise (ROADMAP
-        queue A item 6)."""
-        if peer_dir is not None or peer_stale is not None:
-            raise NotImplementedError(supervision._PEER_HALF)
+        (``policy="raise"``) or exits the process (``"exit"``).  Over a
+        logical world of several ranks each publishes its heartbeat into
+        ``peer_dir`` (default ``<checkpoint>/heartbeats``) and flags peers
+        whose beats are older than ``peer_stale`` seconds
+        (``BIGDL_TORCH_SUPERVISE_PEER_STALE``)."""
         self._supervise_cfg = {"data": data, "step": step,
                                "checkpoint": checkpoint,
                                "validation": validation,
                                "compile": compile, "default": default,
                                "policy": policy, "report_dir": report_dir,
+                               "peer_dir": peer_dir,
+                               "peer_stale": peer_stale,
                                "poll_interval": poll_interval}
         return self
 
     def _build_supervisor(self):
         """The Supervisor of this run, or None where no phase has a
-        deadline (supervision off, the default)."""
+        deadline and elasticity is off (the default).  Elasticity
+        (``BIGDL_TORCH_ELASTIC_PEER_LOST`` > 0 over a logical world of
+        several ranks with a checkpoint path) arms it too: host-loss
+        detection needs the monitor thread."""
         cfg = self._supervise_cfg or {}
         deadlines, env_default = supervision.env_deadlines()
         for phase in supervision.PHASES:
@@ -907,13 +958,23 @@ class Optimizer:
         default = cfg.get("default")
         if default is None:
             default = env_default
-        if not deadlines and not default:
+        rank, world = Engine.rank(), Engine.world()
+        elastic_on = (elastic_mod.armed() and world > 1
+                      and self.checkpoint_path is not None)
+        if not deadlines and not default and not elastic_on:
             return None
+        peer_dir = cfg.get("peer_dir")
+        if peer_dir is None and world > 1 and self.checkpoint_path:
+            peer_dir = file_io._join(
+                file_io._strip_file_scheme(self.checkpoint_path),
+                elastic_mod.HEARTBEAT_DIRNAME)
         return supervision.Supervisor(
             deadlines, default,
             report_dir=cfg.get("report_dir") or self.checkpoint_path,
-            policy=cfg.get("policy"), rank=Engine.rank(),
-            world=Engine.world(), poll_interval=cfg.get("poll_interval"))
+            policy=cfg.get("policy"), peer_dir=peer_dir, rank=rank,
+            world=world, peer_stale=cfg.get("peer_stale"),
+            poll_interval=cfg.get("poll_interval"),
+            lineage_dir=self.checkpoint_path if elastic_on else None)
 
     def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
         self.grad_clip_norm = clip_norm
@@ -1114,7 +1175,8 @@ class Optimizer:
             return
         if self._sup is not None:
             self._sup.beat("validation")
-        results = self._run_validation()
+        with telemetry.span("validation", neval=state["neval"]):
+            results = self._run_validation()
         # Trigger.plateau's observation counter: one validation, one tick
         state["val_obs"] = state.get("val_obs", 0) + 1
         for method, res in results:
@@ -1225,24 +1287,31 @@ class Optimizer:
 
     def _write_checkpoint(self, state, opt_state, rng, preempt=False):
         """``model.<n>`` and ``optimMethod.<n>`` for the last finished
-        iteration n, written by rank 0 alone, then the retention.
-        Asynchronous unless the reason is a preemption."""
+        iteration n, written by the writer alone (``Engine.is_writer()``:
+        the lowest surviving rank), then the retention.  Asynchronous
+        unless the reason is a preemption."""
         if self._sup is not None:
             self._sup.beat("checkpoint")
+        with telemetry.span("checkpoint", neval=state["neval"] - 1,
+                            preempt=preempt):
+            self._write_checkpoint_impl(state, opt_state, rng, preempt)
+
+    def _write_checkpoint_impl(self, state, opt_state, rng, preempt):
         if self.strategy is not None:
             # under ZeRO every rank all-gathers the slices before rank 0
             # writes the whole tree
             opt_state = self.strategy.full_state(opt_state)
-        if Engine.rank() != 0:
+        if not Engine.is_writer():
             return
         neval = state["neval"] - 1
         is_async = self.checkpoint_async and not preempt
         fetch, done = self._fetch_async() if is_async else (None, None)
         params, net_state = to_reference_tree(self.model, fetch)
         # the generator of a rank's Dropout masks: only one rank writes, so
-        # under a group the ranks reseed on resume instead
+        # over several ranks (a group or a logical world) the ranks reseed
+        # on resume instead
         rng_state = None
-        if Engine.group() is None:
+        if Engine.group() is None and Engine.world() == 1:
             rng_state = {"device": rng.device.type,
                          "state": rng.get_state().numpy().copy()}
         model_blob = {"params": params, "state": net_state}
@@ -1431,7 +1500,8 @@ class Optimizer:
             dropout_seed(Engine.rank()))
         saved, self._resume_rng = self._resume_rng, None
         if saved is not None:
-            if saved["device"] == self.device.type and Engine.group() is None:
+            if saved["device"] == self.device.type and \
+                    Engine.group() is None and Engine.world() == 1:
                 rng.set_state(torch.from_numpy(np.asarray(saved["state"],
                                                           np.uint8)))
             else:
@@ -1439,7 +1509,7 @@ class Optimizer:
                                "fit a %s run: the Dropout generator is "
                                "seeded as at a start", saved["device"],
                                "group" if Engine.group() is not None
-                               else self.device.type)
+                               or Engine.world() > 1 else self.device.type)
         return rng
 
     # -- recovery ---------------------------------------------------------
@@ -1490,18 +1560,256 @@ class Optimizer:
                        "for the retry")
         self._restore_blob(self._initial_blob)
 
+    # -- elastic re-forms (parallel/elastic.py) ---------------------------
+
+    def _rescale_batches(self, old_world: int, new_world: int) -> None:
+        """Keep the global batch across a world change: every batcher of
+        the training chain takes ``ceil(B * W / W')`` rows, so a global
+        batch the new world does not divide grows by up to ``W' - 1`` rows
+        and never shrinks (the learning rate is left alone)."""
+        if old_world == new_world:
+            return
+        for b in _find_batchers(self.dataset):
+            old = b.batch_size
+            b.batch_size = max(1, math.ceil(old * old_world / new_world))
+            logger.warning(
+                "elastic: per-host batch %d -> %d (world %d -> %d; global "
+                "batch %d preserved%s)", old, b.batch_size, old_world,
+                new_world, old * old_world,
+                "" if (old * old_world) % new_world == 0 else
+                f" up to ceil-rounding: now {b.batch_size * new_world}")
+
+    def _drop_inflight(self) -> None:
+        """Before a re-form: the device finishes what the interrupted
+        attempt queued (an async PeerLostError may land between a step's
+        launches), and that step's gradients, the stager's slots in flight,
+        an asynchronous snapshot's pending event and the forward engine are
+        dropped, so the next attempt rebuilds them for the new world."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for p in self.model.parameters():
+            p.grad = None
+        self._stager = None
+        self._snap_event = None
+        self._forward = None
+
+    def _elastic_reload(self, plan, rank, old_world, rescale=True) -> int:
+        """Load the agreed snapshot, re-form over its survivors and rescale
+        the batchers; returns the new world."""
+        new_world = len(plan.survivors)
+        with telemetry.span("elastic.reform", cat="elastic",
+                            old_world=old_world, new_world=new_world):
+            self._load_snapshot(plan.model_path, plan.optim_path)
+            Engine.reform(rank=rank, survivors=plan.survivors)
+            if rescale:
+                self._rescale_batches(old_world, new_world)
+        return new_world
+
+    def _elastic_done(self, kind, plan, world) -> None:
+        telemetry.instant("elastic.resume", cat="elastic", neval=plan.neval,
+                          world=world)
+        telemetry.counter("peers", joined=world)
+        self._elastic_plan = plan
+        self._note_elastic_event(kind, plan, world)
+
+    def _elastic_recover(self, err) -> None:
+        """Host-loss recovery as one attempt of the retry loop: negotiate
+        the newest lineage entry valid for every survivor (files only: the
+        collectives are what is broken), load it, re-form over the
+        survivors and rescale the batchers; the retry loop then re-enters
+        the loop, which rebuilds the step for the new world."""
+        old_world = Engine.world()
+        rank = Engine.rank()
+        prev = Engine.survivors()
+        lost = sorted(set(err.lost_ranks) & set(prev))
+        if not lost:
+            raise err   # nothing actionable (a stale intent?)
+        survivors = [r for r in prev if r not in lost]
+        if rank not in survivors:
+            raise err   # this rank itself was declared lost: no split
+        epoch = err.epoch or (self._sup.elastic_epoch + 1
+                              if self._sup is not None else 1)
+        if self._sup is not None:
+            # negotiation and the load run under the checkpoint deadline
+            self._sup.beat("checkpoint")
+        with telemetry.span("elastic.recover", cat="elastic", lost=lost,
+                            epoch=epoch):
+            self._drop_inflight()
+            # writes in flight land before the lineage survey; a failed
+            # one does not stop the recovery
+            self._drain_ckpt_futures(context="elastic recovery")
+            plan = elastic_mod.negotiate(self.checkpoint_path, rank=rank,
+                                         survivors=survivors, epoch=epoch)
+            world = self._elastic_reload(plan, rank, old_world)
+            if self._sup is not None:
+                self._sup.reform(rank=rank, world=world, epoch=plan.epoch,
+                                 lost=lost)
+            self._elastic_done("shrink", plan, world)
+            logger.warning("elastic: recovery round %d complete: resumed "
+                           "from snapshot %d on world %d (lost %s)",
+                           plan.epoch, plan.neval, world, lost)
+
+    def _note_elastic_event(self, kind: str, plan, world: int) -> None:
+        """One history entry per re-form: the drills read the world and
+        batch trajectory (2 -> 1 -> 2, 16 -> 32 -> 16) from it."""
+        batchers = _find_batchers(self.dataset)
+        self._elastic_history.append({
+            "kind": kind, "neval": int(plan.neval),
+            "epoch": int(plan.epoch), "world": int(world),
+            "batch": int(batchers[0].batch_size) if batchers else None})
+
+    def _check_join(self, state) -> None:
+        """The grow gate at a checkpoint boundary: a returning rank's
+        ``elastic/join.<rank>`` intent raises the internal join signal, so
+        the retry loop runs :meth:`_elastic_grow` with the snapshot just
+        written as the adoption point.  Every survivor reaches the same
+        boundary (the same trigger on the same driver state).  While a
+        shrink is pending the join waits for a later boundary."""
+        del state
+        if not elastic_mod.armed() or self.checkpoint_path is None:
+            return
+        intents = elastic_mod.read_join_intents(self.checkpoint_path,
+                                                exclude_rank=Engine.rank())
+        fresh = sorted(r for r in intents if r not in Engine.survivors())
+        if not fresh:
+            return
+        if self._sup is not None and self._sup.peer_lost_pending():
+            logger.warning("elastic: join intent from rank(s) %s during a "
+                           "shrink round: deferred to the next checkpoint "
+                           "boundary", fresh)
+            return
+        raise _ElasticJoinSignal(fresh)
+
+    def _elastic_grow(self, joiners) -> None:
+        """The survivors' side of a grow: the writer publishes the
+        admission offer (the wider survivor set and the round), every
+        survivor runs the same negotiation as the joiner, re-forms over the
+        wider set and rescales the batchers back down, so the global batch
+        returns to its configured value."""
+        old_world = Engine.world()
+        rank = Engine.rank()
+        prev = Engine.survivors()
+        was_writer = Engine.is_writer()
+        joiners = sorted(int(r) for r in joiners if int(r) not in prev)
+        if not joiners:
+            return
+        survivors = sorted(set(prev) | set(joiners))
+        epoch = self._sup.elastic_epoch + 1 if self._sup is not None else 1
+        if self._sup is not None:
+            self._sup.beat("checkpoint")
+            # the round can stall heartbeats long enough to read as a
+            # loss; sup.reform() re-arms promotion
+            self._sup.hold_elastic()
+        with telemetry.span("elastic.join", cat="elastic", joiners=joiners,
+                            epoch=epoch):
+            self._drop_inflight()
+            # the boundary's snapshot is on storage before anyone
+            # negotiates over it
+            self._drain_ckpt_futures(context="elastic grow")
+            if was_writer:
+                elastic_mod.publish_grow_offer(self.checkpoint_path, rank,
+                                               epoch, survivors, time.time())
+            plan = elastic_mod.negotiate(
+                self.checkpoint_path, rank=rank, survivors=survivors,
+                epoch=epoch, timeout=elastic_mod.join_timeout_seconds())
+            # a joiner that went silent is dropped by the timeout
+            world = self._elastic_reload(plan, rank, old_world)
+            admitted = [r for r in joiners if r in plan.survivors]
+            if self._sup is not None:
+                self._sup.reform(rank=rank, world=world, epoch=plan.epoch,
+                                 returned=admitted)
+            if was_writer:
+                for r in joiners:
+                    elastic_mod.clear_join_intent(self.checkpoint_path, r)
+            self._elastic_done("grow", plan, world)
+            logger.warning("elastic: grow round %d complete: world %d -> %d "
+                           "at snapshot %d (admitted %s)", plan.epoch,
+                           old_world, world, plan.neval, admitted)
+
+    def _elastic_join(self) -> None:
+        """The joiner's side, before its first attempt: hold the
+        announcement until the ``host.return@<rank>`` chaos gate fires (at
+        the cluster position of the newest snapshot; at once where no gate
+        is armed) and, for a returning rank, until a survivor has declared
+        it lost (:func:`~bigdl_torch.parallel.elastic.death_certificate`);
+        then announce, wait for admission, negotiate the survivors' round,
+        adopt the agreed snapshot and re-form into the wider world.
+        Raises ``ElasticJoinError`` when no survivor answers."""
+        rank = Engine.rank()
+        ckpt = self.checkpoint_path
+        point = f"host.return@{rank}"
+        poll = elastic_mod.join_poll_seconds()
+        timeout = elastic_mod.join_timeout_seconds()
+        beat = (self._sup.beat if self._sup is not None
+                else (lambda *_a: None))
+        if self._sup is not None:
+            # not a member yet: never start a shrink of the cluster
+            self._sup.hold_elastic()
+        with telemetry.span("elastic.join", cat="elastic", rank=rank):
+            gate_armed = chaos.armed(point)
+            returning = elastic_mod.previous_generation(ckpt, rank) \
+                is not None
+            floor = elastic_mod.latest_grow_epoch(ckpt)
+            deadline = time.monotonic() + timeout
+            gated = certified = False
+            while True:
+                beat("checkpoint")
+                if gate_armed and not gated:
+                    pos = elastic_mod.cluster_position(ckpt)
+                    if pos is not None:
+                        chaos.at_position(*pos)
+                    gated = chaos.gate(point)
+                if not certified:
+                    certified = (not returning) or \
+                        elastic_mod.death_certificate(
+                            ckpt, rank, floor=floor) > 0
+                if (gated or not gate_armed) and certified:
+                    break
+                if time.monotonic() >= deadline:
+                    logger.warning("elastic: join hold (gate fired=%s, death "
+                                   "certificate=%s) unresolved within %.0fs:"
+                                   " announcing anyway", gated, certified,
+                                   timeout)
+                    break
+                time.sleep(poll)
+            info = elastic_mod.announce_join(ckpt, rank, time.time())
+            if self._sup is not None:
+                # every publish from here carries the new generation
+                self._sup.generation = int(info["generation"])
+                self._sup.resume_heartbeat()
+            beat("checkpoint")
+            offer = elastic_mod.wait_for_admission(ckpt, rank,
+                                                   floor=info["floor"])
+            old_world = Engine.world()
+            plan = elastic_mod.negotiate(
+                ckpt, rank=rank, survivors=[int(r) for r in
+                                            offer["survivors"]],
+                epoch=int(offer["epoch"]), timeout=timeout)
+            # no rescale: the joiner is configured at the wider world's
+            # per-host batch already
+            world = self._elastic_reload(plan, rank, old_world,
+                                         rescale=False)
+            if self._sup is not None:
+                self._sup.reform(rank=rank, world=world, epoch=plan.epoch,
+                                 returned=(rank,))
+            self._elastic_done("join", plan, world)
+            logger.warning("elastic: rank %d joined world %d at snapshot %d "
+                           "(round %d)", rank, world, plan.neval, plan.epoch)
+
     # -- the loop ---------------------------------------------------------
 
     def _boundary(self, state, opt_state, rng):
         """After an iteration or an epoch: validation first (skipped when
         preempted), so that a trigger reading the score sees this
-        boundary's, then the checkpoint; a preemption then stops the
-        run."""
+        boundary's, then the checkpoint; a preemption then stops the run,
+        and after a checkpoint a returning rank's join intent stops it for
+        the grow (:meth:`_check_join`)."""
         self._raise_ckpt_errors()
         preempt = self._global_preempted()
         if not preempt:
             self._maybe_validate(state)
-        if self._checkpoint_decision(state, preempt):
+        fire = self._checkpoint_decision(state, preempt)
+        if fire:
             self._write_checkpoint(state, opt_state, rng, preempt=preempt)
         if preempt:
             self._drain_ckpt_futures()
@@ -1510,6 +1818,10 @@ class Optimizer:
             raise TrainingPreempted(
                 "SIGTERM: final checkpoint written at iteration "
                 f"{state['neval'] - 1}; resume with Optimizer.resume_from")
+        if fire:
+            # returning hosts are admitted only here: the snapshot just
+            # written is the one the joiner adopts
+            self._check_join(state)
 
     def optimize(self) -> Module:
         """Run until the end trigger fires, retrying failed attempts from
@@ -1530,12 +1842,21 @@ class Optimizer:
                 pass   # not the main thread: no handler
         self._sup = self._build_supervisor()
         if self._sup is not None:
+            if elastic_mod.join_armed():
+                # a joiner stays publication-silent until announce_join has
+                # cleaned its previous life's files (_elastic_join)
+                self._sup.suspend_heartbeat()
             self._sup.beat("data")
             self._sup.start()
             supervision.set_active(self._sup)
+        # one trace file per logical rank (BIGDL_TORCH_TRACE); only the
+        # tracer this call started is closed here
+        owned_tracer = telemetry.maybe_start(rank=Engine.rank())
         try:
             return self._optimize_with_retry()
         finally:
+            if owned_tracer is not None:
+                owned_tracer.close()
             if self._sup is not None:
                 self._sup.stop()
                 self._sup = None
@@ -1546,21 +1867,44 @@ class Optimizer:
         retries, last_failure = 0, None
         max_retries = config.retry_times()
         window = config.retry_time_interval()
+
+        def spend():
+            # the count starts over when failures are farther apart than
+            # the window (DistriOptimizer.scala:752)
+            nonlocal retries, last_failure
+            now = time.monotonic()
+            if last_failure is not None and now - last_failure > window:
+                retries = 0
+            last_failure = now
+            retries += 1
+            return retries <= max_retries and self.checkpoint_path is not None
+
+        if elastic_mod.join_armed() and self.checkpoint_path is not None:
+            # a joiner announces itself, is admitted and adopts the agreed
+            # snapshot before its first attempt
+            self._elastic_join()
         while True:
             try:
                 return self._optimize_impl()
             except (KeyboardInterrupt, ConfigurationError,
                     TrainingPreempted):
                 raise
+            except PeerLostError as e:
+                # a peer host is gone: the elastic detect, negotiate,
+                # re-form, resume sequence is one attempt of the budget
+                if not spend() or not elastic_mod.armed():
+                    raise
+                logger.exception("peer host(s) lost; elastic recovery "
+                                 "(retry %d/%d)", retries, max_retries)
+                self._elastic_recover(e)
+            except _ElasticJoinSignal as e:
+                # a planned boundary event, not a failure: no retry spent
+                logger.warning("returning host(s) %s announced: elastic "
+                               "grow at this checkpoint boundary",
+                               list(e.joiners))
+                self._elastic_grow(e.joiners)
             except Exception:
-                now = time.monotonic()
-                # the count starts over when failures are farther apart
-                # than the window (DistriOptimizer.scala:752)
-                if last_failure is not None and now - last_failure > window:
-                    retries = 0
-                last_failure = now
-                retries += 1
-                if retries > max_retries or self.checkpoint_path is None:
+                if not spend():
                     raise
                 logger.exception("training failed; recovering from the "
                                  "checkpoint lineage (retry %d/%d)",
@@ -1595,6 +1939,9 @@ class Optimizer:
         rng = self._dropout_generator()
         beat = self._sup.beat if self._sup is not None else (lambda _p: None)
         first_step = True
+        # the rank-addressed host-loss drill point, per attempt: after a
+        # re-form the survivor fires its own address
+        host_lost_point = f"host.lost@{Engine.rank()}"
         while not self.end_trigger(state):
             self.dataset.shuffle()
             records = 0
@@ -1619,6 +1966,7 @@ class Optimizer:
                         batch, staged = item
                     t1 = time.perf_counter()
                     self.metrics.add("get batch time average", t1 - t0)
+                    telemetry.complete("data", t1 - t0, neval=state["neval"])
                     if self._straggler_check(t1 - t0, state["neval"],
                                              queue_depth=qdepth):
                         continue
@@ -1626,6 +1974,7 @@ class Optimizer:
                     beat("compile" if first_step else "step")
                     first_step = False
                     chaos.fire("step.stall")
+                    chaos.fire(host_lost_point)
                     if staged is None:
                         inp = _put_batch(batch.get_input(), self.device)
                         tgt = _put_batch(batch.get_target(), self.device)
@@ -1651,6 +2000,14 @@ class Optimizer:
                                     state["epoch"], state["neval"],
                                     state["loss"], lr, n / max(dt, 1e-9))
                         self._summarize(state, lr, n / max(dt, 1e-9))
+                    # the host-side step span (dispatch, plus the loss read
+                    # on a logged iteration) and the counter track
+                    step_s = time.perf_counter() - t1
+                    telemetry.complete("step", step_s, neval=state["neval"])
+                    telemetry.counter(
+                        "train", data_wait_s=t1 - t0, step_s=step_s,
+                        records_per_sec=n / max(step_s, 1e-9),
+                        prefetch_queue_depth=float(qdepth or 0))
                     self._histograms(state)
                     state["neval"] += 1
                     state["evalCounter"] += 1
@@ -1711,9 +2068,10 @@ class LocalOptimizer(Optimizer):
         if strategy is not None:
             raise ValueError(f"LocalOptimizer trains on one device; it "
                              f"takes no {type(strategy).__name__}")
-        if Engine.world() > 1:
+        if Engine.group_size() > 1:
             raise RuntimeError(f"LocalOptimizer trains on one device, the "
-                               f"Engine's group has {Engine.world()} ranks:"
+                               f"Engine's group has {Engine.group_size()} "
+                               "ranks:"
                                " use Optimizer or DistriOptimizer")
         if device is None:
             device = Engine.device()
@@ -1785,7 +2143,7 @@ class _Forward:
             inp = np.asarray(inp)
             n = inp.shape[0]
             m = -(-n // self.shards)
-            inp = _block(inp, Engine.rank() * m, m)
+            inp = _block(inp, Engine.group_rank() * m, m)
         x = _put_batch(inp, self.device)
         self.model.eval()
         with torch.inference_mode():
@@ -1801,7 +2159,7 @@ class _Forward:
         of ``n`` rows holds."""
         if self.shards == 1 or self.gather:
             return 0, min(valid, n)
-        lo = Engine.rank() * n
+        lo = Engine.group_rank() * n
         return lo, max(0, min(n, valid - lo))
 
 
@@ -1811,7 +2169,7 @@ def _gather_rows(t: torch.Tensor) -> torch.Tensor:
     if t.dtype == torch.bfloat16:
         t = t.float()
     t = t.contiguous()
-    out = torch.empty((Engine.world() * t.shape[0],) + tuple(t.shape[1:]),
+    out = torch.empty((Engine.group_size() * t.shape[0],) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
     return Engine.all_gather(out, t, "predict")
 
@@ -1836,8 +2194,9 @@ class Evaluator:
         """[(method, result)] over ``dataset`` (a DataSet of Samples or
         MiniBatches, or a list of Samples), each batch cut to its valid
         rows."""
-        totals = _score(self._engine, _batched(dataset, batch_size),
-                        methods, self._to_host)
+        with telemetry.span("evaluate"):
+            totals = _score(self._engine, _batched(dataset, batch_size),
+                            methods, self._to_host)
         # every rank saw the same batches: all of them or none hold results
         if self._engine.shards > 1 and totals and totals[0] is not None:
             totals = _reduce_results(totals, self._engine.device)
@@ -1860,6 +2219,10 @@ class Predictor:
         self._to_host = HostCopy()
 
     def predict(self, dataset) -> np.ndarray:
+        with telemetry.span("predict"):
+            return self._predict(dataset)
+
+    def _predict(self, dataset) -> np.ndarray:
         x = _as_dataset(dataset)
         if isinstance(x, AbstractDataSet):
             data = x.transform(SampleToMiniBatch(self.batch_size,

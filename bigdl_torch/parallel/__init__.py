@@ -1,6 +1,8 @@
 """Data parallelism: sharding strategies, the gradient wire and its
-buckets."""
+buckets; elastic training (``elastic``: host-loss recovery and
+re-admission)."""
 
+from .elastic import ElasticNegotiationError, PeerLostError
 from .sharding import (DataParallel, LayoutSharding, ShardedDataParallel,
                        ShardingStrategy, TensorParallel)
 from .wire import (bucket_assignment, bucket_count,
@@ -9,4 +11,4 @@ from .wire import (bucket_assignment, bucket_count,
 __all__ = ["ShardingStrategy", "DataParallel", "ShardedDataParallel",
            "TensorParallel", "LayoutSharding", "wire_cast",
            "bucket_assignment", "bucket_count", "measure_collective_seconds",
-           "wire_bucket_mb"]
+           "wire_bucket_mb", "PeerLostError", "ElasticNegotiationError"]

@@ -144,7 +144,7 @@ class ShardingStrategy:
     def batch_shard_count(self) -> int:
         """How many ways a batch's rows are split: the padding multiple of
         sharded inference."""
-        return Engine.world()
+        return Engine.group_size()
 
     def param_axes(self, params, world: Optional[int] = None
                    ) -> List[Optional[int]]:
@@ -190,8 +190,8 @@ class ShardingStrategy:
         group's world): every tensor goes through host memory, and each
         leaf that :meth:`opt_state_sharding` slices is cut to that rank's
         slice, then placed on the device of ``params``."""
-        world = Engine.world() if world is None else world
-        rank = Engine.rank() if rank is None else rank
+        world = Engine.group_size() if world is None else world
+        rank = Engine.group_rank() if rank is None else rank
         shapes = [_shape(p) for p in params]
         spec = self.opt_state_sharding(tree, shapes,
                                        self.param_axes(shapes, world))
@@ -282,7 +282,7 @@ class DataParallel(ShardingStrategy):
         flat = torch.cat([g.reshape(-1).float() for g in grads]
                          + [loss.detach().float().reshape(1)])
         Engine.all_reduce(flat, "grads")
-        flat /= Engine.world()
+        flat /= Engine.group_size()
         parts = torch.split(flat[:-1], [g.numel() for g in grads])
         return ([p.view(g.shape) for p, g in zip(parts, grads)], flat[-1])
 
@@ -359,7 +359,7 @@ class _GradBuckets:
         for w in self.works:
             w.wait()
         self.armed = False
-        world = Engine.world()
+        world = Engine.group_size()
         grads: List[torch.Tensor] = [None] * len(self.params)
         for buf, idxs in zip(self.bufs, self.assignment):
             buf /= world
@@ -401,7 +401,7 @@ class ShardedDataParallel(ShardingStrategy):
 
     def param_axes(self, params, world=None):
         """The reference's rule, leaf by leaf (module docstring)."""
-        n = Engine.world() if world is None else world
+        n = Engine.group_size() if world is None else world
 
         def axis(shape):
             if math.prod(shape) < self.min_size:
@@ -416,7 +416,7 @@ class ShardedDataParallel(ShardingStrategy):
     def setup(self, model, method=None, bucket_mb=0.0):
         _broadcast(model)
         params = list(model.parameters())
-        self.world, self.rank = Engine.world(), Engine.rank()
+        self.world, self.rank = Engine.group_size(), Engine.group_rank()
         self.device = params[0].device if params else None
         if method is not None and not method.supports_fused:
             axes = [None] * len(params)

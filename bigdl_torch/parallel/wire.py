@@ -116,7 +116,7 @@ def measure_collective_seconds(params: Sequence[torch.Tensor],
     Engine's group, the mean of ``iters`` rounds after one untimed round.
     0.0 without a group or at a world of one, where no collective exists.
     Counted under the kind ``"probe"``."""
-    if Engine.group() is None or Engine.world() <= 1:
+    if Engine.group() is None or Engine.group_size() <= 1:
         return 0.0
     wire = wire or torch.float32
     sizes = [p.numel() for p in params]

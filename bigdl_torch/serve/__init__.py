@@ -1,11 +1,11 @@
 """Online serving: dynamic batching, the inference server with hot swap,
 canary, replica restarts and autoscaling, traffic traces, continuous
-train-to-serve deployment and the continuous-batching decode engine.
+train-to-serve deployment, the continuous-batching decode engine, and the
+fleet: worker processes (``tools/serve_worker.py``) supervised by a
+``FleetSupervisor`` behind one ``FleetFront``.
 
-The reference's fleet half (``FleetSupervisor``, ``FleetFront``,
-``MemberLostError``) and its topology router (``TopologyRouter``,
-``PlacementError``, ``plan_subsets``) are not ported yet (ROADMAP queue A
-items 5 and 8)."""
+The reference's topology router (``TopologyRouter``, ``PlacementError``,
+``plan_subsets``) is not ported yet (ROADMAP queue A item 8)."""
 
 from .autoscale import AutoScaler
 from .batcher import (DecodeQueue, DynamicBatcher, PendingRequest,
@@ -17,6 +17,8 @@ from .continuous import (DeployController, ReleasePublisher,
 from .control import (CanaryController, CanaryRejected, QuotaExceeded,
                       ReplicaLostError, ReplicaMonitor, TenantQuotas)
 from .decode import DecodeEngine, SlotFault, page_ladder
+from .fleet import FleetSupervisor, MemberLostError
+from .fleetfront import FleetFront
 from .server import InferenceServer, ModelVersion
 from .tracefile import (TraceEvent, TraceFormatError, TraceRecorder,
                         read_trace, replay, resolve_outcomes, slo_report,
@@ -33,4 +35,5 @@ __all__ = ["InferenceServer", "ModelVersion", "DynamicBatcher",
            "resolve_outcomes", "slo_report",
            "DeployController", "ReleasePublisher", "ReleaseRejected",
            "read_release",
-           "DecodeEngine", "DecodeQueue", "SlotFault", "page_ladder"]
+           "DecodeEngine", "DecodeQueue", "SlotFault", "page_ladder",
+           "FleetSupervisor", "FleetFront", "MemberLostError"]

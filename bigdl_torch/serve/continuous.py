@@ -1,7 +1,6 @@
 """Continuous train-to-serve deployment: release lineage and controller.
 
-Counterpart of ``bigdl_tpu/serve/continuous.py``, in its single-server
-mode:
+Counterpart of ``bigdl_tpu/serve/continuous.py``, all of it:
 
 - :class:`ReleasePublisher`, the training side: the Optimizer's checkpoint
   path (``set_checkpoint(..., publish=True)``) writes one release entry a
@@ -24,9 +23,12 @@ mode:
   frozen) is kept for ``versions()`` (``/v1/versions``) and emitted on
   the ``deploy`` telemetry track.
 
-A server that declares ``fleet = True`` (the reference's fleet front, a
-fan-out over worker processes) is refused: that half waits for the fleet
-port (ROADMAP queue A item 5).
+A target that declares ``fleet = True`` (``serve/fleetfront.FleetFront``,
+worker processes behind one front) gets each release fanned out: the
+front's ``swap`` canaries it on its lowest live member, then rolls it over
+the others with at most ``max_unavailable`` members swapping at a time;
+the verdict comes back through the front's ``stats()["canary"]`` as from
+one server.
 
 Fault point (``utils/chaos.py``): ``deploy.publish`` fires once per entry
 write and a ``corrupt@N`` schedule mutates the framed bytes.
@@ -39,6 +41,7 @@ Knobs (``utils/config``; constructor arguments override):
 | ``BIGDL_TORCH_DEPLOY_ROLLBACK_BUDGET`` | consecutive canary rollbacks before the controller freezes | 2 |
 | ``BIGDL_TORCH_DEPLOY_POLL_S`` | lineage poll cadence, seconds | 0.25 |
 | ``BIGDL_TORCH_DEPLOY_DECISION_TIMEOUT`` | seconds to wait for a canary verdict; past it the controller freezes (0 = forever) | 0 |
+| ``BIGDL_TORCH_DEPLOY_MAX_UNAVAILABLE`` | fleet mode: members swapping at once during the rolling fan-out | 1 |
 """
 
 from __future__ import annotations
@@ -199,13 +202,14 @@ class DeployController:
                  max_unavailable: Optional[int] = None,
                  since: int = 0, clock=None,
                  timeline_limit: int = 256):
-        if getattr(server, "fleet", False):
-            raise NotImplementedError(
-                "DeployController over a fleet front (fleet = True): the "
-                "fleet half of the serving stack is not ported yet "
-                "(ROADMAP queue A item 5)")
-        del max_unavailable   # the reference's fleet-mode bound
         self.server = server
+        #: fleet mode: a target declaring ``fleet = True`` gets releases
+        #: fanned out, a canary member then rolling swaps of at most
+        #: ``max_unavailable`` members at a time
+        self.fleet_mode = bool(getattr(server, "fleet", False))
+        self.max_unavailable = max(1, int(
+            max_unavailable if max_unavailable is not None
+            else config.get_int("DEPLOY_MAX_UNAVAILABLE", 1)))
         self.dir = file_io._strip_file_scheme(str(lineage_dir))
         f = (canary_fraction if canary_fraction is not None
              else config.get_float("DEPLOY_CANARY_FRACTION", 0.25))
@@ -354,10 +358,13 @@ class DeployController:
 
     def _deploy(self, rid: int, entry: dict) -> None:
         fraction = self.canary_fraction
-        vid = self.server.swap(entry["_model_path"],
-                               canary_fraction=fraction)
+        kwargs = {"canary_fraction": fraction}
+        if self.fleet_mode:
+            kwargs["max_unavailable"] = self.max_unavailable
+        vid = self.server.swap(entry["_model_path"], **kwargs)
         self._record("deployed", rid, version=vid,
-                     neval=entry.get("neval"))
+                     neval=entry.get("neval"),
+                     **({"fleet": True} if self.fleet_mode else {}))
         if fraction is None:
             # plain full swap: live immediately, nothing to observe
             with self._lock:
@@ -413,7 +420,7 @@ class DeployController:
     # -- timeline / stats -----------------------------------------------
 
     def _record(self, action: str, rid: int, *, version=None, neval=None,
-                reason=None, verdict=None) -> None:
+                reason=None, verdict=None, fleet=None) -> None:
         ev = {"release": int(rid), "action": action,
               "time": round(time.time(), 3)}
         if version is not None:
@@ -429,6 +436,8 @@ class DeployController:
                               "total") if k in verdict}
         elif verdict is not None:
             ev["verdict"] = str(verdict)
+        if fleet:
+            ev["fleet"] = True
         with self._lock:
             if action in self.counts:
                 self.counts[action] += 1

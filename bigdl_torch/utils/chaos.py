@@ -24,11 +24,12 @@ Fault points fired by the port:
 | ``serve.canary`` | once per canary batch (serve/server)             | fail/stall   |
 | ``serve.decode@<slot>`` | once per admission into and per tick of a decode slot (serve/decode) | fail |
 | ``deploy.publish`` | once per release entry written (serve/continuous) | corrupt    |
+| ``host.lost@<rank>`` | once per training iteration of that rank (driver loop) | exit/wedge |
+| ``host.return@<rank>`` | the elastic joiner's announcement gate (optim/optimizer ``_elastic_join``) | gate |
+| ``fleet.member@<idx>`` | once per beat-loop turn of fleet worker idx (tools/serve_worker) | exit/wedge |
+| ``data.record``  | once per record payload read (utils/recordio)     | fail/corrupt |
 
-The reference's other points (``data.record``, ``host.lost@<rank>``,
-``host.return@<rank>``, ``fleet.member@<idx>``) are fired by modules the
-port does not have yet (ROADMAP queue A items 5 and 6); their schedules
-work here all the same.  Each hit is a ``chaos:<point>`` instant on the
+Each hit is a ``chaos:<point>`` instant on the
 active tracer (``utils/telemetry``).
 
 Schedules (1-based counts): ``FailAt(3, 5)``, ``FailN(2, start=4)``,

@@ -48,6 +48,18 @@ the kernels always run.
 | BIGDL_TORCH_SUPERVISE_DATA / _STEP / _COMPILE / _CHECKPOINT / _VALIDATION / _SERVE | per-phase stall deadline, seconds (``utils/supervisor.py``) | 0 (off) |
 | BIGDL_TORCH_SUPERVISE_DEADLINE   | stall deadline of the phases without their own | 0 (off) |
 | BIGDL_TORCH_SUPERVISE_POLICY     | ``raise`` a StallError or hard-``exit``        | raise   |
+| BIGDL_TORCH_SUPERVISE_PEER_STALE | peer heartbeat beat-age staleness, seconds     | 60      |
+| BIGDL_TORCH_ELASTIC_PEER_LOST    | peer publication silence that is a lost host, s (0 = elasticity off) | 0 |
+| BIGDL_TORCH_ELASTIC_WORLD / _RANK | the logical topology of separate processes (``utils/engine.py``) | off |
+| BIGDL_TORCH_ELASTIC_NEGOTIATE_TIMEOUT / _POLL | seconds to wait for every survivor's lineage view; between polls | 60 / 0.25 |
+| BIGDL_TORCH_ELASTIC_JOIN         | 1 = this process joins a running cluster       | 0       |
+| BIGDL_TORCH_ELASTIC_JOIN_TIMEOUT / _POLL | seconds a joiner waits for admission; between polls | 120 / 0.25 |
+| BIGDL_TORCH_ELASTIC_REFORM_GRACE | seconds after a re-form when silence is not a loss | 2       |
+| BIGDL_TORCH_PROTOCOL_KEEP        | grow offers kept beyond the newest (``parallel/elastic.py``) | 8 |
+| BIGDL_TORCH_FLEET_MEMBER_LOST / _RESTART_BUDGET / _RESTART_BACKOFF / _POLL / _SPAWN_GRACE | the fleet supervisor (``serve/fleet.py``) | 5 / 3 / 0.5 / 0.5 / 30 |
+| BIGDL_TORCH_FLEET_HEARTBEAT / _KEEP_GENERATIONS | a worker's beat interval, s; member records kept | 0.5 / 4 |
+| BIGDL_TORCH_FLEET_TIMEOUT_S / _RETRIES / _REFRESH_S / _MAX_UNAVAILABLE | the fleet front (``serve/fleetfront.py``) | 60 / 2 / 0.25 / 1 |
+| BIGDL_TORCH_DEPLOY_MAX_UNAVAILABLE | fleet mode: members in a rolling swap at once | 1     |
 | BIGDL_TORCH_FUSED_UPDATE         | the update over one flat tensor per dtype      | 0       |
 | BIGDL_TORCH_WIRE_BUCKET_MB       | gradient bucket cap, MB (0 = per-leaf wire)    | 0       |
 | BIGDL_TORCH_RNN_HOIST_MAX_ELEMENTS | cap on (T, B, gates) elements of the hoisted input projection | 2^28 |

@@ -36,8 +36,22 @@ runs one process per card, so here the data axis is one
   with CUDA 12.8, and on the CPU under torch 2.13), so there is one
   route.
 
-Not ported: elasticity (``reform``, survivors, the simulated topologies)
-and multi-axis meshes.
+Elastic topology (the reference's ``:230-330``): :meth:`world` and
+:meth:`rank` are the LOGICAL topology the elastic protocol speaks in
+(``parallel/elastic.py``): the survivors after a :meth:`reform`, else the
+``BIGDL_TORCH_ELASTIC_WORLD`` / ``_ELASTIC_RANK`` declaration of separate
+processes coordinated only through files, else the group's.  A rank keeps
+its original id across a shrink; :meth:`is_writer` is the lowest
+survivor, :meth:`data_shard_info` the rank's index among the survivors.
+Under a logical world without a group each process trains its own shard
+on its own; nothing is summed over the logical world.  So the code that
+sums, divides or slices over the ``torch.distributed`` group reads
+:meth:`group_size` and :meth:`group_rank`, never :meth:`world`.  A live
+group of several processes cannot shrink in place: :meth:`reform` raises
+:class:`GroupReformError` there (the survivors restart into the smaller
+world, as in the reference).
+
+Not ported: multi-axis meshes.
 """
 
 from __future__ import annotations
@@ -46,14 +60,14 @@ import collections
 import datetime
 import logging
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from . import config
 
-__all__ = ["Engine"]
+__all__ = ["Engine", "GroupReformError"]
 
 logger = logging.getLogger("bigdl_torch")
 
@@ -67,6 +81,12 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
 _ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 
 
+class GroupReformError(RuntimeError):
+    """:meth:`Engine.reform` over a live group of several processes: the
+    group cannot shrink or grow in place; the survivors restart into the
+    new world."""
+
+
 class Engine:
     """Process-wide singleton holding the data group (BigDL:
     utils/Engine.scala:36)."""
@@ -77,6 +97,8 @@ class Engine:
 
     _group = None
     _device: Optional[torch.device] = None
+    #: the topology a reform() installed: {"rank", "survivors"}
+    _elastic: Optional[dict] = None
     _lock = threading.Lock()
     #: all-reduce calls since the last reset, by kind
     all_reduces = collections.Counter()
@@ -158,6 +180,7 @@ class Engine:
                 dist.destroy_process_group()
             cls._group = None
             cls._device = None
+            cls._elastic = None
             cls.clear_counts()
 
     @classmethod
@@ -218,28 +241,131 @@ class Engine:
         return (f"{backend}: {_REDUCE_SCATTER.__name__} / "
                 f"{_ALL_GATHER.__name__}")
 
-    # -- topology accessors (BigDL: Engine.nodeNumber / Engine.coreNumber) --
+    # -- the group (what collectives run over) ------------------------
 
     @classmethod
-    def rank(cls) -> int:
-        return dist.get_rank(cls._group) if cls._group is not None else 0
-
-    @classmethod
-    def world(cls) -> int:
+    def group_size(cls) -> int:
+        """Processes of the ``torch.distributed`` group, 1 without one:
+        what a sum over the group is divided by and ZeRO slices over."""
         return (dist.get_world_size(cls._group) if cls._group is not None
                 else 1)
 
     @classmethod
+    def group_rank(cls) -> int:
+        """This process's rank in the group, 0 without one."""
+        return dist.get_rank(cls._group) if cls._group is not None else 0
+
+    # -- the elastic topology (parallel/elastic.py) ---------------------
+
+    @classmethod
+    def _env_elastic_world(cls) -> int:
+        return config.get_int("ELASTIC_WORLD", 0)
+
+    @classmethod
+    def world(cls) -> int:
+        """The logical world: the survivors after a :meth:`reform`, the
+        ``BIGDL_TORCH_ELASTIC_WORLD`` topology, else the group's size."""
+        if cls._elastic is not None:
+            return len(cls._elastic["survivors"])
+        w = cls._env_elastic_world()
+        return w if w > 1 else cls.group_size()
+
+    @classmethod
+    def rank(cls) -> int:
+        """This process's logical rank: its original id, kept across
+        shrinks; else the group's rank."""
+        if cls._elastic is not None:
+            return cls._elastic["rank"]
+        if cls._env_elastic_world() > 1:
+            return config.get_int("ELASTIC_RANK", cls.group_rank())
+        return cls.group_rank()
+
+    @classmethod
+    def survivors(cls) -> tuple:
+        """The surviving original rank ids, sorted (every rank before a
+        fault)."""
+        if cls._elastic is not None:
+            return cls._elastic["survivors"]
+        return tuple(range(cls.world()))
+
+    @classmethod
+    def elastic_active(cls) -> bool:
+        """True where a logical topology overrides the group's."""
+        return cls._elastic is not None or cls._env_elastic_world() > 1
+
+    @classmethod
+    def is_writer(cls) -> bool:
+        """True on the rank that writes to the shared store (checkpoints):
+        the lowest survivor, rank 0 until a reform removes it."""
+        return cls.rank() == min(cls.survivors() or (0,))
+
+    @classmethod
+    def reform(cls, world: Optional[int] = None, rank: Optional[int] = None,
+               survivors: Optional[Sequence[int]] = None,
+               devices: Optional[Sequence] = None):
+        """Re-form the logical topology over a new rank set: a shrink after
+        a host loss or a grow when a returning host is admitted.
+        ``survivors`` are original rank ids (default: the first ``world``
+        current survivors, a shrink only); ``rank`` is this process's
+        (default: unchanged).  ``devices`` may name this process's one
+        device (the port runs one device per process); more raise.  A live
+        group of several processes raises :class:`GroupReformError`.
+        Returns the group (the reference's mesh), None without one."""
+        if cls.group_size() > 1 or config.get_int("NUM_PROCESSES", 1) > 1:
+            raise GroupReformError(
+                f"Engine.reform: the torch.distributed group of "
+                f"{max(cls.group_size(), config.get_int('NUM_PROCESSES', 1))}"
+                " processes cannot re-form in place; restart the survivors "
+                "into the new world")
+        devs = None if devices is None else list(devices)
+        if devs is not None and len(devs) > 1:
+            raise ValueError(f"Engine.reform: {len(devs)} devices; a port "
+                             "process runs on one device")
+        cur = cls.survivors()
+        if survivors is None:
+            if world is None:
+                raise ValueError("Engine.reform: need world or survivors")
+            if int(world) > len(cur):
+                raise ValueError(
+                    f"Engine.reform: world={world} > current {len(cur)}: "
+                    "growing needs an explicit survivor set (original rank "
+                    "ids cannot be invented)")
+            survivors = cur[:int(world)]
+        survivors = tuple(sorted(int(r) for r in survivors))
+        if not survivors:
+            raise ValueError("Engine.reform: empty survivor set")
+        if world is not None and int(world) != len(survivors):
+            raise ValueError(f"Engine.reform: world={world} disagrees with "
+                             f"survivors {survivors}")
+        rank = cls.rank() if rank is None else int(rank)
+        if rank not in survivors:
+            raise ValueError(f"Engine.reform: rank {rank} not in survivors "
+                             f"{survivors}")
+        if devs:
+            cls._device = torch.device(devs[0])
+        cls._elastic = {"rank": rank, "survivors": survivors}
+        logger.warning("Engine.reform: world -> %d (rank %d, survivors %s)",
+                       len(survivors), rank, list(survivors))
+        return cls._group
+
+    # -- topology accessors (BigDL: Engine.nodeNumber / Engine.coreNumber) --
+
+    @classmethod
     def data_shard_info(cls) -> tuple:
-        """(shard_index, shard_count) of this process's input rows: its
-        rank and the world size (one process per device)."""
-        return cls.rank(), cls.world()
+        """(shard_index, shard_count) of this process's input rows: under
+        a logical topology its index among the survivors and their count,
+        else its rank in the group and the group's size (one process per
+        device)."""
+        if cls.elastic_active():
+            surv = cls.survivors()
+            return surv.index(cls.rank()), len(surv)
+        return cls.group_rank(), cls.group_size()
 
     @classmethod
     def node_number(cls) -> int:
         """The processes of the data group, 1 without one
         (Engine.nodeNumber)."""
-        return cls.world()
+        return cls.group_size()
 
     @classmethod
     def core_number(cls) -> int:
@@ -249,9 +375,9 @@ class Engine:
 
     @classmethod
     def data_parallel_size(cls) -> int:
-        return cls.world()
+        return cls.group_size()
 
     @classmethod
     def device_count(cls) -> int:
         """Devices in the data group: one per rank."""
-        return cls.world()
+        return cls.group_size()

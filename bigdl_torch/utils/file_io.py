@@ -36,9 +36,9 @@ one background thread (at most two pending); :func:`join_checkpoints` and
 
 Release publication (``serve/continuous.py``) reads a snapshot's
 integrity footer alone with :func:`frame_fingerprint` and follows a
-lineage directory with :func:`watch_lineage`.  Not ported yet:
-``sweep_numbered``, which elastic training and the serving fleet call
-(ROADMAP queue A items 5 and 6).
+lineage directory with :func:`watch_lineage`.  Elastic training's grow
+offers and the serving fleet's member records are swept by their writer
+with :func:`sweep_numbered`.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ __all__ = ["save", "load", "verify", "save_checkpoint", "latest_checkpoint",
            "RetryingFileSystem", "RetryPolicy", "set_retry_timebase",
            "save_checkpoint_async", "join_checkpoints",
            "wait_for_async_checkpoints", "frame_fingerprint",
-           "watch_lineage"]
+           "watch_lineage", "sweep_numbered"]
 
 _SCHEME_RE = re.compile(r"^([a-zA-Z][a-zA-Z0-9+.-]*)://")
 
@@ -731,6 +731,47 @@ def prune_checkpoints(path: str, keep_last: int, keep=()) -> list:
                     "keepers=%s)", sorted(pruned), path, keep_last,
                     sorted(keep))
     return pruned
+
+
+def sweep_numbered(path: str, pattern: str, keep: int) -> list:
+    """Writer-side retention of numbered protocol files: delete every file
+    under ``path`` whose name fullmatches ``pattern`` (group 1 the
+    monotonic integer id) beyond the newest ``keep`` ids.
+
+    Elastic grow offers (``parallel/elastic.py``) and fleet member records
+    (``serve/fleet.py``) stamp a new id per round or generation and never
+    delete; the writer sweeps right after it publishes, and readers only
+    want the newest few.  Quarantined ``.corrupt`` files never fullmatch.
+    Best effort: a failed delete is logged.  ``keep`` <= 0 sweeps nothing.
+    Returns the removed names."""
+    if keep <= 0:
+        return []
+    path = _strip_file_scheme(path)
+    fs = get_filesystem(path)
+    matcher = re.compile(pattern)
+    try:
+        names = fs.listdir(path) if fs.isdir(path) else []
+    except Exception:  # noqa: BLE001 - an absent or unreachable dir has
+        # nothing to sweep; the next publish tries again
+        return []
+    found = {}
+    for name in names:
+        m = matcher.fullmatch(name)
+        if m:
+            found[int(m.group(1))] = name
+    removed = []
+    for n in sorted(found, reverse=True)[keep:]:
+        target = _join(path, found[n])
+        try:
+            fs.remove(target)
+            removed.append(found[n])
+        except Exception as e:  # noqa: BLE001 - retention is best effort
+            logger.warning("retention: could not sweep %s: %s", target, e)
+    if removed:
+        logger.info("retention: swept %d stale protocol file(s) from %s "
+                    "(keep=%d): %s", len(removed), path, keep,
+                    sorted(removed))
+    return removed
 
 
 class File:

@@ -26,9 +26,11 @@ Counterpart of ``bigdl_tpu/utils/telemetry.py``, all of it:
 Who emits here: the serving stack (``serve.batch`` spans, the ``serve``,
 ``serve.canary``, ``serve.autoscale`` and ``serve.decode`` counter tracks,
 request flows, ``serve.*`` and ``deploy.*`` instants) and the chaos points
-(one ``chaos:<point>`` instant per schedule hit).  The training loop's
-spans and the prefetch worker's ``prefetch.item`` spans are not emitted
-yet (ROADMAP queue A item 6).
+(one ``chaos:<point>`` instant per schedule hit), the training loop
+(``data``, ``step``, ``validation`` and ``checkpoint`` spans, the
+``train`` counter track, the ``elastic.*`` spans and instants, the
+``peers`` track), bulk inference (``evaluate``, ``predict``), the prefetch
+worker (``prefetch.item``) and the serving fleet (``fleet.*``).
 
 Knobs (``utils/config``):
 

@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10 and
-``--zero-child DIR`` one of phase 10b, started by the script itself;
+(``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10,
+``--zero-child DIR`` one of phase 10b and ``--elastic-child SPEC`` one
+process of phase 21's drill, started by the script itself;
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
-``--only layers``, ``--only train_zoo``, ``--only zoo_data`` and ``--only
-serve_stack`` the build and phase 16, 17, 18, 19 or 20 alone, and none of
-them prints the final line.)
+``--only layers``, ``--only train_zoo``, ``--only zoo_data``, ``--only
+serve_stack`` and ``--only elastic_fleet`` the build and phase 16, 17, 18,
+19, 20 or 21 alone, and none of them prints the final line.)
 
 Phases, each printing one JSON line:
 
@@ -470,6 +471,50 @@ Phases, each printing one JSON line:
    width.  B6 at [8, 8, 128, 64] and the trainer's [16, 8, 512, 64] with
    the log-sum-exp, B7 at the trainer's, B8 at the engine's: each held to
    its plain version and timed.
+21. ``elastic_fleet``: elastic training and the serving fleet, each
+   process of them on the card.
+   (a) Shrink: two processes of this script (``--elastic-child``), the
+   logical ranks of ``BIGDL_TORCH_ELASTIC_WORLD=2``, each train the LM at
+   the bench width on its half of ``EF_SAMPLES`` sequences at 16 x 512
+   (``Adam(EF_LR)``, the order pinned, ``PREFETCH_DEPTH=0``, a snapshot
+   after every iteration, rank 0 publishing a release of each).  Before
+   each step a barrier over a shared dir holds a rank until every
+   survivor has finished the previous iteration (the wait of a
+   data-parallel step's collective).  Rank 1 carries
+   ``host.lost@1=exit@1:3`` and exits 117; rank 0, parked in the barrier,
+   must detect the silence (``EF_PEER_LOST`` s), negotiate the newest
+   entry, shrink to world 1 at 32 x 512 and train on.  (b) Grow: rank 1
+   comes back as a joiner (``BIGDL_TORCH_ELASTIC_JOIN=1``,
+   ``host.return@1=join@2:2``): it waits for its death certificate,
+   announces itself and is admitted at rank 0's next checkpoint
+   boundary; both train ``EF_AFTER_GROW`` more iterations.  History:
+   world 2 -> 1 -> 2, batch 16 -> 32 -> 16.  Clean processes, each run
+   twice, resume from the shrink's entry (world 1, to the grow's) and from
+   the grow's (each rank of world 2, to the end); rank 0's and the
+   joiner's losses are held to theirs under ``resume_rule``.  Every step
+   of every run: 8 B6 (each with the log-sum-exp) and 16 B7 launches, all
+   ``"tc"``.  Release ids are gap-free across both resizes and a
+   stub-served ``DeployController`` promotes the releases from the grow
+   on (earlier snapshots the drill's retention pruned).  Printed:
+   detect-to-resume, negotiate and re-form ms from rank 0's trace, the
+   joiner's announcement-to-resume ms, the step ms at each world, the
+   ``elastic.*`` events.  B6 with the log-sum-exp and B7 at the shrunk
+   world's [32, 8, 512, 64] bf16 causal, held to their plain versions
+   and timed beside SDPA and the bound.  (c) Fleet: a ``FleetSupervisor``
+   spawns 3 ``python -m bigdl_torch.tools.serve_worker`` members serving
+   LeNet-5 on the card, beside a stale ``member.7.1`` record with no
+   heartbeat; ``EF_REQUESTS`` requests replay through ``FleetFront`` while
+   member 0 takes ``kill -9`` and member 1's first life carries
+   ``fleet.member@1=wedge@80`` (the zombie): both are condemned and
+   respawned at generation 2, no accepted request is lost, the stale
+   entry is never routed, every answer is within ``SERVE_ATOL`` of
+   ``Predictor``.  A release rolls out through ``DeployController`` in
+   fleet mode (canary ``EF_CANARY`` on the lowest member, then at most 1
+   member swapping at a time) under closed-loop traffic, and every
+   member's answers are then within ``SERVE_ATOL`` of ``Predictor`` on
+   the release.  Printed: requests answered, retried and shed,
+   respawn-to-ready s, the deploy's s, p50 and p99 ms through the front
+   against one member called directly.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -485,8 +530,9 @@ run, B6 per ViT eval, B6 and B7 per CLI ``vit`` run (D = 16, with the
 D = 16 ``"tc"`` cases beside them, launched 0 times on that path), B6
 per int8 scoring run and B8 per warm int8 decode run of ``zoo_data``,
 B6 per scoring window and per publishing trainer, B7 per publishing
-trainer and B8 per ``/v1/generate`` run of ``serve_stack``, each with
-its case's times), the
+trainer and B8 per ``/v1/generate`` run of ``serve_stack``, B6 and B7
+per elastic drill (rank 0 and the joiner) of ``elastic_fleet`` with the
+shrunk world's case, each with its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -7562,6 +7608,736 @@ def ss_kernel_rows(launched, http):
              "floor_ms": b8["floor_ms"], "splits": b8["splits"]}]
 
 
+# ---------------------------------------------------------------------------
+# elastic_fleet: the bench LM trained elastically, the serving fleet
+# ---------------------------------------------------------------------------
+
+EF_BATCH = 16                  # per rank at world 2; 32 at world 1
+EF_SAMPLES = 2 * EF_BATCH * 4  # 4 iterations an epoch at either world
+EF_LR = 1e-3
+EF_LOST_AT = "1:3"             # rank 1 exits at the top of iteration 3
+EF_RETURN_AT = "2:2"           # the joiner's announcement gate
+EF_PEER_LOST = 4.0             # seconds of publication silence
+EF_AFTER_GROW = 6              # iterations trained after the grow
+EF_MAX_ITERS = 60              # the cap of a run that never grows
+EF_KEEP = 6                    # snapshots the drill keeps beyond its plans
+EF_TIMEOUT = 600
+EF_STEP = {"fwd": LM["num_layers"], "bwd": 2 * LM["num_layers"],
+           "lse": LM["num_layers"]}
+EF_FLEET = 3
+EF_BEAT_S = 0.1
+EF_LOST_AFTER_S = 1.0
+EF_WEDGE_BEAT = 80             # member 1's first life wedges at beat 80
+EF_REQUESTS = 600
+EF_REQUEST_DT = 0.02
+EF_KILL_AT_S = 1.5
+EF_CANARY = 0.3
+EF_LATENCY_N = 200
+EF_FLEET_ENV = {"BIGDL_TORCH_SERVE_CANARY_MIN_BATCHES": "4",
+                "BIGDL_TORCH_SERVE_CANARY_LATENCY_RATIO": "3.0"}
+# a CPU rehearsal of the phase sets these to "cpu", a script of its own
+# for the children and ("--device", "cpu") for the workers
+EF_DEVICE = "cuda"
+EF_SCRIPT = None
+EF_WORKER_ARGS = ()
+
+
+def ef_snapshot():
+    """The B6 and B7 counters: launches, log-sum-exp launches, routes."""
+    return (attn_ops.flash_attention.launches,
+            attn_ops.flash_attention_bwd.launches,
+            attn_ops.flash_attention.lse_launches,
+            dict(attn_ops.flash_attention.route_launches),
+            dict(attn_ops.flash_attention_bwd.route_launches))
+
+
+class EfLog:
+    """The elastic drill's harness around one Optimizer run, as its end
+    trigger and its train summary.  Before each step a barrier over the
+    shared dir holds the rank until every current survivor has finished
+    the previous iteration: the wait a data-parallel step spends in its
+    collective, without which the ranks (each training its own shard,
+    nothing summed over the logical world) would drift apart and a rank
+    that finished first would read as lost.  After each step: the loss,
+    the step's milliseconds (the device synchronized), its B6 and B7
+    launches, the world and batch.  The writer of a drilled run keeps the
+    newest ``EF_KEEP`` snapshots and those its re-forms adopted.  A
+    drilled run ends ``EF_AFTER_GROW`` iterations after its grow or join,
+    a clean one at ``spec["end"]``."""
+
+    def __init__(self, spec, opt):
+        self.spec, self.opt = spec, opt
+        self.records = []
+        self._mark = None
+
+    def end(self, state):
+        n = state["neval"]
+        if self.spec.get("barrier"):
+            self._barrier(n - 1)
+        if self.spec.get("prune") and Engine.is_writer():
+            file_io.prune_checkpoints(
+                self.spec["ckpt"], EF_KEEP,
+                keep=[h["neval"] for h in self.opt._elastic_history])
+        self._mark = (time.perf_counter(), ef_snapshot())
+        if "end" in self.spec:
+            return n > self.spec["end"]
+        grown = [h["neval"] for h in self.opt._elastic_history
+                 if h["kind"] in ("grow", "join")]
+        return n > (grown[-1] + EF_AFTER_GROW if grown else EF_MAX_ITERS)
+
+    def _barrier(self, done):
+        d = self.spec["barrier"]
+        mine = os.path.join(d, f"pos.{Engine.rank()}")
+        with open(mine + ".tmp", "w") as f:
+            f.write(str(done))
+        os.replace(mine + ".tmp", mine)
+        while True:
+            behind = []
+            for r in Engine.survivors():
+                try:
+                    with open(os.path.join(d, f"pos.{r}")) as f:
+                        pos = int(f.read() or -1)
+                except (OSError, ValueError):
+                    pos = -1
+                if pos < done:
+                    behind.append(r)
+            if not behind:
+                return
+            time.sleep(0.01)
+
+    def add_scalar(self, tag, value, step):
+        if tag != "Loss" or self._mark is None:
+            return
+        if EF_DEVICE != "cpu":
+            torch.cuda.synchronize()
+        t0, before = self._mark
+        after = ef_snapshot()
+        self._mark = None
+        self.records.append({
+            "neval": int(step), "loss": float(value),
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "fwd": after[0] - before[0], "bwd": after[1] - before[1],
+            "lse": after[2] - before[2],
+            "fwd_routes": {k: after[3][k] - before[3][k] for k in after[3]},
+            "bwd_routes": {k: after[4][k] - before[4][k] for k in after[4]},
+            "world": Engine.world(), "batch": ef_batch(self.opt)})
+
+    def get_summary_trigger(self, name):
+        return None
+
+
+def ef_batch(opt):
+    from bigdl_torch.optim.optimizer import _find_batchers
+    return _find_batchers(opt.dataset)[0].batch_size
+
+
+def ef_run(spec, samples):
+    """One Optimizer run of the bench LM at ``spec["batch"]`` a rank
+    (``Adam(EF_LR)``, the data order pinned, B6 and B7 on ``"tc"``)."""
+    model = TransformerLM(**LM).build(
+        EF_DEVICE, torch.Generator().manual_seed(SEED))
+    ds = DataSet.array(samples, distributed=True, seed=SEED).transform(
+        SampleToMiniBatch(spec["batch"], drop_last=True))
+    # the same order for drilled and clean runs: the shuffle is not in a
+    # snapshot
+    ds.shuffle = lambda: None
+    opt = Optimizer(model, ds, nn.TimeDistributedCriterion(
+        nn.ClassNLLCriterion(), size_average=True), device=EF_DEVICE)
+    opt.set_optim_method(Adam(EF_LR))
+    log = EfLog(spec, opt)
+    opt.set_end_when(Trigger(log.end, "efSteps"))
+    opt.set_train_summary(log)
+    ckpt = spec["ckpt"]
+    if spec.get("resume"):
+        n = spec["resume"]
+        opt.resume_from(os.path.join(ckpt, f"model.{n}"),
+                        os.path.join(ckpt, f"optimMethod.{n}"))
+    else:
+        opt.set_checkpoint(ckpt, every_done(1),
+                           publish=True if spec.get("publish") else None)
+    zero_flash()
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    plan = opt._elastic_plan
+    return {"records": log.records, "history": opt._elastic_history,
+            "neval_resumed": plan.neval if plan is not None else None,
+            "world_after": Engine.world(), "batch_after": ef_batch(opt),
+            "launches": flash_counts(),
+            "lse_launches": attn_ops.flash_attention.lse_launches,
+            "fwd_routes": dict(attn_ops.flash_attention.route_launches),
+            "bwd_routes": dict(attn_ops.flash_attention_bwd.route_launches),
+            "wall_s": wall,
+            "finite": all(bool(torch.isfinite(p).all())
+                          for p in model.parameters())}
+
+
+def ef_child(spec_json):
+    """One process of the elastic drill (``--elastic-child SPEC``), on the
+    card: the rank, the topology, elasticity, chaos and the trace come
+    from the environment the parent set; ``spec["repeat"]`` runs in a
+    row."""
+    spec = json.loads(spec_json)
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    samples = lm_samples(EF_SAMPLES, LM["max_len"], LM["vocab_size"],
+                         SEED + 21)
+    runs = [ef_run(spec, samples) for _ in range(spec.get("repeat", 1))]
+    emit({"role": spec["role"], "rank": Engine.rank(), "runs": runs})
+    return 0
+
+
+def ef_spawn(spec, env, log_dir):
+    """``chip_smoke.py --elastic-child`` with ``env``; its output in
+    ``log_dir``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("BIGDL_TORCH_ELASTIC", "BIGDL_TORCH_CHAOS",
+                                 "BIGDL_TORCH_TRACE",
+                                 "BIGDL_TORCH_SUPERVISE"))}
+    base.update({"PYTHONPATH": here, "BIGDL_TORCH_PREFETCH_DEPTH": "0",
+                 **env})
+    out = open(os.path.join(log_dir, f"{spec['role']}.out"), "w+")
+    err = open(os.path.join(log_dir, f"{spec['role']}.err"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, EF_SCRIPT or os.path.abspath(__file__),
+         "--elastic-child", json.dumps(spec)], env=base, stdout=out,
+        stderr=err, cwd=here)
+    proc.files = (out, err)
+    return proc
+
+
+def ef_wait(proc, want_rc, timeout=EF_TIMEOUT):
+    """The child's last JSON line, once it exits with ``want_rc``."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out, err = proc.files
+    out.seek(0)
+    err.seek(0)
+    text, etext = out.read(), err.read()
+    out.close()
+    err.close()
+    check(rc == want_rc, f"elastic child {proc.args[-1][:80]} exited {rc},"
+          f" not {want_rc}:\n{text[-1500:]}\n{etext[-4000:]}")
+    lines = [line for line in text.splitlines() if line.startswith("{")]
+    return json.loads(lines[-1]) if lines else None
+
+
+def ef_trace(trace_dir, rank):
+    """Rank ``rank``'s ``elastic.*`` events from its trace file."""
+    with open(os.path.join(trace_dir, f"trace.{rank}.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if str(e.get("name", "")).startswith(
+        "elastic.")]
+
+
+def ef_first(events, name, after=0.0):
+    for e in events:
+        if e["name"] == name and e["ts"] >= after:
+            return e
+    raise SmokeFailure(f"no {name} event after {after} in {events}")
+
+
+def ef_step_checks(records, what):
+    """Every step of a run: B6 8 (each with its log-sum-exp) and B7 16
+    launches, all ``"tc"``."""
+    bad = [r for r in records
+           if (r["fwd"], r["bwd"], r["lse"]) != (EF_STEP["fwd"],
+                                                 EF_STEP["bwd"],
+                                                 EF_STEP["lse"])
+           or r["fwd_routes"]["tc"] != r["fwd"]
+           or r["bwd_routes"]["tc"] != r["bwd"]]
+    check(records and not bad, f"{what}: steps off 8 B6 / 16 B7 on tc: "
+          f"{bad[:3]}")
+
+
+def ef_losses(records, lo, hi, world):
+    """{neval: loss} of a run's last record of each neval in (lo, hi] at
+    ``world``."""
+    return {r["neval"]: r["loss"] for r in records
+            if lo < r["neval"] <= hi and r["world"] == world}
+
+
+def ef_hold(drilled, clean_runs, lo, hi, world, what):
+    """The drilled losses over (lo, hi] against the two clean runs' under
+    ``resume_rule``."""
+    first, second = (ef_losses(c["records"], lo, hi, world)
+                     for c in clean_runs)
+    got = ef_losses(drilled, lo, hi, world)
+    check(sorted(got) == sorted(first) == sorted(second)
+          == list(range(lo + 1, hi + 1)),
+          f"{what}: iterations {sorted(got)} {sorted(first)} "
+          f"{sorted(second)}")
+    keys = sorted(got)
+    ok, rule, spread = resume_rule([got[k] for k in keys],
+                                   [first[k] for k in keys],
+                                   [second[k] for k in keys])
+    check(ok, f"{what}: {got} against {first} {second} ({rule})")
+    return {"iterations": keys, "losses": [got[k] for k in keys],
+            "clean_losses": [first[k] for k in keys], "rule": rule,
+            "spread": spread}
+
+
+def ef_median(records, world, skip=1):
+    ms = [r["ms"] for r in records[skip:] if r["world"] == world]
+    return (float(np.median(ms)) if ms else None), ms
+
+
+def ef_elastic(root):
+    """(a) shrink and (b) grow of the bench LM on the card (module
+    docstring, 21)."""
+    ckpt, trace, barrier, logs = (os.path.join(root, d) for d in
+                                  ("ckpt", "trace", "barrier", "logs"))
+    for d in (ckpt, barrier, logs):
+        os.makedirs(d)
+    common = {"BIGDL_TORCH_ELASTIC_WORLD": "2",
+              "BIGDL_TORCH_ELASTIC_PEER_LOST": str(EF_PEER_LOST),
+              "BIGDL_TORCH_SUPERVISE_PEER_STALE": str(EF_PEER_LOST / 2),
+              "BIGDL_TORCH_ELASTIC_JOIN_TIMEOUT": str(EF_TIMEOUT / 2)}
+    spec = {"ckpt": ckpt, "batch": EF_BATCH, "barrier": barrier}
+    t0 = time.perf_counter()
+    p0 = ef_spawn({**spec, "role": "rank0", "publish": True, "prune": True},
+                  {**common, "BIGDL_TORCH_ELASTIC_RANK": "0",
+                   "BIGDL_TORCH_TRACE": trace}, logs)
+    p1 = ef_spawn({**spec, "role": "rank1"},
+                  {**common, "BIGDL_TORCH_ELASTIC_RANK": "1",
+                   "BIGDL_TORCH_CHAOS": f"host.lost@1=exit@{EF_LOST_AT}"},
+                  logs)
+    try:
+        ef_wait(p1, 117)
+        lost_s = time.perf_counter() - t0
+        pj = ef_spawn({**spec, "role": "joiner"},
+                      {**common, "BIGDL_TORCH_ELASTIC_RANK": "1",
+                       "BIGDL_TORCH_ELASTIC_JOIN": "1",
+                       "BIGDL_TORCH_ELASTIC_JOIN_POLL": "0.1",
+                       "BIGDL_TORCH_TRACE": trace,
+                       "BIGDL_TORCH_CHAOS":
+                           f"host.return@1=join@{EF_RETURN_AT}"}, logs)
+        rj = ef_wait(pj, 0)["runs"][0]
+        r0 = ef_wait(p0, 0)["runs"][0]
+    finally:
+        for p in (p0, p1):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    drill_s = time.perf_counter() - t0
+    kinds = [h["kind"] for h in r0["history"]]
+    check(kinds == ["shrink", "grow"] and [h["kind"] for h in rj["history"]]
+          == ["join"], f"re-forms: rank 0 {r0['history']}, joiner "
+          f"{rj['history']}")
+    shrink, grow = r0["history"]
+    check([shrink["world"], grow["world"], rj["history"][0]["world"]]
+          == [1, 2, 2] and [shrink["batch"], grow["batch"],
+                            rj["history"][0]["batch"]]
+          == [2 * EF_BATCH, EF_BATCH, EF_BATCH]
+          and rj["history"][0]["neval"] == grow["neval"],
+          f"world 2 -> 1 -> 2, batch 16 -> 32 -> 16: {r0['history']} "
+          f"{rj['history']}")
+    check(r0["finite"] and rj["finite"], "non-finite weights after the "
+          "drill")
+    S, G = shrink["neval"], grow["neval"]
+    end = G + EF_AFTER_GROW
+    check(r0["records"][-1]["neval"] == rj["records"][-1]["neval"] == end,
+          f"the drill's last iterations: {r0['records'][-1]} "
+          f"{rj['records'][-1]}")
+    for what, run in (("rank 0", r0), ("joiner", rj)):
+        ef_step_checks(run["records"], what)
+    # the clean runs: world 1 from the shrink's entry to the grow's, and
+    # the two ranks of world 2 from the grow's to the end, each twice
+    t1 = time.perf_counter()
+    clean = [ef_spawn({"ckpt": ckpt, "batch": 2 * EF_BATCH, "role": "clean1",
+                       "resume": S, "end": G, "repeat": 2}, {}, logs)]
+    clean += [ef_spawn({"ckpt": ckpt, "batch": EF_BATCH,
+                        "role": f"clean2_{r}", "resume": G, "end": end,
+                        "repeat": 2},
+                       {"BIGDL_TORCH_ELASTIC_WORLD": "2",
+                        "BIGDL_TORCH_ELASTIC_RANK": str(r)}, logs)
+              for r in (0, 1)]
+    try:
+        c1, c20, c21 = (ef_wait(p, 0)["runs"] for p in clean)
+    finally:
+        for p in clean:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    clean_s = time.perf_counter() - t1
+    for what, runs in (("clean world 1", c1), ("clean world 2 rank 0", c20),
+                       ("clean world 2 rank 1", c21)):
+        for run in runs:
+            ef_step_checks(run["records"], what)
+    held = {"shrink": ef_hold(r0["records"], c1, S, G, 1,
+                              "world 1 after the shrink"),
+            "grow_rank0": ef_hold(r0["records"], c20, G, end, 2,
+                                  "rank 0 after the grow"),
+            "grow_rank1": ef_hold(rj["records"], c21, G, end, 2,
+                                  "the joiner after the grow")}
+    # release ids gap-free across both resizes; a stub-served controller
+    # promotes the releases published from the grow on (the drill's
+    # retention pruned the snapshots of earlier ones)
+    ids = sorted(int(m.group(1)) for n in os.listdir(ckpt)
+                 for m in [re.fullmatch(tct.RELEASE_PATTERN, n)] if m)
+    check(ids and ids == list(range(ids[0], ids[0] + len(ids))),
+          f"release ids not gap-free: {ids}")
+
+    class Stub:
+        versions = 0
+
+        def swap(self, source, canary_fraction=None):
+            Stub.versions += 1
+            return Stub.versions
+
+        def stats(self):
+            return {}
+    ctrl = tct.DeployController(Stub(), ckpt, canary_fraction=0.0, since=0)
+    handed = []
+    for rid in ids:
+        entry = tct.read_release(os.path.join(ckpt, f"release.{rid}"))
+        if entry["neval"] >= G:
+            handed.append(rid)
+            ctrl._handle(rid, os.path.join(ckpt, f"release.{rid}"))
+    after = [t for t in ctrl.timeline if t.get("action") == "promoted"
+             and (t.get("neval") or -1) > G]
+    check(not ctrl.counts["rejected"] and after,
+          f"deploy across the resizes: {ctrl.counts} {ctrl.timeline[-3:]}")
+    # the timeline in rank 0's and the joiner's traces
+    ev0, evj = ef_trace(trace, 0), ef_trace(trace, 1)
+    detect = ef_first(ev0, "elastic.detect")
+    resume = ef_first(ev0, "elastic.resume", detect["ts"])
+    negotiate = ef_first(ev0, "elastic.negotiate", detect["ts"])
+    reform = ef_first(ev0, "elastic.reform", detect["ts"])
+    grow_span = ef_first(ev0, "elastic.join", resume["ts"])
+    intent = ef_first(evj, "elastic.join_intent")
+    joined = ef_first(evj, "elastic.resume", intent["ts"])
+    need = {"elastic.detect", "elastic.negotiate", "elastic.agree",
+            "elastic.reform", "elastic.resume", "elastic.join"}
+    names0 = sorted({e["name"] for e in ev0})
+    check(need <= set(names0) and {"elastic.join", "elastic.join_intent",
+                                   "elastic.agree", "elastic.reform",
+                                   "elastic.resume"}
+          <= {e["name"] for e in evj}, f"elastic events: {names0}")
+    recs = r0["records"]
+    before_ms = [r["ms"] for r in recs if r["neval"] <= S and r["neval"] > 1]
+    mid_ms, mid = ef_median([r for r in recs if S < r["neval"] <= G], 1)
+    after_ms, aft = ef_median([r for r in recs if r["neval"] > G], 2)
+    launches = [r0["launches"], rj["launches"]]
+    routes = {key: {k: r0[key][k] + rj[key][k] for k in r0[key]}
+              for key in ("fwd_routes", "bwd_routes")}
+    return {
+        "neval_resumed": S, "world_after": shrink["world"],
+        "batch_after": shrink["batch"], "grow_neval": G, "end": end,
+        "history_rank0": r0["history"], "history_joiner": rj["history"],
+        "detect_to_resume_ms": (resume["ts"] - detect["ts"]) / 1e3,
+        "negotiate_ms": negotiate["dur"] / 1e3,
+        "reform_ms": reform["dur"] / 1e3,
+        "join_to_resume_ms": (joined["ts"] - intent["ts"]) / 1e3,
+        "grow_span_ms_rank0": grow_span["dur"] / 1e3,
+        "step_ms_world2_before": before_ms,
+        "step_ms_world1_median": mid_ms, "step_ms_world1": mid,
+        "step_ms_world2_after_median": after_ms,
+        "step_ms_world2_after": aft,
+        "held": held, "releases": len(ids), "releases_handed": handed,
+        "promoted_after_grow": len(after), "rejected":
+            ctrl.counts["rejected"],
+        "elastic_events_rank0": names0,
+        "elastic_events_joiner": sorted({e["name"] for e in evj}),
+        "rank1_exit_s": lost_s, "drill_s": drill_s, "clean_s": clean_s,
+        "b6_launches": sum(x[0] for x in launches),
+        "b7_launches": sum(x[1] for x in launches),
+        "lse_launches": r0["lse_launches"] + rj["lse_launches"], **routes}
+
+
+def ef_kernel_cases():
+    """B6 with its log-sum-exp and B7 at the shrunk world's call, [32, 8,
+    512, 64] bf16 causal, against their plain versions, timed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    B, H, T = 2 * EF_BATCH, LM["num_heads"], LM["max_len"]
+    D = LM["d_model"] // H
+    b6 = flash_case(B, H, T, T, D, torch.bfloat16, True,
+                    torch.Generator().manual_seed(SEED + 21), with_lse=True)
+    b7 = b7_case(B, H, T, T, D, torch.bfloat16, True, gen)
+    check(b6["ok"] and b7["ok"], f"B6 / B7 at [{B}, {H}, {T}, {D}]: {b6} "
+          f"{b7}")
+    return b6, b7
+
+
+class EfTraffic:
+    """Closed-loop requests through the front during the deploy; every
+    one must be answered."""
+
+    def __init__(self, front, queries):
+        self.front, self.queries = front, queries
+        self.submitted = self.served = 0
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=120)
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set() and len(self.errors) < 8:
+            self.submitted += 1
+            try:
+                self.front.submit(self.queries[i % len(self.queries)]) \
+                    .result(60)
+                self.served += 1
+            except Exception as e:  # noqa: BLE001 - recorded, fails
+                self.errors.append(f"{type(e).__name__}: {e}")
+            i += 1
+            time.sleep(0.005)
+
+
+def ef_post(port, x, timeout=60):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/predict",
+        data=json.dumps({"inputs": np.asarray(x).tolist()}).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return np.asarray(json.loads(r.read())["outputs"], np.float32)
+
+
+def ef_pct(ms):
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def ef_fleet(root):
+    """(c) the serving fleet of LeNet-5 workers on the card (module
+    docstring, 21)."""
+    from bigdl_torch.serve import (FleetFront, FleetSupervisor,
+                                   ReleasePublisher, fleet)
+    fdir, lineage, logs = (os.path.join(root, d) for d in
+                           ("fleet", "lineage", "fleet_logs"))
+    for d in (fdir, lineage, logs):
+        os.makedirs(d)
+    here = os.path.dirname(os.path.abspath(__file__))
+    spawned = {}
+
+    def spawn(index, generation):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("BIGDL_TORCH_ELASTIC",
+                                    "BIGDL_TORCH_CHAOS", "BIGDL_TORCH_TRACE",
+                                    "BIGDL_TORCH_FLEET",
+                                    "BIGDL_TORCH_DEPLOY"))}
+        env.update({"PYTHONPATH": here, **EF_FLEET_ENV})
+        if index == 1 and generation == 1:
+            # the zombie: this life's beat loop wedges while its HTTP
+            # threads answer; the respawn comes back clean
+            env["BIGDL_TORCH_CHAOS"] = f"fleet.member@1=wedge@{EF_WEDGE_BEAT}"
+        log = open(os.path.join(logs, f"member.{index}.{generation}.log"),
+                   "w")
+        spawned[(index, generation)] = time.time()
+        return subprocess.Popen(
+            [sys.executable, "-m", "bigdl_torch.tools.serve_worker",
+             "--fleet-dir", fdir, "--index", str(index), "--generation",
+             str(generation), "--model", "lenet", "--heartbeat-s",
+             str(EF_BEAT_S), *EF_WORKER_ARGS], env=env, stdout=log,
+            stderr=log, cwd=here)
+
+    def wait(pred, timeout, what):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            check(time.monotonic() < deadline, f"fleet: timed out waiting "
+                  f"for {what}: {sup.stats()}")
+            time.sleep(0.05)
+
+    # the workers' float32 LeNet-5: the oracle computes in float32 too
+    set_policy(DTypePolicy())
+    zero_all_kernels()
+    t0 = time.perf_counter()
+    sup = FleetSupervisor(fdir, spawn, members=EF_FLEET,
+                          lost_after_s=EF_LOST_AFTER_S, poll_s=0.2,
+                          backoff_s=0.2, grace_s=300.0, restart_budget=3)
+    front = FleetFront(fdir, refresh_s=0.1, lost_after_s=EF_LOST_AFTER_S,
+                       retries=2, timeout_s=30.0, decision_timeout=120.0,
+                       max_unavailable=1)
+    controller = traffic = None
+    try:
+        sup.start()
+        # a registry entry with no heartbeat behind it: never routed
+        fleet.publish_member(fdir, index=7, generation=1, pid=999999,
+                             port=1)
+        wait(lambda: sup.live_count() >= EF_FLEET, 300, "3 live members")
+        up_s = time.perf_counter() - t0
+        members1 = front.members()
+        check(sorted(members1) == list(range(EF_FLEET)),
+              f"initial registry {sorted(members1)}")
+        oracle1, _ = serve_http.build_model("lenet", EF_DEVICE)
+        queries = np.random.default_rng(SEED + 22).random(
+            (32, 28, 28, 1)).astype(np.float32)
+        want1 = Predictor(oracle1, device=EF_DEVICE).predict(queries)
+        events = [tracefile.TraceEvent(EF_REQUEST_DT,
+                                       queries[i % len(queries)])
+                  for i in range(EF_REQUESTS)]
+        box = {}
+        rt = threading.Thread(target=lambda: box.setdefault(
+            "outcomes", tracefile.replay(
+                events, lambda e: front.submit(e.payload), speed=1.0)),
+            daemon=True)
+        t_replay = time.perf_counter()
+        rt.start()
+        time.sleep(EF_KILL_AT_S)
+        os.kill(members1[0]["pid"], signal.SIGKILL)
+        rt.join(timeout=300)
+        check(not rt.is_alive(), "fleet: the replay never finished")
+        outcomes = box["outcomes"]
+        tracefile.resolve_outcomes(outcomes, timeout=120.0)
+        replay_s = time.perf_counter() - t_replay
+        shed = [o for o in outcomes if o.handle is None]
+        errors = [f"{type(o.error).__name__}: {o.error}" for o in outcomes
+                  if o.error is not None]
+        answered = [o for o in outcomes
+                    if o.handle is not None and o.error is None]
+        check(not errors and len(answered) == len(outcomes),
+              f"fleet: accepted requests lost: {errors[:5]}")
+        replay_err = max(
+            float(np.abs(o.handle.result(1)
+                         - want1[i % len(queries)]).max())
+            for i, o in enumerate(outcomes))
+        check(replay_err <= SERVE_ATOL, f"fleet: replayed answers vs "
+              f"Predictor {replay_err}")
+
+        def replaced():
+            m = front.members()
+            return (all(i in m and m[i]["generation"] >= 2 for i in (0, 1))
+                    and sup.live_count() >= EF_FLEET)
+        wait(replaced, 300, "generation-2 respawns")
+        members2 = front.members()
+        respawn = {}
+        for i in (0, 1):
+            with open(os.path.join(fdir, f"condemn.{i}")) as f:
+                condemned = json.load(f)
+            respawn[str(i)] = {
+                "condemned_generation": condemned["generation"],
+                "generation": members2[i]["generation"],
+                "respawn_to_ready_s": members2[i]["wall_time"]
+                - condemned["time"],
+                "spawn_to_ready_s": members2[i]["wall_time"]
+                - spawned[(i, members2[i]["generation"])]}
+        check(all(r["condemned_generation"] >= 1 for r in respawn.values()),
+              f"fleet: lost generations not condemned: {respawn}")
+        check(7 not in front._routed and 7 not in front.members(),
+              f"fleet: the stale entry was routed: {front._routed}")
+        # (c) the rolling deploy
+        model2 = LeNet5(10).build(EF_DEVICE,
+                                  torch.Generator().manual_seed(SEED + 7))
+        params, state = to_reference_tree(model2)
+        snap = os.path.join(lineage, "model.1")
+        file_io.save({"params": params, "state": state}, snap)
+        ReleasePublisher(lineage).publish(snap, neval=1)
+        traffic = EfTraffic(front, queries).start()
+        t_deploy = time.perf_counter()
+        controller = tct.DeployController(
+            front, lineage, canary_fraction=EF_CANARY, poll_s=0.1,
+            decision_timeout=120.0, max_unavailable=1).start()
+        wait(lambda: controller.stats()["promoted"] >= 1, 300,
+             "the release to promote")
+        deploy_s = time.perf_counter() - t_deploy
+        traffic.stop()
+        fst = front.stats()
+        deploy = {"canary": fst.get("canary"),
+                  "rolled": fst["fleet"]["deploy"]["rolled"],
+                  "max_concurrent": fst["fleet"]["deploy"]["max_concurrent"],
+                  "traffic_submitted": traffic.submitted,
+                  "traffic_served": traffic.served,
+                  "traffic_errors": traffic.errors[:5]}
+        check(not traffic.errors and traffic.served == traffic.submitted
+              and fst["fleet"]["deploy"]["max_concurrent"] <= 1
+              and (fst.get("canary") or {}).get("state") == "promoted"
+              and deploy["rolled"] == EF_FLEET - 1,
+              f"fleet: the rolling deploy {deploy}")
+        want2 = Predictor(model2, device=EF_DEVICE).predict(queries)
+        worst = 0.0
+        for i, rec in front.members().items():
+            worst = max(worst, float(np.abs(
+                ef_post(rec["port"], queries) - want2).max()))
+        got = np.stack([front.predict(q, timeout=60) for q in queries])
+        worst = max(worst, float(np.abs(got - want2).max()))
+        check(worst <= SERVE_ATOL, f"fleet: answers after the roll vs "
+              f"Predictor {worst}")
+        # latency: sequential requests through the front and to one member
+        port0 = front.members()[0]["port"]
+        lat = {"front": [], "member": []}
+        for k in range(EF_LATENCY_N):
+            q = queries[k % len(queries)]
+            t = time.perf_counter()
+            front.predict(q, timeout=60)
+            lat["front"].append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            ef_post(port0, q)
+            lat["member"].append((time.perf_counter() - t) * 1e3)
+        sst = sup.stats()
+        check(not sst["degraded"], f"fleet: a slot degraded: {sst}")
+        retried = fst["fleet"]["retried"]
+    finally:
+        if traffic is not None:
+            traffic.stop()
+        if controller is not None:
+            controller.stop()
+        front.close()
+        sup.stop()
+    launched = all_kernel_counts()
+    check(not any(launched.values()), f"fleet: kernels launched in the "
+          f"front's process: {launched}")
+    return {"members_up_s": up_s, "requests": len(outcomes),
+            "answered": len(answered), "shed": len(shed),
+            "retried": retried, "replay_s": replay_s,
+            "replay_max_abs_err": replay_err, "respawn": respawn,
+            "stale_entry_routed": False, "deploy_s": deploy_s,
+            "deploy": deploy, "answers_max_abs_err_after_roll": worst,
+            "tol": SERVE_ATOL, "latency": {k: ef_pct(v)
+                                           for k, v in lat.items()},
+            "supervisor": {"restarts": sst["restarts"],
+                           "degraded": sst["degraded"]},
+            "front_process_kernel_launches": launched}
+
+
+def phase_elastic_fleet():
+    """Elastic training of the bench LM and the serving fleet (module
+    docstring, 21); returns the kernels line's rows."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="elastic_fleet_")
+    try:
+        el = ef_elastic(root)
+        b6, b7 = ef_kernel_cases()
+        fl = ef_fleet(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "elastic_fleet", "gpu": gpu_line(), "elastic": el,
+          "b6_case": b6, "b7_case": b7, "fleet": fl,
+          "phase_s": time.perf_counter() - t_phase})
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "bigdl_torch/csrc/flash_attention.cu",
+         "replaces": "bigdl_tpu/ops/attention.py:59",
+         "launches": el["b6_launches"], "path": "elastic_fleet",
+         "max_abs_err": b6["max_abs_err"],
+         "lse_max_abs_err": b6["lse_max_abs_err"], "ms": b6["ms"],
+         "plain_ms": b6["plain_ms"], "bound_ms": b6["bound_ms"],
+         "bound_by": b6["bound_by"], "library_ms": b6["library_ms"],
+         "ms_over_library": b6["ms_over_library"],
+         "kernel_route": b6["route"], "route_launches": el["fwd_routes"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "bigdl_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "bigdl_tpu/ops/attention.py:182",
+         "launches": el["b7_launches"], "path": "elastic_fleet",
+         "max_abs_err": b7["max_abs_err"], "ms": b7["ms"],
+         "plain_ms": b7["plain_ms"], "bound_ms": b7["bound_ms"],
+         "bound_by": b7["bound_by"], "library_ms": b7["library_ms"],
+         "ms_over_library": b7["ms_over_library"],
+         "kernel_route": b7["route"], "route_launches": el["bwd_routes"]}]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7572,6 +8348,12 @@ def main():
         return zero_child(sys.argv[2])
     if sys.argv[1:2] == ["--cudnn-probe"]:
         return cudnn_probe_child(sys.argv[2])
+    if sys.argv[1:2] == ["--elastic-child"]:
+        return ef_child(sys.argv[2])
+    if sys.argv[1:3] == ["--only", "elastic_fleet"]:
+        phase_build()
+        phase_elastic_fleet()
+        return 0
     if sys.argv[1:3] == ["--only", "train_validate"]:
         phase_build()
         phase_train_validate(None)
@@ -7646,6 +8428,7 @@ def main():
                      TRAIN_BATCH / (step_ms / 1e3),
                      "config": "fused, bf16, batch 256"}})
     rows += phase_serve_stack()
+    rows += phase_elastic_fleet()
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

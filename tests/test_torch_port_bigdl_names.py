@@ -118,9 +118,15 @@ def test_local_optimizer_refuses_a_group_strategy(monkeypatch):
     opt = LocalOptimizer(*args, batch_size=8, device="cpu")
     with pytest.raises(ValueError, match="one device"):
         opt.set_strategy(DataParallel())
-    monkeypatch.setattr(Engine, "world", classmethod(lambda cls: 2))
+    # a group of two processes is refused; a logical world of two (the
+    # elastic topology, no group) trains one device and is not
+    monkeypatch.setattr(Engine, "group_size", classmethod(lambda cls: 2))
     with pytest.raises(RuntimeError, match="2 ranks"):
         LocalOptimizer(*args, batch_size=8, device="cpu")
+    monkeypatch.setattr(Engine, "group_size", classmethod(lambda cls: 1))
+    monkeypatch.setenv("BIGDL_TORCH_ELASTIC_WORLD", "2")
+    assert Engine.world() == 2
+    LocalOptimizer(*args, batch_size=8, device="cpu")
 
 
 def test_set_strategy():

@@ -326,11 +326,21 @@ def test_controller_timeline_equal(tmp_path, scenario):
         assert [s[0] for s in swaps] == ["model.1", "model.2", "model.2"]
 
 
-def test_controller_refuses_a_fleet_target(tmp_path):
+def test_controller_refuses_a_fleet_target(tmp_path, monkeypatch):
+    """A fleet target (``fleet = True``) is no longer refused: both
+    packages' controllers switch to fleet mode, with the knob's
+    max_unavailable bound, and a plain server stays out of it."""
     class Fleet(_StubServer):
         fleet = True
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tct.DeployController(Fleet(), str(tmp_path))
+    monkeypatch.setenv("BIGDL_TORCH_DEPLOY_MAX_UNAVAILABLE", "2")
+    monkeypatch.setenv("BIGDL_TPU_DEPLOY_MAX_UNAVAILABLE", "2")
+    port = tct.DeployController(Fleet(), str(tmp_path))
+    ref = jct.DeployController(Fleet(), str(tmp_path))
+    assert (port.fleet_mode, port.max_unavailable) == \
+        (ref.fleet_mode, ref.max_unavailable) == (True, 2)
+    assert tct.DeployController(Fleet(), str(tmp_path),
+                                max_unavailable=0).max_unavailable == 1
+    assert not tct.DeployController(_StubServer(), str(tmp_path)).fleet_mode
 
 
 def test_live_server_canaries_and_promotes_the_trainer(tmp_path):

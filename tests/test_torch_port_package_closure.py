@@ -21,9 +21,6 @@ import bigdl_tpu
 #: reference name -> the queue A item that ports it (serving 5, elastic
 #: 6, parallelism 8, interop 9)
 NOT_YET_PORTED = {
-    # the serving fleet: worker processes behind one front
-    "FleetSupervisor": "item 5", "FleetFront": "item 5",
-    "MemberLostError": "item 5",
     # the topology router places replicas on device subsets of a mesh
     "TopologyRouter": "item 8", "PlacementError": "item 8",
     "plan_subsets": "item 8",

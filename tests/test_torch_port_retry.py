@@ -201,10 +201,12 @@ def test_supervisor_poll_deadlines_and_channels():
     # the channel's stall, then the main slot's grace: one more report
     assert sup.stalls == 2
     ch.close()
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        tsup.Supervisor(peer_dir="/x")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        sup.check_peers()
+    # the peer half is ported: without a peer dir there is nothing to
+    # watch, and a peer dir alone (a world of one) publishes nothing
+    assert sup.check_peers() == {} and sup.stale_peers() == {}
+    lone = tsup.Supervisor(peer_dir="/x")
+    lone._publish_heartbeat()
+    assert lone.heartbeat_errors == 0 and lone.lost_peers() == {}
     with pytest.raises(ValueError, match="policy"):
         tsup.Supervisor(policy="ignore")
 

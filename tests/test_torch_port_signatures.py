@@ -64,11 +64,6 @@ WAIVED = {
     "utils.engine:Engine.init": (_ALL, "JAX mesh and runtime"),
     "utils.engine:Engine.init_distributed": (_ALL, "JAX runtime"),
     "utils.engine:Engine.data_shard_info": (_ALL, "a JAX mesh axis"),
-    # ROADMAP queue A item 6, the supervisor's multi-host half
-    "utils.supervisor:Supervisor.__init__": ({
-        "sleep", "peer_stale", "publish_interval", "on_peer_stale",
-        "on_peer_returned", "generation"}, "item 6"),
-    "utils.supervisor:Supervisor.crash_report": ({"stale"}, "item 6"),
 }
 
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
