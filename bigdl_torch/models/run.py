@@ -34,8 +34,9 @@ Models: ``lenet``, ``vgg`` (VggForCifar10, 32 x 32), ``vgg16``,
 input, with no validation, as in the reference) and ``vit`` (the
 reference's small ViT: 32 x 32, patch 4, d_model 64, 4 heads of 16, 4
 layers); the image models at 224 x 224 but where named, all with the
-reference's criteria.  ``--num-experts`` > 0 raises, naming
-``ROADMAP.md`` queue A item 8.
+reference's criteria.  ``--num-experts`` > 0 builds ``transformer`` and
+``vit`` with ``parallel/expert.py`` ``MoEFFN`` MLPs, as the reference's
+CLI does.
 """
 
 from __future__ import annotations
@@ -54,10 +55,6 @@ _NOT_PORTED = ()
 def _build_model(name: str, class_num: int, num_experts: int = 0):
     """-> (model, input spec, criterion name), the reference's pairing:
     models ending in LogSoftMax with ClassNLL, logits with CrossEntropy."""
-    if num_experts > 0:
-        raise NotImplementedError(
-            "--num-experts > 0 (parallel/expert.py MoEFFN) is not ported: "
-            "ROADMAP.md queue A item 8")
     if name == "lenet":
         from .lenet import LeNet5
         return LeNet5(class_num), (28, 28, 1), "nll"
@@ -97,14 +94,16 @@ def _build_model(name: str, class_num: int, num_experts: int = 0):
         # ViT()'s defaults
         from .vit import ViT
         return (ViT(image_size=32, patch_size=4, class_num=class_num,
-                    d_model=64, num_heads=4, num_layers=4),
+                    d_model=64, num_heads=4, num_layers=4,
+                    num_experts=num_experts),
                 (32, 32, 3), "nll")
     if name == "transformer":
         from .transformer_lm import TransformerLM
         vocab = max(class_num, 64)
         seq = 128
         return (TransformerLM(vocab_size=vocab, max_len=seq, d_model=256,
-                              num_heads=8, num_layers=4),
+                              num_heads=8, num_layers=4,
+                              num_experts=num_experts),
                 ("tokens", seq, vocab), "lm")
     raise ValueError(f"unknown model {name!r}")
 
@@ -273,8 +272,9 @@ def main(argv=None):
             # the reference Train CLIs' options (models/lenet/Utils.scala,
             # models/inception/Options.scala)
             p.add_argument("--num-experts", type=int, default=0,
-                           help="transformer only: MoE FFN experts (not "
-                                "ported)")
+                           help="transformer and vit: Switch-style MoE "
+                                "FFN with this many experts "
+                                "(parallel/expert.py MoEFFN)")
             p.add_argument("--max-epoch", type=int, default=5)
             p.add_argument("--max-iteration", type=int, default=0,
                            help="also stop after N iterations (-i)")

@@ -4,8 +4,11 @@ Counterpart of ``bigdl_tpu/models/transformer_lm.py``, built from the same
 containers: each residual branch is ConcatTable(branch, Identity) +
 CAddTable, so the parameter tree is the reference's, leaf for leaf.
 ``dropout > 0`` adds ``Dropout`` after the attention and after the MLP of
-each block, as the reference does.  Mixture-of-experts and sequence
-parallelism are not ported yet and raise.
+each block, as the reference does.  ``num_experts > 0`` builds the
+Switch-style variant: each block's MLP is a ``parallel/expert.py``
+``MoEFFN`` (k = ``expert_k``, hidden ``mlp_ratio * d_model``), whose
+load-balancing loss the ``Optimizer`` adds to the criterion's.  Sequence
+parallelism is not ported yet and raises (ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations
@@ -52,29 +55,34 @@ def _residual(branch: Module) -> Sequential:
             .add(CAddTable()))
 
 
-def _unported(seq_parallel: bool, num_experts: int) -> None:
+def _unported(seq_parallel: bool) -> None:
     if seq_parallel:
         raise NotImplementedError("seq_parallel=True: ring attention is not "
-                                  "ported yet")
-    if num_experts:
-        raise NotImplementedError(f"num_experts={num_experts}: MoEFFN is not "
-                                  "ported yet")
+                                  "ported yet: ROADMAP.md queue A item 8")
 
 
 def TransformerBlock(d_model: int, num_heads: int, mlp_ratio: int = 4,
                      dropout: float = 0.0, causal: bool = True,
-                     seq_parallel: bool = False,
-                     num_experts: int = 0) -> Sequential:
-    """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x))."""
-    _unported(seq_parallel, num_experts)
+                     seq_parallel: bool = False, num_experts: int = 0,
+                     expert_k: int = 1, expert_axis=None) -> Sequential:
+    """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x)), the MLP a MoEFFN
+    where ``num_experts > 0``."""
+    _unported(seq_parallel)
     attn = (Sequential()
             .add(LayerNorm(d_model))
             .add(MultiHeadAttention(d_model, num_heads, causal=causal)))
-    mlp = (Sequential()
-           .add(LayerNorm(d_model))
-           .add(Linear(d_model, mlp_ratio * d_model))
-           .add(GELU())
-           .add(Linear(mlp_ratio * d_model, d_model)))
+    if num_experts:
+        from ..parallel.expert import MoEFFN
+        mlp = (Sequential()
+               .add(LayerNorm(d_model))
+               .add(MoEFFN(d_model, mlp_ratio * d_model, num_experts,
+                           k=expert_k, expert_axis=expert_axis)))
+    else:
+        mlp = (Sequential()
+               .add(LayerNorm(d_model))
+               .add(Linear(d_model, mlp_ratio * d_model))
+               .add(GELU())
+               .add(Linear(mlp_ratio * d_model, d_model)))
     if dropout > 0:
         attn.add(Dropout(dropout))
         mlp.add(Dropout(dropout))
@@ -85,15 +93,19 @@ def TransformerLM(vocab_size: int, max_len: int = 1024, d_model: int = 256,
                   num_heads: int = 8, num_layers: int = 4,
                   mlp_ratio: int = 4, dropout: float = 0.0,
                   causal: bool = True, seq_parallel: bool = False,
-                  num_experts: int = 0) -> Sequential:
+                  num_experts: int = 0, expert_k: int = 1,
+                  expert_axis=None) -> Sequential:
     """tokens [B, T] int -> log-probs [B, T, vocab]."""
-    _unported(seq_parallel, num_experts)
+    _unported(seq_parallel)
     model = (Sequential()
              .add(LookupTable(vocab_size, d_model))
              .add(PositionalEmbedding(max_len, d_model)))
     for _ in range(num_layers):
         model.add(TransformerBlock(d_model, num_heads, mlp_ratio=mlp_ratio,
-                                   dropout=dropout, causal=causal))
+                                   dropout=dropout, causal=causal,
+                                   num_experts=num_experts,
+                                   expert_k=expert_k,
+                                   expert_axis=expert_axis))
     model.add(LayerNorm(d_model))
     model.add(Linear(d_model, vocab_size))  # contracts the last axis of BTE
     model.add(LogSoftMax())

@@ -8,7 +8,8 @@ stride is the patch, ``Reshape`` flattens the grid of patches to tokens,
 ``TransformerBlock(causal=False)`` (full attention: B6 forward and B7
 backward on the card, not causal), and the head is ``LayerNorm``,
 ``Mean(dimension=1)`` over the tokens, ``Linear`` and ``LogSoftMax``.
-``num_experts > 0`` (the MoE MLP) raises, as ``TransformerLM``'s does.
+``num_experts > 0`` swaps each block's MLP for ``parallel/expert.py``
+``MoEFFN``, as ``TransformerLM``'s does.
 """
 
 from __future__ import annotations
@@ -25,10 +26,6 @@ def ViT(image_size: int = 224, patch_size: int = 16, class_num: int = 1000,
         mlp_ratio: int = 4, in_channels: int = 3, dropout: float = 0.0,
         num_experts: int = 0, expert_axis=None) -> Sequential:
     """[B, H, W, C] images -> [B, class_num] log-probs."""
-    if num_experts > 0:
-        raise NotImplementedError(
-            f"ViT(num_experts={num_experts}): MoEFFN is not ported: "
-            "ROADMAP.md queue A item 8")
     if image_size % patch_size:
         raise ValueError(f"image_size {image_size} not divisible by "
                          f"patch_size {patch_size}")
@@ -41,7 +38,9 @@ def ViT(image_size: int = 224, patch_size: int = 16, class_num: int = 1000,
              .add(PositionalEmbedding(tokens, d_model)))
     for _ in range(num_layers):
         model.add(TransformerBlock(d_model, num_heads, mlp_ratio=mlp_ratio,
-                                   dropout=dropout, causal=False))
+                                   dropout=dropout, causal=False,
+                                   num_experts=num_experts,
+                                   expert_axis=expert_axis))
     model.add(LayerNorm(d_model))
     model.add(Mean(dimension=1))   # pool over the tokens -> [B, E]
     model.add(Linear(d_model, class_num))

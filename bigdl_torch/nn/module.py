@@ -575,9 +575,11 @@ class Module(torch.nn.Module):
         return self.training
 
     def get_times(self):
-        """(module, forward s, backward s) per module; the reference fills
-        them from its opt-in profiler, which is not ported, so every time
-        is 0 here."""
+        """(module, forward s, backward s) per module of
+        :meth:`unique_modules`, in its pre-order: the times the last
+        ``utils/profiling.py`` ``ModuleProfiler`` block over the module
+        measured, 0 for a module no profiler has timed (or after
+        :meth:`reset_times`)."""
         return [(m, *getattr(m, "_profile_times", (0.0, 0.0)))
                 for m in self.unique_modules()]
 

@@ -39,6 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
+
 __all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
            "flash_lse_reference", "route", "tma_ready", "FlashAttention",
            "flash_attention_bwd", "flash_bwd_reference", "bwd_route",
@@ -214,12 +216,26 @@ def _operand(t, rt: str):
     return t if t.stride(3) == 1 else t.contiguous()
 
 
+def _flops(q, k, per: int) -> int:
+    """``per``·B·H·Tq·Tk·D, B6's (4) or B7's (8) count for an open FLOP
+    count (``utils/flops.py``), the mask not subtracted."""
+    B, H, Tq, D = q.shape
+    return per * B * H * Tq * k.shape[2] * D
+
+
 def _forward(q, k, v, causal: bool, sm_scale: float,
              with_lse: bool = False):
     """(o, lse) on ``q``'s device: the plain version on the CPU, B6 on
     CUDA.  ``lse`` is None unless ``with_lse``: then on CUDA the kernel
     writes it beside o, on the CPU :func:`flash_lse_reference` computes
     it."""
+    if flops.COUNTING:
+        return flops.kernel(_flops(q, k, 4), _forward_impl, q, k, v, causal,
+                            sm_scale, with_lse)
+    return _forward_impl(q, k, v, causal, sm_scale, with_lse)
+
+
+def _forward_impl(q, k, v, causal, sm_scale, with_lse):
     if q.device.type == "cpu":
         o = mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
         return o, (flash_lse_reference(q, k, causal=causal,
@@ -439,6 +455,13 @@ def flash_attention_bwd(q, k, v, o, do, *, lse=None, causal: bool = False,
     [B, T, H, D] memory."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if flops.COUNTING:
+        return flops.kernel(_flops(q, k, 8), _bwd, q, k, v, o, do, lse,
+                            causal, sm_scale)
+    return _bwd(q, k, v, o, do, lse, causal, sm_scale)
+
+
+def _bwd(q, k, v, o, do, lse, causal, sm_scale):
     if q.shape[2] == 0 or k.shape[2] == 0:
         # no rows, or no keys: nothing attends, every gradient is 0
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)

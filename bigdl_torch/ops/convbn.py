@@ -44,7 +44,7 @@ import threading
 
 import torch
 
-from ..utils import remat
+from ..utils import flops, remat
 from .batchnorm import all_reduce_pair, bn_grad_stats, global_rows
 
 __all__ = ["matmul_stats", "matmul_stats_reference", "route",
@@ -119,7 +119,15 @@ def matmul_stats(x2, w2, bias=None):
     """(y, Σy, Σy²): y = x2[R, K] @ w2[K, C] (+ bias[C]) with float32
     accumulation, in x2's dtype; the sums are float32 over the rows of the
     product before its cast (B5).  CPU tensors take
-    :func:`matmul_stats_reference`."""
+    :func:`matmul_stats_reference`.  An open FLOP count
+    (``utils/flops.py``) takes 2·R·K·C for it."""
+    if flops.COUNTING:
+        return flops.kernel(2 * x2.shape[0] * x2.shape[1] * w2.shape[-1],
+                            _matmul_stats, x2, w2, bias)
+    return _matmul_stats(x2, w2, bias)
+
+
+def _matmul_stats(x2, w2, bias):
     if x2.device.type == "cpu":
         return matmul_stats_reference(x2, w2, bias)
     if x2.device.type != "cuda":
@@ -168,9 +176,12 @@ def _normalize(y, scale, shift):
     return y * scale.to(y.dtype) + shift.to(y.dtype)
 
 
-def _bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz, group):
+def _bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz, group,
+                        want_dx=True):
     """Backward of (matmul -> training BN) for the BN-output cotangent dz:
-    (dx, dw, dbias, dgamma, dbeta), dw, dgamma and dbeta this rank's."""
+    (dx, dw, dbias, dgamma, dbeta), dw, dgamma and dbeta this rank's; dx
+    None unless ``want_dx`` (an input that takes no gradient needs no
+    product for it)."""
     dz = dz.contiguous()
     sdy_local, sdyx_local = bn_grad_stats(y, dz, mean, inv)
     sdy, sdyx = sdy_local, sdyx_local
@@ -181,10 +192,10 @@ def _bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz, group):
     scale = (gamma.float() * inv).to(y.dtype)
     dy = scale * (dz - (sdy / n).to(y.dtype)
                   - xhat.to(y.dtype) * (sdyx / n).to(y.dtype))
-    dx = dy @ w2.t()
+    dx = (dy @ w2.t()).to(x2.dtype) if want_dx else None
     dw = (x2.t().to(dy.dtype) @ dy).to(w2.dtype)
     dbias = None if bias is None else torch.zeros_like(bias)
-    return (dx.to(x2.dtype), dw, dbias, sdyx_local.to(gamma.dtype),
+    return (dx, dw, dbias, sdyx_local.to(gamma.dtype),
             sdy_local.to(gamma.dtype))
 
 
@@ -205,7 +216,7 @@ class _FusedConvBN(torch.autograd.Function):
     def backward(ctx, dz, _dmean, _dvar):
         x2, w2, y, mean, inv, gamma, bias = ctx.saved_tensors
         return (*_bn_matmul_backward(x2, w2, y, mean, inv, gamma, bias, dz,
-                                     ctx.group),
+                                     ctx.group, ctx.needs_input_grad[0]),
                 None, None)
 
 
@@ -233,7 +244,8 @@ class _FusedConvBNAddReLU(torch.autograd.Function):
         pre = _normalize(y, scale, shift) + resid2
         dz_m = torch.where(pre > 0, dz, torch.zeros_like(dz))
         dx, dw, dbias, dgamma, dbeta = _bn_matmul_backward(
-            x2, w2, y, mean, inv, gamma, bias, dz_m, ctx.group)
+            x2, w2, y, mean, inv, gamma, bias, dz_m, ctx.group,
+            ctx.needs_input_grad[0])
         return (dx, dw, dbias, dgamma, dbeta, dz_m.to(resid2.dtype), None,
                 None)
 

@@ -35,6 +35,8 @@ import threading
 
 import torch
 
+from ..utils import flops
+
 __all__ = ["decode_attention", "decode_attention_reference", "route",
            "splits", "sm_count", "counting_captures", "count_replay",
            "HEAD_DIMS", "MAX_LEN"]
@@ -225,7 +227,16 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
     row is written.  Returns the attention over rows 0..pos[s], that row
     included: [S, H, 1, D] in q's dtype (contiguous on CUDA).  Positions
     are read on the device; one outside 0..L-1 is clamped into it by the
-    kernel and is the caller's fault."""
+    kernel and is the caller's fault.  An open FLOP count
+    (``utils/flops.py``) takes 0 for it, as for every kernel that is not
+    a product of the reference's."""
+    if flops.COUNTING:
+        return flops.kernel(0, _decode_attention, q, k_new, v_new, k_cache,
+                            v_cache, pos)
+    return _decode_attention(q, k_new, v_new, k_cache, v_cache, pos)
+
+
+def _decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
     rt = _check(q, k_new, v_new, k_cache, v_cache, pos)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_new, v_new, k_cache, v_cache,

@@ -2,6 +2,7 @@
 regularizers, triggers and validation methods."""
 
 from .fused import FusedLayout, fuse, fused_update, plan, unfuse
+from .metrics import Metrics
 from .method import (EMA, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
                      OptimMethod, RMSprop)
 from .optimizer import (ConfigurationError, DistriOptimizer,
@@ -34,4 +35,4 @@ __all__ = ["Optimizer", "DistriOptimizer", "LocalOptimizer", "Predictor", "Evalu
            "ValidationMethod", "ValidationResult", "AccuracyResult",
            "LossResult", "PerplexityResult", "Top1Accuracy", "Top5Accuracy",
            "Loss", "Perplexity", "MAE", "HitRatio", "NDCG", "TreeNNAccuracy",
-           "FusedLayout", "plan", "fuse", "unfuse", "fused_update"]
+           "FusedLayout", "plan", "fuse", "unfuse", "fused_update", "Metrics"]

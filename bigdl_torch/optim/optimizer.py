@@ -70,9 +70,12 @@ Checkpoints (``set_checkpoint``) are the reference's files
 (``utils/file_io.py``): ``model.<n>`` holds ``{"params", "state"}`` as
 reference trees, ``optimMethod.<n>`` the method's ``state_dict()``, its
 state as a reference tree (``utils/convert.py``), ``"rng_state": None``,
-the driver state, and the Dropout generator's state under
-``"torch_rng_state"`` (a key the reference's loader ignores).  Only rank 0
-writes; ``keep_last`` / ``keep_every_epochs`` prune the lineage.
+the driver state, and the Dropout generators' states (keys the
+reference's loader ignores): every rank's, gathered to the writer, under
+``"torch_rng_states"`` ({rank: state}), and a run of one rank's also under
+``"torch_rng_state"``.  A run resumed at the world it was written at
+restores each rank's generator; at another world they are seeded as at a
+start.  Only the writer (``Engine.is_writer()``) writes; ``keep_last`` / ``keep_every_epochs`` prune the lineage.
 ``resume_from(model_path, optim_path)`` reads and checks both blobs before
 it changes anything, quarantines a corrupt snapshot and falls back to the
 newest valid older one; ``optimize()`` then starts from the resumed driver
@@ -203,9 +206,10 @@ from ..nn.criterion import Criterion
 from ..nn.dropout import dropout_rng
 from ..nn.module import Module
 from ..parallel import elastic as elastic_mod
+from ..parallel.expert import MoEFFN, collect_aux_losses
 from ..parallel.sharding import DataParallel, ShardingStrategy
 from ..parallel.wire import wire_bucket_mb, wire_cast
-from ..utils import chaos, config, file_io, remat, telemetry
+from ..utils import chaos, config, file_io, flops, remat, telemetry
 from ..utils import supervisor as supervision
 from ..utils.convert import (check_reference_tree, load_reference_opt_state,
                              load_reference_tree, to_reference_opt_state,
@@ -401,6 +405,26 @@ def dropout_seed(rank: int) -> int:
     bits, all that the CPU generator (a Mersenne twister) keeps; an odd
     multiplier maps distinct ranks to distinct seeds."""
     return (config.seed() + rank * 0x9E3779B1) & 0xFFFFFFFF
+
+
+def _gather_rng_states(rng: torch.Generator) -> Optional[dict]:
+    """{logical rank: {"device", "state"}} of every rank's Dropout
+    generator, on every rank: gathered over the Engine's group where it
+    spans several processes (all ranks call this together), this rank's
+    alone where the process is the whole world.  None where the world has
+    other ranks that no group reaches (a logical world of separate
+    processes): their states cannot be gathered."""
+    mine = {"device": rng.device.type,
+            "state": rng.get_state().numpy().copy()}
+    if Engine.group() is not None and Engine.group_size() > 1:
+        import torch.distributed as dist
+        got = [None] * Engine.group_size()
+        dist.all_gather_object(got, (Engine.rank(), mine),
+                               group=Engine.group())
+        return dict(got)
+    if Engine.world() == 1:
+        return {Engine.rank(): mine}
+    return None
 
 
 class _Stager:
@@ -719,6 +743,15 @@ class Optimizer:
         self._resume_state = None
         self._resume_opt_state = None
         self._resume_rng = None
+        # the train track's diagnostics, armed when telemetry traces:
+        # FLOPs of a step and the mfu denominator; the gradient wire's
+        # standalone seconds
+        self._step_flops = None
+        self._mfu_denom = 0.0
+        # the model's MoEFFN layers, whose auxiliary losses join the
+        # loss; found at the first step, so other models walk no tree
+        self._aux_layers = None
+        self._collective_s = None
         self._forward = None
         self._to_host = HostCopy()
         #: [(method, result)] of the latest validation
@@ -1015,20 +1048,31 @@ class Optimizer:
 
     def _loss(self, inp, tgt, rng):
         """The training forward and loss of one (micro)batch, Dropout
-        drawing from ``rng``.  Under a remat policy each segment of the
-        model (:func:`_segments`) runs checkpointed on its own, so that
-        the backward rebuilds one segment's activations at a time."""
+        drawing from ``rng``, plus the auxiliary losses the forward left
+        in the model's state (the reference's ``collect_aux_losses``: a
+        ``MoEFFN``'s load-balancing loss).  Under a remat policy each
+        segment of the model (:func:`_segments`) runs checkpointed on its
+        own, so that the backward rebuilds one segment's activations at a
+        time."""
         if self.remat_policy is None:
             with dropout_rng(rng):
-                return self.criterion(self.model(inp), tgt)
-        x = inp
-        for seg in _segments(self.model):
-            def fn(a, seg=seg):
-                with dropout_rng(rng):
-                    return seg(a)
-            x = remat.checkpointed(fn, self.remat_policy, rng, x)
-        with dropout_rng(rng):
-            return self.criterion(x, tgt)
+                loss = self.criterion(self.model(inp), tgt)
+        else:
+            x = inp
+            for seg in _segments(self.model):
+                def fn(a, seg=seg):
+                    with dropout_rng(rng):
+                        return seg(a)
+                x = remat.checkpointed(fn, self.remat_policy, rng, x)
+            with dropout_rng(rng):
+                loss = self.criterion(x, tgt)
+        if self._aux_layers is None:
+            self._aux_layers = [m for m in self.model.modules()
+                                if isinstance(m, MoEFFN)]
+        if not self._aux_layers:
+            return loss
+        aux = collect_aux_losses(self._aux_layers)
+        return loss if aux is None else loss + aux
 
     def _microbatches(self, inp, tgt):
         """(input, target) of each microbatch: contiguous slices along
@@ -1095,6 +1139,49 @@ class Optimizer:
         if strategy is not None:
             strategy.after_update(params)
         return loss, opt_state
+
+    def _counted_step(self, *args):
+        """:meth:`_step` under a FLOP count (``utils/flops.py``), which
+        arms the ``mfu`` counter: the step's FLOPs (products and
+        convolutions, forward and backward, the kernels by their formulas)
+        over the device's peak times ``Engine.world()``.  The first step
+        of a traced run is the counted one, so arming costs no extra
+        step, only the count's dispatch overhead in that one.  A formula
+        that fails disarms the counter with a log line: it is a
+        diagnostic (the reference's ``_arm_mfu``)."""
+        with flops.counting() as count:
+            out = self._step(*args)
+        self._step_flops = count.total
+        if count.error is not None:
+            logger.info("mfu counter disarmed: %s", count.error)
+        elif count.total:
+            peak, src = flops.device_peak_flops(self.device)
+            self._mfu_denom = peak * Engine.world()
+            logger.info("mfu counter armed: %.3e flops/step, peak %.3e x %d "
+                        "devices (%s)", count.total, peak, Engine.world(),
+                        src)
+        return out
+
+    def _arm_collective(self, params) -> None:
+        """The ``collective_s`` counter: the standalone seconds of the
+        gradient wire's reduction over the group at the wire dtype and
+        bucket layout (``parallel/wire.py`` ``measure_collective_seconds``;
+        0.0 at a world of one).  Every rank of a traced run arms it
+        together.  A failure leaves it at 0.0 with a log line (the
+        reference's ``_arm_collective``)."""
+        from ..parallel.wire import measure_collective_seconds
+        self._collective_s = 0.0
+        try:
+            self._collective_s = measure_collective_seconds(
+                params, get_policy().wire_dtype, self._bucket_mb)
+            if self._collective_s:
+                logger.info("collective counter armed: %.6fs standalone "
+                            "gradient all-reduce (wire=%s, bucket_mb=%s)",
+                            self._collective_s, get_policy().wire_dtype,
+                            self._bucket_mb)
+        except Exception as e:  # noqa: BLE001 — diagnostics only
+            logger.info("collective counter disarmed: %s: %s",
+                        type(e).__name__, e)
 
     def _check_accum_batching(self):
         """At ``optimize()`` entry, not mid-epoch: every batcher's batch
@@ -1301,19 +1388,20 @@ class Optimizer:
             # under ZeRO every rank all-gathers the slices before rank 0
             # writes the whole tree
             opt_state = self.strategy.full_state(opt_state)
+        # every rank's Dropout generator, gathered to the writer
+        rng_states = _gather_rng_states(rng)
         if not Engine.is_writer():
             return
         neval = state["neval"] - 1
         is_async = self.checkpoint_async and not preempt
         fetch, done = self._fetch_async() if is_async else (None, None)
         params, net_state = to_reference_tree(self.model, fetch)
-        # the generator of a rank's Dropout masks: only one rank writes, so
-        # over several ranks (a group or a logical world) the ranks reseed
-        # on resume instead
-        rng_state = None
-        if Engine.group() is None and Engine.world() == 1:
-            rng_state = {"device": rng.device.type,
-                         "state": rng.get_state().numpy().copy()}
+        # "torch_rng_state" keeps its meaning (the one generator of a run
+        # of one rank without a group); "torch_rng_states" holds every
+        # rank's, keyed by the logical rank, where the writer has them all
+        rng_state = (rng_states[Engine.rank()]
+                     if Engine.group() is None and Engine.world() == 1
+                     else None)
         model_blob = {"params": params, "state": net_state}
         optim_blob = {"method": self.optim_method.state_dict(),
                       "opt_state": to_reference_opt_state(
@@ -1322,7 +1410,8 @@ class Optimizer:
                       "driver_state": {k: copy.deepcopy(v)
                                        for k, v in state.items()
                                        if not k.startswith("_")},
-                      "torch_rng_state": rng_state}
+                      "torch_rng_state": rng_state,
+                      "torch_rng_states": rng_states}
         write = None
         if is_async:
             event = done()
@@ -1459,7 +1548,10 @@ class Optimizer:
             self.optim_method.load_state_dict(oblob["method"])
             self._resume_state = dict(oblob["driver_state"])
             self._resume_opt_state = opt_state
-            self._resume_rng = oblob.get("torch_rng_state")
+            self._resume_rng = oblob.get("torch_rng_states")
+            if self._resume_rng is None and \
+                    oblob.get("torch_rng_state") is not None:
+                self._resume_rng = {0: oblob["torch_rng_state"]}
             if self._resume_rng is None:
                 logger.info("%s carries no torch generator state%s: the "
                             "Dropout generator is seeded as at a start",
@@ -1494,22 +1586,28 @@ class Optimizer:
 
     def _dropout_generator(self):
         """The Dropout masks' generator on the training device: seeded as
-        at a start, or the resumed snapshot's state where it has one for
-        this kind of device."""
+        at a start, or, resumed at the world the snapshot was written at,
+        this rank's state from it (the reference replays its one key
+        stream at any world).  At another world, or on another kind of
+        device, it is seeded as at a start, with a warning."""
         rng = torch.Generator(device=self.device).manual_seed(
             dropout_seed(Engine.rank()))
         saved, self._resume_rng = self._resume_rng, None
         if saved is not None:
-            if saved["device"] == self.device.type and \
-                    Engine.group() is None and Engine.world() == 1:
-                rng.set_state(torch.from_numpy(np.asarray(saved["state"],
+            mine = saved.get(Engine.rank()) if len(saved) == \
+                Engine.world() else None
+            if mine is not None and mine["device"] == self.device.type:
+                rng.set_state(torch.from_numpy(np.asarray(mine["state"],
                                                           np.uint8)))
             else:
-                logger.warning("the snapshot's %s generator state does not "
-                               "fit a %s run: the Dropout generator is "
-                               "seeded as at a start", saved["device"],
-                               "group" if Engine.group() is not None
-                               or Engine.world() > 1 else self.device.type)
+                logger.warning("the snapshot's generator states (%d rank%s, "
+                               "%s) do not fit rank %d of a %s run at world "
+                               "%d: the Dropout generator is seeded as at a "
+                               "start", len(saved),
+                               "" if len(saved) == 1 else "s",
+                               sorted({v["device"] for v in saved.values()}),
+                               Engine.rank(), self.device.type,
+                               Engine.world())
         return rng
 
     # -- recovery ---------------------------------------------------------
@@ -1937,6 +2035,11 @@ class Optimizer:
         optim.hyper = state
         self.model.train()
         rng = self._dropout_generator()
+        # armed only where the BIGDL_TORCH_TRACE knob traces the run (a
+        # tracer set active by hand arms nothing), as the reference arms
+        traced = telemetry.enabled()
+        if traced and self._collective_s is None:
+            self._arm_collective(params)
         beat = self._sup.beat if self._sup is not None else (lambda _p: None)
         first_step = True
         # the rank-addressed host-loss drill point, per attempt: after a
@@ -1981,8 +2084,11 @@ class Optimizer:
                     else:
                         inp, tgt = _consume(staged)
                     lr = float(optim.get_learning_rate(state))
-                    loss, opt_state = self._step(params, opt_state, inp, tgt,
-                                                 lr, rng)
+                    step = (self._counted_step
+                            if traced and self._step_flops is None
+                            else self._step)
+                    loss, opt_state = step(params, opt_state, inp, tgt, lr,
+                                           rng)
                     # the previous step's loss, long computed: no wait
                     if pending is not None:
                         state["loss"] = self._observe_loss(float(pending),
@@ -2004,10 +2110,8 @@ class Optimizer:
                     # on a logged iteration) and the counter track
                     step_s = time.perf_counter() - t1
                     telemetry.complete("step", step_s, neval=state["neval"])
-                    telemetry.counter(
-                        "train", data_wait_s=t1 - t0, step_s=step_s,
-                        records_per_sec=n / max(step_s, 1e-9),
-                        prefetch_queue_depth=float(qdepth or 0))
+                    telemetry.counter("train", **self._train_counters(
+                        t1 - t0, step_s, n, qdepth))
                     self._histograms(state)
                     state["neval"] += 1
                     state["evalCounter"] += 1
@@ -2030,6 +2134,25 @@ class Optimizer:
         self._final_state, self._final_whole = opt_state, None
         self._initial_blob = None   # the run succeeded: drop the copy
         return self.model
+
+    def _train_counters(self, data_wait, step_s, n, qdepth) -> dict:
+        """The ``train`` counter track of one step (the reference's
+        ``:1802-1821``).  ``mfu`` is the step's FLOPs over its host time
+        and the peak: the host reads the previous step's loss before it
+        finishes a step, so over a run the host time is at least the
+        device's."""
+        counters = {"data_wait_s": data_wait, "step_s": step_s,
+                    "records_per_sec": n / max(step_s, 1e-9),
+                    "prefetch_queue_depth": float(qdepth or 0)}
+        if self._mfu_denom:
+            counters["mfu"] = (self._step_flops / max(step_s, 1e-9)
+                               / self._mfu_denom)
+            counters["model_flops_per_step"] = self._step_flops
+        if self._collective_s is not None:
+            counters["collective_s"] = self._collective_s
+            counters["collective_fraction"] = min(
+                1.0, self._collective_s / max(step_s, 1e-9))
+        return counters
 
     def _summarize(self, state, lr, throughput):
         """The train summary's scalars, on a logged iteration."""

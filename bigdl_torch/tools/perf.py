@@ -10,6 +10,8 @@ records a second are printed as one JSON line.  It runs on the CUDA
 device unless given ``--device cpu``.  Step time is the wall clock over
 ``--iters`` steps after ``--warmup``, the device drained before and after
 (on the card also the CUDA events' time of the same steps).
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the step
+(``utils/profiling.py`` ``trace_steps``).
 
 Usage::
 
@@ -111,18 +113,10 @@ def run(model_name: str, batch_size: int, iters: int = 20, warmup: int = 3,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else str(device))}
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        with profile(activities=acts) as prof:
-            for _ in range(max(iters // 2, 3)):
-                one()
-            _sync(device)
-        import os
-        os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, f"perf_{model_name}.json")
-        prof.export_chrome_trace(path)
-        out["profile_dir"] = path
+        # a Chrome trace of the real step (utils/profiling.py)
+        from ..utils.profiling import trace_steps
+        out["profile_dir"] = trace_steps(one, max(iters // 2, 3),
+                                         profile_dir)
     return out
 
 
@@ -137,8 +131,9 @@ def main(argv=None):
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the step here")
     ap.add_argument("--num-experts", type=int, default=0,
-                    help="transformer only: the MoE variant (not ported: "
-                         "ROADMAP.md queue A item 8)")
+                    help="transformer only: the Switch-style MoE "
+                         "variant with this many experts "
+                         "(parallel/expert.py MoEFFN)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)

@@ -63,6 +63,8 @@ the kernels always run.
 | BIGDL_TORCH_FUSED_UPDATE         | the update over one flat tensor per dtype      | 0       |
 | BIGDL_TORCH_WIRE_BUCKET_MB       | gradient bucket cap, MB (0 = per-leaf wire)    | 0       |
 | BIGDL_TORCH_RNN_HOIST_MAX_ELEMENTS | cap on (T, B, gates) elements of the hoisted input projection | 2^28 |
+| BIGDL_TORCH_PEAK_FLOPS           | the mfu denominator's peak FLOP/s per device (``utils/flops.py``; 0 = the table) | 0 |
+| BIGDL_TORCH_DISABLE_LOGGER_FILTER / _LOG_FILE | leave the dependencies' loggers alone; their file (``utils/logger_filter.py``) | 0 / bigdl_torch.log |
 """
 
 from __future__ import annotations

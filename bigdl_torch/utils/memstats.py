@@ -1,0 +1,132 @@
+"""Device-memory accounting for the smoke and benchmark records.
+
+Counterpart of ``bigdl_tpu/utils/memstats.py``:
+
+- :func:`device_memory_stats`: the CUDA caching allocator's own ledger
+  (``torch.cuda.memory_stats``), with the reference's ``bytes_in_use``
+  (current allocated bytes) and ``peak_bytes_in_use`` (their peak since
+  the last ``torch.cuda.reset_peak_memory_stats``); None on a CPU, which
+  keeps no ledger.
+- :func:`live_device_bytes`: the sum of the tensors alive on one device
+  (found through the garbage collector), the stand-in on a CPU.
+- :func:`tree_device_bytes`, :func:`tree_total_bytes`: a tree's bytes on
+  one device and in all.  A tree is a tensor, a module (its parameters and
+  buffers), or a list, tuple or dict of them.  One process holds whole
+  tensors, so both are the same number until the mesh layouts shard them.
+- :func:`memory_record`: the record's block, with the reference's keys.
+
+The reference's ``pipeline_stage_bytes`` and ``embedding_table_bytes`` wait
+for the pipeline and the mesh layouts (ROADMAP.md queue A item 8);
+``compiled_memory_analysis`` reads an XLA executable, which the port does
+not have.
+"""
+
+from __future__ import annotations
+
+import gc
+import warnings
+from typing import Optional
+
+import torch
+
+__all__ = ["device_memory_stats", "live_device_bytes", "tree_device_bytes",
+           "tree_total_bytes", "memory_record"]
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def device_memory_stats(device=None) -> Optional[dict]:
+    """``torch.cuda.memory_stats`` of a CUDA device with the reference's
+    ``bytes_in_use`` and ``peak_bytes_in_use`` added; None on a CPU."""
+    dev = _device(device)
+    if dev.type != "cuda":
+        return None
+    stats = dict(torch.cuda.memory_stats(dev))
+    stats["bytes_in_use"] = int(stats.get("allocated_bytes.all.current", 0))
+    stats["peak_bytes_in_use"] = int(stats.get("allocated_bytes.all.peak",
+                                               0))
+    return stats
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.nn.Module):
+        yield from tree.parameters()
+        yield from tree.buffers()
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def live_device_bytes(device=None) -> int:
+    """Bytes of every distinct storage alive on one device."""
+    dev = _device(device)
+    seen, total = set(), 0
+    with warnings.catch_warnings():
+        # isinstance() on a deprecated module attribute warns
+        warnings.simplefilter("ignore")
+        tensors = [o for o in gc.get_objects()
+                   if isinstance(o, torch.Tensor)]
+    for obj in tensors:
+        try:
+            if obj.device != dev:
+                continue
+            st = obj.untyped_storage()
+            key = st.data_ptr()
+            if key in seen:
+                continue
+            seen.add(key)
+            total += st.nbytes()
+        except Exception:  # noqa: BLE001 — a tensor without a storage
+            continue
+    return total
+
+
+def tree_device_bytes(tree, device=None) -> int:
+    """A tree's bytes that live on ``device``."""
+    dev = _device(device)
+    return sum(_nbytes(t) for t in _leaves(tree) if t.device == dev)
+
+
+def tree_total_bytes(tree) -> int:
+    """A tree's bytes wherever they live."""
+    return sum(_nbytes(t) for t in _leaves(tree))
+
+
+def memory_record(params=None, opt_state=None, device=None) -> dict:
+    """The record's memory block: the allocator's ledger where there is
+    one (``source: memory_stats``), else the live tensors' sum
+    (``source: live_buffer_sum``), plus the bytes of ``params`` and
+    ``opt_state`` on the device and in all."""
+    dev = _device(device)
+    rec: dict = {}
+    stats = device_memory_stats(dev)
+    if stats is not None:
+        rec["source"] = "memory_stats"
+        rec["bytes_in_use"] = stats["bytes_in_use"]
+        rec["peak_bytes_in_use"] = stats["peak_bytes_in_use"]
+    else:
+        rec["source"] = "live_buffer_sum"
+        rec["bytes_in_use"] = live_device_bytes(dev)
+    if params is not None:
+        rec["param_bytes_per_device"] = tree_device_bytes(params, dev)
+        rec["param_bytes_total"] = tree_total_bytes(params)
+    if opt_state is not None:
+        rec["slot_bytes_per_device"] = tree_device_bytes(opt_state, dev)
+        rec["slot_bytes_total"] = tree_total_bytes(opt_state)
+    return rec

@@ -81,6 +81,12 @@ class _Run:
         self.ema = []
 
 
+def in_recompute() -> bool:
+    """True inside the backward's recompute of a checkpointed call."""
+    r = _run.get()
+    return r is not None and r.recompute
+
+
 def defer_ema(update: Callable[[], None]) -> bool:
     """Called by BatchNorm with its running-statistics update: inside a
     checkpointed forward the update waits for the end of the call (True),

@@ -11,8 +11,9 @@ alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
 ``--only layers``, ``--only train_zoo``, ``--only zoo_data``, ``--only
-serve_stack`` and ``--only elastic_fleet`` the build and phase 16, 17, 18,
-19, 20 or 21 alone, and none of them prints the final line.)
+serve_stack``, ``--only elastic_fleet``, ``--only observe`` and ``--only
+train_moe`` the build and phase 16, 17, 18, 19, 20, 21, 22 or 23 alone,
+and none of them prints the final line.)
 
 Phases, each printing one JSON line:
 
@@ -516,6 +517,42 @@ Phases, each printing one JSON line:
    respawn-to-ready s, the deploy's s, p50 and p99 ms through the front
    against one member called directly.
 
+22. ``observe``: the observability modules on the bench LM (the
+   ``train_lm`` width and batch), traced (``BIGDL_TORCH_TRACE`` set to a
+   temporary dir).  ``measure_roofline()`` (chains of bf16 8192^3
+   ``torch.matmul`` products) must give a number, printed as TFLOP/s and
+   as a share of the ``utils/flops.py`` table's peak.  ``OB_STEPS``
+   traced steps: 8 B6 (each with the log-sum-exp) and 16 B7 a step on
+   ``"tc"``; every step's ``train`` track carries ``model_flops_per_step``
+   equal to the LM step's closed form (3 x 2 x tokens x in x out over
+   every ``Linear`` and the attention's four E x E projections, plus
+   12·B·H·T²·D per attention layer) and ``0 < mfu <= 1``.
+   ``measure_step_seconds`` of the step within ``OB_TIMING_RATIO`` of the
+   step time read from CUDA events over ``OB_EVENT_STEPS`` steps (the
+   best of 3 such windows), and the step run under a FLOP count timed.
+   ``ModuleProfiler`` over one forward and backward: a non-zero forward
+   time for every leaf with parameters, a non-zero backward time for
+   every ``Linear``.  ``trace_steps`` over 3 steps: the 10 kernels with
+   the most device time printed, B6's and B7's among the trace's kernels.
+   ``python -m bigdl_torch.tools.trace_report DIR --json`` exits 0 with
+   ``step`` among its phases and ``train.mfu`` among its counters.
+   ``memory_record``'s peak bytes printed.  B6 with the log-sum-exp and
+   B7 at the step's [16, 8, 512, 64] held to their plain versions.
+23. ``train_moe``: the ``transformer_moe`` config of ``bench.py`` (vocab
+   16000, T 256, d_model 512, 8 heads, 4 layers, 8 experts of hidden 2048,
+   k = 1, capacity factor 1.25, batch 16, bf16 compute; seeded random
+   weights; sequences that count up modulo ``MOE_PERIOD`` from a random
+   start, so 20 steps have something to learn) trained ``MOE_STEPS``
+   steps through ``DataSet.array`` -> ``Optimizer`` as ``train_lm``
+   trains, traced: the first loss near ln 16000, every loss finite, the
+   last ``MOE_MIN_DROP`` below the first; 4 B6 (each with the
+   log-sum-exp) and 8 B7 a step on ``"tc"``;
+   every step's ``mfu`` in (0, 1].  One MoE layer's routing
+   (``top_k_routing``) on the card bit-equal, in its one-hot masks, to
+   the CPU route's on the same float32 logits.  B6 with the log-sum-exp
+   and B7 at [16, 8, 256, 64] causal held to their plain versions and
+   timed beside SDPA and the bound.
+
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
 LM run, B8 per warm continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
@@ -532,7 +569,8 @@ per int8 scoring run and B8 per warm int8 decode run of ``zoo_data``,
 B6 per scoring window and per publishing trainer, B7 per publishing
 trainer and B8 per ``/v1/generate`` run of ``serve_stack``, B6 and B7
 per elastic drill (rank 0 and the joiner) of ``elastic_fleet`` with the
-shrunk world's case, each with its case's times), the
+shrunk world's case, B6 and B7 per traced LM run of ``observe`` and per
+MoE run of ``train_moe``, each with its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -587,8 +625,11 @@ from bigdl_torch.serve import (DecodeEngine, InferenceServer,
 from bigdl_torch.serve import continuous as tct
 from bigdl_torch.serve import tracefile
 from bigdl_torch.tools import record_generator, serve_http
-from bigdl_torch.utils import (chaos, crc32c, cuda_build, file_io,
-                               metrics_export, native, telemetry)
+from bigdl_torch.parallel import expert as moe_mod
+from bigdl_torch.tools import trace_report
+from bigdl_torch.utils import (chaos, crc32c, cuda_build, file_io, flops,
+                               memstats, metrics_export, native, profiling,
+                               telemetry, timing)
 from bigdl_torch.utils.recordio import count_records
 from bigdl_torch.utils.convert import load_reference_tree, to_reference_tree
 
@@ -8338,6 +8379,387 @@ def phase_elastic_fleet():
          "kernel_route": b7["route"], "route_launches": el["bwd_routes"]}]
 
 
+# ---------------------------------------------------------------------------
+# 22. observe: timing, FLOPs and mfu, the module profiler, traces, memory
+# ---------------------------------------------------------------------------
+
+OB_STEPS = 6               # traced LM steps
+OB_EVENT_STEPS = 8         # steps between two CUDA events
+OB_TIMING_RATIO = 1.25     # measure_step_seconds against the events' time
+OB_TOP_KERNELS = 10
+B6_KERNEL = "flash_tc_kernel"
+B7_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkv_tc_kernel")
+
+
+def train_rows(trace_dir):
+    """The ``train`` counter track's events of a trace dir, in order."""
+    merged = telemetry.merge_traces(trace_dir)
+    return [e["args"] for e in merged["traceEvents"]
+            if e.get("ph") == "C" and e.get("name") == "train"]
+
+
+def traced_train(model, samples, steps, batch, trace_dir):
+    """``train_lm`` with ``BIGDL_TORCH_TRACE`` at ``trace_dir``; returns
+    (losses, the ``train`` track's events)."""
+    with knobs({"BIGDL_TORCH_TRACE": trace_dir}):
+        losses = train_lm(model, samples, steps, batch)
+    return losses, train_rows(trace_dir)
+
+
+def check_mfu(rows, steps, what):
+    mfu = [r.get("mfu") for r in rows]
+    check(len(rows) == steps and all(m is not None and 0 < m <= 1
+                                     for m in mfu),
+          f"{what}: train track mfu {mfu} over {len(rows)} rows")
+    return mfu
+
+
+def lm_closed_form_flops(model, batch, seq):
+    """FLOPs of an LM train step: 3 x 2 x tokens x in x out over every
+    ``Linear`` and every attention's four E x E projections (forward, and
+    the input and weight gradients), plus 12·B·H·T²·D per attention layer
+    (B6's 4 and B7's 8)."""
+    tokens = batch * seq
+    linear = sum(m.input_size * m.output_size for m in model.modules()
+                 if isinstance(m, nn.Linear))
+    mhas = [m for m in model.modules()
+            if isinstance(m, nn.MultiHeadAttention)]
+    linear += sum(4 * m.embed_dim * m.embed_dim for m in mhas)
+    attn = sum(12 * batch * m.num_heads * seq * seq * m.head_dim
+               for m in mhas)
+    return 6 * tokens * linear + attn
+
+
+def step_runner(opt, samples, batch):
+    """One ``Optimizer._step`` on a fixed batch, the way
+    ``tools/perf.py`` times a step; returns a callable giving the loss."""
+    params = opt._params()
+    state = {"opt": opt.optim_method.init_state(params)}
+    rng = opt._dropout_generator()
+    x = torch.from_numpy(np.stack([s.feature for s in samples[:batch]])
+                         ).cuda()
+    y = torch.from_numpy(np.stack([s.label for s in samples[:batch]])
+                         ).cuda()
+    opt.model.train()
+
+    def one():
+        loss, state["opt"] = opt._step(params, state["opt"], x, y, LM_LR,
+                                       rng)
+        return loss
+    return one
+
+
+def counted_step_ms(run):
+    """ms of one step run under a FLOP count (``utils/flops.py``), the
+    card synchronized before and after: what arming the mfu counter adds
+    to a traced run's first step, beside ``measure_step_seconds``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flops.fn_flops(run)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def events_step_ms(run, n, windows=3):
+    """ms a step between two CUDA events over ``n`` steps, in each of
+    ``windows`` windows; the gate reads the best (as ``measure_chain``
+    takes the best of its repeats: the host-bound step varies with the
+    shared host), the phase line prints them all."""
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(n):
+            run()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / n)
+    return out
+
+
+def profiled_modules(model, samples, batch):
+    """``ModuleProfiler`` over one forward and backward of the model:
+    (leaves with parameters and a zero forward time, ``Linear`` modules
+    with a zero backward time, the summary's top rows)."""
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                       size_average=True)
+    x = torch.from_numpy(np.stack([s.feature for s in samples[:batch]])
+                         ).cuda()
+    y = torch.from_numpy(np.stack([s.label for s in samples[:batch]])
+                         ).cuda()
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with profiling.ModuleProfiler(model) as prof:
+        crit(model(x), y).backward()
+    model.zero_grad(set_to_none=True)
+    times = prof.get_times()
+    no_fwd = [m.name for m, f, _ in times
+              if list(m.parameters(recurse=False)) and not f > 0]
+    no_bwd = [m.name for m, _, b in times
+              if isinstance(m, nn.Linear) and not b > 0]
+    top = sorted(times, key=lambda r: -(r[1] + r[2]))[:8]
+    return no_fwd, no_bwd, [{"module": m.name, "fwd_ms": f * 1e3,
+                             "bwd_ms": b * 1e3} for m, f, b in top]
+
+
+def traced_kernels(run, logdir):
+    """``trace_steps`` over 3 steps: the device kernels of the trace by
+    total time, [(ms, count, name)]."""
+    profiling.trace_steps(run, 3, logdir)
+    with open(os.path.join(logdir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    by = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            by[e["name"]][0] += e["dur"] / 1e3
+            by[e["name"]][1] += 1
+    return sorted(((ms, n, name) for name, (ms, n) in by.items()),
+                  reverse=True)
+
+
+def trace_report_json(trace_dir):
+    """``python -m bigdl_torch.tools.trace_report DIR --json`` in this
+    process: (exit code, the parsed breakdown)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = trace_report.main([trace_dir, "--json"])
+    return rc, json.loads(out.getvalue()) if rc == 0 else None
+
+
+def flash_rows(b6, b7, fwd, bwd, path, fwd_routes, bwd_routes):
+    """The kernels line's B6 and B7 rows of a path."""
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "bigdl_torch/csrc/flash_attention.cu",
+         "replaces": "bigdl_tpu/ops/attention.py:59", "launches": fwd,
+         "path": path, "max_abs_err": b6["max_abs_err"],
+         "lse_max_abs_err": b6["lse_max_abs_err"], "ms": b6["ms"],
+         "plain_ms": b6["plain_ms"], "bound_ms": b6["bound_ms"],
+         "bound_by": b6["bound_by"], "library_ms": b6["library_ms"],
+         "ms_over_library": b6["ms_over_library"],
+         "kernel_route": b6["route"], "route_launches": fwd_routes,
+         "shape": b6["shape"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "bigdl_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "bigdl_tpu/ops/attention.py:182", "launches": bwd,
+         "path": path, "max_abs_err": b7["max_abs_err"], "ms": b7["ms"],
+         "plain_ms": b7["plain_ms"], "bound_ms": b7["bound_ms"],
+         "bound_by": b7["bound_by"], "library_ms": b7["library_ms"],
+         "ms_over_library": b7["ms_over_library"],
+         "kernel_route": b7["route"], "route_launches": bwd_routes,
+         "shape": b7["shape"]}]
+
+
+def flash_pair_cases(B, H, T, D, seed):
+    """B6 with the log-sum-exp and B7 at [B, H, T, D] bf16 causal against
+    their plain versions."""
+    b6 = flash_case(B, H, T, T, D, torch.bfloat16, True,
+                    torch.Generator().manual_seed(seed), with_lse=True)
+    b7 = b7_case(B, H, T, T, D, torch.bfloat16, True,
+                 torch.Generator(device="cuda").manual_seed(seed))
+    check(b6["ok"] and b7["ok"], f"B6 / B7 at {[B, H, T, D]}: {b6} {b7}")
+    return b6, b7
+
+
+def phase_observe():
+    """The observability modules on the bench LM (module docstring, 22);
+    returns the kernels line's rows."""
+    t_phase = time.perf_counter()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    roof = timing.measure_roofline()
+    peak, peak_src = flops.device_peak_flops()
+    check(roof is not None and roof > 0, f"measure_roofline: {roof}")
+    T, V = LM["max_len"], LM["vocab_size"]
+    H, D = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    samples = lm_samples(LM_BATCH * OB_STEPS, T, V, SEED + 21)
+    model = TransformerLM(**LM).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    root = tempfile.mkdtemp(prefix="observe_")
+    try:
+        tdir = os.path.join(root, "trace")
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash()
+        t0 = time.perf_counter()
+        losses, rows = traced_train(model, samples, OB_STEPS, LM_BATCH,
+                                    tdir)
+        traced_s = time.perf_counter() - t0
+        fwd, bwd = flash_counts()
+        lse = attn_ops.flash_attention.lse_launches
+        fwd_routes = dict(attn_ops.flash_attention.route_launches)
+        bwd_routes = dict(attn_ops.flash_attention_bwd.route_launches)
+        check_lm_launches(OB_STEPS, "observe: traced LM")
+        check(lse == fwd, f"observe: {lse} of {fwd} B6 launches wrote the "
+              "log-sum-exp")
+        check(all(map(math.isfinite, losses)), f"observe losses {losses}")
+        mem = memstats.memory_record(model, device="cuda")
+        closed = lm_closed_form_flops(model, LM_BATCH, T)
+        counted = [r.get("model_flops_per_step") for r in rows]
+        check(counted and all(c == closed for c in counted),
+              f"observe: model_flops_per_step {counted} != the closed "
+              f"form {closed}")
+        mfu = check_mfu(rows, OB_STEPS, "observe")
+        rc, report = trace_report_json(tdir)
+        check(rc == 0 and "step" in report["phases"]
+              and "train.mfu" in report["counters"],
+              f"observe: trace_report exit {rc}, phases "
+              f"{sorted((report or {}).get('phases', {}))}")
+
+        one = step_runner(train.opt, samples, LM_BATCH)
+        step_s, detail = timing.measure_step_seconds(one)
+        count_ms = counted_step_ms(one)
+        ev_windows = events_step_ms(one, OB_EVENT_STEPS)
+        ev_ms = min(ev_windows)
+        ratio_t = step_s * 1e3 / ev_ms
+        check(1 / OB_TIMING_RATIO <= ratio_t <= OB_TIMING_RATIO,
+              f"observe: measure_step_seconds {step_s * 1e3:.3f} ms vs "
+              f"the events' {ev_ms:.3f} ms a step")
+        no_fwd, no_bwd, prof_top = profiled_modules(model, samples,
+                                                    LM_BATCH)
+        check(not no_fwd and not no_bwd,
+              f"observe: ModuleProfiler gave no forward time to {no_fwd}, "
+              f"no backward time to {no_bwd}")
+        kernels = traced_kernels(one, os.path.join(root, "prof"))
+        names = [k[2] for k in kernels]
+        b6_in = any(B6_KERNEL in n for n in names)
+        b7_in = all(any(k in n for n in names) for k in B7_KERNELS)
+        check(b6_in and b7_in, f"observe: trace_steps' kernels lack B6 "
+              f"or B7: {names[:40]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, one
+    train.opt = None
+    torch.cuda.empty_cache()
+    b6, b7 = flash_pair_cases(LM_BATCH, H, T, D, SEED + 22)
+    emit({"phase": "observe", "gpu": gpu_line(),
+          "roofline_tflops": roof / 1e12, "table_peak_tflops": peak / 1e12,
+          "peak_source": peak_src, "roofline_share_of_peak": roof / peak,
+          "steps": OB_STEPS, "losses": losses, "traced_s": traced_s,
+          "model_flops_per_step": counted[0], "closed_form_flops": closed,
+          "mfu": mfu, "step_ms_measured": step_s * 1e3,
+          "step_timing_detail": detail, "step_ms_events": ev_ms,
+          "step_ms_events_windows": ev_windows,
+          "timing_ratio": ratio_t, "counted_step_ms": count_ms,
+          "module_profile_top": prof_top,
+          "top_kernels": [{"ms": ms, "count": n, "name": name[:120]}
+                          for ms, n, name in kernels[:OB_TOP_KERNELS]],
+          "b6_in_top": any(B6_KERNEL in k[2]
+                           for k in kernels[:OB_TOP_KERNELS]),
+          "b7_in_top": any(B7_KERNELS[0] in k[2] or B7_KERNELS[1] in k[2]
+                           for k in kernels[:OB_TOP_KERNELS]),
+          "trace_phases": sorted(report["phases"]),
+          "train_mfu_counter": report["counters"]["train.mfu"],
+          "memory": mem, "flash_launches": fwd, "flash_bwd_launches": bwd,
+          "b6_case": b6, "b7_case": b7,
+          "phase_s": time.perf_counter() - t_phase})
+    return flash_rows(b6, b7, fwd, bwd, "observe", fwd_routes, bwd_routes)
+
+
+# ---------------------------------------------------------------------------
+# 23. train_moe: the transformer_moe config
+# ---------------------------------------------------------------------------
+
+MOE = dict(vocab_size=16000, max_len=256, d_model=512, num_heads=8,
+           num_layers=4, num_experts=8)
+MOE_BATCH = 16
+MOE_STEPS = 20
+MOE_PERIOD = 16            # the samples count up modulo this
+MOE_FIRST_ATOL = 1.0       # the first loss within this of ln(vocab)
+MOE_MIN_DROP = 0.25        # the last loss below the first by this
+
+
+def counting_samples(n, seq, period, seed):
+    """Next-token pairs of sequences that count up modulo ``period`` from
+    a random start (``default_rng(seed)``): each next token follows from
+    the current one, so a few steps have something to learn."""
+    start = np.random.default_rng(seed).integers(0, period, (n, 1))
+    toks = ((start + np.arange(seq + 1)) % period).astype(np.int32)
+    return [Sample(toks[i, :-1], toks[i, 1:]) for i in range(n)]
+
+
+def moe_routing_card_vs_cpu(model, samples):
+    """The first MoE layer's routing of a batch's float32 gate logits on
+    the card and on the CPU: (bit-equal masks, tokens dropped)."""
+    moe = next(m for m in model.modules() if isinstance(m, moe_mod.MoEFFN))
+    x = torch.from_numpy(np.stack([s.feature for s in samples[:MOE_BATCH]])
+                         ).cuda()
+    with torch.no_grad():
+        h = model.layers[1](model.layers[0](x))       # embeddings
+        h = h.float().reshape(-1, h.shape[-1])
+        logits = h @ moe.gate.float()
+    cap = moe._capacity(h.shape[0])
+    card = moe_mod.top_k_routing(logits, cap, moe.k)
+    host = moe_mod.top_k_routing(logits.cpu(), cap, moe.k)
+    same = (torch.equal(card[1].cpu(), host[1])
+            and torch.equal(card[3].cpu(), host[3]))
+    dropped = int(h.shape[0] * moe.k - host[1].sum().item())
+    return same, dropped, cap
+
+
+def phase_train_moe():
+    """The transformer_moe config trained on the card (module docstring,
+    23); returns the kernels line's rows."""
+    t_phase = time.perf_counter()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    T, V, L = MOE["max_len"], MOE["vocab_size"], MOE["num_layers"]
+    H, D = MOE["num_heads"], MOE["d_model"] // MOE["num_heads"]
+    samples = counting_samples(MOE_BATCH * MOE_STEPS, T, MOE_PERIOD,
+                               SEED + 23)
+    model = TransformerLM(**MOE).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    moes = [m for m in model.modules() if isinstance(m, moe_mod.MoEFFN)]
+    check(len(moes) == L and all(
+        (m.num_experts, m.d_hidden, m.k, m.capacity_factor)
+        == (MOE["num_experts"], 4 * MOE["d_model"], 1, 1.25) for m in moes),
+        f"train_moe: MoE layers {[(m.num_experts, m.d_hidden) for m in moes]}")
+    same, dropped, cap = moe_routing_card_vs_cpu(model, samples)
+    check(same, "train_moe: the routing on the card differs from the CPU "
+          "route's on the same logits")
+    root = tempfile.mkdtemp(prefix="train_moe_")
+    try:
+        zero_flash()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, rows = traced_train(model, samples, MOE_STEPS, MOE_BATCH,
+                                    os.path.join(root, "trace"))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fwd, bwd = flash_counts()
+    lse = attn_ops.flash_attention.lse_launches
+    fwd_routes = dict(attn_ops.flash_attention.route_launches)
+    bwd_routes = dict(attn_ops.flash_attention_bwd.route_launches)
+    check_lm_launches(MOE_STEPS, "train_moe", layers=L)
+    check(lse == fwd, f"train_moe: {lse} of {fwd} B6 launches wrote the "
+          "log-sum-exp")
+    check(len(losses) == MOE_STEPS and all(map(math.isfinite, losses))
+          and abs(losses[0] - math.log(V)) <= MOE_FIRST_ATOL
+          and losses[-1] < losses[0] - MOE_MIN_DROP,
+          f"train_moe losses {losses}")
+    mfu = check_mfu(rows, MOE_STEPS, "train_moe")
+    aux = [float(m.aux_loss) for m in moes]
+    check(all(math.isfinite(a) and a > 0 for a in aux),
+          f"train_moe: aux losses {aux}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [r["step_s"] * 1e3 for r in rows]
+    del model, moes
+    train.opt = None
+    torch.cuda.empty_cache()
+    b6, b7 = flash_pair_cases(MOE_BATCH, H, T, D, SEED + 24)
+    emit({"phase": "train_moe", "gpu": gpu_line(), "config": MOE,
+          "batch": MOE_BATCH, "steps": MOE_STEPS, "losses": losses,
+          "aux_losses": aux, "routing_bit_equal": same,
+          "routing_capacity": cap, "routing_dropped": dropped,
+          "mfu": mfu, "model_flops_per_step": rows[0].get(
+              "model_flops_per_step"), "host_step_ms": step_ms,
+          "run_s": run_s, "tokens_per_s": MOE_BATCH * T * MOE_STEPS / run_s,
+          "max_memory_allocated": peak, "flash_launches": fwd,
+          "flash_bwd_launches": bwd, "b6_case": b6, "b7_case": b7,
+          "phase_s": time.perf_counter() - t_phase})
+    return flash_rows(b6, b7, fwd, bwd, "train_moe", fwd_routes, bwd_routes)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8353,6 +8775,14 @@ def main():
     if sys.argv[1:3] == ["--only", "elastic_fleet"]:
         phase_build()
         phase_elastic_fleet()
+        return 0
+    if sys.argv[1:3] == ["--only", "observe"]:
+        phase_build()
+        phase_observe()
+        return 0
+    if sys.argv[1:3] == ["--only", "train_moe"]:
+        phase_build()
+        phase_train_moe()
         return 0
     if sys.argv[1:3] == ["--only", "train_validate"]:
         phase_build()
@@ -8429,6 +8859,8 @@ def main():
                      "config": "fused, bf16, batch 256"}})
     rows += phase_serve_stack()
     rows += phase_elastic_fleet()
+    rows += phase_observe()
+    rows += phase_train_moe()
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

@@ -137,5 +137,8 @@ def test_unported_models_raise(name, item):
     else:
         assert trun._build_model(name, 10)[1:] == \
             jrun._build_model(name, 10)[1:]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trun._build_model("transformer", 10, num_experts=4)
+    # the MoE variant builds, as the reference's does
+    moe, spec, crit = trun._build_model("transformer", 10, num_experts=4)
+    assert (spec, crit) == jrun._build_model("transformer", 10,
+                                             num_experts=4)[1:]
+    assert sum(type(m).__name__ == "MoEFFN" for m in moe.modules()) == 4

@@ -11,7 +11,8 @@
   2e-3, the roadmap's training-parity bound.
 - The CLI's ``vit``: the model, its input spec and its criterion as the
   reference's CLI pairs them, layer for layer; ``_NOT_PORTED`` is empty;
-  ``num_experts > 0`` raises, naming queue A item 8.
+  ``num_experts > 0`` builds the MoE ViT, layer for layer the
+  reference's, in the library and in the CLI.
 """
 
 import numpy as np
@@ -119,7 +120,13 @@ def test_cli_vit_forward_matches_reference():
 
 
 def test_vit_experts_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tvit.ViT(image_size=32, patch_size=4, num_experts=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trun._build_model("vit", 10, num_experts=2)
+    """The MoE variants build (they raised before ``parallel/expert.py``
+    was ported): the library's and the CLI's, layer for layer the
+    reference's."""
+    kw = dict(image_size=32, patch_size=4, num_experts=2)
+    assert _leaves(tvit.ViT(**kw)) == _leaves(jvit.ViT(**kw))
+    tmodel, tspec, tcrit = trun._build_model("vit", 10, num_experts=2)
+    jmodel, jspec, jcrit = jrun._build_model("vit", 10, num_experts=2)
+    assert (tspec, tcrit) == (jspec, jcrit)
+    assert _leaves(tmodel) == _leaves(jmodel)
+    assert ("MoEFFN",) in _leaves(tmodel)
