@@ -7,8 +7,10 @@ CAddTable, so the parameter tree is the reference's, leaf for leaf.
 each block, as the reference does.  ``num_experts > 0`` builds the
 Switch-style variant: each block's MLP is a ``parallel/expert.py``
 ``MoEFFN`` (k = ``expert_k``, hidden ``mlp_ratio * d_model``), whose
-load-balancing loss the ``Optimizer`` adds to the criterion's.  Sequence
-parallelism is not ported yet and raises (ROADMAP.md queue A item 8).
+load-balancing loss the ``Optimizer`` adds to the criterion's.
+``seq_parallel=True`` runs each block's attention as ring attention over
+the ``seq`` axis of the Engine's mesh (``nn/attention.py``,
+``parallel/ring_attention.py``); without one its forward raises.
 """
 
 from __future__ import annotations
@@ -55,22 +57,16 @@ def _residual(branch: Module) -> Sequential:
             .add(CAddTable()))
 
 
-def _unported(seq_parallel: bool) -> None:
-    if seq_parallel:
-        raise NotImplementedError("seq_parallel=True: ring attention is not "
-                                  "ported yet: ROADMAP.md queue A item 8")
-
-
 def TransformerBlock(d_model: int, num_heads: int, mlp_ratio: int = 4,
                      dropout: float = 0.0, causal: bool = True,
                      seq_parallel: bool = False, num_experts: int = 0,
                      expert_k: int = 1, expert_axis=None) -> Sequential:
     """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x)), the MLP a MoEFFN
     where ``num_experts > 0``."""
-    _unported(seq_parallel)
     attn = (Sequential()
             .add(LayerNorm(d_model))
-            .add(MultiHeadAttention(d_model, num_heads, causal=causal)))
+            .add(MultiHeadAttention(d_model, num_heads, causal=causal,
+                                    seq_parallel=seq_parallel)))
     if num_experts:
         from ..parallel.expert import MoEFFN
         mlp = (Sequential()
@@ -96,13 +92,13 @@ def TransformerLM(vocab_size: int, max_len: int = 1024, d_model: int = 256,
                   num_experts: int = 0, expert_k: int = 1,
                   expert_axis=None) -> Sequential:
     """tokens [B, T] int -> log-probs [B, T, vocab]."""
-    _unported(seq_parallel)
     model = (Sequential()
              .add(LookupTable(vocab_size, d_model))
              .add(PositionalEmbedding(max_len, d_model)))
     for _ in range(num_layers):
         model.add(TransformerBlock(d_model, num_heads, mlp_ratio=mlp_ratio,
                                    dropout=dropout, causal=causal,
+                                   seq_parallel=seq_parallel,
                                    num_experts=num_experts,
                                    expert_k=expert_k,
                                    expert_axis=expert_axis))

@@ -5,8 +5,18 @@ flash attention (the CUDA kernel of ``ops/attention.py`` on the card) ->
 output projection.  Training differentiates through the flash forward's
 ``torch.autograd.Function``, whose backward is the B7 kernel on the card;
 its gradients come back in the [B, T, H, D] memory the head merge reads.
-Sequence parallelism (ring attention over a mesh axis) comes with the
-parallelism slice.
+
+``seq_parallel=True`` runs the attention as ring attention over the
+``seq_axis`` ranks of the Engine's mesh (``parallel/ring_attention.py``),
+keeping the reference's contract: a global [B, T, E] in and out on every
+rank.  Each rank slices its rows of T out of q, k and v, whose backward
+all-gathers the ranks' shard gradients, runs the ring, and all-gathers
+o, whose backward takes this rank's shard of the gradient.  The two
+operators are conjugate (Megatron's sequence-parallel pair), so every
+rank's gradients come out the same with no reduce.  Without a ``seq``
+axis the forward raises, as the reference's ``shard_map`` does.  The
+reference's ``BIGDL_TPU_RING_ATTN`` seam over a ``tp`` axis waits for the
+mesh layouts (ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations
@@ -35,10 +45,8 @@ class MultiHeadAttention(Module):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % num_heads {num_heads}")
-        if seq_parallel:
-            raise NotImplementedError(
-                "MultiHeadAttention(seq_parallel=True): ring attention is "
-                "not ported yet")
+        self.seq_parallel = seq_parallel
+        self.seq_axis = seq_axis
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -72,6 +80,58 @@ class MultiHeadAttention(Module):
         # [B, T, H, D] -> [B, H, T, D] views: the kernel reads them strided
         q, k, v = (self._proj(x, n).reshape(B, T, H, D).transpose(1, 2)
                    for n in "qkv")
-        o = flash_attention(q, k, v, causal=self.causal)
+        if self.seq_parallel:
+            o = self._ring(q, k, v)
+        else:
+            o = flash_attention(q, k, v, causal=self.causal)
         o = o.transpose(1, 2).reshape(B, T, E)
         return self._proj(o, "o")
+
+    def _ring(self, q, k, v):
+        from ..parallel.hops import axis_group
+        from ..parallel.ring_attention import ring_attention
+        ax = axis_group(None, self.seq_axis)
+        if ax is None:
+            raise ValueError(
+                f"MultiHeadAttention(seq_parallel=True) needs a mesh with "
+                f"a {self.seq_axis!r} axis: Engine.init(mesh_shape="
+                f"{{{self.seq_axis!r}: n}})")
+        T = q.shape[2]
+        if T % ax.n:
+            raise ValueError(f"sequence length {T} does not divide among "
+                             f"the {ax.n} ranks of {self.seq_axis!r}")
+        q, k, v = (_ShardRows.apply(ax, t) for t in (q, k, v))
+        o = ring_attention(q, k, v, seq_axis=self.seq_axis,
+                           causal=self.causal)
+        return _GatherRows.apply(ax, o)
+
+
+class _ShardRows(torch.autograd.Function):
+    """This rank's rows of T of a [B, H, T, D] tensor held whole on every
+    rank; the backward all-gathers the ranks' shard gradients."""
+
+    @staticmethod
+    def forward(ctx, ax, x):
+        ctx.ax = ax
+        t = x.shape[2] // ax.n
+        return x[:, :, ax.rank * t:(ax.rank + 1) * t]
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ax.all_gather(g, dim=2)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The ranks' [B, H, T/n, D] shards gathered along T on every rank;
+    the backward takes this rank's shard of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, ax, x):
+        ctx.ax = ax
+        return ax.all_gather(x, dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        t = g.shape[2] // ax.n
+        return None, g[:, :, ax.rank * t:(ax.rank + 1) * t]

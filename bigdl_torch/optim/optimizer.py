@@ -206,7 +206,9 @@ from ..nn.criterion import Criterion
 from ..nn.dropout import dropout_rng
 from ..nn.module import Module
 from ..parallel import elastic as elastic_mod
+from ..parallel import pipeline as pipe_mod
 from ..parallel.expert import MoEFFN, collect_aux_losses
+from ..parallel.hops import axis_group
 from ..parallel.sharding import DataParallel, ShardingStrategy
 from ..parallel.wire import wire_bucket_mb, wire_cast
 from ..utils import chaos, config, file_io, flops, remat, telemetry
@@ -384,7 +386,10 @@ def _param_paths(model):
     from ..nn.module import Container
 
     def walk(m, path):
-        if isinstance(m, Container):
+        if getattr(m, "STACKED", False):
+            # a pipeline's tree is its stage's, leaves stacked
+            yield from walk(m.layers[0], path)
+        elif isinstance(m, Container):
             for i, c in m.tree_children():
                 yield from walk(c, path + [str(i)])
         else:
@@ -764,6 +769,15 @@ class Optimizer:
         self.opt_state_bytes = None
         self._fused_update = False
         self._bucket_mb = 0.0
+        #: the knobs the last optimize() ran its steps under
+        self.step_knobs: dict = {}
+        #: the last optimize()'s self-description: the step knobs, and a
+        #: pipelined model's stages, schedule, virtual stages, effective
+        #: microbatches and bubble fraction
+        self.run_description: dict = {}
+        # the GPipeSequential when the model pipelines over a pipe axis
+        # wider than one
+        self._pipeline = None
 
     def _placement(self, strategy, device):
         """(strategy, device) under the Engine's group: the strategy
@@ -1949,7 +1963,7 @@ class Optimizer:
             supervision.set_active(self._sup)
         # one trace file per logical rank (BIGDL_TORCH_TRACE); only the
         # tracer this call started is closed here
-        owned_tracer = telemetry.maybe_start(rank=Engine.rank())
+        owned_tracer = telemetry.maybe_start(rank=Engine.process_rank())
         try:
             return self._optimize_with_retry()
         finally:
@@ -2019,6 +2033,7 @@ class Optimizer:
             strategy.setup(self.model, optim, self._bucket_mb)
         self._fused_update = (config.get_bool("FUSED_UPDATE", False)
                               and optim.supports_fused)
+        self._describe_run()
         if self._initial_blob is None and self.checkpoint_path is not None:
             self._initial_blob = self._host_blob()
         opt_state, self._resume_opt_state = self._resume_opt_state, None
@@ -2135,6 +2150,29 @@ class Optimizer:
         self._initial_blob = None   # the run succeeded: drop the copy
         return self.model
 
+    def _describe_run(self) -> None:
+        """The step knobs and the run's self-description (the
+        reference's ``_step_knobs`` and compile-card extras): the fused
+        update, the bucket cap and, where the model pipelines over a
+        ``pipe`` axis wider than one, its stages, schedule, virtual
+        stages, microbatches and bubble fraction."""
+        self.step_knobs = {"fused_update": self._fused_update,
+                           "wire_bucket_mb": self._bucket_mb}
+        self._pipeline = None
+        desc = dict(self.step_knobs)
+        pipes = [m for m in self.model.unique_modules()
+                 if isinstance(m, pipe_mod.GPipeSequential)]
+        ax = axis_group(None, pipes[0].pipe_axis) if pipes else None
+        if ax is not None and ax.n > 1:
+            pmod = self._pipeline = pipes[0]
+            sched, mb, bubble = pmod.plan(ax.n)
+            self.step_knobs.update(pipe_schedule=sched,
+                                   pipe_virtual_stages=pmod.virtual_stages,
+                                   pipe_microbatches=mb)
+            desc.update(self.step_knobs, pipe_stages=ax.n,
+                        pipe_bubble_fraction=round(bubble, 4))
+        self.run_description = desc
+
     def _train_counters(self, data_wait, step_s, n, qdepth) -> dict:
         """The ``train`` counter track of one step (the reference's
         ``:1802-1821``).  ``mfu`` is the step's FLOPs over its host time
@@ -2152,6 +2190,16 @@ class Optimizer:
             counters["collective_s"] = self._collective_s
             counters["collective_fraction"] = min(
                 1.0, self._collective_s / max(step_s, 1e-9))
+        pmod = self._pipeline
+        if pmod is not None and pmod._last_microbatches:
+            # what the step ran: the effective microbatch count (the knob
+            # clamped to divide the batch) and its schedule's idle share
+            bubble = round(pmod._last_bubble, 4)
+            self.step_knobs["pipe_microbatches"] = pmod._last_microbatches
+            self.run_description.update(
+                pipe_microbatches=pmod._last_microbatches,
+                pipe_bubble_fraction=bubble)
+            counters["pipe_bubble_fraction"] = bubble
         return counters
 
     def _summarize(self, state, lr, throughput):
@@ -2202,19 +2250,22 @@ class LocalOptimizer(Optimizer):
 
 
 def _group_strategy(strategy, device, who):
-    """Under the Engine's group: the strategy (default
-    :class:`DataParallel`) and the device (default the Engine's; another
-    raises).  Without a group a strategy raises."""
+    """After ``Engine.init()``: the device (default the Engine's; another
+    raises) and, under its data group, the strategy (default
+    :class:`DataParallel`).  Without a data group (none formed, or a
+    ``pipe`` / ``seq`` mesh, whose data axis is one wide) a strategy
+    raises."""
     if Engine.group() is not None:
         strategy = strategy or DataParallel()
+    elif strategy is not None:
+        raise RuntimeError(f"{who} with {type(strategy).__name__} needs "
+                           "the Engine's data group: call Engine.init()")
+    if Engine.mesh() is not None:
         if device is None:
             device = Engine.device()
         if resolve_device(device) != Engine.device():
             raise ValueError(f"the Engine's rank runs on {Engine.device()},"
                              f" not on {device}")
-    elif strategy is not None:
-        raise RuntimeError(f"{who} with {type(strategy).__name__} needs "
-                           "the Engine's data group: call Engine.init()")
     return strategy, device
 
 

@@ -65,6 +65,9 @@ the kernels always run.
 | BIGDL_TORCH_RNN_HOIST_MAX_ELEMENTS | cap on (T, B, gates) elements of the hoisted input projection | 2^28 |
 | BIGDL_TORCH_PEAK_FLOPS           | the mfu denominator's peak FLOP/s per device (``utils/flops.py``; 0 = the table) | 0 |
 | BIGDL_TORCH_DISABLE_LOGGER_FILTER / _LOG_FILE | leave the dependencies' loggers alone; their file (``utils/logger_filter.py``) | 0 / bigdl_torch.log |
+| BIGDL_TORCH_PIPE_MICROBATCHES    | microbatches a pipelined step splits its batch into (``parallel/pipeline.py``) | 4 |
+| BIGDL_TORCH_PIPE_SCHEDULE        | ``gpipe`` (the reverse pipeline) or ``1f1b`` (the table, stage recompute) | gpipe |
+| BIGDL_TORCH_PIPE_VIRTUAL_STAGES  | stage slices per pipe rank (interleaving)      | 1       |
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ the reference's is a dict; ``Module.param_names`` and
 ``Module.state_names`` per leaf, the latter registered as buffers), so a
 reference (params, state) pair with numpy leaves copies in leaf by leaf and
 back.  Every shape, name and structure mismatch raises; nothing is
-reshaped.
+reshaped.  A pipeline (``GPipeSequential``) is its stage's tree with
+every leaf stacked along a leading stage axis, and state ``{}``, as in
+the reference.
 
 An optimization method's state carries across the same way.  The port
 keeps one list per slot (``velocity``, ``m``, ``v``, ...) in the order of
@@ -47,9 +49,25 @@ def _where(path):
     return "/".join(str(p) for p in path) or "<root>"
 
 
+def _stacked(module: Module) -> bool:
+    """A pipeline (``parallel/pipeline.py`` ``GPipeSequential``): its
+    reference param tree is its one stage's, each leaf stacked, and its
+    state tree is {}."""
+    return getattr(module, "STACKED", False)
+
+
 def _walk(module: Module, tree, path, kind: str, names_of, visit) -> None:
     """Walk a reference tree beside the module tree, raising on any
     structure mismatch; ``visit(module, name, leaf, path)`` at each leaf."""
+    if _stacked(module):
+        if kind == "state":
+            if tree != {}:
+                raise ValueError(f"state tree at {_where(path)}: expected "
+                                 f"{{}} for {type(module).__name__}, got "
+                                 f"{type(tree).__name__}")
+            return
+        _walk(module.layers[0], tree, path, kind, names_of, visit)
+        return
     if isinstance(module, Container):
         keys = module.TREE_KEYS
         if keys is None and (not isinstance(tree, (list, tuple)) or
@@ -139,6 +157,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _dump(module: Module, fetch):
+    if _stacked(module):
+        return _dump(module.layers[0], fetch)[0], {}
     if isinstance(module, Container):
         trees = [_dump(m, fetch) for m in module.layers]
         ps, ss = [p for p, _ in trees], [s for _, s in trees]
@@ -163,6 +183,8 @@ def _index(model: Module):
 
 
 def _param_tree(module: Module, leaf):
+    if _stacked(module):
+        return _param_tree(module.layers[0], leaf)
     if isinstance(module, Container):
         trees = [_param_tree(m, leaf) for m in module.layers]
         if module.TREE_KEYS is not None:

@@ -51,7 +51,17 @@ group of several processes cannot shrink in place: :meth:`reform` raises
 :class:`GroupReformError` there (the survivors restart into the smaller
 world, as in the reference).
 
-Not ported: multi-axis meshes.
+One named axis besides ``data`` (the reference's ``Engine.init(
+mesh_shape=...)``): ``Engine.init(mesh_shape={"pipe": n})`` (or
+``{"seq": n}``) forms a 1-D ``DeviceMesh`` over the group, named by that
+axis, which :meth:`mesh` returns and ``parallel/pipeline.py`` and
+``parallel/ring_attention.py`` reach their ranks through.  On such a mesh the
+data axis is one wide: :meth:`group` is None (no data group: the
+Optimizer takes no ``DataParallel`` and averages no gradient), every
+rank feeds the whole batch (:meth:`data_shard_info` is (0, 1)), every
+rank seeds its Dropout generator alike, and the process of rank 0 of the
+mesh is the only writer.  Two axes wider than one (a data x pipe mesh,
+say) need the mesh layouts and raise (ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from __future__ import annotations
 import collections
 import datetime
 import logging
+import math
 import threading
 from typing import Optional, Sequence
 
@@ -68,6 +79,10 @@ import torch.distributed as dist
 from . import config
 
 __all__ = ["Engine", "GroupReformError"]
+
+#: the axes a 1-D mesh besides ``data`` may be named by (the pipeline's
+#: and the sequence-parallel attention's)
+MESH_AXES = ("pipe", "seq")
 
 logger = logging.getLogger("bigdl_torch")
 
@@ -97,6 +112,10 @@ class Engine:
 
     _group = None
     _device: Optional[torch.device] = None
+    #: True between init() and reset()
+    _initialized = False
+    #: the 1-D DeviceMesh of mesh_shape={axis: n}, else None
+    _mesh = None
     #: the topology a reform() installed: {"rank", "survivors"}
     _elastic: Optional[dict] = None
     _lock = threading.Lock()
@@ -129,13 +148,18 @@ class Engine:
         dist.init_process_group(**kw)
 
     @classmethod
-    def init(cls, device=None, backend: Optional[str] = None):
-        """Form the data group and pick this rank's device (module
-        docstring); returns the group.  A second call returns the group
-        already formed."""
+    def init(cls, device=None, backend: Optional[str] = None,
+             mesh_shape: Optional[dict] = None):
+        """Form the group and pick this rank's device (module docstring).
+        ``mesh_shape`` is ``{"data": world}`` by default; ``{axis: world}``
+        for one axis of :data:`MESH_AXES` forms the 1-D ``DeviceMesh`` of
+        that axis instead of a data group.  Returns the data group, or the
+        mesh where one was formed; a second call returns what the first
+        formed."""
         with cls._lock:
-            if cls._group is not None:
-                return cls._group
+            if cls._initialized:
+                return cls.mesh()
+            axis = cls._mesh_axis(mesh_shape)
             if device is None:
                 if not torch.cuda.is_available():
                     raise RuntimeError("Engine.init: no CUDA device is "
@@ -150,22 +174,70 @@ class Engine:
                     device = torch.device("cuda", torch.cuda.current_device())
                 torch.cuda.set_device(device)
             backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+            world = (dist.get_world_size() if dist.is_initialized()
+                     else config.get_int("NUM_PROCESSES", 1))
+            if mesh_shape is not None and \
+                    math.prod(int(v) for v in mesh_shape.values()) != world:
+                raise ValueError(f"Engine.init: mesh_shape {mesh_shape} "
+                                 f"needs {math.prod(mesh_shape.values())} "
+                                 f"processes, the world has {world}")
             if not dist.is_initialized():
                 cls.init_distributed(backend)
             cls._device = device
-            cls._group = dist.group.WORLD
+            if axis is None:
+                cls._group = dist.group.WORLD
+            else:
+                from torch.distributed.device_mesh import DeviceMesh
+                cls._mesh = DeviceMesh(device.type, list(range(world)),
+                                       mesh_dim_names=(axis,))
+            cls._initialized = True
             cls.clear_counts()
-            logger.info("Engine.init: rank %d of %d on %s over %s",
-                        cls.rank(), cls.world(), device, backend)
-            return cls._group
+            logger.info("Engine.init: rank %d of %d on %s over %s%s",
+                        dist.get_rank(), world, device, backend,
+                        f", a {axis!r} mesh" if axis else "")
+            return cls.mesh()
+
+    @classmethod
+    def _mesh_axis(cls, mesh_shape: Optional[dict]) -> Optional[str]:
+        """The named axis of ``mesh_shape`` that forms a 1-D mesh, None
+        for a data group; raises on what needs the mesh layouts."""
+        if mesh_shape is None:
+            return None
+        wide = [a for a, n in mesh_shape.items() if int(n) > 1]
+        unknown = [a for a in mesh_shape
+                   if a != cls.DATA_AXIS and a not in MESH_AXES]
+        if unknown:
+            raise NotImplementedError(
+                f"Engine.init: mesh axes {unknown} wait for the mesh "
+                f"layouts (ROADMAP.md queue A item 8); the port forms one "
+                f"of {(cls.DATA_AXIS,) + MESH_AXES}")
+        if len(wide) > 1:
+            raise NotImplementedError(
+                f"Engine.init: mesh_shape {mesh_shape} has {len(wide)} "
+                "axes wider than one; meshes of several axes wait for the "
+                "mesh layouts (ROADMAP.md queue A item 8)")
+        named = [a for a in mesh_shape if a != cls.DATA_AXIS]
+        if not named:
+            return None
+        if len(named) > 1:
+            raise NotImplementedError(
+                f"Engine.init: mesh_shape {mesh_shape} names several axes; "
+                "meshes of several axes wait for the mesh layouts "
+                "(ROADMAP.md queue A item 8)")
+        return named[0]
 
     @classmethod
     def group(cls):
-        """The data group, or None before :meth:`init`."""
+        """The data group, or None before :meth:`init` and on a mesh of
+        another axis (where the data axis is one wide)."""
         return cls._group
 
-    #: the reference's mesh is the port's data group
-    mesh = group
+    @classmethod
+    def mesh(cls):
+        """The 1-D ``DeviceMesh`` of ``mesh_shape={axis: n}``; else the
+        data group (the reference's mesh is the port's data group), None
+        before :meth:`init`."""
+        return cls._mesh if cls._mesh is not None else cls._group
 
     @classmethod
     def device(cls) -> Optional[torch.device]:
@@ -176,9 +248,11 @@ class Engine:
     def reset(cls) -> None:
         """Destroy the group and forget the device and the counts."""
         with cls._lock:
-            if cls._group is not None and dist.is_initialized():
+            if cls._initialized and dist.is_initialized():
                 dist.destroy_process_group()
             cls._group = None
+            cls._mesh = None
+            cls._initialized = False
             cls._device = None
             cls._elastic = None
             cls.clear_counts()
@@ -297,7 +371,18 @@ class Engine:
     def is_writer(cls) -> bool:
         """True on the rank that writes to the shared store (checkpoints):
         the lowest survivor, rank 0 until a reform removes it."""
+        if cls.process_rank() != cls.rank():
+            return False   # every rank of a mesh holds the same state
         return cls.rank() == min(cls.survivors() or (0,))
+
+    @classmethod
+    def process_rank(cls) -> int:
+        """This process's rank on the Engine's mesh (``mesh_shape={axis:
+        n}``), where every rank has data rank 0; else :meth:`rank`.  Names
+        a process's own files (its trace)."""
+        if cls._mesh is not None:
+            return dist.get_rank()
+        return cls.rank()
 
     @classmethod
     def reform(cls, world: Optional[int] = None, rank: Optional[int] = None,

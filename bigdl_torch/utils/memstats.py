@@ -15,10 +15,13 @@ Counterpart of ``bigdl_tpu/utils/memstats.py``:
   tensors, so both are the same number until the mesh layouts shard them.
 - :func:`memory_record`: the record's block, with the reference's keys.
 
-The reference's ``pipeline_stage_bytes`` and ``embedding_table_bytes`` wait
-for the pipeline and the mesh layouts (ROADMAP.md queue A item 8);
-``compiled_memory_analysis`` reads an XLA executable, which the port does
-not have.
+- :func:`pipeline_stage_bytes`: each pipeline's stacked stage bytes.
+  Every pipe rank holds the whole stack (the reference's replicated
+  branch): its 1/n per device needs the mesh layouts.
+
+The reference's ``embedding_table_bytes`` waits for the mesh layouts
+(ROADMAP.md queue A item 8); ``compiled_memory_analysis`` reads an XLA
+executable, which the port does not have.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Optional
 import torch
 
 __all__ = ["device_memory_stats", "live_device_bytes", "tree_device_bytes",
-           "tree_total_bytes", "memory_record"]
+           "tree_total_bytes", "memory_record", "pipeline_stage_bytes"]
 
 
 def _device(device) -> torch.device:
@@ -130,3 +133,25 @@ def memory_record(params=None, opt_state=None, device=None) -> dict:
         rec["slot_bytes_per_device"] = tree_device_bytes(opt_state, dev)
         rec["slot_bytes_total"] = tree_total_bytes(opt_state)
     return rec
+
+
+def pipeline_stage_bytes(model, params=None, device=None):
+    """Per-stage parameter accounting for every ``GPipeSequential`` in
+    ``model`` (``parallel/pipeline.py``): the stacked stage parameters'
+    bytes, bytes per stage, and the bytes resident on ``device`` (the
+    whole stack: every pipe rank holds it).  ``params`` is accepted for
+    the reference's signature; the module holds its own.  A list of one
+    dict per pipeline, or None when the model has no pipelined region."""
+    from ..parallel.pipeline import GPipeSequential
+    out = []
+    for mod in model.unique_modules():
+        if isinstance(mod, GPipeSequential):
+            stack = list(mod.stage.parameters())
+            total = tree_total_bytes(stack)
+            n = mod.num_stages
+            out.append({"stages": n,
+                        "stage_param_bytes": total // max(n, 1),
+                        "stacked_param_bytes": total,
+                        "param_bytes_per_device": tree_device_bytes(
+                            stack, device)})
+    return out or None

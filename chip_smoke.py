@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10,
-``--zero-child DIR`` one of phase 10b and ``--elastic-child SPEC`` one
-process of phase 21's drill, started by the script itself;
+``--zero-child DIR`` one of phase 10b, ``--elastic-child SPEC`` one
+process of phase 21's drill and ``--pipe-seq-child DIR`` one rank of
+phase 24, started by the script itself;
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
 ``--only layers``, ``--only train_zoo``, ``--only zoo_data``, ``--only
-serve_stack``, ``--only elastic_fleet``, ``--only observe`` and ``--only
-train_moe`` the build and phase 16, 17, 18, 19, 20, 21, 22 or 23 alone,
+serve_stack``, ``--only elastic_fleet``, ``--only observe``, ``--only
+train_moe`` and ``--only pipe_seq`` the build and phase 16, 17, 18, 19,
+20, 21, 22, 23 or 24 alone,
 and none of them prints the final line.)
 
 Phases, each printing one JSON line:
@@ -552,6 +554,48 @@ Phases, each printing one JSON line:
    the CPU route's on the same float32 logits.  B6 with the log-sum-exp
    and B7 at [16, 8, 256, 64] causal held to their plain versions and
    timed beside SDPA and the bound.
+24. ``pipe_seq``: pipeline and sequence parallelism.  (a) One process:
+   ``bench.py``'s ``transformer_lm_pipe`` width (vocab 16000, T 256,
+   d_model 512, 8 heads, 8 layers, batch 16, bf16 compute, seeded
+   weights) partitioned by ``partition_pipeline(model, 2)``, which
+   without a ``pipe`` axis runs its stages in turn: ``PS_STEPS`` losses
+   bit-equal to the unpartitioned LM's from the same weights and batches,
+   and the trained stack's rows bit-equal to its trained blocks (the rest
+   of the weights too), 8 B6 (each with the log-sum-exp) and 16 B7 a
+   step on ``"tc"``.  The
+   dense LM at the ``transformer_lm`` width (vocab 32000, T 512) gives
+   its log-probs on fixed tokens and ``PS_STEPS`` losses.  (b) Two gloo
+   ranks on the one card, one spawn (``--pipe-seq-child``): the same
+   pipelined config on ``Engine.init(mesh_shape={"pipe": 2})`` under
+   ``gpipe``, ``1f1b`` and ``1f1b`` v = 2 with 4 microbatches, traced:
+   losses within ``PS_LOSS_TOL`` of (a)'s and equal on both ranks, the
+   trained weights bit-equal on both ranks and each unit's (the
+   embeddings, each block's attention and feed-forward, the head) change
+   over the run within ``PS_DELTA_TOL`` of (a)'s (the bf16 losses of
+   random tokens move at most an ulp, 0.0625, in 5 steps, so they cannot
+   see a wrong gradient), every
+   step's ``train`` track ``pipe_bubble_fraction`` equal to
+   ``bubble_fraction(2, 4, schedule, v)``, each rank's live-stash peak
+   equal to the table's (``peak_inflight_per_device``), the per-rank
+   launches of ``PS_PIPE_STEP``; then the group re-formed as
+   ``{"seq": 2}``: ``TransformerLM(seq_parallel=True)`` at the
+   ``transformer_lm`` width with the dense LM's weights, its log-probs
+   within ``KERNEL_TOL`` of the dense LM's and its losses within
+   ``PS_LOSS_TOL`` of the dense LM's, equal on both ranks, its trained
+   weights bit-equal on both ranks and each unit's change within
+   ``PS_DELTA_TOL`` of the dense LM's, with the
+   per-rank launches of ``PS_SEQ_STEP`` (rank 0 holds the first query
+   shard, so its causal ring skips the block above the diagonal); and
+   ``ring_attention`` (causal and not) and ``ulysses_attention`` (causal)
+   at [16, 8, 512, 64] bf16, whose output shards and q, k, v gradients
+   must match one B6 / B7 call on the whole tensors within ``KERNEL_TOL``
+   and ``B7_TOL``.  Printed: host step ms, tokens/s, run seconds and
+   ``max_memory_allocated`` of every run, per rank; the tensors that
+   went through host memory (``parallel/hops.py``).  B6 with the
+   log-sum-exp and B7 at the pipeline's [4, 8, 256, 64] causal, the
+   ring's [16, 8, 256, 64] not causal and Ulysses' [16, 4, 512, 64]
+   causal held to their plain versions and timed beside SDPA and the
+   bound.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -626,6 +670,11 @@ from bigdl_torch.serve import continuous as tct
 from bigdl_torch.serve import tracefile
 from bigdl_torch.tools import record_generator, serve_http
 from bigdl_torch.parallel import expert as moe_mod
+from bigdl_torch.parallel import hops as hops_mod
+from bigdl_torch.parallel import (GPipeSequential, partition_pipeline,
+                                  ring_attention, ulysses_attention)
+from bigdl_torch.parallel.schedule import (bubble_fraction, build_schedule,
+                                           stack_index)
 from bigdl_torch.tools import trace_report
 from bigdl_torch.utils import (chaos, crc32c, cuda_build, file_io, flops,
                                memstats, metrics_export, native, profiling,
@@ -3457,7 +3506,7 @@ def tree_leaves(tree):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in tree_leaves(t)]
-    return [np.asarray(tree)]
+    return [tree if isinstance(tree, torch.Tensor) else np.asarray(tree)]
 
 
 def resnet_run(samples, held, ckpt, resume=None, keep=None):
@@ -7183,7 +7232,11 @@ def ss_deploy(server, book, root):
 
 def ss_restart(server, book):
     """(b) replica 0 killed by its fault point: restarted by the monitor,
-    every admitted request answered."""
+    every admitted request answered.  The autoscaler stays on: when the
+    dead replica's batch outwaits its target it adds a replica, which may
+    answer before the monitor's restart (a forward rebuilt and warmed) is
+    counted, so the restart is waited for before it is checked, and the
+    pool for its shrink back to one."""
     server.scale_to(1)
     ss_until(lambda: server.stats()["replicas_live"] == 1, "one replica")
     before = server.stats()
@@ -7194,11 +7247,14 @@ def ss_restart(server, book):
             h.result(SS_WAIT_S)
         restart_ms = (time.perf_counter() - t0) * 1e3
     book.settle()
+    ss_until(lambda: server.stats()["restarts"] > before["restarts"],
+             "the monitor's restart")
     st = server.stats()
     check(st["restarts"] - before["restarts"] == 1 and server.healthy()
           and st["replica_monitor"]["lost"] == 1
           and st["restarts"] <= st["replica_monitor"]["budget"],
           f"serve_stack: restart {st['replica_monitor']}")
+    ss_until(lambda: server.stats()["replicas"] == 1, "the pool at one", 15)
     return {"restart_ms": restart_ms, "monitor": st["replica_monitor"]}
 
 
@@ -8760,6 +8816,424 @@ def phase_train_moe():
     return flash_rows(b6, b7, fwd, bwd, "train_moe", fwd_routes, bwd_routes)
 
 
+# -- 24. pipeline and sequence parallelism ----------------------------------
+
+PIPE_LM = dict(vocab_size=16000, max_len=256, d_model=512, num_heads=8,
+               num_layers=8)
+PS_BATCH = 16
+PS_STEPS = 5
+PS_MICRO = 4
+PS_LOSS_TOL = 2e-3         # the reference's LOSS_TOL
+#: |Δ - Δref| / |Δref| of each unit's weight change over the run (the
+#: embeddings, each block's attention and feed-forward, the head; 2-norms) against the unpartitioned
+#: (or dense) LM's: every gradient is rounded to bf16 on its way to the
+#: update (2^-8 apart at most where two runs round a value differently)
+#: and the microbatches' bf16 products differ from the whole batch's in
+#: their last bits; a lost or misrouted gradient moves a unit by ~1
+PS_DELTA_TOL = 2e-2
+PS_RUNS = (("gpipe", 1), ("1f1b", 1), ("1f1b", 2))
+PS_TIMEOUT = 600
+#: B6 (its log-sum-exp launches) and B7 launches a rank makes in one step
+#: of the pipelined LM (8 layers, 4 microbatches, 2 ranks): under gpipe
+#: every stage forward keeps its graph (one B6 with the log-sum-exp each)
+#: and is pulled back once (one B7 call, 2 launches); under 1f1b the
+#: forward runs without a graph and the backward's table runs each stage
+#: forward again with its graph before its backward
+PS_PIPE_STEP = {"gpipe": (16, 16, 32), "1f1b": (32, 16, 32)}
+#: B6 and B7 launches a rank makes in one step of the seq-parallel LM (8
+#: layers on 2 ranks, causal): rank 0 attends to its own block, rank 1 to
+#: the block below its diagonal too; every ring block is one B6 with the
+#: log-sum-exp and one B7 call
+PS_SEQ_STEP = {0: (8, 16), 1: (16, 32)}
+PS_FN_SHAPE = (16, 8, 512, 64)
+
+
+def ps_tokens():
+    """Fixed tokens for the dense and seq-parallel LMs' log-probs."""
+    return torch.from_numpy(np.random.default_rng(SEED + 26).integers(
+        0, LM["vocab_size"], (2, LM["max_len"]))).long().cuda()
+
+
+def ps_step_ms(steps):
+    """``train_lm``'s ``on_step`` hook and the host ms of each step."""
+    marks = []
+
+    def on_step(n):
+        marks.append(time.perf_counter())
+    return on_step, lambda: [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+
+
+def ps_train(model, samples, seq, trace=None):
+    """``train_lm`` over ``PS_STEPS`` steps from zeroed B6 / B7 counts:
+    (losses, a record of the run)."""
+    on_step, step_ms = ps_step_ms(PS_STEPS)
+    zero_flash()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with knobs({"BIGDL_TORCH_TRACE": trace} if trace else {}):
+        losses = train_lm(model, samples, PS_STEPS, PS_BATCH,
+                          on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fwd, bwd = flash_counts()
+    return losses, {
+        "losses": losses, "host_step_ms": step_ms(), "run_s": run_s,
+        "tokens_per_s": PS_BATCH * seq * PS_STEPS / run_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "b6": fwd, "b6_lse": attn_ops.flash_attention.lse_launches,
+        "b7": bwd, "routes": flash_routes()}
+
+
+def ps_functions(rank, n, out_dir):
+    """This rank's shards of ``ring_attention`` (causal and not) and
+    ``ulysses_attention`` (causal) at ``PS_FN_SHAPE`` bf16, their q, k, v
+    gradients against a fixed output gradient, saved for the parent."""
+    B, H, T, D = PS_FN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    q, k, v, do = (torch.randn((B, H, T, D), device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    rows = slice(rank * T // n, (rank + 1) * T // n)
+    out, launches = {}, {}
+    for name, fn, causal in (("ring", ring_attention, False),
+                             ("ring_causal", ring_attention, True),
+                             ("ulysses_causal", ulysses_attention, True)):
+        zero_flash()
+        shards = [t[:, :, rows].clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*shards, causal=causal)
+        o.backward(do[:, :, rows])
+        torch.cuda.synchronize()
+        launches[name] = flash_counts()
+        out[name] = [o.detach().cpu()] + [t.grad.cpu() for t in shards]
+    torch.save(out, os.path.join(out_dir, f"functions.rank{rank}.pt"))
+    return launches
+
+
+def pipe_seq_child(out_dir):
+    """One rank of ``pipe_seq`` (b): the pipelined runs on a ``pipe``
+    mesh, then the seq-parallel LM and functions on a ``seq`` mesh of the
+    same two processes."""
+    import torch.distributed as dist
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    Engine.init(device="cuda:0", backend="gloo", mesh_shape={"pipe": 2})
+    rank, world = dist.get_rank(), dist.get_world_size()
+    T, V = PIPE_LM["max_len"], PIPE_LM["vocab_size"]
+    L = PIPE_LM["num_layers"]
+    samples = lm_samples(PS_BATCH * PS_STEPS, T, V, SEED + 25)
+    ref = torch.load(os.path.join(out_dir, "pipe_delta.pt"))
+    runs = {}
+    for sched, v in PS_RUNS:
+        model = TransformerLM(**PIPE_LM).build(
+            "cuda", torch.Generator().manual_seed(SEED))
+        piped = partition_pipeline(model, 2 * v, num_microbatches=PS_MICRO,
+                                   schedule=sched, virtual_stages=v)
+        del model
+        trace = os.path.join(out_dir, f"trace-{sched}-{v}-{rank}")
+        init = ps_units(piped, L)
+        _, rec = ps_train(piped, samples, T, trace)
+        trained = ps_units(piped, L)
+        pipe = piped.layers[2]
+        rec.update(delta_errs=ps_delta_errs(init, trained, ref),
+                   rank_max_abs_diff=ps_rank_diff(trained),
+                   description=train.opt.run_description,
+                   peak_stash=pipe.last_peak_stash,
+                   bubble=[r.get("pipe_bubble_fraction")
+                           for r in train_rows(trace)])
+        runs[f"{sched}-{v}"] = rec
+        del piped, pipe, init, trained
+        train.opt = None
+        torch.cuda.empty_cache()
+    pipe_hops = dict(hops_mod.host_copies)
+    dist.barrier()
+    Engine.reset()
+    os.environ["BIGDL_TORCH_COORDINATOR"] = f"file://{out_dir}/store_seq"
+    Engine.init(device="cuda:0", backend="gloo", mesh_shape={"seq": 2})
+    model = TransformerLM(**LM, seq_parallel=True).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    init = ps_units(model, LM["num_layers"])
+    model.eval()
+    with torch.no_grad():
+        logp = model(ps_tokens()).float().cpu()
+    torch.save(logp, os.path.join(out_dir, f"seq_logp.rank{rank}.pt"))
+    model.train()
+    seq_samples = lm_samples(PS_BATCH * PS_STEPS, LM["max_len"],
+                             LM["vocab_size"], SEED + 28)
+    _, seq_rec = ps_train(model, seq_samples, LM["max_len"])
+    trained = ps_units(model, LM["num_layers"])
+    seq_rec.update(delta_errs=ps_delta_errs(init, trained, torch.load(
+        os.path.join(out_dir, "seq_delta.pt"))),
+        rank_max_abs_diff=ps_rank_diff(trained))
+    del model, init, trained
+    train.opt = None
+    torch.cuda.empty_cache()
+    fn_launches = ps_functions(rank, world, out_dir)
+    emit({"rank": rank, "world": world, "runs": runs, "seq": seq_rec,
+          "function_launches": fn_launches, "host_copies": {
+              "pipe": pipe_hops, "all": dict(hops_mod.host_copies)}})
+    dist.barrier()
+    Engine.reset()
+    return 0
+
+
+def ps_units(model, layers):
+    """The LM's weights as float32 vectors on the card, one a unit in the
+    unpartitioned LM's order: the embeddings, each block's two residual
+    branches (attention, feed-forward), the head.  A partitioned LM's
+    stack is unstacked: stage s is row ``stack_index`` of s, and its
+    g = layers / stages blocks are s·g ... s·g + g - 1."""
+    tree, _ = to_reference_tree(model, fetch=lambda t: t.detach().float())
+
+    def flat(t, k=None):
+        return torch.cat([(x if k is None else x[k]).reshape(-1)
+                          for x in tree_leaves(t)])
+    pipe = model.layers[2]
+    if isinstance(pipe, GPipeSequential):
+        S, v = pipe.num_stages, pipe.virtual_stages
+        stage = tree[2] if layers > S else [tree[2]]
+        blocks = [(b, stack_index(s, S // v, v)) for s in range(S)
+                  for b in stage]
+        head = tree[3:]
+    else:
+        blocks = [(b, None) for b in tree[2:2 + layers]]
+        head = tree[2 + layers:]
+    return ([flat(tree[:2])] + [flat(branch, k) for b, k in blocks
+                                for branch in b] + [flat(head)])
+
+
+def ps_delta(init, trained):
+    """Each unit's change over a run, on the host."""
+    return [(t - i).cpu() for i, t in zip(init, trained)]
+
+
+def ps_delta_errs(init, trained, ref):
+    """|Δ - Δref| / |Δref| of each unit (2-norms), Δ = trained - init."""
+    return [float((t - i - r.cuda()).norm() / r.cuda().norm())
+            for i, t, r in zip(init, trained, ref)]
+
+
+def ps_rank_diff(units):
+    """max |rank 0's weights - rank 1's| (0.0: bit-equal) over the two
+    ranks of the default group."""
+    import torch.distributed as dist
+    x = torch.cat(units)
+    if dist.get_rank():
+        x.neg_()
+    dist.all_reduce(x)
+    return float(x.abs().max())
+
+
+def ps_weights_check(rec, what):
+    """A two-rank run's trained weights: bit-equal on both ranks, and each
+    unit's change within ``PS_DELTA_TOL`` of the one-process run's."""
+    errs = rec["delta_errs"]
+    check(max(errs) <= PS_DELTA_TOL, f"{what}: the weights' change is "
+          f"not the one-process run's: |Δ - Δref| / |Δref| by unit {errs} "
+          f"beyond {PS_DELTA_TOL}")
+    check(rec["rank_max_abs_diff"] == 0.0, f"{what}: the ranks' trained "
+          f"weights differ by up to {rec['rank_max_abs_diff']}")
+
+
+def ps_close(got, want, tol, what):
+    atol, rtol = tol
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    check(ok, f"{what}: max abs err {float(err.max())} beyond "
+          f"atol {atol} rtol {rtol}")
+    return float(err.max())
+
+
+def ps_functions_check(tmp):
+    """The ranks' function shards assembled against one B6 / B7 call on
+    the whole tensors."""
+    B, H, T, D = PS_FN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    q, k, v, do = (torch.randn((B, H, T, D), device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    ranks = [torch.load(os.path.join(tmp, f"functions.rank{r}.pt"))
+             for r in range(2)]
+    errs = {}
+    for name, causal in (("ring", False), ("ring_causal", True),
+                         ("ulysses_causal", True)):
+        with torch.no_grad():
+            o, lse = attn_ops.flash_attention_with_lse(q, k, v,
+                                                       causal=causal)
+            grads = attn_ops.flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                                 causal=causal)
+        whole = [torch.cat([r[name][i] for r in ranks], 2).cuda()
+                 for i in range(4)]
+        errs[name] = [ps_close(whole[0], o, KERNEL_TOL[torch.bfloat16],
+                               f"pipe_seq {name} output")] + [
+            ps_close(g, w, B7_TOL[torch.bfloat16], f"pipe_seq {name} d{x}")
+            for g, w, x in zip(whole[1:], grads, "qkv")]
+    return errs
+
+
+def phase_pipe_seq():
+    """Pipeline and sequence parallelism (module docstring, 24); returns
+    the kernels line's rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return ps_run(tmp)
+
+
+def ps_run(tmp):
+    """``phase_pipe_seq`` with ``tmp`` for the ranks' meeting, the
+    one-process runs' weight changes and the ranks' results."""
+    t_phase = time.perf_counter()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    T, V, L = PIPE_LM["max_len"], PIPE_LM["vocab_size"], PIPE_LM["num_layers"]
+    H, D = PIPE_LM["num_heads"], PIPE_LM["d_model"] // PIPE_LM["num_heads"]
+    samples = lm_samples(PS_BATCH * PS_STEPS, T, V, SEED + 25)
+    # (a) one card: the partition's sequential path against the plain LM
+    plain = TransformerLM(**PIPE_LM).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    piped = partition_pipeline(plain, 2)
+    check([type(m).__name__ for m in piped.layers] ==
+          ["LookupTable", "PositionalEmbedding", "GPipeSequential",
+           "LayerNorm", "Linear", "LogSoftMax"]
+          and piped.layers[2].num_stages == 2,
+          f"pipe_seq: partition {[type(m).__name__ for m in piped.layers]}")
+    init = ps_units(plain, L)
+    plain_losses, plain_rec = ps_train(plain, samples, T)
+    piped_losses, piped_rec = ps_train(piped, samples, T)
+    check(piped_rec["b6"] == piped_rec["b6_lse"] == L * PS_STEPS
+          and piped_rec["b7"] == 2 * L * PS_STEPS
+          and only_route(attn_ops.flash_attention, "tc", piped_rec["b6"])
+          and only_route(attn_ops.flash_attention_bwd, "tc",
+                         piped_rec["b7"]),
+          f"pipe_seq (a): launches {piped_rec}")
+    check(piped_losses == plain_losses and len(plain_losses) == PS_STEPS
+          and all(map(math.isfinite, plain_losses)),
+          f"pipe_seq (a): sequential losses {piped_losses} are not the "
+          f"plain LM's {plain_losses}")
+    trained = ps_units(plain, L)
+    check(all(torch.equal(a, b) for a, b in zip(
+        trained, ps_units(piped, L))), "pipe_seq (a): the trained stack "
+        "is not the plain LM's trained blocks bit for bit")
+    torch.save(ps_delta(init, trained), os.path.join(tmp, "pipe_delta.pt"))
+    del plain, piped, init, trained
+    train.opt = None
+    torch.cuda.empty_cache()
+    # the dense LM at the transformer_lm width, for the seq-parallel LM
+    dense = TransformerLM(**LM).build("cuda",
+                                      torch.Generator().manual_seed(SEED))
+    init = ps_units(dense, LM["num_layers"])
+    dense.eval()
+    with torch.no_grad():
+        dense_logp = dense(ps_tokens()).float()
+    dense.train()
+    seq_samples = lm_samples(PS_BATCH * PS_STEPS, LM["max_len"],
+                             LM["vocab_size"], SEED + 28)
+    dense_losses, dense_rec = ps_train(dense, seq_samples, LM["max_len"])
+    torch.save(ps_delta(init, ps_units(dense, LM["num_layers"])),
+               os.path.join(tmp, "seq_delta.pt"))
+    del dense, init
+    train.opt = None
+    torch.cuda.empty_cache()
+    # (b) two gloo ranks on the one card
+    ranks, wall = spawn_ranks("--pipe-seq-child", tmp, PS_TIMEOUT)
+    seq_logp = [torch.load(os.path.join(tmp, f"seq_logp.rank{r}.pt"))
+                for r in range(2)]
+    fn_errs = ps_functions_check(tmp)
+    for key, run in ranks[0]["runs"].items():
+        sched, v = key.split("-")[0], int(key.split("-")[1])
+        other = ranks[1]["runs"][key]
+        check(run["losses"] == other["losses"],
+              f"pipe_seq {key}: the ranks' losses differ {run['losses']} "
+              f"{other['losses']}")
+        check(len(run["losses"]) == PS_STEPS and max(
+            abs(a - b) for a, b in zip(run["losses"], plain_losses))
+            <= PS_LOSS_TOL, f"pipe_seq {key}: losses {run['losses']} vs "
+            f"the one-card {plain_losses}")
+        for r, rr in enumerate((run, other)):
+            ps_weights_check(rr, f"pipe_seq {key} rank {r}")
+        bubble = round(bubble_fraction(2, PS_MICRO, sched, v), 4)
+        tbl = build_schedule(sched, 2, PS_MICRO, v)
+        b6, lse, b7 = PS_PIPE_STEP[sched]
+        for r, rr in enumerate((run, other)):
+            d = rr["description"]
+            check((d["pipe_stages"], d["pipe_schedule"],
+                   d["pipe_virtual_stages"], d["pipe_microbatches"],
+                   d["pipe_bubble_fraction"]) == (2, sched, v, PS_MICRO,
+                                                  bubble)
+                  and rr["bubble"] == [bubble] * PS_STEPS,
+                  f"pipe_seq {key} rank {r}: description {d}, train "
+                  f"track bubble {rr['bubble']} != {bubble}")
+            want = (tbl.peak_inflight if sched == "gpipe"
+                    else tbl.peak_inflight_per_device[r])
+            check(rr["peak_stash"] == want, f"pipe_seq {key} rank {r}: "
+                  f"stash peak {rr['peak_stash']} != {want}")
+            check((rr["b6"], rr["b6_lse"], rr["b7"]) == (
+                b6 * PS_STEPS, lse * PS_STEPS, b7 * PS_STEPS)
+                and rr["routes"]["flash_attention"]["f32"] == 0
+                and rr["routes"]["flash_attention_bwd"]["f32"] == 0,
+                f"pipe_seq {key} rank {r}: launches {rr}")
+        check(max(run["peak_stash"], other["peak_stash"]) ==
+              tbl.peak_inflight, f"pipe_seq {key}: stash peaks")
+    seq = [r["seq"] for r in ranks]
+    check(seq[0]["losses"] == seq[1]["losses"] and max(
+        abs(a - b) for a, b in zip(seq[0]["losses"], dense_losses))
+        <= PS_LOSS_TOL, f"pipe_seq seq: losses {seq[0]['losses']} "
+        f"{seq[1]['losses']} vs the dense {dense_losses}")
+    for r in range(2):
+        ps_weights_check(seq[r], f"pipe_seq seq rank {r}")
+        b6, b7 = PS_SEQ_STEP[r]
+        check((seq[r]["b6"], seq[r]["b6_lse"], seq[r]["b7"]) ==
+              (b6 * PS_STEPS, b6 * PS_STEPS, b7 * PS_STEPS),
+              f"pipe_seq seq rank {r}: launches {seq[r]}")
+    check(torch.equal(seq_logp[0], seq_logp[1]), "pipe_seq seq: the ranks' "
+          "log-probs differ")
+    logp_err = ps_close(seq_logp[0].cuda(), dense_logp,
+                        KERNEL_TOL[torch.bfloat16], "pipe_seq seq log-probs")
+    # the kernels at this phase's shapes
+    b6p = flash_case(PS_MICRO, H, T, T, D, torch.bfloat16, True,
+                     torch.Generator().manual_seed(SEED + 29), with_lse=True)
+    b7p = b7_case(PS_MICRO, H, T, T, D, torch.bfloat16, True,
+                  torch.Generator(device="cuda").manual_seed(SEED + 29))
+    Hs, Ts, Ds = LM["num_heads"], LM["max_len"] // 2, 64
+    b6r = flash_case(PS_BATCH, Hs, Ts, Ts, Ds, torch.bfloat16, False,
+                     torch.Generator().manual_seed(SEED + 30), with_lse=True)
+    b7r = b7_case(PS_BATCH, Hs, Ts, Ts, Ds, torch.bfloat16, False,
+                  torch.Generator(device="cuda").manual_seed(SEED + 30))
+    B, Hf, Tf, Df = PS_FN_SHAPE
+    b6u, b7u = flash_pair_cases(B, Hf // 2, Tf, Df, SEED + 31)
+    for c in (b6p, b7p, b6r, b7r):
+        check(c["ok"], f"pipe_seq kernel case {c}")
+    pipe_b6 = sum(r["runs"][k]["b6"] for r in ranks for k in r["runs"])
+    pipe_b7 = sum(r["runs"][k]["b7"] for r in ranks for k in r["runs"])
+    fl = [r["function_launches"]["ulysses_causal"] for r in ranks]
+    emit({"phase": "pipe_seq", "gpu": gpu_line(), "config": PIPE_LM,
+          "seq_config": LM, "batch": PS_BATCH, "steps": PS_STEPS,
+          "microbatches": PS_MICRO, "one_card": {
+              "plain": plain_rec, "partitioned": piped_rec},
+          "dense_lm": dense_rec, "ranks": ranks, "spawn_wall_s": wall,
+          "seq_logp_max_abs_err": logp_err, "function_errs": fn_errs,
+          "b6_pipe": b6p, "b7_pipe": b7p, "b6_ring": b6r, "b7_ring": b7r,
+          "b6_ulysses": b6u, "b7_ulysses": b7u,
+          "phase_s": time.perf_counter() - t_phase})
+    tc6 = {"tc": 0, "f32": 0}
+    return [
+        kernel_row(b6p, "flash_attention", *B6_SRC, pipe_b6,
+                   "pipe_seq pipeline (both ranks, 3 schedules)",
+                   {**tc6, "tc": pipe_b6}),
+        kernel_row(b7p, "flash_attention_bwd", *B7_SRC, pipe_b7,
+                   "pipe_seq pipeline (both ranks, 3 schedules)",
+                   {**tc6, "tc": pipe_b7}),
+        kernel_row(b6r, "flash_attention", *B6_SRC,
+                   seq[0]["b6"] + seq[1]["b6"],
+                   "pipe_seq ring (the seq-parallel LM, both ranks)",
+                   {**tc6, "tc": seq[0]["b6"] + seq[1]["b6"]}),
+        kernel_row(b7r, "flash_attention_bwd", *B7_SRC,
+                   seq[0]["b7"] + seq[1]["b7"],
+                   "pipe_seq ring (the seq-parallel LM, both ranks)",
+                   {**tc6, "tc": seq[0]["b7"] + seq[1]["b7"]}),
+        kernel_row(b6u, "flash_attention", *B6_SRC, fl[0][0] + fl[1][0],
+                   "pipe_seq ulysses_attention (both ranks)",
+                   {**tc6, "tc": fl[0][0] + fl[1][0]}),
+        kernel_row(b7u, "flash_attention_bwd", *B7_SRC, fl[0][1] + fl[1][1],
+                   "pipe_seq ulysses_attention (both ranks)",
+                   {**tc6, "tc": fl[0][1] + fl[1][1]})]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8772,6 +9246,12 @@ def main():
         return cudnn_probe_child(sys.argv[2])
     if sys.argv[1:2] == ["--elastic-child"]:
         return ef_child(sys.argv[2])
+    if sys.argv[1:2] == ["--pipe-seq-child"]:
+        return pipe_seq_child(sys.argv[2])
+    if sys.argv[1:3] == ["--only", "pipe_seq"]:
+        phase_build()
+        phase_pipe_seq()
+        return 0
     if sys.argv[1:3] == ["--only", "elastic_fleet"]:
         phase_build()
         phase_elastic_fleet()
@@ -8861,6 +9341,7 @@ def main():
     rows += phase_elastic_fleet()
     rows += phase_observe()
     rows += phase_train_moe()
+    rows += phase_pipe_seq()
     rows.append(decode_row)
     emit({"kernels": rows})
     print(gpu_line(), flush=True)

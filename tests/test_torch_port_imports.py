@@ -43,7 +43,9 @@ def test_import_loads_no_jax():
             "bigdl_torch.utils.telemetry", "bigdl_torch.utils.metrics_export",
             "bigdl_torch.serve.autoscale", "bigdl_torch.serve.tracefile",
             "bigdl_torch.serve.continuous", "bigdl_torch.tools.serve_http",
-            "bigdl_torch.tools.serving_bench"} <= set(names)
+            "bigdl_torch.tools.serving_bench", "bigdl_torch.parallel.schedule",
+            "bigdl_torch.parallel.pipeline", "bigdl_torch.parallel.hops",
+            "bigdl_torch.parallel.ring_attention"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {['bigdl_torch'] + names!r}:\n"
             "    importlib.import_module(n)\n"

@@ -129,9 +129,12 @@ def test_reference_tree_round_trip_bit_exact():
 
 
 def test_unported_options_raise():
-    """Sequence parallelism still raises; ``num_experts``, ported since,
-    builds the MoE blocks the reference builds."""
+    """``num_experts`` builds the MoE blocks the reference builds;
+    ``seq_parallel``, ported since, builds ring attention, whose forward
+    raises without a ``seq`` axis, as the reference's ``shard_map``."""
     moe = tlm.TransformerLM(97, num_experts=4)
     assert sum(type(m).__name__ == "MoEFFN" for m in moe.modules()) == 4
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        tlm.TransformerLM(97, seq_parallel=True)
+    sp = tlm.TransformerLM(97, seq_parallel=True, num_layers=1,
+                           d_model=16, num_heads=2, max_len=8).build("cpu")
+    with pytest.raises(ValueError, match="'seq' axis"):
+        sp(torch.zeros((1, 8), dtype=torch.long))

@@ -173,8 +173,11 @@ def test_multi_head_attention(policy, causal):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        tnn.MultiHeadAttention(32, 4, seq_parallel=True)
+    """``seq_parallel`` builds since the sequence-parallel slice; without
+    a ``seq`` axis its forward raises, as the reference's ``shard_map``."""
+    m = tnn.MultiHeadAttention(32, 4, seq_parallel=True).build("cpu")
+    with pytest.raises(ValueError, match="seq_parallel"):
+        m(torch.zeros((1, 4, 32)))
 
 
 def test_load_reference_tree_rejects_mismatch():

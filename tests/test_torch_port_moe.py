@@ -449,5 +449,10 @@ def test_perf_cli_runs_the_moe_lm():
 
 
 def test_seq_parallel_still_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlm.TransformerLM(97, seq_parallel=True)
+    """Ported since: the seq-parallel LM builds (with experts too) and
+    raises at its forward without a ``seq`` axis."""
+    m = tlm.TransformerLM(97, seq_parallel=True, num_experts=2,
+                          num_layers=1, d_model=16, num_heads=2,
+                          max_len=8).build("cpu")
+    with pytest.raises(ValueError, match="'seq' axis"):
+        m(torch.zeros((1, 8), dtype=torch.long))

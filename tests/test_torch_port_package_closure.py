@@ -26,15 +26,10 @@ NOT_YET_PORTED = {
     # the topology router places replicas on device subsets of a mesh
     "TopologyRouter": "item 8", "PlacementError": "item 8",
     "plan_subsets": "item 8",
-    # the mesh layouts, sequence parallelism and the pipeline
+    # the mesh layouts
     **{n: "item 8" for n in (
         "MeshLayout", "UnannotatedParameterError", "MeshReformError",
-        "assign_specs", "assign_shardings", "ring_attention",
-        "ulysses_attention", "pipeline_apply", "pipeline_apply_scheduled",
-        "stack_stage_params", "GPipeSequential", "partition_pipeline",
-        "PipelinePartitionError", "pipe_microbatches", "pipe_schedule",
-        "pipe_virtual_stages", "bubble_fraction", "ScheduleTable",
-        "build_schedule")},
+        "assign_specs", "assign_shardings")},
 }
 
 ALLOWED_ITEMS = {"item 5", "item 6", "item 8", "item 9"}

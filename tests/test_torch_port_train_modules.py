@@ -366,8 +366,10 @@ def test_unported_options_raise():
     # are not
     with pytest.raises(ValueError, match="sync_axis"):
         tnn.SpatialBatchNormalization(4, sync_axis="model")
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        tnn.MultiHeadAttention(8, 2, seq_parallel=True)
+    # ring attention builds; its forward needs a 'seq' axis
+    mha = tnn.MultiHeadAttention(8, 2, seq_parallel=True).build("cpu")
+    with pytest.raises(ValueError, match="'seq' axis"):
+        mha(torch.zeros((1, 4, 8)))
 
 
 def test_triggers_match_reference():
