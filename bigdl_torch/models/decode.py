@@ -20,10 +20,21 @@ Positions are an int32 [rows] tensor on the model's device, one per row:
 decode engine (``serve/decode.py``) each slot its own, through the same
 step.  The step never reads them back on the host.
 
-Not ported: ``mesh=`` (the tp-sharded cache) raises ``NotImplementedError``.
+``mesh=`` (the reference's ``:62-90``, ``:285-321``): on a layout mesh
+(``parallel/layout.py``; the Engine's) the parameters are placed through
+the role table (``parallel/sharding.py`` ``LayoutSharding``, where the
+model is not sharded yet) and each cache through the ``kv_cache`` role:
+its slots split over data x fsdp like batch rows, its heads over tp
+where the attention computes its own heads (a layer the split left whole
+keeps every head).  Every rank runs the same loop on the same prompt:
+it decodes its own rows, B8 appending and attending over its own slots
+and heads, and each step's [B, vocab] log-prob row is all-gathered over
+the rows' axes before it crosses to the host.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -35,7 +46,8 @@ from ..nn.module import Container
 from ..ops.decode_attention import decode_attention
 from .transformer_lm import PositionalEmbedding, sample_next
 
-__all__ = ["init_kv_cache", "cached_generate", "beam_generate"]
+__all__ = ["init_kv_cache", "cached_generate", "cached_generate_rows",
+           "beam_generate"]
 
 
 def _modules_of_type(module, cls):
@@ -58,15 +70,52 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def init_kv_cache(model, batch: int, max_len: int, dtype=None, device=None):
+def _layout_of(mesh):
+    from ..parallel.layout import MeshLayout
+    lay = MeshLayout.of_mesh(mesh)
+    if lay is None:
+        raise ValueError(
+            "init_kv_cache: mesh lacks the canonical layout axes (build it "
+            "with parallel/layout.MeshLayout.build_mesh)")
+    return lay
+
+
+def _rows_of(lay, batch: int, heads: int, max_len: int, head_dim: int):
+    """(first row, rows, row axes) of this rank's cache slots: the
+    ``kv_cache`` role's split of the slots over data x fsdp."""
+    from ..utils.engine import Engine
+    spec = lay.spec_for("kv_cache", (batch, heads, max_len, head_dim),
+                        min_size=0)
+    axes = spec[0] if isinstance(spec[0], tuple) else \
+        (() if spec[0] is None else (spec[0],))
+    sizes, coord = lay.shape(), Engine.mesh_coordinate()
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+    return idx * (batch // n), batch // n, axes
+
+
+def init_kv_cache(model, batch: int, max_len: int, dtype=None, mesh=None,
+                  device=None):
     """One ``{"k", "v"}`` pair of [batch, H, max_len, D] zeros per
     ``MultiHeadAttention``, in traversal order.  ``dtype`` defaults to
-    float32, as the reference's; ``device`` to the model's."""
+    float32, as the reference's; ``device`` to the model's.  ``mesh``: a
+    layout's mesh; each cache is then this rank's shard under the
+    ``kv_cache`` role (module docstring): [batch / (data·fsdp), H / tp,
+    max_len, D] where the slots divide and the attention computes its
+    own heads."""
     dtype = torch.float32 if dtype is None else dtype
     device = _device_of(model) if device is None else torch.device(device)
+    lay = None if mesh is None else _layout_of(mesh)
     caches = []
     for mha in _mha_modules(model):
-        shape = (batch, mha.num_heads, max_len, mha.head_dim)
+        heads, rows = mha.num_heads, batch
+        if lay is not None:
+            _, rows, _ = _rows_of(lay, batch, heads, max_len, mha.head_dim)
+            tp = mha.__dict__.get("_tp")
+            if tp is not None:
+                heads //= tp.n
+        shape = (rows, heads, max_len, mha.head_dim)
         caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)})
     return caches
@@ -80,12 +129,11 @@ def _cached_attention(mha, x, cache, pos):
         raise NotImplementedError(
             "cached decoding requires causal attention "
             "(MultiHeadAttention(causal=False) found)")
-    S, _, E = x.shape
-    H, D = mha.num_heads, mha.head_dim
-    q, k, v = (mha._proj(x, n).reshape(S, 1, H, D).transpose(1, 2)
-               for n in "qkv")
+    S = x.shape[0]
+    # [S, H', 1, D]: H' the heads this rank computes (all, or H / tp)
+    q, k, v = mha._qkv(x)
     o = decode_attention(q, k, v, cache["k"], cache["v"], pos)
-    return mha._proj(o.transpose(1, 2).reshape(S, 1, E), "o")
+    return mha._out(o.transpose(1, 2).reshape(S, 1, -1))
 
 
 def _step(module, x, caches, slot: int, pos):
@@ -151,10 +199,29 @@ def cached_generate(model, prompt, num_tokens: int, max_len: int,
     sampling through ``sample_next`` with ``generator`` (a CPU
     ``torch.Generator``).  The cache is in ``cache_dtype`` (default: the
     policy's compute dtype).  Only each step's [B, vocab] log-prob row
-    crosses to the host."""
-    if mesh is not None:
-        raise NotImplementedError("cached_generate(mesh=...): the "
-                                  "tp-sharded cache is not ported yet")
+    crosses to the host.  ``mesh``: the Engine's layout mesh (module
+    docstring); every rank calls this with the same arguments."""
+    return _generate(model, prompt, num_tokens, max_len, pad_token,
+                     temperature, top_k, generator, cache_dtype, mesh,
+                     keep_rows=False)[0]
+
+
+def cached_generate_rows(model, prompt, num_tokens: int, max_len: int,
+                         pad_token: int = 0, temperature: float = 0.0,
+                         top_k: int = 0, generator: torch.Generator = None,
+                         cache_dtype=None, mesh=None):
+    """:func:`cached_generate` that also returns the [B, vocab] log-prob
+    row of every generated token, float32 on the host: (tokens, rows)."""
+    return _generate(model, prompt, num_tokens, max_len, pad_token,
+                     temperature, top_k, generator, cache_dtype, mesh,
+                     keep_rows=True)
+
+
+def _generate(model, prompt, num_tokens, max_len, pad_token, temperature,
+              top_k, generator, cache_dtype, mesh, keep_rows):
+    """The decode loop: every row here, or on a layout mesh this rank's
+    rows [lo, lo + n) and heads, each step's log-prob row all-gathered
+    over the rows' axes before it crosses to the host."""
     prompt_arr = np.asarray(prompt, np.int32)
     toks = prompt_arr[None, :] if prompt_arr.ndim == 1 else prompt_arr
     B, t0 = toks.shape
@@ -164,23 +231,54 @@ def cached_generate(model, prompt, num_tokens: int, max_len: int,
                          " via generator=")
     dtype = cache_dtype or get_policy().compute_dtype
     device = _device_of(model)
+    lo, n, group, placed = 0, B, None, contextlib.nullcontext()
+    if mesh is not None:
+        from ..parallel.sharding import LayoutSharding
+        from ..utils.engine import Engine
+        lay = _layout_of(mesh)
+        if mesh is not Engine.mesh():
+            raise ValueError("cached_generate(mesh=): decode on the Engine's "
+                             "mesh (Engine.init(mesh_shape=...) or "
+                             "MeshLayout.install())")
+        placed = LayoutSharding(model).place(model).materialized()
+        mha = _mha_modules(model)
+        lo, n, axes = _rows_of(lay, B, mha[0].num_heads if mha else 1,
+                               max_len, mha[0].head_dim if mha else 1)
+        group = Engine.axis_group(axes)
     buf = np.full((B, max_len), pad_token, np.int32)
     buf[:, :t0] = toks
+    rows = []
     model.eval()
-    with torch.inference_mode():
-        caches = init_kv_cache(model, B, max_len, dtype, device)
-        prompt_dev = torch.from_numpy(np.ascontiguousarray(toks)).to(device)
+    with torch.inference_mode(), placed:
+        caches = init_kv_cache(model, B, max_len, dtype, mesh=mesh,
+                               device=device)
+        prompt_dev = torch.from_numpy(np.ascontiguousarray(
+            toks[lo:lo + n])).to(device)
         for pos in range(t0 + num_tokens - 1):
-            tok = (prompt_dev[:, pos] if pos < t0 else
-                   torch.from_numpy(buf[:, pos]).to(device))
+            tok = (prompt_dev[:, pos] if pos < t0 else torch.from_numpy(
+                np.ascontiguousarray(buf[lo:lo + n, pos])).to(device))
             logits = decode_step(model, caches, tok,
-                                 _positions(B, pos, device))
+                                 _positions(n, pos, device))
             if pos + 1 < t0:
                 continue  # prompt prefill: only the cache matters
-            buf[:, pos + 1] = sample_next(logits, temperature, top_k,
+            if n < B:
+                logits = _gather_rows(logits.float().contiguous(), B, group)
+            row = logits.float().cpu()
+            if keep_rows:
+                rows.append(row.numpy())
+            buf[:, pos + 1] = sample_next(row, temperature, top_k,
                                           generator)
     out = buf[:, : t0 + num_tokens]
-    return out[0] if prompt_arr.ndim == 1 else out
+    return (out[0] if prompt_arr.ndim == 1 else out), rows
+
+
+def _gather_rows(local, B: int, group):
+    """Every rank's rows of a [n, vocab] step, [B, vocab] in row order."""
+    from ..utils.engine import Engine
+    out = torch.empty((B // local.shape[0],) + tuple(local.shape),
+                      dtype=local.dtype, device=local.device)
+    Engine.all_gather(out.view(-1), local.view(-1), "decode", group=group)
+    return out.reshape(B, -1)
 
 
 def beam_generate(model, prompt, num_tokens: int, max_len: int,
@@ -219,7 +317,7 @@ def beam_generate(model, prompt, num_tokens: int, max_len: int,
         prompt_dev = torch.from_numpy(np.ascontiguousarray(toks)).to(device)
         # prefill B rows only (all beams are identical until the first
         # scored step), then repeat the caches beam_size-fold
-        caches = init_kv_cache(model, B, max_len, dtype, device)
+        caches = init_kv_cache(model, B, max_len, dtype, device=device)
         for pos in range(t0 - 1):
             decode_step(model, caches, prompt_dev[:, pos],
                         _positions(B, pos, device))

@@ -15,8 +15,13 @@ o, whose backward takes this rank's shard of the gradient.  The two
 operators are conjugate (Megatron's sequence-parallel pair), so every
 rank's gradients come out the same with no reduce.  Without a ``seq``
 axis the forward raises, as the reference's ``shard_map`` does.  The
-reference's ``BIGDL_TPU_RING_ATTN`` seam over a ``tp`` axis waits for the
-mesh layouts (ROADMAP.md queue A item 8).
+reference's ``BIGDL_TPU_RING_ATTN`` seam over a ``tp`` axis waits for
+ROADMAP.md queue A item 8.
+
+Under a layout whose tp axis splits the four kernels along their output
+features (``parallel/mesh_plan.py`` sets ``_tp``), each rank projects,
+attends to and projects out its own heads (:meth:`MultiHeadAttention.
+_qkv`, :meth:`MultiHeadAttention._out`).
 """
 
 from __future__ import annotations
@@ -74,18 +79,62 @@ class MultiHeadAttention(Module):
             y = y + getattr(self, "b" + name).to(c)
         return y
 
+    def tp_ok(self, n: int) -> bool:
+        """Whether a tensor-parallel split of the kernels' output features
+        over ``n`` ranks leaves whole heads on each (not under ring
+        attention)."""
+        return self.num_heads % n == 0 and not self.seq_parallel
+
+    def _qkv(self, x):
+        """q, k, v of x [B, T, E] as [B, H', T, D] views (the kernel reads
+        them strided).  H' is H, or H / tp under a tensor-parallel split
+        (``_tp``, parallel/mesh_plan.py): q, k and v come out head-major,
+        so this rank's slice of their output features is H / tp whole
+        heads, and the attention runs on them alone."""
+        B, T, _ = x.shape
+        D = self.head_dim
+        tp = self.__dict__.get("_tp")
+        if tp is None:
+            return [self._proj(x, n).reshape(B, T, self.num_heads, D)
+                    .transpose(1, 2) for n in "qkv"]
+        c = get_policy().compute_dtype
+        xe, x = tp.enter(x), x.to(c)
+        if self.with_bias:
+            bias = tp.slice(torch.stack([self.bq, self.bk, self.bv]), -1)
+        out = []
+        for i, n in enumerate("qkv"):
+            y = tp.matmul(xe, x, getattr(self, "w" + n).to(c)).to(c)
+            if self.with_bias:
+                y = y + bias[i].to(c)
+            out.append(y.reshape(B, T, -1, D).transpose(1, 2))
+        return out
+
+    def _out(self, o):
+        """The output projection of the heads' outputs o [B, T, E'] (E' =
+        H' · D): under a tensor-parallel split the heads are gathered over
+        tp first, then this rank's output features are projected and
+        gathered."""
+        tp = self.__dict__.get("_tp")
+        if tp is None:
+            return self._proj(o, "o")
+        c = get_policy().compute_dtype
+        o = tp.gather(o, -1)
+        y = tp.gather(tp.matmul(tp.enter(o), o.to(c), self.wo.to(c)).to(c),
+                      -1)
+        if self.with_bias:
+            y = y + self.bo.to(c)
+        return y
+
     def forward(self, x):
-        B, T, E = x.shape
-        H, D = self.num_heads, self.head_dim
-        # [B, T, H, D] -> [B, H, T, D] views: the kernel reads them strided
-        q, k, v = (self._proj(x, n).reshape(B, T, H, D).transpose(1, 2)
-                   for n in "qkv")
+        B, T, _ = x.shape
+        q, k, v = self._qkv(x)
         if self.seq_parallel:
             o = self._ring(q, k, v)
         else:
+            # [B, H', T, D]: under a tp split of 2 at the bench width
+            # [B, 4, 512, 64], this rank's heads only
             o = flash_attention(q, k, v, causal=self.causal)
-        o = o.transpose(1, 2).reshape(B, T, E)
-        return self._proj(o, "o")
+        return self._out(o.transpose(1, 2).reshape(B, T, -1))
 
     def _ring(self, q, k, v):
         from ..parallel.hops import axis_group

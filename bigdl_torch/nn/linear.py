@@ -102,7 +102,15 @@ class Linear(Module):
 
     def forward(self, x):
         c = get_policy().compute_dtype
-        y = matmul_f32(x.to(c), self.weight.to(c).t())
+        tp = self.__dict__.get("_tp")
+        if tp is not None:
+            # the weight is this rank's rows (output features) of the
+            # tensor-parallel split (parallel/mesh_plan.py): the partial
+            # input gradients add up over tp, the output features gather
+            y = tp.gather(tp.matmul(tp.enter(x), x.to(c),
+                                    self.weight.to(c).t()), -1)
+        else:
+            y = matmul_f32(x.to(c), self.weight.to(c).t())
         if self.with_bias:
             y = y + self.bias
         return y.to(c)

@@ -13,8 +13,9 @@ functions; PyTorch runs eagerly, so here a module owns its parameters as
 - A leaf's ``_init_state()`` returns its non-trained state (BatchNorm's
   running statistics) as a dict; :meth:`Module.build` registers it as
   buffers, so it moves with the module and is saved with it.
-- ``PARAM_ROLES`` is kept as a class attribute for the mesh-layout
-  assigner that comes with the sharding slice.
+- ``PARAM_ROLES`` maps each parameter name to its role for the
+  mesh-layout assigner (``parallel/layout.py``); :meth:`param_roles`
+  returns it.
 
 Train/eval mode is PyTorch's (``train()``/``eval()``); a freshly built
 module is in training mode, as in PyTorch.  ``evaluate()`` with no
@@ -197,6 +198,11 @@ class Module(torch.nn.Module):
         self.output = None
         self.grad_input = None
         self._facade_rng = None
+
+    def param_roles(self):
+        """name -> role of this module's own parameters (``PARAM_ROLES``;
+        ``"*"`` a wildcard), None where unannotated."""
+        return self.PARAM_ROLES
 
     def __call__(self, *args, **kwargs):
         """The forward; called on a graph node or a list of them, the

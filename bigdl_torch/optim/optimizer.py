@@ -178,8 +178,17 @@ track each iteration, ``validation`` and ``checkpoint`` spans at the
 boundaries, the ``elastic.*`` spans and instants of every re-form, and the
 ``evaluate`` and ``predict`` spans of bulk inference.
 
-Not ported yet: ``TensorParallel`` and ``LayoutSharding`` (ROADMAP queue A
-item 8).
+The mesh layouts (``parallel/sharding.py`` ``LayoutSharding`` and
+``TensorParallel``, the reference's ``_group_strategy`` placement): the
+strategy cuts the parameters to this rank's shards when ``optimize``
+starts (or a ``Predictor`` / ``Evaluator`` first forwards), so the
+method state, the regularizers, the update and ``opt_state_bytes`` are
+the shards'; a resumed whole method state is cut the same way.  A
+checkpoint gathers the whole parameters and method state on every rank
+(``strategy.whole``) before the writer writes the reference's files, so
+a snapshot of any layout loads into one process, into the reference, and
+into another layout; ``final_opt_state`` is whole.  ``set_remat`` and
+the wire's buckets raise under a mesh strategy (queue A item 8).
 """
 
 from __future__ import annotations
@@ -1398,6 +1407,16 @@ class Optimizer:
             self._write_checkpoint_impl(state, opt_state, rng, preempt)
 
     def _write_checkpoint_impl(self, state, opt_state, rng, preempt):
+        """Under a mesh strategy every rank gathers the whole parameters
+        and method state before the writer writes them."""
+        if self.strategy is None:
+            return self._write_checkpoint_whole(state, opt_state, rng,
+                                                preempt)
+        with self.strategy.whole(self.model):
+            return self._write_checkpoint_whole(state, opt_state, rng,
+                                                preempt)
+
+    def _write_checkpoint_whole(self, state, opt_state, rng, preempt):
         if self.strategy is not None:
             # under ZeRO every rank all-gathers the slices before rank 0
             # writes the whole tree
@@ -2030,7 +2049,18 @@ class Optimizer:
         strategy = self.strategy
         self._bucket_mb = wire_bucket_mb()
         if strategy is not None:
+            if getattr(strategy, "SHARDS_PARAMS", False) and \
+                    self.remat_policy is not None:
+                raise ConfigurationError(
+                    f"set_remat under {type(strategy).__name__}: the "
+                    "recompute of a segment over mesh shards waits for "
+                    "ROADMAP.md queue A item 8")
             strategy.setup(self.model, optim, self._bucket_mb)
+            if getattr(strategy, "SHARDS_PARAMS", False) and \
+                    self._resume_opt_state is not None:
+                # the parameters are shards now: so is the starting state
+                self._resume_opt_state = strategy.shard_state(
+                    self._resume_opt_state)
         self._fused_update = (config.get_bool("FUSED_UPDATE", False)
                               and optim.supports_fused)
         self._describe_run()
@@ -2298,6 +2328,8 @@ class _Forward:
         self.device = resolve_device(device)
         if not model.built:
             model.build(self.device)
+        if strategy is not None:
+            strategy.place(model)
         for p in model.parameters():
             if p.device != self.device:
                 raise ValueError(f"the model lives on {p.device}, the "

@@ -4,9 +4,13 @@ re-admission); mixture-of-experts (``expert``: capacity routing, the MoE
 FFN and its all-to-all over a mesh axis); pipeline parallelism
 (``pipeline``, ``schedule``: stage stacks under GPipe and 1F1B over a
 ``pipe`` axis); sequence parallelism (``ring_attention``: ring and
-Ulysses attention over a ``seq`` axis)."""
+Ulysses attention over a ``seq`` axis); the mesh layouts (``layout``:
+``MeshLayout`` and the role table; ``mesh_plan``: parameters held as
+mesh shards; ``LayoutSharding`` and ``TensorParallel``)."""
 
 from .elastic import ElasticNegotiationError, PeerLostError
+from .layout import (MeshLayout, MeshReformError, UnannotatedParameterError,
+                     assign_shardings, assign_specs)
 from .expert import (MoEFFN, expert_parallel_ffn, load_balancing_loss,
                      top_k_routing)
 from .pipeline import (GPipeSequential, PipelinePartitionError,
@@ -30,4 +34,5 @@ __all__ = ["ShardingStrategy", "DataParallel", "ShardedDataParallel",
            "stack_stage_params", "GPipeSequential", "partition_pipeline",
            "PipelinePartitionError", "pipe_microbatches", "pipe_schedule",
            "pipe_virtual_stages", "bubble_fraction", "ScheduleTable",
-           "build_schedule"]
+           "build_schedule", "MeshLayout", "UnannotatedParameterError",
+           "MeshReformError", "assign_specs", "assign_shardings"]

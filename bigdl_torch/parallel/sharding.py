@@ -73,6 +73,7 @@ Not ported yet (constructing one raises): ``TensorParallel`` and
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -84,7 +85,8 @@ from ..utils.engine import Engine
 from .wire import bucket_assignment
 
 __all__ = ["ShardingStrategy", "DataParallel", "ShardedDataParallel",
-           "TensorParallel", "LayoutSharding", "param_shaped"]
+           "TensorParallel", "LayoutSharding", "LayoutBucketsError",
+           "param_shaped"]
 
 
 def _shape(t) -> tuple:
@@ -123,8 +125,12 @@ def _map_spec(tree, spec, fn):
 
 
 def _broadcast(model: torch.nn.Module) -> None:
+    """The model's tensors of the group's rank 0 on every rank of it."""
+    group = Engine.group()
+    src = dist.get_global_rank(group, 0) if group is not None and \
+        group is not dist.group.WORLD else 0
     for t in list(model.parameters()) + list(model.buffers()):
-        dist.broadcast(t, 0, group=Engine.group())
+        dist.broadcast(t, src, group=group)
 
 
 class ShardingStrategy:
@@ -245,6 +251,17 @@ class ShardingStrategy:
         """This rank's share of a method state made whole (a collective
         every rank calls where the state is sliced)."""
         return state
+
+    def place(self, model):
+        """Put ``model``'s parameters where this strategy keeps them before
+        a forward outside the Optimizer (``Predictor``, ``Evaluator``);
+        the replicated strategies leave them as they are."""
+        return None
+
+    def whole(self, model):
+        """A block in which ``model``'s parameters are whole (every rank
+        enters it together where they are sharded)."""
+        return contextlib.nullcontext()
 
 
 class DataParallel(ShardingStrategy):
@@ -574,19 +591,308 @@ def _dtype_groups(slices: List[_Slice], tensors) -> List[List[_Slice]]:
     return list(groups.values())
 
 
-class _NotPorted(ShardingStrategy):
-    ITEM = ""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__} is not ported "
-                                  f"yet (ROADMAP queue A item {self.ITEM})")
 
 
-class TensorParallel(_NotPorted):
-    """Wide layers split over a 'model' axis."""
-    ITEM = "8"
+class LayoutBucketsError(NotImplementedError):
+    """``BIGDL_TORCH_WIRE_BUCKET_MB`` > 0 under a mesh strategy: the
+    gradient buckets are ``DataParallel``'s; under the mesh layouts they
+    wait for ROADMAP.md queue A item 8."""
 
 
-class LayoutSharding(_NotPorted):
-    """The MeshLayout (data, fsdp, tp, pipe, expert) strategy."""
-    ITEM = "8"
+class _MeshSharded(ShardingStrategy):
+    """Parameters held as mesh shards (``parallel/mesh_plan.py``): the
+    common half of :class:`LayoutSharding` and :class:`TensorParallel`.
+
+    - :meth:`setup` broadcasts the parameters and buffers from rank 0 of
+      the world and cuts each parameter to this rank's shard, in place:
+      the Optimizer's parameters and its method state are the shards
+      (a method state inherits the shards leaf by leaf).
+    - :meth:`reduce`: the backward has summed each gathered leaf's
+      gradient over the batch ranks of its gather group (the plan's
+      reduce-scatter); the rest of the batch axes are summed here, in one
+      all-reduce a set of remaining axes (the loss with the set of all
+      of them), and everything is divided by the batch ranks' count.
+    - :meth:`sq_norm` counts each element once: a leaf's local sum of
+      squares is summed over the ranks that hold its other shards (one
+      all-reduce a set of axes), never over its replicas.
+    - :meth:`full_state` / :meth:`shard_state` gather and cut a method
+      state's parameter-shaped lists; :meth:`whole` swaps whole parameters
+      in for a checkpoint (every rank calls them).
+    """
+
+    #: the parameters themselves are cut (the Optimizer cuts a resumed
+    #: method state before it copies its starting point)
+    SHARDS_PARAMS = True
+    #: the axis a capable layer computes its slice over
+    TP_AXIS = "tp"
+    BATCH_AXES = ("data", "fsdp")
+
+    def specs(self, model) -> List[tuple]:
+        """One spec a parameter, in ``model.parameters()`` order."""
+        raise NotImplementedError
+
+    def _key(self):
+        return (type(self).__name__, id(Engine.mesh()))
+
+    def place(self, model):
+        """Shard ``model`` under this strategy where it is not yet (its
+        plan is kept on it as ``_layout_plan``); returns the plan."""
+        from ..utils.convert import _stacked
+        from .mesh_plan import MeshPlan
+        plan = model.__dict__.get("_layout_plan")
+        if plan is not None:
+            if plan.key != self._key():
+                raise RuntimeError(
+                    f"the model is sharded under {plan.key[0]} on another "
+                    "mesh; build a new model for this one")
+            self.plan = plan
+            return plan
+        if any(_stacked(m) for m in model.modules()):
+            raise NotImplementedError(
+                f"{type(self).__name__} of a pipelined model (its stage "
+                "stack 1/n a pipe rank) waits for ROADMAP.md queue A item "
+                "8")
+        tensors = list(model.parameters()) + list(model.buffers())
+        with torch.no_grad():
+            for t in tensors:
+                dist.broadcast(t, 0)
+        plan = MeshPlan(model, self.specs(model), self.TP_AXIS,
+                        self.BATCH_AXES)
+        plan.key = self._key()
+        plan.shard()
+        model._layout_plan = plan
+        self.plan = plan
+        return plan
+
+    def setup(self, model, method=None, bucket_mb=0.0):
+        if bucket_mb > 0:
+            raise LayoutBucketsError(
+                f"BIGDL_TORCH_WIRE_BUCKET_MB={bucket_mb} under "
+                f"{type(self).__name__}: the gradient buckets are "
+                "DataParallel's; under the mesh layouts they wait for "
+                "ROADMAP.md queue A item 8")
+        if method is not None and not method.supports_fused:
+            raise NotImplementedError(
+                f"{type(method).__name__} under {type(self).__name__}: a "
+                "raveled method state over mesh shards waits for ROADMAP.md "
+                "queue A item 8")
+        self.place(model)
+
+    def whole(self, model):
+        plan = model.__dict__.get("_layout_plan")
+        return plan.whole() if plan is not None else super().whole(model)
+
+    @torch.no_grad()
+    def reduce(self, grads, loss):
+        plan = self.plan
+        batch = plan.batch_axes
+
+        def remaining(l):
+            if l.local_dim is None:
+                done = l.all_axes()
+            else:
+                done = {a for a in l.all_axes() if a != plan.tp_axis}
+            return tuple(a for a in batch if a not in done)
+        groups = _by_axes(plan.leaves, remaining)
+        groups.setdefault(batch, [])
+        out = list(grads)
+        loss_out = loss.detach().float().reshape(())
+        n = math.prod(plan.sizes[a] for a in batch)
+        for axes, idx in groups.items():
+            with_loss = axes == batch
+            flat = torch.cat([grads[i].reshape(-1).float() for i in idx]
+                             + ([loss_out.reshape(1)] if with_loss else []))
+            if axes:
+                Engine.all_reduce(flat, "grads",
+                                  group=Engine.axis_group(axes))
+            if n > 1:
+                flat /= n
+            if with_loss:
+                loss_out = flat[-1]
+                flat = flat[:-1]
+            for i, part in zip(idx, flat.split([grads[i].numel()
+                                                for i in idx])):
+                out[i] = part.view(grads[i].shape).to(grads[i].dtype)
+        return out, loss_out
+
+    def sq_norm(self, grads):
+        plan = self.plan
+        groups = _by_axes(plan.leaves, lambda l: tuple(
+            a for a in plan.names if a in l.all_axes()))
+        total = torch.zeros((), device=grads[0].device if grads else None)
+        for axes, idx in groups.items():
+            part = torch.stack([torch.sum(torch.square(grads[i].float()))
+                                for i in idx]).sum().reshape(1)
+            if axes:
+                Engine.all_reduce(part, "clip_norm",
+                                  group=Engine.axis_group(axes))
+            total = total + part[0]
+        return total
+
+    def _map_lists(self, state, fn, shapes):
+        if param_shaped(state, shapes):
+            return fn(list(state))
+        if isinstance(state, dict):
+            return {k: self._map_lists(v, fn, shapes)
+                    for k, v in state.items()}
+        if isinstance(state, (list, tuple)) and not isinstance(
+                state, torch.Tensor):
+            return [self._map_lists(v, fn, shapes) for v in state]
+        return state
+
+    def shard_state(self, state):
+        """A method state's whole parameter-shaped lists cut to this
+        rank's shards (lists already cut pass as they are)."""
+        plan = self.plan
+        whole = [l.whole for l in plan.leaves]
+
+        def cut(ts):
+            return [t if not isinstance(t, torch.Tensor) else
+                    plan.cut(l, t.to(l.param.device)).clone(
+                        memory_format=torch.contiguous_format)
+                    for l, t in zip(plan.leaves, ts)]
+        return self._map_lists(state, cut, whole)
+
+    def remap(self, params, tree, world=None, rank=None):
+        """A whole tree (parameters or a method state) cut for this rank
+        of the mesh at hand, through host memory."""
+        if world is not None or rank is not None:
+            raise ValueError(f"{type(self).__name__}.remap cuts for this "
+                             "rank of the Engine's mesh")
+        return self.shard_state(_to_host(tree))
+
+    def full_state(self, state):
+        """A method state's parameter-shaped lists gathered whole
+        (collective)."""
+        plan = self.plan
+        local = [tuple(l.param.shape) for l in plan.leaves]
+        return self._map_lists(
+            state, lambda ts: plan.gather_whole(ts, "opt_state"), local)
+
+
+def _by_axes(leaves, axes_of):
+    """{axes: indices of the leaves with those axes}, in leaf order."""
+    groups = {}
+    for i, l in enumerate(leaves):
+        groups.setdefault(axes_of(l), []).append(i)
+    return groups
+
+
+def _to_host(tree):
+    """``tree`` with every tensor and array a host tensor."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_host(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, np.ndarray):
+        return torch.as_tensor(tree)
+    return tree
+
+
+class LayoutSharding(_MeshSharded):
+    """The MeshLayout strategy (the reference's ``LayoutSharding``): every
+    parameter cut by its role's spec over the data / fsdp / tp axes of the
+    Engine's mesh (``parallel/layout.py`` ``assign_specs``), the batch
+    split over data x fsdp.  FSDP: a leaf split over fsdp is gathered at
+    each forward and its gradient reduce-scattered back.  TP: a Linear or
+    attention kernel split over tp along its output features is not
+    gathered; its layer computes its slice (``parallel/mesh_plan.py``).
+    On a plain data group (or a ``(W, 1, 1)`` layout) every leaf
+    replicates: ``DataParallel``'s arithmetic.  The layout is the mesh's;
+    ``layout`` only stands in on a mesh without the canonical axes.
+
+    Traps: the clipping norm counts each element once (:meth:`sq_norm`);
+    the fused update runs on the local shards, bit-equal to per-leaf;
+    the gradient buckets raise (:class:`LayoutBucketsError`); Dropout
+    draws the same masks on the ranks of one tp group (they share the
+    batch group's rank, which seeds the generator) and different ones
+    across batch shards."""
+
+    def __init__(self, model, layout=None, min_size: Optional[int] = None):
+        self.model = model
+        self.layout = layout
+        self.min_size = min_size
+        self.plan = None
+
+    def _layout(self):
+        from .layout import MeshLayout
+        lay = MeshLayout.of_mesh(Engine.mesh())
+        if lay is None:
+            lay = self.layout
+        if lay is None:
+            lay = MeshLayout(data=Engine.group_size())
+        return lay
+
+    def specs(self, model):
+        from .layout import assign_specs
+        specs = _flatten(assign_specs(model, None, self._layout(),
+                                      min_size=self.min_size),
+                         leaf=lambda x: isinstance(x, tuple))
+        by_id = {id(p): s for (_, p), s in zip(_leaf_paths(model), specs)}
+        return [by_id[id(p)] for p in model.parameters()]
+
+
+class TensorParallel(_MeshSharded):
+    """The reference's rule-driven tensor parallelism over a ``model`` axis
+    (``Engine.init(mesh_shape={"model": m, "data": d})``), the batch
+    split over ``data``.  ``rule(path, leaf) -> spec`` (a tuple of None
+    or axis names a dim, or None to replicate), ``path`` the leaf's keys
+    in the reference's tree and ``leaf`` the parameter; the default rule
+    splits the last axis of a 2-D+ weight of at least 2^16 elements that
+    the axis divides.  A split leaf is gathered at use, except where its
+    layer computes on the slice (a Linear split along dim 0, the
+    attention's kernels along their last dim)."""
+
+    TP_AXIS = "model"
+    BATCH_AXES = ("data",)
+
+    def __init__(self, rule=None):
+        self.rule = rule
+        self.plan = None
+
+    def specs(self, model):
+        mesh = Engine.mesh()
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        n = int(mesh.shape[names.index("model")]) if "model" in names else 1
+
+        def default_rule(path, leaf):
+            if leaf.ndim >= 2 and leaf.shape[-1] % n == 0 and \
+                    leaf.numel() >= 2 ** 16:
+                return (None,) * (leaf.ndim - 1) + ("model",)
+            return ()
+        rule = self.rule or default_rule
+        by_id = {}
+        for path, p in _leaf_paths(model):
+            s = rule(path, p)
+            by_id[id(p)] = tuple(s) if s is not None else ()
+        return [by_id[id(p)] for p in model.parameters()]
+
+
+def _leaf_paths(model):
+    """(path, parameter) of every leaf of ``model``'s reference-shaped
+    tree (``utils/convert.py``), in its order: the path holds list
+    indices and dict keys."""
+    from ..utils.convert import _param_tree
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            out.append((path, t))
+    walk(_param_tree(model, getattr), ())
+    return out
+
+
+def _flatten(tree, leaf=lambda x: False):
+    if not leaf(tree) and isinstance(tree, dict):
+        return [x for v in tree.values() for x in _flatten(v, leaf)]
+    if not leaf(tree) and isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _flatten(v, leaf)]
+    return [tree]

@@ -51,7 +51,9 @@ Counterpart of ``bigdl_tpu/serve/decode.py``:
 
 Not ported: the persistent compile cache and its compile cards (the CUDA
 graphs are the port's warm start).  ``mesh=`` raises
-``NotImplementedError``.
+``NotImplementedError``: an engine on a layout needs one rank to lead the
+others' admissions (queue A item 8); ``models/decode.py``
+``cached_generate(mesh=)`` decodes a batch on one.
 
 Knobs (``utils/config``; constructor arguments override):
 ``BIGDL_TORCH_DECODE_SLOTS`` (4), ``_PAGE`` (128), ``_MAX_LEN`` (0 = the
@@ -167,8 +169,11 @@ class DecodeEngine:
                  min_step_s: Optional[float] = None,
                  clock=None, device=None):
         if mesh is not None:
-            raise NotImplementedError("DecodeEngine(mesh=...): the "
-                                      "tp-sharded cache is not ported yet")
+            raise NotImplementedError(
+                "DecodeEngine(mesh=...): serving the tp-sharded cache needs "
+                "one rank to lead the others' admissions and ticks "
+                "(ROADMAP.md queue A item 8: serving on a layout); "
+                "cached_generate(mesh=) decodes a batch on a layout")
         self.device = resolve_device(device)
         if not model.built:
             model.build(self.device)
@@ -370,9 +375,10 @@ class DecodeEngine:
         if cache_len not in self._rungs:
             self._rungs[cache_len] = kv.init_kv_cache(
                 self.model, self.slots, cache_len, self.cache_dtype,
-                self.device)
+                device=self.device)
             self._scratch[cache_len] = kv.init_kv_cache(
-                self.model, 1, cache_len, self.cache_dtype, self.device)
+                self.model, 1, cache_len, self.cache_dtype,
+                device=self.device)
         return self._rungs[cache_len]
 
     def _ensure_cache(self, need: int, idle: bool) -> None:

@@ -45,8 +45,9 @@ Counterpart of ``bigdl_tpu/serve/server.py``:
   fault in a batch fails that batch's requests typed and the server
   serves on.
 
-``mesh=`` raises: a version pinned to a device subset needs the mesh
-layouts (ROADMAP queue A item 8).  ``stats()`` has no ``"aot"`` key: the
+``mesh=`` raises: a version served on a layout needs one rank to lead
+the others' batches, and one pinned to a device subset the topology
+router (ROADMAP queue A item 8).  ``stats()`` has no ``"aot"`` key: the
 compile cache is the reference's and is not ported (the decode engine's
 CUDA graphs are the port's warm start).
 
@@ -82,8 +83,9 @@ logger = logging.getLogger("bigdl_torch")
 
 __all__ = ["ModelVersion", "InferenceServer"]
 
-_MESH = ("mesh=: a version pinned to a device subset needs the mesh "
-         "layouts, which are not ported yet (ROADMAP queue A item 8)")
+_MESH = ("mesh=: a version served on a layout needs one rank to lead the "
+         "others' batches, and one pinned to a device subset the topology "
+         "router (ROADMAP queue A item 8: serving on a layout)")
 
 
 class ModelVersion:

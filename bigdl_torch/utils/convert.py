@@ -28,6 +28,11 @@ vector (``ravel_pytree``: containers in order, each leaf's dict in sorted
 key order), so ``s`` and ``y`` [m, n], ``prev_flat`` and ``prev_grad``
 [n] are the port's per-parameter rows concatenated in that order.
 
+A model sharded over a mesh (``parallel/mesh_plan.py``) takes a whole
+tree into its shards (each leaf cut for this rank) and gives a whole tree
+back (gathered: every rank calls :func:`to_reference_tree`); a method
+state's whole slots are cut alike.
+
 ``fetch`` (default: a copy to numpy) turns each tensor into the numpy leaf
 written; an asynchronous snapshot passes one that returns views of pinned
 copies the device is still filling (``optim/optimizer.py``).
@@ -104,15 +109,29 @@ def _has_state(module: Module) -> bool:
     return any(getattr(m, "state_names", ()) for m in module.modules())
 
 
+def whole_shape(t) -> tuple:
+    """The shape of the whole leaf ``t`` holds (a mesh shard's
+    ``_layout_whole``, ``parallel/mesh_plan.py``), else its own."""
+    s = getattr(t, "_layout_whole", None)
+    return tuple(s) if s is not None else tuple(getattr(t, "shape", ()))
+
+
+def _placed(dst, leaf: torch.Tensor) -> torch.Tensor:
+    """A whole leaf as ``dst`` holds it: this rank's shard where ``dst``
+    is a mesh shard."""
+    cut = getattr(dst, "_layout_cut", None)
+    return leaf if cut is None else cut(leaf)
+
+
 def _copy_into(kind):
     def visit(module, name, leaf, path):
         dst = getattr(module, name)
         leaf = np.asarray(leaf)
-        if tuple(leaf.shape) != tuple(dst.shape):
+        if tuple(leaf.shape) != whole_shape(dst):
             raise ValueError(f"{kind} {_where(path)}: shape "
-                             f"{leaf.shape} != {tuple(dst.shape)}")
+                             f"{leaf.shape} != {whole_shape(dst)}")
         with torch.no_grad():
-            dst.copy_(torch.tensor(leaf))
+            dst.copy_(_placed(dst, torch.tensor(leaf)))
     return visit
 
 
@@ -128,9 +147,9 @@ def check_reference_tree(model: Module, params, state=None) -> None:
     def check(kind):
         def visit(module, name, leaf, path):
             shape = tuple(np.shape(leaf))
-            if shape != tuple(getattr(module, name).shape):
+            if shape != whole_shape(getattr(module, name)):
                 raise ValueError(f"{kind} {_where(path)}: shape {shape} != "
-                                 f"{tuple(getattr(module, name).shape)}")
+                                 f"{whole_shape(getattr(module, name))}")
         return visit
     if state is not None:
         _walk(model, state, [], "state", lambda m: m.state_names,
@@ -172,9 +191,15 @@ def _dump(module: Module, fetch):
 
 
 def to_reference_tree(model: Module, fetch=None):
-    """The model's (params, state) as reference trees with numpy leaves."""
+    """The model's (params, state) as reference trees with numpy leaves.
+    A model sharded over a mesh (``parallel/mesh_plan.py``) gives its
+    whole tree: the shards are gathered, so every rank calls this."""
     if not model.built:
         raise RuntimeError("to_reference_tree: build the model first")
+    plan = model.__dict__.get("_layout_plan")
+    if plan is not None:
+        with plan.whole():
+            return _dump(model, fetch or _numpy)
     return _dump(model, fetch or _numpy)
 
 
@@ -356,12 +381,16 @@ def _load_slot(model, index, key, tmpl, tree):
     slots = [None] * len(tmpl)
 
     def visit(m, n, leaf, path):
-        i = index[id(getattr(m, n))]
+        p = getattr(m, n)
+        i = index[id(p)]
         leaf = np.asarray(leaf)
-        if tuple(leaf.shape) != tuple(tmpl[i].shape):
+        want = whole_shape(p) if tuple(tmpl[i].shape) == tuple(p.shape) \
+            else tuple(tmpl[i].shape)
+        if tuple(leaf.shape) != want:
             raise ValueError(f"opt_state[{key!r}] {_where(path)}: shape "
-                             f"{leaf.shape} != {tuple(tmpl[i].shape)}")
-        slots[i] = torch.tensor(leaf).to(tmpl[i].device, tmpl[i].dtype)
+                             f"{leaf.shape} != {want}")
+        slots[i] = _placed(p, torch.tensor(leaf)).to(
+            tmpl[i].device, tmpl[i].dtype, copy=True)
     _walk(model, tree, [key], "opt_state", lambda m: m.param_names, visit)
     if any(s is None for s in slots):
         raise ValueError(f"opt_state[{key!r}] left parameters unset")

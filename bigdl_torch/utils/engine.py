@@ -60,14 +60,33 @@ data axis is one wide: :meth:`group` is None (no data group: the
 Optimizer takes no ``DataParallel`` and averages no gradient), every
 rank feeds the whole batch (:meth:`data_shard_info` is (0, 1)), every
 rank seeds its Dropout generator alike, and the process of rank 0 of the
-mesh is the only writer.  Two axes wider than one (a data x pipe mesh,
-say) need the mesh layouts and raise (ROADMAP.md queue A item 8).
+mesh is the only writer.
+
+The mesh layouts (``parallel/layout.py``): ``mesh_shape`` over the
+canonical axes (``data``, ``fsdp``, ``tp``, and ``pipe`` / ``expert``),
+naming ``fsdp`` or ``tp`` (``MeshLayout.install()`` does the same), forms
+the multi-axis ``DeviceMesh`` of the layout, row-major in the canonical
+order; the reference's tensor-parallel ``{"model": m, "data": d}`` forms
+one in the order given.  :meth:`set_mesh` installs a mesh built by hand.
+On such a mesh :meth:`group` is the BATCH group: the ranks of ``data x
+fsdp`` (of ``data`` on the ``model`` mesh) that share this rank's other
+coordinates, so :meth:`data_shard_info`, the distributed ``DataSet``,
+sync-BN and the Dropout seed follow the batch shard, and the ranks of one
+tp group hold the same rows.  :meth:`axis_group` gives the process group
+of any set of the mesh's axes (every such group is formed when the mesh
+is installed: ``new_group`` is collective).  A ``pipe`` or ``expert``
+axis wider than one next to another wide axis, a ``seq`` axis next to
+any other, and axes of no mesh raise (ROADMAP.md queue A item 8).
+:meth:`reform` over a multi-axis mesh raises the reference's typed
+``MeshReformError`` where the new rank count cannot keep the non-data
+block intact, before the live group's :class:`GroupReformError`.
 """
 
 from __future__ import annotations
 
 import collections
 import datetime
+import itertools
 import logging
 import math
 import threading
@@ -83,6 +102,12 @@ __all__ = ["Engine", "GroupReformError"]
 #: the axes a 1-D mesh besides ``data`` may be named by (the pipeline's
 #: and the sequence-parallel attention's)
 MESH_AXES = ("pipe", "seq")
+#: the mesh layouts' canonical axes, in mesh order
+LAYOUT_AXES = ("data", "fsdp", "tp", "pipe", "expert")
+#: the reference's tensor-parallel mesh axes
+LEGACY_TP_AXES = ("model", "data")
+#: the axes a batch splits over on a multi-axis mesh
+BATCH_AXES = ("data", "fsdp")
 
 logger = logging.getLogger("bigdl_torch")
 
@@ -114,8 +139,10 @@ class Engine:
     _device: Optional[torch.device] = None
     #: True between init() and reset()
     _initialized = False
-    #: the 1-D DeviceMesh of mesh_shape={axis: n}, else None
+    #: the DeviceMesh of mesh_shape (1-D or a layout's), else None
     _mesh = None
+    #: axis set -> this rank's process group over it, on a multi-axis mesh
+    _axis_groups: dict = {}
     #: the topology a reform() installed: {"rank", "survivors"}
     _elastic: Optional[dict] = None
     _lock = threading.Lock()
@@ -159,7 +186,7 @@ class Engine:
         with cls._lock:
             if cls._initialized:
                 return cls.mesh()
-            axis = cls._mesh_axis(mesh_shape)
+            kind, axis = cls._mesh_kind(mesh_shape)
             if device is None:
                 if not torch.cuda.is_available():
                     raise RuntimeError("Engine.init: no CUDA device is "
@@ -184,57 +211,140 @@ class Engine:
             if not dist.is_initialized():
                 cls.init_distributed(backend)
             cls._device = device
-            if axis is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if kind == "group":
                 cls._group = dist.group.WORLD
-            else:
-                from torch.distributed.device_mesh import DeviceMesh
+            elif kind == "axis":
                 cls._mesh = DeviceMesh(device.type, list(range(world)),
                                        mesh_dim_names=(axis,))
+            elif kind == "layout":
+                cls._install(axis.build_mesh(range(world)))
+            else:
+                names = tuple(mesh_shape)
+                cls._install(DeviceMesh(
+                    device.type, torch.arange(world).reshape(
+                        [int(mesh_shape[a]) for a in names]),
+                    mesh_dim_names=names))
             cls._initialized = True
             cls.clear_counts()
             logger.info("Engine.init: rank %d of %d on %s over %s%s",
                         dist.get_rank(), world, device, backend,
-                        f", a {axis!r} mesh" if axis else "")
+                        "" if cls._mesh is None else ", a %s mesh" % dict(
+                            zip(cls._mesh.mesh_dim_names, cls._mesh.shape)))
             return cls.mesh()
 
     @classmethod
-    def _mesh_axis(cls, mesh_shape: Optional[dict]) -> Optional[str]:
-        """The named axis of ``mesh_shape`` that forms a 1-D mesh, None
-        for a data group; raises on what needs the mesh layouts."""
+    def _mesh_kind(cls, mesh_shape: Optional[dict]):
+        """What ``mesh_shape`` forms: ("group", None) the data group,
+        ("axis", name) a 1-D mesh of one named axis, ("layout",
+        MeshLayout) a layout's mesh, ("legacy", None) the reference's
+        tensor-parallel mesh; raises on what waits for the rest of the
+        mesh layouts."""
         if mesh_shape is None:
+            return "group", None
+        shape = {a: int(n) for a, n in mesh_shape.items()}
+        wide = [a for a, n in shape.items() if n > 1]
+        keys = set(shape)
+
+        def refuse(why):
+            raise NotImplementedError(
+                f"Engine.init: mesh_shape {mesh_shape}: {why} wait(s) for "
+                "the rest of the mesh layouts (ROADMAP.md queue A item 8)")
+        known = set(LAYOUT_AXES) | set(MESH_AXES) | set(LEGACY_TP_AXES)
+        if keys - known:
+            refuse(f"mesh axes {sorted(keys - known)}")
+        if "seq" in keys:
+            if keys - {"seq", cls.DATA_AXIS} or shape.get(cls.DATA_AXIS,
+                                                           1) > 1:
+                refuse("a seq axis beside another axis")
+            return "axis", "seq"
+        if "model" in keys:
+            if keys - set(LEGACY_TP_AXES):
+                refuse("a model axis beside the layout axes")
+            return "legacy", None
+        for a in ("pipe", "expert"):
+            if shape.get(a, 1) > 1 and len(wide) > 1:
+                refuse(f"a {a} axis beside another wide axis")
+        if keys <= {cls.DATA_AXIS}:
+            return "group", None
+        if keys <= {cls.DATA_AXIS, "pipe"} and not keys & {"fsdp", "tp"}:
+            return "axis", "pipe"
+        from ..parallel.layout import MeshLayout
+        return "layout", MeshLayout(**shape)
+
+    @classmethod
+    def _install(cls, mesh) -> None:
+        """Make ``mesh`` (several named axes) the Engine's: its batch
+        group and the process group of every set of its wide axes."""
+        names = tuple(mesh.mesh_dim_names)
+        sizes = [int(n) for n in mesh.shape]
+        ranks = mesh.mesh.reshape(sizes)
+        wide = [a for a, n in zip(names, sizes) if n > 1]
+        me = dist.get_rank()
+        groups = {}
+        for k in range(len(wide) + 1):
+            for axes in itertools.combinations(wide, k):
+                if len(axes) == len(wide) and \
+                        math.prod(sizes) == dist.get_world_size():
+                    groups[axes] = dist.group.WORLD
+                    continue
+                dims = [names.index(a) for a in axes]
+                rest = [d for d in range(len(names)) if d not in dims]
+                rows = ranks.permute(rest + dims).reshape(
+                    -1, math.prod(sizes[d] for d in dims))
+                for row in rows.tolist():
+                    g = dist.new_group(row)
+                    if me in row:
+                        groups[axes] = g
+        cls._mesh = mesh
+        cls._axis_groups = groups
+        batch = BATCH_AXES if "model" not in names else (cls.DATA_AXIS,)
+        cls._group = cls.axis_group(batch)
+
+    @classmethod
+    def set_mesh(cls, mesh) -> None:
+        """Install a multi-axis ``DeviceMesh`` over the whole group (a
+        layout's, ``MeshLayout.build_mesh``) as the Engine's mesh; the
+        group must be formed (:meth:`init`) and every rank calls this."""
+        if not cls._initialized:
+            raise RuntimeError("Engine.set_mesh: call Engine.init() first")
+        with cls._lock:
+            cls._install(mesh)
+            cls.clear_counts()
+
+    @classmethod
+    def axis_group(cls, axes):
+        """This rank's process group over the mesh axes ``axes`` (one name
+        or several; one-wide and absent axes count for nothing: an empty
+        set is this rank alone).  None where no multi-axis mesh is
+        installed."""
+        if cls._mesh is None or not cls._axis_groups:
             return None
-        wide = [a for a, n in mesh_shape.items() if int(n) > 1]
-        unknown = [a for a in mesh_shape
-                   if a != cls.DATA_AXIS and a not in MESH_AXES]
-        if unknown:
-            raise NotImplementedError(
-                f"Engine.init: mesh axes {unknown} wait for the mesh "
-                f"layouts (ROADMAP.md queue A item 8); the port forms one "
-                f"of {(cls.DATA_AXIS,) + MESH_AXES}")
-        if len(wide) > 1:
-            raise NotImplementedError(
-                f"Engine.init: mesh_shape {mesh_shape} has {len(wide)} "
-                "axes wider than one; meshes of several axes wait for the "
-                "mesh layouts (ROADMAP.md queue A item 8)")
-        named = [a for a in mesh_shape if a != cls.DATA_AXIS]
-        if not named:
-            return None
-        if len(named) > 1:
-            raise NotImplementedError(
-                f"Engine.init: mesh_shape {mesh_shape} names several axes; "
-                "meshes of several axes wait for the mesh layouts "
-                "(ROADMAP.md queue A item 8)")
-        return named[0]
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        names = tuple(cls._mesh.mesh_dim_names)
+        key = tuple(a for a in names if a in axes and
+                    int(cls._mesh.shape[names.index(a)]) > 1)
+        return cls._axis_groups[key]
+
+    @classmethod
+    def mesh_coordinate(cls) -> dict:
+        """{axis: this rank's index on it} of the Engine's mesh ({} without
+        one)."""
+        if cls._mesh is None:
+            return {}
+        return dict(zip(cls._mesh.mesh_dim_names,
+                        cls._mesh.get_coordinate()))
 
     @classmethod
     def group(cls):
-        """The data group, or None before :meth:`init` and on a mesh of
-        another axis (where the data axis is one wide)."""
+        """The data group (on a multi-axis mesh the batch group), or None
+        before :meth:`init` and on a 1-D mesh of another axis (where the
+        data axis is one wide)."""
         return cls._group
 
     @classmethod
     def mesh(cls):
-        """The 1-D ``DeviceMesh`` of ``mesh_shape={axis: n}``; else the
+        """The ``DeviceMesh`` of ``mesh_shape`` (or :meth:`set_mesh`); else the
         data group (the reference's mesh is the port's data group), None
         before :meth:`init`."""
         return cls._mesh if cls._mesh is not None else cls._group
@@ -252,6 +362,7 @@ class Engine:
                 dist.destroy_process_group()
             cls._group = None
             cls._mesh = None
+            cls._axis_groups = {}
             cls._initialized = False
             cls._device = None
             cls._elastic = None
@@ -288,21 +399,23 @@ class Engine:
 
     @classmethod
     def reduce_scatter(cls, out: torch.Tensor, inp: torch.Tensor,
-                       kind: str) -> torch.Tensor:
-        """``out`` (n elements) = the sum over the group of each rank's
-        ``inp`` chunk ``rank`` (``inp`` holds world x n elements, chunk r
-        at [r·n, (r+1)·n)); counted in :attr:`reduce_scatters`."""
-        _REDUCE_SCATTER(out, inp, op=dist.ReduceOp.SUM, group=cls._group)
+                       kind: str, group=None) -> torch.Tensor:
+        """``out`` (n elements) = the sum over ``group`` (default: the data
+        group) of each rank's ``inp`` chunk ``rank`` (``inp`` holds world x
+        n elements, chunk r at [r·n, (r+1)·n)); counted in
+        :attr:`reduce_scatters`."""
+        _REDUCE_SCATTER(out, inp, op=dist.ReduceOp.SUM,
+                        group=cls._group if group is None else group)
         cls.reduce_scatters[kind] += 1
         return out
 
     @classmethod
     def all_gather(cls, out: torch.Tensor, inp: torch.Tensor,
-                   kind: str) -> torch.Tensor:
+                   kind: str, group=None) -> torch.Tensor:
         """``out`` (world x n elements) = every rank's ``inp`` (n
-        elements), rank r's at [r·n, (r+1)·n); counted in
-        :attr:`all_gathers`."""
-        _ALL_GATHER(out, inp, group=cls._group)
+        elements) over ``group`` (default: the data group), rank r's at
+        [r·n, (r+1)·n); counted in :attr:`all_gathers`."""
+        _ALL_GATHER(out, inp, group=cls._group if group is None else group)
         cls.all_gathers[kind] += 1
         return out
 
@@ -395,7 +508,14 @@ class Engine:
         (default: unchanged).  ``devices`` may name this process's one
         device (the port runs one device per process); more raise.  A live
         group of several processes raises :class:`GroupReformError`.
-        Returns the group (the reference's mesh), None without one."""
+        Returns the group (the reference's mesh), None without one.  On
+        a multi-axis mesh the new rank count must keep the non-data block
+        (:meth:`_reform_data_axis`)."""
+        if cls._mesh is not None and len(cls._mesh.mesh_dim_names) > 1:
+            n = (len(set(survivors)) if survivors is not None
+                 else None if world is None else int(world))
+            if n is not None:
+                cls._reform_data_axis(n)
         if cls.group_size() > 1 or config.get_int("NUM_PROCESSES", 1) > 1:
             raise GroupReformError(
                 f"Engine.reform: the torch.distributed group of "
@@ -432,6 +552,32 @@ class Engine:
         logger.warning("Engine.reform: world -> %d (rank %d, survivors %s)",
                        len(survivors), rank, list(survivors))
         return cls._group
+
+    @classmethod
+    def _reform_data_axis(cls, n: int) -> dict:
+        """The mesh shape after re-forming the multi-axis mesh over ``n``
+        ranks by resizing its ``data`` axis, every other axis kept (the
+        reference's check, with its messages): raises
+        ``MeshReformError`` where there is no ``data`` axis or ``n`` is
+        not a multiple of the non-data block."""
+        from ..parallel.layout import MeshReformError
+        names = tuple(cls._mesh.mesh_dim_names)
+        shape = dict(zip(names, (int(s) for s in cls._mesh.shape)))
+        if cls.DATA_AXIS not in names:
+            raise MeshReformError(
+                f"cannot re-form mesh {shape} over {n} rank(s): no "
+                f"'{cls.DATA_AXIS}' axis to resize — rebuild the layout via "
+                "Engine.init")
+        rest = {a: s for a, s in shape.items() if a != cls.DATA_AXIS}
+        block = math.prod(rest.values())
+        if n < block or n % block:
+            raise MeshReformError(
+                f"cannot re-form mesh {shape} over {n} rank(s): the "
+                f"non-data block ({rest} = {block} ranks) must divide the "
+                "rank count to keep the fsdp/tp/pipe/expert shard groups "
+                f"intact; re-form to a multiple of {block} ranks or re-init "
+                "a different layout")
+        return {**shape, cls.DATA_AXIS: n // block}
 
     # -- topology accessors (BigDL: Engine.nodeNumber / Engine.coreNumber) --
 

@@ -11,8 +11,9 @@ Counterpart of ``bigdl_tpu/utils/memstats.py``:
   (found through the garbage collector), the stand-in on a CPU.
 - :func:`tree_device_bytes`, :func:`tree_total_bytes`: a tree's bytes on
   one device and in all.  A tree is a tensor, a module (its parameters and
-  buffers), or a list, tuple or dict of them.  One process holds whole
-  tensors, so both are the same number until the mesh layouts shard them.
+  buffers), or a list, tuple or dict of them.  Under the mesh layouts a
+  rank holds shards: the first counts this rank's shard bytes, the second
+  the whole leaves' (the reference's per device and in all).
 - :func:`memory_record`: the record's block, with the reference's keys.
 
 - :func:`pipeline_stage_bytes`: each pipeline's stacked stage bytes.
@@ -27,6 +28,7 @@ executable, which the port does not have.
 from __future__ import annotations
 
 import gc
+import math
 import warnings
 from typing import Optional
 
@@ -107,8 +109,15 @@ def tree_device_bytes(tree, device=None) -> int:
 
 
 def tree_total_bytes(tree) -> int:
-    """A tree's bytes wherever they live."""
-    return sum(_nbytes(t) for t in _leaves(tree))
+    """A tree's bytes wherever they live: a mesh shard counts its whole
+    leaf (``_layout_whole``, ``parallel/mesh_plan.py``), which the ranks
+    hold between them."""
+    total = 0
+    for t in _leaves(tree):
+        whole = getattr(t, "_layout_whole", None)
+        n = t.numel() if whole is None else math.prod(whole)
+        total += n * t.element_size()
+    return total
 
 
 def memory_record(params=None, opt_state=None, device=None) -> dict:

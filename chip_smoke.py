@@ -5,17 +5,20 @@
 
 (``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10,
 ``--zero-child DIR`` one of phase 10b, ``--elastic-child SPEC`` one
-process of phase 21's drill and ``--pipe-seq-child DIR`` one rank of
-phase 24, started by the script itself;
+process of phase 21's drill, ``--pipe-seq-child DIR`` one rank of
+phase 24 and ``--layouts-child DIR`` one of phase 25, started by the
+script itself;
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
 ``--only layers``, ``--only train_zoo``, ``--only zoo_data``, ``--only
 serve_stack``, ``--only elastic_fleet``, ``--only observe``, ``--only
-train_moe`` and ``--only pipe_seq`` the build and phase 16, 17, 18, 19,
-20, 21, 22, 23 or 24 alone,
-and none of them prints the final line.)
+train_moe``, ``--only pipe_seq`` and ``--only layouts`` the build and
+phase 16, 17, 18, 19, 20, 21, 22, 23, 24 or 25 alone,
+and none of them prints the final line.  Every phase is followed by a
+line with its wall seconds, ``{"phase": ..., "phase_s": ...}``, and the
+whole run by ``{"script_s": ...}``.)
 
 Phases, each printing one JSON line:
 
@@ -597,6 +600,35 @@ Phases, each printing one JSON line:
    causal held to their plain versions and timed beside SDPA and the
    bound.
 
+25. ``layouts``: the mesh layouts.  One process trains the bench LM
+   (16 x 512 bf16, SGD 0.01 with momentum, 5 steps; ``ps_train``) as the
+   reference run; then four gloo ranks share the card (one spawn,
+   ``--layouts-child``): the same LM from the same seed under
+   ``LayoutSharding`` on ``MeshLayout(1, 2, 2)``, then on a new group
+   ``(2, 2, 1)``.  Gates a rank and layout: (a) its parameter and
+   momentum elements exactly ``LY_LOCAL`` (the role table's); (b) the
+   gathered weights after the run bit-equal on the four ranks; (c) each
+   unit's change within ``PS_DELTA_TOL`` of the one-process run's; (d)
+   8 B6 (all with the log-sum-exp) and 16 B7 a step on ``"tc"`` at the
+   rank's rows and heads (``LY_STEP``); (e) the Engine's collectives a
+   step by kind, ``LY_COLLECTIVES``.  Under (1,2,2) after training:
+   ``Predictor`` under the strategy on ``LY_PREDICT_ROWS`` sequences (8
+   B6 without the log-sum-exp at [4, 4, 512, 64]) within
+   ``LY_PREDICT_TOL`` of the one-process ``Predictor`` on the gathered
+   weights; ``cached_generate(mesh=)`` of ``LY_PROMPT`` prompts in
+   float32 (B8 on ``"f32"`` at [4, 4, 1, 64] queries over a [4, 4, 64,
+   64] cache): tokens equal to one process's, log-prob rows within
+   ``LY_DECODE_TOL``; then in bf16, timed.  ``TensorParallel`` over
+   ``{"model": 2, "data": 2}``: tests/test_multihost_tp.py's MLP, 3
+   steps in float32 with Adam and again with SGD (whose weights see the
+   gradients' scale), losses and gathered weights within ``LY_TP_TOL``
+   of one process's.  Printed: host ms a step per layout and rank, peak
+   memory a rank beside the bytes the plan gathers whole (the largest
+   unit's and all units'),
+   tensors through host memory (``parallel/hops.py``), decode ms a step;
+   B6 / B7 at the new shapes and B8 at [4, 4, 64, 64] on both routes held
+   to their plain versions and timed beside SDPA and the bound.
+
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
 LM run, B8 per warm continuous decode run (and per batch run beside it), B3 and B4 per timed data-parallel run, B1, B2, B4 and B5 per
@@ -614,7 +646,9 @@ B6 per scoring window and per publishing trainer, B7 per publishing
 trainer and B8 per ``/v1/generate`` run of ``serve_stack``, B6 and B7
 per elastic drill (rank 0 and the joiner) of ``elastic_fleet`` with the
 shrunk world's case, B6 and B7 per traced LM run of ``observe`` and per
-MoE run of ``train_moe``, each with its case's times), the
+MoE run of ``train_moe``, B6 and B7 per pipelined, ring and Ulysses run
+of ``pipe_seq``, B6, B7 and B8 per layout run of ``layouts`` (the four
+ranks' launches together), each with its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -662,7 +696,8 @@ from bigdl_torch.optim import (SGD, Adadelta, Adagrad, Adam, Adamax,
                                Perplexity, Predictor, RMSprop, Top1Accuracy,
                                Top5Accuracy, Trigger)
 from bigdl_torch.optim.optimizer import HostCopy, to_host
-from bigdl_torch.parallel import (DataParallel, ShardedDataParallel,
+from bigdl_torch.parallel import (DataParallel, LayoutSharding, MeshLayout,
+                                  ShardedDataParallel, TensorParallel,
                                   bucket_count, measure_collective_seconds)
 from bigdl_torch.serve import (DecodeEngine, InferenceServer,
                                ReplicaLostError, fit_bucket, pad_tail)
@@ -2769,21 +2804,21 @@ def dp_child(out_dir):
     return 0
 
 
-def spawn_ranks(flag, tmp, timeout):
-    """Two ranks of this script (``flag`` ``tmp``) on the one card in a
+def spawn_ranks(flag, tmp, timeout, n=2):
+    """``n`` ranks of this script (``flag`` ``tmp``) on the one card in a
     gloo group meeting through ``tmp``; returns (their last JSON lines,
     wall seconds).  Every process is killed and reaped before it
     returns."""
     env = {**os.environ,
            "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
            "BIGDL_TORCH_COORDINATOR": f"file://{tmp}/store",
-           "BIGDL_TORCH_NUM_PROCESSES": "2"}
+           "BIGDL_TORCH_NUM_PROCESSES": str(n)}
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, tmp],
         env={**env, "BIGDL_TORCH_PROCESS_ID": str(i)},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for i in range(2)]
+        for i in range(n)]
     try:
         outs = [p.communicate(timeout=timeout) for p in procs]
     finally:
@@ -2795,8 +2830,8 @@ def spawn_ranks(flag, tmp, timeout):
         check(p.returncode == 0, f"rank failed ({p.returncode}):\n"
               f"{out[-2000:]}\n{err[-4000:]}")
     ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
-    check([r["rank"] for r in ranks] == [0, 1]
-          and all(r["world"] == 2 for r in ranks), f"ranks {ranks}")
+    check([r["rank"] for r in ranks] == list(range(n))
+          and all(r["world"] == n for r in ranks), f"ranks {ranks}")
     return ranks, wall
 
 
@@ -4644,7 +4679,7 @@ REC_BATCH = 256
 # timed steps after one warm-up step: the prefetch queue's head start (the
 # batches made during step 1) is spent within the first few, so the
 # second half of the window is reported apart as the steady state
-REC_STEPS = 11
+REC_STEPS = 3
 REC_IMAGES = REC_BATCH * (1 + REC_STEPS)   # one epoch: exactly the run
 REC_SHARDS = 8
 REC_THREADS = 8
@@ -5277,7 +5312,7 @@ PTB = dict(vocab_size=10000, embed_size=200, hidden_size=200, num_layers=2)
 PTB_BATCH = 64
 PTB_T = 35
 PTB_LR = 0.1
-PTB_STEPS = 20
+PTB_STEPS = 10
 PTB_WARMUP = 2          # steps left out of the median
 PTB_PROFILE_STEPS = 5
 PTB_CPU_STEPS = 3
@@ -6078,7 +6113,7 @@ def phase_layers():
 
 # -- 18. train_zoo ------------------------------------------------------------
 
-ZOO_STEPS = 20
+ZOO_STEPS = 10
 ZOO_WARMUP = 2           # steps left out of the median
 ZOO_BATCHES = 5          # distinct batches (an epoch) of each run's data
 ZOO_PROFILE_STEPS = 5
@@ -6383,7 +6418,7 @@ SEQ_STEPS = 3
 #: the perf CLI's runs, each its own process
 PERF_MODELS = ("inception_v1", "resnet50")
 PERF_BATCH = 64
-PERF_ITERS = 5
+PERF_ITERS = 3
 PERF_TIMEOUT = 300
 
 
@@ -6970,7 +7005,7 @@ SS_TENANT_QPS = 10_000.0
 SS_REPLAY_SPEED = 10.0
 SS_GEN_TOKENS = 32
 #: serving_bench's tokens a sequence (its default)
-SS_BENCH_TOKENS = 64
+SS_BENCH_TOKENS = 32
 SS_WAIT_S = 60.0
 SS_CLI_TIMEOUT = 300
 #: the phase's device (its CPU rehearsal sets "cpu")
@@ -7715,7 +7750,7 @@ EF_LR = 1e-3
 EF_LOST_AT = "1:3"             # rank 1 exits at the top of iteration 3
 EF_RETURN_AT = "2:2"           # the joiner's announcement gate
 EF_PEER_LOST = 4.0             # seconds of publication silence
-EF_AFTER_GROW = 6              # iterations trained after the grow
+EF_AFTER_GROW = 3              # iterations trained after the grow
 EF_MAX_ITERS = 60              # the cap of a run that never grows
 EF_KEEP = 6                    # snapshots the drill keeps beyond its plans
 EF_TIMEOUT = 600
@@ -7725,7 +7760,7 @@ EF_FLEET = 3
 EF_BEAT_S = 0.1
 EF_LOST_AFTER_S = 1.0
 EF_WEDGE_BEAT = 80             # member 1's first life wedges at beat 80
-EF_REQUESTS = 600
+EF_REQUESTS = 400
 EF_REQUEST_DT = 0.02
 EF_KILL_AT_S = 1.5
 EF_CANARY = 0.3
@@ -9007,7 +9042,7 @@ def ps_delta(init, trained):
 
 def ps_delta_errs(init, trained, ref):
     """|Δ - Δref| / |Δref| of each unit (2-norms), Δ = trained - init."""
-    return [float((t - i - r.cuda()).norm() / r.cuda().norm())
+    return [float((t - i - r.to(t.device)).norm() / r.to(t.device).norm())
             for i, t, r in zip(init, trained, ref)]
 
 
@@ -9234,6 +9269,497 @@ def ps_run(tmp):
                    {**tc6, "tc": fl[0][1] + fl[1][1]})]
 
 
+# ---------------------------------------------------------------------------
+# layouts: the bench LM trained, scored and decoded under the mesh layouts
+# ---------------------------------------------------------------------------
+
+LY_LAYOUTS = ((1, 2, 2), (2, 2, 1))
+LY_BATCH = 16
+LY_STEPS = 5
+LY_TIMEOUT = 600
+#: a rank's parameter elements by the role table at the default min_size
+#: (the reference's table over the LM's 134 leaves, 58,282,240 elements)
+LY_LOCAL = {(1, 2, 2): 14635264, (2, 2, 1): 29184256}
+#: (B6 launch shape, B6 launches with the log-sum-exp, B7 launches) a rank
+#: makes in one step: the rank's rows (16 over data x fsdp) and heads (8
+#: over tp), one B6 a layer and one B7 call (2 launches) a layer
+LY_STEP = {(1, 2, 2): ((8, 4, 512, 64), 8, 16),
+           (2, 2, 1): ((4, 8, 512, 64), 8, 16)}
+#: the Engine's collectives a rank calls in one step, by kind, written
+#: before the first run from the plan (parallel/mesh_plan.py): the
+#: parameters gathered at use, one all-gather a unit of the model (the
+#: token table, the position table, each of the 8 blocks and the head:
+#: 11; the final LayerNorm's leaves are replicated) and reduce-scattered
+#: back alike; under tp, 33 output gathers
+#: and 33 input-gradient all-reduces (2 an attention, 2 a feed-forward, 1
+#: the head) and one bias-slice gather an attention; the batch axes' sum
+#: of the rest: one all-reduce a set of axes still to sum over (the
+#: replicated leaves and the loss; under (2,2,1) also the fsdp leaves over
+#: data)
+LY_COLLECTIVES = {
+    (1, 2, 2): {"all_gather": {"params": 11, "tp_out": 33, "tp_bias": 8},
+                "all_reduce": {"tp_in": 33, "grads": 1},
+                "reduce_scatter": {"grads": 11}},
+    (2, 2, 1): {"all_gather": {"params": 11}, "all_reduce": {"grads": 2},
+                "reduce_scatter": {"grads": 11}}}
+LY_PREDICT_ROWS = 8
+LY_PREDICT_TOL = 0.0625         # one bf16 ulp at |log-prob| near 10
+LY_PREDICT_EVERY = 16           # positions kept for the comparison
+LY_PROMPT = 8
+LY_NEW = 5
+LY_CACHE = 64
+LY_DECODE_TOL = 1e-4
+LY_TP_STEPS = 3
+LY_TP_BATCH = 32
+LY_TP_TOL = 1e-5
+LY_TP_METHODS = {"adam": lambda: Adam(1e-2), "sgd": lambda: SGD(0.1)}
+
+
+def ly_data():
+    """The LM's samples, the scored sequences, the decode prompts and the
+    TensorParallel MLP's data (tests/test_multihost_tp.py's)."""
+    T, V = LM["max_len"], LM["vocab_size"]
+    samples = lm_samples(LY_BATCH * LY_STEPS, T, V, SEED)
+    rows = np.random.default_rng(SEED + 41).integers(
+        0, V, (LY_PREDICT_ROWS, T)).astype(np.int32)
+    prompts = np.random.default_rng(SEED + 42).integers(
+        0, V, (LY_PROMPT, LY_PROMPT)).astype(np.int32)
+    r = np.random.default_rng(7)
+    ys = r.integers(0, 4, size=LY_TP_BATCH * LY_TP_STEPS)
+    centers = r.normal(0, 2.0, size=(4, 16)).astype(np.float32)
+    xs = (centers[ys] + r.normal(0, 0.3, size=(len(ys), 16))).astype(
+        np.float32)
+    tp = [Sample.from_ndarray(x, np.int32(y)) for x, y in zip(xs, ys)]
+    return samples, rows, prompts, tp
+
+
+def ly_tp_model():
+    return nn.Sequential(nn.Linear(16, 32), nn.ReLU(), nn.Linear(32, 4),
+                         nn.LogSoftMax()).build(
+        "cuda", torch.Generator().manual_seed(SEED + 43))
+
+
+def ly_tp_rule(path, leaf):
+    """tests/test_multihost_tp.py's rule: the output-feature axis of 2-D
+    weights over 'model'."""
+    if leaf.ndim == 2 and leaf.shape[-1] % 2 == 0:
+        return (None, "model")
+    return ()
+
+
+def ly_tp_train(samples, strategy=None):
+    """The MLP's ``LY_TP_STEPS`` steps with each method of
+    ``LY_TP_METHODS``: one process, or this rank's under a fresh
+    ``strategy()``; {method: {"losses", "weights"}}, the weights gathered
+    whole (every rank calls it).  SGD's weights see the gradients' scale,
+    which Adam's update all but divides out."""
+    out = {}
+    for name, method in LY_TP_METHODS.items():
+        model = ly_tp_model()
+        losses = train(model, samples, LY_TP_STEPS,
+                       LY_TP_BATCH // Engine.group_size() if strategy else
+                       LY_TP_BATCH, distributed=strategy is not None,
+                       device=None if strategy else "cuda",
+                       criterion=nn.ClassNLLCriterion(), method=method(),
+                       strategy=strategy and strategy())
+        tree, _ = to_reference_tree(model)
+        out[name] = {"losses": losses,
+                     "weights": [np.asarray(a).ravel() for a in
+                                 ly_leaves(tree)]}
+        train.opt = None
+    return out
+
+
+def ly_leaves(tree):
+    """A reference tree's leaves, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in ly_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in ly_leaves(v)]
+    return [tree]
+
+
+@contextlib.contextmanager
+def ly_float32():
+    """Float32 compute, TF32 off, inside the block."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_policy(DTypePolicy(compute_dtype=torch.float32))
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = old
+        set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+
+
+@contextlib.contextmanager
+def launch_shapes(module, name, seen):
+    """``module.name`` (a kernel's wrapper as a caller imported it)
+    wrapped to add each call's first operand shape to ``seen``."""
+    fn = getattr(module, name)
+
+    def wrapped(q, *a, **kw):
+        seen.add(tuple(q.shape))
+        return fn(q, *a, **kw)
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def zero_b8():
+    dec_ops.decode_attention.launches = 0
+    zero_routes(dec_ops.decode_attention)
+
+
+def ly_rank_diff(units):
+    """max |this rank's weights - rank 0's| (0.0: bit-equal)."""
+    import torch.distributed as dist
+    x = torch.cat(units)
+    ref = x.clone()
+    dist.broadcast(ref, 0)
+    return float((x - ref).abs().max())
+
+
+def ly_train(sizes, samples, ref):
+    """One layout's run on this rank: the LM from the seed, ``LY_STEPS``
+    steps under ``LayoutSharding``; the record of the gates."""
+    from bigdl_torch.nn import attention as attn_mod
+    L = LM["num_layers"]
+    model = TransformerLM(**LM).build("cuda",
+                                      torch.Generator().manual_seed(SEED))
+    init = ps_units(model, L)
+    strat = LayoutSharding(model)
+    on_step, step_ms = ps_step_ms(LY_STEPS)
+    zero_flash()
+    Engine.clear_counts()
+    hops_mod.host_copies.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with launch_shapes(attn_mod, "flash_attention", set()) as shapes:
+        losses = train(model, samples, LY_STEPS,
+                       LY_BATCH // Engine.group_size(), distributed=True,
+                       criterion=nn.TimeDistributedCriterion(
+                           nn.ClassNLLCriterion(), size_average=True),
+                       method=SGD(LM_LR, momentum=0.9), on_step=on_step,
+                       strategy=strat)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fwd, bwd = flash_counts()
+    coll = Engine.collectives()
+    plan = model._layout_plan
+    state = train.opt._final_state
+    with strat.whole(model):
+        trained = ps_units(model, L)
+    rec = {"layout": list(sizes), "losses": losses,
+           "host_step_ms": step_ms(), "run_s": run_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "gathered_bytes_max_unit": max(plan.gathered_bytes()),
+           "gathered_bytes_all_units": sum(plan.gathered_bytes()),
+           "local_elements": plan.local_elements(),
+           "state_elements": sum(t.numel() for t in state["velocity"]),
+           "tp_modules": len(plan.tp_modules()),
+           "b6": fwd, "b6_lse": attn_ops.flash_attention.lse_launches,
+           "b7": bwd, "routes": flash_routes(),
+           "b6_shapes": sorted(shapes), "collectives": coll,
+           "host_copies": dict(hops_mod.host_copies),
+           "delta_errs": ps_delta_errs(init, trained, ref),
+           "rank_max_abs_diff": ly_rank_diff(trained)}
+    del init, trained
+    return model, strat, rec
+
+
+def ly_score_and_decode(model, strat, rows, prompts, out_dir, rank):
+    """(1,2,2) after training: Predictor under the strategy on
+    ``LY_PREDICT_ROWS`` sequences, then ``cached_generate(mesh=)`` in
+    float32 (compared) and in bf16 (timed); rank 0 saves what the parent
+    compares."""
+    from bigdl_torch.nn import attention as attn_mod
+    rec = {}
+    zero_flash()
+    with launch_shapes(attn_mod, "flash_attention", set()) as shapes:
+        logp = Predictor(model, batch_size=LY_PREDICT_ROWS,
+                         strategy=strat).predict(rows)
+    rec["predict"] = {"b6": attn_ops.flash_attention.launches,
+                      "b6_lse": attn_ops.flash_attention.lse_launches,
+                      "b6_shapes": sorted(shapes),
+                      "routes": flash_routes()}
+    tree, _ = to_reference_tree(model)
+    steps = LY_PROMPT + LY_NEW - 1
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        zero_b8()
+        ctx = ly_float32() if dtype == torch.float32 else \
+            contextlib.nullcontext()
+        with ctx, launch_shapes(dec_mod, "decode_attention", set()) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, lrows = dec_mod.cached_generate_rows(
+                model, prompts, LY_NEW, LY_CACHE, cache_dtype=dtype,
+                mesh=Engine.mesh())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        rec["decode_" + name] = {
+            "b8": dec_ops.decode_attention.launches,
+            "routes": dict(dec_ops.decode_attention.route_launches),
+            "b8_shapes": sorted(seen), "steps": steps,
+            "ms_per_step": 1e3 * dt / steps}
+        if rank == 0 and name == "f32":
+            torch.save({"tokens": toks, "rows": np.stack(lrows)},
+                       os.path.join(out_dir, "ly_decode.pt"))
+    if rank == 0:
+        torch.save({"tree": tree, "logp": logp[:, ::LY_PREDICT_EVERY]},
+                   os.path.join(out_dir, "ly_trained.pt"))
+    del tree, logp
+    return rec
+
+
+def layouts_child(out_dir):
+    """One of the four ranks of ``layouts``: (1,2,2) then (2,2,1), each a
+    group of its own, then the TensorParallel MLP on a model x data
+    mesh."""
+    import torch.distributed as dist
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    rank = int(os.environ["BIGDL_TORCH_PROCESS_ID"])
+    samples, rows, prompts, tp_samples = ly_data()
+    ref = torch.load(os.path.join(out_dir, "ly_delta.pt"))
+    one_tp = torch.load(os.path.join(out_dir, "ly_tp.pt"), weights_only=False)
+    runs = {}
+    for i, sizes in enumerate(LY_LAYOUTS):
+        os.environ["BIGDL_TORCH_COORDINATOR"] = f"file://{out_dir}/store{i}"
+        Engine.init(device="cuda:0", backend="gloo",
+                    mesh_shape=MeshLayout(*sizes).shape())
+        model, strat, rec = ly_train(sizes, samples, ref)
+        if sizes == (1, 2, 2):
+            rec.update(ly_score_and_decode(model, strat, rows, prompts,
+                                           out_dir, rank))
+        runs["x".join(map(str, sizes))] = rec
+        del model, strat
+        train.opt = None
+        torch.cuda.empty_cache()
+        dist.barrier()
+        Engine.reset()
+    os.environ["BIGDL_TORCH_COORDINATOR"] = f"file://{out_dir}/store_tp"
+    Engine.init(device="cuda:0", backend="gloo",
+                mesh_shape={"model": 2, "data": 2})
+    with ly_float32():
+        tp = ly_tp_train(tp_samples, lambda: TensorParallel(rule=ly_tp_rule))
+    emit({"rank": rank, "world": 4, "runs": runs,
+          "tp": {"runs": {k: {"losses": v["losses"], "weights_err": float(
+              max(np.abs(a - b).max() for a, b in zip(
+                  v["weights"], one_tp[k]["weights"])))}
+              for k, v in tp.items()},
+              "batch_group": Engine.group_size()}})
+    dist.barrier()
+    Engine.reset()
+    return 0
+
+
+def phase_layouts():
+    """The mesh layouts (module docstring, 25); returns the kernels line's
+    rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return ly_run(tmp)
+
+
+def ly_checks(ranks, one):
+    """Gates (a) to (e) of each layout on each rank, then scoring, decoding
+    and TensorParallel against the one-process runs ``one``."""
+    for sizes in LY_LAYOUTS:
+        key = "x".join(map(str, sizes))
+        shape, b6, b7 = LY_STEP[sizes]
+        want = {k: {n: c * LY_STEPS for n, c in v.items()}
+                for k, v in LY_COLLECTIVES[sizes].items()}
+        for r, rr in enumerate(ranks):
+            run, what = rr["runs"][key], f"layouts {key} rank {r}"
+            check(run["local_elements"] == run["state_elements"] ==
+                  LY_LOCAL[sizes], f"{what} (a): local parameter and state "
+                  f"elements {run['local_elements']} "
+                  f"{run['state_elements']} != {LY_LOCAL[sizes]}")
+            check((run["b6"], run["b6_lse"], run["b7"]) ==
+                  (b6 * LY_STEPS, b6 * LY_STEPS, b7 * LY_STEPS)
+                  and run["b6_shapes"] == [list(shape)]
+                  and only_route_counts(run["routes"]),
+                  f"{what} (d): launches {run['b6']} {run['b6_lse']} "
+                  f"{run['b7']} at {run['b6_shapes']}, routes "
+                  f"{run['routes']}")
+            check({k: v for k, v in run["collectives"].items() if v} == want,
+                  f"{what} (e): collectives {run['collectives']} != {want}")
+            check(run["rank_max_abs_diff"] == 0.0, f"{what} (b): the "
+                  f"gathered weights differ from rank 0's by up to "
+                  f"{run['rank_max_abs_diff']}")
+            check(max(run["delta_errs"]) <= PS_DELTA_TOL, f"{what} (c): "
+                  f"|Δ - Δref| / |Δref| by unit {run['delta_errs']} beyond "
+                  f"{PS_DELTA_TOL}")
+            check(len(run["losses"]) == LY_STEPS and all(
+                map(math.isfinite, run["losses"])), f"{what}: losses "
+                f"{run['losses']}")
+    for r, rr in enumerate(ranks):
+        run = rr["runs"]["1x2x2"]
+        p = run["predict"]
+        check((p["b6"], p["b6_lse"]) == (LM["num_layers"], 0)
+              and p["b6_shapes"] == [[LY_PREDICT_ROWS // 2,
+                                      LM["num_heads"] // 2, LM["max_len"],
+                                      64]],
+              f"layouts rank {r}: scoring launches {p}")
+        steps = LY_PROMPT + LY_NEW - 1
+        for name in ("f32", "bf16"):
+            d = run["decode_" + name]
+            check(d["b8"] == d["routes"][name] == steps * LM["num_layers"]
+                  and d["b8_shapes"] == [[LY_PROMPT // 2,
+                                          LM["num_heads"] // 2, 1, 64]],
+                  f"layouts rank {r}: decode {name} launches {d}")
+        check(rr["tp"]["batch_group"] == 2, f"layouts TensorParallel rank "
+              f"{r}: batch group {rr['tp']['batch_group']}")
+        for name, run in rr["tp"]["runs"].items():
+            want = one["tp"][name]["losses"]
+            check(len(run["losses"]) == LY_TP_STEPS and max(
+                abs(a - b) for a, b in zip(run["losses"], want))
+                <= LY_TP_TOL and run["weights_err"] <= LY_TP_TOL,
+                f"layouts TensorParallel {name} rank {r}: losses "
+                f"{run['losses']} vs one process's {want}, weights off by "
+                f"{run['weights_err']}")
+
+
+def only_route_counts(routes):
+    """Every B6 and B7 launch of a run on ``"tc"``."""
+    return (routes["flash_attention"].get("f32", 0) == 0
+            and routes["flash_attention_bwd"].get("f32", 0) == 0)
+
+
+def ly_run(tmp):
+    """``phase_layouts`` with ``tmp`` for the ranks' meeting, the
+    one-process run's weight changes and the ranks' results."""
+    t_phase = time.perf_counter()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    L, H = LM["num_layers"], LM["num_heads"]
+    samples, rows, prompts, tp_samples = ly_data()
+    # the one-process run on the card
+    plain = TransformerLM(**LM).build("cuda",
+                                      torch.Generator().manual_seed(SEED))
+    init = ps_units(plain, L)
+    plain_losses, plain_rec = ps_train(plain, samples, LM["max_len"])
+    torch.save(ps_delta(init, ps_units(plain, L)),
+               os.path.join(tmp, "ly_delta.pt"))
+    del plain, init
+    train.opt = None
+    torch.cuda.empty_cache()
+    with ly_float32():
+        one_tp = ly_tp_train(tp_samples)
+    torch.save(one_tp, os.path.join(tmp, "ly_tp.pt"))
+    # four gloo ranks on the one card
+    ranks, wall = spawn_ranks("--layouts-child", tmp, LY_TIMEOUT, n=4)
+    # the one-process Predictor and float32 decode on the gathered weights
+    saved = torch.load(os.path.join(tmp, "ly_trained.pt"),
+                       weights_only=False)
+    one = TransformerLM(**LM).build("cuda")
+    load_reference_tree(one, saved["tree"])
+    del saved["tree"]
+    logp = Predictor(one, batch_size=LY_PREDICT_ROWS,
+                     device="cuda").predict(rows)
+    predict_err = float(np.abs(logp[:, ::LY_PREDICT_EVERY]
+                               - saved["logp"]).max())
+    del logp
+    mesh_dec = torch.load(os.path.join(tmp, "ly_decode.pt"),
+                          weights_only=False)
+    with ly_float32():
+        toks, lrows = dec_mod.cached_generate_rows(
+            one, prompts, LY_NEW, LY_CACHE, cache_dtype=torch.float32)
+    decode_err = float(np.abs(np.stack(lrows) - mesh_dec["rows"]).max())
+    del one
+    torch.cuda.empty_cache()
+    emit({"phase": "layouts", "part": "ranks", "gpu": gpu_line(),
+          "config": LM, "batch": LY_BATCH, "steps": LY_STEPS,
+          "one_process": plain_rec, "ranks": ranks, "spawn_wall_s": wall,
+          "predict_max_abs_err": predict_err,
+          "decode_tokens_equal": bool(np.array_equal(toks,
+                                                     mesh_dec["tokens"])),
+          "decode_max_abs_err": decode_err, "tp_one_process": {
+              k: v["losses"] for k, v in one_tp.items()}})
+    ly_checks(ranks, {"tp": one_tp})
+    check(predict_err <= LY_PREDICT_TOL, f"layouts: Predictor under "
+          f"(1,2,2) off the one-process Predictor by {predict_err}")
+    check(np.array_equal(toks, mesh_dec["tokens"]) and
+          decode_err <= LY_DECODE_TOL, f"layouts: float32 decode on the "
+          f"mesh: tokens {mesh_dec['tokens'].tolist()} vs "
+          f"{toks.tolist()}, log-prob rows off by {decode_err}")
+    # the kernels at this phase's shapes
+    b6a, b7a = flash_pair_cases(8, H // 2, LM["max_len"], 64, SEED + 44)
+    b6b, b7b = flash_pair_cases(4, H, LM["max_len"], 64, SEED + 45)
+    b6p = flash_case(LY_PREDICT_ROWS // 2, H // 2, LM["max_len"],
+                     LM["max_len"], 64, torch.bfloat16, True,
+                     torch.Generator().manual_seed(SEED + 46))
+    gen = torch.Generator().manual_seed(SEED + 47)
+    b8f = decode_case(LY_PROMPT // 2, H // 2, LY_CACHE, 64, torch.float32,
+                      gen)
+    b8b = decode_case(LY_PROMPT // 2, H // 2, LY_CACHE, 64, torch.bfloat16,
+                      gen)
+    for c in (b6p, b8f, b8b):
+        check(c["ok"], f"layouts kernel case {c}")
+    emit({"phase": "layouts", "gpu": gpu_line(),
+          "host_step_ms": {k: [r["runs"][k]["host_step_ms"] for r in ranks]
+                           for k in ranks[0]["runs"]},
+          "max_memory_allocated": {
+              k: [r["runs"][k]["max_memory_allocated"] for r in ranks]
+              for k in ranks[0]["runs"]},
+          "gathered_bytes": {
+              k: {n: ranks[0]["runs"][k]["gathered_bytes_" + n]
+                  for n in ("max_unit", "all_units")}
+              for k in ranks[0]["runs"]},
+          "host_copies": [{k: r["runs"][k]["host_copies"]
+                           for k in r["runs"]} for r in ranks],
+          "decode_ms_per_step": {
+              n: [r["runs"]["1x2x2"]["decode_" + n]["ms_per_step"]
+                  for r in ranks] for n in ("f32", "bf16")},
+          "one_process_host_step_ms": plain_rec["host_step_ms"],
+          "b6_122": b6a, "b7_122": b7a, "b6_221": b6b, "b7_221": b7b,
+          "b6_scoring": b6p, "b8_f32": b8f, "b8_bf16": b8b,
+          "phase_s": time.perf_counter() - t_phase})
+    tc = {"tc": 0, "f32": 0}
+
+    def total(key, field, sub=None):
+        return sum((r["runs"][key][sub] if sub else r["runs"][key])[field]
+                   for r in ranks)
+    dec = {n: total("1x2x2", "b8", "decode_" + n) for n in ("f32", "bf16")}
+    return [
+        kernel_row(b6a, "flash_attention", *B6_SRC, total("1x2x2", "b6"),
+                   "layouts (1,2,2) LM steps (4 ranks)",
+                   {**tc, "tc": total("1x2x2", "b6")}),
+        kernel_row(b7a, "flash_attention_bwd", *B7_SRC,
+                   total("1x2x2", "b7"), "layouts (1,2,2) LM steps (4 ranks)",
+                   {**tc, "tc": total("1x2x2", "b7")}),
+        kernel_row(b6b, "flash_attention", *B6_SRC, total("2x2x1", "b6"),
+                   "layouts (2,2,1) LM steps (4 ranks)",
+                   {**tc, "tc": total("2x2x1", "b6")}),
+        kernel_row(b7b, "flash_attention_bwd", *B7_SRC,
+                   total("2x2x1", "b7"), "layouts (2,2,1) LM steps (4 ranks)",
+                   {**tc, "tc": total("2x2x1", "b7")}),
+        kernel_row(b6p, "flash_attention", *B6_SRC,
+                   total("1x2x2", "b6", "predict"),
+                   "layouts (1,2,2) Predictor (4 ranks)",
+                   {**tc, "tc": total("1x2x2", "b6", "predict")}),
+        {**kernel_row(b8f, "decode_attention", *B8_SRC, dec["f32"],
+                      "layouts (1,2,2) cached_generate float32 (4 ranks)",
+                      {"f32": dec["f32"], "bf16": 0}),
+         "floor_ms": b8f["floor_ms"], "splits": b8f["splits"]},
+        {**kernel_row(b8b, "decode_attention", *B8_SRC, dec["bf16"],
+                      "layouts (1,2,2) cached_generate bf16 (4 ranks)",
+                      {"f32": 0, "bf16": dec["bf16"]}),
+         "floor_ms": b8b["floor_ms"], "splits": b8b["splits"]}]
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, then a line with the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": name, "phase_s": time.perf_counter() - t0})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9248,65 +9774,72 @@ def main():
         return ef_child(sys.argv[2])
     if sys.argv[1:2] == ["--pipe-seq-child"]:
         return pipe_seq_child(sys.argv[2])
+    if sys.argv[1:2] == ["--layouts-child"]:
+        return layouts_child(sys.argv[2])
+    if sys.argv[1:3] == ["--only", "layouts"]:
+        timed("build", phase_build)
+        timed("layouts", phase_layouts)
+        return 0
     if sys.argv[1:3] == ["--only", "pipe_seq"]:
-        phase_build()
-        phase_pipe_seq()
+        timed("build", phase_build)
+        timed("pipe_seq", phase_pipe_seq)
         return 0
     if sys.argv[1:3] == ["--only", "elastic_fleet"]:
-        phase_build()
-        phase_elastic_fleet()
+        timed("build", phase_build)
+        timed("elastic_fleet", phase_elastic_fleet)
         return 0
     if sys.argv[1:3] == ["--only", "observe"]:
-        phase_build()
-        phase_observe()
+        timed("build", phase_build)
+        timed("observe", phase_observe)
         return 0
     if sys.argv[1:3] == ["--only", "train_moe"]:
-        phase_build()
-        phase_train_moe()
+        timed("build", phase_build)
+        timed("train_moe", phase_train_moe)
         return 0
     if sys.argv[1:3] == ["--only", "train_validate"]:
-        phase_build()
-        phase_train_validate(None)
+        timed("build", phase_build)
+        timed("train_validate", phase_train_validate, None)
         return 0
     if sys.argv[1:3] == ["--only", "train_longrun"]:
-        phase_build()
-        phase_train_longrun()
+        timed("build", phase_build)
+        timed("train_longrun", phase_train_longrun)
         return 0
     if sys.argv[1:3] == ["--only", "train_records"]:
-        phase_build()
-        phase_train_records()
+        timed("build", phase_build)
+        timed("train_records", phase_train_records)
         return 0
     if sys.argv[1:3] == ["--only", "train_ptb"]:
-        phase_build()
-        phase_train_ptb()
+        timed("build", phase_build)
+        timed("train_ptb", phase_train_ptb)
         return 0
     if sys.argv[1:3] == ["--only", "layers"]:
-        phase_build()
-        phase_layers()
+        timed("build", phase_build)
+        timed("layers", phase_layers)
         return 0
     if sys.argv[1:3] == ["--only", "train_zoo"]:
-        phase_build()
-        phase_train_zoo()
+        timed("build", phase_build)
+        timed("train_zoo", phase_train_zoo)
         return 0
     if sys.argv[1:3] == ["--only", "zoo_data"]:
-        phase_build()
-        phase_zoo_data()
+        timed("build", phase_build)
+        timed("zoo_data", phase_zoo_data)
         return 0
     if sys.argv[1:3] == ["--only", "serve_stack"]:
-        phase_build()
-        phase_serve_stack()
+        timed("build", phase_build)
+        timed("serve_stack", phase_serve_stack)
         return 0
     if sys.argv[1:3] == ["--only", "data_parallel"]:
-        phase_build()
-        phase_dp_train(None)
-        phase_dp_two_process()
-        phase_zero_full_width()
+        timed("build", phase_build)
+        timed("dp_train", phase_dp_train, None)
+        timed("dp_two_process", phase_dp_two_process)
+        timed("zero_full_width", phase_zero_full_width)
         return 0
-    phase_build()
-    rep = phase_kernels()
-    model, launches, routes = phase_serve()
-    phase_generate(model)
-    decode_row = phase_decode(model)
+    t_script = time.perf_counter()
+    timed("build", phase_build)
+    rep = timed("kernels", phase_kernels)
+    model, launches, routes = timed("serve", phase_serve)
+    timed("generate", phase_generate, model)
+    decode_row = timed("decode", phase_decode, model)
     del model
     torch.cuda.empty_cache()
     rows = [{
@@ -9319,30 +9852,32 @@ def main():
         "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
         "ms_over_library": rep["ms_over_library"],
         "kernel_route": rep["route"], "route_launches": routes}]
-    train_rows, first_loss, step_ms = phase_train()
+    train_rows, first_loss, step_ms = timed("train", phase_train)
     rows += train_rows
-    rows += phase_dp_train(first_loss)
-    phase_dp_two_process()
-    phase_zero_full_width()
-    lm_rows = phase_train_lm()
+    rows += timed("dp_train", phase_dp_train, first_loss)
+    timed("dp_two_process", phase_dp_two_process)
+    timed("zero_full_width", phase_zero_full_width)
+    lm_rows = timed("train_lm", phase_train_lm)
     rows += lm_rows
-    phase_train_validate(step_ms)
-    rows += phase_train_longrun(lm_rows)
-    rows += phase_train_records(train_rows)
-    phase_train_ptb()
-    phase_layers()
-    rows += phase_train_zoo()
-    rows += phase_zoo_data({
+    timed("train_validate", phase_train_validate, step_ms)
+    rows += timed("train_longrun", phase_train_longrun, lm_rows)
+    rows += timed("train_records", phase_train_records, train_rows)
+    timed("train_ptb", phase_train_ptb)
+    timed("layers", phase_layers)
+    rows += timed("train_zoo", phase_train_zoo)
+    rows += timed("zoo_data", phase_zoo_data, {
         "inception_v1": phase_train_zoo.rates["inception_v1"],
         "resnet50": {"phase": "train", "images_per_s":
                      TRAIN_BATCH / (step_ms / 1e3),
                      "config": "fused, bf16, batch 256"}})
-    rows += phase_serve_stack()
-    rows += phase_elastic_fleet()
-    rows += phase_observe()
-    rows += phase_train_moe()
-    rows += phase_pipe_seq()
+    rows += timed("serve_stack", phase_serve_stack)
+    rows += timed("elastic_fleet", phase_elastic_fleet)
+    rows += timed("observe", phase_observe)
+    rows += timed("train_moe", phase_train_moe)
+    rows += timed("pipe_seq", phase_pipe_seq)
+    rows += timed("layouts", phase_layouts)
     rows.append(decode_row)
+    emit({"script_s": time.perf_counter() - t_script})
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

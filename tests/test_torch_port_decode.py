@@ -313,7 +313,7 @@ def test_cached_generate_validation(pair):
         tdec.cached_generate(tm, [1], 2, CFG["max_len"] + 4)
     with pytest.raises(ValueError, match="generator"):
         tdec.cached_generate(tm, [1], 2, 8, temperature=0.5)
-    with pytest.raises(NotImplementedError, match="tp-sharded"):
+    with pytest.raises(ValueError, match="canonical layout axes"):
         tdec.cached_generate(tm, [1], 2, 8, mesh=object())
     with pytest.raises(ValueError, match="pad_token"):
         tdec.beam_generate(tm, [1], 2, 8, eos_token=0, pad_token=0)

@@ -416,9 +416,14 @@ def test_engine_contract(monkeypatch):
 
 
 def test_unported_and_misused_strategies(monkeypatch):
-    for cls, item in ((TensorParallel, "8"), (LayoutSharding, "8")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            cls()
+    """The mesh strategies construct (their rule, model and layout kept;
+    ``LayoutSharding`` needs the model its roles live on); the rest
+    refuses as before."""
+    assert TensorParallel().rule is None
+    lin = tnn.Linear(4, 3)
+    assert LayoutSharding(lin).model is lin
+    with pytest.raises(TypeError):
+        LayoutSharding()
     assert ShardedDataParallel().min_size == 2 ** 14
     samples = [Sample.from_ndarray(np.zeros((4,), np.float32), np.int32(0))]
     with pytest.raises(RuntimeError, match="Engine.init"):

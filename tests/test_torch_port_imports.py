@@ -45,7 +45,9 @@ def test_import_loads_no_jax():
             "bigdl_torch.serve.continuous", "bigdl_torch.tools.serve_http",
             "bigdl_torch.tools.serving_bench", "bigdl_torch.parallel.schedule",
             "bigdl_torch.parallel.pipeline", "bigdl_torch.parallel.hops",
-            "bigdl_torch.parallel.ring_attention"} <= set(names)
+            "bigdl_torch.parallel.ring_attention",
+            "bigdl_torch.parallel.layout",
+            "bigdl_torch.parallel.mesh_plan"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {['bigdl_torch'] + names!r}:\n"
             "    importlib.import_module(n)\n"

@@ -26,10 +26,6 @@ NOT_YET_PORTED = {
     # the topology router places replicas on device subsets of a mesh
     "TopologyRouter": "item 8", "PlacementError": "item 8",
     "plan_subsets": "item 8",
-    # the mesh layouts
-    **{n: "item 8" for n in (
-        "MeshLayout", "UnannotatedParameterError", "MeshReformError",
-        "assign_specs", "assign_shardings")},
 }
 
 ALLOWED_ITEMS = {"item 5", "item 6", "item 8", "item 9"}

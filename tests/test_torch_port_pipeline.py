@@ -525,8 +525,20 @@ def test_two_rank_trace_and_clamp_warning(two_ranks):
     ({"data": 2, "pipe": 2}, "item 8"), ({"pipe": 2, "seq": 2}, "item 8"),
     ({"tp": 1}, "item 8"), ({"pipe": 1, "seq": 1}, "item 8")])
 def test_engine_refuses_what_needs_the_layouts(shape, match):
-    from bigdl_torch.utils.engine import Engine
+    """A pipe axis beside another wide axis, and a seq axis beside any
+    other, still wait for the rest of the layouts; a mesh of the layouts'
+    axes alone (``{"tp": 1}``) forms the layout's mesh."""
+    from bigdl_torch.utils.engine import LAYOUT_AXES, Engine
     Engine.reset()
+    if set(shape) <= set(LAYOUT_AXES) and "pipe" not in shape:
+        try:
+            mesh = Engine.init(device="cpu", mesh_shape=shape)
+            assert mesh is Engine.mesh() and \
+                mesh.mesh_dim_names == ("data", "fsdp", "tp")
+            assert Engine.group_size() == 1
+        finally:
+            Engine.reset()
+        return
     with pytest.raises(NotImplementedError, match=match):
         Engine.init(device="cpu", mesh_shape=shape)
     assert Engine.mesh() is None

@@ -465,9 +465,13 @@ def test_non_finite_loss_without_checkpoint_raises():
 def test_stall_recovered_by_supervisor(tmp_path, uninterrupted):
     """A step deadline with a chaos stall at iteration 5: the StallError
     is recovered from snapshot 4, a crash report is written, and the run
-    ends bit-equal to an uninterrupted one."""
+    ends bit-equal to an uninterrupted one.  The deadline (3 s) is far
+    above a normal step of this small ResNet on a loaded host (tens of
+    ms alone; a whole suite's workers beside it once pushed one past
+    0.5 s, a second report), and the planted 30 s stall crosses it by
+    27 s."""
     m_losses, final, _ = _resnet_run(str(tmp_path), "step.stall=stall*30@5",
-                                     supervise=0.5)
+                                     supervise=3.0)
     want_losses, want_final, _ = uninterrupted
     assert [m_losses[k] for k in range(1, 8)] == \
         [want_losses[k] for k in range(1, 8)]
