@@ -21,7 +21,9 @@ decode engine (``serve/decode.py``) each slot its own, through the same
 step.  The step never reads them back on the host.
 
 ``mesh=`` (the reference's ``:62-90``, ``:285-321``): on a layout mesh
-(``parallel/layout.py``; the Engine's) the parameters are placed through
+(``parallel/layout.py``: the Engine's, or any mesh ``MeshLayout.
+build_mesh`` registered, such as a router member's subset, which the
+loop pins with ``Engine.pinned``) the parameters are placed through
 the role table (``parallel/sharding.py`` ``LayoutSharding``, where the
 model is not sharded yet) and each cache through the ``kv_cache`` role:
 its slots split over data x fsdp like batch rows, its heads over tp
@@ -80,15 +82,17 @@ def _layout_of(mesh):
     return lay
 
 
-def _rows_of(lay, batch: int, heads: int, max_len: int, head_dim: int):
+def _rows_of(lay, batch: int, heads: int, max_len: int, head_dim: int,
+             mesh):
     """(first row, rows, row axes) of this rank's cache slots: the
-    ``kv_cache`` role's split of the slots over data x fsdp."""
-    from ..utils.engine import Engine
+    ``kv_cache`` role's split of the slots over data x fsdp, at this
+    rank's coordinate on ``mesh``."""
     spec = lay.spec_for("kv_cache", (batch, heads, max_len, head_dim),
                         min_size=0)
     axes = spec[0] if isinstance(spec[0], tuple) else \
         (() if spec[0] is None else (spec[0],))
-    sizes, coord = lay.shape(), Engine.mesh_coordinate()
+    sizes = lay.shape()
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     idx, n = 0, 1
     for a in axes:
         idx, n = idx * sizes[a] + coord[a], n * sizes[a]
@@ -111,7 +115,8 @@ def init_kv_cache(model, batch: int, max_len: int, dtype=None, mesh=None,
     for mha in _mha_modules(model):
         heads, rows = mha.num_heads, batch
         if lay is not None:
-            _, rows, _ = _rows_of(lay, batch, heads, max_len, mha.head_dim)
+            _, rows, _ = _rows_of(lay, batch, heads, max_len, mha.head_dim,
+                                  mesh)
             tp = mha.__dict__.get("_tp")
             if tp is not None:
                 heads //= tp.n
@@ -199,8 +204,8 @@ def cached_generate(model, prompt, num_tokens: int, max_len: int,
     sampling through ``sample_next`` with ``generator`` (a CPU
     ``torch.Generator``).  The cache is in ``cache_dtype`` (default: the
     policy's compute dtype).  Only each step's [B, vocab] log-prob row
-    crosses to the host.  ``mesh``: the Engine's layout mesh (module
-    docstring); every rank calls this with the same arguments."""
+    crosses to the host.  ``mesh``: a layout mesh (module docstring);
+    every rank of it calls this with the same arguments."""
     return _generate(model, prompt, num_tokens, max_len, pad_token,
                      temperature, top_k, generator, cache_dtype, mesh,
                      keep_rows=False)[0]
@@ -231,25 +236,25 @@ def _generate(model, prompt, num_tokens, max_len, pad_token, temperature,
                          " via generator=")
     dtype = cache_dtype or get_policy().compute_dtype
     device = _device_of(model)
-    lo, n, group, placed = 0, B, None, contextlib.nullcontext()
+    lo, n, group = 0, B, None
+    pin = placed = contextlib.nullcontext()
     if mesh is not None:
         from ..parallel.sharding import LayoutSharding
         from ..utils.engine import Engine
         lay = _layout_of(mesh)
-        if mesh is not Engine.mesh():
-            raise ValueError("cached_generate(mesh=): decode on the Engine's "
-                             "mesh (Engine.init(mesh_shape=...) or "
-                             "MeshLayout.install())")
-        placed = LayoutSharding(model).place(model).materialized()
-        mha = _mha_modules(model)
-        lo, n, axes = _rows_of(lay, B, mha[0].num_heads if mha else 1,
-                               max_len, mha[0].head_dim if mha else 1)
-        group = Engine.axis_group(axes)
+        with Engine.pinned(mesh):
+            placed = LayoutSharding(model).place(model).materialized()
+            mha = _mha_modules(model)
+            lo, n, axes = _rows_of(lay, B, mha[0].num_heads if mha else 1,
+                                   max_len, mha[0].head_dim if mha else 1,
+                                   mesh)
+            group = Engine.axis_group(axes)
+        pin = Engine.pinned(mesh)
     buf = np.full((B, max_len), pad_token, np.int32)
     buf[:, :t0] = toks
     rows = []
     model.eval()
-    with torch.inference_mode(), placed:
+    with torch.inference_mode(), pin, placed:
         caches = init_kv_cache(model, B, max_len, dtype, mesh=mesh,
                                device=device)
         prompt_dev = torch.from_numpy(np.ascontiguousarray(

@@ -193,6 +193,7 @@ the wire's buckets raise under a mesh strategy (queue A item 8).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import logging
@@ -2321,15 +2322,25 @@ class _Forward:
     its last row and each rank forwards its own block of rows; with
     ``gather`` the blocks are all-gathered back into order on every rank,
     else each rank keeps its own (:meth:`rows` says which) and the scores
-    are summed over the group (:func:`_reduce_results`)."""
+    are summed over the group (:func:`_reduce_results`).
+
+    ``mesh`` pins the forward to a registered mesh (the reference's
+    ``_ShardedForward(mesh=)``): the placement, the padding multiple and
+    every call run under ``Engine.pinned(mesh)``, so the rows split over
+    that mesh's batch axes and its ranks gather them (a topology router
+    member on its own subset of the ranks)."""
 
     def __init__(self, model: Module, device=None, strategy=None,
-                 gather: bool = True):
+                 gather: bool = True, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         if not model.built:
             model.build(self.device)
-        if strategy is not None:
-            strategy.place(model)
+        with self._pinned():
+            if strategy is not None:
+                strategy.place(model)
+            self.shards = (1 if strategy is None
+                           else strategy.batch_shard_count())
         for p in model.parameters():
             if p.device != self.device:
                 raise ValueError(f"the model lives on {p.device}, the "
@@ -2337,14 +2348,20 @@ class _Forward:
                                  f"with model.to({str(self.device)!r})")
             break
         self.model = model
-        self.shards = (1 if strategy is None
-                       else strategy.batch_shard_count())
         self.gather = gather
+
+    def _pinned(self):
+        return (Engine.pinned(self.mesh) if self.mesh is not None
+                else contextlib.nullcontext())
 
     def __call__(self, inp):
         """Forward one host batch in eval mode; returns (device output,
         its row count: the batch's, or the rank's block's).  The caller
         restores training mode where it needs it."""
+        with self._pinned():
+            return self._forward(inp)
+
+    def _forward(self, inp):
         if self.shards > 1:
             inp = np.asarray(inp)
             n = inp.shape[0]
@@ -2365,7 +2382,8 @@ class _Forward:
         of ``n`` rows holds."""
         if self.shards == 1 or self.gather:
             return 0, min(valid, n)
-        lo = Engine.group_rank() * n
+        with self._pinned():
+            lo = Engine.group_rank() * n
         return lo, max(0, min(n, valid - lo))
 
 

@@ -17,7 +17,10 @@ H100, torch 2.11 with CUDA 12.8).  Its broadcast, all-reduce, all-gather
 and all-to-all take CUDA tensors, and ``chip_smoke.py``'s ``pipe_seq``
 phase runs each of them on the card.  The backend decides the route; no
 route is chosen by catching an error.  :data:`host_copies` counts the
-tensors that went through the host, by operation, in this process.
+tensors that went through the host, by operation, in this process.  Each
+hop that moves a tensor counts one in ``Engine.permutes`` and each
+all-to-all one in ``Engine.all_to_alls``, by the caller's ``kind``
+(``Engine.collectives()``).
 """
 
 from __future__ import annotations
@@ -60,12 +63,14 @@ class AxisGroup:
         """The default group's rank of this group's rank ``r`` (mod n)."""
         return dist.get_global_rank(self.group, r % self.n)
 
-    def hop(self, sends: Sequence, recvs: Sequence) -> List[torch.Tensor]:
+    def hop(self, sends: Sequence, recvs: Sequence,
+            kind: str = "hop") -> List[torch.Tensor]:
         """One hop of point-to-point transfers, posted together:
         ``sends`` are (tensor, rank offset, tag), ``recvs`` are (template
         tensor, rank offset, tag), each offset relative to this rank on
         the ring (+1 the next rank, -1 the previous).  Returns the received
-        tensors, shaped and typed like their templates, on their device."""
+        tensors, shaped and typed like their templates, on their device;
+        counted under ``kind`` in ``Engine.permutes``."""
         ops, bufs, outs = [], [], []
         for t, off, tag in sends:
             if t is None:
@@ -85,8 +90,10 @@ class AxisGroup:
             ops.append(dist.P2POp(dist.irecv, buf, self.global_rank(
                 self.rank + off), self.group, tag))
         if ops:
+            from ..utils.engine import Engine
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
+            Engine.permutes[kind] += 1
         for buf, host, device in bufs:
             if host:
                 host_copies["hop"] += 1
@@ -112,10 +119,14 @@ class AxisGroup:
         dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts, dim=dim)
 
-    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+    def all_to_all(self, t: torch.Tensor,
+                   kind: str = "all_to_all") -> torch.Tensor:
         """``t``'s block r (of ``n`` along axis 0) to rank r; returns the
-        blocks received, block r from rank r."""
+        blocks received, block r from rank r; counted under ``kind`` in
+        ``Engine.all_to_alls``."""
+        from ..utils.engine import Engine
         t = t.contiguous()
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t, group=self.group)
+        Engine.all_to_alls[kind] += 1
         return out

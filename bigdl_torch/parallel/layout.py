@@ -170,8 +170,11 @@ class MeshLayout:
         """The ``DeviceMesh`` of the ranks ``devices`` of the default
         process group (default: every rank; one device a rank), the first
         :attr:`size` of them reshaped to :attr:`sizes` (row-major), on the
-        Engine's device type.  Fewer ranks than :attr:`size` raise
-        ``ValueError``."""
+        Engine's device type, registered with the Engine
+        (``Engine.register_mesh``: its axis groups and lead group).
+        Collective: every rank of the world builds it, members or not, in
+        the same order as every other mesh.  Fewer ranks than :attr:`size`
+        raise ``ValueError``."""
         import torch
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
@@ -186,8 +189,10 @@ class MeshLayout:
                              f"ranks, have {len(ranks)}")
         device = Engine.device()
         kind = device.type if device is not None else "cpu"
-        return DeviceMesh(kind, torch.tensor(ranks[:self.size]).reshape(
+        mesh = DeviceMesh(kind, torch.tensor(ranks[:self.size]).reshape(
             self.sizes), mesh_dim_names=self.axis_names)
+        Engine.register_mesh(mesh)
+        return mesh
 
     def install(self, devices: Optional[Sequence[int]] = None, device=None,
                 backend: Optional[str] = None):

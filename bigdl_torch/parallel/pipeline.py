@@ -219,7 +219,8 @@ def _forward_table(run: _Run, leaves, x, keep_graph: bool):
             send = tbl.recv_f_slot[t + 1][(d + 1) % n] != trash
             slot = tbl.recv_f_slot[t + 1][d]
             got = ax.hop([(y, 1, 0)] if send else [],
-                         [(micro[0], -1, 0)] if slot != trash else [])
+                         [(micro[0], -1, 0)] if slot != trash else [],
+                         "pipe")
             if slot != trash:
                 fstash[slot] = got[0]
     return outs, graphs
@@ -246,7 +247,7 @@ def _gpipe_backward(run: _Run, leaves, graphs, gy_micro):
                 back, gstash[slot] = gstash[slot], None
             want = tbl.recv_f_slot[t + 1][(d + 1) % n] != trash
             got = ax.hop([(back, -1, 1)] if back is not None else [],
-                         [(gy_micro[0], 1, 1)] if want else [])
+                         [(gy_micro[0], 1, 1)] if want else [], "pipe")
             g_y = got[0] if want else None
         if tbl.act[t][d] != FWD:
             continue
@@ -322,7 +323,7 @@ def _one_f_one_b(run: _Run, leaves, x, gy_micro):
                 recvs.append((micro[0], -1, 0))
             if bslot != trash_b:
                 recvs.append((gy_micro[0], 1, 1))
-            got = iter(ax.hop(sends, recvs))
+            got = iter(ax.hop(sends, recvs, "pipe"))
             if fslot != trash_f:
                 fstash[fslot] = next(got)
             if bslot != trash_b:

@@ -131,7 +131,7 @@ class _Ring(torch.autograd.Function):
                     lse = new
             if s + 1 < n:
                 kb, vb = ax.hop([(kb, 1, 0), (vb, 1, 1)],
-                                [(k, -1, 0), (v, -1, 1)])
+                                [(k, -1, 0), (v, -1, 1)], "ring")
         out = o.to(q.dtype)
         ctx.ax, ctx.causal, ctx.sm_scale = ax, causal, sm_scale
         ctx.save_for_backward(q, k, v, out, lse.contiguous())
@@ -163,7 +163,7 @@ class _Ring(torch.autograd.Function):
             if s + 1 < n:
                 sends += [(kb, 1, 0), (vb, 1, 1)]
                 recvs += [(k, -1, 0), (v, -1, 1)]
-            got = ax.hop(sends, recvs) if n > 1 else [dk, dv]
+            got = ax.hop(sends, recvs, "ring") if n > 1 else [dk, dv]
             dk, dv = got[0], got[1]
             if s + 1 < n:
                 kb, vb = got[2], got[3]
@@ -218,7 +218,7 @@ def _seq_to_heads(ax: AxisGroup, x):
     # block j (heads [j·H/n, (j+1)·H/n)) to rank j; block i received holds
     # rank i's rows of T for this rank's heads
     send = x.reshape(B, n, H // n, t, D).permute(1, 0, 2, 3, 4)
-    got = ax.all_to_all(send)
+    got = ax.all_to_all(send, "ulysses")
     return got.permute(1, 2, 0, 3, 4).reshape(B, H // n, n * t, D)
 
 
@@ -226,7 +226,7 @@ def _heads_to_seq(ax: AxisGroup, x):
     B, h, T, D = x.shape
     n = ax.n
     send = x.reshape(B, h, n, T // n, D).permute(2, 0, 1, 3, 4)
-    got = ax.all_to_all(send)
+    got = ax.all_to_all(send, "ulysses")
     return got.permute(1, 0, 2, 3, 4).reshape(B, n * h, T // n, D)
 
 

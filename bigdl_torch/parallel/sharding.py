@@ -67,8 +67,9 @@ slicings share.  It is the one rule: ZeRO's ``shard_state`` and
 for another world through host memory (elasticity, ROADMAP queue A item
 6, will use it), with the one cutter :func:`_cut`.
 
-Not ported yet (constructing one raises): ``TensorParallel`` and
-``LayoutSharding`` (the MeshLayout axes, queue A item 8).
+``LayoutSharding`` (the MeshLayout axes) and ``TensorParallel`` hold the
+parameters as mesh shards (``parallel/mesh_plan.py``), on the Engine's
+mesh or the one a thread pinned (``Engine.pinned``: a router member's).
 """
 
 from __future__ import annotations
@@ -603,8 +604,9 @@ class _MeshSharded(ShardingStrategy):
     """Parameters held as mesh shards (``parallel/mesh_plan.py``): the
     common half of :class:`LayoutSharding` and :class:`TensorParallel`.
 
-    - :meth:`setup` broadcasts the parameters and buffers from rank 0 of
-      the world and cuts each parameter to this rank's shard, in place:
+    - :meth:`setup` broadcasts the parameters and buffers from the mesh's
+      first rank over its ranks (the Engine's mesh, or the one the thread
+      pinned) and cuts each parameter to this rank's shard, in place:
       the Optimizer's parameters and its method state are the shards
       (a method state inherits the shards leaf by leaf).
     - :meth:`reduce`: the backward has summed each gathered leaf's
@@ -653,9 +655,14 @@ class _MeshSharded(ShardingStrategy):
                 "stack 1/n a pipe rank) waits for ROADMAP.md queue A item "
                 "8")
         tensors = list(model.parameters()) + list(model.buffers())
+        # from the mesh's first rank over its ranks (the Engine's mesh, or
+        # the one the thread pinned: a router member's subset)
+        st = Engine.mesh_state()
+        src, group = (0, None) if st is None else \
+            (st.ranks[0], st.axis_group(st.names))
         with torch.no_grad():
             for t in tensors:
-                dist.broadcast(t, 0)
+                dist.broadcast(t, src, group=group)
         plan = MeshPlan(model, self.specs(model), self.TP_AXIS,
                         self.BATCH_AXES)
         plan.key = self._key()

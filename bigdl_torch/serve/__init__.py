@@ -1,11 +1,11 @@
 """Online serving: dynamic batching, the inference server with hot swap,
 canary, replica restarts and autoscaling, traffic traces, continuous
-train-to-serve deployment, the continuous-batching decode engine, and the
+train-to-serve deployment, the continuous-batching decode engine, the
 fleet: worker processes (``tools/serve_worker.py``) supervised by a
-``FleetSupervisor`` behind one ``FleetFront``.
-
-The reference's topology router (``TopologyRouter``, ``PlacementError``,
-``plan_subsets``) is not ported yet (ROADMAP queue A item 8)."""
+``FleetSupervisor`` behind one ``FleetFront``, serving on a mesh layout
+(``InferenceServer(mesh=)``, ``DecodeEngine(mesh=)``, one rank leading
+the others: ``serve/lead.py``) and the ``TopologyRouter`` over disjoint
+rank subsets."""
 
 from .autoscale import AutoScaler
 from .batcher import (DecodeQueue, DynamicBatcher, PendingRequest,
@@ -19,6 +19,7 @@ from .control import (CanaryController, CanaryRejected, QuotaExceeded,
 from .decode import DecodeEngine, SlotFault, page_ladder
 from .fleet import FleetSupervisor, MemberLostError
 from .fleetfront import FleetFront
+from .router import PlacementError, TopologyRouter, plan_subsets
 from .server import InferenceServer, ModelVersion
 from .tracefile import (TraceEvent, TraceFormatError, TraceRecorder,
                         read_trace, replay, resolve_outcomes, slo_report,
@@ -36,4 +37,5 @@ __all__ = ["InferenceServer", "ModelVersion", "DynamicBatcher",
            "DeployController", "ReleasePublisher", "ReleaseRejected",
            "read_release",
            "DecodeEngine", "DecodeQueue", "SlotFault", "page_ladder",
-           "FleetSupervisor", "FleetFront", "MemberLostError"]
+           "FleetSupervisor", "FleetFront", "MemberLostError",
+           "TopologyRouter", "PlacementError", "plan_subsets"]

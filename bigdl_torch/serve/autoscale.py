@@ -100,8 +100,11 @@ class AutoScaler:
     - ``replicas`` — the current pool target size,
     - ``healthy()`` — False freezes the controller,
 
-    implemented by :class:`~bigdl_torch.serve.server.InferenceServer`
-    (worker threads over one shared queue)."""
+    implemented by both :class:`~bigdl_torch.serve.server.InferenceServer`
+    (worker threads over one shared queue) and
+    :class:`~bigdl_torch.serve.router.TopologyRouter` (member replicas on
+    rank subsets, each with its own queue; a step activates or retires a
+    member)."""
 
     def __init__(self, target, *, min_replicas: int, max_replicas: int,
                  target_wait_ms: float = 50.0, up_polls: int = 2,

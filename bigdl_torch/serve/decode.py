@@ -49,11 +49,30 @@ Counterpart of ``bigdl_tpu/serve/decode.py``:
 - ``record_trace`` / ``stop_trace`` capture offered sequences with their
   generation settings (``serve/tracefile.py``).
 
+``mesh=`` (the reference's ``:226-283``, ``:504-545``): the engine on a
+layout, a mesh ``MeshLayout.build_mesh`` (or ``Engine.init(mesh_shape=
+...)``) registered.  The parameters are placed by ``LayoutSharding``
+over the mesh's ranks at construction and gathered once for the loop's
+life (a tp-split attention keeps its own heads), and each rung's caches
+follow the ``kv_cache`` role: the slots over data x fsdp, the heads over
+tp, page growth included.  One rank leads (``serve/lead.py``): the
+mesh's coordinate-0 rank owns the queue, the quotas, the admissions and
+the sampling; construction, ``start`` and ``stop`` are called on every
+rank of the mesh, ``submit`` and ``generate`` on the leader alone.  Each
+loop turn with admissions sends a prefill plan (the cache rung and each
+admitted slot's prompt): every rank prefills the slots it holds, and the
+first rank of each block of slots (tp coordinate 0) sends their log-prob
+rows to the leader, which samples the first tokens.  Each tick sends a
+tick plan (every slot's token and position, the tokens the leader
+sampled): every rank decodes its slots and heads, the blocks' rows go to
+the leader, and it samples.  Followers never sample, so greedy and
+temperature / top-k decoding agree on every rank.  Under a mesh every
+step runs eagerly: its tensor-parallel gathers go over gloo on the host,
+which a CUDA graph cannot capture, so ``stats()["graphs"]`` shows no
+capture (graph capture over NCCL waits for a four-card mesh).
+
 Not ported: the persistent compile cache and its compile cards (the CUDA
-graphs are the port's warm start).  ``mesh=`` raises
-``NotImplementedError``: an engine on a layout needs one rank to lead the
-others' admissions (queue A item 8); ``models/decode.py``
-``cached_generate(mesh=)`` decodes a batch on one.
+graphs are the port's warm start).
 
 Knobs (``utils/config``; constructor arguments override):
 ``BIGDL_TORCH_DECODE_SLOTS`` (4), ``_PAGE`` (128), ``_MAX_LEN`` (0 = the
@@ -65,6 +84,7 @@ and ``_MIN_STEP_MS`` (0: a per-tick pacing floor).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import threading
 import time
@@ -78,6 +98,7 @@ from ..models import decode as kv
 from ..models.transformer_lm import PositionalEmbedding, sample_next
 from ..ops.decode_attention import count_replay, counting_captures
 from ..utils import chaos, config, metrics_export, telemetry
+from . import lead as lead_mod
 from .batcher import DecodeQueue, PendingRequest, ServeError
 from .control import TenantQuotas
 
@@ -154,7 +175,9 @@ class DecodeEngine:
     raises without one); a built model must already live there.  On CUDA
     every step replays a CUDA graph once its bucket has been captured
     (module docstring).  The step methods run in the loop thread, inside
-    ``_on_device()``; on an engine not started, in the caller's."""
+    ``_on_device()``; on an engine not started, in the caller's.  On a
+    mesh (module docstring) a follower's steps run in its follow thread
+    (:meth:`follow`)."""
 
     def __init__(self, model, *, slots: Optional[int] = None,
                  page: Optional[int] = None,
@@ -168,12 +191,7 @@ class DecodeEngine:
                  tenant_burst: Optional[float] = None,
                  min_step_s: Optional[float] = None,
                  clock=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DecodeEngine(mesh=...): serving the tp-sharded cache needs "
-                "one rank to lead the others' admissions and ticks "
-                "(ROADMAP.md queue A item 8: serving on a layout); "
-                "cached_generate(mesh=) decodes a batch on a layout")
+        lay = None if mesh is None else kv._layout_of(mesh)
         self.device = resolve_device(device)
         if not model.built:
             model.build(self.device)
@@ -223,6 +241,12 @@ class DecodeEngine:
         self.quotas = TenantQuotas(tenant_qps or 0.0, burst=tenant_burst,
                                    clock=self.clock)
         self._slots: List[Optional[_Seq]] = [None] * self.slots
+        self._mesh = mesh
+        self._lead = self._plan = None
+        #: this rank's slots [lo, lo + n) of the engine's
+        self._lo, self._n = 0, self.slots
+        if mesh is not None:
+            self._on_mesh(lay)
         self._caches = None
         self._cache_len = 0
         self._rungs: dict = {}     # cache_len -> caches [slots, H, L, D]
@@ -233,7 +257,7 @@ class DecodeEngine:
         # from a host mirror (pinned on CUDA) that is rewritten only after
         # the host has waited on a later copy of the engine's stream
         self._static = {
-            "tp": torch.zeros((2, self.slots), dtype=torch.int32,
+            "tp": torch.zeros((2, self._n), dtype=torch.int32,
                               device=self.device),
             "prompt": torch.zeros((self.max_len,), dtype=torch.int32,
                                   device=self.device),
@@ -262,26 +286,74 @@ class DecodeEngine:
         self.graph_captures = 0
         self.graph_replays = 0
         self._busy_s = 0.0
+        self._ended = False
+
+    def _on_mesh(self, lay) -> None:
+        """Place the model over the mesh (collective: every rank of it
+        constructs the engine), find this rank's slots, and the rank that
+        sends each block of slots' rows to the leader (tp coordinate 0)."""
+        from ..parallel.sharding import LayoutSharding
+        from ..utils.engine import Engine
+        mesh = self._mesh
+        self._lead = lead_mod.Lead(mesh)
+        mha = kv._mha_modules(self.model)
+        with Engine.pinned(mesh):
+            self._plan = LayoutSharding(self.model).place(self.model)
+        heads, dim = (mha[0].num_heads, mha[0].head_dim) if mha else (1, 1)
+        self._lo, self._n, axes = kv._rows_of(lay, self.slots, heads,
+                                              self.max_len, dim, mesh)
+        names, sizes = tuple(mesh.mesh_dim_names), lay.shape()
+        self._senders = {}
+        for coord in itertools.product(*(range(sizes[a]) for a in names)):
+            if any(c for a, c in zip(names, coord) if a not in axes):
+                continue
+            block = 0
+            for a in axes:
+                block = block * sizes[a] + coord[names.index(a)]
+            self._senders[block] = int(mesh.mesh[coord])
+        #: prompt positions the leader planned, by block of slots
+        self.prefill_positions = [0] * len(self._senders)
+
+    @property
+    def following(self) -> bool:
+        """True on a rank of the mesh that follows another's lead."""
+        return self._lead is not None and not self._lead.is_leader
 
     # -- lifecycle ------------------------------------------------------
 
     def start(self) -> "DecodeEngine":
+        if self._lead is not None:
+            self._lead.keep_alive()
         if self._thread is None:
             self._thread = threading.Thread(
-                target=self._loop, name="bigdl-torch-decode-engine",
-                daemon=True)
+                target=self.follow if self.following else self._loop,
+                name="bigdl-torch-decode-engine", daemon=True)
             self._thread.start()
         return self
 
     def stop(self, drain: bool = True) -> None:
         """Close admissions; ``drain=True`` finishes every queued and
-        in-flight sequence first.  Whatever is still queued fails typed."""
-        self.queue.close(drain=drain)
+        in-flight sequence first.  Whatever is still queued fails typed.
+        On a mesh the leader's loop tells the followers to stop as it
+        ends; a follower's ``stop`` waits for that."""
         t = self._thread
+        if self.following:
+            if t is not None:
+                t.join()
+                self._thread = None
+            return
+        self.queue.close(drain=drain)
         if t is not None:
             t.join(timeout=120.0)
             self._thread = None
         self.queue.fail_pending()
+        self._end()
+
+    def _end(self) -> None:
+        """The leader's last message to its followers (once)."""
+        if self._lead is not None and not self._ended:
+            self._ended = True
+            self._lead.send(lead_mod.STOP)
 
     def __enter__(self) -> "DecodeEngine":
         return self.start()
@@ -304,7 +376,12 @@ class DecodeEngine:
         RequestTimeout resolves later if the time-to-last-token deadline
         passes in the queue.  Sampling (temperature > 0) draws from a CPU
         ``torch.Generator`` seeded with ``seed``.  ``request_id`` is an
-        upstream flow id (``X-BigDL-Request-Id``)."""
+        upstream flow id (``X-BigDL-Request-Id``).  On a mesh the leader
+        alone takes submissions."""
+        if self.following:
+            raise ServeError(
+                f"decode: submit on rank {self._lead.rank}, which follows "
+                f"rank {self._lead.leader}: call it on the leader")
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.shape[0] == 0:
             raise ServeError("decode: prompt must be a non-empty 1-D "
@@ -375,10 +452,10 @@ class DecodeEngine:
         if cache_len not in self._rungs:
             self._rungs[cache_len] = kv.init_kv_cache(
                 self.model, self.slots, cache_len, self.cache_dtype,
-                device=self.device)
+                mesh=self._mesh, device=self.device)
             self._scratch[cache_len] = kv.init_kv_cache(
                 self.model, 1, cache_len, self.cache_dtype,
-                device=self.device)
+                mesh=self._mesh, device=self.device)
         return self._rungs[cache_len]
 
     def _ensure_cache(self, need: int, idle: bool) -> None:
@@ -412,7 +489,7 @@ class DecodeEngine:
             return 0
         total = sum(t.numel() * t.element_size() for c in self._caches
                     for t in c.values())
-        return total // self.slots
+        return total // self._n   # this rank's slots (and heads)
 
     # -- the persistent step loop ---------------------------------------
 
@@ -458,8 +535,9 @@ class DecodeEngine:
         graph (B8's library and cuBLAS's workspace already exist by then,
         and nothing executes during the capture); every later call replays
         the graph.  Returns the step's output, which the next call of
-        another bucket may overwrite."""
-        if self.device.type != "cuda":
+        another bucket may overwrite.  On a mesh it runs eagerly (module
+        docstring)."""
+        if self.device.type != "cuda" or self._mesh is not None:
             return body()
         key = (kind, self._cache_len)
         g = self._graphs.get(key)
@@ -480,27 +558,65 @@ class DecodeEngine:
         self.graph_replays += 1
         return g.out
 
+    @contextlib.contextmanager
+    def _placed(self):
+        """On a mesh: the mesh pinned to this thread and the parameters
+        gathered for the block (collective: the leader's loop and every
+        follower's enter it together)."""
+        if self._mesh is None:
+            yield
+            return
+        from ..utils.engine import Engine
+        with Engine.pinned(self._mesh), self._plan.materialized():
+            yield
+
     def _loop(self) -> None:
         telemetry.thread_name("decode engine")
         # inference mode, the current device and stream are per thread
-        with torch.inference_mode(), self._on_device():
+        with torch.inference_mode(), self._on_device(), self._placed():
+            try:
+                self._serve()
+            finally:
+                self._end()
+
+    def _serve(self) -> None:
+        while True:
+            try:
+                if not self._tick():
+                    return
+            except Exception as e:  # noqa: BLE001 - engine must survive
+                # a fault no one slot owns fails every in-flight
+                # sequence typed instead of wedging the loop; the
+                # queue keeps serving later ticks
+                logger.exception("decode: step loop error; failing the "
+                                 "in-flight sequences")
+                now = self.clock()
+                for s in range(self.slots):
+                    seq = self._slots[s]
+                    if seq is not None:
+                        seq.req._resolve(error=e, now=now)
+                        self._slots[s] = None
+                        self.seqs_failed += 1
+
+    def follow(self) -> None:
+        """A follower's loop on a mesh (module docstring): mirror each
+        prefill plan's cache rung and prefill the admitted slots held
+        here, decode each tick plan's slots, send the leader this block's
+        rows where this rank sends them, until the leader stops."""
+        telemetry.thread_name("decode follower")
+        with torch.inference_mode(), self._on_device(), self._placed():
             while True:
-                try:
-                    if not self._tick():
-                        return
-                except Exception as e:  # noqa: BLE001 - engine must survive
-                    # a fault no one slot owns fails every in-flight
-                    # sequence typed instead of wedging the loop; the
-                    # queue keeps serving later ticks
-                    logger.exception("decode: step loop error; failing the "
-                                     "in-flight sequences")
-                    now = self.clock()
-                    for s in range(self.slots):
-                        seq = self._slots[s]
-                        if seq is not None:
-                            seq.req._resolve(error=e, now=now)
-                            self._slots[s] = None
-                            self.seqs_failed += 1
+                msg = self._lead.recv()
+                if msg.op == lead_mod.STOP:
+                    return
+                if msg.op == lead_mod.PREFILL:
+                    self._ensure_cache(msg.ints[0], bool(msg.ints[1]))
+                    self._prefill_mesh(msg.blob)
+                elif msg.op == lead_mod.TICK:
+                    self._tick_mesh(msg.array)
+                else:
+                    raise ServeError(f"decode: unexpected message "
+                                     f"{lead_mod.OP_NAMES.get(msg.op)}")
 
     def _fail_slot(self, s: int, err: Exception) -> None:
         seq = self._slots[s]
@@ -581,14 +697,68 @@ class DecodeEngine:
     def _step_all(self, tp: np.ndarray) -> torch.Tensor:
         """One decode tick of every slot at ``tp``, int32 [2, slots]
         (tokens, positions): returns float32 [slots, vocab] log-probs on
-        the host."""
+        the host.  On a mesh the tick plan goes to the followers first and
+        the rows come from every block of slots."""
+        if self._lead is not None:
+            with self._lead.lock:   # the plan and the rows it brings back
+                self._lead.send(lead_mod.TICK, array=tp)
+                return self._tick_mesh(tp)
+        return self._step_local(tp)
+
+    def _step_local(self, tp: np.ndarray) -> torch.Tensor:
+        """The tick of this rank's slots at ``tp`` (int32 [2, n])."""
         caches, static = self._caches, self._static["tp"]
         self._upload("tp", tp)
         logits = self._run("tick", lambda: kv.decode_step(
             self.model, caches, static[0], static[1]).float())
         return self._download(logits)
 
-    def _admit(self, req: PendingRequest, s: int) -> None:
+    # -- the mesh's steps (module docstring) ------------------------------
+
+    def _to_leader(self, rows: Optional[np.ndarray]) -> None:
+        """A follower's rows of its block of slots to the leader, from the
+        rank that sends the block's (its tp coordinate 0); nothing where
+        there are none."""
+        lead = self._lead
+        if rows is not None and \
+                self._senders[self._lo // self._n] == lead.rank:
+            lead.send_to(lead.leader, rows)
+
+    def _tick_mesh(self, tp: np.ndarray) -> Optional[np.ndarray]:
+        """Every rank's half of one tick plan: decode this rank's slots;
+        the leader (block 0) gets every block's, [slots, vocab]."""
+        lo, n = self._lo, self._n
+        local = np.array(self._step_local(tp[:, lo:lo + n]))
+        if not self._lead.is_leader:
+            self._to_leader(local)
+            return None
+        return np.concatenate([local] + [
+            self._lead.recv_from(r)
+            for b, r in sorted(self._senders.items()) if b])
+
+    def _prefill_mesh(self, items) -> dict:
+        """Every rank's half of one prefill plan ``items`` [(slot,
+        prompt)]: prefill the slots held here; the leader gets {slot:
+        log-prob row} of every item."""
+        lo, n = self._lo, self._n
+        mine = [(s, p) for s, p in items if lo <= s < lo + n]
+        rows = np.stack([np.array(self._prefill(s - lo, p))
+                         for s, p in mine]) if mine else None
+        if not self._lead.is_leader:
+            self._to_leader(rows)
+            return {}
+        out = {s: rows[i] for i, (s, _) in enumerate(mine)}
+        by_block: dict = {}
+        for s, _ in items:
+            if not lo <= s < lo + n:
+                by_block.setdefault(s // n, []).append(s)
+        for b, slots in sorted(by_block.items()):
+            out.update(zip(slots, self._lead.recv_from(self._senders[b])))
+        return out
+
+    def _seat(self, req: PendingRequest, s: int) -> bool:
+        """Seat ``req`` in slot ``s``; False where the slot's fault point
+        fails it at admission."""
         p = req.payload
         generator = (torch.Generator().manual_seed(p["seed"])
                      if p["temperature"] > 0 else None)
@@ -602,7 +772,13 @@ class DecodeEngine:
             chaos.fire(f"serve.decode@{s}", thread_exc=SlotFault)
         except Exception as e:  # noqa: BLE001 - typed per-sequence fail
             self._fail_slot(s, e)
+            return False
+        return True
+
+    def _admit(self, req: PendingRequest, s: int) -> None:
+        if not self._seat(req, s):
             return
+        p, seq = req.payload, self._slots[s]
         try:
             logits = self._prefill(s, p["prompt"])
         except Exception as e:  # noqa: BLE001 - typed per-sequence fail
@@ -611,6 +787,20 @@ class DecodeEngine:
             return
         self.prefill_steps += 1
         self._advance(s, self._sample(seq, logits))
+
+    def _admit_mesh(self, incoming, free, need: int, idle: bool) -> None:
+        """The leader's admissions on a mesh: seat them, send one prefill
+        plan (the cache rung to mirror and the seated slots' prompts),
+        prefill with the followers, sample each first token."""
+        items = [(s, r.payload["prompt"]) for r, s in
+                 ((r, free.pop(0)) for r in incoming) if self._seat(r, s)]
+        with self._lead.lock:   # the plan and the rows it brings back
+            self._lead.send(lead_mod.PREFILL, (need, int(idle)), blob=items)
+            rows = self._prefill_mesh(items)
+        for s, p in items:
+            self.prefill_positions[s // self._n] += len(p)
+            self.prefill_steps += 1
+            self._advance(s, self._sample(self._slots[s], rows[s]))
 
     def _tick(self) -> bool:
         """One loop iteration: admit into free slots, then decode every
@@ -632,8 +822,11 @@ class DecodeEngine:
             need = max(len(r.payload["prompt"]) + r.payload["max_tokens"]
                        for r in incoming)
             self._ensure_cache(need, idle=(n_active == 0))
-            for r in incoming:
-                self._admit(r, free.pop(0))
+            if self._lead is None:
+                for r in incoming:
+                    self._admit(r, free.pop(0))
+            else:
+                self._admit_mesh(incoming, free, need, n_active == 0)
         # every still-active slot (freshly prefilled ones too: their first
         # token is already in the buffer) advances one position
         active = [s for s in range(self.slots) if self._slots[s] is not None]
@@ -702,4 +895,11 @@ class DecodeEngine:
         }
         if self._recorder is not None:
             out["trace_recording"] = self._recorder.stats()
+        if self._lead is not None:
+            out["mesh"] = {"ranks": list(self._lead.ranks),
+                           "leader": self._lead.leader,
+                           "role": "follower" if self.following
+                           else "leader", "slots_here": [self._lo, self._n],
+                           "prefill_positions": list(self.prefill_positions),
+                           "messages": dict(self._lead.counts)}
         return out

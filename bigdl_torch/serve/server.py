@@ -45,11 +45,26 @@ Counterpart of ``bigdl_tpu/serve/server.py``:
   fault in a batch fails that batch's requests typed and the server
   serves on.
 
-``mesh=`` raises: a version served on a layout needs one rank to lead
-the others' batches, and one pinned to a device subset the topology
-router (ROADMAP queue A item 8).  ``stats()`` has no ``"aot"`` key: the
-compile cache is the reference's and is not ported (the decode engine's
-CUDA graphs are the port's warm start).
+``mesh=`` (the reference's ``:92-105``, ``:163-199``) serves the model
+on a layout: a mesh that ``MeshLayout.build_mesh`` (or ``Engine.init(
+mesh_shape=...)``) registered, whose ranks each hold the mesh shards of
+every version (the ``strategy``, e.g. ``LayoutSharding(model)``; every
+version's forward is pinned to the mesh, ``optim.optimizer._Forward(
+mesh=)``).  One rank leads (``serve/lead.py``): the mesh's coordinate-0
+rank, or the ``lead`` a topology router gives its member.  Construction,
+``start`` and ``stop`` are called on every rank of the mesh in the same
+order (the first version is placed collectively);
+``submit``/``predict``/``swap``/``scale_to`` on the leader alone.  The
+leader's replicas, restarts, swaps and canary batches take the lead's
+lock around each message and the forward it starts, so the mesh's
+collectives issue in one order.  A follower's ``start`` runs
+:meth:`InferenceServer.follow` in a thread: each batch message is a
+forward of the version it names; a swap message loads the new version on
+every rank (the leader sends a tree or a Module as its reference tree, a
+path is read by every rank itself) and forgets the versions the leader no
+longer serves; a follower's ``stop`` waits for the leader's.  ``stats()``
+has no ``"aot"`` key: the compile cache is the reference's and is not
+ported (the decode engine's CUDA graphs are the port's warm start).
 
 Knobs (``utils/config``; constructor arguments override):
 ``BIGDL_TORCH_SERVE_MAX_BATCH`` (8), ``_MAX_WAIT_MS`` (5),
@@ -64,8 +79,10 @@ Knobs (``utils/config``; constructor arguments override):
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -75,7 +92,7 @@ from ..nn.module import Module, _read_blob
 from ..optim.optimizer import HostCopy, _Forward
 from ..utils import chaos, config, metrics_export, telemetry
 from ..utils.supervisor import StallError, Supervisor
-from . import control
+from . import control, lead as lead_mod
 from .batcher import (DynamicBatcher, PendingRequest, ServeError, fit_bucket,
                       pad_rows, pad_tail)
 
@@ -83,32 +100,70 @@ logger = logging.getLogger("bigdl_torch")
 
 __all__ = ["ModelVersion", "InferenceServer"]
 
-_MESH = ("mesh=: a version served on a layout needs one rank to lead the "
-         "others' batches, and one pinned to a device subset the topology "
-         "router (ROADMAP queue A item 8: serving on a layout)")
-
-
 class ModelVersion:
-    """One servable (module, forward) bundle on one device.  The server
-    flips between versions by replacing one reference."""
+    """One servable (module, forward) bundle.  The server flips between
+    versions by replacing one reference.
+
+    ``mesh`` pins the forward to a registered mesh (``_Forward(mesh=)``),
+    its parameters placed by ``strategy`` over the mesh's ranks.  With a
+    ``lead`` (``serve/lead.py``) the leader's :meth:`predict` first sends
+    the batch to the followers; a leader off the mesh computes nothing and
+    takes the answer from the mesh (``module`` may be None there)."""
 
     def __init__(self, vid: int, module: Module, label: str,
-                 strategy=None, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+                 strategy=None, mesh=None, device=None, lead=None):
         self.id = int(vid)
         self.label = label
         self.module = module
-        self._engine = _Forward(module, device, strategy)
+        self._lead = lead
+        self._engine = (None if lead is not None and not lead.on_mesh
+                        else _Forward(module, device, strategy, mesh=mesh))
         self._to_host = HostCopy()
 
     def predict(self, batch: np.ndarray) -> np.ndarray:
         """Forward one padded batch; returns its host rows through the
         version's pinned buffer (:class:`HostCopy`).  A bfloat16 output
         widens to float32 on the device, since numpy has no bfloat16; the
-        widening is exact."""
+        widening is exact.  On a lead's leader the batch goes to the
+        followers first, under the lead's lock."""
+        lead = self._lead
+        if lead is None or not lead.is_leader:
+            return self._rows(batch)
+        with lead.lock:
+            lead.send(lead_mod.BATCH, (self.id,), batch)
+            if self._engine is None:
+                return lead.answer()
+            return self._rows(batch)
+
+    def _rows(self, batch: np.ndarray) -> np.ndarray:
         out, _ = self._engine(batch)
         return self._to_host(out[:len(batch)])
+
+    def serve(self, batch: np.ndarray) -> None:
+        """A follower's half of one batch message: the forward, and the
+        answer to a leader off the mesh from the rank that replies."""
+        if self._lead.replies:
+            self._lead.reply(self._rows(batch))
+        else:
+            self._engine(batch)
+
+
+#: model -> its unsharded copy on the host (:func:`_template`)
+_TEMPLATES = weakref.WeakKeyDictionary()
+
+
+def _template(model: Module) -> Module:
+    """An unsharded copy of ``model`` on the host, taken before a mesh cuts
+    it into shards: the architecture a swap on a mesh clones (a module held
+    as shards does not copy).  One per model object."""
+    t = _TEMPLATES.get(model)
+    if t is None:
+        if model.__dict__.get("_layout_plan") is not None:
+            raise ServeError("serve: a model already held as mesh shards has "
+                             "no unsharded architecture to swap into; serve "
+                             "the model as built")
+        t = _TEMPLATES[model] = model.clone_module().to("cpu")
+    return t
 
 
 def _clone_with(module: Module, params, state) -> Module:
@@ -132,7 +187,9 @@ class InferenceServer:
         server.stop()                          # graceful drain
 
     Also a context manager.  Runs on ``device`` (default: the CUDA device;
-    raises without one)."""
+    raises without one).  On a mesh (module docstring) every rank of it
+    constructs, starts and stops the server; ``lead`` names a leader other
+    than the mesh's coordinate-0 rank (the topology router's)."""
 
     def __init__(self, model: Module, *,
                  max_batch: Optional[int] = None,
@@ -166,10 +223,25 @@ class InferenceServer:
                  autoscale_up_polls: Optional[int] = None,
                  autoscale_step: Optional[int] = None,
                  autoscale_poll_s: Optional[float] = None,
-                 device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+                 device=None, lead=None):
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self._lead = None
+        if mesh is not None:
+            self._lead = lead if lead is not None else lead_mod.Lead(mesh)
+            if self._lead.on_mesh:
+                if not model.built:
+                    model.build(self.device)
+                _template(model)
+        elif lead is not None:
+            raise ValueError("serve: a lead needs its mesh (mesh=)")
+        #: the follow loop's thread, on a rank that follows a leader
+        self._follow_thread: Optional[threading.Thread] = None
+        #: what the leader sends when it stops: STOP, or RETIRE for a
+        #: router member whose ranks wait to be activated again
+        self._end_op = lead_mod.STOP
+        self._ended = False
+        self._arch_model = model
         self.max_batch = int(max_batch if max_batch is not None
                              else config.get_int("SERVE_MAX_BATCH", 8))
         wait_ms = (max_wait_ms if max_wait_ms is not None
@@ -188,8 +260,10 @@ class InferenceServer:
         self.seq_buckets = (tuple(sorted(int(b) for b in seq_buckets))
                             if seq_buckets else None)
         self._example = None if example is None else np.asarray(example)
-        self._version = ModelVersion(1, model, "initial", strategy,
-                                     device=self.device)
+        self._version = ModelVersion(
+            1, model if self._lead is None or self._lead.on_mesh else None,
+            "initial", strategy, mesh=mesh, device=self.device,
+            lead=self._lead)
         self._vid = 1                       # monotonic version ids
         self._lock = threading.Lock()       # stats and the version flip
         self._swap_lock = threading.Lock()  # one swap at a time
@@ -257,11 +331,25 @@ class InferenceServer:
 
     # -- lifecycle ------------------------------------------------------
 
+    @property
+    def following(self) -> bool:
+        """True on a rank of the mesh that follows another's lead."""
+        return self._lead is not None and not self._lead.is_leader
+
     def start(self) -> "InferenceServer":
+        if self.following:
+            if self._follow_thread is None:
+                self._follow_thread = threading.Thread(
+                    target=self.follow, daemon=True,
+                    name="bigdl-torch-serve-follower")
+                self._follow_thread.start()
+            return self
         if self._threads:
             return self
         if self.batcher.closed:
             raise ServeError("serve: cannot restart a stopped server")
+        if self._lead is not None:
+            self._lead.keep_alive()
         if self._own_sup:
             self._sup.start()
         if self._example is not None:
@@ -295,7 +383,26 @@ class InferenceServer:
         the workers exit; drain=False fails queued requests with
         ServerClosed.  Whatever is still queued once the workers are gone
         fails typed too, so no caller blocks on ``result()`` forever.  An
-        armed trace with a path is written first."""
+        armed trace with a path is written first.  On a mesh the leader
+        then tells the followers to stop; a follower waits for that (no
+        timeout: its leader may serve for long)."""
+        if self.following:
+            t, self._follow_thread = self._follow_thread, None
+            if t is not None:
+                t.join()
+            return
+        try:
+            self._stop_workers(drain, timeout)
+        finally:
+            self._end()
+
+    def _end(self) -> None:
+        """The leader's last message to its followers (once)."""
+        if self._lead is not None and not self._ended:
+            self._ended = True
+            self._lead.send(self._end_op)
+
+    def _stop_workers(self, drain: bool, timeout: float) -> None:
         if self._autoscaler is not None:
             self._autoscaler.stop()   # no resize of a pool shutting down
         if self._monitor is not None:
@@ -342,6 +449,7 @@ class InferenceServer:
         admission.  ``tenant`` is held to the token-bucket quotas,
         ``priority`` (higher = more important) decides who is shed first,
         ``request_id`` is an upstream flow id (``X-BigDL-Request-Id``)."""
+        self._leader_only("submit")
         if self._unhealthy is not None and not self._pool_alive():
             raise control.ReplicaLostError(
                 f"serve: pool unhealthy — {self._unhealthy}")
@@ -389,6 +497,65 @@ class InferenceServer:
         """Blocking convenience: submit + wait."""
         return self.submit(x, deadline_ms=deadline_ms).result(timeout)
 
+    def _leader_only(self, what: str) -> None:
+        if self.following:
+            raise ServeError(
+                f"serve: {what} on rank {self._lead.rank}, which follows "
+                f"rank {self._lead.leader}: call it on the leader")
+
+    # -- the follower's loop (serve/lead.py) ----------------------------
+
+    def follow(self) -> int:
+        """A follower's loop: take the leader's next message and act on it
+        (a batch: the forward of the version it names; a swap: load that
+        version here, forget the ones the leader no longer serves) until
+        the leader stops or retires it; returns that op.  A failure in one
+        message is logged and the loop goes on, as the leader's batch
+        fails typed and its server serves on."""
+        lead = self._lead
+        versions = {self._version.id: self._version}
+        telemetry.thread_name("serve follower")
+        while True:
+            msg = lead.recv()
+            if msg.op in (lead_mod.STOP, lead_mod.RETIRE):
+                self._version = None
+                return msg.op
+            try:
+                if msg.op == lead_mod.BATCH:
+                    versions[msg.ints[0]].serve(msg.array)
+                elif msg.op == lead_mod.SWAP:
+                    spec = msg.blob
+                    versions[spec["vid"]] = self._mesh_version(spec)
+                    for vid in [v for v in versions if v not in spec["keep"]]:
+                        del versions[vid]
+                else:
+                    raise ServeError(f"serve: unexpected message "
+                                     f"{lead_mod.OP_NAMES.get(msg.op)}")
+            except Exception:  # noqa: BLE001 - the leader's batch fails too
+                logger.exception("serve: follower rank %d failed a %s "
+                                 "message", lead.rank,
+                                 lead_mod.OP_NAMES.get(msg.op))
+
+    def _mesh_version(self, spec: dict) -> ModelVersion:
+        """The version a swap message describes, built on this rank: from
+        a path every rank reads, or from the leader's reference tree, into
+        a clone of the unsharded architecture; placed over the mesh with
+        the rest of its ranks (a leader off the mesh builds none)."""
+        module = None
+        if self._lead.on_mesh:
+            arch = _template(self._arch_model)
+            if spec["source"][0] == "path":
+                module, _ = self._load_module(spec["source"][1], None, arch)
+            else:
+                module = _clone_with(arch, *spec["source"][1:])
+            module = module.to(self.device)
+            if spec["quantized"]:
+                from ..quantize import quantize
+                module = quantize(module)
+        return ModelVersion(spec["vid"], module, spec["label"],
+                            self._strategy, mesh=self._mesh,
+                            device=self.device, lead=self._lead)
+
     # -- replica lifecycle (serve/control.ReplicaMonitor's hooks) -------
 
     def _spawn_replica(self, idx: int) -> threading.Thread:
@@ -427,7 +594,8 @@ class InferenceServer:
             old = self._version
         try:
             version = ModelVersion(old.id, old.module, old.label,
-                                   self._strategy, device=self.device)
+                                   self._strategy, mesh=self._mesh,
+                                   device=self.device, lead=self._lead)
             if self._example is not None:
                 self._warm_version(version, self._example)
             with self._lock:
@@ -455,7 +623,9 @@ class InferenceServer:
         workers over the current version's warm forward; shrink condemns
         the highest slots (a parked worker exits at its next wait slice,
         one holding a batch requeues it first), and the monitor leaves
-        retired slots alone."""
+        retired slots alone.  On a mesh the new workers share the lead's
+        lock: the followers need no message."""
+        self._leader_only("scale_to")
         n = max(int(n), 1)
         with self._scale_lock:
             if self.batcher.closed:
@@ -613,7 +783,19 @@ class InferenceServer:
                 telemetry.flow_step(r.rid, hop="replica.lost", replica=idx)
         self.batcher.requeue(reqs)
 
+    def _mesh_lock(self):
+        """The lead's lock on a mesh (module docstring), else nothing."""
+        return (self._lead.lock if self._lead is not None
+                else contextlib.nullcontext())
+
     def _execute(self, reqs, beat=None) -> None:
+        # on a mesh the version is chosen under the lead's lock, with the
+        # messages of its batches: a swap message that tells the followers
+        # to forget a version comes after every batch that named it
+        with self._mesh_lock():
+            self._execute_locked(reqs, beat)
+
+    def _execute_locked(self, reqs, beat=None) -> None:
         # one version per collect, chosen here (the canary's share too):
         # a swap mid-batch cannot split the collected requests
         with self._lock:
@@ -718,6 +900,7 @@ class InferenceServer:
     def warmup(self, example: Optional[np.ndarray] = None) -> None:
         """Run every bucket shape once on the current version before
         traffic (the first forward builds the CUDA kernels)."""
+        self._leader_only("warmup")
         ex = np.asarray(example) if example is not None else self._example
         if ex is None:
             raise ValueError("serve: warmup needs an example sample "
@@ -763,18 +946,23 @@ class InferenceServer:
         ``SERVE_CANARY_MIN_BATCHES`` clean batches or rolls it back on a
         regression (``stats()["canary"]``).  A later plain swap supersedes
         a running canary."""
+        self._leader_only("swap")
         # the slow build runs under its own lock: _lock guards only the
         # flip and the per-batch stats, so replicas answer throughout
         with self._swap_lock:
             self._vid += 1
             vid = self._vid
-            module, label = self._load_module(source, state)
-            if quantized:
-                from ..quantize import quantize
-                module = quantize(module)
-                label += "+int8"
-            version = ModelVersion(vid, module, label, self._strategy,
-                                   device=self.device)
+            if self._lead is not None:
+                version = self._swap_on_mesh(vid, source, state, quantized)
+                label = version.label
+            else:
+                module, label = self._load_module(source, state)
+                if quantized:
+                    from ..quantize import quantize
+                    module = quantize(module)
+                    label += "+int8"
+                version = ModelVersion(vid, module, label, self._strategy,
+                                       device=self.device)
             if self._example is not None:
                 self._warm_version(version, self._example)
             if canary_fraction is not None:
@@ -799,13 +987,49 @@ class InferenceServer:
         logger.info("serve: hot-swapped to version %d (%s)", vid, label)
         return vid
 
-    def _load_module(self, source, state):
+    def _swap_on_mesh(self, vid: int, source, state, quantized: bool):
+        """The leader's half of a swap on a mesh: one message names the
+        version, its source (a path every rank reads itself, else the
+        reference tree of a tree or a Module) and the versions still
+        served (current, canary, new); then every rank of the mesh builds
+        and places it together (module docstring)."""
+        if isinstance(source, str):
+            src, label = ("path", source), None
+        else:
+            if isinstance(source, Module):
+                from ..utils.convert import to_reference_tree
+                label = f"module:{type(source).__name__}"
+                if not source.built:
+                    source.build(self.device)
+                source, state = to_reference_tree(source)
+            else:
+                label = "params"
+            src = ("tree", source, state)
+        with self._lead.lock:
+            if label is None:   # a path's label, as _load_module names it
+                from ..utils import file_io
+                latest = file_io.latest_checkpoint(source)
+                label = (f"ckpt:{source}@{latest[2]}" if latest is not None
+                         else f"file:{source}")
+            keep = {vid, self._version.id}
+            with self._lock:
+                if self._canary is not None:
+                    keep.add(self._canary.version.id)
+            spec = {"vid": vid, "label": label + ("+int8" if quantized
+                                                  else ""),
+                    "source": src, "quantized": bool(quantized),
+                    "keep": sorted(keep)}
+            self._lead.send(lead_mod.SWAP, blob=spec)
+            return self._mesh_version(spec)
+
+    def _load_module(self, source, state, arch=None):
         """(module, label) for ``swap``.  A tree, a snapshot or a
-        checkpoint is loaded into a clone of the served architecture; a
-        ``Module.save`` file is read onto this server's device.  A module
-        file of the JAX package raises ``ReferenceModuleFile``."""
+        checkpoint is loaded into a clone of ``arch`` (default: the served
+        architecture); a ``Module.save`` file is read onto this server's
+        device.  A module file of the JAX package raises
+        ``ReferenceModuleFile``."""
         from ..utils import file_io
-        arch = self._version.module
+        arch = self._version.module if arch is None else arch
         if isinstance(source, Module):
             if not source.built:
                 source.build(self.device)
@@ -840,7 +1064,15 @@ class InferenceServer:
     def stats(self) -> dict:
         """Admission and shed counts (batcher), batch counts and fill,
         warm-up batches, swaps, restarts, canary, quota and health state,
-        the current version, the pool."""
+        the current version, the pool; on a mesh its ranks, the leader and
+        the messages sent (a follower reports only that)."""
+        if self._lead is not None:
+            mesh = {"ranks": list(self._lead.ranks),
+                    "leader": self._lead.leader,
+                    "role": "follower" if self.following else "leader",
+                    "messages": dict(self._lead.counts)}
+            if self.following:
+                return {"mesh": mesh, "healthy": True}
         out = self.batcher.stats()
         with self._lock:
             out.update(self._stats)
@@ -870,4 +1102,6 @@ class InferenceServer:
             out["replica_monitor"] = self._monitor.stats()
         if self._quotas is not None:
             out["quota"] = self._quotas.stats()
+        if self._lead is not None:
+            out["mesh"] = mesh
         return out

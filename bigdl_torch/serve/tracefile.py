@@ -3,8 +3,9 @@
 Counterpart of ``bigdl_tpu/serve/tracefile.py``, all of it:
 
 - record: a :class:`TraceRecorder` on the server's admission path
-  (``InferenceServer.record_trace``, ``DecodeEngine.record_trace``, or the
-  HTTP front's ``X-BigDL-Record-Trace`` header) captures every offered
+  (``InferenceServer.record_trace``, ``TopologyRouter.record_trace``,
+  ``DecodeEngine.record_trace``, or the HTTP front's
+  ``X-BigDL-Record-Trace`` header) captures every offered
   request, shed ones included, as (arrival delta, payload, tenant,
   priority, deadline, and for a generated sequence its generation
   settings);

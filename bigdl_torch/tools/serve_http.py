@@ -42,8 +42,17 @@ Usage (on the CUDA device unless ``--device cpu``)::
     python -m bigdl_torch.tools.serve_http --model lenet --generate \
         --checkpoint /ckpts/run1 --watch /ckpts/run1 --autoscale-max 2
 
-``--routed`` (a topology router over device subsets) raises: it needs the
-mesh layouts (ROADMAP queue A item 8).
+``--routed --router-layout d,f,t --replicas n`` fronts a
+``TopologyRouter`` (``serve/router.py``): ``n`` members, each a mesh of
+``d·f·t`` ranks serving the model sharded by its layout, over a world of
+gloo ranks.  Start the same command once a rank with the ``Engine``'s
+env contract (``BIGDL_TORCH_COORDINATOR``, ``_NUM_PROCESSES``,
+``_PROCESS_ID``); rank 0 binds HTTP and leads, the other ranks follow
+its members' batches and swaps and exit once rank 0 has stopped::
+
+    BIGDL_TORCH_COORDINATOR=file:///tmp/rv BIGDL_TORCH_NUM_PROCESSES=4 \
+    BIGDL_TORCH_PROCESS_ID=$r python -m bigdl_torch.tools.serve_http \
+        --routed --router-layout 1,1,2 --replicas 2 --port 0
 """
 
 from __future__ import annotations
@@ -380,10 +389,14 @@ def main(argv=None):
     ap.add_argument("--queue-limit", type=int, default=None)
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--routed", action="store_true",
-                    help="a topology router over device subsets (not "
-                         "ported: raises)")
+                    help="front a TopologyRouter: replicas become "
+                         "mesh-sharded members on disjoint rank subsets "
+                         "of a gloo world (one process a rank; rank 0 "
+                         "binds HTTP)")
     ap.add_argument("--router-layout", default="1,1,1",
-                    help="with --routed: per-member 'data,fsdp,tp'")
+                    help="with --routed: per-member MeshLayout "
+                         "'data,fsdp,tp' (e.g. '1,1,2': tp=2 members of 2 "
+                         "ranks each)")
     ap.add_argument("--autoscale-max", type=int, default=None,
                     help="pool ceiling; > 0 arms the queue-driven "
                          "autoscaler (BIGDL_TORCH_SERVE_AUTOSCALE_*)")
@@ -406,28 +419,36 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.routed:
-        raise NotImplementedError(
-            "--routed: the topology router places replicas on device "
-            "subsets and needs the mesh layouts, which are not ported yet "
-            "(ROADMAP queue A item 8)")
 
     import torch
 
     from ..common import resolve_device
-    from ..serve import InferenceServer
+    from ..serve import InferenceServer, TopologyRouter
     from ..utils import telemetry
+    from ..utils.engine import Engine
 
     device = resolve_device(args.device)
+    if args.routed:
+        # ranks that share a card need gloo (NCCL refuses two on one GPU)
+        Engine.init(device=device, backend="gloo")
     # arm the span tracer per BIGDL_TORCH_TRACE
     tracer = telemetry.maybe_start()
     model, sample = build_model(args.model, device)
-    server = InferenceServer(
-        model, example=sample, replicas=args.replicas,
-        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        queue_limit=args.queue_limit, deadline_ms=args.deadline_ms,
-        autoscale_max=args.autoscale_max, device=device)
+    kwargs = dict(example=sample, replicas=args.replicas,
+                  max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                  queue_limit=args.queue_limit,
+                  deadline_ms=args.deadline_ms,
+                  autoscale_max=args.autoscale_max, device=device)
+    if args.routed:
+        server = TopologyRouter(model, layout=args.router_layout, **kwargs)
+    else:
+        server = InferenceServer(model, **kwargs)
     server.start()
+    if args.routed and not server.leading:
+        # a member rank: follow rank 0's members until rank 0 stops
+        server.stop()
+        _leave(tracer)
+        return 0
     if args.checkpoint:
         server.swap(args.checkpoint, quantized=args.quantized)
     engine = None
@@ -450,6 +471,10 @@ def main(argv=None):
     host, port = httpd.server_address[:2]
     print(json.dumps({"serving": f"http://{host}:{port}",
                       "model": args.model, "device": str(device),
+                      "routed": ({"layout": list(server.layout.sizes),
+                                  "replicas": server.replicas,
+                                  "world": Engine.group_size()}
+                                 if args.routed else False),
                       "version": server.version.id,
                       "watching": args.watch,
                       "generate": bool(engine),
@@ -477,13 +502,28 @@ def main(argv=None):
         if engine is not None:
             engine.stop(drain=True)
         server.stop(drain=True)
-        if tracer is not None:
+        stats = server.stats()
+        if args.routed:
+            _leave(tracer)
+        elif tracer is not None:
             tracer.close()
     print(json.dumps({"stopped": True, "stats": {
-        k: server.stats()[k] for k in ("batches", "batch_rows",
-                                       "batch_errors", "swaps")}}),
+        k: stats.get(k, 0) for k in ("batches", "batch_rows",
+                                     "batch_errors", "swaps")}}),
           flush=True)
     return 0
+
+
+def _leave(tracer) -> None:
+    """A routed rank's exit: the tracer closed, then every rank meets
+    before the group is torn down (a peer still talking would abort)."""
+    import torch.distributed as dist
+
+    from ..utils.engine import Engine
+    if tracer is not None:
+        tracer.close()
+    dist.barrier()
+    Engine.reset()
 
 
 if __name__ == "__main__":

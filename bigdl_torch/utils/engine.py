@@ -80,11 +80,30 @@ any other, and axes of no mesh raise (ROADMAP.md queue A item 8).
 :meth:`reform` over a multi-axis mesh raises the reference's typed
 ``MeshReformError`` where the new rank count cannot keep the non-data
 block intact, before the live group's :class:`GroupReformError`.
+
+Meshes over a subset of the ranks (the topology router's members,
+``serve/router.py``; any ``MeshLayout.build_mesh(ranks)``): building one
+registers it (:meth:`register_mesh`, collective: every rank of the
+world builds every such mesh, in one order), which forms the process
+group of every set of its wide axes and its lead group (every rank of
+the mesh, over gloo: a follower waits there for its leader's next
+message, ``serve/lead.py``).  Inside
+``with Engine.pinned(mesh):`` the calling THREAD reads that mesh as the
+Engine's: :meth:`mesh`, :meth:`mesh_coordinate`, :meth:`axis_group`,
+:meth:`group` (its batch group), :meth:`group_size` and
+:meth:`group_rank`, so the layouts' plans, scoring and decoding run on
+the member's ranks while another thread of the same process serves
+another mesh.  The Engine's own mesh is registered when installed.
+
+Besides the three kinds of :meth:`collectives`, the ring's hops and the
+all-to-alls of the sequence-parallel attentions are counted
+(:attr:`permutes`, :attr:`all_to_alls`), and listed there once any ran.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
 import itertools
 import logging
@@ -127,6 +146,29 @@ class GroupReformError(RuntimeError):
     new world."""
 
 
+class _MeshState:
+    """A registered multi-axis mesh as this rank sees it: the process group
+    of every set of its wide axes and its batch group (None off the mesh),
+    this rank's coordinate (None off the mesh), and its lead group (the
+    mesh's ranks, over gloo)."""
+
+    def __init__(self, mesh, groups: dict, lead):
+        self.mesh, self.groups, self.lead = mesh, groups, lead
+        self.names = tuple(mesh.mesh_dim_names)
+        c = mesh.get_coordinate()
+        self.coord = None if c is None else dict(zip(self.names, c))
+        self.ranks = [int(r) for r in mesh.mesh.reshape(-1).tolist()]
+        batch = BATCH_AXES if "model" not in self.names else ("data",)
+        self.batch = self.axis_group(batch) if self.coord is not None \
+            else None
+
+    def axis_group(self, axes):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        key = tuple(a for a in self.names if a in axes and
+                    int(self.mesh.shape[self.names.index(a)]) > 1)
+        return self.groups[key]
+
+
 class Engine:
     """Process-wide singleton holding the data group (BigDL:
     utils/Engine.scala:36)."""
@@ -141,17 +183,26 @@ class Engine:
     _initialized = False
     #: the DeviceMesh of mesh_shape (1-D or a layout's), else None
     _mesh = None
-    #: axis set -> this rank's process group over it, on a multi-axis mesh
-    _axis_groups: dict = {}
     #: the topology a reform() installed: {"rank", "survivors"}
     _elastic: Optional[dict] = None
     _lock = threading.Lock()
+    #: the installed multi-axis mesh's state, else None
+    _state: Optional[_MeshState] = None
+    #: id(mesh) -> _MeshState of every registered mesh
+    _registered: dict = {}
+    #: the mesh a thread pinned (:meth:`pinned`)
+    _local = threading.local()
     #: all-reduce calls since the last reset, by kind
     all_reduces = collections.Counter()
     #: reduce-scatter calls since the last reset, by kind
     reduce_scatters = collections.Counter()
     #: all-gather calls since the last reset, by kind
     all_gathers = collections.Counter()
+    #: point-to-point hops around a ring (``parallel/hops.py``) since the
+    #: last reset, by kind: the reference's collective-permutes
+    permutes = collections.Counter()
+    #: all-to-alls since the last reset, by kind
+    all_to_alls = collections.Counter()
 
     @classmethod
     def init_distributed(cls, backend: str) -> None:
@@ -275,17 +326,33 @@ class Engine:
     @classmethod
     def _install(cls, mesh) -> None:
         """Make ``mesh`` (several named axes) the Engine's: its batch
-        group and the process group of every set of its wide axes."""
+        group and the process group of every set of its wide axes
+        (formed here unless the mesh is registered already)."""
+        st = cls._registered.get(id(mesh))
+        if st is None or st.mesh is not mesh:
+            st = cls.register_mesh(mesh)
+        cls._mesh = mesh
+        cls._state = st
+        cls._group = st.batch
+
+    @classmethod
+    def register_mesh(cls, mesh) -> _MeshState:
+        """Form the process groups of a multi-axis ``DeviceMesh`` (over all
+        the ranks or a subset of them): one a set of its wide axes and a
+        row of the others, and its lead group.  Collective: every rank of
+        the world registers every mesh, in one order (``new_group``
+        forms a group on every rank, members or not).  Returns its state;
+        :meth:`pinned` reads it."""
         names = tuple(mesh.mesh_dim_names)
         sizes = [int(n) for n in mesh.shape]
         ranks = mesh.mesh.reshape(sizes)
         wide = [a for a, n in zip(names, sizes) if n > 1]
         me = dist.get_rank()
+        whole = math.prod(sizes) == dist.get_world_size()
         groups = {}
         for k in range(len(wide) + 1):
             for axes in itertools.combinations(wide, k):
-                if len(axes) == len(wide) and \
-                        math.prod(sizes) == dist.get_world_size():
+                if len(axes) == len(wide) and whole:
                     groups[axes] = dist.group.WORLD
                     continue
                 dims = [names.index(a) for a in axes]
@@ -296,10 +363,47 @@ class Engine:
                     g = dist.new_group(row)
                     if me in row:
                         groups[axes] = g
-        cls._mesh = mesh
-        cls._axis_groups = groups
-        batch = BATCH_AXES if "model" not in names else (cls.DATA_AXIS,)
-        cls._group = cls.axis_group(batch)
+        members = sorted(int(r) for r in ranks.reshape(-1).tolist())
+        lead = dist.new_group(members, timeout=DIST_TIMEOUT, backend="gloo")
+        st = _MeshState(mesh, groups if me in members else {},
+                        lead if me in members else None)
+        cls._registered[id(mesh)] = st
+        return st
+
+    @classmethod
+    def mesh_state(cls, mesh=None) -> Optional[_MeshState]:
+        """The state of a registered mesh (the Engine's own included);
+        an unregistered one raises.  ``mesh`` None: the thread's pinned
+        mesh's, else the installed multi-axis mesh's, else None."""
+        if mesh is None:
+            return cls._pin() or cls._state
+        st = cls._registered.get(id(mesh))
+        if st is None or st.mesh is not mesh:
+            raise ValueError("the mesh is not registered: build it with "
+                             "parallel/layout.MeshLayout.build_mesh on every "
+                             "rank (or install it as the Engine's)")
+        return st
+
+    @classmethod
+    @contextlib.contextmanager
+    def pinned(cls, mesh):
+        """Inside the block this thread reads ``mesh`` (registered, with
+        this rank on it) as the Engine's mesh (module docstring); blocks
+        nest."""
+        st = cls.mesh_state(mesh)
+        if st.coord is None:
+            raise ValueError(f"rank {dist.get_rank()} is not on the mesh of "
+                             f"ranks {st.ranks}")
+        prev = getattr(cls._local, "pin", None)
+        cls._local.pin = st
+        try:
+            yield st
+        finally:
+            cls._local.pin = prev
+
+    @classmethod
+    def _pin(cls) -> Optional[_MeshState]:
+        return getattr(cls._local, "pin", None)
 
     @classmethod
     def set_mesh(cls, mesh) -> None:
@@ -318,18 +422,18 @@ class Engine:
         or several; one-wide and absent axes count for nothing: an empty
         set is this rank alone).  None where no multi-axis mesh is
         installed."""
-        if cls._mesh is None or not cls._axis_groups:
+        st = cls._pin() or cls._state
+        if st is None or not st.groups:
             return None
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        names = tuple(cls._mesh.mesh_dim_names)
-        key = tuple(a for a in names if a in axes and
-                    int(cls._mesh.shape[names.index(a)]) > 1)
-        return cls._axis_groups[key]
+        return st.axis_group(axes)
 
     @classmethod
     def mesh_coordinate(cls) -> dict:
         """{axis: this rank's index on it} of the Engine's mesh ({} without
         one)."""
+        pin = cls._pin()
+        if pin is not None:
+            return dict(pin.coord)
         if cls._mesh is None:
             return {}
         return dict(zip(cls._mesh.mesh_dim_names,
@@ -340,13 +444,17 @@ class Engine:
         """The data group (on a multi-axis mesh the batch group), or None
         before :meth:`init` and on a 1-D mesh of another axis (where the
         data axis is one wide)."""
-        return cls._group
+        pin = cls._pin()
+        return pin.batch if pin is not None else cls._group
 
     @classmethod
     def mesh(cls):
         """The ``DeviceMesh`` of ``mesh_shape`` (or :meth:`set_mesh`); else the
         data group (the reference's mesh is the port's data group), None
         before :meth:`init`."""
+        pin = cls._pin()
+        if pin is not None:
+            return pin.mesh
         return cls._mesh if cls._mesh is not None else cls._group
 
     @classmethod
@@ -362,7 +470,8 @@ class Engine:
                 dist.destroy_process_group()
             cls._group = None
             cls._mesh = None
-            cls._axis_groups = {}
+            cls._state = None
+            cls._registered = {}
             cls._initialized = False
             cls._device = None
             cls._elastic = None
@@ -374,15 +483,23 @@ class Engine:
         cls.all_reduces.clear()
         cls.reduce_scatters.clear()
         cls.all_gathers.clear()
+        cls.permutes.clear()
+        cls.all_to_alls.clear()
 
     @classmethod
     def collectives(cls) -> dict:
         """Every collective count by operation, then kind:
         ``{"all_reduce": {...}, "reduce_scatter": {...},
-        "all_gather": {...}}``."""
-        return {"all_reduce": dict(cls.all_reduces),
-                "reduce_scatter": dict(cls.reduce_scatters),
-                "all_gather": dict(cls.all_gathers)}
+        "all_gather": {...}}``, with ``"permute"`` and ``"all_to_all"``
+        once any of those ran."""
+        out = {"all_reduce": dict(cls.all_reduces),
+               "reduce_scatter": dict(cls.reduce_scatters),
+               "all_gather": dict(cls.all_gathers)}
+        if cls.permutes:
+            out["permute"] = dict(cls.permutes)
+        if cls.all_to_alls:
+            out["all_to_all"] = dict(cls.all_to_alls)
+        return out
 
     @classmethod
     def all_reduce(cls, t: torch.Tensor, kind: str, group=None,
@@ -392,7 +509,7 @@ class Engine:
         ``t``, or with ``async_op`` the work handle, whose ``wait()`` must
         come before anything reads ``t``."""
         work = dist.all_reduce(t, op=dist.ReduceOp.SUM,
-                               group=cls._group if group is None else group,
+                               group=cls.group() if group is None else group,
                                async_op=async_op)
         cls.all_reduces[kind] += 1
         return work if async_op else t
@@ -405,7 +522,7 @@ class Engine:
         n elements, chunk r at [r·n, (r+1)·n)); counted in
         :attr:`reduce_scatters`."""
         _REDUCE_SCATTER(out, inp, op=dist.ReduceOp.SUM,
-                        group=cls._group if group is None else group)
+                        group=cls.group() if group is None else group)
         cls.reduce_scatters[kind] += 1
         return out
 
@@ -415,7 +532,7 @@ class Engine:
         """``out`` (world x n elements) = every rank's ``inp`` (n
         elements) over ``group`` (default: the data group), rank r's at
         [r·n, (r+1)·n); counted in :attr:`all_gathers`."""
-        _ALL_GATHER(out, inp, group=cls._group if group is None else group)
+        _ALL_GATHER(out, inp, group=cls.group() if group is None else group)
         cls.all_gathers[kind] += 1
         return out
 
@@ -434,13 +551,14 @@ class Engine:
     def group_size(cls) -> int:
         """Processes of the ``torch.distributed`` group, 1 without one:
         what a sum over the group is divided by and ZeRO slices over."""
-        return (dist.get_world_size(cls._group) if cls._group is not None
-                else 1)
+        group = cls.group()
+        return dist.get_world_size(group) if group is not None else 1
 
     @classmethod
     def group_rank(cls) -> int:
         """This process's rank in the group, 0 without one."""
-        return dist.get_rank(cls._group) if cls._group is not None else 0
+        group = cls.group()
+        return dist.get_rank(group) if group is not None else 0
 
     # -- the elastic topology (parallel/elastic.py) ---------------------
 

@@ -6,16 +6,18 @@
 (``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10,
 ``--zero-child DIR`` one of phase 10b, ``--elastic-child SPEC`` one
 process of phase 21's drill, ``--pipe-seq-child DIR`` one rank of
-phase 24 and ``--layouts-child DIR`` one of phase 25, started by the
-script itself;
+phase 24, ``--layouts-child DIR`` one of phase 25 and
+``--serve-layouts-child DIR`` one of phase 26, started by the script
+itself;
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
 ``--only train_records`` the build and phase 15 alone, ``--only
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
 ``--only layers``, ``--only train_zoo``, ``--only zoo_data``, ``--only
 serve_stack``, ``--only elastic_fleet``, ``--only observe``, ``--only
-train_moe``, ``--only pipe_seq`` and ``--only layouts`` the build and
-phase 16, 17, 18, 19, 20, 21, 22, 23, 24 or 25 alone,
+train_moe``, ``--only pipe_seq``, ``--only layouts`` and ``--only
+serve_layouts`` the build and phase 16, 17, 18, 19, 20, 21, 22, 23, 24,
+25 or 26 alone,
 and none of them prints the final line.  Every phase is followed by a
 line with its wall seconds, ``{"phase": ..., "phase_s": ...}``, and the
 whole run by ``{"script_s": ...}``.)
@@ -628,6 +630,37 @@ Phases, each printing one JSON line:
    tensors through host memory (``parallel/hops.py``), decode ms a step;
    B6 / B7 at the new shapes and B8 at [4, 4, 64, 64] on both routes held
    to their plain versions and timed beside SDPA and the bound.
+26. ``serve_layouts``: serving on the mesh layouts, four gloo ranks on
+   the card in one group on the Engine's (1,2,2) mesh (one spawn,
+   ``--serve-layouts-child``), the bench LM from ``SEED``.  (R) A
+   ``TopologyRouter`` of two (1,1,2) members over ranks {0,1} and {2,3}
+   (``max_batch=8``, ``SEQ_BUCKETS``) led by rank 0: first in float32
+   (8 requests, batches of 2), then 32 scoring requests of 100 to 512
+   tokens in bf16; then 8 requests queued behind ``scale_to(1)``, 8
+   more on the one member, ``scale_to(2)``, member 0 marked unhealthy
+   and 16 requests.  Gates: every request answered, both members routed
+   to, each answer within ``SL_F32_TOL`` (float32) or ``LY_PREDICT_TOL``
+   (bf16) of the one-process ``Predictor`` (rank 0, a mesh of one) at
+   its bucket, the drill's 16 all on member 1 and the pool healthy.
+   (S) ``InferenceServer(mesh=Engine.mesh(), LayoutSharding,
+   replicas=2)`` over the four ranks, two client threads, a swap to a
+   second LM while they send: none lost, versions 1 and 2 answered, each
+   answer within ``LY_PREDICT_TOL`` of its version's one-process
+   ``Predictor``.  (D) ``DecodeEngine(mesh=Engine.mesh(), slots=8,
+   page=16)``, continuous admission: in float32 6 sequences (prompts of
+   8 to 16 tokens, 8 new), tokens equal to the one-process engine's and
+   every sampled row within ``LY_DECODE_TOL``; then 12 in bf16, timed.
+   Gates on every rank: B6 exactly 8 a batch its member ran (the
+   leader's batch messages), none with the log-sum-exp, on ``"tc"``
+   (``"f32"`` in float32) at 4 heads; B8 exactly 8 x (ticks + the
+   prompt positions of the rank's block of slots) on the dtype's route
+   at 4 heads; no CUDA graph under the mesh; nothing through ``hops``.
+   Printed: each part's seconds a rank, the router's ``stats()
+   ["router"]``, the decode tokens/s and busy ms a tick; B6 at [8, 4, T,
+   64] bf16 causal (T of ``SEQ_BUCKETS``) and [2, 4, 512, 64] float32
+   without the log-sum-exp, B8 at [4, 4, L, 64] (the rungs the run used)
+   on both routes, held to their plain versions and timed beside SDPA
+   and the bound.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -647,8 +680,9 @@ trainer and B8 per ``/v1/generate`` run of ``serve_stack``, B6 and B7
 per elastic drill (rank 0 and the joiner) of ``elastic_fleet`` with the
 shrunk world's case, B6 and B7 per traced LM run of ``observe`` and per
 MoE run of ``train_moe``, B6 and B7 per pipelined, ring and Ulysses run
-of ``pipe_seq``, B6, B7 and B8 per layout run of ``layouts`` (the four
-ranks' launches together), each with its case's times), the
+of ``pipe_seq``, B6, B7 and B8 per layout run of ``layouts`` and B6 (by
+sequence bucket) and B8 (by cache length) per run of ``serve_layouts``
+(the four ranks' launches together), each with its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -700,7 +734,8 @@ from bigdl_torch.parallel import (DataParallel, LayoutSharding, MeshLayout,
                                   ShardedDataParallel, TensorParallel,
                                   bucket_count, measure_collective_seconds)
 from bigdl_torch.serve import (DecodeEngine, InferenceServer,
-                               ReplicaLostError, fit_bucket, pad_tail)
+                               ReplicaLostError, TopologyRouter, fit_bucket,
+                               pad_tail)
 from bigdl_torch.serve import continuous as tct
 from bigdl_torch.serve import tracefile
 from bigdl_torch.tools import record_generator, serve_http
@@ -9396,14 +9431,16 @@ def ly_float32():
 
 
 @contextlib.contextmanager
-def launch_shapes(module, name, seen):
+def launch_counts(module, name, key=lambda q, *a: tuple(q.shape)):
     """``module.name`` (a kernel's wrapper as a caller imported it)
-    wrapped to add each call's first operand shape to ``seen``."""
+    wrapped to count each call under ``key(*args)`` (default: the first
+    operand's shape); yields the Counter."""
     fn = getattr(module, name)
+    seen = collections.Counter()
 
-    def wrapped(q, *a, **kw):
-        seen.add(tuple(q.shape))
-        return fn(q, *a, **kw)
+    def wrapped(*a, **kw):
+        seen[key(*a)] += 1
+        return fn(*a, **kw)
     setattr(module, name, wrapped)
     try:
         yield seen
@@ -9441,7 +9478,7 @@ def ly_train(sizes, samples, ref):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with launch_shapes(attn_mod, "flash_attention", set()) as shapes:
+    with launch_counts(attn_mod, "flash_attention") as shapes:
         losses = train(model, samples, LY_STEPS,
                        LY_BATCH // Engine.group_size(), distributed=True,
                        criterion=nn.TimeDistributedCriterion(
@@ -9482,7 +9519,7 @@ def ly_score_and_decode(model, strat, rows, prompts, out_dir, rank):
     from bigdl_torch.nn import attention as attn_mod
     rec = {}
     zero_flash()
-    with launch_shapes(attn_mod, "flash_attention", set()) as shapes:
+    with launch_counts(attn_mod, "flash_attention") as shapes:
         logp = Predictor(model, batch_size=LY_PREDICT_ROWS,
                          strategy=strat).predict(rows)
     rec["predict"] = {"b6": attn_ops.flash_attention.launches,
@@ -9495,7 +9532,7 @@ def ly_score_and_decode(model, strat, rows, prompts, out_dir, rank):
         zero_b8()
         ctx = ly_float32() if dtype == torch.float32 else \
             contextlib.nullcontext()
-        with ctx, launch_shapes(dec_mod, "decode_attention", set()) as seen:
+        with ctx, launch_counts(dec_mod, "decode_attention") as seen:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             toks, lrows = dec_mod.cached_generate_rows(
@@ -9752,6 +9789,476 @@ def ly_run(tmp):
          "floor_ms": b8b["floor_ms"], "splits": b8b["splits"]}]
 
 
+# -- 26. serve_layouts ---------------------------------------------------------
+
+SL_TIMEOUT = 600
+#: the router's scoring requests: (count, shortest, longest) in tokens
+SL_REQUESTS = (32, 100, 512)
+#: the float32 router's requests and batch cap
+SL_F32_REQUESTS = (8, 100, 512)
+SL_F32_BATCH = 2
+SL_F32_TOL = 1e-4
+#: requests queued behind the scale-down, then sent after the loss
+SL_SCALE = 8
+SL_LOSS = 16
+#: the layout server's requests (count, shortest, longest) and its one
+#: sequence bucket: under fsdp every forward gathers the whole LM's
+#: float32 parameters over gloo, so its ladder stays short
+SL_SERVER = (12, 100, 128)
+SL_SERVER_BUCKETS = SEQ_BUCKETS[:1]
+#: the decode engine on (1,2,2): slots, cache page, sequences, prompt
+#: lengths and new tokens
+SL_SLOTS = 8
+SL_PAGE = 16
+SL_SEQS = 12
+#: the float32 run's sequences (its gates: tokens and rows), fewer: every
+#: prompt position is a step of about 60 gloo collectives
+SL_F32_SEQS = 6
+SL_PROMPT = (8, 16)
+SL_NEW = 8
+
+
+def sl_requests(spec, seed):
+    n, lo, hi = spec
+    r = np.random.default_rng(seed)
+    return [r.integers(0, LM["vocab_size"], r.integers(lo, hi + 1))
+            .astype(np.int64) for _ in range(n)]
+
+
+def sl_prompts():
+    r = np.random.default_rng(SEED + 63)
+    return [r.integers(0, LM["vocab_size"], r.integers(SL_PROMPT[0],
+                                                       SL_PROMPT[1] + 1))
+            .astype(np.int32) for _ in range(SL_SEQS)]
+
+
+def sl_b6_counts():
+    from bigdl_torch.nn import attention as attn_mod
+    return launch_counts(attn_mod, "flash_attention")
+
+
+def sl_b8_counts():
+    # (q's shape, the cache's length)
+    return launch_counts(dec_mod, "decode_attention",
+                         lambda q, kn, vn, kc, *a: tuple(q.shape)
+                         + (int(kc.shape[2]),))
+
+
+def sl_one_predictor(solo, seed):
+    """The one-process Predictor on this rank (rank 0) alone: the LM from
+    ``seed``, unsharded, on the solo mesh (a group of one)."""
+    one = TransformerLM(**LM).build("cuda", torch.Generator().manual_seed(
+        seed))
+    with Engine.pinned(solo):
+        return one, Predictor(one, batch_size=MAX_BATCH, device="cuda")
+
+
+def sl_errors(pairs, preds):
+    """max |answer - one-process Predictor| by version over ``pairs`` of
+    (request, answer, version), each request padded to its bucket; the
+    predictors batch the requests of one bucket and version."""
+    worst = {}
+    groups = collections.defaultdict(list)
+    for x, out, v in pairs:
+        groups[(out.shape[0], v)].append((x, out))
+    for (T, v), items in sorted(groups.items()):
+        want = preds[v][1].predict(np.stack([pad_tail(x, T)
+                                             for x, _ in items]))
+        err = max(float(np.abs(out - w).max()) for (_, out), w
+                  in zip(items, want))
+        worst[v] = max(worst.get(v, 0.0), err)
+        del want
+    return worst
+
+
+def sl_router(rank, solo, f32):
+    """(R) the router over ranks {0,1} and {2,3}, (1,1,2) members; the
+    bf16 run adds the scale and loss drills.  Every rank returns its B6
+    launches; rank 0 also the routing, the drills, the errors against the
+    one-process Predictor and the batches sent to each member."""
+    spec = SL_F32_REQUESTS if f32 else SL_REQUESTS
+    xs = sl_requests(spec, SEED + 60 + int(f32))
+    lm = TransformerLM(**LM).build("cuda", torch.Generator().manual_seed(
+        SEED))
+    zero_flash()
+    hops_mod.host_copies.clear()
+    rec = {}
+    with sl_b6_counts() as shapes:
+        router = TopologyRouter(
+            lm, layout=MeshLayout(1, 1, 2), replicas=2,
+            max_batch=SL_F32_BATCH if f32 else MAX_BATCH, max_wait_ms=5,
+            seq_buckets=SEQ_BUCKETS,
+            example=np.zeros((SEQ_BUCKETS[0],), np.int64),
+            device="cuda").start()
+        if rank == 0:
+            t0 = time.perf_counter()
+            pairs = [(x, h.result(300), 1) for x, h in
+                     [(x, router.submit(x)) for x in xs]]
+            rec["serve_s"] = time.perf_counter() - t0
+            rec["tokens"] = int(sum(len(x) for x in xs))
+            st = router.stats()
+            rec["routed"] = st["router"]["routed"]
+            if not f32:
+                rec["stats_router"] = st["router"]
+                # scale down with requests queued, then back up
+                short = [x[:SEQ_BUCKETS[0]] for x in xs[:SL_SCALE]]
+                queued = [(x, router.submit(x)) for x in short]
+                rec["scale_down"] = router.scale_to(1)
+                pairs += [(x, h.result(300), 1) for x, h in queued]
+                pairs += [(x, router.predict(x, timeout=300), 1)
+                          for x in short]
+                rec["live_after_down"] = router.stats()["replicas_live"]
+                rec["scale_up"] = router.scale_to(2)
+                # member 0 lost: the next requests all go to member 1
+                router._members[0]._mark_unhealthy(
+                    ReplicaLostError("drill: member 0 lost"))
+                before = list(router._routed)
+                lost = [x[:SEQ_BUCKETS[0]] for x in
+                        sl_requests((SL_LOSS, 100, 128), SEED + 62)]
+                pairs += [(x, h.result(300), 1) for x, h in
+                          [(x, router.submit(x)) for x in lost]]
+                rec["routed_after_loss"] = [
+                    a - b for a, b in zip(router._routed, before)]
+                rec["healthy_after_loss"] = router.healthy()
+            rec["batches"] = [router._leads[i].counts.get("batch", 0)
+                              for i in range(2)]
+            rec["answered"] = len(pairs)
+        router.stop()
+    torch.cuda.synchronize()
+    rec["b6"] = attn_ops.flash_attention.launches
+    rec["b6_lse"] = attn_ops.flash_attention.lse_launches
+    rec["routes"] = flash_routes()
+    rec["b6_shapes"] = [[list(k), n] for k, n in sorted(shapes.items())]
+    rec["host_copies"] = dict(hops_mod.host_copies)
+    if rank == 0:
+        preds = {1: sl_one_predictor(solo, SEED)}
+        rec["max_abs_err"] = sl_errors(pairs, preds)[1]
+        del pairs, preds
+    del lm, router
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sl_server(rank, solo):
+    """(S) ``InferenceServer(mesh=)`` on the Engine's (1,2,2) over the four
+    ranks, ``replicas=2``, a swap to a second LM while two clients send."""
+    xs = sl_requests(SL_SERVER, SEED + 64)
+    lm = TransformerLM(**LM).build("cuda", torch.Generator().manual_seed(
+        SEED))
+    zero_flash()
+    hops_mod.host_copies.clear()
+    rec = {}
+    with sl_b6_counts() as shapes:
+        server = InferenceServer(
+            lm, mesh=Engine.mesh(), strategy=LayoutSharding(lm), replicas=2,
+            max_batch=MAX_BATCH, max_wait_ms=5,
+            seq_buckets=SL_SERVER_BUCKETS,
+            example=np.zeros((SEQ_BUCKETS[0],), np.int64),
+            device="cuda").start()
+        if rank == 0:
+            pairs, lock, swapped = [], threading.Lock(), threading.Event()
+            second = TransformerLM(**LM).build(
+                "cuda", torch.Generator().manual_seed(SEED + 1))
+
+            def client(rows):
+                # closed loop: a pass while the swap runs, one after it
+                for k in range(2):
+                    if k:
+                        swapped.wait()
+                    for x in rows:
+                        h = server.submit(x)
+                        with lock:
+                            pairs.append((x, h.result(300), h.version))
+            ts = [threading.Thread(target=client, args=(xs[k::2],))
+                  for k in range(2)]
+            for t in ts:
+                t.start()
+            while len(pairs) < 2:
+                time.sleep(0.01)
+            rec["swapped_to"] = server.swap(second)
+            swapped.set()
+            for t in ts:
+                t.join()
+            st = server.stats()
+            rec.update(answered=len(pairs), batch_errors=st["batch_errors"],
+                       versions=sorted({v for _, _, v in pairs}),
+                       messages=st["mesh"]["messages"])
+            rec["batches"] = st["mesh"]["messages"]["batch"]
+        server.stop()
+    torch.cuda.synchronize()
+    rec["b6"] = attn_ops.flash_attention.launches
+    rec["b6_lse"] = attn_ops.flash_attention.lse_launches
+    rec["routes"] = flash_routes()
+    rec["b6_shapes"] = [[list(k), n] for k, n in sorted(shapes.items())]
+    rec["host_copies"] = dict(hops_mod.host_copies)
+    if rank == 0:
+        preds = {1: sl_one_predictor(solo, SEED),
+                 2: sl_one_predictor(solo, SEED + 1)}
+        rec["max_abs_err"] = sl_errors(pairs, preds)
+        del pairs, preds, second
+    del lm, server
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sl_sampled(eng, seen):
+    """``eng._sample`` wrapped to keep each sequence's log-prob rows, by
+    its request."""
+    fn = eng._sample
+
+    def wrapped(seq, row):
+        seen.setdefault(id(seq.req), []).append(np.array(row, np.float32))
+        return fn(seq, row)
+    eng._sample = wrapped
+
+
+def sl_decode(rank):
+    """(D) ``DecodeEngine(mesh=)`` on the Engine's (1,2,2): float32 against
+    one process (rank 0), then bf16, timed."""
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ctx = ly_float32() if dtype == torch.float32 else \
+            contextlib.nullcontext()
+        prompts = sl_prompts()[:SL_F32_SEQS if name == "f32" else SL_SEQS]
+        rec = {}
+        with ctx:
+            lm = TransformerLM(**LM).build(
+                "cuda", torch.Generator().manual_seed(SEED))
+            zero_b8()
+            hops_mod.host_copies.clear()
+            with sl_b8_counts() as shapes:
+                eng = DecodeEngine(lm, mesh=Engine.mesh(), slots=SL_SLOTS,
+                                   page=SL_PAGE, cache_dtype=dtype,
+                                   device="cuda").start()
+                if rank == 0:
+                    rows = {}
+                    sl_sampled(eng, rows)
+                    t0 = time.perf_counter()
+                    hs = [eng.submit(p, SL_NEW) for p in prompts]
+                    toks = [h.result(300) for h in hs]
+                    rec["wall_s"] = time.perf_counter() - t0
+                    st = eng.stats()
+                    rec.update({k: st[k] for k in (
+                        "decode_steps", "prefill_steps", "tokens_out",
+                        "tokens_per_s", "cache_len", "cache_grows")})
+                    rec["graphs"] = st["graphs"]
+                    rec["prefill_positions"] = st["mesh"][
+                        "prefill_positions"]
+                    rec["busy_ms_per_tick"] = (
+                        1e3 * st["tokens_out"] / st["tokens_per_s"]
+                        / max(st["decode_steps"], 1))
+                eng.stop()
+            torch.cuda.synchronize()
+            rec["b8"] = dec_ops.decode_attention.launches
+            rec["routes"] = dict(dec_ops.decode_attention.route_launches)
+            rec["b8_shapes"] = [[list(k), n] for k, n in
+                                sorted(shapes.items())]
+            rec["slots_here"] = eng.stats()["mesh"]["slots_here"]
+            rec["host_copies"] = dict(hops_mod.host_copies)
+            if rank == 0 and name == "f32":
+                one = TransformerLM(**LM).build(
+                    "cuda", torch.Generator().manual_seed(SEED))
+                ref_rows = {}
+                with DecodeEngine(one, slots=SL_SLOTS, page=SL_PAGE,
+                                  cache_dtype=dtype, device="cuda") as ref:
+                    sl_sampled(ref, ref_rows)
+                    rh = [ref.submit(p, SL_NEW) for p in prompts]
+                    want = [h.result(300) for h in rh]
+                rec["tokens_equal"] = all(np.array_equal(a, b)
+                                          for a, b in zip(toks, want))
+                rec["rows_max_abs_err"] = max(
+                    float(np.abs(np.stack(rows[id(h)])
+                                 - np.stack(ref_rows[id(g)])).max())
+                    for h, g in zip(hs, rh))
+                del one
+            if rank == 0:
+                rec["tokens"] = [t.tolist() for t in toks]
+            del lm, eng
+            torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
+def serve_layouts_child(out_dir):
+    """One of the four ranks of ``serve_layouts``: (R), (S) and (D) in
+    turn on one group, the Engine's mesh (1,2,2)."""
+    import torch.distributed as dist
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    rank = int(os.environ["BIGDL_TORCH_PROCESS_ID"])
+    os.environ["BIGDL_TORCH_COORDINATOR"] = f"file://{out_dir}/store"
+    Engine.init(device="cuda:0", backend="gloo",
+                mesh_shape=MeshLayout(1, 2, 2).shape())
+    # the one-process Predictor's group of one (rank 0), built everywhere
+    solo = MeshLayout(1, 1, 1).build_mesh([0])
+    rec = {"rank": rank, "world": 4, "part_s": {}}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        rec[name] = fn(*args)
+        rec["part_s"][name] = time.perf_counter() - t0
+    with ly_float32():
+        part("router_f32", sl_router, rank, solo, True)
+    part("router", sl_router, rank, solo, False)
+    part("server", sl_server, rank, solo)
+    part("decode", sl_decode, rank)
+    emit(rec)
+    dist.barrier()
+    Engine.reset()
+    return 0
+
+
+def phase_serve_layouts():
+    """Serving on the mesh layouts (module docstring, 26); returns the
+    kernels line's rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return sl_run(tmp)
+
+
+def sl_shape_sum(recs, field, pred):
+    return sum(n for r in recs for k, n in r[field] if pred(k))
+
+
+def sl_checks(ranks):
+    """The phase's gates on every rank (module docstring, 26)."""
+    L, H = LM["num_layers"], LM["num_heads"]
+    members = ([0, 1], [2, 3])
+    r0 = ranks[0]
+    for key, route, f32 in (("router_f32", "f32", True),
+                            ("router", "tc", False)):
+        lead = r0[key]
+        spec = SL_F32_REQUESTS if f32 else SL_REQUESTS
+        check(all(n > 0 for n in lead["routed"]),
+              f"serve_layouts {key}: routed {lead['routed']}")
+        tol = SL_F32_TOL if f32 else LY_PREDICT_TOL
+        check(lead["max_abs_err"] <= tol, f"serve_layouts {key}: answers "
+              f"off the one-process Predictor by {lead['max_abs_err']} "
+              f"(tolerance {tol})")
+        want_answered = spec[0] + (0 if f32 else 2 * SL_SCALE + SL_LOSS)
+        check(lead["answered"] == want_answered, f"serve_layouts {key}: "
+              f"{lead['answered']} answers of {want_answered}")
+        for i, sub in enumerate(members):
+            for r in sub:
+                rr = ranks[r][key]
+                want = L * lead["batches"][i]
+                check(rr["b6"] == want and rr["b6_lse"] == 0
+                      and rr["routes"]["flash_attention"].get(route, 0)
+                      == want and all(s[1] == H // 2 and s[3] == 64
+                                      for s, _ in rr["b6_shapes"]),
+                      f"serve_layouts {key} rank {r}: B6 {rr['b6']} "
+                      f"(lse {rr['b6_lse']}) routes {rr['routes']} shapes "
+                      f"{rr['b6_shapes']}, want {want} on {route!r}")
+    lead = r0["router"]
+    check(lead["scale_down"] == 1 and lead["live_after_down"] == 1
+          and lead["scale_up"] == 2, f"serve_layouts router scale: {lead}")
+    check(lead["routed_after_loss"] == [0, SL_LOSS]
+          and lead["healthy_after_loss"], f"serve_layouts router loss "
+          f"drill: routed {lead['routed_after_loss']}, healthy "
+          f"{lead['healthy_after_loss']}")
+    srv = r0["server"]
+    check(srv["batch_errors"] == 0 and srv["versions"] == [1, 2]
+          and srv["swapped_to"] == 2
+          and srv["answered"] == 2 * SL_SERVER[0],
+          f"serve_layouts server: {srv}")
+    check(max(srv["max_abs_err"].values()) <= LY_PREDICT_TOL,
+          f"serve_layouts server: answers off the one-process Predictor "
+          f"of their version by {srv['max_abs_err']}")
+    for r, rr in enumerate(ranks):
+        s = rr["server"]
+        want = L * srv["batches"]
+        check(s["b6"] == want and s["b6_lse"] == 0
+              and s["routes"]["flash_attention"].get("tc", 0) == want,
+              f"serve_layouts server rank {r}: B6 {s['b6']} routes "
+              f"{s['routes']}, want {want} on 'tc'")
+    for name, route in (("f32", "f32"), ("bf16", "bf16")):
+        d0 = r0["decode"][name]
+        check(d0["graphs"]["captures"] == 0, f"serve_layouts decode "
+              f"{name}: graphs {d0['graphs']}")
+        for r, rr in enumerate(ranks):
+            d = rr["decode"][name]
+            lo, n = d["slots_here"]
+            want = L * (d0["decode_steps"] + d0["prefill_positions"][lo // n])
+            check(d["b8"] == want and d["routes"].get(route, 0) == want
+                  and all(s[0] in (1, SL_SLOTS // 2) and s[1] == H // 2
+                          for s, _ in d["b8_shapes"]),
+                  f"serve_layouts decode {name} rank {r}: B8 {d['b8']} "
+                  f"routes {d['routes']} shapes {d['b8_shapes']}, want "
+                  f"{want} on {route!r}")
+    d0 = r0["decode"]["f32"]
+    check(d0["tokens_equal"] and d0["rows_max_abs_err"] <= LY_DECODE_TOL,
+          f"serve_layouts decode f32: tokens equal {d0['tokens_equal']}, "
+          f"rows off by {d0['rows_max_abs_err']}")
+    for r, rr in enumerate(ranks):
+        for key in ("router_f32", "router", "server"):
+            check(not rr[key]["host_copies"], f"serve_layouts {key} rank "
+                  f"{r}: tensors through hops {rr[key]['host_copies']}")
+        for name in ("f32", "bf16"):
+            check(not rr["decode"][name]["host_copies"], f"serve_layouts "
+                  f"decode {name} rank {r}: tensors through hops")
+
+
+def sl_run(tmp):
+    """``phase_serve_layouts`` with ``tmp`` for the ranks' meeting."""
+    t_phase = time.perf_counter()
+    ranks, wall = spawn_ranks("--serve-layouts-child", tmp, SL_TIMEOUT, n=4)
+    emit({"phase": "serve_layouts", "part": "ranks", "gpu": gpu_line(),
+          "spawn_wall_s": wall, "part_s": [r["part_s"] for r in ranks],
+          "router": {k: v for k, v in ranks[0]["router"].items()
+                     if k not in ("b6_shapes", "routes")},
+          "router_f32": {k: ranks[0]["router_f32"][k] for k in (
+              "routed", "max_abs_err", "batches", "serve_s")},
+          "server": {k: v for k, v in ranks[0]["server"].items()
+                     if k not in ("b6_shapes", "routes")},
+          "decode": {n: {k: v for k, v in ranks[0]["decode"][n].items()
+                         if k not in ("tokens", "b8_shapes")}
+                     for n in ("f32", "bf16")},
+          "b6": {k: [r[k]["b6"] for r in ranks]
+                 for k in ("router_f32", "router", "server")},
+          "b8": {n: [r["decode"][n]["b8"] for r in ranks]
+                 for n in ("f32", "bf16")}})
+    sl_checks(ranks)
+    H = LM["num_heads"]
+    gen = torch.Generator().manual_seed(SEED + 65)
+    b6 = {T: flash_case(MAX_BATCH, H // 2, T, T, 64, torch.bfloat16, True,
+                        gen) for T in SEQ_BUCKETS}
+    b6_f32 = flash_case(SL_F32_BATCH, H // 2, LM["max_len"], LM["max_len"],
+                        64, torch.float32, True, gen)
+    lens = sorted({s[-1] for r in ranks for n in ("f32", "bf16")
+                   for s, _ in r["decode"][n]["b8_shapes"]})
+    b8 = {(n, L): decode_case(SL_SLOTS // 2, H // 2, L, 64, dt, gen)
+          for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
+          for L in lens}
+    cases = list(b6.values()) + [b6_f32] + list(b8.values())
+    emit({"phase": "serve_layouts", "gpu": gpu_line(), "b6": b6,
+          "b6_f32": b6_f32, "b8": {f"{n}_{L}": c for (n, L), c
+                                   in b8.items()},
+          "phase_s": time.perf_counter() - t_phase})
+    for c in cases:
+        check(c["ok"], f"serve_layouts kernel case {c}")
+    tc = {"tc": 0, "f32": 0}
+    rows = []
+    for T, c in b6.items():
+        n = sum(sl_shape_sum([r[k] for r in ranks], "b6_shapes",
+                             lambda s, T=T: s[2] == T)
+                for k in ("router", "server"))
+        rows.append(kernel_row(c, "flash_attention", *B6_SRC, n,
+                               f"serve_layouts router (1,1,2) and server "
+                               f"(1,2,2) bf16, T = {T} (4 ranks)",
+                               {**tc, "tc": n}))
+    n = sum(r["router_f32"]["b6"] for r in ranks)
+    rows.append(kernel_row(b6_f32, "flash_attention", *B6_SRC, n,
+                           "serve_layouts router (1,1,2) float32 (4 ranks)",
+                           {**tc, "f32": n}))
+    for (name, L), c in b8.items():
+        n = sl_shape_sum([r["decode"][name] for r in ranks], "b8_shapes",
+                         lambda s, L=L: s[-1] == L)
+        rows.append({**kernel_row(
+            c, "decode_attention", *B8_SRC, n,
+            f"serve_layouts DecodeEngine(mesh=(1,2,2)) {name}, cache "
+            f"{L} (4 ranks)", {"f32": 0, "bf16": 0, name: n}),
+            "floor_ms": c["floor_ms"], "splits": c["splits"]})
+    return rows
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall seconds."""
     t0 = time.perf_counter()
@@ -9776,6 +10283,12 @@ def main():
         return pipe_seq_child(sys.argv[2])
     if sys.argv[1:2] == ["--layouts-child"]:
         return layouts_child(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-layouts-child"]:
+        return serve_layouts_child(sys.argv[2])
+    if sys.argv[1:3] == ["--only", "serve_layouts"]:
+        timed("build", phase_build)
+        timed("serve_layouts", phase_serve_layouts)
+        return 0
     if sys.argv[1:3] == ["--only", "layouts"]:
         timed("build", phase_build)
         timed("layouts", phase_layouts)
@@ -9876,6 +10389,7 @@ def main():
     rows += timed("train_moe", phase_train_moe)
     rows += timed("pipe_seq", phase_pipe_seq)
     rows += timed("layouts", phase_layouts)
+    rows += timed("serve_layouts", phase_serve_layouts)
     rows.append(decode_row)
     emit({"script_s": time.perf_counter() - t_script})
     emit({"kernels": rows})

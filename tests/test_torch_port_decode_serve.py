@@ -250,8 +250,8 @@ def test_submit_rejects_bad_requests_typed(pair):
         eng.submit(np.ones(3, np.int32), 1000)
     with pytest.raises(ValueError, match="max_len"):
         _engine(pair, max_len=4096)     # beyond the positional cap
-    with pytest.raises(NotImplementedError, match="tp-sharded"):
-        _engine(pair, mesh=object())
+    with pytest.raises(ValueError, match="canonical layout axes"):
+        _engine(pair, mesh=object())   # a mesh without the layout axes
 
 
 def test_queue_deadline_times_out_typed(pair):

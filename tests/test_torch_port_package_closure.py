@@ -22,11 +22,7 @@ import bigdl_tpu
 
 #: reference name -> the queue A item that ports it (serving 5, elastic
 #: 6, parallelism 8, interop 9)
-NOT_YET_PORTED = {
-    # the topology router places replicas on device subsets of a mesh
-    "TopologyRouter": "item 8", "PlacementError": "item 8",
-    "plan_subsets": "item 8",
-}
+NOT_YET_PORTED = {}
 
 ALLOWED_ITEMS = {"item 5", "item 6", "item 8", "item 9"}
 

@@ -293,8 +293,25 @@ def test_swap_module_file_and_tree(tmp_path, lenets):
 
 
 def test_mesh_raises_naming_item_8(lenets):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        InferenceServer(lenets[0][1], device="cpu", mesh=object())
+    """``mesh=`` serves now: on the (1,1,1) layout of a world of one (a
+    registered mesh, its rank leading) the answers are the plain server's;
+    a mesh no ``MeshLayout.build_mesh`` registered raises ValueError."""
+    from bigdl_torch.parallel import MeshLayout
+    from bigdl_torch.utils.engine import Engine
+    Engine.init(device="cpu")
+    try:
+        mesh = MeshLayout(1, 1, 1).build_mesh()
+        xs = _rows(3, 4)
+        with _port_server(lenets[0][1], mesh=mesh) as server:
+            _check_answers([server.submit(x) for x in xs], xs,
+                           {1: Predictor(lenets[0][1], device="cpu")})
+            assert server.stats()["mesh"] == {
+                "ranks": [0], "leader": 0, "role": "leader",
+                "messages": {"batch": 1 + len(xs)}}
+        with pytest.raises(ValueError, match="not registered"):
+            InferenceServer(lenets[0][1], device="cpu", mesh=object())
+    finally:
+        Engine.reset()
 
 
 def test_chaos_killed_replica_restarted_none_lost(lenets):

@@ -281,9 +281,44 @@ def test_serving_bench_tiny(capsys):
     assert all(r["tokens_per_sec"] > 0 for r in out["results"])
 
 
-def test_cli_routed_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsh.main(["--routed", "--device", "cpu"])
+def test_cli_routed_raises(tmp_path):
+    """``--routed`` serves now: two gloo CPU ranks behind the router, one
+    (1,1,1) member a rank; rank 0 binds HTTP and answers ``/v1/predict``
+    equal to ``Predictor`` on the CLI's seeded LeNet-5, member 1 on rank 1
+    warmed its ladder, and SIGTERM drains both ranks to exit 0."""
+    from bigdl_torch.optim import Predictor
+    env = {**os.environ, "PYTHONPATH": _REPO,
+           "BIGDL_TORCH_COORDINATOR": f"file://{tmp_path}/store",
+           "BIGDL_TORCH_NUM_PROCESSES": "2"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bigdl_torch.tools.serve_http", "--model",
+         "lenet", "--port", "0", "--routed", "--router-layout", "1,1,1",
+         "--replicas", "2", "--device", "cpu"], cwd=_REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**env, "BIGDL_TORCH_PROCESS_ID": str(r)}) for r in range(2)]
+    try:
+        start = json.loads(procs[0].stdout.readline())
+        base = start["serving"]
+        assert start["routed"] == {"layout": [1, 1, 1], "replicas": 2,
+                                   "world": 2}
+        x = _rows(1, 7)[0]
+        code, b, _ = _call(base, "/v1/predict", {"inputs": x.tolist()})
+        model = tsh.build_model("lenet", "cpu")[0]
+        want = Predictor(model, device="cpu").predict(x[None])[0]
+        assert code == 200 and b["version"] == 1
+        np.testing.assert_array_equal(np.float32(b["outputs"]), want)
+        code, st, _ = _call(base, "/v1/stats")
+        members = st["router"]["members"]
+        assert [m["devices"] for m in members.values()] == [[0], [1]]
+        assert members["1"]["messages"] == {"activate": 1, "batch": 4}
+    finally:
+        procs[0].send_signal(signal.SIGTERM)
+        outs = [p.communicate(timeout=60) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    lines = [json.loads(line) for line in outs[0][0].strip().splitlines()]
+    assert lines[0] == {"stopping": "SIGTERM", "drain": True}
+    assert lines[-1]["stopped"] and lines[-1]["stats"]["batches"] == 1
 
 
 def test_cli_answers_then_drains_on_sigterm(tmp_path):
