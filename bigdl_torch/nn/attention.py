@@ -14,9 +14,25 @@ all-gathers the ranks' shard gradients, runs the ring, and all-gathers
 o, whose backward takes this rank's shard of the gradient.  The two
 operators are conjugate (Megatron's sequence-parallel pair), so every
 rank's gradients come out the same with no reduce.  Without a ``seq``
-axis the forward raises, as the reference's ``shard_map`` does.  The
-reference's ``BIGDL_TPU_RING_ATTN`` seam over a ``tp`` axis waits for
-ROADMAP.md queue A item 8.
+axis the forward raises, as the reference's ``shard_map`` does.  On a
+``{"data": d, "seq": n}`` mesh the pair runs in this rank's seq group,
+on its data row's rows of the batch.
+
+The seam (``BIGDL_TORCH_RING_ATTN=1``, the reference's
+``BIGDL_TPU_RING_ATTN``): on a layout whose ``tp`` axis is wider than
+one and divides T, the attention core runs the same slice, ring and
+gather over the ``tp`` group (the batch axes are ``data x fsdp``, each
+of their coordinates ringing its own rows); otherwise it stays inert.
+The ring needs every head's q, k and v for this rank's rows of T, while
+a tp split computes the heads of this rank only.  Of the two ways to
+reconcile them (gather the four kernels over tp, or move from heads to
+rows with one all-to-all) the port takes the first: while the seam is
+on, :meth:`MultiHeadAttention.tp_ok` is false, so the plan gathers the
+kernels over tp like any sharded leaf and every tp rank projects the
+whole q, k, v of its rows.  It adds no collective to the layer beyond
+the gather at use that FSDP already does, and the layer's code path is
+the seq-parallel one; the all-to-all would save the duplicated
+projections at the cost of a second layout of the activations.
 
 Under a layout whose tp axis splits the four kernels along their output
 features (``parallel/mesh_plan.py`` sets ``_tp``), each rank projects,
@@ -30,6 +46,7 @@ import torch
 
 from ..common import get_policy
 from ..ops.attention import flash_attention
+from ..utils import config
 from .initialization import compute_fans, default_weight_init
 from .linear import matmul_f32
 from .module import Module
@@ -43,6 +60,8 @@ class MultiHeadAttention(Module):
 
     PARAM_ROLES = {"wq": "kernel_in", "wk": "kernel_in", "wv": "kernel_in",
                    "wo": "kernel_in", "*": "bias"}
+    #: used only as their casts to the compute dtype (parallel/mesh_plan.py)
+    COMPUTE_CAST = ("wq", "wk", "wv", "wo")
 
     def __init__(self, embed_dim: int, num_heads: int, causal: bool = False,
                  seq_parallel: bool = False, seq_axis: str = "seq",
@@ -82,8 +101,21 @@ class MultiHeadAttention(Module):
     def tp_ok(self, n: int) -> bool:
         """Whether a tensor-parallel split of the kernels' output features
         over ``n`` ranks leaves whole heads on each (not under ring
-        attention)."""
-        return self.num_heads % n == 0 and not self.seq_parallel
+        attention, nor with the seam on)."""
+        return (self.num_heads % n == 0 and not self.seq_parallel
+                and not config.get_bool("RING_ATTN", False))
+
+    def _seam(self, T: int):
+        """The tp axis's group where the seam rings over it (module
+        docstring), else None."""
+        if self.__dict__.get("_tp") is not None or \
+                not config.get_bool("RING_ATTN", False):
+            return None
+        from ..parallel.hops import axis_group
+        ax = axis_group(None, "tp")
+        if ax is None or ax.n <= 1 or T % ax.n:
+            return None
+        return ax
 
     def _qkv(self, x):
         """q, k, v of x [B, T, E] as [B, H', T, D] views (the kernel reads
@@ -128,18 +160,22 @@ class MultiHeadAttention(Module):
     def forward(self, x):
         B, T, _ = x.shape
         q, k, v = self._qkv(x)
+        seam = None if self.seq_parallel else self._seam(T)
         if self.seq_parallel:
             o = self._ring(q, k, v)
+        elif seam is not None:
+            o = self._ring(q, k, v, seam, "tp")
         else:
             # [B, H', T, D]: under a tp split of 2 at the bench width
             # [B, 4, 512, 64], this rank's heads only
             o = flash_attention(q, k, v, causal=self.causal)
         return self._out(o.transpose(1, 2).reshape(B, T, -1))
 
-    def _ring(self, q, k, v):
+    def _ring(self, q, k, v, ax=None, axis=None):
         from ..parallel.hops import axis_group
         from ..parallel.ring_attention import ring_attention
-        ax = axis_group(None, self.seq_axis)
+        axis = axis or self.seq_axis
+        ax = ax or axis_group(None, axis)
         if ax is None:
             raise ValueError(
                 f"MultiHeadAttention(seq_parallel=True) needs a mesh with "
@@ -150,8 +186,8 @@ class MultiHeadAttention(Module):
             raise ValueError(f"sequence length {T} does not divide among "
                              f"the {ax.n} ranks of {self.seq_axis!r}")
         q, k, v = (_ShardRows.apply(ax, t) for t in (q, k, v))
-        o = ring_attention(q, k, v, seq_axis=self.seq_axis,
-                           causal=self.causal)
+        o = ring_attention(q, k, v, seq_axis=axis, causal=self.causal,
+                           batch_axis=("data", "fsdp"))
         return _GatherRows.apply(ax, o)
 
 

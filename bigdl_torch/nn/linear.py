@@ -77,6 +77,8 @@ class Linear(Module):
     float32 before the cast back to the compute dtype."""
 
     PARAM_ROLES = {"weight": "kernel_out", "bias": "bias"}
+    #: used only as its cast to the compute dtype (parallel/mesh_plan.py)
+    COMPUTE_CAST = ("weight",)
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True, w_regularizer=None,

@@ -12,12 +12,26 @@ Counterpart of ``bigdl_tpu/parallel/expert.py``:
   p̄_e, with f_e from the router's choices before the capacity cut.
 - :class:`MoEFFN`: gate -> routing -> a two-layer ReLU FFN per expert ->
   combine, as dense products over every expert (dispatch and combine are
-  products with the [tokens, experts, capacity] one-hot masks).  One card
-  holds every expert: the reference's sharding hints over an ``expert``
-  mesh axis wait for the mesh layouts.  The Switch loss of a training
-  forward lands in the module's state (``aux_loss``), where the
-  ``Optimizer`` adds it to the criterion's loss
-  (:func:`collect_aux_losses`).
+  products with the [tokens, experts, capacity] one-hot masks).  The
+  Switch loss of a training forward lands in the module's state
+  (``aux_loss``), where the ``Optimizer`` adds it to the criterion's
+  loss (:func:`collect_aux_losses`).  Under ``LayoutSharding`` on a
+  layout with ``expert`` = e > 1 (``parallel/mesh_plan.py`` calls
+  :meth:`MoEFFN.mesh_rows`, which sets ``_ep``) each rank holds E/e rows
+  of the four tables (the ``expert_table`` role) and computes with them: the routing and the
+  dispatch buffer [E, C, D] come out alike on every expert rank (the
+  batch is replicated over ``expert``), each rank runs its own experts'
+  FFN on its rows of the buffer, and the outputs are all-gathered over
+  ``expert`` (kind ``"expert_out"``; the backward takes this rank's
+  slice of the cotangent); the rows enter through the conjugate slice,
+  whose backward all-gathers the rows' gradients (``"expert_in"``), so
+  the input and gate gradients come out equal on every expert rank and
+  nothing is summed over ``expert``.  Under a mesh strategy whose batch
+  axes are wider than one (``_batch``) the routing is the global
+  batch's, as the reference's: the capacity counts every batch rank's
+  tokens, each round's buffer positions count the lower batch ranks'
+  tokens first, and the Switch loss takes the global f_e.  Under
+  ``DataParallel`` each rank routes its own rows.
 - :func:`expert_parallel_ffn`: the same FFN with the experts spread over
   the ranks of a 1-D ``DeviceMesh`` axis and the tokens routed to them by
   ``all_to_all_single``; the dense math where the axis is missing or one
@@ -48,6 +62,17 @@ def top_k_routing(gate_logits, capacity: int, k: int = 1):
     probs [T, E] the full float32 softmax, and assign [T, E] the router's
     choices before the capacity cut (the Switch paper's f_e reads these).
     All float32."""
+    return _route(gate_logits, capacity, k)[:4]
+
+
+def _route(gate_logits, capacity: int, k: int = 1, batch=None):
+    """:func:`top_k_routing`, and the router's choices per expert summed
+    over the global batch.  ``batch`` (a ``TpAxis`` over the batch ranks,
+    ``parallel/mesh_plan.py``) makes the tokens of ``gate_logits`` this
+    rank's block of a batch split over those ranks in rank order: each
+    round's positions count the lower ranks' tokens first (one
+    all-gather of the [E] counts a round, kind ``"moe_route"``), as the
+    reference routes its global batch."""
     T, E = gate_logits.shape
     if k > E:
         raise ValueError(f"top-k routing with k={k} > num_experts={E}")
@@ -56,6 +81,7 @@ def top_k_routing(gate_logits, capacity: int, k: int = 1):
     combine = torch.zeros((T, E, capacity), **f32)
     dispatch = torch.zeros((T, E, capacity), **f32)
     assign = torch.zeros((T, E), **f32)
+    chosen = torch.zeros((E,), **f32)
     # tokens already routed to each expert by earlier rounds
     claimed = torch.zeros((E,), dtype=torch.int64, device=probs.device)
     masked = probs
@@ -65,6 +91,11 @@ def top_k_routing(gate_logits, capacity: int, k: int = 1):
         # each token's position in its expert's buffer, in token order
         pos_in_e = onehot.cumsum(0) - onehot
         pos = (pos_in_e * onehot).sum(-1).long() + claimed[idx]
+        counts = onehot.sum(0)
+        if batch is not None:
+            every = batch.all_gather(counts[None], 0, "moe_route")
+            pos = pos + every[:batch.rank].sum(0).long()[idx]
+            counts = every.sum(0)
         keep = pos < capacity
         # an index of ``capacity`` is the dropped row: all zeros
         slot = F.one_hot(torch.where(keep, pos, capacity),
@@ -74,9 +105,10 @@ def top_k_routing(gate_logits, capacity: int, k: int = 1):
         dispatch = dispatch + route
         combine = combine + route * gate_p[:, :, None]
         assign = assign + onehot
-        claimed = claimed + onehot.sum(0).long()
+        chosen = chosen + counts
+        claimed = claimed + counts.long()
         masked = masked * (1.0 - onehot)
-    return combine, dispatch, probs, assign
+    return combine, dispatch, probs, assign, chosen
 
 
 def load_balancing_loss(probs, assign):
@@ -124,14 +156,17 @@ class MoEFFN(Module):
     ``dropout_rng`` block, and none without one, as the reference draws
     none without a key.
 
-    ``expert_axis`` is kept for the reference's signature: the reference
-    hints XLA to shard the experts over that mesh axis; here one card
-    holds every expert until the mesh layouts are ported, and the math
-    is the same."""
+    ``expert_axis`` is kept for the reference's signature: the
+    reference hints XLA to shard the experts over that mesh axis; here
+    the layout's ``expert`` axis splits the tables (module docstring)."""
 
     PARAM_ROLES = {"gate": "kernel_in", "w1": "expert_table",
                    "w2": "expert_table", "b1": "expert_table",
                    "b2": "expert_table"}
+    #: the per-expert tables, whose dim 0 is the expert
+    TABLES = ("w1", "b1", "w2", "b2")
+    #: used only as their casts to the compute dtype (parallel/mesh_plan.py)
+    COMPUTE_CAST = TABLES
 
     def __init__(self, d_model: int, d_hidden: int, num_experts: int,
                  k: int = 1, capacity_factor: float = 1.25,
@@ -161,6 +196,25 @@ class MoEFFN(Module):
     def _init_state(self):
         return {"aux_loss": torch.zeros((), dtype=torch.float32)}
 
+    def mesh_rows(self, plan) -> dict:
+        """Bind the layer to a mesh plan (``parallel/mesh_plan.py``): under
+        batch axes wider than one it routes the global batch (``_batch``);
+        where the plan splits all four tables' rows over ``expert`` it
+        runs its own experts on them (``_ep``).  Returns the tables that
+        keep their rows, {name: "expert"} (none where it does not)."""
+        self.__dict__.pop("_ep", None)
+        self.__dict__.pop("_batch", None)
+        batch = plan.axis(plan.batch_axes)
+        if batch is not None:
+            self._batch = batch
+        ep = plan.axis(("expert",))
+        leaves = [plan.leaf(self, n) for n in self.TABLES]
+        if ep is None or not all(l is not None and l.axes[0] == ("expert",)
+                                 for l in leaves):
+            return {}
+        self._ep = ep
+        return dict.fromkeys(self.TABLES, "expert")
+
     def _capacity(self, tokens: int) -> int:
         return _capacity(self.k, tokens, self.num_experts,
                          self.capacity_factor)
@@ -178,14 +232,32 @@ class MoEFFN(Module):
                                    device=x.device)
                 gate_in = gate_in * (noise * (2 * e) + (1.0 - e))
         logits = gate_in @ self.gate.float()
-        combine, dispatch, probs, assign = top_k_routing(
-            logits, self._capacity(xt.shape[0]), self.k)
+        batch = self.__dict__.get("_batch")
+        n = 1 if batch is None else batch.n
+        combine, dispatch, probs, assign, chosen = _route(
+            logits, self._capacity(xt.shape[0] * n), self.k, batch)
         buf = torch.einsum("tec,td->ecd", dispatch.to(c), xt)
-        out = _expert_ffn(buf, self.w1.to(c), self.b1.to(c), self.w2.to(c),
-                          self.b2.to(c))
+        ep = self.__dict__.get("_ep")
+        if ep is not None and self.w1.shape[0] * ep.n == self.num_experts:
+            # this rank's experts on their rows, gathered over expert
+            mine = ep.slice(buf, 0, "expert_in")
+            out = ep.gather(_expert_ffn(mine, self.w1.to(c), self.b1.to(c),
+                                        self.w2.to(c), self.b2.to(c)),
+                            0, "expert_out")
+        else:
+            out = _expert_ffn(buf, self.w1.to(c), self.b1.to(c),
+                              self.w2.to(c), self.b2.to(c))
         y = torch.einsum("tec,ecd->td", combine.to(c), out)
         if self.training:
-            aux = self.aux_loss_weight * load_balancing_loss(probs, assign)
+            if batch is None:
+                aux = load_balancing_loss(probs, assign)
+            else:
+                # the global f_e times this rank's mean gate probability:
+                # the mean over the batch ranks, which the strategy takes,
+                # is the global batch's loss, and so is its gradient
+                aux = self.num_experts * torch.sum(
+                    chosen / (xt.shape[0] * n) * probs.mean(0))
+            aux = self.aux_loss_weight * aux
             # a checkpoint's recompute in the backward computes it again
             # (it must save what the forward saved) and leaves nothing: its
             # loss was the forward's

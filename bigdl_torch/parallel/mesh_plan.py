@@ -20,19 +20,38 @@ program and lets GSPMD place the collectives; PyTorch runs eagerly, so a
   tensors its layers compute with and swapped into the modules'
   ``_parameters``; a forward hook puts the shards back.  The gather is
   one all-gather per group of axes and dtype of the unit (kind
-  ``"params"``): a leaf is gathered over every axis of its spec but a
-  tensor-parallel one its layer computes on.  Its backward is one
+  ``"params"``): a leaf is gathered over every axis of its spec but
+  those whose rows its module computes with (``_Leaf.keep``): tp where
+  its layer computes its slice, pipe for a pipeline's stage stack (the
+  ``pipeline_stage`` role; each pipe rank runs its own stages,
+  ``parallel/pipeline.py``) and expert for the tables of a module that
+  takes its own rows (``mesh_rows``, as ``MoEFFN``: each expert rank
+  runs its own experts, ``parallel/expert.py``).  Its backward is one
   reduce-scatter per such bucket (kind ``"grads"``), which runs once the
   unit's backward is done, so a unit's whole gradients live only until
   then; each shard's ``.grad`` is the sum over the batch ranks of the
   gather group, and a rank off coordinate 0 of a gathered non-batch axis
   (tp, model, pipe, expert) sends zeros, since those ranks computed the
-  same gradient.  The whole tensors a unit's backward needs (the compute
-  dtype's copies of its kernels) stay saved by autograd from its forward
-  to its backward: nothing re-gathers them in the backward yet
-  (ROADMAP.md queue A item 8), so a training step's peak holds the
-  model's whole weights in the compute dtype, but the float32 whole
-  weights and gradients of one unit at a time only.
+  same gradient.  Under grad, a leaf that its layer uses only as one
+  cast of the whole to the compute dtype (the class's
+  ``COMPUTE_CAST``: ``Linear``'s weight, the attention's kernels, the
+  expert tables) is swapped in as that cast, made once at the gather,
+  and the layer's own ``.to`` finds it done.
+- Re-gathered in the backward (FSDP's reshard after forward): while a
+  unit's forward runs, ``torch.autograd.graph.saved_tensors_hooks``
+  pack every tensor autograd saves whose storage is one of the tensors
+  swapped in (a view of one: the plan registers their storages by
+  address) as a handle to its bucket (:class:`_Saved`); the first unpack
+  in the unit's backward gathers the bucket again (kind
+  ``"params_bwd"``, one all-gather a bucket that saved a weight) and
+  casts it as the forward did.  The copies belong to that forward's
+  handles (:class:`_Copies`) and go when autograd frees them, once the
+  unit's backward ran or the graph was dropped: a backward abandoned
+  part way cannot hand a later step its weights.  So the whole tensors
+  alive at once are one unit's, not every unit's.  :attr:`MeshPlan.held_peak` is the most
+  whole bytes alive at once (each gathered tensor and each cast counted
+  from its creation until it is freed, by a ``weakref.finalize``),
+  beside :meth:`MeshPlan.gathered_bytes`.
 - Tensor parallelism: a ``Linear`` whose ``weight`` is split over the tp
   axis along its output features (dim 0), and a ``MultiHeadAttention``
   whose four (E, E) kernels are split along their output features (the
@@ -58,10 +77,12 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..common import get_policy
 from ..nn.linear import _mm_f32, matmul_f32
 from ..utils.engine import Engine
 
@@ -96,15 +117,18 @@ class TpAxis:
             return matmul_f32(x, w)
         return _Matmul.apply(xe, x.detach(), w)
 
-    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, dim: int = -1,
+               kind: str = "tp_out") -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order; the
         gradient is this rank's slice."""
-        return _Gather.apply(self, x, dim)
+        return _Gather.apply(self, x, dim, kind)
 
-    def slice(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    def slice(self, x: torch.Tensor, dim: int = -1,
+              kind: str = "tp_bias") -> torch.Tensor:
         """This rank's slice of ``x`` (whole on every rank) along ``dim``;
-        the gradient is all the ranks' slices gathered."""
-        return _Slice.apply(self, x, dim)
+        the gradient is all the ranks' slices gathered (counted under
+        ``kind``)."""
+        return _Slice.apply(self, x, dim, kind)
 
     def all_gather(self, x: torch.Tensor, dim: int, kind: str):
         x = x.contiguous()
@@ -155,24 +179,24 @@ class _Matmul(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ax, x, dim):
+    def forward(ctx, ax, x, dim, kind):
         ctx.ax, ctx.dim = ax, dim
-        return ax.all_gather(x, dim, "tp_out")
+        return ax.all_gather(x, dim, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return None, ctx.ax.narrow(g, ctx.dim), None
+        return None, ctx.ax.narrow(g, ctx.dim), None, None
 
 
 class _Slice(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ax, x, dim):
-        ctx.ax, ctx.dim = ax, dim
+    def forward(ctx, ax, x, dim, kind):
+        ctx.ax, ctx.dim, ctx.kind = ax, dim, kind
         return ax.narrow(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return None, ctx.ax.all_gather(g, ctx.dim, "tp_bias"), None
+        return None, ctx.ax.all_gather(g, ctx.dim, ctx.kind), None, None
 
 
 def _tp_dims(module) -> Optional[dict]:
@@ -189,6 +213,17 @@ def _tp_dims(module) -> Optional[dict]:
     return None
 
 
+def _cast_names(module) -> tuple:
+    """The parameters ``module``'s forward uses only as one cast of the
+    whole to the compute dtype: its class's ``COMPUTE_CAST``, where that
+    class's forward is the one that runs."""
+    for cls in type(module).__mro__:
+        if "COMPUTE_CAST" in cls.__dict__:
+            return cls.COMPUTE_CAST if type(module).forward is cls.forward \
+                else ()
+    return ()
+
+
 def _axes_of(entry) -> tuple:
     if entry is None:
         return ()
@@ -197,16 +232,21 @@ def _axes_of(entry) -> tuple:
 
 class _Leaf:
     """One parameter under a plan: its module and name, the ``Parameter``,
-    the whole shape, the wide mesh axes of each dim (in spec order) and
-    the dim its layer keeps split over tp (or None)."""
+    the whole shape, the wide mesh axes of each dim (in spec order), the
+    dim its layer keeps split over tp (or None) and whether its layer
+    computes with its cast to the compute dtype (``cast``)."""
 
     def __init__(self, module, name, param, spec, sizes):
         self.module, self.name, self.param = module, name, param
         self.whole = tuple(param.shape)
+        self.cast = name in _cast_names(module)
         spec = tuple(spec) + (None,) * (len(self.whole) - len(spec))
         self.axes = [tuple(a for a in _axes_of(e) if sizes.get(a, 1) > 1)
                      for e in spec]
         self.local_dim: Optional[int] = None
+        # the axes whose rows the module computes on (never gathered):
+        # tp on ``local_dim``, pipe on a stage stack, expert on a table
+        self.keep: set = set()
         for d, axes in enumerate(self.axes):
             n = math.prod(sizes[a] for a in axes)
             if self.whole[d] % n:
@@ -216,6 +256,11 @@ class _Leaf:
 
     def all_axes(self) -> set:
         return {a for axes in self.axes for a in axes}
+
+    def gathered(self, names) -> tuple:
+        """The axes this leaf is gathered over at use, in mesh order."""
+        return tuple(a for a in names if a in self.all_axes()
+                     and a not in self.keep)
 
 
 class _Geom:
@@ -289,6 +334,18 @@ class _Bucket:
         return [p.view(geom.local) for p, geom in
                 zip(recv.split(self.sizes), self.geoms)]
 
+    def computed(self, tensors, dtypes) -> list:
+        """The gathered ``tensors`` as the layers compute with them: each
+        cast to its ``dtypes`` entry where it has one (each cast counted
+        in ``held_peak``)."""
+        out = []
+        for t, d in zip(tensors, dtypes):
+            if d is not None:
+                t = t.to(d)
+                self.plan._hold(t)
+            out.append(t)
+        return out
+
 
 class _GatherParams(torch.autograd.Function):
     """A bucket's shards -> the gathered tensors; the backward
@@ -297,11 +354,41 @@ class _GatherParams(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bucket, *shards):
         ctx.bucket = bucket
-        return tuple(bucket.gather(shards, "params"))
+        out = tuple(bucket.gather(shards, "params"))
+        for t in out:
+            bucket.plan._hold(t)
+        return out
 
     @staticmethod
     def backward(ctx, *grads):
         return (None,) + tuple(ctx.bucket.scatter_grads(grads))
+
+
+class _Copies:
+    """What one forward of a bucket swapped in, for its backward: the
+    dtype of each leaf's cast (None: its own) and the tensors gathered
+    again and cast so (None until the first unpack).  Only the handles
+    packed in that forward hold it, so the copies go with them: with the
+    graph's saved tensors once its backward ran or it was dropped, and
+    a later step can never compute with them."""
+
+    __slots__ = ("bucket", "dtypes", "tensors")
+
+    def __init__(self, bucket, dtypes):
+        self.bucket, self.dtypes, self.tensors = bucket, dtypes, None
+
+
+class _Saved:
+    """A saved tensor packed as a handle to its forward's
+    :class:`_Copies`: the index of the tensor swapped in whose storage it
+    views, and the view."""
+
+    __slots__ = ("copies", "i", "size", "stride", "offset")
+
+    def __init__(self, copies, i, t):
+        self.copies, self.i = copies, i
+        self.size, self.stride = t.size(), t.stride()
+        self.offset = t.storage_offset()
 
 
 class MeshPlan:
@@ -338,14 +425,23 @@ class MeshPlan:
         self.leaves = [_Leaf(*owner[id(p)], p, s, self.sizes)
                        for p, s in zip(params, specs)]
         self._mark_tp()
+        self._mark_rows()
         self.units = self._mark_units()
-        self._buckets = self._make_buckets(lambda l: tuple(
-            a for a in names if a in l.all_axes() and not (
-                l.local_dim is not None and a == tp_axis)))
+        self._buckets = self._make_buckets(lambda l: l.gathered(names))
         # whole tensors swapped in for a block (whole(), materialized()):
         # the units' hooks stand aside
         self._held = self._is_whole = False
         self._hooks = []
+        # a unit's saved-tensor hooks while its forward runs (None where
+        # grad is off), and the storages of the tensors swapped in for it
+        # (address -> (bucket, index, dtype))
+        self._saving: List = []
+        self._wholes: Dict[int, tuple] = {}
+        # bytes of whole tensors alive now, their most since the last
+        # reset_held(), and the storages counted (address -> [bytes,
+        # counted tensors alive on it])
+        self._live = self.held_peak = 0
+        self._counted: Dict[int, list] = {}
 
     # -- planning ----------------------------------------------------------
 
@@ -369,8 +465,46 @@ class MeshPlan:
                 continue
             for k, d in dims.items():
                 named[k].local_dim = d % len(named[k].whole)
+                named[k].keep.add(self.tp_axis)
             m._tp = TpAxis(Engine.axis_group(self.tp_axis), n,
                            self.coord[self.tp_axis])
+
+    def _mark_rows(self):
+        """Where a leaf's dim 0 splits over pipe or expert, it keeps the
+        axis if its module computes with this rank's rows.  In the role
+        table (``parallel/layout.py``) only a pipeline's stage stack
+        (``pipeline_stage``) splits over pipe, and the pipeline reads the
+        rows it is given (``parallel/pipeline.py``): it always keeps
+        them.  Over expert only ``expert_table`` leaves split; a module
+        that computes on its own rows says which (``mesh_rows(plan) ->
+        {name: axis}``, which binds what the module needs of the plan, as
+        ``MoEFFN``'s); the others are gathered."""
+        for l in self.leaves:
+            if l.axes and l.axes[0] == ("pipe",):
+                l.keep.add("pipe")
+        for m in self.model.modules():
+            bind = getattr(m, "mesh_rows", None)
+            if bind is not None:
+                for name, axis in bind(self).items():
+                    self.leaf(m, name).keep.add(axis)
+
+    def leaf(self, module, name: str) -> Optional[_Leaf]:
+        """The leaf of ``module``'s parameter ``name``, or None."""
+        for l in self.leaves:
+            if l.module is module and l.name == name:
+                return l
+        return None
+
+    def axis(self, axes: Sequence[str]) -> Optional[TpAxis]:
+        """A :class:`TpAxis` over the mesh axes ``axes`` (this rank's
+        index on them row-major), or None where they are one wide."""
+        n = math.prod(self.sizes.get(a, 1) for a in axes)
+        if n == 1:
+            return None
+        rank = 0
+        for a in axes:
+            rank = rank * self.sizes[a] + self.coord[a]
+        return TpAxis(Engine.axis_group(tuple(axes)), n, rank)
 
     def _mark_units(self) -> list:
         """Set each leaf's ``unit`` (module docstring); the units, in
@@ -404,6 +538,56 @@ class MeshPlan:
             out[id(b.unit)] += sum(math.prod(g.shape) for g in b.geoms) * \
                 b.leaves[0].param.element_size()
         return list(out.values())
+
+    def reset_held(self) -> None:
+        """Start :attr:`held_peak` over from the bytes alive now."""
+        self.held_peak = self._live
+
+    def _hold(self, t: torch.Tensor) -> None:
+        """Count ``t``'s storage (a whole tensor's, or a cast's of one)
+        among the whole bytes alive until the last counted tensor on it
+        is freed (``held_peak``: the most at once); views of one storage
+        count it once."""
+        st = t.untyped_storage()
+        key = st.data_ptr()
+        entry = self._counted.get(key)
+        if entry is None:
+            entry = self._counted[key] = [st.nbytes(), 0]
+            self._live += entry[0]
+            self.held_peak = max(self.held_peak, self._live)
+        entry[1] += 1
+        weakref.finalize(t, self._release, key)
+
+    def _release(self, key: int) -> None:
+        entry = self._counted.get(key)
+        if entry is not None:
+            entry[1] -= 1
+            if entry[1] == 0:
+                del self._counted[key]
+                self._live -= entry[0]
+
+    def _pack(self, t: torch.Tensor):
+        """A tensor autograd saves in a unit's forward: a view of a tensor
+        swapped in becomes a :class:`_Saved` handle, anything else stays
+        as it is."""
+        found = self._wholes.get(t.untyped_storage().data_ptr())
+        if found is None or found[2] != t.dtype:
+            return t
+        return _Saved(found[0], found[1], t)
+
+    def _unpack(self, x):
+        if not isinstance(x, _Saved):
+            return x
+        c = x.copies
+        if c.tensors is None:
+            b = c.bucket
+            with torch.no_grad():
+                whole = b.gather([l.param.detach() for l in b.leaves],
+                                 "params_bwd")
+                for t in whole:
+                    self._hold(t)
+                c.tensors = b.computed(whole, c.dtypes)
+        return c.tensors[x.i].as_strided(x.size, x.stride, x.offset)
 
     def tp_modules(self) -> list:
         """The modules that compute on tensor-parallel slices."""
@@ -466,17 +650,43 @@ class MeshPlan:
             l.module._parameters[l.name] = t
 
     def _pre(self, buckets):
-        if not self._held:
-            self._swap(self._materialized(buckets))
+        if self._held:
+            return
+        grad = torch.is_grad_enabled()
+        self._swap(self._materialized(buckets, grad))
+        hooks = None
+        if grad:
+            hooks = torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                             self._unpack)
+            hooks.__enter__()
+        self._saving.append(hooks)
 
     def _post(self, buckets):
-        if not self._held:
-            self._swap([(l, l.param) for b in buckets for l in b.leaves])
+        if self._held:
+            return
+        self._swap([(l, l.param) for b in buckets for l in b.leaves])
+        self._wholes = {k: v for k, v in self._wholes.items()
+                        if v[0].bucket not in buckets}
+        hooks = self._saving.pop() if self._saving else None
+        if hooks is not None:
+            hooks.__exit__(None, None, None)
 
-    def _materialized(self, buckets):
+    def _materialized(self, buckets, grad: bool = False):
+        """The (leaf, tensor) pairs a forward swaps in.  Under ``grad``
+        each leaf its layer computes cast comes as that cast, and the
+        tensors' storages are registered for :meth:`_pack` with this
+        forward's :class:`_Copies`."""
         out = []
+        c = get_policy().compute_dtype
         for b in buckets:
             ts = _GatherParams.apply(b, *[l.param for l in b.leaves])
+            if grad:
+                copies = _Copies(b, [c if l.cast and l.param.dtype != c
+                                     else None for l in b.leaves])
+                ts = b.computed(ts, copies.dtypes)
+                for i, t in enumerate(ts):
+                    self._wholes.setdefault(t.untyped_storage().data_ptr(),
+                                            (copies, i, t.dtype))
             out += list(zip(b.leaves, ts))
         return out
 

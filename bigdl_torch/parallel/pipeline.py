@@ -38,12 +38,22 @@ output is broadcast to every pipe rank, so the rest of the model computes
 the same loss on every rank; in the backward the last stage takes its own
 rank's cotangent (every rank holds the same one, none is summed), and the
 first stage's input gradient is broadcast back, so the layers before the
-pipeline get the same gradients everywhere.  The stacked gradients are
-summed over the pipe group before the Function returns them, since each
-row is nonzero on its owner only: every rank then applies the same update
-and holds the whole stack.  (The reference's 1/n of the stack per device
-needs its ``LayoutSharding``, which waits for the mesh layouts: ROADMAP.md
-queue A item 8.)
+pipeline get the same gradients everywhere.  Two routes for the stack:
+
+- replicated (a ``pipe`` mesh without a strategy): every rank holds the
+  whole stack; the stacked gradients are summed over the pipe group
+  before the Function returns them, since each row is nonzero on its
+  owner only, and every rank applies the same update.
+- sharded (``LayoutSharding`` on a layout with ``pipe`` > 1, such as
+  (2,1,1,2,1) or (1,2,1,2,1): the ``pipeline_stage`` role): each rank
+  holds its v rows of the stack, the reference's 1/n a device
+  (``parallel/mesh_plan.py`` never gathers them over pipe), and the
+  stage function reads them.  Each row's gradient is its owner's alone,
+  so nothing is summed over pipe; the strategy sums it over the batch
+  axes.  The pipe group is this rank's row of the mesh: each ``data x
+  fsdp`` coordinate runs its own pipeline on its own rows of the batch.
+  The route follows the stack's leading axis (n·v rows whole, v rows
+  this rank's).
 """
 
 from __future__ import annotations
@@ -129,7 +139,7 @@ class _Run:
 
     def __init__(self, stage_fn, spec, axis: AxisGroup, schedule: str,
                  m: int, v: int, remat: bool, needs_grad: bool,
-                 stats: Optional[dict]):
+                 stats: Optional[dict], local: bool):
         self.stage_fn, self.spec, self.axis = stage_fn, spec, axis
         self.schedule, self.m, self.v, self.remat = schedule, m, v, remat
         self.needs_grad = needs_grad
@@ -137,6 +147,14 @@ class _Run:
         self.bwd_tbl = (build_schedule("1f1b", axis.n, m, v)
                         if schedule == "1f1b" else None)
         self.stats = stats if stats is not None else {}
+        # the leaves hold this rank's v rows, not the whole stack
+        self.local = local
+
+    def row(self, j: int, d: int) -> int:
+        """The leaves' row of slice j on pipe rank d: its
+        ``stack_index`` in the whole stack, j in this rank's rows."""
+        return j if self.local else stack_index(j * self.axis.n + d,
+                                                self.axis.n, self.v)
 
     def run(self, leaves, k: int, x):
         """Stage row k on the microbatch x (checkpointed under remat)."""
@@ -200,7 +218,7 @@ def _forward_table(run: _Run, leaves, x, keep_graph: bool):
         y = None
         if tbl.act[t][d] == FWD:
             j, i = tbl.slice_idx[t][d], tbl.mb[t][d]
-            k = stack_index(j * n + d, n, v)
+            k = run.row(j, d)
             if tbl.fwd_feed[t][d]:
                 xin = micro[i]
             else:
@@ -252,7 +270,7 @@ def _gpipe_backward(run: _Run, leaves, graphs, gy_micro):
         if tbl.act[t][d] != FWD:
             continue
         j, i = tbl.slice_idx[t][d], tbl.mb[t][d]
-        k = stack_index(j * n + d, n, v)
+        k = run.row(j, d)
         g = gy_micro[i] if tbl.out_idx[t][d] != m else g_y
         gx = run.pull(graphs.pop(t), g, grads, k)
         if gx is not None:
@@ -284,7 +302,7 @@ def _one_f_one_b(run: _Run, leaves, x, gy_micro):
         a = tbl.act[t][d]
         if a != IDLE:
             j, i = tbl.slice_idx[t][d], tbl.mb[t][d]
-            k = stack_index(j * n + d, n, v)
+            k = run.row(j, d)
         if a == FWD:
             if tbl.fwd_feed[t][d]:
                 xin, slot = micro[i], tbl.fwd_store_slot[t][d]
@@ -370,8 +388,9 @@ class _Pipeline(torch.autograd.Function):
             leaves = ctx.leaves
             grads, dx = _gpipe_backward(run, leaves, ctx.graphs, gy_micro)
             ctx.graphs = ctx.leaves = None
-        for G in grads:
-            ax.all_reduce(G, "pipe_grads")
+        if not run.local:
+            for G in grads:
+                ax.all_reduce(G, "pipe_grads")
         gx = (_gather_from(ax, dx, gy, 0) if ctx.needs_input_grad[1]
               else None)
         return (None, gx, *[G if need else None for G, need in
@@ -388,42 +407,38 @@ def pipeline_apply_scheduled(stage_fn: Callable, stacked_params, x, *,
     """Run x through ``n·v`` pipelined stage slices under a table-driven
     schedule (module docstring).  ``stage_fn(params_one_stage,
     microbatch) -> microbatch`` (same shape); ``stacked_params`` a tree of
-    tensors whose leading axis is ``n·v`` in ``schedule.stack_index``
-    order; ``mesh`` a 1-D ``DeviceMesh`` with the ``pipe_axis`` (default:
-    the Engine's).  ``x`` is the whole batch on every rank (the data axis
-    is one wide; ``batch_axis`` is accepted for the reference's signature
-    and must be absent from the mesh); ``num_microbatches`` must divide
-    it.  Returns the output on every pipe rank.  ``stats``, a dict,
-    receives ``peak_stash``: the most stage inputs (and their graphs)
-    this rank held at once."""
+    tensors whose leading axis is ``n·v`` (the whole stack) or ``v``
+    (this rank's rows), in ``schedule.stack_index`` order; ``mesh`` a
+    ``DeviceMesh`` with the ``pipe_axis`` (default: the Engine's).  ``x``
+    is this rank's batch: the whole batch on a 1-D pipe mesh, its rows
+    of the batch axes on a layout (``batch_axis`` names them, as in the
+    reference's signature; each coordinate of them runs its own
+    pipeline); ``num_microbatches`` must divide it.  Returns the output
+    on every rank of the pipe group.  ``stats``, a dict, receives
+    ``peak_stash``: the most stage inputs (and their graphs) this rank
+    held at once."""
     ax = axis_group(mesh, pipe_axis)
     if ax is None:
         raise PipelinePartitionError(
             f"pipeline_apply_scheduled needs a mesh with a {pipe_axis!r} "
             "axis (Engine.init(mesh_shape={'pipe': n}) or mesh=)")
-    if batch_axis:
-        axes = batch_axis if isinstance(batch_axis, (list, tuple)) \
-            else (batch_axis,)
-        names = getattr(mesh, "mesh_dim_names", None) or ()
-        if any(a in names for a in axes):
-            raise NotImplementedError(
-                "a batch axis beside the pipe axis needs the mesh layouts "
-                "(ROADMAP.md queue A item 8)")
     if schedule not in schedule_mod.SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {schedule!r} "
                          f"(expected one of {schedule_mod.SCHEDULES})")
     leaves, spec = tree_flatten(stacked_params)
     n, v, m = ax.n, int(virtual_stages), int(num_microbatches)
     lead = leaves[0].shape[0]
-    if lead != n * v:
-        raise ValueError(f"stacked_params leading axis {lead} != "
-                         f"|{pipe_axis}|*virtual = {n}*{v}")
+    if lead not in (n * v, v):
+        raise ValueError(f"stacked_params leading axis {lead} is neither "
+                         f"|{pipe_axis}|*virtual = {n}*{v} (the stack) nor "
+                         f"virtual = {v} (this rank's rows)")
     if x.shape[0] % m:
         raise ValueError(f"batch {x.shape[0]} must divide into {m} "
                          "microbatches")
     needs_grad = torch.is_grad_enabled() and (
         x.requires_grad or any(leaf.requires_grad for leaf in leaves))
-    run = _Run(stage_fn, spec, ax, schedule, m, v, remat, needs_grad, stats)
+    run = _Run(stage_fn, spec, ax, schedule, m, v, remat, needs_grad, stats,
+               local=lead == v)
     return _Pipeline.apply(run, x, *leaves)
 
 

@@ -4,8 +4,10 @@ attention.
 Counterpart of ``bigdl_tpu/parallel/ring_attention.py``.  Both functions
 take and return THIS rank's shard [B, H, T/n, D] of q, k, v (rank r holds
 rows ``[r·T/n, (r+1)·T/n)`` of T), the view of the reference's
-``shard_map`` body, over the ``seq`` axis of ``mesh`` (a 1-D
-``DeviceMesh``) or of the Engine's (``Engine.init(mesh_shape={"seq": n})``).
+``shard_map`` body, over the ``seq`` axis of ``mesh`` or of the
+Engine's (``Engine.init(mesh_shape={"seq": n})``, or ``{"data": d,
+"seq": n}``, where each data row's seq group rings its own rows of the
+batch; ``MultiHeadAttention``'s seam rings over a layout's ``tp`` axis).
 
 - :func:`ring_attention`: each rank keeps its query shard and passes its
   k/v block to the next rank around the ring.  Each ring step is the
@@ -42,20 +44,12 @@ from .hops import AxisGroup, axis_group
 __all__ = ["ring_attention", "ulysses_attention", "block_bwd_reference"]
 
 
-def _seq_axis(mesh, seq_axis: str, batch_axis) -> AxisGroup:
+def _seq_axis(mesh, seq_axis: str) -> AxisGroup:
     ax = axis_group(mesh, seq_axis)
     if ax is None:
         raise ValueError(
             f"sequence parallelism needs a mesh with a {seq_axis!r} axis "
             "(Engine.init(mesh_shape={'seq': n}) or mesh=)")
-    if batch_axis:
-        axes = batch_axis if isinstance(batch_axis, (list, tuple)) \
-            else (batch_axis,)
-        names = getattr(mesh, "mesh_dim_names", None) or ()
-        if any(a in names for a in axes):
-            raise NotImplementedError(
-                "a batch axis beside the seq axis needs the mesh layouts "
-                "(ROADMAP.md queue A item 8)")
     return ax
 
 
@@ -176,12 +170,14 @@ def ring_attention(q, k, v, *, mesh=None, seq_axis: str = "seq",
                    batch_axis=None):
     """Sequence-parallel exact attention (module docstring).  q, k, v:
     this rank's [B, H, T/n, D] shards of T over ``seq_axis``; returns its
-    [B, H, T/n, D] shard of the output.  ``batch_axis`` is accepted for
-    the reference's signature; a batch axis on the mesh beside the seq
-    axis waits for the mesh layouts."""
+    [B, H, T/n, D] shard of the output.  ``batch_axis`` names the mesh
+    axes the batch splits over, as in the reference's signature: B is
+    this rank's rows of them, and the ring runs in this rank's group of
+    the seq axis, so each coordinate of the batch axes rings its own
+    rows."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    ax = _seq_axis(mesh, seq_axis, batch_axis)
+    ax = _seq_axis(mesh, seq_axis)
     return _Ring.apply(ax, q, k, v, bool(causal), float(sm_scale))
 
 
@@ -238,7 +234,7 @@ def ulysses_attention(q, k, v, *, mesh=None, seq_axis: str = "seq",
     :func:`ring_attention`."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    ax = _seq_axis(mesh, seq_axis, batch_axis)
+    ax = _seq_axis(mesh, seq_axis)
     if q.shape[1] % ax.n:
         raise ValueError(f"ulysses needs heads ({q.shape[1]}) divisible by "
                          f"|{seq_axis}|={ax.n}")

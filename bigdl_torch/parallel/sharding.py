@@ -639,7 +639,6 @@ class _MeshSharded(ShardingStrategy):
     def place(self, model):
         """Shard ``model`` under this strategy where it is not yet (its
         plan is kept on it as ``_layout_plan``); returns the plan."""
-        from ..utils.convert import _stacked
         from .mesh_plan import MeshPlan
         plan = model.__dict__.get("_layout_plan")
         if plan is not None:
@@ -649,11 +648,6 @@ class _MeshSharded(ShardingStrategy):
                     "mesh; build a new model for this one")
             self.plan = plan
             return plan
-        if any(_stacked(m) for m in model.modules()):
-            raise NotImplementedError(
-                f"{type(self).__name__} of a pipelined model (its stage "
-                "stack 1/n a pipe rank) waits for ROADMAP.md queue A item "
-                "8")
         tensors = list(model.parameters()) + list(model.buffers())
         # from the mesh's first rank over its ranks (the Engine's mesh, or
         # the one the thread pinned: a router member's subset)
@@ -695,10 +689,7 @@ class _MeshSharded(ShardingStrategy):
         batch = plan.batch_axes
 
         def remaining(l):
-            if l.local_dim is None:
-                done = l.all_axes()
-            else:
-                done = {a for a in l.all_axes() if a != plan.tp_axis}
+            done = l.gathered(plan.names)
             return tuple(a for a in batch if a not in done)
         groups = _by_axes(plan.leaves, remaining)
         groups.setdefault(batch, [])
@@ -800,12 +791,18 @@ def _to_host(tree):
 
 class LayoutSharding(_MeshSharded):
     """The MeshLayout strategy (the reference's ``LayoutSharding``): every
-    parameter cut by its role's spec over the data / fsdp / tp axes of the
-    Engine's mesh (``parallel/layout.py`` ``assign_specs``), the batch
-    split over data x fsdp.  FSDP: a leaf split over fsdp is gathered at
-    each forward and its gradient reduce-scattered back.  TP: a Linear or
-    attention kernel split over tp along its output features is not
-    gathered; its layer computes its slice (``parallel/mesh_plan.py``).
+    parameter cut by its role's spec over the data / fsdp / tp / pipe /
+    expert axes of the Engine's mesh (``parallel/layout.py``
+    ``assign_specs``), the batch split over data x fsdp.  FSDP: a leaf
+    split over fsdp is gathered at each forward and its gradient
+    reduce-scattered back (and gathered again for the backward).  TP: a
+    Linear or attention kernel split over tp along its output features
+    is not gathered; its layer computes its slice
+    (``parallel/mesh_plan.py``).  Pipe: a pipeline's stage stack keeps
+    1/p a pipe rank, which runs its own stages
+    (``parallel/pipeline.py``).  Expert: a ``MoEFFN``'s tables keep E/e
+    rows an expert rank, which runs its own experts
+    (``parallel/expert.py``).
     On a plain data group (or a ``(W, 1, 1)`` layout) every leaf
     replicates: ``DataParallel``'s arithmetic.  The layout is the mesh's;
     ``layout`` only stands in on a mesh without the canonical axes.

@@ -68,6 +68,7 @@ the kernels always run.
 | BIGDL_TORCH_PIPE_MICROBATCHES    | microbatches a pipelined step splits its batch into (``parallel/pipeline.py``) | 4 |
 | BIGDL_TORCH_PIPE_SCHEDULE        | ``gpipe`` (the reverse pipeline) or ``1f1b`` (the table, stage recompute) | gpipe |
 | BIGDL_TORCH_PIPE_VIRTUAL_STAGES  | stage slices per pipe rank (interleaving)      | 1       |
+| BIGDL_TORCH_RING_ATTN            | 1 = attention rings over a layout's ``tp`` axis where it divides T (``nn/attention.py``) | 0 |
 """
 
 from __future__ import annotations

@@ -74,9 +74,14 @@ coordinates, so :meth:`data_shard_info`, the distributed ``DataSet``,
 sync-BN and the Dropout seed follow the batch shard, and the ranks of one
 tp group hold the same rows.  :meth:`axis_group` gives the process group
 of any set of the mesh's axes (every such group is formed when the mesh
-is installed: ``new_group`` is collective).  A ``pipe`` or ``expert``
-axis wider than one next to another wide axis, a ``seq`` axis next to
-any other, and axes of no mesh raise (ROADMAP.md queue A item 8).
+is installed: ``new_group`` is collective).  ``pipe`` and ``expert``
+stand beside ``data`` and ``fsdp`` (a 5-axis layout such as (2,1,1,2,1)
+or (1,2,1,1,2)): like ``tp`` they replicate the batch, so the batch
+group stays ``data x fsdp``.  ``{"data": d, "seq": s}`` forms a 2-D
+``(data, seq)`` mesh whose batch group is the ``data`` axis.  Each of
+these still raises, naming ROADMAP.md queue A item 8: ``pipe`` beside
+``tp`` or ``expert``, ``expert`` beside ``tp``, ``seq`` beside any axis
+but ``data``, and axes of no mesh.
 :meth:`reform` over a multi-axis mesh raises the reference's typed
 ``MeshReformError`` where the new rank count cannot keep the non-data
 block intact, before the live group's :class:`GroupReformError`.
@@ -271,7 +276,7 @@ class Engine:
             elif kind == "layout":
                 cls._install(axis.build_mesh(range(world)))
             else:
-                names = tuple(mesh_shape)
+                names = axis
                 cls._install(DeviceMesh(
                     device.type, torch.arange(world).reshape(
                         [int(mesh_shape[a]) for a in names]),
@@ -288,13 +293,13 @@ class Engine:
     def _mesh_kind(cls, mesh_shape: Optional[dict]):
         """What ``mesh_shape`` forms: ("group", None) the data group,
         ("axis", name) a 1-D mesh of one named axis, ("layout",
-        MeshLayout) a layout's mesh, ("legacy", None) the reference's
-        tensor-parallel mesh; raises on what waits for the rest of the
-        mesh layouts."""
+        MeshLayout) a layout's mesh, ("legacy", names) the reference's
+        tensor-parallel mesh in the order given, ("named", names) the
+        ``data x seq`` mesh; raises on what waits for the rest of the mesh
+        layouts, one message a combination."""
         if mesh_shape is None:
             return "group", None
         shape = {a: int(n) for a, n in mesh_shape.items()}
-        wide = [a for a, n in shape.items() if n > 1]
         keys = set(shape)
 
         def refuse(why):
@@ -305,20 +310,27 @@ class Engine:
         if keys - known:
             refuse(f"mesh axes {sorted(keys - known)}")
         if "seq" in keys:
-            if keys - {"seq", cls.DATA_AXIS} or shape.get(cls.DATA_AXIS,
-                                                           1) > 1:
-                refuse("a seq axis beside another axis")
+            rest = sorted(keys - {"seq", cls.DATA_AXIS})
+            if rest:
+                refuse(f"a seq axis beside {rest}")
+            if shape.get(cls.DATA_AXIS, 1) > 1:
+                return "named", (cls.DATA_AXIS, "seq")
             return "axis", "seq"
         if "model" in keys:
             if keys - set(LEGACY_TP_AXES):
                 refuse("a model axis beside the layout axes")
-            return "legacy", None
-        for a in ("pipe", "expert"):
-            if shape.get(a, 1) > 1 and len(wide) > 1:
-                refuse(f"a {a} axis beside another wide axis")
+            return "legacy", tuple(mesh_shape)
+        wide = {a for a, n in shape.items() if n > 1}
+        for pair, why in ((("pipe", "tp"), "a pipe axis beside tp"),
+                          (("pipe", "expert"),
+                           "a pipe axis beside an expert axis"),
+                          (("expert", "tp"), "an expert axis beside tp")):
+            if set(pair) <= wide:
+                refuse(why)
         if keys <= {cls.DATA_AXIS}:
             return "group", None
-        if keys <= {cls.DATA_AXIS, "pipe"} and not keys & {"fsdp", "tp"}:
+        if keys <= {cls.DATA_AXIS, "pipe"} and \
+                shape.get(cls.DATA_AXIS, 1) == 1:
             return "axis", "pipe"
         from ..parallel.layout import MeshLayout
         return "layout", MeshLayout(**shape)

@@ -148,7 +148,8 @@ def pipeline_stage_bytes(model, params=None, device=None):
     """Per-stage parameter accounting for every ``GPipeSequential`` in
     ``model`` (``parallel/pipeline.py``): the stacked stage parameters'
     bytes, bytes per stage, and the bytes resident on ``device`` (the
-    whole stack: every pipe rank holds it).  ``params`` is accepted for
+    whole stack on a 1-D pipe mesh, where every pipe rank holds it; 1/p
+    of it under ``LayoutSharding`` on a layout with ``pipe`` = p).  ``params`` is accepted for
     the reference's signature; the module holds its own.  A list of one
     dict per pipeline, or None when the model has no pipelined region."""
     from ..parallel.pipeline import GPipeSequential

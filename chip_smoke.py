@@ -6,8 +6,9 @@
 (``python3 chip_smoke.py --dp-child DIR`` is one rank of phase 10,
 ``--zero-child DIR`` one of phase 10b, ``--elastic-child SPEC`` one
 process of phase 21's drill, ``--pipe-seq-child DIR`` one rank of
-phase 24, ``--layouts-child DIR`` one of phase 25 and
-``--serve-layouts-child DIR`` one of phase 26, started by the script
+phase 24, ``--layouts-child DIR`` one of phase 25,
+``--serve-layouts-child DIR`` one of phase 26 and
+``--axes-layouts-child DIR`` one of phase 27, started by the script
 itself;
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
@@ -15,9 +16,9 @@ alone, ``--only train_longrun`` the build and phase 14 alone,
 data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
 ``--only layers``, ``--only train_zoo``, ``--only zoo_data``, ``--only
 serve_stack``, ``--only elastic_fleet``, ``--only observe``, ``--only
-train_moe``, ``--only pipe_seq``, ``--only layouts`` and ``--only
-serve_layouts`` the build and phase 16, 17, 18, 19, 20, 21, 22, 23, 24,
-25 or 26 alone,
+train_moe``, ``--only pipe_seq``, ``--only layouts``, ``--only
+serve_layouts`` and ``--only axes_layouts`` the build and phase 16, 17,
+18, 19, 20, 21, 22, 23, 24, 25, 26 or 27 alone,
 and none of them prints the final line.  Every phase is followed by a
 line with its wall seconds, ``{"phase": ..., "phase_s": ...}``, and the
 whole run by ``{"script_s": ...}``.)
@@ -661,6 +662,40 @@ Phases, each printing one JSON line:
    without the log-sum-exp, B8 at [4, 4, L, 64] (the rungs the run used)
    on both routes, held to their plain versions and timed beside SDPA
    and the bound.
+27. ``axes_layouts``: the pipe, expert and seq axes beside the batch
+   axes, four gloo ranks on the card (one spawn,
+   ``--axes-layouts-child``), each run a group of its own, bf16, SGD
+   0.01 with momentum, ``AX_STEPS`` steps of 16 rows from ``SEED``:
+   ``transformer_lm_pipe`` (``pipe_seq``'s width) partitioned over 2
+   stages under ``LayoutSharding`` on (2,1,1,2,1) with ``gpipe`` and
+   with ``1f1b`` (4 microbatches of the rank's 8 rows); ``transformer_
+   moe`` (``train_moe``'s width, the router's jitter off) on
+   (2,1,1,1,2); the seq-parallel ``transformer_lm`` on ``{"data": 2,
+   "seq": 2}``; the bench LM with ``BIGDL_TORCH_RING_ATTN=1`` on
+   (2,1,2) (the attention rings over tp); the bench LM on (1,2,2), its
+   weights gathered again in the backward.  The MoE LM trains on
+   ``train_moe``'s tokens that count up, the others on random tokens
+   (``ax_data`` says why).  One process trains the unpartitioned pipelined LM, the MoE
+   LM (its records in the ranks' global order, ``ax_rank_major``) and
+   the dense LM first.  Gates a rank and run: the gathered weights
+   bit-equal on the four ranks; each unit's change within
+   ``PS_DELTA_TOL`` of the one-process run's; B6 (and those with
+   the log-sum-exp) and B7 launches a step exactly ``AX_LAUNCHES``' on
+   ``"tc"`` at the stated shape; the Engine's collectives a step exactly
+   ``AX_COLLECTIVES``' (the pipe's hops from its tables,
+   ``ax_pipe_hops``); the stage stack's and the expert tables' bytes
+   on the rank exactly 1/2 of the whole and the rank's elements the
+   whole less the half it does not hold; (1,2,2)'s elements
+   ``LY_LOCAL``'s.  Printed: host ms a step and peak memory a rank
+   of every run, the (1,2,2) peak beside the plan's whole bytes held at
+   once (``held_peak``) and the 2.68 to 2.80 GB recorded before it (the
+   layouts' runs without the re-gather, PERF.md), the tokens of a
+   random-token batch the MoE routes to another expert on the ranks than
+   in one process (``ax_route_flips``); B6 with the
+   log-sum-exp and B7 at the pipeline's [2, 8, 256, 64] causal, the
+   MoE LM's [8, 8, 256, 64] causal and the rings' [8, 8, 256, 64] not
+   causal held to their plain versions and timed beside SDPA and the
+   bound.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -680,8 +715,9 @@ trainer and B8 per ``/v1/generate`` run of ``serve_stack``, B6 and B7
 per elastic drill (rank 0 and the joiner) of ``elastic_fleet`` with the
 shrunk world's case, B6 and B7 per traced LM run of ``observe`` and per
 MoE run of ``train_moe``, B6 and B7 per pipelined, ring and Ulysses run
-of ``pipe_seq``, B6, B7 and B8 per layout run of ``layouts`` and B6 (by
+of ``pipe_seq``, B6, B7 and B8 per layout run of ``layouts``, B6 (by
 sequence bucket) and B8 (by cache length) per run of ``serve_layouts``
+and B6 and B7 per pipelined, MoE and ring shape of ``axes_layouts``
 (the four ranks' launches together), each with its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
@@ -692,6 +728,7 @@ without CUDA.
 import collections
 import contextlib
 import copy
+import gc
 import io
 import json
 import logging
@@ -9325,17 +9362,21 @@ LY_STEP = {(1, 2, 2): ((8, 4, 512, 64), 8, 16),
 #: parameters gathered at use, one all-gather a unit of the model (the
 #: token table, the position table, each of the 8 blocks and the head:
 #: 11; the final LayerNorm's leaves are replicated) and reduce-scattered
-#: back alike; under tp, 33 output gathers
+#: back alike, and gathered again in the backward where a unit saved a
+#: gathered weight (each block and the head, 9); under tp, 33
+#: output gathers
 #: and 33 input-gradient all-reduces (2 an attention, 2 a feed-forward, 1
 #: the head) and one bias-slice gather an attention; the batch axes' sum
 #: of the rest: one all-reduce a set of axes still to sum over (the
 #: replicated leaves and the loss; under (2,2,1) also the fsdp leaves over
 #: data)
 LY_COLLECTIVES = {
-    (1, 2, 2): {"all_gather": {"params": 11, "tp_out": 33, "tp_bias": 8},
+    (1, 2, 2): {"all_gather": {"params": 11, "params_bwd": 9, "tp_out": 33,
+                               "tp_bias": 8},
                 "all_reduce": {"tp_in": 33, "grads": 1},
                 "reduce_scatter": {"grads": 11}},
-    (2, 2, 1): {"all_gather": {"params": 11}, "all_reduce": {"grads": 2},
+    (2, 2, 1): {"all_gather": {"params": 11, "params_bwd": 9},
+                "all_reduce": {"grads": 2},
                 "reduce_scatter": {"grads": 11}}}
 LY_PREDICT_ROWS = 8
 LY_PREDICT_TOL = 0.0625         # one bf16 ulp at |log-prob| near 10
@@ -10259,6 +10300,477 @@ def sl_run(tmp):
     return rows
 
 
+# -- 27. axes_layouts ---------------------------------------------------------
+
+AX_STEPS = 5
+AX_BATCH = 16
+AX_MICRO = 4
+AX_TIMEOUT = 600
+AX_PIPE = (2, 1, 1, 2, 1)
+AX_EXPERT = (2, 1, 1, 1, 2)
+AX_SEAM = (2, 1, 2)
+AX_REGATHER = (1, 2, 2)
+AX_PIPE_RUNS = ("gpipe", "1f1b")
+#: B6 launch shape and causal flag, (B6, B6 with the log-sum-exp, B7)
+#: launches a rank makes in one step, written before the first run:
+#: the pipelined LM's 4 layers a pipe rank on 4 microbatches of 2 rows
+#: (PS_PIPE_STEP's counts); the MoE LM's 4 layers on 8 rows; a ring of
+#: 2 ranks over T = 512 on 8 rows and all 8 heads (rank 0 of the ring
+#: its diagonal block, rank 1 the block below it too, PS_SEQ_STEP's
+#: counts); the re-gathered (1,2,2) LM as LY_STEP's
+AX_LAUNCHES = {
+    "pipe-gpipe": ([[2, 8, 256, 64], True], {None: (16, 16, 32)}),
+    "pipe-1f1b": ([[2, 8, 256, 64], True], {None: (32, 16, 32)}),
+    "moe": ([[8, 8, 256, 64], True], {None: (4, 4, 8)}),
+    "seq": (None, {0: (8, 8, 16), 1: (16, 16, 32)}),
+    "seam": (None, {0: (8, 8, 16), 1: (16, 16, 32)}),
+    "regather": ([[8, 4, 512, 64], True], {None: (8, 8, 16)})}
+#: the Engine's collectives a rank calls in one step, by kind, written
+#: before the first run (the pipe's hops come from its tables,
+#: ``ax_pipe_hops``): (2,1,1,2,1) and (2,1,1,1,2) gather nothing (at
+#: fsdp = tp = 1 every leaf but the stack and the tables is replicated,
+#: and those keep their rows), one all-reduce of every gradient over
+#: data; the MoE LM a gather of the experts' outputs and of the routing
+#: counts a layer forward and a gather of the rows' gradients a layer
+#: backward; data x seq one all-reduce over data and a ring's 3 hops a
+#: layer; the seam under (2,1,2): the two tables and each block's
+#: attention kernels gathered over tp (10) and reduce-scattered back,
+#: again in the backward where a block saved them (8), 17 tp output
+#: gathers and input all-reduces (2 a feed-forward, 1 the head), the
+#: ring's hops, one all-reduce over data; (1,2,2) LY_COLLECTIVES' (the
+#: backward's gathers of each block and the head, 9, among them)
+AX_COLLECTIVES = {
+    "pipe": {"all_reduce": {"grads": 1}},
+    "moe": {"all_reduce": {"grads": 1},
+            "all_gather": {"expert_out": 4, "expert_in": 4,
+                           "moe_route": 4}},
+    "seq": {"all_reduce": {"grads": 1}, "permute": {"ring": 24}},
+    "seam": {"all_gather": {"params": 10, "params_bwd": 8, "tp_out": 17},
+             "all_reduce": {"tp_in": 17, "grads": 1},
+             "reduce_scatter": {"grads": 10}, "permute": {"ring": 24}},
+    "regather": LY_COLLECTIVES[(1, 2, 2)]}
+
+
+def ax_data():
+    """The pipelined, MoE and dense LMs' samples.  The MoE LM's count up
+    (``train_moe``'s); the others are random tokens.  Over random tokens
+    (and in the ranks' order, ``ax_rank_major``) the MoE's units moved
+    0.016 to 0.055 off one process's, beyond ``PS_DELTA_TOL``, where the
+    dense LMs' moved 0.005 to 0.017: a token whose gate logits sit near
+    a tie routes to another expert on the ranks, whose products run at
+    other row counts (``ax_route_flips`` counts them), and a flipped
+    token's gradient, random in direction, moves the sum by about
+    sqrt(k / N).  Tokens that count up share their gradients' direction,
+    and a flip moves the sum by about k / N."""
+    return {"pipe": lm_samples(AX_BATCH * AX_STEPS, PIPE_LM["max_len"],
+                               PIPE_LM["vocab_size"], SEED + 50),
+            "moe": counting_samples(AX_BATCH * AX_STEPS, MOE["max_len"],
+                                    MOE_PERIOD, SEED + 51),
+            "lm": lm_samples(AX_BATCH * AX_STEPS, LM["max_len"],
+                             LM["vocab_size"], SEED + 52)}
+
+
+def ax_first_choice(model, rows):
+    """The first MoE layer's top-1 expert of each token of ``rows`` of
+    ``AX_BATCH`` random-token samples (seed ``SEED + 56``), from one
+    forward without grad: the router's own logits."""
+    samples = lm_samples(AX_BATCH, MOE["max_len"], MOE["vocab_size"],
+                         SEED + 56)[rows]
+    x = torch.from_numpy(np.stack([s.feature for s in samples])).cuda()
+    got, route = [], moe_mod._route
+
+    def spy(logits, *a, **k):
+        if not got:
+            got.append(logits.argmax(-1).cpu())
+        return route(logits, *a, **k)
+    moe_mod._route = spy
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        moe_mod._route = route
+    return got[0]
+
+
+def ax_route_flips(out_dir):
+    """Of this rank's tokens of ``ax_first_choice``'s batch, those the
+    MoE layer routes to another expert than one process does, with the
+    same weights (the MoE LM as built, under ``LayoutSharding`` on
+    ``AX_EXPERT``): {flips, tokens}.  Printed, not gated."""
+    model = ax_model("moe")
+    LayoutSharding(model).place(model)
+    d, b = Engine.mesh_coordinate()["data"], AX_BATCH // AX_EXPERT[0]
+    mine = ax_first_choice(model, slice(d * b, (d + 1) * b))
+    one = torch.load(os.path.join(out_dir, "ax_choice_moe.pt"))
+    one = one.reshape(AX_BATCH, -1)[d * b:(d + 1) * b].reshape(-1)
+    del model
+    gc.collect()
+    return {"flips": int((mine != one).sum()), "tokens": int(one.numel())}
+
+
+def ax_rank_major(samples, n, batch):
+    """``samples`` re-ordered so that one process's shuffled batches hold
+    their rows in the order the global batch of ``n`` batch ranks holds
+    them, rank 0's rows first: one process's ``DataSet`` (seed ``SEED``)
+    draws the ranks' permutation and rank r takes rows r, r + n, ... of
+    each global batch.  The MoE routes its global batch in that order, and
+    where tokens overflow an expert the order decides which are dropped."""
+    perm = np.arange(len(samples))
+    np.random.default_rng(SEED).shuffle(perm)
+    b = batch // n
+    out = list(samples)
+    for k in range(len(samples) // batch):
+        for q in range(batch):
+            out[perm[k * batch + q]] = samples[
+                perm[k * batch + n * (q % b) + q // b]]
+    return out
+
+
+def ax_model(kind, **kw):
+    """The LM of ``kind`` from the seed, the router's jitter off (its
+    draws follow the batch rank's generator)."""
+    cfg = {"pipe": PIPE_LM, "moe": MOE, "lm": LM}[kind]
+    model = TransformerLM(**cfg, **kw).build(
+        "cuda", torch.Generator().manual_seed(SEED))
+    for m in model.modules():
+        if isinstance(m, moe_mod.MoEFFN):
+            m.router_jitter = 0.0
+    return model
+
+
+def ax_train(model, samples, strategy=None, distributed=True):
+    """``AX_STEPS`` LM steps (train_lm's criterion and method) on this
+    rank's rows, or one process's; (losses, host ms a step)."""
+    on_step, step_ms = ps_step_ms(AX_STEPS)
+    losses = train(model, samples, AX_STEPS,
+                   AX_BATCH // max(Engine.group_size(), 1)
+                   if distributed else AX_BATCH,
+                   device=None if distributed else "cuda",
+                   distributed=distributed,
+                   criterion=nn.TimeDistributedCriterion(
+                       nn.ClassNLLCriterion(), size_average=True),
+                   method=SGD(LM_LR, momentum=0.9), on_step=on_step,
+                   strategy=strategy)
+    return losses, step_ms()
+
+
+def ax_pipe_hops(sched, n, m, v, d):
+    """The hops pipe rank ``d`` makes in one step (``Engine.permutes
+    ["pipe"]``): the ticks of the forward table with a transfer to or
+    from it, as many again in the gpipe backward (its transpose), or the
+    1F1B table's."""
+    fwd = build_schedule("gpipe", n, m, v)
+    tf = fwd.fstash_slots
+    hops = sum(1 for t in range(fwd.ticks - 1)
+               if fwd.recv_f_slot[t + 1][(d + 1) % n] != tf
+               or fwd.recv_f_slot[t + 1][d] != tf)
+    if sched == "gpipe":
+        return 2 * hops
+    tbl = build_schedule("1f1b", n, m, v)
+    tf, tb = tbl.fstash_slots, tbl.bstash_slots
+    return hops + sum(1 for t in range(tbl.ticks - 1)
+                      if tbl.recv_f_slot[t + 1][(d + 1) % n] != tf
+                      or tbl.recv_b_slot[t + 1][(d - 1) % n] != tb
+                      or tbl.recv_f_slot[t + 1][d] != tf
+                      or tbl.recv_b_slot[t + 1][d] != tb)
+
+
+def ax_one_process(data, out_dir):
+    """The one-process runs on the card the ranks are held to: each
+    unit's change of the unpartitioned pipelined LM, the MoE LM and the
+    dense LM; their records."""
+    recs = {}
+    for kind in ("pipe", "moe", "lm"):
+        cfg = {"pipe": PIPE_LM, "moe": MOE, "lm": LM}[kind]
+        model = ax_model(kind)
+        if kind == "moe":
+            torch.save(ax_first_choice(model, slice(None)),
+                       os.path.join(out_dir, "ax_choice_moe.pt"))
+        init = ps_units(model, cfg["num_layers"])
+        zero_flash()
+        torch.cuda.reset_peak_memory_stats()
+        samples = data[kind] if kind != "moe" else ax_rank_major(
+            data[kind], AX_EXPERT[0] * AX_EXPERT[1], AX_BATCH)
+        losses, step_ms = ax_train(model, samples, distributed=False)
+        torch.save(ps_delta(init, ps_units(model, cfg["num_layers"])),
+                   os.path.join(out_dir, f"ax_delta_{kind}.pt"))
+        recs[kind] = {"losses": losses, "host_step_ms": step_ms,
+                      "max_memory_allocated":
+                      torch.cuda.max_memory_allocated()}
+        del model, init
+        train.opt = None
+        torch.cuda.empty_cache()
+    return recs
+
+
+def ax_rank_run(kind, model, samples, strategy, ref, extra=None):
+    """One run of this rank: the record of the gates."""
+    cfg = {"pipe": PIPE_LM, "moe": MOE, "lm": LM}[kind]
+    L = cfg["num_layers"]
+    init = ps_units(model, L)
+    zero_flash()
+    Engine.clear_counts()
+    plan = strategy.place(model) if strategy is not None else None
+    if plan is not None:
+        plan.reset_held()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    key = lambda q, k, v, causal, *a: (tuple(q.shape), bool(causal))
+    with launch_counts(attn_ops, "_launch", key) as shapes:
+        losses, step_ms = ax_train(model, samples, strategy)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fwd, bwd = flash_counts()
+    rec = {"losses": losses, "host_step_ms": step_ms, "run_s": run_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "start_allocated": start_allocated,
+           "b6": fwd, "b6_lse": attn_ops.flash_attention.lse_launches,
+           "b7": bwd, "routes": flash_routes(),
+           "b6_shapes": sorted([list(s), c, n]
+                               for (s, c), n in shapes.items()),
+           "collectives": Engine.collectives(),
+           "coord": Engine.mesh_coordinate(),
+           "host_copies": dict(hops_mod.host_copies)}
+    if plan is not None:
+        rec.update(local_elements=plan.local_elements(),
+                   whole_elements=sum(math.prod(l.whole)
+                                      for l in plan.leaves),
+                   held_peak=plan.held_peak,
+                   gathered_bytes_max_unit=max(plan.gathered_bytes()),
+                   gathered_bytes_all_units=sum(plan.gathered_bytes()))
+    rec.update(extra(model) if extra else {})
+    ctx = strategy.whole(model) if strategy is not None else \
+        contextlib.nullcontext()
+    with ctx:
+        trained = ps_units(model, L)
+    rec.update(delta_errs=ps_delta_errs(init, trained, ref),
+               rank_max_abs_diff=ly_rank_diff(trained))
+    del init, trained
+    return rec
+
+
+def ax_stack_bytes(model):
+    """This rank's and the whole stage stack's bytes, and its elements."""
+    stack = list(model.layers[2].stage.parameters())
+    return {"stack_bytes": [memstats.tree_device_bytes(stack, "cuda"),
+                            memstats.tree_total_bytes(stack)],
+            "stack_whole_elements": sum(math.prod(p._layout_whole)
+                                        for p in stack),
+            "stage_bytes": memstats.pipeline_stage_bytes(model,
+                                                         device="cuda")}
+
+
+def ax_table_bytes(model):
+    """This rank's and the whole expert tables' bytes, and their
+    elements."""
+    tables = [getattr(m, n) for m in model.modules()
+              if isinstance(m, moe_mod.MoEFFN) for n in m.TABLES]
+    return {"table_bytes": [memstats.tree_device_bytes(tables, "cuda"),
+                            memstats.tree_total_bytes(tables)],
+            "table_whole_elements": sum(math.prod(p._layout_whole)
+                                        for p in tables)}
+
+
+def axes_layouts_child(out_dir):
+    """One of the four ranks of ``axes_layouts``: each run a group of
+    its own (module docstring, 27)."""
+    import torch.distributed as dist
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    rank = int(os.environ["BIGDL_TORCH_PROCESS_ID"])
+    data = ax_data()
+    refs = {k: torch.load(os.path.join(out_dir, f"ax_delta_{k}.pt"))
+            for k in ("pipe", "moe", "lm")}
+    runs = {}
+    plan = [("pipe-" + s, AX_PIPE) for s in AX_PIPE_RUNS] + [
+        ("moe", AX_EXPERT), ("seq", None), ("seam", AX_SEAM),
+        ("regather", AX_REGATHER)]
+    for i, (name, lay) in enumerate(plan):
+        os.environ["BIGDL_TORCH_COORDINATOR"] = f"file://{out_dir}/ax{i}"
+        if name == "seam":
+            os.environ["BIGDL_TORCH_RING_ATTN"] = "1"
+        Engine.init(device="cuda:0", backend="gloo",
+                    mesh_shape={"data": 2, "seq": 2} if lay is None else
+                    MeshLayout(*lay).shape())
+        hops_mod.host_copies.clear()
+        if name.startswith("pipe"):
+            model = partition_pipeline(ax_model("pipe"), 2,
+                                       num_microbatches=AX_MICRO,
+                                       schedule=name.split("-")[1])
+            rec = ax_rank_run("pipe", model, data["pipe"],
+                              LayoutSharding(model), refs["pipe"],
+                              ax_stack_bytes)
+            rec["description"] = dict(train.opt.run_description)
+        elif name == "moe":
+            flips = ax_route_flips(out_dir)
+            model = ax_model("moe")
+            rec = ax_rank_run("moe", model, data["moe"],
+                              LayoutSharding(model), refs["moe"],
+                              ax_table_bytes)
+            rec["route_flips"] = flips
+        elif name == "seq":
+            model = ax_model("lm", seq_parallel=True)
+            rec = ax_rank_run("lm", model, data["lm"], None, refs["lm"])
+        else:
+            model = ax_model("lm")
+            rec = ax_rank_run("lm", model, data["lm"],
+                              LayoutSharding(model), refs["lm"])
+        os.environ.pop("BIGDL_TORCH_RING_ATTN", None)
+        runs[name] = rec
+        del model
+        train.opt = None
+        # a sharded model and its plan reference each other: free them
+        # before the next run's peak is measured
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        Engine.reset()
+    emit({"rank": rank, "world": 4, "runs": runs})
+    return 0
+
+
+def phase_axes_layouts():
+    """The pipe, expert and seq axes beside the batch axes (module
+    docstring, 27); returns the kernels line's rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return ax_run(tmp)
+
+
+def ax_launch_checks(name, run, r, what):
+    shape, counts = AX_LAUNCHES[name]
+    if None in counts:
+        want = counts[None]
+    else:
+        coord = run["coord"]
+        want = counts[coord.get("seq", coord.get("tp"))]
+    b6, lse, b7 = (c * AX_STEPS for c in want)
+    got_shapes = {tuple(s) for s, c, n in run["b6_shapes"]}
+    want_shapes = ({(8, 8, 256, 64)} if shape is None
+                   else {tuple(shape[0])})
+    check((run["b6"], run["b6_lse"], run["b7"]) == (b6, lse, b7)
+          and got_shapes == want_shapes and only_route_counts(run["routes"]),
+          f"{what}: launches (B6, with the log-sum-exp, B7) "
+          f"{(run['b6'], run['b6_lse'], run['b7'])} != {(b6, lse, b7)} at "
+          f"{run['b6_shapes']}, routes {run['routes']}")
+
+
+def ax_checks(ranks):
+    """The gates of every run on every rank (module docstring, 27)."""
+    for name in ranks[0]["runs"]:
+        base = name.split("-")[0]
+        for r, rr in enumerate(ranks):
+            run, what = rr["runs"][name], f"axes_layouts {name} rank {r}"
+            steps = AX_STEPS
+            check(len(run["losses"]) == steps and all(
+                map(math.isfinite, run["losses"])),
+                f"{what}: losses {run['losses']}")
+            check(run["rank_max_abs_diff"] == 0.0, f"{what}: the weights "
+                  f"differ from rank 0's by up to {run['rank_max_abs_diff']}")
+            check(max(run["delta_errs"]) <= PS_DELTA_TOL, f"{what}: |Δ - Δref| / |Δref| by unit "
+                  f"{run['delta_errs']} beyond {PS_DELTA_TOL}")
+            ax_launch_checks(name, run, r, what)
+            want = {k: {n: c * steps for n, c in v.items()}
+                    for k, v in AX_COLLECTIVES[base].items()}
+            if base == "pipe":
+                want["permute"] = {"pipe": steps * ax_pipe_hops(
+                    name.split("-")[1], 2, AX_MICRO, 1, run["coord"]["pipe"])}
+            got = {k: v for k, v in run["collectives"].items() if v}
+            check(got == want, f"{what}: collectives {got} != {want}")
+            if base == "pipe":
+                dev, total = run["stack_bytes"]
+                stack = run["stack_whole_elements"]
+                check(dev * 2 == total and run["local_elements"] ==
+                      run["whole_elements"] - stack // 2
+                      and run["stage_bytes"][0]["param_bytes_per_device"]
+                      * 2 == run["stage_bytes"][0]["stacked_param_bytes"],
+                      f"{what}: the stack a rank {dev} of {total} bytes, "
+                      f"elements {run['local_elements']}")
+                d = run["description"]
+                check((d["pipe_stages"], d["pipe_microbatches"]) ==
+                      (2, AX_MICRO), f"{what}: description {d}")
+            if base == "moe":
+                dev, total = run["table_bytes"]
+                tables = run["table_whole_elements"]
+                check(dev * 2 == total and run["local_elements"] ==
+                      run["whole_elements"] - tables // 2,
+                      f"{what}: the tables a rank {dev} of {total} bytes, "
+                      f"elements {run['local_elements']}")
+            if base == "regather":
+                check(run["local_elements"] == LY_LOCAL[AX_REGATHER],
+                      f"{what}: elements {run['local_elements']}")
+
+
+def ax_run(tmp):
+    """``phase_axes_layouts`` with ``tmp`` for the ranks' meeting and the
+    one-process runs' weight changes."""
+    t_phase = time.perf_counter()
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    data = ax_data()
+    one = ax_one_process(data, tmp)
+    del data
+    ranks, wall = spawn_ranks("--axes-layouts-child", tmp, AX_TIMEOUT, n=4)
+    emit({"phase": "axes_layouts", "part": "ranks", "gpu": gpu_line(),
+          "one_process": one, "ranks": ranks, "spawn_wall_s": wall})
+    ax_checks(ranks)
+    # the kernels at this phase's shapes
+    H, D = PIPE_LM["num_heads"], PIPE_LM["d_model"] // PIPE_LM["num_heads"]
+    b6p, b7p = flash_pair_cases(AX_BATCH // 2 // AX_MICRO, H,
+                                PIPE_LM["max_len"], D, SEED + 53)
+    b6m, b7m = flash_pair_cases(AX_BATCH // 2, H, MOE["max_len"], D,
+                                SEED + 54)
+    T = LM["max_len"] // 2
+    b6r = flash_case(AX_BATCH // 2, LM["num_heads"], T, T, D,
+                     torch.bfloat16, False,
+                     torch.Generator().manual_seed(SEED + 55), with_lse=True)
+    b7r = b7_case(AX_BATCH // 2, LM["num_heads"], T, T, D, torch.bfloat16,
+                  False, torch.Generator(device="cuda").manual_seed(SEED + 55))
+    for c in (b6r, b7r):
+        check(c["ok"], f"axes_layouts kernel case {c}")
+    runs = ranks[0]["runs"]
+
+    def per_rank(field, names=runs):
+        return {k: [r["runs"][k][field] for r in ranks] for k in names}
+    rg = [r["runs"]["regather"] for r in ranks]
+    regather = {
+        "peak_bytes_a_rank": [x["max_memory_allocated"] for x in rg],
+        "start_bytes_a_rank": [x["start_allocated"] for x in rg],
+        "held_peak": [x["held_peak"] for x in rg],
+        "gathered_bytes_max_unit": rg[0]["gathered_bytes_max_unit"],
+        "gathered_bytes_all_units": rg[0]["gathered_bytes_all_units"]}
+    emit({"phase": "axes_layouts", "gpu": gpu_line(),
+          "moe_route_flips_random_tokens": [r["runs"]["moe"]["route_flips"]
+                                            for r in ranks],
+          "host_step_ms": per_rank("host_step_ms"),
+          "run_s": per_rank("run_s"),
+          "max_memory_allocated": per_rank("max_memory_allocated"),
+          "regather_122": {**regather, "peak_gb_without_regather": [2.68, 2.80]},
+          "host_copies": per_rank("host_copies"),
+          "b6_pipe": b6p, "b7_pipe": b7p, "b6_moe": b6m, "b7_moe": b7m,
+          "b6_ring": b6r, "b7_ring": b7r,
+          "phase_s": time.perf_counter() - t_phase})
+    tc = {"tc": 0, "f32": 0}
+
+    def total(names, field):
+        return sum(r["runs"][k][field] for r in ranks for k in names)
+    pipes = ["pipe-" + s for s in AX_PIPE_RUNS]
+    rings = ["seq", "seam"]
+    rows = []
+    for (b6, b7), names, path in (
+            ((b6p, b7p), pipes, "axes_layouts transformer_lm_pipe "
+             "(2,1,1,2,1) gpipe and 1f1b (4 ranks)"),
+            ((b6m, b7m), ["moe"], "axes_layouts transformer_moe "
+             "(2,1,1,1,2) (4 ranks)"),
+            ((b6r, b7r), rings, "axes_layouts ring blocks: data x seq and "
+             "the tp seam (2,1,2), the diagonal causal (4 ranks)")):
+        n6, n7 = total(names, "b6"), total(names, "b7")
+        rows += [kernel_row(b6, "flash_attention", *B6_SRC, n6, path,
+                            {**tc, "tc": n6}),
+                 kernel_row(b7, "flash_attention_bwd", *B7_SRC, n7, path,
+                            {**tc, "tc": n7})]
+    return rows
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall seconds."""
     t0 = time.perf_counter()
@@ -10285,6 +10797,12 @@ def main():
         return layouts_child(sys.argv[2])
     if sys.argv[1:2] == ["--serve-layouts-child"]:
         return serve_layouts_child(sys.argv[2])
+    if sys.argv[1:2] == ["--axes-layouts-child"]:
+        return axes_layouts_child(sys.argv[2])
+    if sys.argv[1:3] == ["--only", "axes_layouts"]:
+        timed("build", phase_build)
+        timed("axes_layouts", phase_axes_layouts)
+        return 0
     if sys.argv[1:3] == ["--only", "serve_layouts"]:
         timed("build", phase_build)
         timed("serve_layouts", phase_serve_layouts)
@@ -10390,6 +10908,7 @@ def main():
     rows += timed("pipe_seq", phase_pipe_seq)
     rows += timed("layouts", phase_layouts)
     rows += timed("serve_layouts", phase_serve_layouts)
+    rows += timed("axes_layouts", phase_axes_layouts)
     rows.append(decode_row)
     emit({"script_s": time.perf_counter() - t_script})
     emit({"kernels": rows})

@@ -282,9 +282,18 @@ def test_engine_mesh_kinds(shape, kind):
     ({"data": 2, "seq": 2}, "seq"), ({"tp": 2, "seq": 1}, "seq"),
     ({"model": 2, "tp": 2}, "model"), ({"rows": 2}, "rows")])
 def test_engine_refuses_what_waits_for_the_rest(shape, what):
+    """What still waits raises typed, naming item 8; the pipe and expert
+    axes beside the batch axes and ``data x seq`` now pass the mesh check
+    and, in one process, want their processes."""
     Engine.reset()
-    with pytest.raises(NotImplementedError, match="item 8") as e:
-        Engine.init(device="cpu", mesh_shape=shape)
+    n = int(np.prod(list(shape.values())))
+    if what in ("pipe", "expert") or shape == {"data": 2, "seq": 2}:
+        with pytest.raises(ValueError,
+                           match=f"needs {n} processes") as e:
+            Engine.init(device="cpu", mesh_shape=shape)
+    else:
+        with pytest.raises(NotImplementedError, match="item 8") as e:
+            Engine.init(device="cpu", mesh_shape=shape)
     assert what in str(e.value)
     assert Engine.mesh() is None
 

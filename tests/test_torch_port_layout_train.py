@@ -620,7 +620,10 @@ def test_lm_collectives_a_step(run):
     """Per step of the 2-layer LM under (1,2,2): the parameters gathered
     at use, one all-gather a unit (the token table, the position table,
     each block, the head; the final LayerNorm's leaves are replicated) and
-    as many reduce-scatters; over tp 2 output gathers an attention, 2 a
+    as many reduce-scatters; gathered again in the backward, one
+    all-gather a unit that saved a gathered weight (each block and the
+    head: the tables' backward reads the indices alone); over tp 2 output
+    gathers an attention, 2 a
     feed-forward, 1 for the head, and as many input all-reduces, and one
     bias-slice gather an attention; one all-reduce of the replicated
     leaves and the loss; the snapshot's one gather of the parameters and
@@ -633,6 +636,7 @@ def test_lm_collectives_a_step(run):
         assert c["all_reduce"]["tp_in"] == (4 * L + 1) * LM_STEPS
         assert c["all_reduce"]["grads"] == LM_STEPS
         assert c["all_gather"]["params"] == (L + 3) * LM_STEPS
+        assert c["all_gather"]["params_bwd"] == (L + 1) * LM_STEPS
         assert c["all_gather"]["tp_out"] == (4 * L + 1) * LM_STEPS
         assert c["all_gather"]["tp_bias"] == L * LM_STEPS
         assert c["all_gather"]["whole"] == 1

@@ -522,12 +522,14 @@ def test_two_rank_trace_and_clamp_warning(two_ranks):
 # -- the Engine's one named axis ------------------------------------------------
 
 @pytest.mark.parametrize("shape,match", [
-    ({"data": 2, "pipe": 2}, "item 8"), ({"pipe": 2, "seq": 2}, "item 8"),
+    ({"data": 2, "pipe": 2}, "needs 4 processes"),
+    ({"pipe": 2, "seq": 2}, "item 8"),
     ({"tp": 1}, "item 8"), ({"pipe": 1, "seq": 1}, "item 8")])
 def test_engine_refuses_what_needs_the_layouts(shape, match):
-    """A pipe axis beside another wide axis, and a seq axis beside any
-    other, still wait for the rest of the layouts; a mesh of the layouts'
-    axes alone (``{"tp": 1}``) forms the layout's mesh."""
+    """A pipe axis beside a batch axis is a layout (in one process
+    ``{"data": 2, "pipe": 2}`` wants 4 processes); a seq axis beside any
+    axis but data still waits for the rest of the layouts; a mesh of the
+    layouts' axes alone (``{"tp": 1}``) forms the layout's mesh."""
     from bigdl_torch.utils.engine import LAYOUT_AXES, Engine
     Engine.reset()
     if set(shape) <= set(LAYOUT_AXES) and "pipe" not in shape:
@@ -539,7 +541,8 @@ def test_engine_refuses_what_needs_the_layouts(shape, match):
         finally:
             Engine.reset()
         return
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if "processes" in match else NotImplementedError
+    with pytest.raises(error, match=match):
         Engine.init(device="cpu", mesh_shape=shape)
     assert Engine.mesh() is None
 
