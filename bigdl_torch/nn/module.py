@@ -563,17 +563,33 @@ class Module(torch.nn.Module):
 
     copy_weights = load_model_weights
 
-    def save_caffe(self, *args, **kwargs):
-        raise NotImplementedError("save_caffe (interop/caffe.py) is not "
-                                  "ported: ROADMAP.md queue A item 9")
+    def save_caffe(self, prototxt_path: str, model_path: str = None):
+        """(AbstractModule.saveCaffe(prototxtPath, modelPath) ->
+        CaffePersister).  Two-arg form writes the text net definition to
+        ``prototxt_path`` and the binary caffemodel to ``model_path``;
+        one-arg form writes only the binary caffemodel to the given path.
+        The module's own leaves are written."""
+        from ..interop.caffe import save_caffe
+        self._need_built()
+        if model_path is None:
+            save_caffe(self, None, prototxt_path)
+        else:
+            save_caffe(self, None, model_path, prototxt_path=prototxt_path)
+        return self
 
-    def save_tf(self, *args, **kwargs):
-        raise NotImplementedError("save_tf (interop/tensorflow.py) is not "
-                                  "ported: ROADMAP.md queue A item 9")
+    def save_tf(self, path: str):
+        """(AbstractModule.saveTF -> TensorflowSaver)"""
+        from ..interop.tensorflow import save_tf
+        self._need_built()
+        save_tf(self, None, path)
+        return self
 
-    def save_torch(self, *args, **kwargs):
-        raise NotImplementedError("save_torch (interop/torchfile.py) is not "
-                                  "ported: ROADMAP.md queue A item 9")
+    def save_torch(self, path: str):
+        """(AbstractModule.saveTorch -> TorchFile)"""
+        from ..interop.torchfile import save_torch_module
+        self._need_built()
+        save_torch_module(self, None, path)
+        return self
 
     # -- modes and bookkeeping ------------------------------------------------
 

@@ -1,21 +1,32 @@
-"""The protobuf wire format, as much as the summary events need.
+"""The protobuf wire format: a generic codec, no protobuf runtime.
 
-Counterpart of ``bigdl_tpu/utils/pbwire.py`` (the reference's generic
-codec, replacing protoc-generated Java): varints, 64- and 32-bit fixed
-fields and length-delimited fields, and :class:`Fields`, a dict-like view
-of one message's fields.  Only what ``visualization/proto.py`` uses is
-ported; the Caffe and TensorFlow interop codecs come with ROADMAP queue A
-item 9.
+Counterpart of ``bigdl_tpu/utils/pbwire.py``.  BigDL vendors
+protoc-generated Java (``caffe/Caffe.java``,
+``org/tensorflow/framework/*.java``) to read and write Caffe's
+NetParameter and TensorFlow's GraphDef and Event messages; the wire format
+is four encodings (varint, fixed64, length-delimited, fixed32), so one
+codec and the callers' field tables (``interop/caffe.py``,
+``interop/tensorflow.py``, ``visualization/proto.py``) replace it.
+
+Decoding yields (field number, wire type, value) triples; what a field
+means lives in the callers.  :class:`Fields` is a dict-like view for the
+common reads.  ``field_packed_floats`` takes a numpy array without a
+Python list in between (a weight blob of millions of floats).
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple, Union
 
 __all__ = ["encode_varint", "decode_varint", "tag", "field_varint",
            "field_double", "field_float", "field_bytes", "field_string",
-           "field_packed_doubles", "iter_fields", "Fields"]
+           "field_packed_doubles", "field_packed_floats",
+           "field_packed_varints", "iter_fields", "Fields", "zigzag",
+           "unzigzag"]
+
+
+# ---------------------------------------------------------------- encoding
 
 def encode_varint(value: int) -> bytes:
     out = bytearray()
@@ -28,6 +39,14 @@ def encode_varint(value: int) -> bytes:
         else:
             out.append(b)
             return bytes(out)
+
+
+def zigzag(v: int) -> int:
+    return (v << 1) ^ (v >> 63)
+
+
+def unzigzag(v: int) -> int:
+    return (v >> 1) ^ -(v & 1)
 
 
 def tag(field: int, wire: int) -> bytes:
@@ -57,6 +76,22 @@ def field_string(field: int, value: str) -> bytes:
 def field_packed_doubles(field: int, values: Sequence[float]) -> bytes:
     return field_bytes(field, struct.pack(f"<{len(values)}d", *values))
 
+
+def field_packed_floats(field: int, values) -> bytes:
+    """Accepts a sequence of floats or a numpy array (fast path: no Python
+    list materialization for large weight blobs)."""
+    import numpy as np
+    if isinstance(values, np.ndarray):
+        return field_bytes(field,
+                           np.ascontiguousarray(values, "<f4").tobytes())
+    return field_bytes(field, struct.pack(f"<{len(values)}f", *values))
+
+
+def field_packed_varints(field: int, values: Sequence[int]) -> bytes:
+    return field_bytes(field, b"".join(encode_varint(v) for v in values))
+
+
+# ---------------------------------------------------------------- decoding
 
 def decode_varint(buf: bytes, pos: int) -> Tuple[int, int]:
     result = 0
@@ -114,9 +149,32 @@ class Fields:
         vals = self._all(field)
         return int(vals[-1][1]) if vals else default
 
+    def ints(self, field: int) -> List[int]:
+        """Repeated varints, handling both packed and unpacked encodings."""
+        out: List[int] = []
+        for wire, val in self._all(field):
+            if wire == 2:  # packed
+                pos = 0
+                while pos < len(val):
+                    v, pos = decode_varint(val, pos)
+                    out.append(v)
+            else:
+                out.append(int(val))
+        return out
+
     def float(self, field: int, default: float = 0.0) -> float:
         vals = self._all(field)
         return float(vals[-1][1]) if vals else default
+
+    def floats(self, field: int) -> List[float]:
+        """Repeated float32, packed or not."""
+        out: List[float] = []
+        for wire, val in self._all(field):
+            if wire == 2:
+                out.extend(struct.unpack(f"<{len(val) // 4}f", val))
+            else:
+                out.append(float(val))
+        return out
 
     def doubles(self, field: int) -> List[float]:
         out: List[float] = []
@@ -135,8 +193,14 @@ class Fields:
         vals = self._all(field)
         return bytes(vals[-1][1]).decode() if vals else default
 
+    def strs(self, field: int) -> List[str]:
+        return [bytes(v).decode() for _w, v in self._all(field)]
+
     def sub(self, field: int) -> "Fields":
         return Fields(self.bytes(field))
 
     def subs(self, field: int) -> List["Fields"]:
         return [Fields(bytes(v)) for _w, v in self._all(field)]
+
+    def raw(self, field: int) -> List[bytes]:
+        return [bytes(v) for _w, v in self._all(field)]

@@ -27,7 +27,9 @@ SGD with momentum for 5 steps:
   expert collectives by kind; beside a batch axis the routing is the
   global batch's, as the reference's.  The MoE LM under (2,1,1,1,2) on
   random tokens at capacity factor 1.25, where tokens overflow their
-  experts, against one process given the ranks' global order.
+  experts, against one process given the ranks' global order; the same
+  run with a planted fault (the ``expert_out`` gather's backward handing
+  every rank rank 0's slice) fails the card's 2e-2 weight-change gate.
 - A checkpoint written under (2,1,1,2,1) and under (2,1,1,1,2): it loads
   into one process and into the reference's reader, equal to the ranks'
   gathered weights, and resumes under (1,2,1,2,1) and (1,2,1,1,2) as one
@@ -401,6 +403,35 @@ _WORKER = textwrap.dedent('''
                           LayoutSharding(m, min_size=0), job["steps"])
         res["moe_drops"] = {"losses": losses,
                             "weights": leaves(to_reference_tree(m)[0])}
+        reset()
+        # the same run with a planted fault: the expert_out gather's
+        # backward hands every expert rank rank 0's slice of the gradient
+        from bigdl_torch.parallel import mesh_plan
+        gather = mesh_plan._Gather
+
+        class Planted(gather):
+            @staticmethod
+            def forward(ctx, ax, x, dim, kind):
+                ctx.kind = kind
+                return gather.forward(ctx, ax, x, dim, kind)
+
+            @staticmethod
+            def backward(ctx, g):
+                if ctx.kind != "expert_out":
+                    return gather.backward(ctx, g)
+                c = g.shape[ctx.dim] // ctx.ax.n
+                return None, g.narrow(ctx.dim, 0, c).contiguous(), None, None
+        mesh_plan._Gather = Planted
+        init(MeshLayout(2, 1, 1, 1, 2).shape())
+        m = tlm.TransformerLM(**job["moe_lm"]).build(
+            "cpu", torch.Generator().manual_seed(0))
+        for x in m.modules():
+            if isinstance(x, MoEFFN):
+                x.router_jitter = 0.0
+        train(m, x_lm[:N], y_lm[:N], lm_crit(),
+              LayoutSharding(m, min_size=0), job["steps"])
+        res["moe_planted"] = {"weights": leaves(to_reference_tree(m)[0])}
+        mesh_plan._Gather = gather
         reset()
         # re-forming the pipe and expert layouts
         errs = {}
@@ -858,22 +889,36 @@ def _rank_major(records, n, batch, seed=1):
     return out
 
 
-def test_moe_capacity_drops_route_the_global_batch(run, monkeypatch):
-    """The MoE LM under (2,1,1,1,2) on random tokens at capacity factor
-    1.25, where tokens overflow their experts: the ranks route the
-    global batch in rank order, so one process given that order (the
-    port's, itself held to the reference in test_torch_port_moe.py) drops
-    the same tokens and trains to the same weights."""
+def _moe_lm_one_process(x, y):
+    """The MoE LM of the ranks' runs trained in one process on the ranks'
+    global order: (its weights as built, as trained)."""
     from bigdl_torch.models import transformer_lm as tlm
-    from bigdl_torch.parallel import expert as texpert
-    jobs, _, _, ranks, _ = run
-    x, y = jobs[4]["data"]["lm"]
     n = BATCH * STEPS
     m = tlm.TransformerLM(**MOE_LM).build(
         "cpu", torch.Generator().manual_seed(0))
     for mod in m.modules():
         if isinstance(mod, TMoEFFN):
             mod.router_jitter = 0.0
+    # copies: on the CPU the tree's leaves share the parameters' memory
+    built = [np.array(a) for a in jax.tree.leaves(to_reference_tree(m)[0])]
+    records = [TSample.from_ndarray(x[i], y[i]) for i in range(n)]
+    opt = TOptimizer(m, TDataSet.array(_rank_major(records, 2, BATCH)),
+                     _lm_crit(tnn), batch_size=BATCH, device="cpu")
+    opt.set_optim_method(TSGD(0.05, momentum=0.9))
+    opt.set_end_when(TTrigger.max_iteration(STEPS)).optimize()
+    return built, [np.asarray(a)
+                   for a in jax.tree.leaves(to_reference_tree(m)[0])]
+
+
+def test_moe_capacity_drops_route_the_global_batch(run, monkeypatch):
+    """The MoE LM under (2,1,1,1,2) on random tokens at capacity factor
+    1.25, where tokens overflow their experts: the ranks route the
+    global batch in rank order, so one process given that order (the
+    port's, itself held to the reference in test_torch_port_moe.py) drops
+    the same tokens and trains to the same weights."""
+    from bigdl_torch.parallel import expert as texpert
+    jobs, _, _, ranks, _ = run
+    x, y = jobs[4]["data"]["lm"]
     kept = []
     route = texpert._route
 
@@ -882,20 +927,35 @@ def test_moe_capacity_drops_route_the_global_batch(run, monkeypatch):
         kept.append((float(out[1].sum()), logits.shape[0]))
         return out
     monkeypatch.setattr(texpert, "_route", spy)
-    records = [TSample.from_ndarray(x[i], y[i]) for i in range(n)]
-    opt = TOptimizer(m, TDataSet.array(_rank_major(records, 2, BATCH)),
-                     _lm_crit(tnn), batch_size=BATCH, device="cpu")
-    opt.set_optim_method(TSGD(0.05, momentum=0.9))
-    opt.set_end_when(TTrigger.max_iteration(STEPS)).optimize()
+    _, want = _moe_lm_one_process(x, y)
     # the layers' routings dropped tokens on most steps
     assert len(kept) == STEPS * MOE_LM["num_layers"]
     assert sum(d < t for d, t in kept) > len(kept) // 2
-    want = [np.asarray(a) for a in jax.tree.leaves(to_reference_tree(m)[0])]
     rs = ranks[4]
     for r in rs:
         _close(r["moe_drops"]["weights"], want)
         assert _bit_equal(r["moe_drops"]["weights"],
                           rs[0]["moe_drops"]["weights"])
+
+
+def test_planted_expert_out_fault_fails_the_gate(run):
+    """The expert-parallel MoE gate on the card holds each part's change
+    over a run within 2e-2 of one process's (|Δ - Δref| / |Δref|).  On
+    the same run as the capacity test, the ranks pass it; with the
+    ``expert_out`` gather's backward handing every expert rank rank 0's
+    slice of the gradient, they fail it."""
+    jobs, _, _, ranks, _ = run
+    built, want = _moe_lm_one_process(*jobs[4]["data"]["lm"])
+
+    def worst(got):
+        # Δ - Δref = got - want, both from the same built weights; a leaf
+        # that moves by less than 1e-6 (a norm's bias) is left out
+        return max(float(np.linalg.norm(g - v) / np.linalg.norm(v - w))
+                   for g, v, w in zip(got, want, built)
+                   if np.linalg.norm(v - w) > 1e-6)
+    for r in ranks[4]:
+        assert worst(r["moe_drops"]["weights"]) <= 1e-3
+        assert worst(r["moe_planted"]["weights"]) > 2e-2
 
 
 def test_reform_keeps_the_pipe_and_expert_block(run):

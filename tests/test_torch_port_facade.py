@@ -159,9 +159,17 @@ def test_save_load_round_trip(tmp_path):
     jm.save(str(tmp_path / "ref"))
     with pytest.raises(tnn.ReferenceModuleFile, match="load_reference_tree"):
         tnn.Module.load(str(tmp_path / "ref"), device="cpu")
-    for fn in (m.save_caffe, m.save_tf, m.save_torch):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn("x")
+    # the foreign formats: Caffe holds the residual net; TF's and Torch7's
+    # savers hold chains only and refuse it, as the reference's do
+    from bigdl_torch.interop import load_caffe
+    m.save_caffe(str(tmp_path / "m.prototxt"), str(tmp_path / "m.caffemodel"))
+    back, _ = load_caffe(str(tmp_path / "m.caffemodel"), device="cpu")
+    back.evaluate()
+    assert (tmp_path / "m.prototxt").read_text().startswith("name:")
+    assert float((back(x) - want).abs().max()) <= 1e-3
+    for fn in (m.save_tf, m.save_torch):
+        with pytest.raises(ValueError, match="unsupported"):
+            fn(str(tmp_path / "chain_only"))
 
 
 def _options():

@@ -47,7 +47,12 @@ def test_import_loads_no_jax():
             "bigdl_torch.parallel.pipeline", "bigdl_torch.parallel.hops",
             "bigdl_torch.parallel.ring_attention",
             "bigdl_torch.parallel.layout",
-            "bigdl_torch.parallel.mesh_plan"} <= set(names)
+            "bigdl_torch.parallel.mesh_plan", "bigdl_torch.interop",
+            "bigdl_torch.interop.javaser", "bigdl_torch.interop.bigdl",
+            "bigdl_torch.interop.bigdl_seq", "bigdl_torch.interop.caffe",
+            "bigdl_torch.interop.tensorflow",
+            "bigdl_torch.interop.torchfile",
+            "bigdl_torch.tools.model_validator"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {['bigdl_torch'] + names!r}:\n"
             "    importlib.import_module(n)\n"
@@ -121,6 +126,31 @@ def test_module_load_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run.main(["train", "--model", "lenet", "--synthetic",
                   "--max-iteration", "1"])
+
+
+def test_interop_loaders_raise_without_cuda(monkeypatch, tmp_path):
+    """Every model loader of ``interop/`` and ``model_validator`` builds on
+    the CPU only when asked to."""
+    from bigdl_torch import interop
+    from bigdl_torch.models import LeNet5
+    from bigdl_torch.tools import model_validator
+    model = LeNet5(10).build("cpu")
+    paths = {f: str(tmp_path / f) for f in ("bigdl", "caffe", "tf", "t7")}
+    interop.save_bigdl(model, paths["bigdl"])
+    model.save_caffe(paths["caffe"])
+    model.save_tf(paths["tf"])
+    model.save_torch(paths["t7"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda d: interop.load_bigdl(paths["bigdl"], device=d),
+                 lambda d: interop.load_caffe(paths["caffe"], device=d)[0],
+                 lambda d: interop.load_tf(paths["tf"], device=d)[0],
+                 lambda d: interop.load_torch_module(paths["t7"],
+                                                     device=d)[0],
+                 lambda d: model_validator.load_model("bigdl",
+                                                      paths["bigdl"], d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(None)
+        assert next(call("cpu").parameters()).device == torch.device("cpu")
 
 
 def test_serving_tools_raise_without_cuda(monkeypatch):

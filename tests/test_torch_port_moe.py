@@ -309,7 +309,7 @@ def test_remat_recompute_leaves_no_aux_loss():
 # -- expert parallelism over 2 gloo ranks -------------------------------------
 
 _EP_WORKER = textwrap.dedent('''
-    import os, pickle, sys
+    import datetime, os, pickle, sys
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -317,8 +317,11 @@ _EP_WORKER = textwrap.dedent('''
     from bigdl_torch.parallel.expert import expert_parallel_ffn
 
     rank, out, store = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    # the store's own timeout: a rank that never arrives fails this one
+    # in a minute, inside the test's wait
     dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=2)
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
     mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("expert",))
     params, x = pickle.load(open(out + ".in", "rb"))
     params = {k: torch.from_numpy(v) for k, v in params.items()}
@@ -326,6 +329,8 @@ _EP_WORKER = textwrap.dedent('''
                               capacity_factor=cf).numpy()
           for cf in (4.0, 1.0)]
     pickle.dump(ys, open(out + "." + str(rank), "wb"))
+    # a gloo group torn down while its peer still talks aborts the peer
+    dist.barrier()
     dist.destroy_process_group()
 ''')
 
@@ -346,11 +351,18 @@ def test_expert_parallel_ffn_two_gloo_ranks(tmp_path):
         for r in range(2)]
     try:
         errs = [p.communicate(timeout=120)[1] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        errs = [p.communicate()[1] for p in procs]
     finally:
         for p in procs:
             p.kill()
-    for p, err in zip(procs, errs):
-        assert p.returncode == 0, f"worker failed:\n{err[-3000:]}"
+    # a worker's death can show only in its peer's stderr: report both
+    report = "\n".join(f"worker {r} (exit {p.returncode}):\n{err[-3000:]}"
+                       for r, (p, err) in enumerate(zip(procs, errs)))
+    assert all(p.returncode == 0 for p in procs), \
+        f"workers failed:\n{report}"
     outs = [pickle.load(open(f"{out}.{r}", "rb")) for r in range(2)]
     # the reference's shard_map program over a 2-device "expert" axis, at
     # the same local capacities: capacity_factor 4 routes every token,

@@ -1,7 +1,8 @@
 """The port exports what the JAX package exports.
 
 Every name in the ``__all__`` of ``bigdl_tpu.dataset``, ``bigdl_tpu.models``,
-``bigdl_tpu.parallel``, ``bigdl_tpu.serve`` and ``bigdl_tpu.utils``, and every
+``bigdl_tpu.parallel``, ``bigdl_tpu.serve``, ``bigdl_tpu.utils`` and
+``bigdl_tpu.interop``, and every
 name the top-level ``bigdl_tpu/__init__.py`` and ``bigdl_tpu/optim/__init__.py``
 bind (neither has an ``__all__``: the names their imports and assignments
 bind), is
@@ -27,7 +28,7 @@ NOT_YET_PORTED = {}
 ALLOWED_ITEMS = {"item 5", "item 6", "item 8", "item 9"}
 
 PACKAGES = ("bigdl_tpu.dataset", "bigdl_tpu.models", "bigdl_tpu.parallel",
-            "bigdl_tpu.serve", "bigdl_tpu.utils")
+            "bigdl_tpu.serve", "bigdl_tpu.utils", "bigdl_tpu.interop")
 
 #: packages without an ``__all__``, read from their import statements
 BOUND = ("bigdl_tpu", "bigdl_tpu.optim")

@@ -81,7 +81,11 @@ def _call(base, path, obj=None, raw=None, headers=None):
 @pytest.fixture(scope="module")
 def fronts(tmp_path_factory):
     """(reference base URL, port base URL, their servers, a snapshot file
-    the reference wrote)."""
+    the reference wrote).  Both packages' metrics registries start empty:
+    an earlier test in this process (a fleet's) may have armed one and
+    fed it families the other never saw."""
+    tmet.disarm()
+    jmet.disarm()
     Engine.init()
     jm = JLeNet5(10).build(jax.random.key(0))
     tm = load_reference_tree(LeNet5(10).build("cpu"), _np(jm.params),
