@@ -109,6 +109,12 @@ class OptimMethod:
     def get_learning_rate(self, driver_state=None) -> float:
         return self.learning_rate
 
+    def bind_dot(self, dot=None):
+        """The dot product of two per-parameter lists that an update over
+        every parameter uses (``LBFGS``'s): a mesh strategy's, which sums
+        the whole parameters' product from this rank's shards, or None
+        for this process's own.  An elementwise method takes none."""
+
     def optimize(self, feval, x):
         """One host-side step, the reference's ``optimize(feval, x)``
         (``OptimMethod.scala:38``): ``feval(x) -> (loss, grads)`` over a
@@ -374,7 +380,15 @@ class LBFGS(OptimMethod):
     previous weights and gradient; ``rho`` [m] and the int32 ``count`` are
     shared.  A history entry is pushed only when yᵀs > 1e-10 after the
     first update; an empty slot has rho = 0 and drops out of the two-loop
-    recursion."""
+    recursion.
+
+    Under a mesh strategy (``parallel/sharding.py`` ``LayoutSharding``,
+    ``TensorParallel``) the parameters and the rows are this rank's
+    shards, and the ``Optimizer`` binds the strategy's ``dot``
+    (``OptimMethod.bind_dot``): every dot product of the two-loop recursion is
+    then summed over the ranks that hold each leaf's other shards, each
+    element counted once, as the reference's raveled tree is one
+    vector."""
 
     #: the history's dot products run over every parameter
     supports_fused = False
@@ -385,6 +399,10 @@ class LBFGS(OptimMethod):
         self.m = history_size
         self.max_iter = max_iter
         self.tolerance_grad = tolerance_grad
+        self._dot = _dot
+
+    def bind_dot(self, dot=None):
+        self._dot = dot or _dot
 
     def init_state(self, params):
         rows = [p.detach().reshape(-1) for p in params]
@@ -405,7 +423,7 @@ class LBFGS(OptimMethod):
         count = state["count"]
         s_new = torch._foreach_sub(flat, state["prev_flat"])
         y_new = torch._foreach_sub(gflat, state["prev_grad"])
-        ys = _dot(y_new, s_new)
+        ys = self._dot(y_new, s_new)
         valid = (ys > 1e-10) & bool(count > 0)
 
         def push(bufs, rows):
@@ -419,15 +437,15 @@ class LBFGS(OptimMethod):
         q = list(gflat)
         alphas = []
         for i in range(self.m - 1, -1, -1):
-            a = rho[i] * _dot([si[i] for si in s], q)
+            a = rho[i] * self._dot([si[i] for si in s], q)
             q = [qj - a * yj[i] for qj, yj in zip(q, y)]
             alphas.append((i, a))
-        gamma = torch.where(valid, ys / torch.clamp(_dot(y_new, y_new),
-                                                    min=1e-10),
+        yy = self._dot(y_new, y_new)
+        gamma = torch.where(valid, ys / torch.clamp(yy, min=1e-10),
                             torch.ones_like(ys))
         r = [gamma * qj for qj in q]
         for i, a in reversed(alphas):
-            b = rho[i] * _dot([yj[i] for yj in y], r)
+            b = rho[i] * self._dot([yj[i] for yj in y], r)
             r = [rj + sj[i] * (a - b) for rj, sj in zip(r, s)]
         prev = [f.clone() for f in flat]
         _apply(params, [(float(lr) * rj).reshape(p.shape)
@@ -598,6 +616,9 @@ class EMA(OptimMethod):
     @property
     def supports_fused(self):
         return self.inner.supports_fused
+
+    def bind_dot(self, dot=None):
+        self.inner.bind_dot(dot)
 
     def init_state(self, params):
         # real copies, never aliases of the parameters

@@ -187,8 +187,13 @@ the shards'; a resumed whole method state is cut the same way.  A
 checkpoint gathers the whole parameters and method state on every rank
 (``strategy.whole``) before the writer writes the reference's files, so
 a snapshot of any layout loads into one process, into the reference, and
-into another layout; ``final_opt_state`` is whole.  ``set_remat`` and
-the wire's buckets raise under a mesh strategy (queue A item 8).
+into another layout; ``final_opt_state`` is whole.  Under a mesh
+strategy ``set_remat`` checkpoints each segment as on one process: the
+recompute runs the units' forward hooks again, so it gathers the same
+weights in the same order on every rank, and its saved tensors nest
+inside the plan's re-gather (``parallel/mesh_plan.py``); the wire's
+buckets cut the strategy's all-reduces, and ``LBFGS`` sums its dot
+products over the shards (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -374,18 +379,24 @@ def _find_batchers(dataset):
     return batchers
 
 
-def _segments(model):
+def _segments(model, nested: bool = True):
     """The checkpointed segments of a remat step: the children of a
     top-level ``Sequential``, a child that is itself a ``Sequential``
-    opened in turn (ResNet-50's stem layers and bottlenecks, the LM's
-    embeddings, attention and MLP halves and head); a model of another
-    kind is one segment.  One checkpoint over the whole forward would
-    rebuild every activation at once at the start of the backward, which
-    is the peak without remat; a segment rebuilds only its own."""
+    opened in turn where ``nested`` (ResNet-50's stem layers and
+    bottlenecks, the LM's embeddings, attention and MLP halves and head);
+    a model of another kind is one segment.  One checkpoint over the
+    whole forward would rebuild every activation at once at the start of
+    the backward, which is the peak without remat; a segment rebuilds
+    only its own.  A model sharded over a mesh (``_layout_plan``) is cut
+    at its plan's units, the top-level children, and no deeper: a unit's
+    forward hooks gather its weights, so a segment must run the whole
+    unit."""
     from ..nn.containers import Sequential
     if type(model).forward is not Sequential.forward or \
             len(model.layers) < 2:
         return [model]
+    if not nested:
+        return list(model.layers)
     return [seg for child in model.layers for seg in _segments(child)]
 
 
@@ -1083,7 +1094,8 @@ class Optimizer:
                 loss = self.criterion(self.model(inp), tgt)
         else:
             x = inp
-            for seg in _segments(self.model):
+            for seg in _segments(self.model, "_layout_plan" not in
+                                 self.model.__dict__):
                 def fn(a, seg=seg):
                     with dropout_rng(rng):
                         return seg(a)
@@ -2049,13 +2061,10 @@ class Optimizer:
         optim = self.optim_method
         strategy = self.strategy
         self._bucket_mb = wire_bucket_mb()
+        # a mesh strategy's dot product counts each element of the whole
+        # parameters once (LBFGS's two-loop recursion)
+        optim.bind_dot(getattr(strategy, "dot", None))
         if strategy is not None:
-            if getattr(strategy, "SHARDS_PARAMS", False) and \
-                    self.remat_policy is not None:
-                raise ConfigurationError(
-                    f"set_remat under {type(strategy).__name__}: the "
-                    "recompute of a segment over mesh shards waits for "
-                    "ROADMAP.md queue A item 8")
             strategy.setup(self.model, optim, self._bucket_mb)
             if getattr(strategy, "SHARDS_PARAMS", False) and \
                     self._resume_opt_state is not None:

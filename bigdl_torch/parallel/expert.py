@@ -31,7 +31,14 @@ Counterpart of ``bigdl_tpu/parallel/expert.py``:
   batch's, as the reference's: the capacity counts every batch rank's
   tokens, each round's buffer positions count the lower batch ranks'
   tokens first, and the Switch loss takes the global f_e.  Under
-  ``DataParallel`` each rank routes its own rows.
+  ``DataParallel`` each rank routes its own rows.  Beside a wide ``tp``
+  (expert x tp) the expert group is the one of this rank's tp
+  coordinate; the tp ranks hold the same rows and route alike, the
+  global batch is the batch axes' alone, and the gate's gradient is
+  scattered from tp coordinate 0, so the Switch loss counts each batch
+  row once.  A ``MoEFFN`` inside a pipeline stage would hold pipe rows
+  (``mesh_rows`` returns {}), but a stage refuses one, as the
+  reference's does: it carries state (``parallel/pipeline.py``).
 - :func:`expert_parallel_ffn`: the same FFN with the experts spread over
   the ranks of a 1-D ``DeviceMesh`` axis and the tokens routed to them by
   ``all_to_all_single``; the dense math where the axis is missing or one

@@ -51,7 +51,13 @@ program and lets GSPMD place the collectives; PyTorch runs eagerly, so a
   alive at once are one unit's, not every unit's.  :attr:`MeshPlan.held_peak` is the most
   whole bytes alive at once (each gathered tensor and each cast counted
   from its creation until it is freed, by a ``weakref.finalize``),
-  beside :meth:`MeshPlan.gathered_bytes`.
+  beside :meth:`MeshPlan.gathered_bytes`.  Inside a segment that
+  ``Optimizer.set_remat`` checkpoints the plan's hooks stand aside: the
+  checkpoint keeps nothing of the unit's forward, and its recompute in
+  the backward runs the unit's pre-hook again, which gathers the current
+  shards (kind ``"params"``) in the forward's order on every rank; the
+  recomputed copies live until that segment's backward is done, and the
+  forward's gather node still reduce-scatters the gradients once.
 - Tensor parallelism: a ``Linear`` whose ``weight`` is split over the tp
   axis along its output features (dim 0), and a ``MultiHeadAttention``
   whose four (E, E) kernels are split along their output features (the
@@ -84,6 +90,7 @@ import torch
 
 from ..common import get_policy
 from ..nn.linear import _mm_f32, matmul_f32
+from ..utils import remat
 from ..utils.engine import Engine
 
 __all__ = ["MeshPlan", "TpAxis"]
@@ -446,6 +453,10 @@ class MeshPlan:
     # -- planning ----------------------------------------------------------
 
     def _mark_tp(self):
+        """Give ``_tp`` to each capable layer whose leaves the specs split
+        over tp where it computes its slice.  A pipeline stage's layers
+        hold ``pipeline_stage`` leaves (pipe rows alone) and are never
+        marked, nor is a ``MoEFFN`` (its tables never split over tp)."""
         n = self.sizes.get(self.tp_axis, 1)
         by_module: Dict[int, List[_Leaf]] = {}
         for l in self.leaves:
@@ -497,7 +508,9 @@ class MeshPlan:
 
     def axis(self, axes: Sequence[str]) -> Optional[TpAxis]:
         """A :class:`TpAxis` over the mesh axes ``axes`` (this rank's
-        index on them row-major), or None where they are one wide."""
+        index on them row-major), or None where they are one wide: the
+        group of the ranks that share this rank's other coordinates (an
+        expert group is the one of this rank's tp and pipe coordinates)."""
         n = math.prod(self.sizes.get(a, 1) for a in axes)
         if n == 1:
             return None
@@ -655,7 +668,11 @@ class MeshPlan:
         grad = torch.is_grad_enabled()
         self._swap(self._materialized(buckets, grad))
         hooks = None
-        if grad:
+        # inside a checkpointed segment (``Optimizer.set_remat``) the
+        # checkpoint's own hooks keep nothing of the forward, and its
+        # recompute runs this hook again: the weights are gathered anew,
+        # in the forward's order, for that segment's backward alone
+        if grad and not remat.active():
             hooks = torch.autograd.graph.saved_tensors_hooks(self._pack,
                                                              self._unpack)
             hooks.__enter__()

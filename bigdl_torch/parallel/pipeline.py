@@ -50,8 +50,13 @@ pipeline get the same gradients everywhere.  Two routes for the stack:
   (``parallel/mesh_plan.py`` never gathers them over pipe), and the
   stage function reads them.  Each row's gradient is its owner's alone,
   so nothing is summed over pipe; the strategy sums it over the batch
-  axes.  The pipe group is this rank's row of the mesh: each ``data x
-  fsdp`` coordinate runs its own pipeline on its own rows of the batch.
+  axes.  The pipe group is this rank's row of the mesh: each ``(data,
+  fsdp, tp, expert)`` coordinate runs its own pipeline on its own rows
+  of the batch, its hops inside its own group.  Beside a wide ``tp`` a
+  stage's layers hold pipe rows only and compute every head (the
+  reference's stack is not split over tp); the tp ranks of one stage
+  run the same rows, and the tp collectives of the layers around the
+  pipeline come before and after its hops, in one order on every rank.
   The route follows the stack's leading axis (n·v rows whole, v rows
   this rank's).
 """

@@ -86,8 +86,7 @@ from ..utils.engine import Engine
 from .wire import bucket_assignment
 
 __all__ = ["ShardingStrategy", "DataParallel", "ShardedDataParallel",
-           "TensorParallel", "LayoutSharding", "LayoutBucketsError",
-           "param_shaped"]
+           "TensorParallel", "LayoutSharding", "param_shaped"]
 
 
 def _shape(t) -> tuple:
@@ -594,12 +593,6 @@ def _dtype_groups(slices: List[_Slice], tensors) -> List[List[_Slice]]:
 
 
 
-class LayoutBucketsError(NotImplementedError):
-    """``BIGDL_TORCH_WIRE_BUCKET_MB`` > 0 under a mesh strategy: the
-    gradient buckets are ``DataParallel``'s; under the mesh layouts they
-    wait for ROADMAP.md queue A item 8."""
-
-
 class _MeshSharded(ShardingStrategy):
     """Parameters held as mesh shards (``parallel/mesh_plan.py``): the
     common half of :class:`LayoutSharding` and :class:`TensorParallel`.
@@ -612,14 +605,31 @@ class _MeshSharded(ShardingStrategy):
     - :meth:`reduce`: the backward has summed each gathered leaf's
       gradient over the batch ranks of its gather group (the plan's
       reduce-scatter); the rest of the batch axes are summed here, in one
-      all-reduce a set of remaining axes (the loss with the set of all
-      of them), and everything is divided by the batch ranks' count.
-    - :meth:`sq_norm` counts each element once: a leaf's local sum of
-      squares is summed over the ranks that hold its other shards (one
-      all-reduce a set of axes), never over its replicas.
-    - :meth:`full_state` / :meth:`shard_state` gather and cut a method
-      state's parameter-shaped lists; :meth:`whole` swaps whole parameters
-      in for a checkpoint (every rank calls them).
+      float32 all-reduce a set of remaining axes (the loss with the set
+      of all of them), and everything is divided by the batch ranks'
+      count.  With ``BIGDL_TORCH_WIRE_BUCKET_MB`` > 0 each such
+      all-reduce is cut into the wire's buckets (``parallel/wire.py``
+      :func:`bucket_assignment` over float32 bytes, the leaves in order,
+      the loss riding in the last bucket of its set), issued set by set
+      and bucket by bucket in one order on every rank; a sum is
+      elementwise, so the values are the unbucketed ones wherever the
+      ranks' reduction adds each element in the same order (two ranks
+      a set, as every layout of four).  Here :meth:`reduce` runs after
+      the backward has ended, so a bucket overlaps nothing: the buckets
+      only cap each message's size, and they add all-reduces (one a
+      bucket in place of one a set), each a round trip.  Leave the
+      setting at 0 under a mesh strategy unless one message of a set's
+      whole gradient is too large for the transport.
+    - :meth:`dot` and :meth:`sq_norm` count each element once: a leaf's
+      local sum of products is summed over the ranks that hold its other
+      shards (one all-reduce a set of axes), never over its replicas.
+      A method without a fused update (``LBFGS``) computes every dot
+      product of its two-loop recursion with :meth:`dot` (the
+      ``Optimizer`` binds it), and keeps its raveled rows as this rank's
+      shards: :meth:`full_state` / :meth:`shard_state` gather and cut
+      them, as a method state's parameter-shaped lists; :meth:`whole`
+      swaps whole parameters in for a checkpoint (every rank calls
+      them).
     """
 
     #: the parameters themselves are cut (the Optimizer cuts a resumed
@@ -628,6 +638,8 @@ class _MeshSharded(ShardingStrategy):
     #: the axis a capable layer computes its slice over
     TP_AXIS = "tp"
     BATCH_AXES = ("data", "fsdp")
+    #: the most MB of a gradient all-reduce (``setup``'s; 0: one a set)
+    bucket_mb = 0.0
 
     def specs(self, model) -> List[tuple]:
         """One spec a parameter, in ``model.parameters()`` order."""
@@ -666,17 +678,7 @@ class _MeshSharded(ShardingStrategy):
         return plan
 
     def setup(self, model, method=None, bucket_mb=0.0):
-        if bucket_mb > 0:
-            raise LayoutBucketsError(
-                f"BIGDL_TORCH_WIRE_BUCKET_MB={bucket_mb} under "
-                f"{type(self).__name__}: the gradient buckets are "
-                "DataParallel's; under the mesh layouts they wait for "
-                "ROADMAP.md queue A item 8")
-        if method is not None and not method.supports_fused:
-            raise NotImplementedError(
-                f"{type(method).__name__} under {type(self).__name__}: a "
-                "raveled method state over mesh shards waits for ROADMAP.md "
-                "queue A item 8")
+        self.bucket_mb = bucket_mb
         self.place(model)
 
     def whole(self, model):
@@ -697,35 +699,55 @@ class _MeshSharded(ShardingStrategy):
         loss_out = loss.detach().float().reshape(())
         n = math.prod(plan.sizes[a] for a in batch)
         for axes, idx in groups.items():
-            with_loss = axes == batch
-            flat = torch.cat([grads[i].reshape(-1).float() for i in idx]
-                             + ([loss_out.reshape(1)] if with_loss else []))
-            if axes:
-                Engine.all_reduce(flat, "grads",
-                                  group=Engine.axis_group(axes))
-            if n > 1:
-                flat /= n
-            if with_loss:
-                loss_out = flat[-1]
-                flat = flat[:-1]
-            for i, part in zip(idx, flat.split([grads[i].numel()
-                                                for i in idx])):
-                out[i] = part.view(grads[i].shape).to(grads[i].dtype)
+            buckets = [idx]
+            if axes and self.bucket_mb > 0 and idx:
+                buckets = [[idx[j] for j in b] for b in bucket_assignment(
+                    [grads[i].numel() for i in idx], 4, self.bucket_mb)]
+            for k, members in enumerate(buckets):
+                with_loss = axes == batch and k == len(buckets) - 1
+                flat = torch.cat([grads[i].reshape(-1).float()
+                                  for i in members]
+                                 + ([loss_out.reshape(1)] if with_loss
+                                    else []))
+                if axes:
+                    Engine.all_reduce(flat, "grads",
+                                      group=Engine.axis_group(axes))
+                if n > 1:
+                    flat /= n
+                if with_loss:
+                    loss_out = flat[-1]
+                    flat = flat[:-1]
+                for i, part in zip(members, flat.split(
+                        [grads[i].numel() for i in members])):
+                    out[i] = part.view(grads[i].shape).to(grads[i].dtype)
         return out, loss_out
 
-    def sq_norm(self, grads):
+    def _summed(self, tensors, local, kind):
+        """Σ over the leaves of ``local(i, tensor)`` (a 0-d float32 sum of
+        leaf i's local elements), each leaf's summed over the ranks that
+        hold its other shards: one all-reduce a set of axes."""
         plan = self.plan
         groups = _by_axes(plan.leaves, lambda l: tuple(
             a for a in plan.names if a in l.all_axes()))
-        total = torch.zeros((), device=grads[0].device if grads else None)
+        total = torch.zeros((), device=tensors[0].device if tensors
+                            else None)
         for axes, idx in groups.items():
-            part = torch.stack([torch.sum(torch.square(grads[i].float()))
+            part = torch.stack([local(i, tensors[i])
                                 for i in idx]).sum().reshape(1)
             if axes:
-                Engine.all_reduce(part, "clip_norm",
-                                  group=Engine.axis_group(axes))
+                Engine.all_reduce(part, kind, group=Engine.axis_group(axes))
             total = total + part[0]
         return total
+
+    def sq_norm(self, grads):
+        return self._summed(grads, lambda i, g: torch.sum(
+            torch.square(g.float())), "clip_norm")
+
+    def dot(self, a, b):
+        """Σ a·b over two per-parameter lists of this rank's shards (each
+        entry shaped or raveled), every element of the whole parameters
+        counted once: ``LBFGS``'s dot products under a mesh strategy."""
+        return self._summed(a, lambda i, x: torch.sum(x * b[i]), "dot")
 
     def _map_lists(self, state, fn, shapes):
         if param_shaped(state, shapes):
@@ -738,9 +760,26 @@ class _MeshSharded(ShardingStrategy):
             return [self._map_lists(v, fn, shapes) for v in state]
         return state
 
+    def _raveled(self, state, fn, numels):
+        """``state`` with ``fn(list)`` applied to each list of one tensor a
+        parameter whose i-th entry is raveled to [numels[i]] or [rows,
+        numels[i]] (``LBFGS``'s history rows, previous weights and
+        gradient); other entries pass as they are."""
+        if isinstance(state, (list, tuple)) and len(state) == len(numels) \
+                and all(isinstance(t, torch.Tensor) and t.ndim in (1, 2)
+                        and t.shape[-1] == n for t, n in zip(state, numels)):
+            return fn(list(state))
+        if isinstance(state, dict):
+            return {k: self._raveled(v, fn, numels) for k, v in state.items()}
+        return state
+
+    def _sharded(self) -> bool:
+        return any(tuple(l.param.shape) != l.whole for l in self.plan.leaves)
+
     def shard_state(self, state):
-        """A method state's whole parameter-shaped lists cut to this
-        rank's shards (lists already cut pass as they are)."""
+        """A method state's whole parameter-shaped lists, and its lists
+        raveled per parameter, cut to this rank's shards (lists already
+        cut pass as they are)."""
         plan = self.plan
         whole = [l.whole for l in plan.leaves]
 
@@ -749,7 +788,20 @@ class _MeshSharded(ShardingStrategy):
                     plan.cut(l, t.to(l.param.device)).clone(
                         memory_format=torch.contiguous_format)
                     for l, t in zip(plan.leaves, ts)]
-        return self._map_lists(state, cut, whole)
+
+        def cut_rows(ts):
+            out = []
+            for l, t in zip(plan.leaves, ts):
+                rows = t.to(l.param.device).reshape((-1,) + l.whole)
+                out.append(torch.stack([plan.cut(l, r).reshape(-1)
+                                        for r in rows.unbind(0)])
+                           .reshape(t.shape[:-1] + (-1,)))
+            return out
+        state = self._map_lists(state, cut, whole)
+        if self._sharded():
+            state = self._raveled(state, cut_rows,
+                                  [math.prod(w) for w in whole])
+        return state
 
     def remap(self, params, tree, world=None, rank=None):
         """A whole tree (parameters or a method state) cut for this rank
@@ -760,12 +812,29 @@ class _MeshSharded(ShardingStrategy):
         return self.shard_state(_to_host(tree))
 
     def full_state(self, state):
-        """A method state's parameter-shaped lists gathered whole
-        (collective)."""
+        """A method state's parameter-shaped lists, and its lists raveled
+        per parameter, gathered whole (collective)."""
         plan = self.plan
         local = [tuple(l.param.shape) for l in plan.leaves]
-        return self._map_lists(
+        state = self._map_lists(
             state, lambda ts: plan.gather_whole(ts, "opt_state"), local)
+        if not self._sharded():
+            return state
+
+        def gather_rows(ts):
+            # each history row is a parameter-shaped list of its own
+            rows = max(1 if t.ndim == 1 else t.shape[0] for t in ts)
+            out = [[] for _ in ts]
+            for k in range(rows):
+                shards = [(t if t.ndim == 1 else t[k]).reshape(s)
+                          for t, s in zip(ts, local)]
+                for i, w in enumerate(plan.gather_whole(shards,
+                                                        "opt_state")):
+                    out[i].append(w.reshape(-1))
+            return [o[0] if t.ndim == 1 else torch.stack(o)
+                    for o, t in zip(out, ts)]
+        return self._raveled(state, gather_rows,
+                             [math.prod(s) for s in local])
 
 
 def _by_axes(leaves, axes_of):
@@ -809,7 +878,7 @@ class LayoutSharding(_MeshSharded):
 
     Traps: the clipping norm counts each element once (:meth:`sq_norm`);
     the fused update runs on the local shards, bit-equal to per-leaf;
-    the gradient buckets raise (:class:`LayoutBucketsError`); Dropout
+    the gradient buckets cut :meth:`reduce`'s all-reduces; Dropout
     draws the same masks on the ranks of one tp group (they share the
     batch group's rank, which seeds the generator) and different ones
     across batch shards."""

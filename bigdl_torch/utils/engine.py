@@ -75,13 +75,15 @@ sync-BN and the Dropout seed follow the batch shard, and the ranks of one
 tp group hold the same rows.  :meth:`axis_group` gives the process group
 of any set of the mesh's axes (every such group is formed when the mesh
 is installed: ``new_group`` is collective).  ``pipe`` and ``expert``
-stand beside ``data`` and ``fsdp`` (a 5-axis layout such as (2,1,1,2,1)
-or (1,2,1,1,2)): like ``tp`` they replicate the batch, so the batch
-group stays ``data x fsdp``.  ``{"data": d, "seq": s}`` forms a 2-D
-``(data, seq)`` mesh whose batch group is the ``data`` axis.  Each of
-these still raises, naming ROADMAP.md queue A item 8: ``pipe`` beside
-``tp`` or ``expert``, ``expert`` beside ``tp``, ``seq`` beside any axis
-but ``data``, and axes of no mesh.
+stand beside the other three and beside each other (a 5-axis layout
+such as (2,1,1,2,1), (1,1,2,2,1), (1,1,2,1,2) or (1,1,1,2,2)): like
+``tp`` they replicate the batch, so the batch group stays ``data x
+fsdp``; every set of the wide axes gets its group, row-major with this
+rank's other coordinates fixed (``("tp", "pipe")`` as any other, in one
+order on every rank).  ``{"data": d, "seq": s}`` forms a 2-D ``(data,
+seq)`` mesh whose batch group is the ``data`` axis.  Each of these still
+raises, naming ROADMAP.md queue A item 8: ``seq`` beside any axis but
+``data``, and axes of no mesh.
 :meth:`reform` over a multi-axis mesh raises the reference's typed
 ``MeshReformError`` where the new rank count cannot keep the non-data
 block intact, before the live group's :class:`GroupReformError`.
@@ -296,7 +298,8 @@ class Engine:
         MeshLayout) a layout's mesh, ("legacy", names) the reference's
         tensor-parallel mesh in the order given, ("named", names) the
         ``data x seq`` mesh; raises on what waits for the rest of the mesh
-        layouts, one message a combination."""
+        layouts (a seq axis beside another than data, an axis of no
+        mesh), one message a combination."""
         if mesh_shape is None:
             return "group", None
         shape = {a: int(n) for a, n in mesh_shape.items()}
@@ -320,13 +323,6 @@ class Engine:
             if keys - set(LEGACY_TP_AXES):
                 refuse("a model axis beside the layout axes")
             return "legacy", tuple(mesh_shape)
-        wide = {a for a, n in shape.items() if n > 1}
-        for pair, why in ((("pipe", "tp"), "a pipe axis beside tp"),
-                          (("pipe", "expert"),
-                           "a pipe axis beside an expert axis"),
-                          (("expert", "tp"), "an expert axis beside tp")):
-            if set(pair) <= wide:
-                refuse(why)
         if keys <= {cls.DATA_AXIS}:
             return "group", None
         if keys <= {cls.DATA_AXIS, "pipe"} and \

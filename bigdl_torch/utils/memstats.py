@@ -16,13 +16,16 @@ Counterpart of ``bigdl_tpu/utils/memstats.py``:
   the whole leaves' (the reference's per device and in all).
 - :func:`memory_record`: the record's block, with the reference's keys.
 
-- :func:`pipeline_stage_bytes`: each pipeline's stacked stage bytes.
-  Every pipe rank holds the whole stack (the reference's replicated
-  branch): its 1/n per device needs the mesh layouts.
+- :func:`pipeline_stage_bytes`: each pipeline's stacked stage bytes.  On
+  a 1-D pipe mesh every pipe rank holds the whole stack (the reference's
+  replicated branch); under ``LayoutSharding`` on a layout with ``pipe``
+  = p a rank holds 1/p of it.
+- :func:`embedding_table_bytes`: each ``embedding_row`` table's bytes in
+  all and on one device, the fraction a rank holds (1/n under a layout
+  that splits its rows n ways, 1.0 replicated) and its rows.
 
-The reference's ``embedding_table_bytes`` waits for the mesh layouts
-(ROADMAP.md queue A item 8); ``compiled_memory_analysis`` reads an XLA
-executable, which the port does not have.
+The reference's ``compiled_memory_analysis`` reads an XLA executable,
+which the port does not have.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from typing import Optional
 import torch
 
 __all__ = ["device_memory_stats", "live_device_bytes", "tree_device_bytes",
-           "tree_total_bytes", "memory_record", "pipeline_stage_bytes"]
+           "tree_total_bytes", "memory_record", "pipeline_stage_bytes",
+           "embedding_table_bytes"]
 
 
 def _device(device) -> torch.device:
@@ -164,4 +168,45 @@ def pipeline_stage_bytes(model, params=None, device=None):
                         "stacked_param_bytes": total,
                         "param_bytes_per_device": tree_device_bytes(
                             stack, device)})
+    return out or None
+
+
+def embedding_table_bytes(model, params=None, device=None):
+    """One dict a parameter whose module's roles place it under
+    ``embedding_row`` (``LookupTable``, the positional table), in the
+    reference's tree order: its ``module`` and ``param`` names, ``rows``
+    (the whole table's), ``table_bytes`` (the whole table's),
+    ``table_bytes_per_device`` (this rank's shard on ``device``) and
+    ``device_fraction`` (their ratio, rounded to 6 places: 1/n where a
+    layout splits the rows n ways, 1.0 replicated).  A pipeline's stacked
+    stages hold ``pipeline_stage`` leaves and are not walked.  ``params``
+    is accepted for the reference's signature; the module holds its own.
+    None when the model has no such table."""
+    from ..nn.module import Container
+    from .convert import _stacked
+    out = []
+
+    def walk(mod):
+        if isinstance(mod, Container):
+            if not _stacked(mod):
+                for _, child in mod.tree_children():
+                    walk(child)
+            return
+        roles = mod.param_roles() if hasattr(mod, "param_roles") else None
+        if not roles:
+            return
+        for name, leaf in mod.named_parameters(recurse=False):
+            if roles.get(name, roles.get("*")) != "embedding_row":
+                continue
+            whole = getattr(leaf, "_layout_whole", None) or leaf.shape
+            total = tree_total_bytes(leaf)
+            per_dev = tree_device_bytes(leaf, device)
+            out.append({"module": type(mod).__name__, "param": name,
+                        "rows": int(whole[0]) if len(whole) else 0,
+                        "table_bytes": total,
+                        "table_bytes_per_device": per_dev,
+                        "device_fraction": round(per_dev / total, 6)
+                        if total else 0.0})
+
+    walk(model)
     return out or None

@@ -52,7 +52,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as tcp
 
 __all__ = ["checkpointed", "conv_out", "defer_ema", "check_policy",
-           "conv2d"]
+           "conv2d", "active"]
 
 _run: contextvars.ContextVar = contextvars.ContextVar("bigdl_remat",
                                                       default=None)
@@ -79,6 +79,11 @@ class _Run:
         self.saved = []
         self.pos = 0
         self.ema = []
+
+
+def active() -> bool:
+    """True inside a checkpointed call: its forward or its recompute."""
+    return _run.get() is not None
 
 
 def in_recompute() -> bool:

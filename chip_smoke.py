@@ -7,8 +7,9 @@
 ``--zero-child DIR`` one of phase 10b, ``--elastic-child SPEC`` one
 process of phase 21's drill, ``--pipe-seq-child DIR`` one rank of
 phase 24, ``--layouts-child DIR`` one of phase 25,
-``--serve-layouts-child DIR`` one of phase 26 and
-``--axes-layouts-child DIR`` one of phase 27, started by the script
+``--serve-layouts-child DIR`` one of phase 26,
+``--axes-layouts-child DIR`` one of phase 27 and
+``--mixed-layouts-child DIR`` one of phase 29, started by the script
 itself;
 ``python3 chip_smoke.py --only train_validate`` runs the build and phase 13
 alone, ``--only train_longrun`` the build and phase 14 alone,
@@ -17,8 +18,9 @@ data_parallel`` the build and phases 9, 10 and 10b, ``--only train_ptb``,
 ``--only layers``, ``--only train_zoo``, ``--only zoo_data``, ``--only
 serve_stack``, ``--only elastic_fleet``, ``--only observe``, ``--only
 train_moe``, ``--only pipe_seq``, ``--only layouts``, ``--only
-serve_layouts``, ``--only axes_layouts`` and ``--only interop`` the build
-and phase 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27 or 28 alone,
+serve_layouts``, ``--only axes_layouts``, ``--only interop`` and ``--only
+mixed_layouts`` the build and phase 16, 17, 18, 19, 20, 21, 22, 23, 24,
+25, 26, 27, 28 or 29 alone,
 and none of them prints the final line.  Every phase is followed by a
 line with its wall seconds, ``{"phase": ..., "phase_s": ...}``, and the
 whole run by ``{"script_s": ...}``.)
@@ -730,6 +732,53 @@ Phases, each printing one JSON line:
    the fine-tune's largest call held to their plain versions and timed.
    Printed: the files' bytes, the host seconds of every save, load and
    validation, host ms a fine-tune step.
+29. ``mixed_layouts``: the whole 5-axis layout, four gloo ranks on the
+   card (one spawn, ``--mixed-layouts-child``), each run a group of its
+   own, weights from ``SEED``, ``MX_RUNS`` in order: (M1)
+   ``transformer_lm_pipe`` (``pipe_seq``'s width, bf16) in 2 stages on
+   pipe x tp (1,1,2,2,1) under ``gpipe`` and ``1f1b``, and its float32
+   twin under ``gpipe`` (float32 products and gradients: bf16 rounding
+   alone moves the bf16 runs' tables 0.016 to 0.019 off one process,
+   near the gate); (M2)
+   ``transformer_moe`` (``train_moe``'s width) on expert x tp
+   (1,1,2,1,2), float32 on random tokens and bf16 on counting tokens
+   (``axes_layouts``' two runs); (M3) pipe x expert (1,1,1,2,2): the
+   reference refuses a 2-stage ``transformer_moe`` (a stage may not hold
+   a ``MoEFFN``, whose state it refuses), so the run is the nearest that
+   works: ``transformer_moe``'s width with one MoE block (its tables
+   over expert) before two dense blocks, the 2 stages, float32 on random
+   tokens; (M4) the bench LM on (1,2,2), float32, ``MX_REMAT_STEPS``
+   steps without and with ``set_remat("full")``; (M5) M1's model,
+   float32, on (2,1,1,2,1) with ``BIGDL_TORCH_FUSED_UPDATE=1``, without
+   and with ``BIGDL_TORCH_WIRE_BUCKET_MB`` = ``MX_BUCKET_MB``; (M6)
+   LeNet-5 (the
+   README's quick start, float32, TF32 off) with ``LBFGS`` on (2,2,1);
+   (M7) ``bench.py``'s ``widedeep`` (batch 512, embed 64, hidden (256,
+   128), float32) on (1,1,2,1,2), ``MX_TABLE_STEPS`` steps.  One process
+   trains each model in each dtype once first (M1's float32 twin's for
+   M5, M4's once).  ``CHIP_SMOKE_PLANT=expert_group`` plants a fault in
+   the ranks (``mx_plant_expert_group``), which M2's and M3's gates must
+   fail.  Gates a rank and
+   run: the gathered weights bit-equal on the four ranks; each unit's
+   change within ``PS_DELTA_TOL`` of one process's (LeNet-5's and Wide &
+   Deep's weights within ``MX_F32_TOL``); the rank's parameter
+   elements the plan's; B6 (with the log-sum-exp too) and B7 launches a
+   step and B6's shapes exactly ``MX_LAUNCHES``' on the dtype's route;
+   the Engine's collectives a step exactly ``MX_COLLECTIVES``' (the
+   pipe's hops from its tables, M5's buckets from the plan); the stage
+   stack 1/2 a rank; under (1,1,2,2,1) only the head on tp; every MoE
+   layer on its experts; M4 with remat and M5 with buckets bit-equal to
+   the run without; M7's tables ``device_fraction`` 0.25
+   (``memstats.embedding_table_bytes``) and its float32 eval forward
+   within ``MX_F32_TOL`` of one process's.  Printed: each run's
+   seconds (set-up and the checks after it apart), losses, unit errors
+   and collectives a rank, M5's all-reduces a step, M4's peak a rank
+   (float32) beside ``axes_layouts``' bf16 one and ``held_peak``; B6
+   with the log-sum-exp and B7 at M1's [4, 8, 256, 64] bf16, M2's [16, 4, 256,
+   64] float32 and bf16, M1's twin's and M3's stages' [4, 8, 256, 64]
+   float32, M4's [8, 4, 512, 64] float32 and M5's [2, 8, 256, 64]
+   float32, causal, held to their plain versions and timed beside SDPA
+   and the bound.
 
 Then a ``kernels`` line (one entry per kernel and path, with its launches
 on that path: B6 on the serving path and per timed LM run, B7 per timed
@@ -752,8 +801,10 @@ MoE run of ``train_moe``, B6 and B7 per pipelined, ring and Ulysses run
 of ``pipe_seq``, B6, B7 and B8 per layout run of ``layouts``, B6 (by
 sequence bucket) and B8 (by cache length) per run of ``serve_layouts``
 B6 and B7 per pipelined, MoE and ring shape of ``axes_layouts``
-(the four ranks' launches together) and B1, B2, B4 and B5 over
-``interop``, each with its case's times), the
+(the four ranks' launches together), B1, B2, B4 and B5 over
+``interop`` and B6 and B7 per pipe x tp (bf16; float32 with pipe x
+expert), expert x tp (float32, bf16), remat and buckets run of
+``mixed_layouts``, each with its case's times), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero without that line; so does a machine
@@ -797,8 +848,8 @@ from bigdl_torch.ops import attention as attn_ops
 from bigdl_torch.ops import batchnorm as bn_ops
 from bigdl_torch.ops import convbn as cb_ops
 from bigdl_torch.ops import decode_attention as dec_ops
-from bigdl_torch.optim import (SGD, Adadelta, Adagrad, Adam, Adamax,
-                               Evaluator, Loss, MultiStep, Optimizer,
+from bigdl_torch.optim import (LBFGS, SGD, Adadelta, Adagrad, Adam,
+                               Adamax, Evaluator, Loss, MultiStep, Optimizer,
                                Perplexity, Predictor, RMSprop, Top1Accuracy,
                                Top5Accuracy, Trigger)
 from bigdl_torch.optim.optimizer import HostCopy, to_host
@@ -819,6 +870,7 @@ from bigdl_torch.parallel import (GPipeSequential, partition_pipeline,
                                   ring_attention, ulysses_attention)
 from bigdl_torch.parallel.schedule import (bubble_fraction, build_schedule,
                                            stack_index)
+from bigdl_torch.parallel.wire import bucket_assignment
 from bigdl_torch.tools import trace_report
 from bigdl_torch.utils import (chaos, crc32c, cuda_build, file_io, flops,
                                memstats, metrics_export, native, profiling,
@@ -2913,10 +2965,11 @@ def dp_child(out_dir):
     return 0
 
 
-def spawn_ranks(flag, tmp, timeout, n=2):
+def spawn_ranks(flag, tmp, timeout, n=2, meanwhile=None):
     """``n`` ranks of this script (``flag`` ``tmp``) on the one card in a
     gloo group meeting through ``tmp``; returns (their last JSON lines,
-    wall seconds).  Every process is killed and reaped before it
+    wall seconds).  ``meanwhile``, where given, is called here while the
+    ranks start and run.  Every process is killed and reaped before it
     returns."""
     env = {**os.environ,
            "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
@@ -2929,6 +2982,8 @@ def spawn_ranks(flag, tmp, timeout, n=2):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i in range(n)]
     try:
+        if meanwhile is not None:
+            meanwhile()
         outs = [p.communicate(timeout=timeout) for p in procs]
     finally:
         for p in procs:
@@ -9074,7 +9129,6 @@ def pipe_seq_child(out_dir):
     Engine.init(device="cuda:0", backend="gloo", mesh_shape={"pipe": 2})
     rank, world = dist.get_rank(), dist.get_world_size()
     T, V = PIPE_LM["max_len"], PIPE_LM["vocab_size"]
-    L = PIPE_LM["num_layers"]
     samples = lm_samples(PS_BATCH * PS_STEPS, T, V, SEED + 25)
     ref = torch.load(os.path.join(out_dir, "pipe_delta.pt"))
     runs = {}
@@ -9085,9 +9139,9 @@ def pipe_seq_child(out_dir):
                                    schedule=sched, virtual_stages=v)
         del model
         trace = os.path.join(out_dir, f"trace-{sched}-{v}-{rank}")
-        init = ps_units(piped, L)
+        init = ps_units(piped)
         _, rec = ps_train(piped, samples, T, trace)
-        trained = ps_units(piped, L)
+        trained = ps_units(piped)
         pipe = piped.layers[2]
         rec.update(delta_errs=ps_delta_errs(init, trained, ref),
                    rank_max_abs_diff=ps_rank_diff(trained),
@@ -9106,7 +9160,7 @@ def pipe_seq_child(out_dir):
     Engine.init(device="cuda:0", backend="gloo", mesh_shape={"seq": 2})
     model = TransformerLM(**LM, seq_parallel=True).build(
         "cuda", torch.Generator().manual_seed(SEED))
-    init = ps_units(model, LM["num_layers"])
+    init = ps_units(model)
     model.eval()
     with torch.no_grad():
         logp = model(ps_tokens()).float().cpu()
@@ -9115,7 +9169,7 @@ def pipe_seq_child(out_dir):
     seq_samples = lm_samples(PS_BATCH * PS_STEPS, LM["max_len"],
                              LM["vocab_size"], SEED + 28)
     _, seq_rec = ps_train(model, seq_samples, LM["max_len"])
-    trained = ps_units(model, LM["num_layers"])
+    trained = ps_units(model)
     seq_rec.update(delta_errs=ps_delta_errs(init, trained, torch.load(
         os.path.join(out_dir, "seq_delta.pt"))),
         rank_max_abs_diff=ps_rank_diff(trained))
@@ -9131,29 +9185,39 @@ def pipe_seq_child(out_dir):
     return 0
 
 
-def ps_units(model, layers):
-    """The LM's weights as float32 vectors on the card, one a unit in the
-    unpartitioned LM's order: the embeddings, each block's two residual
-    branches (attention, feed-forward), the head.  A partitioned LM's
-    stack is unstacked: stage s is row ``stack_index`` of s, and its
-    g = layers / stages blocks are s·g ... s·g + g - 1."""
+def ps_units(model):
+    """The model's weights as float32 vectors on its device, one a unit,
+    in the unpartitioned model's order: the children before the first
+    transformer block (the embeddings), each block's two residual
+    branches (attention, feed-forward), the children after the last (the
+    head).  A partitioned model's stack is unstacked: stage s is row
+    ``stack_index`` of s, and its blocks follow in order.  A model of
+    another kind is one unit."""
     tree, _ = to_reference_tree(model, fetch=lambda t: t.detach().float())
 
     def flat(t, k=None):
         return torch.cat([(x if k is None else x[k]).reshape(-1)
                           for x in tree_leaves(t)])
-    pipe = model.layers[2]
-    if isinstance(pipe, GPipeSequential):
-        S, v = pipe.num_stages, pipe.virtual_stages
-        stage = tree[2] if layers > S else [tree[2]]
-        blocks = [(b, stack_index(s, S // v, v)) for s in range(S)
-                  for b in stage]
-        head = tree[3:]
-    else:
-        blocks = [(b, None) for b in tree[2:2 + layers]]
-        head = tree[2 + layers:]
-    return ([flat(tree[:2])] + [flat(branch, k) for b, k in blocks
-                                for branch in b] + [flat(head)])
+    def block(m):
+        # TransformerBlock: two residual branches, ConcatTable + CAddTable
+        return isinstance(m, nn.Sequential) and isinstance(
+            m.layers[0], nn.Sequential) and isinstance(
+            m.layers[0].layers[0], nn.ConcatTable)
+    body = [i for i, c in enumerate(getattr(model, "layers", ()))
+            if block(c) or isinstance(c, GPipeSequential)]
+    if type(model) is not nn.Sequential or not body:
+        return [flat(tree)]
+    out = [flat(tree[:body[0]])]
+    for child, t in zip(model.layers[body[0]:body[-1] + 1],
+                        tree[body[0]:body[-1] + 1]):
+        if isinstance(child, GPipeSequential):
+            S, v = child.num_stages, child.virtual_stages
+            blocks = [t] if block(child.stage) else t
+            out += [flat(branch, stack_index(s, S // v, v))
+                    for s in range(S) for b in blocks for branch in b]
+        else:
+            out += [flat(branch) for branch in t]
+    return out + [flat(tree[body[-1] + 1:])]
 
 
 def ps_delta(init, trained):
@@ -9248,7 +9312,7 @@ def ps_run(tmp):
            "LayerNorm", "Linear", "LogSoftMax"]
           and piped.layers[2].num_stages == 2,
           f"pipe_seq: partition {[type(m).__name__ for m in piped.layers]}")
-    init = ps_units(plain, L)
+    init = ps_units(plain)
     plain_losses, plain_rec = ps_train(plain, samples, T)
     piped_losses, piped_rec = ps_train(piped, samples, T)
     check(piped_rec["b6"] == piped_rec["b6_lse"] == L * PS_STEPS
@@ -9261,9 +9325,9 @@ def ps_run(tmp):
           and all(map(math.isfinite, plain_losses)),
           f"pipe_seq (a): sequential losses {piped_losses} are not the "
           f"plain LM's {plain_losses}")
-    trained = ps_units(plain, L)
+    trained = ps_units(plain)
     check(all(torch.equal(a, b) for a, b in zip(
-        trained, ps_units(piped, L))), "pipe_seq (a): the trained stack "
+        trained, ps_units(piped))), "pipe_seq (a): the trained stack "
         "is not the plain LM's trained blocks bit for bit")
     torch.save(ps_delta(init, trained), os.path.join(tmp, "pipe_delta.pt"))
     del plain, piped, init, trained
@@ -9272,7 +9336,7 @@ def ps_run(tmp):
     # the dense LM at the transformer_lm width, for the seq-parallel LM
     dense = TransformerLM(**LM).build("cuda",
                                       torch.Generator().manual_seed(SEED))
-    init = ps_units(dense, LM["num_layers"])
+    init = ps_units(dense)
     dense.eval()
     with torch.no_grad():
         dense_logp = dense(ps_tokens()).float()
@@ -9280,7 +9344,7 @@ def ps_run(tmp):
     seq_samples = lm_samples(PS_BATCH * PS_STEPS, LM["max_len"],
                              LM["vocab_size"], SEED + 28)
     dense_losses, dense_rec = ps_train(dense, seq_samples, LM["max_len"])
-    torch.save(ps_delta(init, ps_units(dense, LM["num_layers"])),
+    torch.save(ps_delta(init, ps_units(dense)),
                os.path.join(tmp, "seq_delta.pt"))
     del dense, init
     train.opt = None
@@ -9556,10 +9620,9 @@ def ly_train(sizes, samples, ref):
     """One layout's run on this rank: the LM from the seed, ``LY_STEPS``
     steps under ``LayoutSharding``; the record of the gates."""
     from bigdl_torch.nn import attention as attn_mod
-    L = LM["num_layers"]
     model = TransformerLM(**LM).build("cuda",
                                       torch.Generator().manual_seed(SEED))
-    init = ps_units(model, L)
+    init = ps_units(model)
     strat = LayoutSharding(model)
     on_step, step_ms = ps_step_ms(LY_STEPS)
     zero_flash()
@@ -9582,7 +9645,7 @@ def ly_train(sizes, samples, ref):
     plan = model._layout_plan
     state = train.opt._final_state
     with strat.whole(model):
-        trained = ps_units(model, L)
+        trained = ps_units(model)
     rec = {"layout": list(sizes), "losses": losses,
            "host_step_ms": step_ms(), "run_s": run_s,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -9763,14 +9826,14 @@ def ly_run(tmp):
     one-process run's weight changes and the ranks' results."""
     t_phase = time.perf_counter()
     set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
-    L, H = LM["num_layers"], LM["num_heads"]
+    H = LM["num_heads"]
     samples, rows, prompts, tp_samples = ly_data()
     # the one-process run on the card
     plain = TransformerLM(**LM).build("cuda",
                                       torch.Generator().manual_seed(SEED))
-    init = ps_units(plain, L)
+    init = ps_units(plain)
     plain_losses, plain_rec = ps_train(plain, samples, LM["max_len"])
-    torch.save(ps_delta(init, ps_units(plain, L)),
+    torch.save(ps_delta(init, ps_units(plain)),
                os.path.join(tmp, "ly_delta.pt"))
     del plain, init
     train.opt = None
@@ -10519,7 +10582,7 @@ class AxProbe:
             self.choices.append(ax_first_choice(self.model, self.rows))
             if self.want_units:
                 self.units.append([u.cpu() for u in
-                                   ps_units(self.model, MOE["num_layers"])])
+                                   ps_units(self.model)])
 
     def deltas(self):
         """Each unit's change after each step, on the host."""
@@ -10622,13 +10685,12 @@ def ax_one_process(data, out_dir):
     recs = {}
     for name in ("pipe", *ax_moe_runs(), "lm"):
         kind = ax_kind(name)
-        cfg = {"pipe": PIPE_LM, "moe": MOE, "lm": LM}[kind]
         set_policy(ax_moe_policy(name) if kind == "moe" else
                    DTypePolicy(compute_dtype=torch.bfloat16))
         model = ax_model(kind)
         probe = AxProbe(model, slice(None), ax_split()) \
             if kind == "moe" else None
-        init = ps_units(model, cfg["num_layers"])
+        init = ps_units(model)
         zero_flash()
         torch.cuda.reset_peak_memory_stats()
         samples = data[kind] if kind != "moe" else ax_rank_major(
@@ -10636,7 +10698,7 @@ def ax_one_process(data, out_dir):
             AX_BATCH)
         losses, step_ms = ax_train(model, samples, distributed=False,
                                    probe=probe)
-        torch.save(ps_delta(init, ps_units(model, cfg["num_layers"])),
+        torch.save(ps_delta(init, ps_units(model)),
                    os.path.join(out_dir, f"ax_delta_{name}.pt"))
         if probe is not None:
             torch.save({"choices": probe.choices, "deltas": probe.deltas()},
@@ -10653,9 +10715,7 @@ def ax_one_process(data, out_dir):
 def ax_rank_run(kind, model, samples, strategy, ref, extra=None,
                 probe=None):
     """One run of this rank: the record of the gates."""
-    cfg = {"pipe": PIPE_LM, "moe": MOE, "lm": LM}[kind]
-    L = cfg["num_layers"]
-    init = ps_units(model, L)
+    init = ps_units(model)
     zero_flash()
     Engine.clear_counts()
     plan = strategy.place(model) if strategy is not None else None
@@ -10694,7 +10754,7 @@ def ax_rank_run(kind, model, samples, strategy, ref, extra=None,
     ctx = strategy.whole(model) if strategy is not None else \
         contextlib.nullcontext()
     with ctx:
-        trained = ps_units(model, L)
+        trained = ps_units(model)
     rec.update(delta_errs=ps_delta_errs(init, trained, ref),
                rank_max_abs_diff=ly_rank_diff(trained))
     del init, trained
@@ -11316,6 +11376,628 @@ def ip_run(tmp):
     return rows
 
 
+# -- 29. mixed_layouts --------------------------------------------------------
+
+#: where the phase's models live: the card (a CPU rehearsal of the
+#: phase's logic sets "cpu" and stubs the card's counters)
+MX_DEVICE = "cuda"
+#: the bf16 LMs' embeddings need their 5 steps: at 3 M1's moved 0.0227
+#: off one process, past ``PS_DELTA_TOL`` (PERF.md, run X1)
+MX_STEPS = 5
+MX_BATCH = 16
+MX_MICRO = 4
+MX_TIMEOUT = 600
+MX_PIPE_TP = (1, 1, 2, 2, 1)
+MX_EXPERT_TP = (1, 1, 2, 1, 2)
+MX_PIPE_EXPERT = (1, 1, 1, 2, 2)
+MX_REMAT = (1, 2, 2)
+MX_REMAT_STEPS = 3
+MX_BUCKETS = (2, 1, 1, 2, 1)
+MX_BUCKET_MB = 4
+MX_LBFGS = (2, 2, 1)
+MX_LBFGS_BATCH = 128       # the README's quick start
+MX_LBFGS_LR = 0.1
+#: LeNet-5's and Wide & Deep's float32 weights (TF32 off), and Wide &
+#: Deep's eval forward, against one process's on the card
+MX_F32_TOL = 1e-4
+MX_TABLES = (1, 1, 2, 1, 2)
+MX_TABLE_STEPS = 3
+#: the (1,2,2) rank's bf16 peak with the re-gather in ``axes_layouts``
+#: (PERF.md, run F25r)
+MX_PEAK_AXES_GB = 2.624
+#: the runs, in order: (model, layout, compute dtype, tokens, options).
+#: ``hybrid`` is ``transformer_moe``'s width with its first block a MoE
+#: block and two dense blocks after it, the pipeline's 2 stages: the
+#: reference refuses a stage that holds a MoEFFN (its state), so a
+#: 2-stage ``transformer_moe`` does not exist there (ROADMAP.md queue C)
+MX_RUNS = {
+    "m1-gpipe": ("pipe", MX_PIPE_TP, torch.bfloat16, "pipe",
+                 {"schedule": "gpipe"}),
+    "m1-1f1b": ("pipe", MX_PIPE_TP, torch.bfloat16, "pipe",
+                {"schedule": "1f1b"}),
+    "m1-f32": ("pipe", MX_PIPE_TP, torch.float32, "pipe",
+               {"schedule": "gpipe"}),
+    "m2-f32": ("moe", MX_EXPERT_TP, torch.float32, "random", {}),
+    "m2-bf16": ("moe", MX_EXPERT_TP, torch.bfloat16, "counting", {}),
+    "m3": ("hybrid", MX_PIPE_EXPERT, torch.float32, "random",
+           {"schedule": "gpipe"}),
+    "m4": ("lm", MX_REMAT, torch.float32, "lm", {}),
+    "m4-remat": ("lm", MX_REMAT, torch.float32, "lm", {"remat": "full"}),
+    "m5": ("pipe", MX_BUCKETS, torch.float32, "pipe",
+           {"schedule": "gpipe", "env": {"BIGDL_TORCH_FUSED_UPDATE": "1"}}),
+    "m5-buckets": ("pipe", MX_BUCKETS, torch.float32, "pipe",
+                   {"schedule": "gpipe",
+                    "env": {"BIGDL_TORCH_FUSED_UPDATE": "1",
+                            "BIGDL_TORCH_WIRE_BUCKET_MB":
+                            str(MX_BUCKET_MB)}}),
+    "m6": ("lenet", MX_LBFGS, torch.float32, "mnist", {}),
+    "m7": ("widedeep", MX_TABLES, torch.float32, "criteo", {}),
+}
+#: the runs whose weights must be bit-equal to an earlier run's: remat
+#: and the wire's buckets change no number
+MX_SAME = {"m4-remat": "m4", "m5-buckets": "m5"}
+#: B6 launch shapes and (B6, B6 with the log-sum-exp, B7) a rank makes in
+#: one step, written before the first run: the pipelined LM's 4 layers a
+#: pipe rank on 4 microbatches of its 16 rows, every head (a stage is not
+#: split over tp), 1f1b's forward without the log-sum-exp and its
+#: recompute with it; the MoE LM's 4 layers on 16 rows and 4 of the 8
+#: heads; the hybrid's MoE block on 16 rows and its pipe rank's dense
+#: block on 4 microbatches; the (1,2,2) LM's 8 layers on 8 rows and 4
+#: heads, twice forward under remat; (2,1,1,2,1)'s pipe rank on 4
+#: microbatches of its 8 rows; LeNet-5 and Wide & Deep none
+MX_LAUNCHES = {
+    "m1-gpipe": ({(4, 8, 256, 64): 16}, (16, 16, 32)),
+    "m1-1f1b": ({(4, 8, 256, 64): 32}, (32, 16, 32)),
+    "m1-f32": ({(4, 8, 256, 64): 16}, (16, 16, 32)),
+    "m2-f32": ({(16, 4, 256, 64): 4}, (4, 4, 8)),
+    "m2-bf16": ({(16, 4, 256, 64): 4}, (4, 4, 8)),
+    "m3": ({(16, 8, 256, 64): 1, (4, 8, 256, 64): 4}, (5, 5, 10)),
+    "m4": ({(8, 4, 512, 64): 8}, (8, 8, 16)),
+    "m4-remat": ({(8, 4, 512, 64): 16}, (16, 16, 16)),
+    "m5": ({(2, 8, 256, 64): 16}, (16, 16, 32)),
+    "m5-buckets": ({(2, 8, 256, 64): 16}, (16, 16, 32)),
+    "m6": ({}, (0, 0, 0)),
+    "m7": ({}, (0, 0, 0)),
+}
+#: the Engine's collectives a rank calls in one step, by kind, written
+#: before the first run from the same structures at small widths on 4
+#: gloo CPU ranks, every leaf split as at full width (m4's are
+#: ``LY_COLLECTIVES``' (1,2,2) ones): the pipe's hops come from its
+#: tables (``ax_pipe_hops``) and m5-buckets' all-reduces from the plan
+#: (one a bucket of ``MX_BUCKET_MB``, ``mx_rank_run``).  Under (1,1,2,2,1)
+#: the tables and the head are split over tp (2 gathers and scatters),
+#: the stack over pipe alone; under (1,1,2,1,2) the tables, the gates,
+#: the attention and the head on tp, the expert tables kept; (1,1,1,2,2)
+#: gathers nothing but the experts' outputs and rows; remat recomputes
+#: 10 of the 11 units (the positional table saves nothing); LBFGS's 22
+#: dot products (2 a history slot of 10, and 2) over the fsdp shards
+MX_COLLECTIVES = {
+    "m1": {"all_reduce": {"tp_in": 1}, "reduce_scatter": {"grads": 2},
+           "all_gather": {"params": 2, "tp_out": 1}},
+    "m2": {"all_reduce": {"tp_in": 9}, "reduce_scatter": {"grads": 6},
+           "all_gather": {"params": 6, "tp_out": 9, "expert_out": 4,
+                          "expert_in": 4, "params_bwd": 4, "tp_bias": 4}},
+    "m3": {"all_gather": {"expert_out": 1, "expert_in": 1}},
+    "m4": LY_COLLECTIVES[(1, 2, 2)],
+    "m4-remat": {"all_reduce": {"tp_in": 33, "grads": 1},
+                 "reduce_scatter": {"grads": 11},
+                 "all_gather": {"params": 21, "tp_out": 66, "tp_bias": 8}},
+    "m5": {"all_reduce": {"grads": 1}},
+    "m6": {"all_reduce": {"grads": 2, "dot": 22},
+           "reduce_scatter": {"grads": 1},
+           "all_gather": {"params": 1, "params_bwd": 1}},
+    "m7": {"all_reduce": {"tp_in": 2}, "reduce_scatter": {"grads": 1},
+           "all_gather": {"params": 1, "tp_out": 2}}}
+
+
+def mx_collectives(name, run):
+    """The collectives a step of run ``name`` stated in advance."""
+    if name == "m5-buckets":
+        return {"all_reduce": {"grads": run["plan_buckets"]}}
+    return MX_COLLECTIVES.get(name, MX_COLLECTIVES.get(name.split("-")[0]))
+
+
+def mx_ref(name):
+    """The file of the one-process run that run ``name`` is held to: one
+    a model, tokens and dtype."""
+    kind, _, dtype, tokens, _ = MX_RUNS[name]
+    return f"mx_{kind}_{tokens}_{str(dtype).split('.')[-1]}.pt"
+
+
+def mx_config(kind):
+    return {"pipe": PIPE_LM, "moe": MOE, "hybrid": MOE, "lm": LM}[kind]
+
+
+def mx_policy(name):
+    kind, _, dtype, _, _ = MX_RUNS[name]
+    wire = torch.bfloat16 if dtype == torch.bfloat16 and kind in (
+        "moe", "hybrid") else None
+    return DTypePolicy(compute_dtype=dtype, wire_dtype=wire) \
+        if kind not in ("lenet", "widedeep") else DTypePolicy()
+
+
+def mx_model(name, device=None):
+    """The model of run ``name`` from the seed (unpartitioned), the
+    router's jitter off."""
+    kind = MX_RUNS[name][0]
+    device = device or MX_DEVICE
+    gen = torch.Generator().manual_seed(SEED)
+    if kind == "lenet":
+        return LeNet5(10).build(device, gen)
+    if kind == "widedeep":
+        from bigdl_torch.dataset import FeatureSpec
+        from bigdl_torch.models import WideDeep
+        return WideDeep.from_spec(FeatureSpec(), embed_dim=WD_EMBED,
+                                  hidden=WD_HIDDEN).build(device, gen)
+    cfg = mx_config(kind)
+    if kind == "hybrid":
+        from bigdl_torch.models.transformer_lm import (PositionalEmbedding,
+                                                       TransformerBlock)
+        d, h = cfg["d_model"], cfg["num_heads"]
+        model = nn.Sequential(
+            nn.LookupTable(cfg["vocab_size"], d),
+            PositionalEmbedding(cfg["max_len"], d),
+            TransformerBlock(d, h, num_experts=cfg["num_experts"]),
+            TransformerBlock(d, h), TransformerBlock(d, h),
+            nn.LayerNorm(d), nn.Linear(d, cfg["vocab_size"]),
+            nn.LogSoftMax())
+        model.build(device, gen)
+    else:
+        model = TransformerLM(**cfg).build(device, gen)
+    for m in model.modules():
+        if isinstance(m, moe_mod.MoEFFN):
+            m.router_jitter = 0.0
+    return model
+
+
+def mx_data():
+    """The samples of every run, made anew from the seed."""
+    from bigdl_torch.dataset import (FeatureSpec, TabularToSample,
+                                     synthetic_criteo_records)
+    n = MX_BATCH * MX_STEPS
+    spec = FeatureSpec()
+    criteo = list(TabularToSample(spec)(synthetic_criteo_records(
+        WD_BATCH * (MX_TABLE_STEPS + 1), spec=spec, seed=SEED + 74)))
+    return {"pipe": lm_samples(n, PIPE_LM["max_len"],
+                               PIPE_LM["vocab_size"], SEED + 70),
+            "random": lm_samples(n, MOE["max_len"], MOE["vocab_size"],
+                                 SEED + 71),
+            "counting": counting_samples(n, MOE["max_len"], MOE_PERIOD,
+                                         SEED + 71),
+            "lm": lm_samples(MX_BATCH * MX_REMAT_STEPS, LM["max_len"],
+                             LM["vocab_size"], SEED + 72),
+            "mnist": synthetic_mnist(MX_LBFGS_BATCH * MX_STEPS, SEED + 73),
+            "criteo": criteo[:WD_BATCH * MX_TABLE_STEPS],
+            "criteo_eval": criteo[WD_BATCH * MX_TABLE_STEPS:]}
+
+
+def mx_sync(reset=False, empty=False):
+    """On the card: wait for it (``reset``: then start the peak over,
+    ``empty``: give the cache back); the peak allocated bytes."""
+    if MX_DEVICE == "cpu":
+        return 0
+    torch.cuda.synchronize()
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    if empty:
+        torch.cuda.empty_cache()
+    return torch.cuda.max_memory_allocated()
+
+
+def mx_optimizer(name, model, samples, strategy=None, distributed=False):
+    """The Optimizer of run ``name`` over ``samples`` (the ranks' rows
+    where ``distributed``): the LM criterion and SGD 0.01 with momentum,
+    LeNet-5's ``LBFGS``, Wide & Deep's SGD; its steps and the list its
+    losses land in."""
+    kind = MX_RUNS[name][0]
+    steps = {"lm": MX_REMAT_STEPS, "widedeep": MX_TABLE_STEPS}.get(
+        kind, MX_STEPS)
+    batch = {"lenet": MX_LBFGS_BATCH, "widedeep": WD_BATCH}.get(
+        kind, MX_BATCH)
+    if distributed:
+        batch //= max(Engine.group_size(), 1)
+    crit = (nn.ClassNLLCriterion() if kind in ("lenet", "widedeep") else
+            nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                        size_average=True))
+    method = {"lenet": lambda: LBFGS(MX_LBFGS_LR),
+              "widedeep": lambda: SGD(WD_LR)}.get(
+        kind, lambda: SGD(LM_LR, momentum=0.9))()
+    losses = {}
+
+    def end(state):
+        if state["neval"] > 1:
+            losses[state["neval"] - 1] = state["loss"]
+        return state["neval"] > steps
+    opt = Optimizer(model, DataSet.array(samples, distributed=distributed,
+                                         seed=SEED), crit,
+                    batch_size=batch,
+                    device=None if distributed else MX_DEVICE,
+                    strategy=strategy)
+    opt.set_optim_method(method)
+    opt.set_end_when(Trigger(end, "steps"))
+    if MX_RUNS[name][4].get("remat"):
+        opt.set_remat(MX_RUNS[name][4]["remat"])
+    return opt, losses
+
+
+def mx_forward(model, samples):
+    """The eval forward of ``samples`` (float32, no grad), on the host."""
+    x = torch.from_numpy(np.stack([s.feature for s in samples])).to(
+        MX_DEVICE)
+    model.eval()
+    with torch.no_grad():
+        return model(x).float().cpu()
+
+
+def mx_one_process(data, out_dir):
+    """The one-process runs on the card the ranks are held to, one a
+    model and dtype: each unit's change (LeNet-5's and Wide & Deep's
+    trained weights, and Wide & Deep's eval forward); their records."""
+    recs = {}
+    firsts = {}
+    for name in MX_RUNS:
+        firsts.setdefault(mx_ref(name), name)
+    for ref_file, name in firsts.items():
+        kind, _, _, tokens, _ = MX_RUNS[name]
+        set_policy(mx_policy(name))
+        model = mx_model(name)
+        init = ps_units(model)
+        opt, losses = mx_optimizer(name, model, data[tokens])
+        t0 = time.perf_counter()
+        opt.optimize()
+        mx_sync()
+        rec = {"losses": [losses[k] for k in sorted(losses)],
+               "run_s": time.perf_counter() - t0}
+        trained = ps_units(model)
+        # written whole before the ranks, which start beside this, see it
+        path = os.path.join(out_dir, ref_file)
+        torch.save({"trained": [u.cpu() for u in trained],
+                    "delta": ps_delta(init, trained),
+                    "forward": mx_forward(model, data["criteo_eval"])
+                    if kind == "widedeep" else None}, path + ".part")
+        os.replace(path + ".part", path)
+        recs[name] = rec
+        del model, opt, init, trained
+        mx_sync(empty=True)
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    return recs
+
+
+def mx_wait(path):
+    """``path`` once the one-process run, which runs beside the ranks,
+    has written it."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        check(time.perf_counter() - t0 < MX_TIMEOUT,
+              f"mixed_layouts: no one-process run at {path}")
+        time.sleep(0.05)
+    return path
+
+
+def mx_rank_run(name, data, out_dir):
+    """This rank's run ``name``: the record of the gates."""
+    t_setup = time.perf_counter()
+    kind, lay, _, tokens, opts = MX_RUNS[name]
+    set_policy(mx_policy(name))
+    model = mx_model(name)
+    init = ps_units(model)
+    if opts.get("schedule"):
+        model = partition_pipeline(model, 2, num_microbatches=MX_MICRO,
+                                   schedule=opts["schedule"])
+    strategy = LayoutSharding(model)
+    plan = strategy.place(model)
+    plan.reset_held()
+    zero_flash()
+    Engine.clear_counts()
+    mx_sync(reset=True)
+    key = lambda q, k, v, causal, *a: tuple(q.shape)
+    with knobs(opts.get("env", {})):
+        opt, losses = mx_optimizer(name, model, data[tokens], strategy,
+                                   distributed=True)
+        t0 = time.perf_counter()
+        with launch_counts(attn_ops, "_launch", key) as shapes:
+            opt.optimize()
+        mx_sync()
+        run_s = time.perf_counter() - t0
+    t_after = time.perf_counter()
+    fwd, bwd = flash_counts()
+    rec = {"losses": [losses[k] for k in sorted(losses)], "run_s": run_s,
+           "setup_s": t0 - t_setup, "steps": len(losses),
+           "max_memory_allocated": mx_sync(),
+           "b6": fwd, "b6_lse": attn_ops.flash_attention.lse_launches,
+           "b7": bwd, "routes": flash_routes(),
+           "b6_shapes": sorted([list(s), n] for s, n in shapes.items()),
+           "collectives": Engine.collectives(),
+           "coord": Engine.mesh_coordinate(),
+           "local_elements": plan.local_elements(),
+           "plan_elements": sum(math.prod(plan.cut(
+               l, torch.empty(l.whole, device="meta")).shape)
+               for l in plan.leaves),
+           "held_peak": plan.held_peak,
+           "tp_modules": sorted({type(m).__name__
+                                 for m in plan.tp_modules()}),
+           "expert_modules": sum("_ep" in m.__dict__
+                                 for m in model.modules()),
+           # one all-reduce a bucket of the leaves' gradients over data
+           "plan_buckets": len(bucket_assignment(
+               [l.param.numel() for l in plan.leaves], 4, MX_BUCKET_MB))}
+    if kind == "pipe" or kind == "hybrid":
+        rec["stage_bytes"] = memstats.pipeline_stage_bytes(
+            model, device=MX_DEVICE)
+    if kind == "widedeep":
+        rec["tables"] = memstats.embedding_table_bytes(model,
+                                                       device=MX_DEVICE)
+        with torch.no_grad():
+            rec["forward"] = mx_forward(model, data["criteo_eval"])
+    ref = torch.load(mx_wait(os.path.join(out_dir, mx_ref(name))))
+    with strategy.whole(model):
+        trained = ps_units(model)
+    rec.update(delta_errs=ps_delta_errs(init, trained, ref["delta"]),
+               max_abs_from_one=max(float((t - r.to(t.device)).abs().max())
+                                    for t, r in zip(trained,
+                                                    ref["trained"])),
+               rank_max_abs_diff=ly_rank_diff(trained))
+    if kind == "widedeep":
+        rec["forward_max_abs_from_one"] = float(
+            (rec.pop("forward") - ref["forward"]).abs().max())
+    set_policy(DTypePolicy(compute_dtype=torch.bfloat16))
+    trained = [t.cpu() for t in trained]
+    rec["after_s"] = time.perf_counter() - t_after
+    return model, rec, trained
+
+
+def mixed_layouts_child(out_dir):
+    """One of the four ranks of ``mixed_layouts``: each run a group of
+    its own (module docstring, 29)."""
+    import torch.distributed as dist
+    t_child = time.perf_counter()
+    if os.environ.get("CHIP_SMOKE_PLANT") == "expert_group":
+        mx_plant_expert_group()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["BIGDL_TORCH_PROCESS_ID"])
+    data = mx_data()
+    data_s = time.perf_counter() - t_child
+    runs, kept = {}, {}
+    for i, name in enumerate(MX_RUNS):
+        os.environ["BIGDL_TORCH_COORDINATOR"] = f"file://{out_dir}/mx{i}"
+        t_init = time.perf_counter()
+        Engine.init(device=MX_DEVICE if MX_DEVICE == "cpu" else "cuda:0",
+                    backend="gloo",
+                    mesh_shape=MeshLayout(*MX_RUNS[name][1]).shape())
+        init_s = time.perf_counter() - t_init
+        model, runs[name], trained = mx_rank_run(name, data, out_dir)
+        runs[name]["init_s"] = init_s
+        base = MX_SAME.get(name)
+        if base is not None:
+            # set_remat and the wire's buckets change nothing
+            runs[name]["max_abs_from_" + base] = max(
+                float((a - b).abs().max()) for a, b in zip(trained,
+                                                           kept.pop(base)))
+        elif name in MX_SAME.values():
+            kept[name] = trained
+        del model, trained
+        gc.collect()
+        mx_sync(empty=True)
+        dist.barrier()
+        Engine.reset()
+    emit({"rank": rank, "world": 4, "runs": runs, "data_s": data_s,
+          "child_s": time.perf_counter() - t_child})
+    return 0
+
+
+def mx_plant_expert_group():
+    """A planted fault (``CHIP_SMOKE_PLANT=expert_group``), to show that
+    the gates of expert x tp and pipe x expert catch one: a ``MoEFFN`` on
+    its expert rows slices and gathers over the group of the layout's
+    other wide axis (tp under (1,1,2,1,2), pipe under (1,1,1,2,2)) in
+    place of its expert group.  Each rank still runs its own experts, but
+    the gather hands back its own experts' outputs from both ranks of that
+    group, so half the experts' outputs are another half's.  The phase
+    then fails."""
+    rows = moe_mod.MoEFFN.mesh_rows
+
+    def planted(self, plan):
+        out = rows(self, plan)
+        ep = self.__dict__.get("_ep")
+        if ep is not None:
+            other = next(a for a in ("tp", "pipe")
+                         if plan.sizes.get(a, 1) > 1)
+            self._ep = mesh_plan.TpAxis(Engine.axis_group((other,)), ep.n,
+                                        ep.rank)
+        return out
+    moe_mod.MoEFFN.mesh_rows = planted
+
+
+def phase_mixed_layouts():
+    """The whole 5-axis layout (module docstring, 29); returns the
+    kernels line's rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return mx_run(tmp)
+
+
+def mx_checks(ranks):
+    """The gates of every run on every rank (module docstring, 29)."""
+    for name, (kind, lay, dtype, _, opts) in MX_RUNS.items():
+        shapes, want = MX_LAUNCHES[name]
+        for r, rr in enumerate(ranks):
+            run, what = rr["runs"][name], f"mixed_layouts {name} rank {r}"
+            check(len(run["losses"]) == run["steps"] and all(
+                map(math.isfinite, run["losses"])),
+                f"{what}: losses {run['losses']}")
+            check(run["rank_max_abs_diff"] == 0.0, f"{what}: the gathered "
+                  f"weights differ from rank 0's by up to "
+                  f"{run['rank_max_abs_diff']}")
+            if kind in ("lenet", "widedeep"):
+                check(run["max_abs_from_one"] <= MX_F32_TOL,
+                      f"{what}: weights {run['max_abs_from_one']} off one "
+                      f"process's")
+            else:
+                check(max(run["delta_errs"]) <= PS_DELTA_TOL,
+                      f"{what}: |Δ - Δref| / |Δref| by unit "
+                      f"{run['delta_errs']} beyond {PS_DELTA_TOL}")
+            check(run["local_elements"] == run["plan_elements"],
+                  f"{what}: elements {run['local_elements']} != the plan's "
+                  f"{run['plan_elements']}")
+            n = run["steps"]
+            b6, lse, b7 = (c * n for c in want)
+            got_shapes = {tuple(s): c for s, c in run["b6_shapes"]}
+            route = "tc" if dtype == torch.bfloat16 else "f32"
+            routes = run["routes"]
+            on_route = all(v == 0 for fn in ("flash_attention",
+                                             "flash_attention_bwd")
+                           for k, v in routes[fn].items() if k != route)
+            check((run["b6"], run["b6_lse"], run["b7"]) == (b6, lse, b7)
+                  and got_shapes == {s: c * n for s, c in shapes.items()}
+                  and on_route,
+                  f"{what}: launches (B6, with the log-sum-exp, B7) "
+                  f"{(run['b6'], run['b6_lse'], run['b7'])} != "
+                  f"{(b6, lse, b7)} at {run['b6_shapes']}, routes {routes}")
+            want_c = {k: {c: m * n for c, m in v.items()}
+                      for k, v in mx_collectives(name, run).items()}
+            if opts.get("schedule"):
+                hops = ax_pipe_hops(opts["schedule"], 2, MX_MICRO, 1,
+                                    run["coord"]["pipe"])
+                want_c["permute"] = {"pipe": n * hops}
+            got_c = {k: v for k, v in run["collectives"].items() if v}
+            check(got_c == want_c, f"{what}: collectives {got_c} != "
+                  f"{want_c}")
+            if kind in ("pipe", "hybrid"):
+                (sb,) = run["stage_bytes"]
+                check(sb["param_bytes_per_device"] * 2 ==
+                      sb["stacked_param_bytes"],
+                      f"{what}: the stage stack {sb}")
+            if lay[2] > 1 and kind == "pipe":
+                check(run["tp_modules"] == ["Linear"], f"{what}: tp "
+                      f"modules {run['tp_modules']} (only the head)")
+            if kind in ("moe", "hybrid"):
+                check(run["expert_modules"] == (
+                    MOE["num_layers"] if kind == "moe" else 1),
+                    f"{what}: {run['expert_modules']} layers on their "
+                    "experts")
+            if kind == "widedeep":
+                check(len(run["tables"]) == 2 and all(
+                    t["device_fraction"] == 0.25 for t in run["tables"]),
+                    f"{what}: tables {run['tables']}")
+                check(run["forward_max_abs_from_one"] <= MX_F32_TOL,
+                      f"{what}: forward {run['forward_max_abs_from_one']} "
+                      "off one process's")
+            base = MX_SAME.get(name)
+            if base is not None:
+                diff = run["max_abs_from_" + base]
+                check(diff == 0.0, f"{what}: weights {diff} off {base}'s")
+
+
+def mx_run(tmp):
+    """``phase_mixed_layouts`` with ``tmp`` for the ranks' meeting and the
+    one-process runs."""
+    t_phase = time.perf_counter()
+    one, one_s = {}, []
+
+    def one_process():
+        # beside the ranks' start: each waits for its run's file
+        t_one = time.perf_counter()
+        old = (torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            one.update(mx_one_process(mx_data(), tmp))
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = old
+        one_s.append(time.perf_counter() - t_one)
+    ranks, wall = spawn_ranks("--mixed-layouts-child", tmp, MX_TIMEOUT, n=4,
+                              meanwhile=one_process)
+    one_s, = one_s
+    emit({"phase": "mixed_layouts", "part": "ranks", "gpu": gpu_line(),
+          "one_process": one, "one_process_s": one_s, "ranks": ranks,
+          "spawn_wall_s": wall})
+    mx_checks(ranks)
+    # the kernels at this phase's new shapes
+    H, D = MOE["num_heads"], MOE["d_model"] // MOE["num_heads"]
+    T = MOE["max_len"]
+    b6p, b7p = flash_pair_cases(MX_BATCH // MX_MICRO, H, T, D, SEED + 75)
+    cases = {}
+    # float32: M2's rows and half the heads, a pipe rank's microbatch
+    # (M1's twin, M3), (1,2,2)'s rows and heads (M4), a microbatch of a
+    # data rank's rows (M5)
+    for key, (B, h, t) in {
+            "moe_f32": (MX_BATCH, H // 2, T),
+            "stage_f32": (MX_BATCH // MX_MICRO, H, T),
+            "lm_f32": (MX_BATCH // 2, LM["num_heads"] // 2, LM["max_len"]),
+            "data_stage_f32": (MX_BATCH // 2 // MX_MICRO, H, T)}.items():
+        cases[key] = (
+            flash_case(B, h, t, t, D, torch.float32, True,
+                       torch.Generator().manual_seed(SEED + 76),
+                       with_lse=True),
+            b7_case(B, h, t, t, D, torch.float32, True,
+                    torch.Generator(device="cuda").manual_seed(SEED + 76)))
+    cases["moe_bf16"] = flash_pair_cases(MX_BATCH, H // 2, T, D, SEED + 77)
+    for c in (b6p, b7p, *[x for p in cases.values() for x in p]):
+        check(c["ok"], f"mixed_layouts kernel case {c}")
+    runs = ranks[0]["runs"]
+
+    def per_rank(field):
+        return {k: [r["runs"][k][field] for r in ranks] for k in runs}
+    peak = {k: [r["runs"][k]["max_memory_allocated"] / 1e9 for r in ranks]
+            for k in ("m4", "m4-remat")}
+    emit({"phase": "mixed_layouts", "gpu": gpu_line(),
+          "runs": {k: {"model": v[0], "layout": list(v[1]),
+                       "dtype": str(v[2]), "tokens": v[3],
+                       "options": {o: w for o, w in v[4].items()}}
+                   for k, v in MX_RUNS.items()},
+          "run_s": per_rank("run_s"), "setup_s": per_rank("setup_s"),
+          "after_s": per_rank("after_s"), "init_s": per_rank("init_s"),
+          "child_s": [r["child_s"] for r in ranks],
+          "data_s": [r["data_s"] for r in ranks],
+          "losses": per_rank("losses"),
+          "delta_errs": per_rank("delta_errs"),
+          "max_abs_from_one": per_rank("max_abs_from_one"),
+          "collectives": per_rank("collectives"),
+          "all_reduces_a_step": {k: [r["runs"][k]["collectives"][
+              "all_reduce"].get("grads", 0) / r["runs"][k]["steps"]
+              for r in ranks] for k in ("m5", "m5-buckets")},
+          "peak_gb_a_rank": peak, "peak_gb_axes_layouts": MX_PEAK_AXES_GB,
+          "held_peak": per_rank("held_peak"),
+          "tables": [r["runs"]["m7"]["tables"] for r in ranks],
+          "table_forward_max_abs_from_one": [
+              r["runs"]["m7"]["forward_max_abs_from_one"] for r in ranks],
+          "b6_pipe": b6p, "b7_pipe": b7p,
+          **{f"{w}_{k}": c for k, p in cases.items()
+             for w, c in zip(("b6", "b7"), p)},
+          "phase_s": time.perf_counter() - t_phase})
+    tc = {"tc": 0, "f32": 0}
+
+    def total(names, field):
+        return sum(r["runs"][k][field] for r in ranks for k in names)
+    rows = []
+    for (b6, b7), names, path, route in (
+            ((b6p, b7p), ["m1-gpipe", "m1-1f1b"], "mixed_layouts "
+             "transformer_lm_pipe (1,1,2,2,1) gpipe and 1f1b (4 ranks)",
+             "tc"),
+            (cases["moe_f32"], ["m2-f32"], "mixed_layouts transformer_moe "
+             "(1,1,2,1,2) float32, random tokens (4 ranks)", "f32"),
+            (cases["moe_bf16"], ["m2-bf16"], "mixed_layouts transformer_moe "
+             "(1,1,2,1,2) bf16, counting tokens (4 ranks)", "tc"),
+            (cases["stage_f32"], ["m1-f32", "m3"], "mixed_layouts "
+             "transformer_lm_pipe (1,1,2,2,1) gpipe float32, and a MoE "
+             "block and 2 dense stages (1,1,1,2,2) float32, the stages' "
+             "microbatches (4 ranks)", "f32"),
+            (cases["lm_f32"], ["m4", "m4-remat"], "mixed_layouts "
+             "transformer_lm (1,2,2) float32 without and with remat "
+             "(4 ranks)", "f32"),
+            (cases["data_stage_f32"], ["m5", "m5-buckets"], "mixed_layouts "
+             "transformer_lm_pipe (2,1,1,2,1) float32 fused, without and "
+             "with buckets (4 ranks)", "f32")):
+        n6, n7 = total(names, "b6"), total(names, "b7")
+        rows += [kernel_row(b6, "flash_attention", *B6_SRC, n6, path,
+                            {**tc, route: n6}),
+                 kernel_row(b7, "flash_attention_bwd", *B7_SRC, n7, path,
+                            {**tc, route: n7})]
+    return rows
+
+
 def timed(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall seconds."""
     t0 = time.perf_counter()
@@ -11344,6 +12026,12 @@ def main():
         return serve_layouts_child(sys.argv[2])
     if sys.argv[1:2] == ["--axes-layouts-child"]:
         return axes_layouts_child(sys.argv[2])
+    if sys.argv[1:2] == ["--mixed-layouts-child"]:
+        return mixed_layouts_child(sys.argv[2])
+    if sys.argv[1:3] == ["--only", "mixed_layouts"]:
+        timed("build", phase_build)
+        timed("mixed_layouts", phase_mixed_layouts)
+        return 0
     if sys.argv[1:3] == ["--only", "interop"]:
         timed("build", phase_build)
         timed("interop", phase_interop)
@@ -11459,6 +12147,7 @@ def main():
     rows += timed("serve_layouts", phase_serve_layouts)
     rows += timed("axes_layouts", phase_axes_layouts)
     rows += timed("interop", phase_interop)
+    rows += timed("mixed_layouts", phase_mixed_layouts)
     rows.append(decode_row)
     emit({"script_s": time.perf_counter() - t_script})
     emit({"kernels": rows})

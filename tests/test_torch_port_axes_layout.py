@@ -52,7 +52,8 @@ SGD with momentum for 5 steps:
   use.
 - ``Engine.reform`` on (2,1,1,2,1) and (2,1,1,1,2): the pipe and expert
   block kept or the reference's ``MeshReformError``; in this process,
-  the typed refusals of the combinations that still wait.
+  the typed refusals of the seq combinations that still wait, and the
+  meshes of pipe beside tp or expert and of expert beside tp formed.
 """
 
 import os
@@ -974,9 +975,6 @@ def test_reform_keeps_the_pipe_and_expert_block(run):
 
 
 @pytest.mark.parametrize("shape,what", [
-    ({"data": 2, "tp": 2, "pipe": 2}, "a pipe axis beside tp"),
-    ({"pipe": 2, "expert": 2}, "a pipe axis beside an expert axis"),
-    ({"fsdp": 2, "tp": 2, "expert": 2}, "an expert axis beside tp"),
     ({"fsdp": 2, "seq": 2}, "a seq axis beside ['fsdp']"),
     ({"tp": 2, "seq": 2}, "a seq axis beside ['tp']"),
     ({"pipe": 2, "seq": 2}, "a seq axis beside ['pipe']"),
@@ -995,7 +993,10 @@ def test_the_waiting_combinations_raise_typed(shape, what):
     ({"data": 2, "expert": 2}, "layout", (2, 1, 1, 1, 2)),
     ({"fsdp": 2, "expert": 2}, "layout", (1, 2, 1, 1, 2)),
     ({"seq": 2, "data": 2}, "named", ("data", "seq")),
-    ({"pipe": 2, "data": 1}, "axis", "pipe")])
+    ({"pipe": 2, "data": 1}, "axis", "pipe"),
+    ({"data": 2, "tp": 2, "pipe": 2}, "layout", (2, 1, 2, 2, 1)),
+    ({"pipe": 2, "expert": 2}, "layout", (1, 1, 1, 2, 2)),
+    ({"fsdp": 2, "tp": 2, "expert": 2}, "layout", (1, 2, 2, 1, 2))])
 def test_engine_forms_the_new_meshes(shape, kind, arg):
     got, a = Engine._mesh_kind(shape)
     assert got == kind

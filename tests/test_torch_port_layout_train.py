@@ -33,7 +33,8 @@ the reference's:
   weights bit-equal), the batch shards different ones.
 - ``Engine.reform`` on a real ``(2,2,1)`` mesh and on a mesh without a
   data axis: the reference's ``MeshReformError`` cases, then the live
-  group's ``GroupReformError``; the wire's buckets raise.
+  group's ``GroupReformError``; the wire's buckets under ``(2,2,1)``
+  bit-equal to the run without them.
 """
 
 import os
@@ -75,7 +76,6 @@ from bigdl_torch.optim import SGD as TSGD
 from bigdl_torch.optim import Optimizer as TOptimizer
 from bigdl_torch.optim import Trigger as TTrigger
 from bigdl_torch.parallel import LayoutSharding, MeshLayout
-from bigdl_torch.parallel.sharding import LayoutBucketsError
 from bigdl_torch.utils import file_io as tfile_io
 from bigdl_torch.utils.convert import load_reference_tree, to_reference_tree
 from bigdl_torch.utils.engine import Engine
@@ -153,7 +153,6 @@ _WORKER = textwrap.dedent('''
     from bigdl_torch.parallel import (LayoutSharding, MeshLayout,
                                       MeshReformError, TensorParallel,
                                       assign_shardings)
-    from bigdl_torch.parallel.sharding import LayoutBucketsError
     from bigdl_torch.utils import memstats
     from bigdl_torch.utils.convert import (load_reference_tree,
                                            to_reference_tree)
@@ -227,13 +226,19 @@ _WORKER = textwrap.dedent('''
                "local": m._layout_plan.local_elements(),
                "weights": leaves(to_reference_tree(m)[0]),
                "velocity": [t.numpy().copy() for t in
-                            opt.final_opt_state["velocity"]]}
+                            opt.final_opt_state["velocity"]],
+               "all_reduces": Engine.all_reduces["grads"]}
         reset()
         return out
 
     for sizes in job["mlp_layouts"]:
         res["mlp", sizes] = train_mlp(sizes)
     res["mlp_fused"] = train_mlp((1, 2, 2), fused=True)
+    # the wire's buckets under (2,2,1), whose data axis all-reduces every
+    # gradient: bit-equal to the run without them, one all-reduce a bucket
+    os.environ["BIGDL_TORCH_WIRE_BUCKET_MB"] = "0.05"
+    res["buckets"] = train_mlp((2, 2, 1))
+    os.environ.pop("BIGDL_TORCH_WIRE_BUCKET_MB")
     res["mlp_clip"] = train_mlp((1, 2, 2), clip=job["clip"], steps=2)
 
     # the small LM under (1,2,2)
@@ -292,15 +297,6 @@ _WORKER = textwrap.dedent('''
         .to_local().numpy(),
         "plan": LayoutSharding(e, min_size=0).place(e).leaves[0]
         .param.detach().numpy().copy()}
-    # the wire's buckets raise under a mesh strategy
-    os.environ["BIGDL_TORCH_WIRE_BUCKET_MB"] = "1"
-    try:
-        Optimizer(e, samples(x[:16], y[:16]), lm_crit(), batch_size=4,
-                  strategy=LayoutSharding(e)).optimize()
-        res["buckets"] = "no error"
-    except LayoutBucketsError as err:
-        res["buckets"] = str(err)
-    os.environ.pop("BIGDL_TORCH_WIRE_BUCKET_MB")
     reset()
 
     # resume the checkpoint under (2,2,1)
@@ -789,12 +785,20 @@ def test_reform_on_the_mesh_and_the_buckets(run):
         assert e[2][0] == "GroupReformError"
         assert e["no_data"][0] == "MeshReformError" and \
             "no 'data' axis" in e["no_data"][1]
-        assert "item 8" in r["buckets"]
+        # the wire's buckets train bit-equal to the run without them
+        b, plain = r["buckets"], r["mlp", (2, 2, 1)]
+        assert all(np.array_equal(u, v) for u, v in zip(b["weights"],
+                                                        plain["weights"]))
+        assert b["losses"] == plain["losses"]
+        steps = len(b["losses"])
+        assert plain["all_reduces"] < b["all_reduces"]
+        assert plain["all_reduces"] % steps == b["all_reduces"] % steps == 0
 
 
 def test_layout_in_one_process():
     """A (1,1,1) layout in one process: the mesh, a batch group of one,
-    LayoutSharding a plain step; the wire's buckets raise typed."""
+    LayoutSharding a plain step; with the wire's buckets the same
+    weights."""
     Engine.reset()
     try:
         mesh = MeshLayout(1, 1, 1).install(device="cpu")
@@ -812,11 +816,22 @@ def test_layout_in_one_process():
         os.environ["BIGDL_TORCH_WIRE_BUCKET_MB"] = "1"
         try:
             m2 = tnn.Sequential(tnn.Linear(4, 3)).build("cpu")
-            with pytest.raises(LayoutBucketsError, match="item 8"):
-                TOptimizer(m2, samples, tnn.CrossEntropyCriterion(),
-                           batch_size=4,
-                           strategy=LayoutSharding(m2)).optimize()
+            with torch.no_grad():
+                for p, q in zip(m2.parameters(), m.parameters()):
+                    p.copy_(q)
+            m3 = tnn.Sequential(tnn.Linear(4, 3)).build("cpu")
+            with torch.no_grad():
+                for p, q in zip(m3.parameters(), m.parameters()):
+                    p.copy_(q)
+            TOptimizer(m2, samples, tnn.CrossEntropyCriterion(),
+                       batch_size=4, strategy=LayoutSharding(m2)) \
+                .set_end_when(TTrigger.max_iteration(2)).optimize()
         finally:
             os.environ.pop("BIGDL_TORCH_WIRE_BUCKET_MB")
+        TOptimizer(m3, samples, tnn.CrossEntropyCriterion(), batch_size=4,
+                   strategy=LayoutSharding(m3)) \
+            .set_end_when(TTrigger.max_iteration(2)).optimize()
+        assert all(torch.equal(p, q) for p, q in zip(m2.parameters(),
+                                                     m3.parameters()))
     finally:
         Engine.reset()
